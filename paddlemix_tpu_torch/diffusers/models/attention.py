@@ -5,6 +5,11 @@ Every attention call goes through ops.scaled_dot_product_attention, whose
 shape rule sends the UNet self-attention to the flash kernel and the 77-token
 cross-attention and the VAE's 512-wide head to math. Parameter names follow
 diffusers (to_q/to_k/to_v/to_out.0, ff.net.0.proj/ff.net.2).
+
+With `quant=True` every projection of the UNet's transformers is a static
+a8w8 op (ops/quant.py), called in the JAX order: to_q, to_k, to_v, to_out;
+ff proj then net.2; proj_in ... proj_out. The VAE's AttentionBlock2D stays
+unquantized, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ from torch import nn
 
 from ...ops import scaled_dot_product_attention
 from ...ops.activations import gelu_exact
+from ...ops.quant import conv2d, linear
 from .resnet import GroupNormAct
 
 
@@ -22,14 +28,14 @@ class CrossAttention(nn.Module):
     """diffusers Attention: to_q/to_k/to_v (no bias) + to_out.0."""
 
     def __init__(self, query_dim: int, num_heads: int, head_dim: int,
-                 cross_dim: Optional[int] = None):
+                 cross_dim: Optional[int] = None, quant: bool = False):
         super().__init__()
         inner = num_heads * head_dim
         self.num_heads, self.head_dim = num_heads, head_dim
-        self.to_q = nn.Linear(query_dim, inner, bias=False)
-        self.to_k = nn.Linear(cross_dim or query_dim, inner, bias=False)
-        self.to_v = nn.Linear(cross_dim or query_dim, inner, bias=False)
-        self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
+        self.to_q = linear(quant, query_dim, inner, bias=False)
+        self.to_k = linear(quant, cross_dim or query_dim, inner, bias=False)
+        self.to_v = linear(quant, cross_dim or query_dim, inner, bias=False)
+        self.to_out = nn.ModuleList([linear(quant, inner, query_dim)])
 
     def forward(self, hidden, context=None):
         context = hidden if context is None else context
@@ -43,9 +49,9 @@ class CrossAttention(nn.Module):
 
 
 class GEGLU(nn.Module):
-    def __init__(self, dim: int, inner: int):
+    def __init__(self, dim: int, inner: int, quant: bool = False):
         super().__init__()
-        self.proj = nn.Linear(dim, inner * 2)
+        self.proj = linear(quant, dim, inner * 2)
 
     def forward(self, x):
         h, gate = self.proj(x).chunk(2, dim=-1)
@@ -55,9 +61,10 @@ class GEGLU(nn.Module):
 class GEGLUFeedForward(nn.Module):
     """ff.net.0 (GEGLU proj) -> ff.net.2 (out proj); net.1 is diffusers' dropout slot."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, quant: bool = False):
         super().__init__()
-        self.net = nn.ModuleList([GEGLU(dim, dim * 4), nn.Identity(), nn.Linear(dim * 4, dim)])
+        self.net = nn.ModuleList([GEGLU(dim, dim * 4, quant), nn.Identity(),
+                                  linear(quant, dim * 4, dim)])
 
     def forward(self, x):
         for layer in self.net:
@@ -69,14 +76,15 @@ class BasicTransformerBlock(nn.Module):
     """Self-attention, cross-attention, GEGLU feed-forward; pre-LayerNorm
     (eps 1e-6, flax's default, as the JAX package)."""
 
-    def __init__(self, dim: int, num_heads: int, head_dim: int, cross_dim: int):
+    def __init__(self, dim: int, num_heads: int, head_dim: int, cross_dim: int,
+                 quant: bool = False):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
-        self.attn1 = CrossAttention(dim, num_heads, head_dim)
+        self.attn1 = CrossAttention(dim, num_heads, head_dim, quant=quant)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
-        self.attn2 = CrossAttention(dim, num_heads, head_dim, cross_dim=cross_dim)
+        self.attn2 = CrossAttention(dim, num_heads, head_dim, cross_dim=cross_dim, quant=quant)
         self.norm3 = nn.LayerNorm(dim, eps=1e-6)
-        self.ff = GEGLUFeedForward(dim)
+        self.ff = GEGLUFeedForward(dim, quant)
 
     def forward(self, hidden, context):
         hidden = hidden + self.attn1(self.norm1(hidden))
@@ -96,19 +104,20 @@ class Transformer2DModel(nn.Module):
     blocks -> proj_out, plus the residual."""
 
     def __init__(self, in_channels: int, num_heads: int, head_dim: int, cross_dim: int,
-                 num_layers: int = 1, use_linear_projection: bool = False, groups: int = 32):
+                 num_layers: int = 1, use_linear_projection: bool = False, groups: int = 32,
+                 quant: bool = False):
         super().__init__()
         inner = num_heads * head_dim
         self.use_linear_projection = use_linear_projection
         self.norm = _GroupNorm32(in_channels, groups)
         if use_linear_projection:
-            self.proj_in = nn.Linear(in_channels, inner)
-            self.proj_out = nn.Linear(inner, in_channels)
+            self.proj_in = linear(quant, in_channels, inner)
+            self.proj_out = linear(quant, inner, in_channels)
         else:
-            self.proj_in = nn.Conv2d(in_channels, inner, 1)
-            self.proj_out = nn.Conv2d(inner, in_channels, 1)
+            self.proj_in = conv2d(quant, in_channels, inner, 1)
+            self.proj_out = conv2d(quant, inner, in_channels, 1)
         self.transformer_blocks = nn.ModuleList(
-            [BasicTransformerBlock(inner, num_heads, head_dim, cross_dim)
+            [BasicTransformerBlock(inner, num_heads, head_dim, cross_dim, quant)
              for _ in range(num_layers)])
 
     def forward(self, x, context):

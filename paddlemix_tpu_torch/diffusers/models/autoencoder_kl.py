@@ -2,6 +2,10 @@
 
 Only the decode path is ported (post_quant_conv + Decoder); the encoder
 comes with img2img. `decode` takes and returns NHWC, as the JAX package does.
+
+`quant="a8w8_static"` quantizes the decoder's resnet and up-sample convs
+(ops/quant.py); its conv_in, conv_out, post_quant_conv and attention stay
+plain, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -30,15 +34,24 @@ class AutoencoderKLConfig:
     scaling_factor: float = 0.18215
     shift_factor: Optional[float] = None
     mid_block_add_attention: bool = True
+    quant: Optional[str] = None  # "a8w8_static" or None: the decoder only
+
+    @property
+    def quantized(self) -> bool:
+        if self.quant not in (None, "a8w8_static"):
+            raise NotImplementedError(f"quant {self.quant!r}: only 'a8w8_static' is ported")
+        return self.quant == "a8w8_static"
 
 
 class UpDecoderBlock2D(nn.Module):
-    def __init__(self, in_channels, out_channels, num_layers, add_upsample, groups=32):
+    def __init__(self, in_channels, out_channels, num_layers, add_upsample, groups=32,
+                 quant=False):
         super().__init__()
         self.resnets = nn.ModuleList([
-            ResnetBlock2D(in_channels if i == 0 else out_channels, out_channels, groups=groups)
-            for i in range(num_layers)])
-        self.upsamplers = nn.ModuleList([Upsample2D(out_channels)]) if add_upsample else None
+            ResnetBlock2D(in_channels if i == 0 else out_channels, out_channels, groups=groups,
+                          quant=quant) for i in range(num_layers)])
+        self.upsamplers = nn.ModuleList([Upsample2D(out_channels, quant)]) if add_upsample \
+            else None
 
     def forward(self, x):
         for resnet in self.resnets:
@@ -49,9 +62,9 @@ class UpDecoderBlock2D(nn.Module):
 
 
 class VAEMidBlock(nn.Module):
-    def __init__(self, channels, add_attention, groups=32):
+    def __init__(self, channels, add_attention, groups=32, quant=False):
         super().__init__()
-        self.resnets = nn.ModuleList([ResnetBlock2D(channels, channels, groups=groups)
+        self.resnets = nn.ModuleList([ResnetBlock2D(channels, channels, groups=groups, quant=quant)
                                       for _ in range(2)])
         self.attentions = nn.ModuleList([AttentionBlock2D(channels, groups)]) \
             if add_attention else None
@@ -66,14 +79,15 @@ class VAEMidBlock(nn.Module):
 class Decoder(nn.Module):
     def __init__(self, cfg: AutoencoderKLConfig):
         super().__init__()
-        rev, g = list(reversed(cfg.block_out_channels)), cfg.norm_num_groups
+        rev, g, q = list(reversed(cfg.block_out_channels)), cfg.norm_num_groups, cfg.quantized
         self.conv_in = nn.Conv2d(cfg.latent_channels, rev[0], 3, padding=1)
-        self.mid_block = VAEMidBlock(rev[0], cfg.mid_block_add_attention, g)
+        self.mid_block = VAEMidBlock(rev[0], cfg.mid_block_add_attention, g, q)
         self.up_blocks = nn.ModuleList()
         prev = rev[0]
         for i, ch in enumerate(rev):
             self.up_blocks.append(UpDecoderBlock2D(prev, ch, cfg.layers_per_block + 1,
-                                                   add_upsample=i < len(rev) - 1, groups=g))
+                                                   add_upsample=i < len(rev) - 1, groups=g,
+                                                   quant=q))
             prev = ch
         self.conv_norm_out = GroupNormAct(rev[-1], g, eps=1e-6, act="silu")
         self.conv_out = nn.Conv2d(rev[-1], cfg.out_channels, 3, padding=1)

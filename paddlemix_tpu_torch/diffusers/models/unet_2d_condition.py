@@ -5,6 +5,10 @@ The public forward takes and returns NHWC latents, as the JAX package does;
 inside, feature maps are NCHW in channels_last memory. Parameter names are
 diffusers'. The ControlNet, T2I-Adapter, GLIGEN, IP-Adapter and reference
 hooks of the JAX module are not ported.
+
+`quant="a8w8_static"` makes every resnet, transformer and up/down-sample conv
+or projection a static a8w8 op (ops/quant.py); conv_in, conv_out, the time
+and add embeddings and time_emb_proj stay plain, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -42,6 +46,13 @@ class UNet2DConditionConfig:
     addition_embed_type: Optional[str] = None  # "text_time" (SDXL)
     addition_time_embed_dim: Optional[int] = None
     projection_class_embeddings_input_dim: Optional[int] = None
+    quant: Optional[str] = None  # "a8w8_static" or None
+
+    @property
+    def quantized(self) -> bool:
+        if self.quant not in (None, "a8w8_static"):
+            raise NotImplementedError(f"quant {self.quant!r}: only 'a8w8_static' is ported")
+        return self.quant == "a8w8_static"
 
     def _per_block(self, v):
         return tuple(v) if isinstance(v, (list, tuple)) else (v,) * len(self.block_out_channels)
@@ -60,17 +71,18 @@ class UNet2DConditionConfig:
 
 class CrossAttnDownBlock2D(nn.Module):
     def __init__(self, in_channels, out_channels, temb_channels, num_layers, num_heads,
-                 tf_layers, cross_dim, use_linear_projection, add_downsample=True, groups=32):
+                 tf_layers, cross_dim, use_linear_projection, add_downsample=True, groups=32,
+                 quant=False):
         super().__init__()
         head_dim = out_channels // num_heads
         self.resnets = nn.ModuleList([
             ResnetBlock2D(in_channels if i == 0 else out_channels, out_channels, temb_channels,
-                          groups) for i in range(num_layers)])
+                          groups, quant) for i in range(num_layers)])
         self.attentions = nn.ModuleList([
             Transformer2DModel(out_channels, num_heads, head_dim, cross_dim, tf_layers,
-                               use_linear_projection, groups) for _ in range(num_layers)])
-        self.downsamplers = nn.ModuleList([Downsample2D(out_channels)]) if add_downsample \
-            else None
+                               use_linear_projection, groups, quant) for _ in range(num_layers)])
+        self.downsamplers = nn.ModuleList([Downsample2D(out_channels, quant)]) \
+            if add_downsample else None
 
     def forward(self, x, temb, context):
         outputs = []
@@ -85,13 +97,13 @@ class CrossAttnDownBlock2D(nn.Module):
 
 class DownBlock2D(nn.Module):
     def __init__(self, in_channels, out_channels, temb_channels, num_layers,
-                 add_downsample=True, groups=32):
+                 add_downsample=True, groups=32, quant=False):
         super().__init__()
         self.resnets = nn.ModuleList([
             ResnetBlock2D(in_channels if i == 0 else out_channels, out_channels, temb_channels,
-                          groups) for i in range(num_layers)])
-        self.downsamplers = nn.ModuleList([Downsample2D(out_channels)]) if add_downsample \
-            else None
+                          groups, quant) for i in range(num_layers)])
+        self.downsamplers = nn.ModuleList([Downsample2D(out_channels, quant)]) \
+            if add_downsample else None
 
     def forward(self, x, temb, context=None):
         outputs = []
@@ -106,13 +118,13 @@ class DownBlock2D(nn.Module):
 
 class UNetMidBlock2DCrossAttn(nn.Module):
     def __init__(self, channels, temb_channels, num_heads, tf_layers, cross_dim,
-                 use_linear_projection, groups=32):
+                 use_linear_projection, groups=32, quant=False):
         super().__init__()
-        self.resnets = nn.ModuleList([ResnetBlock2D(channels, channels, temb_channels, groups)
-                                      for _ in range(2)])
+        self.resnets = nn.ModuleList([
+            ResnetBlock2D(channels, channels, temb_channels, groups, quant) for _ in range(2)])
         self.attentions = nn.ModuleList([
             Transformer2DModel(channels, num_heads, channels // num_heads, cross_dim, tf_layers,
-                               use_linear_projection, groups)])
+                               use_linear_projection, groups, quant)])
 
     def forward(self, x, temb, context):
         x = self.resnets[0](x, temb)
@@ -124,15 +136,16 @@ class CrossAttnUpBlock2D(nn.Module):
     """`resnet_in_channels[i]` is the width after concatenating skip i."""
 
     def __init__(self, resnet_in_channels, out_channels, temb_channels, num_heads, tf_layers,
-                 cross_dim, use_linear_projection, add_upsample=True, groups=32):
+                 cross_dim, use_linear_projection, add_upsample=True, groups=32, quant=False):
         super().__init__()
         head_dim = out_channels // num_heads
-        self.resnets = nn.ModuleList([ResnetBlock2D(c, out_channels, temb_channels, groups)
+        self.resnets = nn.ModuleList([ResnetBlock2D(c, out_channels, temb_channels, groups, quant)
                                       for c in resnet_in_channels])
         self.attentions = nn.ModuleList([
             Transformer2DModel(out_channels, num_heads, head_dim, cross_dim, tf_layers,
-                               use_linear_projection, groups) for _ in resnet_in_channels])
-        self.upsamplers = nn.ModuleList([Upsample2D(out_channels)]) if add_upsample else None
+                               use_linear_projection, groups, quant) for _ in resnet_in_channels])
+        self.upsamplers = nn.ModuleList([Upsample2D(out_channels, quant)]) if add_upsample \
+            else None
 
     def forward(self, x, skips: List[torch.Tensor], temb, context):
         for resnet, attn, skip in zip(self.resnets, self.attentions, skips):
@@ -144,11 +157,12 @@ class CrossAttnUpBlock2D(nn.Module):
 
 class UpBlock2D(nn.Module):
     def __init__(self, resnet_in_channels, out_channels, temb_channels, add_upsample=True,
-                 groups=32):
+                 groups=32, quant=False):
         super().__init__()
-        self.resnets = nn.ModuleList([ResnetBlock2D(c, out_channels, temb_channels, groups)
+        self.resnets = nn.ModuleList([ResnetBlock2D(c, out_channels, temb_channels, groups, quant)
                                       for c in resnet_in_channels])
-        self.upsamplers = nn.ModuleList([Upsample2D(out_channels)]) if add_upsample else None
+        self.upsamplers = nn.ModuleList([Upsample2D(out_channels, quant)]) if add_upsample \
+            else None
 
     def forward(self, x, skips: List[torch.Tensor], temb, context=None):
         for resnet, skip in zip(self.resnets, skips):
@@ -166,7 +180,7 @@ class UNet2DConditionModel(nn.Module):
             raise NotImplementedError("per-block cross_attention_dim is not ported")
         chans, groups = tuple(cfg.block_out_channels), cfg.norm_num_groups
         heads, tf_layers = cfg.heads_per_block, cfg.tf_layers_per_block
-        ctx, linear = cfg.cross_attention_dim, cfg.use_linear_projection
+        ctx, linear, q = cfg.cross_attention_dim, cfg.use_linear_projection, cfg.quantized
         temb = chans[0] * 4
         self.conv_in = nn.Conv2d(cfg.in_channels, chans[0], 3, padding=1)
         self.time_proj = Timesteps(chans[0], cfg.flip_sin_to_cos, cfg.freq_shift)
@@ -187,9 +201,9 @@ class UNet2DConditionModel(nn.Module):
             last = i == len(cfg.down_block_types) - 1
             if kind == "CrossAttnDownBlock2D":
                 blk = CrossAttnDownBlock2D(prev, chans[i], temb, cfg.layers_per_block, heads[i],
-                                           tf_layers[i], ctx, linear, not last, groups)
+                                           tf_layers[i], ctx, linear, not last, groups, q)
             elif kind == "DownBlock2D":
-                blk = DownBlock2D(prev, chans[i], temb, cfg.layers_per_block, not last, groups)
+                blk = DownBlock2D(prev, chans[i], temb, cfg.layers_per_block, not last, groups, q)
             else:
                 raise NotImplementedError(f"down block {kind!r}")
             self.down_blocks.append(blk)
@@ -197,7 +211,7 @@ class UNet2DConditionModel(nn.Module):
             prev = chans[i]
 
         self.mid_block = UNetMidBlock2DCrossAttn(chans[-1], temb, heads[-1], tf_layers[-1], ctx,
-                                                 linear, groups)
+                                                 linear, groups, q)
 
         self.up_blocks = nn.ModuleList()
         n = len(chans)
@@ -210,9 +224,9 @@ class UNet2DConditionModel(nn.Module):
                 prev = chans[j]
             if kind == "CrossAttnUpBlock2D":
                 blk = CrossAttnUpBlock2D(in_chans, chans[j], temb, heads[j], tf_layers[j], ctx,
-                                         linear, not last, groups)
+                                         linear, not last, groups, q)
             elif kind == "UpBlock2D":
-                blk = UpBlock2D(in_chans, chans[j], temb, not last, groups)
+                blk = UpBlock2D(in_chans, chans[j], temb, not last, groups, q)
             else:
                 raise NotImplementedError(f"up block {kind!r}")
             self.up_blocks.append(blk)

@@ -61,15 +61,13 @@ class StableDiffusionXLPipeline(DiffusionPipeline):
             latents = latents + cfg.shift_factor
         return self.vae.decode(latents).float()
 
-    @torch.inference_mode()
-    def __call__(self, prompt=None, height: int = 1024, width: int = 1024,
-                 num_inference_steps: int = 50, guidance_scale: float = 5.0,
-                 negative_prompt=None, seed: int = 0, latents=None, output_type: str = "pil",
-                 original_size: Optional[Tuple[int, int]] = None,
-                 target_size: Optional[Tuple[int, int]] = None,
-                 crops_coords_top_left: Tuple[int, int] = (0, 0), return_dict: bool = False):
-        """latents: optional (B, H/8, W/8, C) NHWC noise, numpy or tensor; when
-        None it is drawn from a torch.Generator seeded with `seed`."""
+    def prepare_inputs(self, prompt, height: int, width: int, guidance_scale: float,
+                       negative_prompt=None, seed: int = 0, latents=None,
+                       original_size: Optional[Tuple[int, int]] = None,
+                       target_size: Optional[Tuple[int, int]] = None,
+                       crops_coords_top_left: Tuple[int, int] = (0, 0)):
+        """Text conditioning (CFG-doubled when guidance_scale > 1) and the
+        initial fp32 noise, before the scheduler's init_noise_sigma."""
         device = self.device
         do_cfg = guidance_scale > 1.0
         cond, uncond, pooled, neg_pooled = self.encode_prompt(prompt, negative_prompt)
@@ -95,16 +93,32 @@ class StableDiffusionXLPipeline(DiffusionPipeline):
         elif isinstance(latents, np.ndarray):
             latents = torch.from_numpy(latents)
         latents = latents.to(device=device, dtype=torch.float32)
-        state = make_scheduler_state(self.scheduler, num_inference_steps, sample_shape=shape)
+        dtype = self.unet.dtype
+        added = {"text_embeds": add_text_embeds.to(dtype), "time_ids": add_time_ids}
+        return context.to(dtype), added, latents
+
+    @torch.inference_mode()
+    def __call__(self, prompt=None, height: int = 1024, width: int = 1024,
+                 num_inference_steps: int = 50, guidance_scale: float = 5.0,
+                 negative_prompt=None, seed: int = 0, latents=None, output_type: str = "pil",
+                 original_size: Optional[Tuple[int, int]] = None,
+                 target_size: Optional[Tuple[int, int]] = None,
+                 crops_coords_top_left: Tuple[int, int] = (0, 0), return_dict: bool = False):
+        """latents: optional (B, H/8, W/8, C) NHWC noise, numpy or tensor; when
+        None it is drawn from a torch.Generator seeded with `seed`."""
+        do_cfg = guidance_scale > 1.0
+        context, added, latents = self.prepare_inputs(
+            prompt, height, width, guidance_scale, negative_prompt, seed, latents,
+            original_size, target_size, crops_coords_top_left)
+        state = make_scheduler_state(self.scheduler, num_inference_steps,
+                                     sample_shape=tuple(latents.shape))
         latents = latents * self.scheduler.init_noise_sigma
 
         unet, dtype = self.unet, self.unet.dtype
-        context = context.to(dtype)
-        added = {"text_embeds": add_text_embeds.to(dtype), "time_ids": add_time_ids}
         for i in range(num_inference_steps):
             lat_in = torch.cat([latents, latents]) if do_cfg else latents
             lat_in = self.scheduler.scale_model_input(state, lat_in, i)
-            t_in = state.timesteps[i].to(device).expand(lat_in.shape[0])
+            t_in = state.timesteps[i].to(latents.device).expand(lat_in.shape[0])
             noise_pred = unet(lat_in.to(dtype), t_in, context, added_cond_kwargs=added).float()
             if do_cfg:
                 un, co = noise_pred.chunk(2)

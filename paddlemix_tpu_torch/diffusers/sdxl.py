@@ -5,11 +5,17 @@ configs (unet, vae, text_encoder = CLIP ViT-L/14 text, text_encoder_2 =
 OpenCLIP ViT-bigG/14 text with projection); `SDXL_UNET` is the JAX package's
 `__graft_entry__.SDXL_UNET`. No checkpoint is read: weights come from a
 torch.Generator (core.init), made on the target device.
+
+The static-a8w8 configuration (`quant="a8w8_static"`, the JAX bench's default
+recipe) builds the UNet and the VAE decoder with static a8w8 ops; until
+`calibrate_static_a8w8` has loaded their scales the same pipeline serves
+bf16.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from collections import Counter
+from typing import Dict, List, Optional
 
 import torch
 
@@ -23,6 +29,13 @@ from ..models.clip import (
 from ..models.clip.modeling import CLIPTextTransformer
 from ..models.clip.tokenizer import bytes_to_unicode
 from ..ops.attention import use_flash
+from ..ops.quant import (
+    QuantConv2d,
+    QuantLinear,
+    load_static_scales,
+    quant_modules,
+    static_a8w8_scope,
+)
 from .models import (
     AutoencoderKL,
     AutoencoderKLConfig,
@@ -30,8 +43,9 @@ from .models import (
     UNet2DConditionModel,
 )
 from .models.attention import AttentionBlock2D
-from .models.resnet import GroupNormAct
+from .models.resnet import GroupNormAct, ResnetBlock2D
 from .pipelines import StableDiffusionXLPipeline
+from .pipelines.pipeline_utils import make_scheduler_state
 from .schedulers import EulerDiscreteScheduler
 
 SDXL_UNET = dict(
@@ -77,9 +91,11 @@ def random_sdxl_pipeline(device, dtype=torch.bfloat16, seed: int = 0,
                          unet: Dict = SDXL_UNET, vae: Dict = SDXL_VAE,
                          text_encoder: Dict = SDXL_TEXT_ENCODER,
                          text_encoder_2: Dict = SDXL_TEXT_ENCODER_2,
-                         tokenizer: Optional[CLIPTokenizer] = None) -> StableDiffusionXLPipeline:
+                         tokenizer: Optional[CLIPTokenizer] = None,
+                         quant: Optional[str] = None) -> StableDiffusionXLPipeline:
     """An SDXL pipeline with weights drawn on `device` from one seeded generator.
-    Feature-map weights are put in channels_last memory."""
+    Feature-map weights are put in channels_last memory. `quant="a8w8_static"`
+    builds the UNet and the VAE decoder with static a8w8 ops."""
     tok = tokenizer or byte_level_tokenizer()
     gen = torch.Generator(device=device).manual_seed(seed)
     kw = dict(device=device, dtype=dtype, generator=gen)
@@ -88,14 +104,58 @@ def random_sdxl_pipeline(device, dtype=torch.bfloat16, seed: int = 0,
     te2_cfg = CLIPTextConfig(**text_encoder_2, eos_token_id=tok.eos_token_id,
                              max_position_embeddings=tok.model_max_length)
     return StableDiffusionXLPipeline(
-        vae=build_random(lambda: AutoencoderKL(AutoencoderKLConfig(**vae)), **kw)
+        vae=build_random(lambda: AutoencoderKL(AutoencoderKLConfig(**vae, quant=quant)), **kw)
         .to(memory_format=torch.channels_last),
         text_encoder=build_random(lambda: CLIPTextModel(te1_cfg), **kw),
         text_encoder_2=build_random(lambda: CLIPTextModelWithProjection(te2_cfg), **kw),
         tokenizer=tok, tokenizer_2=tok,
-        unet=build_random(lambda: UNet2DConditionModel(UNet2DConditionConfig(**unet)), **kw)
+        unet=build_random(lambda: UNet2DConditionModel(UNet2DConditionConfig(**unet, quant=quant)),
+                          **kw)
         .to(memory_format=torch.channels_last),
         scheduler=EulerDiscreteScheduler(**SDXL_SCHEDULER))
+
+
+@torch.inference_mode()
+def record_static_a8w8(pipe: StableDiffusionXLPipeline, prompt, height: int = 1024,
+                       width: int = 1024, num_inference_steps: int = 25,
+                       guidance_scale: float = 5.0, negative_prompt=None, seed: int = 0,
+                       latents=None) -> static_a8w8_scope:
+    """The calibration pass of a quantized pipeline (port of the JAX bench's
+    calibration, bench.py): one UNet forward at timesteps[0] on the
+    CFG-doubled initial noise (before init_noise_sigma), conditioned on the
+    encoded `prompt`, then one VAE decode of the initial noise /
+    scaling_factor, inside a record scope. Returns the scope: its `modules`
+    and raw absmax values, UNet ops first and VAE ops after them, in the JAX
+    package's call order, ready for `load_static_scales` (with these values
+    or, e.g., a list the JAX package recorded). The forwards run the plain
+    path whether or not scales are loaded already (see ops/quant.py)."""
+    context, added, latents = pipe.prepare_inputs(prompt, height, width, guidance_scale,
+                                                  negative_prompt, seed, latents)
+    state = make_scheduler_state(pipe.scheduler, num_inference_steps,
+                                 sample_shape=tuple(latents.shape))
+    lat_in = torch.cat([latents, latents]) if guidance_scale > 1.0 else latents
+    t_in = state.timesteps[0].to(latents.device).expand(lat_in.shape[0])
+    with static_a8w8_scope() as rec:
+        pipe.unet(lat_in.to(pipe.unet.dtype), t_in, context, added_cond_kwargs=added)
+        n_unet = len(rec.modules)
+        pipe.vae.decode(latents / pipe.vae.config.scaling_factor)
+    if not rec.modules:
+        raise ValueError("record_static_a8w8: the pipeline has no quantized ops "
+                         "(build it with quant='a8w8_static')")
+    if n_unet != len(quant_modules(pipe.unet)) or \
+            len(rec.modules) - n_unet != len(quant_modules(pipe.vae)):
+        raise RuntimeError("record_static_a8w8: the forward did not call every quantized op "
+                           "exactly once")
+    return rec
+
+
+def calibrate_static_a8w8(pipe: StableDiffusionXLPipeline, *args, **kwargs) -> List[float]:
+    """`record_static_a8w8` (same arguments), then load the recorded scales.
+    Returns the raw absmax list in call order."""
+    rec = record_static_a8w8(pipe, *args, **kwargs)
+    raw = rec.raw()
+    load_static_scales(rec.modules, raw)
+    return raw
 
 
 def _transformer_levels(unet: UNet2DConditionModel):
@@ -115,7 +175,10 @@ def expected_launches(pipe: StableDiffusionXLPipeline, height: int, width: int,
                       num_inference_steps: int, guidance_scale: float = 5.0) -> Dict[str, int]:
     """Kernel launches one single-prompt pipeline call should make, from
     walking the blocks: every attention call is routed by `use_flash` at the
-    shape it will see, and every GroupNorm module runs once per forward."""
+    shape it will see, and every GroupNorm module runs once per forward.
+    Once scales are loaded, the a8w8 ops are counted by `a8w8_routes`, keyed
+    by wrapper name, and the resnets' GroupNorms become statistics launches
+    (`group_norm_stats`)."""
     f = pipe.vae_scale_factor
     batch = 1
     rows = 2 * batch if guidance_scale > 1.0 else batch
@@ -145,5 +208,31 @@ def expected_launches(pipe: StableDiffusionXLPipeline, height: int, width: int,
     def n_group_norms(module):  # _GroupNorm32 is a GroupNormAct
         return sum(isinstance(m, GroupNormAct) for m in module.modules())
 
-    gn = n_group_norms(pipe.unet) * num_inference_steps + n_group_norms(pipe.vae.decoder)
-    return {"flash_attention": flash, "group_norm": gn}
+    if not any(m.sx is not None for m in quant_modules(pipe.unet) + quant_modules(pipe.vae)):
+        gn = n_group_norms(pipe.unet) * num_inference_steps + n_group_norms(pipe.vae.decoder)
+        return {"flash_attention": flash, "group_norm": gn}
+    out = Counter({"flash_attention": flash})
+    for model, calls in ((pipe.unet, num_inference_steps), (pipe.vae.decoder, 1)):
+        routes = a8w8_routes(model)
+        routes["group_norm"] = n_group_norms(model) - routes["group_norm_stats"]
+        for name, n in routes.items():
+            out[name] += n * calls
+    return dict(out)
+
+
+def a8w8_routes(model) -> Counter:
+    """Launches of each a8w8 op (by wrapper name) in one forward of a model
+    with its scales loaded: every resnet's two 3x3 convs are one fused
+    GroupNorm+SiLU+int8-conv call each (whose affine is one GroupNorm
+    statistics launch), every Linear and 1x1 conv the int8 GEMM, every other
+    conv as `conv_route` says."""
+    routes, fused = Counter(), set()
+    for m in model.modules():
+        if isinstance(m, ResnetBlock2D) and isinstance(m.conv1, QuantConv2d):
+            fused |= {m.conv1, m.conv2}
+            routes["fused_gn_silu_conv3x3"] += 2
+            routes["group_norm_stats"] += 2
+    for m in quant_modules(model):
+        if m not in fused:
+            routes["int8_a8w8_matmul" if isinstance(m, QuantLinear) else m.route] += 1
+    return routes

@@ -3,8 +3,10 @@
 Each source has a plain C interface (pointers, ints, the stream) and is bound
 with ctypes, so a build takes seconds instead of the minutes a source that
 includes PyTorch's headers would. Libraries land in `<repo>/build/kernels/`
-(listed in .gitignore), named by a hash of the source and the flags, and are
-built at first use: importing this module compiles nothing.
+(listed in .gitignore), named by a hash of the source, the shared headers
+(`csrc/*.cuh`) and the flags, and are built at first use: importing this
+module compiles nothing. `build_all` builds several sources in parallel, one
+nvcc process each.
 """
 
 from __future__ import annotations
@@ -46,7 +48,9 @@ def load_library(name: str) -> ctypes.CDLL:
 
     Raises RuntimeError with nvcc's stderr when nvcc is missing or fails."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha1(src.read_bytes() + headers
+                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     seconds, ptxas = 0.0, "(already built)"
     if not out.exists():
@@ -63,3 +67,11 @@ def load_library(name: str) -> ctypes.CDLL:
         ptxas = proc.stderr
     build_log[name] = {"seconds": seconds, "ptxas": ptxas, "path": str(out)}
     return ctypes.CDLL(str(out))
+
+
+def build_all(names) -> Dict[str, ctypes.CDLL]:
+    """Build and load several sources at once, one nvcc process each."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(load_library, names)))

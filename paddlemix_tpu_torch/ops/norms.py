@@ -2,7 +2,9 @@
 half of paddlemix_tpu/ops/norms.py.
 
 `group_norm` launches the Triton kernel below for CUDA tensors and runs its
-plain version `group_norm_ref` for CPU tensors.
+plain version `group_norm_ref` for CPU tensors. `group_norm_stats` runs the
+kernel's first two passes alone: the per-(batch, group) mean and rstd that
+the fused GroupNorm+SiLU+int8-conv path turns into its affine.
 
 The kernel replaces the Pallas kernel `_group_norm_pallas_impl` / `_gn_kernel`
 (paddlemix_tpu/ops/norms.py). GroupNorm is memory-bound: it does a few flops
@@ -35,11 +37,10 @@ _BLOCK_C = 64        # channels per tile
 _TARGET_PROGRAMS = 1024  # ~8 programs per SM on a 132-SM card
 
 
-def group_norm_ref(x, weight, bias, groups: int, eps: float = 1e-5, act: str = "none"):
-    """Plain version (port of `group_norm_silu_xla`): per-channel fp32 moments,
-    aggregated per group, variance E[x^2] - E[x]^2 clamped at 0."""
-    c = x.shape[-1]
-    cpg = c // groups
+def _group_moments(x, groups: int, eps: float):
+    """Per-(batch, group) fp32 mean and rsqrt(var + eps) of (B, ..., C), from
+    per-channel moments, variance E[x^2] - E[x]^2 clamped at 0."""
+    cpg = x.shape[-1] // groups
     red = tuple(range(1, x.ndim - 1))
     n = float(math.prod(x.shape[1:-1]) * cpg)
     xf = x.float()
@@ -49,13 +50,21 @@ def group_norm_ref(x, weight, bias, groups: int, eps: float = 1e-5, act: str = "
     gs2 = s2.reshape(-1, groups, cpg).sum(-1)
     mean = gs / n
     var = torch.clamp(gs2 / n - mean * mean, min=0.0)
-    inv = torch.rsqrt(var + eps)
+    return mean, torch.rsqrt(var + eps)
+
+
+def group_norm_ref(x, weight, bias, groups: int, eps: float = 1e-5, act: str = "none"):
+    """Plain version (port of `group_norm_silu_xla`): per-channel fp32 moments,
+    aggregated per group, variance E[x^2] - E[x]^2 clamped at 0."""
+    c = x.shape[-1]
+    cpg = c // groups
+    mean, inv = _group_moments(x, groups, eps)
     mean_c = mean.repeat_interleave(cpg, dim=-1)  # (B, C)
     inv_c = inv.repeat_interleave(cpg, dim=-1)
     scale = inv_c * weight.float()
     shift = bias.float() - mean_c * scale
     bshape = (x.shape[0],) + (1,) * (x.ndim - 2) + (c,)
-    y = xf * scale.reshape(bshape) + shift.reshape(bshape)
+    y = x.float() * scale.reshape(bshape) + shift.reshape(bshape)
     if act == "silu":
         y = y * torch.sigmoid(y)
     return y.to(x.dtype)
@@ -144,7 +153,7 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _group_norm_triton(x, weight, bias, groups, eps, act):
+def _check_input(x, weight, bias):
     if x.dtype not in (torch.bfloat16, torch.float16, torch.float32):
         raise TypeError(f"group_norm kernel takes bf16/fp16/fp32, got {x.dtype}")
     if not x.is_contiguous():
@@ -152,33 +161,60 @@ def _group_norm_triton(x, weight, bias, groups, eps, act):
                          f"shape {tuple(x.shape)} strides {x.stride()}")
     c = x.shape[-1]
     for name, p in (("weight", weight), ("bias", bias)):
-        if p.device != x.device or p.shape != (c,) or not p.is_contiguous():
+        if p is not None and (p.device != x.device or p.shape != (c,) or not p.is_contiguous()):
             raise ValueError(f"group_norm: {name} must be a contiguous ({c},) tensor on "
                              f"{x.device}, got {tuple(p.shape)} on {p.device}")
-    bsz = x.shape[0]
+
+
+def _tiling(x):
+    bsz, c = x.shape[0], x.shape[-1]
     n_rows = math.prod(x.shape[1:-1])
-    cpg = c // groups
     n_ctiles = _cdiv(c, _BLOCK_C)
     rows_per_prog = _cdiv(_cdiv(bsz * n_rows * n_ctiles, _TARGET_PROGRAMS), _BLOCK_R) * _BLOCK_R
-    n_rtiles = _cdiv(n_rows, rows_per_prog)
-    partial_sums, group_stats, apply = _kernels()
+    return n_rows, n_ctiles, rows_per_prog, _cdiv(n_rows, rows_per_prog)
+
+
+def _stats_triton(x, groups, eps):
+    """Passes 1 and 2: per-(batch, group) fp32 mean and rstd."""
+    bsz, c = x.shape[0], x.shape[-1]
+    n_rows, n_ctiles, rows_per_prog, n_rtiles = _tiling(x)
+    cpg = c // groups
+    partial_sums, group_stats, _ = _kernels()
     f32 = dict(dtype=torch.float32, device=x.device)
     psum = torch.empty((bsz, n_rtiles, c), **f32)
     psq = torch.empty((bsz, n_rtiles, c), **f32)
     mean = torch.empty((bsz, groups), **f32)
     rstd = torch.empty((bsz, groups), **f32)
-    y = torch.empty_like(x)
-    grid = (bsz, n_rtiles, n_ctiles)
     with torch.cuda.device(x.device):
-        partial_sums[grid](x, psum, psq, n_rows, c, rows_per_prog, n_rtiles,
-                           BLOCK_R=_BLOCK_R, BLOCK_C=_BLOCK_C, num_warps=4)
+        partial_sums[(bsz, n_rtiles, n_ctiles)](x, psum, psq, n_rows, c, rows_per_prog,
+                                                 n_rtiles, BLOCK_R=_BLOCK_R, BLOCK_C=_BLOCK_C,
+                                                 num_warps=4)
         group_stats[(bsz, groups)](psum, psq, mean, rstd, n_rtiles, c, cpg, groups,
                                    float(n_rows * cpg), float(eps), BLOCK_T=32,
                                    BLOCK_G=max(16, 1 << (cpg - 1).bit_length()), num_warps=4)
-        apply[grid](x, y, weight, bias, mean, rstd, n_rows, c, cpg, groups, rows_per_prog,
-                    SILU=act == "silu", BLOCK_R=_BLOCK_R, BLOCK_C=_BLOCK_C, num_warps=4)
+    return mean, rstd
+
+
+def _group_norm_triton(x, weight, bias, groups, eps, act):
+    _check_input(x, weight, bias)
+    bsz, c = x.shape[0], x.shape[-1]
+    n_rows, n_ctiles, rows_per_prog, n_rtiles = _tiling(x)
+    mean, rstd = _stats_triton(x, groups, eps)
+    y = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        _kernels()[2][(bsz, n_rtiles, n_ctiles)](
+            x, y, weight, bias, mean, rstd, n_rows, c, c // groups, groups, rows_per_prog,
+            SILU=act == "silu", BLOCK_R=_BLOCK_R, BLOCK_C=_BLOCK_C, num_warps=4)
     group_norm.launches += 1
     return y
+
+
+def _check_groups(x, groups):
+    if x.ndim < 2 or x.shape[-1] % groups:
+        raise ValueError(f"group_norm: channels {tuple(x.shape)[-1:]} not divisible by "
+                         f"groups {groups} (shape {tuple(x.shape)})")
+    if not x.is_cuda and x.device.type != "cpu":
+        raise ValueError(f"group_norm: unsupported device {x.device}")
 
 
 def group_norm(x, weight, bias, groups: int, eps: float = 1e-5, act: str = "none"):
@@ -187,14 +223,27 @@ def group_norm(x, weight, bias, groups: int, eps: float = 1e-5, act: str = "none
     CUDA tensors launch the Triton kernel; CPU tensors run `group_norm_ref`."""
     if act not in ("none", "silu"):
         raise ValueError(f"group_norm act must be 'none' or 'silu', got {act!r}")
-    if x.ndim < 2 or x.shape[-1] % groups:
-        raise ValueError(f"group_norm: channels {tuple(x.shape)[-1:]} not divisible by "
-                         f"groups {groups} (shape {tuple(x.shape)})")
+    _check_groups(x, groups)
     if x.is_cuda:
         return _group_norm_triton(x, weight, bias, groups, eps, act)
-    if x.device.type != "cpu":
-        raise ValueError(f"group_norm: unsupported device {x.device}")
     return group_norm_ref(x, weight, bias, groups, eps, act)
 
 
 group_norm.launches = 0  # kernel launches (CUDA tensors only)
+
+
+def group_norm_stats(x, groups: int, eps: float = 1e-5):
+    """Per-(batch, group) fp32 (mean, rsqrt(var + eps)) of (B, ..., C), each
+    (B, groups): the kernel's statistics passes alone, which the fused
+    GroupNorm+SiLU+int8-conv path (ops/fused_resnet.py) turns into its affine.
+    CUDA tensors launch passes 1 and 2; CPU tensors run the plain moments."""
+    _check_groups(x, groups)
+    if x.is_cuda:
+        _check_input(x, None, None)
+        out = _stats_triton(x, groups, eps)
+        group_norm_stats.launches += 1
+        return out
+    return _group_moments(x, groups, eps)
+
+
+group_norm_stats.launches = 0  # statistics-pass launches (CUDA tensors only)
