@@ -1,29 +1,54 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (paddlemix_tpu_torch) on one CUDA card.
 
-Drives SDXL-1024 text-to-image through StableDiffusionXLPipeline.__call__
-at the published SDXL widths, in bf16 and then in the static a8w8
-configuration, with weights drawn on the card from a seeded
-torch.Generator. One pipeline built with quant="a8w8_static" serves both:
-until its scales are loaded it is the bf16 path. Phases:
+Drives two slices at their published widths with weights drawn on the card
+from a seeded torch.Generator:
 
-  1. device       card name and power limit, TF32 switches set and printed
-  2. build        nvcc builds paddlemix_tpu_torch/csrc/*.cu into
-                  build/kernels/, one process per source, in parallel
-  3. kernels      each kernel against its plain PyTorch version at the main
-                  path's shapes, with kernel and plain times from CUDA events
-  4. agree        one full-width bf16 UNet forward at a small latent, kernels
-                  vs plain
-  5. serve        3 bf16 requests, 1024x1024, 25 Euler steps, guidance 5.0;
-                  each must launch the kernels as often as walking the blocks
-                  predicts
-  6. calibrate    record and load the 771 UNet + 33 VAE static a8w8 scales
-  7. a8w8 agree   the full-width a8w8 UNet at a small latent like the
-                  calibration's, int8 kernels vs plain, and for each int8
-                  kernel a control run whose plain version skips its
-                  activation quantize, which must fail the same limit (and,
-                  ungated, all kernels vs plain and a8w8 vs bf16)
-  8. a8w8 serve   the same 3 requests in a8w8, with the same checks
+  - SDXL-1024 text-to-image through StableDiffusionXLPipeline.__call__, in
+    bf16 and then in the static a8w8 configuration (one pipeline built with
+    quant="a8w8_static" serves both: until its scales are loaded it is the
+    bf16 path);
+  - LLaVA-1.5-7B generation through LlavaForConditionalGeneration.generate
+    (CLIP ViT-L/14-336, mlp2x_gelu projector, Llama-7B, all 32 layers) at the
+    JAX bench's shapes, in bf16 and then weight-only int8 (wint8).
+
+Phases:
+
+  1. device        card name and power limit, TF32 switches set and printed
+  2. build         nvcc builds paddlemix_tpu_torch/csrc/*.cu into
+                   build/kernels/, one process per source, in parallel
+  3. kernels       each SDXL kernel against its plain PyTorch version at the
+                   main path's shapes: kernel, plain and library-call times
+                   from CUDA events, and the bound
+  4. agree         one full-width bf16 UNet forward at a small latent, kernels
+                   vs plain
+  5. serve         3 bf16 requests, 1024x1024, 25 Euler steps, guidance 5.0;
+                   each must launch the kernels as often as walking the blocks
+                   predicts
+  6. calibrate     record and load the 771 UNet + 33 VAE static a8w8 scales
+  7. a8w8 agree    the full-width a8w8 UNet at a small latent like the
+                   calibration's, int8 kernels vs plain, and for each int8
+                   kernel a control run whose plain version skips its
+                   activation quantize, which must fail the same limit (and,
+                   ungated, all kernels vs plain and a8w8 vs bf16)
+  8. a8w8 serve    the same 3 requests in a8w8, with the same checks
+  9. llava kernels the SDXL pipeline is freed; each LLaVA kernel (wint8 GEMM,
+                   decode attention, RMSNorm) against its plain version at
+                   the decode and prefill shapes, with times and bounds;
+                   weights, caches and the RMSNorm input rotate through
+                   copies that together pass three times the L2 cache, as
+                   the model's layers find them cold (up to 64 copies: the
+                   1-row RMSNorm's 8 KiB stays warm); decode attention is
+                   also run with every length one short, which must fail
+                   its limit
+ 10. llava agree   LLaVA-7B bf16: prefill (608 tokens) + 4 decode steps, the
+                   kernels vs their plain versions swapped in
+ 11. llava serve   3 requests as the JAX bench makes them (576 image
+                   placeholders + 32 text ids, seeded pixels, 128 new
+                   tokens, eos -1): TTFT, decode tokens/s, peak memory, and
+                   launches equal to `expected_launches_llava`
+ 12. wint8         quantize in place (seconds, bytes freed), then agree and
+                   serve again with the wint8 GEMM as well
 
 Any failed check exits non-zero. Without a CUDA card, or outside a checkout
 of the repository, it exits non-zero before printing any result. The line
@@ -34,6 +59,8 @@ before that a JSON summary of the kernels, and the last line is
 Usage: python3 chip_smoke.py
 """
 
+import gc
+import itertools
 import json
 import os
 import subprocess
@@ -41,6 +68,7 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()
 HEIGHT = WIDTH = 1024
 STEPS = 25
 GUIDANCE = 5.0
@@ -69,6 +97,34 @@ INT8_ULPS = 1.0
 AGREE_TOL = 5e-2  # relative L2 of the full-width UNet output, kernels vs plain, bf16
 A8W8_AGREE_TOL = 1e-3  # the same with B2/B3/B5 vs plain: bit-exact kernels read 0
 
+# LLaVA-1.5-7B. (M, K, N) of the wint8 GEMM: decode q/k/v/o, gate/up, down,
+# lm_head; prefill (608 prompt tokens) gate/up, down
+WINT8_SHAPES = [(1, 4096, 4096), (1, 4096, 11008), (1, 11008, 4096), (1, 4096, 32000),
+                (608, 4096, 11008), (608, 11008, 4096)]
+# (B, Hq, KVH, D, L, lengths) of decode attention: Llama-7B's first decode step
+# over the bench's 736-slot cache, and a long GQA cache
+DECODE_CASES = [(1, 32, 32, 128, 736, (609,)), (2, 32, 8, 128, 4096, (4000, 1500))]
+RMS_SHAPES = [(608, 4096), (1, 4096)]  # (rows, width): prefill, decode
+# B6: fp32 sums of exact products in another order than the plain version's,
+# then one bf16 rounding each: |out - ref| <= 2**-7 |ref| + 1e-5 |ref|max
+WINT8_ULP, WINT8_SUM = 2.0 ** -7, 1e-5
+# B7: bf16 P and output against the fp32 plain version, per element:
+# |out - ref| <= 2**-7 |ref| (the output's rounding) + 4e-3 |ref|max (P's
+# rounding). The same kernel run with every length one short, which drops the
+# current key, must fail it (the control).
+DECODE_ULP, DECODE_SUM = 2.0 ** -7, 4e-3
+RMS_TOL = 3e-2     # absolute: bf16 output rounding (values below 8)
+# relative L2 of the full-width LLaVA logits, kernels vs plain, prefill and
+# decode steps apart (bf16)
+LLAVA_AGREE_TOL = 5e-2
+LLAVA_AGREE_STEPS = 4
+LLAVA_NEW_TOKENS = 128
+LLAVA_REQUESTS = [1, 2, 3]  # pixel seeds
+# H100 SXM peaks (NVIDIA data sheet, dense) for the bounds
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
+L2_BYTES = 50 * 2 ** 20
+
 
 def check(ok, msg):
     if not ok:
@@ -76,15 +132,26 @@ def check(ok, msg):
 
 
 def cuda_ms(torch, fn, iters=10, warmup=3):
-    """Mean milliseconds of `fn` over `iters` launches, by CUDA events."""
+    """Mean device milliseconds of `fn` over `iters` launches, or over one
+    pass through its copies if `cold` made more: after the warm-up (Triton
+    compiles there) the launches are captured once in a CUDA graph, and one
+    replay is timed by CUDA events, so the host's dispatch time, which
+    exceeds a small kernel's own (a 1-row RMSNorm, a decode step's GEMV), is
+    not in the number."""
+    iters = max(iters, getattr(fn, "copies", 0))
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
-    for _ in range(iters):
-        fn()
+    graph.replay()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
@@ -97,6 +164,39 @@ def timed_pair(torch, kernel, plain):
     k2 = cuda_ms(torch, kernel)
     p2 = cuda_ms(torch, plain)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def library_ms(torch, fn):
+    """The one PyTorch call that computes a kernel's function, timed like it."""
+    return None if fn is None else (cuda_ms(torch, fn) + cuda_ms(torch, fn)) / 2
+
+
+def bound(nbytes, ops, kind):
+    """(least ms the card could take, what bounds it): the larger of the bytes
+    over the memory rate and the operations over the peak rate for their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def cold(fn, first, nbytes_each):
+    """`fn` over `first` and clones of it, in turn, enough to pass three times
+    the L2 cache between two uses of one copy, as a model's next layer finds
+    its weights and cache in device memory. `cuda_ms` captures a pass through
+    all copies. At most 64 copies: an operand under 3 x 50 MiB / 64 = 2.3 MiB
+    (the 1-row RMSNorm's 8 KiB) stays in L2 and is timed warm."""
+    n = min(64, -(-3 * L2_BYTES // nbytes_each))
+    copies = [first] + [first.clone() for _ in range(n - 1)]
+    it = itertools.cycle(copies)
+
+    def call():
+        return fn(next(it))
+    call.copies = n
+    return call
 
 
 def rel_l2(a, b):
@@ -164,6 +264,7 @@ def main():
     import types
 
     import torch
+    import torch.nn.functional as F
 
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False: this run needs a "
                                      "CUDA card")
@@ -201,9 +302,11 @@ def main():
     bf16 = torch.bfloat16
 
     # ----------------------------------------------------------------- build
+    sources = ["flash_fwd", "int8_gemm", "int8_conv3x3", "wint8_gemm", "decode_attention"]
     t0 = time.perf_counter()
-    build_all(["flash_fwd", "int8_gemm", "int8_conv3x3"])
-    print(f"[build] 3 sources in parallel: {time.perf_counter() - t0:.1f} s", flush=True)
+    build_all(sources)
+    print(f"[build] {len(sources)} sources in parallel: {time.perf_counter() - t0:.1f} s",
+          flush=True)
     for name, log in build_log.items():
         print(f"[build] {name}.cu: {log['seconds']:.1f} s -> {log['path']}", flush=True)
         for line in log["ptxas"].splitlines():
@@ -213,20 +316,32 @@ def main():
     # --------------------------------------------------------------- kernels
     gen = torch.Generator(device=dev).manual_seed(0)
     summary = {}
+
+    def record(label, name, shape, err, ms, plain_ms, lib_ms, bnd, extra=""):
+        """Print the times of one kernel case and keep them for the summary."""
+        lib = "no single call" if lib_ms is None else f"{lib_ms:.3f} ms"
+        print(f"[{label}]   {name} {shape}{extra}: kernel {ms:.3f} ms | plain {plain_ms:.3f} ms "
+              f"| library {lib} | bound {bnd[0]:.4f} ms ({bnd[1]})", flush=True)
+        summary.setdefault(name, []).append(dict(shape=shape, err=err, ms=ms, plain_ms=plain_ms,
+                                                 library_ms=lib_ms, bound=bnd))
+
     for shape in FLASH_SHAPES:
+        b_, s_, h_, d_ = shape
         q, k, v = (torch.randn(shape, generator=gen, device=dev, dtype=bf16) for _ in range(3))
         out = attn_mod.flash_attention(q, k, v)
         torch.cuda.synchronize()
         ref = attn_mod.flash_attention_ref(q.float(), k.float(), v.float())
         err = (out.float() - ref).abs().max().item()
         tol = FLASH_TOL * max(1.0, ref.abs().max().item())
+        print(f"[kernels] flash {shape} bf16: max_abs_err {err:.3e} (tol {tol:.3e})", flush=True)
+        check(bool(torch.isfinite(out).all()) and err <= tol, f"flash {shape}: err {err}")
         ms, plain_ms = timed_pair(torch, lambda: attn_mod.flash_attention(q, k, v),
                                   lambda: attn_mod.flash_attention_ref(q, k, v))
-        print(f"[kernels] flash {shape} bf16: max_abs_err {err:.3e} (tol {tol:.3e}) | "
-              f"kernel {ms:.3f} ms | plain {plain_ms:.3f} ms", flush=True)
-        check(bool(torch.isfinite(out).all()) and err <= tol, f"flash {shape}: err {err}")
-        summary.setdefault("flash_attention", []).append((shape, err, ms, plain_ms))
-        del q, k, v, out, ref
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        lib_ms = library_ms(torch, lambda: F.scaled_dot_product_attention(qh, kh, vh))
+        record("kernels", "flash_attention", shape, err, ms, plain_ms, lib_ms,
+               bound(nbytes(q, k, v, out), 4 * b_ * h_ * s_ * s_ * d_, "bf16"))
+        del q, k, v, out, ref, qh, kh, vh
     for shape, act in GN_CASES:
         c = shape[-1]
         x = torch.randn(shape, generator=gen, device=dev, dtype=bf16)
@@ -238,31 +353,36 @@ def main():
         first_s = time.perf_counter() - t0
         ref = norms_mod.group_norm_ref(x.float(), w.float(), b.float(), 32, 1e-5, act)
         err = (out.float() - ref).abs().max().item()
-        ms, plain_ms = timed_pair(torch, lambda: norms_mod.group_norm(x, w, b, 32, 1e-5, act),
-                                  lambda: norms_mod.group_norm_ref(x, w, b, 32, 1e-5, act))
         print(f"[kernels] group_norm {shape} {act} bf16: max_abs_err {err:.3e} (tol {GN_TOL}) | "
-              f"kernel {ms:.3f} ms | plain {plain_ms:.3f} ms | first call {first_s:.2f} s",
-              flush=True)
+              f"first call {first_s:.2f} s", flush=True)
         check(bool(torch.isfinite(out).all()) and err <= GN_TOL,
               f"group_norm {shape} {act}: err {err}")
-        summary.setdefault("group_norm", []).append((shape, err, ms, plain_ms))
-        del x, out, ref
+        ms, plain_ms = timed_pair(torch, lambda: norms_mod.group_norm(x, w, b, 32, 1e-5, act),
+                                  lambda: norms_mod.group_norm_ref(x, w, b, 32, 1e-5, act))
+        x_nchw = x.permute(0, 3, 1, 2)  # the channels_last view cuDNN's GroupNorm reads
 
-    def int8_case(name, shape, kernel, plain, extra=""):
+        def torch_gn():
+            y = F.group_norm(x_nchw, 32, w, b, 1e-5)
+            return F.silu(y) if act == "silu" else y
+        # a few fp32 operations an element (moments, affine, SiLU): bytes bound it
+        record("kernels", "group_norm", shape, err, ms, plain_ms, library_ms(torch, torch_gn),
+               bound(nbytes(x, w, b, out), 8 * x.numel(), "fp32"), f" {act}")
+        del x, out, ref, x_nchw
+
+    def int8_case(name, shape, kernel, plain, library, extra=""):
         out = kernel()
         torch.cuda.synchronize()
         ref = plain()
         err = (out.float() - ref.float()).abs().max().item()
         ulps = bf16_ulps(out, ref)
         control = bf16_ulps(unquantized(mods, plain)(), ref)
-        ms, plain_ms = timed_pair(torch, kernel, plain)
         print(f"[kernels] {name} {shape}{extra}: max_abs_err {err:.3e}, {ulps:.3g} bf16 ulps "
-              f"(limit {INT8_ULPS}; control without the quantize {control:.3g}) | "
-              f"kernel {ms:.3f} ms | plain {plain_ms:.3f} ms", flush=True)
+              f"(limit {INT8_ULPS}; control without the quantize {control:.3g})", flush=True)
         check(bool(torch.isfinite(out).all()) and ulps <= INT8_ULPS,
               f"{name} {shape}: {ulps} bf16 ulps")
         check(control > INT8_ULPS, f"{name} {shape}: the control passes the limit ({control})")
-        summary.setdefault(name, []).append((shape, err, ms, plain_ms))
+        ms, plain_ms = timed_pair(torch, kernel, plain)
+        return out, err, ms, plain_ms, library_ms(torch, library)
 
     ci, fr = conv_int8_mod, fused_mod
     for m, k, n in GEMM_SHAPES:
@@ -271,26 +391,34 @@ def main():
         wq, sw = ci.quantize_weight_per_cout(wf)
         bias = 0.1 * torch.randn(n, generator=gen, device=dev)
         sx = quant_mod.static_scale(x.float().abs().max().item())
-        int8_case("int8_a8w8_matmul", (m, k, n), lambda: ci.int8_a8w8_matmul(x, wq, sw, sx, bias),
-                  lambda: ci.int8_a8w8_matmul_ref(x, wq, sw, sx, bias))
         w16 = wf.to(bf16).t().contiguous()
-        mm_ms = (cuda_ms(torch, lambda: torch.matmul(x, w16))
-                 + cuda_ms(torch, lambda: torch.matmul(x, w16))) / 2
-        print(f"[kernels]   bf16 torch.matmul {(m, k, n)} for comparison (not gated): "
-              f"{mm_ms:.3f} ms", flush=True)
-        del x, wf, wq, w16
+        out, *times = int8_case("int8_a8w8_matmul", (m, k, n),
+                                lambda: ci.int8_a8w8_matmul(x, wq, sw, sx, bias),
+                                lambda: ci.int8_a8w8_matmul_ref(x, wq, sw, sx, bias),
+                                lambda: torch.matmul(x, w16))
+        record("kernels", "int8_a8w8_matmul", (m, k, n), *times,
+               bound(nbytes(x, wq, sw, bias, out), 2 * m * n * k, "int8"))
+        del x, wf, wq, w16, out
     for shape in CONV_SHAPES:
-        c = shape[-1]
+        b_, h_, w_, c = shape
         x = torch.randn(shape, generator=gen, device=dev).to(bf16)
         wf = torch.randn((c, c, 3, 3), generator=gen, device=dev) * (9 * c) ** -0.5
         wq, sw = ci.quantize_weight_per_cout(wf)
         wq = ci.conv3x3_weight_layout(wq)
         bias = 0.1 * torch.randn(c, generator=gen, device=dev)
         sx = quant_mod.static_scale(x.float().abs().max().item())
-        int8_case("int8_conv3x3_same", shape,
-                  lambda: ci.int8_conv3x3_same(x, wq, sw, sx, bias),
-                  lambda: ci.int8_conv3x3_same_ref(x, wq, sw, sx, bias))
-        del x, wf, wq
+        # cuDNN's bf16 conv over the same channels_last map, the dequantized weight
+        x_nchw = x.permute(0, 3, 1, 2)
+        w16 = wf.to(bf16).contiguous(memory_format=torch.channels_last)
+        b16 = bias.to(bf16)
+        ops = 2 * b_ * h_ * w_ * c * 9 * c
+        out, *times = int8_case("int8_conv3x3_same", shape,
+                                lambda: ci.int8_conv3x3_same(x, wq, sw, sx, bias),
+                                lambda: ci.int8_conv3x3_same_ref(x, wq, sw, sx, bias),
+                                lambda: F.conv2d(x_nchw, w16, b16, padding=1))
+        record("kernels", "int8_conv3x3_same", shape, *times,
+               bound(nbytes(x, wq, sw, bias, out), ops, "int8"))
+        del x, wf, wq, w16, out, x_nchw
     for shape, o, epi in FUSED_CASES:
         b_, h, w_, c = shape
         x = torch.randn(shape, generator=gen, device=dev).to(bf16)
@@ -307,10 +435,16 @@ def main():
             kw["residual"] = torch.randn((b_, h, w_, o), generator=gen, device=dev).to(bf16)
         sx = quant_mod.static_scale(4.0)  # SiLU of a unit-variance GroupNorm output
         args = (x, gamma, beta, 32, 1e-5, wq, sw, sx, bias)
-        int8_case("fused_gn_silu_conv3x3", shape + (o,),
-                  lambda: fr.fused_gn_silu_conv3x3(*args, **kw),
-                  lambda: fr.fused_gn_silu_conv3x3_ref(*args, **kw), f" {epi or 'bias only'}")
-        del x, wf, wq, kw
+        ops = 2 * b_ * h * w_ * o * 9 * c
+        # no single PyTorch call computes GroupNorm + SiLU + int8 quantize + conv
+        out, *times = int8_case("fused_gn_silu_conv3x3", shape + (o,),
+                                lambda: fr.fused_gn_silu_conv3x3(*args, **kw),
+                                lambda: fr.fused_gn_silu_conv3x3_ref(*args, **kw), None,
+                                f" {epi or 'bias only'}")
+        record("kernels", "fused_gn_silu_conv3x3", shape + (o,), *times,
+               bound(nbytes(x, gamma, beta, wq, sw, bias, out, *kw.values()), ops, "int8"),
+               f" {epi or 'bias only'}")
+        del x, wf, wq, kw, out
 
     # ---------------------------------------------------------------- models
     t0 = time.perf_counter()
@@ -432,35 +566,267 @@ def main():
           f"{[round(x, 3) for x in s_bf16]} (same run); peak memory a8w8 {peak_a8w8:.2f} GiB "
           f"vs bf16 {peak_bf16:.2f} GiB", flush=True)
 
+    # ------------------------------------------------------ free the pipeline
+    del pipe, out_bf16, out_a8w8, all_plain, rand_inputs, calib_inputs, ctx_c, added_c, lat_c
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[llava] SDXL pipeline freed: {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+          f"still allocated", flush=True)
+    from paddlemix_tpu_torch.models.llama import modeling as llama_mod
+    from paddlemix_tpu_torch.models.llava import (
+        bench_input_ids,
+        expected_launches_llava,
+        random_llava,
+    )
+    from paddlemix_tpu_torch.ops import decode_attention as da_mod
+
+    # --------------------------------------------------------- llava kernels
+    for m, k, n in WINT8_SHAPES:
+        x = torch.randn((m, k), generator=gen, device=dev).to(bf16)
+        w = torch.randn((n, k), generator=gen, device=dev) * k ** -0.5
+        wq, scale = quant_mod.quantize_weights_int8(w)
+        w16 = w.to(bf16)
+        del w
+        out = quant_mod.wint8_matmul(x, wq, scale)
+        torch.cuda.synchronize()
+        ref = quant_mod.wint8_matmul_ref(x, wq, scale).float()
+        diff = (out.float() - ref).abs()
+        err = diff.max().item()
+        excess = (diff - WINT8_ULP * ref.abs() - WINT8_SUM * ref.abs().max()).max().item()
+        print(f"[llava kernels] wint8_matmul {(m, k, n)}: max_abs_err {err:.3e} (limit "
+              f"{WINT8_ULP:.4g}|ref| + {WINT8_SUM:g}|ref|max, excess {excess:.3e})", flush=True)
+        check(bool(torch.isfinite(out).all()) and excess <= 0,
+              f"wint8_matmul {(m, k, n)}: err {err}")
+        ms, plain_ms = timed_pair(
+            torch, cold(lambda wq_: quant_mod.wint8_matmul(x, wq_, scale), wq, wq.numel()),
+            cold(lambda wq_: quant_mod.wint8_matmul_ref(x, wq_, scale), wq, wq.numel()))
+        lib_ms = library_ms(torch, cold(lambda w_: torch.matmul(x, w_.t()), w16,
+                                        2 * w16.numel()))
+        record("llava kernels", "wint8_matmul", (m, k, n), err, ms, plain_ms, lib_ms,
+               bound(nbytes(x, wq, scale, out), 2 * m * n * k, "bf16"))
+        del x, wq, scale, w16, out, ref, diff
+        gc.collect()
+    for b_, hq, kvh, d, L, lengths in DECODE_CASES:
+        q = torch.randn((b_, 1, hq, d), generator=gen, device=dev).to(bf16)
+        # k and v are slices of a layer's cache with its parking slot, as in the model
+        cache = torch.randn((2, b_, L + 1, kvh, d), generator=gen, device=dev).to(bf16)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        out = da_mod.decode_attention(q, cache[0, :, :L], cache[1, :, :L], lens)
+        torch.cuda.synchronize()
+        ref = da_mod.decode_attention_ref(q.float(), cache[0, :, :L].float(),
+                                          cache[1, :, :L].float(), lens)
+        err = (out.float() - ref).abs().max().item()
+        limit = DECODE_ULP * ref.abs() + DECODE_SUM * ref.abs().max()
+        excess = ((out.float() - ref).abs() - limit).max().item()
+        short = da_mod.decode_attention(q, cache[0, :, :L], cache[1, :, :L], lens - 1)
+        ctrl = ((short.float() - ref).abs() - limit).max().item()
+        shape = (b_, hq, kvh, d, L, lengths)
+        print(f"[llava kernels] decode_attention {shape} bf16: max_abs_err {err:.3e} (limit "
+              f"{DECODE_ULP:.4g}|ref| + {DECODE_SUM:g}|ref|max, excess {excess:.3e}); control "
+              f"with lengths one short: excess {ctrl:.3e} (must be > 0)", flush=True)
+        check(bool(torch.isfinite(out).all()) and excess <= 0, f"decode {shape}: err {err}")
+        check(ctrl > 0, f"decode {shape}: the one-short control passes the limit ({ctrl})")
+        mask = (torch.arange(L, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+        qh = q.transpose(1, 2)
+        ms, plain_ms = timed_pair(
+            torch, cold(lambda c: da_mod.decode_attention(q, c[0, :, :L], c[1, :, :L], lens),
+                        cache, nbytes(cache)),
+            cold(lambda c: da_mod.decode_attention_ref(q, c[0, :, :L], c[1, :, :L], lens),
+                 cache, nbytes(cache)))
+        lib_ms = library_ms(torch, cold(lambda c: F.scaled_dot_product_attention(
+            qh, c[0, :, :L].transpose(1, 2), c[1, :, :L].transpose(1, 2), attn_mask=mask,
+            enable_gqa=hq != kvh), cache, nbytes(cache)))
+        used = sum(min(n_, L) for n_ in lengths)  # cached rows the lengths make it read
+        record("llava kernels", "decode_attention", shape, err, ms, plain_ms, lib_ms,
+               bound(nbytes(q, lens, out) + 2 * used * kvh * d * 2, 4 * hq * used * d, "fp32"))
+        del q, cache, out, ref, short, limit
+    for rows, h in RMS_SHAPES:
+        x = (3 * torch.randn((rows, h), generator=gen, device=dev)).to(bf16)
+        w = 1 + 0.1 * torch.randn(h, generator=gen, device=dev)
+        out = norms_mod.rms_norm(x, w, 1e-5)
+        torch.cuda.synchronize()
+        ref = norms_mod.rms_norm_ref(x.float(), w, 1e-5)
+        err = (out.float() - ref).abs().max().item()
+        print(f"[llava kernels] rms_norm {(rows, h)} bf16: max_abs_err {err:.3e} "
+              f"(tol {RMS_TOL})", flush=True)
+        check(bool(torch.isfinite(out).all()) and err <= RMS_TOL, f"rms_norm {(rows, h)}: {err}")
+        w16 = w.to(bf16)
+        ms, plain_ms = timed_pair(torch, cold(lambda x_: norms_mod.rms_norm(x_, w, 1e-5), x,
+                                              nbytes(x)),
+                                  cold(lambda x_: norms_mod.rms_norm_ref(x_, w, 1e-5), x,
+                                       nbytes(x)))
+        lib_ms = library_ms(torch, cold(lambda x_: F.rms_norm(x_, (h,), w16, 1e-5), x,
+                                        nbytes(x)))
+        record("llava kernels", "rms_norm", (rows, h), err, ms, plain_ms, lib_ms,
+               bound(nbytes(x, w, out), 4 * x.numel(), "fp32"))
+        del x, out, ref
+
+    # ----------------------------------------------------------- llava agree
+    t0 = time.perf_counter()
+    model = random_llava(dev, bf16, seed=0)
+    torch.cuda.synchronize()
+    cfg = model.config
+    n_params = {name: sum(p.numel() for p in getattr(model, name).parameters())
+                for name in ("vision_tower", "multi_modal_projector", "language_model")}
+    print(f"[llava] LLaVA-1.5-7B built on the card in {time.perf_counter() - t0:.1f} s: "
+          f"{n_params}, {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated", flush=True)
+    ids = bench_input_ids(cfg, device=dev)
+    prompt_len = ids.shape[1]
+    isz = cfg.vision.image_size
+    pixels = [torch.randn((1, isz, isz, 3), device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(s))
+              for s in LLAVA_REQUESTS]
+
+    def llava_steps(swaps=(), tokens=None):
+        """Prefill logits (prompt_len, vocab) and the logits of the next decode
+        steps, fed `tokens` or, when None, the greedy ones (returned)."""
+        toks = [] if tokens is None else tokens
+        with torch.inference_mode(), swapped(swaps):
+            cache = model.init_cache(1, prompt_len + LLAVA_AGREE_STEPS)
+            logits, cache = model(ids, pixels[0], torch.arange(prompt_len, device=dev)[None],
+                                  cache=cache)
+            outs = [logits[0].float()]
+            for i in range(LLAVA_AGREE_STEPS):
+                if tokens is None:
+                    toks.append(outs[-1][-1].argmax())
+                step, cache = model(toks[i].view(1, 1), None, cache.lengths[:, None],
+                                    cache=cache)
+                outs.append(step[0].float())
+        return outs[0], torch.cat(outs[1:]), toks
+
+    def llava_agree(label, wint8):
+        swaps = [(llama_mod, "rms_norm", norms_mod.rms_norm_ref),
+                 (llama_mod, "decode_attention", da_mod.decode_attention_ref)]
+        if wint8:
+            swaps.append((llama_mod, "wint8_matmul", quant_mod.wint8_matmul_ref))
+        pre_k, dec_k, toks = llava_steps()
+        pre_p, dec_p, _ = llava_steps(swaps, toks)
+        rel_pre, rel_dec = rel_l2(pre_k, pre_p), rel_l2(dec_k, dec_p)
+        print(f"[{label}] full-width LLaVA, kernels ({', '.join(n for _, n, _ in swaps)}) vs "
+              f"plain: relative L2 of the logits, prefill ({prompt_len} tokens) {rel_pre:.3e}, "
+              f"{LLAVA_AGREE_STEPS} decode steps {rel_dec:.3e} (tol {LLAVA_AGREE_TOL}); |logits| "
+              f"max {pre_p.abs().max().item():.3f}; greedy tokens {[int(t) for t in toks]}",
+              flush=True)
+        check(bool(torch.isfinite(pre_k).all() and torch.isfinite(dec_k).all())
+              and rel_pre <= LLAVA_AGREE_TOL and rel_dec <= LLAVA_AGREE_TOL,
+              f"{label}: relative L2 {rel_pre} / {rel_dec}")
+        return pre_k
+
+    llava_counters = {"rms_norm": norms_mod.rms_norm, "decode_attention": da_mod.decode_attention,
+                      "wint8_matmul": quant_mod.wint8_matmul,
+                      "flash_attention": attn_mod.flash_attention}
+
+    def llava_serve(label):
+        """The bench's requests: TTFT is a 1-token generate, then the full
+        generate; tokens/s = (new tokens - 1) / (full - TTFT), as bench.py."""
+        want = expected_launches_llava(model, prompt_len, LLAVA_NEW_TOKENS)
+        want_1 = expected_launches_llava(model, prompt_len, 1)
+        print(f"[{label}] expected launches per request (walking the modules): {want}; "
+              f"TTFT run {want_1}", flush=True)
+        torch.cuda.reset_peak_memory_stats()
+        for fn in llava_counters.values():
+            fn.launches = 0
+        stats = []
+        for seed, px in zip(LLAVA_REQUESTS, pixels):
+            runs = []
+            for n_new, expected in ((1, want_1), (LLAVA_NEW_TOKENS, want)):
+                before = {name: fn.launches for name, fn in llava_counters.items()}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                toks = model.generate(ids, px, max_new_tokens=n_new, eos_token_id=-1)
+                torch.cuda.synchronize()
+                runs.append((time.perf_counter() - t0, toks))
+                got = {name: fn.launches - before[name] for name, fn in llava_counters.items()}
+                check(got == expected, f"{label}: launches {got} != expected {expected}")
+            (ttft, first), (total, toks) = runs
+            tps = (LLAVA_NEW_TOKENS - 1) / (total - ttft)
+            stats.append((ttft, total, tps))
+            print(f"[{label}] pixels seed {seed}: TTFT {1e3 * ttft:.1f} ms | {LLAVA_NEW_TOKENS} "
+                  f"tokens {total:.3f} s | decode {tps:.2f} tokens/s "
+                  f"({1e3 / tps:.2f} ms/token) | tokens {toks[0, :8].tolist()}...", flush=True)
+            check(toks.shape == (1, LLAVA_NEW_TOKENS) and toks.dtype == torch.int32,
+                  f"{label}: tokens {tuple(toks.shape)} {toks.dtype}")
+            check(bool(((toks >= 0) & (toks < cfg.text.vocab_size)).all()),
+                  f"{label}: a token outside the vocab")
+            check(int(toks[0, 0]) == int(first[0, 0]), f"{label}: the first token differs "
+                  f"between the TTFT run and the full run")
+        launches = {name: fn.launches for name, fn in llava_counters.items()}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"[{label}] peak memory allocated {peak:.2f} GiB | launches over "
+              f"{len(LLAVA_REQUESTS)} requests {launches}", flush=True)
+        return launches, stats, peak
+
+    llava_agree("llava agree", wint8=False)
+    launches_llava, stats_llava, peak_llava = llava_serve("llava serve")
+
+    # ---------------------------------------------------------------- wint8
+    allocated = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    freed = model.quantize_("wint8")
+    torch.cuda.synchronize()
+    print(f"[wint8] quantized in place in {time.perf_counter() - t0:.2f} s: {freed / 1e9:.3f} "
+          f"GB of weights freed; allocated {allocated / 2 ** 30:.2f} -> "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+    llava_agree("wint8 agree", wint8=True)
+    launches_wint8, stats_wint8, peak_wint8 = llava_serve("wint8 serve")
+    med = lambda stats, i: sorted(s[i] for s in stats)[len(stats) // 2]  # noqa: E731
+    print(f"[wint8 serve] median decode tokens/s wint8 {med(stats_wint8, 2):.2f} vs bf16 "
+          f"{med(stats_llava, 2):.2f}; TTFT wint8 {1e3 * med(stats_wint8, 0):.1f} ms vs bf16 "
+          f"{1e3 * med(stats_llava, 0):.1f} ms; peak memory wint8 {peak_wint8:.2f} GiB vs "
+          f"bf16 {peak_llava:.2f} GiB (same run)", flush=True)
+
     # --------------------------------------------------------------- summary
-    def entry(name, route, source, replaces):
-        # ms / plain_ms at the first shape listed; max_abs_err over all shapes;
-        # launches summed over both serve phases
+    def entry(name, route, source, replaces, by_phase):
+        # ms / plain_ms / library_ms / bound at the first shape listed;
+        # max_abs_err over all shapes; launches summed over the serve phases
         rows = summary[name]
-        by_phase = {"bf16": launches_bf16[name], "a8w8": launches_a8w8[name]}
+        first = rows[0]
         return {"name": name, "route": route, "source": source, "replaces": replaces,
                 "launches": sum(by_phase.values()), "launches_by_phase": by_phase,
-                "max_abs_err": max(r[1] for r in rows), "ms": rows[0][2],
-                "plain_ms": rows[0][3]}
+                "max_abs_err": max(r["err"] for r in rows), "ms": first["ms"],
+                "plain_ms": first["plain_ms"], "bound_ms": first["bound"][0],
+                "bound_by": first["bound"][1], "library_ms": first["library_ms"],
+                "shape": list(first["shape"])}
+
+    def sdxl(name):
+        return {"bf16": launches_bf16[name], "a8w8": launches_a8w8[name]}
+
+    def llava(name):
+        return {"llava_bf16": launches_llava[name], "llava_wint8": launches_wint8[name]}
 
     kernels = [
         entry("flash_attention", "cuda", "paddlemix_tpu_torch/csrc/flash_fwd.cu",
-              "paddlemix_tpu/ops/attention.py:168"),
+              "paddlemix_tpu/ops/attention.py:168", sdxl("flash_attention")),
         entry("group_norm", "triton", "paddlemix_tpu_torch/ops/norms.py",
-              "paddlemix_tpu/ops/norms.py:462"),
+              "paddlemix_tpu/ops/norms.py:462", sdxl("group_norm")),
         entry("int8_a8w8_matmul", "cuda", "paddlemix_tpu_torch/csrc/int8_gemm.cu",
-              "paddlemix_tpu/ops/conv_int8.py:187"),
+              "paddlemix_tpu/ops/conv_int8.py:187", sdxl("int8_a8w8_matmul")),
         entry("int8_conv3x3_same", "cuda", "paddlemix_tpu_torch/csrc/int8_conv3x3.cu",
-              "paddlemix_tpu/ops/conv_int8.py:108"),
+              "paddlemix_tpu/ops/conv_int8.py:108", sdxl("int8_conv3x3_same")),
         entry("fused_gn_silu_conv3x3", "cuda", "paddlemix_tpu_torch/csrc/int8_conv3x3.cu",
-              "paddlemix_tpu/ops/fused_resnet.py:196"),
+              "paddlemix_tpu/ops/fused_resnet.py:196", sdxl("fused_gn_silu_conv3x3")),
+        entry("wint8_matmul", "cuda", "paddlemix_tpu_torch/csrc/wint8_gemm.cu",
+              "paddlemix_tpu/ops/quant.py:445", llava("wint8_matmul")),
+        entry("decode_attention", "cuda", "paddlemix_tpu_torch/csrc/decode_attention.cu",
+              "paddlemix_tpu/ops/decode_attention.py:68", llava("decode_attention")),
+        entry("rms_norm", "triton", "paddlemix_tpu_torch/ops/norms.py",
+              "paddlemix_tpu/ops/norms.py:148", llava("rms_norm")),
     ]
-    kernels[1]["stats_launches_by_phase"] = {"bf16": launches_bf16["group_norm_stats"],
-                                             "a8w8": launches_a8w8["group_norm_stats"]}
-    # the a8w8 requests run all five kernels, the bf16 ones flash and GroupNorm
-    idle = [k["name"] for k in kernels if k["launches_by_phase"]["a8w8"] == 0] + \
-        [name for name in ("flash_attention", "group_norm") if launches_bf16[name] == 0]
+    kernels[1]["stats_launches_by_phase"] = sdxl("group_norm_stats")
+    # the a8w8 requests run all five SDXL kernels, the bf16 ones flash and
+    # GroupNorm; both LLaVA configurations run decode attention and RMSNorm,
+    # wint8 also the wint8 GEMM
+    must_run = [(k["name"], "a8w8") for k in kernels[:5]] + \
+        [("flash_attention", "bf16"), ("group_norm", "bf16")] + \
+        [(name, phase) for name in ("decode_attention", "rms_norm")
+         for phase in ("llava_bf16", "llava_wint8")] + [("wint8_matmul", "llava_wint8")]
+    by_name = {k["name"]: k for k in kernels}
+    idle = [(name, phase) for name, phase in must_run
+            if by_name[name]["launches_by_phase"][phase] == 0]
     check(not idle, f"kernels never launched by the requests: {idle}")
+    check(launches_llava["wint8_matmul"] == 0 and launches_llava["flash_attention"] == 0
+          and launches_wint8["flash_attention"] == 0, "LLaVA launched a kernel off its path")
+    print(f"[summary] chip_smoke ran {time.perf_counter() - T_START:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

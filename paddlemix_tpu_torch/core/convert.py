@@ -14,12 +14,13 @@ tuples, so this module never imports it.
 from __future__ import annotations
 
 import re
-from typing import Dict, Sequence, Tuple
+from typing import Callable, Dict, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-KeyMap = Sequence[Tuple[str, str]]
+# regex renames applied in order, or a function of the torch key
+KeyMap = Union[Sequence[Tuple[str, str]], Callable[[str], str]]
 
 # paddlemix_tpu/diffusers/models/unet_2d_condition.py _UNET_KEY_MAP
 UNET_KEY_MAP: KeyMap = (
@@ -58,18 +59,73 @@ CLIP_KEY_MAP: KeyMap = (
 )
 
 
+# paddlemix_tpu/models/llama/modeling.py _LLAMA_KEY_MAP
+LLAMA_KEY_MAP: KeyMap = (
+    (r"^model\.", r""),
+    (r"embed_tokens\.weight$", r"embed_tokens.embedding"),
+    (r"\.layers\.(\d+)\.", r".layers_\1."),
+    (r"^layers\.(\d+)\.", r"layers_\1."),
+    (r"(layernorm|norm)\.weight$", r"\1.scale"),
+    (r"\.weight$", r".kernel"),
+)
+
+# paddlemix_tpu/models/llava/modeling.py LlavaForConditionalGeneration
+# .convert_foreign_state_dict: prefix renames, then the vision tower's or the
+# language model's, then the shared pass it hands convert_torch_state_dict
+_LLAVA_PREFIX_RENAMES = (
+    (r"^language_model\.model\.", "language_model."),
+    (r"^vision_tower\.vision_model\.", "vision_tower."),
+    (r"^model\.mm_projector\.0\.", "multi_modal_projector.linear_0."),
+    (r"^model\.mm_projector\.2\.", "multi_modal_projector.linear_1."),
+    (r"^(model\.)?image_newline$", "image_newline"),
+    (r"^model\.", "language_model."),
+    (r"^lm_head\.", "language_model.lm_head."),
+    (r"^multi_modal_projector\.linear_1\.", "multi_modal_projector.linear_0."),
+    (r"^multi_modal_projector\.linear_2\.", "multi_modal_projector.linear_1."),
+)
+_LLAVA_VISION_RENAMES = (
+    (r"\.encoder\.layers\.(\d+)\.", r".layers_\1."),
+    (r"\.self_attn\.", r".attn."),
+    (r"\.layer_norm1\.", r".norm1."),
+    (r"\.layer_norm2\.", r".norm2."),
+    (r"\.pre_layrnorm\.", r".pre_layernorm."),
+    (r"\.embeddings\.patch_embedding\.", r".patch_embed.proj."),
+    (r"\.embeddings\.class_embedding$", r".class_embedding"),
+    (r"\.embeddings\.position_embedding\.weight$", r".position_embedding"),
+)
+_LLAVA_TEXT_RENAMES = (
+    (r"\.layers\.(\d+)\.", r".layers_\1."),
+    (r"embed_tokens\.weight$", "embed_tokens.embedding"),
+)
+_LLAVA_SHARED = (
+    (r"(layernorm|norm[0-9]?|norm)\.weight$", r"\1.scale"),
+    (r"\.weight$", r".kernel"),
+)
+
+
+def llava_key_to_flax(key: str) -> str:
+    """A llava-hf torch key -> the JAX LLaVA's flax key."""
+    key = torch_key_to_flax(key, _LLAVA_PREFIX_RENAMES)
+    key = torch_key_to_flax(key, _LLAVA_VISION_RENAMES if key.startswith("vision_tower.")
+                            else _LLAVA_TEXT_RENAMES)
+    return torch_key_to_flax(key, _LLAVA_SHARED)
+
+
 def torch_key_to_flax(key: str, key_map: KeyMap) -> str:
+    if callable(key_map):
+        return key_map(key)
     for pat, rep in key_map:
         key = re.sub(pat, rep, key)
     return key
 
 
 def _to_torch_layout(flax_key: str, arr: np.ndarray) -> np.ndarray:
-    """Dense `kernel` (in, out) -> `weight` (out, in); conv HWIO -> OIHW.
+    """Dense `kernel` (in, out) -> `weight` (out, in), and the same for a
+    weight-only int8 `kernel_q` (its `scale` keeps (out,)); conv HWIO -> OIHW.
     `embedding` tables (nn.Embed) and every other array keep their layout: the
     decision is by the flax leaf name, so `time_embedding.linear_1.kernel` is a
     Dense and is transposed."""
-    if flax_key.endswith(".kernel") and arr.ndim == 2:
+    if flax_key.endswith((".kernel", ".kernel_q")) and arr.ndim == 2:
         return arr.T
     if flax_key.endswith(".kernel") and arr.ndim == 4:
         return np.transpose(arr, (3, 2, 0, 1))

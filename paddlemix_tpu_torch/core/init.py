@@ -3,13 +3,13 @@
 Real checkpoints are not used: weights are random and made from a seed. The
 JAX bench fills every weight with 0.02; here dense and conv weights are
 fan-in-scaled normals (std 1/sqrt(fan_in)) so that activations keep their
-scale through many blocks, norms start at weight 1 / bias 0, biases at 0 and
-embedding tables at std 1.
+scale through many blocks, norms start at weight 1 / bias 0, biases at 0,
+and embedding tables and embedding vectors (CLIP's class embedding) at std 1.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Tuple
 
 import torch
 from torch import nn
@@ -32,17 +32,23 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> nn.Module:
                     p.fill_(1.0)
                 elif name == "bias":
                     p.zero_()
+                elif name.endswith("embedding"):
+                    p.normal_(0.0, 1.0, generator=generator)
                 else:
                     raise ValueError(f"no init rule for parameter {name} of {type(m).__name__}")
     return module
 
 
 def build_random(factory: Callable[[], nn.Module], *, device, dtype,
-                 generator: torch.Generator) -> nn.Module:
+                 generator: torch.Generator, fp32_modules: Tuple[type, ...] = ()) -> nn.Module:
     """Construct `factory()` without allocating (meta device), materialise it on
-    `device` in `dtype`, and fill it by `init_weights_`. Nothing of the size of
-    the model is made on the host."""
+    `device` in `dtype` (submodules of the `fp32_modules` types in fp32), and
+    fill it by `init_weights_`. Nothing of the size of the model is made on
+    the host."""
     with torch.device("meta"):
         module = factory()
     module = module.to_empty(device=device).to(dtype)
+    for m in module.modules():
+        if isinstance(m, fp32_modules):
+            m.float()
     return init_weights_(module, generator).eval()

@@ -1,1 +1,1 @@
-"""Text encoders and shared transformer layers of the port."""
+"""Model families of the port (CLIP towers, Llama, LLaVA) and shared transformer layers."""

@@ -1,6 +1,13 @@
-from .configuration import CLIPTextConfig
-from .modeling import CLIPTextModel, CLIPTextModelWithProjection, CLIPTextTransformer
+from .configuration import CLIPTextConfig, CLIPVisionConfig
+from .modeling import (
+    CLIPTextModel,
+    CLIPTextModelWithProjection,
+    CLIPTextTransformer,
+    CLIPVisionModel,
+    CLIPVisionTransformer,
+)
 from .tokenizer import CLIPTokenizer
 
 __all__ = ["CLIPTextConfig", "CLIPTextModel", "CLIPTextModelWithProjection",
-           "CLIPTextTransformer", "CLIPTokenizer"]
+           "CLIPTextTransformer", "CLIPTokenizer", "CLIPVisionConfig", "CLIPVisionModel",
+           "CLIPVisionTransformer"]

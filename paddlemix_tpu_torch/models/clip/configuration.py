@@ -1,4 +1,4 @@
-"""CLIP text config (port of paddlemix_tpu/models/clip/configuration.py)."""
+"""CLIP text and vision configs (port of paddlemix_tpu/models/clip/configuration.py)."""
 
 from __future__ import annotations
 
@@ -17,3 +17,24 @@ class CLIPTextConfig:
     layer_norm_eps: float = 1e-5
     projection_dim: int = 512
     eos_token_id: int = 49407
+
+
+@dataclasses.dataclass
+class CLIPVisionConfig:
+    hidden_size: int = 768
+    intermediate_size: int = 3072
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    image_size: int = 224
+    patch_size: int = 32
+    hidden_act: str = "quick_gelu"
+    layer_norm_eps: float = 1e-5
+    projection_dim: int = 512
+    patch_bias: bool = False
+    use_pre_layernorm: bool = True
+    post_layernorm_full: bool = False  # post-LN over all tokens (Blip2), else CLS only
+
+    def __post_init__(self):
+        if not self.use_pre_layernorm or self.post_layernorm_full:
+            raise NotImplementedError("CLIPVisionConfig: only the pre-LN tower with the "
+                                      "post-LN on CLS (CLIP, LLaVA) is ported")

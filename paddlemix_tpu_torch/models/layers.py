@@ -6,6 +6,7 @@ layer_norm1/2, mlp.fc1/fc2), which the JAX package's CLIP key map renames.
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 from ..ops import get_activation, scaled_dot_product_attention
@@ -56,3 +57,18 @@ class EncoderBlock(nn.Module):
     def forward(self, x, *, causal=False):
         x = x + self.self_attn(self.layer_norm1(x), causal=causal)
         return x + self.mlp(self.layer_norm2(x))
+
+
+class PatchEmbed(nn.Conv2d):
+    """Image -> patch tokens: a patch_size-strided conv over NHWC pixels (the
+    JAX package's layout) returning (B, num_patches, embed_dim), patches in
+    row-major order. The conv itself runs on the NCHW view."""
+
+    def __init__(self, patch_size: int, embed_dim: int, in_channels: int = 3,
+                 use_bias: bool = True):
+        super().__init__(in_channels, embed_dim, kernel_size=patch_size, stride=patch_size,
+                         bias=use_bias)
+
+    def forward(self, pixels: torch.Tensor) -> torch.Tensor:
+        x = super().forward(pixels.permute(0, 3, 1, 2).to(self.weight.dtype))
+        return x.flatten(2).transpose(1, 2)

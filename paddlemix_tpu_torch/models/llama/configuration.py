@@ -1,0 +1,53 @@
+"""Llama-family decoder config (port of paddlemix_tpu/models/llama/configuration.py,
+the fields the LLaVA slice uses)."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+
+# the JAX config's options this slice leaves out, at their (off) defaults
+_UNPORTED = dict(quant=None, fused_qkv=False, scan_layers=False, cachekv_int8=False,
+                 gradient_checkpointing=False, rope_ntk_alpha=1.0, use_logn_attn=False,
+                 logn_seq_length=2048)
+
+
+@dataclasses.dataclass
+class LlamaConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_hidden_layers: int = 32
+    num_attention_heads: int = 32
+    num_key_value_heads: Optional[int] = None
+    head_dim: Optional[int] = None
+    max_position_embeddings: int = 4096
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 10000.0
+    hidden_act: str = "silu"
+    tie_word_embeddings: bool = False
+    attention_bias: bool = False
+    bos_token_id: int = 1
+    eos_token_id: int = 2
+    pad_token_id: Optional[int] = None
+
+    @classmethod
+    def from_dict(cls, d):
+        """The JAX config's options that this slice does not port must hold
+        their defaults. Weight-only int8 is not a config field here: it is
+        `LlamaForCausalLM.quantize_("wint8")`."""
+        names = {f.name for f in dataclasses.fields(cls)}
+        unported = {k: v for k, v in d.items()
+                    if k not in names and _UNPORTED.get(k, object()) != v}
+        if unported:
+            raise NotImplementedError(f"LlamaConfig: options not ported: {unported}")
+        return cls(**{k: v for k, v in d.items() if k in names})
+
+    @property
+    def kv_heads(self) -> int:
+        return self.num_key_value_heads or self.num_attention_heads
+
+    @property
+    def head_dim_(self) -> int:
+        return self.head_dim or self.hidden_size // self.num_attention_heads

@@ -1,0 +1,318 @@
+"""Llama decoder with a static KV cache, and greedy / sampled generation.
+Port of paddlemix_tpu/models/llama/modeling.py: the dense bf16-cache path
+(prefill and single-token decode), `MXUDense` with quant None or "wint8",
+`LlamaForCausalLM` and `greedy_generate`.
+
+Kernels on this path, each launched for CUDA tensors (plain versions on the
+CPU): RMSNorm (B11, `ops.norms.rms_norm`) for every norm, decode attention
+(B7, `ops.decode_attention`) for every single-token step, and under wint8
+the weight-only int8 GEMM (B6, `ops.quant.wint8_matmul`) for every
+projection and the lm_head. The JAX package routes the first two by v5e
+thresholds (at least 64 rows, at least 2048 cache slots); eager PyTorch has
+no fusion to lose, so the port launches them for every call. The prefill
+attends over the cache by math attention with a -1e9 bias past each query's
+position, as the JAX package does.
+
+The cache is updated in place (JAX returns a new one). Parameter names
+follow HF transformers (model.layers.N.self_attn.q_proj, ...), which the JAX
+key map renames (core.convert.LLAMA_KEY_MAP). Not ported yet: the
+cache-free (training) forward, int8 and paged caches, fused qkv, scanned
+layers, beam search, NTK / logn rope.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ...ops.attention import attention_math
+from ...ops.decode_attention import decode_attention
+from ...ops.norms import rms_norm
+from ...ops.quant import quantize_weights_int8, wint8_matmul
+from ...ops.rope import apply_rope, rope_cos_sin
+from .configuration import LlamaConfig
+
+
+@dataclasses.dataclass
+class KVCache:
+    """k/v: (num_layers, B, slots, kv_heads, head_dim); lengths: (B,) int32
+    tokens written per sample. The last slot parks the writes of padded
+    positions, so `max_len` = slots - 1. The JAX package rounds the slots to
+    128 for its TPU kernel's tiling; the port does not."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    lengths: torch.Tensor
+
+    @classmethod
+    def create(cls, config: LlamaConfig, batch: int, max_len: int, dtype=torch.bfloat16,
+               device="cuda"):
+        shape = (config.num_hidden_layers, batch, max_len + 1, config.kv_heads,
+                 config.head_dim_)
+        return cls(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros((batch,), dtype=torch.int32, device=device))
+
+    @property
+    def max_len(self) -> int:
+        return self.k.shape[2] - 1
+
+
+class RMSNorm(nn.Module):
+    """The scale is kept and used in fp32 whatever the model's dtype, as in
+    the JAX package; the output is in x's dtype."""
+
+    def __init__(self, hidden_size: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(hidden_size, dtype=torch.float32))
+
+    def forward(self, x):
+        return rms_norm(x, self.weight, self.eps)
+
+
+class MXUDense(nn.Linear):
+    """A Linear with the JAX `MXUDense`'s weight-only int8 mode. The JAX
+    module pads the rows to 8 for the TPU's matrix unit; the port does not.
+    `quantize_wint8_()` replaces the weight by `kernel_q` (out, in) int8 and
+    `scale` (out,) fp32 in place, after which the forward is the B6 kernel."""
+
+    quant: Optional[str] = None
+
+    def forward(self, x):
+        if self.quant != "wint8":
+            return F.linear(x, self.weight, self.bias)
+        out = wint8_matmul(x, self.kernel_q, self.scale)
+        return out if self.bias is None else out + self.bias.to(out.dtype)
+
+    @torch.no_grad()
+    def quantize_wint8_(self) -> int:
+        """Quantize the weight once (one leaf of `quantize_tree_wint8`).
+        Returns the bytes freed."""
+        if self.quant == "wint8":
+            return 0
+        w = self.weight
+        kernel_q, scale = quantize_weights_int8(w)
+        freed = w.numel() * w.element_size() - kernel_q.numel() - 4 * scale.numel()
+        del self.weight
+        self.register_buffer("kernel_q", kernel_q)
+        self.register_buffer("scale", scale)
+        self.quant = "wint8"
+        return freed
+
+
+class _Step(NamedTuple):
+    """What every layer of one forward shares: rope, the cache slots to write,
+    and either the decode lengths (one token) or the prefill bias."""
+
+    cos: torch.Tensor
+    sin: torch.Tensor
+    write_idx: torch.Tensor        # (B, S) slot of each position
+    lengths: Optional[torch.Tensor]  # (B,) int32, single-token steps
+    bias: Optional[torch.Tensor]     # (B, 1, S, slots - 1) fp32, prefill
+
+
+class LlamaAttention(nn.Module):
+    def __init__(self, cfg: LlamaConfig):
+        super().__init__()
+        self.num_heads, self.kv_heads, self.head_dim = (cfg.num_attention_heads, cfg.kv_heads,
+                                                        cfg.head_dim_)
+        nq, nkv = self.num_heads * self.head_dim, self.kv_heads * self.head_dim
+        self.q_proj = MXUDense(cfg.hidden_size, nq, bias=cfg.attention_bias)
+        self.k_proj = MXUDense(cfg.hidden_size, nkv, bias=cfg.attention_bias)
+        self.v_proj = MXUDense(cfg.hidden_size, nkv, bias=cfg.attention_bias)
+        self.o_proj = MXUDense(nq, cfg.hidden_size, bias=False)
+
+    def forward(self, x, step: _Step, cache: KVCache, layer_idx: int):
+        b, s, _ = x.shape
+        q = self.q_proj(x).view(b, s, self.num_heads, self.head_dim)
+        k = self.k_proj(x).view(b, s, self.kv_heads, self.head_dim)
+        v = self.v_proj(x).view(b, s, self.kv_heads, self.head_dim)
+        q, k = apply_rope(q, k, step.cos, step.sin)
+        bidx = torch.arange(b, device=x.device)[:, None]
+        ck, cv = cache.k[layer_idx], cache.v[layer_idx]
+        ck[bidx, step.write_idx] = k.to(ck.dtype)
+        cv[bidx, step.write_idx] = v.to(cv.dtype)
+        ck, cv = ck[:, :-1], cv[:, :-1]  # the parking slot is never read
+        if step.lengths is not None:
+            out = decode_attention(q, ck, cv, step.lengths)
+        else:
+            out = attention_math(q, ck, cv, bias=step.bias)
+        return self.o_proj(out.reshape(b, s, -1))
+
+
+class LlamaMLP(nn.Module):
+    def __init__(self, cfg: LlamaConfig):
+        super().__init__()
+        self.gate_proj = MXUDense(cfg.hidden_size, cfg.intermediate_size, bias=False)
+        self.up_proj = MXUDense(cfg.hidden_size, cfg.intermediate_size, bias=False)
+        self.down_proj = MXUDense(cfg.intermediate_size, cfg.hidden_size, bias=False)
+
+    def forward(self, x):
+        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+
+
+class LlamaDecoderLayer(nn.Module):
+    def __init__(self, cfg: LlamaConfig):
+        super().__init__()
+        self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
+        self.self_attn = LlamaAttention(cfg)
+        self.post_attention_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
+        self.mlp = LlamaMLP(cfg)
+
+    def forward(self, x, step: _Step, cache: KVCache, layer_idx: int):
+        x = x + self.self_attn(self.input_layernorm(x), step, cache, layer_idx)
+        return x + self.mlp(self.post_attention_layernorm(x))
+
+
+class LlamaModule(nn.Module):
+    """Embedding, decoder layers (unrolled) and the final norm: the JAX
+    `LlamaModule` without its lm_head, which `LlamaForCausalLM` holds (HF
+    names: model.*, lm_head)."""
+
+    def __init__(self, cfg: LlamaConfig):
+        super().__init__()
+        self.config = cfg
+        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
+        self.layers = nn.ModuleList(LlamaDecoderLayer(cfg) for _ in range(cfg.num_hidden_layers))
+        self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
+
+    def embed(self, input_ids):
+        return self.embed_tokens(input_ids)
+
+    def forward(self, input_ids=None, positions=None, *, inputs_embeds=None,
+                cache: Optional[KVCache] = None):
+        """Returns the final hidden states; writes this step's keys and values
+        into `cache` and advances its lengths by the valid (position >= 0)
+        tokens."""
+        if cache is None:
+            raise NotImplementedError("LlamaModule: the cache-free (training) forward is not "
+                                      "ported yet")
+        cfg = self.config
+        x = self.embed_tokens(input_ids) if inputs_embeds is None else inputs_embeds
+        b, s = x.shape[:2]
+        if positions is None:
+            positions = torch.arange(s, device=x.device).expand(b, s)
+        slots = cache.k.shape[2]
+        cos, sin = rope_cos_sin(positions, cfg.head_dim_, cfg.rope_theta)
+        write_idx = torch.where(positions >= 0, positions.clamp(max=slots - 1), slots - 1)
+        if s == 1:
+            step = _Step(cos, sin, write_idx, (positions[:, 0] + 1).int(), None)
+        else:  # key j visible to the query at position p iff j <= p
+            key_pos = torch.arange(slots - 1, device=x.device)
+            visible = key_pos[None, None, None, :] <= positions[:, None, :, None]
+            bias = torch.where(visible, 0.0, -1e9).float()
+            step = _Step(cos, sin, write_idx, None, bias)
+        for i, layer in enumerate(self.layers):
+            x = layer(x, step, cache, i)
+        cache.lengths += (positions >= 0).sum(dim=-1).int()
+        return self.norm(x)
+
+
+class LlamaForCausalLM(nn.Module):
+    def __init__(self, config: LlamaConfig):
+        super().__init__()
+        self.config = config
+        self.model = LlamaModule(config)
+        self.lm_head = None if config.tie_word_embeddings else \
+            MXUDense(config.hidden_size, config.vocab_size, bias=False)
+
+    @property
+    def device(self):
+        return self.model.embed_tokens.weight.device
+
+    @property
+    def dtype(self):
+        return self.model.embed_tokens.weight.dtype
+
+    def embed(self, input_ids):
+        return self.model.embed(input_ids)
+
+    def forward(self, input_ids=None, positions=None, *, inputs_embeds=None,
+                cache: Optional[KVCache] = None):
+        """-> (logits (B, S, vocab), cache)."""
+        hidden = self.model(input_ids, positions, inputs_embeds=inputs_embeds, cache=cache)
+        if self.lm_head is None:
+            return F.linear(hidden, self.model.embed_tokens.weight), cache
+        return self.lm_head(hidden), cache
+
+    def init_cache(self, batch: int, max_len: int, dtype=None) -> KVCache:
+        return KVCache.create(self.config, batch, max_len, dtype=dtype or self.dtype,
+                              device=self.device)
+
+    def quantize_(self, mode: str = "wint8") -> int:
+        """In-place weight-only int8 of every projection and the lm_head (the
+        reference deploy's weight_only_int8; embeddings and norms stay), one
+        layer at a time, so that peak memory is the model plus one weight's
+        temporaries (port of `quantize_tree_wint8`). Returns the bytes freed.
+        a8w8 / a8w4 / wint4 are not ported yet."""
+        if mode != "wint8":
+            raise NotImplementedError(f"quantize_({mode!r}): only 'wint8' is ported")
+        return sum(m.quantize_wint8_() for m in list(self.modules()) if isinstance(m, MXUDense))
+
+
+class SamplingConfig(NamedTuple):
+    temperature: float = 1.0
+    top_k: int = 0
+    top_p: float = 1.0
+    do_sample: bool = False
+
+
+def sample_token(logits, cfg: SamplingConfig, generator: Optional[torch.Generator] = None):
+    """logits: (B, V) -> (B,) int64. Greedy takes the first maximum, as
+    jnp.argmax does. Sampling draws from `generator` (its stream is not
+    JAX's): temperature, then top-k, then the smallest set of top
+    probabilities whose sum reaches top_p, as the JAX package filters."""
+    if not cfg.do_sample:
+        return logits.argmax(dim=-1)
+    logits = logits / max(cfg.temperature, 1e-6)
+    if cfg.top_k > 0:
+        kth = logits.sort(dim=-1).values[:, -cfg.top_k][:, None]
+        logits = logits.masked_fill(logits < kth, float("-inf"))
+    if cfg.top_p < 1.0:
+        sorted_logits = logits.sort(dim=-1, descending=True).values
+        cum = sorted_logits.softmax(dim=-1).cumsum(dim=-1)
+        cutoff_idx = (cum < cfg.top_p).sum(dim=-1, keepdim=True)
+        cutoff = sorted_logits.gather(-1, cutoff_idx)
+        logits = logits.masked_fill(logits < cutoff, float("-inf"))
+    return torch.multinomial(logits.softmax(dim=-1), 1, generator=generator)[:, 0]
+
+
+@torch.inference_mode()
+def greedy_generate(model: LlamaForCausalLM, input_ids, attention_mask=None,
+                    max_new_tokens: int = 32, eos_token_id: Optional[int] = None,
+                    sampling: SamplingConfig = SamplingConfig(),
+                    generator: Optional[torch.Generator] = None, inputs_embeds=None):
+    """Prefill, then one cached forward per new token (port of
+    `greedy_generate`). input_ids: (B, S) right-padded, with attention_mask 0
+    on padding. Returns (B, max_new_tokens) int32; after every sample has
+    made eos the rest stay 0, as in JAX. The JAX package pads prompts to a
+    bucket so that one compiled program serves many lengths; eager PyTorch
+    needs no bucket. The all-done test reads the device, so it runs only
+    when the eos id is >= 0 (the LLaVA bench passes -1: every request makes
+    max_new_tokens tokens)."""
+    eos = model.config.eos_token_id if eos_token_id is None else eos_token_id
+    dev = model.device
+    input_ids = input_ids.to(dev)
+    b, s = input_ids.shape
+    mask = (torch.ones((b, s), dtype=torch.int32, device=dev) if attention_mask is None
+            else attention_mask.to(dev).int())
+    cache = model.init_cache(b, s + max_new_tokens)
+    positions = torch.where(mask > 0, mask.cumsum(dim=-1) - 1, -1)
+    logits, cache = model(input_ids, positions, inputs_embeds=inputs_embeds, cache=cache)
+    last = logits[torch.arange(b, device=dev), mask.sum(dim=-1) - 1]
+    tokens = torch.zeros((b, max_new_tokens), dtype=torch.int32, device=dev)
+    tokens[:, 0] = sample_token(last.float(), sampling, generator)
+    done = tokens[:, 0] == eos
+    for step in range(max_new_tokens - 1):
+        if eos >= 0 and bool(done.all()):
+            break
+        logits, cache = model(tokens[:, step:step + 1], cache.lengths[:, None], cache=cache)
+        nxt = sample_token(logits[:, -1].float(), sampling, generator).int()
+        tokens[:, step + 1] = torch.where(done, eos, nxt)
+        done |= tokens[:, step + 1] == eos
+    return tokens

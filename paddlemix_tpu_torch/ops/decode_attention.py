@@ -1,0 +1,114 @@
+"""Decode attention: one query token over a static (B, L, KVH, D) KV cache,
+masked by per-sample lengths. Port of paddlemix_tpu/ops/decode_attention.py
+(the bf16-cache kernel; the int8-cache one is not ported yet).
+
+`decode_attention` launches the CUDA kernel of `csrc/decode_attention.cu` (B7)
+for CUDA tensors and runs its plain version `decode_attention_ref` for CPU
+tensors. GQA maps query head j to kv head j // (Hq / KVH), as the JAX package
+does.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+NEG = -0.7 * float(torch.finfo(torch.float32).max)
+_KERNEL_HEAD_DIMS = (64, 128)
+_KERNEL_GROUPS = (1, 2, 4, 8)
+_TARGET_BLOCKS = 264     # two blocks per SM on a 132-SM card
+_MIN_SPLIT_KEYS = 64     # fewer keys per block would not pay for the merge
+
+
+def key_splits(batch: int, kv_heads: int, slots: int):
+    """(splits, keys per split) for the kernel: enough (batch, kv head, key
+    range) blocks to fill the card, each range at least _MIN_SPLIT_KEYS."""
+    splits = max(1, min(-(-_TARGET_BLOCKS // (batch * kv_heads)), slots // _MIN_SPLIT_KEYS))
+    return splits, -(-slots // splits)
+
+
+def decode_attention_ref(q, k_cache, v_cache, lengths, *, scale: Optional[float] = None):
+    """Plain version (port of `decode_attention_xla`): fp32 logits x scale,
+    positions at or past the length masked to NEG, fp32 softmax, P in v's
+    dtype for the PV product. q: (B, 1, Hq, D); k/v_cache: (B, L, KVH, D);
+    lengths: (B,) valid tokens. Returns (B, 1, Hq, D)."""
+    hq, d = q.shape[2], q.shape[3]
+    L, kvh = k_cache.shape[1], k_cache.shape[2]
+    scale = d ** -0.5 if scale is None else scale
+    if kvh != hq:
+        k_cache = k_cache.repeat_interleave(hq // kvh, dim=2)
+        v_cache = v_cache.repeat_interleave(hq // kvh, dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k_cache.float()) * scale
+    mask = torch.arange(L, device=q.device)[None, None, None, :] < lengths[:, None, None, None]
+    p = torch.softmax(logits.masked_fill(~mask, NEG), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p.to(v_cache.dtype), v_cache).to(q.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_fn():
+    from ..kernels import load_library
+
+    fn = load_library("decode_attention").decode_attention_bf16
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 6
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _decode_cuda(q, k_cache, v_cache, lengths, scale):
+    b, one, hq, d = q.shape
+    L, kvh = k_cache.shape[1], k_cache.shape[2]
+    if one != 1 or tuple(k_cache.shape) != (b, L, kvh, d) or v_cache.shape != k_cache.shape:
+        raise ValueError(f"decode_attention: shapes q {tuple(q.shape)} k {tuple(k_cache.shape)} "
+                         f"v {tuple(v_cache.shape)} do not match")
+    if d not in _KERNEL_HEAD_DIMS or hq % kvh or hq // kvh not in _KERNEL_GROUPS:
+        raise ValueError(f"decode_attention kernel takes head_dim in {_KERNEL_HEAD_DIMS} and "
+                         f"Hq / KVH in {_KERNEL_GROUPS}, got D = {d}, Hq = {hq}, KVH = {kvh}")
+    if q.dtype != torch.bfloat16 or not q.is_contiguous():
+        raise ValueError(f"decode_attention: q must be a contiguous bf16 tensor, got {q.dtype} "
+                         f"strides {q.stride()}")
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if t.device != q.device or t.dtype != torch.bfloat16 or t.stride(-1) != 1 \
+                or any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
+            raise ValueError(f"decode_attention: {name} must be bf16 on {q.device} with unit "
+                             f"stride over D and 16-byte aligned rows, got {t.dtype} on "
+                             f"{t.device}, strides {t.stride()}")
+    if lengths.device != q.device or lengths.dtype != torch.int32 or tuple(lengths.shape) != (b,):
+        raise ValueError(f"decode_attention: lengths must be ({b},) int32 on {q.device}, got "
+                         f"{lengths.dtype} {tuple(lengths.shape)} on {lengths.device}")
+    lengths = lengths.contiguous()
+    out = torch.empty_like(q)
+    splits, chunk = key_splits(b, kvh, L)
+    # per (query head, key range): the range's max, sum and unnormalised output
+    partial = torch.empty((b, hq, splits, d + 2), dtype=torch.float32, device=q.device) \
+        if splits > 1 else None
+    with torch.cuda.device(q.device):
+        err = _decode_fn()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                           lengths.data_ptr(), out.data_ptr(),
+                           0 if partial is None else partial.data_ptr(), b, L, kvh, hq // kvh,
+                           d, splits, chunk, *k_cache.stride()[:3], *v_cache.stride()[:3],
+                           float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"decode_attention_bf16 launch failed with cudaError {err}")
+    decode_attention.launches += 1
+    return out
+
+
+def decode_attention(q, k_cache, v_cache, lengths, *, scale: Optional[float] = None):
+    """Single-token attention over the cache (port of `decode_attention`).
+    q: (B, 1, Hq, D); k/v_cache: (B, L, KVH, D), any strides with unit stride
+    over D; lengths: (B,) int32 tokens valid, the current one already
+    written. CUDA tensors launch the kernel; CPU tensors run
+    `decode_attention_ref`."""
+    scale = q.shape[3] ** -0.5 if scale is None else scale
+    if q.is_cuda:
+        return _decode_cuda(q, k_cache, v_cache, lengths, scale)
+    if q.device.type != "cpu":
+        raise ValueError(f"decode_attention: unsupported device {q.device}")
+    return decode_attention_ref(q, k_cache, v_cache, lengths, scale=scale)
+
+
+decode_attention.launches = 0  # kernel launches (CUDA tensors only)

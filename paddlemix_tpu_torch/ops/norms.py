@@ -1,5 +1,16 @@
-"""GroupNorm (+SiLU) over channel-minor (..., C) tensors. Port of the GroupNorm
-half of paddlemix_tpu/ops/norms.py.
+"""GroupNorm (+SiLU) over channel-minor (..., C) tensors, and RMSNorm. Port of
+the GroupNorm and RMSNorm parts of paddlemix_tpu/ops/norms.py.
+
+RMSNorm (B11): `rms_norm` launches a Triton kernel for CUDA tensors and runs
+its plain version `rms_norm_ref` for CPU tensors. It replaces the forward
+Pallas kernel `_rms_norm_pallas_fwd_impl` / `_rms_fwd_kernel`: fp32 mean of
+x^2, rsqrt(+eps), times the fp32 weight, cast to x's dtype. One program
+normalises one row (Llama-7B: 4096 wide, 8 KB in bf16), so the kernel reads
+x once and writes y once: it is bound by those bytes, and a single-row call
+(decode) by its launch. The JAX package sends fewer than 64 rows to XLA,
+which fuses the norm into its neighbours; eager PyTorch has no such fusion,
+and the plain version is about six launches, so the port launches the
+kernel for every row count.
 
 `group_norm` launches the Triton kernel below for CUDA tensors and runs its
 plain version `group_norm_ref` for CPU tensors. `group_norm_stats` runs the
@@ -247,3 +258,67 @@ def group_norm_stats(x, groups: int, eps: float = 1e-5):
 
 
 group_norm_stats.launches = 0  # statistics-pass launches (CUDA tensors only)
+
+
+# ---------------------------------------------------------------- RMSNorm
+_RMS_MAX_WIDTH = 16384  # one row in one program's registers
+
+
+def rms_norm_ref(x, weight, eps: float = 1e-6):
+    """Plain version (port of `rms_norm_xla`): x * rsqrt(mean(x^2) + eps) * w,
+    all in fp32, cast to x's dtype."""
+    xf = x.float()
+    y = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    return (y * weight.float()).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _rms_kernel():
+    global tl
+    import triton
+    import triton.language as tl
+
+    @triton.jit
+    def rms_norm_fwd(x_ptr, w_ptr, y_ptr, H, eps, BLOCK_H: tl.constexpr):
+        row = tl.program_id(0).to(tl.int64)
+        cols = tl.arange(0, BLOCK_H)
+        mask = cols < H
+        x = tl.load(x_ptr + row * H + cols, mask=mask, other=0.0).to(tl.float32)
+        y = x * tl.rsqrt(tl.sum(x * x, axis=0) / H + eps)
+        w = tl.load(w_ptr + cols, mask=mask, other=0.0).to(tl.float32)
+        tl.store(y_ptr + row * H + cols, (y * w).to(y_ptr.dtype.element_ty), mask=mask)
+
+    return rms_norm_fwd
+
+
+def _rms_norm_triton(x, weight, eps):
+    h = x.shape[-1]
+    if x.dtype not in (torch.bfloat16, torch.float16, torch.float32) or not x.is_contiguous() \
+            or h > _RMS_MAX_WIDTH:
+        raise ValueError(f"rms_norm kernel takes a contiguous bf16/fp16/fp32 tensor at most "
+                         f"{_RMS_MAX_WIDTH} wide, got {x.dtype} {tuple(x.shape)} strides "
+                         f"{x.stride()}")
+    if weight.device != x.device or weight.shape != (h,) or not weight.is_contiguous():
+        raise ValueError(f"rms_norm: weight must be a contiguous ({h},) tensor on {x.device}, "
+                         f"got {tuple(weight.shape)} on {weight.device}")
+    y = torch.empty_like(x)
+    rows = x.numel() // h
+    block = max(128, 1 << (h - 1).bit_length())
+    with torch.cuda.device(x.device):
+        _rms_kernel()[(rows,)](x, weight, y, h, float(eps), BLOCK_H=block,
+                               num_warps=min(16, max(1, block // 512)))
+    rms_norm.launches += 1
+    return y
+
+
+def rms_norm(x, weight, eps: float = 1e-6):
+    """RMSNorm over the last axis (port of `rms_norm`, forward). CUDA tensors
+    launch the Triton kernel; CPU tensors run `rms_norm_ref`."""
+    if x.is_cuda:
+        return _rms_norm_triton(x, weight, eps)
+    if x.device.type != "cpu":
+        raise ValueError(f"rms_norm: unsupported device {x.device}")
+    return rms_norm_ref(x, weight, eps)
+
+
+rms_norm.launches = 0  # kernel launches (CUDA tensors only)

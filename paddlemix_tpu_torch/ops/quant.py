@@ -1,6 +1,10 @@
-"""Static-scale a8w8 PTQ: the scale scope and the quantized layers. Port of
-the static half of paddlemix_tpu/ops/quant.py (static_a8w8_scope,
-static_quant_dot_general, static_quant_conv_general_dilated).
+"""Static-scale a8w8 PTQ (the scale scope and the quantized layers) and
+weight-only int8. Port of the static half of paddlemix_tpu/ops/quant.py
+(static_a8w8_scope, static_quant_dot_general,
+static_quant_conv_general_dilated) and of its weight-only int8 part
+(quantize_weights_int8, wint8_matmul; the module-level quantizer is
+models/llama MXUDense.quantize_wint8_); the weight-only int8 notes are at
+the end of the module.
 
 PTQ here means int8 activations with one scale per op, recorded once from a
 calibration forward, and int8 weights with one scale per output channel.
@@ -30,6 +34,8 @@ Numerics, as the JAX package: sx = max(raw, 1e-6) / 127; sw = max(|w|max,
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import List, Optional, Sequence
 
 import torch
@@ -192,3 +198,95 @@ def load_static_scales(modules: Sequence[_StaticQuant], raw: Sequence[float]):
                          f"quantized ops")
     for m, r in zip(modules, raw):
         m.load_scale(r)
+
+
+# ------------------------------------------------------- weight-only int8
+# Llama's projections under quant="wint8" (the reference deploy's
+# weight_only_int8): bf16 activations times int8 weights with one fp32 scale
+# per output column, summed in fp32, as the JAX package's Pallas kernel does
+# (x cast to bf16, the int8 tile widened to bf16, fp32 accumulation, x scale).
+# The weight is kept (N, K), K-contiguous per output column (nn.Linear's
+# layout); the JAX package keeps the flax kernel's (K, N).
+#
+# `wint8_matmul` launches `csrc/wint8_gemm.cu` (B6) for CUDA tensors and runs
+# `wint8_matmul_ref` for CPU tensors.
+
+def quantize_weights_int8(w):
+    """w: (N, K), one row per output column -> (int8 (N, K), (N,) fp32
+    scales). Port of `quantize_weights_int8` (which takes the (K, N) flax
+    kernel): scale = absmax / 127 per output column, 1.0 for an all-zero
+    column; w / scale rounded half to even and clipped to +-127. Not B2's
+    quantizer (`quantize_weight_per_cout`: max(absmax, 1e-8) and a multiply
+    by the reciprocal)."""
+    wf = w.detach().float()
+    absmax = wf.abs().amax(dim=1)
+    scale = torch.where(absmax == 0, torch.ones_like(absmax), absmax / 127.0)
+    wq = torch.round(wf / scale[:, None]).clamp_(-127, 127).to(torch.int8)
+    return wq, scale
+
+
+def wint8_matmul_ref(x, wq, scale):
+    """Plain version: x (..., K), wq (N, K) int8, scale (N,) fp32 -> (..., N)
+    in x's dtype, = (bf16(x) @ wq^T) * scale with fp32 sums. Every product
+    of a bf16 value and an int8 value is exact in fp32 (and in TF32, whose
+    10-bit significand holds both), so only the order of the sums differs
+    from the kernel. x is rounded to bf16 first, as both JAX paths do."""
+    k, n = x.shape[-1], wq.shape[0]
+    xb = x.reshape(-1, k).to(torch.bfloat16).float()
+    out = (xb @ wq.float().t()) * scale.float()
+    return out.to(x.dtype).reshape(*x.shape[:-1], n)
+
+
+@functools.lru_cache(maxsize=None)
+def _wint8_fn():
+    from ..kernels import load_library
+
+    fn = load_library("wint8_gemm").wint8_gemm_bf16
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def wint8_kernel_takes(m: int, k: int, n: int) -> bool:
+    """The shapes B6 takes: 16-byte rows of x and wq, column pairs and
+    8-column chunks in the epilogue, row tiles within the grid."""
+    return k % 16 == 0 and n % 8 == 0 and 0 < -(-m // 128) <= 65535
+
+
+def _wint8_cuda(x, wq, scale):
+    k, n = x.shape[-1], wq.shape[0]
+    m = x.numel() // k
+    for name, t, dtype, shape in (("wq", wq, torch.int8, (n, k)),
+                                  ("scale", scale, torch.float32, (n,))):
+        if t.device != x.device or t.dtype != dtype or tuple(t.shape) != shape \
+                or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"wint8_matmul: {name} must be a contiguous, 16-byte aligned "
+                             f"{dtype} {shape} tensor on {x.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if x.dtype != torch.bfloat16 or not x.is_contiguous() or x.data_ptr() % 16 \
+            or not wint8_kernel_takes(m, k, n):
+        raise ValueError(f"wint8_matmul kernel takes a contiguous, 16-byte aligned bf16 x "
+                         f"with K % 16 == 0 and N % 8 == 0, got {x.dtype} {tuple(x.shape)} "
+                         f"(strides {x.stride()}) and N = {n}")
+    out = torch.empty((*x.shape[:-1], n), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _wint8_fn()(x.data_ptr(), wq.data_ptr(), scale.data_ptr(), out.data_ptr(),
+                          m, n, k, torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"wint8_gemm_bf16 launch failed with cudaError {err}")
+    wint8_matmul.launches += 1
+    return out
+
+
+def wint8_matmul(x, wq, scale):
+    """Weight-only int8 matmul (port of `wint8_matmul`): x (..., K) @ wq
+    (N, K) int8, x scale (N,) -> (..., N) in x's dtype. CUDA tensors launch
+    the kernel; CPU tensors run `wint8_matmul_ref`."""
+    if x.is_cuda:
+        return _wint8_cuda(x, wq, scale)
+    if x.device.type != "cpu":
+        raise ValueError(f"wint8_matmul: unsupported device {x.device}")
+    return wint8_matmul_ref(x, wq, scale)
+
+
+wint8_matmul.launches = 0  # kernel launches (CUDA tensors only)
