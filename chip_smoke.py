@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (paddlemix_tpu_torch) on one CUDA card.
 
-Drives two slices at their published widths with weights drawn on the card
+Drives three slices at their published widths with weights drawn on the card
 from a seeded torch.Generator:
 
   - SDXL-1024 text-to-image through StableDiffusionXLPipeline.__call__, in
@@ -10,7 +10,10 @@ from a seeded torch.Generator:
     bf16 path);
   - LLaVA-1.5-7B generation through LlavaForConditionalGeneration.generate
     (CLIP ViT-L/14-336, mlp2x_gelu projector, Llama-7B, all 32 layers) at the
-    JAX bench's shapes, in bf16 and then weight-only int8 (wint8).
+    JAX bench's shapes, in bf16 and then weight-only int8 (wint8);
+  - SD3-medium text-to-image through StableDiffusion3Pipeline.__call__
+    (MM-DiT 24 x 1536, CLIP-L + bigG with projection, T5 v1.1-XXL encoder,
+    16-channel VAE, FlowMatch Euler) in bf16.
 
 Phases:
 
@@ -19,7 +22,9 @@ Phases:
                    build/kernels/, one process per source, in parallel
   3. kernels       each SDXL kernel against its plain PyTorch version at the
                    main path's shapes: kernel, plain and library-call times
-                   from CUDA events, and the bound
+                   from CUDA events, and the bound; flash is gated per
+                   element, with a control (the plain version without the
+                   last tile's keys) that must fail the same limit
   4. agree         one full-width bf16 UNet forward at a small latent, kernels
                    vs plain
   5. serve         3 bf16 requests, 1024x1024, 25 Euler steps, guidance 5.0;
@@ -34,7 +39,8 @@ Phases:
   8. a8w8 serve    the same 3 requests in a8w8, with the same checks
   9. llava kernels the SDXL pipeline is freed; each LLaVA kernel (wint8 GEMM,
                    decode attention, RMSNorm) against its plain version at
-                   the decode and prefill shapes, with times and bounds;
+                   the decode and prefill shapes (RMSNorm also at T5's 77
+                   rows, the SD3 path's), with times and bounds;
                    weights, caches and the RMSNorm input rotate through
                    copies that together pass three times the L2 cache, as
                    the model's layers find them cold (up to 64 copies: the
@@ -49,6 +55,19 @@ Phases:
                    launches equal to `expected_launches_llava`
  12. wint8         quantize in place (seconds, bytes freed), then agree and
                    serve again with the wint8 GEMM as well
+ 13. sd3 kernels   LLaVA is freed; adaLN (B12) and fused adaLN + gated
+                   residual (B13) against their plain versions at the image
+                   and context rows, each with a control (the plain version
+                   without the shift, or without the gate) that must fail
+                   the same limit; flash at the ragged 4,250-token joint
+                   attention, whose control leaves out the 26 keys of the
+                   ragged tail; times and bounds as above
+ 14. sd3 agree     SD3-medium is built; one full-width transformer forward at
+                   64x64 latents (1,024 + 154 tokens), kernels vs plain
+ 15. sd3 serve     3 requests, 1024x1024, 28 steps, guidance 7.0: seconds,
+                   image finite in [0, 1], peak memory, and launches of every
+                   kernel equal to `expected_launches_sd3` (B1, B4, B11, B12,
+                   B13; every other kernel 0)
 
 Any failed check exits non-zero. Without a CUDA card, or outside a checkout
 of the repository, it exits non-zero before printing any result. The line
@@ -86,7 +105,12 @@ CONV_SHAPES = [(2, 64, 64, 1280), (1, 512, 512, 512), (1, 1024, 1024, 256)]
 # ((B, H, W, C), O, epilogue) of the fused resnet conv
 FUSED_CASES = [((2, 128, 128, 320), 320, None), ((2, 32, 32, 2560), 1280, "temb"),
                ((2, 32, 32, 1280), 1280, "residual"), ((1, 1024, 1024, 128), 128, None)]
-FLASH_TOL = 2e-2  # x max(1, |ref|max): bf16 inputs and P against an fp32 plain version
+# B1: bf16 P and output against the fp32 plain version, per element:
+# |out - ref| <= 2**-7 |ref| (the output's rounding) + FLASH_SUM |ref|max (P's
+# rounding); the run prints the least c each shape needs. The plain version
+# over all keys but the last tile's (the ragged tail of 26 keys at SD3's
+# 4,250) must fail it (the control).
+FLASH_ULP, FLASH_SUM = 2.0 ** -7, 4e-3
 GN_TOL = 3e-2     # absolute: bf16 output rounding (half an ulp is 1.6e-2 below 8)
 # B2, B3, B5: the int32 sums are exact on both sides and the kernels round
 # every fp32 step (affine, SiLU, quantize, dequant, epilogue) as the plain
@@ -104,7 +128,7 @@ WINT8_SHAPES = [(1, 4096, 4096), (1, 4096, 11008), (1, 11008, 4096), (1, 4096, 3
 # (B, Hq, KVH, D, L, lengths) of decode attention: Llama-7B's first decode step
 # over the bench's 736-slot cache, and a long GQA cache
 DECODE_CASES = [(1, 32, 32, 128, 736, (609,)), (2, 32, 8, 128, 4096, (4000, 1500))]
-RMS_SHAPES = [(608, 4096), (1, 4096)]  # (rows, width): prefill, decode
+RMS_SHAPES = [(608, 4096), (1, 4096), (77, 4096)]  # (rows, width): prefill, decode, T5
 # B6: fp32 sums of exact products in another order than the plain version's,
 # then one bf16 rounding each: |out - ref| <= 2**-7 |ref| + 1e-5 |ref|max
 WINT8_ULP, WINT8_SUM = 2.0 ** -7, 1e-5
@@ -120,6 +144,24 @@ LLAVA_AGREE_TOL = 5e-2
 LLAVA_AGREE_STEPS = 4
 LLAVA_NEW_TOKENS = 128
 LLAVA_REQUESTS = [1, 2, 3]  # pixel seeds
+# SD3-medium: 1024 px, 28 FlowMatch steps, guidance 7.0 (CFG batch 2), the
+# seeded T5 stand-in tokenizer
+SD3_STEPS = 28
+SD3_GUIDANCE = 7.0
+SD3_REQUESTS = [("a photograph of an astronaut riding a horse on the moon", 0),
+                ("a watercolor painting of a lighthouse at dawn", 1),
+                ("a bowl of ramen on a wooden table, studio lighting", 2)]
+SD3_T5_SEED = 0
+# (B, S, H) of B12/B13: the image stream (4096 tokens) and the context stream
+# (77 CLIP + 77 T5 tokens), CFG batch 2, hidden 1536
+ADALN_SHAPES = [(2, 4096, 1536), (2, 154, 1536)]
+SD3_FLASH_SHAPE = (2, 4250, 24, 64)  # the joint attention: 4096 + 154 tokens, ragged
+# B12/B13: fp32 sums in another order than the plain version's, then one bf16
+# rounding each: |out - ref| <= 2**-7 |ref| + ADALN_SUM |ref|max. The first
+# run on an H100 needed at most 5.4e-9 |ref|max beyond one bf16 rounding; the
+# plain version without the shift (B12) or the gate (B13) must fail it (the
+# control).
+ADALN_SUM = 1e-6
 # H100 SXM peaks (NVIDIA data sheet, dense) for the bounds
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
@@ -209,6 +251,15 @@ def bf16_ulps(out, ref):
     return ((out.float() - ref).abs() / (2.0 ** -7 * ref.abs() + 2.0 ** -126)).max().item()
 
 
+def ulp_gate(out, ref, c):
+    """(excess of |out - ref| over 2**-7 |ref| + c |ref|max, the least c that
+    would pass); the excess must be <= 0."""
+    ref = ref.float()
+    diff = (out.float() - ref).abs() - 2.0 ** -7 * ref.abs()
+    peak = ref.abs().max()
+    return (diff - c * peak).max().item(), (diff.max() / peak).item()
+
+
 def plain_swaps(m, int8=True, bf16=True):
     """(module, wrapper name, plain version) for the kernel wrappers the model
     calls: the int8 ones (B2, B3, B5), and with `bf16` also flash attention
@@ -263,6 +314,7 @@ class swapped:
 def main():
     import types
 
+    import numpy as np
     import torch
     import torch.nn.functional as F
 
@@ -325,23 +377,33 @@ def main():
         summary.setdefault(name, []).append(dict(shape=shape, err=err, ms=ms, plain_ms=plain_ms,
                                                  library_ms=lib_ms, bound=bnd))
 
-    for shape in FLASH_SHAPES:
+    def flash_case(label, shape):
         b_, s_, h_, d_ = shape
         q, k, v = (torch.randn(shape, generator=gen, device=dev, dtype=bf16) for _ in range(3))
         out = attn_mod.flash_attention(q, k, v)
         torch.cuda.synchronize()
         ref = attn_mod.flash_attention_ref(q.float(), k.float(), v.float())
         err = (out.float() - ref).abs().max().item()
-        tol = FLASH_TOL * max(1.0, ref.abs().max().item())
-        print(f"[kernels] flash {shape} bf16: max_abs_err {err:.3e} (tol {tol:.3e})", flush=True)
-        check(bool(torch.isfinite(out).all()) and err <= tol, f"flash {shape}: err {err}")
+        excess, need = ulp_gate(out, ref, FLASH_SUM)
+        # the control: the keys of the last tile (the ragged tail) left out
+        n = s_ - (s_ % 64 or 64)
+        control, _ = ulp_gate(attn_mod.flash_attention_ref(q.float(), k[:, :n].float(),
+                                                           v[:, :n].float()), ref, FLASH_SUM)
+        print(f"[{label}] flash {shape} bf16: max_abs_err {err:.3e}, excess {excess:.3e} over "
+              f"{FLASH_ULP:.4g}|ref| + {FLASH_SUM:g}|ref|max (least c {need:.2e}); control "
+              f"without the last {s_ - n} keys: excess {control:.3e} (must be > 0)", flush=True)
+        check(bool(torch.isfinite(out).all()) and excess <= 0, f"flash {shape}: excess {excess}")
+        check(control > 0, f"flash {shape}: the control passes the limit ({control})")
+        del ref
         ms, plain_ms = timed_pair(torch, lambda: attn_mod.flash_attention(q, k, v),
                                   lambda: attn_mod.flash_attention_ref(q, k, v))
         qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
         lib_ms = library_ms(torch, lambda: F.scaled_dot_product_attention(qh, kh, vh))
-        record("kernels", "flash_attention", shape, err, ms, plain_ms, lib_ms,
+        record(label, "flash_attention", shape, err, ms, plain_ms, lib_ms,
                bound(nbytes(q, k, v, out), 4 * b_ * h_ * s_ * s_ * d_, "bf16"))
-        del q, k, v, out, ref, qh, kh, vh
+
+    for shape in FLASH_SHAPES:
+        flash_case("kernels", shape)
     for shape, act in GN_CASES:
         c = shape[-1]
         x = torch.randn(shape, generator=gen, device=dev, dtype=bf16)
@@ -775,6 +837,147 @@ def main():
           f"{1e3 * med(stats_llava, 0):.1f} ms; peak memory wint8 {peak_wint8:.2f} GiB vs "
           f"bf16 {peak_llava:.2f} GiB (same run)", flush=True)
 
+    # ------------------------------------------------------ free the LLaVA model
+    del model, pixels, ids
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[sd3] LLaVA freed: {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB still "
+          f"allocated", flush=True)
+    from paddlemix_tpu_torch.diffusers.models import transformer_sd3 as sd3_mod
+    from paddlemix_tpu_torch.diffusers.sd3 import (
+        expected_launches_sd3,
+        random_sd3_pipeline,
+        seeded_t5_tokenizer,
+    )
+
+    # ----------------------------------------------------------- sd3 kernels
+    for shape in ADALN_SHAPES:
+        b_, s_, h_ = shape
+        # x and the residual rotate together through cold copies; the
+        # modulation vectors are chunks of one (B, 6H) projection, as in a block
+        rx = torch.randn((2,) + shape, generator=gen, device=dev).mul_(2.0).to(bf16)
+        mod = torch.randn((b_, 6 * h_), generator=gen, device=dev).to(bf16)
+        shift, scale, gate = mod.chunk(6, dim=-1)[:3]
+        x = rx[1]
+        out = norms_mod.adaptive_layer_norm(x, scale, shift)
+        torch.cuda.synchronize()
+        ref = norms_mod.adaptive_layer_norm_ref(x, scale, shift)
+        err = (out.float() - ref.float()).abs().max().item()
+        excess, need = ulp_gate(out, ref, ADALN_SUM)
+        control, _ = ulp_gate(norms_mod.adaptive_layer_norm_ref(x, scale, 0 * shift), ref,
+                              ADALN_SUM)
+        print(f"[sd3 kernels] adaptive_layer_norm {shape} bf16: max_abs_err {err:.3e}, excess "
+              f"{excess:.3e} over 2**-7|ref| + {ADALN_SUM:g}|ref|max (least c {need:.2e}); "
+              f"control without the shift: excess {control:.3e} (must be > 0)", flush=True)
+        check(bool(torch.isfinite(out).all()) and excess <= 0,
+              f"adaptive_layer_norm {shape}: excess {excess}")
+        check(control > 0, f"adaptive_layer_norm {shape}: the control passes ({control})")
+        ms, plain_ms = timed_pair(
+            torch, cold(lambda t: norms_mod.adaptive_layer_norm(t[1], scale, shift), rx,
+                        nbytes(rx)),
+            cold(lambda t: norms_mod.adaptive_layer_norm_ref(t[1], scale, shift), rx, nbytes(rx)))
+        lib_ms = library_ms(torch, cold(lambda t: F.layer_norm(t[1], (h_,), eps=1e-5), rx,
+                                        nbytes(rx)))
+        # a few fp32 operations an element (moments, normalise, modulate)
+        record("sd3 kernels", "adaptive_layer_norm", shape, err, ms, plain_ms, lib_ms,
+               bound(nbytes(x, scale, shift, out), 8 * x.numel(), "fp32"),
+               " (library: F.layer_norm, the norm alone)")
+
+        residual = rx[0]
+        y, resi = norms_mod.fused_adaln_scale_residual(residual, x, gate, scale, shift)
+        torch.cuda.synchronize()
+        ref_y, ref_resi = norms_mod.fused_adaln_scale_residual_ref(residual, x, gate, scale,
+                                                                   shift)
+        err = max((y.float() - ref_y.float()).abs().max().item(),
+                  (resi.float() - ref_resi.float()).abs().max().item())
+        (ex_y, need_y), (ex_r, need_r) = (ulp_gate(y, ref_y, ADALN_SUM),
+                                          ulp_gate(resi, ref_resi, ADALN_SUM))
+        ungated = norms_mod.fused_adaln_scale_residual_ref(residual, x, torch.ones_like(gate),
+                                                           scale, shift)
+        control = max(ulp_gate(ungated[0], ref_y, ADALN_SUM)[0],
+                      ulp_gate(ungated[1], ref_resi, ADALN_SUM)[0])
+        print(f"[sd3 kernels] fused_adaln_scale_residual {shape} bf16: max_abs_err {err:.3e}, "
+              f"excess y {ex_y:.3e} resi {ex_r:.3e} (least c {max(need_y, need_r):.2e}); "
+              f"control without the gate: excess {control:.3e} (must be > 0)", flush=True)
+        check(bool(torch.isfinite(y).all() and torch.isfinite(resi).all())
+              and max(ex_y, ex_r) <= 0, f"fused_adaln_scale_residual {shape}: {ex_y}, {ex_r}")
+        check(control > 0, f"fused_adaln_scale_residual {shape}: the control passes ({control})")
+        ms, plain_ms = timed_pair(
+            torch, cold(lambda t: norms_mod.fused_adaln_scale_residual(t[0], t[1], gate, scale,
+                                                                       shift), rx, nbytes(rx)),
+            cold(lambda t: norms_mod.fused_adaln_scale_residual_ref(t[0], t[1], gate, scale,
+                                                                    shift), rx, nbytes(rx)))
+        # no single PyTorch call computes the gated residual and the adaLN
+        record("sd3 kernels", "fused_adaln_scale_residual", shape, err, ms, plain_ms, None,
+               bound(nbytes(rx, gate, scale, shift, y, resi), 10 * x.numel(), "fp32"))
+        del rx, mod, out, ref, y, resi, ref_y, ref_resi, ungated
+    flash_case("sd3 kernels", SD3_FLASH_SHAPE)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------- sd3 agree
+    t0 = time.perf_counter()
+    sd3 = random_sd3_pipeline(dev, bf16, seed=0, tokenizer_3=seeded_t5_tokenizer(SD3_T5_SEED))
+    torch.cuda.synchronize()
+    n_params = {name: sum(p.numel() for p in getattr(sd3, name).parameters())
+                for name in ("transformer", "text_encoder", "text_encoder_2", "text_encoder_3",
+                             "vae")}
+    print(f"[sd3] SD3-medium built on the card in {time.perf_counter() - t0:.1f} s: {n_params}, "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated", flush=True)
+    sd3_inputs = (torch.randn((2, 64, 64, 16), generator=gen, device=dev),
+                  sd3.scheduler.set_timesteps(SD3_STEPS).timesteps[:2].to(dev),
+                  torch.randn((2, 154, 4096), generator=gen, device=dev, dtype=bf16),
+                  torch.randn((2, 2048), generator=gen, device=dev, dtype=bf16))
+
+    def sd3_forward(swaps=()):
+        lat, t, ctx, pooled = sd3_inputs
+        with torch.inference_mode(), swapped(swaps):
+            return sd3.transformer(lat.to(bf16), t, ctx, pooled).float()
+
+    sd3_swaps = [(sd3_mod, "adaptive_layer_norm", norms_mod.adaptive_layer_norm_ref),
+                 (sd3_mod, "fused_adaln_scale_residual", norms_mod.fused_adaln_scale_residual_ref),
+                 (attn_mod, "flash_attention", lambda q, k, v, **kw: attn_mod.flash_attention_ref(
+                     q, k, v, scale=kw.get("scale")))]
+    out_k, out_p = sd3_forward(), sd3_forward(sd3_swaps)
+    rel = rel_l2(out_k, out_p)
+    print(f"[sd3 agree] full-width SD3 transformer at 64x64 latents (1,024 image + 154 text "
+          f"tokens, flash), kernels (adaLN, fused adaLN + residual, flash) vs plain: relative "
+          f"L2 {rel:.3e} (tol {AGREE_TOL}), |out| max {out_p.abs().max().item():.3f}", flush=True)
+    check(bool(torch.isfinite(out_k).all()) and rel <= AGREE_TOL, f"sd3 agree: relative L2 {rel}")
+    del out_k, out_p, sd3_inputs
+
+    # ------------------------------------------------------------- sd3 serve
+    all_counters = dict(counters, **llava_counters,
+                        adaptive_layer_norm=norms_mod.adaptive_layer_norm,
+                        fused_adaln_scale_residual=norms_mod.fused_adaln_scale_residual)
+    want = expected_launches_sd3(sd3, HEIGHT, WIDTH, SD3_STEPS, SD3_GUIDANCE)
+    want = {name: want.get(name, 0) for name in all_counters}
+    print(f"[sd3 serve] expected launches per request (walking the modules): {want}", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    for fn in all_counters.values():
+        fn.launches = 0
+    s_sd3 = []
+    for prompt, seed in SD3_REQUESTS:
+        before = {name: fn.launches for name, fn in all_counters.items()}
+        t0 = time.perf_counter()
+        image = sd3(prompt, height=HEIGHT, width=WIDTH, num_inference_steps=SD3_STEPS,
+                    guidance_scale=SD3_GUIDANCE, seed=seed, output_type="np")[0]
+        torch.cuda.synchronize()
+        s_sd3.append(time.perf_counter() - t0)
+        got = {name: fn.launches - before[name] for name, fn in all_counters.items()}
+        print(f"[sd3 serve] seed {seed}: {s_sd3[-1]:.3f} s | image {image.shape} finite "
+              f"{bool(np.isfinite(image).all())} range [{image.min():.3f}, {image.max():.3f}] "
+              f"mean {image.mean():.3f} std {image.std():.3f} | launches {got}", flush=True)
+        check(image.shape == (1, HEIGHT, WIDTH, 3), f"sd3 image shape {image.shape}")
+        check(bool(np.isfinite(image).all()), "sd3 image not finite")
+        check(image.min() >= 0.0 and image.max() <= 1.0, "sd3 image outside [0, 1]")
+        check(got == want, f"sd3 serve: launches {got} != expected {want}")
+    launches_sd3 = {name: fn.launches for name, fn in all_counters.items()}
+    peak_sd3 = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[sd3 serve] peak memory allocated {peak_sd3:.2f} GiB | seconds per request "
+          f"{[round(x, 3) for x in s_sd3]} | launches over {len(SD3_REQUESTS)} requests "
+          f"{launches_sd3}", flush=True)
+
     # --------------------------------------------------------------- summary
     def entry(name, route, source, replaces, by_phase):
         # ms / plain_ms / library_ms / bound at the first shape listed;
@@ -789,10 +992,12 @@ def main():
                 "shape": list(first["shape"])}
 
     def sdxl(name):
-        return {"bf16": launches_bf16[name], "a8w8": launches_a8w8[name]}
+        return {"bf16": launches_bf16[name], "a8w8": launches_a8w8[name],
+                "sd3": launches_sd3[name]}
 
     def llava(name):
-        return {"llava_bf16": launches_llava[name], "llava_wint8": launches_wint8[name]}
+        return {"llava_bf16": launches_llava[name], "llava_wint8": launches_wint8[name],
+                "sd3": launches_sd3[name]}
 
     kernels = [
         entry("flash_attention", "cuda", "paddlemix_tpu_torch/csrc/flash_fwd.cu",
@@ -811,15 +1016,23 @@ def main():
               "paddlemix_tpu/ops/decode_attention.py:68", llava("decode_attention")),
         entry("rms_norm", "triton", "paddlemix_tpu_torch/ops/norms.py",
               "paddlemix_tpu/ops/norms.py:148", llava("rms_norm")),
+        entry("adaptive_layer_norm", "triton", "paddlemix_tpu_torch/ops/norms.py",
+              "paddlemix_tpu/ops/norms.py:261", {"sd3": launches_sd3["adaptive_layer_norm"]}),
+        entry("fused_adaln_scale_residual", "triton", "paddlemix_tpu_torch/ops/norms.py",
+              "paddlemix_tpu/ops/norms.py:289",
+              {"sd3": launches_sd3["fused_adaln_scale_residual"]}),
     ]
     kernels[1]["stats_launches_by_phase"] = sdxl("group_norm_stats")
     # the a8w8 requests run all five SDXL kernels, the bf16 ones flash and
     # GroupNorm; both LLaVA configurations run decode attention and RMSNorm,
-    # wint8 also the wint8 GEMM
+    # wint8 also the wint8 GEMM; SD3 runs flash, GroupNorm, RMSNorm and both
+    # adaLN kernels (and, checked per request above, no other)
     must_run = [(k["name"], "a8w8") for k in kernels[:5]] + \
         [("flash_attention", "bf16"), ("group_norm", "bf16")] + \
         [(name, phase) for name in ("decode_attention", "rms_norm")
-         for phase in ("llava_bf16", "llava_wint8")] + [("wint8_matmul", "llava_wint8")]
+         for phase in ("llava_bf16", "llava_wint8")] + [("wint8_matmul", "llava_wint8")] + \
+        [(name, "sd3") for name in ("flash_attention", "group_norm", "rms_norm",
+                                    "adaptive_layer_norm", "fused_adaln_scale_residual")]
     by_name = {k["name"]: k for k in kernels}
     idle = [(name, phase) for name, phase in must_run
             if by_name[name]["launches_by_phase"][phase] == 0]

@@ -12,5 +12,8 @@ Slices so far, each with its kernels written for Hopper:
     GroupNorm+SiLU+int8 conv (`csrc/int8_gemm.cu`, `csrc/int8_conv3x3.cu`);
   - LLaVA-1.5 generation in bf16 and weight-only int8 (`models/llava`,
     `models/llama`): wint8 GEMM (`csrc/wint8_gemm.cu`), decode attention
-    (`csrc/decode_attention.cu`) and RMSNorm (Triton, `ops/norms.py`).
+    (`csrc/decode_attention.cu`) and RMSNorm (Triton, `ops/norms.py`);
+  - SD3-medium text-to-image in bf16 (MM-DiT, CLIP-L + bigG, T5 encoder in
+    `models/t5`, 16-channel VAE, FlowMatch Euler): adaLN and fused adaLN +
+    gated residual (Triton, `ops/norms.py`).
 """

@@ -58,6 +58,42 @@ CLIP_KEY_MAP: KeyMap = (
     (r"\.weight$", r".kernel"),
 )
 
+# paddlemix_tpu/diffusers/models/transformer_sd3.py _SD3_KEY_MAP (the port's
+# module names are the flax names, so only the block index and `.kernel` move;
+# the JAX package fuses diffusers' to_q/to_k/to_v before this map, and the
+# port's `attn_qkv` / `attn_add_qkv` are fused already)
+SD3_KEY_MAP: KeyMap = (
+    (r"\.transformer_blocks\.(\d+)\.", r".transformer_blocks_\1."),
+    (r"^transformer_blocks\.(\d+)\.", r"transformer_blocks_\1."),
+    (r"\.norm1\.linear\.", r".norm1_linear."),
+    (r"\.norm1_context\.linear\.", r".norm1_context_linear."),
+    (r"\.norm_out\.linear\.", r".norm_out_linear."),
+    (r"\.ff\.net\.0\.proj\.", r".ff_fc1."),
+    (r"\.ff\.net\.2\.", r".ff_fc2."),
+    (r"\.ff_context\.net\.0\.proj\.", r".ff_context_fc1."),
+    (r"\.ff_context\.net\.2\.", r".ff_context_fc2."),
+    (r"\.attn\.to_out\.0\.", r".attn_to_out."),
+    (r"\.attn\.to_add_out\.", r".attn_to_add_out."),
+    (r"\.pos_embed\.proj\.", r".pos_embed.proj."),
+    (r"\.weight$", r".kernel"),
+)
+
+# paddlemix_tpu/models/t5/modeling.py _T5_KEY_MAP. The port's T5 holds one
+# table, `shared`; HF's `encoder.embed_tokens.weight` (the same tensor) maps
+# to the same flax key, so a module that held both would claim it twice.
+T5_KEY_MAP: KeyMap = (
+    (r"^encoder\.embed_tokens\.weight$", r"shared.embedding"),
+    (r"^shared\.weight$", r"shared.embedding"),
+    (r"^encoder\.block\.(\d+)\.layer\.0\.SelfAttention\.", r"block_\1.attention."),
+    (r"^encoder\.block\.(\d+)\.layer\.0\.layer_norm\.", r"block_\1.attn_norm."),
+    (r"^encoder\.block\.(\d+)\.layer\.1\.DenseReluDense\.", r"block_\1."),
+    (r"^encoder\.block\.(\d+)\.layer\.1\.layer_norm\.", r"block_\1.mlp_norm."),
+    (r"^encoder\.final_layer_norm\.", r"final_layer_norm."),
+    (r"relative_attention_bias\.weight$", r"relative_attention_bias.embedding"),
+    (r"(_norm)\.weight$", r"\1.scale"),
+    (r"\.weight$", r".kernel"),
+)
+
 
 # paddlemix_tpu/models/llama/modeling.py _LLAMA_KEY_MAP
 LLAMA_KEY_MAP: KeyMap = (
@@ -161,3 +197,16 @@ def flax_to_torch_state_dict(flax_flat: Dict[str, np.ndarray], module: torch.nn.
                        f"flax array {missing[:5]}, {len(mismatched)} shape mismatches "
                        f"{mismatched[:5]}, {len(unused)} flax keys unused {unused[:5]}")
     return out
+
+
+def flatten_flax(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Nested flax params (dicts of arrays) -> {dotted key: array}."""
+    flat = {}
+    for name, value in tree.items():
+        key = f"{prefix}{name}"
+        if hasattr(value, "items"):  # a dict or a flax FrozenDict
+            flat.update(flatten_flax(value, key + "."))
+        else:
+            flat[key] = value
+    return flat
+

@@ -16,6 +16,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from ...ops.attention import use_flash
 from .attention import AttentionBlock2D
 from .resnet import GroupNormAct, ResnetBlock2D, Upsample2D
 
@@ -114,3 +115,12 @@ class AutoencoderKL(nn.Module):
         """z: (B, h, w, latent) NHWC -> image (B, 8h, 8w, C) NHWC."""
         x = self.decoder(self.post_quant_conv(z.to(self.dtype).permute(0, 3, 1, 2)))
         return x.permute(0, 2, 3, 1)
+
+    def decode_flash_launches(self, h: int, w: int) -> int:
+        """Flash launches of one batch-1 decode of (h, w) latents."""
+        flash = 0
+        for m in self.decoder.modules():
+            if isinstance(m, AttentionBlock2D):
+                q = (1, h * w, 1, m.to_q.out_features)
+                flash += use_flash(q, q)
+        return flash

@@ -47,3 +47,46 @@ class TimestepEmbedding(nn.Module):
 
     def forward(self, sample):
         return self.linear_2(F.silu(self.linear_1(sample)))
+
+
+def get_1d_sincos_pos_embed(embed_dim: int, pos: torch.Tensor) -> torch.Tensor:
+    """(N,) positions -> (N, embed_dim) fp32 [sin, cos] with max period 10000."""
+    omega = torch.arange(embed_dim // 2, dtype=torch.float32, device=pos.device)
+    omega = 1.0 / 10000 ** (omega / (embed_dim / 2.0))
+    out = pos.reshape(-1).float()[:, None] * omega[None]
+    return torch.cat([torch.sin(out), torch.cos(out)], dim=-1)
+
+
+def get_2d_sincos_pos_embed(embed_dim: int, gh: int, gw: int, base_size: int = 16,
+                            device=None) -> torch.Tensor:
+    """(gh * gw, embed_dim) fp32 table, rows in row-major (h, w) order,
+    computed for the grid (not cropped from a larger one). The first half
+    encodes the W coordinate and the second the H coordinate: the MAE layout
+    that diffusers' checkpoints were trained with."""
+    grid_h = torch.arange(gh, dtype=torch.float32, device=device) / (gh / base_size)
+    grid_w = torch.arange(gw, dtype=torch.float32, device=device) / (gw / base_size)
+    mesh_w, mesh_h = torch.meshgrid(grid_w, grid_h, indexing="xy")  # (gh, gw) each
+    return torch.cat([get_1d_sincos_pos_embed(embed_dim // 2, mesh_w),
+                      get_1d_sincos_pos_embed(embed_dim // 2, mesh_h)], dim=-1)
+
+
+class PatchEmbed2D(nn.Module):
+    """DiT/SD3 latent patchify: (B, H, W, C) NHWC -> (B, HW/p^2, D) tokens in
+    row-major order, plus the 2D sincos position table of the grid (port of
+    `PatchEmbed2D`), made on the latent's device at each call."""
+
+    def __init__(self, patch_size: int, in_channels: int, embed_dim: int, base_size: int):
+        super().__init__()
+        self.patch_size = patch_size
+        self.embed_dim = embed_dim
+        self.base_size = base_size  # the grid side the position table is scaled to
+        self.proj = nn.Conv2d(in_channels, embed_dim, patch_size, stride=patch_size)
+
+    def forward(self, latent):
+        b, h, w, _ = latent.shape
+        p = self.patch_size
+        x = self.proj(latent.permute(0, 3, 1, 2).to(self.proj.weight.dtype))
+        x = x.flatten(2).transpose(1, 2)
+        pos = get_2d_sincos_pos_embed(self.embed_dim, h // p, w // p, self.base_size,
+                                      device=x.device)
+        return x + pos.to(x.dtype)[None]

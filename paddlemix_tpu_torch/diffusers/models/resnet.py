@@ -47,6 +47,11 @@ class GroupNormAct(nn.Module):
         return group_norm_nchw(x, self.weight, self.bias, self.groups, self.eps, self.act)
 
 
+def n_group_norms(module) -> int:
+    """GroupNorm modules (each one launch a forward); _GroupNorm32 is a GroupNormAct."""
+    return sum(isinstance(m, GroupNormAct) for m in module.modules())
+
+
 class ResnetBlock2D(nn.Module):
     """norm1+SiLU -> conv1 (+ time projection) -> norm2+SiLU -> conv2, plus the
     shortcut (a 1x1 conv when the width changes). GroupNorm eps 1e-5."""

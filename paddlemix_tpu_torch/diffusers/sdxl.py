@@ -26,8 +26,7 @@ from ..models.clip import (
     CLIPTextModelWithProjection,
     CLIPTokenizer,
 )
-from ..models.clip.modeling import CLIPTextTransformer
-from ..models.clip.tokenizer import bytes_to_unicode
+from ..models.clip.tokenizer import byte_level_tokenizer
 from ..ops.attention import use_flash
 from ..ops.quant import (
     QuantConv2d,
@@ -42,8 +41,7 @@ from .models import (
     UNet2DConditionConfig,
     UNet2DConditionModel,
 )
-from .models.attention import AttentionBlock2D
-from .models.resnet import GroupNormAct, ResnetBlock2D
+from .models.resnet import ResnetBlock2D, n_group_norms
 from .pipelines import StableDiffusionXLPipeline
 from .pipelines.pipeline_utils import make_scheduler_state
 from .schedulers import EulerDiscreteScheduler
@@ -73,18 +71,6 @@ SDXL_TEXT_ENCODER_2 = dict(  # OpenCLIP ViT-bigG/14 text + projection
     num_attention_heads=20, hidden_act="gelu", projection_dim=1280)
 SDXL_SCHEDULER = dict(num_train_timesteps=1000, beta_schedule="scaled_linear",
                       beta_start=0.00085, beta_end=0.012, timestep_spacing="leading")
-
-
-def byte_level_tokenizer(model_max_length: int = 77) -> CLIPTokenizer:
-    """CLIP tokenizer over a byte-level vocab (every byte, with and without
-    the </w> word end, plus the specials) and no merges: no vocab file needed."""
-    vocab = {}
-    for s in bytes_to_unicode().values():
-        vocab[s] = len(vocab)
-        vocab[s + "</w>"] = len(vocab)
-    vocab["<|startoftext|>"] = len(vocab)
-    vocab["<|endoftext|>"] = len(vocab)
-    return CLIPTokenizer(vocab, [], model_max_length=model_max_length)
 
 
 def random_sdxl_pipeline(device, dtype=torch.bfloat16, seed: int = 0,
@@ -180,10 +166,8 @@ def expected_launches(pipe: StableDiffusionXLPipeline, height: int, width: int,
     by wrapper name, and the resnets' GroupNorms become statistics launches
     (`group_norm_stats`)."""
     f = pipe.vae_scale_factor
-    batch = 1
-    rows = 2 * batch if guidance_scale > 1.0 else batch
+    rows = 2 if guidance_scale > 1.0 else 1
     text_len = pipe.tokenizer.model_max_length
-    flash = 0
     per_forward = 0
     for level, tf in _transformer_levels(pipe.unet):
         tokens = (height // f >> level) * (width // f >> level)
@@ -192,21 +176,11 @@ def expected_launches(pipe: StableDiffusionXLPipeline, height: int, width: int,
             q = (rows, tokens, heads, hd)
             per_forward += use_flash(q, q)
             per_forward += use_flash(q, (rows, text_len, heads, hd))
-    flash += per_forward * num_inference_steps
-    for m in pipe.vae.decoder.modules():
-        if isinstance(m, AttentionBlock2D):
-            c = m.to_q.out_features
-            q = (batch, (height // f) * (width // f), 1, c)
-            flash += use_flash(q, q)
-    for enc in (pipe.text_encoder, pipe.text_encoder_2):
-        tt: CLIPTextTransformer = enc.text_model
-        heads = tt.config.num_attention_heads
-        q = (batch, text_len, heads, tt.config.hidden_size // heads)
-        # cond and uncond prompts are encoded separately
-        flash += 2 * len(tt.encoder.layers) * use_flash(q, q, causal=True)
-
-    def n_group_norms(module):  # _GroupNorm32 is a GroupNormAct
-        return sum(isinstance(m, GroupNormAct) for m in module.modules())
+    flash = per_forward * num_inference_steps
+    flash += pipe.vae.decode_flash_launches(height // f, width // f)
+    # the prompt and the negative prompt are encoded apart
+    flash += sum(2 * enc.text_model.flash_launches(text_len)
+                 for enc in (pipe.text_encoder, pipe.text_encoder_2))
 
     if not any(m.sx is not None for m in quant_modules(pipe.unet) + quant_modules(pipe.vae)):
         gn = n_group_norms(pipe.unet) * num_inference_steps + n_group_norms(pipe.vae.decoder)

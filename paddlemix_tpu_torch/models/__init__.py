@@ -1,1 +1,1 @@
-"""Model families of the port (CLIP towers, Llama, LLaVA) and shared transformer layers."""
+"""Model families of the port (CLIP towers, Llama, LLaVA, T5) and shared transformer layers."""

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ...ops.attention import use_flash
 from ..layers import EncoderBlock, PatchEmbed
 from .configuration import CLIPTextConfig, CLIPVisionConfig
 
@@ -60,6 +61,12 @@ class CLIPTextTransformer(nn.Module):
         if output_hidden_states:
             return x, pooled, tuple(hidden_states)
         return x, pooled
+
+    def flash_launches(self, seq_len: int) -> int:
+        """Flash launches of one batch-1 forward over seq_len tokens (causal)."""
+        heads = self.config.num_attention_heads
+        q = (1, seq_len, heads, self.config.hidden_size // heads)
+        return len(self.encoder.layers) * use_flash(q, q, causal=True)
 
 
 class CLIPTextModel(nn.Module):

@@ -185,3 +185,15 @@ class CLIPTokenizer:
             "input_ids": np.asarray(all_ids, dtype=np.int32),
             "attention_mask": np.asarray(all_mask, dtype=np.int32),
         }
+
+
+def byte_level_tokenizer(model_max_length: int = 77) -> CLIPTokenizer:
+    """CLIP tokenizer over a byte-level vocab (every byte, with and without
+    the </w> word end, plus the specials) and no merges: no vocab file needed."""
+    vocab = {}
+    for s in bytes_to_unicode().values():
+        vocab[s] = len(vocab)
+        vocab[s + "</w>"] = len(vocab)
+    vocab["<|startoftext|>"] = len(vocab)
+    vocab["<|endoftext|>"] = len(vocab)
+    return CLIPTokenizer(vocab, [], model_max_length=model_max_length)

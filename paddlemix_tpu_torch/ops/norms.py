@@ -1,5 +1,7 @@
-"""GroupNorm (+SiLU) over channel-minor (..., C) tensors, and RMSNorm. Port of
-the GroupNorm and RMSNorm parts of paddlemix_tpu/ops/norms.py.
+"""GroupNorm (+SiLU) over channel-minor (..., C) tensors, RMSNorm, and the
+adaLN pair of the SD3 MM-DiT (adaptive LayerNorm, and adaptive LayerNorm fused
+with the gated residual add; see their section below). Port of the GroupNorm,
+RMSNorm and adaLN parts of paddlemix_tpu/ops/norms.py.
 
 RMSNorm (B11): `rms_norm` launches a Triton kernel for CUDA tensors and runs
 its plain version `rms_norm_ref` for CPU tensors. It replaces the forward
@@ -322,3 +324,174 @@ def rms_norm(x, weight, eps: float = 1e-6):
 
 
 rms_norm.launches = 0  # kernel launches (CUDA tensors only)
+
+
+# ------------------------------------------- adaLN and fused adaLN + residual
+# B12 `adaptive_layer_norm` and B13 `fused_adaln_scale_residual` replace the
+# Pallas kernels `_adaln_pallas_fwd_impl` / `_adaln_kernel` and
+# `_fused_adaln_residual_pallas` / `_fused_adaln_residual_kernel`
+# (paddlemix_tpu/ops/norms.py), the modulated norms of the SD3 MM-DiT. Both are
+# a LayerNorm without affine over each row of x (B, S, H), in fp32, followed
+# by y = LN(.) * (1 + scale[b]) + shift[b]; B13 first forms the gated residual
+# resi = residual + gate[b] * x and normalises that fp32 sum before rounding it
+# to the `resi` output. They do a few flops a byte, so they are bound by the
+# bytes: one program normalises one row (SD3-medium: 1536 wide, 3 KB in bf16)
+# in registers, so x (and the residual) are read once and y (and resi) written
+# once, in the input dtype; the (B, H) modulation rows, read per program, stay
+# in L2. The model's bf16 activations and modulation vectors are read as they
+# are and widened in registers: the JAX model casts them to fp32 around its
+# Pallas call, which the kernel folds in, so no fp32 copy is made. The JAX
+# package sends rows not a multiple of 128 wide, or fewer than 64 rows, to
+# XLA, which fuses the norm into its neighbours; eager PyTorch has no such
+# fusion, so the port launches the kernel for every call on the card.
+_ADALN_MAX_WIDTH = 2048  # one row in one program's registers; SD3-medium's is 1536
+
+
+def _check_affine(name, weight, bias):
+    if weight is not None or bias is not None:
+        raise NotImplementedError(f"{name}: the affine weight/bias form is not ported (the "
+                                  f"SD3 path never passes it)")
+
+
+def adaptive_layer_norm_ref(x, scale, shift, weight=None, bias=None, eps: float = 1e-5):
+    """Plain version (port of `adaptive_layer_norm_xla`): LN(x) * (1 + scale)
+    + shift over x (B, S, H) with scale/shift (B, H), all in fp32, cast to x's
+    dtype once, as the JAX model computes it (it casts to fp32 around the op)."""
+    _check_affine("adaptive_layer_norm", weight, bias)
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float()[:, None, :]) + shift.float()[:, None, :]).to(x.dtype)
+
+
+def fused_adaln_scale_residual_ref(residual, x, gate, scale, shift, weight=None, bias=None,
+                                   eps: float = 1e-5):
+    """Plain version (port of `fused_adaln_scale_residual_xla`): resi =
+    residual + gate * x, y = adaLN(resi); returns (y, resi). The LN is taken
+    over the fp32 sum, and both outputs are cast to x's dtype."""
+    _check_affine("fused_adaln_scale_residual", weight, bias)
+    resi = residual.float() + gate.float()[:, None, :] * x.float()
+    return adaptive_layer_norm_ref(resi, scale, shift, eps=eps).to(x.dtype), resi.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _adaln_kernels():
+    global tl
+    import triton
+    import triton.language as tl
+
+    @triton.jit
+    def _modulated_ln(r, cols, mask, b, H, eps, scale_ptr, shift_ptr, mod_stride):
+        mean = tl.sum(r, axis=0) / H
+        diff = tl.where(mask, r - mean, 0.0)
+        rstd = tl.rsqrt(tl.sum(diff * diff, axis=0) / H + eps)
+        sc = tl.load(scale_ptr + b * mod_stride + cols, mask=mask, other=0.0).to(tl.float32)
+        sh = tl.load(shift_ptr + b * mod_stride + cols, mask=mask, other=0.0).to(tl.float32)
+        return diff * rstd * (1.0 + sc) + sh
+
+    @triton.jit
+    def adaln_fwd(x_ptr, scale_ptr, shift_ptr, y_ptr, S, H, mod_stride, eps,
+                  BLOCK_H: tl.constexpr):
+        row = tl.program_id(0).to(tl.int64)
+        b = row // S
+        cols = tl.arange(0, BLOCK_H)
+        mask = cols < H
+        x = tl.load(x_ptr + row * H + cols, mask=mask, other=0.0).to(tl.float32)
+        y = _modulated_ln(x, cols, mask, b, H, eps, scale_ptr, shift_ptr, mod_stride)
+        tl.store(y_ptr + row * H + cols, y.to(y_ptr.dtype.element_ty), mask=mask)
+
+    @triton.jit
+    def fused_adaln_residual_fwd(res_ptr, x_ptr, gate_ptr, scale_ptr, shift_ptr, y_ptr,
+                                 resi_ptr, S, H, mod_stride, eps, BLOCK_H: tl.constexpr):
+        row = tl.program_id(0).to(tl.int64)
+        b = row // S
+        cols = tl.arange(0, BLOCK_H)
+        mask = cols < H
+        offs = row * H + cols
+        res = tl.load(res_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+        x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+        g = tl.load(gate_ptr + b * mod_stride + cols, mask=mask, other=0.0).to(tl.float32)
+        r = res + g * x
+        tl.store(resi_ptr + offs, r.to(resi_ptr.dtype.element_ty), mask=mask)
+        y = _modulated_ln(r, cols, mask, b, H, eps, scale_ptr, shift_ptr, mod_stride)
+        tl.store(y_ptr + offs, y.to(y_ptr.dtype.element_ty), mask=mask)
+
+    return adaln_fwd, fused_adaln_residual_fwd
+
+
+def _check_adaln(name, rows, mods):
+    """x-like (B, S, H) contiguous bf16 tensors (the SD3 path's dtype; the
+    kernel reads and writes nothing else) and (B, H) modulation rows with unit
+    column stride and one row stride; returns that stride."""
+    x = rows[0]
+    if x.ndim != 3 or x.dtype != torch.bfloat16:
+        raise ValueError(f"{name}: x must be (B, S, H) bf16, got {x.dtype} {tuple(x.shape)}")
+    b, _, h = x.shape
+    if h > _ADALN_MAX_WIDTH:
+        raise ValueError(f"{name}: width {h} above {_ADALN_MAX_WIDTH}")
+    for t in rows:
+        if t.shape != x.shape or t.dtype != x.dtype or t.device != x.device \
+                or not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous {tuple(x.shape)} {x.dtype} "
+                             f"on {x.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+    stride = mods[0].stride(0)
+    for t in mods:
+        if t.shape != (b, h) or t.device != x.device or t.stride() != (stride, 1):
+            raise ValueError(f"{name}: scale/shift/gate must be ({b}, {h}) on {x.device} with "
+                             f"unit column stride and one row stride, got {tuple(t.shape)} "
+                             f"strides {t.stride()} on {t.device}")
+    return stride
+
+
+def _row_launch(h):
+    block = max(128, 1 << (h - 1).bit_length())
+    return block, min(16, max(1, block // 256))
+
+
+def adaptive_layer_norm(x, scale, shift, weight=None, bias=None, eps: float = 1e-5):
+    """LN(x) * (1 + scale) + shift, x (B, S, H), scale/shift (B, H) (port of
+    `adaptive_layer_norm`, forward). CUDA tensors launch the Triton kernel (B12);
+    CPU tensors run `adaptive_layer_norm_ref`. The output has x's dtype."""
+    _check_affine("adaptive_layer_norm", weight, bias)
+    if not x.is_cuda:
+        if x.device.type != "cpu":
+            raise ValueError(f"adaptive_layer_norm: unsupported device {x.device}")
+        return adaptive_layer_norm_ref(x, scale, shift, eps=eps)
+    stride = _check_adaln("adaptive_layer_norm", (x,), (scale, shift))
+    b, s, h = x.shape
+    y = torch.empty_like(x)
+    block, warps = _row_launch(h)
+    with torch.cuda.device(x.device):
+        _adaln_kernels()[0][(b * s,)](x, scale, shift, y, s, h, stride, float(eps),
+                                      BLOCK_H=block, num_warps=warps)
+    adaptive_layer_norm.launches += 1
+    return y
+
+
+adaptive_layer_norm.launches = 0  # kernel launches (CUDA tensors only)
+
+
+def fused_adaln_scale_residual(residual, x, gate, scale, shift, weight=None, bias=None,
+                               eps: float = 1e-5):
+    """resi = residual + gate * x; y = LN(resi) * (1 + scale) + shift; returns
+    (y, resi) (port of `fused_adaln_scale_residual`, forward). CUDA tensors
+    launch the Triton kernel (B13), which writes both in one pass; CPU tensors
+    run `fused_adaln_scale_residual_ref`. Both outputs have x's dtype."""
+    _check_affine("fused_adaln_scale_residual", weight, bias)
+    if not x.is_cuda:
+        if x.device.type != "cpu":
+            raise ValueError(f"fused_adaln_scale_residual: unsupported device {x.device}")
+        return fused_adaln_scale_residual_ref(residual, x, gate, scale, shift, eps=eps)
+    stride = _check_adaln("fused_adaln_scale_residual", (x, residual), (gate, scale, shift))
+    b, s, h = x.shape
+    y, resi = torch.empty_like(x), torch.empty_like(x)
+    block, warps = _row_launch(h)
+    with torch.cuda.device(x.device):
+        _adaln_kernels()[1][(b * s,)](residual, x, gate, scale, shift, y, resi, s, h, stride,
+                                      float(eps), BLOCK_H=block, num_warps=warps)
+    fused_adaln_scale_residual.launches += 1
+    return y, resi
+
+
+fused_adaln_scale_residual.launches = 0  # kernel launches (CUDA tensors only)
