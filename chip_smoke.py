@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (paddlemix_tpu_torch) on one CUDA card.
 
-Drives three slices at their published widths with weights drawn on the card
+Drives four slices at their published widths with weights drawn on the card
 from a seeded torch.Generator:
 
   - SDXL-1024 text-to-image through StableDiffusionXLPipeline.__call__, in
@@ -13,7 +13,10 @@ from a seeded torch.Generator:
     JAX bench's shapes, in bf16 and then weight-only int8 (wint8);
   - SD3-medium text-to-image through StableDiffusion3Pipeline.__call__
     (MM-DiT 24 x 1536, CLIP-L + bigG with projection, T5 v1.1-XXL encoder,
-    16-channel VAE, FlowMatch Euler) in bf16.
+    16-channel VAE, FlowMatch Euler) in bf16;
+  - Llama-2-7B serving (32 layers, 32 heads x 128, bf16 weights) through
+    greedy_generate over the int8 KV cache (cachekv_int8) and through
+    paged_greedy_generate over the paged KV cache.
 
 Phases:
 
@@ -68,6 +71,29 @@ Phases:
                    image finite in [0, 1], peak memory, and launches of every
                    kernel equal to `expected_launches_sd3` (B1, B4, B11, B12,
                    B13; every other kernel 0)
+ 16. llama kernels SD3 is freed; int8-cache decode attention (B8) and paged
+                   decode attention (B9) against their plain versions at the
+                   serving paths' shapes (B8 at 4,095 keys of a 4,096-slot
+                   cache; B9 at the paged batch's last step over a permuted,
+                   fragmented pool) and at one GQA shape each, gated per
+                   element, each with a control that must fail the gate (B8:
+                   the plain version without the last 64 keys; B9: without
+                   each sequence's last, partly filled block); times, bounds
+                   and library times (SDPA over the dequantized or gathered
+                   bf16 cache, the dequant or gather not included)
+ 17. llama int8kv  Llama-2-7B is built with cachekv_int8; agree (prefill of
+                   3,968 tokens + 4 decode steps, B8 and B11 vs their plain
+                   versions); 3 requests of 3,968 prompt tokens and 128 new
+                   ones (no eos): TTFT, decode tokens/s, peak memory, cache
+                   bytes, launches as `expected_launches_llama` derives them;
+                   then the same 3 requests over the bf16 KVCache (B7)
+ 18. llama paged   a batch of 8 right-padded prompts (2,000 down to 130
+                   tokens), 128 new tokens each, blocks of 128: agree (B9 and
+                   B11 vs plain, and the paged path against the dense cache
+                   on the same batch); 3 batches through paged_greedy_generate
+                   over a pool of exactly the 67 blocks they need: batch
+                   TTFT, aggregate decode tokens/s, peak memory, pool bytes
+                   against a dense cache's, launches as derived
 
 Any failed check exits non-zero. Without a CUDA card, or outside a checkout
 of the repository, it exits non-zero before printing any result. The line
@@ -126,8 +152,10 @@ A8W8_AGREE_TOL = 1e-3  # the same with B2/B3/B5 vs plain: bit-exact kernels read
 WINT8_SHAPES = [(1, 4096, 4096), (1, 4096, 11008), (1, 11008, 4096), (1, 4096, 32000),
                 (608, 4096, 11008), (608, 11008, 4096)]
 # (B, Hq, KVH, D, L, lengths) of decode attention: Llama-7B's first decode step
-# over the bench's 736-slot cache, and a long GQA cache
-DECODE_CASES = [(1, 32, 32, 128, 736, (609,)), (2, 32, 8, 128, 4096, (4000, 1500))]
+# over the bench's 736-slot cache, a long GQA cache, and the last step of the
+# Llama-2-7B request over the bf16 cache (B8's shape, for comparison)
+DECODE_CASES = [(1, 32, 32, 128, 736, (609,)), (2, 32, 8, 128, 4096, (4000, 1500)),
+                (1, 32, 32, 128, 4096, (4095,))]
 RMS_SHAPES = [(608, 4096), (1, 4096), (77, 4096)]  # (rows, width): prefill, decode, T5
 # B6: fp32 sums of exact products in another order than the plain version's,
 # then one bf16 rounding each: |out - ref| <= 2**-7 |ref| + 1e-5 |ref|max
@@ -162,6 +190,21 @@ SD3_FLASH_SHAPE = (2, 4250, 24, 64)  # the joint attention: 4096 + 154 tokens, r
 # plain version without the shift (B12) or the gate (B13) must fail it (the
 # control).
 ADALN_SUM = 1e-6
+# Llama-2-7B serving. B8: (B, Hq, KVH, D, L, lengths), the int8 path's last
+# decode step (4,095 keys of the 4,096-slot cache) and a GQA cache. B9:
+# (B, H, KVH, D, bs, lengths), the paged batch's last step (each prompt + 127
+# keys) and a GQA batch with ragged lengths (one of one key, one on a block
+# edge)
+INT8_DECODE_CASES = [(1, 32, 32, 128, 4096, (4095,)), (2, 32, 8, 128, 4096, (4000, 1500))]
+PAGED_CASES = [(8, 32, 32, 128, 128, None), (4, 32, 8, 128, 128, (3000, 1, 700, 2048))]
+# B8 and B9 keep P in fp32, so they differ from their fp32 plain versions by
+# summation order and the output's bf16 rounding: |k - p| <= 2**-7 |p| +
+# c |p|max. A first run on an H100 needed at most -9.0e-7 (B8; the rounding
+# alone covers it) and 4.0e-8 (B9) |p|max beyond the rounding.
+INT8_DECODE_SUM, PAGED_SUM = 1e-5, 1e-6
+LLAMA_AGREE_TOL = 5e-2  # relative L2 of the full-width Llama logits, kernels vs plain
+LLAMA_AGREE_STEPS = 4  # decode steps after the prefill in the Llama agree checks
+LLAMA_REQUESTS = [1, 2, 3]  # prompt seeds
 # H100 SXM peaks (NVIDIA data sheet, dense) for the bounds
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
@@ -226,13 +269,16 @@ def nbytes(*tensors):
 
 
 def cold(fn, first, nbytes_each):
-    """`fn` over `first` and clones of it, in turn, enough to pass three times
-    the L2 cache between two uses of one copy, as a model's next layer finds
-    its weights and cache in device memory. `cuda_ms` captures a pass through
-    all copies. At most 64 copies: an operand under 3 x 50 MiB / 64 = 2.3 MiB
-    (the 1-row RMSNorm's 8 KiB) stays in L2 and is timed warm."""
+    """`fn` over `first` (a tensor or a tuple of them) and clones of it, in
+    turn, enough to pass three times the L2 cache between two uses of one
+    copy, as a model's next layer finds its weights and cache in device
+    memory. `cuda_ms` captures a pass through all copies. At most 64 copies:
+    an operand under 3 x 50 MiB / 64 = 2.3 MiB (the 1-row RMSNorm's 8 KiB)
+    stays in L2 and is timed warm."""
     n = min(64, -(-3 * L2_BYTES // nbytes_each))
-    copies = [first] + [first.clone() for _ in range(n - 1)]
+    clone = (lambda x: tuple(t.clone() for t in x)) if isinstance(first, tuple) else \
+        (lambda x: x.clone())
+    copies = [first] + [clone(first) for _ in range(n - 1)]
     it = itertools.cycle(copies)
 
     def call():
@@ -334,6 +380,7 @@ def main():
     from paddlemix_tpu_torch.ops import conv_int8 as conv_int8_mod
     from paddlemix_tpu_torch.ops import fused_resnet as fused_mod
     from paddlemix_tpu_torch.ops import norms as norms_mod
+    from paddlemix_tpu_torch.ops import paged_attention as pa_mod
     from paddlemix_tpu_torch.ops import quant as quant_mod
 
     mods = types.SimpleNamespace(attn=attn_mod, resnet=resnet_mod, norms=norms_mod,
@@ -354,7 +401,8 @@ def main():
     bf16 = torch.bfloat16
 
     # ----------------------------------------------------------------- build
-    sources = ["flash_fwd", "int8_gemm", "int8_conv3x3", "wint8_gemm", "decode_attention"]
+    sources = ["flash_fwd", "int8_gemm", "int8_conv3x3", "wint8_gemm", "decode_attention",
+               "paged_attention"]
     t0 = time.perf_counter()
     build_all(sources)
     print(f"[build] {len(sources)} sources in parallel: {time.perf_counter() - t0:.1f} s",
@@ -949,7 +997,9 @@ def main():
     # ------------------------------------------------------------- sd3 serve
     all_counters = dict(counters, **llava_counters,
                         adaptive_layer_norm=norms_mod.adaptive_layer_norm,
-                        fused_adaln_scale_residual=norms_mod.fused_adaln_scale_residual)
+                        fused_adaln_scale_residual=norms_mod.fused_adaln_scale_residual,
+                        decode_attention_int8=da_mod.decode_attention_int8,
+                        paged_decode_attention=pa_mod.paged_decode_attention)
     want = expected_launches_sd3(sd3, HEIGHT, WIDTH, SD3_STEPS, SD3_GUIDANCE)
     want = {name: want.get(name, 0) for name in all_counters}
     print(f"[sd3 serve] expected launches per request (walking the modules): {want}", flush=True)
@@ -978,6 +1028,326 @@ def main():
           f"{[round(x, 3) for x in s_sd3]} | launches over {len(SD3_REQUESTS)} requests "
           f"{launches_sd3}", flush=True)
 
+    # ------------------------------------------------------- free SD3-medium
+    del sd3
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[llama] SD3 freed: {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB still "
+          f"allocated", flush=True)
+    from paddlemix_tpu_torch.models.llama import (
+        Int8KVCache,
+        KVCache,
+        LlamaForCausalLM,
+        PagedKVCache,
+        blocks_needed,
+        expected_launches_llama,
+        greedy_generate,
+        int8kv_request,
+        llama2_7b_config,
+        paged_batch,
+        paged_greedy_generate,
+        random_llama,
+    )
+    from paddlemix_tpu_torch.models.llama import llama7b
+
+    with torch.device("meta"):  # the launch walk needs the modules, not their weights
+        meta_llama = LlamaForCausalLM(llama2_7b_config())
+    per_request = {
+        "decode_attention_int8": expected_launches_llama(
+            meta_llama, [llama7b.INT8KV_PROMPT_LEN], llama7b.INT8KV_NEW_TOKENS,
+            "int8")["decode_attention_int8"],
+        "paged_decode_attention": expected_launches_llama(
+            meta_llama, llama7b.PAGED_PROMPT_LENS, llama7b.PAGED_NEW_TOKENS,
+            "paged")["paged_decode_attention"]}
+    paged_bs = llama7b.PAGED_BLOCK_SIZE
+
+    # --------------------------------------------------------- llama kernels
+    for b_, hq, kvh, d, L, lengths in INT8_DECODE_CASES:
+        q = torch.randn((b_, 1, hq, d), generator=gen, device=dev).to(bf16)
+        # k, v and their scales are slices of a layer's cache with its parking slot
+        cache = llama_mod._quantize_kv(torch.randn((2, b_, L + 1, kvh, d), generator=gen,
+                                                   device=dev))
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+
+        def int8_args(c):
+            (kv, sc) = c
+            return kv[0, :, :L], kv[1, :, :L], sc[0, :, :L], sc[1, :, :L]
+        out = da_mod.decode_attention_int8(q, *int8_args(cache), lens)
+        torch.cuda.synchronize()
+        ref = da_mod.decode_attention_int8_ref(q.float(), *int8_args(cache), lens)
+        err = (out.float() - ref).abs().max().item()
+        excess, need = ulp_gate(out, ref, INT8_DECODE_SUM)
+        control, _ = ulp_gate(da_mod.decode_attention_int8_ref(q.float(), *int8_args(cache),
+                                                               lens - 64), ref, INT8_DECODE_SUM)
+        shape = (b_, hq, kvh, d, L, lengths)
+        print(f"[llama kernels] decode_attention_int8 {shape}: max_abs_err {err:.3e}, excess "
+              f"{excess:.3e} over 2**-7|ref| + {INT8_DECODE_SUM:g}|ref|max (least c {need:.2e}); "
+              f"control without the last 64 keys: excess {control:.3e} (must be > 0)", flush=True)
+        check(bool(torch.isfinite(out).all()) and excess <= 0,
+              f"decode_attention_int8 {shape}: excess {excess}")
+        check(control > 0, f"decode_attention_int8 {shape}: the control passes ({control})")
+        cache_bytes = nbytes(*cache)
+        ms, plain_ms = timed_pair(
+            torch, cold(lambda c: da_mod.decode_attention_int8(q, *int8_args(c), lens), cache,
+                        cache_bytes),
+            cold(lambda c: da_mod.decode_attention_int8_ref(q, *int8_args(c), lens), cache,
+                 cache_bytes))
+        deq = (cache[0].float() * cache[1][..., None]).to(bf16)
+        mask = (torch.arange(L, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+        qh = q.transpose(1, 2)
+        lib_ms = library_ms(torch, cold(lambda c: F.scaled_dot_product_attention(
+            qh, c[0, :, :L].transpose(1, 2), c[1, :, :L].transpose(1, 2), attn_mask=mask,
+            enable_gqa=hq != kvh), deq, nbytes(deq)))
+        used = sum(min(n_, L) for n_ in lengths)  # cached rows the lengths make it read
+        record("llama kernels", "decode_attention_int8", shape, err, ms, plain_ms, lib_ms,
+               bound(nbytes(q, lens, out) + 2 * used * kvh * (d + 4), 4 * hq * used * d, "fp32"),
+               f" | {per_request['decode_attention_int8']} launches a request | library: SDPA "
+               f"over the dequantized bf16 cache, dequant not included")
+        del q, cache, out, ref, deq
+    for b_, h_, kvh, d, bs, lengths in PAGED_CASES:
+        if lengths is None:  # the paged batch's last decode step
+            lengths = tuple(n + llama7b.PAGED_NEW_TOKENS - 1 for n in llama7b.PAGED_PROMPT_LENS)
+        owned = [-(-n // bs) for n in lengths]
+        nb_max = max(owned) + 1
+        # the pool's blocks handed out in a random order, as a fragmented pool's
+        ids = torch.randperm(sum(owned), generator=torch.Generator().manual_seed(b_)).tolist()
+        tables = torch.full((b_, nb_max), -1, dtype=torch.int32)
+        for i, n in enumerate(owned):
+            tables[i, :n] = torch.tensor(ids[sum(owned[:i]):sum(owned[:i + 1])])
+        # the control: each sequence's last block dropped where it is partly filled
+        ctrl_tables, ctrl_lens = tables.clone(), list(lengths)
+        for i, n in enumerate(lengths):
+            if n % bs:
+                ctrl_tables[i, owned[i] - 1] = -1
+                ctrl_lens[i] = n - n % bs
+        tables, ctrl_tables = tables.to(dev), ctrl_tables.to(dev)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        ctrl_lens = torch.tensor(ctrl_lens, dtype=torch.int32, device=dev)
+        pool = torch.randn((2, sum(owned) + 1, kvh, bs, d), generator=gen, device=dev).to(bf16)
+        q = torch.randn((b_, h_, d), generator=gen, device=dev).to(bf16)
+        out = pa_mod.paged_decode_attention(q, pool[0], pool[1], tables, lens)
+        torch.cuda.synchronize()
+        ref = pa_mod.paged_decode_attention_ref(q.float(), pool[0], pool[1], tables, lens)
+        err = (out.float() - ref).abs().max().item()
+        excess, need = ulp_gate(out, ref, PAGED_SUM)
+        control, _ = ulp_gate(pa_mod.paged_decode_attention_ref(q.float(), pool[0], pool[1],
+                                                                ctrl_tables, ctrl_lens),
+                              ref, PAGED_SUM)
+        shape = (b_, h_, kvh, d, bs, lengths)
+        print(f"[llama kernels] paged_decode_attention {shape}, a permuted pool of "
+              f"{sum(owned)} blocks: max_abs_err {err:.3e}, excess {excess:.3e} over "
+              f"2**-7|ref| + {PAGED_SUM:g}|ref|max (least c {need:.2e}); control without each "
+              f"last, partly filled block: excess {control:.3e} (must be > 0)", flush=True)
+        check(bool(torch.isfinite(out).all()) and excess <= 0,
+              f"paged_decode_attention {shape}: excess {excess}")
+        check(control > 0, f"paged_decode_attention {shape}: the control passes ({control})")
+        ms, plain_ms = timed_pair(
+            torch, cold(lambda p: pa_mod.paged_decode_attention(q, p[0], p[1], tables, lens), pool,
+                        nbytes(pool)),
+            cold(lambda p: pa_mod.paged_decode_attention_ref(q, p[0], p[1], tables, lens), pool,
+                 nbytes(pool)))
+        # (2, B, nb_max * bs, KVH, D): each sequence's blocks gathered densely
+        dense = pool[:, tables.clamp(min=0).long()].transpose(3, 4).reshape(
+            2, b_, nb_max * bs, kvh, d)
+        mask = (torch.arange(nb_max * bs, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+        qh = q[:, :, None]  # (B, H, 1, D)
+        lib_ms = library_ms(torch, cold(lambda c: F.scaled_dot_product_attention(
+            qh, c[0].transpose(1, 2), c[1].transpose(1, 2), attn_mask=mask,
+            enable_gqa=h_ != kvh), dense, nbytes(dense)))
+        used = sum(lengths)
+        launches = per_request["paged_decode_attention"] if b_ == 8 else "-"
+        record("llama kernels", "paged_decode_attention", shape, err, ms, plain_ms, lib_ms,
+               bound(nbytes(q, tables, lens, out) + 2 * used * kvh * d * 2, 4 * h_ * used * d,
+                     "fp32"),
+               f" | {launches} launches a request | library: SDPA over the gathered bf16 "
+               f"cache, gather not included")
+        del pool, q, out, ref, dense
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------- llama int8kv
+    t0 = time.perf_counter()
+    llama = random_llama(dev, bf16, seed=0, cachekv_int8=True)
+    torch.cuda.synchronize()
+    lcfg = llama.config
+    print(f"[llama] Llama-2-7B built on the card in {time.perf_counter() - t0:.1f} s "
+          f"(cachekv_int8): {sum(p.numel() for p in llama.parameters())} parameters, "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated", flush=True)
+
+    def llama_steps(cache, ids, mask, swaps=(), tokens=None):
+        """Prefill logits at the valid positions, the logits of the next
+        decode steps fed `tokens` or, when None, the greedy ones (returned)."""
+        toks = [] if tokens is None else tokens
+        b = ids.shape[0]
+        positions = torch.where(mask > 0, mask.cumsum(dim=-1) - 1, -1)
+        with torch.inference_mode(), swapped(swaps):
+            logits, cache = llama(ids, positions, cache=cache)
+            outs = [logits[mask > 0].float()]
+            nxt = logits[torch.arange(b, device=dev), mask.sum(dim=-1) - 1]
+            del logits
+            for i in range(LLAMA_AGREE_STEPS):
+                if tokens is None:
+                    toks.append(nxt.float().argmax(dim=-1).view(b, 1))
+                step, cache = llama(toks[i], cache.lengths[:, None], cache=cache)
+                nxt = step[:, -1]
+                outs.append(nxt.float())
+        return outs[0], torch.cat(outs[1:]), toks
+
+    def llama_agree(label, what, got, want):
+        (pre_k, dec_k, toks), (pre_p, dec_p, _) = got, want
+        rel_pre, rel_dec = rel_l2(pre_k, pre_p), rel_l2(dec_k, dec_p)
+        print(f"[{label}] full-width Llama-2-7B, {what}: relative L2 of the logits, prefill "
+              f"({pre_k.shape[0]} tokens) {rel_pre:.3e}, {LLAMA_AGREE_STEPS} decode steps "
+              f"{rel_dec:.3e} (tol {LLAMA_AGREE_TOL}); |logits| max "
+              f"{pre_p.abs().max().item():.3f}; greedy tokens "
+              f"{torch.cat(toks, dim=1)[:2].tolist()}", flush=True)
+        check(bool(torch.isfinite(pre_k).all() and torch.isfinite(dec_k).all())
+              and rel_pre <= LLAMA_AGREE_TOL and rel_dec <= LLAMA_AGREE_TOL,
+              f"{label}: relative L2 {rel_pre} / {rel_dec}")
+
+    ids, mask = int8kv_request(lcfg, LLAMA_REQUESTS[0], dev)
+    prompt = ids.shape[1]
+    got = llama_steps(llama.init_cache(1, prompt + LLAMA_AGREE_STEPS), ids, mask)
+    llama_agree("llama int8kv agree", "int8 KV cache, kernels (rms_norm, decode_attention_int8) "
+                "vs plain", got, llama_steps(
+                    llama.init_cache(1, prompt + LLAMA_AGREE_STEPS), ids, mask,
+                    [(llama_mod, "rms_norm", norms_mod.rms_norm_ref),
+                     (llama_mod, "decode_attention_int8", da_mod.decode_attention_int8_ref)],
+                    got[2]))
+    del got
+
+    llama_counters = {"rms_norm": norms_mod.rms_norm, "decode_attention": da_mod.decode_attention,
+                      "decode_attention_int8": da_mod.decode_attention_int8,
+                      "paged_decode_attention": pa_mod.paged_decode_attention,
+                      "wint8_matmul": quant_mod.wint8_matmul,
+                      "flash_attention": attn_mod.flash_attention}
+
+    def llama_serve(label, run, batch, prompt_lens, new_tokens, cache_kind, full_cache):
+        """3 requests (batches) made by `batch(config, seed)`: TTFT is a
+        1-token run, then the full run; tokens/s = B (new tokens - 1) / (full
+        - TTFT), as bench.py. `full_cache(ids)`: an empty cache of the full
+        run's size."""
+        want = expected_launches_llama(llama, prompt_lens, new_tokens, cache_kind)
+        want_1 = expected_launches_llama(llama, prompt_lens, 1, cache_kind)
+        print(f"[{label}] expected launches per request (walking the modules): {want}; TTFT "
+              f"run {want_1}", flush=True)
+        torch.cuda.reset_peak_memory_stats()
+        for fn in llama_counters.values():
+            fn.launches = 0
+        stats = []
+        for seed in LLAMA_REQUESTS:
+            ids, mask = batch(lcfg, seed, dev)
+            runs = []
+            for n_new, expected in ((1, want_1), (new_tokens, want)):
+                before = {name: fn.launches for name, fn in llama_counters.items()}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                toks = run(ids, mask, n_new)
+                torch.cuda.synchronize()
+                runs.append((time.perf_counter() - t0, toks))
+                got = {name: fn.launches - before[name] for name, fn in llama_counters.items()}
+                check(got == expected, f"{label}: launches {got} != expected {expected}")
+            (ttft, first), (total, toks) = runs
+            tps = ids.shape[0] * (new_tokens - 1) / (total - ttft)
+            stats.append((ttft, total, tps))
+            print(f"[{label}] prompt seed {seed}: TTFT {1e3 * ttft:.1f} ms | {new_tokens} tokens "
+                  f"{total:.3f} s | decode {tps:.2f} tokens/s | tokens {toks[0, :8].tolist()}...",
+                  flush=True)
+            check(toks.shape == (ids.shape[0], new_tokens) and toks.dtype == torch.int32,
+                  f"{label}: tokens {tuple(toks.shape)} {toks.dtype}")
+            check(bool(((toks >= 0) & (toks < lcfg.vocab_size)).all()),
+                  f"{label}: a token outside the vocab")
+            flipped = toks[:, 0] != first[:, 0]
+            if bool(flipped.any()):
+                # the two runs' prefills attend over caches of different sizes,
+                # so their bf16 logits differ by summation order, and a first
+                # token may flip between two near-equal logits: both tokens
+                # must lie within the agree tolerance of the full run's best
+                positions = torch.where(mask > 0, mask.cumsum(dim=-1) - 1, -1)
+                counts = {name: fn.launches for name, fn in llama_counters.items()}
+                with torch.inference_mode():
+                    logits, _ = llama(ids, positions, cache=full_cache(ids))
+                for name, fn in llama_counters.items():  # this check's launches do not count
+                    fn.launches = counts[name]
+                last = logits[torch.arange(ids.shape[0], device=dev),
+                              mask.sum(dim=-1) - 1].float()
+                del logits
+                best = last.amax(dim=-1)
+                gaps = torch.stack([best - last.gather(1, t[:, :1].long())[:, 0]
+                                    for t in (first, toks)])[:, flipped]
+                tol = LLAMA_AGREE_TOL * last.abs().max().item()
+                print(f"[{label}] prompt seed {seed}: the first token flips for "
+                      f"{int(flipped.sum())} of {ids.shape[0]} sequences; logit gaps to the best "
+                      f"{gaps.tolist()} (tol {tol:.3f})", flush=True)
+                check(bool((gaps <= tol).all()), f"{label}: the first tokens differ between the "
+                      f"TTFT run and the full run beyond a near tie")
+        launches = {name: fn.launches for name, fn in llama_counters.items()}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"[{label}] peak memory allocated {peak:.2f} GiB | launches over "
+              f"{len(LLAMA_REQUESTS)} requests {launches}", flush=True)
+        return launches, stats, peak
+
+    new = llama7b.INT8KV_NEW_TOKENS
+    launches_i8, stats_i8, peak_i8 = llama_serve(
+        "llama int8kv", lambda ids, mask, n: greedy_generate(llama, ids, mask, max_new_tokens=n,
+                                                             eos_token_id=-1),
+        int8kv_request, [prompt], new, "int8", lambda ids: llama.init_cache(1, prompt + new))
+    launches_kv, stats_kv, peak_kv = llama_serve(
+        "llama bf16kv", lambda ids, mask, n: greedy_generate(
+            llama, ids, mask, max_new_tokens=n, eos_token_id=-1,
+            cache=KVCache.create(lcfg, 1, prompt + n, device=dev)),
+        int8kv_request, [prompt], new, "dense",
+        lambda ids: KVCache.create(lcfg, 1, prompt + new, device=dev))
+    # the caches' bytes, from their shapes (the meta device allocates nothing)
+    c8 = Int8KVCache.create(lcfg, 1, prompt + new, device="meta")
+    ckv = KVCache.create(lcfg, 1, prompt + new, device="meta")
+    bytes_i8, bytes_kv = nbytes(c8.k, c8.v, c8.k_scale, c8.v_scale), nbytes(ckv.k, ckv.v)
+    print(f"[llama int8kv] median decode tokens/s int8 cache {med(stats_i8, 2):.2f} vs bf16 "
+          f"cache {med(stats_kv, 2):.2f}; TTFT int8 {1e3 * med(stats_i8, 0):.1f} ms vs bf16 "
+          f"{1e3 * med(stats_kv, 0):.1f} ms; peak memory int8 {peak_i8:.2f} GiB vs bf16 "
+          f"{peak_kv:.2f} GiB; cache bytes ({prompt + new + 1} slots) int8 + scales "
+          f"{bytes_i8 / 1e9:.3f} GB vs bf16 {bytes_kv / 1e9:.3f} GB (same run)", flush=True)
+
+    # ----------------------------------------------------------- llama paged
+    ids, mask = paged_batch(lcfg, LLAMA_REQUESTS[0], dev)
+    b_, s_ = ids.shape
+    steps_blocks = blocks_needed(llama7b.PAGED_PROMPT_LENS, LLAMA_AGREE_STEPS, paged_bs)
+
+    def agree_pool():
+        return PagedKVCache.create(lcfg, b_, steps_blocks, paged_bs,
+                                   -(-(s_ + LLAMA_AGREE_STEPS) // paged_bs), device=dev)
+    got = llama_steps(agree_pool(), ids, mask)
+    llama_agree("llama paged agree", "paged KV cache, kernels (rms_norm, paged_decode_attention) "
+                "vs plain", got, llama_steps(
+                    agree_pool(), ids, mask,
+                    [(llama_mod, "rms_norm", norms_mod.rms_norm_ref),
+                     (llama_mod, "paged_decode_attention", pa_mod.paged_decode_attention_ref)],
+                    got[2]))
+    llama_agree("llama paged agree", "the paged path vs the dense KVCache (B7) on the same "
+                "batch", got, llama_steps(KVCache.create(lcfg, b_, s_ + LLAMA_AGREE_STEPS,
+                                                         device=dev), ids, mask, (), got[2]))
+    del got
+    new = llama7b.PAGED_NEW_TOKENS
+    launches_pg, stats_pg, peak_pg = llama_serve(
+        "llama paged", lambda ids, mask, n: paged_greedy_generate(
+            llama, ids, mask, max_new_tokens=n, block_size=paged_bs,
+            num_blocks=blocks_needed(llama7b.PAGED_PROMPT_LENS, n, paged_bs), eos_token_id=-1),
+        paged_batch, llama7b.PAGED_PROMPT_LENS, new, "paged",
+        lambda ids: PagedKVCache.create(lcfg, b_, blocks_needed(llama7b.PAGED_PROMPT_LENS, new,
+                                                                paged_bs),
+                                        paged_bs, -(-(s_ + new) // paged_bs), device=dev))
+    need = blocks_needed(llama7b.PAGED_PROMPT_LENS, new, paged_bs)
+    pool = PagedKVCache.create(lcfg, b_, need, paged_bs, -(-(s_ + new) // paged_bs),
+                               device="meta")
+    dense = KVCache.create(lcfg, b_, s_ + new, device="meta")
+    per_block = nbytes(pool.k_pool, pool.v_pool) // (need + 1)
+    print(f"[llama paged] median batch TTFT {1e3 * med(stats_pg, 0):.1f} ms, aggregate decode "
+          f"{med(stats_pg, 2):.2f} tokens/s ({b_} sequences), peak memory {peak_pg:.2f} GiB; "
+          f"pool {need} blocks {need * per_block / 1e9:.3f} GB (+ the parking block "
+          f"{per_block / 1e9:.3f} GB) vs a dense cache for the batch "
+          f"{nbytes(dense.k, dense.v) / 1e9:.3f} GB", flush=True)
+    del llama
+
     # --------------------------------------------------------------- summary
     def entry(name, route, source, replaces, by_phase):
         # ms / plain_ms / library_ms / bound at the first shape listed;
@@ -999,6 +1369,10 @@ def main():
         return {"llava_bf16": launches_llava[name], "llava_wint8": launches_wint8[name],
                 "sd3": launches_sd3[name]}
 
+    def llama_phases(name):
+        return {"llama_int8kv": launches_i8[name], "llama_bf16kv": launches_kv[name],
+                "llama_paged": launches_pg[name]}
+
     kernels = [
         entry("flash_attention", "cuda", "paddlemix_tpu_torch/csrc/flash_fwd.cu",
               "paddlemix_tpu/ops/attention.py:168", sdxl("flash_attention")),
@@ -1013,26 +1387,36 @@ def main():
         entry("wint8_matmul", "cuda", "paddlemix_tpu_torch/csrc/wint8_gemm.cu",
               "paddlemix_tpu/ops/quant.py:445", llava("wint8_matmul")),
         entry("decode_attention", "cuda", "paddlemix_tpu_torch/csrc/decode_attention.cu",
-              "paddlemix_tpu/ops/decode_attention.py:68", llava("decode_attention")),
+              "paddlemix_tpu/ops/decode_attention.py:68",
+              dict(llava("decode_attention"), **llama_phases("decode_attention"))),
         entry("rms_norm", "triton", "paddlemix_tpu_torch/ops/norms.py",
-              "paddlemix_tpu/ops/norms.py:148", llava("rms_norm")),
+              "paddlemix_tpu/ops/norms.py:148",
+              dict(llava("rms_norm"), **llama_phases("rms_norm"))),
         entry("adaptive_layer_norm", "triton", "paddlemix_tpu_torch/ops/norms.py",
               "paddlemix_tpu/ops/norms.py:261", {"sd3": launches_sd3["adaptive_layer_norm"]}),
         entry("fused_adaln_scale_residual", "triton", "paddlemix_tpu_torch/ops/norms.py",
               "paddlemix_tpu/ops/norms.py:289",
               {"sd3": launches_sd3["fused_adaln_scale_residual"]}),
+        entry("decode_attention_int8", "cuda", "paddlemix_tpu_torch/csrc/decode_attention.cu",
+              "paddlemix_tpu/ops/decode_attention.py:196", llama_phases("decode_attention_int8")),
+        entry("paged_decode_attention", "cuda", "paddlemix_tpu_torch/csrc/paged_attention.cu",
+              "paddlemix_tpu/ops/paged_attention.py:134", llama_phases("paged_decode_attention")),
     ]
     kernels[1]["stats_launches_by_phase"] = sdxl("group_norm_stats")
     # the a8w8 requests run all five SDXL kernels, the bf16 ones flash and
     # GroupNorm; both LLaVA configurations run decode attention and RMSNorm,
     # wint8 also the wint8 GEMM; SD3 runs flash, GroupNorm, RMSNorm and both
-    # adaLN kernels (and, checked per request above, no other)
+    # adaLN kernels; the Llama requests run RMSNorm and the decode attention
+    # of their cache: B8, B7 or B9 (and, checked per request above, no other)
     must_run = [(k["name"], "a8w8") for k in kernels[:5]] + \
         [("flash_attention", "bf16"), ("group_norm", "bf16")] + \
         [(name, phase) for name in ("decode_attention", "rms_norm")
          for phase in ("llava_bf16", "llava_wint8")] + [("wint8_matmul", "llava_wint8")] + \
         [(name, "sd3") for name in ("flash_attention", "group_norm", "rms_norm",
-                                    "adaptive_layer_norm", "fused_adaln_scale_residual")]
+                                    "adaptive_layer_norm", "fused_adaln_scale_residual")] + \
+        [("rms_norm", phase) for phase in ("llama_int8kv", "llama_bf16kv", "llama_paged")] + \
+        [("decode_attention_int8", "llama_int8kv"), ("decode_attention", "llama_bf16kv"),
+         ("paged_decode_attention", "llama_paged")]
     by_name = {k["name"]: k for k in kernels}
     idle = [(name, phase) for name, phase in must_run
             if by_name[name]["launches_by_phase"][phase] == 0]

@@ -1,25 +1,33 @@
-// Single-query decode attention over a bf16 KV cache (B7):
+// Single-query decode attention over a bf16 KV cache (B7) or an int8 KV cache
+// with per-(token, head) fp32 scales (B8):
 //   out[b, 0, h*G + g, :] = softmax_t(scale * q[b, 0, h*G + g, :] . k[b, t, h, :]) v[b, t, h, :]
-// over the keys t < min(lengths[b], L); q and out (B, 1, Hq, D) contiguous,
-// k and v (B, L, KVH, D) with unit stride over D and any other strides (a
-// slice of the layer-major cache), lengths (B,) int32 on the device, G = Hq /
-// KVH query heads per kv head (GQA), D = 64 or 128.
+// over the keys t < min(lengths[b], L), where an int8 row reads as
+// k_q[b, t, h, :] * k_scale[b, t, h] (v likewise); q and out (B, 1, Hq, D)
+// bf16 contiguous, k and v (B, L, KVH, D) with unit stride over D and any
+// other strides (a slice of the layer-major cache), the scales (B, L, KVH)
+// with any strides, lengths (B,) int32 on the device, G = Hq / KVH query heads
+// per kv head (GQA), D = 64 or 128.
 //
-// Replaces the Pallas kernel decode_attention / _decode_kernel
-// (paddlemix_tpu/ops/decode_attention.py). It computes what that kernel does:
-// an online softmax over blocks of keys (fp32 logits from q * scale, keys at
-// or past the length masked to NEG = -0.7 * FLT_MAX, blocks wholly past the
-// length skipped), P rounded to bf16 before the PV product with fp32 sums,
-// and out = acc / l with l == 0 read as 1 (a length of 0 gives zeros). The
-// TPU kernel carried m, l and acc across a sequential grid axis over key
-// blocks; here a block owns one (batch, kv head, range of keys) and loops
-// over its keys itself, and the ranges are merged by a second kernel.
+// Replaces the Pallas kernels decode_attention / _decode_kernel (B7) and
+// decode_attention_int8 / _decode_kernel_int8 (B8), both in
+// paddlemix_tpu/ops/decode_attention.py. It computes what they do: an online
+// softmax over blocks of keys (fp32 logits from q * scale, keys at or past the
+// length masked to NEG = -0.7 * FLT_MAX, blocks wholly past the length
+// skipped) and out = acc / l with l == 0 read as 1 (a length of 0 gives
+// zeros). B7 rounds P to bf16 before the PV product with fp32 sums; B8
+// dequantizes each row in registers (int8 * its scale, in fp32) and keeps P
+// and V in fp32, as its TPU kernel does. The TPU kernels carried m, l and acc
+// across a sequential grid axis over key blocks; here a block owns one (batch,
+// kv head, range of keys) and loops over its keys itself, and the ranges are
+// merged by a second kernel.
 //
-// Bound: the bytes of K and V up to the length (decode reads each cached row
-// once; the arithmetic is ~4 * G flops per byte). Each of the 256 threads owns
-// one 16-byte chunk (8 values of D) of a key row, D / 8 consecutive lanes a
-// row, so a row is one coalesced read; a thread loads its KPT rows of K and V
-// of a key block at once (up to 64 KB in flight per block) before using them.
+// Bound: the bytes of K and V up to the length, with B8's scales (decode
+// reads each cached row once; the arithmetic is ~4 * G flops per bf16 byte).
+// Each of the 256 threads owns 8 values of D of a key row (16 bytes of a bf16
+// row, 8 of an int8 one), D / 8 consecutive lanes a row, so a row is one
+// coalesced read; a thread loads its KPT rows of K and V of a key block (and
+// their scales) at once, up to 64 KB in flight per block for bf16 and half of
+// that for int8, before using them.
 // One block per (batch, kv head) would leave most SMs idle when B * KVH is
 // small (Llama-7B at batch 1: 32 blocks on 132 SMs), so the keys are split
 // into S contiguous ranges, one block each (the caller picks S): each block
@@ -52,14 +60,46 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-// partial: per (query head, split) D + 2 floats, [m, l, acc[0..D)]
-template <int D, int G>
+// How a cache element type is read: 8 values of a row as one vector load.
+template <typename T>
+struct CacheRow;
+
+template <>
+struct CacheRow<__nv_bfloat16> {
+  using Vec = uint4;
+  static constexpr bool kInt8 = false;
+  __device__ __forceinline__ static void unpack(const Vec& u, float (&v)[8]) { unpack8(u, v); }
+};
+
+template <>
+struct CacheRow<int8_t> {
+  using Vec = uint2;
+  static constexpr bool kInt8 = true;
+  __device__ __forceinline__ static void unpack(const Vec& u, float (&v)[8]) {
+    const uint32_t w[2] = {u.x, u.y};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        v[4 * i + j] = static_cast<float>(static_cast<int>(w[i] << (24 - 8 * j)) >> 24);
+    }
+  }
+};
+
+// partial: per (query head, split) D + 2 floats, [m, l, acc[0..D)]. T is the
+// cache element type; ks / vs (the int8 rows' scales) are read for int8 only.
+template <int D, int G, typename T>
 __global__ void __launch_bounds__(THREADS)
-decode_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v, const int* __restrict__ lengths,
+decode_attention_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const float* __restrict__ ks,
+                        const float* __restrict__ vs, const int* __restrict__ lengths,
                         __nv_bfloat16* __restrict__ out, float* __restrict__ partial, int L,
                         int kvh, int chunk, long long k_sb, long long k_sl, long long k_sh,
-                        long long v_sb, long long v_sl, long long v_sh, float scale) {
+                        long long v_sb, long long v_sl, long long v_sh, long long ks_sb,
+                        long long ks_sl, long long ks_sh, long long vs_sb, long long vs_sl,
+                        long long vs_sh, float scale) {
+  using Row = CacheRow<T>;
+  using Vec = typename Row::Vec;
   constexpr int CH = D / 8;              // lanes per key row
   constexpr int ROWS = THREADS / CH;     // key rows per pass
   constexpr int KPT = G <= 2 ? 8 : 4;    // key rows per thread per block
@@ -91,23 +131,34 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
     s_m[tid] = -INFINITY;
     s_l[tid] = 0.f;
   }
-  const __nv_bfloat16* kb = k + b * k_sb + h * k_sh + c * 8;
-  const __nv_bfloat16* vb = v + b * v_sb + h * v_sh + c * 8;
+  const T* kb = k + b * k_sb + h * k_sh + c * 8;
+  const T* vb = v + b * v_sb + h * v_sh + c * 8;
+  const float* ksb = Row::kInt8 ? ks + b * ks_sb + h * ks_sh : nullptr;
+  const float* vsb = Row::kInt8 ? vs + b * vs_sb + h * vs_sh : nullptr;
 
   for (int t0 = t_begin; t0 < n; t0 += BK) {
-    uint4 kr[KPT], vr[KPT];
+    Vec kr[KPT], vr[KPT];
+    float ksr[KPT], vsr[KPT];  // the rows' scales (int8)
 #pragma unroll
     for (int j = 0; j < KPT; ++j) {
       const int t = t0 + r + j * ROWS;
-      kr[j] = t < n ? __ldg(reinterpret_cast<const uint4*>(kb + t * k_sl)) : make_uint4(0, 0, 0, 0);
-      vr[j] = t < n ? __ldg(reinterpret_cast<const uint4*>(vb + t * v_sl)) : make_uint4(0, 0, 0, 0);
+      kr[j] = t < n ? __ldg(reinterpret_cast<const Vec*>(kb + t * k_sl)) : Vec{};
+      vr[j] = t < n ? __ldg(reinterpret_cast<const Vec*>(vb + t * v_sl)) : Vec{};
+      if constexpr (Row::kInt8) {
+        ksr[j] = t < n ? __ldg(ksb + t * ks_sl) : 0.f;
+        vsr[j] = t < n ? __ldg(vsb + t * vs_sl) : 0.f;
+      }
     }
     __syncthreads();  // the previous block's PV has read s_p
     // logits: each row's CH lanes reduce their partial dot products
 #pragma unroll
     for (int j = 0; j < KPT; ++j) {
       float kf[8];
-      unpack8(kr[j], kf);
+      Row::unpack(kr[j], kf);
+      if constexpr (Row::kInt8) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) kf[i] *= ksr[j];  // dequant in fp32, as the TPU kernel
+      }
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         float part = 0.f;
@@ -132,7 +183,8 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
       for (int i = lane; i < BK; i += 32) {
         const float p = expf(s_p[g][i] - m_new);
         lsum += p;
-        s_p[g][i] = round_bf16(p);  // P meets V in bf16, as in the TPU kernel
+        // B7: P meets V in bf16, as in its TPU kernel; B8 keeps P in fp32
+        s_p[g][i] = Row::kInt8 ? p : round_bf16(p);
       }
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) lsum += __shfl_xor_sync(0xffffffffu, lsum, off);
@@ -155,7 +207,11 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
     for (int j = 0; j < KPT; ++j) {
       if (t0 + r + j * ROWS >= n) continue;
       float vf[8];
-      unpack8(vr[j], vf);
+      Row::unpack(vr[j], vf);
+      if constexpr (Row::kInt8) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) vf[i] *= vsr[j];
+      }
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         const float p = s_p[g][r + j * ROWS];
@@ -215,21 +271,23 @@ decode_attention_merge(const float* __restrict__ partial, __nv_bfloat16* __restr
 }
 
 struct Args {
-  const void *q, *k, *v, *lengths;
+  const void *q, *k, *v, *ks, *vs, *lengths;
   void* out;
   float* partial;
   int B, L, kvh, splits, chunk;
-  long long k_sb, k_sl, k_sh, v_sb, v_sl, v_sh;
+  long long k_sb, k_sl, k_sh, v_sb, v_sl, v_sh, ks_sb, ks_sl, ks_sh, vs_sb, vs_sl, vs_sh;
   float scale;
 };
 
-template <int D, int G>
+template <int D, int G, typename T>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  decode_attention_kernel<D, G><<<dim3(a.kvh, a.B, a.splits), THREADS, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
-      static_cast<const __nv_bfloat16*>(a.v), static_cast<const int*>(a.lengths),
+  decode_attention_kernel<D, G, T><<<dim3(a.kvh, a.B, a.splits), THREADS, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const float*>(a.ks),
+      static_cast<const float*>(a.vs), static_cast<const int*>(a.lengths),
       static_cast<__nv_bfloat16*>(a.out), a.partial, a.L, a.kvh, a.chunk, a.k_sb, a.k_sl,
-      a.k_sh, a.v_sb, a.v_sl, a.v_sh, a.scale);
+      a.k_sh, a.v_sb, a.v_sl, a.v_sh, a.ks_sb, a.ks_sl, a.ks_sh, a.vs_sb, a.vs_sl, a.vs_sh,
+      a.scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || a.splits == 1) return err;
   decode_attention_merge<D><<<dim3(a.kvh * G, a.B), D, 0, stream>>>(
@@ -237,15 +295,26 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, typename T>
 cudaError_t dispatch_g(int G, const Args& a, cudaStream_t stream) {
   switch (G) {
-    case 1: return launch<D, 1>(a, stream);
-    case 2: return launch<D, 2>(a, stream);
-    case 4: return launch<D, 4>(a, stream);
-    case 8: return launch<D, 8>(a, stream);
+    case 1: return launch<D, 1, T>(a, stream);
+    case 2: return launch<D, 2, T>(a, stream);
+    case 4: return launch<D, 4, T>(a, stream);
+    case 8: return launch<D, 8, T>(a, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <typename T>
+cudaError_t dispatch(int D, int G, const Args& a, cudaStream_t stream) {
+  if (a.B == 0 || a.kvh == 0) return cudaSuccess;
+  if (a.splits < 1 || (long long)a.splits * a.chunk < a.L ||
+      (a.splits > 1 && a.partial == nullptr))
+    return cudaErrorInvalidValue;
+  if (D == 64) return dispatch_g<64, T>(G, a, stream);
+  if (D == 128) return dispatch_g<128, T>(G, a, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -259,13 +328,24 @@ extern "C" int decode_attention_bf16(const void* q, const void* k, const void* v
                                      long long k_sb, long long k_sl, long long k_sh,
                                      long long v_sb, long long v_sl, long long v_sh,
                                      float scale, void* stream) {
-  if (B == 0 || kvh == 0) return 0;
-  if (splits < 1 || (long long)splits * chunk < L || (splits > 1 && partial == nullptr))
-    return cudaErrorInvalidValue;
-  const Args a{q, k, v, lengths, out, static_cast<float*>(partial), B, L, kvh, splits, chunk,
-               k_sb, k_sl, k_sh, v_sb, v_sl, v_sh, scale};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return dispatch_g<64>(G, a, s);
-  if (D == 128) return dispatch_g<128>(G, a, s);
-  return cudaErrorInvalidValue;
+  const Args a{q, k, v, nullptr, nullptr, lengths, out, static_cast<float*>(partial), B, L,
+               kvh, splits, chunk, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh, 0, 0, 0, 0, 0, 0, scale};
+  return dispatch<__nv_bfloat16>(D, G, a, static_cast<cudaStream_t>(stream));
+}
+
+// The int8 cache (B8): k and v int8, k_scale and v_scale (B, L, KVH) fp32;
+// strides in elements, the rest as decode_attention_bf16.
+extern "C" int decode_attention_int8(const void* q, const void* k, const void* v,
+                                     const void* k_scale, const void* v_scale,
+                                     const void* lengths, void* out, void* partial, int B,
+                                     int L, int kvh, int G, int D, int splits, int chunk,
+                                     long long k_sb, long long k_sl, long long k_sh,
+                                     long long v_sb, long long v_sl, long long v_sh,
+                                     long long ks_sb, long long ks_sl, long long ks_sh,
+                                     long long vs_sb, long long vs_sl, long long vs_sh,
+                                     float scale, void* stream) {
+  const Args a{q, k, v, k_scale, v_scale, lengths, out, static_cast<float*>(partial), B, L,
+               kvh, splits, chunk, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh, ks_sb, ks_sl, ks_sh,
+               vs_sb, vs_sl, vs_sh, scale};
+  return dispatch<int8_t>(D, G, a, static_cast<cudaStream_t>(stream));
 }

@@ -1,7 +1,16 @@
-"""Llama decoder with a static KV cache (port of paddlemix_tpu/models/llama)."""
+"""Llama decoder with a dense, int8 or paged KV cache (port of
+paddlemix_tpu/models/llama), and the Llama-2-7B serving model."""
 
 from .configuration import LlamaConfig
+from .llama7b import (
+    expected_launches_llama,
+    int8kv_request,
+    llama2_7b_config,
+    paged_batch,
+    random_llama,
+)
 from .modeling import (
+    Int8KVCache,
     KVCache,
     LlamaForCausalLM,
     LlamaModule,
@@ -11,6 +20,9 @@ from .modeling import (
     greedy_generate,
     sample_token,
 )
+from .paged import PagedKVCache, blocks_needed, paged_greedy_generate
 
-__all__ = ["KVCache", "LlamaConfig", "LlamaForCausalLM", "LlamaModule", "MXUDense", "RMSNorm",
-           "SamplingConfig", "greedy_generate", "sample_token"]
+__all__ = ["Int8KVCache", "KVCache", "LlamaConfig", "LlamaForCausalLM", "LlamaModule", "MXUDense",
+           "PagedKVCache", "RMSNorm", "SamplingConfig", "blocks_needed",
+           "expected_launches_llama", "greedy_generate", "int8kv_request", "llama2_7b_config",
+           "paged_batch", "paged_greedy_generate", "random_llama", "sample_token"]

@@ -1,23 +1,30 @@
-"""Llama decoder with a static KV cache, and greedy / sampled generation.
-Port of paddlemix_tpu/models/llama/modeling.py: the dense bf16-cache path
-(prefill and single-token decode), `MXUDense` with quant None or "wint8",
-`LlamaForCausalLM` and `greedy_generate`.
+"""Llama decoder with a KV cache, and greedy / sampled generation. Port of
+paddlemix_tpu/models/llama/modeling.py: prefill and single-token decode over
+the dense `KVCache`, the int8 `Int8KVCache` (`cachekv_int8`) and the
+`PagedKVCache` (models/llama/paged.py), `MXUDense` with quant None or
+"wint8", `LlamaForCausalLM` and `greedy_generate`.
 
-Kernels on this path, each launched for CUDA tensors (plain versions on the
-CPU): RMSNorm (B11, `ops.norms.rms_norm`) for every norm, decode attention
-(B7, `ops.decode_attention`) for every single-token step, and under wint8
-the weight-only int8 GEMM (B6, `ops.quant.wint8_matmul`) for every
-projection and the lm_head. The JAX package routes the first two by v5e
-thresholds (at least 64 rows, at least 2048 cache slots); eager PyTorch has
-no fusion to lose, so the port launches them for every call. The prefill
+Kernels on these paths, each launched for CUDA tensors (plain versions on the
+CPU): RMSNorm (B11, `ops.norms.rms_norm`) for every norm; for every
+single-token step decode attention over the dense cache (B7,
+`ops.decode_attention.decode_attention`), over the int8 cache (B8,
+`decode_attention_int8`) or over the paged pool (B9,
+`ops.paged_attention.paged_decode_attention`); and under wint8 the
+weight-only int8 GEMM (B6, `ops.quant.wint8_matmul`) for every projection
+and the lm_head. The JAX package routes these by v5e thresholds (at least 64
+rows, at least 2048 cache slots, 128-aligned widths); eager PyTorch has no
+fusion to lose, so the port launches them for every call. The prefill
 attends over the cache by math attention with a -1e9 bias past each query's
-position, as the JAX package does.
+position, as the JAX package does: over the int8 cache dequantized to the
+model's dtype (so the fresh keys too carry their int8 rounding), over the
+paged pool's dense gather.
 
-The cache is updated in place (JAX returns a new one). Parameter names
+The caches are updated in place (JAX returns new ones). Parameter names
 follow HF transformers (model.layers.N.self_attn.q_proj, ...), which the JAX
 key map renames (core.convert.LLAMA_KEY_MAP). Not ported yet: the
-cache-free (training) forward, int8 and paged caches, fused qkv, scanned
-layers, beam search, NTK / logn rope.
+cache-free (training) forward, fused qkv, scanned layers, beam search, NTK /
+logn rope, and the int8 and paged caches under LLaVA (whose JAX model always
+builds the dense cache).
 """
 
 from __future__ import annotations
@@ -30,11 +37,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.attention import attention_math
-from ...ops.decode_attention import decode_attention
+from ...ops.decode_attention import decode_attention, decode_attention_int8
 from ...ops.norms import rms_norm
+from ...ops.paged_attention import paged_decode_attention
 from ...ops.quant import quantize_weights_int8, wint8_matmul
 from ...ops.rope import apply_rope, rope_cos_sin
 from .configuration import LlamaConfig
+from .paged import PagedKVCache
 
 
 @dataclasses.dataclass
@@ -60,6 +69,43 @@ class KVCache:
     @property
     def max_len(self) -> int:
         return self.k.shape[2] - 1
+
+
+@dataclasses.dataclass
+class Int8KVCache:
+    """The int8 cache (reference deploy --cachekv_int8): k/v (num_layers, B,
+    slots, kv_heads, head_dim) int8 with per-(token, head) fp32 scales
+    k_scale/v_scale (num_layers, B, slots, kv_heads); lengths as `KVCache`,
+    and the same parking slot. Half the bytes a decode step reads from the
+    bf16 cache, plus 1/32 for the scales at head_dim 128."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: torch.Tensor
+    v_scale: torch.Tensor
+    lengths: torch.Tensor
+
+    @classmethod
+    def create(cls, config: LlamaConfig, batch: int, max_len: int, device="cuda"):
+        shape = (config.num_hidden_layers, batch, max_len + 1, config.kv_heads,
+                 config.head_dim_)
+        return cls(torch.zeros(shape, dtype=torch.int8, device=device),
+                   torch.zeros(shape, dtype=torch.int8, device=device),
+                   torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+                   torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+                   torch.zeros((batch,), dtype=torch.int32, device=device))
+
+    @property
+    def max_len(self) -> int:
+        return self.k.shape[2] - 1
+
+
+def _quantize_kv(x):
+    """(B, S, H, D) -> int8 values and the per-(token, head) fp32 scale
+    max(|x|max / 127, 1e-8); x / scale rounds half to even, as jnp.round."""
+    xf = x.float()
+    scale = (xf.abs().amax(dim=-1) / 127.0).clamp(min=1e-8)
+    return torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8), scale
 
 
 class RMSNorm(nn.Module):
@@ -106,14 +152,16 @@ class MXUDense(nn.Linear):
 
 
 class _Step(NamedTuple):
-    """What every layer of one forward shares: rope, the cache slots to write,
+    """What every layer of one forward shares: rope, where to write (the
+    slots of the dense and int8 caches, the positions the paged cache maps),
     and either the decode lengths (one token) or the prefill bias."""
 
     cos: torch.Tensor
     sin: torch.Tensor
-    write_idx: torch.Tensor        # (B, S) slot of each position
-    lengths: Optional[torch.Tensor]  # (B,) int32, single-token steps
-    bias: Optional[torch.Tensor]     # (B, 1, S, slots - 1) fp32, prefill
+    positions: torch.Tensor              # (B, S), -1 = padding
+    write_idx: Optional[torch.Tensor]    # (B, S) slot of each position (dense, int8)
+    lengths: Optional[torch.Tensor]      # (B,) int32, single-token steps
+    bias: Optional[torch.Tensor]         # (B, 1, S, keys) fp32, prefill
 
 
 class LlamaAttention(nn.Module):
@@ -127,21 +175,43 @@ class LlamaAttention(nn.Module):
         self.v_proj = MXUDense(cfg.hidden_size, nkv, bias=cfg.attention_bias)
         self.o_proj = MXUDense(nq, cfg.hidden_size, bias=False)
 
-    def forward(self, x, step: _Step, cache: KVCache, layer_idx: int):
+    def forward(self, x, step: _Step, cache, layer_idx: int):
         b, s, _ = x.shape
         q = self.q_proj(x).view(b, s, self.num_heads, self.head_dim)
         k = self.k_proj(x).view(b, s, self.kv_heads, self.head_dim)
         v = self.v_proj(x).view(b, s, self.kv_heads, self.head_dim)
         q, k = apply_rope(q, k, step.cos, step.sin)
         bidx = torch.arange(b, device=x.device)[:, None]
-        ck, cv = cache.k[layer_idx], cache.v[layer_idx]
-        ck[bidx, step.write_idx] = k.to(ck.dtype)
-        cv[bidx, step.write_idx] = v.to(cv.dtype)
-        ck, cv = ck[:, :-1], cv[:, :-1]  # the parking slot is never read
-        if step.lengths is not None:
-            out = decode_attention(q, ck, cv, step.lengths)
+        if isinstance(cache, PagedKVCache):
+            cache.update(layer_idx, k, v, step.positions)
+            if step.lengths is not None:
+                out = paged_decode_attention(q[:, 0], cache.k_pool[layer_idx],
+                                             cache.v_pool[layer_idx], cache.block_tables,
+                                             step.lengths)[:, None]
+            else:
+                out = attention_math(q, *cache.layer_view(layer_idx), bias=step.bias)
+        elif isinstance(cache, Int8KVCache):
+            (kq, ks), (vq, vs) = _quantize_kv(k), _quantize_kv(v)
+            ck, cv, cks, cvs = (t[layer_idx] for t in (cache.k, cache.v, cache.k_scale,
+                                                       cache.v_scale))
+            ck[bidx, step.write_idx], cks[bidx, step.write_idx] = kq, ks
+            cv[bidx, step.write_idx], cvs[bidx, step.write_idx] = vq, vs
+            # the parking slot is never read
+            ck, cv, cks, cvs = ck[:, :-1], cv[:, :-1], cks[:, :-1], cvs[:, :-1]
+            if step.lengths is not None:
+                out = decode_attention_int8(q, ck, cv, cks, cvs, step.lengths)
+            else:
+                out = attention_math(q, (ck.float() * cks[..., None]).to(x.dtype),
+                                     (cv.float() * cvs[..., None]).to(x.dtype), bias=step.bias)
         else:
-            out = attention_math(q, ck, cv, bias=step.bias)
+            ck, cv = cache.k[layer_idx], cache.v[layer_idx]
+            ck[bidx, step.write_idx] = k.to(ck.dtype)
+            cv[bidx, step.write_idx] = v.to(cv.dtype)
+            ck, cv = ck[:, :-1], cv[:, :-1]  # the parking slot is never read
+            if step.lengths is not None:
+                out = decode_attention(q, ck, cv, step.lengths)
+            else:
+                out = attention_math(q, ck, cv, bias=step.bias)
         return self.o_proj(out.reshape(b, s, -1))
 
 
@@ -164,7 +234,7 @@ class LlamaDecoderLayer(nn.Module):
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
         self.mlp = LlamaMLP(cfg)
 
-    def forward(self, x, step: _Step, cache: KVCache, layer_idx: int):
+    def forward(self, x, step: _Step, cache, layer_idx: int):
         x = x + self.self_attn(self.input_layernorm(x), step, cache, layer_idx)
         return x + self.mlp(self.post_attention_layernorm(x))
 
@@ -184,11 +254,11 @@ class LlamaModule(nn.Module):
     def embed(self, input_ids):
         return self.embed_tokens(input_ids)
 
-    def forward(self, input_ids=None, positions=None, *, inputs_embeds=None,
-                cache: Optional[KVCache] = None):
+    def forward(self, input_ids=None, positions=None, *, inputs_embeds=None, cache=None):
         """Returns the final hidden states; writes this step's keys and values
-        into `cache` and advances its lengths by the valid (position >= 0)
-        tokens."""
+        into `cache` (a `KVCache`, `Int8KVCache` or `PagedKVCache`), taking
+        the paged cache's blocks once for all layers, and advances its
+        lengths by the valid (position >= 0) tokens."""
         if cache is None:
             raise NotImplementedError("LlamaModule: the cache-free (training) forward is not "
                                       "ported yet")
@@ -197,16 +267,21 @@ class LlamaModule(nn.Module):
         b, s = x.shape[:2]
         if positions is None:
             positions = torch.arange(s, device=x.device).expand(b, s)
-        slots = cache.k.shape[2]
         cos, sin = rope_cos_sin(positions, cfg.head_dim_, cfg.rope_theta)
-        write_idx = torch.where(positions >= 0, positions.clamp(max=slots - 1), slots - 1)
+        if isinstance(cache, PagedKVCache):
+            cache.allocate_for(positions)
+            keys, write_idx = cache.max_len, None
+        else:
+            slots = cache.k.shape[2]
+            keys = slots - 1
+            write_idx = torch.where(positions >= 0, positions.clamp(max=slots - 1), slots - 1)
         if s == 1:
-            step = _Step(cos, sin, write_idx, (positions[:, 0] + 1).int(), None)
+            step = _Step(cos, sin, positions, write_idx, (positions[:, 0] + 1).int(), None)
         else:  # key j visible to the query at position p iff j <= p
-            key_pos = torch.arange(slots - 1, device=x.device)
+            key_pos = torch.arange(keys, device=x.device)
             visible = key_pos[None, None, None, :] <= positions[:, None, :, None]
             bias = torch.where(visible, 0.0, -1e9).float()
-            step = _Step(cos, sin, write_idx, None, bias)
+            step = _Step(cos, sin, positions, write_idx, None, bias)
         for i, layer in enumerate(self.layers):
             x = layer(x, step, cache, i)
         cache.lengths += (positions >= 0).sum(dim=-1).int()
@@ -232,15 +307,18 @@ class LlamaForCausalLM(nn.Module):
     def embed(self, input_ids):
         return self.model.embed(input_ids)
 
-    def forward(self, input_ids=None, positions=None, *, inputs_embeds=None,
-                cache: Optional[KVCache] = None):
+    def forward(self, input_ids=None, positions=None, *, inputs_embeds=None, cache=None):
         """-> (logits (B, S, vocab), cache)."""
         hidden = self.model(input_ids, positions, inputs_embeds=inputs_embeds, cache=cache)
         if self.lm_head is None:
             return F.linear(hidden, self.model.embed_tokens.weight), cache
         return self.lm_head(hidden), cache
 
-    def init_cache(self, batch: int, max_len: int, dtype=None) -> KVCache:
+    def init_cache(self, batch: int, max_len: int, dtype=None):
+        """An `Int8KVCache` under `cachekv_int8`, else a `KVCache` in `dtype`
+        (the model's by default)."""
+        if self.config.cachekv_int8:
+            return Int8KVCache.create(self.config, batch, max_len, device=self.device)
         return KVCache.create(self.config, batch, max_len, dtype=dtype or self.dtype,
                               device=self.device)
 
@@ -286,7 +364,8 @@ def sample_token(logits, cfg: SamplingConfig, generator: Optional[torch.Generato
 def greedy_generate(model: LlamaForCausalLM, input_ids, attention_mask=None,
                     max_new_tokens: int = 32, eos_token_id: Optional[int] = None,
                     sampling: SamplingConfig = SamplingConfig(),
-                    generator: Optional[torch.Generator] = None, inputs_embeds=None):
+                    generator: Optional[torch.Generator] = None, inputs_embeds=None,
+                    cache=None):
     """Prefill, then one cached forward per new token (port of
     `greedy_generate`). input_ids: (B, S) right-padded, with attention_mask 0
     on padding. Returns (B, max_new_tokens) int32; after every sample has
@@ -294,14 +373,15 @@ def greedy_generate(model: LlamaForCausalLM, input_ids, attention_mask=None,
     bucket so that one compiled program serves many lengths; eager PyTorch
     needs no bucket. The all-done test reads the device, so it runs only
     when the eos id is >= 0 (the LLaVA bench passes -1: every request makes
-    max_new_tokens tokens)."""
+    max_new_tokens tokens). `cache`: an empty cache of at least S +
+    max_new_tokens slots to fill, `model.init_cache`'s by default."""
     eos = model.config.eos_token_id if eos_token_id is None else eos_token_id
     dev = model.device
     input_ids = input_ids.to(dev)
     b, s = input_ids.shape
     mask = (torch.ones((b, s), dtype=torch.int32, device=dev) if attention_mask is None
             else attention_mask.to(dev).int())
-    cache = model.init_cache(b, s + max_new_tokens)
+    cache = model.init_cache(b, s + max_new_tokens) if cache is None else cache
     positions = torch.where(mask > 0, mask.cumsum(dim=-1) - 1, -1)
     logits, cache = model(input_ids, positions, inputs_embeds=inputs_embeds, cache=cache)
     last = logits[torch.arange(b, device=dev), mask.sum(dim=-1) - 1]

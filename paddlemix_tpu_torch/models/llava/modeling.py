@@ -118,10 +118,15 @@ class LlavaModule(nn.Module):
 class LlavaForConditionalGeneration(LlavaModule):
     """LLaVA with generation. `language_model` is the Llama the JAX package's
     `_LlamaView` adapter presents to `greedy_generate`; here it already has
-    that surface (config, init_cache, forward)."""
+    that surface (config, forward), and `generate` hands it the dense cache of
+    `init_cache`, which the adapter's `init_cache` builds."""
 
     def init_cache(self, batch: int, max_len: int, dtype=None) -> KVCache:
-        return self.language_model.init_cache(batch, max_len, dtype)
+        """The dense cache in `dtype` (the language model's by default),
+        whatever the text config's `cachekv_int8` says, as the JAX LLaVA
+        builds it."""
+        lm = self.language_model
+        return KVCache.create(lm.config, batch, max_len, dtype=dtype or lm.dtype, device=lm.device)
 
     def quantize_(self, mode: str = "wint8") -> int:
         """Weight-only int8 of the language model's projections and lm_head
@@ -140,6 +145,7 @@ class LlavaForConditionalGeneration(LlavaModule):
             input_ids = input_ids.to(dev)
             inputs_embeds = self.splice_image_features(input_ids,
                                                        self.encode_images(pixel_values.to(dev)))
+        b, s = input_ids.shape
         return greedy_generate(self.language_model, input_ids, attention_mask,
                                max_new_tokens=max_new_tokens, inputs_embeds=inputs_embeds,
-                               **kwargs)
+                               cache=self.init_cache(b, s + max_new_tokens), **kwargs)

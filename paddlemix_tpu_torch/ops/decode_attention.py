@@ -1,11 +1,11 @@
 """Decode attention: one query token over a static (B, L, KVH, D) KV cache,
-masked by per-sample lengths. Port of paddlemix_tpu/ops/decode_attention.py
-(the bf16-cache kernel; the int8-cache one is not ported yet).
+masked by per-sample lengths. Port of paddlemix_tpu/ops/decode_attention.py.
 
-`decode_attention` launches the CUDA kernel of `csrc/decode_attention.cu` (B7)
-for CUDA tensors and runs its plain version `decode_attention_ref` for CPU
-tensors. GQA maps query head j to kv head j // (Hq / KVH), as the JAX package
-does.
+`decode_attention` (bf16 cache, B7) and `decode_attention_int8` (int8 cache
+with per-(token, head) fp32 scales, B8) launch the CUDA kernels of
+`csrc/decode_attention.cu` for CUDA tensors and run their plain versions
+`decode_attention_ref` / `decode_attention_int8_ref` for CPU tensors. GQA maps
+query head j to kv head j // (Hq / KVH), as the JAX package does.
 """
 
 from __future__ import annotations
@@ -58,37 +58,61 @@ def _decode_fn():
     return fn
 
 
-def _decode_cuda(q, k_cache, v_cache, lengths, scale):
+@functools.lru_cache(maxsize=None)
+def _decode_int8_fn():
+    from ..kernels import load_library
+
+    fn = load_library("decode_attention").decode_attention_int8
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 12
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_decode_args(name, q, k_cache, v_cache, lengths, cache_dtype):
+    """The shapes, types and layouts the kernels take; returns (B, L, KVH, Hq, D)."""
     b, one, hq, d = q.shape
     L, kvh = k_cache.shape[1], k_cache.shape[2]
     if one != 1 or tuple(k_cache.shape) != (b, L, kvh, d) or v_cache.shape != k_cache.shape:
-        raise ValueError(f"decode_attention: shapes q {tuple(q.shape)} k {tuple(k_cache.shape)} "
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)} k {tuple(k_cache.shape)} "
                          f"v {tuple(v_cache.shape)} do not match")
     if d not in _KERNEL_HEAD_DIMS or hq % kvh or hq // kvh not in _KERNEL_GROUPS:
-        raise ValueError(f"decode_attention kernel takes head_dim in {_KERNEL_HEAD_DIMS} and "
+        raise ValueError(f"{name} kernel takes head_dim in {_KERNEL_HEAD_DIMS} and "
                          f"Hq / KVH in {_KERNEL_GROUPS}, got D = {d}, Hq = {hq}, KVH = {kvh}")
     if q.dtype != torch.bfloat16 or not q.is_contiguous():
-        raise ValueError(f"decode_attention: q must be a contiguous bf16 tensor, got {q.dtype} "
+        raise ValueError(f"{name}: q must be a contiguous bf16 tensor, got {q.dtype} "
                          f"strides {q.stride()}")
-    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
-        if t.device != q.device or t.dtype != torch.bfloat16 or t.stride(-1) != 1 \
-                or any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
-            raise ValueError(f"decode_attention: {name} must be bf16 on {q.device} with unit "
-                             f"stride over D and 16-byte aligned rows, got {t.dtype} on "
-                             f"{t.device}, strides {t.stride()}")
+    for arg, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+        # 8 values of D a thread: 16-byte (bf16) or 8-byte (int8) aligned loads
+        if t.device != q.device or t.dtype != cache_dtype or t.stride(-1) != 1 \
+                or any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % (8 * t.element_size()):
+            raise ValueError(f"{name}: {arg} must be {cache_dtype} on {q.device} with unit "
+                             f"stride over D and aligned rows (strides a multiple of 8), got "
+                             f"{t.dtype} on {t.device}, strides {t.stride()}")
     if lengths.device != q.device or lengths.dtype != torch.int32 or tuple(lengths.shape) != (b,):
-        raise ValueError(f"decode_attention: lengths must be ({b},) int32 on {q.device}, got "
+        raise ValueError(f"{name}: lengths must be ({b},) int32 on {q.device}, got "
                          f"{lengths.dtype} {tuple(lengths.shape)} on {lengths.device}")
-    lengths = lengths.contiguous()
-    out = torch.empty_like(q)
+    return b, L, kvh, hq, d
+
+
+def _split_buffers(q, b, kvh, hq, d, L):
+    """The output, the key ranges, and the merge's scratch: per (query head,
+    key range) the range's max, sum and unnormalised output."""
     splits, chunk = key_splits(b, kvh, L)
-    # per (query head, key range): the range's max, sum and unnormalised output
     partial = torch.empty((b, hq, splits, d + 2), dtype=torch.float32, device=q.device) \
         if splits > 1 else None
+    return torch.empty_like(q), splits, chunk, partial
+
+
+def _decode_cuda(q, k_cache, v_cache, lengths, scale):
+    b, L, kvh, hq, d = _check_decode_args("decode_attention", q, k_cache, v_cache, lengths,
+                                          torch.bfloat16)
+    lengths = lengths.contiguous()
+    out, splits, chunk, partial = _split_buffers(q, b, kvh, hq, d, L)
+    partial_ptr = 0 if partial is None else partial.data_ptr()
     with torch.cuda.device(q.device):
         err = _decode_fn()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                           lengths.data_ptr(), out.data_ptr(),
-                           0 if partial is None else partial.data_ptr(), b, L, kvh, hq // kvh,
+                           lengths.data_ptr(), out.data_ptr(), partial_ptr, b, L, kvh, hq // kvh,
                            d, splits, chunk, *k_cache.stride()[:3], *v_cache.stride()[:3],
                            float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     if err:
@@ -112,3 +136,69 @@ def decode_attention(q, k_cache, v_cache, lengths, *, scale: Optional[float] = N
 
 
 decode_attention.launches = 0  # kernel launches (CUDA tensors only)
+
+
+def decode_attention_int8_ref(q, k_q, v_q, k_scale, v_scale, lengths, *,
+                              scale: Optional[float] = None):
+    """Plain version of B8 (port of what `_decode_kernel_int8` computes): the
+    int8 cache dequantized in fp32 (value x its (token, head) scale), fp32
+    logits from q x scale, positions at or past the length masked to NEG, fp32
+    softmax, P kept in fp32 for the PV product, and zeros for a length of 0.
+    q: (B, 1, Hq, D); k_q/v_q: (B, L, KVH, D) int8; k_scale/v_scale: (B, L,
+    KVH) fp32; lengths: (B,). Returns (B, 1, Hq, D) in q's dtype."""
+    hq, d = q.shape[2], q.shape[3]
+    L, kvh = k_q.shape[1], k_q.shape[2]
+    scale = d ** -0.5 if scale is None else scale
+    k = k_q.float() * k_scale.float()[..., None]
+    v = v_q.float() * v_scale.float()[..., None]
+    if kvh != hq:
+        k = k.repeat_interleave(hq // kvh, dim=2)
+        v = v.repeat_interleave(hq // kvh, dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k)
+    mask = torch.arange(L, device=q.device)[None, None, None, :] < lengths[:, None, None, None]
+    # masked p are 0 after the softmax, but for a length of 0, whose l the
+    # kernel reads as 1: zeros out
+    p = torch.softmax(logits.masked_fill(~mask, NEG), dim=-1) * mask
+    return torch.einsum("bhqk,bkhd->bqhd", p, v).to(q.dtype)
+
+
+def _decode_int8_cuda(q, k_q, v_q, k_scale, v_scale, lengths, scale):
+    b, L, kvh, hq, d = _check_decode_args("decode_attention_int8", q, k_q, v_q, lengths,
+                                          torch.int8)
+    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if t.device != q.device or t.dtype != torch.float32 or tuple(t.shape) != (b, L, kvh):
+            raise ValueError(f"decode_attention_int8: {name} must be ({b}, {L}, {kvh}) float32 "
+                             f"on {q.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    lengths = lengths.contiguous()
+    out, splits, chunk, partial = _split_buffers(q, b, kvh, hq, d, L)
+    partial_ptr = 0 if partial is None else partial.data_ptr()
+    with torch.cuda.device(q.device):
+        err = _decode_int8_fn()(q.data_ptr(), k_q.data_ptr(), v_q.data_ptr(),
+                                k_scale.data_ptr(), v_scale.data_ptr(), lengths.data_ptr(),
+                                out.data_ptr(), partial_ptr, b, L, kvh, hq // kvh, d, splits,
+                                chunk, *k_q.stride()[:3], *v_q.stride()[:3],
+                                *k_scale.stride(), *v_scale.stride(), float(scale),
+                                torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"decode_attention_int8 launch failed with cudaError {err}")
+    decode_attention_int8.launches += 1
+    return out
+
+
+def decode_attention_int8(q, k_q, v_q, k_scale, v_scale, lengths, *,
+                          scale: Optional[float] = None):
+    """Single-token attention over an int8 cache (port of
+    `decode_attention_int8`). q: (B, 1, Hq, D); k_q/v_q: (B, L, KVH, D) int8
+    with unit stride over D; k_scale/v_scale: (B, L, KVH) fp32, any strides;
+    lengths: (B,) int32 tokens valid, the current one already written. CUDA
+    tensors launch the kernel (B8); CPU tensors run
+    `decode_attention_int8_ref`."""
+    scale = q.shape[3] ** -0.5 if scale is None else scale
+    if q.is_cuda:
+        return _decode_int8_cuda(q, k_q, v_q, k_scale, v_scale, lengths, scale)
+    if q.device.type != "cpu":
+        raise ValueError(f"decode_attention_int8: unsupported device {q.device}")
+    return decode_attention_int8_ref(q, k_q, v_q, k_scale, v_scale, lengths, scale=scale)
+
+
+decode_attention_int8.launches = 0  # kernel launches (CUDA tensors only)

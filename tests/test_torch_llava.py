@@ -31,6 +31,7 @@ from paddlemix_tpu.models.llava import LlavaForConditionalGeneration as JLlava
 from paddlemix_tpu.ops.quant import quantize_tree_wint8
 from paddlemix_tpu_torch.core import LLAMA_KEY_MAP, flax_to_torch_state_dict, llava_key_to_flax
 from paddlemix_tpu_torch.models.llama import (
+    KVCache,
     LlamaConfig,
     LlamaForCausalLM,
     MXUDense,
@@ -43,6 +44,7 @@ from paddlemix_tpu_torch.models.llava import (
     expected_launches_llava,
     llava7b_config,
 )
+from paddlemix_tpu_torch.ops.decode_attention import decode_attention_int8
 from paddlemix_tpu_torch.ops.quant import wint8_matmul
 
 pytestmark = pytest.mark.torch_port
@@ -310,11 +312,35 @@ def test_launch_derivation_at_full_width_on_meta(quant):
 
 def test_config_rejects_unported_options():
     with pytest.raises(NotImplementedError):
-        LlamaConfig.from_dict(dict(TEXT, cachekv_int8=True))
+        LlamaConfig.from_dict(dict(TEXT, fused_qkv=True))
     assert LlamaConfig.from_dict(dict(TEXT, quant=None, scan_layers=False)).vocab_size == 256
     with pytest.raises(NotImplementedError):
         LlavaConfig(**dict(TINY, image_aspect_ratio="anyres"))
     assert dataclasses.asdict(LlavaConfig(**TINY))["image_token_index"] == 255
+
+
+def test_llava_keeps_the_dense_cache_under_cachekv_int8(inputs):
+    """The JAX LLaVA builds the bf16 KVCache whatever its text config says
+    (its init_cache and the _LlamaView's), so `cachekv_int8` changes nothing:
+    the port builds the dense cache too, in `init_cache` and in `generate`."""
+    jmodel = JLlava.from_config(JLlavaConfig.from_dict(
+        dict(TINY, text_config=dict(TEXT, cachekv_int8=True))), seed=0)
+    assert type(jmodel.init_cache(1, 8)).__name__ == "KVCache"
+    model = _port(jmodel, None)
+    model8 = LlavaForConditionalGeneration(LlavaConfig(
+        **dict(TINY, text_config=dict(TEXT, cachekv_int8=True)))).eval()
+    model8.load_state_dict(model.state_dict())
+    assert model8.language_model.config.cachekv_int8
+    assert type(model8.language_model.init_cache(1, 8)).__name__ == "Int8KVCache"
+    cache = model8.init_cache(1, 8)
+    assert isinstance(cache, KVCache) and cache.k.dtype == torch.float32
+    ids, px = inputs
+    t = (torch.from_numpy(ids).long(), torch.from_numpy(px))
+    np.testing.assert_array_equal(
+        model8.generate(*t, max_new_tokens=4, eos_token_id=-1).numpy(),
+        np.asarray(jmodel.generate(jnp.asarray(ids), jnp.asarray(px), max_new_tokens=4,
+                                   eos_token_id=-1)))
+    assert decode_attention_int8.launches == 0
 
 
 @pytest.mark.parametrize("overrides", [
