@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (paddlemix_tpu_torch) on one CUDA card.
 
-Drives four slices at their published widths with weights drawn on the card
+Drives five slices at their published widths with weights drawn on the card
 from a seeded torch.Generator:
 
   - SDXL-1024 text-to-image through StableDiffusionXLPipeline.__call__, in
@@ -16,7 +16,13 @@ from a seeded torch.Generator:
     16-channel VAE, FlowMatch Euler) in bf16;
   - Llama-2-7B serving (32 layers, 32 heads x 128, bf16 weights) through
     greedy_generate over the int8 KV cache (cachekv_int8) and through
-    paged_greedy_generate over the paged KV cache.
+    paged_greedy_generate over the paged KV cache;
+  - Llama-2-7B LoRA supervised fine-tuning through
+    tools.supervised_finetune.build_trainer and Trainer.train, with the
+    published recipe configs/llava/lora_sft_7b.json (LoRA r 128 / alpha 256
+    on every projection, AdamW at 2e-4, cosine, 100 warmup steps, bf16,
+    MixToken packing to 2048) and its cuts (TRAIN_OVERRIDES: 2 rows x 8
+    micro-batches an optimizer step, no checkpoints; 32 micro-batches).
 
 Phases:
 
@@ -94,6 +100,30 @@ Phases:
                    over a pool of exactly the 67 blocks they need: batch
                    TTFT, aggregate decode tokens/s, peak memory, pool bytes
                    against a dense cache's, launches as derived
+ 19. train kernels Llama is freed; the lse forward (B15, B1's causal +
+                   segments + GQA form), the backward's dkv and dq kernels
+                   (B14) and RMSNorm's backward (B11, dx alone as the path
+                   runs it, then with dw) against their plain versions at the
+                   training path's shapes (2 x 2048 rows, 32 heads x 128,
+                   4 segments a row; and a GQA shape, 32 on 8 heads), gated
+                   per element, each with controls that must fail (no causal
+                   mask; di dropped; a segment boundary one row late; dw of
+                   the first pass alone); times,
+                   bounds and library times (SDPA and its backward, the
+                   backward of F.rms_norm)
+ 20. train agree   Llama-2-7B is built with LoRA factors (b drawn non-zero):
+                   one packed 1 x 2048 micro-batch, forward + backward, the
+                   kernels vs their plain versions swapped in: the loss and
+                   every factor's gradient, the gradients' gap held against
+                   that of two plain versions one rounding apart (P rounded
+                   to bf16 before P.V or not), and the launches of the kernel
+                   run against `expected_launches_train`
+ 21. train         the factors are taken off; build_trainer + Trainer.train
+                   over a seeded dataset: 4 optimizer steps (the second read
+                   for a non-zero lora_b, the last under the profiler):
+                   seconds a step, tokens/s, model TFLOP/s, busy share, peak
+                   memory; every loss and grad_norm finite; launches equal to
+                   `expected_launches_train` and no inference kernel launched
 
 Any failed check exits non-zero. Without a CUDA card, or outside a checkout
 of the repository, it exits non-zero before printing any result. The line
@@ -357,6 +387,471 @@ class swapped:
             setattr(mod, name, fn)
 
 
+# ------------------------------------------------------------ training slice
+TRAIN_CONFIG = os.path.join(REPO, "configs", "llava", "lora_sft_7b.json")
+# the published recipe's cuts: 2 rows x 8 micro-batches are its 16 rows an
+# optimizer step; no checkpoints (not ported); TRAIN_MICRO_STEPS micro-batches
+# (4 optimizer steps) go to Trainer.train, since optax's cosine schedule
+# refuses a total below its 100 warmup steps: the schedule spans the epoch of
+# the seeded dataset (TRAIN_SAMPLES samples of 128-1536 tokens, the first third
+# of each labelled -100, MixToken-packed to 2048: over 100 micro-batches)
+TRAIN_OVERRIDES = dict(per_device_train_batch_size=2, gradient_accumulation_steps=8,
+                       save_steps=0)
+TRAIN_MICRO_STEPS = 32
+TRAIN_SAMPLES = 512
+# (B, S, Hq, Hkv, D): the path's attention (2 packed rows, causal + segments)
+# and a GQA shape; each row has 4 segments, cut off the 64-row tiles
+TRAIN_FLASH_SHAPES = [(2, 2048, 32, 32, 128), (1, 2048, 32, 8, 128)]
+TRAIN_SEGMENT_CUTS = (0.31, 0.58, 0.86)
+TRAIN_RMS_SHAPE = (4096, 4096)  # rows x width of the path's RMSNorm backward
+# B15 and B14 against their plain versions on the same bf16 inputs, per
+# element: 2**-7 |ref| + TRAIN_SUM |ref|max; the lse within LSE_TOL (an lse
+# error e scales p by 2**e). Sound kernels need c <= 1.6e-3 at these shapes
+# (PERF.md); the gate sits 2.5x above. Three controls must fail it: no causal
+# mask, di dropped, and the fine one, the middle segment boundary one row late
+# (one query row and one key row of 2,048 wrong).
+TRAIN_SUM, LSE_TOL = 4e-3, 1e-3
+# B11 backward: dx is fp32 math rounded once to bf16; dw an fp32 sum over 4096
+# rows in another order. The control, dw of the first pass alone (its first
+# program's rows, no second pass), must fail.
+RMS_BWD_SUM, RMS_DW_TOL = 1e-5, 1e-4
+# train agree: one packed 1 x 2048 micro-batch through the full 32 layers,
+# kernels vs plain versions: the loss (relative, within TRAIN_LOSS_TOL) and
+# each LoRA factor's gradient (relative L2), bf16 model. The gradients' gap is
+# the model's, not the kernels': two sound plain versions one rounding apart
+# (the forward's P rounded to bf16 before P.V, as the kernels and JAX round
+# it) differ as much, 3.5e-2 at the median of 448 factors and 4.8e-2 at most,
+# and the gap grows with depth (PERF.md). So the kernels' median and largest
+# gap are each held within TRAIN_AGREE_RATIO of that pair's, measured here.
+TRAIN_LOSS_TOL, TRAIN_AGREE_RATIO = 1e-3, 1.25
+TRAIN_AGREE_LENGTHS = (700, 520, 400, 300)  # 4 segments and 128 padding tokens
+
+
+def backward_ms(torch, fwd, inputs, grad_out, iters=10):
+    """Device ms of the backward of `fwd(*inputs)` w.r.t. `inputs`: forward +
+    backward captured in one CUDA graph (warmed up on a side stream, as
+    PyTorch's whole-network capture asks, so that autograd's host work is
+    not in the number), less the forward alone captured the same way."""
+    def both():
+        torch.autograd.grad(fwd(*inputs), inputs, grad_out)
+
+    def forward():
+        with torch.no_grad():
+            fwd(*inputs)
+
+    times = []
+    for fn in (both, forward):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(iters):
+                fn()
+        graph.replay()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return times[0] - times[1]
+
+
+def train_samples(np, lengths, vocab, seed):
+    """Tokenized samples of these lengths, ids from a seed, the first third of
+    each labelled -100."""
+    rs = np.random.RandomState(seed)
+    out = []
+    for length in lengths:
+        ids = rs.randint(3, vocab, int(length)).tolist()
+        out.append({"input_ids": ids, "labels": [-100] * (length // 3) + ids[length // 3:]})
+    return out
+
+
+def train_kernels(torch, F, dev, gen, record, m):
+    """B15 (the lse forward), B14 (dkv, dq) and B11's backward against their
+    plain versions at the path's shapes, each with a control; times, bounds
+    and library times."""
+    bf16 = torch.bfloat16
+    attn, norms = m.attn, m.norms
+    sound, controls_need = [], []  # least c of the kernels, of the controls
+    for b_, s_, h_, kvh, d_ in TRAIN_FLASH_SHAPES:
+        shape = (b_, s_, h_, kvh, d_)
+        q = torch.randn((b_, s_, h_, d_), generator=gen, device=dev).to(bf16)
+        k, v = (torch.randn((b_, s_, kvh, d_), generator=gen, device=dev).to(bf16)
+                for _ in range(2))
+        do = torch.randn((b_, s_, h_, d_), generator=gen, device=dev).to(bf16)
+        seg = torch.ones((b_, s_), dtype=torch.int32, device=dev)
+        late = torch.ones_like(seg)  # the fine control's: the middle boundary one row late
+        for i, cut in enumerate(TRAIN_SEGMENT_CUTS):
+            seg[:, int(cut * s_):] += 1
+            late[:, int(cut * s_) + (i == 1):] += 1
+        segs, segs_late = attn.SegmentIds(seg, seg), attn.SegmentIds(late, late)
+        lengths = [int(n) for n in torch.unique_consecutive(seg[0], return_counts=True)[1]]
+        pairs = b_ * h_ * sum(n * (n + 1) // 2 for n in lengths)  # causal, within segments
+        scale = d_ ** -0.5
+        qs = (q.float() * (scale * attn.LOG2E)).to(bf16)
+        kw = dict(causal=True, segment_ids=segs)
+        # B15
+        o, lse = attn.flash_fwd_lse(qs, k, v, **kw)
+        torch.cuda.synchronize()
+        ro, rlse = attn.flash_fwd_lse_ref(qs.float(), k.float(), v.float(), **kw)
+        excess, need = ulp_gate(o, ro, TRAIN_SUM)
+        lse_err = (lse - rlse).abs().max().item()
+        ctrl = [ulp_gate(attn.flash_fwd_lse_ref(qs.float(), k.float(), v.float(), **c_kw)[0],
+                         ro, TRAIN_SUM)
+                for c_kw in (dict(segment_ids=segs), dict(causal=True, segment_ids=segs_late))]
+        sound.append(need)
+        controls_need += [c_[1] for c_ in ctrl]
+        print(f"[train kernels] flash_fwd_lse {shape} causal + 4 segments: o excess "
+              f"{excess:.3e} (least c {need:.2e}, c {TRAIN_SUM}), lse max err {lse_err:.3e} "
+              f"(tol {LSE_TOL}); controls, least c (must be > c): without the causal mask "
+              f"{ctrl[0][1]:.2e}, a boundary one row late {ctrl[1][1]:.2e}", flush=True)
+        check(bool(torch.isfinite(o).all()) and excess <= 0 and lse_err <= LSE_TOL,
+              f"flash_fwd_lse {shape}: excess {excess}, lse err {lse_err}")
+        check(all(c_[0] > 0 for c_ in ctrl), f"flash_fwd_lse {shape}: a control passes {ctrl}")
+        ms, plain_ms = timed_pair(torch, lambda: attn.flash_fwd_lse(qs, k, v, **kw),
+                                  lambda: attn.flash_fwd_lse_ref(qs, k, v, **kw))
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        lib_ms = library_ms(torch, lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True, enable_gqa=h_ != kvh))
+        record("train kernels", "flash_fwd_lse", shape, (o.float() - ro).abs().max().item(),
+               ms, plain_ms, lib_ms,
+               bound(nbytes(qs, k, v, o, lse, seg, seg), 4 * d_ * pairs, "bf16"),
+               " | library: SDPA is_causal, no segments")
+        # B14, from the plain forward's o and lse
+        di = (ro * do.float()).sum(-1).transpose(1, 2).contiguous()
+        dkv_ref = attn.flash_bwd_dkv_ref(qs.float(), k.float(), v.float(), do.float(), rlse,
+                                         di, **kw)
+        dq_ref = attn.flash_bwd_dq_ref(qs.float(), k.float(), v.float(), do.float(), rlse, di,
+                                       scale=scale, **kw)
+        dk, dv = attn.flash_bwd_dkv(qs, k, v, do, rlse, di, **kw)
+        dq = attn.flash_bwd_dq(qs, k, v, do, rlse, di, scale=scale, **kw)
+        torch.cuda.synchronize()
+        no_di = torch.zeros_like(di)
+        kw_late = dict(causal=True, segment_ids=segs_late)
+        f32 = (qs.float(), k.float(), v.float(), do.float(), rlse)
+        controls = {"flash_bwd_dkv": (attn.flash_bwd_dkv_ref(*f32, no_di, **kw),
+                                      attn.flash_bwd_dkv_ref(*f32, di, **kw_late)),
+                    "flash_bwd_dq": ((attn.flash_bwd_dq_ref(*f32, no_di, scale=scale, **kw),),
+                                     (attn.flash_bwd_dq_ref(*f32, di, scale=scale, **kw_late),))}
+        lib_bwd = (backward_ms(torch, lambda *t: F.scaled_dot_product_attention(
+            *t, is_causal=True, enable_gqa=h_ != kvh),
+            tuple(t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v)),
+            do.transpose(1, 2)) + backward_ms(torch, lambda *t: F.scaled_dot_product_attention(
+                *t, is_causal=True, enable_gqa=h_ != kvh),
+                tuple(t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v)),
+                do.transpose(1, 2))) / 2
+        for name, outs, refs, ops in (("flash_bwd_dkv", (dk, dv), dkv_ref, 8 * d_ * pairs),
+                                      ("flash_bwd_dq", (dq,), (dq_ref,), 6 * d_ * pairs)):
+            gates = [ulp_gate(o_, r_, TRAIN_SUM) for o_, r_ in zip(outs, refs)]
+            # each control fails if any of its outputs does
+            ctrl = [max((ulp_gate(c_, r_, TRAIN_SUM) for c_, r_ in zip(c_outs, refs)),
+                        key=lambda g: g[0]) for c_outs in controls[name]]
+            sound += [g[1] for g in gates]
+            controls_need += [c_[1] for c_ in ctrl]
+            err = max((o_.float() - r_).abs().max().item() for o_, r_ in zip(outs, refs))
+            print(f"[train kernels] {name} {shape}: excess {[f'{g[0]:.3e}' for g in gates]} "
+                  f"(least c {[f'{g[1]:.2e}' for g in gates]}, c {TRAIN_SUM}); controls, least "
+                  f"c (must be > c): di dropped {ctrl[0][1]:.2e}, a boundary one row late "
+                  f"{ctrl[1][1]:.2e}", flush=True)
+            check(all(bool(torch.isfinite(o_).all()) for o_ in outs)
+                  and all(g[0] <= 0 for g in gates), f"{name} {shape}: excess {gates}")
+            check(all(c_[0] > 0 for c_ in ctrl), f"{name} {shape}: a control passes {ctrl}")
+            if name == "flash_bwd_dkv":
+                ms, plain_ms = timed_pair(
+                    torch, lambda: attn.flash_bwd_dkv(qs, k, v, do, rlse, di, **kw),
+                    lambda: attn.flash_bwd_dkv_ref(qs, k, v, do, rlse, di, **kw))
+            else:
+                ms, plain_ms = timed_pair(
+                    torch, lambda: attn.flash_bwd_dq(qs, k, v, do, rlse, di, scale=scale, **kw),
+                    lambda: attn.flash_bwd_dq_ref(qs, k, v, do, rlse, di, scale=scale, **kw))
+            record("train kernels", name, shape, err, ms, plain_ms, lib_bwd,
+                   bound(nbytes(qs, k, v, do, rlse, di, seg, seg, *outs), ops, "bf16"),
+                   " | library: the backward of SDPA is_causal (dq, dk, dv together), no "
+                   "segments")
+        del o, ro, dkv_ref, dq_ref, dk, dv, dq, controls
+    print(f"[train kernels] B15 / B14 gate c {TRAIN_SUM}: the kernels' least c at most "
+          f"{max(sound):.2e}, the controls' at least {min(controls_need):.2e}", flush=True)
+    # B11 backward at the path's rows: dx alone (the norms are frozen), then with dw
+    rows, h = TRAIN_RMS_SHAPE
+    x = torch.randn((rows, h), generator=gen, device=dev).to(bf16)
+    w = 1 + 0.1 * torch.randn(h, generator=gen, device=dev)
+    g = torch.randn((rows, h), generator=gen, device=dev).to(bf16)
+    dx, _ = norms.rms_norm_backward(x, w, g, 1e-5, need_dw=False)
+    dx2, dw = norms.rms_norm_backward(x, w, g, 1e-5)
+    torch.cuda.synchronize()
+    rdx, rdw = norms.rms_norm_backward_ref(x.float(), w, g.float(), 1e-5)
+    excess, need = ulp_gate(dx, rdx, RMS_BWD_SUM)
+    dw_err = ((dw - rdw).abs().max() / rdw.abs().max()).item()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    first = -(-rows // (norms._RMS_DW_PROGRAMS_PER_SM * sms))
+    ctrl_dw = norms.rms_norm_backward_ref(x[:first].float(), w, g[:first].float(), 1e-5)[1]
+    ctrl = ((ctrl_dw - rdw).abs().max() / rdw.abs().max()).item()
+    print(f"[train kernels] rms_norm_backward {TRAIN_RMS_SHAPE}: dx excess {excess:.3e} (least "
+          f"c {need:.2e}, c {RMS_BWD_SUM}), the same dx with dw: {torch.equal(dx, dx2)}; dw "
+          f"max err {dw_err:.3e} |ref|max (tol {RMS_DW_TOL}); control, the first pass's first "
+          f"{first} rows alone: {ctrl:.3e} (must be > tol)", flush=True)
+    check(excess <= 0 and torch.equal(dx, dx2) and dw_err <= RMS_DW_TOL,
+          f"rms_norm_backward: excess {excess}, dw err {dw_err}")
+    check(ctrl > RMS_DW_TOL, f"rms_norm_backward: the dw control passes ({ctrl})")
+    w16 = w.to(bf16)
+    for need_dw, label in ((False, "dx"), (True, "dx + dw")):
+        ms, plain_ms = timed_pair(
+            torch, lambda: norms.rms_norm_backward(x, w, g, 1e-5, need_dw=need_dw),
+            lambda: norms.rms_norm_backward_ref(x, w, g, 1e-5, need_dw=need_dw))
+        lib_ms = None if need_dw else sum(backward_ms(
+            torch, lambda x_: F.rms_norm(x_, (h,), w16, 1e-5), (x.detach().requires_grad_(),),
+            g) for _ in range(2)) / 2
+        record("train kernels", "rms_norm_backward", (rows, h),
+               (dx.float() - rdx).abs().max().item(), ms, plain_ms, lib_ms,
+               bound(nbytes(x, w, g, dx, dw if need_dw else None), 8 * x.numel(), "fp32"),
+               f" {label} | library: the backward of F.rms_norm (bf16 weight), x only")
+    del x, g, dx, dx2, rdx
+    autograd_kinds(torch, dev, gen, m)
+
+
+def autograd_kinds(torch, dev, gen, m):
+    """The three kinds of gradient on the card: flash and RMSNorm through
+    their backward kernels (the train phases count those launches); adaLN
+    (B12) through autograd of its plain version, recomputed; an inference
+    kernel (B6) refusing a call autograd would record."""
+    bf16 = torch.bfloat16
+    x = torch.randn((2, 64, 1536), generator=gen, device=dev).to(bf16).requires_grad_()
+    sc, sh = (torch.randn((2, 1536), generator=gen, device=dev).to(bf16).requires_grad_()
+              for _ in range(2))
+    before = m.norms.adaptive_layer_norm.launches
+    y = m.norms.adaptive_layer_norm(x, sc, sh)
+    gy = torch.randn(y.shape, generator=gen, device=dev).to(bf16)
+    got = torch.autograd.grad(y, (x, sc, sh), gy)
+    want = torch.autograd.grad(m.norms.adaptive_layer_norm_ref(x, sc, sh), (x, sc, sh), gy)
+    same = all(rel_l2(a.float(), b.float()) <= 1e-6 for a, b in zip(got, want))
+    launched = m.norms.adaptive_layer_norm.launches - before
+    wq, scale = m.quant.quantize_weights_int8(torch.randn((256, 512), generator=gen, device=dev))
+    xin = torch.randn((4, 512), generator=gen, device=dev).to(bf16).requires_grad_()
+    try:
+        m.quant.wint8_matmul(xin, wq, scale)
+        refused = False
+    except RuntimeError:
+        refused = True
+    print(f"[train kernels] autograd kinds: adaptive_layer_norm under grad launched "
+          f"{launched} kernel, its gradients equal autograd of the plain version: {same}; "
+          f"wint8_matmul on an input that requires grad refused: {refused}", flush=True)
+    check(launched == 1 and same and refused, "autograd kinds: B12's plain backward or B6's "
+          "refusal does not hold")
+    m.norms.adaptive_layer_norm.launches = before
+
+
+def agree_inputs(torch, np, dev, model, cfg):
+    """train agree's inputs: LoRA factors on `model` (b drawn non-zero, so
+    that every factor has a gradient), the loss over them and one packed
+    1 x 2048 row of TRAIN_AGREE_LENGTHS samples. Returns (LoraConfig, factors,
+    loss_fn, batch)."""
+    from paddlemix_tpu_torch.datasets import pack_samples, pad_collate
+    from paddlemix_tpu_torch.peft import LoraConfig, lora_init, lora_loss_fn
+    from paddlemix_tpu_torch.tools import supervised_finetune as sft
+
+    lcfg = LoraConfig(r=int(cfg["lora_rank"]), lora_alpha=int(cfg["lora_alpha"]))
+    factors = lora_init(model, lcfg, torch.Generator(device=dev).manual_seed(1))
+    loss_fn = lora_loss_fn(sft.default_lm_loss(model), model)
+    with torch.no_grad():
+        g_b = torch.Generator(device=dev).manual_seed(2)
+        for name, p in factors.items():
+            if name.endswith("lora_b"):
+                p.normal_(0.0, 0.01, generator=g_b)
+    row = pad_collate(pack_samples(train_samples(np, TRAIN_AGREE_LENGTHS,
+                                                 model.config.vocab_size, seed=1), 2048))
+    return lcfg, factors, loss_fn, {k: torch.as_tensor(v).to(dev) for k, v in row.items()}
+
+
+def train_plain_swaps(torch, m):
+    """(the plain versions of the training kernels as swaps, the same with
+    the forward's P rounded to bf16 before P.V, as the kernels and JAX round
+    it: two sound plain versions one rounding apart)."""
+    attn = m.attn
+
+    def fwd_p_rounded(qs, k, v, *, causal=False, segment_ids=None):
+        _, lse = attn.flash_fwd_lse_ref(qs, k, v, causal=causal, segment_ids=segment_ids)
+        ke, ve = attn._expand_kv(k, v, qs.shape[2])
+        p = attn._probs(qs, ke, lse, causal, segment_ids).to(v.dtype).float()
+        return torch.einsum("bhqk,bkhd->bqhd", p, ve.float()).to(v.dtype), lse
+
+    plain = [(attn, "flash_fwd_lse", attn.flash_fwd_lse_ref),
+             (attn, "flash_bwd_dkv", attn.flash_bwd_dkv_ref),
+             (attn, "flash_bwd_dq", attn.flash_bwd_dq_ref),
+             (m.norms, "_rms_forward", m.norms.rms_norm_ref),
+             (m.norms, "rms_norm_backward", m.norms.rms_norm_backward_ref)]
+    return plain, [(attn, "flash_fwd_lse", fwd_p_rounded)] + plain[1:]
+
+
+def gradient_gap(grads_a, grads_b):
+    """(median, max) relative L2 of one set of factor gradients to another."""
+    rels = sorted(rel_l2(a.float(), b.float()) for a, b in zip(grads_a, grads_b))
+    return rels[len(rels) // 2], rels[-1]
+
+
+def remove_lora(parametrize, model):
+    """Take every LoRA parametrization off, the base weights as they were."""
+    for module in list(model.modules()):
+        if parametrize.is_parametrized(module, "weight"):
+            parametrize.remove_parametrizations(module, "weight", leave_parametrized=False)
+
+
+def train_slice(torch, F, np, dev, m):
+    """train agree and train (see the module docstring). Returns the launches
+    of the train phase and its numbers."""
+    from torch.nn.utils import parametrize
+
+    from paddlemix_tpu_torch.models.llama import expected_launches_train, random_llama
+    from paddlemix_tpu_torch.tools import supervised_finetune as sft
+
+    counters = {"rms_norm": m.norms.rms_norm, "rms_norm_backward": m.norms.rms_norm_backward,
+                "flash_fwd_lse": m.attn.flash_fwd_lse, "flash_bwd_dkv": m.attn.flash_bwd_dkv,
+                "flash_bwd_dq": m.attn.flash_bwd_dq, "flash_attention": m.attn.flash_attention,
+                "decode_attention": m.da.decode_attention,
+                "decode_attention_int8": m.da.decode_attention_int8,
+                "paged_decode_attention": m.pa.paged_decode_attention,
+                "wint8_matmul": m.quant.wint8_matmul}
+    cfg = sft.load_config(TRAIN_CONFIG, TRAIN_OVERRIDES)
+    t0 = time.perf_counter()
+    model = random_llama(dev, torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    print(f"[train] Llama-2-7B built in {time.perf_counter() - t0:.1f} s; config "
+          f"{os.path.relpath(TRAIN_CONFIG, REPO)} + {TRAIN_OVERRIDES}", flush=True)
+
+    # ------------------------------------------------------------ train agree
+    lcfg, factors, loss_fn, batch = agree_inputs(torch, np, dev, model, cfg)
+    plain, plain_rounded = train_plain_swaps(torch, m)
+
+    def loss_and_grads(swaps=()):
+        with swapped(swaps):
+            loss = loss_fn(factors, batch, None)
+            grads = torch.autograd.grad(loss, list(factors.values()))
+        return loss.detach().float(), grads
+
+    for fn in counters.values():
+        fn.launches = 0
+    loss_k, grads_k = loss_and_grads()
+    torch.cuda.synchronize()
+    got = {name: fn.launches for name, fn in counters.items()}
+    want = expected_launches_train(model, 1, 2048)
+    loss_p, grads_p = loss_and_grads(plain)
+    loss_r, grads_r = loss_and_grads(plain_rounded)
+    kernel_gap, floor_gap = gradient_gap(grads_k, grads_p), gradient_gap(grads_r, grads_p)
+    loss_rel = abs(loss_k - loss_p).item() / abs(loss_p).item()
+    print(f"[train agree] full-width Llama-2-7B LoRA r {lcfg.r}, one packed 1 x 2048 micro-batch "
+          f"({len(TRAIN_AGREE_LENGTHS)} segments), kernels vs plain: loss {loss_k.item():.6f} vs "
+          f"{loss_p.item():.6f} (relative {loss_rel:.3e}, tol {TRAIN_LOSS_TOL}; the plain "
+          f"versions one rounding apart: {abs(loss_r - loss_p).item() / abs(loss_p).item():.3e}); "
+          f"relative L2 of the {len(grads_k)} factor gradients, median / max: kernels vs plain "
+          f"{kernel_gap[0]:.3e} / {kernel_gap[1]:.3e}, the plain versions one rounding apart "
+          f"{floor_gap[0]:.3e} / {floor_gap[1]:.3e} (ratio tol {TRAIN_AGREE_RATIO}); launches "
+          f"{got} (walk: {want})", flush=True)
+    check(bool(torch.isfinite(loss_k)) and loss_rel <= TRAIN_LOSS_TOL
+          and all(k_ <= TRAIN_AGREE_RATIO * f_ for k_, f_ in zip(kernel_gap, floor_gap)),
+          f"train agree: loss {loss_rel}, grads {kernel_gap} against {floor_gap}")
+    check(got == want, f"train agree: launches {got} != {want}")
+    del grads_k, grads_p, grads_r, factors, loss_fn
+    remove_lora(parametrize, model)
+
+    # ------------------------------------------------------------------ train
+    samples = train_samples(np, np.random.RandomState(0).randint(128, 1537, TRAIN_SAMPLES),
+                            model.config.vocab_size, seed=0)
+    t0 = time.perf_counter()
+    trainer, lcfg = sft.build_trainer(model, samples, cfg)
+    print(f"[train] build_trainer {time.perf_counter() - t0:.2f} s: "
+          f"{len(trainer.train_dataloader.dataset)} packed rows, {len(trainer.train_dataloader)} "
+          f"micro-batches an epoch (the schedule's total), LoRA r {lcfg.r} alpha "
+          f"{lcfg.lora_alpha}: {sum(p.numel() for p in trainer.params.values())} trainable "
+          f"parameters in {len(trainer.params)} factors; recompute "
+          f"{model.config.gradient_checkpointing}", flush=True)
+    k = trainer.args.gradient_accumulation_steps
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    # three calls (each walks the loader anew, as a JAX Trainer.train call does):
+    # two optimizer steps, then b is read; one more; the last under the profiler
+    trainer.train(2 * k)
+    b_after_2 = [p for n, p in trainer.params.items() if n.endswith("lora_b")]
+    b_moved = sum(bool(p.abs().max() > 0) for p in b_after_2)
+    trainer.train(TRAIN_MICRO_STEPS - k)
+    # the last optimizer step under the profiler: device time and busy share
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t_prof = time.perf_counter()
+        trainer.train(TRAIN_MICRO_STEPS)
+        torch.cuda.synchronize()
+        t_prof = time.perf_counter() - t_prof
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    got = {name: fn.launches for name, fn in counters.items()}
+    want = expected_launches_train(model, TRAIN_MICRO_STEPS, cfg.get("max_length", 2048))
+    by_kernel = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                        for e in prof.key_averages() if e.self_device_time_total > 0),
+                       reverse=True)
+    device_ms = sum(ms_ for ms_, _, _ in by_kernel)
+    hist = trainer.history
+    # the clip reads the global norm on the host at every optimizer step, so
+    # the step boundaries' host times follow the device
+    ends = [t_start] + [h["time"] for h in hist[k - 1::k]]
+    step_s = [b - a for a, b in zip(ends, ends[1:])]
+    losses = torch.stack([h["loss"] for h in hist]).float()
+    norms_ = torch.stack([h["grad_norm"] for h in hist]).float()
+    tokens = k * trainer.args.per_device_train_batch_size * int(cfg.get("max_length", 2048))
+    steady = sorted(step_s[1:-1])
+    s_step = steady[len(steady) // 2]
+    flops = train_flops(model, tokens)
+    print(f"[train] {TRAIN_MICRO_STEPS} micro-batches = {len(step_s)} optimizer steps of "
+          f"{tokens} tokens: seconds a step {[round(t, 3) for t in step_s]} (the last under "
+          f"the profiler); median of the middle "
+          f"{s_step:.3f} s -> {tokens / s_step:.0f} tokens/s, {flops / s_step / 1e12:.1f} model "
+          f"TFLOP/s ({flops:.3e} flops a step); profiled step {t_prof:.3f} s with "
+          f"{device_ms:.1f} ms of device time: busy {100 * device_ms / 1e3 / t_prof:.1f}%; peak "
+          f"memory {peak:.2f} GiB", flush=True)
+    for ms_, n_, key in by_kernel[:12]:
+        print(f"[train]   profiled step: {ms_:9.1f} ms {100 * ms_ / device_ms:5.1f}% {n_:6d}x "
+              f"{key[:110]}", flush=True)
+    print(f"[train] losses {[round(x, 4) for x in losses.tolist()]}; grad_norm "
+          f"{[round(x, 4) for x in norms_.tolist()]}; lora_b non-zero after the second "
+          f"optimizer step: {b_moved} of {len(b_after_2)}; launches {got} (walk: {want})",
+          flush=True)
+    check(bool(torch.isfinite(losses).all() and torch.isfinite(norms_).all()),
+          "train: a loss or grad_norm is not finite")
+    check(b_moved == len(b_after_2), f"train: {len(b_after_2) - b_moved} lora_b still zero "
+          f"after the second optimizer step")
+    check(got == want, f"train: launches {got} != expected {want}")
+    del trainer, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got, dict(step_s=s_step, tokens_per_s=tokens / s_step, tflops=flops / s_step / 1e12,
+                     busy=device_ms / 1e3 / t_prof, peak_gib=peak)
+
+
+def train_flops(model, tokens):
+    """Model flops of one optimizer step of `tokens` tokens, LoRA on every
+    projection: the forward and dX of the projections and the lm_head (2 flops
+    a weight a token each), dW of the adapted projections (dW_eff, 2 more),
+    and causal attention over full rows (4 D flops a visible pair forward, 10
+    backward; the segments' savings not counted). The factors' own products
+    (fp32, b @ a and its gradients) are left out."""
+    cfg = model.config
+    proj = sum(m.in_features * m.out_features for n, m in model.named_modules()
+               if n.endswith("_proj"))
+    head = cfg.hidden_size * cfg.vocab_size
+    s = 2048
+    attn = 14 * cfg.head_dim_ * cfg.num_attention_heads * (s * (s + 1) // 2) \
+        * cfg.num_hidden_layers * (tokens // s)
+    return 2 * tokens * (2 * (proj + head) + proj) + attn
+
+
 def main():
     import types
 
@@ -401,8 +896,8 @@ def main():
     bf16 = torch.bfloat16
 
     # ----------------------------------------------------------------- build
-    sources = ["flash_fwd", "int8_gemm", "int8_conv3x3", "wint8_gemm", "decode_attention",
-               "paged_attention"]
+    sources = ["flash_fwd", "flash_bwd", "int8_gemm", "int8_conv3x3", "wint8_gemm",
+               "decode_attention", "paged_attention"]
     t0 = time.perf_counter()
     build_all(sources)
     print(f"[build] {len(sources)} sources in parallel: {time.perf_counter() - t0:.1f} s",
@@ -1346,7 +1841,18 @@ def main():
           f"pool {need} blocks {need * per_block / 1e9:.3f} GB (+ the parking block "
           f"{per_block / 1e9:.3f} GB) vs a dense cache for the batch "
           f"{nbytes(dense.k, dense.v) / 1e9:.3f} GB", flush=True)
+
     del llama
+
+    # -------------------------------------------------------------- training
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmods = types.SimpleNamespace(attn=attn_mod, norms=norms_mod, da=da_mod, pa=pa_mod,
+                                  quant=quant_mod)
+    train_kernels(torch, F, dev, gen, record, tmods)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches_tr, train_stats = train_slice(torch, F, np, dev, tmods)
 
     # --------------------------------------------------------------- summary
     def entry(name, route, source, replaces, by_phase):
@@ -1401,7 +1907,18 @@ def main():
               "paddlemix_tpu/ops/decode_attention.py:196", llama_phases("decode_attention_int8")),
         entry("paged_decode_attention", "cuda", "paddlemix_tpu_torch/csrc/paged_attention.cu",
               "paddlemix_tpu/ops/paged_attention.py:134", llama_phases("paged_decode_attention")),
+        entry("flash_fwd_lse", "cuda", "paddlemix_tpu_torch/csrc/flash_fwd.cu",
+              "paddlemix_tpu/ops/attention.py:243", {"train": launches_tr["flash_fwd_lse"]}),
+        entry("flash_bwd_dkv", "cuda", "paddlemix_tpu_torch/csrc/flash_bwd.cu",
+              "paddlemix_tpu/ops/attention.py:386", {"train": launches_tr["flash_bwd_dkv"]}),
+        entry("flash_bwd_dq", "cuda", "paddlemix_tpu_torch/csrc/flash_bwd.cu",
+              "paddlemix_tpu/ops/attention.py:422", {"train": launches_tr["flash_bwd_dq"]}),
+        entry("rms_norm_backward", "triton", "paddlemix_tpu_torch/ops/norms.py",
+              "paddlemix_tpu/ops/norms.py:172", {"train": launches_tr["rms_norm_backward"]}),
     ]
+    by_name = {k["name"]: k for k in kernels}
+    by_name["rms_norm"]["launches_by_phase"]["train"] = launches_tr["rms_norm"]
+    by_name["rms_norm"]["launches"] += launches_tr["rms_norm"]
     kernels[1]["stats_launches_by_phase"] = sdxl("group_norm_stats")
     # the a8w8 requests run all five SDXL kernels, the bf16 ones flash and
     # GroupNorm; both LLaVA configurations run decode attention and RMSNorm,
@@ -1416,13 +1933,15 @@ def main():
                                     "adaptive_layer_norm", "fused_adaln_scale_residual")] + \
         [("rms_norm", phase) for phase in ("llama_int8kv", "llama_bf16kv", "llama_paged")] + \
         [("decode_attention_int8", "llama_int8kv"), ("decode_attention", "llama_bf16kv"),
-         ("paged_decode_attention", "llama_paged")]
-    by_name = {k["name"]: k for k in kernels}
+         ("paged_decode_attention", "llama_paged")] + \
+        [(name, "train") for name in ("rms_norm", "flash_fwd_lse", "flash_bwd_dkv",
+                                      "flash_bwd_dq", "rms_norm_backward")]
     idle = [(name, phase) for name, phase in must_run
             if by_name[name]["launches_by_phase"][phase] == 0]
     check(not idle, f"kernels never launched by the requests: {idle}")
     check(launches_llava["wint8_matmul"] == 0 and launches_llava["flash_attention"] == 0
           and launches_wint8["flash_attention"] == 0, "LLaVA launched a kernel off its path")
+    print(f"[summary] training: {train_stats}", flush=True)
     print(f"[summary] chip_smoke ran {time.perf_counter() - T_START:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -210,3 +210,35 @@ def flatten_flax(tree, prefix: str = "") -> Dict[str, np.ndarray]:
             flat[key] = value
     return flat
 
+
+
+@torch.no_grad()
+def lora_from_flax(jax_lora: Dict, module: torch.nn.Module, key_map: KeyMap) -> int:
+    """Copy the JAX package's LoRA factors ({flax path tuple: {"a": (in, r),
+    "b": (r, out)}}, from its `lora_init` or a trained state) into the
+    factors `peft.lora_init` attached to `module`: lora_a = a^T (r, in) and
+    lora_b = b^T (out, r), so that b^T a^T is the (out, in) delta of the
+    torch weight. Every factor pair must be matched exactly once. Returns the
+    pairs copied."""
+    from ..peft.lora import LoraDelta
+
+    flax = {".".join(path): ab for path, ab in jax_lora.items()}
+    used = set()
+    for name, m in module.named_modules():
+        if not isinstance(m, LoraDelta):
+            continue
+        # <owner>.parametrizations.weight.0 -> the owner's weight key
+        owner = name.rsplit(".parametrizations.", 1)[0]
+        fkey = torch_key_to_flax(f"{owner}.weight", key_map)
+        if fkey not in flax:
+            raise KeyError(f"lora_from_flax: no JAX factors for {owner} ({fkey})")
+        a, b = (np.asarray(flax[fkey][k], dtype=np.float32) for k in ("a", "b"))
+        if a.T.shape != tuple(m.lora_a.shape) or b.T.shape != tuple(m.lora_b.shape):
+            raise ValueError(f"lora_from_flax: {owner}: JAX a {a.shape} b {b.shape} vs port "
+                             f"lora_a {tuple(m.lora_a.shape)} lora_b {tuple(m.lora_b.shape)}")
+        m.lora_a.copy_(torch.from_numpy(np.ascontiguousarray(a.T)))
+        m.lora_b.copy_(torch.from_numpy(np.ascontiguousarray(b.T)))
+        used.add(fkey)
+    if set(flax) - used:
+        raise KeyError(f"lora_from_flax: JAX factors left unused: {sorted(set(flax) - used)[:5]}")
+    return len(used)

@@ -1,5 +1,5 @@
 """Llama-family decoder config (port of paddlemix_tpu/models/llama/configuration.py,
-the fields the LLaVA and Llama serving slices use)."""
+the fields the LLaVA, Llama serving and Llama training slices use)."""
 
 from __future__ import annotations
 
@@ -8,8 +8,8 @@ from typing import Optional
 
 
 # the JAX config's options this slice leaves out, at their (off) defaults
-_UNPORTED = dict(quant=None, fused_qkv=False, scan_layers=False, gradient_checkpointing=False,
-                 rope_ntk_alpha=1.0, use_logn_attn=False, logn_seq_length=2048)
+_UNPORTED = dict(quant=None, fused_qkv=False, scan_layers=False, rope_ntk_alpha=1.0,
+                 use_logn_attn=False, logn_seq_length=2048)
 
 
 @dataclasses.dataclass
@@ -31,6 +31,7 @@ class LlamaConfig:
     eos_token_id: int = 2
     pad_token_id: Optional[int] = None
     cachekv_int8: bool = False  # init_cache builds an Int8KVCache
+    gradient_checkpointing: bool = False  # recompute each layer in the backward (training)
 
     @classmethod
     def from_dict(cls, d):

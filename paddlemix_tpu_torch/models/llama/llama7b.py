@@ -1,5 +1,6 @@
-"""Llama-2-7B serving, with seeded random weights: the model, its two serving
-batches, and the kernel launches a request makes.
+"""Llama-2-7B serving and LoRA training, with seeded random weights: the
+model, its two serving batches, the kernel launches a request makes and
+those a training micro-batch makes.
 
 The widths are the JAX `LlamaConfig` defaults, which are Llama-2-7B's
 published ones (meta-llama/Llama-2-7b-hf config.json): 32 layers, 4096 wide,
@@ -20,7 +21,8 @@ import torch
 
 from ...core.init import build_random
 from .configuration import LlamaConfig
-from .modeling import LlamaAttention, LlamaForCausalLM, MXUDense, RMSNorm
+from ...ops.attention import use_flash
+from .modeling import LlamaAttention, LlamaDecoderLayer, LlamaForCausalLM, MXUDense, RMSNorm
 
 INT8KV_PROMPT_LEN = 3968
 INT8KV_NEW_TOKENS = 128
@@ -86,3 +88,28 @@ def expected_launches_llama(model: LlamaForCausalLM, prompt_lens: Sequence[int],
                 wint8_matmul=sum(isinstance(m, MXUDense) and m.quant == "wint8"
                                  for m in model.modules()) * new_tokens,
                 flash_attention=0)
+
+
+def expected_launches_train(model: LlamaForCausalLM, micro_batches: int,
+                            seq_len: int = 2048) -> Dict[str, int]:
+    """Kernel launches of `micro_batches` LoRA training micro-batches
+    (cache-free forward and backward, every base weight, embedding and norm
+    frozen) of `seq_len`-token rows, from walking the modules: every RMSNorm
+    runs its forward (B11) and, but for layer 0's input norm, whose input is
+    the frozen embedding and which has nothing to differentiate, its backward;
+    each layer's attention, routed to flash at this shape, runs the lse
+    forward (B15) and the dkv and dq backward (B14). Under
+    `gradient_checkpointing` each layer's forward runs again in the
+    backward."""
+    cfg = model.config
+    count = lambda kind: sum(isinstance(m, kind) for m in model.modules())  # noqa: E731
+    layers, norms = count(LlamaDecoderLayer), count(RMSNorm)
+    shape = (1, seq_len, cfg.num_attention_heads, cfg.head_dim_)
+    flash = use_flash(shape, shape[:2] + (cfg.kv_heads, cfg.head_dim_), causal=True)
+    again = 2 if cfg.gradient_checkpointing else 1
+    out = dict(rms_norm=norms + (again - 1) * 2 * layers, rms_norm_backward=norms - 1,
+               flash_fwd_lse=flash * layers * again, flash_bwd_dkv=flash * layers,
+               flash_bwd_dq=flash * layers)
+    return dict({k: v * micro_batches for k, v in out.items()}, flash_attention=0,
+                decode_attention=0, decode_attention_int8=0, paged_decode_attention=0,
+                wint8_matmul=0)

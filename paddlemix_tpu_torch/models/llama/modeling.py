@@ -1,15 +1,21 @@
-"""Llama decoder with a KV cache, and greedy / sampled generation. Port of
+"""Llama decoder, with a KV cache for generation and without one for
+training, and greedy / sampled generation. Port of
 paddlemix_tpu/models/llama/modeling.py: prefill and single-token decode over
 the dense `KVCache`, the int8 `Int8KVCache` (`cachekv_int8`) and the
-`PagedKVCache` (models/llama/paged.py), `MXUDense` with quant None or
-"wint8", `LlamaForCausalLM` and `greedy_generate`.
+`PagedKVCache` (models/llama/paged.py); the cache-free forward over packed
+rows (positions restart in each sample, segment ids keep the samples apart)
+with optional per-layer recompute (`gradient_checkpointing`); `MXUDense`
+with quant None or "wint8", `LlamaForCausalLM` and `greedy_generate`.
 
 Kernels on these paths, each launched for CUDA tensors (plain versions on the
 CPU): RMSNorm (B11, `ops.norms.rms_norm`) for every norm; for every
 single-token step decode attention over the dense cache (B7,
 `ops.decode_attention.decode_attention`), over the int8 cache (B8,
 `decode_attention_int8`) or over the paged pool (B9,
-`ops.paged_attention.paged_decode_attention`); and under wint8 the
+`ops.paged_attention.paged_decode_attention`); in the cache-free forward
+causal flash attention with segment ids (B1, or under autograd its lse form
+B15 and the backward B14, `ops.attention.flash_attention`), and under
+autograd RMSNorm's backward (B11); and under wint8 the
 weight-only int8 GEMM (B6, `ops.quant.wint8_matmul`) for every projection
 and the lm_head. The JAX package routes these by v5e thresholds (at least 64
 rows, at least 2048 cache slots, 128-aligned widths); eager PyTorch has no
@@ -21,9 +27,9 @@ paged pool's dense gather.
 
 The caches are updated in place (JAX returns new ones). Parameter names
 follow HF transformers (model.layers.N.self_attn.q_proj, ...), which the JAX
-key map renames (core.convert.LLAMA_KEY_MAP). Not ported yet: the
-cache-free (training) forward, fused qkv, scanned layers, beam search, NTK /
-logn rope, and the int8 and paged caches under LLaVA (whose JAX model always
+key map renames (core.convert.LLAMA_KEY_MAP). Not ported yet: fused qkv,
+scanned layers, beam search, NTK / logn rope, sequence parallelism (ring
+attention), and the int8 and paged caches under LLaVA (whose JAX model always
 builds the dense cache).
 """
 
@@ -34,9 +40,10 @@ from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
-from ...ops.attention import attention_math
+from ...ops.attention import SegmentIds, attention_math, scaled_dot_product_attention
 from ...ops.decode_attention import decode_attention, decode_attention_int8
 from ...ops.norms import rms_norm
 from ...ops.paged_attention import paged_decode_attention
@@ -154,14 +161,16 @@ class MXUDense(nn.Linear):
 class _Step(NamedTuple):
     """What every layer of one forward shares: rope, where to write (the
     slots of the dense and int8 caches, the positions the paged cache maps),
-    and either the decode lengths (one token) or the prefill bias."""
+    and either the decode lengths (one token) or the prefill bias; without a
+    cache, the segment ids of the packed rows."""
 
     cos: torch.Tensor
     sin: torch.Tensor
     positions: torch.Tensor              # (B, S), -1 = padding
-    write_idx: Optional[torch.Tensor]    # (B, S) slot of each position (dense, int8)
-    lengths: Optional[torch.Tensor]      # (B,) int32, single-token steps
-    bias: Optional[torch.Tensor]         # (B, 1, S, keys) fp32, prefill
+    write_idx: Optional[torch.Tensor] = None    # (B, S) slot of each position (dense, int8)
+    lengths: Optional[torch.Tensor] = None      # (B,) int32, single-token steps
+    bias: Optional[torch.Tensor] = None         # (B, 1, S, keys) fp32, prefill
+    segment_ids: Optional[SegmentIds] = None    # cache-free forward
 
 
 class LlamaAttention(nn.Module):
@@ -182,7 +191,9 @@ class LlamaAttention(nn.Module):
         v = self.v_proj(x).view(b, s, self.kv_heads, self.head_dim)
         q, k = apply_rope(q, k, step.cos, step.sin)
         bidx = torch.arange(b, device=x.device)[:, None]
-        if isinstance(cache, PagedKVCache):
+        if cache is None:  # training: causal over the row, samples kept apart by segment
+            out = scaled_dot_product_attention(q, k, v, causal=True, segment_ids=step.segment_ids)
+        elif isinstance(cache, PagedKVCache):
             cache.update(layer_idx, k, v, step.positions)
             if step.lengths is not None:
                 out = paged_decode_attention(q[:, 0], cache.k_pool[layer_idx],
@@ -254,20 +265,32 @@ class LlamaModule(nn.Module):
     def embed(self, input_ids):
         return self.embed_tokens(input_ids)
 
-    def forward(self, input_ids=None, positions=None, *, inputs_embeds=None, cache=None):
-        """Returns the final hidden states; writes this step's keys and values
-        into `cache` (a `KVCache`, `Int8KVCache` or `PagedKVCache`), taking
-        the paged cache's blocks once for all layers, and advances its
-        lengths by the valid (position >= 0) tokens."""
-        if cache is None:
-            raise NotImplementedError("LlamaModule: the cache-free (training) forward is not "
-                                      "ported yet")
+    def forward(self, input_ids=None, positions=None, *, inputs_embeds=None, segment_ids=None,
+                cache=None):
+        """Returns the final hidden states. With a cache, writes this step's
+        keys and values into it (a `KVCache`, `Int8KVCache` or
+        `PagedKVCache`), taking the paged cache's blocks once for all layers,
+        and advances its lengths by the valid (position >= 0) tokens. Without
+        one (training), attention is causal within each row and, given
+        `segment_ids` (a `SegmentIds`), within each segment; under
+        `config.gradient_checkpointing` and autograd each layer is recomputed
+        in the backward (the JAX `nn.remat` per layer)."""
         cfg = self.config
         x = self.embed_tokens(input_ids) if inputs_embeds is None else inputs_embeds
         b, s = x.shape[:2]
         if positions is None:
             positions = torch.arange(s, device=x.device).expand(b, s)
         cos, sin = rope_cos_sin(positions, cfg.head_dim_, cfg.rope_theta)
+        if cache is None:
+            step = _Step(cos, sin, positions, segment_ids=segment_ids)
+            remat = cfg.gradient_checkpointing and torch.is_grad_enabled()
+            for i, layer in enumerate(self.layers):
+                if remat:
+                    x = torch.utils.checkpoint.checkpoint(layer, x, step, None, i,
+                                                          use_reentrant=False)
+                else:
+                    x = layer(x, step, None, i)
+            return self.norm(x)
         if isinstance(cache, PagedKVCache):
             cache.allocate_for(positions)
             keys, write_idx = cache.max_len, None
@@ -307,9 +330,11 @@ class LlamaForCausalLM(nn.Module):
     def embed(self, input_ids):
         return self.model.embed(input_ids)
 
-    def forward(self, input_ids=None, positions=None, *, inputs_embeds=None, cache=None):
-        """-> (logits (B, S, vocab), cache)."""
-        hidden = self.model(input_ids, positions, inputs_embeds=inputs_embeds, cache=cache)
+    def forward(self, input_ids=None, positions=None, *, inputs_embeds=None, segment_ids=None,
+                cache=None):
+        """-> (logits (B, S, vocab), cache); see `LlamaModule.forward`."""
+        hidden = self.model(input_ids, positions, inputs_embeds=inputs_embeds,
+                            segment_ids=segment_ids, cache=cache)
         if self.lm_head is None:
             return F.linear(hidden, self.model.embed_tokens.weight), cache
         return self.lm_head(hidden), cache

@@ -73,7 +73,8 @@ class PagedKVCache:
 
     def allocate_for(self, positions) -> "PagedKVCache":
         """Assign pool blocks so that every position in `positions` (B, S; -1 =
-        padding) has a home, in place. Call once per step, before `update`."""
+        padding) has a home, in place. Call once per step, before `update`.
+        Raises ValueError, changing nothing, if the pool is too small."""
         bs = self.block_size
         b, max_blocks = self.block_tables.shape
         valid = positions >= 0
@@ -84,8 +85,14 @@ class PagedKVCache:
         need = (entry <= need_upto[:, None]) & (self.block_tables < 0)
         order = need.reshape(-1).cumsum(0) - 1  # flat allocation order
         new_ids = (self.num_allocated + order).reshape(b, max_blocks).int()
+        taken = self.num_allocated + need.sum().int()
+        # an id at or past num_blocks would be read and written out of bounds
+        # on the card (JAX clamps it): refuse, at the cost of one host sync a step
+        if int(taken) > self.num_blocks:
+            raise ValueError(f"PagedKVCache.allocate_for: the step needs {int(taken)} blocks, "
+                             f"the pool has {self.num_blocks}")
         self.block_tables = torch.where(need, new_ids, self.block_tables)
-        self.num_allocated = self.num_allocated + need.sum().int()
+        self.num_allocated = taken
         return self
 
     def update(self, layer_idx: int, k, v, positions) -> None:

@@ -149,3 +149,14 @@ class LlavaForConditionalGeneration(LlavaModule):
         return greedy_generate(self.language_model, input_ids, attention_mask,
                                max_new_tokens=max_new_tokens, inputs_embeds=inputs_embeds,
                                cache=self.init_cache(b, s + max_new_tokens), **kwargs)
+
+
+def llava_loss(logits, labels, ignore_index: int = -100):
+    """Shifted masked LM loss (port of `llava_loss`): token t predicts label
+    t + 1; the mean over labels that are not `ignore_index` of the fp32
+    log-softmax's negative log-likelihood (0 when every label is ignored)."""
+    logp = F.log_softmax(logits[:, :-1].float(), dim=-1)
+    labels = labels[:, 1:]
+    mask = labels != ignore_index
+    nll = -logp.gather(-1, torch.where(mask, labels, 0).long()[..., None])[..., 0]
+    return (nll * mask).sum() / mask.sum().clamp(min=1)

@@ -1,12 +1,26 @@
-"""Attention: math reference, flash-attention forward, and the shape rule
-that picks between them. Port of paddlemix_tpu/ops/attention.py.
+"""Attention: math reference, the flash-attention forward and backward, and
+the shape rule that picks between flash and math. Port of
+paddlemix_tpu/ops/attention.py.
 
-Layout: q/k/v are (batch, seq, heads, head_dim), as in the JAX package.
+Layout: q/k/v are (batch, seq, heads, head_dim), as in the JAX package; k/v
+may have fewer heads than q (GQA: query head h reads kv head h // group).
 
-`flash_attention` launches the CUDA kernel of `csrc/flash_fwd.cu` for CUDA
-tensors and runs its plain version `flash_attention_ref` for CPU tensors. The
-choice between flash and math (`use_flash`) is made from shapes alone, the
-same on both devices, by the JAX package's rule.
+Kernels (CUDA tensors launch them; CPU tensors run their plain versions):
+- `csrc/flash_fwd.cu`: the forward (B1), with causal (top-left), segment ids
+  and GQA. `flash_attention` launches its inference form (no lse, the scale
+  folded in fp32); `flash_fwd_lse` its lse form (B15), on q pre-scaled by
+  scale * log2(e) and rounded to q's dtype as the JAX wrapper does, writing
+  the base-2 lse of each row, fp32 (B, H, S);
+- `csrc/flash_bwd.cu`: the backward (B14), `flash_bwd_dkv` and
+  `flash_bwd_dq`, from that pre-scaled q, the lse and di = rowsum(o * do).
+Under autograd, `flash_attention` is `_FlashAttention` (the JAX
+`_flash_attention` custom_vjp): forward by `flash_fwd_lse`, backward by the
+two B14 kernels. Segment ids compare as given: the kernels mask by bounds, so
+nothing is padded, and the JAX wrapper's +1 shift (which keeps its padding
+apart) has nothing to do. The choice between flash and math
+(`scaled_dot_product_attention`) is made from shapes alone, the same on both
+devices (`use_flash`): the JAX package's rule, with the kernels' head_dim
+limit.
 """
 
 from __future__ import annotations
@@ -14,43 +28,130 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
+from .autograd import grad_needed, refuse_grad
+
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 LOG2E = math.log2(math.e)
-_KERNEL_HEAD_DIMS = (32, 64, 96, 128)  # head dims compiled into flash_fwd.cu
+_KERNEL_HEAD_DIMS = (32, 64, 96, 128)  # head dims compiled into flash_fwd.cu / flash_bwd.cu
 
 
-def attention_math(q, k, v, *, bias=None, causal=False, scale: Optional[float] = None):
+class SegmentIds(NamedTuple):
+    q: torch.Tensor   # (B, Sq) int
+    kv: torch.Tensor  # (B, Skv) int
+
+
+def _expand_kv(k, v, heads):
+    """GQA: repeat each kv head over its group of query heads."""
+    if k.shape[2] == heads:
+        return k, v
+    g = heads // k.shape[2]
+    return k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)
+
+
+def _keep(sq, skv, causal, segment_ids, device, bottom_right=False):
+    """(B or 1, 1, Sq, Skv) bool of the visible (query, key) pairs, or None."""
+    keep = None
+    if causal:
+        keep = torch.ones(sq, skv, dtype=torch.bool, device=device).tril(
+            skv - sq if bottom_right else 0)[None, None]
+    if segment_ids is not None:
+        seg = (segment_ids.q[:, :, None] == segment_ids.kv[:, None, :])[:, None]
+        keep = seg if keep is None else keep & seg
+    return keep
+
+
+def attention_math(q, k, v, *, bias=None, causal=False, segment_ids=None,
+                   scale: Optional[float] = None):
     """Math attention (port of `attention_xla`): fp32 logits and softmax, P in
-    v's dtype for the PV product. q: (B,Sq,Hq,D), k/v: (B,Skv,Hkv,D)."""
-    b, sq, hq, d = q.shape
-    skv, hkv = k.shape[1], k.shape[2]
+    v's dtype for the PV product. q: (B,Sq,Hq,D), k/v: (B,Skv,Hkv,D); causal
+    is bottom-right aligned, as attention_xla's."""
+    d = q.shape[3]
     scale = d ** -0.5 if scale is None else scale
-    if hkv != hq:
-        k = k.repeat_interleave(hq // hkv, dim=2)
-        v = v.repeat_interleave(hq // hkv, dim=2)
+    k, v = _expand_kv(k, v, q.shape[2])
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if bias is not None:
         logits = logits + bias.float()
-    if causal:  # bottom-right aligned, as attention_xla
-        keep = torch.ones(sq, skv, dtype=torch.bool, device=q.device).tril(skv - sq)
+    keep = _keep(q.shape[1], k.shape[1], causal, segment_ids, q.device, bottom_right=True)
+    if keep is not None:
         logits = logits.masked_fill(~keep, DEFAULT_MASK_VALUE)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
     return out.to(q.dtype)
 
 
-def flash_attention_ref(q, k, v, *, scale: Optional[float] = None):
-    """Plain version of the flash kernel: the whole computation in fp32, the
-    result in q's dtype. q: (B,Sq,H,D), k/v: (B,Skv,H,D)."""
+# ------------------------------------------------------------ plain versions
+def flash_attention_ref(q, k, v, *, scale: Optional[float] = None, causal=False,
+                        segment_ids=None):
+    """Plain version of the flash kernel's inference form: the whole
+    computation in fp32, the result in q's dtype. q: (B,Sq,H,D), k/v:
+    (B,Skv,Hkv,D); causal is top-left aligned, as the kernel's."""
     scale = q.shape[3] ** -0.5 if scale is None else scale
+    k, v = _expand_kv(k, v, q.shape[2])
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    keep = _keep(q.shape[1], k.shape[1], causal, segment_ids, q.device)
+    if keep is not None:
+        logits = logits.masked_fill(~keep, DEFAULT_MASK_VALUE)
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v.float()).to(q.dtype)
+
+
+def _probs(qs, k, lse, causal, segment_ids):
+    """p = exp2(qs . k - lse) in fp32, 0 where masked: (B, H, Sq, Skv)."""
+    s = torch.einsum("bqhd,bkhd->bhqk", qs.float(), k.float())
+    p = torch.exp2(s - lse[..., None])
+    keep = _keep(qs.shape[1], k.shape[1], causal, segment_ids, qs.device)
+    return p if keep is None else p.masked_fill(~keep, 0.0)
+
+
+def flash_fwd_lse_ref(qs, k, v, *, causal=False, segment_ids=None):
+    """Plain version of the lse form (B15): qs is q * scale * log2(e) in q's
+    dtype; returns o in v's dtype and the base-2 lse (B, H, Sq) fp32, the
+    whole computation in fp32."""
+    k, v = _expand_kv(k, v, qs.shape[2])
+    s = torch.einsum("bqhd,bkhd->bhqk", qs.float(), k.float())
+    keep = _keep(qs.shape[1], k.shape[1], causal, segment_ids, qs.device)
+    if keep is not None:
+        s = s.masked_fill(~keep, float("-inf"))
+    lse = torch.logsumexp(s * math.log(2.0), dim=-1) * LOG2E
+    o = torch.einsum("bhqk,bkhd->bqhd", torch.exp2(s - lse[..., None]), v.float())
+    return o.to(v.dtype), lse
+
+
+def flash_bwd_dkv_ref(qs, k, v, do, lse, di, *, causal=False, segment_ids=None):
+    """Plain version of `_bwd_dkv_kernel` (B14): dk, dv in k's dtype, each
+    query head's in fp32 summed over its GQA group. p is rounded to do's dtype
+    for dv += p^T do and ds = p (dp - di) / log2(e) to qs's for dk += ds^T qs,
+    as the kernels round them. di: (B, H, Sq) fp32."""
+    b, skv, hkv, d = k.shape
+    ke, ve = _expand_kv(k, v, qs.shape[2])
+    p = _probs(qs, ke, lse, causal, segment_ids)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do.float())
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), ve.float())
+    ds = p * (dp - di[..., None]) * (1.0 / LOG2E)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(qs.dtype).float(), qs.float())
+    g = qs.shape[2] // hkv
+    dk = dk.reshape(b, skv, hkv, g, d).sum(3)
+    dv = dv.reshape(b, skv, hkv, g, d).sum(3)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_dq_ref(qs, k, v, do, lse, di, *, scale: float, causal=False, segment_ids=None):
+    """Plain version of `_bwd_dq_kernel` (B14): dq of the unscaled q, in qs's
+    dtype; ds = p (dp - di) * scale is rounded to k's dtype for dq += ds k."""
+    ke, ve = _expand_kv(k, v, qs.shape[2])
+    p = _probs(qs, ke, lse, causal, segment_ids)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), ve.float())
+    ds = p * (dp - di[..., None]) * scale
+    return torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), ke.float()).to(qs.dtype)
+
+
+# ------------------------------------------------------------------ kernels
+_P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 @functools.lru_cache(maxsize=None)
@@ -58,79 +159,253 @@ def _flash_fn():
     from ..kernels import load_library
 
     fn = load_library("flash_fwd").flash_fwd_bf16
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 17
-                   + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    fn.argtypes = [_P] * 4 + [_I] * 17 + [ctypes.c_float] + [_I] * 2 + [_P] * 2 + [_I] * 2 \
+        + [_P] * 2
+    fn.restype = _I
     return fn
 
 
-def _check_strides(name, t):
-    if t.stride(-1) != 1:
-        raise ValueError(f"flash_attention: {name} must have unit stride over head_dim, "
-                         f"got strides {t.stride()}")
-    if any(s % 8 or s >= 2 ** 31 for s in t.stride()[:3]) or t.data_ptr() % 16:
-        raise ValueError(f"flash_attention: {name} needs 16-byte aligned rows (strides a "
-                         f"multiple of 8 elements, below 2**31), got strides {t.stride()}")
+@functools.lru_cache(maxsize=None)
+def _flash_bwd_fns():
+    from ..kernels import load_library
+
+    lib = load_library("flash_bwd")
+    dkv, dq = lib.flash_bwd_dkv_bf16, lib.flash_bwd_dq_bf16
+    strides = ctypes.POINTER(ctypes.c_int)
+    dkv.argtypes = [_P] * 10 + [_I] * 9 + [strides, _P]
+    dq.argtypes = [_P] * 9 + [_I] * 9 + [strides, ctypes.c_float, _P]
+    dkv.restype = dq.restype = _I
+    return dkv, dq
 
 
-def _flash_fwd_cuda(q, k, v, scale):
-    b, sq, h, d = q.shape
-    skv = k.shape[1]
-    for name, t in (("q", q), ("k", k), ("v", v)):
+def _kernel_operand(t):
+    """t itself when the kernels can read it through its strides (unit
+    stride over head_dim, 16-byte aligned rows, strides below 2**31), else a
+    contiguous copy."""
+    if t.stride(-1) != 1 or any(s % 8 or s >= 2 ** 31 for s in t.stride()[:3]) \
+            or t.data_ptr() % 16:
+        t = t.contiguous()
+    return t
+
+
+def _check_operands(name, q, k, v, causal, segment_ids):
+    """Device, dtype and shape checks; returns the head_dim the kernel is
+    compiled for (>= d) and the int32 segment arrays or None."""
+    b, sq, hq, d = q.shape
+    for tname, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda or t.device != q.device:
-            raise ValueError(f"flash_attention: {name} must be on {q.device}, got {t.device}")
+            raise ValueError(f"{name}: {tname} must be on {q.device}, got {t.device}")
         if t.dtype != torch.bfloat16:
-            raise TypeError(f"flash_attention kernel takes bfloat16, got {name} {t.dtype}")
-    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
-        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+            raise TypeError(f"{name} kernel takes bfloat16, got {tname} {t.dtype}")
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d or hq % k.shape[2]:
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)} do not match")
+    if causal and sq != k.shape[1]:
+        raise ValueError(f"{name}: causal needs Sq == Skv (top-left mask), got {sq} != "
+                         f"{k.shape[1]}")
     if d > _KERNEL_HEAD_DIMS[-1]:
-        raise ValueError(f"flash_attention kernel takes head_dim <= {_KERNEL_HEAD_DIMS[-1]}, "
-                         f"got {d}")
-    d_kernel = next(x for x in _KERNEL_HEAD_DIMS if x >= d)
-    if d_kernel != d:  # zero columns change neither q.k nor the first d columns of p.v
-        q, k, v = (F.pad(t, (0, d_kernel - d)) for t in (q, k, v))
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_strides(name, t)
+        raise ValueError(f"{name} kernel takes head_dim <= {_KERNEL_HEAD_DIMS[-1]}, got {d}")
+    segs = None
+    if segment_ids is not None:
+        segs = tuple(s.to(device=q.device, dtype=torch.int32).contiguous()
+                     for s in segment_ids)
+        if segs[0].shape != (b, sq) or segs[1].shape != (b, k.shape[1]):
+            raise ValueError(f"{name}: segment ids {tuple(segs[0].shape)} / "
+                             f"{tuple(segs[1].shape)} do not match q {tuple(q.shape)} "
+                             f"k {tuple(k.shape)}")
+    return next(x for x in _KERNEL_HEAD_DIMS if x >= d), segs
+
+
+def _segment_args(segs, sq, skv):
+    """(qseg, kseg, qseg batch stride, kseg batch stride) for the kernels."""
+    return (segs[0].data_ptr(), segs[1].data_ptr(), sq, skv) if segs else (None, None, 0, 0)
+
+
+def _pad_head_dim(d_kernel, *ts):
+    """Zero columns change neither q.k nor the first d columns of p.v."""
+    return tuple(t if t.shape[-1] == d_kernel else F.pad(t, (0, d_kernel - t.shape[-1]))
+                 for t in ts)
+
+
+def _flash_fwd_cuda(q, k, v, scale_log2, causal, segment_ids, want_lse):
+    b, sq, h, d = q.shape
+    d_kernel, segs = _check_operands("flash_attention", q, k, v, causal, segment_ids)
+    q, k, v = (_kernel_operand(t) for t in _pad_head_dim(d_kernel, q, k, v))
     o = torch.empty((b, sq, h, d_kernel), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if want_lse else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _flash_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                          b, h, sq, skv, d_kernel,
+                          b, h, sq, k.shape[1], d_kernel,
                           *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-                          scale * LOG2E, stream)
+                          scale_log2, h // k.shape[2], int(causal),
+                          *_segment_args(segs, sq, k.shape[1]),
+                          None if lse is None else lse.data_ptr(), stream)
     if err:
         raise RuntimeError(f"flash_fwd_bf16 launch failed with cudaError {err}")
-    flash_attention.launches += 1
-    return o[..., :d] if d_kernel != d else o
+    return (o[..., :d] if d_kernel != d else o), lse
+
+
+def _flash_bwd_cuda(dkv, qs, k, v, do, lse, di, scale, causal, segment_ids):
+    """dkv: (dk, dv) fp32 of each query head; else dq fp32; (B, H, S_pad, D)."""
+    b, sq, h, d = qs.shape
+    d_kernel, segs = _check_operands("flash_attention backward", qs, k, v, causal, segment_ids)
+    if do.shape != qs.shape or do.dtype != qs.dtype or do.device != qs.device:
+        raise ValueError(f"flash_attention backward: do {tuple(do.shape)} {do.dtype} does not "
+                         f"match q {tuple(qs.shape)} {qs.dtype}")
+    for name, t in (("lse", lse), ("di", di)):
+        if t.shape != (b, h, sq) or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"flash_attention backward: {name} must be contiguous fp32 "
+                             f"{(b, h, sq)}, got {t.dtype} {tuple(t.shape)}")
+    qs, k, v, do = (_kernel_operand(t) for t in _pad_head_dim(d_kernel, qs, k, v, do))
+    rows = k.shape[1] if dkv else sq
+    out_shape = (b, h, -(-rows // 64) * 64, d_kernel)
+    outs = [torch.empty(out_shape, dtype=torch.float32, device=qs.device)
+            for _ in range(2 if dkv else 1)]
+    strides = (ctypes.c_int * 12)(*qs.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                                  *do.stride()[:3])
+    args = [qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            di.data_ptr(), *_segment_args(segs, sq, k.shape[1])[:2],
+            *(o.data_ptr() for o in outs), b, h, sq, k.shape[1], d_kernel, h // k.shape[2],
+            int(causal), *_segment_args(segs, sq, k.shape[1])[2:], strides]
+    fn_dkv, fn_dq = _flash_bwd_fns()
+    with torch.cuda.device(qs.device):
+        stream = torch.cuda.current_stream(qs.device).cuda_stream
+        err = fn_dkv(*args, stream) if dkv else fn_dq(*args, scale, stream)
+    if err:
+        raise RuntimeError(f"flash_bwd_{'dkv' if dkv else 'dq'}_bf16 launch failed with "
+                           f"cudaError {err}")
+    return [o[:, :, :rows, :d] for o in outs]
+
+
+def _cpu_only(name, t):
+    if t.device.type != "cpu":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+
+
+def flash_fwd_lse(qs, k, v, *, causal=False, segment_ids=None):
+    """The lse form of the forward (B15): qs = q * scale * log2(e) in q's
+    dtype; returns (o (B, Sq, H, D) in q's dtype, the base-2 lse (B, H, Sq)
+    fp32). CUDA tensors launch the kernel; CPU tensors run
+    `flash_fwd_lse_ref`."""
+    if qs.is_cuda:
+        refuse_grad("flash_fwd_lse", qs, k, v)
+        out = _flash_fwd_cuda(qs, k, v, 1.0, causal, segment_ids, True)
+        flash_fwd_lse.launches += 1
+        return out
+    _cpu_only("flash_fwd_lse", qs)
+    return flash_fwd_lse_ref(qs, k, v, causal=causal, segment_ids=segment_ids)
+
+
+flash_fwd_lse.launches = 0  # kernel launches (CUDA tensors only)
+
+
+def flash_bwd_dkv(qs, k, v, do, lse, di, *, causal=False, segment_ids=None):
+    """dk, dv (B14, `_bwd_dkv_kernel`) in k's dtype from the lse form's
+    operands, do and di (B, H, Sq) fp32. CUDA tensors launch the kernel, whose
+    per-query-head fp32 outputs are summed over each GQA group here; CPU
+    tensors run `flash_bwd_dkv_ref`."""
+    if qs.is_cuda:
+        dk, dv = _flash_bwd_cuda(True, qs, k, v, do, lse, di, 0.0, causal, segment_ids)
+        flash_bwd_dkv.launches += 1
+        b, h, skv, d = dk.shape
+        hkv = k.shape[2]
+        if hkv != h:
+            dk, dv = (t.reshape(b, hkv, h // hkv, skv, d).sum(2) for t in (dk, dv))
+        return dk.transpose(1, 2).to(k.dtype), dv.transpose(1, 2).to(v.dtype)
+    _cpu_only("flash_bwd_dkv", qs)
+    return flash_bwd_dkv_ref(qs, k, v, do, lse, di, causal=causal, segment_ids=segment_ids)
+
+
+flash_bwd_dkv.launches = 0  # kernel launches (CUDA tensors only)
+
+
+def flash_bwd_dq(qs, k, v, do, lse, di, *, scale: float, causal=False, segment_ids=None):
+    """dq of the unscaled q (B14, `_bwd_dq_kernel`) in qs's dtype. CUDA
+    tensors launch the kernel; CPU tensors run `flash_bwd_dq_ref`."""
+    if qs.is_cuda:
+        (dq,) = _flash_bwd_cuda(False, qs, k, v, do, lse, di, scale, causal, segment_ids)
+        flash_bwd_dq.launches += 1
+        return dq.transpose(1, 2).to(qs.dtype)
+    _cpu_only("flash_bwd_dq", qs)
+    return flash_bwd_dq_ref(qs, k, v, do, lse, di, scale=scale, causal=causal,
+                            segment_ids=segment_ids)
+
+
+flash_bwd_dq.launches = 0  # kernel launches (CUDA tensors only)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The JAX `_flash_attention` custom_vjp: the forward keeps (qs, k, v, o,
+    lse) and the backward runs the two B14 kernels. The module's functions are
+    looked up at each call, so that a caller can swap in plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seg_q, seg_kv, scale, causal):
+        qs = (q.float() * (scale * LOG2E)).to(q.dtype)  # as the JAX wrapper rounds it
+        segs = None if seg_q is None else SegmentIds(seg_q, seg_kv)
+        o, lse = flash_fwd_lse(qs, k, v, causal=causal, segment_ids=segs)
+        ctx.save_for_backward(qs, k, v, o, lse, seg_q, seg_kv)
+        ctx.scale, ctx.causal = scale, causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        qs, k, v, o, lse, seg_q, seg_kv = ctx.saved_tensors
+        segs = None if seg_q is None else SegmentIds(seg_q, seg_kv)
+        di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()  # (B, H, Sq)
+        dk, dv = flash_bwd_dkv(qs, k, v, do, lse, di, causal=ctx.causal, segment_ids=segs)
+        dq = flash_bwd_dq(qs, k, v, do, lse, di, scale=ctx.scale, causal=ctx.causal,
+                          segment_ids=segs)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q, k, v, *, causal=False, scale: Optional[float] = None,
-                    segment_ids=None, return_lse=False, int8_qk=False):
-    """Flash attention forward, (B, S, H, D) layout (port of `flash_attention`,
-    inference form). CUDA tensors launch the kernel; CPU tensors run
-    `flash_attention_ref`. Causal, segment ids, GQA (Hkv != Hq), lse and int8
-    QK^T are not ported yet and raise NotImplementedError."""
-    if causal or segment_ids is not None or return_lse or int8_qk or k.shape[2] != q.shape[2]:
-        raise NotImplementedError("flash_attention: causal, segment ids, GQA, lse and int8 "
-                                  "QK^T are not ported yet")
+                    segment_ids: Optional[SegmentIds] = None, int8_qk=False):
+    """Flash attention, (B, S, H, D) layout (port of `flash_attention`). Under
+    autograd it is `_FlashAttention` (lse forward, B14 backward); otherwise
+    CUDA tensors launch the inference form of the forward kernel and CPU
+    tensors run `flash_attention_ref`. causal is top-left aligned and needs
+    Sq == Skv, as in JAX. int8 QK^T, an inference-only option, is not ported."""
+    if int8_qk:
+        raise NotImplementedError("flash_attention: int8 QK^T is not ported yet")
+    if causal and q.shape[1] != k.shape[1]:
+        raise ValueError(f"flash_attention causal requires sq == skv, got {q.shape[1]} != "
+                         f"{k.shape[1]}")
     scale = q.shape[3] ** -0.5 if scale is None else scale
+    if grad_needed(q, k, v):
+        seg_q, seg_kv = (None, None) if segment_ids is None else segment_ids
+        return _FlashAttention.apply(q, k, v, seg_q, seg_kv, scale, causal)
     if q.is_cuda:
-        return _flash_fwd_cuda(q, k, v, scale)
-    if q.device.type != "cpu":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
-    return flash_attention_ref(q, k, v, scale=scale)
+        o, _ = _flash_fwd_cuda(q, k, v, scale * LOG2E, causal, segment_ids, False)
+        flash_attention.launches += 1
+        return o
+    _cpu_only("flash_attention", q)
+    return flash_attention_ref(q, k, v, scale=scale, causal=causal, segment_ids=segment_ids)
 
 
-flash_attention.launches = 0  # kernel launches (CUDA tensors only)
+flash_attention.launches = 0  # inference-form kernel launches (CUDA tensors only)
+
+
+def flash_attention_with_lse(q, k, v, *, segment_ids: Optional[SegmentIds] = None,
+                             scale: Optional[float] = None, causal: bool = False):
+    """(o, lse) with lse in BASE 2, (B, S, H) fp32 (port of
+    `flash_attention_with_lse`): the lse form of the forward on q pre-scaled
+    as the JAX wrapper pre-scales it. No gradient, as in JAX."""
+    scale = q.shape[3] ** -0.5 if scale is None else scale
+    qs = (q.float() * (scale * LOG2E)).to(q.dtype)
+    o, lse = flash_fwd_lse(qs, k, v, causal=causal, segment_ids=segment_ids)
+    return o, lse.transpose(1, 2)
 
 
 def use_flash(q_shape, k_shape, *, bias=None, causal=False) -> bool:
     """The JAX package's flash-or-math rule (paddlemix_tpu/ops/attention.py
-    scaled_dot_product_attention), from shapes alone."""
+    scaled_dot_product_attention), from shapes alone, but for head_dim: JAX
+    takes flash up to 256, the kernels here are built up to 128, so 129-256
+    go to math (ROADMAP queue B)."""
     b, sq, hq, d = q_shape
     skv = k_shape[1]
-    return (bias is None and skv >= 128 and d <= 256
+    return (bias is None and skv >= 128 and d <= _KERNEL_HEAD_DIMS[-1]
             # unaligned short sequences go to math unless the score tensor is large
             and (skv % 128 == 0 or skv >= 1024 or b * hq * sq * skv * 4 > 1e9)
             # the flash causal mask is top-left aligned, math's bottom-right
@@ -138,8 +413,10 @@ def use_flash(q_shape, k_shape, *, bias=None, causal=False) -> bool:
 
 
 def scaled_dot_product_attention(q, k, v, *, bias=None, causal=False,
+                                 segment_ids: Optional[SegmentIds] = None,
                                  scale: Optional[float] = None):
     """Attention routed to flash or math by `use_flash`, (B, S, H, D) layout."""
     if use_flash(q.shape, k.shape, bias=bias, causal=causal):
-        return flash_attention(q, k, v, causal=causal, scale=scale)
-    return attention_math(q, k, v, bias=bias, causal=causal, scale=scale)
+        return flash_attention(q, k, v, causal=causal, scale=scale, segment_ids=segment_ids)
+    return attention_math(q, k, v, bias=bias, causal=causal, segment_ids=segment_ids,
+                          scale=scale)

@@ -33,6 +33,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from .autograd import refuse_grad
+
 _MAX_GRID_Y = 65535  # row tiles of 128 go on gridDim.y
 
 
@@ -149,6 +151,7 @@ def int8_a8w8_matmul(x, wq, sw, sx: float, bias: Optional[torch.Tensor] = None):
     `int8_a8w8_matmul`). CUDA tensors launch the B2 kernel (bf16 x, fp32
     sw/bias); CPU tensors run `int8_a8w8_matmul_ref`."""
     if x.is_cuda:
+        refuse_grad("int8_a8w8_matmul", x, sw, bias)
         return _int8_gemm_cuda(x, wq, sw, sx, bias)
     if x.device.type != "cpu":
         raise ValueError(f"int8_a8w8_matmul: unsupported device {x.device}")
@@ -225,6 +228,7 @@ def int8_conv3x3_same(x, wq, sw, sx: float, bias: Optional[torch.Tensor] = None)
     `int8_conv3x3_same`, plus the conv bias in the epilogue). CUDA tensors
     launch the B3 kernel; CPU tensors run `int8_conv3x3_same_ref`."""
     if x.is_cuda:
+        refuse_grad("int8_conv3x3_same", x, sw, bias)
         return _int8_conv3x3_cuda(x, wq, sw, sx, bias)
     if x.device.type != "cpu":
         raise ValueError(f"int8_conv3x3_same: unsupported device {x.device}")

@@ -16,6 +16,8 @@ from typing import Optional
 
 import torch
 
+from .autograd import refuse_grad
+
 NEG = -0.7 * float(torch.finfo(torch.float32).max)
 _KERNEL_HEAD_DIMS = (64, 128)
 _KERNEL_GROUPS = (1, 2, 4, 8)
@@ -129,6 +131,7 @@ def decode_attention(q, k_cache, v_cache, lengths, *, scale: Optional[float] = N
     `decode_attention_ref`."""
     scale = q.shape[3] ** -0.5 if scale is None else scale
     if q.is_cuda:
+        refuse_grad("decode_attention", q, k_cache, v_cache)
         return _decode_cuda(q, k_cache, v_cache, lengths, scale)
     if q.device.type != "cpu":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
@@ -195,6 +198,7 @@ def decode_attention_int8(q, k_q, v_q, k_scale, v_scale, lengths, *,
     `decode_attention_int8_ref`."""
     scale = q.shape[3] ** -0.5 if scale is None else scale
     if q.is_cuda:
+        refuse_grad("decode_attention_int8", q, k_scale, v_scale)
         return _decode_int8_cuda(q, k_q, v_q, k_scale, v_scale, lengths, scale)
     if q.device.type != "cpu":
         raise ValueError(f"decode_attention_int8: unsupported device {q.device}")

@@ -23,6 +23,7 @@ from typing import Optional
 
 import torch
 
+from .autograd import refuse_grad
 from .conv_int8 import _conv_lib, _raise_on, check_conv3x3_operands, int8_conv3x3_ref, \
     quantize_int8
 from .norms import group_norm_stats
@@ -91,6 +92,7 @@ def fused_gn_silu_conv3x3(x, gamma, beta, groups: int, eps: float, wq, sw, sx: f
         raise ValueError(f"fused_gn_silu_conv3x3: channels {x.shape[-1]} not divisible by "
                          f"groups {groups}")
     if x.is_cuda:
+        refuse_grad("fused_gn_silu_conv3x3", x, gamma, beta, sw, bias, temb, residual)
         return _fused_cuda(x, gamma, beta, groups, eps, wq, sw, sx, bias, temb, residual)
     if x.device.type != "cpu":
         raise ValueError(f"fused_gn_silu_conv3x3: unsupported device {x.device}")

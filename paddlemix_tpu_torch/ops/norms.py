@@ -12,7 +12,13 @@ x once and writes y once: it is bound by those bytes, and a single-row call
 (decode) by its launch. The JAX package sends fewer than 64 rows to XLA,
 which fuses the norm into its neighbours; eager PyTorch has no such fusion,
 and the plain version is about six launches, so the port launches the
-kernel for every row count.
+kernel for every row count. Under autograd `rms_norm` is `_RMSNorm` (the JAX
+custom_vjp), whose backward `rms_norm_backward` is a second Triton kernel
+(see its section below).
+
+GroupNorm (B4), adaLN (B12) and fused adaLN + residual (B13) take their
+backward, as the JAX package takes it from XLA, from autograd of their plain
+versions, recomputed (`ops.autograd.with_plain_backward`).
 
 `group_norm` launches the Triton kernel below for CUDA tensors and runs its
 plain version `group_norm_ref` for CPU tensors. `group_norm_stats` runs the
@@ -44,6 +50,8 @@ import functools
 import math
 
 import torch
+
+from .autograd import grad_needed, with_plain_backward
 
 _BLOCK_R = 64        # rows per tile
 _BLOCK_C = 64        # channels per tile
@@ -233,12 +241,15 @@ def _check_groups(x, groups):
 def group_norm(x, weight, bias, groups: int, eps: float = 1e-5, act: str = "none"):
     """GroupNorm over (B, ..., C) with optional fused SiLU (port of `group_norm`).
 
-    CUDA tensors launch the Triton kernel; CPU tensors run `group_norm_ref`."""
+    CUDA tensors launch the Triton kernel, whose backward is autograd of the
+    plain version; CPU tensors run `group_norm_ref`."""
     if act not in ("none", "silu"):
         raise ValueError(f"group_norm act must be 'none' or 'silu', got {act!r}")
     _check_groups(x, groups)
     if x.is_cuda:
-        return _group_norm_triton(x, weight, bias, groups, eps, act)
+        return with_plain_backward(
+            lambda x_, w_, b_: _group_norm_triton(x_, w_, b_, groups, eps, act),
+            lambda x_, w_, b_: group_norm_ref(x_, w_, b_, groups, eps, act), x, weight, bias)
     return group_norm_ref(x, weight, bias, groups, eps, act)
 
 
@@ -253,9 +264,12 @@ def group_norm_stats(x, groups: int, eps: float = 1e-5):
     _check_groups(x, groups)
     if x.is_cuda:
         _check_input(x, None, None)
-        out = _stats_triton(x, groups, eps)
-        group_norm_stats.launches += 1
-        return out
+
+        def run(x_):
+            out = _stats_triton(x_, groups, eps)
+            group_norm_stats.launches += 1
+            return out
+        return with_plain_backward(run, lambda x_: _group_moments(x_, groups, eps), x)
     return _group_moments(x, groups, eps)
 
 
@@ -313,9 +327,8 @@ def _rms_norm_triton(x, weight, eps):
     return y
 
 
-def rms_norm(x, weight, eps: float = 1e-6):
-    """RMSNorm over the last axis (port of `rms_norm`, forward). CUDA tensors
-    launch the Triton kernel; CPU tensors run `rms_norm_ref`."""
+def _rms_forward(x, weight, eps):
+    """The forward: the kernel for CUDA tensors, `rms_norm_ref` for CPU ones."""
     if x.is_cuda:
         return _rms_norm_triton(x, weight, eps)
     if x.device.type != "cpu":
@@ -323,7 +336,158 @@ def rms_norm(x, weight, eps: float = 1e-6):
     return rms_norm_ref(x, weight, eps)
 
 
+class _RMSNorm(torch.autograd.Function):
+    """The JAX `_rms_norm_pallas` custom_vjp: saves (x, weight); the backward
+    is `rms_norm_backward` (B11's backward kernel), which skips dw when the
+    weight needs no gradient. The module's functions are looked up at each
+    call, so that a caller can swap in plain versions."""
+
+    @staticmethod
+    def forward(ctx, x, weight, eps):
+        ctx.save_for_backward(x, weight)
+        ctx.eps = eps
+        return _rms_forward(x, weight, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        dx, dw = rms_norm_backward(x, weight, g, ctx.eps, need_dw=ctx.needs_input_grad[1])
+        return dx, dw, None
+
+
+def rms_norm(x, weight, eps: float = 1e-6):
+    """RMSNorm over the last axis (port of `rms_norm`). CUDA tensors launch the
+    Triton kernel; CPU tensors run `rms_norm_ref`. Under autograd it is
+    `_RMSNorm`, whose backward is `rms_norm_backward`."""
+    if grad_needed(x, weight):
+        return _RMSNorm.apply(x, weight, eps)
+    return _rms_forward(x, weight, eps)
+
+
 rms_norm.launches = 0  # kernel launches (CUDA tensors only)
+
+
+# RMSNorm backward (B11's backward) replaces the Pallas kernel
+# `_rms_norm_pallas_bwd` / `_rms_bwd_kernel` (paddlemix_tpu/ops/norms.py):
+#   dx = rstd * (g*w - xhat * mean(g*w*xhat)),  dw = sum over rows of g*xhat
+# in fp32, dx cast to x's dtype and dw to w's. The TPU kernel carries dw in an
+# output block across its sequential grid; on Hopper the programs run in
+# parallel and in no order, so dw is two launches without atomics (so the sum
+# is deterministic): each program of the first walks a run of rows, writes
+# their dx and one fp32 partial dw row, and the second adds the partial rows
+# column by column. When the weight needs no gradient (LoRA freezes the
+# norms) only dx is made: one program a row, no partials, one launch. Either
+# way the kernel reads x and g once and writes dx once: a few flops a byte,
+# so it is bound by those bytes.
+def rms_norm_backward_ref(x, weight, g, eps: float = 1e-6, need_dw: bool = True):
+    """Plain version (port of `_rms_bwd_kernel`): (dx in x's dtype, dw in the
+    weight's dtype or None), all in fp32."""
+    xf, gf, wf = x.float(), g.float(), weight.float()
+    rstd = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    xhat = xf * rstd
+    dxhat = gf * wf
+    dx = rstd * (dxhat - xhat * (dxhat * xhat).mean(dim=-1, keepdim=True))
+    dw = (gf * xhat).reshape(-1, x.shape[-1]).sum(0).to(weight.dtype) if need_dw else None
+    return dx.to(x.dtype), dw
+
+
+@functools.lru_cache(maxsize=None)
+def _rms_bwd_kernels():
+    global tl
+    import triton
+    import triton.language as tl
+
+    @triton.jit
+    def rms_norm_bwd(x_ptr, w_ptr, g_ptr, dx_ptr, dwp_ptr, rows, H, eps, rows_per_prog,
+                     WANT_DW: tl.constexpr, BLOCK_H: tl.constexpr):
+        pid = tl.program_id(0)
+        cols = tl.arange(0, BLOCK_H)
+        cmask = cols < H
+        w = tl.load(w_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
+        acc = tl.zeros([BLOCK_H], dtype=tl.float32)
+        for i in range(0, rows_per_prog):
+            row = pid * rows_per_prog + i
+            mask = cmask & (row < rows)
+            offs = row.to(tl.int64) * H + cols
+            x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+            g = tl.load(g_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+            rstd = tl.rsqrt(tl.sum(x * x, axis=0) / H + eps)
+            xhat = x * rstd
+            dxhat = g * w
+            dx = rstd * (dxhat - xhat * (tl.sum(dxhat * xhat, axis=0) / H))
+            tl.store(dx_ptr + offs, dx.to(dx_ptr.dtype.element_ty), mask=mask)
+            if WANT_DW:
+                acc += g * xhat
+        if WANT_DW:
+            tl.store(dwp_ptr + pid.to(tl.int64) * H + cols, acc, mask=cmask)
+
+    @triton.jit
+    def rms_norm_dw(dwp_ptr, dw_ptr, n_parts, H, BLOCK_P: tl.constexpr, BLOCK_C: tl.constexpr):
+        cols = tl.program_id(0) * BLOCK_C + tl.arange(0, BLOCK_C)
+        cmask = cols < H
+        acc = tl.zeros([BLOCK_C], dtype=tl.float32)
+        for p0 in range(0, n_parts, BLOCK_P):
+            parts = p0 + tl.arange(0, BLOCK_P)
+            mask = (parts < n_parts)[:, None] & cmask[None, :]
+            acc += tl.sum(tl.load(dwp_ptr + parts.to(tl.int64)[:, None] * H + cols[None, :],
+                                  mask=mask, other=0.0), axis=0)
+        tl.store(dw_ptr + cols, acc.to(dw_ptr.dtype.element_ty), mask=cmask)
+
+    return rms_norm_bwd, rms_norm_dw
+
+
+_RMS_DW_PROGRAMS_PER_SM = 2  # partial dw rows: 2 a multiprocessor (264 on an H100)
+
+
+def _rms_norm_bwd_triton(x, weight, g, eps, need_dw):
+    if not (x.is_contiguous() and g.is_contiguous()) or g.shape != x.shape \
+            or g.device != x.device or x.dtype not in (torch.bfloat16, torch.float16,
+                                                         torch.float32) \
+            or x.shape[-1] > _RMS_MAX_WIDTH:
+        raise ValueError(f"rms_norm backward kernel takes contiguous x and g of one shape, "
+                         f"bf16/fp16/fp32, at most {_RMS_MAX_WIDTH} wide; got x {x.dtype} "
+                         f"{tuple(x.shape)} {x.stride()}, g {g.dtype} {tuple(g.shape)} "
+                         f"{g.stride()} on {g.device}")
+    h = x.shape[-1]
+    if weight.device != x.device or weight.shape != (h,) or not weight.is_contiguous():
+        raise ValueError(f"rms_norm backward: weight must be a contiguous ({h},) tensor on "
+                         f"{x.device}, got {tuple(weight.shape)} on {weight.device}")
+    rows = x.numel() // h
+    block = max(128, 1 << (h - 1).bit_length())
+    warps = min(16, max(1, block // 512))
+    dx = torch.empty_like(x)
+    bwd, dw_sum = _rms_bwd_kernels()
+    with torch.cuda.device(x.device):
+        if not need_dw:
+            bwd[(rows,)](x, weight, g, dx, dx, rows, h, float(eps), 1, WANT_DW=False,
+                         BLOCK_H=block, num_warps=warps)
+            return dx, None
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        per_prog = -(-rows // (_RMS_DW_PROGRAMS_PER_SM * sms))
+        n_parts = -(-rows // per_prog)
+        partial = torch.empty((n_parts, h), dtype=torch.float32, device=x.device)
+        dw = torch.empty_like(weight)
+        bwd[(n_parts,)](x, weight, g, dx, partial, rows, h, float(eps), per_prog, WANT_DW=True,
+                        BLOCK_H=block, num_warps=warps)
+        dw_sum[(-(-h // 128),)](partial, dw, n_parts, h, BLOCK_P=32, BLOCK_C=128, num_warps=4)
+    return dx, dw
+
+
+def rms_norm_backward(x, weight, g, eps: float = 1e-6, need_dw: bool = True):
+    """(dx, dw or None) of `rms_norm` at (x, weight) for the output gradient g
+    (port of `_rms_norm_pallas_bwd`). CUDA tensors launch the Triton kernels
+    (one launch without dw, two with); CPU tensors run
+    `rms_norm_backward_ref`."""
+    if x.is_cuda:
+        out = _rms_norm_bwd_triton(x, weight, g.contiguous(), eps, need_dw)
+        rms_norm_backward.launches += 1
+        return out
+    if x.device.type != "cpu":
+        raise ValueError(f"rms_norm backward: unsupported device {x.device}")
+    return rms_norm_backward_ref(x, weight, g, eps, need_dw)
+
+
+rms_norm_backward.launches = 0  # backward calls that launched the kernels (CUDA tensors only)
 
 
 # ------------------------------------------- adaLN and fused adaLN + residual
@@ -451,22 +615,27 @@ def _row_launch(h):
 
 def adaptive_layer_norm(x, scale, shift, weight=None, bias=None, eps: float = 1e-5):
     """LN(x) * (1 + scale) + shift, x (B, S, H), scale/shift (B, H) (port of
-    `adaptive_layer_norm`, forward). CUDA tensors launch the Triton kernel (B12);
-    CPU tensors run `adaptive_layer_norm_ref`. The output has x's dtype."""
+    `adaptive_layer_norm`). CUDA tensors launch the Triton kernel (B12), whose
+    backward is autograd of the plain version; CPU tensors run
+    `adaptive_layer_norm_ref`. The output has x's dtype."""
     _check_affine("adaptive_layer_norm", weight, bias)
     if not x.is_cuda:
         if x.device.type != "cpu":
             raise ValueError(f"adaptive_layer_norm: unsupported device {x.device}")
         return adaptive_layer_norm_ref(x, scale, shift, eps=eps)
     stride = _check_adaln("adaptive_layer_norm", (x,), (scale, shift))
-    b, s, h = x.shape
-    y = torch.empty_like(x)
-    block, warps = _row_launch(h)
-    with torch.cuda.device(x.device):
-        _adaln_kernels()[0][(b * s,)](x, scale, shift, y, s, h, stride, float(eps),
-                                      BLOCK_H=block, num_warps=warps)
-    adaptive_layer_norm.launches += 1
-    return y
+
+    def run(x, scale, shift):
+        b, s, h = x.shape
+        y = torch.empty_like(x)
+        block, warps = _row_launch(h)
+        with torch.cuda.device(x.device):
+            _adaln_kernels()[0][(b * s,)](x, scale, shift, y, s, h, stride, float(eps),
+                                          BLOCK_H=block, num_warps=warps)
+        adaptive_layer_norm.launches += 1
+        return y
+    return with_plain_backward(run, lambda *a: adaptive_layer_norm_ref(*a, eps=eps),
+                               x, scale, shift)
 
 
 adaptive_layer_norm.launches = 0  # kernel launches (CUDA tensors only)
@@ -475,23 +644,28 @@ adaptive_layer_norm.launches = 0  # kernel launches (CUDA tensors only)
 def fused_adaln_scale_residual(residual, x, gate, scale, shift, weight=None, bias=None,
                                eps: float = 1e-5):
     """resi = residual + gate * x; y = LN(resi) * (1 + scale) + shift; returns
-    (y, resi) (port of `fused_adaln_scale_residual`, forward). CUDA tensors
-    launch the Triton kernel (B13), which writes both in one pass; CPU tensors
-    run `fused_adaln_scale_residual_ref`. Both outputs have x's dtype."""
+    (y, resi) (port of `fused_adaln_scale_residual`). CUDA tensors launch the
+    Triton kernel (B13), which writes both in one pass and whose backward is
+    autograd of the plain version; CPU tensors run
+    `fused_adaln_scale_residual_ref`. Both outputs have x's dtype."""
     _check_affine("fused_adaln_scale_residual", weight, bias)
     if not x.is_cuda:
         if x.device.type != "cpu":
             raise ValueError(f"fused_adaln_scale_residual: unsupported device {x.device}")
         return fused_adaln_scale_residual_ref(residual, x, gate, scale, shift, eps=eps)
     stride = _check_adaln("fused_adaln_scale_residual", (x, residual), (gate, scale, shift))
-    b, s, h = x.shape
-    y, resi = torch.empty_like(x), torch.empty_like(x)
-    block, warps = _row_launch(h)
-    with torch.cuda.device(x.device):
-        _adaln_kernels()[1][(b * s,)](residual, x, gate, scale, shift, y, resi, s, h, stride,
-                                      float(eps), BLOCK_H=block, num_warps=warps)
-    fused_adaln_scale_residual.launches += 1
-    return y, resi
+
+    def run(residual, x, gate, scale, shift):
+        b, s, h = x.shape
+        y, resi = torch.empty_like(x), torch.empty_like(x)
+        block, warps = _row_launch(h)
+        with torch.cuda.device(x.device):
+            _adaln_kernels()[1][(b * s,)](residual, x, gate, scale, shift, y, resi, s, h,
+                                          stride, float(eps), BLOCK_H=block, num_warps=warps)
+        fused_adaln_scale_residual.launches += 1
+        return y, resi
+    return with_plain_backward(run, lambda *a: fused_adaln_scale_residual_ref(*a, eps=eps),
+                               residual, x, gate, scale, shift)
 
 
 fused_adaln_scale_residual.launches = 0  # kernel launches (CUDA tensors only)

@@ -18,6 +18,7 @@ from typing import Optional
 
 import torch
 
+from .autograd import refuse_grad
 from .decode_attention import _KERNEL_GROUPS, _KERNEL_HEAD_DIMS, key_splits
 
 _MASKED = -1e30
@@ -118,6 +119,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
     CPU tensors run `paged_decode_attention_ref`. Returns (B, H, D)."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     if q.is_cuda:
+        refuse_grad("paged_decode_attention", q, k_pool, v_pool)
         return _paged_cuda(q, k_pool, v_pool, block_tables, lengths, scale)
     if q.device.type != "cpu":
         raise ValueError(f"paged_decode_attention: unsupported device {q.device}")

@@ -41,6 +41,7 @@ from typing import List, Optional, Sequence
 import torch
 from torch import nn
 
+from .autograd import refuse_grad
 from .conv_int8 import (
     conv3x3_weight_layout,
     int8_a8w8_matmul,
@@ -283,6 +284,7 @@ def wint8_matmul(x, wq, scale):
     (N, K) int8, x scale (N,) -> (..., N) in x's dtype. CUDA tensors launch
     the kernel; CPU tensors run `wint8_matmul_ref`."""
     if x.is_cuda:
+        refuse_grad("wint8_matmul", x, scale)
         return _wint8_cuda(x, wq, scale)
     if x.device.type != "cpu":
         raise ValueError(f"wint8_matmul: unsupported device {x.device}")

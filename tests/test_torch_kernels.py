@@ -93,19 +93,25 @@ def test_group_norm_ref_rank2_matches_xla(jx):
     _assert_close(ref, out, tol=1e-5)
 
 
-# (q_shape, k_shape, causal): the SDXL-1024 attention calls
-_SDXL_CALLS = {
-    "unet_self_64x64": ((2, 4096, 10, 64), (2, 4096, 10, 64), False),
-    "unet_self_32x32": ((2, 1024, 20, 64), (2, 1024, 20, 64), False),
-    "unet_cross_77": ((2, 4096, 10, 64), (2, 77, 10, 64), False),
-    "vae_mid_d512": ((1, 16384, 1, 512), (1, 16384, 1, 512), False),
-    "clip_causal_77": ((2, 77, 20, 64), (2, 77, 20, 64), True),
+# (q_shape, k_shape, causal, route): the SDXL-1024 attention calls, and one
+# call of each later slice (SD3's joint attention, LLaVA's ViT, the Llama
+# int8-cache prefill, the SFT micro-batch)
+_ROUTED_CALLS = {
+    "unet_self_64x64": ((2, 4096, 10, 64), (2, 4096, 10, 64), False, "flash"),
+    "unet_self_32x32": ((2, 1024, 20, 64), (2, 1024, 20, 64), False, "flash"),
+    "unet_cross_77": ((2, 4096, 10, 64), (2, 77, 10, 64), False, "math"),
+    "vae_mid_d512": ((1, 16384, 1, 512), (1, 16384, 1, 512), False, "math"),
+    "clip_causal_77": ((2, 77, 20, 64), (2, 77, 20, 64), True, "math"),
+    "sd3_joint_4250": ((2, 4250, 24, 64), (2, 4250, 24, 64), False, "flash"),
+    "llava_vit_577": ((1, 577, 16, 64), (1, 577, 16, 64), False, "math"),
+    "llama_prefill_3968": ((1, 3968, 32, 128), (1, 3968, 32, 128), True, "flash"),
+    "llama_sft_2048": ((2, 2048, 32, 128), (2, 2048, 32, 128), True, "flash"),
 }
 
 
-@pytest.mark.parametrize("call", sorted(_SDXL_CALLS))
+@pytest.mark.parametrize("call", sorted(_ROUTED_CALLS))
 def test_routing_rule_matches_jax(jx, pallas_interpret, monkeypatch, call):
-    q_shape, k_shape, causal = _SDXL_CALLS[call]
+    q_shape, k_shape, causal, expected = _ROUTED_CALLS[call]
     taken = []
     monkeypatch.setattr(jx.attn, "flash_attention", lambda q, *a, **kw: taken.append("flash") or q)
     monkeypatch.setattr(jx.attn, "attention_xla", lambda q, *a, **kw: taken.append("math") or q)
@@ -119,7 +125,6 @@ def test_routing_rule_matches_jax(jx, pallas_interpret, monkeypatch, call):
     tk = torch.empty(k_shape, dtype=torch.bfloat16, device="meta")
     tattn.scaled_dot_product_attention(tq, tk, tk, causal=causal)
     assert taken[0] == taken[1], (call, taken)
-    expected = "flash" if call.startswith("unet_self") else "math"
     assert taken[0] == expected
 
 
@@ -133,13 +138,14 @@ def test_cpu_tensors_never_launch_a_kernel():
     assert tnorms.group_norm.launches == 0
 
 
-@pytest.mark.parametrize("option", ["causal", "segment_ids", "return_lse", "int8_qk", "gqa"])
+@pytest.mark.parametrize("option", ["int8_qk"])
 def test_unported_flash_options_raise(option):
+    """int8 QK^T, an inference-only option, is not ported and raises. The
+    options ported since (causal, segment ids, GQA, the lse) are held against
+    the JAX kernels in test_torch_train_kernels.py."""
     q = torch.zeros(1, 128, 2, 64)
-    k = q[:, :, :1] if option == "gqa" else q
-    kwargs = {} if option == "gqa" else {option: True}
     with pytest.raises(NotImplementedError):
-        tattn.flash_attention(q, k, k, **kwargs)
+        tattn.flash_attention(q, q, q, **{option: True})
 
 
 def test_group_norm_rejects_indivisible_channels():
