@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (paddlemix_tpu_torch) on one CUDA card.
 
-Drives five slices at their published widths with weights drawn on the card
+Drives six slices at their published widths with weights drawn on the card
 from a seeded torch.Generator:
 
   - SDXL-1024 text-to-image through StableDiffusionXLPipeline.__call__, in
@@ -22,7 +22,12 @@ from a seeded torch.Generator:
     published recipe configs/llava/lora_sft_7b.json (LoRA r 128 / alpha 256
     on every projection, AdamW at 2e-4, cosine, 100 warmup steps, bf16,
     MixToken packing to 2048) and its cuts (TRAIN_OVERRIDES: 2 rows x 8
-    micro-batches an optimizer step, no checkpoints; 32 micro-batches).
+    micro-batches an optimizer step, no checkpoints; 32 micro-batches);
+  - CLIP ViT-B/16 (the JAX bench's widths = examples/train_clip.py's VITB16,
+    fp32 weights, bf16 compute) at batch 256: the dual-tower bench forward
+    (models.clip.vitb16.pair_logits) and contrastive training through
+    tools.train_clip.build_trainer and Trainer.train (lr 5e-4, cosine,
+    warmup max(steps // 10, 1), clip 1.0; 10 steps, no checkpoints).
 
 Phases:
 
@@ -124,6 +129,35 @@ Phases:
                    seconds a step, tokens/s, model TFLOP/s, busy share, peak
                    memory; every loss and grad_norm finite; launches equal to
                    `expected_launches_train` and no inference kernel launched
+ 22. clip kernels  Llama is freed; LayerNorm (B10) and its backward against
+                   their plain versions at the CLIP path's rows (the vision
+                   tower's 50,432 x 768, the text tower's 19,712 x 512, the
+                   pooled 256 x 768 as a strided slice) and at the other
+                   CLIP-family towers' rows (SDXL's and SD3's text towers 77
+                   x 768 and 77 x 1280, LLaVA's ViT 577 x 1024), gated per element,
+                   with controls that must fail (the variance without the
+                   mean subtracted; dx without its mean(g w) term; dw and db of
+                   the first program's rows alone); times, bounds and library
+                   times (F.layer_norm and its backward)
+ 23. clip          CLIP ViT-B/16 is built; agree (the logits of one seeded
+                   batch of 256, B10 vs plain, held within 1.25x of two plain
+                   versions one bf16 rounding apart); 12 timed bench forwards
+                   (zero pixels, ids all ones, as bench.py): pairs/s median
+                   and spread, model TFLOP/s by the bench's flop count, busy
+                   share of a profiled forward, peak memory, 51 B10 launches a
+                   forward and no other kernel
+ 24. clip train  train agree (one batch, kernels vs plain: the loss within
+                   10x, the gradients' median over all parameters and their
+                   largest gap over the parameters whose gradient stands above
+                   the rounding noise within 1.25x of two plain versions one
+                   rounding apart; controls that must fail: B10 with its row
+                   stride ignored for the loss, B10's dw and db of the first
+                   program's rows alone for the gradients),
+                   then 10 optimizer steps over
+                   2,560 seeded pairs: seconds a step, samples/s, model
+                   TFLOP/s (3x the forward's), reader share, busy share of a
+                   profiled step, peak memory, finite losses, every parameter
+                   moved, 51 B10 and 51 B10-backward launches a step
 
 Any failed check exits non-zero. Without a CUDA card, or outside a checkout
 of the repository, it exits non-zero before printing any result. The line
@@ -852,6 +886,417 @@ def train_flops(model, tokens):
     return 2 * tokens * (2 * (proj + head) + proj) + attn
 
 
+# ---------------------------------------------------------------- CLIP slice
+# CLIP ViT-B/16 at the JAX bench's widths (models/clip/vitb16.py VITB16, the
+# recipe of examples/train_clip.py), batch 256: the rows of B10 (LayerNorm)
+# and its backward on the path: the vision tower's 256 x 197 tokens, the text
+# tower's 256 x 77 and the pooled CLS rows (every 197th row of the tokens, a
+# strided slice). The other CLIP-family towers launch B10 too, at rows of
+# their own: SDXL's and SD3's text towers 77 a prompt at 768 (CLIP-L) and
+# 1280 (bigG, the only width with 2 rows a program), LLaVA's ViT-L/14-336 577
+# at 1024. (rows, width, row stride in rows)
+CLIP_LN_SHAPES = [(50432, 768, 1), (19712, 512, 1), (256, 768, 197), (77, 768, 1),
+                  (77, 1280, 1), (577, 1024, 1)]
+# B10 forward: fp32 math rounded once to bf16 against the fp32 plain version,
+# |out - ref| <= 2**-7 |ref| + LN_SUM |ref|max; the control (variance taken
+# as mean(x^2), the mean not subtracted) must fail it. Backward: dx the same
+# with LN_BWD_SUM; dw and db fp32 sums in another order, within LN_DW_TOL of
+# |ref|max; controls: dx without its mean(g w) term, and dw and db of the
+# first program's rows alone.
+LN_SUM, LN_BWD_SUM, LN_DW_TOL = 1e-6, 1e-5, 1e-4
+CLIP_FORWARDS = 12  # timed bench forwards (after 2 warm-up ones)
+CLIP_TRAIN_STEPS = 10  # optimizer steps of build_trainer -> Trainer.train
+CLIP_TRAIN_SAMPLES = 2560  # seeded (pixels, caption) pairs: one epoch of 10 batches
+# clip train agree, against two plain versions one rounding apart (the pair).
+# The loss is one number, a single draw of the rounding noise that the pair
+# samples once, so its gap is held within CLIP_LOSS_RATIO of the pair's (the
+# kernels read 2.6x on an H100). The gradients are held by TRAIN_AGREE_RATIO:
+# the median gap over every parameter, and the largest over the parameters
+# whose plain gradient stands above the rounding noise, those the pair moves
+# by at most CLIP_SIGNAL_GAP of their norm (the key projections' biases have
+# a true gradient of 0, softmax being blind to a shift common to a row: the
+# pair moves them by more than their norm).
+CLIP_LOSS_RATIO, CLIP_SIGNAL_GAP = 10, 0.5
+
+
+def ln_no_mean(x, w, b, eps):
+    """The forward control: B10 with the variance taken as mean(x^2)."""
+    xf = x.float()
+    y = (xf - xf.mean(-1, keepdim=True)) * (xf * xf).mean(-1, keepdim=True).add(eps).rsqrt()
+    return (y * w.float() + b.float()).to(x.dtype)
+
+
+def ln_stride_ignored(norms):
+    """The loss's control: B10 reading its rows as if they lay one after
+    another, the row stride ignored, so that the pooled x[:, 0] reads the
+    first images' tokens instead of each image's first."""
+    def forward(x, w, b, eps):
+        h = x.shape[-1]
+        rows = x if x.is_contiguous() else x.as_strided((x.numel() // h, h), (h, 1))
+        return norms.layer_norm_ref(rows, w, b, eps).reshape(x.shape)
+    return forward
+
+
+def ln_rounded(x, w, b, eps):
+    """A plain LayerNorm one rounding apart from B10's: the normalised rows
+    rounded to x's dtype before the fp32 affine (flax's LayerNorm under a
+    bf16 dtype rounds there too)."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    xhat = ((xf - mu) * (xf - mu).square().mean(-1, keepdim=True).add(eps).rsqrt()).to(x.dtype)
+    return (xhat.float() * w.float() + b.float()).to(x.dtype)
+
+
+def clip_kernels(torch, F, dev, gen, record, norms):
+    """B10 and its backward against their plain versions at the CLIP path's
+    rows, each gate with its controls; times, bounds and library times
+    (F.layer_norm and its backward, bf16 weight and bias)."""
+    bf16 = torch.bfloat16
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for rows, h, span in CLIP_LN_SHAPES:
+        pooled = span > 1
+        # rows with their own offsets and scales, as a residual stream's; the
+        # pooled rows are every 197th row of a token tensor, as x[:, 0] is
+        base = torch.randn((rows, span, h), generator=gen, device=dev)
+        scale = 0.5 + 2.5 * torch.rand((rows, 1, 1), generator=gen, device=dev)
+        offset = 2 * torch.randn((rows, 1, 1), generator=gen, device=dev)
+        x = (base * scale + offset).to(bf16)[:, 0]
+        del base
+        w = 1 + 0.2 * torch.randn(h, generator=gen, device=dev)
+        b = 0.2 * torch.randn(h, generator=gen, device=dev)
+        g = torch.randn((rows, h), generator=gen, device=dev).to(bf16)
+        shape = (rows, h)
+        y = norms.layer_norm(x, w, b, 1e-5)
+        dx, dw, db = norms.layer_norm_backward(x, w, g, 1e-5)
+        torch.cuda.synchronize()
+        ref = norms.layer_norm_ref(x.float(), w, b, 1e-5)
+        excess, need = ulp_gate(y, ref, LN_SUM)
+        ctrl, _ = ulp_gate(ln_no_mean(x.float(), w, b, 1e-5), ref, LN_SUM)
+        rdx, rdw, rdb = norms.layer_norm_backward_ref(x.float(), w, g.float(), 1e-5)
+        dx_excess, dx_need = ulp_gate(dx, rdx, LN_BWD_SUM)
+        xf, gf = x.float(), g.float()
+        xhat = norms.layer_norm_ref(xf, None, None, 1e-5)
+        rstd = (xf - xf.mean(-1, keepdim=True)).square().mean(-1, keepdim=True).add(1e-5).rsqrt()
+        dxhat = gf * w
+        ctrl_dx, _ = ulp_gate(rstd * (dxhat - xhat * (dxhat * xhat).mean(-1, keepdim=True)), rdx,
+                              LN_BWD_SUM)
+        rel = lambda a, r: ((a - r).abs().max() / r.abs().max()).item()  # noqa: E731
+        dw_err, db_err = rel(dw, rdw), rel(db, rdb)
+        first = norms._ln_bwd_split(rows, h, sms)[1]
+        cdw, cdb = norms.layer_norm_backward_ref(xf[:first], w, gf[:first], 1e-5)[1:]
+        ctrl_dwdb = min(rel(cdw, rdw), rel(cdb, rdb))
+        print(f"[clip kernels] layer_norm {shape}{' (pooled rows, a strided slice)' if pooled else ''}"
+              f" bf16: excess {excess:.3e} (least c {need:.2e}, c {LN_SUM}); control, the "
+              f"variance without the mean subtracted: excess {ctrl:.3e} (must be > 0)", flush=True)
+        print(f"[clip kernels] layer_norm_backward {shape}: dx excess {dx_excess:.3e} (least c "
+              f"{dx_need:.2e}, c {LN_BWD_SUM}); dw / db max err {dw_err:.3e} / {db_err:.3e} "
+              f"|ref|max (tol {LN_DW_TOL}); controls: dx without mean(g w) excess {ctrl_dx:.3e} "
+              f"(must be > 0), dw / db of the first program's {first} rows alone {ctrl_dwdb:.3e} "
+              f"(must be > tol)", flush=True)
+        check(bool(torch.isfinite(y).all()) and excess <= 0, f"layer_norm {shape}: {excess}")
+        check(ctrl > 0, f"layer_norm {shape}: the control passes ({ctrl})")
+        check(bool(torch.isfinite(dx).all()) and dx_excess <= 0 and max(dw_err, db_err) <= LN_DW_TOL,
+              f"layer_norm_backward {shape}: dx {dx_excess}, dw {dw_err}, db {db_err}")
+        check(ctrl_dx > 0 and ctrl_dwdb > LN_DW_TOL,
+              f"layer_norm_backward {shape}: a control passes ({ctrl_dx}, {ctrl_dwdb})")
+        w16, b16 = w.to(bf16), b.to(bf16)
+        ms, plain_ms = timed_pair(torch, cold(lambda x_: norms.layer_norm(x_, w, b, 1e-5), x,
+                                              nbytes(x)),
+                                  cold(lambda x_: norms.layer_norm_ref(x_, w, b, 1e-5), x,
+                                       nbytes(x)))
+        lib_ms = library_ms(torch, cold(lambda x_: F.layer_norm(x_, (h,), w16, b16, 1e-5), x,
+                                        nbytes(x)))
+        record("clip kernels", "layer_norm", shape, (y.float() - ref).abs().max().item(), ms,
+               plain_ms, lib_ms, bound(nbytes(x, w, b, y), 8 * x.numel(), "fp32"),
+               " | library: F.layer_norm, bf16 weight and bias")
+        ms, plain_ms = timed_pair(torch, lambda: norms.layer_norm_backward(x, w, g, 1e-5),
+                                  lambda: norms.layer_norm_backward_ref(x, w, g, 1e-5))
+        lib_ms = sum(backward_ms(
+            torch, lambda *t: F.layer_norm(t[0], (h,), t[1], t[2], 1e-5),
+            tuple(t.detach().clone().requires_grad_() for t in (x, w16, b16)), g)
+            for _ in range(2)) / 2
+        record("clip kernels", "layer_norm_backward", shape,
+               (dx.float() - rdx).abs().max().item(), ms, plain_ms, lib_ms,
+               bound(nbytes(x, w, g, dx, dw, db), 14 * x.numel(), "fp32"),
+               " | library: the backward of F.layer_norm (x, weight, bias; graph-captured)")
+        del x, g, y, dx, ref, rdx, xf, gf, xhat, dxhat
+    torch.cuda.empty_cache()
+
+
+def clip_slice(torch, np, dev, m, counters):
+    """clip and clip train (see the module docstring): the bench forward of
+    CLIP ViT-B/16 at batch 256 and its training by the example's recipe.
+    `counters` are every kernel wrapper's, by name: the path must launch B10
+    and its backward as the walk says, and nothing else. Returns the
+    launches of each phase and its numbers."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddlemix_tpu_torch.models.clip import clip_contrastive_loss
+    from paddlemix_tpu_torch.models.clip.vitb16 import (
+        BENCH_BATCH,
+        bench_inputs,
+        expected_launches_clip,
+        forward_flops,
+        pair_logits,
+        random_clip,
+        seeded_inputs,
+    )
+    from paddlemix_tpu_torch.tools import train_clip
+
+    bf16 = torch.bfloat16
+    norms = m.norms
+
+    def launches():
+        return {name: fn.launches for name, fn in counters.items()}
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def walk(**kw):
+        want = expected_launches_clip(model, **kw)
+        return {name: want.get(name, 0) for name in counters}
+
+    t0 = time.perf_counter()
+    model = random_clip(dev, seed=0)
+    # norms as a trained model holds them, not the init's weight 1 / bias 0,
+    # whose affine is exact in bf16 (the agree's rounding pair needs one)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "norm" in name:
+                p.copy_(torch.randn(p.shape, generator=gen, device=dev) * 0.1
+                        + name.endswith("weight"))
+    torch.cuda.synchronize()
+    cfg = model.config
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[clip] CLIP ViT-B/16 built in {time.perf_counter() - t0:.1f} s: {n_params} fp32 "
+          f"parameters, bf16 compute", flush=True)
+
+    # ------------------------------------------------- clip: agree, then serve
+    plain = [(norms, "_ln_forward", norms.layer_norm_ref),
+             (norms, "layer_norm_backward", norms.layer_norm_backward_ref)]
+    rounded = [(norms, "_ln_forward", ln_rounded)] + plain[1:]
+    px, ids = seeded_inputs(cfg, BENCH_BATCH, seed=1, device=dev)
+
+    def logits(swaps=()):
+        with torch.inference_mode(), swapped(swaps):
+            return pair_logits(model, px.to(bf16), ids)
+
+    zero()
+    lk = logits()
+    torch.cuda.synchronize()
+    got = launches()
+    lp, lr = logits(plain), logits(rounded)
+    gap, floor = rel_l2(lk, lp), rel_l2(lr, lp)
+    print(f"[clip agree] full-width ViT-B/16 forward at batch {BENCH_BATCH} (seeded pixels, ids "
+          f"ending in eos), logits {tuple(lk.shape)} {lk.dtype}: relative L2 kernels vs plain "
+          f"{gap:.3e}; two plain versions one rounding apart (the normalised rows rounded to bf16 "
+          f"before the affine) {floor:.3e} (ratio tol {TRAIN_AGREE_RATIO}); |logits| max "
+          f"{lp.abs().max().item():.3f}; launches {got}", flush=True)
+    check(lk.shape == (BENCH_BATCH, BENCH_BATCH) and lk.dtype == torch.float32
+          and bool(torch.isfinite(lk).all()), f"clip agree: logits {lk.shape} {lk.dtype}")
+    check(gap <= TRAIN_AGREE_RATIO * floor, f"clip agree: kernels vs plain {gap} against {floor}")
+    check(got == walk(forwards=1), f"clip agree: launches {got} != {walk(forwards=1)}")
+    del lk, lp, lr
+
+    pxb, idsb = bench_inputs(cfg, BENCH_BATCH, dev)
+    flops = forward_flops(cfg, BENCH_BATCH)
+    with torch.inference_mode():
+        for _ in range(2):
+            pair_logits(model, pxb, idsb)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero()
+        seconds = []
+        for _ in range(CLIP_FORWARDS):
+            t0 = time.perf_counter()
+            out = pair_logits(model, pxb, idsb)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        got = launches()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t_prof = time.perf_counter()
+            pair_logits(model, pxb, idsb)
+            torch.cuda.synchronize()
+            t_prof = time.perf_counter() - t_prof
+    by_kernel = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                        for e in prof.key_averages() if e.self_device_time_total > 0),
+                       reverse=True)
+    device_ms = sum(ms_ for ms_, _, _ in by_kernel)
+    pairs = sorted(BENCH_BATCH / s for s in seconds)
+    s_med = sorted(seconds)[len(seconds) // 2]
+    tflops = flops / s_med / 1e12
+    print(f"[clip] {CLIP_FORWARDS} bench forwards at batch {BENCH_BATCH} (zero pixels, ids all "
+          f"ones, as bench.py): seconds {[round(s, 4) for s in seconds]}; pairs/s median "
+          f"{BENCH_BATCH / s_med:.1f}, spread {pairs[0]:.1f}-{pairs[-1]:.1f}; {tflops:.1f} model "
+          f"TFLOP/s ({flops:.4e} flops a forward), {100 * tflops / 989:.1f}% of 989; profiled "
+          f"forward {1e3 * t_prof:.2f} ms with {device_ms:.2f} ms of device time: busy "
+          f"{100 * device_ms / 1e3 / t_prof:.1f}%; peak memory {peak:.2f} GiB; logits "
+          f"{tuple(out.shape)} {out.dtype} finite {bool(torch.isfinite(out).all())}; launches {got}",
+          flush=True)
+    for ms_, n_, key in by_kernel[:10]:
+        print(f"[clip]   profiled forward: {ms_:8.2f} ms {100 * ms_ / device_ms:5.1f}% {n_:5d}x "
+              f"{key[:100]}", flush=True)
+    check(out.shape == (BENCH_BATCH, BENCH_BATCH) and bool(torch.isfinite(out).all()),
+          "clip: bench logits not finite")
+    check(got == walk(forwards=CLIP_FORWARDS), f"clip: launches {got} != "
+          f"{walk(forwards=CLIP_FORWARDS)}")
+    clip_stats = dict(pairs_per_s=BENCH_BATCH / s_med, pairs_min=pairs[0], pairs_max=pairs[-1],
+                      tflops=tflops, busy=device_ms / 1e3 / t_prof, peak_gib=peak)
+    launches_clip = got
+    del out, pxb, idsb
+
+    # ------------------------------------------------------ clip train: agree
+    loss_fn = train_clip.clip_loss_fn(model)
+    params = [p for p in model.parameters() if p.requires_grad]
+    batch = {"pixel_values": px, "input_ids": ids}
+
+    def loss_and_grads(swaps=()):
+        with swapped(swaps):
+            loss = loss_fn(None, batch, None)[0]
+            grads = torch.autograd.grad(loss, params)
+        return loss.detach().float(), grads
+
+    def first_rows_backward(x, w, g, eps):
+        """The gradients' control: B10's backward with dw and db of the first
+        program's rows alone (a column sum that kept one partial)."""
+        h = x.shape[-1]
+        x2, g2 = x.reshape(-1, h), g.reshape(-1, h)
+        first = norms._ln_bwd_split(x2.shape[0], h, sms)[1]
+        dx = norms.layer_norm_backward_ref(x, w, g, eps)[0]
+        return (dx,) + norms.layer_norm_backward_ref(x2[:first], w, g2[:first], eps)[1:]
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    zero()
+    loss_k, grads_k = loss_and_grads()
+    torch.cuda.synchronize()
+    got = launches()
+    loss_p, grads_p = loss_and_grads(plain)
+    loss_r, grads_r = loss_and_grads(rounded)
+    loss_c, grads_c = loss_and_grads([(norms, "_ln_forward", norms.layer_norm_ref),
+                                      (norms, "layer_norm_backward", first_rows_backward)])
+    with torch.no_grad(), swapped([(norms, "_ln_forward", ln_stride_ignored(norms))]):
+        loss_st = loss_fn(None, batch, None)[0].float()
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    gaps = {key: [rel_l2(a.float(), b.float()) for a, b in zip(grads, grads_p)]
+            for key, grads in (("kernels", grads_k), ("pair", grads_r), ("control", grads_c))}
+    signal = [i for i, gap_ in enumerate(gaps["pair"]) if gap_ <= CLIP_SIGNAL_GAP]
+
+    def median_max(key):
+        return (sorted(gaps[key])[len(names) // 2], max(gaps[key][i] for i in signal))
+
+    (k_med, k_max), (r_med, r_max), (c_med, c_max) = map(median_max, ("kernels", "pair", "control"))
+    rel_loss = lambda loss: abs(loss - loss_p).item() / abs(loss_p).item()  # noqa: E731
+    loss_gap, loss_pair, loss_ctrl = rel_loss(loss_k), rel_loss(loss_r), rel_loss(loss_st)
+    noise = sorted((gaps["pair"][i], names[i]) for i in range(len(names)) if i not in signal)
+    pair_q = sorted(gaps["pair"])
+    quantiles = [f"{pair_q[int(q * (len(names) - 1))]:.3e}" for q in (0.1, 0.5, 0.9, 0.99)]
+    worst = max(signal, key=lambda i: gaps["kernels"][i])
+    print(f"[clip train agree] {len(signal)} of {len(names)} parameters carry signal (the pair "
+          f"moves them by at most {CLIP_SIGNAL_GAP} of their norm; the pair's gaps at the "
+          f"10/50/90/99th percentile {quantiles}); left out, rounding noise alone: {len(noise)}, "
+          f"{[f'{n_} {g_:.3f}' for g_, n_ in noise]}; the kernels' largest gap among the rest: "
+          f"{names[worst]} {gaps['kernels'][worst]:.3e} (the pair "
+          f"{gaps['pair'][worst]:.3e})", flush=True)
+    print(f"[clip train agree] full-width ViT-B/16, one batch of {BENCH_BATCH}, kernels vs plain: "
+          f"loss {loss_k.item():.6f} vs {loss_p.item():.6f} (relative {loss_gap:.3e}; the plain "
+          f"versions one rounding apart {loss_pair:.3e}, ratio tol {CLIP_LOSS_RATIO}); relative L2 "
+          f"of the parameters' gradients, median of all {len(names)} / max of the {len(signal)} "
+          f"with signal: kernels vs plain {k_med:.3e} / {k_max:.3e}, the plain versions one "
+          f"rounding apart {r_med:.3e} / {r_max:.3e} (ratio tol {TRAIN_AGREE_RATIO}); controls: "
+          f"the loss with B10's row stride ignored (the pooled rows read the first images' "
+          f"tokens) {loss_ctrl:.3e} (must be > "
+          f"{CLIP_LOSS_RATIO * loss_pair:.3e}), the gradients with B10's dw and db of the first "
+          f"program's rows alone {c_med:.3e} / {c_max:.3e} (must fail); launches {got}",
+          flush=True)
+    check(bool(torch.isfinite(loss_k)) and loss_gap <= CLIP_LOSS_RATIO * loss_pair
+          and k_med <= TRAIN_AGREE_RATIO * r_med and k_max <= TRAIN_AGREE_RATIO * r_max,
+          f"clip train agree: loss {loss_gap} against {loss_pair}, grads {k_med} / {k_max} "
+          f"against {r_med} / {r_max}")
+    check(loss_ctrl > CLIP_LOSS_RATIO * loss_pair,
+          f"clip train agree: the loss control passes ({loss_ctrl})")
+    check(c_med > TRAIN_AGREE_RATIO * r_med or c_max > TRAIN_AGREE_RATIO * r_max,
+          f"clip train agree: the gradients' control passes ({c_med} / {c_max})")
+    check(got == walk(forwards=1, backwards=1), f"clip train agree: launches {got}")
+    del grads_k, grads_p, grads_r, grads_c, px, ids, batch
+
+    # ------------------------------------------------------ clip train: steps
+    rng = np.random.default_rng(0)
+    size = cfg.vision.image_size
+    t0 = time.perf_counter()
+    pixels = rng.standard_normal((CLIP_TRAIN_SAMPLES, size, size, 3), dtype=np.float32)
+    words = [f"w{i}" for i in range(4096)]
+    items = [(pixels[i], " ".join(rng.choice(words, rng.integers(3, 40))))
+             for i in range(CLIP_TRAIN_SAMPLES)]
+    trainer = train_clip.build_trainer(model, train_clip.ImageTextDataset(
+        items, train_clip._hash_tokenize), BENCH_BATCH, CLIP_TRAIN_STEPS)
+    print(f"[clip train] {CLIP_TRAIN_SAMPLES} seeded (pixels, caption) pairs in "
+          f"{time.perf_counter() - t0:.1f} s; build_trainer: {len(trainer.train_dataloader)} "
+          f"batches of {BENCH_BATCH} an epoch, lr {trainer.args.learning_rate}, warmup "
+          f"{trainer.args.warmup_steps}, {trainer.args.lr_scheduler_type}, {CLIP_TRAIN_STEPS} "
+          f"steps, prefetch depth {trainer.args.prefetch_depth}", flush=True)
+    before = [p.detach().clone() for p in params]
+    # the callbacks run every step (the recipe logs every 10th): one of them
+    # steps the profiler, whose one active window is step CLIP_TRAIN_STEPS - 1
+    trainer.args.logging_steps = 1
+    profiled = CLIP_TRAIN_STEPS - 1
+    zero()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA], schedule=torch.profiler.schedule(
+            wait=profiled - 2, warmup=1, active=1, repeat=1)) as prof:
+        trainer.callbacks.append(lambda step, metrics: prof.step())
+        trainer.train()
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    got = launches()
+    want = walk(forwards=CLIP_TRAIN_STEPS, backwards=CLIP_TRAIN_STEPS)
+    by_kernel = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                        for e in prof.key_averages() if e.self_device_time_total > 0),
+                       reverse=True)
+    device_ms = sum(ms_ for ms_, _, _ in by_kernel)
+    hist = trainer.history
+    ends = [t_start] + [h["time"] for h in hist]
+    step_s = [b_ - a_ for a_, b_ in zip(ends, ends[1:])]
+    t_prof = step_s[profiled - 1]
+    # the steady steps: not the first (the loader's start), not the profiled one
+    middle = [i for i in range(1, len(hist)) if i != profiled - 1]
+    s_step = sorted(step_s[i] for i in middle)[len(middle) // 2]
+    reader = sorted(hist[i]["reader"] for i in middle)[len(middle) // 2]
+    losses = torch.stack([h["loss"] for h in hist]).float()
+    gnorms = torch.stack([h["grad_norm"] for h in hist]).float()
+    moved = sum(not torch.equal(a_, p.detach()) for a_, p in zip(before, params))
+    tflops = 3 * flops / s_step / 1e12
+    print(f"[clip train] {len(hist)} optimizer steps of {BENCH_BATCH} pairs: seconds a step "
+          f"{[round(t, 4) for t in step_s]} (step {profiled} under the profiler); median of the "
+          f"others but the first {s_step:.4f} s -> {BENCH_BATCH / s_step:.1f} samples/s, {tflops:.1f} model TFLOP/s "
+          f"(3 x {flops:.4e} flops a step), {100 * tflops / 989:.1f}% of 989; reader: median "
+          f"{1e3 * reader:.2f} ms a step, {100 * reader / s_step:.2f}% of it; profiled step "
+          f"{profiled} {t_prof:.4f} s with {device_ms:.1f} ms of device time: busy "
+          f"{100 * device_ms / 1e3 / t_prof:.1f}%; peak memory {peak:.2f} GiB", flush=True)
+    for ms_, n_, key in by_kernel[:12]:
+        print(f"[clip train]   profiled step: {ms_:8.2f} ms {100 * ms_ / device_ms:5.1f}% "
+              f"{n_:5d}x {key[:100]}", flush=True)
+    print(f"[clip train] losses {[round(x, 4) for x in losses.tolist()]}; grad_norm "
+          f"{[round(x, 3) for x in gnorms.tolist()]}; {moved} of {len(params)} parameter "
+          f"tensors moved; launches {got} (walk: {want})", flush=True)
+    check(len(hist) == CLIP_TRAIN_STEPS and bool(torch.isfinite(losses).all()
+                                                  and torch.isfinite(gnorms).all()),
+          "clip train: a loss or grad_norm is not finite")
+    check(moved == len(params), f"clip train: {len(params) - moved} parameter tensors did not "
+          f"move")
+    check(got == want, f"clip train: launches {got} != expected {want}")
+    del trainer, model, before, params, items, pixels
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_stats = dict(step_s=s_step, samples_per_s=BENCH_BATCH / s_step, tflops=tflops,
+                       reader_share=reader / s_step, busy=device_ms / 1e3 / t_prof, peak_gib=peak)
+    return launches_clip, got, clip_stats, train_stats
+
+
 def main():
     import types
 
@@ -1093,6 +1538,7 @@ def main():
     # ----------------------------------------------------------------- serve
     counters = {"flash_attention": attn_mod.flash_attention, "group_norm": norms_mod.group_norm,
                 "group_norm_stats": norms_mod.group_norm_stats,
+                "layer_norm": norms_mod.layer_norm,
                 "int8_a8w8_matmul": conv_int8_mod.int8_a8w8_matmul,
                 "int8_conv3x3_same": conv_int8_mod.int8_conv3x3_same,
                 "fused_gn_silu_conv3x3": fused_mod.fused_gn_silu_conv3x3}
@@ -1301,7 +1747,8 @@ def main():
 
     def llava_agree(label, wint8):
         swaps = [(llama_mod, "rms_norm", norms_mod.rms_norm_ref),
-                 (llama_mod, "decode_attention", da_mod.decode_attention_ref)]
+                 (llama_mod, "decode_attention", da_mod.decode_attention_ref),
+                 (norms_mod, "_ln_forward", norms_mod.layer_norm_ref)]  # the ViT's B10
         if wint8:
             swaps.append((llama_mod, "wint8_matmul", quant_mod.wint8_matmul_ref))
         pre_k, dec_k, toks = llava_steps()
@@ -1319,7 +1766,8 @@ def main():
 
     llava_counters = {"rms_norm": norms_mod.rms_norm, "decode_attention": da_mod.decode_attention,
                       "wint8_matmul": quant_mod.wint8_matmul,
-                      "flash_attention": attn_mod.flash_attention}
+                      "flash_attention": attn_mod.flash_attention,
+                      "layer_norm": norms_mod.layer_norm}
 
     def llava_serve(label):
         """The bench's requests: TTFT is a 1-token generate, then the full
@@ -1854,6 +2302,17 @@ def main():
     torch.cuda.empty_cache()
     launches_tr, train_stats = train_slice(torch, F, np, dev, tmods)
 
+    # ------------------------------------------------------------ CLIP slice
+    gc.collect()
+    torch.cuda.empty_cache()
+    clip_kernels(torch, F, dev, gen, record, norms_mod)
+    every = dict(all_counters, rms_norm_backward=norms_mod.rms_norm_backward,
+                 flash_fwd_lse=attn_mod.flash_fwd_lse, flash_bwd_dkv=attn_mod.flash_bwd_dkv,
+                 flash_bwd_dq=attn_mod.flash_bwd_dq,
+                 layer_norm_backward=norms_mod.layer_norm_backward)
+    launches_clip, launches_clip_tr, clip_stats, clip_train_stats = clip_slice(
+        torch, np, dev, tmods, every)
+
     # --------------------------------------------------------------- summary
     def entry(name, route, source, replaces, by_phase):
         # ms / plain_ms / library_ms / bound at the first shape listed;
@@ -1915,6 +2374,15 @@ def main():
               "paddlemix_tpu/ops/attention.py:422", {"train": launches_tr["flash_bwd_dq"]}),
         entry("rms_norm_backward", "triton", "paddlemix_tpu_torch/ops/norms.py",
               "paddlemix_tpu/ops/norms.py:172", {"train": launches_tr["rms_norm_backward"]}),
+        entry("layer_norm", "triton", "paddlemix_tpu_torch/ops/norms.py",
+              "paddlemix_tpu/ops/norms.py:204",
+              {"bf16": launches_bf16["layer_norm"], "a8w8": launches_a8w8["layer_norm"],
+               "llava_bf16": launches_llava["layer_norm"],
+               "llava_wint8": launches_wint8["layer_norm"], "sd3": launches_sd3["layer_norm"],
+               "clip": launches_clip["layer_norm"], "clip_train": launches_clip_tr["layer_norm"]}),
+        entry("layer_norm_backward", "triton", "paddlemix_tpu_torch/ops/norms.py",
+              "paddlemix_tpu/ops/norms.py:226",
+              {"clip_train": launches_clip_tr["layer_norm_backward"]}),
     ]
     by_name = {k["name"]: k for k in kernels}
     by_name["rms_norm"]["launches_by_phase"]["train"] = launches_tr["rms_norm"]
@@ -1924,7 +2392,9 @@ def main():
     # GroupNorm; both LLaVA configurations run decode attention and RMSNorm,
     # wint8 also the wint8 GEMM; SD3 runs flash, GroupNorm, RMSNorm and both
     # adaLN kernels; the Llama requests run RMSNorm and the decode attention
-    # of their cache: B8, B7 or B9 (and, checked per request above, no other)
+    # of their cache: B8, B7 or B9 (and, checked per request above, no other);
+    # the CLIP towers of SDXL, LLaVA and SD3 run B10, and the CLIP phases B10
+    # and (training) its backward, and nothing else
     must_run = [(k["name"], "a8w8") for k in kernels[:5]] + \
         [("flash_attention", "bf16"), ("group_norm", "bf16")] + \
         [(name, phase) for name in ("decode_attention", "rms_norm")
@@ -1935,13 +2405,17 @@ def main():
         [("decode_attention_int8", "llama_int8kv"), ("decode_attention", "llama_bf16kv"),
          ("paged_decode_attention", "llama_paged")] + \
         [(name, "train") for name in ("rms_norm", "flash_fwd_lse", "flash_bwd_dkv",
-                                      "flash_bwd_dq", "rms_norm_backward")]
+                                      "flash_bwd_dq", "rms_norm_backward")] + \
+        [("layer_norm", phase) for phase in ("bf16", "a8w8", "llava_bf16", "llava_wint8", "sd3",
+                                             "clip", "clip_train")] + \
+        [("layer_norm_backward", "clip_train")]
     idle = [(name, phase) for name, phase in must_run
             if by_name[name]["launches_by_phase"][phase] == 0]
     check(not idle, f"kernels never launched by the requests: {idle}")
     check(launches_llava["wint8_matmul"] == 0 and launches_llava["flash_attention"] == 0
           and launches_wint8["flash_attention"] == 0, "LLaVA launched a kernel off its path")
     print(f"[summary] training: {train_stats}", flush=True)
+    print(f"[summary] clip: {clip_stats}; clip train: {clip_train_stats}", flush=True)
     print(f"[summary] chip_smoke ran {time.perf_counter() - T_START:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

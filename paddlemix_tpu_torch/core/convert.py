@@ -40,7 +40,10 @@ VAE_KEY_MAP: KeyMap = (
     (r"\.weight$", r".kernel"),
 )
 
-# paddlemix_tpu/models/clip/modeling.py _CLIP_KEY_MAP
+# paddlemix_tpu/models/clip/modeling.py _CLIP_KEY_MAP. It serves the towers
+# alone and the dual tower (`CLIPModel`): its `visual_projection.weight` and
+# `text_projection.weight` become the flax Dense kernels (transposed by
+# `_to_torch_layout`), and the 0-d `logit_scale` keeps its name
 CLIP_KEY_MAP: KeyMap = (
     (r"^text_model\.embeddings\.token_embedding\.weight$", r"text_model.token_embedding.embedding"),
     (r"^text_model\.embeddings\.position_embedding\.weight$", r"text_model.position_embedding"),

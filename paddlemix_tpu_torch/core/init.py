@@ -4,7 +4,8 @@ Real checkpoints are not used: weights are random and made from a seed. The
 JAX bench fills every weight with 0.02; here dense and conv weights are
 fan-in-scaled normals (std 1/sqrt(fan_in)) so that activations keep their
 scale through many blocks, norms start at weight 1 / bias 0, biases at 0,
-and embedding tables and embedding vectors (CLIP's class embedding) at std 1.
+embedding tables and embedding vectors (CLIP's class embedding) at std 1,
+and CLIP's logit scale at its config's initial value.
 """
 
 from __future__ import annotations
@@ -34,6 +35,8 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> nn.Module:
                     p.zero_()
                 elif name.endswith("embedding"):
                     p.normal_(0.0, 1.0, generator=generator)
+                elif name == "logit_scale":  # CLIPModel's, as its config starts it
+                    p.fill_(m.config.logit_scale_init_value)
                 else:
                     raise ValueError(f"no init rule for parameter {name} of {type(m).__name__}")
     return module

@@ -33,6 +33,7 @@ from ..core.convert import (
 from ..core.init import build_random
 from ..models.clip import CLIPTextConfig, CLIPTextModelWithProjection, CLIPTokenizer
 from ..models.clip.tokenizer import byte_level_tokenizer
+from ..models.layers import n_layer_norms
 from ..models.t5 import T5Config, T5EncoderModel, T5LayerNorm
 from ..ops.attention import use_flash
 from .models import AutoencoderKL, AutoencoderKLConfig, SD3Transformer2DModel, SD3TransformerConfig
@@ -115,9 +116,9 @@ def expected_launches_sd3(pipe: StableDiffusion3Pipeline, height: int, width: in
     adaLN+residual (B13) calls, else one; `norm_out` is one more adaLN. Every
     attention is routed by `use_flash` at the shape it will see: the joint
     attention over image + CLIP + T5 tokens, the causal CLIP towers, T5's
-    (which has a bias, so math) and the VAE's. T5's RMSNorms (B11) run once
-    for the prompt and once for the negative prompt; the VAE decoder's
-    GroupNorms (B4) once."""
+    (which has a bias, so math) and the VAE's. T5's RMSNorms (B11) and the
+    CLIP towers' LayerNorms (B10) run once for the prompt and once for the
+    negative prompt; the VAE decoder's GroupNorms (B4) once."""
     f = pipe.vae_scale_factor
     rows = 2 if guidance_scale > 1.0 else 1
     tr = pipe.transformer
@@ -136,6 +137,8 @@ def expected_launches_sd3(pipe: StableDiffusion3Pipeline, height: int, width: in
     # the prompt and the negative prompt are encoded apart
     out["flash_attention"] += sum(2 * enc.text_model.flash_launches(text_len)
                                   for enc in (pipe.text_encoder, pipe.text_encoder_2))
+    out["layer_norm"] += sum(2 * n_layer_norms(enc)
+                             for enc in (pipe.text_encoder, pipe.text_encoder_2))
     out["flash_attention"] += pipe.vae.decode_flash_launches(height // f, width // f)
     out["group_norm"] += n_group_norms(pipe.vae.decoder)
     if pipe.text_encoder_3 is not None:

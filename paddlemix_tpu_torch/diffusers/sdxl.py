@@ -27,6 +27,7 @@ from ..models.clip import (
     CLIPTokenizer,
 )
 from ..models.clip.tokenizer import byte_level_tokenizer
+from ..models.layers import n_layer_norms
 from ..ops.attention import use_flash
 from ..ops.quant import (
     QuantConv2d,
@@ -161,10 +162,11 @@ def expected_launches(pipe: StableDiffusionXLPipeline, height: int, width: int,
                       num_inference_steps: int, guidance_scale: float = 5.0) -> Dict[str, int]:
     """Kernel launches one single-prompt pipeline call should make, from
     walking the blocks: every attention call is routed by `use_flash` at the
-    shape it will see, and every GroupNorm module runs once per forward.
-    Once scales are loaded, the a8w8 ops are counted by `a8w8_routes`, keyed
-    by wrapper name, and the resnets' GroupNorms become statistics launches
-    (`group_norm_stats`)."""
+    shape it will see, every GroupNorm module runs once per forward, and
+    every LayerNorm of the two text towers (B10) once for the prompt and
+    once for the negative prompt. Once scales are loaded, the a8w8 ops are
+    counted by `a8w8_routes`, keyed by wrapper name, and the resnets'
+    GroupNorms become statistics launches (`group_norm_stats`)."""
     f = pipe.vae_scale_factor
     rows = 2 if guidance_scale > 1.0 else 1
     text_len = pipe.tokenizer.model_max_length
@@ -181,11 +183,12 @@ def expected_launches(pipe: StableDiffusionXLPipeline, height: int, width: int,
     # the prompt and the negative prompt are encoded apart
     flash += sum(2 * enc.text_model.flash_launches(text_len)
                  for enc in (pipe.text_encoder, pipe.text_encoder_2))
+    ln = sum(2 * n_layer_norms(enc) for enc in (pipe.text_encoder, pipe.text_encoder_2))
 
     if not any(m.sx is not None for m in quant_modules(pipe.unet) + quant_modules(pipe.vae)):
         gn = n_group_norms(pipe.unet) * num_inference_steps + n_group_norms(pipe.vae.decoder)
-        return {"flash_attention": flash, "group_norm": gn}
-    out = Counter({"flash_attention": flash})
+        return {"flash_attention": flash, "group_norm": gn, "layer_norm": ln}
+    out = Counter({"flash_attention": flash, "layer_norm": ln})
     for model, calls in ((pipe.unet, num_inference_steps), (pipe.vae.decoder, 1)):
         routes = a8w8_routes(model)
         routes["group_norm"] = n_group_norms(model) - routes["group_norm_stats"]

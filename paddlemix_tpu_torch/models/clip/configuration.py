@@ -1,8 +1,10 @@
-"""CLIP text and vision configs (port of paddlemix_tpu/models/clip/configuration.py)."""
+"""CLIP text, vision and dual-tower configs (port of
+paddlemix_tpu/models/clip/configuration.py)."""
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Dict, Optional
 
 
 @dataclasses.dataclass
@@ -38,3 +40,37 @@ class CLIPVisionConfig:
         if not self.use_pre_layernorm or self.post_layernorm_full:
             raise NotImplementedError("CLIPVisionConfig: only the pre-LN tower with the "
                                       "post-LN on CLS (CLIP, LLaVA) is ported")
+
+
+def _from_dict(cls, data: Dict[str, Any]):
+    """`cls` from the keys of `data` it has fields for (the JAX BaseConfig's
+    from_dict keeps other keys aside)."""
+    names = {f.name for f in dataclasses.fields(cls)}
+    return cls(**{k: v for k, v in data.items() if k in names})
+
+
+@dataclasses.dataclass
+class CLIPConfig:
+    """The dual tower: the towers' configs as dicts, the shared projection
+    width (which overrides the towers' own) and the initial logit scale."""
+
+    text_config: Optional[Dict[str, Any]] = None
+    vision_config: Optional[Dict[str, Any]] = None
+    projection_dim: int = 512
+    logit_scale_init_value: float = 2.6592
+
+    def __post_init__(self):
+        if self.text_config is None:
+            self.text_config = {}
+        if self.vision_config is None:
+            self.vision_config = {}
+
+    @property
+    def text(self) -> CLIPTextConfig:
+        return _from_dict(CLIPTextConfig,
+                          dict(self.text_config, projection_dim=self.projection_dim))
+
+    @property
+    def vision(self) -> CLIPVisionConfig:
+        return _from_dict(CLIPVisionConfig,
+                          dict(self.vision_config, projection_dim=self.projection_dim))

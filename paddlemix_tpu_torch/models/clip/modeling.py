@@ -1,23 +1,32 @@
-"""CLIP text towers and the vision tower (port of
-paddlemix_tpu/models/clip/modeling.py: CLIPTextTransformer and
-CLIPVisionTransformer).
+"""CLIP text towers, the vision tower and the dual tower with its
+contrastive loss (port of paddlemix_tpu/models/clip/modeling.py:
+CLIPTextTransformer, CLIPVisionTransformer, CLIPModule, clip_contrastive_loss).
 
 Module names follow HF transformers (text_model.embeddings.token_embedding,
 text_model.encoder.layers.N, text_model.final_layer_norm, text_projection;
-vision_model.embeddings.patch_embedding, vision_model.pre_layrnorm, ...).
+vision_model.embeddings.patch_embedding, vision_model.pre_layrnorm, ...,
+visual_projection, logit_scale). Every LayerNorm of the towers runs on the
+B10 kernel (`FusedLayerNorm`). `CLIPModel(config, dtype=torch.bfloat16)`
+computes in bf16 over fp32 parameters, as the JAX `CLIPModule(dtype=bf16)`
+does over fp32 ones (models/layers.py).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ...ops.attention import use_flash
-from ..layers import EncoderBlock, PatchEmbed
-from .configuration import CLIPTextConfig, CLIPVisionConfig
+from ..layers import EncoderBlock, FusedLayerNorm, Linear, PatchEmbed, set_compute_dtype
+from .configuration import CLIPConfig, CLIPTextConfig, CLIPVisionConfig
 
 
 class CLIPTextEmbeddings(nn.Module):
+    compute_dtype: Optional[torch.dtype] = None  # flax Embed's `dtype`
+
     def __init__(self, cfg: CLIPTextConfig):
         super().__init__()
         self.token_embedding = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
@@ -25,6 +34,8 @@ class CLIPTextEmbeddings(nn.Module):
 
     def forward(self, input_ids):
         x = self.token_embedding(input_ids)
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
         return x + self.position_embedding.weight[None, : input_ids.shape[1]].to(x.dtype)
 
 
@@ -46,7 +57,7 @@ class CLIPTextTransformer(nn.Module):
         self.config = cfg
         self.embeddings = CLIPTextEmbeddings(cfg)
         self.encoder = CLIPEncoder(cfg)
-        self.final_layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+        self.final_layer_norm = FusedLayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
 
     def forward(self, input_ids, output_hidden_states: bool = False):
         x = self.embeddings(input_ids)
@@ -88,7 +99,7 @@ class CLIPTextModelWithProjection(nn.Module):
         super().__init__()
         self.config = config
         self.text_model = CLIPTextTransformer(config)
-        self.text_projection = nn.Linear(config.hidden_size, config.projection_dim, bias=False)
+        self.text_projection = Linear(config.hidden_size, config.projection_dim, bias=False)
 
     def forward(self, input_ids, output_hidden_states: bool = False):
         out = self.text_model(input_ids, output_hidden_states=output_hidden_states)
@@ -119,9 +130,9 @@ class CLIPVisionTransformer(nn.Module):
         super().__init__()
         self.config = cfg
         self.embeddings = CLIPVisionEmbeddings(cfg)
-        self.pre_layrnorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+        self.pre_layrnorm = FusedLayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
         self.encoder = CLIPEncoder(cfg)
-        self.post_layernorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+        self.post_layernorm = FusedLayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
 
     def forward(self, pixel_values, output_hidden_states: bool = False):
         x = self.pre_layrnorm(self.embeddings(pixel_values))
@@ -145,3 +156,59 @@ class CLIPVisionModel(nn.Module):
 
     def forward(self, pixel_values, output_hidden_states: bool = False):
         return self.vision_model(pixel_values, output_hidden_states=output_hidden_states)
+
+
+class CLIPModel(nn.Module):
+    """The dual tower (port of `CLIPModule`): both towers, bias-free
+    projections to `projection_dim` and a 0-d `logit_scale`. `dtype` is the
+    compute dtype (flax's module `dtype`): None computes in the parameters'
+    dtype; bf16 casts fp32 parameters where the JAX module casts them."""
+
+    def __init__(self, config: CLIPConfig, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.config = config
+        vision, text = config.vision, config.text
+        self.vision_model = CLIPVisionTransformer(vision)
+        self.text_model = CLIPTextTransformer(text)
+        self.visual_projection = Linear(vision.hidden_size, config.projection_dim, bias=False)
+        self.text_projection = Linear(text.hidden_size, config.projection_dim, bias=False)
+        self.logit_scale = nn.Parameter(torch.tensor(float(config.logit_scale_init_value)))
+        set_compute_dtype(self, dtype)
+
+    def encode_image(self, pixel_values):
+        return self.visual_projection(self.vision_model(pixel_values)[1])
+
+    def encode_text(self, input_ids):
+        return self.text_projection(self.text_model(input_ids)[1])
+
+    def forward(self, pixel_values, input_ids, normalize: bool = True):
+        """(image features, text features, exp(logit_scale)): the features
+        (B, projection_dim) in the compute dtype, L2-normalised unless
+        `normalize` is False; the scale an fp32 0-d tensor."""
+        img = self.encode_image(pixel_values)
+        txt = self.encode_text(input_ids)
+        if normalize:
+            img = img / img.norm(dim=-1, keepdim=True)
+            txt = txt / txt.norm(dim=-1, keepdim=True)
+        return img, txt, self.logit_scale.exp()
+
+
+def scaled_logits(scale, a, b):
+    """scale * a @ b.T with the JAX package's promotion: an fp32 0-d scale
+    makes bf16 features fp32 (torch would keep bf16 for a 0-d operand)."""
+    dtype = torch.promote_types(scale.dtype, torch.promote_types(a.dtype, b.dtype))
+    return (scale.to(dtype) * a.to(dtype)) @ b.to(dtype).T
+
+
+def clip_contrastive_loss(image_feats, text_feats, logit_scale, axis_name: Optional[str] = None):
+    """InfoNCE over one card's batch (port of `clip_contrastive_loss`): the
+    mean of the image->text and text->image cross entropies, pair i the
+    label of row i. `axis_name` gathers features across a device mesh in the
+    JAX package; the mesh is not ported, so it raises."""
+    if axis_name is not None:
+        raise NotImplementedError("clip_contrastive_loss: gathering features across a device "
+                                  "mesh (axis_name) is not ported")
+    labels = torch.arange(image_feats.shape[0], device=image_feats.device)
+    loss_i = F.cross_entropy(scaled_logits(logit_scale, image_feats, text_feats), labels)
+    loss_t = F.cross_entropy(scaled_logits(logit_scale, text_feats, image_feats), labels)
+    return 0.5 * (loss_i + loss_t)

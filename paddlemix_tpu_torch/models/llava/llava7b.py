@@ -16,6 +16,7 @@ import torch
 
 from ...core.init import build_random
 from ...ops.attention import use_flash
+from ..layers import n_layer_norms
 from ..llama.modeling import LlamaAttention, MXUDense, RMSNorm
 from .modeling import LlavaConfig, LlavaForConditionalGeneration
 
@@ -62,8 +63,9 @@ def expected_launches_llava(model: LlavaForConditionalGeneration, prompt_len: in
     modules: the prefill and each of the new_tokens - 1 decode steps run
     every RMSNorm once (B11) and, under wint8, every quantized projection
     once (B6); every decode step runs decode attention once per layer (B7),
-    and so does a one-token prefill. The vision tower's attention goes to
-    flash or math by `use_flash` at its token count."""
+    and so does a one-token prefill. The vision tower runs once: its
+    attention goes to flash or math by `use_flash` at its token count, and
+    each of its LayerNorms (B10) launches once."""
     lm = model.language_model
     forwards = new_tokens  # one prefill + (new_tokens - 1) decode steps
     single_token_forwards = new_tokens - 1 + (prompt_len == 1)
@@ -77,4 +79,5 @@ def expected_launches_llava(model: LlavaForConditionalGeneration, prompt_len: in
                             for m in lm.modules()) * forwards,
         "decode_attention": count(LlamaAttention) * single_token_forwards,
         "flash_attention": vcfg.num_hidden_layers * use_flash(q, q),
+        "layer_norm": n_layer_norms(model.vision_tower),
     }

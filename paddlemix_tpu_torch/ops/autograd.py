@@ -3,7 +3,8 @@
 Three kinds, one per kind of kernel (the JAX package's `custom_vjp`s and its
 inference-only Pallas calls):
 - a kernel with a backward kernel of its own (flash attention B1/B15 with
-  B14, RMSNorm B11) is a `torch.autograd.Function` in its module;
+  B14, RMSNorm B11, LayerNorm B10) is a `torch.autograd.Function` in its
+  module;
 - a kernel whose JAX backward is XLA's derivative of its reference (GroupNorm
   B4, adaLN B12, fused adaLN + residual B13: `ops/norms.py` in the JAX
   package) runs forward on its kernel and takes its backward from autograd of

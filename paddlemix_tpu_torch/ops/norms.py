@@ -1,7 +1,7 @@
-"""GroupNorm (+SiLU) over channel-minor (..., C) tensors, RMSNorm, and the
-adaLN pair of the SD3 MM-DiT (adaptive LayerNorm, and adaptive LayerNorm fused
-with the gated residual add; see their section below). Port of the GroupNorm,
-RMSNorm and adaLN parts of paddlemix_tpu/ops/norms.py.
+"""GroupNorm (+SiLU) over channel-minor (..., C) tensors, RMSNorm, the adaLN
+pair of the SD3 MM-DiT (adaptive LayerNorm, and adaptive LayerNorm fused with
+the gated residual add) and LayerNorm with its backward (B10; see their
+sections below). Port of paddlemix_tpu/ops/norms.py.
 
 RMSNorm (B11): `rms_norm` launches a Triton kernel for CUDA tensors and runs
 its plain version `rms_norm_ref` for CPU tensors. It replaces the forward
@@ -392,6 +392,38 @@ def rms_norm_backward_ref(x, weight, g, eps: float = 1e-6, need_dw: bool = True)
 
 
 @functools.lru_cache(maxsize=None)
+def _column_sum_kernel():
+    """The second pass of the norms' weight gradients (B10, B11): the fp32
+    partial rows (n_parts, C) of the first pass summed column by column, in
+    a fixed order, into out (C,) in out's dtype."""
+    global tl
+    import triton
+    import triton.language as tl
+
+    @triton.jit
+    def column_sum(part_ptr, out_ptr, n_parts, C, BLOCK_P: tl.constexpr,
+                   BLOCK_C: tl.constexpr):
+        cols = tl.program_id(0) * BLOCK_C + tl.arange(0, BLOCK_C)
+        cmask = cols < C
+        acc = tl.zeros([BLOCK_C], dtype=tl.float32)
+        for p0 in range(0, n_parts, BLOCK_P):
+            parts = p0 + tl.arange(0, BLOCK_P)
+            mask = (parts < n_parts)[:, None] & cmask[None, :]
+            acc += tl.sum(tl.load(part_ptr + parts.to(tl.int64)[:, None] * C + cols[None, :],
+                                  mask=mask, other=0.0), axis=0)
+        tl.store(out_ptr + cols, acc.to(out_ptr.dtype.element_ty), mask=cmask)
+
+    return column_sum
+
+
+def _column_sum(partial, out):
+    """out (C,) = partial (n_parts, C) summed over its rows (`column_sum`)."""
+    n_parts, c = partial.shape
+    _column_sum_kernel()[(-(-c // 128),)](partial, out, n_parts, c, BLOCK_P=32, BLOCK_C=128,
+                                          num_warps=4)
+
+
+@functools.lru_cache(maxsize=None)
 def _rms_bwd_kernels():
     global tl
     import triton
@@ -421,19 +453,7 @@ def _rms_bwd_kernels():
         if WANT_DW:
             tl.store(dwp_ptr + pid.to(tl.int64) * H + cols, acc, mask=cmask)
 
-    @triton.jit
-    def rms_norm_dw(dwp_ptr, dw_ptr, n_parts, H, BLOCK_P: tl.constexpr, BLOCK_C: tl.constexpr):
-        cols = tl.program_id(0) * BLOCK_C + tl.arange(0, BLOCK_C)
-        cmask = cols < H
-        acc = tl.zeros([BLOCK_C], dtype=tl.float32)
-        for p0 in range(0, n_parts, BLOCK_P):
-            parts = p0 + tl.arange(0, BLOCK_P)
-            mask = (parts < n_parts)[:, None] & cmask[None, :]
-            acc += tl.sum(tl.load(dwp_ptr + parts.to(tl.int64)[:, None] * H + cols[None, :],
-                                  mask=mask, other=0.0), axis=0)
-        tl.store(dw_ptr + cols, acc.to(dw_ptr.dtype.element_ty), mask=cmask)
-
-    return rms_norm_bwd, rms_norm_dw
+    return rms_norm_bwd
 
 
 _RMS_DW_PROGRAMS_PER_SM = 2  # partial dw rows: 2 a multiprocessor (264 on an H100)
@@ -456,7 +476,7 @@ def _rms_norm_bwd_triton(x, weight, g, eps, need_dw):
     block = max(128, 1 << (h - 1).bit_length())
     warps = min(16, max(1, block // 512))
     dx = torch.empty_like(x)
-    bwd, dw_sum = _rms_bwd_kernels()
+    bwd = _rms_bwd_kernels()
     with torch.cuda.device(x.device):
         if not need_dw:
             bwd[(rows,)](x, weight, g, dx, dx, rows, h, float(eps), 1, WANT_DW=False,
@@ -469,7 +489,7 @@ def _rms_norm_bwd_triton(x, weight, g, eps, need_dw):
         dw = torch.empty_like(weight)
         bwd[(n_parts,)](x, weight, g, dx, partial, rows, h, float(eps), per_prog, WANT_DW=True,
                         BLOCK_H=block, num_warps=warps)
-        dw_sum[(-(-h // 128),)](partial, dw, n_parts, h, BLOCK_P=32, BLOCK_C=128, num_warps=4)
+        _column_sum(partial, dw)
     return dx, dw
 
 
@@ -669,3 +689,255 @@ def fused_adaln_scale_residual(residual, x, gate, scale, shift, weight=None, bia
 
 
 fused_adaln_scale_residual.launches = 0  # kernel launches (CUDA tensors only)
+
+
+# ------------------------------------------------------------ LayerNorm (B10)
+# `layer_norm` replaces the Pallas kernel `_layer_norm_pallas_fwd_impl` /
+# `_ln_fwd_kernel` (paddlemix_tpu/ops/norms.py): per row of x (..., H), the
+# fp32 mean, the two-pass variance mean((x - mean)^2), (x - mean) *
+# rsqrt(var + eps) * w + b in fp32, rounded once to x's dtype. Under autograd
+# it is `_LayerNorm` (the JAX `_layer_norm_pallas` custom_vjp), whose
+# backward `layer_norm_backward` replaces `_layer_norm_pallas_bwd` /
+# `_ln_bwd_kernel`: dx = rstd * (dxhat - mean(dxhat) - xhat * mean(dxhat *
+# xhat)) with dxhat = g * w, dw = sum of g * xhat and db = sum of g over the
+# rows, in fp32; dx in x's dtype, dw and db in w's. A program takes a tile of
+# rows (a row's H at most _LN_MAX_WIDTH in registers), so x (and g) are read
+# once and y (dx) written once: a few flops a byte, bound by those bytes. The
+# TPU kernel carries dw and db across its sequential grid; on Hopper the
+# programs run in parallel and in no order, so, as in B11's backward, each
+# program of the first launch walks a run of row tiles and writes one fp32
+# partial row of dw and db, and the shared column sum adds them (no atomics,
+# deterministic). The JAX package sends widths not a multiple of 128, fewer
+# than 64 rows or a missing w or b to XLA; those are v5e tiling choices, and
+# eager PyTorch has no fusion to keep, so on the card every call launches.
+_LN_MAX_WIDTH = 1280  # the widest row a path gives it (CLIP-bigG's text tower)
+_LN_TILE = 4096  # elements of a row tile: BLOCK_R rows x BLOCK_H columns
+_LN_PROGRAMS_PER_SM = 2  # partial dw/db rows of the backward: 2 a multiprocessor
+
+
+def layer_norm_ref(x, weight=None, bias=None, eps: float = 1e-5):
+    """Plain version (copy of `layer_norm_xla`): fp32 mean and two-pass
+    variance, (x - mean) * rsqrt(var + eps) * w + b in fp32, cast to x's
+    dtype."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    if weight is not None:
+        y = y * weight.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype)
+
+
+def layer_norm_backward_ref(x, weight, g, eps: float = 1e-5):
+    """Plain version (port of `_ln_bwd_kernel`): (dx in x's dtype, dw and db
+    in the weight's dtype), all in fp32."""
+    xf, gf, wf = x.float(), g.float(), weight.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt((xf - mu).square().mean(dim=-1, keepdim=True) + eps)
+    xhat = (xf - mu) * rstd
+    dxhat = gf * wf
+    dx = rstd * (dxhat - dxhat.mean(dim=-1, keepdim=True)
+                 - xhat * (dxhat * xhat).mean(dim=-1, keepdim=True))
+    h = x.shape[-1]
+    dw = (gf * xhat).reshape(-1, h).sum(0).to(weight.dtype)
+    db = gf.reshape(-1, h).sum(0).to(weight.dtype)
+    return dx.to(x.dtype), dw, db
+
+
+@functools.lru_cache(maxsize=None)
+def _ln_kernels():
+    global tl
+    import triton
+    import triton.language as tl
+
+    @triton.jit
+    def _tile_stats(x, mask, H, eps):
+        """fp32 (x - mean) masked to the row, and rsqrt(two-pass var + eps)."""
+        mean = tl.sum(x, axis=1) / H
+        diff = tl.where(mask, x - mean[:, None], 0.0)
+        return diff, tl.rsqrt(tl.sum(diff * diff, axis=1) / H + eps)
+
+    @triton.jit
+    def layer_norm_fwd(x_ptr, w_ptr, b_ptr, y_ptr, rows, H, x_stride, eps,
+                       BLOCK_R: tl.constexpr, BLOCK_H: tl.constexpr):
+        r = tl.program_id(0) * BLOCK_R + tl.arange(0, BLOCK_R)
+        cols = tl.arange(0, BLOCK_H)
+        cmask = cols < H
+        mask = (r < rows)[:, None] & cmask[None, :]
+        r64 = r.to(tl.int64)[:, None]
+        x = tl.load(x_ptr + r64 * x_stride + cols[None, :], mask=mask, other=0.0).to(tl.float32)
+        diff, rstd = _tile_stats(x, mask, H, eps)
+        w = tl.load(w_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
+        b = tl.load(b_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
+        y = diff * rstd[:, None] * w[None, :] + b[None, :]
+        tl.store(y_ptr + r64 * H + cols[None, :], y.to(y_ptr.dtype.element_ty), mask=mask)
+
+    @triton.jit
+    def layer_norm_bwd(x_ptr, w_ptr, g_ptr, dx_ptr, part_ptr, rows, H, x_stride, g_stride, eps,
+                       rows_per_prog, BLOCK_R: tl.constexpr, BLOCK_H: tl.constexpr):
+        pid = tl.program_id(0)
+        cols = tl.arange(0, BLOCK_H)
+        cmask = cols < H
+        w = tl.load(w_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
+        acc_w = tl.zeros([BLOCK_R, BLOCK_H], dtype=tl.float32)
+        acc_b = tl.zeros([BLOCK_R, BLOCK_H], dtype=tl.float32)
+        for r0 in range(0, rows_per_prog, BLOCK_R):
+            r = pid * rows_per_prog + r0 + tl.arange(0, BLOCK_R)
+            mask = (r < rows)[:, None] & cmask[None, :]
+            r64 = r.to(tl.int64)[:, None]
+            x = tl.load(x_ptr + r64 * x_stride + cols[None, :], mask=mask,
+                        other=0.0).to(tl.float32)
+            g = tl.load(g_ptr + r64 * g_stride + cols[None, :], mask=mask,
+                        other=0.0).to(tl.float32)
+            diff, rstd = _tile_stats(x, mask, H, eps)
+            xhat = diff * rstd[:, None]
+            dxhat = g * w[None, :]
+            dx = rstd[:, None] * (dxhat - (tl.sum(dxhat, axis=1) / H)[:, None]
+                                  - xhat * (tl.sum(dxhat * xhat, axis=1) / H)[:, None])
+            tl.store(dx_ptr + r64 * H + cols[None, :], dx.to(dx_ptr.dtype.element_ty), mask=mask)
+            acc_w += g * xhat
+            acc_b += g
+        # the program's partial row: dw in columns [0, H), db in [H, 2H)
+        out = part_ptr + pid.to(tl.int64) * 2 * H + cols
+        tl.store(out, tl.sum(acc_w, axis=0), mask=cmask)
+        tl.store(out + H, tl.sum(acc_b, axis=0), mask=cmask)
+
+    return layer_norm_fwd, layer_norm_bwd
+
+
+def _ln_rows(t, h):
+    """t (..., h) as rows of unit column stride: (the 2-D view or a
+    contiguous copy, its row stride)."""
+    t2 = t.reshape(-1, h)
+    if t2.stride(1) != 1:
+        t2 = t2.contiguous()
+    return t2, t2.stride(0)
+
+
+def _ln_check(name, x, params):
+    h = x.shape[-1]
+    if x.dtype not in (torch.bfloat16, torch.float32) or h > _LN_MAX_WIDTH:
+        raise ValueError(f"{name} kernel takes bf16/fp32 rows at most {_LN_MAX_WIDTH} wide, "
+                         f"got {x.dtype} {tuple(x.shape)}")
+    for p in params:
+        if p.device != x.device or p.shape != (h,) or not p.is_contiguous():
+            raise ValueError(f"{name}: weight and bias must be contiguous ({h},) tensors on "
+                             f"{x.device}, got {tuple(p.shape)} on {p.device}")
+
+
+def _ln_tile(h):
+    block_h = max(128, 1 << (h - 1).bit_length())
+    return max(1, _LN_TILE // block_h), block_h
+
+
+def _layer_norm_triton(x, weight, bias, eps):
+    _ln_check("layer_norm", x, (weight, bias))
+    h = x.shape[-1]
+    x2, x_stride = _ln_rows(x, h)
+    rows = x2.shape[0]
+    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    block_r, block_h = _ln_tile(h)
+    with torch.cuda.device(x.device):
+        _ln_kernels()[0][(-(-rows // block_r),)](x2, weight, bias, y, rows, h, x_stride,
+                                                 float(eps), BLOCK_R=block_r, BLOCK_H=block_h,
+                                                 num_warps=4)
+    layer_norm.launches += 1
+    return y
+
+
+def _ln_forward(x, weight, bias, eps):
+    """The forward: the kernel for CUDA tensors, `layer_norm_ref` for CPU ones."""
+    if x.is_cuda:
+        return _layer_norm_triton(x, weight, bias, eps)
+    if x.device.type != "cpu":
+        raise ValueError(f"layer_norm: unsupported device {x.device}")
+    return layer_norm_ref(x, weight, bias, eps)
+
+
+class _LayerNorm(torch.autograd.Function):
+    """The JAX `_layer_norm_pallas` custom_vjp: saves (x, weight); the
+    backward is `layer_norm_backward` (B10's backward kernel). The module's
+    functions are looked up at each call, so that a caller can swap in plain
+    versions."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        ctx.save_for_backward(x, weight)
+        ctx.eps = eps
+        return _ln_forward(x, weight, bias, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        dx, dw, db = layer_norm_backward(x, weight, g, ctx.eps)
+        needs = ctx.needs_input_grad
+        return dx if needs[0] else None, dw if needs[1] else None, db if needs[2] else None, None
+
+
+def layer_norm(x, weight, bias, eps: float = 1e-5):
+    """LayerNorm over the last axis with weight and bias (port of
+    `layer_norm`). CUDA tensors launch the Triton kernel (B10); CPU tensors
+    run `layer_norm_ref`. The output has x's dtype; weight and bias are read
+    as fp32 whatever their dtype. Under autograd it is `_LayerNorm`, whose
+    backward is `layer_norm_backward`."""
+    if weight is None or bias is None:
+        raise NotImplementedError("layer_norm: the form without weight or bias is not ported "
+                                  "(no path of the port calls it)")
+    if grad_needed(x, weight, bias):
+        return _LayerNorm.apply(x, weight, bias, eps)
+    return _ln_forward(x, weight, bias, eps)
+
+
+layer_norm.launches = 0  # kernel launches (CUDA tensors only)
+
+
+def _ln_bwd_split(rows: int, h: int, sms: int):
+    """(programs, rows a program) of the backward's first launch: at most
+    _LN_PROGRAMS_PER_SM programs a multiprocessor, each a run of whole row
+    tiles; each program writes one partial row of dw and db."""
+    block_r = _ln_tile(h)[0]
+    n_parts = min(_cdiv(rows, block_r), _LN_PROGRAMS_PER_SM * sms)
+    per_prog = _cdiv(_cdiv(rows, n_parts), block_r) * block_r
+    return _cdiv(rows, per_prog), per_prog
+
+
+def _layer_norm_bwd_triton(x, weight, g, eps):
+    _ln_check("layer_norm backward", x, (weight,))
+    if g.shape != x.shape or g.device != x.device:
+        raise ValueError(f"layer_norm backward: g {tuple(g.shape)} on {g.device} does not match "
+                         f"x {tuple(x.shape)} on {x.device}")
+    h = x.shape[-1]
+    x2, x_stride = _ln_rows(x, h)
+    g2, g_stride = _ln_rows(g, h)
+    rows = x2.shape[0]
+    block_r, block_h = _ln_tile(h)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    n_parts, per_prog = _ln_bwd_split(rows, h, sms)
+    dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    partial = torch.empty((n_parts, 2 * h), dtype=torch.float32, device=x.device)
+    dwdb = torch.empty(2 * h, dtype=weight.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        _ln_kernels()[1][(n_parts,)](x2, weight, g2, dx, partial, rows, h, x_stride, g_stride,
+                                     float(eps), per_prog, BLOCK_R=block_r, BLOCK_H=block_h,
+                                     num_warps=8)
+        _column_sum(partial, dwdb)
+    return dx, dwdb[:h], dwdb[h:]
+
+
+def layer_norm_backward(x, weight, g, eps: float = 1e-5):
+    """(dx, dw, db) of `layer_norm` at (x, weight) for the output gradient g
+    (port of `_layer_norm_pallas_bwd`; db does not depend on the bias). CUDA
+    tensors launch the Triton kernels (two launches: dx with the partial
+    sums, then their column sum); CPU tensors run `layer_norm_backward_ref`."""
+    if x.is_cuda:
+        out = _layer_norm_bwd_triton(x, weight, g, eps)
+        layer_norm_backward.launches += 1
+        return out
+    if x.device.type != "cpu":
+        raise ValueError(f"layer_norm backward: unsupported device {x.device}")
+    return layer_norm_backward_ref(x, weight, g, eps)
+
+
+layer_norm_backward.launches = 0  # backward calls that launched the kernels (CUDA tensors only)

@@ -4,14 +4,18 @@ paddlemix_tpu/trainer/trainer.py).
 The model contributes a loss_fn(params, batch, rng); the Trainer owns the
 optimizer, gradient accumulation (optax.MultiSteps semantics: `step` counts
 micro-batches, the schedule counts real updates, and `max_steps` and the
-schedule's total are micro-batches, as in JAX) and logging (loss, grad_norm,
-ips). Not ported yet, and refused: checkpoint save and resume (orbax in
-JAX), evaluation, the device mesh (any parallel degree above 1) and
-`MeshAwareLoss`, TensorBoard and profiler callbacks (ROADMAP).
+schedule's total are micro-batches, as in JAX), the device put-ahead of
+batches (`prefetch_depth`) and logging (loss, grad_norm, ips, reader_cost).
+Not ported yet, and refused: checkpoint save and resume (orbax in JAX),
+evaluation, the device mesh (any parallel degree above 1) and
+`MeshAwareLoss`, TensorBoard and profiler callbacks (ROADMAP). The
+`benchmark` flag's callback (ips and peak memory lines) is not ported and
+the flag is ignored.
 """
 
 from __future__ import annotations
 
+import collections
 import logging
 import time
 from typing import Callable, Dict, Iterable, Optional
@@ -109,9 +113,14 @@ class Trainer:
 
     # ------------------------------------------------------------ loop
     def _prepare_batch(self, batch) -> Dict[str, torch.Tensor]:
-        """Host batch -> tensors on the params' device."""
-        return {k: torch.as_tensor(np.asarray(v)).to(self.device, non_blocking=True)
-                for k, v in batch.items()}
+        """Host batch -> tensors on the params' device: on a card, copied from
+        pinned host memory without blocking the host."""
+        dev = self.device
+        out = {}
+        for k, v in batch.items():
+            t = torch.as_tensor(np.asarray(v))
+            out[k] = t.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" else t
+        return out
 
     def train(self, max_steps: Optional[int] = None):
         """Run micro-batch steps until `max_steps` (else the args' max_steps,
@@ -130,28 +139,37 @@ class Trainer:
         n_epochs = 10 ** 9 if explicit_steps else max(a.num_train_epochs, 1)
         step = self.state.step
         metrics: Dict[str, torch.Tensor] = {}
-        ips_window, t_last = [], time.time()
+        ips_window, reader_window, t_last = [], [], time.time()
         for _ in range(n_epochs):
-            for batch in self.train_dataloader:
+            # device put-ahead: the next batches are copied to the card while
+            # this one trains
+            batches = _prefetch_to_device(iter(self.train_dataloader), self._prepare_batch,
+                                          depth=a.prefetch_depth)
+            for t_reader, batch in batches:
                 if step >= total:
                     break
-                batch = self._prepare_batch(batch)
+                reader_window.append(t_reader)
                 samples = int(next(iter(batch.values())).shape[0])
                 self.state, metrics = self.step_fn(self.state, batch, None)
                 step += 1
                 self.history.append({"step": step, "loss": metrics["loss"],
                                      "grad_norm": metrics["grad_norm"],
-                                     "time": time.perf_counter()})
+                                     "time": time.perf_counter(), "reader": t_reader})
                 now = time.time()
                 ips_window.append(samples / max(now - t_last, 1e-9))
                 t_last = now
                 if step % a.logging_steps == 0:
                     ips = float(np.mean(ips_window[-a.logging_steps:]))
-                    logger.info("step %d/%d loss: %.4f grad_norm: %.4f ips: %.3f samples/sec",
-                                step, total, float(metrics["loss"]),
-                                float(metrics["grad_norm"]), ips)
+                    # the time the loop sat blocked on the loader, after the
+                    # put-ahead, and its share of the step (the JAX telemetry)
+                    reader_cost = float(np.mean(reader_window[-a.logging_steps:]))
+                    reader_pct = reader_cost * ips / max(samples, 1) * 100
+                    logger.info("step %d/%d loss: %.4f grad_norm: %.4f ips: %.3f samples/sec "
+                                "reader_cost: %.5f sec (%.1f%%)", step, total,
+                                float(metrics["loss"]), float(metrics["grad_norm"]), ips,
+                                reader_cost, reader_pct)
                     for cb in self.callbacks:
-                        cb(step=step, metrics={**metrics, "ips": ips})
+                        cb(step=step, metrics={**metrics, "ips": ips, "reader_cost": reader_cost})
                 if a.save_steps and step % a.save_steps == 0:
                     self.save_checkpoint(step)
             if step >= total:
@@ -159,3 +177,26 @@ class Trainer:
         if a.do_eval and self.eval_dataloader is not None:
             self.evaluate()
         return {"final_step": step, **{k: float(v) for k, v in metrics.items()}}
+
+
+def _prefetch_to_device(it, prepare, depth: int = 2):
+    """Keep `depth` prepared (on the device) batches in hand (port of the JAX
+    `_prefetch_to_device`; depth 0 or 1: none ahead). Yields (seconds the
+    loop sat blocked pulling from the host iterator, batch)."""
+    buf = collections.deque()
+    stall = 0.0
+    while True:
+        while len(buf) < max(depth, 1):
+            t0 = time.perf_counter()
+            nxt = next(it, _SENTINEL)
+            stall += time.perf_counter() - t0
+            if nxt is _SENTINEL:
+                break
+            buf.append(prepare(nxt))
+        if not buf:
+            return
+        yield stall, buf.popleft()
+        stall = 0.0
+
+
+_SENTINEL = object()

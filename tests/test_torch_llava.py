@@ -305,7 +305,8 @@ def test_launch_derivation_at_full_width_on_meta(quant):
     n_dense = sum(isinstance(m, MXUDense) for m in model.language_model.modules())
     assert n_dense == 32 * 7 + 1
     want = {"rms_norm": 65 * 128, "wint8_matmul": 225 * 128 if quant else 0,
-            "decode_attention": 32 * 127, "flash_attention": 0}
+            "decode_attention": 32 * 127, "flash_attention": 0,
+            "layer_norm": 2 * 24 + 2}  # the ViT's blocks, pre- and post-LN
     assert expected_launches_llava(model, 576 + 32, 128) == want
     assert model.config.num_image_tokens == 576
 

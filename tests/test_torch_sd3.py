@@ -253,6 +253,7 @@ def test_random_pipeline_launches_match_walk(monkeypatch):
     own counters stay 0, against `expected_launches_sd3`."""
     from paddlemix_tpu_torch.diffusers.models import resnet as resnet_mod
     from paddlemix_tpu_torch.diffusers.models import transformer_sd3 as sd3_mod
+    from paddlemix_tpu_torch.models import layers as layers_mod
     from paddlemix_tpu_torch.models.t5 import modeling as t5_mod
     from paddlemix_tpu_torch.ops import attention as attn_mod
 
@@ -269,7 +270,7 @@ def test_random_pipeline_launches_match_walk(monkeypatch):
 
     for mod, name in ((sd3_mod, "adaptive_layer_norm"), (sd3_mod, "fused_adaln_scale_residual"),
                       (attn_mod, "flash_attention"), (resnet_mod, "group_norm"),
-                      (t5_mod, "rms_norm")):
+                      (t5_mod, "rms_norm"), (layers_mod, "layer_norm")):
         count(mod, name)
     tok = byte_level_tokenizer(model_max_length=16)
     text = dict(vocab_size=tok.vocab_size, hidden_size=16, intermediate_size=32,
@@ -284,9 +285,11 @@ def test_random_pipeline_launches_match_walk(monkeypatch):
     assert image.shape == (1, 64, 64, 3) and np.isfinite(image).all()
     expected = expected_launches_sd3(pipe, 64, 64, 2, guidance_scale=7.0)
     # 256 + 16 + 88 = 360 joint tokens: not a multiple of 128 and under 1024, so
-    # math; the VAE's 1024-token, 16-wide head takes flash once
+    # math; the VAE's 1024-token, 16-wide head takes flash once; each 2-layer
+    # CLIP tower's 5 LayerNorms run for the prompt and the negative prompt
     assert expected == {"adaptive_layer_norm": 5 * 2, "fused_adaln_scale_residual": 3 * 2,
-                        "flash_attention": 1, "group_norm": 14, "rms_norm": 2 * 5}
+                        "flash_attention": 1, "group_norm": 14, "rms_norm": 2 * 5,
+                        "layer_norm": 2 * (5 + 5)}
     assert counts == expected
 
 
@@ -309,7 +312,8 @@ def test_expected_launches_full_width_sd3():
     # per request (28 steps, CFG batch 2): 49 adaLN and 47 fused adaLN +
     # residual a forward; 24 joint attentions over 4096 + 77 + 77 = 4,250
     # tokens, flash; 49 T5 RMSNorms for each of the two prompts; the VAE
-    # decoder's 30 GroupNorms (its 16,384-token 512-wide head is math)
+    # decoder's 30 GroupNorms (its 16,384-token 512-wide head is math); the
+    # CLIP-L and bigG towers' 25 and 65 LayerNorms for each of the two prompts
     assert expected_launches_sd3(pipe, 1024, 1024, 28) == {
         "adaptive_layer_norm": 1372, "fused_adaln_scale_residual": 1316,
-        "flash_attention": 672, "rms_norm": 98, "group_norm": 30}
+        "flash_attention": 672, "rms_norm": 98, "group_norm": 30, "layer_norm": 180}

@@ -349,6 +349,7 @@ def test_sdxl_a8w8_pipeline_matches_jax(jax_a8w8):
 def _counting(monkeypatch):
     """Count the calls of every wrapper the a8w8 path reaches, on the CPU."""
     from paddlemix_tpu_torch.diffusers.models import resnet as resnet_mod
+    from paddlemix_tpu_torch.models import layers as layers_mod
     from paddlemix_tpu_torch.ops import attention as attn_mod
 
     counts = {}
@@ -369,6 +370,7 @@ def _counting(monkeypatch):
     wrap(tquant, "int8_a8w8_matmul")
     wrap(tquant, "int8_conv3x3_same")
     wrap(resnet_mod, "fused_gn_silu_conv3x3")
+    wrap(layers_mod, "layer_norm")  # the text towers' LayerNorms (B10)
     return counts
 
 
@@ -416,13 +418,15 @@ def test_full_width_sdxl_a8w8_counts():
             scheduler=EulerDiscreteScheduler(**SDXL_SCHEDULER))
     assert len(quant_modules(pipe.unet)) == 771  # the JAX bench's 771-op calibration
     assert len(quant_modules(pipe.vae)) == 33
-    # no scales loaded: the bf16 path and its counts
+    # no scales loaded: the bf16 path and its counts; the text towers' 25 and
+    # 65 LayerNorms run for the prompt and the negative prompt
     assert expected_launches(pipe, 1024, 1024, 25) == {"flash_attention": 1750,
-                                                       "group_norm": 1180}
+                                                       "group_norm": 1180, "layer_norm": 180}
     # any scales (call order does not matter for the counts): the a8w8 routing
     modules = quant_modules(pipe.unet) + quant_modules(pipe.vae)
     load_static_scales(modules, [1.0] * len(modules))
     assert expected_launches(pipe, 1024, 1024, 25) == {
-        "flash_attention": 1750, "group_norm": 12 * 25 + 2, "group_norm_stats": 878,
+        "flash_attention": 1750, "layer_norm": 180, "group_norm": 12 * 25 + 2,
+        "group_norm_stats": 878,
         "int8_a8w8_matmul": 733 * 25 + 2, "fused_gn_silu_conv3x3": 34 * 25 + 28,
         "int8_conv3x3_same": 2 * 25 + 3, "int8_conv2d_plain": 2 * 25}

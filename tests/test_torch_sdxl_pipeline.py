@@ -102,11 +102,13 @@ def test_sdxl_image_matches_jax(pipes):
 
 
 def _counting(monkeypatch):
-    """Count flash and GroupNorm calls on the CPU, where the kernels' counters stay 0."""
+    """Count flash, GroupNorm and LayerNorm calls on the CPU, where the
+    kernels' counters stay 0."""
     from paddlemix_tpu_torch.diffusers.models import resnet as resnet_mod
+    from paddlemix_tpu_torch.models import layers as layers_mod
     from paddlemix_tpu_torch.ops import attention as attn_mod
 
-    counts = {"flash_attention": 0, "group_norm": 0}
+    counts = {"flash_attention": 0, "group_norm": 0, "layer_norm": 0}
 
     def wrap(name, fn):
         def counted(*args, **kwargs):
@@ -117,6 +119,7 @@ def _counting(monkeypatch):
     monkeypatch.setattr(attn_mod, "flash_attention", wrap("flash_attention",
                                                           attn_mod.flash_attention))
     monkeypatch.setattr(resnet_mod, "group_norm", wrap("group_norm", resnet_mod.group_norm))
+    monkeypatch.setattr(layers_mod, "layer_norm", wrap("layer_norm", layers_mod.layer_norm))
     return counts
 
 
@@ -135,8 +138,10 @@ def test_random_pipeline_launches_match_walk(monkeypatch):
     assert image.shape == (1, 32, 32, 3) and np.isfinite(image).all()
     expected = expected_launches(pipe, 32, 32, 2, guidance_scale=5.0)
     # 256-token self-attention at the top level (3 blocks x 2 steps) and the VAE's
-    # 256-token 16-wide head take flash; everything else is math
-    assert expected == {"flash_attention": 3 * 2 + 1, "group_norm": counts["group_norm"]}
+    # 256-token 16-wide head take flash; everything else is math; each 2-layer
+    # text tower's 5 LayerNorms run for the prompt and the negative prompt
+    assert expected == {"flash_attention": 3 * 2 + 1, "group_norm": counts["group_norm"],
+                        "layer_norm": 2 * (5 + 5)}
     assert counts == expected
 
 
@@ -164,6 +169,8 @@ def test_expected_launches_full_width_sdxl():
     n_unet = sum(p.numel() for p in pipe.unet.parameters())
     assert 2.56e9 < n_unet < 2.57e9  # SDXL base UNet: 2.567 B parameters
     # 70 self-attentions per UNet forward take flash; 46 GroupNorms per UNet
-    # forward and 30 in the VAE decoder
+    # forward and 30 in the VAE decoder; the CLIP-L and bigG towers' 2 x 12 + 1
+    # and 2 x 32 + 1 LayerNorms for the prompt and the negative prompt
     assert expected_launches(pipe, 1024, 1024, 25) == {"flash_attention": 70 * 25,
-                                                       "group_norm": 46 * 25 + 30}
+                                                       "group_norm": 46 * 25 + 30,
+                                                       "layer_norm": 2 * (25 + 65)}
