@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (paddlemix_tpu_torch) on one CUDA card.
 
-Drives six slices at their published widths with weights drawn on the card
-from a seeded torch.Generator:
+Drives seven slices at their published widths with weights drawn on the
+card from a seeded torch.Generator:
 
   - SDXL-1024 text-to-image through StableDiffusionXLPipeline.__call__, in
     bf16 and then in the static a8w8 configuration (one pipeline built with
     quant="a8w8_static" serves both: until its scales are loaded it is the
-    bf16 path);
+    bf16 path), the a8w8 request also with int8 QK^T attention
+    (PMIX_INT8_ATTN=1);
   - LLaVA-1.5-7B generation through LlavaForConditionalGeneration.generate
     (CLIP ViT-L/14-336, mlp2x_gelu projector, Llama-7B, all 32 layers) at the
     JAX bench's shapes, in bf16 and then weight-only int8 (wint8);
@@ -27,7 +28,11 @@ from a seeded torch.Generator:
     fp32 weights, bf16 compute) at batch 256: the dual-tower bench forward
     (models.clip.vitb16.pair_logits) and contrastive training through
     tools.train_clip.build_trainer and Trainer.train (lr 5e-4, cosine,
-    warmup max(steps // 10, 1), clip 1.0; 10 steps, no checkpoints).
+    warmup max(steps // 10, 1), clip 1.0; 10 steps, no checkpoints);
+  - SD1.5-512 text-to-image through StableDiffusionPipeline.__call__
+    (runwayml/stable-diffusion-v1-5: UNet 320-1280 with 1x1-conv
+    projections and 8 heads a block, so head_dim 40, 80 and 160; CLIP-L text;
+    PNDM) in bf16, 50 steps, guidance 7.5.
 
 Phases:
 
@@ -51,7 +56,17 @@ Phases:
                    activation quantize, which must fail the same limit (and,
                    ungated, all kernels vs plain and a8w8 vs bf16)
   8. a8w8 serve    the same 3 requests in a8w8, with the same checks
-  9. llava kernels the SDXL pipeline is freed; each LLaVA kernel (wint8 GEMM,
+  9. a8w8 int8-attn B1's int8 QK^T form against its plain version per
+                   element at the SDXL and SD1.5 self-attention shapes, with
+                   a control (quantizing by truncation) that must fail the
+                   same limit; with PMIX_INT8_ATTN=1, one full-width a8w8
+                   UNet forward at the request's size whose 70 int8 calls
+                   are each held per element against the plain version on
+                   their own inputs, with the same control; then the first
+                   a8w8 request, counts set to 0 just before it: all 1,750
+                   flash calls on the int8 form, none on bf16 B1, image
+                   finite in [0, 1]
+ 10. llava kernels the SDXL pipeline is freed; each LLaVA kernel (wint8 GEMM,
                    decode attention, RMSNorm) against its plain version at
                    the decode and prefill shapes (RMSNorm also at T5's 77
                    rows, the SD3 path's), with times and bounds;
@@ -61,28 +76,28 @@ Phases:
                    1-row RMSNorm's 8 KiB stays warm); decode attention is
                    also run with every length one short, which must fail
                    its limit
- 10. llava agree   LLaVA-7B bf16: prefill (608 tokens) + 4 decode steps, the
+ 11. llava agree   LLaVA-7B bf16: prefill (608 tokens) + 4 decode steps, the
                    kernels vs their plain versions swapped in
- 11. llava serve   3 requests as the JAX bench makes them (576 image
+ 12. llava serve   3 requests as the JAX bench makes them (576 image
                    placeholders + 32 text ids, seeded pixels, 128 new
                    tokens, eos -1): TTFT, decode tokens/s, peak memory, and
                    launches equal to `expected_launches_llava`
- 12. wint8         quantize in place (seconds, bytes freed), then agree and
+ 13. wint8         quantize in place (seconds, bytes freed), then agree and
                    serve again with the wint8 GEMM as well
- 13. sd3 kernels   LLaVA is freed; adaLN (B12) and fused adaLN + gated
+ 14. sd3 kernels   LLaVA is freed; adaLN (B12) and fused adaLN + gated
                    residual (B13) against their plain versions at the image
                    and context rows, each with a control (the plain version
                    without the shift, or without the gate) that must fail
                    the same limit; flash at the ragged 4,250-token joint
                    attention, whose control leaves out the 26 keys of the
                    ragged tail; times and bounds as above
- 14. sd3 agree     SD3-medium is built; one full-width transformer forward at
+ 15. sd3 agree     SD3-medium is built; one full-width transformer forward at
                    64x64 latents (1,024 + 154 tokens), kernels vs plain
- 15. sd3 serve     3 requests, 1024x1024, 28 steps, guidance 7.0: seconds,
+ 16. sd3 serve     3 requests, 1024x1024, 28 steps, guidance 7.0: seconds,
                    image finite in [0, 1], peak memory, and launches of every
                    kernel equal to `expected_launches_sd3` (B1, B4, B11, B12,
                    B13; every other kernel 0)
- 16. llama kernels SD3 is freed; int8-cache decode attention (B8) and paged
+ 17. llama kernels SD3 is freed; int8-cache decode attention (B8) and paged
                    decode attention (B9) against their plain versions at the
                    serving paths' shapes (B8 at 4,095 keys of a 4,096-slot
                    cache; B9 at the paged batch's last step over a permuted,
@@ -92,20 +107,20 @@ Phases:
                    each sequence's last, partly filled block); times, bounds
                    and library times (SDPA over the dequantized or gathered
                    bf16 cache, the dequant or gather not included)
- 17. llama int8kv  Llama-2-7B is built with cachekv_int8; agree (prefill of
+ 18. llama int8kv  Llama-2-7B is built with cachekv_int8; agree (prefill of
                    3,968 tokens + 4 decode steps, B8 and B11 vs their plain
                    versions); 3 requests of 3,968 prompt tokens and 128 new
                    ones (no eos): TTFT, decode tokens/s, peak memory, cache
                    bytes, launches as `expected_launches_llama` derives them;
                    then the same 3 requests over the bf16 KVCache (B7)
- 18. llama paged   a batch of 8 right-padded prompts (2,000 down to 130
+ 19. llama paged   a batch of 8 right-padded prompts (2,000 down to 130
                    tokens), 128 new tokens each, blocks of 128: agree (B9 and
                    B11 vs plain, and the paged path against the dense cache
                    on the same batch); 3 batches through paged_greedy_generate
                    over a pool of exactly the 67 blocks they need: batch
                    TTFT, aggregate decode tokens/s, peak memory, pool bytes
                    against a dense cache's, launches as derived
- 19. train kernels Llama is freed; the lse forward (B15, B1's causal +
+ 20. train kernels Llama is freed; the lse forward (B15, B1's causal +
                    segments + GQA form), the backward's dkv and dq kernels
                    (B14) and RMSNorm's backward (B11, dx alone as the path
                    runs it, then with dw) against their plain versions at the
@@ -116,20 +131,20 @@ Phases:
                    the first pass alone); times,
                    bounds and library times (SDPA and its backward, the
                    backward of F.rms_norm)
- 20. train agree   Llama-2-7B is built with LoRA factors (b drawn non-zero):
+ 21. train agree   Llama-2-7B is built with LoRA factors (b drawn non-zero):
                    one packed 1 x 2048 micro-batch, forward + backward, the
                    kernels vs their plain versions swapped in: the loss and
                    every factor's gradient, the gradients' gap held against
                    that of two plain versions one rounding apart (P rounded
                    to bf16 before P.V or not), and the launches of the kernel
                    run against `expected_launches_train`
- 21. train         the factors are taken off; build_trainer + Trainer.train
+ 22. train         the factors are taken off; build_trainer + Trainer.train
                    over a seeded dataset: 4 optimizer steps (the second read
                    for a non-zero lora_b, the last under the profiler):
                    seconds a step, tokens/s, model TFLOP/s, busy share, peak
                    memory; every loss and grad_norm finite; launches equal to
                    `expected_launches_train` and no inference kernel launched
- 22. clip kernels  Llama is freed; LayerNorm (B10) and its backward against
+ 23. clip kernels  Llama is freed; LayerNorm (B10) and its backward against
                    their plain versions at the CLIP path's rows (the vision
                    tower's 50,432 x 768, the text tower's 19,712 x 512, the
                    pooled 256 x 768 as a strided slice) and at the other
@@ -139,14 +154,14 @@ Phases:
                    mean subtracted; dx without its mean(g w) term; dw and db of
                    the first program's rows alone); times, bounds and library
                    times (F.layer_norm and its backward)
- 23. clip          CLIP ViT-B/16 is built; agree (the logits of one seeded
+ 24. clip          CLIP ViT-B/16 is built; agree (the logits of one seeded
                    batch of 256, B10 vs plain, held within 1.25x of two plain
                    versions one bf16 rounding apart); 12 timed bench forwards
                    (zero pixels, ids all ones, as bench.py): pairs/s median
                    and spread, model TFLOP/s by the bench's flop count, busy
                    share of a profiled forward, peak memory, 51 B10 launches a
                    forward and no other kernel
- 24. clip train  train agree (one batch, kernels vs plain: the loss within
+ 25. clip train  train agree (one batch, kernels vs plain: the loss within
                    10x, the gradients' median over all parameters and their
                    largest gap over the parameters whose gradient stands above
                    the rounding noise within 1.25x of two plain versions one
@@ -158,6 +173,22 @@ Phases:
                    TFLOP/s (3x the forward's), reader share, busy share of a
                    profiled step, peak memory, finite losses, every parameter
                    moved, 51 B10 and 51 B10-backward launches a step
+ 26. sd15 kernels  CLIP is freed; B4 at SD1.5's GroupNorm shapes that
+                   SDXL's lack (20 and 60 channels a group, the 512 px VAE),
+                   on channels of their own mean and scale, with a control
+                   (the plain version over 16 groups) that must fail; B1 at
+                   SD1.5's three self-attention shapes (head_dim 40, 80 and
+                   160) and at 256 (1, 1024, 4, 256), and its lse form (B15)
+                   at 160 and 256, against their plain versions per
+                   element, each with a control (the last key tile left out)
+                   that must fail
+ 27. sd15 agree    SD1.5 is built; one full-width UNet forward at 64x64
+                   latents, kernels (B1 at head_dim 40, 80 and 160, B4) vs
+                   plain
+ 28. sd15          3 requests, 512x512, 50 PNDM steps, guidance 7.5: seconds,
+                   busy share of the last (profiled), peak memory, image
+                   finite in [0, 1], launches equal to `expected_launches_sd15`
+                   (750 B1 a request, 250 of them at head_dim 160; B4; 50 B10)
 
 Any failed check exits non-zero. Without a CUDA card, or outside a checkout
 of the repository, it exits non-zero before printing any result. The line
@@ -168,6 +199,8 @@ before that a JSON summary of the kernels, and the last line is
 Usage: python3 chip_smoke.py
 """
 
+import collections
+import contextlib
 import gc
 import itertools
 import json
@@ -269,6 +302,37 @@ INT8_DECODE_SUM, PAGED_SUM = 1e-5, 1e-6
 LLAMA_AGREE_TOL = 5e-2  # relative L2 of the full-width Llama logits, kernels vs plain
 LLAMA_AGREE_STEPS = 4  # decode steps after the prefill in the Llama agree checks
 LLAMA_REQUESTS = [1, 2, 3]  # prompt seeds
+# B1's int8 QK^T form (PMIX_INT8_ATTN=1) on the SDXL a8w8 request, and
+# per element at the SDXL and SD1.5 self-attention shapes. The kernel's scores
+# equal its plain version's bit for bit; the rest differs by P's rounding, as
+# bf16 B1 does, so the gate is B1's: 2**-7 |ref| + INT8_ATTN_SUM |ref|max. The
+# control quantizes by truncation in place of round-half-even and must fail.
+INT8_ATTN_SUM = 4e-3
+# The same gate on the 70 int8 calls of a full-width a8w8 UNet forward, on
+# each call's own q / k / v: a first H100 run needed at most 1.21e-4 there,
+# the truncation control 7.6e-6 to 9.0e-3 a call
+# (tools/probe_torch_int8_attn_agree.py); a forward fails if any call does.
+INT8_ATTN_PATH_SUM = 5e-4
+INT8_ATTN_SHAPES = [(2, 4096, 10, 64), (2, 1024, 20, 64), (2, 4096, 8, 40), (2, 1024, 8, 80),
+                    (2, 256, 8, 160)]
+# SD1.5-512 (runwayml/stable-diffusion-v1-5 = the JAX package's single-file
+# configs): 512 px, 50 PNDM steps, guidance 7.5 (CFG batch 2), the JAX
+# pipeline's defaults. B1 at head_dim 160 (SD1.5's 1280-wide blocks over 256
+# tokens) and 256 (no path model has it) per element, with B15 at both widths.
+SD15_SIZE = 512
+SD15_STEPS = 50
+SD15_GUIDANCE = 7.5
+SD15_REQUESTS = REQUESTS
+# B1 at the three self-attention shapes of a request (head_dim 40 runs the
+# D = 64 instantiation, 80 the D = 96 one) and at 256
+SD15_FLASH_SHAPES = [(2, 4096, 8, 40), (2, 1024, 8, 80), (2, 256, 8, 160), (1, 1024, 4, 256)]
+# B4 at SD1.5's shapes that GN_CASES (SDXL's) lacks: 20 and 60 channels a
+# group in the UNet, the 512 px VAE decoder's; "none" before the transformer
+# blocks' projections and the VAE's mid attention
+SD15_GN_CASES = [((2, 32, 32, 640), "silu"), ((2, 8, 8, 1280), "silu"),
+                 ((2, 16, 16, 1920), "silu"), ((2, 64, 64, 320), "none"),
+                 ((1, 64, 64, 512), "none"), ((1, 256, 256, 256), "silu"),
+                 ((1, 512, 512, 128), "silu")]
 # H100 SXM peaks (NVIDIA data sheet, dense) for the bounds
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
@@ -323,8 +387,14 @@ def library_ms(torch, fn):
 def bound(nbytes, ops, kind):
     """(least ms the card could take, what bounds it): the larger of the bytes
     over the memory rate and the operations over the peak rate for their type."""
+    return bound_parts(nbytes, [(ops, kind)])
+
+
+def bound_parts(nbytes, parts):
+    """`bound` for work of several types: the bytes' time, or the sum over
+    (ops, type) of each part's operations over its peak, whichever is larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    t_ops = sum(ops / PEAK_OPS_PER_S[kind] * 1e3 for ops, kind in parts)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1297,6 +1367,221 @@ def clip_slice(torch, np, dev, m, counters):
     return launches_clip, got, clip_stats, train_stats
 
 
+# -------------------------------------------------- B1's int8 QK^T form
+def truncating_quantize(torch):
+    """`quantize_rows_int8` with truncation in place of round-half-even: the
+    control of the int8 QK^T checks."""
+    def quantize(x):
+        xf = x.float()
+        a = xf.abs().amax(-1).clamp_min(1e-9)
+        return torch.trunc(xf * (torch.full_like(a, 127.0) / a)[..., None]).clamp(
+            -127, 127).to(torch.int8), a
+    return quantize
+
+
+def int8_attention_kernels(torch, F, dev, gen, record, attn):
+    """The int8 QK^T kernel against `flash_attention_int8_ref` per element at
+    the SDXL and SD1.5 self-attention shapes, with the truncation control;
+    times, bounds (the int8 QK^T at the int8 peak plus the bf16 P.V at the bf16
+    peak, or the bytes) and, as the nearest yardstick, SDPA in bf16 (no
+    PyTorch call computes int8 attention)."""
+    bf16 = torch.bfloat16
+    worst, control_least = 0.0, float("inf")
+    for shape in INT8_ATTN_SHAPES:
+        b_, s_, h_, d_ = shape
+        q, k, v = (torch.randn(shape, generator=gen, device=dev, dtype=bf16) for _ in range(3))
+        out = attn.flash_attention_int8(q, k, v)
+        torch.cuda.synchronize()
+        ref = attn.flash_attention_int8_ref(q, k, v)
+        err = (out.float() - ref.float()).abs().max().item()
+        excess, need = ulp_gate(out, ref, INT8_ATTN_SUM)
+        with swapped([(attn, "quantize_rows_int8", truncating_quantize(torch))]):
+            control, control_need = ulp_gate(attn.flash_attention_int8_ref(q, k, v), ref,
+                                             INT8_ATTN_SUM)
+        worst, control_least = max(worst, need), min(control_least, control_need)
+        print(f"[int8 kernels] flash_attention_int8 {shape} bf16: max_abs_err {err:.3e}, excess "
+              f"{excess:.3e} over 2**-7|ref| + {INT8_ATTN_SUM:g}|ref|max (least c {need:.2e}); "
+              f"control quantizing by truncation: excess {control:.3e}, least c "
+              f"{control_need:.2e} (must be > 0)", flush=True)
+        check(bool(torch.isfinite(out).all()) and excess <= 0,
+              f"flash_attention_int8 {shape}: excess {excess}")
+        check(control > 0, f"flash_attention_int8 {shape}: the control passes ({control})")
+        del ref
+        ms, plain_ms = timed_pair(torch, lambda: attn.flash_attention_int8(q, k, v),
+                                  lambda: attn.flash_attention_int8_ref(q, k, v))
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        lib_ms = library_ms(torch, lambda: F.scaled_dot_product_attention(qh, kh, vh))
+        pv = 2 * b_ * h_ * s_ * s_ * d_
+        record("int8 kernels", "flash_attention_int8", shape, err, ms, plain_ms, lib_ms,
+               bound_parts(nbytes(q, k, v, out), [(pv, "int8"), (pv, "bf16")]),
+               " (library: SDPA in bf16, the nearest yardstick)")
+        del q, k, v, out
+    print(f"[int8 kernels] least c over the shapes: kernel {worst:.2e}, truncation control "
+          f"{control_least:.2e} (gate {INT8_ATTN_SUM:g})", flush=True)
+
+
+@contextlib.contextmanager
+def checked_int8_calls(torch, attn, c):
+    """Inside the block, every `flash_attention_int8` call the model makes
+    launches the kernel and is held per element against
+    `flash_attention_int8_ref` on that call's own q / k / v (|out - ref| <=
+    2**-7 |ref| + c |ref|max), with the truncation control. Yields a list
+    that gets (shape, excess, least c, control excess, control least c) a
+    call. The kernel's output is what the model gets."""
+    rows, kernel = [], attn.flash_attention_int8
+
+    def checked(q, k, v, **kw):
+        with swapped([(attn, "flash_attention_int8", kernel)]):  # it counts by its name
+            out = kernel(q, k, v, **kw)
+        ref = attn.flash_attention_int8_ref(q, k, v, **kw)
+        with swapped([(attn, "quantize_rows_int8", truncating_quantize(torch))]):
+            control = attn.flash_attention_int8_ref(q, k, v, **kw)
+        rows.append((tuple(q.shape),) + ulp_gate(out, ref, c) + ulp_gate(control, ref, c))
+        return out
+    with swapped([(attn, "flash_attention_int8", checked)]):
+        yield rows
+
+
+# ------------------------------------------------------------ SD1.5 slice
+def sd15_kernels(torch, F, dev, gen, record, flash_case, gn_case, attn):
+    """B1 at SD1.5's self-attention shapes and at head_dim 256 against its
+    plain version, per element with B1's gate and last-tile control; B15 at
+    head_dim 160 and 256 the same way; B4 at SD1.5's GroupNorm shapes that
+    SDXL's lack."""
+    bf16 = torch.bfloat16
+    for shape, act in SD15_GN_CASES:
+        gn_case("sd15 kernels", shape, act, control=True)
+    for shape in SD15_FLASH_SHAPES:
+        d_ = shape[3]
+        flash_case("sd15 kernels", shape,
+                   "flash_attention" if d_ <= 128 else f"flash_attention_d{d_}")
+        if d_ <= 128:
+            continue  # B15 at head dims up to 128 is held in train kernels
+        b_, s_, h_, _ = shape
+        q, k, v = (torch.randn(shape, generator=gen, device=dev, dtype=bf16) for _ in range(3))
+        qs = (q.float() * (d_ ** -0.5 * attn.LOG2E)).to(bf16)
+        o, lse = attn.flash_fwd_lse(qs, k, v)
+        torch.cuda.synchronize()
+        ro, rlse = attn.flash_fwd_lse_ref(qs.float(), k.float(), v.float())
+        excess, need = ulp_gate(o, ro, FLASH_SUM)
+        lse_err = (lse - rlse).abs().max().item()
+        n = s_ - 64
+        control, _ = ulp_gate(attn.flash_fwd_lse_ref(qs.float(), k[:, :n].float(),
+                                                     v[:, :n].float())[0], ro, FLASH_SUM)
+        print(f"[sd15 kernels] flash_fwd_lse {shape}: o excess {excess:.3e} (least c "
+              f"{need:.2e}, c {FLASH_SUM}), lse max err {lse_err:.3e} (tol {LSE_TOL}); control "
+              f"without the last 64 keys: excess {control:.3e} (must be > 0)", flush=True)
+        check(bool(torch.isfinite(o).all()) and excess <= 0 and lse_err <= LSE_TOL,
+              f"flash_fwd_lse {shape}: excess {excess}, lse err {lse_err}")
+        check(control > 0, f"flash_fwd_lse {shape}: the control passes ({control})")
+        ms, plain_ms = timed_pair(torch, lambda: attn.flash_fwd_lse(qs, k, v),
+                                  lambda: attn.flash_fwd_lse_ref(qs, k, v))
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        lib_ms = library_ms(torch, lambda: F.scaled_dot_product_attention(qh, kh, vh))
+        record("sd15 kernels", f"flash_fwd_lse_d{d_}", shape, (o.float() - ro).abs().max().item(),
+               ms, plain_ms, lib_ms,
+               bound(nbytes(qs, k, v, o, lse), 4 * b_ * h_ * s_ * s_ * d_, "bf16"))
+        del q, k, v, qs, o, lse, ro, rlse
+
+
+def sd15_slice(torch, np, dev, gen, m, counters):
+    """sd15 agree and sd15 (see the module docstring). `counters` are every
+    kernel wrapper's, by name. Returns the launches over the requests and the
+    numbers."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddlemix_tpu_torch.diffusers.sd15 import expected_launches_sd15, random_sd15_pipeline
+
+    bf16 = torch.bfloat16
+    t0 = time.perf_counter()
+    pipe = random_sd15_pipeline(dev, bf16, seed=0)
+    torch.cuda.synchronize()
+    n_params = {name: sum(p.numel() for p in getattr(pipe, name).parameters())
+                for name in ("unet", "vae", "text_encoder")}
+    print(f"[sd15] SD1.5 built on the card in {time.perf_counter() - t0:.1f} s: {n_params}, "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated", flush=True)
+
+    # ----------------------------------------------------------- sd15 agree
+    f = pipe.vae_scale_factor
+    lat = torch.randn((2, SD15_SIZE // f, SD15_SIZE // f, 4), generator=gen, device=dev)
+    t = pipe.scheduler.set_timesteps(SD15_STEPS).timesteps[:1].to(dev).expand(2)
+    ctx = torch.randn((2, 77, 768), generator=gen, device=dev, dtype=bf16)
+
+    def unet(swaps=()):
+        with torch.inference_mode(), swapped(swaps):
+            return pipe.unet(lat.to(bf16), t, ctx).float()
+
+    before = counters["flash_attention"].launches_by_dim.copy()
+    out_k = unet()
+    by_dim = dict(counters["flash_attention"].launches_by_dim - before)
+    out_p = unet(plain_swaps(m, int8=False))
+    rel = rel_l2(out_k, out_p)
+    print(f"[sd15 agree] full-width SD1.5 UNet at {SD15_SIZE // f}x{SD15_SIZE // f} latents, "
+          f"kernels (flash at head_dim 40 / 80 / 160: {by_dim} launches; GroupNorm) vs plain: "
+          f"relative L2 {rel:.3e} (tol {AGREE_TOL}), |out| max {out_p.abs().max().item():.3f}",
+          flush=True)
+    check(bool(torch.isfinite(out_k).all()) and rel <= AGREE_TOL, f"sd15 agree: relative L2 {rel}")
+    check(by_dim == {40: 5, 80: 5, 160: 5}, f"sd15 agree: flash launches by head_dim {by_dim}")
+    del out_k, out_p, lat, ctx
+
+    # ----------------------------------------------------------------- sd15
+    want = expected_launches_sd15(pipe, SD15_SIZE, SD15_SIZE, SD15_STEPS, SD15_GUIDANCE)
+    want_dim = want.pop("flash_attention_by_dim")
+    want = {name: want.get(name, 0) for name in counters}
+    print(f"[sd15] expected launches per request (walking the blocks): {want}; flash by head_dim "
+          f"{want_dim}", flush=True)
+    check(want_dim.get(160) == 250, f"sd15: {want_dim.get(160)} head_dim-160 launches walked")
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    counters["flash_attention"].launches_by_dim.clear()
+    seconds = []
+    for i, (prompt, seed) in enumerate(SD15_REQUESTS):
+        before = {name: fn.launches for name, fn in counters.items()}
+        dim_before = counters["flash_attention"].launches_by_dim.copy()
+        last = i == len(SD15_REQUESTS) - 1
+        with profile(activities=[ProfilerActivity.CUDA]) if last else contextlib.nullcontext() \
+                as prof:
+            t0 = time.perf_counter()
+            image = pipe(prompt, height=SD15_SIZE, width=SD15_SIZE,
+                         num_inference_steps=SD15_STEPS, guidance_scale=SD15_GUIDANCE,
+                         seed=seed, output_type="np")[0]
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        got = {name: fn.launches - before[name] for name, fn in counters.items()}
+        got_dim = dict(counters["flash_attention"].launches_by_dim - dim_before)
+        print(f"[sd15] seed {seed}: {seconds[-1]:.3f} s{' (profiled)' if last else ''} | image "
+              f"{image.shape} finite {bool(np.isfinite(image).all())} range [{image.min():.3f}, "
+              f"{image.max():.3f}] mean {image.mean():.3f} std {image.std():.3f} | launches "
+              f"{got}; flash by head_dim {got_dim}", flush=True)
+        check(image.shape == (1, SD15_SIZE, SD15_SIZE, 3), f"sd15 image shape {image.shape}")
+        check(bool(np.isfinite(image).all()), "sd15 image not finite")
+        check(image.min() >= 0.0 and image.max() <= 1.0, "sd15 image outside [0, 1]")
+        check(got == want and got_dim == want_dim,
+              f"sd15: launches {got} / {got_dim} != expected {want} / {want_dim}")
+    by_kernel = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                        for e in prof.key_averages() if e.self_device_time_total > 0),
+                       reverse=True)
+    device_ms = sum(ms_ for ms_, _, _ in by_kernel)
+    busy = device_ms / 1e3 / seconds[-1]
+    busy_unprofiled = device_ms / 1e3 / sorted(seconds[:-1])[len(seconds[:-1]) // 2]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = {name: fn.launches for name, fn in counters.items()}
+    launches["flash_attention_d160"] = counters["flash_attention"].launches_by_dim[160]
+    print(f"[sd15] seconds per request {[round(x, 3) for x in seconds]}; profiled request "
+          f"{device_ms:.1f} ms of device time in {1e3 * seconds[-1]:.1f} ms: busy "
+          f"{100 * busy:.1f}% ({100 * busy_unprofiled:.1f}% of the unprofiled requests' "
+          f"median); {sum(n_ for _, n_, _ in by_kernel)} kernels; peak memory {peak:.2f} GiB; "
+          f"launches over "
+          f"{len(SD15_REQUESTS)} requests {launches}", flush=True)
+    for ms_, n_, key in by_kernel[:10]:
+        print(f"[sd15]   profiled request: {ms_:8.2f} ms {100 * ms_ / device_ms:5.1f}% {n_:6d}x "
+              f"{key[:100]}", flush=True)
+    del pipe
+    return launches, dict(seconds=seconds, busy=busy, busy_unprofiled=busy_unprofiled,
+                          peak_gib=peak, device_ms=device_ms)
+
+
 def main():
     import types
 
@@ -1365,7 +1650,7 @@ def main():
         summary.setdefault(name, []).append(dict(shape=shape, err=err, ms=ms, plain_ms=plain_ms,
                                                  library_ms=lib_ms, bound=bnd))
 
-    def flash_case(label, shape):
+    def flash_case(label, shape, name="flash_attention"):
         b_, s_, h_, d_ = shape
         q, k, v = (torch.randn(shape, generator=gen, device=dev, dtype=bf16) for _ in range(3))
         out = attn_mod.flash_attention(q, k, v)
@@ -1387,14 +1672,17 @@ def main():
                                   lambda: attn_mod.flash_attention_ref(q, k, v))
         qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
         lib_ms = library_ms(torch, lambda: F.scaled_dot_product_attention(qh, kh, vh))
-        record(label, "flash_attention", shape, err, ms, plain_ms, lib_ms,
+        record(label, name, shape, err, ms, plain_ms, lib_ms,
                bound(nbytes(q, k, v, out), 4 * b_ * h_ * s_ * s_ * d_, "bf16"))
 
     for shape in FLASH_SHAPES:
         flash_case("kernels", shape)
-    for shape, act in GN_CASES:
+    def gn_case(label, shape, act, control=False):
         c = shape[-1]
         x = torch.randn(shape, generator=gen, device=dev, dtype=bf16)
+        if control:  # channels of their own mean and scale, so the grouping shows
+            x = (x.float() * (0.5 + 1.5 * torch.rand(c, generator=gen, device=dev))
+                 + torch.randn(c, generator=gen, device=dev)).to(bf16)
         w = (1.0 + 0.05 * torch.randn(c, generator=gen, device=dev)).to(bf16)
         b = (0.05 * torch.randn(c, generator=gen, device=dev)).to(bf16)
         t0 = time.perf_counter()
@@ -1403,8 +1691,14 @@ def main():
         first_s = time.perf_counter() - t0
         ref = norms_mod.group_norm_ref(x.float(), w.float(), b.float(), 32, 1e-5, act)
         err = (out.float() - ref).abs().max().item()
-        print(f"[kernels] group_norm {shape} {act} bf16: max_abs_err {err:.3e} (tol {GN_TOL}) | "
-              f"first call {first_s:.2f} s", flush=True)
+        note = ""
+        if control:  # the plain version over 16 groups of twice the channels
+            control = (norms_mod.group_norm_ref(x.float(), w.float(), b.float(), 16, 1e-5, act)
+                       - ref).abs().max().item()
+            note = f"; control over 16 groups: {control:.3e} (must exceed the tol)"
+            check(control > GN_TOL, f"group_norm {shape} {act}: the control passes ({control})")
+        print(f"[{label}] group_norm {shape} {act} bf16: max_abs_err {err:.3e} (tol {GN_TOL})"
+              f"{note} | first call {first_s:.2f} s", flush=True)
         check(bool(torch.isfinite(out).all()) and err <= GN_TOL,
               f"group_norm {shape} {act}: err {err}")
         ms, plain_ms = timed_pair(torch, lambda: norms_mod.group_norm(x, w, b, 32, 1e-5, act),
@@ -1415,9 +1709,12 @@ def main():
             y = F.group_norm(x_nchw, 32, w, b, 1e-5)
             return F.silu(y) if act == "silu" else y
         # a few fp32 operations an element (moments, affine, SiLU): bytes bound it
-        record("kernels", "group_norm", shape, err, ms, plain_ms, library_ms(torch, torch_gn),
+        record(label, "group_norm", shape, err, ms, plain_ms, library_ms(torch, torch_gn),
                bound(nbytes(x, w, b, out), 8 * x.numel(), "fp32"), f" {act}")
         del x, out, ref, x_nchw
+
+    for shape, act in GN_CASES:
+        gn_case("kernels", shape, act)
 
     def int8_case(name, shape, kernel, plain, library, extra=""):
         out = kernel()
@@ -1536,7 +1833,9 @@ def main():
     out_bf16 = unet(calib_inputs)
 
     # ----------------------------------------------------------------- serve
-    counters = {"flash_attention": attn_mod.flash_attention, "group_norm": norms_mod.group_norm,
+    counters = {"flash_attention": attn_mod.flash_attention,
+                "flash_attention_int8": attn_mod.flash_attention_int8,
+                "group_norm": norms_mod.group_norm,
                 "group_norm_stats": norms_mod.group_norm_stats,
                 "layer_norm": norms_mod.layer_norm,
                 "int8_a8w8_matmul": conv_int8_mod.int8_a8w8_matmul,
@@ -1617,7 +1916,67 @@ def main():
           f"{[round(x, 3) for x in s_bf16]} (same run); peak memory a8w8 {peak_a8w8:.2f} GiB "
           f"vs bf16 {peak_bf16:.2f} GiB", flush=True)
 
+    # ------------------------------------------------------ a8w8 int8-attn
+    int8_attention_kernels(torch, F, dev, gen, record, attn_mod)
+    os.environ["PMIX_INT8_ATTN"] = "1"  # JAX's switch: every inference flash call takes int8 QK^T
+    prompt, seed = REQUESTS[0]
+    # int8-attn agree: one full-width a8w8 UNet forward at the request's size
+    # (the first request's prompt and timestep), each of its int8 attention
+    # calls held per element against the plain version on its own inputs;
+    # the forward passes if every call does. The UNet's output cannot gate
+    # this: any rounding change in attention moves this random-weight a8w8
+    # UNet by 7.4e-2 relative L2, the truncation control no more
+    # (tools/probe_torch_int8_attn_agree.py)
+    with torch.inference_mode():
+        ctx_f, added_f, lat_f = pipe.prepare_inputs(prompt, HEIGHT, WIDTH, GUIDANCE, seed=seed)
+    full_inputs = (torch.cat([lat_f, lat_f]).to(bf16), t_c, ctx_f, added_f)
+    with checked_int8_calls(torch, attn_mod, INT8_ATTN_PATH_SUM) as calls:
+        out_i8 = unet(full_inputs)
+    worst = max(r[2] for r in calls)
+    control_least = min(r[4] for r in calls)
+    control_most = max(r[4] for r in calls)
+    by_shape = collections.Counter(r[0] for r in calls)
+    print(f"[a8w8 int8-attn agree] full-width a8w8 UNet at {HEIGHT // 8}x{WIDTH // 8} latents: "
+          f"{len(calls)} int8 attention calls {dict(by_shape)}, each per element against "
+          f"the plain version on its own inputs: largest excess "
+          f"{max(r[1] for r in calls):.3e} over 2**-7|ref| + {INT8_ATTN_PATH_SUM:g}|ref|max "
+          f"(least c {worst:.2e}); truncation control: largest excess "
+          f"{max(r[3] for r in calls):.3e} (must be > 0), least c {control_least:.2e} "
+          f".. {control_most:.2e}, failing on "
+          f"{sum(r[3] > 0 for r in calls)} calls", flush=True)
+    check(bool(torch.isfinite(out_i8).all()), "a8w8 int8-attn agree: UNet output not finite")
+    check(len(calls) == 70, f"a8w8 int8-attn agree: {len(calls)} int8 calls, not 70")
+    check(all(r[1] <= 0 for r in calls), f"a8w8 int8-attn agree: least c {worst}")
+    check(any(r[3] > 0 for r in calls),
+          f"a8w8 int8-attn agree: the control passes on every call (least c {control_most})")
+    del out_i8, full_inputs, ctx_f, added_f, lat_f
+
+    # the request: counts set to 0 just before it, read just after
+    want = expected_launches(pipe, HEIGHT, WIDTH, STEPS, guidance_scale=GUIDANCE)
+    want = {name: want.get(name, 0) for name in names}
+    for fn in counters.values():
+        fn.launches = 0
+    conv_int8_mod.int8_conv2d_plain.calls = 0
+    t0 = time.perf_counter()
+    image_i8 = pipe(prompt, height=HEIGHT, width=WIDTH, num_inference_steps=STEPS,
+                    guidance_scale=GUIDANCE, seed=seed, output_type="np")[0]
+    torch.cuda.synchronize()
+    s_i8attn = time.perf_counter() - t0
+    launches_i8attn = {name: count(name) for name in names}
+    del os.environ["PMIX_INT8_ATTN"]
+    print(f"[a8w8 int8-attn] seed {seed}: {s_i8attn:.3f} s (a8w8 with bf16 attention "
+          f"{[round(x, 3) for x in s_a8w8]}) | image {image_i8.shape} range "
+          f"[{image_i8.min():.3f}, {image_i8.max():.3f}] mean {image_i8.mean():.3f} | launches "
+          f"{launches_i8attn} (expected {want})", flush=True)
+    check(image_i8.shape == (1, HEIGHT, WIDTH, 3), f"a8w8 int8-attn: image shape {image_i8.shape}")
+    check(bool(np.isfinite(image_i8).all()) and image_i8.min() >= 0.0 and image_i8.max() <= 1.0,
+          "a8w8 int8-attn: image not finite in [0, 1]")
+    check(launches_i8attn == want and want["flash_attention_int8"] == 1750
+          and want["flash_attention"] == 0, f"a8w8 int8-attn: launches {launches_i8attn} != "
+          f"expected {want}")
+
     # ------------------------------------------------------ free the pipeline
+    del image_i8
     del pipe, out_bf16, out_a8w8, all_plain, rand_inputs, calib_inputs, ctx_c, added_c, lat_c
     gc.collect()
     torch.cuda.empty_cache()
@@ -2313,6 +2672,12 @@ def main():
     launches_clip, launches_clip_tr, clip_stats, clip_train_stats = clip_slice(
         torch, np, dev, tmods, every)
 
+    # ----------------------------------------------------------- SD1.5 slice
+    gc.collect()
+    torch.cuda.empty_cache()
+    sd15_kernels(torch, F, dev, gen, record, flash_case, gn_case, attn_mod)
+    launches_sd15, sd15_stats = sd15_slice(torch, np, dev, gen, mods, every)
+
     # --------------------------------------------------------------- summary
     def entry(name, route, source, replaces, by_phase):
         # ms / plain_ms / library_ms / bound at the first shape listed;
@@ -2328,7 +2693,8 @@ def main():
 
     def sdxl(name):
         return {"bf16": launches_bf16[name], "a8w8": launches_a8w8[name],
-                "sd3": launches_sd3[name]}
+                "a8w8_int8_attn": launches_i8attn[name], "sd3": launches_sd3[name],
+                "sd15": launches_sd15[name]}
 
     def llava(name):
         return {"llava_bf16": launches_llava[name], "llava_wint8": launches_wint8[name],
@@ -2377,12 +2743,26 @@ def main():
         entry("layer_norm", "triton", "paddlemix_tpu_torch/ops/norms.py",
               "paddlemix_tpu/ops/norms.py:204",
               {"bf16": launches_bf16["layer_norm"], "a8w8": launches_a8w8["layer_norm"],
+               "a8w8_int8_attn": launches_i8attn["layer_norm"], "sd15": launches_sd15["layer_norm"],
                "llava_bf16": launches_llava["layer_norm"],
                "llava_wint8": launches_wint8["layer_norm"], "sd3": launches_sd3["layer_norm"],
                "clip": launches_clip["layer_norm"], "clip_train": launches_clip_tr["layer_norm"]}),
         entry("layer_norm_backward", "triton", "paddlemix_tpu_torch/ops/norms.py",
               "paddlemix_tpu/ops/norms.py:226",
               {"clip_train": launches_clip_tr["layer_norm_backward"]}),
+        # B1's forms of this slice: int8 QK^T (the `int8_qk` branch of
+        # `_fwd_kernel`) and the wide heads, whose lse form (B15) no path runs
+        entry("flash_attention_int8", "cuda", "paddlemix_tpu_torch/csrc/flash_fwd.cu",
+              "paddlemix_tpu/ops/attention.py:89",
+              {"a8w8_int8_attn": launches_i8attn["flash_attention_int8"]}),
+        entry("flash_attention_d160", "cuda", "paddlemix_tpu_torch/csrc/flash_fwd.cu",
+              "paddlemix_tpu/ops/attention.py:243", {"sd15": launches_sd15["flash_attention_d160"]}),
+        entry("flash_attention_d256", "cuda", "paddlemix_tpu_torch/csrc/flash_fwd.cu",
+              "paddlemix_tpu/ops/attention.py:243", {}),
+        entry("flash_fwd_lse_d160", "cuda", "paddlemix_tpu_torch/csrc/flash_fwd.cu",
+              "paddlemix_tpu/ops/attention.py:243", {}),
+        entry("flash_fwd_lse_d256", "cuda", "paddlemix_tpu_torch/csrc/flash_fwd.cu",
+              "paddlemix_tpu/ops/attention.py:243", {}),
     ]
     by_name = {k["name"]: k for k in kernels}
     by_name["rms_norm"]["launches_by_phase"]["train"] = launches_tr["rms_norm"]
@@ -2395,7 +2775,10 @@ def main():
     # of their cache: B8, B7 or B9 (and, checked per request above, no other);
     # the CLIP towers of SDXL, LLaVA and SD3 run B10, and the CLIP phases B10
     # and (training) its backward, and nothing else
-    must_run = [(k["name"], "a8w8") for k in kernels[:5]] + \
+    must_run = [(k["name"], phase) for k in kernels[:5] for phase in ("a8w8", "a8w8_int8_attn")
+                if k["name"] != "flash_attention"] + [("flash_attention", "a8w8")] + \
+        [("flash_attention_int8", "a8w8_int8_attn"), ("flash_attention_d160", "sd15")] + \
+        [(name, "sd15") for name in ("flash_attention", "group_norm", "layer_norm")] + \
         [("flash_attention", "bf16"), ("group_norm", "bf16")] + \
         [(name, phase) for name in ("decode_attention", "rms_norm")
          for phase in ("llava_bf16", "llava_wint8")] + [("wint8_matmul", "llava_wint8")] + \
@@ -2416,6 +2799,7 @@ def main():
           and launches_wint8["flash_attention"] == 0, "LLaVA launched a kernel off its path")
     print(f"[summary] training: {train_stats}", flush=True)
     print(f"[summary] clip: {clip_stats}; clip train: {clip_train_stats}", flush=True)
+    print(f"[summary] sd15: {sd15_stats}", flush=True)
     print(f"[summary] chip_smoke ran {time.perf_counter() - T_START:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,17 +1,20 @@
 // Flash-attention forward for Hopper (sm_90a): bf16 q/k/v/o, fp32 online softmax.
 //
 // Replaces the Pallas kernel paddlemix_tpu/ops/attention.py `_flash_fwd` /
-// `_fwd_kernel`, in both of its forms: the inference form (B1, no lse output),
-// which serves the self-attention of the SDXL UNet and the SD3 MM-DiT, and the
-// form that also writes the base-2 log-sum-exp of each row (B15, `want_lse`),
-// which is the residual of the flash backward (csrc/flash_bwd.cu) on the
-// training path and the output of `flash_attention_with_lse`. Options, as in
-// the TPU kernel: causal (top-left aligned, col <= row; key tiles wholly above
-// the diagonal are skipped), segment ids (a key is seen only by queries of the
-// same id, from two int32 arrays), and GQA (query head h reads kv head
-// h / group).
+// `_fwd_kernel`, in its three forms: the inference form (B1, no lse output),
+// which serves the self-attention of the SD1.5 and SDXL UNets and the SD3
+// MM-DiT; the form that also writes the base-2 log-sum-exp of each row (B15,
+// `want_lse`), which is the residual of the flash backward (csrc/flash_bwd.cu)
+// on the training path and the output of `flash_attention_with_lse`; and the
+// inference form with int8 QK^T (`int8_qk`, PMIX_INT8_ATTN=1), which the SDXL
+// static-a8w8 request runs. Options, as in the TPU kernel: causal (top-left
+// aligned, col <= row; key tiles wholly above the diagonal are skipped),
+// segment ids (a key is seen only by queries of the same id, from two int32
+// arrays), and GQA (query head h reads kv head h / group). Head dims 32, 64,
+// 96, 128, 160 and 256 are compiled; the wrapper pads other widths up to the
+// next one with zero columns.
 //
-// What bounds it: at head_dim 64-128 the two products do 4*S*S*D flops per head
+// What bounds it: at head_dim 64-256 the two products do 4*S*S*D flops per head
 // for 4*S*D*2 bytes of q/k/v/o, so the card is compute-bound and the limit is
 // how well the tensor cores are fed. The scores never reach device memory: a
 // block owns 64 query rows of one (batch, head), keeps them in shared memory as
@@ -26,12 +29,28 @@
 // correction. q/k/v/o are read and written in their (B, S, H, D) layout through
 // strides, so no transpose copies are made. The ragged query and key edges are
 // masked by bounds (rows past S are zero-filled in shared memory; scores past
-// Skv are -inf), not by padding.
+// Skv are -inf), not by padding. O stays in shared memory, so the width costs
+// shared memory and not registers: 112,896 bytes at D 128 (two blocks an SM),
+// 133,376 at D 160 and 194,816 at D 256 (one block an SM).
+//
+// int8 QK^T (the TPU kernel's `int8_qk` branch and the XLA prologue of its
+// wrapper): each q row and each k row is quantized to int8 with its own
+// symmetric scale as its tile is loaded, with the fp32 operations of the
+// plain version (ops/attention.py `quantize_rows_int8`): a = max(max|x|,
+// 1e-9), x8 = clip(rint(x * (127 / a)), +-127), q's scale (a / 127) *
+// scale_log2, k's a / 127. S is summed exactly in int32 on the tensor cores
+// by mma.sync m16n8k32 s8.s8.s32 (the fragment scheme of csrc/int8_mma.cuh,
+// which B2 / B3 / B5 use) and dequantized row by row, s = (s32 * sq) * sk,
+// so the scores equal the plain version's bit for bit; the softmax and the
+// bf16 P V are B1's. Quantizing inside the block needs no pass over q / k in
+// device memory; k tiles are quantized again by each query block, which is
+// cheap next to the products. The int8 form has no lse output: under autograd
+// the forward stays bf16, as in JAX.
 //
 // Left for later work: wgmma + TMA with a producer warp and a ring of K/V
 // stages (this version loads K/V synchronously, then computes), keeping O in
 // registers, skipping key tiles that no query of the block shares a segment
-// with, head_dim above 128, int8 QK^T.
+// with, and quantizing each k tile once instead of once per query block.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,12 +69,15 @@ constexpr int NUM_THREADS = NUM_WARPS * 32;
 constexpr int PAD_H = 8;  // bf16 row padding: keeps WMMA ldm a multiple of 8, spreads banks
 constexpr int PAD_F = 4;  // fp32 row padding
 
-template <int D>
+template <int D, bool INT8>
 struct Layout {
   static constexpr int LD_QKV = D + PAD_H;
   static constexpr int LD_S = BLOCK_N + PAD_F;
   static constexpr int LD_P = BLOCK_N + PAD_H;
   static constexpr int LD_O = D + PAD_F;
+  // int8 rows: D + 16 bytes keeps every row 16-byte aligned for ldmatrix and
+  // puts the 8 rows one ldmatrix phase reads in different banks
+  static constexpr int LD_8 = D + 16;
   // every section is a multiple of 32 bytes, so every WMMA tile pointer is 32-byte aligned
   static constexpr size_t Q_BYTES = size_t(BLOCK_M) * LD_QKV * sizeof(bf16);
   static constexpr size_t KV_BYTES = size_t(BLOCK_N) * LD_QKV * sizeof(bf16);
@@ -63,8 +85,12 @@ struct Layout {
   static constexpr size_t P_BYTES = size_t(BLOCK_M) * LD_P * sizeof(bf16);
   static constexpr size_t O_BYTES = size_t(BLOCK_M) * LD_O * sizeof(float);
   static constexpr size_t SEG_BYTES = size_t(BLOCK_N) * sizeof(int);
-  static constexpr size_t TOTAL = Q_BYTES + 2 * KV_BYTES + S_BYTES + P_BYTES + O_BYTES +
-                                  SEG_BYTES;
+  static constexpr size_t Q8_BYTES = INT8 ? size_t(BLOCK_M) * LD_8 : 0;
+  static constexpr size_t K8_BYTES = INT8 ? size_t(BLOCK_N) * LD_8 : 0;
+  static constexpr size_t SCALE_BYTES = INT8 ? size_t(BLOCK_M + BLOCK_N) * sizeof(float) : 0;
+  static constexpr size_t Q8_OFF = Q_BYTES + 2 * KV_BYTES + S_BYTES + P_BYTES + O_BYTES +
+                                   SEG_BYTES;
+  static constexpr size_t TOTAL = Q8_OFF + Q8_BYTES + K8_BYTES + SCALE_BYTES;
 };
 
 // Copy `rows` x D bf16 rows (row stride `stride` elements) into shared memory
@@ -74,7 +100,7 @@ template <int D, int ROWS>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int valid, int stride) {
   constexpr int VEC = 8;
   constexpr int VPR = D / VEC;
-  constexpr int LD = Layout<D>::LD_QKV;
+  constexpr int LD = D + PAD_H;
   for (int i = threadIdx.x; i < ROWS * VPR; i += NUM_THREADS) {
     const int r = i / VPR;
     const int c = (i % VPR) * VEC;
@@ -84,7 +110,102 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int valid,
   }
 }
 
+// Quantize a tile of 64 bf16 rows in shared memory (stride D + PAD_H) to int8
+// rows (stride D + 16 bytes) and one fp32 scale a row, two threads a row, with
+// the plain version's fp32 operations: a = max(max|x|, 1e-9) (exact), then
+// x8 = clip(rint(x * (127 / a)), +-127) and scale = (a / 127) * mul, each
+// operation rounded once (the _rn intrinsics are never contracted into an
+// FMA). Zero-filled rows quantize to 0.
 template <int D>
+__device__ __forceinline__ void quantize_tile(const bf16* src, int8_t* dst, float* scale,
+                                              float mul) {
+  static_assert(2 * BLOCK_M == NUM_THREADS && BLOCK_M == BLOCK_N, "two threads a row");
+  constexpr int HALF = D / 2;  // a multiple of 16 for every compiled D
+  const int r = threadIdx.x >> 1, part = threadIdx.x & 1;
+  const bf16* row = src + r * (D + PAD_H) + part * HALF;
+  float amax = 0.f;
+#pragma unroll 8
+  for (int c = 0; c < HALF; ++c) amax = fmaxf(amax, fabsf(__bfloat162float(row[c])));
+  amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 1));  // the row's other half
+  amax = fmaxf(amax, 1e-9f);
+  const float inv = __fdiv_rn(127.f, amax);
+  uint32_t* out = reinterpret_cast<uint32_t*>(dst + r * (D + 16) + part * HALF);
+#pragma unroll 4
+  for (int c = 0; c < HALF; c += 4) {
+    uint32_t word = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      int v = __float2int_rn(__fmul_rn(__bfloat162float(row[c + j]), inv));
+      v = max(-127, min(127, v));
+      word |= (static_cast<uint32_t>(v) & 0xffu) << (8 * j);
+    }
+    out[c / 4] = word;
+  }
+  if (part == 0) scale[r] = __fmul_rn(__fdiv_rn(amax, 127.f), mul);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const int8_t* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// S = Q8 K8^T for one warp's 16 query rows against the 64 keys of the tile,
+// exact in int32, then s = (s32 * sq[row]) * sk[col] into the warp's rows of
+// sS. Fragments come by ldmatrix.x4 from the int8 rows, as in
+// csrc/int8_mma.cuh: A rows (lane & 15) at byte ks + 16 (lane >> 4); one B
+// load covers the two k halves of two 8-key tiles. Accumulator register r of
+// tile ni holds row g (r < 2) or g + 8, key ni * 8 + 2t + (r & 1), with g =
+// lane / 4 and t = lane % 4.
+template <int D>
+__device__ __forceinline__ void scores_int8(const int8_t* sQ8, const int8_t* sK8,
+                                            const float* sQs, const float* sKs, float* wS,
+                                            int warp, int lane) {
+  constexpr int LD8 = D + 16;
+  constexpr int LD_S = BLOCK_N + PAD_F;
+  int acc[BLOCK_N / 8][4];
+#pragma unroll
+  for (int ni = 0; ni < BLOCK_N / 8; ++ni)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[ni][r] = 0;
+#pragma unroll
+  for (int ks = 0; ks < D; ks += 32) {
+    uint32_t af[4];
+    ldsm_x4(af, sQ8 + (warp * 16 + (lane & 15)) * LD8 + ks + (lane >> 4) * 16);
+#pragma unroll
+    for (int ni = 0; ni < BLOCK_N / 8; ni += 2) {
+      uint32_t r[4];
+      ldsm_x4(r, sK8 + (ni * 8 + (lane & 7) + ((lane >> 4) << 3)) * LD8 + ks +
+                     ((lane >> 3) & 1) * 16);
+      const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+      mma_s8(acc[ni], af, b0);
+      mma_s8(acc[ni + 1], af, b1);
+    }
+  }
+  const int g = lane >> 2, t = lane & 3;
+  const float sq0 = sQs[warp * 16 + g], sq1 = sQs[warp * 16 + g + 8];
+#pragma unroll
+  for (int ni = 0; ni < BLOCK_N / 8; ++ni)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = r < 2 ? g : g + 8;
+      const int col = ni * 8 + 2 * t + (r & 1);
+      wS[row * LD_S + col] =
+          __fmul_rn(__fmul_rn(__int2float_rn(acc[ni][r]), r < 2 ? sq0 : sq1), sKs[col]);
+    }
+}
+
+template <int D, bool INT8>
 __global__ void __launch_bounds__(NUM_THREADS)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o, int seq_q, int seq_kv,
@@ -93,7 +214,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  float scale_log2, int group, int causal, const int* __restrict__ qseg,
                  const int* __restrict__ kseg, int qseg_sb, int kseg_sb,
                  float* __restrict__ lse) {
-  using L = Layout<D>;
+  using L = Layout<D, INT8>;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);
   bf16* sK = reinterpret_cast<bf16*>(smem + L::Q_BYTES);
@@ -104,6 +225,11 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                        L::P_BYTES);
   int* sKseg = reinterpret_cast<int*>(smem + L::Q_BYTES + 2 * L::KV_BYTES + L::S_BYTES +
                                       L::P_BYTES + L::O_BYTES);
+  // int8 QK^T only: the quantized q and k tiles and their row scales
+  int8_t* sQ8 = reinterpret_cast<int8_t*>(smem + L::Q8_OFF);
+  int8_t* sK8 = reinterpret_cast<int8_t*>(smem + L::Q8_OFF + L::Q8_BYTES);
+  float* sQs = reinterpret_cast<float*>(smem + L::Q8_OFF + L::Q8_BYTES + L::K8_BYTES);
+  float* sKs = sQs + BLOCK_M;
 
   const int m0 = blockIdx.x * BLOCK_M;
   const int h = blockIdx.y;
@@ -116,10 +242,19 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int i = threadIdx.x; i < BLOCK_M * L::LD_O; i += NUM_THREADS) sO[i] = 0.f;
   __syncthreads();
 
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qf[D / 16];
+  // bf16: the warp's q rows stay in WMMA fragments; int8: q is quantized once,
+  // with scale*log2(e) folded into its row scales, and the scores need no
+  // further scaling
+  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qf[INT8 ? 1 : D / 16];
+  float s_mul = scale_log2;
+  if constexpr (INT8) {
+    quantize_tile<D>(sQ, sQ8, sQs, scale_log2);
+    s_mul = 1.f;
+  } else {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    wmma::load_matrix_sync(qf[kk], sQ + warp * 16 * L::LD_QKV + kk * 16, L::LD_QKV);
+    for (int kk = 0; kk < D / 16; ++kk)
+      wmma::load_matrix_sync(qf[kk], sQ + warp * 16 * L::LD_QKV + kk * 16, L::LD_QKV);
+  }
 
   // Softmax state: lane pair (2r, 2r+1) owns row r of the warp's 16 rows and
   // splits its columns even/odd (interleaved to spread shared-memory banks).
@@ -148,18 +283,24 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                ? kseg[int64_t(b) * kseg_sb + n0 + threadIdx.x] : 0;
     __syncthreads();
 
-    // S = Q K^T for this warp's 16 rows: K is (n, d) row-major, so K^T is col-major.
+    if constexpr (INT8) {
+      quantize_tile<D>(sK, sK8, sKs, 1.f);
+      __syncthreads();
+      scores_int8<D>(sQ8, sK8, sQs, sKs, wS, warp, lane);
+    } else {
+      // S = Q K^T for this warp's 16 rows: K is (n, d) row-major, so K^T is col-major.
 #pragma unroll
-    for (int j = 0; j < BLOCK_N / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sf;
-      wmma::fill_fragment(sf, 0.f);
+      for (int j = 0; j < BLOCK_N / 16; ++j) {
+        wmma::fragment<wmma::accumulator, 16, 16, 16, float> sf;
+        wmma::fill_fragment(sf, 0.f);
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
-        wmma::load_matrix_sync(kf, sK + j * 16 * L::LD_QKV + kk * 16, L::LD_QKV);
-        wmma::mma_sync(sf, qf[kk], kf, sf);
+        for (int kk = 0; kk < D / 16; ++kk) {
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
+          wmma::load_matrix_sync(kf, sK + j * 16 * L::LD_QKV + kk * 16, L::LD_QKV);
+          wmma::mma_sync(sf, qf[kk], kf, sf);
+        }
+        wmma::store_matrix_sync(wS + j * 16, sf, L::LD_S, wmma::mem_row_major);
       }
-      wmma::store_matrix_sync(wS + j * 16, sf, L::LD_S, wmma::mem_row_major);
     }
     __syncwarp();
 
@@ -173,7 +314,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       bool keep = col < n_valid;
       if (causal) keep = keep && n0 + col <= grow;
       if (kseg != nullptr) keep = keep && sKseg[col] == my_seg;
-      const float s = keep ? srow[col] * scale_log2 : -INFINITY;
+      const float s = keep ? srow[col] * s_mul : -INFINITY;
       vals[c] = s;
       mx = fmaxf(mx, s);
     }
@@ -230,22 +371,48 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D>
+template <int D, bool INT8>
 int launch(const void* q, const void* k, const void* v, void* o, int batch, int heads,
            int seq_q, int seq_kv, const int* st, float scale_log2, int group, int causal,
            const int* qseg, const int* kseg, int qseg_sb, int kseg_sb, float* lse,
            cudaStream_t stream) {
-  constexpr size_t smem = Layout<D>::TOTAL;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D>,
+  constexpr size_t smem = Layout<D, INT8>::TOTAL;
+  static_assert(smem <= 232448, "shared memory above the 227 KB a block can opt into");
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D, INT8>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
   dim3 grid((seq_q + BLOCK_M - 1) / BLOCK_M, heads, batch);
-  flash_fwd_kernel<D><<<grid, NUM_THREADS, smem, stream>>>(
+  flash_fwd_kernel<D, INT8><<<grid, NUM_THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(o), seq_q, seq_kv, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
       st[7], st[8], st[9], st[10], st[11], scale_log2, group, causal, qseg, kseg, qseg_sb,
       kseg_sb, lse);
   return int(cudaGetLastError());
+}
+
+template <bool INT8>
+int dispatch(const void* q, const void* k, const void* v, void* o, int batch, int heads,
+             int seq_q, int seq_kv, int head_dim, const int* st, float scale_log2, int group,
+             int causal, const int* qseg, const int* kseg, int qseg_sb, int kseg_sb, float* lse,
+             void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (group < 1 || heads % group != 0 || (qseg == nullptr) != (kseg == nullptr) ||
+      (causal && seq_q != seq_kv) || (INT8 && lse != nullptr))
+    return int(cudaErrorInvalidValue);
+#define FLASH_FWD_CASE(DIM)                                                                  \
+  case DIM:                                                                                  \
+    return launch<DIM, INT8>(q, k, v, o, batch, heads, seq_q, seq_kv, st, scale_log2, group, \
+                             causal, qseg, kseg, qseg_sb, kseg_sb, lse, s);
+  switch (head_dim) {
+    FLASH_FWD_CASE(32)
+    FLASH_FWD_CASE(64)
+    FLASH_FWD_CASE(96)
+    FLASH_FWD_CASE(128)
+    FLASH_FWD_CASE(160)
+    FLASH_FWD_CASE(256)
+    default: return int(cudaErrorInvalidValue);
+  }
+#undef FLASH_FWD_CASE
 }
 
 }  // namespace
@@ -263,20 +430,19 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, void*
                               int group, int causal, const int* qseg, const int* kseg,
                               int qseg_sb, int kseg_sb, float* lse, void* stream) {
   const int st[12] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (group < 1 || heads % group != 0 || (qseg == nullptr) != (kseg == nullptr) ||
-      (causal && seq_q != seq_kv))
-    return int(cudaErrorInvalidValue);
-#define FLASH_FWD_CASE(DIM)                                                                 \
-  case DIM:                                                                                 \
-    return launch<DIM>(q, k, v, o, batch, heads, seq_q, seq_kv, st, scale_log2, group, causal, \
-                       qseg, kseg, qseg_sb, kseg_sb, lse, s);
-  switch (head_dim) {
-    FLASH_FWD_CASE(32)
-    FLASH_FWD_CASE(64)
-    FLASH_FWD_CASE(96)
-    FLASH_FWD_CASE(128)
-    default: return int(cudaErrorInvalidValue);
-  }
-#undef FLASH_FWD_CASE
+  return dispatch<false>(q, k, v, o, batch, heads, seq_q, seq_kv, head_dim, st, scale_log2,
+                         group, causal, qseg, kseg, qseg_sb, kseg_sb, lse, stream);
+}
+
+// The inference form with int8 QK^T: the same operands as flash_fwd_bf16, no
+// lse; scale_log2 = scale * log2(e) goes into q's row scales.
+extern "C" int flash_fwd_int8qk_bf16(const void* q, const void* k, const void* v, void* o,
+                                     int batch, int heads, int seq_q, int seq_kv, int head_dim,
+                                     int q_sb, int q_ss, int q_sh, int k_sb, int k_ss, int k_sh,
+                                     int v_sb, int v_ss, int v_sh, int o_sb, int o_ss, int o_sh,
+                                     float scale_log2, int group, int causal, const int* qseg,
+                                     const int* kseg, int qseg_sb, int kseg_sb, void* stream) {
+  const int st[12] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh};
+  return dispatch<true>(q, k, v, o, batch, heads, seq_q, seq_kv, head_dim, st, scale_log2,
+                        group, causal, qseg, kseg, qseg_sb, kseg_sb, nullptr, stream);
 }

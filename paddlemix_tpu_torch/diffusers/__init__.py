@@ -1,4 +1,5 @@
-"""SDXL and SD3 text-to-image: models, Euler and FlowMatch schedulers, pipelines."""
+"""SD1.5, SDXL and SD3 text-to-image: models, Euler, PNDM and FlowMatch schedulers,
+pipelines."""
 
 from .image_processor import VaeImageProcessor
 from .models import (
@@ -9,10 +10,16 @@ from .models import (
     UNet2DConditionConfig,
     UNet2DConditionModel,
 )
-from .pipelines import DiffusionPipeline, StableDiffusion3Pipeline, StableDiffusionXLPipeline
-from .schedulers import EulerDiscreteScheduler, FlowMatchEulerDiscreteScheduler
+from .pipelines import (
+    DiffusionPipeline,
+    StableDiffusion3Pipeline,
+    StableDiffusionPipeline,
+    StableDiffusionXLPipeline,
+)
+from .schedulers import EulerDiscreteScheduler, FlowMatchEulerDiscreteScheduler, PNDMScheduler
 
 __all__ = ["AutoencoderKL", "AutoencoderKLConfig", "DiffusionPipeline",
-           "EulerDiscreteScheduler", "FlowMatchEulerDiscreteScheduler", "SD3Transformer2DModel",
-           "SD3TransformerConfig", "StableDiffusion3Pipeline", "StableDiffusionXLPipeline",
+           "EulerDiscreteScheduler", "FlowMatchEulerDiscreteScheduler", "PNDMScheduler",
+           "SD3Transformer2DModel", "SD3TransformerConfig", "StableDiffusion3Pipeline",
+           "StableDiffusionPipeline", "StableDiffusionXLPipeline",
            "UNet2DConditionConfig", "UNet2DConditionModel", "VaeImageProcessor"]

@@ -1,5 +1,6 @@
 """Scheduler substrate: beta schedules and timestep spacing (port of
-paddlemix_tpu/diffusers/schedulers/common.py, the parts the Euler path uses)."""
+paddlemix_tpu/diffusers/schedulers/common.py, the parts the Euler and PNDM
+paths use)."""
 
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ class SchedulerConfig:
     beta_end: float = 0.02
     beta_schedule: str = "linear"
     timestep_spacing: str = "leading"
+    steps_offset: int = 0  # added to "leading" timesteps
 
 
 def make_betas(cfg: SchedulerConfig) -> torch.Tensor:
@@ -43,6 +45,7 @@ def spaced_timesteps(cfg: SchedulerConfig, num_inference_steps: int) -> np.ndarr
     elif cfg.timestep_spacing == "leading":
         ratio = n // num_inference_steps
         ts = (np.arange(0, num_inference_steps) * ratio).round()[::-1].astype(np.int64)
+        ts += cfg.steps_offset
     else:
         raise ValueError(f"unknown timestep_spacing {cfg.timestep_spacing!r}")
     return ts

@@ -28,7 +28,7 @@ from ..models.clip import (
 )
 from ..models.clip.tokenizer import byte_level_tokenizer
 from ..models.layers import n_layer_norms
-from ..ops.attention import use_flash
+from ..ops.attention import int8_qk_default, use_flash
 from ..ops.quant import (
     QuantConv2d,
     QuantLinear,
@@ -158,37 +158,58 @@ def _transformer_levels(unet: UNet2DConditionModel):
             yield n - 1 - i, t
 
 
-def expected_launches(pipe: StableDiffusionXLPipeline, height: int, width: int,
-                      num_inference_steps: int, guidance_scale: float = 5.0) -> Dict[str, int]:
-    """Kernel launches one single-prompt pipeline call should make, from
-    walking the blocks: every attention call is routed by `use_flash` at the
-    shape it will see, every GroupNorm module runs once per forward, and
-    every LayerNorm of the two text towers (B10) once for the prompt and
-    once for the negative prompt. Once scales are loaded, the a8w8 ops are
-    counted by `a8w8_routes`, keyed by wrapper name, and the resnets'
-    GroupNorms become statistics launches (`group_norm_stats`)."""
+def _text_encoders(pipe):
+    return [enc for enc in (pipe.text_encoder, getattr(pipe, "text_encoder_2", None))
+            if enc is not None]
+
+
+def flash_launches_by_dim(pipe, height: int, width: int, num_inference_steps: int,
+                          guidance_scale: float) -> Counter:
+    """Flash launches of one single-prompt call of a UNet pipeline (SD1.5 or
+    SDXL), keyed by the caller's head_dim: every UNet attention call routed
+    by `use_flash` at the shape it will see, the VAE's mid-block attention
+    and the text towers' (for the prompt and the negative prompt apart)."""
     f = pipe.vae_scale_factor
     rows = 2 if guidance_scale > 1.0 else 1
     text_len = pipe.tokenizer.model_max_length
-    per_forward = 0
+    out = Counter()
     for level, tf in _transformer_levels(pipe.unet):
         tokens = (height // f >> level) * (width // f >> level)
         for blk in tf.transformer_blocks:
             heads, hd = blk.attn1.num_heads, blk.attn1.head_dim
             q = (rows, tokens, heads, hd)
-            per_forward += use_flash(q, q)
-            per_forward += use_flash(q, (rows, text_len, heads, hd))
-    flash = per_forward * num_inference_steps
-    flash += pipe.vae.decode_flash_launches(height // f, width // f)
-    # the prompt and the negative prompt are encoded apart
-    flash += sum(2 * enc.text_model.flash_launches(text_len)
-                 for enc in (pipe.text_encoder, pipe.text_encoder_2))
-    ln = sum(2 * n_layer_norms(enc) for enc in (pipe.text_encoder, pipe.text_encoder_2))
+            out[hd] += num_inference_steps * (use_flash(q, q) +
+                                              use_flash(q, (rows, text_len, heads, hd)))
+    out[pipe.vae.config.block_out_channels[-1]] += pipe.vae.decode_flash_launches(
+        height // f, width // f)
+    for enc in _text_encoders(pipe):
+        cfg = enc.config
+        out[cfg.hidden_size // cfg.num_attention_heads] += 2 * enc.text_model.flash_launches(
+            text_len)
+    return +out  # drop the zero counts
+
+
+def expected_launches(pipe, height: int, width: int, num_inference_steps: int,
+                      guidance_scale: float = 5.0) -> Dict[str, int]:
+    """Kernel launches one single-prompt call of a UNet pipeline (SDXL, or
+    SD1.5 with its one text tower) should make, from walking the blocks:
+    every attention call is routed by `use_flash` at the shape it will see
+    (`flash_launches_by_dim`) and counted under `flash_attention`, or under
+    `flash_attention_int8` when PMIX_INT8_ATTN=1 sends the inference calls to
+    int8 QK^T; every GroupNorm module runs once per forward, and every
+    LayerNorm of the text towers (B10) once for the prompt and once for the
+    negative prompt. Once scales are loaded, the a8w8 ops are counted by
+    `a8w8_routes`, keyed by wrapper name, and the resnets' GroupNorms become
+    statistics launches (`group_norm_stats`)."""
+    flash = sum(flash_launches_by_dim(pipe, height, width, num_inference_steps,
+                                      guidance_scale).values())
+    flash_key = "flash_attention_int8" if int8_qk_default() else "flash_attention"
+    ln = sum(2 * n_layer_norms(enc) for enc in _text_encoders(pipe))
 
     if not any(m.sx is not None for m in quant_modules(pipe.unet) + quant_modules(pipe.vae)):
         gn = n_group_norms(pipe.unet) * num_inference_steps + n_group_norms(pipe.vae.decoder)
-        return {"flash_attention": flash, "group_norm": gn, "layer_norm": ln}
-    out = Counter({"flash_attention": flash, "layer_norm": ln})
+        return {flash_key: flash, "group_norm": gn, "layer_norm": ln}
+    out = Counter({flash_key: flash, "layer_norm": ln})
     for model, calls in ((pipe.unet, num_inference_steps), (pipe.vae.decoder, 1)):
         routes = a8w8_routes(model)
         routes["group_norm"] = n_group_norms(model) - routes["group_norm_stats"]

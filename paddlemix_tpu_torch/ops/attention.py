@@ -7,20 +7,24 @@ may have fewer heads than q (GQA: query head h reads kv head h // group).
 
 Kernels (CUDA tensors launch them; CPU tensors run their plain versions):
 - `csrc/flash_fwd.cu`: the forward (B1), with causal (top-left), segment ids
-  and GQA. `flash_attention` launches its inference form (no lse, the scale
-  folded in fp32); `flash_fwd_lse` its lse form (B15), on q pre-scaled by
+  and GQA, at head dims up to 256. `flash_attention` launches its inference
+  form (no lse, the scale folded in fp32); `flash_attention_int8` the
+  inference form with int8 QK^T (`int8_qk`, the JAX switch PMIX_INT8_ATTN=1:
+  q and k quantized per row, an exact int32 product, B1's softmax and bf16
+  P.V); `flash_fwd_lse` its lse form (B15), on q pre-scaled by
   scale * log2(e) and rounded to q's dtype as the JAX wrapper does, writing
   the base-2 lse of each row, fp32 (B, H, S);
 - `csrc/flash_bwd.cu`: the backward (B14), `flash_bwd_dkv` and
-  `flash_bwd_dq`, from that pre-scaled q, the lse and di = rowsum(o * do).
+  `flash_bwd_dq`, from that pre-scaled q, the lse and di = rowsum(o * do), at
+  head dims up to 128.
 Under autograd, `flash_attention` is `_FlashAttention` (the JAX
-`_flash_attention` custom_vjp): forward by `flash_fwd_lse`, backward by the
-two B14 kernels. Segment ids compare as given: the kernels mask by bounds, so
-nothing is padded, and the JAX wrapper's +1 shift (which keeps its padding
-apart) has nothing to do. The choice between flash and math
-(`scaled_dot_product_attention`) is made from shapes alone, the same on both
-devices (`use_flash`): the JAX package's rule, with the kernels' head_dim
-limit.
+`_flash_attention` custom_vjp): forward by `flash_fwd_lse` (bf16 QK^T even
+with `int8_qk`, as in JAX), backward by the two B14 kernels; on the card a
+head_dim above 128 has no backward kernel yet and raises. Segment ids compare
+as given: the kernels mask by bounds, so nothing is padded, and the JAX
+wrapper's +1 shift (which keeps its padding apart) has nothing to do. The
+choice between flash and math (`scaled_dot_product_attention`) is made from
+shapes alone, the same on both devices (`use_flash`): the JAX package's rule.
 """
 
 from __future__ import annotations
@@ -28,6 +32,8 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import os
+from collections import Counter
 from typing import NamedTuple, Optional
 
 import torch
@@ -37,7 +43,13 @@ from .autograd import grad_needed, refuse_grad
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 LOG2E = math.log2(math.e)
-_KERNEL_HEAD_DIMS = (32, 64, 96, 128)  # head dims compiled into flash_fwd.cu / flash_bwd.cu
+_KERNEL_HEAD_DIMS = (32, 64, 96, 128, 160, 256)  # head dims compiled into flash_fwd.cu
+_BWD_HEAD_DIMS = (32, 64, 96, 128)  # and into flash_bwd.cu
+
+
+def int8_qk_default() -> bool:
+    """The JAX package's switch for int8 QK^T: PMIX_INT8_ATTN=1."""
+    return os.environ.get("PMIX_INT8_ATTN", "0") == "1"
 
 
 class SegmentIds(NamedTuple):
@@ -100,6 +112,54 @@ def flash_attention_ref(q, k, v, *, scale: Optional[float] = None, causal=False,
     return torch.einsum("bhqk,bkhd->bqhd", probs, v.float()).to(q.dtype)
 
 
+def quantize_rows_int8(x):
+    """Per-row symmetric int8 over the last dim, the XLA prologue of the JAX
+    int8 QK^T path operation for operation: a = max(max|x|, 1e-9), x8 =
+    clip(round_half_even(x * (127 / a)), +-127). Returns (x8 int8, a fp32).
+    Divisions are tensor by tensor: PyTorch computes `127.0 / t` as
+    reciprocal(t) * 127, and on the card `t / 127.0` as t * (1 / 127), neither
+    of which rounds as one division does."""
+    xf = x.float()
+    a = xf.abs().amax(-1).clamp_min(1e-9)
+    inv = torch.full_like(a, 127.0) / a
+    return torch.round(xf * inv[..., None]).clamp(-127, 127).to(torch.int8), a
+
+
+def int8_qk_operands(q, k, scale: float):
+    """(q8, k8, sq, sk) of int8 QK^T: q, k quantized per row, sq = (a_q / 127)
+    * (scale * log2(e)) (B, Sq, Hq) and sk = a_k / 127 (B, Skv, Hkv), fp32, as
+    the JAX wrapper makes them; base-2 scores are (q8 . k8) * sq * sk."""
+    q8, qa = quantize_rows_int8(q)
+    k8, ka = quantize_rows_int8(k)
+    sq = (qa / torch.full_like(qa, 127.0)) * (scale * LOG2E)
+    sk = ka / torch.full_like(ka, 127.0)
+    return q8, k8, sq, sk
+
+
+def flash_attention_int8_ref(q, k, v, *, scale: Optional[float] = None, causal=False,
+                             segment_ids=None):
+    """Plain version of the int8 QK^T inference form (the TPU kernel's
+    `int8_qk` branch): `int8_qk_operands`, the int32 product (summed here in
+    fp32, which is exact: |q8 . k8| <= 127^2 * 256 < 2^24), s = (s32 * sq) *
+    sk, then a base-2 softmax in fp32, P rounded to v's dtype for P.V, the
+    sum over fp32 P, the result in q's dtype. q: (B,Sq,H,D), k/v:
+    (B,Skv,Hkv,D); causal is top-left aligned."""
+    scale = q.shape[3] ** -0.5 if scale is None else scale
+    q8, k8, sq, sk = int8_qk_operands(q, k, scale)
+    g = q.shape[2] // k.shape[2]
+    k8, sk = k8.repeat_interleave(g, dim=2), sk.repeat_interleave(g, dim=2)
+    s32 = torch.einsum("bqhd,bkhd->bhqk", q8.float(), k8.float())
+    s = s32 * sq.transpose(1, 2)[..., None] * sk.transpose(1, 2)[:, :, None, :]
+    keep = _keep(q.shape[1], k.shape[1], causal, segment_ids, q.device)
+    if keep is not None:
+        s = s.masked_fill(~keep, DEFAULT_MASK_VALUE)
+    p = torch.exp2(s - s.amax(-1, keepdim=True))
+    l = p.sum(-1)  # (B, H, Sq)
+    _, ve = _expand_kv(k, v, q.shape[2])
+    o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), ve.float())
+    return (o / l.transpose(1, 2)[..., None]).to(q.dtype)
+
+
 def _probs(qs, k, lse, causal, segment_ids):
     """p = exp2(qs . k - lse) in fp32, 0 where masked: (B, H, Sq, Skv)."""
     s = torch.einsum("bqhd,bkhd->bhqk", qs.float(), k.float())
@@ -155,12 +215,13 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 @functools.lru_cache(maxsize=None)
-def _flash_fn():
+def _flash_fn(int8: bool):
     from ..kernels import load_library
 
-    fn = load_library("flash_fwd").flash_fwd_bf16
+    lib = load_library("flash_fwd")
+    fn = lib.flash_fwd_int8qk_bf16 if int8 else lib.flash_fwd_bf16
     fn.argtypes = [_P] * 4 + [_I] * 17 + [ctypes.c_float] + [_I] * 2 + [_P] * 2 + [_I] * 2 \
-        + [_P] * 2
+        + [_P] * (1 if int8 else 2)
     fn.restype = _I
     return fn
 
@@ -188,9 +249,10 @@ def _kernel_operand(t):
     return t
 
 
-def _check_operands(name, q, k, v, causal, segment_ids):
+def _check_operands(name, q, k, v, causal, segment_ids, head_dims=_KERNEL_HEAD_DIMS):
     """Device, dtype and shape checks; returns the head_dim the kernel is
-    compiled for (>= d) and the int32 segment arrays or None."""
+    compiled for (the least of `head_dims` >= d) and the int32 segment arrays
+    or None."""
     b, sq, hq, d = q.shape
     for tname, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda or t.device != q.device:
@@ -203,8 +265,8 @@ def _check_operands(name, q, k, v, causal, segment_ids):
     if causal and sq != k.shape[1]:
         raise ValueError(f"{name}: causal needs Sq == Skv (top-left mask), got {sq} != "
                          f"{k.shape[1]}")
-    if d > _KERNEL_HEAD_DIMS[-1]:
-        raise ValueError(f"{name} kernel takes head_dim <= {_KERNEL_HEAD_DIMS[-1]}, got {d}")
+    if d > head_dims[-1]:
+        raise ValueError(f"{name} kernel takes head_dim <= {head_dims[-1]}, got {d}")
     segs = None
     if segment_ids is not None:
         segs = tuple(s.to(device=q.device, dtype=torch.int32).contiguous()
@@ -213,7 +275,7 @@ def _check_operands(name, q, k, v, causal, segment_ids):
             raise ValueError(f"{name}: segment ids {tuple(segs[0].shape)} / "
                              f"{tuple(segs[1].shape)} do not match q {tuple(q.shape)} "
                              f"k {tuple(k.shape)}")
-    return next(x for x in _KERNEL_HEAD_DIMS if x >= d), segs
+    return next(x for x in head_dims if x >= d), segs
 
 
 def _segment_args(segs, sq, skv):
@@ -227,7 +289,7 @@ def _pad_head_dim(d_kernel, *ts):
                  for t in ts)
 
 
-def _flash_fwd_cuda(q, k, v, scale_log2, causal, segment_ids, want_lse):
+def _flash_fwd_cuda(q, k, v, scale_log2, causal, segment_ids, want_lse, int8=False):
     b, sq, h, d = q.shape
     d_kernel, segs = _check_operands("flash_attention", q, k, v, causal, segment_ids)
     q, k, v = (_kernel_operand(t) for t in _pad_head_dim(d_kernel, q, k, v))
@@ -235,21 +297,23 @@ def _flash_fwd_cuda(q, k, v, scale_log2, causal, segment_ids, want_lse):
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if want_lse else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _flash_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                          b, h, sq, k.shape[1], d_kernel,
-                          *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-                          scale_log2, h // k.shape[2], int(causal),
-                          *_segment_args(segs, sq, k.shape[1]),
-                          None if lse is None else lse.data_ptr(), stream)
+        args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, h, sq, k.shape[1],
+                d_kernel, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+                scale_log2, h // k.shape[2], int(causal), *_segment_args(segs, sq, k.shape[1])]
+        if not int8:
+            args.append(None if lse is None else lse.data_ptr())
+        err = _flash_fn(int8)(*args, stream)
     if err:
-        raise RuntimeError(f"flash_fwd_bf16 launch failed with cudaError {err}")
+        raise RuntimeError(f"flash_fwd_{'int8qk_' if int8 else ''}bf16 launch failed with "
+                           f"cudaError {err}")
     return (o[..., :d] if d_kernel != d else o), lse
 
 
 def _flash_bwd_cuda(dkv, qs, k, v, do, lse, di, scale, causal, segment_ids):
     """dkv: (dk, dv) fp32 of each query head; else dq fp32; (B, H, S_pad, D)."""
     b, sq, h, d = qs.shape
-    d_kernel, segs = _check_operands("flash_attention backward", qs, k, v, causal, segment_ids)
+    d_kernel, segs = _check_operands("flash_attention backward", qs, k, v, causal, segment_ids,
+                                     _BWD_HEAD_DIMS)
     if do.shape != qs.shape or do.dtype != qs.dtype or do.device != qs.device:
         raise ValueError(f"flash_attention backward: do {tuple(do.shape)} {do.dtype} does not "
                          f"match q {tuple(qs.shape)} {qs.dtype}")
@@ -360,31 +424,59 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
+def flash_attention_int8(q, k, v, *, scale: Optional[float] = None, causal=False,
+                         segment_ids: Optional[SegmentIds] = None):
+    """The inference form with int8 QK^T, (B, S, H, D) layout. CUDA tensors
+    launch the kernel (no gradient); CPU tensors run
+    `flash_attention_int8_ref`."""
+    scale = q.shape[3] ** -0.5 if scale is None else scale
+    if q.is_cuda:
+        refuse_grad("flash_attention_int8", q, k, v)
+        o, _ = _flash_fwd_cuda(q, k, v, scale * LOG2E, causal, segment_ids, False, int8=True)
+        flash_attention_int8.launches += 1
+        return o
+    _cpu_only("flash_attention_int8", q)
+    return flash_attention_int8_ref(q, k, v, scale=scale, causal=causal,
+                                    segment_ids=segment_ids)
+
+
+flash_attention_int8.launches = 0  # kernel launches (CUDA tensors only)
+
+
 def flash_attention(q, k, v, *, causal=False, scale: Optional[float] = None,
-                    segment_ids: Optional[SegmentIds] = None, int8_qk=False):
+                    segment_ids: Optional[SegmentIds] = None, int8_qk: Optional[bool] = None):
     """Flash attention, (B, S, H, D) layout (port of `flash_attention`). Under
-    autograd it is `_FlashAttention` (lse forward, B14 backward); otherwise
-    CUDA tensors launch the inference form of the forward kernel and CPU
-    tensors run `flash_attention_ref`. causal is top-left aligned and needs
-    Sq == Skv, as in JAX. int8 QK^T, an inference-only option, is not ported."""
-    if int8_qk:
-        raise NotImplementedError("flash_attention: int8 QK^T is not ported yet")
+    autograd it is `_FlashAttention` (lse forward, B14 backward; on the card
+    head_dim <= 128); otherwise `int8_qk` (default: PMIX_INT8_ATTN=1, as in
+    JAX) goes to `flash_attention_int8`, and else CUDA tensors launch the
+    inference form of the forward kernel and CPU tensors run
+    `flash_attention_ref`. causal is top-left aligned and needs Sq == Skv, as
+    in JAX."""
     if causal and q.shape[1] != k.shape[1]:
         raise ValueError(f"flash_attention causal requires sq == skv, got {q.shape[1]} != "
                          f"{k.shape[1]}")
     scale = q.shape[3] ** -0.5 if scale is None else scale
     if grad_needed(q, k, v):
+        if q.is_cuda and q.shape[3] > _BWD_HEAD_DIMS[-1]:
+            raise NotImplementedError(
+                f"flash_attention: no backward kernel for head_dim {q.shape[3]} > "
+                f"{_BWD_HEAD_DIMS[-1]} yet (B14 at head_dim 129-256, ROADMAP queue B)")
         seg_q, seg_kv = (None, None) if segment_ids is None else segment_ids
         return _FlashAttention.apply(q, k, v, seg_q, seg_kv, scale, causal)
+    if int8_qk_default() if int8_qk is None else int8_qk:
+        return flash_attention_int8(q, k, v, scale=scale, causal=causal,
+                                    segment_ids=segment_ids)
     if q.is_cuda:
         o, _ = _flash_fwd_cuda(q, k, v, scale * LOG2E, causal, segment_ids, False)
         flash_attention.launches += 1
+        flash_attention.launches_by_dim[q.shape[3]] += 1
         return o
     _cpu_only("flash_attention", q)
     return flash_attention_ref(q, k, v, scale=scale, causal=causal, segment_ids=segment_ids)
 
 
 flash_attention.launches = 0  # inference-form kernel launches (CUDA tensors only)
+flash_attention.launches_by_dim = Counter()  # the same, by the caller's head_dim
 
 
 def flash_attention_with_lse(q, k, v, *, segment_ids: Optional[SegmentIds] = None,
@@ -400,9 +492,8 @@ def flash_attention_with_lse(q, k, v, *, segment_ids: Optional[SegmentIds] = Non
 
 def use_flash(q_shape, k_shape, *, bias=None, causal=False) -> bool:
     """The JAX package's flash-or-math rule (paddlemix_tpu/ops/attention.py
-    scaled_dot_product_attention), from shapes alone, but for head_dim: JAX
-    takes flash up to 256, the kernels here are built up to 128, so 129-256
-    go to math (ROADMAP queue B)."""
+    scaled_dot_product_attention), from shapes alone: head_dim up to 256 (the
+    kernels pad 129-160 to 160 and 161-256 to 256)."""
     b, sq, hq, d = q_shape
     skv = k_shape[1]
     return (bias is None and skv >= 128 and d <= _KERNEL_HEAD_DIMS[-1]
@@ -415,7 +506,9 @@ def use_flash(q_shape, k_shape, *, bias=None, causal=False) -> bool:
 def scaled_dot_product_attention(q, k, v, *, bias=None, causal=False,
                                  segment_ids: Optional[SegmentIds] = None,
                                  scale: Optional[float] = None):
-    """Attention routed to flash or math by `use_flash`, (B, S, H, D) layout."""
+    """Attention routed to flash or math by `use_flash`, (B, S, H, D) layout;
+    the calls that go to flash take int8 QK^T where PMIX_INT8_ATTN=1, as in
+    JAX."""
     if use_flash(q.shape, k.shape, bias=bias, causal=causal):
         return flash_attention(q, k, v, causal=causal, scale=scale, segment_ids=segment_ids)
     return attention_math(q, k, v, bias=bias, causal=causal, segment_ids=segment_ids,

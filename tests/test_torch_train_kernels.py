@@ -203,19 +203,21 @@ def test_refuse_grad_raises_only_when_autograd_records():
 # ------------------------------------------------------------ head_dim route
 @pytest.mark.parametrize("d", [192, 256])
 def test_head_dims_above_the_kernels_route_to_math(monkeypatch, d):
-    """The JAX rule sends head_dim up to 256 to flash; the kernels are built
-    up to 128, so the port's rule sends 129-256 to math attention."""
+    """The JAX rule sends head_dim up to 256 to flash, and so does the port's:
+    the forward kernel is built up to 256 (heads of 129-160 pad to 160, of
+    161-256 to 256). A head wider than the kernels (d + 256 here) goes to
+    math attention, as in JAX."""
     def no_flash(*a, **kw):
         raise AssertionError("routed to the flash kernel")
 
     monkeypatch.setattr(tattn, "flash_attention", no_flash)
     rs = np.random.RandomState(d)
-    q, k, v = (torch.from_numpy(rs.randn(1, 128, 2, d).astype(np.float32)).bfloat16()
+    q, k, v = (torch.from_numpy(rs.randn(1, 128, 2, d + 256).astype(np.float32)).bfloat16()
                for _ in range(3))
     assert not tattn.use_flash(q.shape, k.shape)
     out = tattn.scaled_dot_product_attention(q, k, v, causal=True)
     torch.testing.assert_close(out, tattn.attention_math(q, k, v, causal=True), rtol=0, atol=0)
-    assert tattn.use_flash(q.shape[:3] + (128,), k.shape[:3] + (128,))
+    assert tattn.use_flash(q.shape[:3] + (d,), k.shape[:3] + (d,))
 
 
 # -------------------------------------------------------------- on the card
