@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (paddlemix_tpu_torch) on one CUDA card.
 
-Drives seven slices at their published widths with weights drawn on the
+Drives eight slices at their published widths with weights drawn on the
 card from a seeded torch.Generator:
 
   - SDXL-1024 text-to-image through StableDiffusionXLPipeline.__call__, in
@@ -32,7 +32,13 @@ card from a seeded torch.Generator:
   - SD1.5-512 text-to-image through StableDiffusionPipeline.__call__
     (runwayml/stable-diffusion-v1-5: UNet 320-1280 with 1x1-conv
     projections and 8 heads a block, so head_dim 40, 80 and 160; CLIP-L text;
-    PNDM) in bf16, 50 steps, guidance 7.5.
+    PNDM) in bf16, 50 steps, guidance 7.5;
+  - SD1.5 UNet fine-tuning through tools.train_text_to_image.build_trainer
+    and Trainer.train, the recipe of examples/train_text_to_image.py (DDPM
+    noising at a random timestep, epsilon target, min-SNR gamma 5.0, AdamW
+    at 1e-5, cosine over 1,000 steps, clip 1.0, shuffled batches of 8 over
+    the example's 256 seeded samples of 64x64x4 latents and 77x768 hidden
+    states), fp32 masters and bf16 compute; 8 steps, no checkpoints.
 
 Phases:
 
@@ -189,6 +195,34 @@ Phases:
                    busy share of the last (profiled), peak memory, image
                    finite in [0, 1], launches equal to `expected_launches_sd15`
                    (750 B1 a request, 250 of them at head_dim 160; B4; 50 B10)
+ 29. sd15 train    SD1.5 is freed; B4 with fp32 weight and bias at every
+     kernels       GroupNorm shape of the training path, each with the
+                   16-group control; the lse forward (B15) and the flash
+                   backward's dkv and dq kernels (B14, fed B15's lse and
+                   the di of its o) against their plain versions per
+                   element (c TRAIN_SUM) at the training path's
+                   self-attention shapes (8, 4096, 8, 40), (8, 1024, 8, 80)
+                   and (8, 256, 8, 160), at (1, 1024, 4, 256), and at 160
+                   and 256 with causal + segment ids + GQA; controls that
+                   must fail: the last key tile left out (B15, B14), di
+                   dropped (B14); times, bounds and library times (SDPA,
+                   the backward of SDPA, graph-captured)
+ 30. sd15 train    the SD1.5 UNet is built (859.5 M fp32 parameters, bf16
+     agree         compute); one micro-batch of 2 at 64x64 latents, fixed
+                   timesteps and noise: the loss within 10x and the
+                   gradients' median over all parameters and largest gap
+                   over those above the rounding noise within 1.25x of two
+                   plain versions one rounding apart (P rounded to bf16
+                   before P.V or not); a control, B14's dK/dV without di,
+                   must fail; launches as the walk says
+ 31. sd15 train    build_trainer + Trainer.train, 8 optimizer steps at batch
+                   8 (the last under the profiler): seconds a step,
+                   samples/s, model TFLOP/s (`unet_train_flops`, 3x the
+                   forward's), reader and busy share, peak memory; finite
+                   losses, every parameter moved; launches equal to
+                   `expected_launches_sd15_train`: 15 B15, 15 B14 dkv and 15
+                   B14 dq a step, 5 of each at head_dim 160, 61 B4, and no
+                   other kernel
 
 Any failed check exits non-zero. Without a CUDA card, or outside a checkout
 of the repository, it exits non-zero before printing any result. The line
@@ -333,6 +367,30 @@ SD15_GN_CASES = [((2, 32, 32, 640), "silu"), ((2, 8, 8, 1280), "silu"),
                  ((2, 16, 16, 1920), "silu"), ((2, 64, 64, 320), "none"),
                  ((1, 64, 64, 512), "none"), ((1, 256, 256, 256), "silu"),
                  ((1, 512, 512, 128), "silu")]
+# SD1.5 UNet fine-tuning (examples/train_text_to_image.py): batches of 8 at
+# 64x64 latents. B14 per element with B15 / B14's gate (TRAIN_SUM) at the
+# path's three self-attention shapes (head_dim 40 and 80 run the D = 64 and
+# D = 96 instantiations, 160 its own), at 256, and at 160 and 256 with causal
+# + segment ids + GQA, which no path runs and which are compiled all the same.
+# (B, S, Hq, Hkv, D, causal with segments)
+SD15_TRAIN_FLASH_CASES = [(8, 4096, 8, 8, 40, False), (8, 1024, 8, 8, 80, False),
+                          (8, 256, 8, 8, 160, False), (1, 1024, 4, 4, 256, False),
+                          (2, 512, 8, 2, 160, True), (1, 512, 4, 2, 256, True)]
+# B4 at every (shape, act) of the SD1.5 training path at batch 8: fp32
+# weight and bias (the masters) beside bf16 rows, a specialization of its own
+SD15_TRAIN_GN_CASES = [((8, 64, 64, c), "silu") for c in (320, 640, 960)] + \
+    [((8, 32, 32, c), "silu") for c in (320, 640, 960, 1280, 1920)] + \
+    [((8, 16, 16, c), "silu") for c in (640, 1280, 1920, 2560)] + \
+    [((8, 8, 8, c), "silu") for c in (1280, 2560)] + \
+    [((8, hw, hw, c), "none") for hw, c in ((64, 320), (32, 640), (16, 1280), (8, 1280))]
+SD15_TRAIN_BATCH = 8
+SD15_TRAIN_STEPS = 8  # optimizer steps of build_trainer -> Trainer.train
+SD15_TRAIN_SAMPLES = 256  # the example's data
+# sd15 train agree: one micro-batch of 2 at 64x64 latents with fixed
+# timesteps and noise, held as CLIP's train agree is (CLIP_LOSS_RATIO,
+# TRAIN_AGREE_RATIO, CLIP_SIGNAL_GAP)
+SD15_AGREE_BATCH = 2
+SD15_AGREE_T = (250, 750)
 # H100 SXM peaks (NVIDIA data sheet, dense) for the bounds
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
@@ -1456,7 +1514,7 @@ def sd15_kernels(torch, F, dev, gen, record, flash_case, gn_case, attn):
         flash_case("sd15 kernels", shape,
                    "flash_attention" if d_ <= 128 else f"flash_attention_d{d_}")
         if d_ <= 128:
-            continue  # B15 at head dims up to 128 is held in train kernels
+            continue  # B15 at head dims up to 128 is held in (sd15) train kernels
         b_, s_, h_, _ = shape
         q, k, v = (torch.randn(shape, generator=gen, device=dev, dtype=bf16) for _ in range(3))
         qs = (q.float() * (d_ ** -0.5 * attn.LOG2E)).to(bf16)
@@ -1582,6 +1640,309 @@ def sd15_slice(torch, np, dev, gen, m, counters):
                           peak_gib=peak, device_ms=device_ms)
 
 
+# ------------------------------------------------- SD1.5 UNet fine-tuning
+def sd15_train_kernels(torch, F, dev, gen, record, attn):
+    """B15 (the lse forward) and B14 (dkv, dq) against their plain versions
+    per element at the SD1.5 training path's shapes (head_dim 40 and 80 run
+    the D = 64 and 96 instantiations) and at head_dim 256, and at 160 and 256
+    with causal + segment ids + GQA. B15 with the control that leaves out the
+    last key tile; B14, fed B15's lse and the di of B15's o as the path feeds
+    it, with two: di dropped, and the last key tile left out. Times, bounds
+    and library times (SDPA; the backward of SDPA, graph-captured)."""
+    bf16 = torch.bfloat16
+    sound, controls_need = [], []
+    for b_, s_, h_, kvh, d_, masked in SD15_TRAIN_FLASH_CASES:
+        shape = (b_, s_, h_, kvh, d_)
+        q = torch.randn((b_, s_, h_, d_), generator=gen, device=dev).to(bf16)
+        k, v = (torch.randn((b_, s_, kvh, d_), generator=gen, device=dev).to(bf16)
+                for _ in range(2))
+        do = torch.randn((b_, s_, h_, d_), generator=gen, device=dev).to(bf16)
+        kw, seg, pairs = {}, None, b_ * h_ * s_ * s_
+        if masked:
+            seg = torch.ones((b_, s_), dtype=torch.int32, device=dev)
+            for cut in TRAIN_SEGMENT_CUTS:
+                seg[:, int(cut * s_):] += 1
+            kw = dict(causal=True, segment_ids=attn.SegmentIds(seg, seg))
+            lengths = [int(n) for n in torch.unique_consecutive(seg[0], return_counts=True)[1]]
+            pairs = b_ * h_ * sum(n * (n + 1) // 2 for n in lengths)
+        n = s_ - (s_ % 64 or 64)  # the controls' keys: all but the last tile
+        kw_cut = dict(kw, segment_ids=attn.SegmentIds(seg, seg[:, :n])) if masked else kw
+        scale = d_ ** -0.5
+        qs = (q.float() * (scale * attn.LOG2E)).to(bf16)
+        f32 = (qs.float(), k.float(), v.float(), do.float())
+        label = f"{shape}{' causal + 4 segments' if masked else ''}"
+        # B15
+        o, lse = attn.flash_fwd_lse(qs, k, v, **kw)
+        torch.cuda.synchronize()
+        ro, rlse = attn.flash_fwd_lse_ref(*f32[:3], **kw)
+        excess, need = ulp_gate(o, ro, TRAIN_SUM)
+        lse_err = (lse - rlse).abs().max().item()
+        # (a query whose segment lies wholly in the last tile sees no key: 0)
+        control = ulp_gate(attn.flash_fwd_lse_ref(f32[0], f32[1][:, :n], f32[2][:, :n],
+                                                  **kw_cut)[0].nan_to_num(0.0), ro, TRAIN_SUM)
+        sound.append(need)
+        controls_need.append(control[1])
+        print(f"[sd15 train kernels] flash_fwd_lse {label}: o excess {excess:.3e} (least c "
+              f"{need:.2e}, c {TRAIN_SUM}), lse max err {lse_err:.3e} (tol {LSE_TOL}); control "
+              f"without the last {s_ - n} keys, least c {control[1]:.2e} (must be > c)",
+              flush=True)
+        check(bool(torch.isfinite(o).all()) and excess <= 0 and lse_err <= LSE_TOL,
+              f"flash_fwd_lse {label}: excess {excess}, lse err {lse_err}")
+        check(control[0] > 0, f"flash_fwd_lse {label}: the control passes ({control})")
+        ms, plain_ms = timed_pair(torch, lambda: attn.flash_fwd_lse(qs, k, v, **kw),
+                                  lambda: attn.flash_fwd_lse_ref(qs, k, v, **kw))
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        lib_ms = library_ms(torch, lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=masked, enable_gqa=h_ != kvh))
+        record("sd15 train kernels", f"flash_fwd_lse_d{d_}", shape,
+               (o.float() - ro).abs().max().item(), ms, plain_ms, lib_ms,
+               bound(nbytes(qs, k, v, o, lse, seg, seg), 4 * d_ * pairs, "bf16"),
+               (" causal + 4 segments" if masked else "") + " | library: SDPA"
+               + (" is_causal, no segments" if masked else ""))
+        # B14, from B15's lse and o
+        di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+        del ro, rlse, qh, kh, vh, o
+        dk, dv = attn.flash_bwd_dkv(qs, k, v, do, lse, di, **kw)
+        dq = attn.flash_bwd_dq(qs, k, v, do, lse, di, scale=scale, **kw)
+        torch.cuda.synchronize()
+        no_di = torch.zeros_like(di)
+        cut = (f32[0], f32[1][:, :n], f32[2][:, :n], f32[3], lse, di)
+
+        def padded(ts):  # dk, dv of the first n keys, the last tile's rows left 0
+            return tuple(F.pad(t, (0, 0, 0, 0, 0, s_ - n)) for t in ts)
+        for name, outs in (("flash_bwd_dkv", (dk, dv)), ("flash_bwd_dq", (dq,))):
+            if name == "flash_bwd_dkv":
+                refs = attn.flash_bwd_dkv_ref(*f32, lse, di, **kw)
+                ctrls = (attn.flash_bwd_dkv_ref(*f32, lse, no_di, **kw),
+                         padded(attn.flash_bwd_dkv_ref(*cut, **kw_cut)))
+                ops = 8 * d_ * pairs
+            else:
+                refs = (attn.flash_bwd_dq_ref(*f32, lse, di, scale=scale, **kw),)
+                ctrls = ((attn.flash_bwd_dq_ref(*f32, lse, no_di, scale=scale, **kw),),
+                         (attn.flash_bwd_dq_ref(*cut, scale=scale, **kw_cut),))
+                ops = 6 * d_ * pairs
+            gates = [ulp_gate(o_, r_, TRAIN_SUM) for o_, r_ in zip(outs, refs)]
+            ctrl = [max((ulp_gate(c_, r_, TRAIN_SUM) for c_, r_ in zip(c_outs, refs)),
+                        key=lambda g: g[0]) for c_outs in ctrls]
+            sound += [g[1] for g in gates]
+            controls_need += [c_[1] for c_ in ctrl]
+            err = max((o_.float() - r_).abs().max().item() for o_, r_ in zip(outs, refs))
+            print(f"[sd15 train kernels] {name} {label}: excess {[f'{g[0]:.3e}' for g in gates]} "
+                  f"(least c {[f'{g[1]:.2e}' for g in gates]}, c {TRAIN_SUM}); controls, least "
+                  f"c (must be > c): di dropped {ctrl[0][1]:.2e}, the last {s_ - n} keys left "
+                  f"out {ctrl[1][1]:.2e}", flush=True)
+            check(all(bool(torch.isfinite(o_).all()) for o_ in outs)
+                  and all(g[0] <= 0 for g in gates), f"{name} {label}: excess {gates}")
+            check(all(c_[0] > 0 for c_ in ctrl), f"{name} {label}: a control passes {ctrl}")
+            del refs, ctrls
+            if name == "flash_bwd_dkv":
+                ms, plain_ms = timed_pair(
+                    torch, lambda: attn.flash_bwd_dkv(qs, k, v, do, lse, di, **kw),
+                    lambda: attn.flash_bwd_dkv_ref(qs, k, v, do, lse, di, **kw))
+            else:
+                ms, plain_ms = timed_pair(
+                    torch, lambda: attn.flash_bwd_dq(qs, k, v, do, lse, di, scale=scale, **kw),
+                    lambda: attn.flash_bwd_dq_ref(qs, k, v, do, lse, di, scale=scale, **kw))
+            lib = sum(backward_ms(torch, lambda *t: F.scaled_dot_product_attention(
+                *t, is_causal=masked, enable_gqa=h_ != kvh),
+                tuple(t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v)),
+                do.transpose(1, 2)) for _ in range(2)) / 2
+            record("sd15 train kernels", f"{name}_d{d_}", shape, err, ms, plain_ms, lib,
+                   bound(nbytes(qs, k, v, do, lse, di, seg, seg, *outs), ops, "bf16"),
+                   (" causal + 4 segments" if masked else "") + " | library: the backward of "
+                   "SDPA (dq, dk, dv together)" + (" is_causal, no segments" if masked else ""))
+        del q, k, v, do, qs, f32, lse, di, no_di, cut, dk, dv, dq
+        torch.cuda.empty_cache()
+    print(f"[sd15 train kernels] B15 / B14 gate c {TRAIN_SUM}: the kernels' least c at most "
+          f"{max(sound):.2e}, the controls' at least {min(controls_need):.2e}", flush=True)
+
+
+def sd15_train_slice(torch, np, dev, m, counters):
+    """sd15 train agree and sd15 train (see the module docstring): the SD1.5
+    UNet (fp32 masters, bf16 compute) fine-tuned by the recipe of
+    examples/train_text_to_image.py. `counters` are every kernel wrapper's,
+    by name: the path must launch B15, B14 and B4 as the walk says, and
+    nothing else. Returns (launches, launches by head_dim of B15 / B14, the
+    numbers)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddlemix_tpu_torch.diffusers import DDPMScheduler
+    from paddlemix_tpu_torch.diffusers import training_utils
+    from paddlemix_tpu_torch.diffusers.sd15 import (
+        SD15_SCHEDULER,
+        expected_launches_sd15_train,
+        random_sd15_unet,
+        unet_train_flops,
+    )
+    from paddlemix_tpu_torch.tools import train_text_to_image as t2i
+
+    attn = m.attn
+    by_dim = [attn.flash_fwd_lse, attn.flash_bwd_dkv, attn.flash_bwd_dq]
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+        for fn in by_dim:
+            fn.launches_by_dim.clear()
+
+    def launches():
+        got = {name: fn.launches for name, fn in counters.items()}
+        got_dim = {fn.__name__: dict(fn.launches_by_dim) for fn in by_dim}
+        return got, got_dim
+
+    def walk(batch, steps):
+        want = expected_launches_sd15_train(unet, batch, 64, steps)
+        dims = want.pop("flash_by_dim")
+        return ({name: want.get(name, 0) for name in counters},
+                {fn.__name__: dims for fn in by_dim})
+
+    t0 = time.perf_counter()
+    unet = random_sd15_unet(dev, seed=0)
+    sched = DDPMScheduler.from_config(SD15_SCHEDULER)
+    torch.cuda.synchronize()
+    params = [p for p in unet.parameters() if p.requires_grad]
+    names = [n for n, p in unet.named_parameters() if p.requires_grad]
+    print(f"[sd15 train] SD1.5 UNet built in {time.perf_counter() - t0:.1f} s: "
+          f"{sum(p.numel() for p in params)} fp32 parameters in {len(params)} tensors, "
+          f"{unet.dtype} compute; scheduler DDPM from the checkpoint's config {SD15_SCHEDULER}",
+          flush=True)
+
+    # ------------------------------------------------------ sd15 train agree
+    gen = torch.Generator(device=dev).manual_seed(3)
+    b = SD15_AGREE_BATCH
+    batch = {"latents": torch.randn((b, 64, 64, 4), generator=gen, device=dev),
+             "encoder_hidden_states": torch.randn((b, 77, 768), generator=gen, device=dev)}
+    t = torch.tensor(SD15_AGREE_T, device=dev)
+    noise = torch.randn((b, 64, 64, 4), generator=gen, device=dev)
+    plain_all, rounded_all = train_plain_swaps(torch, m)
+    gn = (m.resnet, "group_norm", m.norms.group_norm_ref)
+    plain, rounded = plain_all[:3] + [gn], rounded_all[:3] + [gn]
+    no_di = [(attn, "flash_bwd_dkv", lambda qs, k, v, do, lse, di, **kw: attn.flash_bwd_dkv_ref(
+        qs, k, v, do, lse, torch.zeros_like(di), **kw))] + [plain[0], plain[2], gn]
+
+    def loss_and_grads(swaps=()):
+        with swapped(swaps):
+            loss = training_utils.sd_loss(unet, sched, batch, t, noise, snr_gamma=5.0)
+            grads = torch.autograd.grad(loss, params)
+        return loss.detach().float(), grads
+
+    zero()
+    loss_k, grads_k = loss_and_grads()
+    torch.cuda.synchronize()
+    got = launches()
+    loss_p, grads_p = loss_and_grads(plain)
+    gaps = {"kernels": [rel_l2(a.float(), b_.float()) for a, b_ in zip(grads_k, grads_p)]}
+    del grads_k
+    losses = {"kernels": loss_k}
+    for key, swaps in (("pair", rounded), ("control", no_di)):
+        losses[key], grads = loss_and_grads(swaps)
+        gaps[key] = [rel_l2(a.float(), b_.float()) for a, b_ in zip(grads, grads_p)]
+        del grads
+    del grads_p
+    signal = [i for i, gap_ in enumerate(gaps["pair"]) if gap_ <= CLIP_SIGNAL_GAP]
+
+    def median_max(key):
+        return sorted(gaps[key])[len(names) // 2], max(gaps[key][i] for i in signal)
+
+    (k_med, k_max), (r_med, r_max), (c_med, c_max) = map(median_max, ("kernels", "pair", "control"))
+    rel_loss = {key: abs(v - loss_p).item() / abs(loss_p).item() for key, v in losses.items()}
+    noise_only = sorted((gaps["pair"][i], names[i]) for i in range(len(names)) if i not in signal)
+    worst = max(signal, key=lambda i: gaps["kernels"][i])
+    print(f"[sd15 train agree] full-width SD1.5 UNet, one micro-batch of {b} at 64x64 latents, "
+          f"t {SD15_AGREE_T}, min-SNR 5, fixed noise; kernels vs plain: loss {loss_k.item():.6f} "
+          f"vs {loss_p.item():.6f} (relative {rel_loss['kernels']:.3e}; the plain versions one "
+          f"rounding apart, P rounded to bf16 before P.V, {rel_loss['pair']:.3e}, ratio tol "
+          f"{CLIP_LOSS_RATIO}); relative L2 of the gradients, median of all {len(names)} / max of "
+          f"the {len(signal)} with signal: kernels {k_med:.3e} / {k_max:.3e}, the pair "
+          f"{r_med:.3e} / {r_max:.3e} (ratio tol {TRAIN_AGREE_RATIO}); control, B14's dK/dV "
+          f"without di: {c_med:.3e} / {c_max:.3e} (must fail); left out as rounding noise alone "
+          f"{[f'{n_} {g_:.3f}' for g_, n_ in noise_only]}; the kernels' largest gap "
+          f"{names[worst]} {gaps['kernels'][worst]:.3e} (the pair {gaps['pair'][worst]:.3e}); "
+          f"launches {got[0]}, by head_dim {got[1]}", flush=True)
+    check(bool(torch.isfinite(loss_k)) and rel_loss["kernels"] <= CLIP_LOSS_RATIO * rel_loss["pair"]
+          and k_med <= TRAIN_AGREE_RATIO * r_med and k_max <= TRAIN_AGREE_RATIO * r_max,
+          f"sd15 train agree: loss {rel_loss}, grads {k_med} / {k_max} against {r_med} / {r_max}")
+    check(c_med > TRAIN_AGREE_RATIO * r_med or c_max > TRAIN_AGREE_RATIO * r_max,
+          f"sd15 train agree: the control passes ({c_med} / {c_max})")
+    check(got == walk(b, 1), f"sd15 train agree: launches {got} != {walk(b, 1)}")
+    del batch, noise
+
+    # ------------------------------------------------------------ sd15 train
+    t0 = time.perf_counter()
+    samples = t2i.sd_samples(SD15_TRAIN_SAMPLES)
+    trainer = t2i.build_trainer(unet, sched, samples, batch_size=SD15_TRAIN_BATCH)
+    a = trainer.args
+    print(f"[sd15 train] the example's {len(samples)} samples drawn in "
+          f"{time.perf_counter() - t0:.1f} s; build_trainer: "
+          f"{len(trainer.train_dataloader)} batches of {SD15_TRAIN_BATCH} an epoch, lr "
+          f"{a.learning_rate}, {a.lr_scheduler_type} over max_steps {a.max_steps}, clip "
+          f"{a.max_grad_norm}, seed {a.seed}; {SD15_TRAIN_STEPS} steps", flush=True)
+    before = [p.detach().clone() for p in params]
+    # the callbacks run every step (the recipe logs every 10th): one of them
+    # steps the profiler, whose one active window is the last step. A step's
+    # host time holds the callbacks of the step before it, so the step
+    # before the last pays the profiler's start (seconds)
+    a.logging_steps = 1
+    profiled = SD15_TRAIN_STEPS
+    zero()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA], schedule=torch.profiler.schedule(
+            wait=profiled - 2, warmup=1, active=1, repeat=1)) as prof:
+        trainer.callbacks.append(lambda step, metrics: prof.step())
+        trainer.train(SD15_TRAIN_STEPS)
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    got = launches()
+    want = walk(SD15_TRAIN_BATCH, SD15_TRAIN_STEPS)
+    by_kernel = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                        for e in prof.key_averages() if e.self_device_time_total > 0),
+                       reverse=True)
+    device_ms = sum(ms_ for ms_, _, _ in by_kernel)
+    hist = trainer.history
+    ends = [t_start] + [h["time"] for h in hist]
+    step_s = [b_ - a_ for a_, b_ in zip(ends, ends[1:])]
+    t_prof = step_s[profiled - 1]
+    # the steady steps: not the first (the loader's start), not the
+    # profiler's start or the profiled one
+    middle = [i for i in range(1, len(hist)) if i not in (profiled - 2, profiled - 1)]
+    s_step = sorted(step_s[i] for i in middle)[len(middle) // 2]
+    reader = sorted(hist[i]["reader"] for i in middle)[len(middle) // 2]
+    losses_ = torch.stack([h["loss"] for h in hist]).float()
+    gnorms = torch.stack([h["grad_norm"] for h in hist]).float()
+    moved = sum(not torch.equal(b_, p.detach()) for b_, p in zip(before, params))
+    del before
+    flops = unet_train_flops(unet, SD15_TRAIN_BATCH, 64)
+    tflops = flops / s_step / 1e12
+    print(f"[sd15 train] {len(hist)} optimizer steps of {SD15_TRAIN_BATCH} samples: seconds a "
+          f"step {[round(x, 4) for x in step_s]} (step {profiled} under the profiler, step "
+          f"{profiled - 1} starting it); median of steps 2-{profiled - 2} {s_step:.4f} s -> "
+          f"{SD15_TRAIN_BATCH / s_step:.2f} samples/s, "
+          f"{tflops:.1f} model TFLOP/s ({flops:.4e} flops a step), {100 * tflops / 989:.1f}% of "
+          f"989; reader: median {1e3 * reader:.2f} ms a step; profiled step {profiled} "
+          f"{t_prof:.4f} s with {device_ms:.1f} ms of device time: busy "
+          f"{100 * device_ms / 1e3 / t_prof:.1f}%; peak memory {peak:.2f} GiB", flush=True)
+    for ms_, n_, key in by_kernel[:15]:
+        print(f"[sd15 train]   profiled step: {ms_:8.2f} ms {100 * ms_ / device_ms:5.1f}% "
+              f"{n_:5d}x {key[:100]}", flush=True)
+    print(f"[sd15 train] losses {[round(x, 4) for x in losses_.tolist()]}; grad_norm "
+          f"{[round(x, 4) for x in gnorms.tolist()]}; {moved} of {len(params)} parameter "
+          f"tensors moved; launches {got[0]}, by head_dim {got[1]} (walk: {want})", flush=True)
+    check(len(hist) == SD15_TRAIN_STEPS and bool(torch.isfinite(losses_).all()
+                                                  and torch.isfinite(gnorms).all()),
+          "sd15 train: a loss or grad_norm is not finite")
+    check(moved == len(params), f"sd15 train: {len(params) - moved} parameter tensors did not "
+          f"move")
+    check(got == want, f"sd15 train: launches {got} != expected {want}")
+    del trainer, unet, params, samples
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats = dict(step_s=s_step, samples_per_s=SD15_TRAIN_BATCH / s_step, tflops=tflops,
+                 reader_share=reader / s_step, busy=device_ms / 1e3 / t_prof, peak_gib=peak)
+    return got[0], got[1], stats
+
+
 def main():
     import types
 
@@ -1677,14 +2038,14 @@ def main():
 
     for shape in FLASH_SHAPES:
         flash_case("kernels", shape)
-    def gn_case(label, shape, act, control=False):
+    def gn_case(label, shape, act, control=False, wdtype=bf16):
         c = shape[-1]
         x = torch.randn(shape, generator=gen, device=dev, dtype=bf16)
         if control:  # channels of their own mean and scale, so the grouping shows
             x = (x.float() * (0.5 + 1.5 * torch.rand(c, generator=gen, device=dev))
                  + torch.randn(c, generator=gen, device=dev)).to(bf16)
-        w = (1.0 + 0.05 * torch.randn(c, generator=gen, device=dev)).to(bf16)
-        b = (0.05 * torch.randn(c, generator=gen, device=dev)).to(bf16)
+        w = (1.0 + 0.05 * torch.randn(c, generator=gen, device=dev)).to(wdtype)
+        b = (0.05 * torch.randn(c, generator=gen, device=dev)).to(wdtype)
         t0 = time.perf_counter()
         out = norms_mod.group_norm(x, w, b, 32, 1e-5, act)
         torch.cuda.synchronize()
@@ -1697,20 +2058,25 @@ def main():
                        - ref).abs().max().item()
             note = f"; control over 16 groups: {control:.3e} (must exceed the tol)"
             check(control > GN_TOL, f"group_norm {shape} {act}: the control passes ({control})")
-        print(f"[{label}] group_norm {shape} {act} bf16: max_abs_err {err:.3e} (tol {GN_TOL})"
+        print(f"[{label}] group_norm {shape} {act} bf16, {str(wdtype)[6:]} w / b: max_abs_err "
+              f"{err:.3e} (tol {GN_TOL})"
               f"{note} | first call {first_s:.2f} s", flush=True)
         check(bool(torch.isfinite(out).all()) and err <= GN_TOL,
               f"group_norm {shape} {act}: err {err}")
         ms, plain_ms = timed_pair(torch, lambda: norms_mod.group_norm(x, w, b, 32, 1e-5, act),
                                   lambda: norms_mod.group_norm_ref(x, w, b, 32, 1e-5, act))
         x_nchw = x.permute(0, 3, 1, 2)  # the channels_last view cuDNN's GroupNorm reads
+        # F.group_norm takes no fp32 weight beside bf16 rows: the nearest
+        # yardstick gives it the weights rounded to bf16
+        w_lib, b_lib = w.to(bf16), b.to(bf16)
 
         def torch_gn():
-            y = F.group_norm(x_nchw, 32, w, b, 1e-5)
+            y = F.group_norm(x_nchw, 32, w_lib, b_lib, 1e-5)
             return F.silu(y) if act == "silu" else y
         # a few fp32 operations an element (moments, affine, SiLU): bytes bound it
         record(label, "group_norm", shape, err, ms, plain_ms, library_ms(torch, torch_gn),
-               bound(nbytes(x, w, b, out), 8 * x.numel(), "fp32"), f" {act}")
+               bound(nbytes(x, w, b, out), 8 * x.numel(), "fp32"), f" {act}"
+               + ("" if wdtype == bf16 else ", fp32 w / b | library: w / b rounded to bf16"))
         del x, out, ref, x_nchw
 
     for shape, act in GN_CASES:
@@ -2678,6 +3044,15 @@ def main():
     sd15_kernels(torch, F, dev, gen, record, flash_case, gn_case, attn_mod)
     launches_sd15, sd15_stats = sd15_slice(torch, np, dev, gen, mods, every)
 
+    # ------------------------------------------------ SD1.5 UNet fine-tuning
+    gc.collect()
+    torch.cuda.empty_cache()
+    for shape, act in SD15_TRAIN_GN_CASES:
+        gn_case("sd15 train kernels", shape, act, control=True, wdtype=torch.float32)
+    sd15_train_kernels(torch, F, dev, gen, record, attn_mod)
+    launches_sd15_tr, dims_sd15_tr, sd15_train_stats = sd15_train_slice(torch, np, dev, mods,
+                                                                        every)
+
     # --------------------------------------------------------------- summary
     def entry(name, route, source, replaces, by_phase):
         # ms / plain_ms / library_ms / bound at the first shape listed;
@@ -2699,6 +3074,12 @@ def main():
     def llava(name):
         return {"llava_bf16": launches_llava[name], "llava_wint8": launches_wint8[name],
                 "sd3": launches_sd3[name]}
+
+    def train_phases(name):
+        return {"train": launches_tr[name], "sd15_train": launches_sd15_tr[name]}
+
+    def sd15_train_dim(name, d_):
+        return {"sd15_train": dims_sd15_tr[name].get(d_, 0)}
 
     def llama_phases(name):
         return {"llama_int8kv": launches_i8[name], "llama_bf16kv": launches_kv[name],
@@ -2733,11 +3114,11 @@ def main():
         entry("paged_decode_attention", "cuda", "paddlemix_tpu_torch/csrc/paged_attention.cu",
               "paddlemix_tpu/ops/paged_attention.py:134", llama_phases("paged_decode_attention")),
         entry("flash_fwd_lse", "cuda", "paddlemix_tpu_torch/csrc/flash_fwd.cu",
-              "paddlemix_tpu/ops/attention.py:243", {"train": launches_tr["flash_fwd_lse"]}),
+              "paddlemix_tpu/ops/attention.py:243", train_phases("flash_fwd_lse")),
         entry("flash_bwd_dkv", "cuda", "paddlemix_tpu_torch/csrc/flash_bwd.cu",
-              "paddlemix_tpu/ops/attention.py:386", {"train": launches_tr["flash_bwd_dkv"]}),
+              "paddlemix_tpu/ops/attention.py:386", train_phases("flash_bwd_dkv")),
         entry("flash_bwd_dq", "cuda", "paddlemix_tpu_torch/csrc/flash_bwd.cu",
-              "paddlemix_tpu/ops/attention.py:422", {"train": launches_tr["flash_bwd_dq"]}),
+              "paddlemix_tpu/ops/attention.py:422", train_phases("flash_bwd_dq")),
         entry("rms_norm_backward", "triton", "paddlemix_tpu_torch/ops/norms.py",
               "paddlemix_tpu/ops/norms.py:172", {"train": launches_tr["rms_norm_backward"]}),
         entry("layer_norm", "triton", "paddlemix_tpu_torch/ops/norms.py",
@@ -2750,8 +3131,9 @@ def main():
         entry("layer_norm_backward", "triton", "paddlemix_tpu_torch/ops/norms.py",
               "paddlemix_tpu/ops/norms.py:226",
               {"clip_train": launches_clip_tr["layer_norm_backward"]}),
-        # B1's forms of this slice: int8 QK^T (the `int8_qk` branch of
-        # `_fwd_kernel`) and the wide heads, whose lse form (B15) no path runs
+        # B1's forms: int8 QK^T (the `int8_qk` branch of `_fwd_kernel`) and
+        # the wide heads; B15 at the SD1.5 training path's head dims (40 and
+        # 80 padded to the D = 64 and 96 instantiations, 160) and at 256
         entry("flash_attention_int8", "cuda", "paddlemix_tpu_torch/csrc/flash_fwd.cu",
               "paddlemix_tpu/ops/attention.py:89",
               {"a8w8_int8_attn": launches_i8attn["flash_attention_int8"]}),
@@ -2759,14 +3141,26 @@ def main():
               "paddlemix_tpu/ops/attention.py:243", {"sd15": launches_sd15["flash_attention_d160"]}),
         entry("flash_attention_d256", "cuda", "paddlemix_tpu_torch/csrc/flash_fwd.cu",
               "paddlemix_tpu/ops/attention.py:243", {}),
+        entry("flash_fwd_lse_d40", "cuda", "paddlemix_tpu_torch/csrc/flash_fwd.cu",
+              "paddlemix_tpu/ops/attention.py:243", sd15_train_dim("flash_fwd_lse", 40)),
+        entry("flash_fwd_lse_d80", "cuda", "paddlemix_tpu_torch/csrc/flash_fwd.cu",
+              "paddlemix_tpu/ops/attention.py:243", sd15_train_dim("flash_fwd_lse", 80)),
         entry("flash_fwd_lse_d160", "cuda", "paddlemix_tpu_torch/csrc/flash_fwd.cu",
-              "paddlemix_tpu/ops/attention.py:243", {}),
+              "paddlemix_tpu/ops/attention.py:243", sd15_train_dim("flash_fwd_lse", 160)),
         entry("flash_fwd_lse_d256", "cuda", "paddlemix_tpu_torch/csrc/flash_fwd.cu",
               "paddlemix_tpu/ops/attention.py:243", {}),
     ]
+    # B14 at the SD1.5 training path's head dims (40 and 80 padded to the
+    # D = 64 and 96 instantiations) and at 129-256 (160 and 256 compiled)
+    kernels += [entry(f"{name}_d{d_}", "cuda", "paddlemix_tpu_torch/csrc/flash_bwd.cu",
+                      f"paddlemix_tpu/ops/attention.py:{line}", sd15_train_dim(name, d_))
+                for d_ in (40, 80, 160, 256)
+                for name, line in (("flash_bwd_dkv", 386), ("flash_bwd_dq", 422))]
     by_name = {k["name"]: k for k in kernels}
     by_name["rms_norm"]["launches_by_phase"]["train"] = launches_tr["rms_norm"]
     by_name["rms_norm"]["launches"] += launches_tr["rms_norm"]
+    by_name["group_norm"]["launches_by_phase"]["sd15_train"] = launches_sd15_tr["group_norm"]
+    by_name["group_norm"]["launches"] += launches_sd15_tr["group_norm"]
     kernels[1]["stats_launches_by_phase"] = sdxl("group_norm_stats")
     # the a8w8 requests run all five SDXL kernels, the bf16 ones flash and
     # GroupNorm; both LLaVA configurations run decode attention and RMSNorm,
@@ -2791,7 +3185,12 @@ def main():
                                       "flash_bwd_dq", "rms_norm_backward")] + \
         [("layer_norm", phase) for phase in ("bf16", "a8w8", "llava_bf16", "llava_wint8", "sd3",
                                              "clip", "clip_train")] + \
-        [("layer_norm_backward", "clip_train")]
+        [("layer_norm_backward", "clip_train")] + \
+        [(name, "sd15_train") for name in (
+            "flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq", "group_norm",
+            "flash_fwd_lse_d40", "flash_fwd_lse_d80", "flash_fwd_lse_d160",
+            "flash_bwd_dkv_d40", "flash_bwd_dq_d40", "flash_bwd_dkv_d80", "flash_bwd_dq_d80",
+            "flash_bwd_dkv_d160", "flash_bwd_dq_d160")]
     idle = [(name, phase) for name, phase in must_run
             if by_name[name]["launches_by_phase"][phase] == 0]
     check(not idle, f"kernels never launched by the requests: {idle}")
@@ -2800,6 +3199,7 @@ def main():
     print(f"[summary] training: {train_stats}", flush=True)
     print(f"[summary] clip: {clip_stats}; clip train: {clip_train_stats}", flush=True)
     print(f"[summary] sd15: {sd15_stats}", flush=True)
+    print(f"[summary] sd15 train: {sd15_train_stats}", flush=True)
     print(f"[summary] chip_smoke ran {time.perf_counter() - T_START:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

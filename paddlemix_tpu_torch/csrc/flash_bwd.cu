@@ -22,17 +22,33 @@
 //
 // What bounds it: the five products of a (query, key) tile pair do 10*D flops
 // per pair against bytes read once per tile, so like the forward it is
-// compute-bound, and the limit is how the tensor cores are fed. A block has 4
-// warps; each warp owns 16 rows (keys in dK/dV, queries in dQ) and keeps its
-// dK, dV or dQ accumulator in registers as 16x16 fp32 WMMA fragments for the
-// whole walk, so the accumulators never leave the SM until the end. The walked
-// tiles (32 rows) and the scores, dP, P and dS of the warp's 16 x 32 tile sit
-// in shared memory (~80 KB at D = 128: two blocks an SM). Outputs are fp32
-// (B, H, S_pad, D) with S padded to the 64-row tile, stored straight from the
-// fragments; the wrapper slices, sums over GQA groups and casts.
+// compute-bound, and the limit is how the tensor cores are fed. Each warp owns
+// 16 rows (keys in dK/dV, queries in dQ) and keeps its accumulator in
+// registers as 16x16 fp32 WMMA fragments for the whole walk, so the
+// accumulators never leave the SM until the end. The walked tiles (32 rows)
+// and the scores, dP, P and dS of the owned rows x 32 sit in shared memory.
+// Outputs are fp32 (B, H, S_pad, D) with S padded to the 64-row tile, stored
+// straight from the fragments; the wrapper slices, sums over GQA groups and
+// casts.
+//
+// Head dims 32-128: a block of 4 warps; in the dK/dV kernel each warp holds
+// both its dK and its dV (D fp32 registers a thread for the two sums: 128 at
+// D = 128; ~80 KB of shared memory, two blocks an SM). Head dims 160 and 256
+// (heads of 129-256 padded, as the forward pads them): both 16 x D sums in one warp
+// would be 160 / 256 registers a thread for the accumulators alone, past the
+// 255 a thread may have. So the dK/dV kernel runs 8 warps, split by output:
+// warps 0-3 compute S^T = K Q^T for their 16 keys and accumulate dV, warps
+// 4-7 compute dP^T = V dO^T for the same keys and accumulate dK; the pair
+// (w, w + 4) shares the elementwise P / dS step, and every warp holds one
+// 16 x D sum (80 / 128 registers, as dQ's). Shared memory is the 4-warp
+// layout's: 93,952 bytes at D = 160, 130,816 at D = 256. One template holds
+// both forms (`SPLIT`, set above 128, picks the roles, the threads' share of
+// the P / dS step and the block-wide syncs), so the masks, the lse and the
+// stores are written once. The dQ kernel needs no change there: one 16 x D
+// sum a warp.
 //
 // Left for later work: wgmma + TMA, a ring of walked tiles in flight, skipping
-// tiles that share no segment, head_dim above 128.
+// tiles that share no segment.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -48,6 +64,7 @@ constexpr int OWN = 64;   // rows a block owns (16 per warp)
 constexpr int WALK = 32;  // rows of each walked tile
 constexpr int NUM_WARPS = OWN / 16;
 constexpr int NUM_THREADS = NUM_WARPS * 32;
+constexpr int SPLIT_THREADS = 2 * NUM_THREADS;  // the dK/dV kernel above D = 128
 constexpr int PAD_H = 8;  // bf16 row padding: keeps WMMA ldm a multiple of 8
 constexpr int PAD_F = 4;  // fp32 row padding
 constexpr float LOG2E = 1.4426950408889634f;
@@ -68,12 +85,12 @@ struct Layout {
 };
 
 // `rows` x D bf16 rows (row stride `stride` elements) into shared memory as
-// 16-byte vectors; rows past `valid` are zero-filled.
-template <int D, int ROWS>
+// 16-byte vectors by a block of THREADS; rows past `valid` are zero-filled.
+template <int D, int ROWS, int THREADS = NUM_THREADS>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int valid, int stride) {
   constexpr int VEC = 8;
   constexpr int VPR = D / VEC;
-  for (int i = threadIdx.x; i < ROWS * VPR; i += NUM_THREADS) {
+  for (int i = threadIdx.x; i < ROWS * VPR; i += THREADS) {
     const int r = i / VPR;
     const int c = (i % VPR) * VEC;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
@@ -83,9 +100,9 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int valid,
 }
 
 // `n` values of a per-row fp32 or int32 vector into shared memory, `fill` past `valid`.
-template <typename T>
+template <int THREADS = NUM_THREADS, typename T>
 __device__ __forceinline__ void load_rows(T* dst, const T* src, int n, int valid, T fill) {
-  for (int i = threadIdx.x; i < n; i += NUM_THREADS) dst[i] = i < valid ? src[i] : fill;
+  for (int i = threadIdx.x; i < n; i += THREADS) dst[i] = i < valid ? src[i] : fill;
 }
 
 // C (16 x 32, fp32, row-major at c, ld LD_S) = A (16 x D rows at a) B^T where
@@ -140,10 +157,17 @@ struct Args {
   float ds_scale;  // 1/log2(e) for dK, the softmax scale for dQ
 };
 
-// One block: key tile [n0, n0 + 64) of query head h, batch b; walks the query tiles.
-template <int D>
-__global__ void __launch_bounds__(NUM_THREADS) flash_bwd_dkv_kernel(Args a) {
+// One block: key tile [n0, n0 + 64) of query head h, batch b; walks the query
+// tiles. Head dims to 128: 4 warps, warp w sums dK and dV of keys 16w..
+// Above (SPLIT): 8 warps, warp w < 4 sums dV of keys 16w.., warp w + 4 dK of
+// the same keys (see the top of the file).
+template <int D, bool SPLIT = (D > 128)>
+__global__ void __launch_bounds__(SPLIT ? SPLIT_THREADS : NUM_THREADS)
+    flash_bwd_dkv_kernel(Args a) {
   using L = Layout<D>;
+  constexpr int THREADS = SPLIT ? SPLIT_THREADS : NUM_THREADS;
+  constexpr int SUMS = SPLIT ? 1 : 2;     // 16 x D sums a warp: dK and dV, or one of them
+  constexpr int PER_KEY = SPLIT ? 4 : 2;  // threads sharing a key's row of 32 queries
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sK = reinterpret_cast<bf16*>(smem);
   bf16* sV = reinterpret_cast<bf16*>(smem + L::OWN_BYTES);
@@ -164,29 +188,41 @@ __global__ void __launch_bounds__(NUM_THREADS) flash_bwd_dkv_kernel(Args a) {
   const int hk = h / a.group;
   const int heads = gridDim.y;
   const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
+  // warp-uniform roles: a split warp computes S^T and sums dV, or dP^T and dK
+  const bool dk_warp = SPLIT && warp >= NUM_WARPS;
+  const bool does_dv = !SPLIT || !dk_warp;
+  const bool does_dk = !SPLIT || dk_warp;
+  // the warp's 16 keys, from n0 (`warp % 4` in the 4-warp form costs ptxas
+  // 13 registers at D = 96: 180, two blocks an SM instead of three)
+  const int rows = (SPLIT ? warp % NUM_WARPS : warp) * 16;
   const int n_valid = min(OWN, a.seq_kv - n0);
 
-  load_tile<D, OWN>(sK, a.k + int64_t(b) * a.k_sb + int64_t(hk) * a.k_sh + int64_t(n0) * a.k_ss,
-                    n_valid, a.k_ss);
-  load_tile<D, OWN>(sV, a.v + int64_t(b) * a.v_sb + int64_t(hk) * a.v_sh + int64_t(n0) * a.v_ss,
-                    n_valid, a.v_ss);
-  if (a.kseg != nullptr) load_rows(sKseg, a.kseg + int64_t(b) * a.kseg_sb + n0, OWN, n_valid, 0);
+  load_tile<D, OWN, THREADS>(
+      sK, a.k + int64_t(b) * a.k_sb + int64_t(hk) * a.k_sh + int64_t(n0) * a.k_ss, n_valid,
+      a.k_ss);
+  load_tile<D, OWN, THREADS>(
+      sV, a.v + int64_t(b) * a.v_sb + int64_t(hk) * a.v_sh + int64_t(n0) * a.v_ss, n_valid,
+      a.v_ss);
+  if (a.kseg != nullptr)
+    load_rows<THREADS>(sKseg, a.kseg + int64_t(b) * a.kseg_sb + n0, OWN, n_valid, 0);
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> dk[D / 16], dv[D / 16];
+  // acc[0] is dK (or a split warp's one sum), acc[SUMS - 1] dV
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[SUMS][D / 16];
 #pragma unroll
-  for (int j = 0; j < D / 16; ++j) {
-    wmma::fill_fragment(dk[j], 0.f);
-    wmma::fill_fragment(dv[j], 0.f);
-  }
-  // lane pair (2r, 2r+1) owns key r of the warp's 16, columns (queries) split even/odd
-  const int r = lane >> 1;
-  const int half = lane & 1;
-  const int key = n0 + warp * 16 + r;
-  float* wS = sS + warp * 16 * L::LD_S;
-  float* wDp = sDp + warp * 16 * L::LD_S;
-  bf16* wP = sP + warp * 16 * L::LD_P;
-  bf16* wDs = sDs + warp * 16 * L::LD_P;
+  for (int s = 0; s < SUMS; ++s)
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j) wmma::fill_fragment(acc[s][j], 0.f);
+  // the threads of the 16 keys x 32 queries (a warp, or a split pair's 64):
+  // thread t owns key t / PER_KEY and the queries (columns) t % PER_KEY +
+  // PER_KEY c
+  const int t = (dk_warp ? 32 : 0) + threadIdx.x % 32;
+  const int r = t / PER_KEY;
+  const int part = t % PER_KEY;
+  const int key = n0 + rows + r;
+  float* wS = sS + rows * L::LD_S;
+  float* wDp = sDp + rows * L::LD_S;
+  bf16* wP = sP + rows * L::LD_P;
+  bf16* wDs = sDs + rows * L::LD_P;
   const int64_t row_base = (int64_t(b) * heads + h) * a.seq_q;
   const bf16* qb = a.q + int64_t(b) * a.q_sb + int64_t(h) * a.q_sh;
   const bf16* db = a.dout + int64_t(b) * a.d_sb + int64_t(h) * a.d_sh;
@@ -195,41 +231,42 @@ __global__ void __launch_bounds__(NUM_THREADS) flash_bwd_dkv_kernel(Args a) {
   for (int m0 = a.causal ? (n0 / WALK) * WALK : 0; m0 < a.seq_q; m0 += WALK) {
     const int m_valid = min(WALK, a.seq_q - m0);
     __syncthreads();  // every warp is done with the previous query tile
-    load_tile<D, WALK>(sQ, qb + int64_t(m0) * a.q_ss, m_valid, a.q_ss);
-    load_tile<D, WALK>(sDo, db + int64_t(m0) * a.d_ss, m_valid, a.d_ss);
-    load_rows(sLse, a.lse + row_base + m0, WALK, m_valid, 0.f);
-    load_rows(sDi, a.di + row_base + m0, WALK, m_valid, 0.f);
-    if (a.qseg != nullptr) load_rows(sSeg, a.qseg + int64_t(b) * a.qseg_sb + m0, WALK, m_valid, 0);
+    load_tile<D, WALK, THREADS>(sQ, qb + int64_t(m0) * a.q_ss, m_valid, a.q_ss);
+    load_tile<D, WALK, THREADS>(sDo, db + int64_t(m0) * a.d_ss, m_valid, a.d_ss);
+    load_rows<THREADS>(sLse, a.lse + row_base + m0, WALK, m_valid, 0.f);
+    load_rows<THREADS>(sDi, a.di + row_base + m0, WALK, m_valid, 0.f);
+    if (a.qseg != nullptr)
+      load_rows<THREADS>(sSeg, a.qseg + int64_t(b) * a.qseg_sb + m0, WALK, m_valid, 0);
     __syncthreads();
 
     // S^T = K Q^T and dP^T = V dO^T for the warp's 16 keys x 32 queries
-    rows_by_rows_t<D>(wS, sK + warp * 16 * L::LD, sQ);
-    rows_by_rows_t<D>(wDp, sV + warp * 16 * L::LD, sDo);
-    __syncwarp();
+    if (does_dv) rows_by_rows_t<D>(wS, sK + rows * L::LD, sQ);
+    if (does_dk) rows_by_rows_t<D>(wDp, sV + rows * L::LD, sDo);
+    if constexpr (SPLIT) __syncthreads(); else __syncwarp();  // S and dP are written
 #pragma unroll
-    for (int c = 0; c < WALK / 2; ++c) {
-      const int col = 2 * c + half;
+    for (int c = 0; c < WALK / PER_KEY; ++c) {
+      const int col = PER_KEY * c + part;
       const int qrow = m0 + col;
       bool keep = key < a.seq_kv && col < m_valid;
       if (a.causal) keep = keep && key <= qrow;
-      if (a.kseg != nullptr) keep = keep && sKseg[warp * 16 + r] == sSeg[col];
+      if (a.kseg != nullptr) keep = keep && sKseg[rows + r] == sSeg[col];
       const float p = keep ? exp2f(wS[r * L::LD_S + col] - sLse[col]) : 0.f;
       const float ds = p * (wDp[r * L::LD_S + col] - sDi[col]) * a.ds_scale;
       wP[r * L::LD_P + col] = __float2bfloat16(p);
       wDs[r * L::LD_P + col] = __float2bfloat16(ds);
     }
-    __syncwarp();
-    accumulate<D>(dv, wP, sDo);  // dV += P^T dO
-    accumulate<D>(dk, wDs, sQ);  // dK += dS^T Qs
+    if constexpr (SPLIT) __syncthreads(); else __syncwarp();  // P and dS are written
+    if (does_dv) accumulate<D>(acc[SUMS - 1], wP, sDo);  // dV += P^T dO
+    if (does_dk) accumulate<D>(acc[0], wDs, sQ);         // dK += dS^T Qs
   }
 
-  const int s_pad = gridDim.x * OWN;
-  float* dkb = a.out0 + ((int64_t(b) * heads + h) * s_pad + n0 + warp * 16) * D;
-  float* dvb = a.out1 + ((int64_t(b) * heads + h) * s_pad + n0 + warp * 16) * D;
+  const int64_t base = ((int64_t(b) * heads + h) * (gridDim.x * OWN) + n0 + rows) * D;
 #pragma unroll
   for (int j = 0; j < D / 16; ++j) {
-    wmma::store_matrix_sync(dkb + j * 16, dk[j], D, wmma::mem_row_major);
-    wmma::store_matrix_sync(dvb + j * 16, dv[j], D, wmma::mem_row_major);
+    if (does_dk)
+      wmma::store_matrix_sync(a.out0 + base + j * 16, acc[0][j], D, wmma::mem_row_major);
+    if (does_dv)
+      wmma::store_matrix_sync(a.out1 + base + j * 16, acc[SUMS - 1][j], D, wmma::mem_row_major);
   }
 }
 
@@ -320,13 +357,14 @@ __global__ void __launch_bounds__(NUM_THREADS) flash_bwd_dq_kernel(Args a) {
 template <int D>
 int launch(bool dkv, const Args& a, int batch, int heads, cudaStream_t stream) {
   constexpr size_t smem = Layout<D>::TOTAL;
-  auto kernel = dkv ? flash_bwd_dkv_kernel<D> : flash_bwd_dq_kernel<D>;
+  void (*kernel)(Args) = dkv ? flash_bwd_dkv_kernel<D> : flash_bwd_dq_kernel<D>;
+  const int threads = dkv && D > 128 ? SPLIT_THREADS : NUM_THREADS;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          int(smem));
   if (err != cudaSuccess) return int(err);
   const int rows = dkv ? a.seq_kv : a.seq_q;
   dim3 grid((rows + OWN - 1) / OWN, heads, batch);
-  kernel<<<grid, NUM_THREADS, smem, stream>>>(a);
+  kernel<<<grid, threads, smem, stream>>>(a);
   return int(cudaGetLastError());
 }
 
@@ -339,6 +377,8 @@ int dispatch(bool dkv, const Args& a, int batch, int heads, int head_dim, cudaSt
     case 64: return launch<64>(dkv, a, batch, heads, s);
     case 96: return launch<96>(dkv, a, batch, heads, s);
     case 128: return launch<128>(dkv, a, batch, heads, s);
+    case 160: return launch<160>(dkv, a, batch, heads, s);
+    case 256: return launch<256>(dkv, a, batch, heads, s);
     default: return int(cudaErrorInvalidValue);
   }
 }

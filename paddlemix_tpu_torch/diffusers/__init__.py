@@ -1,5 +1,5 @@
 """SD1.5, SDXL and SD3 text-to-image: models, Euler, PNDM and FlowMatch schedulers,
-pipelines."""
+pipelines; SD UNet training: the DDPM scheduler and the loss (training_utils)."""
 
 from .image_processor import VaeImageProcessor
 from .models import (
@@ -16,9 +16,14 @@ from .pipelines import (
     StableDiffusionPipeline,
     StableDiffusionXLPipeline,
 )
-from .schedulers import EulerDiscreteScheduler, FlowMatchEulerDiscreteScheduler, PNDMScheduler
+from .schedulers import (
+    DDPMScheduler,
+    EulerDiscreteScheduler,
+    FlowMatchEulerDiscreteScheduler,
+    PNDMScheduler,
+)
 
-__all__ = ["AutoencoderKL", "AutoencoderKLConfig", "DiffusionPipeline",
+__all__ = ["AutoencoderKL", "AutoencoderKLConfig", "DDPMScheduler", "DiffusionPipeline",
            "EulerDiscreteScheduler", "FlowMatchEulerDiscreteScheduler", "PNDMScheduler",
            "SD3Transformer2DModel", "SD3TransformerConfig", "StableDiffusion3Pipeline",
            "StableDiffusionPipeline", "StableDiffusionXLPipeline",

@@ -18,6 +18,7 @@ from typing import Optional
 
 from torch import nn
 
+from ...models.layers import LayerNorm
 from ...ops import scaled_dot_product_attention
 from ...ops.activations import gelu_exact
 from ...ops.quant import conv2d, linear
@@ -79,11 +80,11 @@ class BasicTransformerBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, head_dim: int, cross_dim: int,
                  quant: bool = False):
         super().__init__()
-        self.norm1 = nn.LayerNorm(dim, eps=1e-6)
+        self.norm1 = LayerNorm(dim, eps=1e-6)
         self.attn1 = CrossAttention(dim, num_heads, head_dim, quant=quant)
-        self.norm2 = nn.LayerNorm(dim, eps=1e-6)
+        self.norm2 = LayerNorm(dim, eps=1e-6)
         self.attn2 = CrossAttention(dim, num_heads, head_dim, cross_dim=cross_dim, quant=quant)
-        self.norm3 = nn.LayerNorm(dim, eps=1e-6)
+        self.norm3 = LayerNorm(dim, eps=1e-6)
         self.ff = GEGLUFeedForward(dim, quant)
 
     def forward(self, hidden, context):

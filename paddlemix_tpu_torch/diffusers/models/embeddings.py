@@ -8,6 +8,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...models.layers import Linear
+
 
 def get_timestep_embedding(timesteps: torch.Tensor, embedding_dim: int,
                            flip_sin_to_cos: bool = False,
@@ -42,8 +44,8 @@ class TimestepEmbedding(nn.Module):
 
     def __init__(self, in_channels: int, time_embed_dim: int):
         super().__init__()
-        self.linear_1 = nn.Linear(in_channels, time_embed_dim)
-        self.linear_2 = nn.Linear(time_embed_dim, time_embed_dim)
+        self.linear_1 = Linear(in_channels, time_embed_dim)
+        self.linear_2 = Linear(time_embed_dim, time_embed_dim)
 
     def forward(self, sample):
         return self.linear_2(F.silu(self.linear_1(sample)))

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...models.layers import Linear
 from ...ops.fused_resnet import fused_gn_silu_conv3x3
 from ...ops.norms import group_norm
 from ...ops.quant import conv2d
@@ -61,7 +62,7 @@ class ResnetBlock2D(nn.Module):
         super().__init__()
         self.norm1 = GroupNormAct(in_channels, groups)
         self.conv1 = conv2d(quant, in_channels, out_channels, 3, padding=1)
-        self.time_emb_proj = nn.Linear(temb_channels, out_channels) if temb_channels else None
+        self.time_emb_proj = Linear(temb_channels, out_channels) if temb_channels else None
         self.norm2 = GroupNormAct(out_channels, groups)
         self.conv2 = conv2d(quant, out_channels, out_channels, 3, padding=1)
         self.conv_shortcut = conv2d(quant, in_channels, out_channels, 1) \

@@ -6,6 +6,12 @@ inside, feature maps are NCHW in channels_last memory. Parameter names are
 diffusers'. The ControlNet, T2I-Adapter, GLIGEN, IP-Adapter and reference
 hooks of the JAX module are not ported.
 
+Mixed precision as flax's module `dtype=` gives it:
+`models.layers.set_compute_dtype(unet, torch.bfloat16)` computes in bf16 over
+parameters kept in their own dtype (fp32 masters for training): every conv, Linear and
+transformer LayerNorm casts at its call, GroupNorm takes fp32 weights beside
+bf16 rows, and the timestep embedding is cast as JAX casts it.
+
 `quant="a8w8_static"` makes every resnet, transformer and up/down-sample conv
 or projection a static a8w8 op (ops/quant.py); conv_in, conv_out, the time
 and add embeddings and time_emb_proj stay plain, as in the JAX package.
@@ -19,6 +25,7 @@ from typing import List, Optional, Tuple, Union
 import torch
 from torch import nn
 
+from ...models.layers import Conv2d
 from .attention import Transformer2DModel
 from .embeddings import TimestepEmbedding, Timesteps
 from .resnet import Downsample2D, GroupNormAct, ResnetBlock2D, Upsample2D
@@ -173,6 +180,8 @@ class UpBlock2D(nn.Module):
 
 
 class UNet2DConditionModel(nn.Module):
+    compute_dtype: Optional[torch.dtype] = None  # set_compute_dtype's; None: the parameters'
+
     def __init__(self, config: UNet2DConditionConfig):
         super().__init__()
         cfg = self.config = config
@@ -182,7 +191,7 @@ class UNet2DConditionModel(nn.Module):
         heads, tf_layers = cfg.heads_per_block, cfg.tf_layers_per_block
         ctx, linear, q = cfg.cross_attention_dim, cfg.use_linear_projection, cfg.quantized
         temb = chans[0] * 4
-        self.conv_in = nn.Conv2d(cfg.in_channels, chans[0], 3, padding=1)
+        self.conv_in = Conv2d(cfg.in_channels, chans[0], 3, padding=1)
         self.time_proj = Timesteps(chans[0], cfg.flip_sin_to_cos, cfg.freq_shift)
         self.time_embedding = TimestepEmbedding(chans[0], temb)
         if cfg.addition_embed_type == "text_time":
@@ -232,11 +241,12 @@ class UNet2DConditionModel(nn.Module):
             self.up_blocks.append(blk)
 
         self.conv_norm_out = GroupNormAct(chans[0], groups, eps=1e-5, act="silu")
-        self.conv_out = nn.Conv2d(chans[0], cfg.out_channels, 3, padding=1)
+        self.conv_out = Conv2d(chans[0], cfg.out_channels, 3, padding=1)
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.conv_in.weight.dtype
+        """The dtype the model computes in (flax's module dtype)."""
+        return self.compute_dtype or self.conv_in.weight.dtype
 
     def forward(self, sample, timestep, encoder_hidden_states, added_cond_kwargs=None):
         """sample: (B, H, W, C_in) NHWC; returns (B, H, W, C_out) NHWC."""

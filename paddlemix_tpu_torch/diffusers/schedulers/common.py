@@ -1,6 +1,7 @@
-"""Scheduler substrate: beta schedules and timestep spacing (port of
-paddlemix_tpu/diffusers/schedulers/common.py, the parts the Euler and PNDM
-paths use)."""
+"""Scheduler substrate: beta schedules, timestep spacing, prediction types
+and the forward diffusion of training (port of
+paddlemix_tpu/diffusers/schedulers/common.py, the parts the Euler, PNDM and
+DDPM paths use)."""
 
 from __future__ import annotations
 
@@ -12,13 +13,16 @@ import torch
 
 @dataclasses.dataclass
 class SchedulerConfig:
-    """epsilon prediction; beta_schedule linear | scaled_linear, timestep_spacing
-    leading | linspace (the JAX package has more, not ported yet)."""
+    """beta_schedule linear | scaled_linear, timestep_spacing leading |
+    linspace (the JAX package has more, not ported yet). `prediction_type`
+    (epsilon | v_prediction | sample) is read by DDPM's step; Euler and PNDM
+    step epsilon."""
 
     num_train_timesteps: int = 1000
     beta_start: float = 0.0001
     beta_end: float = 0.02
     beta_schedule: str = "linear"
+    prediction_type: str = "epsilon"
     timestep_spacing: str = "leading"
     steps_offset: int = 0  # added to "leading" timesteps
 
@@ -51,6 +55,37 @@ def spaced_timesteps(cfg: SchedulerConfig, num_inference_steps: int) -> np.ndarr
     return ts
 
 
+def predicted_x0(model_output, sample, alpha_prod_t, prediction_type: str):
+    """Convert a model output into the x0 estimate (shared by all solvers)."""
+    beta_prod_t = 1.0 - alpha_prod_t
+    if prediction_type == "epsilon":
+        return (sample - beta_prod_t ** 0.5 * model_output) / alpha_prod_t ** 0.5
+    if prediction_type == "v_prediction":
+        return alpha_prod_t ** 0.5 * sample - beta_prod_t ** 0.5 * model_output
+    if prediction_type == "sample":
+        return model_output
+    raise ValueError(f"unknown prediction_type {prediction_type!r}")
+
+
+def _at(alphas_cumprod, timesteps, like):
+    """alphas_cumprod[timesteps] in like's dtype, on its device, shaped to
+    broadcast over like's trailing dims."""
+    a = alphas_cumprod.to(like.device)[timesteps].to(like.dtype)
+    return a.reshape(a.shape + (1,) * (like.ndim - a.ndim))
+
+
+def add_noise_common(alphas_cumprod, original_samples, noise, timesteps):
+    """Forward diffusion q(x_t | x_0) (training: reference add_noise)."""
+    a = _at(alphas_cumprod, timesteps, original_samples)
+    return a ** 0.5 * original_samples + (1.0 - a) ** 0.5 * noise
+
+
+def velocity_common(alphas_cumprod, sample, noise, timesteps):
+    """v-prediction target (reference get_velocity)."""
+    a = _at(alphas_cumprod, timesteps, sample)
+    return a ** 0.5 * noise - (1.0 - a) ** 0.5 * sample
+
+
 class Scheduler:
     """Base: config + alphas_cumprod. Subclasses define set_timesteps/step
     over an explicit state object, as the JAX package does."""
@@ -60,6 +95,21 @@ class Scheduler:
     def __init__(self, **config):
         self.config = self.config_class(**config)
         self.alphas_cumprod = make_alphas_cumprod(self.config)
+
+    @classmethod
+    def from_config(cls, config_dict: dict, **overrides):
+        """From a scheduler config of any kind (e.g. a checkpoint's, which
+        names its own scheduler): the fields of this one's config are kept and
+        the others dropped, as the JAX package's `from_config` keeps them
+        aside."""
+        names = {f.name for f in dataclasses.fields(cls.config_class)}
+        return cls(**{k: v for k, v in dict(config_dict, **overrides).items() if k in names})
+
+    def add_noise(self, original_samples, noise, timesteps):
+        return add_noise_common(self.alphas_cumprod, original_samples, noise, timesteps)
+
+    def get_velocity(self, sample, noise, timesteps):
+        return velocity_common(self.alphas_cumprod, sample, noise, timesteps)
 
     def scale_model_input(self, state, sample, i):
         return sample

@@ -145,7 +145,7 @@ def calibrate_static_a8w8(pipe: StableDiffusionXLPipeline, *args, **kwargs) -> L
     return raw
 
 
-def _transformer_levels(unet: UNet2DConditionModel):
+def transformer_levels(unet: UNet2DConditionModel):
     """(down level, Transformer2DModel) for every spatial transformer."""
     n = len(unet.config.block_out_channels)
     for i, blk in enumerate(unet.down_blocks):
@@ -173,7 +173,7 @@ def flash_launches_by_dim(pipe, height: int, width: int, num_inference_steps: in
     rows = 2 if guidance_scale > 1.0 else 1
     text_len = pipe.tokenizer.model_max_length
     out = Counter()
-    for level, tf in _transformer_levels(pipe.unet):
+    for level, tf in transformer_levels(pipe.unet):
         tokens = (height // f >> level) * (width // f >> level)
         for blk in tf.transformer_blocks:
             heads, hd = blk.attn1.num_heads, blk.attn1.head_dim

@@ -7,8 +7,9 @@ Mixed precision as flax does it: a flax module built with `dtype=bfloat16`
 keeps its parameters in their own dtype and casts them, and its inputs, to
 bf16 where it computes (Dense, Conv, Embed). The port's modules that do the
 same carry a `compute_dtype` (None: compute in the parameters' dtype), which
-`set_compute_dtype` sets on a whole model. Norms are not among them: the
-LayerNorm kernel reads fp32 weights beside bf16 rows.
+`set_compute_dtype` sets on a whole model. `LayerNorm` (the UNet's) is one
+too; FusedLayerNorm is not: the LayerNorm kernel reads fp32 weights beside
+bf16 rows.
 """
 
 from __future__ import annotations
@@ -54,6 +55,35 @@ class Linear(nn.Linear):
             return super().forward(x)
         bias = None if self.bias is None else self.bias.to(cd)
         return F.linear(x.to(cd), self.weight.to(cd), bias)
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d with flax Conv's `dtype`: with a `compute_dtype`, the input,
+    kernel and bias are cast to it and the convolution comes out in it."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x):
+        cd = self.compute_dtype
+        if cd is None:
+            return super().forward(x)
+        bias = None if self.bias is None else self.bias.to(cd)
+        return self._conv_forward(x.to(cd), self.weight.to(cd), bias)
+
+
+class LayerNorm(nn.LayerNorm):
+    """nn.LayerNorm with flax LayerNorm's `dtype`: with a `compute_dtype`,
+    the statistics and the affine run in fp32 on x and the parameters as they
+    are (flax promotes them to fp32 there) and the result is cast to it."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x):
+        cd = self.compute_dtype
+        if cd is None:
+            return super().forward(x)
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight.float(),
+                            self.bias.float(), self.eps).to(cd)
 
 
 def set_compute_dtype(module: nn.Module, dtype: Optional[torch.dtype]) -> nn.Module:

@@ -16,11 +16,10 @@ Kernels (CUDA tensors launch them; CPU tensors run their plain versions):
   the base-2 lse of each row, fp32 (B, H, S);
 - `csrc/flash_bwd.cu`: the backward (B14), `flash_bwd_dkv` and
   `flash_bwd_dq`, from that pre-scaled q, the lse and di = rowsum(o * do), at
-  head dims up to 128.
+  the forward's head dims (129-160 padded to 160, 161-256 to 256).
 Under autograd, `flash_attention` is `_FlashAttention` (the JAX
 `_flash_attention` custom_vjp): forward by `flash_fwd_lse` (bf16 QK^T even
-with `int8_qk`, as in JAX), backward by the two B14 kernels; on the card a
-head_dim above 128 has no backward kernel yet and raises. Segment ids compare
+with `int8_qk`, as in JAX), backward by the two B14 kernels. Segment ids compare
 as given: the kernels mask by bounds, so nothing is padded, and the JAX
 wrapper's +1 shift (which keeps its padding apart) has nothing to do. The
 choice between flash and math (`scaled_dot_product_attention`) is made from
@@ -43,8 +42,8 @@ from .autograd import grad_needed, refuse_grad
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 LOG2E = math.log2(math.e)
-_KERNEL_HEAD_DIMS = (32, 64, 96, 128, 160, 256)  # head dims compiled into flash_fwd.cu
-_BWD_HEAD_DIMS = (32, 64, 96, 128)  # and into flash_bwd.cu
+# head dims compiled into flash_fwd.cu and flash_bwd.cu
+_KERNEL_HEAD_DIMS = (32, 64, 96, 128, 160, 256)
 
 
 def int8_qk_default() -> bool:
@@ -249,10 +248,10 @@ def _kernel_operand(t):
     return t
 
 
-def _check_operands(name, q, k, v, causal, segment_ids, head_dims=_KERNEL_HEAD_DIMS):
+def _check_operands(name, q, k, v, causal, segment_ids):
     """Device, dtype and shape checks; returns the head_dim the kernel is
-    compiled for (the least of `head_dims` >= d) and the int32 segment arrays
-    or None."""
+    compiled for (the least of `_KERNEL_HEAD_DIMS` >= d) and the int32
+    segment arrays or None."""
     b, sq, hq, d = q.shape
     for tname, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda or t.device != q.device:
@@ -265,8 +264,8 @@ def _check_operands(name, q, k, v, causal, segment_ids, head_dims=_KERNEL_HEAD_D
     if causal and sq != k.shape[1]:
         raise ValueError(f"{name}: causal needs Sq == Skv (top-left mask), got {sq} != "
                          f"{k.shape[1]}")
-    if d > head_dims[-1]:
-        raise ValueError(f"{name} kernel takes head_dim <= {head_dims[-1]}, got {d}")
+    if d > _KERNEL_HEAD_DIMS[-1]:
+        raise ValueError(f"{name} kernel takes head_dim <= {_KERNEL_HEAD_DIMS[-1]}, got {d}")
     segs = None
     if segment_ids is not None:
         segs = tuple(s.to(device=q.device, dtype=torch.int32).contiguous()
@@ -275,7 +274,7 @@ def _check_operands(name, q, k, v, causal, segment_ids, head_dims=_KERNEL_HEAD_D
             raise ValueError(f"{name}: segment ids {tuple(segs[0].shape)} / "
                              f"{tuple(segs[1].shape)} do not match q {tuple(q.shape)} "
                              f"k {tuple(k.shape)}")
-    return next(x for x in head_dims if x >= d), segs
+    return next(x for x in _KERNEL_HEAD_DIMS if x >= d), segs
 
 
 def _segment_args(segs, sq, skv):
@@ -312,8 +311,7 @@ def _flash_fwd_cuda(q, k, v, scale_log2, causal, segment_ids, want_lse, int8=Fal
 def _flash_bwd_cuda(dkv, qs, k, v, do, lse, di, scale, causal, segment_ids):
     """dkv: (dk, dv) fp32 of each query head; else dq fp32; (B, H, S_pad, D)."""
     b, sq, h, d = qs.shape
-    d_kernel, segs = _check_operands("flash_attention backward", qs, k, v, causal, segment_ids,
-                                     _BWD_HEAD_DIMS)
+    d_kernel, segs = _check_operands("flash_attention backward", qs, k, v, causal, segment_ids)
     if do.shape != qs.shape or do.dtype != qs.dtype or do.device != qs.device:
         raise ValueError(f"flash_attention backward: do {tuple(do.shape)} {do.dtype} does not "
                          f"match q {tuple(qs.shape)} {qs.dtype}")
@@ -356,12 +354,14 @@ def flash_fwd_lse(qs, k, v, *, causal=False, segment_ids=None):
         refuse_grad("flash_fwd_lse", qs, k, v)
         out = _flash_fwd_cuda(qs, k, v, 1.0, causal, segment_ids, True)
         flash_fwd_lse.launches += 1
+        flash_fwd_lse.launches_by_dim[qs.shape[3]] += 1
         return out
     _cpu_only("flash_fwd_lse", qs)
     return flash_fwd_lse_ref(qs, k, v, causal=causal, segment_ids=segment_ids)
 
 
 flash_fwd_lse.launches = 0  # kernel launches (CUDA tensors only)
+flash_fwd_lse.launches_by_dim = Counter()  # the same, by the caller's head_dim
 
 
 def flash_bwd_dkv(qs, k, v, do, lse, di, *, causal=False, segment_ids=None):
@@ -372,6 +372,7 @@ def flash_bwd_dkv(qs, k, v, do, lse, di, *, causal=False, segment_ids=None):
     if qs.is_cuda:
         dk, dv = _flash_bwd_cuda(True, qs, k, v, do, lse, di, 0.0, causal, segment_ids)
         flash_bwd_dkv.launches += 1
+        flash_bwd_dkv.launches_by_dim[qs.shape[3]] += 1
         b, h, skv, d = dk.shape
         hkv = k.shape[2]
         if hkv != h:
@@ -382,6 +383,7 @@ def flash_bwd_dkv(qs, k, v, do, lse, di, *, causal=False, segment_ids=None):
 
 
 flash_bwd_dkv.launches = 0  # kernel launches (CUDA tensors only)
+flash_bwd_dkv.launches_by_dim = Counter()  # the same, by the caller's head_dim
 
 
 def flash_bwd_dq(qs, k, v, do, lse, di, *, scale: float, causal=False, segment_ids=None):
@@ -390,6 +392,7 @@ def flash_bwd_dq(qs, k, v, do, lse, di, *, scale: float, causal=False, segment_i
     if qs.is_cuda:
         (dq,) = _flash_bwd_cuda(False, qs, k, v, do, lse, di, scale, causal, segment_ids)
         flash_bwd_dq.launches += 1
+        flash_bwd_dq.launches_by_dim[qs.shape[3]] += 1
         return dq.transpose(1, 2).to(qs.dtype)
     _cpu_only("flash_bwd_dq", qs)
     return flash_bwd_dq_ref(qs, k, v, do, lse, di, scale=scale, causal=causal,
@@ -397,6 +400,7 @@ def flash_bwd_dq(qs, k, v, do, lse, di, *, scale: float, causal=False, segment_i
 
 
 flash_bwd_dq.launches = 0  # kernel launches (CUDA tensors only)
+flash_bwd_dq.launches_by_dim = Counter()  # the same, by the caller's head_dim
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -446,21 +450,16 @@ flash_attention_int8.launches = 0  # kernel launches (CUDA tensors only)
 def flash_attention(q, k, v, *, causal=False, scale: Optional[float] = None,
                     segment_ids: Optional[SegmentIds] = None, int8_qk: Optional[bool] = None):
     """Flash attention, (B, S, H, D) layout (port of `flash_attention`). Under
-    autograd it is `_FlashAttention` (lse forward, B14 backward; on the card
-    head_dim <= 128); otherwise `int8_qk` (default: PMIX_INT8_ATTN=1, as in
-    JAX) goes to `flash_attention_int8`, and else CUDA tensors launch the
-    inference form of the forward kernel and CPU tensors run
-    `flash_attention_ref`. causal is top-left aligned and needs Sq == Skv, as
-    in JAX."""
+    autograd it is `_FlashAttention` (lse forward, B14 backward); otherwise
+    `int8_qk` (default: PMIX_INT8_ATTN=1, as in JAX) goes to
+    `flash_attention_int8`, and else CUDA tensors launch the inference form
+    of the forward kernel and CPU tensors run `flash_attention_ref`. causal
+    is top-left aligned and needs Sq == Skv, as in JAX."""
     if causal and q.shape[1] != k.shape[1]:
         raise ValueError(f"flash_attention causal requires sq == skv, got {q.shape[1]} != "
                          f"{k.shape[1]}")
     scale = q.shape[3] ** -0.5 if scale is None else scale
     if grad_needed(q, k, v):
-        if q.is_cuda and q.shape[3] > _BWD_HEAD_DIMS[-1]:
-            raise NotImplementedError(
-                f"flash_attention: no backward kernel for head_dim {q.shape[3]} > "
-                f"{_BWD_HEAD_DIMS[-1]} yet (B14 at head_dim 129-256, ROADMAP queue B)")
         seg_q, seg_kv = (None, None) if segment_ids is None else segment_ids
         return _FlashAttention.apply(q, k, v, seg_q, seg_kv, scale, causal)
     if int8_qk_default() if int8_qk is None else int8_qk:

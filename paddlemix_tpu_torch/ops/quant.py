@@ -41,6 +41,7 @@ from typing import List, Optional, Sequence
 import torch
 from torch import nn
 
+from ..models.layers import Conv2d, Linear
 from .autograd import refuse_grad
 from .conv_int8 import (
     conv3x3_weight_layout,
@@ -179,11 +180,13 @@ class QuantConv2d(_StaticQuant, nn.Conv2d):
 
 
 def linear(quant: bool, *args, **kwargs) -> nn.Linear:
-    return (QuantLinear if quant else nn.Linear)(*args, **kwargs)
+    """A static a8w8 Linear, else one that computes in its `compute_dtype`."""
+    return (QuantLinear if quant else Linear)(*args, **kwargs)
 
 
 def conv2d(quant: bool, *args, **kwargs) -> nn.Conv2d:
-    return (QuantConv2d if quant else nn.Conv2d)(*args, **kwargs)
+    """A static a8w8 conv, else one that computes in its `compute_dtype`."""
+    return (QuantConv2d if quant else Conv2d)(*args, **kwargs)
 
 
 def quant_modules(model: nn.Module) -> List[_StaticQuant]:

@@ -1,11 +1,15 @@
 """Trainer: the training loop on one card (port of
 paddlemix_tpu/trainer/trainer.py).
 
-The model contributes a loss_fn(params, batch, rng); the Trainer owns the
-optimizer, gradient accumulation (optax.MultiSteps semantics: `step` counts
-micro-batches, the schedule counts real updates, and `max_steps` and the
-schedule's total are micro-batches, as in JAX), the device put-ahead of
-batches (`prefetch_depth`) and logging (loss, grad_norm, ips, reader_cost).
+The model contributes a loss_fn(params, batch, rng); `rng` is a
+torch.Generator on the params' device, seeded from `args.seed` at each
+`train` call and drawn from by the steps in turn (JAX seeds PRNGKey(seed)
+and splits it each step: every step's draws are fresh, the run's repeat).
+The Trainer owns the optimizer, gradient accumulation (optax.MultiSteps
+semantics: `step` counts micro-batches, the schedule counts real updates,
+and `max_steps` and the schedule's total are micro-batches, as in JAX), the
+device put-ahead of batches (`prefetch_depth`) and logging (loss,
+grad_norm, ips, reader_cost).
 Not ported yet, and refused: checkpoint save and resume (orbax in JAX),
 evaluation, the device mesh (any parallel degree above 1) and
 `MeshAwareLoss`, TensorBoard and profiler callbacks (ROADMAP). The
@@ -138,6 +142,7 @@ class Trainer:
         explicit_steps = max_steps is not None or a.max_steps > 0
         n_epochs = 10 ** 9 if explicit_steps else max(a.num_train_epochs, 1)
         step = self.state.step
+        rng = torch.Generator(device=self.device).manual_seed(a.seed)
         metrics: Dict[str, torch.Tensor] = {}
         ips_window, reader_window, t_last = [], [], time.time()
         for _ in range(n_epochs):
@@ -150,7 +155,7 @@ class Trainer:
                     break
                 reader_window.append(t_reader)
                 samples = int(next(iter(batch.values())).shape[0])
-                self.state, metrics = self.step_fn(self.state, batch, None)
+                self.state, metrics = self.step_fn(self.state, batch, rng)
                 step += 1
                 self.history.append({"step": step, "loss": metrics["loss"],
                                      "grad_norm": metrics["grad_norm"],

@@ -164,9 +164,9 @@ def test_wide_head_sdpa_matches_jax_flash_interpret(jx, pallas_interpret, monkey
 
 
 def test_wide_head_grad_on_cpu(jx):
-    """Under autograd a head_dim-160 call still differentiates on the CPU
-    (the lse form and the backward's plain versions); the gradients match
-    JAX's of attention_xla. On the card it raises: B14 is built up to 128."""
+    """Under autograd a head_dim-160 call differentiates on the CPU through
+    the lse form and the backward's plain versions (on the card through B15
+    and B14); the gradients match JAX's of attention_xla."""
     jax = pytest.importorskip("jax")
     q, k, v = _qkv((1, 256, 2, 160), seed=6)
     do = np.random.RandomState(7).randn(1, 256, 2, 160).astype(np.float32)
@@ -336,8 +336,14 @@ def test_kernels_match_plain_versions_on_gpu(monkeypatch):
         o, lse = tattn.flash_fwd_lse(qs, k, v, causal=causal)
         ro, rlse = tattn.flash_fwd_lse_ref(qs.float(), k.float(), v.float(), causal=causal)
         assert _excess(o, ro, 4e-3) <= 0 and (lse - rlse).abs().max().item() <= 1e-3, shape
-        with pytest.raises(NotImplementedError, match="ROADMAP"):  # no B14 above 128 yet
-            tattn.flash_attention(q.clone().requires_grad_(), k, v, causal=causal)
+        # under autograd: the lse forward, then both backward kernels (B14)
+        fns = (tattn.flash_fwd_lse, tattn.flash_bwd_dkv, tattn.flash_bwd_dq)
+        before = [f.launches for f in fns]
+        qg = q.clone().requires_grad_()
+        tattn.flash_attention(qg, k, v, causal=causal).float().sum().backward()
+        torch.cuda.synchronize()
+        assert [f.launches for f in fns] == [n + 1 for n in before], shape
+        assert bool(torch.isfinite(qg.grad).all()), shape
     for shape in [(2, 256, 4, 64), (1, 1000, 4, 64), (1, 300, 2, 32), (1, 130, 2, 80),
                   (1, 256, 2, 40)]:
         q, k, v = (torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
