@@ -49,7 +49,12 @@ Phases:
                    main path's shapes: kernel, plain and library-call times
                    from CUDA events, and the bound; flash is gated per
                    element, with a control (the plain version without the
-                   last tile's keys) that must fail the same limit
+                   last tile's keys) that must fail the same limit, also at
+                   (1, 141, 4, 64), whose rows fill no tile; every flash
+                   case (B1, its int8 form, B15) also prints the core that
+                   served it (wgmma or WMMA, csrc/flash_fwd.cu's width
+                   table), its TFLOP/s beside the bound and, for the wgmma
+                   core, ptxas's registers and spills and its shared memory
   4. agree         one full-width bf16 UNet forward at a small latent, kernels
                    vs plain
   5. serve         3 bf16 requests, 1024x1024, 25 Euler steps, guidance 5.0;
@@ -202,8 +207,9 @@ Phases:
                    the di of its o) against their plain versions per
                    element (c TRAIN_SUM) at the training path's
                    self-attention shapes (8, 4096, 8, 40), (8, 1024, 8, 80)
-                   and (8, 256, 8, 160), at (1, 1024, 4, 256), and at 160
-                   and 256 with causal + segment ids + GQA; controls that
+                   and (8, 256, 8, 160), at (1, 1024, 4, 256), and at 160,
+                   256 and 64 (2, 384, 8 on 2) with causal + segment ids +
+                   GQA; controls that
                    must fail: the last key tile left out (B15, B14), di
                    dropped (B14); times, bounds and library times (SDPA,
                    the backward of SDPA, graph-captured)
@@ -251,7 +257,10 @@ GUIDANCE = 5.0
 REQUESTS = [("a photograph of an astronaut riding a horse on the moon", 1),
             ("a watercolor painting of a lighthouse at dawn", 2),
             ("a bowl of ramen on a wooden table, studio lighting", 3)]
-FLASH_SHAPES = [(2, 4096, 10, 64), (2, 1024, 20, 64), (1, 1000, 4, 64)]
+# B1 at the SDXL self-attention shapes, a ragged 1,000, and 77 + 64 = 141 rows,
+# a multiple of no tile of either core (the wgmma core's TMA edge: zero fill
+# past S, one partial tile of keys and of queries)
+FLASH_SHAPES = [(2, 4096, 10, 64), (2, 1024, 20, 64), (1, 1000, 4, 64), (1, 141, 4, 64)]
 GN_CASES = [((2, 128, 128, 320), "silu"), ((2, 64, 64, 960), "silu"),
             ((2, 32, 32, 1280), "none"), ((1, 1024, 1024, 256), "silu"),
             ((1, 1024, 1024, 128), "silu")]
@@ -371,11 +380,14 @@ SD15_GN_CASES = [((2, 32, 32, 640), "silu"), ((2, 8, 8, 1280), "silu"),
 # 64x64 latents. B14 per element with B15 / B14's gate (TRAIN_SUM) at the
 # path's three self-attention shapes (head_dim 40 and 80 run the D = 64 and
 # D = 96 instantiations, 160 its own), at 256, and at 160 and 256 with causal
-# + segment ids + GQA, which no path runs and which are compiled all the same.
+# + segment ids + GQA, which no path runs and which are compiled all the same;
+# and the wgmma core's causal + segments + GQA at D = 64 (its ragged tiles:
+# 384 rows are three 128-row query blocks, segment cuts off every tile).
 # (B, S, Hq, Hkv, D, causal with segments)
 SD15_TRAIN_FLASH_CASES = [(8, 4096, 8, 8, 40, False), (8, 1024, 8, 8, 80, False),
                           (8, 256, 8, 8, 160, False), (1, 1024, 4, 4, 256, False),
-                          (2, 512, 8, 2, 160, True), (1, 512, 4, 2, 256, True)]
+                          (2, 512, 8, 2, 160, True), (1, 512, 4, 2, 256, True),
+                          (2, 384, 8, 2, 64, True)]
 # B4 at every (shape, act) of the SD1.5 training path at batch 8: fp32
 # weight and bias (the masters) beside bf16 rows, a specialization of its own
 SD15_TRAIN_GN_CASES = [((8, 64, 64, c), "silu") for c in (320, 640, 960)] + \
@@ -496,6 +508,39 @@ def ulp_gate(out, ref, c):
     diff = (out.float() - ref).abs() - 2.0 ** -7 * ref.abs()
     peak = ref.abs().max()
     return (diff - c * peak).max().item(), (diff.max() / peak).item()
+
+
+def flash_core(d, int8=False):
+    """(core, note) of the flash forward at the caller's head_dim d: the core
+    that the fixed width table of csrc/flash_fwd.cu (`flash_fwd_core`) sends
+    the compiled width to and, for the wgmma core, ptxas's registers and
+    spills for its instantiation and its block's dynamic shared memory."""
+    import ctypes
+    import re
+
+    from paddlemix_tpu_torch.kernels import build_log, load_library
+    from paddlemix_tpu_torch.ops.attention import _KERNEL_HEAD_DIMS
+
+    d_kernel = next(x for x in _KERNEL_HEAD_DIMS if x >= d)
+    fn = load_library("flash_fwd").flash_fwd_core
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    smem = ctypes.c_int(0)
+    if not fn(d_kernel, int(int8), ctypes.byref(smem)):
+        return "wmma", f"D {d_kernel}"
+    report = build_log["flash_fwd"]["ptxas"].splitlines()
+    regs = spills = "not in this run's build log"
+    for i, line in enumerate(report):
+        if "Compiling entry" in line and f"flash_fwd_wgmma_kernelILi{d_kernel}E" in line:
+            for nxt in report[i + 1:]:
+                if "Compiling entry" in nxt:
+                    break
+                m = re.search(r"Used (\d+) registers", nxt)
+                regs = m.group(1) if m else regs
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", nxt)
+                spills = f"spills {m.group(1)} / {m.group(2)} bytes" if m else spills
+    return "wgmma", (f"D {d_kernel}; ptxas {regs} registers at entry (setmaxnreg: 240 a consumer "
+                     f"thread, 24 a producer), {spills}; {smem.value:,} bytes of dynamic shared "
+                     f"memory a block")
 
 
 def plain_swaps(m, int8=True, bf16=True):
@@ -686,7 +731,7 @@ def train_kernels(torch, F, dev, gen, record, m):
         record("train kernels", "flash_fwd_lse", shape, (o.float() - ro).abs().max().item(),
                ms, plain_ms, lib_ms,
                bound(nbytes(qs, k, v, o, lse, seg, seg), 4 * d_ * pairs, "bf16"),
-               " | library: SDPA is_causal, no segments")
+               " | library: SDPA is_causal, no segments", flash=(d_, 4 * d_ * pairs, False))
         # B14, from the plain forward's o and lse
         di = (ro * do.float()).sum(-1).transpose(1, 2).contiguous()
         dkv_ref = attn.flash_bwd_dkv_ref(qs.float(), k.float(), v.float(), do.float(), rlse,
@@ -1472,7 +1517,7 @@ def int8_attention_kernels(torch, F, dev, gen, record, attn):
         pv = 2 * b_ * h_ * s_ * s_ * d_
         record("int8 kernels", "flash_attention_int8", shape, err, ms, plain_ms, lib_ms,
                bound_parts(nbytes(q, k, v, out), [(pv, "int8"), (pv, "bf16")]),
-               " (library: SDPA in bf16, the nearest yardstick)")
+               " (library: SDPA in bf16, the nearest yardstick)", flash=(d_, 2 * pv, True))
         del q, k, v, out
     print(f"[int8 kernels] least c over the shapes: kernel {worst:.2e}, truncation control "
           f"{control_least:.2e} (gate {INT8_ATTN_SUM:g})", flush=True)
@@ -1538,7 +1583,8 @@ def sd15_kernels(torch, F, dev, gen, record, flash_case, gn_case, attn):
         lib_ms = library_ms(torch, lambda: F.scaled_dot_product_attention(qh, kh, vh))
         record("sd15 kernels", f"flash_fwd_lse_d{d_}", shape, (o.float() - ro).abs().max().item(),
                ms, plain_ms, lib_ms,
-               bound(nbytes(qs, k, v, o, lse), 4 * b_ * h_ * s_ * s_ * d_, "bf16"))
+               bound(nbytes(qs, k, v, o, lse), 4 * b_ * h_ * s_ * s_ * d_, "bf16"),
+               flash=(d_, 4 * b_ * h_ * s_ * s_ * d_, False))
         del q, k, v, qs, o, lse, ro, rlse
 
 
@@ -1671,6 +1717,9 @@ def sd15_train_kernels(torch, F, dev, gen, record, attn):
         qs = (q.float() * (scale * attn.LOG2E)).to(bf16)
         f32 = (qs.float(), k.float(), v.float(), do.float())
         label = f"{shape}{' causal + 4 segments' if masked else ''}"
+
+        def named(kernel):  # the summary's name: D = 64 and 128 share the SFT entries
+            return kernel if d_ in (64, 128) else f"{kernel}_d{d_}"
         # B15
         o, lse = attn.flash_fwd_lse(qs, k, v, **kw)
         torch.cuda.synchronize()
@@ -1694,11 +1743,11 @@ def sd15_train_kernels(torch, F, dev, gen, record, attn):
         qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
         lib_ms = library_ms(torch, lambda: F.scaled_dot_product_attention(
             qh, kh, vh, is_causal=masked, enable_gqa=h_ != kvh))
-        record("sd15 train kernels", f"flash_fwd_lse_d{d_}", shape,
+        record("sd15 train kernels", named("flash_fwd_lse"), shape,
                (o.float() - ro).abs().max().item(), ms, plain_ms, lib_ms,
                bound(nbytes(qs, k, v, o, lse, seg, seg), 4 * d_ * pairs, "bf16"),
                (" causal + 4 segments" if masked else "") + " | library: SDPA"
-               + (" is_causal, no segments" if masked else ""))
+               + (" is_causal, no segments" if masked else ""), flash=(d_, 4 * d_ * pairs, False))
         # B14, from B15's lse and o
         di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
         del ro, rlse, qh, kh, vh, o
@@ -1747,7 +1796,7 @@ def sd15_train_kernels(torch, F, dev, gen, record, attn):
                 *t, is_causal=masked, enable_gqa=h_ != kvh),
                 tuple(t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v)),
                 do.transpose(1, 2)) for _ in range(2)) / 2
-            record("sd15 train kernels", f"{name}_d{d_}", shape, err, ms, plain_ms, lib,
+            record("sd15 train kernels", named(name), shape, err, ms, plain_ms, lib,
                    bound(nbytes(qs, k, v, do, lse, di, seg, seg, *outs), ops, "bf16"),
                    (" causal + 4 segments" if masked else "") + " | library: the backward of "
                    "SDPA (dq, dk, dv together)" + (" is_causal, no segments" if masked else ""))
@@ -2003,13 +2052,22 @@ def main():
     gen = torch.Generator(device=dev).manual_seed(0)
     summary = {}
 
-    def record(label, name, shape, err, ms, plain_ms, lib_ms, bnd, extra=""):
-        """Print the times of one kernel case and keep them for the summary."""
+    def record(label, name, shape, err, ms, plain_ms, lib_ms, bnd, extra="", flash=None):
+        """Print the times of one kernel case and keep them for the summary;
+        `flash` = (caller's head_dim, the bound's operations, int8) of a flash
+        forward case adds the core that served it and its TFLOP/s."""
         lib = "no single call" if lib_ms is None else f"{lib_ms:.3f} ms"
         print(f"[{label}]   {name} {shape}{extra}: kernel {ms:.3f} ms | plain {plain_ms:.3f} ms "
               f"| library {lib} | bound {bnd[0]:.4f} ms ({bnd[1]})", flush=True)
-        summary.setdefault(name, []).append(dict(shape=shape, err=err, ms=ms, plain_ms=plain_ms,
-                                                 library_ms=lib_ms, bound=bnd))
+        row = dict(shape=shape, err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound=bnd)
+        if flash is not None:
+            d_, ops, int8 = flash
+            core, note = flash_core(d_, int8)
+            row.update(core=core, tflops=ops / ms / 1e9)
+            print(f"[{label}]   {name} {shape}: core {core} ({note}) | {ops / ms / 1e9:.1f} "
+                  f"TFLOP/s of the bound's {ops:.4g} operations; the bound is "
+                  f"{100 * bnd[0] / ms:.1f}% of the kernel's time", flush=True)
+        summary.setdefault(name, []).append(row)
 
     def flash_case(label, shape, name="flash_attention"):
         b_, s_, h_, d_ = shape
@@ -2033,8 +2091,9 @@ def main():
                                   lambda: attn_mod.flash_attention_ref(q, k, v))
         qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
         lib_ms = library_ms(torch, lambda: F.scaled_dot_product_attention(qh, kh, vh))
+        ops = 4 * b_ * h_ * s_ * s_ * d_
         record(label, name, shape, err, ms, plain_ms, lib_ms,
-               bound(nbytes(q, k, v, out), 4 * b_ * h_ * s_ * s_ * d_, "bf16"))
+               bound(nbytes(q, k, v, out), ops, "bf16"), flash=(d_, ops, False))
 
     for shape in FLASH_SHAPES:
         flash_case("kernels", shape)
@@ -3064,7 +3123,8 @@ def main():
                 "max_abs_err": max(r["err"] for r in rows), "ms": first["ms"],
                 "plain_ms": first["plain_ms"], "bound_ms": first["bound"][0],
                 "bound_by": first["bound"][1], "library_ms": first["library_ms"],
-                "shape": list(first["shape"])}
+                "shape": list(first["shape"]),
+                **({"core": first["core"], "tflops": first["tflops"]} if "core" in first else {})}
 
     def sdxl(name):
         return {"bf16": launches_bf16[name], "a8w8": launches_a8w8[name],

@@ -1,37 +1,71 @@
 // Flash-attention forward for Hopper (sm_90a): bf16 q/k/v/o, fp32 online softmax.
 //
-// Replaces the Pallas kernel paddlemix_tpu/ops/attention.py `_flash_fwd` /
-// `_fwd_kernel`, in its three forms: the inference form (B1, no lse output),
-// which serves the self-attention of the SD1.5 and SDXL UNets and the SD3
-// MM-DiT; the form that also writes the base-2 log-sum-exp of each row (B15,
-// `want_lse`), which is the residual of the flash backward (csrc/flash_bwd.cu)
-// on the training path and the output of `flash_attention_with_lse`; and the
-// inference form with int8 QK^T (`int8_qk`, PMIX_INT8_ATTN=1), which the SDXL
-// static-a8w8 request runs. Options, as in the TPU kernel: causal (top-left
-// aligned, col <= row; key tiles wholly above the diagonal are skipped),
-// segment ids (a key is seen only by queries of the same id, from two int32
-// arrays), and GQA (query head h reads kv head h / group). Head dims 32, 64,
-// 96, 128, 160 and 256 are compiled; the wrapper pads other widths up to the
-// next one with zero columns.
+// Replaces the Pallas kernel paddlemix_tpu/ops/attention.py `_fwd_kernel` (:83),
+// called through `_flash_fwd` (:168, pallas_call at :243), in its three forms: the
+// inference form (B1, no lse output), which serves the self-attention of the
+// SD1.5 and SDXL UNets and the SD3 MM-DiT; the form that also writes the base-2
+// log-sum-exp of each row (B15, `want_lse`; `flash_attention_with_lse`, :561),
+// which is the residual of the flash backward (csrc/flash_bwd.cu) on the
+// training path; and the inference form with int8 QK^T (`int8_qk`,
+// PMIX_INT8_ATTN=1), which the SDXL static-a8w8 request runs. Options, as in
+// the TPU kernel: causal (top-left aligned, col <= row; key tiles wholly above
+// the diagonal are skipped), segment ids (a key is seen only by queries of the
+// same id, from two int32 arrays), and GQA (query head h reads kv head
+// h / group). Head dims 32, 64, 96, 128, 160 and 256 are compiled; the wrapper
+// pads other widths up to the next one with zero columns.
 //
 // What bounds it: at head_dim 64-256 the two products do 4*S*S*D flops per head
-// for 4*S*D*2 bytes of q/k/v/o, so the card is compute-bound and the limit is
-// how well the tensor cores are fed. The scores never reach device memory: a
-// block owns 64 query rows of one (batch, head), keeps them in shared memory as
-// four 16-row warp tiles, and walks the keys in 64-row tiles staged in shared
-// memory. Each warp computes S = Q K^T with 16x16x16 bf16 WMMA fragments (fp32
-// accumulate), runs the online softmax in fp32 with exp2 and scale*log2(e)
-// folded into the scores (`scale_log2`; the lse form passes q pre-scaled and
-// rounded to bf16, as the TPU wrapper does, and scale_log2 = 1, so that the
-// backward recomputes the very scores whose lse this writes), rounds P to bf16
-// (as the TPU kernel does before its PV product) and accumulates O += P V into
-// an fp32 tile in shared memory, which it rescales row by row with the softmax
-// correction. q/k/v/o are read and written in their (B, S, H, D) layout through
-// strides, so no transpose copies are made. The ragged query and key edges are
-// masked by bounds (rows past S are zero-filled in shared memory; scores past
-// Skv are -inf), not by padding. O stays in shared memory, so the width costs
-// shared memory and not registers: 112,896 bytes at D 128 (two blocks an SM),
-// 133,376 at D 160 and 194,816 at D 256 (one block an SM).
+// for 4*S*D*2 bytes of q/k/v/o, so the card is compute-bound: the limit is how
+// well the tensor cores are fed, and, at D 64, the exp2 unit (16 a clock an
+// SM, one exp2 per 4*D = 256 tensor-core flops, against 1,024 bf16 flops a
+// clock). The scores never reach device memory.
+//
+// Two cores, chosen by a fixed table of the compiled head_dim (`dispatch`),
+// never by the outcome of a launch:
+//
+// The wgmma core (bf16 at D 64 and 128, inference and lse forms, every
+// option; namespace `wg`). A block owns 128 query rows of one (batch, head):
+// two consumer warpgroups of 64 rows and a producer warpgroup, whose first
+// warp alone works and which hands its registers to the consumers
+// (`setmaxnreg`: 24 / 240). The producer loads Q once by TMA, then walks the
+// key tiles (128 keys) into a ring of three K/V stages, each with a full and
+// an empty mbarrier; it also copies the tile's key segment ids beside it.
+// TMA reads q/k/v through 4-d tensor maps over their (D, H, S, B) strided
+// views (built per call on the host; GQA's kv head is a coordinate), writes
+// each 64-column panel in the 128-byte swizzle and fills rows past S with
+// zeros, so the ragged edges need no padding copies: keys past S get -inf
+// scores, rows past S are not stored. Each consumer runs
+// S = Q K^T as m64n128k16 `wgmma` with both operands in shared memory
+// (K-major descriptors), the online softmax in fp32 and base 2 on the
+// accumulator registers (only the tiles at the causal diagonal, at the ragged
+// end or with segment ids are masked), rounds P to bf16 in registers, in the
+// order the next `wgmma` takes its A operand (the m64nN accumulator's
+// registers 8kk..8kk+7 are the A fragment of the k16 step kk), and runs
+// O += P V as m64nDk16 `wgmma` with A from registers and V as an MN-major
+// (transposed) operand. O, m and l stay in registers for the whole walk; O is
+// written once, by plain stores. Within a warpgroup the products of
+// neighbouring tiles overlap: tile t's S = Q K^T is issued together with tile
+// t - 1's P V, and t's softmax runs while that P V is still on the tensor
+// cores; a stage is released when its P V is done. Causal blocks are launched
+// longest first. 128 query rows a block at every shape the paths run: the
+// smallest grid (SDXL's 1,024-token layers, 320 blocks of one an SM, 2.4
+// waves) would take as many waves with 64-row blocks at two an SM.
+// The lse form keeps the TPU wrapper's contract: q arrives pre-scaled by
+// scale * log2(e) and rounded to bf16, scale_log2 = 1, and the lse is m +
+// log2(l) in base 2, from which B14 recomputes p = exp2(s - lse).
+//
+// The WMMA core (bf16 at D 32, 96, 160 and 256; the int8 QK^T form at every
+// width). A block owns 64 query rows of one (batch, head), keeps them in
+// shared memory as four 16-row warp tiles, and walks the keys in 64-row
+// tiles loaded synchronously into shared memory. Each warp computes
+// S = Q K^T with 16x16x16 bf16 WMMA fragments (fp32 accumulate) into shared
+// memory, runs the online softmax there in fp32 with exp2 and scale*log2(e)
+// folded into the scores, rounds P to bf16 (as the TPU kernel does before its
+// PV product) and accumulates O += P V into an fp32 tile in shared memory,
+// which it rescales row by row with the softmax correction. q/k/v/o are read
+// and written in their (B, S, H, D) layout through strides. O in shared memory
+// makes the width cost shared memory and not registers: 133,376 bytes at
+// D 160 and 194,816 at D 256 (one block an SM).
 //
 // int8 QK^T (the TPU kernel's `int8_qk` branch and the XLA prologue of its
 // wrapper): each q row and each k row is quantized to int8 with its own
@@ -47,11 +81,12 @@
 // cheap next to the products. The int8 form has no lse output: under autograd
 // the forward stays bf16, as in JAX.
 //
-// Left for later work: wgmma + TMA with a producer warp and a ring of K/V
-// stages (this version loads K/V synchronously, then computes), keeping O in
-// registers, skipping key tiles that no query of the block shares a segment
-// with, and quantizing each k tile once instead of once per query block.
+// Left for later work: the other widths and the int8 form on the wgmma core
+// (s8 `wgmma`), a head-40 instantiation, scheduling the two consumer
+// warpgroups' softmax against each other, and skipping key tiles that no query
+// of the block shares a segment with.
 
+#include <cuda.h>  // CUtensorMap and its enums; libcuda itself is reached through the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -390,6 +425,512 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch, int 
   return int(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------- the wgmma core
+namespace wg {
+
+constexpr int BM = 128;          // query rows a block: consumer warpgroups 0 and 1, 64 rows each
+constexpr int BN = 128;          // keys a tile
+constexpr int CONSUMERS = 256;   // threads of the two consumer warpgroups
+constexpr int THREADS = 384;     // and the producer warpgroup's
+constexpr uint32_t ROW = 128;    // bytes of a swizzled row: one 64-column panel of D
+
+template <int D>
+struct Smem {
+  static constexpr int STAGES = 3;
+  static constexpr uint32_t Q_BYTES = BM * D * 2;
+  static constexpr uint32_t TILE_BYTES = BN * D * 2;  // one K or V tile
+  // the Q, K, V and segment sections start on 1,024-byte boundaries (the
+  // swizzle's period); the barriers need 8
+  static constexpr uint32_t K_OFF = Q_BYTES;
+  static constexpr uint32_t V_OFF = K_OFF + STAGES * TILE_BYTES;
+  static constexpr uint32_t SEG_OFF = V_OFF + STAGES * TILE_BYTES;
+  static constexpr uint32_t BAR_OFF = SEG_OFF + STAGES * BN * 4;
+  static constexpr uint32_t BARS = 1 + 2 * STAGES;  // Q, full[STAGES], empty[STAGES]
+  static constexpr uint32_t TOTAL = BAR_OFF + BARS * 8 + 1024;  // + aligning the base
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Wait until the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+
+// One TMA box (64 columns x the map's rows of one head) into shared memory at
+// `dst`; its bytes complete a transaction on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int d0, int head, int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d0), "r"(head), "r"(row), "r"(batch)
+      : "memory");
+}
+
+// wgmma's shared-memory descriptor in the 128-byte swizzle: start address,
+// leading and stride byte offsets (each >> 4), layout type 1 in bits 62-63.
+// K-major operands (Q, K): rows of 128 bytes, 8-row groups SBO = 1,024 apart,
+// LBO unused. MN-major V: 8-key groups SBO = 1,024 apart, the 64-column
+// panels of D LBO apart.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return uint64_t((addr & 0x3FFFF) >> 4) | uint64_t((lbo >> 4) & 0x3FFF) << 16 |
+         uint64_t((sbo >> 4) & 0x3FFF) << 32 | uint64_t(1) << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups of this warpgroup are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving register reads or writes across the
+// asynchronous wgmma that owns these registers (between fence and wait).
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// D (64 x 128, fp32) = (accumulate ? D : 0) + A (64 x 16 bf16) B (16 x 128 bf16), both
+// in shared memory, K-major
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (64 x 64, fp32) += A (64 x 16 bf16, registers) B (16 x 64 bf16, shared
+// memory, MN-major: imm-trans-b 1)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 128, fp32) += A (64 x 16 bf16, registers) B (16 x 128 bf16, shared
+// memory, MN-major: imm-trans-b 1)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&d)[D / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (D == 64)
+    wgmma_rs_n64(d, a, db);
+  else
+    wgmma_rs_n128(d, a, db);
+}
+
+// S = Q K^T for a warpgroup's 64 rows against a 128-key tile, issued: D / 16
+// steps of k16, each 32 bytes into the 128-byte rows of one 64-column panel.
+template <int D>
+__device__ __forceinline__ void issue_scores(float (&s)[BN / 2], uint32_t q_rows,
+                                             uint32_t k_tile) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk % 4) * 32;
+    wgmma_ss_n128(s, smem_desc(q_rows + (kk / 4) * BM * ROW + off, 16, 1024),
+                  smem_desc(k_tile + (kk / 4) * BN * ROW + off, 16, 1024), kk > 0);
+  }
+}
+
+// O += P V, issued: BN / 16 steps of k16, each 16 keys = 2,048 bytes into
+// every V panel; the D / 64 panels lie one panel (LBO) apart.
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&p)[BN / 16][4],
+                                         uint32_t v_tile) {
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk)
+    wgmma_pv<D>(o, p[kk], smem_desc(v_tile + kk * 16 * ROW, BN * ROW, 1024));
+}
+
+// The online softmax of one tile in base 2 and fp32, on S's accumulator
+// registers: register 4j + 2r + e holds row row0 + 8r, key n0 + 8j + c0 + e,
+// and a row's 128 keys lie in the 4 threads of a quad. Keys a row does not
+// see get -inf, only where `masked` (the causal diagonal, the ragged end,
+// segment ids: with `segs`, shared memory at `seg` holds the tile's key
+// segments). Updates m and l
+// (this thread's part of the row sum), leaves p = exp2(s * scale_log2 - m) in
+// s and returns each row's correction exp2(m_old - m) in alpha.
+__device__ __forceinline__ void softmax_tile(float (&s)[BN / 2], float (&m_i)[2],
+                                             float (&l_i)[2], float (&alpha)[2],
+                                             float scale_log2, bool masked, int n0, int seq_kv,
+                                             bool causal, int row0, int c0, bool segs,
+                                             const int* seg, const int (&my_seg)[2]) {
+  if (masked) {
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = n0 + 8 * j + c0 + e;
+        const int ks = segs ? seg[8 * j + c0 + e] : 0;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          bool keep = col < seq_kv;
+          if (causal) keep = keep && col <= row0 + 8 * r;
+          if (segs) keep = keep && ks == my_seg[r];
+          if (!keep) s[4 * j + 2 * r + e] = -INFINITY;
+        }
+      }
+  }
+  float mx[2] = {-INFINITY, -INFINITY}, sub[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m_i[r], mx[r] * scale_log2);  // scale_log2 > 0
+    sub[r] = m_new == -INFINITY ? 0.f : m_new;
+    alpha[r] = ex2(m_i[r] - sub[r]);  // 0 on the first tile (m_i = -inf)
+    m_i[r] = m_new;
+  }
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) {
+    s[i] = ex2(fmaf(s[i], scale_log2, -sub[(i >> 1) & 1]));
+    sum[(i >> 1) & 1] += s[i];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l_i[r] = l_i[r] * alpha[r] + sum[r];
+}
+
+// P in bf16, in the A-fragment order of the next wgmma: the k16 step kk takes
+// S's registers 8kk .. 8kk + 7, in pairs.
+__device__ __forceinline__ void pack_p(uint32_t (&p)[BN / 16][4], const float (&s)[BN / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) p[kk][x] = pack_bf16(s[8 * kk + 2 * x], s[8 * kk + 2 * x + 1]);
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o, int seq_q,
+                       int seq_kv, int o_sb, int o_ss, int o_sh, float scale_log2, int group,
+                       int causal, const int* __restrict__ qseg, const int* __restrict__ kseg,
+                       int qseg_sb, int kseg_sb, float* __restrict__ lse) {
+  using L = Smem<D>;
+  constexpr int STAGES = L::STAGES;
+  constexpr int PANELS = D / 64;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  int* s_seg = reinterpret_cast<int*>(smem_raw + (base - raw) + L::SEG_OFF);
+  const uint32_t s_q = base, s_k = base + L::K_OFF, s_v = base + L::V_OFF;
+  const uint32_t bar_q = base + L::BAR_OFF;
+  const auto full = [&](int s) { return bar_q + 8u * (1 + s); };
+  const auto empty = [&](int s) { return bar_q + 8u * (1 + STAGES + s); };
+
+  // causal: the blocks with the longest key walks are launched first
+  const int mb = causal ? int(gridDim.x) - 1 - int(blockIdx.x) : int(blockIdx.x);
+  const int m0 = mb * BM, h = blockIdx.y, b = blockIdx.z;
+  const int n_end = causal ? min(seq_kv, m0 + BM) : seq_kv;  // later tiles are all masked
+  const int n_tiles = (n_end + BN - 1) / BN;
+
+  if (threadIdx.x == 0) {
+    bar_init(bar_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      bar_init(full(s), 32);           // the producer warp's lanes, one with the TMA bytes
+      bar_init(empty(s), CONSUMERS);   // every consumer thread, done with the stage
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {
+    // ---- producer warpgroup: its first warp keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x < CONSUMERS + 32) {
+      const int lane = threadIdx.x & 31;
+      const int hk = h / group;  // GQA: the kv head this query head reads
+      if (lane == 0) {
+        bar_arrive_expect_tx(bar_q, L::Q_BYTES);
+        for (int p = 0; p < PANELS; ++p)
+          tma_load(s_q + p * BM * ROW, &tq, bar_q, 64 * p, h, m0, b);
+      }
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % STAGES;
+        const int n0 = t * BN;
+        bar_wait(empty(s), ((t / STAGES) & 1) ^ 1);  // passes at once on the first round
+        if (kseg != nullptr)
+          for (int i = lane; i < BN; i += 32)
+            s_seg[s * BN + i] = n0 + i < seq_kv ? kseg[int64_t(b) * kseg_sb + n0 + i] : 0;
+        if (lane == 0) {
+          bar_arrive_expect_tx(full(s), 2 * L::TILE_BYTES);
+          const uint32_t kd = s_k + s * L::TILE_BYTES, vd = s_v + s * L::TILE_BYTES;
+          for (int p = 0; p < PANELS; ++p) {
+            tma_load(kd + p * BN * ROW, &tk, full(s), 64 * p, hk, n0, b);
+            tma_load(vd + p * BN * ROW, &tv, full(s), 64 * p, hk, n0, b);
+          }
+        } else {
+          bar_arrive(full(s));
+        }
+      }
+    }
+  } else {
+    // ---- consumer warpgroups 0 and 1: rows m0 + 64 wg .. m0 + 64 wg + 63
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int wg = threadIdx.x / 128;
+    const int warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31;
+    // accumulator register 4j + 2r + e holds row row0 + 8r, column 8j + c0 + e
+    const int row0 = m0 + wg * 64 + warp * 16 + (lane >> 2);
+    const int c0 = 2 * (lane & 3);
+    int my_seg[2] = {0, 0};
+    if (qseg != nullptr)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (row0 + 8 * r < seq_q) my_seg[r] = qseg[int64_t(b) * qseg_sb + row0 + 8 * r];
+
+    float acc_s[BN / 2], acc_o[D / 2], alpha[2];
+    float m_i[2] = {-INFINITY, -INFINITY}, l_i[2] = {0.f, 0.f};
+    uint32_t pa[BN / 16][4];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc_s[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc_o[i] = 0.f;
+    const uint32_t q_wg = s_q + wg * 64 * ROW;  // this warpgroup's rows of each Q panel
+    bar_wait(bar_q, 0);
+
+    // Tile t's S = Q K^T goes out with tile t - 1's O += P V, and t's softmax
+    // runs while that P V is still on the tensor cores.
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % STAGES, prev = (t + STAGES - 1) % STAGES;
+      const int n0 = t * BN;
+      bar_wait(full(s), (t / STAGES) & 1);
+      pin(acc_s);
+      pin(acc_o);
+      pin(pa);
+      wgmma_fence();
+      issue_scores<D>(acc_s, q_wg, s_k + s * L::TILE_BYTES);
+      wgmma_commit();
+      if (t > 0) {
+        issue_pv<D>(acc_o, pa, s_v + prev * L::TILE_BYTES);
+        wgmma_commit();
+        wgmma_wait<1>();  // S is in; P V may still run
+      } else {
+        wgmma_wait<0>();
+      }
+      pin(acc_s);
+      // masked only at the causal diagonal, at the ragged end, or with segments
+      softmax_tile(acc_s, m_i, l_i, alpha, scale_log2,
+                   kseg != nullptr || n0 + BN > seq_kv || (causal && n0 + BN - 1 > m0 + wg * 64),
+                   n0, seq_kv, causal, row0, c0, kseg != nullptr, s_seg + s * BN, my_seg);
+      wgmma_wait<0>();
+      pin(acc_o);
+      pin(pa);
+      if (t > 0) bar_arrive(empty(prev));  // done with tile t - 1's K and V
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc_o[i] *= alpha[(i >> 1) & 1];
+      pack_p(pa, acc_s);
+    }
+    if (n_tiles > 0) {  // the last tile's P V
+      const int last = (n_tiles - 1) % STAGES;
+      pin(acc_o);
+      pin(pa);
+      wgmma_fence();
+      issue_pv<D>(acc_o, pa, s_v + last * L::TILE_BYTES);
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(acc_o);
+      bar_arrive(empty(last));
+    }
+
+    // normalise and store; l == 0 only for a row that every key is masked from
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 1);
+      l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 2);
+      const int row = row0 + 8 * r;
+      if (row >= seq_q) continue;
+      const float inv = l_i[r] == 0.f ? 1.f : 1.f / l_i[r];
+      if (lse != nullptr && (lane & 3) == 0)  // base 2: m + log2(l), as the TPU kernel
+        lse[(int64_t(b) * gridDim.y + h) * seq_q + row] =
+            m_i[r] + log2f(l_i[r] == 0.f ? 1.f : l_i[r]);
+      bf16* og = o + int64_t(b) * o_sb + int64_t(h) * o_sh + int64_t(row) * o_ss;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(og + 8 * j + c0) =
+            __floats2bfloat162_rn(acc_o[4 * j + 2 * r] * inv, acc_o[4 * j + 2 * r + 1] * inv);
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the libcuda that the CUDA runtime has loaded, so
+// that the library links no libcuda of its own.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// A map over a (B, S, H, D) bf16 operand with element strides sb / ss / sh
+// (unit over D), read as (D, H, S, B); a box is 64 columns (one swizzled
+// 128-byte row) x `rows` rows of one head, and rows past S read as zeros.
+CUresult make_map(CUtensorMap* map, const void* ptr, int batch, int seq, int heads, int d,
+                  int sb, int ss, int sh, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[4] = {cuuint64_t(d), cuuint64_t(heads), cuuint64_t(seq),
+                              cuuint64_t(batch)};
+  cuuint64_t strides[3] = {cuuint64_t(sh) * 2, cuuint64_t(ss) * 2, cuuint64_t(sb) * 2};
+  cuuint64_t extent = cuuint64_t(d) * 2;  // bytes the dimensions below span, packed
+  for (int i = 0; i < 3; ++i) {
+    if (dims[i + 1] == 1) strides[i] = extent;  // never stepped; a view may hold 0 there
+    extent = strides[i] * dims[i + 1];
+  }
+  const cuuint32_t box[4] = {64, 1, cuuint32_t(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+}  // namespace wg
+
+// What a launch returns when libcuda refuses a tensor map: this + its CUresult.
+constexpr int TENSOR_MAP_ERROR = 10000;
+
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int batch, int heads,
+                 int seq_q, int seq_kv, const int* st, float scale_log2, int group, int causal,
+                 const int* qseg, const int* kseg, int qseg_sb, int kseg_sb, float* lse,
+                 cudaStream_t stream) {
+  constexpr uint32_t smem = wg::Smem<D>::TOTAL;
+  static_assert(smem <= 232448, "shared memory above the 227 KB a block can opt into");
+  cudaError_t err = cudaFuncSetAttribute(wg::flash_fwd_wgmma_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return int(err);
+  CUtensorMap tq, tk, tv;
+  CUresult res = wg::make_map(&tq, q, batch, seq_q, heads, D, st[0], st[1], st[2], wg::BM);
+  if (res == CUDA_SUCCESS)
+    res = wg::make_map(&tk, k, batch, seq_kv, heads / group, D, st[3], st[4], st[5], wg::BN);
+  if (res == CUDA_SUCCESS)
+    res = wg::make_map(&tv, v, batch, seq_kv, heads / group, D, st[6], st[7], st[8], wg::BN);
+  if (res != CUDA_SUCCESS) return TENSOR_MAP_ERROR + int(res);
+  dim3 grid((seq_q + wg::BM - 1) / wg::BM, heads, batch);
+  wg::flash_fwd_wgmma_kernel<D><<<grid, wg::THREADS, smem, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(o), seq_q, seq_kv, st[9], st[10], st[11], scale_log2, group,
+      causal, qseg, kseg, qseg_sb, kseg_sb, lse);
+  return int(cudaGetLastError());
+}
+
+// The fixed table of cores by compiled head_dim: the wgmma core serves bf16 at
+// 64 and 128, the WMMA core every other width and the int8 QK^T form.
+constexpr bool uses_wgmma(int head_dim, bool int8) {
+  return !int8 && (head_dim == 64 || head_dim == 128);
+}
+
 template <bool INT8>
 int dispatch(const void* q, const void* k, const void* v, void* o, int batch, int heads,
              int seq_q, int seq_kv, int head_dim, const int* st, float scale_log2, int group,
@@ -399,30 +940,34 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int batch, in
   if (group < 1 || heads % group != 0 || (qseg == nullptr) != (kseg == nullptr) ||
       (causal && seq_q != seq_kv) || (INT8 && lse != nullptr))
     return int(cudaErrorInvalidValue);
-#define FLASH_FWD_CASE(DIM)                                                                  \
-  case DIM:                                                                                  \
-    return launch<DIM, INT8>(q, k, v, o, batch, heads, seq_q, seq_kv, st, scale_log2, group, \
-                             causal, qseg, kseg, qseg_sb, kseg_sb, lse, s);
-  switch (head_dim) {
-    FLASH_FWD_CASE(32)
-    FLASH_FWD_CASE(64)
-    FLASH_FWD_CASE(96)
-    FLASH_FWD_CASE(128)
-    FLASH_FWD_CASE(160)
-    FLASH_FWD_CASE(256)
+#define FLASH_FWD_ARGS \
+  q, k, v, o, batch, heads, seq_q, seq_kv, st, scale_log2, group, causal, qseg, kseg, qseg_sb, \
+      kseg_sb, lse, s
+  switch (head_dim) {  // the table of `uses_wgmma`
+    case 32: return launch<32, INT8>(FLASH_FWD_ARGS);
+    case 64:
+      if constexpr (INT8) return launch<64, true>(FLASH_FWD_ARGS);
+      else return launch_wgmma<64>(FLASH_FWD_ARGS);
+    case 96: return launch<96, INT8>(FLASH_FWD_ARGS);
+    case 128:
+      if constexpr (INT8) return launch<128, true>(FLASH_FWD_ARGS);
+      else return launch_wgmma<128>(FLASH_FWD_ARGS);
+    case 160: return launch<160, INT8>(FLASH_FWD_ARGS);
+    case 256: return launch<256, INT8>(FLASH_FWD_ARGS);
     default: return int(cudaErrorInvalidValue);
   }
-#undef FLASH_FWD_CASE
+#undef FLASH_FWD_ARGS
 }
 
 }  // namespace
 
 // q, o: (B, Sq, H, D), k, v: (B, Skv, H / group, D), bf16 with unit stride
 // over D and the given batch/seq/head strides (elements, each a multiple of
-// 8). qseg/kseg: (B, Sq) / (B, Skv) int32 with unit stride over S and batch
-// strides qseg_sb/kseg_sb, or both null (no segments). lse: (B, H, Sq) fp32,
-// contiguous, or null (not written). causal needs Sq == Skv. Returns the
-// cudaError_t of the launch (0 on success).
+// 8; q/k/v 16-byte aligned). qseg/kseg: (B, Sq) / (B, Skv) int32 with unit
+// stride over S and batch strides qseg_sb/kseg_sb, or both null (no
+// segments). lse: (B, H, Sq) fp32, contiguous, or null (not written). causal
+// needs Sq == Skv. Returns the cudaError_t of the launch (0 on success), or
+// 10000 + the CUresult of a tensor map that libcuda refused.
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, void* o, int batch,
                               int heads, int seq_q, int seq_kv, int head_dim, int q_sb,
                               int q_ss, int q_sh, int k_sb, int k_ss, int k_sh, int v_sb,
@@ -445,4 +990,13 @@ extern "C" int flash_fwd_int8qk_bf16(const void* q, const void* k, const void* v
   const int st[12] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh};
   return dispatch<true>(q, k, v, o, batch, heads, seq_q, seq_kv, head_dim, st, scale_log2,
                         group, causal, qseg, kseg, qseg_sb, kseg_sb, nullptr, stream);
+}
+
+// The core the table sends a compiled head_dim to (1 wgmma, 0 WMMA) and, for
+// the wgmma core, its block's dynamic shared memory in *smem_bytes (else 0).
+extern "C" int flash_fwd_core(int head_dim, int int8, int* smem_bytes) {
+  const bool wgmma = uses_wgmma(head_dim, int8 != 0);
+  *smem_bytes = !wgmma ? 0 : head_dim == 64 ? int(wg::Smem<64>::TOTAL)
+                                             : int(wg::Smem<128>::TOTAL);
+  return wgmma ? 1 : 0;
 }

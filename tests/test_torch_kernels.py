@@ -344,6 +344,35 @@ def test_kernels_match_plain_versions_on_gpu(monkeypatch):
         torch.cuda.synchronize()
         assert [f.launches for f in fns] == [n + 1 for n in before], shape
         assert bool(torch.isfinite(qg.grad).all()), shape
+    # the wgmma core (head_dim 64 and 128) at its edges: S below one 128-row
+    # tile, q / k / v as strided views (slices of one joint tensor, as SD3's
+    # joint attention gives, or a transpose of (B, H, S, D)), GQA 4:1, and
+    # causal with the lse
+    for b, s, h, hkv, d, causal, layout in [(1, 77, 4, 4, 64, False, "slices"),
+                                            (2, 50, 8, 2, 128, True, "slices"),
+                                            (1, 300, 8, 2, 64, True, "transposed"),
+                                            (2, 141, 4, 1, 128, False, "transposed")]:
+        if layout == "slices":
+            x = torch.randn((b, s, h + 2 * hkv, d), generator=gen, device="cuda",
+                            dtype=torch.bfloat16)
+            q, k, v = x[:, :, :h], x[:, :, h:h + hkv], x[:, :, h + hkv:]
+        else:
+            q = torch.randn((b, h, s, d), generator=gen, device="cuda",
+                            dtype=torch.bfloat16).transpose(1, 2)
+            k, v = (torch.randn((b, hkv, s, d), generator=gen, device="cuda",
+                                dtype=torch.bfloat16).transpose(1, 2) for _ in range(2))
+        assert not q.is_contiguous() and tattn._kernel_operand(q) is q  # read in place
+        before = tattn.flash_attention.launches
+        out = tattn.flash_attention(q, k, v, causal=causal, int8_qk=False)
+        torch.cuda.synchronize()
+        assert tattn.flash_attention.launches == before + 1
+        ref = tattn.flash_attention_ref(q.float(), k.float(), v.float(), causal=causal)
+        assert _excess(out, ref, 4e-3) <= 0, (b, s, h, hkv, d, layout)
+        qs = (q.float() * (d ** -0.5 * tattn.LOG2E)).to(torch.bfloat16)
+        o, lse = tattn.flash_fwd_lse(qs, k, v, causal=causal)
+        ro, rlse = tattn.flash_fwd_lse_ref(qs.float(), k.float(), v.float(), causal=causal)
+        assert _excess(o, ro, 4e-3) <= 0 and (lse - rlse).abs().max().item() <= 1e-3, \
+            (b, s, h, hkv, d, layout)
     for shape in [(2, 256, 4, 64), (1, 1000, 4, 64), (1, 300, 2, 32), (1, 130, 2, 80),
                   (1, 256, 2, 40)]:
         q, k, v = (torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)

@@ -271,6 +271,20 @@ def test_train_kernels_match_plain_versions_on_gpu():
                                      segment_ids=segs)
         for got, ref in ((dq, rdq), (dk, rdk), (dv, rdv)):
             assert got.shape == ref.shape and within(got, ref, 4e-3), (b, s, h, kvh, d)
+    # the lse forward's wgmma core (head_dim 64 and 128) at its edges, causal
+    # with segments and GQA 4:1: S below one 128-row tile, and q / k / v as
+    # slices of one joint tensor (non-contiguous views, read in place)
+    for b, s, h, kvh, d in [(2, 100, 8, 2, 128), (1, 333, 8, 2, 64)]:
+        x = torch.randn((b, s, h + 2 * kvh, d), generator=gen, device=dev).to(bf16)
+        q, k, v = x[:, :, :h], x[:, :, h:h + kvh], x[:, :, h + kvh:]
+        assert tattn._kernel_operand(k) is k
+        seg = torch.ones((b, s), dtype=torch.int32, device=dev)
+        seg[:, s // 3:] += 1
+        segs = tattn.SegmentIds(seg, seg)
+        qs = (q.float() * d ** -0.5 * tattn.LOG2E).to(bf16)
+        o, lse = _counted(tattn.flash_fwd_lse, qs, k, v, causal=True, segment_ids=segs)
+        ro, rlse = tattn.flash_fwd_lse_ref(qs, k, v, causal=True, segment_ids=segs)
+        assert within(o, ro, 4e-3) and torch.allclose(lse, rlse, atol=1e-3), (b, s, h, kvh, d)
     # RMSNorm backward, with and without dw
     x = torch.randn((300, 4096), generator=gen, device=dev).to(bf16)
     w = 1 + 0.1 * torch.randn(4096, generator=gen, device=dev)
