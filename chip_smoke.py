@@ -136,12 +136,18 @@ Phases:
                    (B14) and RMSNorm's backward (B11, dx alone as the path
                    runs it, then with dw) against their plain versions at the
                    training path's shapes (2 x 2048 rows, 32 heads x 128,
-                   4 segments a row; and a GQA shape, 32 on 8 heads), gated
-                   per element, each with controls that must fail (no causal
-                   mask; di dropped; a segment boundary one row late; dw of
-                   the first pass alone); times,
-                   bounds and library times (SDPA and its backward, the
-                   backward of F.rms_norm)
+                   4 segments a row; a GQA shape, 32 on 8 heads; and a ragged
+                   (1, 1000, 4, 64)), gated per element, each with controls
+                   that must fail (no causal mask; di dropped; a segment
+                   boundary one row late; dw of the first pass alone); B14
+                   also against its plain versions walked tile by tile with
+                   the kernels' skips (`flash_bwd_*_tiled_ref`), with one more
+                   control, the tiled walk skipping one tile pair that shares
+                   a segment, and two launches held bit-identical; the core
+                   of each B14 case (wgmma or WMMA, csrc/flash_bwd.cu's width
+                   table) with ptxas's registers and spills and its shared
+                   memory; times, bounds and library times (SDPA and its
+                   backward, the backward of F.rms_norm)
  21. train agree   Llama-2-7B is built with LoRA factors (b drawn non-zero):
                    one packed 1 x 2048 micro-batch, forward + backward, the
                    kernels vs their plain versions swapped in: the loss and
@@ -152,8 +158,9 @@ Phases:
  22. train         the factors are taken off; build_trainer + Trainer.train
                    over a seeded dataset: 4 optimizer steps (the second read
                    for a non-zero lora_b, the last under the profiler):
-                   seconds a step, tokens/s, model TFLOP/s, busy share, peak
-                   memory; every loss and grad_norm finite; launches equal to
+                   seconds a step, tokens/s, model TFLOP/s, busy share, B14's
+                   share of the device time, peak memory; every loss and
+                   grad_norm finite; launches equal to
                    `expected_launches_train` and no inference kernel launched
  23. clip kernels  Llama is freed; LayerNorm (B10) and its backward against
                    their plain versions at the CLIP path's rows (the vision
@@ -211,8 +218,12 @@ Phases:
                    256 and 64 (2, 384, 8 on 2) with causal + segment ids +
                    GQA; controls that
                    must fail: the last key tile left out (B15, B14), di
-                   dropped (B14); times, bounds and library times (SDPA,
-                   the backward of SDPA, graph-captured)
+                   dropped (B14); B14 also against its tiled plain versions,
+                   with the skipped-pair control where segments are, two
+                   launches bit-identical, and its core (head_dim 40 and 80
+                   run the wgmma core at 64 and 128, 160 and 256 the WMMA
+                   core); times, bounds and library times (SDPA, the
+                   backward of SDPA, graph-captured)
  30. sd15 train    the SD1.5 UNet is built (859.5 M fp32 parameters, bf16
      agree         compute); one micro-batch of 2 at 64x64 latents, fixed
                    timesteps and noise: the loss within 10x and the
@@ -224,7 +235,8 @@ Phases:
  31. sd15 train    build_trainer + Trainer.train, 8 optimizer steps at batch
                    8 (the last under the profiler): seconds a step,
                    samples/s, model TFLOP/s (`unet_train_flops`, 3x the
-                   forward's), reader and busy share, peak memory; finite
+                   forward's), reader and busy share, B14's share of the
+                   device time, peak memory; finite
                    losses, every parameter moved; launches equal to
                    `expected_launches_sd15_train`: 15 B15, 15 B14 dkv and 15
                    B14 dq a step, 5 of each at head_dim 160, 61 B4, and no
@@ -378,8 +390,9 @@ SD15_GN_CASES = [((2, 32, 32, 640), "silu"), ((2, 8, 8, 1280), "silu"),
                  ((1, 512, 512, 128), "silu")]
 # SD1.5 UNet fine-tuning (examples/train_text_to_image.py): batches of 8 at
 # 64x64 latents. B14 per element with B15 / B14's gate (TRAIN_SUM) at the
-# path's three self-attention shapes (head_dim 40 and 80 run the D = 64 and
-# D = 96 instantiations, 160 its own), at 256, and at 160 and 256 with causal
+# path's three self-attention shapes (B15 runs head_dim 40 and 80 as the
+# D = 64 and D = 96 instantiations, B14 as its wgmma core's D = 64 and
+# D = 128; 160 its own), at 256, and at 160 and 256 with causal
 # + segment ids + GQA, which no path runs and which are compiled all the same;
 # and the wgmma core's causal + segments + GQA at D = 64 (its ragged tiles:
 # 384 rows are three 128-row query blocks, segment cuts off every tile).
@@ -510,15 +523,35 @@ def ulp_gate(out, ref, c):
     return (diff - c * peak).max().item(), (diff.max() / peak).item()
 
 
+def ptxas_counts(source, entry):
+    """(registers, spills) that ptxas reported in this run's build of
+    csrc/<source>.cu for the kernel whose mangled name holds `entry`."""
+    import re
+
+    from paddlemix_tpu_torch.kernels import build_log
+
+    report = build_log[source]["ptxas"].splitlines()
+    regs = spills = "not in this run's build log"
+    for i, line in enumerate(report):
+        if "Compiling entry" in line and entry in line:
+            for nxt in report[i + 1:]:
+                if "Compiling entry" in nxt:
+                    break
+                m = re.search(r"Used (\d+) registers", nxt)
+                regs = m.group(1) if m else regs
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", nxt)
+                spills = f"spills {m.group(1)} / {m.group(2)} bytes" if m else spills
+    return regs, spills
+
+
 def flash_core(d, int8=False):
     """(core, note) of the flash forward at the caller's head_dim d: the core
     that the fixed width table of csrc/flash_fwd.cu (`flash_fwd_core`) sends
     the compiled width to and, for the wgmma core, ptxas's registers and
     spills for its instantiation and its block's dynamic shared memory."""
     import ctypes
-    import re
 
-    from paddlemix_tpu_torch.kernels import build_log, load_library
+    from paddlemix_tpu_torch.kernels import load_library
     from paddlemix_tpu_torch.ops.attention import _KERNEL_HEAD_DIMS
 
     d_kernel = next(x for x in _KERNEL_HEAD_DIMS if x >= d)
@@ -527,20 +560,52 @@ def flash_core(d, int8=False):
     smem = ctypes.c_int(0)
     if not fn(d_kernel, int(int8), ctypes.byref(smem)):
         return "wmma", f"D {d_kernel}"
-    report = build_log["flash_fwd"]["ptxas"].splitlines()
-    regs = spills = "not in this run's build log"
-    for i, line in enumerate(report):
-        if "Compiling entry" in line and f"flash_fwd_wgmma_kernelILi{d_kernel}E" in line:
-            for nxt in report[i + 1:]:
-                if "Compiling entry" in nxt:
-                    break
-                m = re.search(r"Used (\d+) registers", nxt)
-                regs = m.group(1) if m else regs
-                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", nxt)
-                spills = f"spills {m.group(1)} / {m.group(2)} bytes" if m else spills
+    regs, spills = ptxas_counts("flash_fwd", f"flash_fwd_wgmma_kernelILi{d_kernel}E")
     return "wgmma", (f"D {d_kernel}; ptxas {regs} registers at entry (setmaxnreg: 240 a consumer "
                      f"thread, 24 a producer), {spills}; {smem.value:,} bytes of dynamic shared "
                      f"memory a block")
+
+
+def bwd_core(d):
+    """(core, note) of the flash backward (B14) at the caller's head_dim d:
+    the core that csrc/flash_bwd.cu's fixed width table (`flash_bwd_core`)
+    sends the compiled width to and, for the wgmma core, ptxas's registers
+    and spills for both kernels and their blocks' dynamic shared memory."""
+    from paddlemix_tpu_torch.ops import attention as attn
+
+    d_kernel = next(x for x in attn._BWD_HEAD_DIMS if x >= d)
+    core, smem = attn.flash_bwd_core(d_kernel)
+    if core == "wmma":
+        return core, f"D {d_kernel}"
+    counts = [(name, *ptxas_counts("flash_bwd", f"{name}_wgmma_kernelILi{d_kernel}E"))
+              for name in ("dkv", "dq")]
+    return core, (f"D {d_kernel}; ptxas " + ", ".join(
+        f"{name} {regs} registers at entry, {spills}" for name, regs, spills in counts)
+        + f" (setmaxnreg: 232 a consumer thread, 40 a producer); {smem:,} bytes of dynamic "
+        f"shared memory a block")
+
+
+def bwd_share(label, by_kernel, device_ms):
+    """Print and return the device ms of a profile's B14 kernels (dK/dV and
+    dQ, both cores), by kernel, and their share of the device time."""
+    rows = [(ms_, n_, key) for ms_, n_, key in by_kernel if "flash_bwd" in key]
+    total = sum(ms_ for ms_, _, _ in rows)
+    print(f"{label} B14: {total:.1f} ms of the {device_ms:.1f} ms of device time "
+          f"({100 * total / device_ms:.1f}%): " + "; ".join(
+              f"{ms_:.1f} ms {n_}x {key[:60]}" for ms_, n_, key in rows), flush=True)
+    return total
+
+
+def wrongly_skipped(attn, s_, kw):
+    """The backward kernels' tile visits with one pair more skipped: batch row
+    0's visited pair below the diagonal and nearest to it, whose tiles share
+    a segment (ids in packing order) and whose pairs causal keeps. The
+    control of the tiled plain versions."""
+    visits = attn.flash_bwd_tile_visits(s_, s_, **kw).clone()
+    i, j = max(((i, j) for i, j in visits[0].nonzero().tolist() if i > j),
+               key=lambda p: (p[1] - p[0], p[0]))
+    visits[0, i, j] = False
+    return visits
 
 
 def plain_swaps(m, int8=True, bf16=True):
@@ -606,9 +671,10 @@ TRAIN_OVERRIDES = dict(per_device_train_batch_size=2, gradient_accumulation_step
                        save_steps=0)
 TRAIN_MICRO_STEPS = 32
 TRAIN_SAMPLES = 512
-# (B, S, Hq, Hkv, D): the path's attention (2 packed rows, causal + segments)
-# and a GQA shape; each row has 4 segments, cut off the 64-row tiles
-TRAIN_FLASH_SHAPES = [(2, 2048, 32, 32, 128), (1, 2048, 32, 8, 128)]
+# (B, S, Hq, Hkv, D): the path's attention (2 packed rows, causal + segments),
+# a GQA shape and a ragged one (no multiple of any tile; head_dim 64, B14's
+# other wgmma width); each row has 4 segments, cut off the 64-row tiles
+TRAIN_FLASH_SHAPES = [(2, 2048, 32, 32, 128), (1, 2048, 32, 8, 128), (1, 1000, 4, 4, 64)]
 TRAIN_SEGMENT_CUTS = (0.31, 0.58, 0.86)
 TRAIN_RMS_SHAPE = (4096, 4096)  # rows x width of the path's RMSNorm backward
 # B15 and B14 against their plain versions on the same bf16 inputs, per
@@ -740,14 +806,28 @@ def train_kernels(torch, F, dev, gen, record, m):
                                        scale=scale, **kw)
         dk, dv = attn.flash_bwd_dkv(qs, k, v, do, rlse, di, **kw)
         dq = attn.flash_bwd_dq(qs, k, v, do, rlse, di, scale=scale, **kw)
+        again = (*attn.flash_bwd_dkv(qs, k, v, do, rlse, di, **kw),
+                 attn.flash_bwd_dq(qs, k, v, do, rlse, di, scale=scale, **kw))
         torch.cuda.synchronize()
+        same = all(torch.equal(a_, b_) for a_, b_ in zip((dk, dv, dq), again))
+        del again
         no_di = torch.zeros_like(di)
         kw_late = dict(causal=True, segment_ids=segs_late)
         f32 = (qs.float(), k.float(), v.float(), do.float(), rlse)
+        bad = wrongly_skipped(attn, s_, kw)
+        tiled = {"flash_bwd_dkv": attn.flash_bwd_dkv_tiled_ref(*f32, di, **kw),
+                 "flash_bwd_dq": (attn.flash_bwd_dq_tiled_ref(*f32, di, scale=scale, **kw),)}
         controls = {"flash_bwd_dkv": (attn.flash_bwd_dkv_ref(*f32, no_di, **kw),
-                                      attn.flash_bwd_dkv_ref(*f32, di, **kw_late)),
+                                      attn.flash_bwd_dkv_ref(*f32, di, **kw_late),
+                                      attn.flash_bwd_dkv_tiled_ref(*f32, di, visits=bad, **kw)),
                     "flash_bwd_dq": ((attn.flash_bwd_dq_ref(*f32, no_di, scale=scale, **kw),),
-                                     (attn.flash_bwd_dq_ref(*f32, di, scale=scale, **kw_late),))}
+                                     (attn.flash_bwd_dq_ref(*f32, di, scale=scale, **kw_late),),
+                                     (attn.flash_bwd_dq_tiled_ref(*f32, di, scale=scale,
+                                                                  visits=bad, **kw),))}
+        core, note = bwd_core(d_)
+        print(f"[train kernels] flash_bwd {shape}: core {core} ({note}); two launches "
+              f"bit-identical: {same}", flush=True)
+        check(same, f"flash_bwd {shape}: two launches differ")
         lib_bwd = (backward_ms(torch, lambda *t: F.scaled_dot_product_attention(
             *t, is_causal=True, enable_gqa=h_ != kvh),
             tuple(t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v)),
@@ -757,7 +837,9 @@ def train_kernels(torch, F, dev, gen, record, m):
                 do.transpose(1, 2))) / 2
         for name, outs, refs, ops in (("flash_bwd_dkv", (dk, dv), dkv_ref, 8 * d_ * pairs),
                                       ("flash_bwd_dq", (dq,), (dq_ref,), 6 * d_ * pairs)):
-            gates = [ulp_gate(o_, r_, TRAIN_SUM) for o_, r_ in zip(outs, refs)]
+            # against the plain version and its tiled walk (the kernels' skips)
+            gates = [ulp_gate(o_, r_, TRAIN_SUM) for o_, r_ in zip(outs, refs)] + \
+                [ulp_gate(o_, r_, TRAIN_SUM) for o_, r_ in zip(outs, tiled[name])]
             # each control fails if any of its outputs does
             ctrl = [max((ulp_gate(c_, r_, TRAIN_SUM) for c_, r_ in zip(c_outs, refs)),
                         key=lambda g: g[0]) for c_outs in controls[name]]
@@ -765,9 +847,10 @@ def train_kernels(torch, F, dev, gen, record, m):
             controls_need += [c_[1] for c_ in ctrl]
             err = max((o_.float() - r_).abs().max().item() for o_, r_ in zip(outs, refs))
             print(f"[train kernels] {name} {shape}: excess {[f'{g[0]:.3e}' for g in gates]} "
-                  f"(least c {[f'{g[1]:.2e}' for g in gates]}, c {TRAIN_SUM}); controls, least "
-                  f"c (must be > c): di dropped {ctrl[0][1]:.2e}, a boundary one row late "
-                  f"{ctrl[1][1]:.2e}", flush=True)
+                  f"(least c {[f'{g[1]:.2e}' for g in gates]}, c {TRAIN_SUM}; plain, then "
+                  f"tiled); controls, least c (must be > c): di dropped {ctrl[0][1]:.2e}, a "
+                  f"boundary one row late {ctrl[1][1]:.2e}, a tile pair sharing a segment "
+                  f"skipped {ctrl[2][1]:.2e}", flush=True)
             check(all(bool(torch.isfinite(o_).all()) for o_ in outs)
                   and all(g[0] <= 0 for g in gates), f"{name} {shape}: excess {gates}")
             check(all(c_[0] > 0 for c_ in ctrl), f"{name} {shape}: a control passes {ctrl}")
@@ -782,8 +865,8 @@ def train_kernels(torch, F, dev, gen, record, m):
             record("train kernels", name, shape, err, ms, plain_ms, lib_bwd,
                    bound(nbytes(qs, k, v, do, rlse, di, seg, seg, *outs), ops, "bf16"),
                    " | library: the backward of SDPA is_causal (dq, dk, dv together), no "
-                   "segments")
-        del o, ro, dkv_ref, dq_ref, dk, dv, dq, controls
+                   "segments", bwd=(d_, ops))
+        del o, ro, dkv_ref, dq_ref, dk, dv, dq, controls, tiled
     print(f"[train kernels] B15 / B14 gate c {TRAIN_SUM}: the kernels' least c at most "
           f"{max(sound):.2e}, the controls' at least {min(controls_need):.2e}", flush=True)
     # B11 backward at the path's rows: dx alone (the norms are frozen), then with dw
@@ -1026,6 +1109,7 @@ def train_slice(torch, F, np, dev, m):
     for ms_, n_, key in by_kernel[:12]:
         print(f"[train]   profiled step: {ms_:9.1f} ms {100 * ms_ / device_ms:5.1f}% {n_:6d}x "
               f"{key[:110]}", flush=True)
+    b14_ms = bwd_share("[train]", by_kernel, device_ms)
     print(f"[train] losses {[round(x, 4) for x in losses.tolist()]}; grad_norm "
           f"{[round(x, 4) for x in norms_.tolist()]}; lora_b non-zero after the second "
           f"optimizer step: {b_moved} of {len(b_after_2)}; launches {got} (walk: {want})",
@@ -1039,7 +1123,8 @@ def train_slice(torch, F, np, dev, m):
     gc.collect()
     torch.cuda.empty_cache()
     return got, dict(step_s=s_step, tokens_per_s=tokens / s_step, tflops=flops / s_step / 1e12,
-                     busy=device_ms / 1e3 / t_prof, peak_gib=peak)
+                     busy=device_ms / 1e3 / t_prof, peak_gib=peak, b14_ms=b14_ms,
+                     b14_share=b14_ms / device_ms)
 
 
 def train_flops(model, tokens):
@@ -1753,37 +1838,56 @@ def sd15_train_kernels(torch, F, dev, gen, record, attn):
         del ro, rlse, qh, kh, vh, o
         dk, dv = attn.flash_bwd_dkv(qs, k, v, do, lse, di, **kw)
         dq = attn.flash_bwd_dq(qs, k, v, do, lse, di, scale=scale, **kw)
+        again = (*attn.flash_bwd_dkv(qs, k, v, do, lse, di, **kw),
+                 attn.flash_bwd_dq(qs, k, v, do, lse, di, scale=scale, **kw))
         torch.cuda.synchronize()
+        same = all(torch.equal(a_, b_) for a_, b_ in zip((dk, dv, dq), again))
+        del again
+        core, note = bwd_core(d_)
+        print(f"[sd15 train kernels] flash_bwd {label}: core {core} ({note}); two launches "
+              f"bit-identical: {same}", flush=True)
+        check(same, f"flash_bwd {label}: two launches differ")
         no_di = torch.zeros_like(di)
         cut = (f32[0], f32[1][:, :n], f32[2][:, :n], f32[3], lse, di)
+        bad = wrongly_skipped(attn, s_, kw) if masked else None
 
         def padded(ts):  # dk, dv of the first n keys, the last tile's rows left 0
             return tuple(F.pad(t, (0, 0, 0, 0, 0, s_ - n)) for t in ts)
         for name, outs in (("flash_bwd_dkv", (dk, dv)), ("flash_bwd_dq", (dq,))):
             if name == "flash_bwd_dkv":
                 refs = attn.flash_bwd_dkv_ref(*f32, lse, di, **kw)
+                tiled = attn.flash_bwd_dkv_tiled_ref(*f32, lse, di, **kw)
                 ctrls = (attn.flash_bwd_dkv_ref(*f32, lse, no_di, **kw),
                          padded(attn.flash_bwd_dkv_ref(*cut, **kw_cut)))
+                if masked:
+                    ctrls += (attn.flash_bwd_dkv_tiled_ref(*f32, lse, di, visits=bad, **kw),)
                 ops = 8 * d_ * pairs
             else:
                 refs = (attn.flash_bwd_dq_ref(*f32, lse, di, scale=scale, **kw),)
+                tiled = (attn.flash_bwd_dq_tiled_ref(*f32, lse, di, scale=scale, **kw),)
                 ctrls = ((attn.flash_bwd_dq_ref(*f32, lse, no_di, scale=scale, **kw),),
                          (attn.flash_bwd_dq_ref(*cut, scale=scale, **kw_cut),))
+                if masked:
+                    ctrls += ((attn.flash_bwd_dq_tiled_ref(*f32, lse, di, scale=scale,
+                                                           visits=bad, **kw),),)
                 ops = 6 * d_ * pairs
-            gates = [ulp_gate(o_, r_, TRAIN_SUM) for o_, r_ in zip(outs, refs)]
+            # against the plain version and its tiled walk (the kernels' skips)
+            gates = [ulp_gate(o_, r_, TRAIN_SUM) for o_, r_ in zip(outs, refs)] + \
+                [ulp_gate(o_, r_, TRAIN_SUM) for o_, r_ in zip(outs, tiled)]
             ctrl = [max((ulp_gate(c_, r_, TRAIN_SUM) for c_, r_ in zip(c_outs, refs)),
                         key=lambda g: g[0]) for c_outs in ctrls]
             sound += [g[1] for g in gates]
             controls_need += [c_[1] for c_ in ctrl]
             err = max((o_.float() - r_).abs().max().item() for o_, r_ in zip(outs, refs))
+            skipped = f", a tile pair sharing a segment skipped {ctrl[2][1]:.2e}" if masked else ""
             print(f"[sd15 train kernels] {name} {label}: excess {[f'{g[0]:.3e}' for g in gates]} "
-                  f"(least c {[f'{g[1]:.2e}' for g in gates]}, c {TRAIN_SUM}); controls, least "
-                  f"c (must be > c): di dropped {ctrl[0][1]:.2e}, the last {s_ - n} keys left "
-                  f"out {ctrl[1][1]:.2e}", flush=True)
+                  f"(least c {[f'{g[1]:.2e}' for g in gates]}, c {TRAIN_SUM}; plain, then "
+                  f"tiled); controls, least c (must be > c): di dropped {ctrl[0][1]:.2e}, the "
+                  f"last {s_ - n} keys left out {ctrl[1][1]:.2e}{skipped}", flush=True)
             check(all(bool(torch.isfinite(o_).all()) for o_ in outs)
                   and all(g[0] <= 0 for g in gates), f"{name} {label}: excess {gates}")
             check(all(c_[0] > 0 for c_ in ctrl), f"{name} {label}: a control passes {ctrl}")
-            del refs, ctrls
+            del refs, tiled, ctrls
             if name == "flash_bwd_dkv":
                 ms, plain_ms = timed_pair(
                     torch, lambda: attn.flash_bwd_dkv(qs, k, v, do, lse, di, **kw),
@@ -1799,7 +1903,8 @@ def sd15_train_kernels(torch, F, dev, gen, record, attn):
             record("sd15 train kernels", named(name), shape, err, ms, plain_ms, lib,
                    bound(nbytes(qs, k, v, do, lse, di, seg, seg, *outs), ops, "bf16"),
                    (" causal + 4 segments" if masked else "") + " | library: the backward of "
-                   "SDPA (dq, dk, dv together)" + (" is_causal, no segments" if masked else ""))
+                   "SDPA (dq, dk, dv together)" + (" is_causal, no segments" if masked else ""),
+                   bwd=(d_, ops))
         del q, k, v, do, qs, f32, lse, di, no_di, cut, dk, dv, dq
         torch.cuda.empty_cache()
     print(f"[sd15 train kernels] B15 / B14 gate c {TRAIN_SUM}: the kernels' least c at most "
@@ -1975,6 +2080,7 @@ def sd15_train_slice(torch, np, dev, m, counters):
     for ms_, n_, key in by_kernel[:15]:
         print(f"[sd15 train]   profiled step: {ms_:8.2f} ms {100 * ms_ / device_ms:5.1f}% "
               f"{n_:5d}x {key[:100]}", flush=True)
+    b14_ms = bwd_share("[sd15 train]", by_kernel, device_ms)
     print(f"[sd15 train] losses {[round(x, 4) for x in losses_.tolist()]}; grad_norm "
           f"{[round(x, 4) for x in gnorms.tolist()]}; {moved} of {len(params)} parameter "
           f"tensors moved; launches {got[0]}, by head_dim {got[1]} (walk: {want})", flush=True)
@@ -1988,7 +2094,8 @@ def sd15_train_slice(torch, np, dev, m, counters):
     gc.collect()
     torch.cuda.empty_cache()
     stats = dict(step_s=s_step, samples_per_s=SD15_TRAIN_BATCH / s_step, tflops=tflops,
-                 reader_share=reader / s_step, busy=device_ms / 1e3 / t_prof, peak_gib=peak)
+                 reader_share=reader / s_step, busy=device_ms / 1e3 / t_prof, peak_gib=peak,
+                 b14_ms=b14_ms, b14_share=b14_ms / device_ms)
     return got[0], got[1], stats
 
 
@@ -2052,17 +2159,19 @@ def main():
     gen = torch.Generator(device=dev).manual_seed(0)
     summary = {}
 
-    def record(label, name, shape, err, ms, plain_ms, lib_ms, bnd, extra="", flash=None):
+    def record(label, name, shape, err, ms, plain_ms, lib_ms, bnd, extra="", flash=None,
+               bwd=None):
         """Print the times of one kernel case and keep them for the summary;
         `flash` = (caller's head_dim, the bound's operations, int8) of a flash
-        forward case adds the core that served it and its TFLOP/s."""
+        forward case, or `bwd` = (caller's head_dim, the bound's operations) of
+        a flash backward one, adds the core that served it and its TFLOP/s."""
         lib = "no single call" if lib_ms is None else f"{lib_ms:.3f} ms"
         print(f"[{label}]   {name} {shape}{extra}: kernel {ms:.3f} ms | plain {plain_ms:.3f} ms "
               f"| library {lib} | bound {bnd[0]:.4f} ms ({bnd[1]})", flush=True)
         row = dict(shape=shape, err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound=bnd)
-        if flash is not None:
-            d_, ops, int8 = flash
-            core, note = flash_core(d_, int8)
+        if flash is not None or bwd is not None:
+            d_, ops, int8 = flash if flash is not None else (*bwd, False)
+            core, note = flash_core(d_, int8) if flash is not None else bwd_core(d_)
             row.update(core=core, tflops=ops / ms / 1e9)
             print(f"[{label}]   {name} {shape}: core {core} ({note}) | {ops / ms / 1e9:.1f} "
                   f"TFLOP/s of the bound's {ops:.4g} operations; the bound is "

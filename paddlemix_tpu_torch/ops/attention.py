@@ -15,8 +15,14 @@ Kernels (CUDA tensors launch them; CPU tensors run their plain versions):
   scale * log2(e) and rounded to q's dtype as the JAX wrapper does, writing
   the base-2 lse of each row, fp32 (B, H, S);
 - `csrc/flash_bwd.cu`: the backward (B14), `flash_bwd_dkv` and
-  `flash_bwd_dq`, from that pre-scaled q, the lse and di = rowsum(o * do), at
-  the forward's head dims (129-160 padded to 160, 161-256 to 256).
+  `flash_bwd_dq`, from that pre-scaled q, the lse and di = rowsum(o * do),
+  at head dims up to 256 (`_BWD_HEAD_DIMS`): heads of 33-64 and 65-128 run
+  its wgmma core at 64 and 128 (read in place when a multiple of 8), which
+  writes the gradients in bf16 in the caller's layout and skips the tile
+  pairs of which no pair is visible; 129-160 and 161-256 are padded to the
+  WMMA core's 160 and 256. `flash_bwd_{dkv,dq}_tiled_ref` are the plain
+  versions walked tile by tile with that skipping, for the tests and
+  chip_smoke.py.
 Under autograd, `flash_attention` is `_FlashAttention` (the JAX
 `_flash_attention` custom_vjp): forward by `flash_fwd_lse` (bf16 QK^T even
 with `int8_qk`, as in JAX), backward by the two B14 kernels. Segment ids compare
@@ -42,8 +48,10 @@ from .autograd import grad_needed, refuse_grad
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 LOG2E = math.log2(math.e)
-# head dims compiled into flash_fwd.cu and flash_bwd.cu
+# head dims compiled into flash_fwd.cu and flash_bwd.cu: a head runs the least
+# at or above it (the backward's 65-128 run its wgmma core's 128)
 _KERNEL_HEAD_DIMS = (32, 64, 96, 128, 160, 256)
+_BWD_HEAD_DIMS = (32, 64, 128, 160, 256)
 
 
 def int8_qk_default() -> bool:
@@ -209,6 +217,103 @@ def flash_bwd_dq_ref(qs, k, v, do, lse, di, *, scale: float, causal=False, segme
     return torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), ke.float()).to(qs.dtype)
 
 
+# the tile of csrc/flash_bwd.cu's wgmma core that a skip is judged on: one
+# consumer warpgroup's 64 owned rows against a walked tile of 64 rows
+BWD_TILE = 64
+
+
+def flash_bwd_tile_visits(sq, skv, causal=False, segment_ids=None):
+    """(B or 1, ceil(Sq / 64), ceil(Skv / 64)) bool: the (query tile, key
+    tile) pairs of BWD_TILE rows the backward kernels compute, by their rule.
+    A pair is skipped when causal hides all of it (its last query before its
+    first key) or when its query and key segment ids share no id (rows past
+    each sequence's end left out): their [min, max] spans are disjoint, or
+    their sets of id mod 32 are. Either way no pair of a skipped tile is
+    visible, so skipping is exact."""
+    tile = BWD_TILE
+    nq, nk = -(-sq // tile), -(-skv // tile)
+    q_last = (torch.arange(nq) * tile + tile - 1).clamp(max=sq - 1)
+    visits = torch.ones((1, nq, nk), dtype=torch.bool)
+    if causal:
+        visits = visits & (q_last[:, None] >= torch.arange(nk) * tile)[None]
+    if segment_ids is not None:
+        def spans(seg, n):  # each tile's least and greatest id, and its ids mod 32
+            seg = seg.detach().to("cpu", torch.int64)
+            pad = n * tile - seg.shape[1]
+            ids = F.pad(seg, (0, pad)).view(seg.shape[0], n, tile)
+            valid = F.pad(torch.ones_like(seg, dtype=torch.bool), (0, pad)).view(ids.shape)
+            lo = ids.masked_fill(~valid, torch.iinfo(torch.int64).max).amin(-1)
+            hi = ids.masked_fill(~valid, torch.iinfo(torch.int64).min).amax(-1)
+            bits = (F.one_hot(ids % 32, 32).bool() & valid[..., None]).any(2)
+            return lo, hi, bits
+
+        (qlo, qhi, qbits), (klo, khi, kbits) = spans(segment_ids.q, nq), spans(segment_ids.kv, nk)
+        visits = visits & (qlo[:, :, None] <= khi[:, None, :]) \
+            & (klo[:, None, :] <= qhi[:, :, None]) \
+            & (qbits[:, :, None, :] & kbits[:, None, :, :]).any(-1)
+    return visits
+
+
+def _tiled_pairs(qs, k, lse, causal, segment_ids, visits):
+    """Each visited (query tile, key tile) pair as (query rows, key rows, p):
+    p = exp2(qs . k - lse) in fp32, 0 where masked and in the pair's batch
+    rows that `visits` skips; k with its GQA groups expanded."""
+    sq, skv, tile = qs.shape[1], k.shape[1], BWD_TILE
+    if visits is None:
+        visits = flash_bwd_tile_visits(sq, skv, causal, segment_ids)
+    walk = visits.any(0).tolist()  # on the host: the pairs some batch row visits
+    visits = visits.to(qs.device)
+    keep = _keep(sq, skv, causal, segment_ids, qs.device)
+    for i in range(visits.shape[1]):
+        rq = slice(i * tile, min((i + 1) * tile, sq))
+        for j in range(visits.shape[2]):
+            if not walk[i][j]:
+                continue
+            rk = slice(j * tile, min((j + 1) * tile, skv))
+            vis = visits[:, i, j]
+            s = torch.einsum("bqhd,bkhd->bhqk", qs[:, rq].float(), k[:, rk].float())
+            p = torch.exp2(s - lse[:, :, rq, None])
+            m = vis[:, None, None, None]
+            if keep is not None:
+                m = m & keep[:, :, rq, rk]
+            yield rq, rk, p.masked_fill(~m, 0.0)
+
+
+def flash_bwd_dkv_tiled_ref(qs, k, v, do, lse, di, *, causal=False, segment_ids=None,
+                            visits=None):
+    """`flash_bwd_dkv_ref` summed over the (query tile, key tile) pairs the
+    kernels compute (`flash_bwd_tile_visits`, or the `visits` given); a skipped
+    pair adds nothing. Equal to the untiled version up to summation order
+    when skipping is exact. Tests and chip_smoke.py use it."""
+    b, skv, hkv, d = k.shape
+    hq = qs.shape[2]
+    ke, ve = _expand_kv(k, v, hq)
+    dk = torch.zeros((b, skv, hq, d), dtype=torch.float32, device=qs.device)
+    dv = torch.zeros_like(dk)
+    for rq, rk, p in _tiled_pairs(qs, ke, lse, causal, segment_ids, visits):
+        dv[:, rk] += torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do[:, rq].float())
+        dp = torch.einsum("bqhd,bkhd->bhqk", do[:, rq].float(), ve[:, rk].float())
+        ds = p * (dp - di[:, :, rq, None]) * (1.0 / LOG2E)
+        dk[:, rk] += torch.einsum("bhqk,bqhd->bkhd", ds.to(qs.dtype).float(), qs[:, rq].float())
+    g = hq // hkv
+    dk = dk.reshape(b, skv, hkv, g, d).sum(3)
+    dv = dv.reshape(b, skv, hkv, g, d).sum(3)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_dq_tiled_ref(qs, k, v, do, lse, di, *, scale: float, causal=False,
+                           segment_ids=None, visits=None):
+    """`flash_bwd_dq_ref` summed over the pairs the kernels compute, as
+    `flash_bwd_dkv_tiled_ref` is."""
+    ke, ve = _expand_kv(k, v, qs.shape[2])
+    dq = torch.zeros(qs.shape, dtype=torch.float32, device=qs.device)
+    for rq, rk, p in _tiled_pairs(qs, ke, lse, causal, segment_ids, visits):
+        dp = torch.einsum("bqhd,bkhd->bhqk", do[:, rq].float(), ve[:, rk].float())
+        ds = p * (dp - di[:, :, rq, None]) * scale
+        dq[:, rq] += torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), ke[:, rk].float())
+    return dq.to(qs.dtype)
+
+
 # ------------------------------------------------------------------ kernels
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -232,8 +337,8 @@ def _flash_bwd_fns():
     lib = load_library("flash_bwd")
     dkv, dq = lib.flash_bwd_dkv_bf16, lib.flash_bwd_dq_bf16
     strides = ctypes.POINTER(ctypes.c_int)
-    dkv.argtypes = [_P] * 10 + [_I] * 9 + [strides, _P]
-    dq.argtypes = [_P] * 9 + [_I] * 9 + [strides, ctypes.c_float, _P]
+    dkv.argtypes = [_P] * 10 + [_I] * 10 + [strides, _P]
+    dq.argtypes = [_P] * 9 + [_I] * 10 + [strides, ctypes.c_float, _P]
     dkv.restype = dq.restype = _I
     return dkv, dq
 
@@ -248,10 +353,10 @@ def _kernel_operand(t):
     return t
 
 
-def _check_operands(name, q, k, v, causal, segment_ids):
+def _check_operands(name, q, k, v, causal, segment_ids, dims=_KERNEL_HEAD_DIMS):
     """Device, dtype and shape checks; returns the head_dim the kernel is
-    compiled for (the least of `_KERNEL_HEAD_DIMS` >= d) and the int32
-    segment arrays or None."""
+    compiled for (the least of `dims` >= d) and the int32 segment arrays or
+    None."""
     b, sq, hq, d = q.shape
     for tname, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda or t.device != q.device:
@@ -274,7 +379,7 @@ def _check_operands(name, q, k, v, causal, segment_ids):
             raise ValueError(f"{name}: segment ids {tuple(segs[0].shape)} / "
                              f"{tuple(segs[1].shape)} do not match q {tuple(q.shape)} "
                              f"k {tuple(k.shape)}")
-    return next(x for x in _KERNEL_HEAD_DIMS if x >= d), segs
+    return next(x for x in dims if x >= d), segs
 
 
 def _segment_args(segs, sq, skv):
@@ -308,10 +413,31 @@ def _flash_fwd_cuda(q, k, v, scale_log2, causal, segment_ids, want_lse, int8=Fal
     return (o[..., :d] if d_kernel != d else o), lse
 
 
+@functools.lru_cache(maxsize=None)
+def flash_bwd_core(d_kernel: int):
+    """(core, dynamic shared memory a block) of the backward kernels at a
+    compiled head_dim: the fixed table of csrc/flash_bwd.cu (`flash_bwd_core`),
+    "wgmma" at 64 and 128, "wmma" (0 here) at the others."""
+    from ..kernels import load_library
+
+    fn = load_library("flash_bwd").flash_bwd_core
+    fn.argtypes = [_I, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = _I
+    smem = ctypes.c_int(0)
+    return ("wgmma" if fn(d_kernel, ctypes.byref(smem)) else "wmma"), smem.value
+
+
 def _flash_bwd_cuda(dkv, qs, k, v, do, lse, di, scale, causal, segment_ids):
-    """dkv: (dk, dv) fp32 of each query head; else dq fp32; (B, H, S_pad, D)."""
+    """dkv: [dk, dv] in k's layout; else [dq] in qs's; bf16. The wgmma core
+    reads a head of a multiple of 8 columns as it is (the compiled width's
+    columns past it read as zeros) and writes the gradients so, each GQA group
+    summed in the kernel; the WMMA core takes the head padded to its width
+    and writes fp32 (B, H, S_pad, D) of each query head, summed, transposed
+    and cast here."""
     b, sq, h, d = qs.shape
-    d_kernel, segs = _check_operands("flash_attention backward", qs, k, v, causal, segment_ids)
+    hkv = k.shape[2]
+    d_kernel, segs = _check_operands("flash_attention backward", qs, k, v, causal, segment_ids,
+                                     _BWD_HEAD_DIMS)
     if do.shape != qs.shape or do.dtype != qs.dtype or do.device != qs.device:
         raise ValueError(f"flash_attention backward: do {tuple(do.shape)} {do.dtype} does not "
                          f"match q {tuple(qs.shape)} {qs.dtype}")
@@ -319,16 +445,21 @@ def _flash_bwd_cuda(dkv, qs, k, v, do, lse, di, scale, causal, segment_ids):
         if t.shape != (b, h, sq) or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"flash_attention backward: {name} must be contiguous fp32 "
                              f"{(b, h, sq)}, got {t.dtype} {tuple(t.shape)}")
-    qs, k, v, do = (_kernel_operand(t) for t in _pad_head_dim(d_kernel, qs, k, v, do))
     rows = k.shape[1] if dkv else sq
-    out_shape = (b, h, -(-rows // 64) * 64, d_kernel)
-    outs = [torch.empty(out_shape, dtype=torch.float32, device=qs.device)
+    wgmma = flash_bwd_core(d_kernel)[0] == "wgmma"
+    dh = d if wgmma and d % 8 == 0 else d_kernel
+    qs, k, v, do = (_kernel_operand(t) for t in _pad_head_dim(dh, qs, k, v, do))
+    if wgmma:
+        out_shape, out_dtype = (b, rows, hkv if dkv else h, dh), qs.dtype
+    else:
+        out_shape, out_dtype = (b, h, -(-rows // 64) * 64, d_kernel), torch.float32
+    outs = [torch.empty(out_shape, dtype=out_dtype, device=qs.device)
             for _ in range(2 if dkv else 1)]
     strides = (ctypes.c_int * 12)(*qs.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                                   *do.stride()[:3])
     args = [qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             di.data_ptr(), *_segment_args(segs, sq, k.shape[1])[:2],
-            *(o.data_ptr() for o in outs), b, h, sq, k.shape[1], d_kernel, h // k.shape[2],
+            *(o.data_ptr() for o in outs), b, h, sq, k.shape[1], d_kernel, dh, h // hkv,
             int(causal), *_segment_args(segs, sq, k.shape[1])[2:], strides]
     fn_dkv, fn_dq = _flash_bwd_fns()
     with torch.cuda.device(qs.device):
@@ -337,7 +468,12 @@ def _flash_bwd_cuda(dkv, qs, k, v, do, lse, di, scale, causal, segment_ids):
     if err:
         raise RuntimeError(f"flash_bwd_{'dkv' if dkv else 'dq'}_bf16 launch failed with "
                            f"cudaError {err}")
-    return [o[:, :, :rows, :d] for o in outs]
+    if wgmma:
+        return [o[..., :d] for o in outs]
+    outs = [o[:, :, :rows, :d] for o in outs]
+    if dkv and hkv != h:
+        outs = [o.reshape(b, hkv, h // hkv, rows, d).sum(2) for o in outs]
+    return [o.transpose(1, 2).to(qs.dtype) for o in outs]
 
 
 def _cpu_only(name, t):
@@ -366,18 +502,13 @@ flash_fwd_lse.launches_by_dim = Counter()  # the same, by the caller's head_dim
 
 def flash_bwd_dkv(qs, k, v, do, lse, di, *, causal=False, segment_ids=None):
     """dk, dv (B14, `_bwd_dkv_kernel`) in k's dtype from the lse form's
-    operands, do and di (B, H, Sq) fp32. CUDA tensors launch the kernel, whose
-    per-query-head fp32 outputs are summed over each GQA group here; CPU
-    tensors run `flash_bwd_dkv_ref`."""
+    operands, do and di (B, H, Sq) fp32, each GQA group's query heads summed.
+    CUDA tensors launch the kernel; CPU tensors run `flash_bwd_dkv_ref`."""
     if qs.is_cuda:
         dk, dv = _flash_bwd_cuda(True, qs, k, v, do, lse, di, 0.0, causal, segment_ids)
         flash_bwd_dkv.launches += 1
         flash_bwd_dkv.launches_by_dim[qs.shape[3]] += 1
-        b, h, skv, d = dk.shape
-        hkv = k.shape[2]
-        if hkv != h:
-            dk, dv = (t.reshape(b, hkv, h // hkv, skv, d).sum(2) for t in (dk, dv))
-        return dk.transpose(1, 2).to(k.dtype), dv.transpose(1, 2).to(v.dtype)
+        return dk, dv
     _cpu_only("flash_bwd_dkv", qs)
     return flash_bwd_dkv_ref(qs, k, v, do, lse, di, causal=causal, segment_ids=segment_ids)
 
@@ -393,7 +524,7 @@ def flash_bwd_dq(qs, k, v, do, lse, di, *, scale: float, causal=False, segment_i
         (dq,) = _flash_bwd_cuda(False, qs, k, v, do, lse, di, scale, causal, segment_ids)
         flash_bwd_dq.launches += 1
         flash_bwd_dq.launches_by_dim[qs.shape[3]] += 1
-        return dq.transpose(1, 2).to(qs.dtype)
+        return dq
     _cpu_only("flash_bwd_dq", qs)
     return flash_bwd_dq_ref(qs, k, v, do, lse, di, scale=scale, causal=causal,
                             segment_ids=segment_ids)

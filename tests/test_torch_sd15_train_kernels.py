@@ -171,3 +171,39 @@ def test_wide_head_backward_kernels_match_plain_versions_on_gpu():
     torch.cuda.synchronize()
     assert [f.launches_by_dim[160] for f in fns] == [n + 1 for n in before]
     assert all(t.grad is not None and bool(torch.isfinite(t.grad).all()) for t in (q, k, v))
+
+
+@pytest.mark.gpu
+def test_padded_heads_on_wgmma_backward_on_gpu():
+    """SD1.5's heads 40 and 80 in the backward: padded to 64 and 128 with zero
+    columns, they run B14's wgmma core (80 no longer pads to the WMMA core's
+    96), at S below one tile and ragged, MHA; the kernels against their plain
+    versions with the gate above, and flash_attention under autograd counting
+    both kernels at the caller's head_dim."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: run on the GPU host (see README, PyTorch port)")
+    dev, bf16 = "cuda", torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for b, s, h, d in [(2, 60, 8, 40), (1, 300, 8, 80), (2, 256, 8, 80)]:
+        q, k, v, do = (torch.randn((b, s, h, d), generator=gen, device=dev).to(bf16)
+                       for _ in range(4))
+        scale = d ** -0.5
+        qs = (q.float() * scale * tattn.LOG2E).to(bf16)
+        ro, rlse = tattn.flash_fwd_lse_ref(qs.float(), k.float(), v.float())
+        di = (ro * do.float()).sum(-1).transpose(1, 2).contiguous()
+        dk, dv = tattn.flash_bwd_dkv(qs, k, v, do, rlse, di)
+        dq = tattn.flash_bwd_dq(qs, k, v, do, rlse, di, scale=scale)
+        torch.cuda.synchronize()
+        f32 = (qs.float(), k.float(), v.float(), do.float())
+        rdk, rdv = tattn.flash_bwd_dkv_ref(*f32, rlse, di)
+        rdq = tattn.flash_bwd_dq_ref(*f32, rlse, di, scale=scale)
+        for got, ref in ((dq, rdq), (dk, rdk), (dv, rdv)):
+            assert got.shape == ref.shape and _gate(got, ref, 4e-3), (b, s, h, d)
+    q, k, v = (torch.randn((2, 256, 8, 80), generator=gen, device=dev).to(bf16)
+               .requires_grad_() for _ in range(3))
+    fns = (tattn.flash_bwd_dkv, tattn.flash_bwd_dq)
+    before = [f.launches_by_dim[80] for f in fns]
+    tattn.flash_attention(q, k, v).float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert [f.launches_by_dim[80] for f in fns] == [n + 1 for n in before]
+    assert all(t.grad is not None and bool(torch.isfinite(t.grad).all()) for t in (q, k, v))

@@ -153,6 +153,98 @@ def test_flash_backward_refs_are_the_math_gradient():
         torch.testing.assert_close(got, ref, rtol=1e-5, atol=2e-6)
 
 
+# The backward kernels' tile skipping (csrc/flash_bwd.cu's wgmma core) on the
+# reference's own terms: the tiled plain versions, which walk the kernels'
+# 64-row tiles and skip the pairs the kernels skip, against JAX's `_flash_bwd`
+# (jax.grad through the Pallas kernels in interpret mode) and against the
+# untiled plain versions. (causal, S, query heads, kv heads, segment cuts of
+# each batch row, first padding row): MixToken-style packing, segments cut
+# off the tiles and padding id 0 at the end; S ragged; GQA 4:1.
+TILED_CASES = {"causal-mixtoken-pad-gqa4": (True, 256, 4, 1, [[40, 150], [100]], 200),
+               "causal-ragged-gqa2": (True, 200, 4, 2, [[70, 130], [20]], 180),
+               "seg-mixtoken-pad-gqa4": (False, 256, 4, 1, [[64, 150], [100]], 230)}
+# the tiled and the untiled plain versions sum the same fp32 products in
+# another order: of |ref|max
+TILED_TOL = 1e-6
+
+
+def _mixtoken_segments(b, s, cuts, pad_from):
+    """(B, S) int32: ids 1, 2, ... cut at each row's cuts, 0 from pad_from on."""
+    seg = _segments(b, s, cuts)
+    seg[:, pad_from:] = 0
+    return seg
+
+
+@pytest.mark.parametrize("causal,s,h,kvh,cuts,pad_from", list(TILED_CASES.values()),
+                         ids=list(TILED_CASES))
+def test_flash_backward_tiled_refs_skip_exactly(jx, pallas_interpret, monkeypatch, causal, s, h,
+                                                kvh, cuts, pad_from):
+    rs = np.random.RandomState(5)
+    q, do = (rs.randn(2, s, h, 64).astype(np.float32) for _ in range(2))
+    k, v = (rs.randn(2, s, kvh, 64).astype(np.float32) for _ in range(2))
+    seg = _mixtoken_segments(2, s, cuts, pad_from)
+    jseg = jx.attn.SegmentIds(jx.jnp.asarray(seg), jx.jnp.asarray(seg))
+
+    def jloss(q_, k_, v_):
+        o = jx.attn.flash_attention(q_, k_, v_, causal=causal, segment_ids=jseg, block_q=128,
+                                    block_k=128)
+        return (o * jx.jnp.asarray(do)).sum()
+
+    calls = _count_pallas_calls(monkeypatch, jx.attn)
+    jgrads = jx.jax.grad(jloss, argnums=(0, 1, 2))(*(jx.jnp.asarray(a) for a in (q, k, v)))
+    assert len(calls) == 3  # the lse forward, then the dkv and dq kernels
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    segs = tattn.SegmentIds(torch.from_numpy(seg), torch.from_numpy(seg))
+    scale = 64 ** -0.5
+    qs = tq * (scale * tattn.LOG2E)
+    o, lse = tattn.flash_fwd_lse_ref(qs, tk, tv, causal=causal, segment_ids=segs)
+    di = (o * tdo).sum(-1).transpose(1, 2).contiguous()
+    kw = dict(causal=causal, segment_ids=segs)
+    visits = tattn.flash_bwd_tile_visits(s, s, **kw)
+    # the segments leave whole tile pairs out that the causal mask alone keeps
+    assert bool((tattn.flash_bwd_tile_visits(s, s, causal) & ~visits).any())
+    dk, dv = tattn.flash_bwd_dkv_tiled_ref(qs, tk, tv, tdo, lse, di, **kw)
+    dq = tattn.flash_bwd_dq_tiled_ref(qs, tk, tv, tdo, lse, di, scale=scale, **kw)
+    rdk, rdv = tattn.flash_bwd_dkv_ref(qs, tk, tv, tdo, lse, di, **kw)
+    rdq = tattn.flash_bwd_dq_ref(qs, tk, tv, tdo, lse, di, scale=scale, **kw)
+    for got, ref, jref in ((dq, rdq, jgrads[0]), (dk, rdk, jgrads[1]), (dv, rdv, jgrads[2])):
+        _close(got, jref, BWD_TOL)
+        _close(got, ref, TILED_TOL)
+
+
+@pytest.mark.parametrize("causal,ids", [(True, "packed"), (True, "packed-pad"),
+                                        (True, "colliding"), (False, "colliding")])
+def test_tile_visits_keep_every_visible_pair(causal, ids):
+    """The skip rule is exact: a tile pair is skipped only if no (query, key)
+    of it is visible, for ids in packing order, with MixToken's padding id 0
+    after a row's last segment (whose [min, max] spans every id), and for ids
+    in any order; and in packing order it skips every pair none of which is
+    visible. The colliding ids (1 and 40 mixed in every other tile, 33 in the
+    rest) share no id, but their spans overlap and 1 and 33 agree mod 32."""
+    rs = np.random.RandomState(6)
+    b, sq = 3, 333
+    if ids == "colliding":
+        odd = (np.arange(sq) // tattn.BWD_TILE) % 2 == 1
+        seg = np.where(odd, 33, np.where(rs.randint(0, 2, (b, sq)) == 1, 40, 1))
+    else:
+        seg = np.sort(rs.randint(1, 6, (b, sq)), 1)
+        if ids == "packed-pad":
+            seg[:, 300:] = 0
+    seg = torch.from_numpy(seg)
+    segs = tattn.SegmentIds(seg, seg)
+    keep = tattn._keep(sq, sq, causal, segs, "cpu")[:, 0]  # (B, Sq, Skv)
+    n = -(-sq // tattn.BWD_TILE)
+    padded = torch.nn.functional.pad(keep, (0, n * 64 - sq, 0, n * 64 - sq))
+    any_visible = padded.view(b, n, 64, n, 64).any(4).any(2)  # (B, nq, nk)
+    visits = tattn.flash_bwd_tile_visits(sq, sq, causal, segs)
+    assert visits.shape == (b, n, n)
+    assert bool((visits | ~any_visible).all())  # nothing visible is skipped
+    if ids == "colliding":
+        assert bool((visits & ~any_visible).any())
+    else:
+        assert torch.equal(visits, any_visible)
+
+
 def test_rms_norm_backward_ref_matches_jax_grad_through_pallas(jx, pallas_interpret, monkeypatch):
     rs = np.random.RandomState(4)
     x = (rs.randn(2, 64, 256) * 3).astype(np.float32)  # 128 rows: JAX takes its kernels
@@ -294,6 +386,61 @@ def test_train_kernels_match_plain_versions_on_gpu():
     assert within(dx, rdx, 1e-3) and torch.allclose(dw, rdw, rtol=1e-4, atol=1e-3)
     dx2, none = _counted(tnorms.rms_norm_backward, x, w, g, 1e-5, need_dw=False)
     assert none is None and torch.equal(dx2, dx)
+
+
+@pytest.mark.gpu
+def test_backward_wgmma_core_edges_on_gpu():
+    """B14's wgmma core (head_dim 64 and 128) at its edges, against the plain
+    versions untiled and tiled (c 4e-3, as above): S below one 64-row tile;
+    q, k, v and do as slices of joint tensors (read in place through their
+    strides); GQA 4:1, its group summed in registers; segments that leave
+    whole tile pairs skipped. Two launches are bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: run on the GPU host (see README, PyTorch port)")
+    dev, bf16 = "cuda", torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def within(out, ref, c=4e-3):
+        ref = ref.float()
+        return bool(((out.float() - ref).abs()
+                     <= 2.0 ** -7 * ref.abs() + c * ref.abs().max()).all())
+
+    for b, s, h, kvh, d, masked in [(2, 50, 8, 2, 64, True), (1, 40, 4, 4, 128, False),
+                                    (2, 333, 8, 2, 128, True), (1, 520, 8, 2, 64, True),
+                                    (2, 256, 4, 1, 64, False)]:
+        x = torch.randn((b, s, 2 * h + 2 * kvh, d), generator=gen, device=dev).to(bf16)
+        q, do = x[:, :, :h], x[:, :, h:2 * h]
+        k, v = x[:, :, 2 * h:2 * h + kvh], x[:, :, 2 * h + kvh:]
+        assert all(tattn._kernel_operand(t) is t for t in (q, k, v, do))
+        kw = {}
+        if masked:
+            seg = torch.ones((b, s), dtype=torch.int32, device=dev)
+            seg[:, s // 4:] += 1
+            seg[:, s // 2:] += 1
+            seg[:, s - s // 8:] = 0  # padding id 0 at the end, as MixToken packs
+            kw = dict(causal=True, segment_ids=tattn.SegmentIds(seg, seg))
+            if s >= 256:  # whole tile pairs left out, beyond the causal mask's
+                assert bool((tattn.flash_bwd_tile_visits(s, s, True)
+                             & ~tattn.flash_bwd_tile_visits(s, s, **kw)).any())
+        scale = d ** -0.5
+        qs = (q.float() * scale * tattn.LOG2E).to(bf16)
+        ro, rlse = tattn.flash_fwd_lse_ref(qs, k, v, **kw)
+        di = (ro.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+        assert tattn.flash_bwd_core(d)[0] == "wgmma"
+        dk, dv = _counted(tattn.flash_bwd_dkv, qs, k, v, do, rlse, di, **kw)
+        dq = _counted(tattn.flash_bwd_dq, qs, k, v, do, rlse, di, scale=scale, **kw)
+        dk2, dv2 = tattn.flash_bwd_dkv(qs, k, v, do, rlse, di, **kw)
+        dq2 = tattn.flash_bwd_dq(qs, k, v, do, rlse, di, scale=scale, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(dk, dk2) and torch.equal(dv, dv2) and torch.equal(dq, dq2)
+        assert dk.dtype == bf16 and dk.shape == k.shape and dq.shape == q.shape
+        f32 = tuple(t.float() for t in (qs, k, v, do))
+        refs = (tattn.flash_bwd_dkv_ref(*f32, rlse, di, **kw)
+                + (tattn.flash_bwd_dq_ref(*f32, rlse, di, scale=scale, **kw),))
+        tiled = (tattn.flash_bwd_dkv_tiled_ref(*f32, rlse, di, **kw)
+                 + (tattn.flash_bwd_dq_tiled_ref(*f32, rlse, di, scale=scale, **kw),))
+        for got, ref, tref in zip((dk, dv, dq), refs, tiled):
+            assert within(got, ref) and within(got, tref), (b, s, h, kvh, d, masked)
 
 
 @pytest.mark.gpu

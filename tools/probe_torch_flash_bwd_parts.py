@@ -1,0 +1,119 @@
+#!/usr/bin/env python3
+"""Where the time of B14's wgmma core goes, in the PyTorch port: the flash
+backward's dK/dV and dQ kernels (csrc/flash_bwd.cu, namespace `wg`) timed
+whole and with one part of a tile's work taken out.
+
+Builds csrc/flash_bwd.cu as it is and in three variants, one nvcc each, in
+parallel, under build/probe_flash_bwd/ (git-ignored): without the exp2 of
+the elementwise step (p = s - lse), without a tile's first two products (S
+and dP), and without its last ones (dV and dK, or dQ). The variants compute
+wrong gradients; they are timed only. Each is timed at the SD1.5 training
+path's head-40 self-attention (8, 4096, 8, 40), which runs the D = 64
+instantiation, and at the LoRA SFT shape (2, 2048, 32, 128) causal with four
+segments a row, like `chip_smoke.py`: 10 launches captured in a CUDA graph,
+one replay timed by CUDA events, the variants in turns (the kernel first
+and last). A part whose removal saves little is hidden behind the others.
+
+Usage (from the root of a checkout, on a machine with a CUDA card):
+    python3 tools/probe_torch_flash_bwd_parts.py
+"""
+
+import ctypes
+import os
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+# (variant, [(text of csrc/flash_bwd.cu, its replacement), ...])
+VARIANTS = [
+    ("kernel", []),
+    ("no exp2", [("float p = ex2(acc_s[i] - l);", "float p = acc_s[i] - l;"),
+                 ("float p = ex2(acc_s[i] - my_lse[r]);", "float p = acc_s[i] - my_lse[r];")]),
+    ("no S, dP", [("    issue_rows_t<D>(acc_s, k_wg, ring.walk(0, s));\n"
+                   "    issue_rows_t<D>(acc_dp, v_wg, ring.walk(1, s));\n", ""),
+                  ("    issue_rows_t<D>(acc_s, q_wg, ring.walk(0, s));\n"
+                   "    issue_rows_t<D>(acc_dp, do_wg, ring.walk(1, s));\n", "")]),
+    ("no dV dK / dQ", [("    issue_acc<D>(acc_dv, pa, ring.walk(1, s));\n"
+                        "    issue_acc<D>(acc_dk, da, ring.walk(0, s));\n", ""),
+                       ("    issue_acc<D>(acc_dq, da, ring.walk(0, s));\n", "")]),
+]
+SHAPES = [(8, 4096, 8, 8, 40, False), (2, 2048, 32, 32, 128, True)]
+
+
+def build(name, edits):
+    """csrc/flash_bwd.cu with `edits` applied, built into its own library."""
+    from paddlemix_tpu_torch.kernels import build as kb
+
+    src = open(os.path.join(kb.CSRC, "flash_bwd.cu")).read()
+    for old, new in edits:
+        if src.count(old) != 1:
+            raise SystemExit(f"variant {name!r}: {old!r} is not in csrc/flash_bwd.cu once")
+        src = src.replace(old, new)
+    tag = name.replace(" ", "_").replace("/", "")
+    out_dir = os.path.join(REPO, "build", "probe_flash_bwd", tag)
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "flash_bwd.cu")
+    with open(path, "w") as f:
+        f.write(src)
+    lib = os.path.join(out_dir, "libflash_bwd.so")
+    proc = subprocess.run([kb._nvcc(), *kb.NVCC_FLAGS, "-I", str(kb.CSRC), "-o", lib, path],
+                          capture_output=True, text=True)
+    if proc.returncode:
+        raise SystemExit(f"variant {name!r} does not build:\n{proc.stderr}")
+    fns = ctypes.CDLL(lib)
+    dkv, dq = fns.flash_bwd_dkv_bf16, fns.flash_bwd_dq_bf16
+    p, i, st = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+    dkv.argtypes = [p] * 10 + [i] * 10 + [st, p]
+    dq.argtypes = [p] * 9 + [i] * 10 + [st, ctypes.c_float, p]
+    dkv.restype = dq.restype = i
+    return dkv, dq
+
+
+def main():
+    import torch
+
+    import chip_smoke as cs
+    from paddlemix_tpu_torch.ops import attention as attn
+
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA card")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(f"{torch.cuda.get_device_name(0)} | nvidia-smi: {smi}", flush=True)
+    with ThreadPoolExecutor(len(VARIANTS)) as pool:
+        libs = dict(zip([n for n, _ in VARIANTS], pool.map(lambda v: build(*v), VARIANTS)))
+    dev, bf16 = torch.device("cuda", 0), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(0)
+    order = [n for n, _ in VARIANTS] + [n for n, _ in VARIANTS][::-1]
+    for b, s, h, kvh, d, masked in SHAPES:
+        q, do = (torch.randn((b, s, h, d), generator=gen, device=dev).to(bf16) for _ in range(2))
+        k, v = (torch.randn((b, s, kvh, d), generator=gen, device=dev).to(bf16)
+                for _ in range(2))
+        kw = {}
+        if masked:
+            seg = torch.ones((b, s), dtype=torch.int32, device=dev)
+            for cut in cs.TRAIN_SEGMENT_CUTS:
+                seg[:, int(cut * s):] += 1
+            kw = dict(causal=True, segment_ids=attn.SegmentIds(seg, seg))
+        scale = d ** -0.5
+        qs = (q.float() * (scale * attn.LOG2E)).to(bf16)
+        o, lse = attn.flash_fwd_lse(qs, k, v, **kw)
+        di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+        times = {}
+        for name in order:
+            attn._flash_bwd_fns = lambda fns=libs[name]: fns
+            dkv_ms = cs.cuda_ms(torch, lambda: attn.flash_bwd_dkv(qs, k, v, do, lse, di, **kw))
+            dq_ms = cs.cuda_ms(torch, lambda: attn.flash_bwd_dq(qs, k, v, do, lse, di,
+                                                                scale=scale, **kw))
+            times.setdefault(name, []).append((dkv_ms, dq_ms))
+        label = f"{(b, s, h, kvh, d)}{' causal + 4 segments' if masked else ''}"
+        for name, runs in times.items():
+            print(f"{label} {name:>14}: dkv {' / '.join(f'{r[0]:.3f}' for r in runs)} ms, "
+                  f"dq {' / '.join(f'{r[1]:.3f}' for r in runs)} ms", flush=True)
+
+
+if __name__ == "__main__":
+    main()
