@@ -54,7 +54,12 @@ Phases:
                    case (B1, its int8 form, B15) also prints the core that
                    served it (wgmma or WMMA, csrc/flash_fwd.cu's width
                    table), its TFLOP/s beside the bound and, for the wgmma
-                   core, ptxas's registers and spills and its shared memory
+                   core, ptxas's registers and spills and its shared memory;
+                   the int8 GEMM (B2) also at a ragged (1000, 1296, 1288),
+                   each B2 case with its core and tile plan
+                   (csrc/gemm_wg.cuh, ops/gemm_tiles.py), ptxas counts,
+                   shared memory, TOP/s, and torch._int_mm on x quantized
+                   beforehand beside bf16 torch.matmul
   4. agree         one full-width bf16 UNet forward at a small latent, kernels
                    vs plain
   5. serve         3 bf16 requests, 1024x1024, 25 Euler steps, guidance 5.0;
@@ -80,7 +85,9 @@ Phases:
  10. llava kernels the SDXL pipeline is freed; each LLaVA kernel (wint8 GEMM,
                    decode attention, RMSNorm) against its plain version at
                    the decode and prefill shapes (RMSNorm also at T5's 77
-                   rows, the SD3 path's), with times and bounds;
+                   rows, the SD3 path's; the wint8 GEMM also at a ragged
+                   (77, 4112, 4104), each case with its core as B2's), with
+                   times and bounds;
                    weights, caches and the RMSNorm input rotate through
                    copies that together pass three times the L2 cache, as
                    the model's layers find them cold (up to 64 copies: the
@@ -278,6 +285,10 @@ GN_CASES = [((2, 128, 128, 320), "silu"), ((2, 64, 64, 960), "silu"),
             ((1, 1024, 1024, 128), "silu")]
 # (M, K, N) of the int8 GEMM: GEGLU proj at 64x64 and 32x32, ff out at 32x32, attn2 k/v
 GEMM_SHAPES = [(8192, 640, 5120), (2048, 1280, 10240), (2048, 5120, 1280), (154, 2048, 1280)]
+# and a ragged one: M no multiple of the 128-row tile, N = 8 mod 16 (so the
+# last pair of column tiles has its second past the edge), K no multiple of
+# the 64-deep stage
+GEMM_RAGGED = (1000, 1296, 1288)
 # (B, H, W, C) of the int8 3x3 conv (C -> C): the UNet's and the VAE's up-sample convs
 CONV_SHAPES = [(2, 64, 64, 1280), (1, 512, 512, 512), (1, 1024, 1024, 256)]
 # ((B, H, W, C), O, epilogue) of the fused resnet conv
@@ -303,6 +314,7 @@ A8W8_AGREE_TOL = 1e-3  # the same with B2/B3/B5 vs plain: bit-exact kernels read
 # lm_head; prefill (608 prompt tokens) gate/up, down
 WINT8_SHAPES = [(1, 4096, 4096), (1, 4096, 11008), (1, 11008, 4096), (1, 4096, 32000),
                 (608, 4096, 11008), (608, 11008, 4096)]
+WINT8_RAGGED = (77, 4112, 4104)  # the tiled path's ragged case, as GEMM_RAGGED
 # (B, Hq, KVH, D, L, lengths) of decode attention: Llama-7B's first decode step
 # over the bench's 736-slot cache, a long GQA cache, and the last step of the
 # Llama-2-7B request over the bf16 cache (B8's shape, for comparison)
@@ -564,6 +576,40 @@ def flash_core(d, int8=False):
     return "wgmma", (f"D {d_kernel}; ptxas {regs} registers at entry (setmaxnreg: 240 a consumer "
                      f"thread, 24 a producer), {spills}; {smem.value:,} bytes of dynamic shared "
                      f"memory a block")
+
+
+def gemm_core(kind, m, k, n):
+    """(core, note) of B2 (kind "a8w8") or B6 ("wint8") at (M, K, N): the
+    kernel the wrapper launches there and, for the wgmma core, its tile plan
+    (ops/gemm_tiles.py), ptxas's registers and spills for that instantiation
+    and its block's dynamic shared memory."""
+    from paddlemix_tpu_torch.ops import conv_int8, gemm_tiles, quant
+
+    if kind == "wint8" and m == 1:
+        return "gemv", "wint8_gemv_kernel, M = 1"
+    if kind == "a8w8":
+        source, tiles, smem = "int8_gemm", gemm_tiles.A8W8_TILES, conv_int8.gemm_smem_bytes
+        plan_fn, what = gemm_tiles.a8w8_plan, "rows of x by {} columns"
+    else:
+        source, tiles, smem = "wint8_gemm", gemm_tiles.WINT8_TILES, quant.wint8_smem_bytes
+        plan_fn, what = gemm_tiles.wint8_plan, "weight rows by {} tokens"
+    clusters = gemm_tiles.max_clusters(source, f"{source}_max_clusters", tiles, 0)
+    plan = plan_fn(m, n, k, clusters)
+    regs, spills = ptxas_counts(source, f"{source}_wgmma_kernelILi{plan.tile}E")
+    return "wgmma", (f"tiles of 128 {what.format(plan.tile)}, {plan.outer_tiles} x "
+                     f"{plan.inner_tiles}, {plan.grid} blocks in clusters of 2 "
+                     f"({clusters[plan.tile]} fit at once); ptxas {regs} registers at entry "
+                     f"(setmaxnreg: 232 a consumer thread, 40 a producer), {spills}; "
+                     f"{smem(plan.tile):,} bytes of dynamic shared memory a block")
+
+
+def gemm_note(label, name, kind, shape, ms, ops, unit, extra=None):
+    """Print the core, rate and yardsticks of one B2 / B6 case and keep the
+    core and rate in its summary row."""
+    core, note = gemm_core(kind, *shape)
+    print(f"[{label}]   {name} {shape}: core {core} ({note}) | {ops / ms / 1e9:.1f} {unit} "
+          f"of the bound's {ops:.4g} operations" + (f" | {extra}" if extra else ""), flush=True)
+    return dict(core=core, tflops=ops / ms / 1e9)
 
 
 def bwd_core(d):
@@ -2152,7 +2198,7 @@ def main():
     for name, log in build_log.items():
         print(f"[build] {name}.cu: {log['seconds']:.1f} s -> {log['path']}", flush=True)
         for line in log["ptxas"].splitlines():
-            if "registers" in line or "Compiling entry" in line or "spill" in line:
+            if any(w in line for w in ("registers", "Compiling entry", "spill", "Performance")):
                 print(f"[build]   {line.strip()}")
 
     # --------------------------------------------------------------- kernels
@@ -2266,7 +2312,7 @@ def main():
         return out, err, ms, plain_ms, library_ms(torch, library)
 
     ci, fr = conv_int8_mod, fused_mod
-    for m, k, n in GEMM_SHAPES:
+    for m, k, n in GEMM_SHAPES + [GEMM_RAGGED]:
         x = torch.randn((m, k), generator=gen, device=dev).to(bf16)
         wf = torch.randn((n, k), generator=gen, device=dev) * k ** -0.5
         wq, sw = ci.quantize_weight_per_cout(wf)
@@ -2279,7 +2325,15 @@ def main():
                                 lambda: torch.matmul(x, w16))
         record("kernels", "int8_a8w8_matmul", (m, k, n), *times,
                bound(nbytes(x, wq, sw, bias, out), 2 * m * n * k, "int8"))
-        del x, wf, wq, w16, out
+        # the s8 tensor-core yardstick beside bf16 torch.matmul: torch._int_mm
+        # on x quantized beforehand (int32 out, no scales)
+        xq, wq_t = ci.quantize_int8(x, sx), wq.t()
+        int_mm = library_ms(torch, lambda: torch._int_mm(xq, wq_t))
+        summary["int8_a8w8_matmul"][-1].update(
+            int_mm_ms=int_mm, **gemm_note("kernels", "int8_a8w8_matmul", "a8w8", (m, k, n),
+                                          times[1], 2 * m * n * k, "TOP/s",
+                                          f"torch._int_mm {int_mm:.3f} ms"))
+        del x, wf, wq, w16, out, xq
     for shape in CONV_SHAPES:
         b_, h_, w_, c = shape
         x = torch.randn(shape, generator=gen, device=dev).to(bf16)
@@ -2525,7 +2579,7 @@ def main():
     from paddlemix_tpu_torch.ops import decode_attention as da_mod
 
     # --------------------------------------------------------- llava kernels
-    for m, k, n in WINT8_SHAPES:
+    for m, k, n in WINT8_SHAPES + [WINT8_RAGGED]:
         x = torch.randn((m, k), generator=gen, device=dev).to(bf16)
         w = torch.randn((n, k), generator=gen, device=dev) * k ** -0.5
         wq, scale = quant_mod.quantize_weights_int8(w)
@@ -2548,6 +2602,8 @@ def main():
                                         2 * w16.numel()))
         record("llava kernels", "wint8_matmul", (m, k, n), err, ms, plain_ms, lib_ms,
                bound(nbytes(x, wq, scale, out), 2 * m * n * k, "bf16"))
+        summary["wint8_matmul"][-1].update(gemm_note("llava kernels", "wint8_matmul", "wint8",
+                                                     (m, k, n), ms, 2 * m * n * k, "TFLOP/s"))
         del x, wq, scale, w16, out, ref, diff
         gc.collect()
     for b_, hq, kvh, d, L, lengths in DECODE_CASES:

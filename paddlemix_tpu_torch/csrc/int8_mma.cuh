@@ -1,4 +1,4 @@
-// Shared core of the int8 a8w8 kernels (int8_gemm.cu, int8_conv3x3.cu):
+// Core of the int8 a8w8 3x3 conv kernels (int8_conv3x3.cu: B3, B5):
 // a 128 x 128 output tile of out[m, n] = sx * sw[n] * sum_k A[m, k] * Wq[n, k]
 // (+ epilogue terms), with A quantized to int8 as it is loaded.
 //

@@ -5,9 +5,10 @@
 // products (a bf16 value times an int8 value needs 15 significant bits).
 //
 // Replaces the Pallas kernel wint8_matmul / _wint8_kernel
-// (paddlemix_tpu/ops/quant.py), which widened each int8 weight tile to bf16
-// in VMEM and accumulated bf16 x bf16 products in fp32 across a sequential K
-// grid axis. Here one source serves the two shapes Llama's projections see:
+// (paddlemix_tpu/ops/quant.py, pallas_call at :462), which widened each int8
+// weight tile to bf16 in VMEM and accumulated bf16 x bf16 products in fp32
+// across a sequential K grid axis. Here one source serves the two shapes
+// Llama's projections see:
 //
 //  - decode, M = 1 (Llama at batch 1): a weight-streaming GEMV. The
 //    weight bytes bound it (1 byte a weight, 2 flops a byte at M = 1), so
@@ -18,28 +19,40 @@
 //    is placed in the mantissa of 2^23 (one byte permute) and 2^23 + 128 is
 //    subtracted (one add), which is exact. A warp reduce and x scale end the
 //    column.
-//  - every other M (prefill: M = 608 at the LLaVA bench's prompt): a tiled GEMM on
-//    the tensor cores, mma.sync.m16n8k16 bf16 with fp32 accumulators, a
-//    128 x 128 output tile per block of 8 warps (each 64 x 32), K 32 at a
-//    time through two shared-memory stages fed from registers. The int8 tile
-//    is widened to bf16 (exact) as it is stored to shared memory, so weights
-//    cross device memory as int8. At M = 608 the product is above the bf16
-//    ridge; mma.sync and the register-staged pipeline leave it well below
-//    the tensor-core peak (wgmma + TMA is the later step).
+//  - every other M (prefill: M = 608 at the LLaVA bench's prompt): the wgmma
+//    core of csrc/gemm_wg.cuh with the operands swapped, out^T = Wq x^T, so
+//    that the weight, which must be widened, is the A operand that wgmma takes
+//    from registers. At M = 608 the bf16 operations bound it (0.055 ms at
+//    989 TFLOP/s for 4096 -> 11008; the 45 MB of int8 weights take 0.014 ms).
+//    A tile is 128 weight rows (64 a consumer warpgroup) x TN tokens, TN one
+//    of 64, 128, 152, 208, 256 (wgmma's N; ops/gemm_tiles.py picks it per
+//    shape: 608 = 3 x 208 or 4 x 152 fills 132 SMs in whole waves), and the
+//    two blocks of a cluster take neighbouring weight tiles, which read the
+//    same tokens; each stage holds x as K-major bf16 (TMA multicast,
+//    128-byte swizzle), read by descriptor, and the int8 weight tile (64-byte
+//    swizzle). Each consumer thread reads the 4-byte words holding its A
+//    fragments' bytes of a stage's four k16 steps and widens them to bf16 by
+//    the same byte-permute trick (exact) while the previous stage's
+//    wgmma.m64nTNk16 run. The epilogue scales the fp32 sums by scale[n] (one
+//    value a row of the transposed tile, loaded when the tile begins), rounds
+//    to bf16 and stores them transposed by stmatrix.trans, so out stays
+//    (M, N) row-major, then by TMA. Widening the weight tile into shared
+//    memory in the producer warpgroup's other three warps, for SS products,
+//    measured slower on an H100: those warps could not keep up.
 //
-// Ragged edges: rows past M and columns past N are masked; K must be a
-// multiple of 16 (whole 16-byte chunks of both operands) and N of 8.
+// Shapes: K % 16 == 0 (16-byte rows for the GEMV's loads and TMA) and
+// N % 8 == 0; TMA zero-fills the ragged edges of the tiled path and clips its
+// stores.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared (ctypes binding,
 // no PyTorch headers); launched on the caller's stream, no allocation.
 
-#include "int8_mma.cuh"
-
-using i8mma::bf16_hi;
-using i8mma::bf16_lo;
-using i8mma::ldsm_x4;
+#include "gemm_wg.cuh"
 
 namespace {
+
+__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
 
 // 4 int8 (little-endian in w) -> 4 exact fp32 values
 __device__ __forceinline__ void i8x4_to_f32(uint32_t w, float (&f)[4]) {
@@ -47,11 +60,6 @@ __device__ __forceinline__ void i8x4_to_f32(uint32_t w, float (&f)[4]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i)
     f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + i)) - 8388736.0f;
-}
-
-// two fp32 values that are exact in bf16 -> bf16x2 (a in the low half)
-__device__ __forceinline__ uint32_t pack_exact_bf16x2(float a, float b) {
-  return __byte_perm(__float_as_uint(a), __float_as_uint(b), 0x7632);
 }
 
 // ------------------------------------------------------------------ GEMV
@@ -115,145 +123,209 @@ wint8_gemv_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict_
   }
 }
 
-// ------------------------------------------------------------ tiled GEMM
-constexpr int BM = 128, BN = 128, BK = 32, THREADS = 256;
-constexpr int LDS = BK * 2 + 16;  // bytes per shared-memory row (32 bf16 + 16 pad)
-constexpr int SMEM_BYTES = 2 * (BM + BN) * LDS;  // 40,960
+// ----------------------------------------------------------- tiled GEMM
+using namespace wg;
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+// Bytes i and i + 1 of w (sel = 0x7650 + i) -> bf16x2, the first in the low
+// half: each byte becomes an exact fp32 value (see i8x4_to_f32), whose upper
+// half is its bf16.
+__device__ __forceinline__ uint32_t widen2(uint32_t w, uint32_t sel) {
+  const uint32_t u = w ^ 0x80808080u;
+  const float lo = __uint_as_float(__byte_perm(u, 0x4B000000u, sel)) - 8388736.0f;
+  const float hi = __uint_as_float(__byte_perm(u, 0x4B000000u, sel + 1)) - 8388736.0f;
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
 }
 
-__global__ void __launch_bounds__(THREADS, 2)
-wint8_gemm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ wq,
-                  const float* __restrict__ scale, __nv_bfloat16* __restrict__ out, int M,
-                  int N, int K) {
-  __shared__ __align__(16) char smem[SMEM_BYTES];
-  char* As = smem;                  // [2][BM][LDS], bf16 x
-  char* Bs = smem + 2 * BM * LDS;   // [2][BN][LDS], bf16 widened weights
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
+template <int TN>
+struct Wint8 {
+  static constexpr int SPS = 4;                              // k16 steps a stage
+  static constexpr uint32_t X_BYTES = TN * 128;              // TN tokens x 64 bf16
+  static constexpr int X_LO = 8 * ((TN + 15) / 16);          // the tokens block 0 of a cluster loads
+  static constexpr uint32_t STAGE_BYTES = X_BYTES + 128 * 64;  // + 128 weight rows x 64 bytes
+  static constexpr uint32_t OUT_BYTES = TN * 128;            // TN tokens x a warpgroup's 64 columns
+  static constexpr int STAGES = gemm::stages_that_fit(STAGE_BYTES, OUT_BYTES);
+  using Acc = float[TN / 2];
 
-  float acc[4][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0.f;
-
-  // A: two 8-value chunks a thread (row c >> 2, column (c & 3) * 8);
-  // B: one 16-byte int8 chunk a thread (column tid >> 1, k (tid & 1) * 16)
-  uint4 ra[2], rb;
-  auto fetch = [&](int kt) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * THREADS, m = m0 + (c >> 2), k = kt * BK + (c & 3) * 8;
-      ra[i] = (m < M && k < K) ? __ldg(reinterpret_cast<const uint4*>(x + (size_t)m * K + k))
-                               : make_uint4(0, 0, 0, 0);
-    }
-    const int n = n0 + (tid >> 1), k = kt * BK + (tid & 1) * 16;
-    rb = (n < N && k < K) ? __ldg(reinterpret_cast<const uint4*>(wq + (size_t)n * K + k))
-                          : make_uint4(0, 0, 0, 0);
-  };
-  auto store = [&](int stage) {
-    char* as = As + stage * BM * LDS;
-    char* bs = Bs + stage * BN * LDS;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * THREADS;
-      *reinterpret_cast<uint4*>(as + (c >> 2) * LDS + (c & 3) * 16) = ra[i];
-    }
-    const uint32_t words[4] = {rb.x, rb.y, rb.z, rb.w};
-    uint32_t p[8];
-#pragma unroll
-    for (int w = 0; w < 4; ++w) {
-      float f[4];
-      i8x4_to_f32(words[w], f);
-      p[2 * w] = pack_exact_bf16x2(f[0], f[1]);
-      p[2 * w + 1] = pack_exact_bf16x2(f[2], f[3]);
-    }
-    char* row = bs + (tid >> 1) * LDS + (tid & 1) * 32;
-    *reinterpret_cast<uint4*>(row) = make_uint4(p[0], p[1], p[2], p[3]);
-    *reinterpret_cast<uint4*>(row + 16) = make_uint4(p[4], p[5], p[6], p[7]);
+  struct Params {
+    CUtensorMap x_lo, x_hi, w, out;  // x_lo / x_hi: the first X_LO / the other tokens of a tile
+    gemm::Walk walk;  // outer: 128-row blocks of the weight, in pairs; inner: TN-token blocks
+    const float* scale;
+    int n;
   };
 
-  const int ktiles = (K + BK - 1) / BK;
-  fetch(0);
-  store(0);
-  __syncthreads();
-  for (int kt = 0; kt < ktiles; ++kt) {
-    const int stage = kt & 1;
-    if (kt + 1 < ktiles) fetch(kt + 1);
-    const char* as = As + stage * BM * LDS;
-    const char* bs = Bs + stage * BN * LDS;
-#pragma unroll
-    for (int ks = 0; ks < BK * 2; ks += 32) {  // two k16 steps of 32 bytes
-      uint32_t af[4][4], bfr[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-        ldsm_x4(af[mi], as + (wm + mi * 16 + (lane & 15)) * LDS + ks + (lane >> 4) * 16);
-#pragma unroll
-      for (int ni = 0; ni < 4; ni += 2) {
-        uint32_t r[4];
-        ldsm_x4(r, bs + (wn + ni * 8 + (lane & 7) + ((lane >> 4) << 3)) * LDS + ks +
-                       ((lane >> 3) & 1) * 16);
-        bfr[ni][0] = r[0];
-        bfr[ni][1] = r[1];
-        bfr[ni + 1][0] = r[2];
-        bfr[ni + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], af[mi], bfr[ni]);
-    }
-    if (kt + 1 < ktiles) store(stage ^ 1);
-    __syncthreads();
+  // x: block 0 of the cluster loads the tile's first X_LO tokens, block 1 the
+  // rest, each into both blocks (their tiles share the tokens); the weight:
+  // this block's own tile.
+  __device__ static void load(const Params& p, uint32_t st, uint32_t bar, int outer, int inner,
+                              int kb, int rank) {
+    if (rank == 0)
+      tma_load_2d_multicast(st, &p.x_lo, bar, kb * gemm::BK, inner * TN, 0x3);
+    else
+      tma_load_2d_multicast(st + X_LO * 128, &p.x_hi, bar, kb * gemm::BK, inner * TN + X_LO, 0x3);
+    tma_load_2d(st + X_BYTES, &p.w, bar, kb * gemm::BK, outer * 128);
   }
 
-  // acc[mi][ni][r]: row g (r < 2) or g + 8, column 2t + (r & 1)
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int ni = 0; ni < 4; ++ni) {
-    const int n = n0 + wn + ni * 8 + 2 * t;
-    if (n >= N) continue;
-    const float s0 = scale[n], s1 = scale[n + 1];
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = m0 + wm + mi * 16 + g + 8 * h;
-        if (m >= M) continue;
-        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)m * N + n) =
-            __floats2bfloat162_rn(acc[mi][ni][2 * h] * s0, acc[mi][ni][2 * h + 1] * s1);
-      }
+  // The A fragment of k16 step s: weight rows r0 = 64 wg + 16 warp + g and
+  // r0 + 8, bytes 16 s + 2t, + 1 (registers 0, 1) and 16 s + 8 + 2t, + 1
+  // (registers 2, 3) of the stage's 64-byte rows (16-byte chunk c of row r at
+  // c ^ ((r / 2) % 4)), widened to bf16.
+  __device__ static void build(uint32_t (&a)[4], uint32_t st, int s, const Params&,
+                               const gemm::Thread& th) {
+    const uint32_t row = st + X_BYTES + (64 * th.wg + 16 * th.warp + th.g) * 64 +
+                         ((s ^ (th.g >> 1)) << 4) + 4 * (th.t >> 1);
+    const uint32_t sel = 0x7650 + 2 * (th.t & 1);
+    a[0] = widen2(lds32(row), sel);
+    a[1] = widen2(lds32(row + 512), sel);
+    a[2] = widen2(lds32(row + 8), sel);
+    a[3] = widen2(lds32(row + 512 + 8), sel);
   }
+
+  __device__ static void mma(Acc& acc, const uint32_t (&a)[4], uint32_t st, int s,
+                             int accumulate) {
+    wgmma_bf16<TN>(acc, a, smem_desc(st + 32 * s, 16, 1024), accumulate);
+  }
+
+  // The scales of this thread's two weight rows, 16 warp + g and + 8.
+  struct Pre {
+    float s0, s1;
+  };
+
+  __device__ static Pre prefetch(const Params& p, int outer, int, const gemm::Thread& th) {
+    const int n = outer * 128 + 64 * th.wg + 16 * th.warp + th.g;
+    return {n < p.n ? __ldg(p.scale + n) : 0.f, n + 8 < p.n ? __ldg(p.scale + n + 8) : 0.f};
+  }
+
+  __device__ static void stage_out(Acc& acc, const Pre& pre, uint32_t out, const Params&, int,
+                                   int, const gemm::Thread& th) {
+    const float s0 = pre.s0, s1 = pre.s1;
+    const int mi = th.lane >> 3, c = th.lane & 7;  // the matrix and row this lane addresses
+    const uint32_t chunk = 2 * th.warp + (mi & 1);
+    const auto packed = [&](int j, int rr) {
+      const float s = rr ? s1 : s0;
+      return pack_bf16(acc[4 * j + 2 * rr] * s, acc[4 * j + 2 * rr + 1] * s);
+    };
+#pragma unroll
+    for (int jj = 0; jj < TN / 16; ++jj) {
+      const uint32_t r[4] = {packed(2 * jj, 0), packed(2 * jj, 1), packed(2 * jj + 1, 0),
+                             packed(2 * jj + 1, 1)};
+      const int m = 8 * (2 * jj + (mi >> 1)) + c;
+      stmatrix4<true>(out + m * 128 + ((chunk ^ c) << 4), r);
+    }
+    if constexpr (TN % 16 != 0) {  // the last 8 tokens: matrices (j, 0), (j, 1) twice
+      constexpr int j = TN / 8 - 1;
+      const uint32_t r[4] = {packed(j, 0), packed(j, 1), packed(j, 0), packed(j, 1)};
+      const int m = 8 * j + c;
+      stmatrix4<true>(out + m * 128 + ((chunk ^ c) << 4), r);
+    }
+  }
+
+  __device__ static void store(const Params& p, uint32_t out, int outer, int inner, int wg) {
+    tma_store_2d(&p.out, out, outer * 128 + 64 * wg, inner * TN);
+  }
+};
+
+template <int TN>
+__global__ void __cluster_dims__(gemm::CLUSTER, 1, 1) __launch_bounds__(THREADS, 1)
+wint8_gemm_wgmma_kernel(const __grid_constant__ typename Wint8<TN>::Params p) {
+  gemm::run<Wint8<TN>>(p);
+}
+
+// Opts the kernel into its shared memory, once.
+template <int TN>
+cudaError_t prepare() {
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(wint8_gemm_wgmma_kernel<TN>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           int(gemm::Layout<Wint8<TN>>::BYTES));
+  return attr;
+}
+
+template <int TN>
+int max_clusters() {
+  return prepare<TN>() == cudaSuccess
+             ? gemm::max_clusters(wint8_gemm_wgmma_kernel<TN>, gemm::Layout<Wint8<TN>>::BYTES)
+             : 0;
+}
+
+template <int TN>
+int launch_wgmma(const void* x, const void* wq, const void* scale, void* out, int M, int N,
+                 int K, int grid, cudaStream_t stream) {
+  using S = Wint8<TN>;
+  const cudaError_t attr = prepare<TN>();
+  if (attr != cudaSuccess) return int(attr);
+  typename S::Params p;
+  CUresult res = make_map_2d(&p.x_lo, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, M, K, uint64_t(K) * 2,
+                             gemm::BK, S::X_LO, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (res == CUDA_SUCCESS)
+    res = make_map_2d(&p.x_hi, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, M, K, uint64_t(K) * 2,
+                      gemm::BK, TN - S::X_LO, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (res == CUDA_SUCCESS)
+    res = make_map_2d(&p.w, CU_TENSOR_MAP_DATA_TYPE_UINT8, wq, N, K, uint64_t(K), gemm::BK, 128,
+                      CU_TENSOR_MAP_SWIZZLE_64B);
+  if (res == CUDA_SUCCESS)
+    res = make_map_2d(&p.out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, out, M, N, uint64_t(N) * 2, 64,
+                      TN, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (res != CUDA_SUCCESS) return TENSOR_MAP_ERROR + int(res);
+  const int m_tiles = (M + TN - 1) / TN;  // pairs of weight blocks x token blocks
+  p.walk = {m_tiles, ((N + 127) / 128 + 1) / 2 * m_tiles, (K + gemm::BK - 1) / gemm::BK, 0};
+  p.scale = static_cast<const float*>(scale);
+  p.n = N;
+  wint8_gemm_wgmma_kernel<TN><<<grid, THREADS, gemm::Layout<S>::BYTES, stream>>>(p);
+  return int(cudaGetLastError());
 }
 
 }  // namespace
 
-// Returns the cudaError_t of the launch (0 on success).
+// x (M, K) bf16, wq (N, K) int8, scale (N,) fp32, out (M, N) bf16, all
+// contiguous and 16-byte aligned; K % 16 == 0, N % 8 == 0. M == 1 runs the
+// GEMV; any other M the tiled path at a token tile of `tile` (64, 128, 152,
+// 208 or 256) with `grid` blocks (ops/gemm_tiles.py picks both). Returns the
+// cudaError_t of the launch (0 on success), or 10000 + the CUresult of a
+// tensor map that libcuda refused.
 extern "C" int wint8_gemm_bf16(const void* x, const void* wq, const void* scale, void* out,
-                               int M, int N, int K, void* stream) {
+                               int M, int N, int K, int tile, int grid, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
-  const int8_t* w = static_cast<const int8_t*>(wq);
-  const float* sc = static_cast<const float*>(scale);
-  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
   if (M == 0) return 0;
+  if (K % 16 != 0 || N % 8 != 0) return int(cudaErrorInvalidValue);
   if (M == 1) {
     const int cols = GV_WARPS * GV_COLS;
-    wint8_gemv_kernel<<<(N + cols - 1) / cols, GV_WARPS * 32, 0, s>>>(xb, w, sc, o, N, K);
-    return cudaGetLastError();
+    wint8_gemv_kernel<<<(N + cols - 1) / cols, GV_WARPS * 32, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(wq),
+        static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(out), N, K);
+    return int(cudaGetLastError());
   }
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  wint8_gemm_kernel<<<grid, THREADS, 0, s>>>(xb, w, sc, o, M, N, K);
-  return cudaGetLastError();
+  if (grid < 1 || grid % gemm::CLUSTER != 0) return int(cudaErrorInvalidValue);
+  switch (tile) {
+    case 64: return launch_wgmma<64>(x, wq, scale, out, M, N, K, grid, s);
+    case 128: return launch_wgmma<128>(x, wq, scale, out, M, N, K, grid, s);
+    case 152: return launch_wgmma<152>(x, wq, scale, out, M, N, K, grid, s);
+    case 208: return launch_wgmma<208>(x, wq, scale, out, M, N, K, grid, s);
+    case 256: return launch_wgmma<256>(x, wq, scale, out, M, N, K, grid, s);
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
+// The dynamic shared memory of a tiled block at a token tile of `tile` (0 if not compiled).
+extern "C" int wint8_gemm_smem(int tile) {
+  switch (tile) {
+    case 64: return int(gemm::Layout<Wint8<64>>::BYTES);
+    case 128: return int(gemm::Layout<Wint8<128>>::BYTES);
+    case 152: return int(gemm::Layout<Wint8<152>>::BYTES);
+    case 208: return int(gemm::Layout<Wint8<208>>::BYTES);
+    case 256: return int(gemm::Layout<Wint8<256>>::BYTES);
+    default: return 0;
+  }
+}
+
+// The 2-block clusters of the tiled path at a token tile of `tile` that fit
+// on the card at once.
+extern "C" int wint8_gemm_max_clusters(int tile) {
+  switch (tile) {
+    case 64: return max_clusters<64>();
+    case 128: return max_clusters<128>();
+    case 152: return max_clusters<152>();
+    case 208: return max_clusters<208>();
+    case 256: return max_clusters<256>();
+    default: return 0;
+  }
 }

@@ -6,11 +6,12 @@ recorded once, see ops/quant.py), weights per output channel; both sides are
 int8, products are summed exactly in int32, and the dequant (x sx * sw[o]) and
 the bias run in fp32 in the epilogue.
 
-`int8_a8w8_matmul` launches `csrc/int8_gemm.cu` (B2) and `int8_conv3x3_same`
-launches `csrc/int8_conv3x3.cu` (B3) for CUDA tensors; CPU tensors run the
-plain versions `*_ref`. The weights come in already quantized (the port
-quantizes them once, when the scales are loaded), in the layouts the kernels
-read:
+`int8_a8w8_matmul` launches `csrc/int8_gemm.cu` (B2, the wgmma core of
+`csrc/gemm_wg.cuh` at the tile plan of `ops/gemm_tiles.py`) and
+`int8_conv3x3_same` launches `csrc/int8_conv3x3.cu` (B3) for CUDA tensors;
+CPU tensors run the plain versions `*_ref`. The weights come in already
+quantized (the port quantizes them once, when the scales are loaded), in the
+layouts the kernels read:
   - matmul: wq (N, K) int8, K-contiguous per output column (nn.Linear's layout);
   - 3x3 conv: wq (O, 3, 3, C) int8, so that row o is (tap, channel)-major,
     tap = 3 * dh + dw, which is the K = 9 * C order of the implicit GEMM.
@@ -34,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from .autograd import refuse_grad
+from .gemm_tiles import A8W8_TILES, BK, a8w8_plan, max_clusters
 
 _MAX_GRID_Y = 65535  # row tiles of 128 go on gridDim.y
 
@@ -82,15 +84,55 @@ def int8_a8w8_matmul_ref(x, wq, sw, sx: float, bias=None):
     return _dequant(acc, sw, sx, bias).to(x.dtype).reshape(*x.shape[:-1], wq.shape[0])
 
 
+def int8_a8w8_matmul_tiled_ref(x, wq, sw, sx: float, bias=None, plan=None):
+    """The plain version, on the CPU, walked as the B2 kernel walks it at
+    `plan` (by default `a8w8_plan` on an H100): per tile, int32 sums stage by
+    stage over 64-deep K blocks of zero-padded operands (TMA's zero fill past
+    M, N and K), the fp32 epilogue, and the store clipped to (M, N).
+    Bit-exact with `int8_a8w8_matmul_ref`."""
+    k, n = x.shape[-1], wq.shape[0]
+    xq = quantize_int8(x.reshape(-1, k), sx)
+    plan = plan or a8w8_plan(xq.shape[0], n, k)
+    kp = plan.k_blocks * BK
+    xq = F.pad(xq.int(), (0, kp - k, 0, plan.outer_tiles * 128 - xq.shape[0]))
+    wp = F.pad(wq.int(), (0, kp - k, 0, plan.inner_tiles * plan.tile - n))
+    scale = F.pad(sw.float(), (0, wp.shape[0] - n)) * sx
+    bias_p = None if bias is None else F.pad(bias.float(), (0, wp.shape[0] - n))
+    out = torch.empty((plan.m, n), dtype=torch.float32)
+    for block in plan.walk():
+        for outer, inner in block:
+            if not plan.in_range(outer, inner):
+                continue
+            rows = slice(outer * 128, outer * 128 + 128)
+            cols = slice(inner * plan.tile, (inner + 1) * plan.tile)
+            acc = torch.zeros((128, plan.tile), dtype=torch.int32)
+            for kb in range(plan.k_blocks):
+                ks = slice(kb * BK, (kb + 1) * BK)
+                acc += xq[rows, ks] @ wp[cols, ks].t()
+            v = acc.float() * scale[cols]
+            if bias_p is not None:
+                v = v + bias_p[cols]
+            r, c = plan.region(outer, inner)
+            out[r, c] = v[:r.stop - r.start, :c.stop - c.start]
+    return out.to(x.dtype).reshape(*x.shape[:-1], n)
+
+
 @functools.lru_cache(maxsize=None)
-def _gemm_fn():
+def _gemm_lib():
     from ..kernels import load_library
 
-    fn = load_library("int8_gemm").int8_gemm_bf16
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    lib = load_library("int8_gemm")
+    lib.int8_gemm_bf16.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
+        + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    lib.int8_gemm_bf16.restype = ctypes.c_int
+    lib.int8_gemm_smem.argtypes = [ctypes.c_int]
+    lib.int8_gemm_smem.restype = ctypes.c_int
+    return lib
+
+
+def gemm_smem_bytes(tile: int) -> int:
+    """Dynamic shared memory of a B2 block at an N tile of `tile`."""
+    return _gemm_lib().int8_gemm_smem(tile)
 
 
 def _check_operand(fn, name, t, device, dtype, shape):
@@ -122,7 +164,7 @@ def _raise_on(err, name):
         raise RuntimeError(f"{name} launch failed with cudaError {err}")
 
 
-def _int8_gemm_cuda(x, wq, sw, sx, bias):
+def _int8_gemm_cuda(x, wq, sw, sx, bias, tiles=A8W8_TILES):
     k = x.shape[-1]
     n = wq.shape[0]
     x2 = x.reshape(-1, k)
@@ -135,11 +177,14 @@ def _int8_gemm_cuda(x, wq, sw, sx, bias):
         raise ValueError(f"int8_a8w8_matmul kernel takes K % 16 == 0, N % 8 == 0 and "
                          f"M <= {128 * _MAX_GRID_Y}, got M={m} K={k} N={n}")
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    plan = a8w8_plan(m, n, k, max_clusters("int8_gemm", "int8_gemm_max_clusters", A8W8_TILES,
+                                           x.device.index), tiles)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _gemm_fn()(x2.data_ptr(), wq.data_ptr(), sw.data_ptr(),
-                         0 if bias is None else bias.data_ptr(), out.data_ptr(),
-                         m, n, k, float(sx), 1.0 / sx, stream)
+        err = _gemm_lib().int8_gemm_bf16(x2.data_ptr(), wq.data_ptr(), sw.data_ptr(),
+                                         0 if bias is None else bias.data_ptr(), out.data_ptr(),
+                                         m, n, k, float(sx), 1.0 / sx, plan.tile, plan.grid,
+                                         stream)
     _raise_on(err, "int8_gemm_bf16")
     int8_a8w8_matmul.launches += 1
     return out.reshape(*x.shape[:-1], n)

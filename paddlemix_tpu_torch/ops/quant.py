@@ -39,6 +39,7 @@ import functools
 from typing import List, Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..models.layers import Conv2d, Linear
@@ -50,6 +51,7 @@ from .conv_int8 import (
     int8_conv3x3_same,
     quantize_weight_per_cout,
 )
+from .gemm_tiles import BK, WINT8_TILES, max_clusters, wint8_plan
 
 _RECORDING: Optional["static_a8w8_scope"] = None
 
@@ -212,8 +214,9 @@ def load_static_scales(modules: Sequence[_StaticQuant], raw: Sequence[float]):
 # The weight is kept (N, K), K-contiguous per output column (nn.Linear's
 # layout); the JAX package keeps the flax kernel's (K, N).
 #
-# `wint8_matmul` launches `csrc/wint8_gemm.cu` (B6) for CUDA tensors and runs
-# `wint8_matmul_ref` for CPU tensors.
+# `wint8_matmul` launches `csrc/wint8_gemm.cu` (B6: a GEMV at M = 1, else the
+# wgmma core of `csrc/gemm_wg.cuh` at the tile plan of `ops/gemm_tiles.py`)
+# for CUDA tensors and runs `wint8_matmul_ref` for CPU tensors.
 
 def quantize_weights_int8(w):
     """w: (N, K), one row per output column -> (int8 (N, K), (N,) fp32
@@ -241,14 +244,52 @@ def wint8_matmul_ref(x, wq, scale):
     return out.to(x.dtype).reshape(*x.shape[:-1], n)
 
 
+def wint8_matmul_tiled_ref(x, wq, scale, plan=None):
+    """The plain version, on the CPU, walked as B6's tiled path walks it at
+    `plan` (by default `wint8_plan` on an H100; M > 1): per tile the swapped
+    product out^T = Wq x^T of 128 weight rows by the plan's tokens, fp32 sums
+    stage by stage over 64-deep K blocks of zero-padded operands (TMA's zero
+    fill), scaled per weight row, transposed and stored clipped to (M, N). It
+    differs from `wint8_matmul_ref` by the order of the fp32 sums only."""
+    k, n = x.shape[-1], wq.shape[0]
+    xb = x.reshape(-1, k).to(torch.bfloat16).float()
+    plan = plan or wint8_plan(xb.shape[0], n, k)
+    kp = plan.k_blocks * BK
+    xb = F.pad(xb, (0, kp - k, 0, plan.inner_tiles * plan.tile - xb.shape[0]))
+    wp = F.pad(wq.float(), (0, kp - k, 0, plan.outer_tiles * 128 - n))
+    sc = F.pad(scale.float(), (0, wp.shape[0] - n))
+    out = torch.empty((plan.m, n), dtype=torch.float32)
+    for block in plan.walk():
+        for outer, inner in block:
+            if not plan.in_range(outer, inner):
+                continue
+            w_rows = slice(outer * 128, outer * 128 + 128)
+            tokens = slice(inner * plan.tile, (inner + 1) * plan.tile)
+            acc = torch.zeros((128, plan.tile), dtype=torch.float32)
+            for kb in range(plan.k_blocks):
+                ks = slice(kb * BK, (kb + 1) * BK)
+                acc += wp[w_rows, ks] @ xb[tokens, ks].t()
+            r, c = plan.region(outer, inner)
+            out[r, c] = (acc * sc[w_rows, None]).t()[:r.stop - r.start, :c.stop - c.start]
+    return out.to(x.dtype).reshape(*x.shape[:-1], n)
+
+
 @functools.lru_cache(maxsize=None)
-def _wint8_fn():
+def _wint8_lib():
     from ..kernels import load_library
 
-    fn = load_library("wint8_gemm").wint8_gemm_bf16
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    lib = load_library("wint8_gemm")
+    lib.wint8_gemm_bf16.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
+        + [ctypes.c_void_p]
+    lib.wint8_gemm_bf16.restype = ctypes.c_int
+    lib.wint8_gemm_smem.argtypes = [ctypes.c_int]
+    lib.wint8_gemm_smem.restype = ctypes.c_int
+    return lib
+
+
+def wint8_smem_bytes(tile: int) -> int:
+    """Dynamic shared memory of a B6 tiled block at a token tile of `tile`."""
+    return _wint8_lib().wint8_gemm_smem(tile)
 
 
 def wint8_kernel_takes(m: int, k: int, n: int) -> bool:
@@ -257,7 +298,7 @@ def wint8_kernel_takes(m: int, k: int, n: int) -> bool:
     return k % 16 == 0 and n % 8 == 0 and 0 < -(-m // 128) <= 65535
 
 
-def _wint8_cuda(x, wq, scale):
+def _wint8_cuda(x, wq, scale, tiles=WINT8_TILES):
     k, n = x.shape[-1], wq.shape[0]
     m = x.numel() // k
     for name, t, dtype, shape in (("wq", wq, torch.int8, (n, k)),
@@ -273,9 +314,14 @@ def _wint8_cuda(x, wq, scale):
                          f"with K % 16 == 0 and N % 8 == 0, got {x.dtype} {tuple(x.shape)} "
                          f"(strides {x.stride()}) and N = {n}")
     out = torch.empty((*x.shape[:-1], n), dtype=x.dtype, device=x.device)
+    plan = None if m == 1 else wint8_plan(
+        m, n, k, max_clusters("wint8_gemm", "wint8_gemm_max_clusters", WINT8_TILES,
+                              x.device.index), tiles)
     with torch.cuda.device(x.device):
-        err = _wint8_fn()(x.data_ptr(), wq.data_ptr(), scale.data_ptr(), out.data_ptr(),
-                          m, n, k, torch.cuda.current_stream(x.device).cuda_stream)
+        err = _wint8_lib().wint8_gemm_bf16(
+            x.data_ptr(), wq.data_ptr(), scale.data_ptr(), out.data_ptr(), m, n, k,
+            0 if plan is None else plan.tile, 0 if plan is None else plan.grid,
+            torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"wint8_gemm_bf16 launch failed with cudaError {err}")
     wint8_matmul.launches += 1

@@ -19,6 +19,7 @@ import torch
 
 from paddlemix_tpu_torch.ops import conv_int8 as tci
 from paddlemix_tpu_torch.ops import fused_resnet as tfr
+from paddlemix_tpu_torch.ops.gemm_tiles import A8W8_TILES
 from paddlemix_tpu_torch.ops.quant import QuantConv2d, QuantLinear, conv_route, static_scale
 
 pytestmark = pytest.mark.torch_port
@@ -280,14 +281,21 @@ def test_int8_kernels_match_plain_versions_on_gpu(monkeypatch):
             mp.setattr(tfr, "quantize_int8", unquantized)
             assert bf16_ulps(plain(), out) > 1.0
 
-    # (100, 48, 24) has a ragged M and K below one tile
-    for m, k, n in [(154, 2048, 1280), (300, 640, 320), (100, 48, 24)]:
+    # (100, 48, 24) has a ragged M and K below one tile; (1000, 1296, 1288) a
+    # ragged M, N = 8 mod 16 and K no multiple of the 64-deep stage, run at
+    # every compiled tile width
+    for m, k, n in [(154, 2048, 1280), (300, 640, 320), (100, 48, 24), (1000, 1296, 1288)]:
         x = torch.randn((m, k), generator=gen, device=dev).to(bf16)
         wq, sw = tci.quantize_weight_per_cout(torch.randn((n, k), generator=gen, device=dev))
         bias = torch.randn(n, generator=gen, device=dev)
         sx = static_scale(x.float().abs().max().item())
         check(lambda: tci.int8_a8w8_matmul(x, wq, sw, sx, bias),
               lambda: tci.int8_a8w8_matmul_ref(x, wq, sw, sx, bias), tci.int8_a8w8_matmul)
+        if m == 1000:
+            for tile in A8W8_TILES:
+                check(lambda: tci._int8_gemm_cuda(x, wq, sw, sx, bias, tiles=(tile,)),
+                      lambda: tci.int8_a8w8_matmul_ref(x, wq, sw, sx, bias),
+                      tci.int8_a8w8_matmul)
     for b, h, w, c, o in [(2, 16, 16, 320, 640), (1, 9, 13, 16, 8)]:
         x = torch.randn((b, h, w, c), generator=gen, device=dev).to(bf16)
         wq, sw = tci.quantize_weight_per_cout(torch.randn((o, c, 3, 3), generator=gen,

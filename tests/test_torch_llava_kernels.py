@@ -23,6 +23,7 @@ from paddlemix_tpu_torch.ops import decode_attention as tda
 from paddlemix_tpu_torch.ops import norms as tnorms
 from paddlemix_tpu_torch.ops import quant as tquant
 from paddlemix_tpu_torch.ops import rope as trope
+from paddlemix_tpu_torch.ops.gemm_tiles import WINT8_TILES
 
 pytestmark = pytest.mark.torch_port
 
@@ -238,15 +239,23 @@ def test_llava_kernels_match_plain_versions_on_gpu():
         return out
 
     # B6: the GEMV path (M = 1) and the tiled path, ragged M, N not a
-    # multiple of the 128-wide tile, K not a multiple of the 32-deep K tile
-    for m, k, n in [(1, 4096, 4096), (3, 1008, 200), (5, 4096, 11008), (130, 11008, 264)]:
+    # multiple of the 128-wide tile, K not a multiple of the 64-deep stage;
+    # (77, 4112, 4104) also at every compiled token tile
+    for m, k, n in [(1, 4096, 4096), (3, 1008, 200), (5, 4096, 11008), (130, 11008, 264),
+                    (77, 4112, 4104)]:
         x = torch.randn((m, k), generator=gen, device=dev).to(bf16)
         wq, scale = tquant.quantize_weights_int8(torch.randn((n, k), generator=gen, device=dev))
-        out = counted(tquant.wint8_matmul, x, wq, scale)
         ref = tquant.wint8_matmul_ref(x, wq, scale).float()
         # fp32 sums of exact products in another order, then one bf16 rounding
         limit = 2.0 ** -7 * ref.abs() + 1e-5 * ref.abs().max()
-        assert ((out.float() - ref).abs() <= limit).all(), (m, k, n)
+        runs = [lambda: counted(tquant.wint8_matmul, x, wq, scale)]
+        if m == 77:
+            runs += [lambda t=t: tquant._wint8_cuda(x, wq, scale, tiles=(t,))
+                     for t in WINT8_TILES]
+        for run in runs:
+            out = run()
+            torch.cuda.synchronize()
+            assert ((out.float() - ref).abs() <= limit).all(), (m, k, n)
 
     # B7: head dims 64 and 128, every group size, a strided cache slice, a
     # length past L (clamped) and a length of 0 (zeros, like the TPU kernel)

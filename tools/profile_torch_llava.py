@@ -9,7 +9,9 @@ placeholders + 32 text ids, one 336 px image, 128 new tokens, no eos. Prints
 the card's nvidia-smi name and power limit, device kernel time by category
 (the slice's three kernels by name, cuBLAS GEMMs, softmax, the rest), the top
 kernels, the launches per token, and the busy share = device kernel time of
-the profiled request / wall time of the unprofiled one.
+the profiled request / wall time of the unprofiled one; then the prefill
+alone (a 1-token request, its unprofiled time the TTFT) under the profiler:
+device time by category, the wint8 GEMM's (B6) share among them.
 
 Usage (from the root of a checkout, on a machine with a CUDA card):
     python3 tools/profile_torch_llava.py
@@ -90,6 +92,19 @@ def main():
             print(f"[{label}]   {name:34s} {us / 1e3:9.1f} ms {100 * us / total:5.1f}%")
         for us, count, key in sorted(top, reverse=True)[:15]:
             print(f"[{label}]     {us / 1e3:9.1f} ms x{count:6d} {key}")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            request(1)
+        ttft = request(1)
+        pre = {}
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+                pre[category(e.key)] = pre.get(category(e.key), 0.0) + e.self_device_time_total
+        pre_total = sum(pre.values())
+        print(f"[{label}] prefill (a 1-token request): TTFT {1e3 * ttft:.1f} ms unprofiled, "
+              f"device kernel time {pre_total / 1e3:.1f} ms, busy share "
+              f"{pre_total / 1e6 / ttft:.3f}")
+        for name, us in sorted(pre.items(), key=lambda kv: -kv[1]):
+            print(f"[{label}]   prefill {name:34s} {us / 1e3:9.1f} ms {100 * us / pre_total:5.1f}%")
 
 
 if __name__ == "__main__":

@@ -8,7 +8,10 @@ requests, one request under torch.profiler (CUDA activity), one unprofiled
 request. Prints the card's nvidia-smi name and power limit, device kernel
 time by category (the port's five kernels by name, cuBLAS/cuDNN, LayerNorm,
 softmax, the rest), the top kernels, and the busy share = device kernel time
-of the profiled request / wall time of the unprofiled one.
+of the profiled request / wall time of the unprofiled one; then, for a8w8,
+the int8 GEMM's (B2) device ms in one more profiled request by its (M, K, N):
+the kernels, in the order they ran, paired with the calls' shapes in the
+order they were made.
 
 Usage (from the root of a checkout, on a machine with a CUDA card):
     python3 tools/profile_torch_sdxl.py
@@ -46,6 +49,39 @@ def category(kernel_name: str) -> str:
     if "softmax" in n:
         return "softmax"
     return "elementwise / copies / reductions"
+
+
+def b2_by_shape(torch, run):
+    """{(M, K, N): (device ms, calls)} of the int8 GEMM in `run()`: its
+    kernels under the profiler, in the order they ran, paired with the calls'
+    shapes in the order they were made (one stream: the same order)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddlemix_tpu_torch.ops import quant
+
+    shapes = []
+    kernel = quant.int8_a8w8_matmul
+
+    def recorded(x, wq, sw, sx, bias=None):
+        shapes.append((x.numel() // x.shape[-1], x.shape[-1], wq.shape[0]))
+        return kernel(x, wq, sw, sx, bias)
+
+    quant.int8_a8w8_matmul = recorded
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+    finally:
+        quant.int8_a8w8_matmul = kernel
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA and "int8_gemm" in e.name),
+                     key=lambda e: e.time_range.start)
+    if len(kernels) != len(shapes):
+        raise SystemExit(f"profile_torch_sdxl: {len(kernels)} B2 kernels for {len(shapes)} calls")
+    by_shape = {}
+    for shape, e in zip(shapes, kernels):
+        ms, n = by_shape.get(shape, (0.0, 0))
+        by_shape[shape] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    return by_shape
 
 
 def main():
@@ -90,6 +126,13 @@ def main():
             print(f"[{label}]   {name:34s} {us / 1e3:9.1f} ms {100 * us / total:5.1f}%")
         for us, count, key in sorted(top, reverse=True)[:18]:
             print(f"[{label}]     {us / 1e3:9.1f} ms x{count:6d} {key}")
+        if label == "a8w8":
+            by_shape = b2_by_shape(torch, lambda: request(5))
+            total_ms = sum(ms for ms, _ in by_shape.values())
+            print(f"[a8w8] B2 by (M, K, N), one request: {total_ms:.1f} ms in "
+                  f"{sum(n for _, n in by_shape.values())} calls")
+            for shape, (ms, n) in sorted(by_shape.items(), key=lambda kv: -kv[1][0]):
+                print(f"[a8w8]   {str(shape):22s} {ms:8.1f} ms x{n:5d} ({ms / n:.4f} ms a call)")
 
 
 if __name__ == "__main__":
