@@ -59,7 +59,13 @@ Phases:
                    each B2 case with its core and tile plan
                    (csrc/gemm_wg.cuh, ops/gemm_tiles.py), ptxas counts,
                    shared memory, TOP/s, and torch._int_mm on x quantized
-                   beforehand beside bf16 torch.matmul
+                   beforehand beside bf16 torch.matmul; the int8 convs (B3,
+                   B5) also at a ragged (1, 50, 100, 80 -> 200) and (1, 50,
+                   100, 96 -> 200), each case with its core and tile plan
+                   (ops/gemm_tiles.py conv_plan), ptxas counts, shared memory,
+                   TOP/s and its parts' times (the activation pass, the conv,
+                   for B5 the GroupNorm statistics), B5 with cuDNN's bf16
+                   F.conv2d of the same conv beside it
   4. agree         one full-width bf16 UNet forward at a small latent, kernels
                    vs plain
   5. serve         3 bf16 requests, 1024x1024, 25 Euler steps, guidance 5.0;
@@ -290,10 +296,17 @@ GEMM_SHAPES = [(8192, 640, 5120), (2048, 1280, 10240), (2048, 5120, 1280), (154,
 # the 64-deep stage
 GEMM_RAGGED = (1000, 1296, 1288)
 # (B, H, W, C) of the int8 3x3 conv (C -> C): the UNet's and the VAE's up-sample convs
-CONV_SHAPES = [(2, 64, 64, 1280), (1, 512, 512, 512), (1, 1024, 1024, 256)]
-# ((B, H, W, C), O, epilogue) of the fused resnet conv
+CONV_SHAPES = [(2, 64, 64, 1280), (2, 128, 128, 640), (1, 512, 512, 512), (1, 1024, 1024, 256)]
+# (B, H, W, C, O) of a ragged one: W no power of two, B*H*W no multiple of the
+# 128-pixel tile, C no multiple of the 64-channel stage, O = 8 mod 16
+CONV_RAGGED = (1, 50, 100, 80, 200)
+# ((B, H, W, C), O, epilogue) of the fused resnet conv: the UNet's at each
+# resolution (1280 at 32x32, 320 at 128x128 and 640 at 64x64 carry the most
+# B5 time), and the VAE's widest map
 FUSED_CASES = [((2, 128, 128, 320), 320, None), ((2, 32, 32, 2560), 1280, "temb"),
-               ((2, 32, 32, 1280), 1280, "residual"), ((1, 1024, 1024, 128), 128, None)]
+               ((2, 32, 32, 1280), 1280, "residual"), ((2, 64, 64, 640), 640, "residual"),
+               ((1, 1024, 1024, 128), 128, None)]
+FUSED_RAGGED = ((1, 50, 100, 96), 200, "residual")  # as CONV_RAGGED (C divisible by 32 groups)
 # B1: bf16 P and output against the fp32 plain version, per element:
 # |out - ref| <= 2**-7 |ref| (the output's rounding) + FLASH_SUM |ref|max (P's
 # rounding); the run prints the least c each shape needs. The plain version
@@ -610,6 +623,30 @@ def gemm_note(label, name, kind, shape, ms, ops, unit, extra=None):
     print(f"[{label}]   {name} {shape}: core {core} ({note}) | {ops / ms / 1e9:.1f} {unit} "
           f"of the bound's {ops:.4g} operations" + (f" | {extra}" if extra else ""), flush=True)
     return dict(core=core, tflops=ops / ms / 1e9)
+
+
+def conv_note(label, name, shape, ms, ops, parts, extra=None):
+    """Print the core, tile plan (ops/gemm_tiles.py conv_plan), ptxas counts,
+    shared memory and rate of one B3 / B5 case at (B, H, W, C, O), and the
+    times of its parts: the activation pass, the conv, and for B5 the
+    GroupNorm statistics (`parts`: {part: ms})."""
+    from paddlemix_tpu_torch.ops import conv_int8, gemm_tiles
+
+    b_, h_, w_, c_, o_ = shape
+    clusters = gemm_tiles.max_clusters("int8_conv3x3", "conv3x3_max_clusters",
+                                       gemm_tiles.CONV_TILES, 0)
+    plan = gemm_tiles.conv_plan(b_, h_, w_, c_, o_, clusters)
+    regs, spills = ptxas_counts(
+        "int8_conv3x3", f"conv3x3_wgmma_kernelILi{plan.tile}ELi{plan.pixels // 128}E")
+    print(f"[{label}]   {name} {shape}: core wgmma SS (tiles of {plan.tw} x {plan.th} pixels by "
+          f"{plan.tile} columns, {plan.outer_tiles} x {plan.inner_tiles}, clusters pairing "
+          f"{'column' if plan.pair_inner else 'pixel'} tiles, {plan.grid} blocks "
+          f"({clusters[(plan.tile, plan.pixels)]} clusters fit at once), {plan.k_blocks} stages "
+          f"a tile; ptxas {regs} registers at entry (setmaxnreg: 232 a consumer thread, 40 a "
+          f"producer), {spills}; {conv_int8.conv_smem_bytes(plan.tile, plan.pixels):,} bytes of "
+          f"dynamic shared memory a block) | {ops / ms / 1e9:.1f} TOP/s of the bound's "
+          f"{ops:.4g} operations | parts: " + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items())
+          + (f" | {extra}" if extra else ""), flush=True)
 
 
 def bwd_core(d):
@@ -2334,27 +2371,32 @@ def main():
                                           times[1], 2 * m * n * k, "TOP/s",
                                           f"torch._int_mm {int_mm:.3f} ms"))
         del x, wf, wq, w16, out, xq
-    for shape in CONV_SHAPES:
-        b_, h_, w_, c = shape
-        x = torch.randn(shape, generator=gen, device=dev).to(bf16)
-        wf = torch.randn((c, c, 3, 3), generator=gen, device=dev) * (9 * c) ** -0.5
+    for shape in [s_ + (s_[-1],) for s_ in CONV_SHAPES] + [CONV_RAGGED]:
+        b_, h_, w_, c, o = shape
+        x = torch.randn(shape[:4], generator=gen, device=dev).to(bf16)
+        wf = torch.randn((o, c, 3, 3), generator=gen, device=dev) * (9 * c) ** -0.5
         wq, sw = ci.quantize_weight_per_cout(wf)
         wq = ci.conv3x3_weight_layout(wq)
-        bias = 0.1 * torch.randn(c, generator=gen, device=dev)
+        bias = 0.1 * torch.randn(o, generator=gen, device=dev)
         sx = quant_mod.static_scale(x.float().abs().max().item())
         # cuDNN's bf16 conv over the same channels_last map, the dequantized weight
         x_nchw = x.permute(0, 3, 1, 2)
         w16 = wf.to(bf16).contiguous(memory_format=torch.channels_last)
         b16 = bias.to(bf16)
-        ops = 2 * b_ * h_ * w_ * c * 9 * c
-        out, *times = int8_case("int8_conv3x3_same", shape,
+        ops = 2 * b_ * h_ * w_ * c * 9 * o
+        label = shape[:4] if o == c else shape
+        out, *times = int8_case("int8_conv3x3_same", label,
                                 lambda: ci.int8_conv3x3_same(x, wq, sw, sx, bias),
                                 lambda: ci.int8_conv3x3_same_ref(x, wq, sw, sx, bias),
                                 lambda: F.conv2d(x_nchw, w16, b16, padding=1))
-        record("kernels", "int8_conv3x3_same", shape, *times,
+        record("kernels", "int8_conv3x3_same", label, *times,
                bound(nbytes(x, wq, sw, bias, out), ops, "int8"))
-        del x, wf, wq, w16, out, x_nchw
-    for shape, o, epi in FUSED_CASES:
+        xq = ci.conv3x3_act_quant(x, sx)
+        conv_note("kernels", "int8_conv3x3_same", shape, times[1], ops, {
+            "activation pass": cuda_ms(torch, lambda: ci.conv3x3_act_quant(x, sx)),
+            "conv": cuda_ms(torch, lambda: ci.conv3x3_gemm(xq, wq, sw, sx, bias))})
+        del x, wf, wq, w16, out, x_nchw, xq
+    for shape, o, epi in FUSED_CASES + [FUSED_RAGGED]:
         b_, h, w_, c = shape
         x = torch.randn(shape, generator=gen, device=dev).to(bf16)
         gamma = 1.0 + 0.1 * torch.randn(c, generator=gen, device=dev)
@@ -2379,7 +2421,21 @@ def main():
         record("kernels", "fused_gn_silu_conv3x3", shape + (o,), *times,
                bound(nbytes(x, gamma, beta, wq, sw, bias, out, *kw.values()), ops, "int8"),
                f" {epi or 'bias only'}")
-        del x, wf, wq, kw, out
+        # the nearest yardstick: cuDNN's bf16 conv of the same map (no norm,
+        # no quantize), over the channels_last map and the dequantized weight
+        x_nchw = x.permute(0, 3, 1, 2)
+        w16 = wf.to(bf16).contiguous(memory_format=torch.channels_last)
+        cudnn = library_ms(torch, lambda: F.conv2d(x_nchw, w16, bias.to(bf16), padding=1))
+        stats = norms_mod.group_norm_stats(x, 32, 1e-5)
+        xq = ci.conv3x3_act_quant(x, sx, stats, gamma, beta, 32)
+        conv_note("kernels", "fused_gn_silu_conv3x3", shape + (o,), times[1], ops, {
+            "GroupNorm statistics (B4)": cuda_ms(
+                torch, lambda: norms_mod.group_norm_stats(x, 32, 1e-5)),
+            "activation pass": cuda_ms(
+                torch, lambda: ci.conv3x3_act_quant(x, sx, stats, gamma, beta, 32)),
+            "conv": cuda_ms(torch, lambda: ci.conv3x3_gemm(xq, wq, sw, sx, bias, **kw))},
+            f"cuDNN bf16 F.conv2d of the same conv {cudnn:.3f} ms")
+        del x, wf, wq, kw, out, x_nchw, w16, xq
 
     # ---------------------------------------------------------------- models
     t0 = time.perf_counter()

@@ -74,8 +74,8 @@
 // plain version (ops/attention.py `quantize_rows_int8`): a = max(max|x|,
 // 1e-9), x8 = clip(rint(x * (127 / a)), +-127), q's scale (a / 127) *
 // scale_log2, k's a / 127. S is summed exactly in int32 on the tensor cores
-// by mma.sync m16n8k32 s8.s8.s32 (the fragment scheme of csrc/int8_mma.cuh,
-// which B2 / B3 / B5 use) and dequantized row by row, s = (s32 * sq) * sk,
+// by mma.sync m16n8k32 s8.s8.s32 (fragments by ldmatrix.x4, below) and
+// dequantized row by row, s = (s32 * sq) * sk,
 // so the scores equal the plain version's bit for bit; the softmax and the
 // bf16 P V are B1's. Quantizing inside the block needs no pass over q / k in
 // device memory; k tiles are quantized again by each query block, which is
@@ -200,8 +200,9 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
 
 // S = Q8 K8^T for one warp's 16 query rows against the 64 keys of the tile,
 // exact in int32, then s = (s32 * sq[row]) * sk[col] into the warp's rows of
-// sS. Fragments come by ldmatrix.x4 from the int8 rows, as in
-// csrc/int8_mma.cuh: A rows (lane & 15) at byte ks + 16 (lane >> 4); one B
+// sS. Fragments come by ldmatrix.x4 from the int8 rows (a row of 16 bytes
+// is 8 b16 pairs, so lane l receives bytes 4 (l % 4) .. + 3 of row l / 4):
+// A rows (lane & 15) at byte ks + 16 (lane >> 4); one B
 // load covers the two k halves of two 8-key tiles. Accumulator register r of
 // tile ni holds row g (r < 2) or g + 8, key ni * 8 + 2t + (r & 1), with g =
 // lane / 4 and t = lane % 4.

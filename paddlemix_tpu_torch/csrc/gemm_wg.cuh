@@ -1,36 +1,43 @@
-// The shared wgmma GEMM core of the int8 a8w8 GEMM (csrc/int8_gemm.cu, B2)
-// and the weight-only int8 GEMM's tiled path (csrc/wint8_gemm.cu, B6): both
-// multiply by an int8 weight (N, K), K-contiguous, and both convert one
-// operand in registers on its way to the tensor cores (B2 quantizes bf16 x to
-// s8, B6 widens the s8 weight to bf16), so both feed `wgmma` its A operand
-// from registers and its B operand from shared memory by descriptor (the RS
-// form).
+// The shared wgmma GEMM core of the int8 a8w8 GEMM (csrc/int8_gemm.cu, B2),
+// the weight-only int8 GEMM's tiled path (csrc/wint8_gemm.cu, B6) and the
+// int8 3x3 convs' implicit GEMM (csrc/int8_conv3x3.cu, B3 and B5). All
+// multiply by an int8 weight, K-contiguous. B2 and B6 convert one operand in
+// registers on its way to the tensor cores (B2 quantizes bf16 x to s8, B6
+// widens the s8 weight to bf16), so they feed `wgmma` its A operand from
+// registers and its B operand from shared memory by descriptor (the RS form);
+// the convs read an int8 map that was quantized beforehand, so both of their
+// operands come from shared memory by descriptor (the SS form: no register
+// build at all).
 //
 // A block is 384 threads, one a streaming multiprocessor, persistent, and two
-// blocks make a cluster whose two output tiles read the same rows of x: each
-// block loads half of x's stage for both (TMA multicast), so x crosses from
-// L2 once a cluster. The cluster walks units (pairs of tiles) c, c + clusters,
-// ...; ops/gemm_tiles.py mirrors the walk and picks the tile width. The
-// producer warpgroup's first thread keeps a ring of K stages full by TMA
-// (each stage 64 deep in K: x as one 128-byte-swizzled panel of 64 bf16
-// columns, the weight as 64-byte rows in the 64-byte swizzle); a stage is
-// refilled once the consumers of both blocks released it, and the ring runs
-// on across tiles, so a tile's loads go out while the previous tile's
-// epilogue runs. Two consumer warpgroups own 64 rows of the tile's A side
-// each (`setmaxnreg` 40 / 232) and keep their accumulators in registers: each
+// blocks make a cluster whose two output tiles read the same rows of one
+// operand: each block loads half of that operand's stage for both (TMA
+// multicast), so it crosses from L2 once a cluster. The cluster walks units
+// (pairs of tiles) c, c + clusters, ...; ops/gemm_tiles.py mirrors the walk
+// and picks the tile width. The producer warpgroup's first thread keeps a
+// ring of K stages full by TMA (each stage 64 deep in K); a stage is refilled
+// once the consumers of both blocks released it, and the ring runs on across
+// tiles, so a tile's loads go out while the previous tile's epilogue runs.
+// Two consumer warpgroups own 64 rows of the tile's A side each (`setmaxnreg`
+// 40 / 232) and keep their accumulators in registers. In the RS form each
 // builds the A fragments of every k-step of stage i + 1 while the products of
-// stage i run as one group (two sets of fragments; a stage is released once
-// its group has completed). The epilogue writes the tile once: the column
-// values it needs were loaded when the tile began; each warpgroup converts
-// and scales its accumulators, stores them as bf16 into a 128-byte-swizzled
+// stage i run as one group (two sets of fragments); in the SS form it issues
+// stage i + 1's products as soon as the stage has landed. A stage is released
+// once its group has completed. The epilogue writes the tile once: the
+// column values it needs were loaded when the tile began; each warpgroup
+// converts and scales its accumulators, stores them as bf16 into a swizzled
 // staging tile by stmatrix, and one thread hands that to a TMA store, which
-// drains while the next tile's products run. TMA zero-fills reads past M, N
-// and K (zero quantizes to zero and widens to zero) and clips the stores, so
-// ragged edges need no masks.
+// drains while the next tile's products run. TMA zero-fills reads past the
+// operands' edges (zero quantizes to zero and widens to zero) and clips the
+// stores, so ragged edges need no masks.
 //
-// A spec (struct A8W8 in int8_gemm.cu, Wint8 in wint8_gemm.cu) says what a
-// stage holds and how it is loaded, how a thread builds its A fragment of a
-// k-step, which wgmma it issues, and its epilogue.
+// A spec (struct A8W8 in int8_gemm.cu, Wint8 in wint8_gemm.cu, Conv in
+// int8_conv3x3.cu) says what a stage holds and how it is loaded, whether its
+// A operand is built in registers (`SS` false: how a thread builds its A
+// fragment of a k-step) or read by descriptor (`SS` true), which wgmma it
+// issues, and its epilogue. Each consumer warpgroup also has a barrier of its
+// own (`Staging::aux`) for TMA loads of the spec's into its staging tile (the
+// convs' residual).
 #pragma once
 
 #include "wgmma.cuh"
@@ -64,6 +71,50 @@ __device__ __forceinline__ void tma_load_2d_multicast(uint32_t dst, const CUtens
       : "memory");
 }
 
+// One 3-d TMA box into shared memory at `dst`, completing on `bar`.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// The same 3-d box into every block of the cluster in `mask`.
+__device__ __forceinline__ void tma_load_3d_multicast(uint32_t dst, const CUtensorMap* map,
+                                                      uint32_t bar, int c0, int c1, int c2,
+                                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4, %5}], [%2], %6;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "h"(mask)
+      : "memory");
+}
+
+// One 4-d TMA box into shared memory at `dst`, completing on `bar`;
+// coordinates may be negative or past the edges (those elements read zero).
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// The same 4-d box into every block of the cluster in `mask`.
+__device__ __forceinline__ void tma_load_4d_multicast(uint32_t dst, const CUtensorMap* map,
+                                                      uint32_t bar, int c0, int c1, int c2,
+                                                      int c3, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4, %5, %6}], [%2], %7;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "h"(mask)
+      : "memory");
+}
+
 // Arrive on the barrier at `bar` of block `rank` of the cluster.
 __device__ __forceinline__ void bar_arrive_remote(uint32_t bar, uint32_t rank) {
   asm volatile(
@@ -91,6 +142,16 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t sr
   asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.tile.bulk_group [%0, {%2, %3}], [%1];\n"
                ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1)
                : "memory");
+}
+
+// One 4-d TMA box from shared memory at `src` to global memory, clipped to
+// the tensor's edges, in this thread's bulk group.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.tile.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
 }
 
 __device__ __forceinline__ void bulk_commit() {
@@ -143,10 +204,25 @@ __device__ __forceinline__ void stmatrix4(uint32_t addr, const uint32_t (&r)[4])
                  ::"r"(addr), "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3]) : "memory");
 }
 
+// The inverse of stmatrix4<false>: four 8 x 8 b16 matrices into their m16n8
+// fragments, lanes 8i .. 8i + 7 addressing matrix i's rows.
+__device__ __forceinline__ void ldmatrix4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
 template <int N>
 __device__ __forceinline__ void pin(int (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+template <int M, int N>
+__device__ __forceinline__ void pin(int (&r)[M][N]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) pin(r[i]);
 }
 
 // wgmma's descriptor of a K-major operand in the 64-byte swizzle: rows of 64
@@ -156,21 +232,37 @@ __device__ __forceinline__ uint64_t smem_desc_sw64(uint32_t addr) {
          uint64_t(2) << 62;
 }
 
+// A map over a `rank`-d tensor of `type` (dims[0] contiguous; bytes[i] the
+// stride of dimension i + 1, a multiple of 16); a box is box[0] x ... x
+// box[rank - 1] in the given swizzle, and what lies past the tensor reads as
+// zeros (and is not written by a store).
+CUresult make_map_nd(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, int rank,
+                     const uint64_t* dims, const uint64_t* bytes, const uint32_t* box,
+                     CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
+  cuuint64_t d[5], st[4];
+  cuuint32_t bx[5], unit[5];
+  for (int i = 0; i < rank; ++i) {
+    d[i] = dims[i];
+    bx[i] = box[i];
+    unit[i] = 1;
+    if (i + 1 < rank) st[i] = bytes[i];
+  }
+  return encode(map, type, cuuint32_t(rank), const_cast<void*>(ptr), d, st, bx, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
 // A map over a row-major (rows, cols) matrix of `type` with `row_bytes`
 // between rows; a box is box_cols x box_rows in the given swizzle, and what
 // lies past the matrix reads as zeros.
 CUresult make_map_2d(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, int rows,
                      int cols, uint64_t row_bytes, int box_cols, int box_rows,
                      CUtensorMapSwizzle swizzle) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
-  const cuuint64_t dims[2] = {cuuint64_t(cols), cuuint64_t(rows)};
-  const cuuint64_t strides[1] = {row_bytes};
-  const cuuint32_t box[2] = {cuuint32_t(box_cols), cuuint32_t(box_rows)};
-  const cuuint32_t unit[2] = {1, 1};
-  return encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const uint64_t dims[2] = {uint64_t(cols), uint64_t(rows)};
+  const uint32_t box[2] = {uint32_t(box_cols), uint32_t(box_rows)};
+  return make_map_nd(map, type, ptr, 2, dims, &row_bytes, box, swizzle);
 }
 
 // ------------------------------------------- the RS products of the GEMMs
@@ -395,6 +487,106 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[N / 2], const uint32_t (&a)[4]
   else wgmma_s8_n256(d, a, db, accumulate);
 }
 
+// ------------------------------------------- the SS products of the convs
+// D (64 x 128, s32) (+)= A (64 x 32 s8) B (128 x 32 s8), both in shared memory,
+// K-major
+__device__ __forceinline__ void wgmma_s8_ss_n128(int (&d)[64], uint64_t da, uint64_t db,
+                                               int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]),
+        "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]),
+        "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]),
+        "+r"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (64 x 160, s32) (+)= A (64 x 32 s8) B (160 x 32 s8), both in shared memory,
+// K-major
+__device__ __forceinline__ void wgmma_s8_ss_n160(int (&d)[80], uint64_t da, uint64_t db,
+                                               int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
+      "}, %80, %81, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]),
+        "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]),
+        "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]),
+        "+r"(d[63]), "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]),
+        "+r"(d[70]), "+r"(d[71]), "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]),
+        "+r"(d[77]), "+r"(d[78]), "+r"(d[79])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (64 x 256, s32) (+)= A (64 x 32 s8) B (256 x 32 s8), both in shared memory,
+// K-major
+__device__ __forceinline__ void wgmma_s8_ss_n256(int (&d)[128], uint64_t da, uint64_t db,
+                                               int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]),
+        "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]),
+        "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]),
+        "+r"(d[63]), "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]),
+        "+r"(d[70]), "+r"(d[71]), "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]),
+        "+r"(d[77]), "+r"(d[78]), "+r"(d[79]), "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]), "+r"(d[90]),
+        "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]), "+r"(d[96]), "+r"(d[97]),
+        "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]), "+r"(d[104]),
+        "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]),
+        "+r"(d[119]), "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]),
+        "+r"(d[126]), "+r"(d[127])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_s8_ss(int (&d)[N / 2], uint64_t da, uint64_t db,
+                                            int accumulate) {
+  if constexpr (N == 128) wgmma_s8_ss_n128(d, da, db, accumulate);
+  else if constexpr (N == 160) wgmma_s8_ss_n160(d, da, db, accumulate);
+  else wgmma_s8_ss_n256(d, da, db, accumulate);
+}
+
 // ------------------------------------------------------- the persistent core
 namespace gemm {
 
@@ -434,24 +626,34 @@ __device__ __forceinline__ void release(uint32_t empty_bar, const Thread& th) {
 // The largest ring (at most 6 stages) that fits beside the two staging tiles
 // and the barriers.
 constexpr int stages_that_fit(uint32_t stage_bytes, uint32_t out_bytes) {
-  const uint32_t room = (SMEM_MAX - 1024 - 2 * out_bytes - 16 * 6) / stage_bytes;
+  const uint32_t room = (SMEM_MAX - 1024 - 2 * out_bytes - 16 * 6 - 16) / stage_bytes;
   return room > 6 ? 6 : int(room);
 }
 
 // Where things lie in a block's shared memory, from its 1,024-byte aligned
 // base: the ring of STAGES, the two warpgroups' staging tiles, then the
-// ring's full and empty barriers. Ring index i is stage i % STAGES.
+// ring's full and empty barriers and the warpgroups' own barriers. Ring index
+// i is stage i % STAGES.
 template <class S>
 struct Layout {
   static constexpr int ST = S::STAGES;
   static constexpr uint32_t STAGING = ST * S::STAGE_BYTES;
   static constexpr uint32_t BARS = STAGING + 2 * S::OUT_BYTES;
-  static constexpr uint32_t BYTES = 1024 + BARS + 16 * ST;
+  static constexpr uint32_t BYTES = 1024 + BARS + 16 * ST + 16;
   static_assert(BYTES <= SMEM_MAX, "shared memory above what a block can opt into");
   uint32_t base;
   __device__ uint32_t stage(int i) const { return base + uint32_t(i % ST) * S::STAGE_BYTES; }
   __device__ uint32_t full(int i) const { return base + BARS + 8u * uint32_t(i % ST); }
   __device__ uint32_t empty(int i) const { return base + BARS + 8u * uint32_t(ST + i % ST); }
+  __device__ uint32_t aux(int wg) const { return base + BARS + 16u * ST + 8u * uint32_t(wg); }
+};
+
+// A consumer warpgroup's staging tile (S::OUT_BYTES at `out`), its own
+// barrier (arrival count 1) and the tiles it ran before the current one, as
+// the spec's `prefetch` sees them when a tile begins.
+struct Staging {
+  uint32_t out, aux;
+  int n;
 };
 
 // The A fragments of every k-step of one stage.
@@ -508,6 +710,32 @@ __device__ __forceinline__ void mainloop(typename S::Acc& acc, const typename S:
   it += k_blocks;
 }
 
+// The SS form: both operands by descriptor. Stage kb's products are issued
+// once it has landed; then the group of stage kb - 1 is waited for and that
+// stage released, so at most two groups are in flight.
+template <class S>
+__device__ __forceinline__ void mainloop_ss(typename S::Acc& acc, const typename S::Params& p,
+                                            const Layout<S>& L, int& it, const Thread& th) {
+  constexpr int ST = S::STAGES;
+  const int k_blocks = p.walk.k_blocks;
+  for (int kb = 0; kb < k_blocks; ++kb) {
+    const int i = it + kb;
+    bar_wait(L.full(i), (i / ST) & 1);
+    pin(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < S::SPS; ++s) S::mma(acc, L.stage(i), s, kb > 0 || s > 0, th);
+    wgmma_commit();
+    wgmma_wait<1>();
+    pin(acc);
+    if (kb > 0) release(L.empty(i - 1), th);
+  }
+  wgmma_wait<0>();
+  pin(acc);
+  release(L.empty(it + k_blocks - 1), th);
+  it += k_blocks;
+}
+
 // The kernel's body (smem as Layout<S> lays it out).
 template <class S>
 __device__ __forceinline__ void run(const typename S::Params& p) {
@@ -524,6 +752,8 @@ __device__ __forceinline__ void run(const typename S::Params& p) {
       bar_init(L.full(s), 1);  // the producer, with the TMA bytes of both blocks
       bar_init(L.empty(s), CLUSTER * CONSUMERS / 32);  // each consumer warp of both blocks
     }
+    bar_init(L.aux(0), 1);
+    bar_init(L.aux(1), 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   cluster_sync();  // both blocks' barriers are ready before either's TMA or arrivals
@@ -555,13 +785,16 @@ __device__ __forceinline__ void run(const typename S::Params& p) {
     th.t = th.lane & 3;
     const uint32_t out = L.base + Layout<S>::STAGING + th.wg * S::OUT_BYTES;
     typename S::Acc acc;
-    int it = 0;
-    for (int u = cluster; u < w.units; u += clusters) {
+    int it = 0, n = 0;
+    for (int u = cluster; u < w.units; u += clusters, ++n) {
       int outer, inner;
       tile_of(w, u, rank, outer, inner);
       // the epilogue's per-column values, loaded now, in use after the products
-      const typename S::Pre pre = S::prefetch(p, outer, inner, th);
-      mainloop<S>(acc, p, L, it, th);
+      const typename S::Pre pre = S::prefetch(p, outer, inner, th, Staging{out, L.aux(th.wg), n});
+      if constexpr (S::SS)
+        mainloop_ss<S>(acc, p, L, it, th);
+      else
+        mainloop<S>(acc, p, L, it, th);
       // the warpgroup's staging tile is free once its last TMA store read it
       if (th.tid == 0) bulk_wait_read();
       sync_warpgroup(1 + th.wg);

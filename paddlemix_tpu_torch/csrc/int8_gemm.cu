@@ -68,6 +68,7 @@ __device__ __forceinline__ uint32_t quantize4(uint2 v, float inv_sx) {
 
 template <int BN>
 struct A8W8 {
+  static constexpr bool SS = false;  // A built in registers
   static constexpr int SPS = 2;                            // k32 steps a stage
   static constexpr uint32_t X_BYTES = 128 * 128;           // 128 rows x 64 bf16
   static constexpr uint32_t STAGE_BYTES = X_BYTES + BN * 64;  // + BN weight rows x 64 bytes
@@ -119,7 +120,8 @@ struct A8W8 {
     float2 s, b;
   };
 
-  __device__ static Pre prefetch(const Params& p, int, int inner, const gemm::Thread& th) {
+  __device__ static Pre prefetch(const Params& p, int, int inner, const gemm::Thread& th,
+                                 const gemm::Staging&) {
     Pre pre{make_float2(0.f, 0.f), make_float2(0.f, 0.f)};
     const int n = inner * BN + 2 * th.tid;
     if (2 * th.tid < BN && n < p.n) {  // N % 8 == 0: n + 1 is inside too

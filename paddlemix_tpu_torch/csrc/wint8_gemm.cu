@@ -138,6 +138,7 @@ __device__ __forceinline__ uint32_t widen2(uint32_t w, uint32_t sel) {
 
 template <int TN>
 struct Wint8 {
+  static constexpr bool SS = false;  // A built in registers
   static constexpr int SPS = 4;                              // k16 steps a stage
   static constexpr uint32_t X_BYTES = TN * 128;              // TN tokens x 64 bf16
   static constexpr int X_LO = 8 * ((TN + 15) / 16);          // the tokens block 0 of a cluster loads
@@ -190,7 +191,8 @@ struct Wint8 {
     float s0, s1;
   };
 
-  __device__ static Pre prefetch(const Params& p, int outer, int, const gemm::Thread& th) {
+  __device__ static Pre prefetch(const Params& p, int outer, int, const gemm::Thread& th,
+                                 const gemm::Staging&) {
     const int n = outer * 128 + 64 * th.wg + 16 * th.warp + th.g;
     return {n < p.n ? __ldg(p.scale + n) : 0.f, n + 8 < p.n ? __ldg(p.scale + n + 8) : 0.f};
   }

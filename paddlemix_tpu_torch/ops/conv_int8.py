@@ -8,8 +8,10 @@ the bias run in fp32 in the epilogue.
 
 `int8_a8w8_matmul` launches `csrc/int8_gemm.cu` (B2, the wgmma core of
 `csrc/gemm_wg.cuh` at the tile plan of `ops/gemm_tiles.py`) and
-`int8_conv3x3_same` launches `csrc/int8_conv3x3.cu` (B3) for CUDA tensors;
-CPU tensors run the plain versions `*_ref`. The weights come in already
+`int8_conv3x3_same` the two kernels of `csrc/int8_conv3x3.cu` (B3: the
+activation pass, which quantizes x once into an int8 map, then the conv as an
+int8 implicit GEMM on the same core) for CUDA tensors; CPU tensors run the
+plain versions `*_ref`. The weights come in already
 quantized (the port quantizes them once, when the scales are loaded), in the
 layouts the kernels read:
   - matmul: wq (N, K) int8, K-contiguous per output column (nn.Linear's layout);
@@ -35,7 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from .autograd import refuse_grad
-from .gemm_tiles import A8W8_TILES, BK, a8w8_plan, max_clusters
+from .gemm_tiles import A8W8_TILES, BK, CONV_TILES, a8w8_plan, conv_plan, max_clusters
 
 _MAX_GRID_Y = 65535  # row tiles of 128 go on gridDim.y
 
@@ -155,8 +157,9 @@ def gemm_kernel_takes(m: int, k: int, n: int) -> bool:
 
 
 def conv3x3_kernel_takes(b: int, h: int, w: int, c: int, o: int) -> bool:
-    """The shapes B3 and B5 take: 16-channel loads that never straddle a tap."""
-    return c % 16 == 0 and o % 8 == 0 and -(-(b * h * w) // 128) <= _MAX_GRID_Y
+    """The shapes B3 and B5 take: TMA's 16-byte strides of the int8 map and
+    8-column output chunks (the persistent walk has no grid limit)."""
+    return c % 16 == 0 and o % 8 == 0
 
 
 def _raise_on(err, name):
@@ -224,18 +227,76 @@ def int8_conv3x3_same_ref(x, wq, sw, sx: float, bias=None):
     return int8_conv3x3_ref(quantize_int8(x, sx), wq, sw, sx, bias).to(x.dtype)
 
 
+def conv3x3_tiled(xq, wq, sw, sx: float, bias=None, temb=None, residual=None, plan=None):
+    """The conv of an int8 map xq (B, H, W, C), on the CPU, walked as the B3 /
+    B5 kernel walks it at `plan` (by default `conv_plan` on an H100): per
+    tile of `plan.pixels` pixels, int32 sums stage by stage over the 9 taps x
+    64-channel chunks of zero-filled operands (TMA's zero fill outside the image and
+    past C and O), the fp32 epilogue acc * (sw * sx) [+ bias] [+ temb[b]]
+    [+ residual], and the store clipped to the map and O. fp32 (B, H, W, O)."""
+    b, h, w, c = xq.shape
+    o = wq.shape[0]
+    plan = plan or conv_plan(b, h, w, c, o)
+    kc = plan.chunks * BK
+    # one pixel of zeros around the image, the edge tiles' overhang, channels to the chunks
+    xp = torch.zeros((b, plan.tiles_h * plan.th + 2, plan.tiles_w * plan.tw + 2, kc),
+                     dtype=torch.int32)
+    xp[:, 1:h + 1, 1:w + 1, :c] = xq.int()
+    wp = torch.zeros((plan.inner_tiles * plan.tile, 9, kc), dtype=torch.int32)
+    wp[:o, :, :c] = wq.reshape(o, 9, c).int()
+    out = torch.empty((b, h, w, o), dtype=torch.float32)
+    for block in plan.walk():
+        for outer, inner in block:
+            if not plan.in_range(outer, inner):
+                continue
+            bi, y0, x0 = plan.origin(outer)
+            cols = slice(inner * plan.tile, (inner + 1) * plan.tile)
+            acc = torch.zeros((plan.th * plan.tw, plan.tile), dtype=torch.int32)
+            for kb in range(plan.k_blocks):
+                tap, chunk = divmod(kb, plan.chunks)
+                dy, dx = divmod(tap, 3)  # the padded map's offset of tap (dy - 1, dx - 1)
+                ks = slice(chunk * BK, (chunk + 1) * BK)
+                a = xp[bi, y0 + dy:y0 + dy + plan.th, x0 + dx:x0 + dx + plan.tw, ks]
+                acc += a.reshape(-1, BK) @ wp[cols, tap, ks].t()
+            _, rows, xs, cs = plan.region(outer, inner)
+            ny, nx, nc = rows.stop - rows.start, xs.stop - xs.start, cs.stop - cs.start
+            v = acc.view(plan.th, plan.tw, plan.tile)[:ny, :nx, :nc].float() \
+                * (sw[cs].float() * sx)
+            if bias is not None:
+                v = v + bias[cs].float()
+            if temb is not None:
+                v = v + temb[bi, cs].float()
+            if residual is not None:
+                v = v + residual[bi, rows, xs, cs].float()
+            out[bi, rows, xs, cs] = v
+    return out
+
+
+def int8_conv3x3_tiled_ref(x, wq, sw, sx: float, bias=None, plan=None):
+    """`int8_conv3x3_same_ref` walked as the kernel walks it (`conv3x3_tiled`
+    on the activation pass's int8 map). Bit-exact with the plain version."""
+    return conv3x3_tiled(quantize_int8(x, sx), wq, sw, sx, bias, plan=plan).to(x.dtype)
+
+
 @functools.lru_cache(maxsize=None)
 def _conv_lib():
     from ..kernels import load_library
 
     lib = load_library("int8_conv3x3")
-    lib.int8_conv3x3_bf16.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 \
-        + [ctypes.c_float] * 2 + [ctypes.c_void_p]
-    lib.fused_gn_silu_conv3x3_bf16.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 \
-        + [ctypes.c_float] * 2 + [ctypes.c_void_p]
-    for fn in (lib.int8_conv3x3_bf16, lib.fused_gn_silu_conv3x3_bf16):
+    lib.conv3x3_act_quant.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 \
+        + [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+    lib.conv3x3_gemm.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 \
+        + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.conv3x3_smem.argtypes = [ctypes.c_int] * 2
+    for fn in (lib.conv3x3_act_quant, lib.conv3x3_gemm, lib.conv3x3_smem):
         fn.restype = ctypes.c_int
     return lib
+
+
+def conv_smem_bytes(tile: int, pixels: int) -> int:
+    """Dynamic shared memory of a B3 / B5 conv block at a tile of `tile`
+    columns by `pixels` pixels."""
+    return _conv_lib().conv3x3_smem(tile, pixels)
 
 
 def check_conv3x3_operands(fn, x, wq, sw, bias):
@@ -248,21 +309,60 @@ def check_conv3x3_operands(fn, x, wq, sw, bias):
     _check_operand(fn, "wq", wq, x.device, torch.int8, (o, 3, 3, c))
     _check_scales(fn, x.device, o, sw, bias)
     if not conv3x3_kernel_takes(b, h, w, c, o):
-        raise ValueError(f"{fn} kernel takes C % 16 == 0, O % 8 == 0 and B*H*W <= "
-                         f"{128 * _MAX_GRID_Y}, got x {tuple(x.shape)} O={o}")
+        raise ValueError(f"{fn} kernel takes C % 16 == 0 and O % 8 == 0, got x "
+                         f"{tuple(x.shape)} O={o}")
     return b, h, w, c, o
 
 
-def _int8_conv3x3_cuda(x, wq, sw, sx, bias):
-    bias = None if bias is None else bias.float()
-    b, h, w, c, o = check_conv3x3_operands("int8_conv3x3_same", x, wq, sw, bias)
-    out = torch.empty((b, h, w, o), dtype=torch.bfloat16, device=x.device)
+def conv3x3_act_quant(x, sx: float, stats=None, gamma=None, beta=None, groups: int = 1):
+    """The activation pass on the card: x (B, H, W, C) bf16 -> its int8 map,
+    q(x), or with the GroupNorm statistics stats = (mean, inv), each (B,
+    groups) fp32, q(SiLU(x * scale + shift)) with gn_affine's scale and shift
+    (gamma / beta fp32 or both bf16). Launches the pass once; not counted."""
+    xq = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    b, h, w, c = x.shape
+    mean, inv = stats if stats is not None else (None, None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _conv_lib().int8_conv3x3_bf16(
-            x.data_ptr(), wq.data_ptr(), sw.data_ptr(), 0 if bias is None else bias.data_ptr(),
-            out.data_ptr(), b, h, w, c, o, float(sx), 1.0 / sx, stream)
-    _raise_on(err, "int8_conv3x3_bf16")
+        err = _conv_lib().conv3x3_act_quant(
+            x.data_ptr(), *(0 if t is None else t.data_ptr() for t in (mean, inv, gamma, beta)),
+            int(gamma is not None and gamma.dtype == torch.bfloat16), groups, xq.data_ptr(),
+            b, h, w, c, 1.0 / sx, stream)
+    _raise_on(err, "conv3x3_act_quant")
+    return xq
+
+
+@functools.lru_cache(maxsize=None)
+def _conv_plan_on(index: int, b: int, h: int, w: int, c: int, o: int, tiles, pairings):
+    """`conv_plan` on CUDA device `index`, once a shape (the UNet repeats them)."""
+    return conv_plan(b, h, w, c, o, max_clusters("int8_conv3x3", "conv3x3_max_clusters",
+                                                 CONV_TILES, index), tiles, pairings)
+
+
+def conv3x3_gemm(xq, wq, sw, sx: float, bias=None, temb=None, residual=None,
+                 tiles=CONV_TILES, pairings=(True, False)):
+    """The conv of the int8 map xq on the card (the B3 / B5 kernel at the plan
+    `conv_plan` picks among `tiles` and `pairings`) -> bf16 (B, H, W, O). Not
+    counted."""
+    b, h, w, c = xq.shape
+    o = wq.shape[0]
+    out = torch.empty((b, h, w, o), dtype=torch.bfloat16, device=xq.device)
+    plan = _conv_plan_on(xq.device.index, b, h, w, c, o, tuple(tiles), tuple(pairings))
+    with torch.cuda.device(xq.device):
+        stream = torch.cuda.current_stream(xq.device).cuda_stream
+        err = _conv_lib().conv3x3_gemm(
+            xq.data_ptr(), wq.data_ptr(), sw.data_ptr(),
+            *(0 if t is None else t.data_ptr() for t in (bias, temb, residual)),
+            out.data_ptr(), b, h, w, c, o, float(sx), plan.tile, plan.pixels, plan.tw,
+            int(plan.pair_inner), plan.grid, stream)
+    _raise_on(err, "conv3x3_gemm")
+    return out
+
+
+def _int8_conv3x3_cuda(x, wq, sw, sx, bias, **plan):
+    bias = None if bias is None else bias.float()
+    check_conv3x3_operands("int8_conv3x3_same", x, wq, sw, bias)
+    out = conv3x3_gemm(conv3x3_act_quant(x, sx), wq, sw, sx, bias, **plan)
     int8_conv3x3_same.launches += 1
     return out
 
@@ -271,7 +371,8 @@ def int8_conv3x3_same(x, wq, sw, sx: float, bias: Optional[torch.Tensor] = None)
     """3x3 stride-1 SAME conv of NHWC x (B, H, W, C) with int8 wq (O, 3, 3, C)
     and static activation scale sx -> (B, H, W, O) (port of
     `int8_conv3x3_same`, plus the conv bias in the epilogue). CUDA tensors
-    launch the B3 kernel; CPU tensors run `int8_conv3x3_same_ref`."""
+    launch the B3 kernels (the activation pass, then the conv; counted once
+    a call); CPU tensors run `int8_conv3x3_same_ref`."""
     if x.is_cuda:
         refuse_grad("int8_conv3x3_same", x, sw, bias)
         return _int8_conv3x3_cuda(x, wq, sw, sx, bias)

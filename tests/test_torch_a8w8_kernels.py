@@ -19,7 +19,7 @@ import torch
 
 from paddlemix_tpu_torch.ops import conv_int8 as tci
 from paddlemix_tpu_torch.ops import fused_resnet as tfr
-from paddlemix_tpu_torch.ops.gemm_tiles import A8W8_TILES
+from paddlemix_tpu_torch.ops.gemm_tiles import A8W8_TILES, CONV_TILES
 from paddlemix_tpu_torch.ops.quant import QuantConv2d, QuantLinear, conv_route, static_scale
 
 pytestmark = pytest.mark.torch_port
@@ -296,7 +296,12 @@ def test_int8_kernels_match_plain_versions_on_gpu(monkeypatch):
                 check(lambda: tci._int8_gemm_cuda(x, wq, sw, sx, bias, tiles=(tile,)),
                       lambda: tci.int8_a8w8_matmul_ref(x, wq, sw, sx, bias),
                       tci.int8_a8w8_matmul)
-    for b, h, w, c, o in [(2, 16, 16, 320, 640), (1, 9, 13, 16, 8)]:
+    # (1, 9, 13, 16, 8) and (1, 50, 100, 96, 200) are ragged (W no power of
+    # two, B*H*W no multiple of the 128-pixel tile, C no multiple of the
+    # 64-channel stage, O = 8 mod 16) and, with (2, 16, 16, 320, 640), run at
+    # every compiled tile width and both pairings of a cluster's blocks
+    plans = [dict(tiles=(t,), pairings=(p,)) for t in CONV_TILES for p in (True, False)]
+    for b, h, w, c, o in [(2, 16, 16, 320, 640), (1, 9, 13, 16, 8), (1, 50, 100, 96, 200)]:
         x = torch.randn((b, h, w, c), generator=gen, device=dev).to(bf16)
         wq, sw = tci.quantize_weight_per_cout(torch.randn((o, c, 3, 3), generator=gen,
                                                           device=dev))
@@ -305,6 +310,9 @@ def test_int8_kernels_match_plain_versions_on_gpu(monkeypatch):
         sx = static_scale(x.float().abs().max().item())
         check(lambda: tci.int8_conv3x3_same(x, wq, sw, sx, bias),
               lambda: tci.int8_conv3x3_same_ref(x, wq, sw, sx, bias), tci.int8_conv3x3_same)
+        for plan in plans:
+            check(lambda: tci._int8_conv3x3_cuda(x, wq, sw, sx, bias, **plan),
+                  lambda: tci.int8_conv3x3_same_ref(x, wq, sw, sx, bias), tci.int8_conv3x3_same)
         gamma = torch.rand(c, generator=gen, device=dev) + 0.5
         beta = torch.randn(c, generator=gen, device=dev)
         groups = 16 if c == 16 else 32
@@ -313,4 +321,8 @@ def test_int8_kernels_match_plain_versions_on_gpu(monkeypatch):
         args = (x, gamma, beta, groups, 1e-5, wq, sw, static_scale(4.0), bias)
         for kw in ({}, {"temb": temb}, {"residual": res}):
             check(lambda: tfr.fused_gn_silu_conv3x3(*args, **kw),
+                  lambda: tfr.fused_gn_silu_conv3x3_ref(*args, **kw), tfr.fused_gn_silu_conv3x3)
+        for plan in plans:
+            kw = {"temb": temb, "residual": res}
+            check(lambda: tfr._fused_cuda(*args, **kw, **plan),
                   lambda: tfr.fused_gn_silu_conv3x3_ref(*args, **kw), tfr.fused_gn_silu_conv3x3)

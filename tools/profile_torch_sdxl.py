@@ -9,9 +9,13 @@ request. Prints the card's nvidia-smi name and power limit, device kernel
 time by category (the port's five kernels by name, cuBLAS/cuDNN, LayerNorm,
 softmax, the rest), the top kernels, and the busy share = device kernel time
 of the profiled request / wall time of the unprofiled one; then, for a8w8,
-the int8 GEMM's (B2) device ms in one more profiled request by its (M, K, N):
-the kernels, in the order they ran, paired with the calls' shapes in the
-order they were made.
+in one more profiled request, the int8 GEMM's (B2) device ms by its (M, K, N)
+and the int8 convs' (B3, B5: the activation pass and the conv a call; B5's
+GroupNorm statistics are B4's) by (B, H, W, C, O): each wrapper call in a
+record_function range, and the kernels inside its span on the device's
+timeline. Reads the kernel names of this tree and of the parent's (one
+mma.sync kernel a conv call), so a copy of this script can profile an older
+checkout.
 
 Usage (from the root of a checkout, on a machine with a CUDA card):
     python3 tools/profile_torch_sdxl.py
@@ -33,6 +37,12 @@ def category(kernel_name: str) -> str:
     n = kernel_name.lower()
     if "int8_gemm" in n:
         return "B2 int8 GEMM"
+    if "act_quant_kernel<true>" in n or "act_quant_kernelilb1" in n:
+        return "B5 activation pass"
+    if "act_quant_kernel" in n:
+        return "B3 activation pass"
+    if "conv3x3_wgmma" in n:
+        return "B3 + B5 int8 conv (wgmma)"
     if "conv3x3_kernel<true>" in n or "conv3x3_kernelilb1" in n:
         return "B5 fused GN+SiLU+int8 conv"
     if "conv3x3_kernel" in n:
@@ -51,37 +61,69 @@ def category(kernel_name: str) -> str:
     return "elementwise / copies / reductions"
 
 
-def b2_by_shape(torch, run):
-    """{(M, K, N): (device ms, calls)} of the int8 GEMM in `run()`: its
-    kernels under the profiler, in the order they ran, paired with the calls'
-    shapes in the order they were made (one stream: the same order)."""
-    from torch.profiler import ProfilerActivity, profile
+def by_shape(torch, run, groups):
+    """({wrapper: {shape: (device ms, calls)}}, {wrapper: kernels counted})
+    over `run()`, one profile: every call of a group's wrapper (module,
+    wrapper name, shape of the call's arguments, kernel name parts) runs in a
+    record_function range named by its shape, which the profiler also lays on
+    the device's timeline over the kernels launched inside it; a call's
+    device time is that of those kernels whose names hold the group's parts
+    (B5's GroupNorm statistics are B4's, not B5's)."""
+    import bisect
+    from collections import Counter
 
-    from paddlemix_tpu_torch.ops import quant
+    from torch.profiler import ProfilerActivity, profile, record_function
 
-    shapes = []
-    kernel = quant.int8_a8w8_matmul
-
-    def recorded(x, wq, sw, sx, bias=None):
-        shapes.append((x.numel() // x.shape[-1], x.shape[-1], wq.shape[0]))
-        return kernel(x, wq, sw, sx, bias)
-
-    quant.int8_a8w8_matmul = recorded
+    ranges, calls = {}, Counter()  # range name -> (wrapper name, shape); calls by that
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _, _ in groups]
+    for (mod, name, shape_of, _), (_, _, fn) in zip(groups, saved):
+        def recorded(*args, _fn=fn, _name=name, _shape=shape_of, **kw):
+            key = f"by_shape {_name} {_shape(*args)}"
+            ranges[key] = (_name, _shape(*args))
+            calls[ranges[key]] += 1
+            with record_function(key):
+                return _fn(*args, **kw)
+        setattr(mod, name, recorded)
     try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             run()
     finally:
-        quant.int8_a8w8_matmul = kernel
-    kernels = sorted((e for e in prof.events()
-                      if e.device_type == torch.autograd.DeviceType.CUDA and "int8_gemm" in e.name),
-                     key=lambda e: e.time_range.start)
-    if len(kernels) != len(shapes):
-        raise SystemExit(f"profile_torch_sdxl: {len(kernels)} B2 kernels for {len(shapes)} calls")
-    by_shape = {}
-    for shape, e in zip(shapes, kernels):
-        ms, n = by_shape.get(shape, (0.0, 0))
-        by_shape[shape] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-    return by_shape
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    device = torch.autograd.DeviceType.CUDA
+    events = [e for e in prof.events() if e.device_type == device]
+    spans = sorted((e.time_range.start, e.time_range.end, ranges[e.name])
+                   for e in events if e.name in ranges)
+    starts = [span[0] for span in spans]
+    parts = {name: p for _, name, _, p in groups}
+    us, counted = Counter(), Counter()
+    for e in events:
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        if e.name in ranges or i < 0 or e.time_range.start > spans[i][1]:
+            continue
+        key = spans[i][2]
+        if any(p in e.name for p in parts[key[0]]):
+            us[key] += e.time_range.elapsed_us()
+            counted[key[0]] += 1
+    out = {name: {} for _, name, _, _ in groups}
+    for (name, shape), n in calls.items():
+        out[name][shape] = (us[(name, shape)] / 1e3, n)
+    return out, counted
+
+
+def a8w8_groups():
+    """B2 by (M, K, N), B3 and B5 by (B, H, W, C, O), at the names the model calls."""
+    from paddlemix_tpu_torch.diffusers.models import resnet
+    from paddlemix_tpu_torch.ops import quant
+
+    conv = ("conv3x3_kernel", "conv3x3_wgmma", "act_quant_kernel")
+    return [(quant, "int8_a8w8_matmul",
+             lambda x, wq, *a: (x.numel() // x.shape[-1], x.shape[-1], wq.shape[0]),
+             ("int8_gemm",)),
+            (quant, "int8_conv3x3_same", lambda x, wq, *a: tuple(x.shape) + (wq.shape[0],),
+             conv),
+            (resnet, "fused_gn_silu_conv3x3",
+             lambda x, g, b, groups, eps, wq, *a: tuple(x.shape) + (wq.shape[0],), conv)]
 
 
 def main():
@@ -127,13 +169,17 @@ def main():
         for us, count, key in sorted(top, reverse=True)[:18]:
             print(f"[{label}]     {us / 1e3:9.1f} ms x{count:6d} {key}")
         if label == "a8w8":
-            by_shape = b2_by_shape(torch, lambda: request(5))
-            total_ms = sum(ms for ms, _ in by_shape.values())
-            print(f"[a8w8] B2 by (M, K, N), one request: {total_ms:.1f} ms in "
-                  f"{sum(n for _, n in by_shape.values())} calls")
-            for shape, (ms, n) in sorted(by_shape.items(), key=lambda kv: -kv[1][0]):
-                print(f"[a8w8]   {str(shape):22s} {ms:8.1f} ms x{n:5d} ({ms / n:.4f} ms a call)")
-
+            tables, counted = by_shape(torch, lambda: request(5), a8w8_groups())
+            for name, key in (("int8_a8w8_matmul", "B2 by (M, K, N)"),
+                              ("int8_conv3x3_same", "B3 by (B, H, W, C, O)"),
+                              ("fused_gn_silu_conv3x3", "B5 by (B, H, W, C, O)")):
+                table = tables[name]
+                total_ms = sum(ms for ms, _ in table.values())
+                print(f"[a8w8] {key}, one request: {total_ms:.1f} ms in "
+                      f"{sum(n for _, n in table.values())} calls, {counted[name]} kernels")
+                for shape, (ms, n) in sorted(table.items(), key=lambda kv: -kv[1][0]):
+                    print(f"[a8w8]   {str(shape):26s} {ms:8.1f} ms x{n:5d} "
+                          f"({ms / n:.4f} ms a call)")
 
 if __name__ == "__main__":
     main()
