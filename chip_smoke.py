@@ -81,7 +81,14 @@ Phases:
   9. a8w8 int8-attn B1's int8 QK^T form against its plain version per
                    element at the SDXL and SD1.5 self-attention shapes, with
                    a control (quantizing by truncation) that must fail the
-                   same limit; with PMIX_INT8_ATTN=1, one full-width a8w8
+                   same limit; at each shape its activation pass
+                   (quantize_qk_int8) against int8_qk_operands bit for bit
+                   (q8, k8, sq, sk: 0 mismatches; the truncation control
+                   must mismatch), and where the wgmma core runs it, its time
+                   alone; the form on the wgmma core with causal, segment
+                   ids (ragged), GQA and a ragged S at D 64 and 128
+                   (INT8_ATTN_CASES), per element with the same gate and
+                   control; with PMIX_INT8_ATTN=1, one full-width a8w8
                    UNet forward at the request's size whose 70 int8 calls
                    are each held per element against the plain version on
                    their own inputs, with the same control; then the first
@@ -99,7 +106,10 @@ Phases:
                    the model's layers find them cold (up to 64 copies: the
                    1-row RMSNorm's 8 KiB stays warm); decode attention is
                    also run with every length one short, which must fail
-                   its limit
+                   its limit; each decode case prints its split plan
+                   (ops/decode_attention.py key_splits: blocks, waves, the
+                   blocks an SM holds; all must be resident at once, a
+                   multiple of the SM count) and ptxas counts
  11. llava agree   LLaVA-7B bf16: prefill (608 tokens) + 4 decode steps, the
                    kernels vs their plain versions swapped in
  12. llava serve   3 requests as the JAX bench makes them (576 image
@@ -395,6 +405,14 @@ INT8_ATTN_SUM = 4e-3
 INT8_ATTN_PATH_SUM = 5e-4
 INT8_ATTN_SHAPES = [(2, 4096, 10, 64), (2, 1024, 20, 64), (2, 4096, 8, 40), (2, 1024, 8, 80),
                     (2, 256, 8, 160)]
+# B1's int8 form on the wgmma core with its options, per element with the
+# same gate and control: (B, S, Hq, Hkv, D, causal, segments). A ragged S (a
+# multiple of no tile), D 128, causal + GQA, causal + segment ids cut off every
+# tile + GQA at a ragged S, and segment ids at a ragged S without causal; the
+# segments of batch row i cut 11 i rows later than row 0's
+INT8_ATTN_CASES = [(1, 1000, 4, 4, 64, False, False), (2, 1024, 8, 8, 128, False, False),
+                   (2, 2048, 16, 4, 128, True, False), (2, 1000, 8, 2, 64, True, True),
+                   (1, 777, 4, 2, 128, False, True)]
 # SD1.5-512 (runwayml/stable-diffusion-v1-5 = the JAX package's single-file
 # configs): 512 px, 50 PNDM steps, guidance 7.5 (CFG batch 2), the JAX
 # pipeline's defaults. B1 at head_dim 160 (SD1.5's 1280-wide blocks over 256
@@ -585,10 +603,35 @@ def flash_core(d, int8=False):
     smem = ctypes.c_int(0)
     if not fn(d_kernel, int(int8), ctypes.byref(smem)):
         return "wmma", f"D {d_kernel}"
-    regs, spills = ptxas_counts("flash_fwd", f"flash_fwd_wgmma_kernelILi{d_kernel}E")
-    return "wgmma", (f"D {d_kernel}; ptxas {regs} registers at entry (setmaxnreg: 240 a consumer "
-                     f"thread, 24 a producer), {spills}; {smem.value:,} bytes of dynamic shared "
-                     f"memory a block")
+    regs, spills = ptxas_counts("flash_fwd",
+                                f"flash_fwd_wgmma_kernelILi{d_kernel}ELb{int(int8)}E")
+    return "wgmma", (f"D {d_kernel}{', s8 QK^T' if int8 else ''}; ptxas {regs} registers at "
+                     f"entry (setmaxnreg: 240 a consumer thread, 24 a producer), {spills}; "
+                     f"{smem.value:,} bytes of dynamic shared memory a block")
+
+
+def recorder(summary):
+    """The function that prints the times of one kernel case and keeps them in
+    `summary` (kernel name -> rows) for the kernels line."""
+    def record(label, name, shape, err, ms, plain_ms, lib_ms, bnd, extra="", flash=None,
+               bwd=None):
+        """Print the times of one kernel case and keep them for the summary;
+        `flash` = (caller's head_dim, the bound's operations, int8) of a flash
+        forward case, or `bwd` = (caller's head_dim, the bound's operations) of
+        a flash backward one, adds the core that served it and its TFLOP/s."""
+        lib = "no single call" if lib_ms is None else f"{lib_ms:.3f} ms"
+        print(f"[{label}]   {name} {shape}{extra}: kernel {ms:.3f} ms | plain {plain_ms:.3f} ms "
+              f"| library {lib} | bound {bnd[0]:.4f} ms ({bnd[1]})", flush=True)
+        row = dict(shape=shape, err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound=bnd)
+        if flash is not None or bwd is not None:
+            d_, ops, int8 = flash if flash is not None else (*bwd, False)
+            core, note = flash_core(d_, int8) if flash is not None else bwd_core(d_)
+            row.update(core=core, tflops=ops / ms / 1e9)
+            print(f"[{label}]   {name} {shape}: core {core} ({note}) | {ops / ms / 1e9:.1f} "
+                  f"TFLOP/s of the bound's {ops:.4g} operations; the bound is "
+                  f"{100 * bnd[0] / ms:.1f}% of the kernel's time", flush=True)
+        summary.setdefault(name, []).append(row)
+    return record
 
 
 def gemm_core(kind, m, k, n):
@@ -1638,6 +1681,120 @@ def clip_slice(torch, np, dev, m, counters):
     return launches_clip, got, clip_stats, train_stats
 
 
+# ------------------------------------------------------ decode attention
+def decode_note(da, b_, hq, kvh, d, L, int8):
+    """The split plan (ops/decode_attention.py `key_splits`) of one B7 / B8
+    case on this card, and ptxas's registers and spills for its
+    instantiation."""
+    import torch
+
+    g = hq // kvh
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    splits, chunk = da.key_splits(b_, kvh, L, sms)
+    blocks = b_ * kvh * splits
+    regs, spills = ptxas_counts("decode_attention", f"decode_attention_kernelILi{d}ELi{g}E"
+                                f"{'a' if int8 else '13__nv_bfloat16'}E")
+    resident = da.kernel_blocks_per_sm(d, g, int8)
+    check(resident * sms >= blocks and blocks % sms == 0, f"decode attention (D {d}, G {g}): "
+          f"{blocks} blocks, {resident} fit an SM: not one whole wave")
+    return (f"{splits} key ranges of {chunk}, {blocks} blocks of 64 threads = "
+            f"{blocks / (sms * da.WAVE_BLOCKS_PER_SM):.2f} waves of {da.WAVE_BLOCKS_PER_SM} an SM "
+            f"on {sms} SMs, all resident at once ({resident} fit an SM); ptxas {regs} registers, "
+            f"{spills}")
+
+
+def decode_kernels(torch, F, dev, gen, record, da):
+    """B7 against its plain version at DECODE_CASES, per element, with the
+    lengths-one-short control; times, bounds, SDPA as the library call."""
+    bf16 = torch.bfloat16
+    for b_, hq, kvh, d, L, lengths in DECODE_CASES:
+        q = torch.randn((b_, 1, hq, d), generator=gen, device=dev).to(bf16)
+        # k and v are slices of a layer's cache with its parking slot, as in the model
+        cache = torch.randn((2, b_, L + 1, kvh, d), generator=gen, device=dev).to(bf16)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        out = da.decode_attention(q, cache[0, :, :L], cache[1, :, :L], lens)
+        torch.cuda.synchronize()
+        ref = da.decode_attention_ref(q.float(), cache[0, :, :L].float(),
+                                      cache[1, :, :L].float(), lens)
+        err = (out.float() - ref).abs().max().item()
+        limit = DECODE_ULP * ref.abs() + DECODE_SUM * ref.abs().max()
+        excess = ((out.float() - ref).abs() - limit).max().item()
+        short = da.decode_attention(q, cache[0, :, :L], cache[1, :, :L], lens - 1)
+        ctrl = ((short.float() - ref).abs() - limit).max().item()
+        shape = (b_, hq, kvh, d, L, lengths)
+        print(f"[llava kernels] decode_attention {shape} bf16: max_abs_err {err:.3e} (limit "
+              f"{DECODE_ULP:.4g}|ref| + {DECODE_SUM:g}|ref|max, excess {excess:.3e}); control "
+              f"with lengths one short: excess {ctrl:.3e} (must be > 0)", flush=True)
+        check(bool(torch.isfinite(out).all()) and excess <= 0, f"decode {shape}: err {err}")
+        check(ctrl > 0, f"decode {shape}: the one-short control passes the limit ({ctrl})")
+        mask = (torch.arange(L, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+        qh = q.transpose(1, 2)
+        ms, plain_ms = timed_pair(
+            torch, cold(lambda c: da.decode_attention(q, c[0, :, :L], c[1, :, :L], lens),
+                        cache, nbytes(cache)),
+            cold(lambda c: da.decode_attention_ref(q, c[0, :, :L], c[1, :, :L], lens),
+                 cache, nbytes(cache)))
+        lib_ms = library_ms(torch, cold(lambda c: F.scaled_dot_product_attention(
+            qh, c[0, :, :L].transpose(1, 2), c[1, :, :L].transpose(1, 2), attn_mask=mask,
+            enable_gqa=hq != kvh), cache, nbytes(cache)))
+        used = sum(min(n_, L) for n_ in lengths)  # cached rows the lengths make it read
+        record("llava kernels", "decode_attention", shape, err, ms, plain_ms, lib_ms,
+               bound(nbytes(q, lens, out) + 2 * used * kvh * d * 2, 4 * hq * used * d, "fp32"))
+        print(f"[llava kernels]   decode_attention {shape}: "
+              f"{decode_note(da, b_, hq, kvh, d, L, False)}", flush=True)
+        del q, cache, out, ref, short, limit
+
+
+def int8_decode_kernels(torch, F, dev, gen, record, da, quantize_kv, launches):
+    """B8 against its plain version at INT8_DECODE_CASES, per element, with the
+    control without the last 64 keys; times, bounds, SDPA over the
+    dequantized cache as the library call. `launches`: B8's a request."""
+    bf16 = torch.bfloat16
+    for b_, hq, kvh, d, L, lengths in INT8_DECODE_CASES:
+        q = torch.randn((b_, 1, hq, d), generator=gen, device=dev).to(bf16)
+        # k, v and their scales are slices of a layer's cache with its parking slot
+        cache = quantize_kv(torch.randn((2, b_, L + 1, kvh, d), generator=gen, device=dev))
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+
+        def int8_args(c):
+            (kv, sc) = c
+            return kv[0, :, :L], kv[1, :, :L], sc[0, :, :L], sc[1, :, :L]
+        out = da.decode_attention_int8(q, *int8_args(cache), lens)
+        torch.cuda.synchronize()
+        ref = da.decode_attention_int8_ref(q.float(), *int8_args(cache), lens)
+        err = (out.float() - ref).abs().max().item()
+        excess, need = ulp_gate(out, ref, INT8_DECODE_SUM)
+        control, _ = ulp_gate(da.decode_attention_int8_ref(q.float(), *int8_args(cache),
+                                                           lens - 64), ref, INT8_DECODE_SUM)
+        shape = (b_, hq, kvh, d, L, lengths)
+        print(f"[llama kernels] decode_attention_int8 {shape}: max_abs_err {err:.3e}, excess "
+              f"{excess:.3e} over 2**-7|ref| + {INT8_DECODE_SUM:g}|ref|max (least c {need:.2e}); "
+              f"control without the last 64 keys: excess {control:.3e} (must be > 0)", flush=True)
+        check(bool(torch.isfinite(out).all()) and excess <= 0,
+              f"decode_attention_int8 {shape}: excess {excess}")
+        check(control > 0, f"decode_attention_int8 {shape}: the control passes ({control})")
+        cache_bytes = nbytes(*cache)
+        ms, plain_ms = timed_pair(
+            torch, cold(lambda c: da.decode_attention_int8(q, *int8_args(c), lens), cache,
+                        cache_bytes),
+            cold(lambda c: da.decode_attention_int8_ref(q, *int8_args(c), lens), cache,
+                 cache_bytes))
+        deq = (cache[0].float() * cache[1][..., None]).to(bf16)
+        mask = (torch.arange(L, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+        qh = q.transpose(1, 2)
+        lib_ms = library_ms(torch, cold(lambda c: F.scaled_dot_product_attention(
+            qh, c[0, :, :L].transpose(1, 2), c[1, :, :L].transpose(1, 2), attn_mask=mask,
+            enable_gqa=hq != kvh), deq, nbytes(deq)))
+        used = sum(min(n_, L) for n_ in lengths)  # cached rows the lengths make it read
+        record("llama kernels", "decode_attention_int8", shape, err, ms, plain_ms, lib_ms,
+               bound(nbytes(q, lens, out) + 2 * used * kvh * (d + 4), 4 * hq * used * d, "fp32"),
+               f" | {launches} launches a request | library: SDPA "
+               f"over the dequantized bf16 cache, dequant not included")
+        print(f"[llama kernels]   decode_attention_int8 {shape}: "
+              f"{decode_note(da, b_, hq, kvh, d, L, True)}", flush=True)
+        del q, cache, out, ref, deq
+
+
 # -------------------------------------------------- B1's int8 QK^T form
 def truncating_quantize(torch):
     """`quantize_rows_int8` with truncation in place of round-half-even: the
@@ -1655,12 +1812,48 @@ def int8_attention_kernels(torch, F, dev, gen, record, attn):
     the SDXL and SD1.5 self-attention shapes, with the truncation control;
     times, bounds (the int8 QK^T at the int8 peak plus the bf16 P.V at the bf16
     peak, or the bytes) and, as the nearest yardstick, SDPA in bf16 (no
-    PyTorch call computes int8 attention)."""
+    PyTorch call computes int8 attention). First the wrapper's mirror of the
+    core table (`flash_fwd_uses_wgmma`) against the library's at every
+    compiled width and both forms. At each shape also the activation
+    pass (`quantize_qk_int8`, which the calls on the wgmma core run first)
+    against `int8_qk_operands` bit for bit: q8, k8, sq and sk with 0
+    mismatches, and the truncation control's q8 and k8, which must mismatch;
+    where the path runs it (the wgmma core's widths), its time alone and its
+    bound (bytes). Then the int8 form on the wgmma core with its options
+    (INT8_ATTN_CASES: causal, segment ids, GQA, ragged S) per element with
+    the same gate and control."""
     bf16 = torch.bfloat16
+    # the wrapper's mirror of csrc/flash_fwd.cu's core table, held against the table
+    table = {(d_, int8): flash_core(d_, int8)[0] for d_ in attn._KERNEL_HEAD_DIMS
+             for int8 in (False, True)}
+    check(all((core == "wgmma") == attn.flash_fwd_uses_wgmma(d_)
+              for (d_, _), core in table.items()), f"flash_fwd_uses_wgmma disagrees: {table}")
     worst, control_least = 0.0, float("inf")
     for shape in INT8_ATTN_SHAPES:
         b_, s_, h_, d_ = shape
         q, k, v = (torch.randn(shape, generator=gen, device=dev, dtype=bf16) for _ in range(3))
+        # the activation pass, bit for bit
+        scale = d_ ** -0.5
+        got = attn.quantize_qk_int8(q, k, scale)
+        torch.cuda.synchronize()
+        want = attn.int8_qk_operands(q, k, scale)
+        bad = [int((a != b).sum()) for a, b in zip(got, want)]
+        with swapped([(attn, "quantize_rows_int8", truncating_quantize(torch))]):
+            trunc = attn.int8_qk_operands(q, k, scale)
+        ctrl_bad = sum(int((a != b).sum()) for a, b in zip(got[:2], trunc[:2]))
+        note = ""
+        if attn.flash_fwd_uses_wgmma(next(x for x in attn._KERNEL_HEAD_DIMS if x >= d_)):
+            pass_ms = (cuda_ms(torch, lambda: attn.quantize_qk_int8(q, k, scale))
+                       + cuda_ms(torch, lambda: attn.quantize_qk_int8(q, k, scale))) / 2
+            pass_bound = nbytes(q, k, *got) / HBM_BYTES_PER_S * 1e3
+            note = (f"; the pass alone {pass_ms:.4f} ms (bound {pass_bound:.4f} ms, bytes), run "
+                    f"by the call before the wgmma core")
+        print(f"[int8 kernels] quantize_qk_int8 {shape}: mismatches q8 {bad[0]}, k8 {bad[1]}, sq "
+              f"{bad[2]}, sk {bad[3]} (must all be 0); control quantizing by truncation: "
+              f"{ctrl_bad} q8 / k8 mismatches (must be > 0){note}", flush=True)
+        check(sum(bad) == 0, f"quantize_qk_int8 {shape}: mismatches {bad}")
+        check(ctrl_bad > 0, f"quantize_qk_int8 {shape}: the truncation control matches")
+        del got, want, trunc
         out = attn.flash_attention_int8(q, k, v)
         torch.cuda.synchronize()
         ref = attn.flash_attention_int8_ref(q, k, v)
@@ -1687,6 +1880,38 @@ def int8_attention_kernels(torch, F, dev, gen, record, attn):
                bound_parts(nbytes(q, k, v, out), [(pv, "int8"), (pv, "bf16")]),
                " (library: SDPA in bf16, the nearest yardstick)", flash=(d_, 2 * pv, True))
         del q, k, v, out
+    for b_, s_, h_, kvh, d_, causal, segmented in INT8_ATTN_CASES:
+        shape = (b_, s_, h_, kvh, d_)
+        q = torch.randn((b_, s_, h_, d_), generator=gen, device=dev, dtype=bf16)
+        k, v = (torch.randn((b_, s_, kvh, d_), generator=gen, device=dev, dtype=bf16)
+                for _ in range(2))
+        kw = dict(causal=causal)
+        if segmented:
+            seg = torch.ones((b_, s_), dtype=torch.int32, device=dev)
+            for i in range(b_):
+                for cut in TRAIN_SEGMENT_CUTS:
+                    seg[i, int(cut * s_) + 11 * i:] += 1
+            kw["segment_ids"] = attn.SegmentIds(seg, seg)
+        out = attn.flash_attention_int8(q, k, v, **kw)
+        torch.cuda.synchronize()
+        ref = attn.flash_attention_int8_ref(q, k, v, **kw)
+        excess, need = ulp_gate(out, ref, INT8_ATTN_SUM)
+        with swapped([(attn, "quantize_rows_int8", truncating_quantize(torch))]):
+            control, control_need = ulp_gate(attn.flash_attention_int8_ref(q, k, v, **kw), ref,
+                                             INT8_ATTN_SUM)
+        worst, control_least = max(worst, need), min(control_least, control_need)
+        core, core_note = flash_core(d_, True)
+        what = ", ".join(w for w, on in (("causal", causal), ("segment ids", segmented),
+                                         (f"GQA {h_} on {kvh}", kvh != h_)) if on) or "no mask"
+        print(f"[int8 kernels] flash_attention_int8 {shape} {what}: core {core} ({core_note}); "
+              f"max_abs_err {(out.float() - ref.float()).abs().max().item():.3e}, excess "
+              f"{excess:.3e} (least c {need:.2e}); truncation control: excess {control:.3e} "
+              f"(must be > 0)", flush=True)
+        check(core == "wgmma", f"flash_attention_int8 {shape}: core {core}, not wgmma")
+        check(bool(torch.isfinite(out).all()) and excess <= 0,
+              f"flash_attention_int8 {shape} {what}: excess {excess}")
+        check(control > 0, f"flash_attention_int8 {shape} {what}: the control passes ({control})")
+        del q, k, v, out, ref
     print(f"[int8 kernels] least c over the shapes: kernel {worst:.2e}, truncation control "
           f"{control_least:.2e} (gate {INT8_ATTN_SUM:g})", flush=True)
 
@@ -2242,24 +2467,7 @@ def main():
     gen = torch.Generator(device=dev).manual_seed(0)
     summary = {}
 
-    def record(label, name, shape, err, ms, plain_ms, lib_ms, bnd, extra="", flash=None,
-               bwd=None):
-        """Print the times of one kernel case and keep them for the summary;
-        `flash` = (caller's head_dim, the bound's operations, int8) of a flash
-        forward case, or `bwd` = (caller's head_dim, the bound's operations) of
-        a flash backward one, adds the core that served it and its TFLOP/s."""
-        lib = "no single call" if lib_ms is None else f"{lib_ms:.3f} ms"
-        print(f"[{label}]   {name} {shape}{extra}: kernel {ms:.3f} ms | plain {plain_ms:.3f} ms "
-              f"| library {lib} | bound {bnd[0]:.4f} ms ({bnd[1]})", flush=True)
-        row = dict(shape=shape, err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound=bnd)
-        if flash is not None or bwd is not None:
-            d_, ops, int8 = flash if flash is not None else (*bwd, False)
-            core, note = flash_core(d_, int8) if flash is not None else bwd_core(d_)
-            row.update(core=core, tflops=ops / ms / 1e9)
-            print(f"[{label}]   {name} {shape}: core {core} ({note}) | {ops / ms / 1e9:.1f} "
-                  f"TFLOP/s of the bound's {ops:.4g} operations; the bound is "
-                  f"{100 * bnd[0] / ms:.1f}% of the kernel's time", flush=True)
-        summary.setdefault(name, []).append(row)
+    record = recorder(summary)
 
     def flash_case(label, shape, name="flash_attention"):
         b_, s_, h_, d_ = shape
@@ -2662,40 +2870,7 @@ def main():
                                                      (m, k, n), ms, 2 * m * n * k, "TFLOP/s"))
         del x, wq, scale, w16, out, ref, diff
         gc.collect()
-    for b_, hq, kvh, d, L, lengths in DECODE_CASES:
-        q = torch.randn((b_, 1, hq, d), generator=gen, device=dev).to(bf16)
-        # k and v are slices of a layer's cache with its parking slot, as in the model
-        cache = torch.randn((2, b_, L + 1, kvh, d), generator=gen, device=dev).to(bf16)
-        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
-        out = da_mod.decode_attention(q, cache[0, :, :L], cache[1, :, :L], lens)
-        torch.cuda.synchronize()
-        ref = da_mod.decode_attention_ref(q.float(), cache[0, :, :L].float(),
-                                          cache[1, :, :L].float(), lens)
-        err = (out.float() - ref).abs().max().item()
-        limit = DECODE_ULP * ref.abs() + DECODE_SUM * ref.abs().max()
-        excess = ((out.float() - ref).abs() - limit).max().item()
-        short = da_mod.decode_attention(q, cache[0, :, :L], cache[1, :, :L], lens - 1)
-        ctrl = ((short.float() - ref).abs() - limit).max().item()
-        shape = (b_, hq, kvh, d, L, lengths)
-        print(f"[llava kernels] decode_attention {shape} bf16: max_abs_err {err:.3e} (limit "
-              f"{DECODE_ULP:.4g}|ref| + {DECODE_SUM:g}|ref|max, excess {excess:.3e}); control "
-              f"with lengths one short: excess {ctrl:.3e} (must be > 0)", flush=True)
-        check(bool(torch.isfinite(out).all()) and excess <= 0, f"decode {shape}: err {err}")
-        check(ctrl > 0, f"decode {shape}: the one-short control passes the limit ({ctrl})")
-        mask = (torch.arange(L, device=dev)[None, :] < lens[:, None])[:, None, None, :]
-        qh = q.transpose(1, 2)
-        ms, plain_ms = timed_pair(
-            torch, cold(lambda c: da_mod.decode_attention(q, c[0, :, :L], c[1, :, :L], lens),
-                        cache, nbytes(cache)),
-            cold(lambda c: da_mod.decode_attention_ref(q, c[0, :, :L], c[1, :, :L], lens),
-                 cache, nbytes(cache)))
-        lib_ms = library_ms(torch, cold(lambda c: F.scaled_dot_product_attention(
-            qh, c[0, :, :L].transpose(1, 2), c[1, :, :L].transpose(1, 2), attn_mask=mask,
-            enable_gqa=hq != kvh), cache, nbytes(cache)))
-        used = sum(min(n_, L) for n_ in lengths)  # cached rows the lengths make it read
-        record("llava kernels", "decode_attention", shape, err, ms, plain_ms, lib_ms,
-               bound(nbytes(q, lens, out) + 2 * used * kvh * d * 2, 4 * hq * used * d, "fp32"))
-        del q, cache, out, ref, short, limit
+    decode_kernels(torch, F, dev, gen, record, da_mod)
     for rows, h in RMS_SHAPES:
         x = (3 * torch.randn((rows, h), generator=gen, device=dev)).to(bf16)
         w = 1 + 0.1 * torch.randn(h, generator=gen, device=dev)
@@ -3010,48 +3185,8 @@ def main():
     paged_bs = llama7b.PAGED_BLOCK_SIZE
 
     # --------------------------------------------------------- llama kernels
-    for b_, hq, kvh, d, L, lengths in INT8_DECODE_CASES:
-        q = torch.randn((b_, 1, hq, d), generator=gen, device=dev).to(bf16)
-        # k, v and their scales are slices of a layer's cache with its parking slot
-        cache = llama_mod._quantize_kv(torch.randn((2, b_, L + 1, kvh, d), generator=gen,
-                                                   device=dev))
-        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
-
-        def int8_args(c):
-            (kv, sc) = c
-            return kv[0, :, :L], kv[1, :, :L], sc[0, :, :L], sc[1, :, :L]
-        out = da_mod.decode_attention_int8(q, *int8_args(cache), lens)
-        torch.cuda.synchronize()
-        ref = da_mod.decode_attention_int8_ref(q.float(), *int8_args(cache), lens)
-        err = (out.float() - ref).abs().max().item()
-        excess, need = ulp_gate(out, ref, INT8_DECODE_SUM)
-        control, _ = ulp_gate(da_mod.decode_attention_int8_ref(q.float(), *int8_args(cache),
-                                                               lens - 64), ref, INT8_DECODE_SUM)
-        shape = (b_, hq, kvh, d, L, lengths)
-        print(f"[llama kernels] decode_attention_int8 {shape}: max_abs_err {err:.3e}, excess "
-              f"{excess:.3e} over 2**-7|ref| + {INT8_DECODE_SUM:g}|ref|max (least c {need:.2e}); "
-              f"control without the last 64 keys: excess {control:.3e} (must be > 0)", flush=True)
-        check(bool(torch.isfinite(out).all()) and excess <= 0,
-              f"decode_attention_int8 {shape}: excess {excess}")
-        check(control > 0, f"decode_attention_int8 {shape}: the control passes ({control})")
-        cache_bytes = nbytes(*cache)
-        ms, plain_ms = timed_pair(
-            torch, cold(lambda c: da_mod.decode_attention_int8(q, *int8_args(c), lens), cache,
-                        cache_bytes),
-            cold(lambda c: da_mod.decode_attention_int8_ref(q, *int8_args(c), lens), cache,
-                 cache_bytes))
-        deq = (cache[0].float() * cache[1][..., None]).to(bf16)
-        mask = (torch.arange(L, device=dev)[None, :] < lens[:, None])[:, None, None, :]
-        qh = q.transpose(1, 2)
-        lib_ms = library_ms(torch, cold(lambda c: F.scaled_dot_product_attention(
-            qh, c[0, :, :L].transpose(1, 2), c[1, :, :L].transpose(1, 2), attn_mask=mask,
-            enable_gqa=hq != kvh), deq, nbytes(deq)))
-        used = sum(min(n_, L) for n_ in lengths)  # cached rows the lengths make it read
-        record("llama kernels", "decode_attention_int8", shape, err, ms, plain_ms, lib_ms,
-               bound(nbytes(q, lens, out) + 2 * used * kvh * (d + 4), 4 * hq * used * d, "fp32"),
-               f" | {per_request['decode_attention_int8']} launches a request | library: SDPA "
-               f"over the dequantized bf16 cache, dequant not included")
-        del q, cache, out, ref, deq
+    int8_decode_kernels(torch, F, dev, gen, record, da_mod, llama_mod._quantize_kv,
+                        per_request["decode_attention_int8"])
     for b_, h_, kvh, d, bs, lengths in PAGED_CASES:
         if lengths is None:  # the paged batch's last decode step
             lengths = tuple(n + llama7b.PAGED_NEW_TOKENS - 1 for n in llama7b.PAGED_PROMPT_LENS)

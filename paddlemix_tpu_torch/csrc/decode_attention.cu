@@ -23,17 +23,38 @@
 //
 // Bound: the bytes of K and V up to the length, with B8's scales (decode
 // reads each cached row once; the arithmetic is ~4 * G flops per bf16 byte).
-// Each of the 256 threads owns 8 values of D of a key row (16 bytes of a bf16
-// row, 8 of an int8 one), D / 8 consecutive lanes a row, so a row is one
-// coalesced read; a thread loads its KPT rows of K and V of a key block (and
-// their scales) at once, up to 64 KB in flight per block for bf16 and half of
-// that for int8, before using them.
-// One block per (batch, kv head) would leave most SMs idle when B * KVH is
-// small (Llama-7B at batch 1: 32 blocks on 132 SMs), so the keys are split
-// into S contiguous ranges, one block each (the caller picks S): each block
-// writes its unnormalised (m, l, acc) to a scratch buffer, and a second
-// kernel merges the S partials of each query head, acc and l rescaled by
-// exp(m_s - max m). With S = 1 the first kernel writes the output itself.
+// At the serving shapes the bytes are few (34.6 MB for B8 at 4,095 keys of
+// Llama-2-7B, 10 us at 3.35 TB/s), so what the kernel must do is keep enough
+// loads in flight from its first instruction to its last and end every block
+// at the same time.
+//
+// Design. The keys are split into S contiguous ranges, one block of two warps
+// each (grid (KVH, B, S); ops/decode_attention.py `key_splits` picks S so
+// that the blocks fill whole waves of 4 blocks, 8 warps, an SM, the best
+// point of tools/probe_torch_int8_attn_parts.py's sweep on an H100; at 32
+// heads that is 33 ranges, 8 blocks on every SM, all resident at once). The two warps take turns over the block's range in steps of STEP
+// rows, with no block-wide barrier until the end. A key row is D / VPL
+// consecutive lanes (VPL values each: 8 bf16 or 16 int8, 16 bytes; 8 int8,
+// 8 bytes, at G >= 4), so a warp holds RPW = 32 / (D / VPL) row slots, and
+// each slot walks its own rows with its own online softmax state (m, l and
+// acc over its VPL columns, per query head) in registers. Each warp keeps a
+// ring of NST steps in shared memory (2 KB of K and V a step, and B8's
+// scales), filled by cp.async NST - 1 steps ahead: a lane copies its own
+// 16 (or 8) bytes of each of its rows and later reads only those, so the
+// ring needs no block barrier, only cp.async.wait_group (and a __syncwarp
+// for B8's scales, which a slot's first lane copies); rows past the length
+// are zero-filled. At the end the slots are merged by shuffles and the two
+// warps through shared memory, once: each block writes its unnormalised (m,
+// l, acc) to a scratch buffer, and a second kernel merges the S partials of
+// each query head, acc and l rescaled by exp(m_s - max m), in one pass (each
+// thread's share of the splits online, then the shares). It is launched as a
+// programmatic dependent of the first (PDL), so its launch overlaps the first
+// kernel's run. With S = 1 the first kernel writes the output itself. B8's int8 rows widen to fp32 by a byte permute into a float's
+// mantissa (exact, no conversion instruction) and take their scale in fp32
+// on the dot product (k) and on p (v): (q . k8) * ks and (p * vs) * v8. Keys
+// at or past the length are left out of the walk, which is what NEG's
+// weight, exp(NEG - m) = 0, gives them whenever the range has a key; a range
+// without one keeps m = -inf, l = 0.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared (ctypes binding,
 // no PyTorch headers); launched on the caller's stream, no allocation.
@@ -42,13 +63,20 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int WARPS = 2;               // warps a block
+constexpr int THREADS = 32 * WARPS;
 constexpr float NEG = -0.7f * 3.4028234663852886e38f;
 
-__device__ __forceinline__ void unpack8(const uint4& u, float (&v)[8]) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+// 8 bf16 of a 16-byte word group to fp32 (exact)
+__device__ __forceinline__ void unpack_bf16(const uint32_t* w, float* v) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     v[2 * i] = __uint_as_float(w[i] << 16);
@@ -56,40 +84,93 @@ __device__ __forceinline__ void unpack8(const uint4& u, float (&v)[8]) {
   }
 }
 
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
+// 4 int8 of a word to fp32 (exact): byte + 128 goes into the low mantissa
+// bits of 2^23, and 2^23 + 128 comes off
+__device__ __forceinline__ void unpack_s8x4(uint32_t w, float* v) {
+  const uint32_t x = w ^ 0x80808080u;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    v[j] = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7440 + j)) - 8388736.f;
 }
 
-// How a cache element type is read: 8 values of a row as one vector load.
-template <typename T>
-struct CacheRow;
+__device__ __forceinline__ void words(const uint4& u, uint32_t (&w)[4]) {
+  w[0] = u.x;
+  w[1] = u.y;
+  w[2] = u.z;
+  w[3] = u.w;
+}
 
-template <>
-struct CacheRow<__nv_bfloat16> {
-  using Vec = uint4;
-  static constexpr bool kInt8 = false;
-  __device__ __forceinline__ static void unpack(const Vec& u, float (&v)[8]) { unpack8(u, v); }
-};
+__device__ __forceinline__ void words(const uint2& u, uint32_t (&w)[2]) {
+  w[0] = u.x;
+  w[1] = u.y;
+}
 
-template <>
-struct CacheRow<int8_t> {
-  using Vec = uint2;
-  static constexpr bool kInt8 = true;
-  __device__ __forceinline__ static void unpack(const Vec& u, float (&v)[8]) {
-    const uint32_t w[2] = {u.x, u.y};
+// A lane's VPL values of a row of T, as one 16- or 8-byte load.
+template <typename T, int VPL>
+struct Lane {
+  static constexpr int BYTES = VPL * int(sizeof(T));
+  static constexpr int WORDS = BYTES / 4;
+  using Vec = typename std::conditional<BYTES == 16, uint4, uint2>::type;
+  static_assert(BYTES == 16 || BYTES == 8, "a lane loads 8 or 16 bytes");
+  __device__ __forceinline__ static void unpack(const Vec& u, float (&v)[VPL]) {
+    uint32_t w[WORDS];
+    words(u, w);
+    if constexpr (sizeof(T) == 2) {
+      unpack_bf16(w, v);
+    } else {
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        v[4 * i + j] = static_cast<float>(static_cast<int>(w[i] << (24 - 8 * j)) >> 24);
+      for (int i = 0; i < WORDS; ++i) unpack_s8x4(w[i], v + 4 * i);
     }
   }
 };
 
+template <int D, int G, typename T>
+struct Shape {
+  static constexpr bool INT8 = sizeof(T) == 1;
+  static constexpr int VPL = INT8 && G <= 2 ? 16 : 8;  // values of a row a lane
+  static constexpr int LB = VPL * int(sizeof(T));      // their bytes: one 16- or 8-byte copy
+  static constexpr int LPR = D / VPL;                  // lanes a row
+  static constexpr int RPW = 32 / LPR;                 // row slots a warp
+  static constexpr int U = 1024 / (32 * LB);           // rows a slot a step: 2 KB of K and V
+  static constexpr int STEP = RPW * U;                 // rows a warp a step
+  static constexpr int NST = G >= 4 ? 3 : 4;           // stages of a warp's ring
+  static constexpr int KV_BYTES = 2 * U * 32 * LB;     // a stage: K and V, lane by lane,
+  static constexpr int STAGE_BYTES = KV_BYTES + (INT8 ? 2 * U * RPW * 4 : 0);  // + B8's scales
+  static constexpr int MIN_BLOCKS = G >= 8 ? 4 : 8;    // resident blocks an SM
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// BYTES from global `src` to shared `dst`, asynchronously; zeros when !ok
+// (src is then not read)
+template <int BYTES>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src, bool ok) {
+  const int n = ok ? BYTES : 0;
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(src),
+                 "n"(BYTES), "r"(n)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// This thread's copies of all but the last N committed groups have landed.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // partial: per (query head, split) D + 2 floats, [m, l, acc[0..D)]. T is the
 // cache element type; ks / vs (the int8 rows' scales) are read for int8 only.
 template <int D, int G, typename T>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, Shape<D, G, T>::MIN_BLOCKS)
 decode_attention_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const float* __restrict__ ks,
                         const float* __restrict__ vs, const int* __restrict__ lengths,
@@ -98,176 +179,246 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict
                         long long v_sb, long long v_sl, long long v_sh, long long ks_sb,
                         long long ks_sl, long long ks_sh, long long vs_sb, long long vs_sl,
                         long long vs_sh, float scale) {
-  using Row = CacheRow<T>;
-  using Vec = typename Row::Vec;
-  constexpr int CH = D / 8;              // lanes per key row
-  constexpr int ROWS = THREADS / CH;     // key rows per pass
-  constexpr int KPT = G <= 2 ? 8 : 4;    // key rows per thread per block
-  constexpr int BK = ROWS * KPT;         // keys per block
-  __shared__ float s_p[G][BK];
-  __shared__ float s_m[G], s_l[G], s_alpha[G];
-  __shared__ float red[ROWS][D];
+  using Sh = Shape<D, G, T>;
+  constexpr int VPL = Sh::VPL, LB = Sh::LB, LPR = Sh::LPR, RPW = Sh::RPW, U = Sh::U;
+  constexpr int STEP = Sh::STEP, NST = Sh::NST;
+  constexpr bool INT8 = Sh::INT8;
+  using Ln = Lane<T, VPL>;
+  using Vec = typename Ln::Vec;
+  // each warp's ring of NST steps: in a stage, row u of a slot's K at 16-byte
+  // (or 8-byte) chunk 2u * 32 + lane, its V at (2u + 1) * 32 + lane (every
+  // lane reads only what it copied itself), and for int8 the rows' two scales
+  // after them at 2u * RPW + slot and (2u + 1) * RPW + slot (copied by the
+  // slot's first lane, read by all of its lanes after a __syncwarp)
+  __shared__ __align__(16) unsigned char ring[WARPS][NST][Sh::STAGE_BYTES];
+  __shared__ float red[WARPS][G][D + 2];  // each warp's merged (m, l, acc)
 
+  // the merge may be launched now: it waits for this grid before it reads
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   const int h = blockIdx.x, b = blockIdx.y, split = blockIdx.z, splits = gridDim.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int c = tid % CH, r = tid / CH;
+  const int c = lane % LPR, slot = lane / LPR;
   // this block's keys: [t_begin, n), n = min(length, L, the split's end)
   const int t_begin = split * chunk;
-  const int n = max(0, min(min(lengths[b], L), t_begin + chunk));
+  const int n = max(t_begin, min(min(lengths[b], L), t_begin + chunk));
   const int hq = kvh * G;
 
-  float qf[G][8], acc[G][8];
+  const T* kb = k + b * k_sb + h * k_sh + c * VPL;
+  const T* vb = v + b * v_sb + h * v_sh + c * VPL;
+  const float* ksb = INT8 ? ks + b * ks_sb + h * ks_sh : nullptr;
+  const float* vsb = INT8 ? vs + b * vs_sb + h * vs_sh : nullptr;
+
+  // the warp walks steps i = 0, 1, ... at rows t0(i) = t_begin + (warp + WARPS
+  // i) STEP; step i's copies are one commit group, in stage i % NST
+  const int first = t_begin + warp * STEP;
+  const int steps = first < n ? (n - first + WARPS * STEP - 1) / (WARPS * STEP) : 0;
+  const uint32_t ring_base = smem_addr(&ring[warp][0][0]);
+  const auto issue = [&](int i) {
+    if (i < steps) {
+      const int t0 = first + i * WARPS * STEP;
+      const uint32_t st = ring_base + (i % NST) * Sh::STAGE_BYTES;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int t = t0 + slot + RPW * u;
+        const bool ok = t < n;
+        cp_async<LB>(st + ((2 * u) * 32 + lane) * LB, ok ? kb + t * k_sl : kb, ok);
+        cp_async<LB>(st + ((2 * u + 1) * 32 + lane) * LB, ok ? vb + t * v_sl : vb, ok);
+        if (INT8 && c == 0) {  // the slot's first lane copies the row's scales
+          cp_async<4>(st + Sh::KV_BYTES + ((2 * u) * RPW + slot) * 4, ok ? ksb + t * ks_sl : ksb,
+                      ok);
+          cp_async<4>(st + Sh::KV_BYTES + ((2 * u + 1) * RPW + slot) * 4,
+                      ok ? vsb + t * vs_sl : vsb, ok);
+        }
+      }
+    }
+    cp_async_commit();  // empty past the last step: the group count stays uniform
+  };
+#pragma unroll
+  for (int i = 0; i < NST - 1; ++i) issue(i);
+
+  float qf[G][VPL], acc[G][VPL], m_i[G], l_i[G];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    float t[8];
-    unpack8(*reinterpret_cast<const uint4*>(q + ((size_t)b * hq + h * G + g) * D + c * 8), t);
+    const __nv_bfloat16* qg = q + ((size_t)b * hq + h * G + g) * D + c * VPL;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      qf[g][i] = t[i] * scale;
+    for (int j = 0; j < VPL / 8; ++j) {
+      const uint4 u = __ldg(reinterpret_cast<const uint4*>(qg + 8 * j));
+      const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+      unpack_bf16(w, qf[g] + 8 * j);
+    }
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) {
+      qf[g][i] *= scale;
       acc[g][i] = 0.f;
     }
+    m_i[g] = -INFINITY;
+    l_i[g] = 0.f;
   }
-  if (tid < G) {
-    s_m[tid] = -INFINITY;
-    s_l[tid] = 0.f;
-  }
-  const T* kb = k + b * k_sb + h * k_sh + c * 8;
-  const T* vb = v + b * v_sb + h * v_sh + c * 8;
-  const float* ksb = Row::kInt8 ? ks + b * ks_sb + h * ks_sh : nullptr;
-  const float* vsb = Row::kInt8 ? vs + b * vs_sb + h * vs_sh : nullptr;
 
-  for (int t0 = t_begin; t0 < n; t0 += BK) {
-    Vec kr[KPT], vr[KPT];
-    float ksr[KPT], vsr[KPT];  // the rows' scales (int8)
+  for (int i = 0; i < steps; ++i) {
+    cp_async_wait<NST - 2>();  // step i has landed
+    if constexpr (INT8) __syncwarp();  // and its scales, copied by each slot's first lane
+    issue(i + NST - 1);        // into the stage step i - 1 read
+    const int t0 = first + i * WARPS * STEP;
+    const unsigned char* st = ring[warp][i % NST];
+    const float* sc = reinterpret_cast<const float*>(st + Sh::KV_BYTES);
+
+    // logits of the slot's U rows: each row's LPR lanes reduce their parts
+    float s[U][G];
 #pragma unroll
-    for (int j = 0; j < KPT; ++j) {
-      const int t = t0 + r + j * ROWS;
-      kr[j] = t < n ? __ldg(reinterpret_cast<const Vec*>(kb + t * k_sl)) : Vec{};
-      vr[j] = t < n ? __ldg(reinterpret_cast<const Vec*>(vb + t * v_sl)) : Vec{};
-      if constexpr (Row::kInt8) {
-        ksr[j] = t < n ? __ldg(ksb + t * ks_sl) : 0.f;
-        vsr[j] = t < n ? __ldg(vsb + t * vs_sl) : 0.f;
-      }
-    }
-    __syncthreads();  // the previous block's PV has read s_p
-    // logits: each row's CH lanes reduce their partial dot products
-#pragma unroll
-    for (int j = 0; j < KPT; ++j) {
-      float kf[8];
-      Row::unpack(kr[j], kf);
-      if constexpr (Row::kInt8) {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) kf[i] *= ksr[j];  // dequant in fp32, as the TPU kernel
-      }
+    for (int u = 0; u < U; ++u) {
+      float kf[VPL];
+      Ln::unpack(*reinterpret_cast<const Vec*>(st + ((2 * u) * 32 + lane) * LB), kf);
+      const bool ok = t0 + slot + RPW * u < n;
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         float part = 0.f;
 #pragma unroll
-        for (int i = 0; i < 8; ++i) part = fmaf(qf[g][i], kf[i], part);
+        for (int j = 0; j < VPL; ++j) part = fmaf(qf[g][j], kf[j], part);
 #pragma unroll
-        for (int off = CH / 2; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
-        if (c == 0) s_p[g][r + j * ROWS] = t0 + r + j * ROWS < n ? part : NEG;
+        for (int off = LPR / 2; off > 0; off >>= 1)
+          part += __shfl_xor_sync(0xffffffffu, part, off);
+        if constexpr (INT8) part *= sc[(2 * u) * RPW + slot];  // the row's scale, in fp32
+        s[u][g] = ok ? part : -INFINITY;
       }
     }
-    __syncthreads();
-    // online softmax: warp g rescales query head g's running max and sum
-    if (warp < G) {
-      const int g = warp;
-      float mloc = -INFINITY;
-      for (int i = lane; i < BK; i += 32) mloc = fmaxf(mloc, s_p[g][i]);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mloc = fmaxf(mloc, __shfl_xor_sync(0xffffffffu, mloc, off));
-      const float m_old = s_m[g], m_new = fmaxf(m_old, mloc);
-      float lsum = 0.f;
-      for (int i = lane; i < BK; i += 32) {
-        const float p = expf(s_p[g][i] - m_new);
-        lsum += p;
-        // B7: P meets V in bf16, as in its TPU kernel; B8 keeps P in fp32
-        s_p[g][i] = Row::kInt8 ? p : round_bf16(p);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) lsum += __shfl_xor_sync(0xffffffffu, lsum, off);
-      __syncwarp();
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        s_alpha[g] = alpha;
-        s_l[g] = alpha * s_l[g] + lsum;
-        s_m[g] = m_new;
-      }
-    }
-    __syncthreads();
+    // the slot's online softmax; p meets V in bf16 for B7 and in fp32 for B8
+    float pv[U][G];
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      const float alpha = s_alpha[g];
+      float mx = s[0][g];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) acc[g][i] *= alpha;
+      for (int u = 1; u < U; ++u) mx = fmaxf(mx, s[u][g]);
+      const float m_new = fmaxf(m_i[g], mx);
+      const float base = m_new == -INFINITY ? 0.f : m_new;
+      const float alpha = expf(m_i[g] - base);
+      m_i[g] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const float p = expf(s[u][g] - base);  // 0 for rows past n
+        sum += p;
+        if constexpr (INT8) pv[u][g] = p * sc[(2 * u + 1) * RPW + slot];
+        else pv[u][g] = round_bf16(p);
+      }
+      l_i[g] = l_i[g] * alpha + sum;
+#pragma unroll
+      for (int j = 0; j < VPL; ++j) acc[g][j] *= alpha;
     }
 #pragma unroll
-    for (int j = 0; j < KPT; ++j) {
-      if (t0 + r + j * ROWS >= n) continue;
-      float vf[8];
-      Row::unpack(vr[j], vf);
-      if constexpr (Row::kInt8) {
+    for (int u = 0; u < U; ++u) {
+      float vf[VPL];
+      Ln::unpack(*reinterpret_cast<const Vec*>(st + ((2 * u + 1) * 32 + lane) * LB), vf);
 #pragma unroll
-        for (int i = 0; i < 8; ++i) vf[i] *= vsr[j];
-      }
+      for (int g = 0; g < G; ++g)
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const float p = s_p[g][r + j * ROWS];
+        for (int j = 0; j < VPL; ++j) acc[g][j] = fmaf(pv[u][g], vf[j], acc[g][j]);
+    }
+  }
+  cp_async_wait<0>();  // no copy outlives the block
+
+  // merge the warp's slots (lanes LPR, 2 LPR, ... apart), then the warps
 #pragma unroll
-        for (int i = 0; i < 8; ++i) acc[g][i] = fmaf(p, vf[i], acc[g][i]);
+  for (int off = LPR; off < 32; off <<= 1) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const float m_o = __shfl_xor_sync(0xffffffffu, m_i[g], off);
+      const float l_o = __shfl_xor_sync(0xffffffffu, l_i[g], off);
+      const float m_new = fmaxf(m_i[g], m_o);
+      const float base = m_new == -INFINITY ? 0.f : m_new;
+      const float w_s = expf(m_i[g] - base), w_o = expf(m_o - base);
+      l_i[g] = l_i[g] * w_s + l_o * w_o;
+#pragma unroll
+      for (int j = 0; j < VPL; ++j)
+        acc[g][j] = acc[g][j] * w_s + __shfl_xor_sync(0xffffffffu, acc[g][j], off) * w_o;
+      m_i[g] = m_new;
+    }
+  }
+  if (slot == 0) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+#pragma unroll
+      for (int j = 0; j < VPL; ++j) red[warp][g][2 + c * VPL + j] = acc[g][j];
+      if (c == 0) {
+        red[warp][g][0] = m_i[g];
+        red[warp][g][1] = l_i[g];
       }
     }
   }
-
-  // sum the ROWS partial accumulators of each query head; divide by l, or
-  // leave (m, l, acc) for the merge
+  __syncthreads();
+  for (int idx = tid; idx < G * D; idx += THREADS) {
+    const int g = idx / D, col = idx % D;
+    float m = -INFINITY;
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    __syncthreads();
+    for (int w = 0; w < WARPS; ++w) m = fmaxf(m, red[w][g][0]);
+    const float base = m == -INFINITY ? 0.f : m;
+    float l = 0.f, sum = 0.f;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) red[r][c * 8 + i] = acc[g][i];
-    __syncthreads();
-    if (tid < D) {
-      float sum = 0.f;
-#pragma unroll 8
-      for (int rr = 0; rr < ROWS; ++rr) sum += red[rr][tid];
-      const size_t head = (size_t)b * hq + h * G + g;
-      const float l = s_l[g];
-      if (splits == 1) {
-        out[head * D + tid] = __float2bfloat16(sum / (l == 0.f ? 1.f : l));
-      } else {
-        float* p = partial + (head * splits + split) * (D + 2);
-        p[2 + tid] = sum;
-        if (tid == 0) {
-          p[0] = s_m[g];
-          p[1] = l;
-        }
+    for (int w = 0; w < WARPS; ++w) {
+      const float wt = expf(red[w][g][0] - base);  // 0 for a warp without keys
+      l += wt * red[w][g][1];
+      sum += wt * red[w][g][2 + col];
+    }
+    const size_t head = (size_t)b * hq + h * G + g;
+    if (splits == 1) {
+      out[head * D + col] = __float2bfloat16(sum / (l == 0.f ? 1.f : l));
+    } else {
+      float* p = partial + (head * splits + split) * (D + 2);
+      p[2 + col] = sum;
+      if (col == 0) {
+        p[0] = m;
+        p[1] = l;
       }
     }
   }
 }
 
-// One block of D threads per (query head, batch): out = sum_s w_s acc_s /
+// One block of MERGE_THREADS per (query head, batch): out = sum_s w_s acc_s /
 // sum_s w_s l_s with w_s = exp(m_s - max m), 0 where no split saw a key.
+// Thread (part, column) merges the splits part, part + P, ... of its column
+// online, so that every load of the block goes out at once; the P parts are
+// then merged in shared memory. Launched as a programmatic dependent of the
+// first kernel: it waits for that grid's completion before reading.
+constexpr int MERGE_THREADS = 1024;
+
 template <int D>
-__global__ void __launch_bounds__(D)
+__global__ void __launch_bounds__(MERGE_THREADS)
 decode_attention_merge(const float* __restrict__ partial, __nv_bfloat16* __restrict__ out,
                        int hq, int splits) {
+  constexpr int P = MERGE_THREADS / D;
+  __shared__ float red[3][P][D];
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const size_t head = (size_t)blockIdx.y * hq + blockIdx.x;
   const float* p = partial + head * splits * (D + 2);
-  float m = -INFINITY;
-  for (int s = 0; s < splits; ++s) m = fmaxf(m, p[s * (D + 2)]);
-  float l = 0.f, sum = 0.f;
-  if (m != -INFINITY) {
-    for (int s = 0; s < splits; ++s) {
-      const float w = expf(p[s * (D + 2)] - m);  // 0 for a split without keys
-      l += w * p[s * (D + 2) + 1];
-      sum += w * p[s * (D + 2) + 2 + threadIdx.x];
-    }
+  const int col = threadIdx.x % D, part = threadIdx.x / D;
+  float m = -INFINITY, l = 0.f, sum = 0.f;
+#pragma unroll 8
+  for (int s = part; s < splits; s += P) {
+    const float* ps = p + s * (D + 2);
+    const float m_s = ps[0], l_s = ps[1], a_s = ps[2 + col];
+    const float m_new = fmaxf(m, m_s);
+    const float base = m_new == -INFINITY ? 0.f : m_new;
+    const float w_o = expf(m - base), w_s = expf(m_s - base);  // 0 for a split without keys
+    l = l * w_o + l_s * w_s;
+    sum = sum * w_o + a_s * w_s;
+    m = m_new;
   }
-  out[head * D + threadIdx.x] = __float2bfloat16(sum / (l == 0.f ? 1.f : l));
+  red[0][part][col] = m;
+  red[1][part][col] = l;
+  red[2][part][col] = sum;
+  __syncthreads();
+  if (part != 0) return;
+#pragma unroll
+  for (int q = 1; q < P; ++q) m = fmaxf(m, red[0][q][col]);
+  const float base = m == -INFINITY ? 0.f : m;
+  l = sum = 0.f;
+#pragma unroll
+  for (int q = 0; q < P; ++q) {
+    const float w = expf(red[0][q][col] - base);
+    l += w * red[1][q][col];
+    sum += w * red[2][q][col];
+  }
+  out[head * D + col] = __float2bfloat16(sum / (l == 0.f ? 1.f : l));
 }
 
 struct Args {
@@ -279,8 +430,28 @@ struct Args {
   float scale;
 };
 
+// The largest shared-memory carveout, asked once an instantiation, so that
+// Shape::MIN_BLOCKS blocks of it fit an SM; returns how many do, or minus
+// the cudaError_t of a call that failed.
+template <int D, int G, typename T>
+int prepare() {
+  static const int resident = [] {
+    int n = 0;
+    cudaError_t err = cudaFuncSetAttribute(decode_attention_kernel<D, G, T>,
+                                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                                           cudaSharedmemCarveoutMaxShared);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, decode_attention_kernel<D, G, T>,
+                                                          THREADS, 0);
+    return err == cudaSuccess ? n : -int(err);
+  }();
+  return resident;
+}
+
 template <int D, int G, typename T>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
+  const int resident = prepare<D, G, T>();
+  if (resident < 0) return cudaError_t(-resident);
   decode_attention_kernel<D, G, T><<<dim3(a.kvh, a.B, a.splits), THREADS, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const float*>(a.ks),
@@ -290,9 +461,17 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
       a.scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || a.splits == 1) return err;
-  decode_attention_merge<D><<<dim3(a.kvh * G, a.B), D, 0, stream>>>(
-      a.partial, static_cast<__nv_bfloat16*>(a.out), a.kvh * G, a.splits);
-  return cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.kvh * G, a.B);
+  cfg.blockDim = dim3(MERGE_THREADS);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, decode_attention_merge<D>, static_cast<const float*>(a.partial),
+                            static_cast<__nv_bfloat16*>(a.out), a.kvh * G, a.splits);
 }
 
 template <int D, typename T>
@@ -309,7 +488,7 @@ cudaError_t dispatch_g(int G, const Args& a, cudaStream_t stream) {
 template <typename T>
 cudaError_t dispatch(int D, int G, const Args& a, cudaStream_t stream) {
   if (a.B == 0 || a.kvh == 0) return cudaSuccess;
-  if (a.splits < 1 || (long long)a.splits * a.chunk < a.L ||
+  if (a.splits < 1 || (long long)a.splits * a.chunk < a.L || a.splits > 12288 ||
       (a.splits > 1 && a.partial == nullptr))
     return cudaErrorInvalidValue;
   if (D == 64) return dispatch_g<64, T>(G, a, stream);
@@ -348,4 +527,16 @@ extern "C" int decode_attention_int8(const void* q, const void* k, const void* v
                kvh, splits, chunk, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh, ks_sb, ks_sl, ks_sh,
                vs_sb, vs_sl, vs_sh, scale};
   return dispatch<int8_t>(D, G, a, static_cast<cudaStream_t>(stream));
+}
+
+// Blocks of the kernel for (D, G, int8 or bf16 cache) that one SM holds at
+// once, as the card reports it; below 0 for a shape without a kernel or a
+// failed query.
+extern "C" int decode_attention_blocks_per_sm(int D, int G, int int8) {
+#define DECODE_OCC(d, g) \
+  if (D == d && G == g) return int8 ? prepare<d, g, int8_t>() : prepare<d, g, __nv_bfloat16>();
+  DECODE_OCC(64, 1) DECODE_OCC(64, 2) DECODE_OCC(64, 4) DECODE_OCC(64, 8)
+  DECODE_OCC(128, 1) DECODE_OCC(128, 2) DECODE_OCC(128, 4) DECODE_OCC(128, 8)
+#undef DECODE_OCC
+  return -1;
 }

@@ -23,9 +23,9 @@
 // Two cores, chosen by a fixed table of the compiled head_dim (`dispatch`),
 // never by the outcome of a launch:
 //
-// The wgmma core (bf16 at D 64 and 128, inference and lse forms, every
-// option; namespace `wg`, with the Hopper blocks it shares with the backward
-// in csrc/wgmma.cuh). A block owns 128 query rows of one (batch, head):
+// The wgmma core (bf16 and int8 QK^T at D 64 and 128, inference and lse
+// forms, every option; namespace `wg`, with the Hopper blocks it shares with
+// the backward in csrc/wgmma.cuh). A block owns 128 query rows of one (batch, head):
 // two consumer warpgroups of 64 rows and a producer warpgroup, whose first
 // warp alone works and which hands its registers to the consumers
 // (`setmaxnreg`: 24 / 240). The producer loads Q once by TMA, then walks the
@@ -55,8 +55,43 @@
 // scale * log2(e) and rounded to bf16, scale_log2 = 1, and the lse is m +
 // log2(l) in base 2, from which B14 recomputes p = exp2(s - lse).
 //
-// The WMMA core (bf16 at D 32, 96, 160 and 256; the int8 QK^T form at every
-// width). A block owns 64 query rows of one (batch, head), keeps them in
+// int8 QK^T (the TPU kernel's `int8_qk` branch, PMIX_INT8_ATTN=1) quantizes
+// each q row and each k row to int8 with its own symmetric scale, with the
+// fp32 operations of the plain version (ops/attention.py
+// `quantize_rows_int8` / `int8_qk_operands`): a = max(max|x|, 1e-9), x8 =
+// clip(rint(x * (127 / a)), +-127) (the multiply by the reciprocal rounded
+// once, then round-half-even), q's scale (a / 127) * scale * log2(e), k's
+// a / 127, each operation rounded once (the _rn intrinsics are never
+// contracted into an FMA). S is summed exactly in int32 on the tensor cores
+// and dequantized in registers, s = (s32 * sq) * sk, so the scores equal the
+// plain version's bit for bit; the softmax and the bf16 P V are B1's. On the
+// wgmma core (D 64 and 128), as in the JAX wrapper, q and k are quantized
+// once, by an activation pass (`quantize_rows_kernel`: D / 8 lanes a row, 16
+// bytes each, the row's max by shuffles) into int8 (B, S, H, D) copies and
+// fp32 (B, H, S) row scales; the producer then TMA-loads the Q8 tile once and
+// walks K8 tiles beside the bf16 V tiles (int8 rows of 64 bytes in the
+// 64-byte swizzle at D 64, of 128 bytes in the 128-byte swizzle at D 128),
+// copying each tile's 128 key scales beside it as it copies the segment ids;
+// each consumer runs S = Q8 K8^T as m64n128k32 s8 `wgmma` from two K-major
+// descriptors into int32 registers, converts them to the fp32 scores in
+// place and goes on as the bf16 form does with scale_log2 = 1 (folded into
+// sq). The pass moves 3 bytes an element of q and k, a few per cent of the
+// core's time at the SDXL shapes. What bounds the form at D 64 is not its
+// products but the softmax phase that bounds bf16 there, to which the exact
+// dequantization adds per score an int32 -> fp32 conversion (on the
+// quarter-rate unit that runs exp2) and two multiplies: on an H100 the core
+// takes 1.27x the bf16 form's time at (2, 4096, 10, 64), and leaving out its
+// S product entirely saves only a twelfth of it. Moving the conversion to the
+// FP32 pipe (adding to 1.5 * 2^23), issuing the next tile's S ahead of the
+// softmax, and FA3's ping-pong of the two warpgroups each measured slower. On
+// the WMMA core the block quantizes its
+// q rows and each k tile itself as it loads them (every query block again),
+// and S runs as mma.sync m16n8k32 s8.s8.s32 (fragments by ldmatrix.x4,
+// below). The int8 form has no lse output: under autograd the forward stays
+// bf16, as in JAX.
+//
+// The WMMA core (bf16 at D 32, 96, 160 and 256, and the int8 QK^T form
+// there). A block owns 64 query rows of one (batch, head), keeps them in
 // shared memory as four 16-row warp tiles, and walks the keys in 64-row
 // tiles loaded synchronously into shared memory. Each warp computes
 // S = Q K^T with 16x16x16 bf16 WMMA fragments (fp32 accumulate) into shared
@@ -68,32 +103,20 @@
 // makes the width cost shared memory and not registers: 133,376 bytes at
 // D 160 and 194,816 at D 256 (one block an SM).
 //
-// int8 QK^T (the TPU kernel's `int8_qk` branch and the XLA prologue of its
-// wrapper): each q row and each k row is quantized to int8 with its own
-// symmetric scale as its tile is loaded, with the fp32 operations of the
-// plain version (ops/attention.py `quantize_rows_int8`): a = max(max|x|,
-// 1e-9), x8 = clip(rint(x * (127 / a)), +-127), q's scale (a / 127) *
-// scale_log2, k's a / 127. S is summed exactly in int32 on the tensor cores
-// by mma.sync m16n8k32 s8.s8.s32 (fragments by ldmatrix.x4, below) and
-// dequantized row by row, s = (s32 * sq) * sk,
-// so the scores equal the plain version's bit for bit; the softmax and the
-// bf16 P V are B1's. Quantizing inside the block needs no pass over q / k in
-// device memory; k tiles are quantized again by each query block, which is
-// cheap next to the products. The int8 form has no lse output: under autograd
-// the forward stays bf16, as in JAX.
-//
-// Left for later work: the other widths and the int8 form on the wgmma core
-// (s8 `wgmma`), a head-40 instantiation, scheduling the two consumer
-// warpgroups' softmax against each other, and skipping key tiles that no query
-// of the block shares a segment with, as the backward's wgmma core now does
-// (csrc/flash_bwd.cu `judge`: segment ids that share no id).
+// Left for later work: the other widths on the wgmma core, a head-40
+// instantiation, and skipping key tiles that no query of the block shares a
+// segment with, as the backward's wgmma core now does (csrc/flash_bwd.cu
+// `judge`: segment ids that share no id); for the int8 form, fewer operations
+// a score (a plain version that folds sq into the exp2's fused multiply-add
+// would round differently, so both would change together) or part of the
+// exp2 on the FMA pipe.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
 
-#include "wgmma.cuh"
+#include "gemm_wg.cuh"  // wgmma.cuh's blocks, the s8 SS product, the 64-byte swizzle
 
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
@@ -429,23 +452,85 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch, int 
   return int(cudaGetLastError());
 }
 
+// ------------------------------------------- the int8 QK^T form's activation pass
+constexpr int QUANT_THREADS = 256;
+
+// Quantizes every row of q (the first q_rows rows) and of k (the next k_rows),
+// each enumerated as (b, s, h) with h fastest, so that row r of q lands at
+// q8 + r * D of a contiguous (B, S, H, D) copy; LPR lanes a row (D / 8
+// rounded up to a power of two; lanes past D idle), 8 values a lane, the
+// row's max by shuffles among them. Scales go to sq / sk in (B, H, S) order:
+// sq = (a / 127) * scale_log2, sk = a / 127.
+template <int D, int LPR>
+__global__ void __launch_bounds__(QUANT_THREADS)
+quantize_rows_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     int8_t* __restrict__ q8, int8_t* __restrict__ k8, float* __restrict__ sq,
+                     float* __restrict__ sk, int heads, int kv_heads, int seq_q, int seq_kv,
+                     int q_rows, int k_rows, int q_sb, int q_ss, int q_sh, int k_sb, int k_ss,
+                     int k_sh, float scale_log2) {
+  static_assert(LPR * 8 >= D && LPR <= 32 && (LPR & (LPR - 1)) == 0, "a power of two >= D / 8");
+  const int gid = blockIdx.x * QUANT_THREADS + threadIdx.x;
+  const int c = (gid % LPR) * 8;
+  int row = gid / LPR;
+  const bool is_q = row < q_rows;
+  if (!is_q) row -= q_rows;
+  const bool valid = (is_q || row < k_rows) && c < D;
+  const int H = is_q ? heads : kv_heads, S = is_q ? seq_q : seq_kv;
+  const int h = row % H, s = (row / H) % S, b = row / (H * S);
+  uint4 u = make_uint4(0u, 0u, 0u, 0u);
+  if (valid)
+    u = __ldg(reinterpret_cast<const uint4*>(
+        is_q ? q + int64_t(b) * q_sb + int64_t(s) * q_ss + int64_t(h) * q_sh + c
+             : k + int64_t(b) * k_sb + int64_t(s) * k_ss + int64_t(h) * k_sh + c));
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+  float x[8], amax = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    x[2 * i] = __uint_as_float(w[i] << 16);
+    x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    amax = fmaxf(amax, fmaxf(fabsf(x[2 * i]), fabsf(x[2 * i + 1])));
+  }
+#pragma unroll
+  for (int off = LPR / 2; off > 0; off >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  if (!valid) return;
+  amax = fmaxf(amax, 1e-9f);
+  const float inv = __fdiv_rn(127.f, amax);
+  uint32_t packed[2] = {0u, 0u};
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int v = max(-127, min(127, __float2int_rn(__fmul_rn(x[i], inv))));
+    packed[i / 4] |= (static_cast<uint32_t>(v) & 0xffu) << (8 * (i % 4));
+  }
+  *reinterpret_cast<uint2*>((is_q ? q8 : k8) + int64_t(row) * D + c) =
+      make_uint2(packed[0], packed[1]);
+  if (c == 0) {
+    const float a = __fdiv_rn(amax, 127.f);
+    (is_q ? sq : sk)[(int64_t(b) * H + h) * S + s] = is_q ? __fmul_rn(a, scale_log2) : a;
+  }
+}
+
 // ---------------------------------------------------------------- the wgmma core
 namespace wg {
 
 constexpr int BM = 128;          // query rows a block: consumer warpgroups 0 and 1, 64 rows each
 constexpr int BN = 128;          // keys a tile
 
-template <int D>
+// INT8: Q and K are int8 (one D-byte row a query or key), V stays bf16.
+template <int D, bool INT8>
 struct Smem {
   static constexpr int STAGES = 3;
-  static constexpr uint32_t Q_BYTES = BM * D * 2;
-  static constexpr uint32_t TILE_BYTES = BN * D * 2;  // one K or V tile
+  static constexpr uint32_t QK = INT8 ? 1 : 2;        // bytes of a q / k element
+  static constexpr uint32_t Q_BYTES = BM * D * QK;
+  static constexpr uint32_t K_BYTES = BN * D * QK;     // one K tile
+  static constexpr uint32_t V_BYTES = BN * D * 2;      // one V tile
   // the Q, K, V and segment sections start on 1,024-byte boundaries (the
   // swizzle's period); the barriers need 8
   static constexpr uint32_t K_OFF = Q_BYTES;
-  static constexpr uint32_t V_OFF = K_OFF + STAGES * TILE_BYTES;
-  static constexpr uint32_t SEG_OFF = V_OFF + STAGES * TILE_BYTES;
-  static constexpr uint32_t BAR_OFF = SEG_OFF + STAGES * BN * 4;
+  static constexpr uint32_t V_OFF = K_OFF + STAGES * K_BYTES;
+  static constexpr uint32_t SEG_OFF = V_OFF + STAGES * V_BYTES;
+  static constexpr uint32_t SK_OFF = SEG_OFF + STAGES * BN * 4;  // int8: the keys' scales
+  static constexpr uint32_t BAR_OFF = SK_OFF + (INT8 ? STAGES * BN * 4 : 0);
   static constexpr uint32_t BARS = 1 + 2 * STAGES;  // Q, full[STAGES], empty[STAGES]
   static constexpr uint32_t TOTAL = BAR_OFF + BARS * 8 + 1024;  // + aligning the base
 };
@@ -460,6 +545,38 @@ __device__ __forceinline__ void issue_scores(float (&s)[BN / 2], uint32_t q_rows
     const uint32_t off = (kk % 4) * 32;
     wgmma_ss_n128(s, smem_desc(q_rows + (kk / 4) * BM * ROW + off, 16, 1024),
                   smem_desc(k_tile + (kk / 4) * BN * ROW + off, 16, 1024), kk > 0);
+  }
+}
+
+// S32 = Q8 K8^T, issued: D / 32 steps of k32, each 32 bytes into the D-byte
+// rows (64 in the 64-byte swizzle, 128 in the 128-byte one).
+template <int D>
+__device__ __forceinline__ void issue_scores_i8(int (&s)[BN / 2], uint32_t q_rows,
+                                                uint32_t k_tile) {
+#pragma unroll
+  for (int kk = 0; kk < D / 32; ++kk) {
+    if constexpr (D == 64)
+      wgmma_s8_ss_n128(s, smem_desc_sw64(q_rows + 32 * kk), smem_desc_sw64(k_tile + 32 * kk),
+                       kk > 0);
+    else
+      wgmma_s8_ss_n128(s, smem_desc(q_rows + 32 * kk, 16, 1024),
+                       smem_desc(k_tile + 32 * kk, 16, 1024), kk > 0);
+  }
+}
+
+// The int32 scores to fp32, s = (s32 * sq[row]) * sk[key], in the
+// accumulator's layout; `sk` points at the tile's key scales + c0.
+__device__ __forceinline__ void dequant_scores(float (&s)[BN / 2], const int (&s32)[BN / 2],
+                                               const float (&sq)[2], const float* sk) {
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const float2 k2 = *reinterpret_cast<const float2*>(sk + 8 * j);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      s[4 * j + 2 * r] = __fmul_rn(__fmul_rn(__int2float_rn(s32[4 * j + 2 * r]), sq[r]), k2.x);
+      s[4 * j + 2 * r + 1] =
+          __fmul_rn(__fmul_rn(__int2float_rn(s32[4 * j + 2 * r + 1]), sq[r]), k2.y);
+    }
   }
 }
 
@@ -523,21 +640,27 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BN / 2], float (&m_i)[2]
   for (int r = 0; r < 2; ++r) l_i[r] = l_i[r] * alpha[r] + sum[r];
 }
 
-template <int D>
+// INT8: tq / tk map the int8 copies of the activation pass, sq (B, H, Sq) and
+// sk (B, H / group, Skv) are its row scales, and scale_log2 is in sq.
+template <int D, bool INT8>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o, int seq_q,
                        int seq_kv, int o_sb, int o_ss, int o_sh, float scale_log2, int group,
                        int causal, const int* __restrict__ qseg, const int* __restrict__ kseg,
-                       int qseg_sb, int kseg_sb, float* __restrict__ lse) {
-  using L = Smem<D>;
+                       int qseg_sb, int kseg_sb, float* __restrict__ lse,
+                       const float* __restrict__ sq, const float* __restrict__ sk) {
+  using L = Smem<D, INT8>;
   constexpr int STAGES = L::STAGES;
-  constexpr int PANELS = D / 64;
+  constexpr int PANELS = D / 64;            // TMA boxes a bf16 tile
+  constexpr int QK_PANELS = INT8 ? 1 : PANELS;  // an int8 tile is one box of D-byte rows
+  constexpr uint32_t Q_WG = INT8 ? 64 * D : 64 * ROW;  // a warpgroup's rows of a Q panel
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   int* s_seg = reinterpret_cast<int*>(smem_raw + (base - raw) + L::SEG_OFF);
+  float* s_sk = reinterpret_cast<float*>(smem_raw + (base - raw) + L::SK_OFF);
   const uint32_t s_q = base, s_k = base + L::K_OFF, s_v = base + L::V_OFF;
   const uint32_t bar_q = base + L::BAR_OFF;
   const auto full = [&](int s) { return bar_q + 8u * (1 + s); };
@@ -565,9 +688,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (threadIdx.x < CONSUMERS + 32) {
       const int lane = threadIdx.x & 31;
       const int hk = h / group;  // GQA: the kv head this query head reads
+      const float* skb = INT8 ? sk + (int64_t(b) * (gridDim.y / group) + hk) * seq_kv : nullptr;
       if (lane == 0) {
         bar_arrive_expect_tx(bar_q, L::Q_BYTES);
-        for (int p = 0; p < PANELS; ++p)
+        for (int p = 0; p < QK_PANELS; ++p)
           tma_load(s_q + p * BM * ROW, &tq, bar_q, 64 * p, h, m0, b);
       }
       for (int t = 0; t < n_tiles; ++t) {
@@ -577,13 +701,15 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         if (kseg != nullptr)
           for (int i = lane; i < BN; i += 32)
             s_seg[s * BN + i] = n0 + i < seq_kv ? kseg[int64_t(b) * kseg_sb + n0 + i] : 0;
+        if constexpr (INT8)
+          for (int i = lane; i < BN; i += 32) s_sk[s * BN + i] = n0 + i < seq_kv ? skb[n0 + i] : 0.f;
         if (lane == 0) {
-          bar_arrive_expect_tx(full(s), 2 * L::TILE_BYTES);
-          const uint32_t kd = s_k + s * L::TILE_BYTES, vd = s_v + s * L::TILE_BYTES;
-          for (int p = 0; p < PANELS; ++p) {
+          bar_arrive_expect_tx(full(s), L::K_BYTES + L::V_BYTES);
+          const uint32_t kd = s_k + s * L::K_BYTES, vd = s_v + s * L::V_BYTES;
+          for (int p = 0; p < QK_PANELS; ++p)
             tma_load(kd + p * BN * ROW, &tk, full(s), 64 * p, hk, n0, b);
+          for (int p = 0; p < PANELS; ++p)
             tma_load(vd + p * BN * ROW, &tv, full(s), 64 * p, hk, n0, b);
-          }
         } else {
           bar_arrive(full(s));
         }
@@ -598,19 +724,26 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int row0 = m0 + wg * 64 + warp * 16 + (lane >> 2);
     const int c0 = 2 * (lane & 3);
     int my_seg[2] = {0, 0};
-    if (qseg != nullptr)
+    float q_scale[2] = {0.f, 0.f};  // int8: the rows' scales (0 past S, whose q8 rows are 0)
 #pragma unroll
-      for (int r = 0; r < 2; ++r)
-        if (row0 + 8 * r < seq_q) my_seg[r] = qseg[int64_t(b) * qseg_sb + row0 + 8 * r];
+    for (int r = 0; r < 2; ++r) {
+      if (row0 + 8 * r >= seq_q) continue;
+      if (qseg != nullptr) my_seg[r] = qseg[int64_t(b) * qseg_sb + row0 + 8 * r];
+      if constexpr (INT8) q_scale[r] = sq[(int64_t(b) * gridDim.y + h) * seq_q + row0 + 8 * r];
+    }
+    const float s_mul = INT8 ? 1.f : scale_log2;
 
     float acc_s[BN / 2], acc_o[D / 2], alpha[2];
+    int acc_i[INT8 ? BN / 2 : 1];  // int8: S = Q8 K8^T in int32
     float m_i[2] = {-INFINITY, -INFINITY}, l_i[2] = {0.f, 0.f};
     uint32_t pa[BN / 16][4];
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc_s[i] = 0.f;
 #pragma unroll
+    for (int i = 0; i < (INT8 ? BN / 2 : 1); ++i) acc_i[i] = 0;
+#pragma unroll
     for (int i = 0; i < D / 2; ++i) acc_o[i] = 0.f;
-    const uint32_t q_wg = s_q + wg * 64 * ROW;  // this warpgroup's rows of each Q panel
+    const uint32_t q_wg = s_q + wg * Q_WG;  // this warpgroup's rows of each Q panel
     bar_wait(bar_q, 0);
 
     // Tile t's S = Q K^T goes out with tile t - 1's O += P V, and t's softmax
@@ -619,22 +752,30 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       const int s = t % STAGES, prev = (t + STAGES - 1) % STAGES;
       const int n0 = t * BN;
       bar_wait(full(s), (t / STAGES) & 1);
-      pin(acc_s);
+      if constexpr (INT8) pin(acc_i); else pin(acc_s);
       pin(acc_o);
       pin(pa);
       wgmma_fence();
-      issue_scores<D>(acc_s, q_wg, s_k + s * L::TILE_BYTES);
+      if constexpr (INT8)
+        issue_scores_i8<D>(acc_i, q_wg, s_k + s * L::K_BYTES);
+      else
+        issue_scores<D>(acc_s, q_wg, s_k + s * L::K_BYTES);
       wgmma_commit();
       if (t > 0) {
-        issue_pv<D>(acc_o, pa, s_v + prev * L::TILE_BYTES);
+        issue_pv<D>(acc_o, pa, s_v + prev * L::V_BYTES);
         wgmma_commit();
         wgmma_wait<1>();  // S is in; P V may still run
       } else {
         wgmma_wait<0>();
       }
-      pin(acc_s);
+      if constexpr (INT8) {
+        pin(acc_i);
+        dequant_scores(acc_s, acc_i, q_scale, s_sk + s * BN + c0);
+      } else {
+        pin(acc_s);
+      }
       // masked only at the causal diagonal, at the ragged end, or with segments
-      softmax_tile(acc_s, m_i, l_i, alpha, scale_log2,
+      softmax_tile(acc_s, m_i, l_i, alpha, s_mul,
                    kseg != nullptr || n0 + BN > seq_kv || (causal && n0 + BN - 1 > m0 + wg * 64),
                    n0, seq_kv, causal, row0, c0, kseg != nullptr, s_seg + s * BN, my_seg);
       wgmma_wait<0>();
@@ -650,7 +791,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       pin(acc_o);
       pin(pa);
       wgmma_fence();
-      issue_pv<D>(acc_o, pa, s_v + last * L::TILE_BYTES);
+      issue_pv<D>(acc_o, pa, s_v + last * L::V_BYTES);
       wgmma_commit();
       wgmma_wait<0>();
       pin(acc_o);
@@ -677,61 +818,84 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// A map over the activation pass's contiguous int8 (B, S, H, D) copy, read as
+// (D, H, S, B); a box is one D-byte row (64 bytes in the 64-byte swizzle,
+// 128 in the 128-byte one) x `rows` rows of one head, zeros past S.
+CUresult make_map_i8(CUtensorMap* map, const void* ptr, int batch, int seq, int heads, int d,
+                     int rows) {
+  const uint64_t dims[4] = {uint64_t(d), uint64_t(heads), uint64_t(seq), uint64_t(batch)};
+  const uint64_t bytes[3] = {uint64_t(d), uint64_t(d) * heads, uint64_t(d) * heads * seq};
+  const uint32_t box[4] = {uint32_t(d), 1, uint32_t(rows), 1};
+  return make_map_nd(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, ptr, 4, dims, bytes, box,
+                     d == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
 }  // namespace wg
 
-template <int D>
+// The activation pass's int8 copies and scales (int8 QK^T on the wgmma core).
+struct Int8Operands {
+  const void *q8, *k8;
+  const float *sq, *sk;
+};
+
+template <int D, bool INT8>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, int batch, int heads,
                  int seq_q, int seq_kv, const int* st, float scale_log2, int group, int causal,
                  const int* qseg, const int* kseg, int qseg_sb, int kseg_sb, float* lse,
-                 cudaStream_t stream) {
-  constexpr uint32_t smem = wg::Smem<D>::TOTAL;
+                 const Int8Operands& i8, cudaStream_t stream) {
+  constexpr uint32_t smem = wg::Smem<D, INT8>::TOTAL;
   static_assert(smem <= 232448, "shared memory above the 227 KB a block can opt into");
-  cudaError_t err = cudaFuncSetAttribute(wg::flash_fwd_wgmma_kernel<D>,
+  cudaError_t err = cudaFuncSetAttribute(wg::flash_fwd_wgmma_kernel<D, INT8>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
   CUtensorMap tq, tk, tv;
-  CUresult res = wg::make_map(&tq, q, batch, seq_q, heads, D, st[0], st[1], st[2], wg::BM);
-  if (res == CUDA_SUCCESS)
-    res = wg::make_map(&tk, k, batch, seq_kv, heads / group, D, st[3], st[4], st[5], wg::BN);
+  CUresult res;
+  if constexpr (INT8) {
+    res = wg::make_map_i8(&tq, i8.q8, batch, seq_q, heads, D, wg::BM);
+    if (res == CUDA_SUCCESS)
+      res = wg::make_map_i8(&tk, i8.k8, batch, seq_kv, heads / group, D, wg::BN);
+  } else {
+    res = wg::make_map(&tq, q, batch, seq_q, heads, D, st[0], st[1], st[2], wg::BM);
+    if (res == CUDA_SUCCESS)
+      res = wg::make_map(&tk, k, batch, seq_kv, heads / group, D, st[3], st[4], st[5], wg::BN);
+  }
   if (res == CUDA_SUCCESS)
     res = wg::make_map(&tv, v, batch, seq_kv, heads / group, D, st[6], st[7], st[8], wg::BN);
   if (res != CUDA_SUCCESS) return TENSOR_MAP_ERROR + int(res);
   dim3 grid((seq_q + wg::BM - 1) / wg::BM, heads, batch);
-  wg::flash_fwd_wgmma_kernel<D><<<grid, wg::THREADS, smem, stream>>>(
+  wg::flash_fwd_wgmma_kernel<D, INT8><<<grid, wg::THREADS, smem, stream>>>(
       tq, tk, tv, static_cast<bf16*>(o), seq_q, seq_kv, st[9], st[10], st[11], scale_log2, group,
-      causal, qseg, kseg, qseg_sb, kseg_sb, lse);
+      causal, qseg, kseg, qseg_sb, kseg_sb, lse, i8.sq, i8.sk);
   return int(cudaGetLastError());
 }
 
-// The fixed table of cores by compiled head_dim: the wgmma core serves bf16 at
-// 64 and 128, the WMMA core every other width and the int8 QK^T form.
-constexpr bool uses_wgmma(int head_dim, bool int8) {
-  return !int8 && (head_dim == 64 || head_dim == 128);
+// The fixed table of cores by compiled head_dim: the wgmma core serves 64 and
+// 128 (bf16 and int8 QK^T), the WMMA core every other width.
+constexpr bool uses_wgmma(int head_dim) {
+  return head_dim == 64 || head_dim == 128;
 }
 
 template <bool INT8>
 int dispatch(const void* q, const void* k, const void* v, void* o, int batch, int heads,
              int seq_q, int seq_kv, int head_dim, const int* st, float scale_log2, int group,
              int causal, const int* qseg, const int* kseg, int qseg_sb, int kseg_sb, float* lse,
-             void* stream) {
+             const Int8Operands& i8, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (group < 1 || heads % group != 0 || (qseg == nullptr) != (kseg == nullptr) ||
-      (causal && seq_q != seq_kv) || (INT8 && lse != nullptr))
+      (causal && seq_q != seq_kv) || (INT8 && lse != nullptr) ||
+      (INT8 && uses_wgmma(head_dim) &&
+       (i8.q8 == nullptr || i8.k8 == nullptr || i8.sq == nullptr || i8.sk == nullptr)))
     return int(cudaErrorInvalidValue);
 #define FLASH_FWD_ARGS \
   q, k, v, o, batch, heads, seq_q, seq_kv, st, scale_log2, group, causal, qseg, kseg, qseg_sb, \
-      kseg_sb, lse, s
+      kseg_sb, lse
   switch (head_dim) {  // the table of `uses_wgmma`
-    case 32: return launch<32, INT8>(FLASH_FWD_ARGS);
-    case 64:
-      if constexpr (INT8) return launch<64, true>(FLASH_FWD_ARGS);
-      else return launch_wgmma<64>(FLASH_FWD_ARGS);
-    case 96: return launch<96, INT8>(FLASH_FWD_ARGS);
-    case 128:
-      if constexpr (INT8) return launch<128, true>(FLASH_FWD_ARGS);
-      else return launch_wgmma<128>(FLASH_FWD_ARGS);
-    case 160: return launch<160, INT8>(FLASH_FWD_ARGS);
-    case 256: return launch<256, INT8>(FLASH_FWD_ARGS);
+    case 32: return launch<32, INT8>(FLASH_FWD_ARGS, s);
+    case 64: return launch_wgmma<64, INT8>(FLASH_FWD_ARGS, i8, s);
+    case 96: return launch<96, INT8>(FLASH_FWD_ARGS, s);
+    case 128: return launch_wgmma<128, INT8>(FLASH_FWD_ARGS, i8, s);
+    case 160: return launch<160, INT8>(FLASH_FWD_ARGS, s);
+    case 256: return launch<256, INT8>(FLASH_FWD_ARGS, s);
     default: return int(cudaErrorInvalidValue);
   }
 #undef FLASH_FWD_ARGS
@@ -754,27 +918,68 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, void*
                               int qseg_sb, int kseg_sb, float* lse, void* stream) {
   const int st[12] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh};
   return dispatch<false>(q, k, v, o, batch, heads, seq_q, seq_kv, head_dim, st, scale_log2,
-                         group, causal, qseg, kseg, qseg_sb, kseg_sb, lse, stream);
+                         group, causal, qseg, kseg, qseg_sb, kseg_sb, lse, Int8Operands{},
+                         stream);
+}
+
+// The int8 QK^T form's activation pass at a compiled head_dim: q (B, Sq, H, D)
+// and k (B, Skv, KVH, D) bf16 as flash_fwd_bf16 takes them, into q8 / k8,
+// int8 (B, S, heads, D) contiguous, and sq (B, H, Sq) = (a_q / 127) *
+// scale_log2, sk (B, KVH, Skv) = a_k / 127, fp32 contiguous.
+extern "C" int flash_int8_quantize(const void* q, const void* k, void* q8, void* k8, float* sq,
+                                   float* sk, int batch, int heads, int kv_heads, int seq_q,
+                                   int seq_kv, int head_dim, int q_sb, int q_ss, int q_sh,
+                                   int k_sb, int k_ss, int k_sh, float scale_log2,
+                                   void* stream) {
+  const int q_rows = batch * seq_q * heads, k_rows = batch * seq_kv * kv_heads;
+  const int lpr = head_dim <= 32 ? 4 : head_dim <= 64 ? 8 : head_dim <= 128 ? 16 : 32;
+  const int64_t threads = int64_t(q_rows + k_rows) * lpr;
+  if (threads == 0) return 0;
+  const unsigned blocks = unsigned((threads + QUANT_THREADS - 1) / QUANT_THREADS);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define QUANT_ARGS                                                                            \
+  static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<int8_t*>(q8),        \
+      static_cast<int8_t*>(k8), sq, sk, heads, kv_heads, seq_q, seq_kv, q_rows, k_rows, q_sb, \
+      q_ss, q_sh, k_sb, k_ss, k_sh, scale_log2
+  switch (head_dim) {  // every compiled width (the core uses the pass at 64 and 128)
+    case 32: quantize_rows_kernel<32, 4><<<blocks, QUANT_THREADS, 0, s>>>(QUANT_ARGS); break;
+    case 64: quantize_rows_kernel<64, 8><<<blocks, QUANT_THREADS, 0, s>>>(QUANT_ARGS); break;
+    case 96: quantize_rows_kernel<96, 16><<<blocks, QUANT_THREADS, 0, s>>>(QUANT_ARGS); break;
+    case 128: quantize_rows_kernel<128, 16><<<blocks, QUANT_THREADS, 0, s>>>(QUANT_ARGS); break;
+    case 160: quantize_rows_kernel<160, 32><<<blocks, QUANT_THREADS, 0, s>>>(QUANT_ARGS); break;
+    case 256: quantize_rows_kernel<256, 32><<<blocks, QUANT_THREADS, 0, s>>>(QUANT_ARGS); break;
+    default: return int(cudaErrorInvalidValue);
+  }
+#undef QUANT_ARGS
+  return int(cudaGetLastError());
 }
 
 // The inference form with int8 QK^T: the same operands as flash_fwd_bf16, no
-// lse; scale_log2 = scale * log2(e) goes into q's row scales.
+// lse; scale_log2 = scale * log2(e) goes into q's row scales. At head_dim 64
+// and 128 (the wgmma core) q8 / k8 / sq / sk are flash_int8_quantize's
+// outputs for this q and k (q and k are not read); elsewhere they are unused
+// and may be null.
 extern "C" int flash_fwd_int8qk_bf16(const void* q, const void* k, const void* v, void* o,
                                      int batch, int heads, int seq_q, int seq_kv, int head_dim,
                                      int q_sb, int q_ss, int q_sh, int k_sb, int k_ss, int k_sh,
                                      int v_sb, int v_ss, int v_sh, int o_sb, int o_ss, int o_sh,
                                      float scale_log2, int group, int causal, const int* qseg,
-                                     const int* kseg, int qseg_sb, int kseg_sb, void* stream) {
+                                     const int* kseg, int qseg_sb, int kseg_sb, const void* q8,
+                                     const void* k8, const float* sq, const float* sk,
+                                     void* stream) {
   const int st[12] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh};
   return dispatch<true>(q, k, v, o, batch, heads, seq_q, seq_kv, head_dim, st, scale_log2,
-                        group, causal, qseg, kseg, qseg_sb, kseg_sb, nullptr, stream);
+                        group, causal, qseg, kseg, qseg_sb, kseg_sb, nullptr,
+                        Int8Operands{q8, k8, sq, sk}, stream);
 }
 
 // The core the table sends a compiled head_dim to (1 wgmma, 0 WMMA) and, for
 // the wgmma core, its block's dynamic shared memory in *smem_bytes (else 0).
 extern "C" int flash_fwd_core(int head_dim, int int8, int* smem_bytes) {
-  const bool wgmma = uses_wgmma(head_dim, int8 != 0);
-  *smem_bytes = !wgmma ? 0 : head_dim == 64 ? int(wg::Smem<64>::TOTAL)
-                                             : int(wg::Smem<128>::TOTAL);
+  const bool wgmma = uses_wgmma(head_dim);
+  *smem_bytes = !wgmma ? 0
+                : head_dim == 64 ? int(int8 ? wg::Smem<64, true>::TOTAL : wg::Smem<64, false>::TOTAL)
+                                 : int(int8 ? wg::Smem<128, true>::TOTAL
+                                            : wg::Smem<128, false>::TOTAL);
   return wgmma ? 1 : 0;
 }

@@ -11,7 +11,9 @@ Kernels (CUDA tensors launch them; CPU tensors run their plain versions):
   form (no lse, the scale folded in fp32); `flash_attention_int8` the
   inference form with int8 QK^T (`int8_qk`, the JAX switch PMIX_INT8_ATTN=1:
   q and k quantized per row, an exact int32 product, B1's softmax and bf16
-  P.V); `flash_fwd_lse` its lse form (B15), on q pre-scaled by
+  P.V; at head dims 64 and 128 an activation pass, `quantize_qk_int8`,
+  quantizes q and k once before the core runs, as the JAX wrapper's
+  prologue does); `flash_fwd_lse` its lse form (B15), on q pre-scaled by
   scale * log2(e) and rounded to q's dtype as the JAX wrapper does, writing
   the base-2 lse of each row, fp32 (B, H, S);
 - `csrc/flash_bwd.cu`: the backward (B14), `flash_bwd_dkv` and
@@ -52,6 +54,17 @@ LOG2E = math.log2(math.e)
 # at or above it (the backward's 65-128 run its wgmma core's 128)
 _KERNEL_HEAD_DIMS = (32, 64, 96, 128, 160, 256)
 _BWD_HEAD_DIMS = (32, 64, 128, 160, 256)
+# the compiled head dims that csrc/flash_fwd.cu's fixed table (`uses_wgmma`)
+# sends to its wgmma core, in both forms (bf16 and int8 QK^T); the others run
+# its WMMA core
+_FWD_WGMMA_HEAD_DIMS = (64, 128)
+
+
+def flash_fwd_uses_wgmma(d_kernel: int) -> bool:
+    """The forward's core at a compiled head_dim, as csrc/flash_fwd.cu's table
+    picks it (`flash_fwd_core` there answers the same): the wgmma core at 64
+    and 128, bf16 and int8 QK^T alike, else the WMMA core."""
+    return d_kernel in _FWD_WGMMA_HEAD_DIMS
 
 
 def int8_qk_default() -> bool:
@@ -325,7 +338,17 @@ def _flash_fn(int8: bool):
     lib = load_library("flash_fwd")
     fn = lib.flash_fwd_int8qk_bf16 if int8 else lib.flash_fwd_bf16
     fn.argtypes = [_P] * 4 + [_I] * 17 + [ctypes.c_float] + [_I] * 2 + [_P] * 2 + [_I] * 2 \
-        + [_P] * (1 if int8 else 2)
+        + [_P] * (5 if int8 else 2)
+    fn.restype = _I
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _quantize_fn():
+    from ..kernels import load_library
+
+    fn = load_library("flash_fwd").flash_int8_quantize
+    fn.argtypes = [_P] * 6 + [_I] * 12 + [ctypes.c_float, _P]
     fn.restype = _I
     return fn
 
@@ -393,18 +416,61 @@ def _pad_head_dim(d_kernel, *ts):
                  for t in ts)
 
 
+def _quantize_qk_cuda(q, k, scale_log2):
+    """The int8 QK^T form's activation pass on kernel operands (bf16, unit
+    stride over a compiled head_dim): q8 (B, Sq, H, D) and k8
+    (B, Skv, KVH, D) int8, contiguous; sq (B, H, Sq) = (a_q / 127) *
+    scale_log2 and sk (B, KVH, Skv) = a_k / 127, fp32."""
+    b, sq_len, h, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    q8 = torch.empty(q.shape, dtype=torch.int8, device=q.device)
+    k8 = torch.empty(k.shape, dtype=torch.int8, device=q.device)
+    sq = torch.empty((b, h, sq_len), dtype=torch.float32, device=q.device)
+    sk = torch.empty((b, hkv, skv), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = _quantize_fn()(q.data_ptr(), k.data_ptr(), q8.data_ptr(), k8.data_ptr(),
+                             sq.data_ptr(), sk.data_ptr(), b, h, hkv, sq_len, skv, d,
+                             *q.stride()[:3], *k.stride()[:3], scale_log2,
+                             torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_int8_quantize launch failed with cudaError {err}")
+    return q8, k8, sq, sk
+
+
+def quantize_qk_int8(q, k, scale: float):
+    """(q8, k8, sq, sk) of int8 QK^T, as `int8_qk_operands` makes them: sq
+    (B, Sq, Hq) and sk (B, Skv, Hkv) fp32. CUDA tensors launch the activation
+    pass that `flash_attention_int8` runs before its wgmma core, on q and k
+    padded to the compiled head_dim as the wrapper pads them (q8 and k8 are
+    views of its first d columns, sq and sk of its (B, H, S) scales); CPU
+    tensors run `int8_qk_operands`."""
+    if q.is_cuda:
+        d = q.shape[3]
+        d_kernel, _ = _check_operands("quantize_qk_int8", q, k, k, False, None)
+        q, k = (_kernel_operand(t) for t in _pad_head_dim(d_kernel, q, k))
+        q8, k8, sq, sk = _quantize_qk_cuda(q, k, scale * LOG2E)
+        return q8[..., :d], k8[..., :d], sq.transpose(1, 2), sk.transpose(1, 2)
+    _cpu_only("quantize_qk_int8", q)
+    return int8_qk_operands(q, k, scale)
+
+
 def _flash_fwd_cuda(q, k, v, scale_log2, causal, segment_ids, want_lse, int8=False):
     b, sq, h, d = q.shape
     d_kernel, segs = _check_operands("flash_attention", q, k, v, causal, segment_ids)
     q, k, v = (_kernel_operand(t) for t in _pad_head_dim(d_kernel, q, k, v))
     o = torch.empty((b, sq, h, d_kernel), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if want_lse else None
+    # int8 QK^T on the wgmma core: the activation pass first, on the same stream
+    operands = _quantize_qk_cuda(q, k, scale_log2) \
+        if int8 and flash_fwd_uses_wgmma(d_kernel) else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, h, sq, k.shape[1],
                 d_kernel, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
                 scale_log2, h // k.shape[2], int(causal), *_segment_args(segs, sq, k.shape[1])]
-        if not int8:
+        if int8:
+            args += [None] * 4 if operands is None else [t.data_ptr() for t in operands]
+        else:
             args.append(None if lse is None else lse.data_ptr())
         err = _flash_fn(int8)(*args, stream)
     if err:
@@ -562,8 +628,9 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention_int8(q, k, v, *, scale: Optional[float] = None, causal=False,
                          segment_ids: Optional[SegmentIds] = None):
     """The inference form with int8 QK^T, (B, S, H, D) layout. CUDA tensors
-    launch the kernel (no gradient); CPU tensors run
-    `flash_attention_int8_ref`."""
+    launch the kernel (no gradient): at compiled head dims 64 and 128 the
+    activation pass and then the wgmma core, counted once a call; CPU tensors
+    run `flash_attention_int8_ref`."""
     scale = q.shape[3] ** -0.5 if scale is None else scale
     if q.is_cuda:
         refuse_grad("flash_attention_int8", q, k, v)

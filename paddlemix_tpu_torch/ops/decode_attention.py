@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Optional
 
 import torch
@@ -21,14 +22,40 @@ from .autograd import refuse_grad
 NEG = -0.7 * float(torch.finfo(torch.float32).max)
 _KERNEL_HEAD_DIMS = (64, 128)
 _KERNEL_GROUPS = (1, 2, 4, 8)
-_TARGET_BLOCKS = 264     # two blocks per SM on a 132-SM card
-_MIN_SPLIT_KEYS = 64     # fewer keys per block would not pay for the merge
+_SMS = 132               # an H100 SXM's streaming multiprocessors
+_MIN_SPLIT_KEYS = 16     # fewer keys per block would not pay for its partial
+# blocks of 2 warps an SM a wave: 8 warps an SM, the best point at every
+# serving shape in tools/probe_torch_int8_attn_parts.py's sweep of warps a
+# block and key ranges (an H100)
+WAVE_BLOCKS_PER_SM = 4
 
 
-def key_splits(batch: int, kv_heads: int, slots: int):
-    """(splits, keys per split) for the kernel: enough (batch, kv head, key
-    range) blocks to fill the card, each range at least _MIN_SPLIT_KEYS."""
-    splits = max(1, min(-(-_TARGET_BLOCKS // (batch * kv_heads)), slots // _MIN_SPLIT_KEYS))
+def kernel_blocks_per_sm(d: int, group: int, int8: bool) -> int:
+    """What the card reports for the kernel at (D, G, cache type):
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor after the kernel's
+    shared-memory carveout (negative if the query failed)."""
+    from ..kernels import load_library
+
+    fn = load_library("decode_attention").decode_attention_blocks_per_sm
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    return fn(d, group, int(int8))
+
+
+def key_splits(batch: int, kv_heads: int, slots: int, sms: int = _SMS):
+    """(splits, keys per split) for the kernel's grid of (kv head, batch, key
+    range) blocks: whole waves of the card (a multiple of `sms` blocks, as many
+    multiples as one wave of WAVE_BLOCKS_PER_SM an SM holds, at least one),
+    each range at least _MIN_SPLIT_KEYS keys. Where no multiple of `sms` is
+    that long, the most splits up to one wave."""
+    heads = batch * kv_heads
+    wave = sms * WAVE_BLOCKS_PER_SM
+    most = max(1, slots // _MIN_SPLIT_KEYS)
+    unit = sms // math.gcd(heads, sms)  # the least splits of whole SM multiples
+    if unit <= most:
+        splits = unit * min(max(1, wave // (heads * unit)), most // unit)
+    else:
+        splits = max(1, min(-(-wave // heads), most))
     return splits, -(-slots // splits)
 
 
@@ -85,22 +112,27 @@ def _check_decode_args(name, q, k_cache, v_cache, lengths, cache_dtype):
         raise ValueError(f"{name}: q must be a contiguous bf16 tensor, got {q.dtype} "
                          f"strides {q.stride()}")
     for arg, t in (("k_cache", k_cache), ("v_cache", v_cache)):
-        # 8 values of D a thread: 16-byte (bf16) or 8-byte (int8) aligned loads
+        # up to 16 bytes of a row a lane: 16-byte aligned loads
         if t.device != q.device or t.dtype != cache_dtype or t.stride(-1) != 1 \
-                or any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % (8 * t.element_size()):
+                or any(s * t.element_size() % 16 for s in t.stride()[:3]) or t.data_ptr() % 16:
             raise ValueError(f"{name}: {arg} must be {cache_dtype} on {q.device} with unit "
-                             f"stride over D and aligned rows (strides a multiple of 8), got "
-                             f"{t.dtype} on {t.device}, strides {t.stride()}")
+                             f"stride over D and 16-byte aligned rows, got {t.dtype} on "
+                             f"{t.device}, strides {t.stride()}")
     if lengths.device != q.device or lengths.dtype != torch.int32 or tuple(lengths.shape) != (b,):
         raise ValueError(f"{name}: lengths must be ({b},) int32 on {q.device}, got "
                          f"{lengths.dtype} {tuple(lengths.shape)} on {lengths.device}")
     return b, L, kvh, hq, d
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _split_buffers(q, b, kvh, hq, d, L):
     """The output, the key ranges, and the merge's scratch: per (query head,
     key range) the range's max, sum and unnormalised output."""
-    splits, chunk = key_splits(b, kvh, L)
+    splits, chunk = key_splits(b, kvh, L, _sm_count(q.device))
     partial = torch.empty((b, hq, splits, d + 2), dtype=torch.float32, device=q.device) \
         if splits > 1 else None
     return torch.empty_like(q), splits, chunk, partial
@@ -163,6 +195,47 @@ def decode_attention_int8_ref(q, k_q, v_q, k_scale, v_scale, lengths, *,
     # kernel reads as 1: zeros out
     p = torch.softmax(logits.masked_fill(~mask, NEG), dim=-1) * mask
     return torch.einsum("bhqk,bkhd->bqhd", p, v).to(q.dtype)
+
+
+def decode_attention_split_ref(q, k_cache, v_cache, lengths, *, scale: Optional[float] = None,
+                               k_scale=None, v_scale=None, splits: Optional[int] = None):
+    """B7 (bf16 cache) or, with k_scale / v_scale, B8 walked as the kernel
+    walks it: the keys cut into `key_splits`' ranges (or `splits` equal ones),
+    each range's unnormalised (m, l, acc) over its keys below the length
+    (B8: logits (q * scale . k8) * ks and P V as (p * vs) . v8, fp32; B7: P
+    rounded to v's dtype for P V, l over fp32 p), then the merge: acc and l
+    rescaled by exp(m_s - max m), out = acc / l with l == 0 read as 1. For
+    the tests."""
+    b, _, hq, d = q.shape
+    L, kvh = k_cache.shape[1], k_cache.shape[2]
+    g = hq // kvh
+    scale = d ** -0.5 if scale is None else scale
+    int8 = k_scale is not None
+    splits, chunk = key_splits(b, kvh, L) if splits is None else (splits, -(-L // splits))
+    qf = (q.float() * scale).reshape(b, kvh, g, d)
+    neg_inf = torch.tensor(float("-inf"), device=q.device)
+    parts = []
+    for lo in range(0, splits * chunk, chunk):
+        hi = min(lo + chunk, L)
+        valid = (torch.arange(lo, max(lo, hi), device=q.device)[None]
+                 < lengths.to(q.device)[:, None])[:, None, None, :]  # (B, 1, 1, n)
+        s = torch.einsum("bhgd,bnhd->bhgn", qf, k_cache[:, lo:hi].float())
+        if int8:
+            s = s * k_scale[:, lo:hi].float().transpose(1, 2)[:, :, None, :]
+        s = torch.where(valid, s, neg_inf)
+        m = s.amax(-1) if s.shape[-1] else torch.full(s.shape[:-1], float("-inf"),
+                                                       device=q.device)
+        p = torch.exp(s - torch.where(m == float("-inf"), 0.0, m)[..., None])  # 0 where masked
+        pv = p * v_scale[:, lo:hi].float().transpose(1, 2)[:, :, None, :] if int8 \
+            else p.to(v_cache.dtype).float()
+        parts.append((m, p.sum(-1), torch.einsum("bhgn,bnhd->bhgd", pv,
+                                                 v_cache[:, lo:hi].float())))
+    top = torch.stack([m for m, _, _ in parts]).amax(0)
+    base = torch.where(top == float("-inf"), 0.0, top)
+    l = sum(torch.exp(m - base) * l_s for m, l_s, _ in parts)
+    acc = sum(torch.exp(m - base)[..., None] * a for m, _, a in parts)
+    out = acc / torch.where(l == 0, 1.0, l)[..., None]
+    return out.reshape(b, 1, hq, d).to(q.dtype)
 
 
 def _decode_int8_cuda(q, k_q, v_q, k_scale, v_scale, lengths, scale):

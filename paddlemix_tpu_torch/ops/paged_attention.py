@@ -19,7 +19,18 @@ from typing import Optional
 import torch
 
 from .autograd import refuse_grad
-from .decode_attention import _KERNEL_GROUPS, _KERNEL_HEAD_DIMS, key_splits
+from .decode_attention import _KERNEL_GROUPS, _KERNEL_HEAD_DIMS
+
+_TARGET_BLOCKS = 264     # two blocks per SM on a 132-SM card
+_MIN_SPLIT_KEYS = 64     # fewer keys per block would not pay for the merge
+
+
+def key_splits(batch: int, kv_heads: int, slots: int):
+    """(splits, keys per split) for the kernel: enough (batch, kv head, key
+    range) blocks to fill the card, each range at least _MIN_SPLIT_KEYS."""
+    splits = max(1, min(-(-_TARGET_BLOCKS // (batch * kv_heads)), slots // _MIN_SPLIT_KEYS))
+    return splits, -(-slots // splits)
+
 
 _MASKED = -1e30
 

@@ -16,8 +16,9 @@ step, and the busy share = device kernel time of the profiled request / wall
 time of the unprofiled one. A profiled 1-token request splits the prefill
 from the decode.
 
-Usage (from the root of a checkout, on a machine with a CUDA card):
-    python3 tools/profile_torch_llama_kv.py
+Usage (from the root of a checkout, on a machine with a CUDA card; naming a
+path runs it alone):
+    python3 tools/profile_torch_llama_kv.py [int8kv] [paged]
 """
 
 import os
@@ -103,10 +104,13 @@ def main():
     dev = torch.device("cuda")
     model = random_llama(dev, torch.bfloat16, seed=0, cachekv_int8=True)
 
-    ids, mask = int8kv_request(model.config, 1, dev)
-    profile_request(torch, "int8kv", lambda n: greedy_generate(
-        model, ids, mask, max_new_tokens=n, eos_token_id=-1), llama7b.INT8KV_NEW_TOKENS)
-
+    paths = [a for a in sys.argv[1:] if a in ("int8kv", "paged")] or ["int8kv", "paged"]
+    if "int8kv" in paths:
+        ids, mask = int8kv_request(model.config, 1, dev)
+        profile_request(torch, "int8kv", lambda n: greedy_generate(
+            model, ids, mask, max_new_tokens=n, eos_token_id=-1), llama7b.INT8KV_NEW_TOKENS)
+    if "paged" not in paths:
+        return
     ids, mask = paged_batch(model.config, 1, dev)
     bs, lens = llama7b.PAGED_BLOCK_SIZE, llama7b.PAGED_PROMPT_LENS
     profile_request(torch, "paged", lambda n: paged_greedy_generate(

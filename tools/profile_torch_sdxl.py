@@ -3,7 +3,9 @@
 
 Builds the full-width SDXL pipeline of paddlemix_tpu_torch with seeded random
 weights on one CUDA card (quant="a8w8_static": bf16 until scales are
-loaded), then for bf16 and for static a8w8 (after calibration): two warm
+loaded), then for bf16, for static a8w8 (after calibration) and for a8w8
+with int8 QK^T attention (PMIX_INT8_ATTN=1, JAX's switch: every flash call
+on B1's int8 form), or for those named on the command line: two warm
 requests, one request under torch.profiler (CUDA activity), one unprofiled
 request. Prints the card's nvidia-smi name and power limit, device kernel
 time by category (the port's five kernels by name, cuBLAS/cuDNN, LayerNorm,
@@ -13,12 +15,12 @@ in one more profiled request, the int8 GEMM's (B2) device ms by its (M, K, N)
 and the int8 convs' (B3, B5: the activation pass and the conv a call; B5's
 GroupNorm statistics are B4's) by (B, H, W, C, O): each wrapper call in a
 record_function range, and the kernels inside its span on the device's
-timeline. Reads the kernel names of this tree and of the parent's (one
-mma.sync kernel a conv call), so a copy of this script can profile an older
-checkout.
+timeline. Reads the kernel names of this tree and of older ones (one
+mma.sync kernel a conv call; B1's int8 form on the WMMA core, without an
+activation pass), so a copy of this script can profile an older checkout.
 
 Usage (from the root of a checkout, on a machine with a CUDA card):
-    python3 tools/profile_torch_sdxl.py
+    python3 tools/profile_torch_sdxl.py [bf16] [a8w8] [a8w8_int8_attn]
 """
 
 import os
@@ -29,6 +31,7 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 PROMPT = "a photograph of an astronaut riding a horse on the moon"
+LABELS = ("bf16", "a8w8", "a8w8_int8_attn")
 CALL = dict(height=1024, width=1024, num_inference_steps=25, guidance_scale=5.0,
             output_type="np")
 
@@ -47,6 +50,10 @@ def category(kernel_name: str) -> str:
         return "B5 fused GN+SiLU+int8 conv"
     if "conv3x3_kernel" in n:
         return "B3 int8 conv"
+    if "quantize_rows_kernel" in n:
+        return "B1 int8 QK^T activation pass"
+    if "flash" in n and (", true>" in n or "lb1e" in n):
+        return "B1 flash forward, int8 QK^T"
     if "flash" in n:
         return "B1 flash forward"
     if "gn_" in n:
@@ -146,9 +153,13 @@ def main():
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    for label in ("bf16", "a8w8"):
-        if label == "a8w8":
+    labels = [a for a in sys.argv[1:] if a in LABELS] or list(LABELS)
+    calibrated = False
+    for label in labels:
+        if label != "bf16" and not calibrated:
             calibrate_static_a8w8(pipe, PROMPT, 1024, 1024, 25, 5.0)
+            calibrated = True
+        os.environ["PMIX_INT8_ATTN"] = "1" if label == "a8w8_int8_attn" else "0"
         print(f"[{label}] warm requests {request(1):.3f} s, {request(2):.3f} s")
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             profiled = request(3)
