@@ -51,10 +51,13 @@ Phases:
                    element, with a control (the plain version without the
                    last tile's keys) that must fail the same limit, also at
                    (1, 141, 4, 64), whose rows fill no tile; every flash
-                   case (B1, its int8 form, B15) also prints the core that
-                   served it (wgmma or WMMA, csrc/flash_fwd.cu's width
-                   table), its TFLOP/s beside the bound and, for the wgmma
-                   core, ptxas's registers and spills and its shared memory;
+                   case (B1, its int8 form, B15) also prints the
+                   instantiation that served it (csrc/flash_fwd.cu's width
+                   table: compiled width, key tile, ring stages, the head
+                   read in place or padded; the library's answer held
+                   against the wrapper's mirror), its TFLOP/s beside the
+                   bound, ptxas's registers and spills (a spill fails the
+                   run) and its shared memory;
                    the int8 GEMM (B2) also at a ragged (1000, 1296, 1288),
                    each B2 case with its core and tile plan
                    (csrc/gemm_wg.cuh, ops/gemm_tiles.py), ptxas counts,
@@ -84,8 +87,10 @@ Phases:
                    same limit; at each shape its activation pass
                    (quantize_qk_int8) against int8_qk_operands bit for bit
                    (q8, k8, sq, sk: 0 mismatches; the truncation control
-                   must mismatch), and where the wgmma core runs it, its time
-                   alone; the form on the wgmma core with causal, segment
+                   must mismatch), and its time alone; before them the width
+                   table at every head (8-256) and both forms, the
+                   library's against the wrapper's mirror; the form with
+                   causal, segment
                    ids (ragged), GQA and a ragged S at D 64 and 128
                    (INT8_ATTN_CASES), per element with the same gate and
                    control; with PMIX_INT8_ATTN=1, one full-width a8w8
@@ -222,7 +227,10 @@ Phases:
                    160) and at 256 (1, 1024, 4, 256), and its lse form (B15)
                    at 160 and 256, against their plain versions per
                    element, each with a control (the last key tile left out)
-                   that must fail
+                   that must fail; B1 and B15 at heads 80 and 160 with causal
+                   + segment ids + GQA at a ragged S the same way, and each
+                   written into a view of a wider sentinel-filled buffer,
+                   whose columns past the head must keep the sentinel
  27. sd15 agree    SD1.5 is built; one full-width UNet forward at 64x64
                    latents, kernels (B1 at head_dim 40, 80 and 160, B4) vs
                    plain
@@ -243,10 +251,11 @@ Phases:
                    must fail: the last key tile left out (B15, B14), di
                    dropped (B14); B14 also against its tiled plain versions,
                    with the skipped-pair control where segments are, two
-                   launches bit-identical, and its core (head_dim 40 and 80
-                   run the wgmma core at 64 and 128, 160 and 256 the WMMA
-                   core); times, bounds and library times (SDPA, the
-                   backward of SDPA, graph-captured)
+                   launches bit-identical, and the cores (B14 runs head_dim
+                   40 and 80 on its wgmma core at 64 and 128, 160 and 256 on
+                   its WMMA core; B15 reads 40, 80, 160 and 256 in place at
+                   64, 128, 192 and 256); times, bounds and library times
+                   (SDPA, the backward of SDPA, graph-captured)
  30. sd15 train    the SD1.5 UNet is built (859.5 M fp32 parameters, bf16
      agree         compute); one micro-batch of 2 at 64x64 latents, fixed
                    timesteps and noise: the loss within 10x and the
@@ -421,9 +430,19 @@ SD15_SIZE = 512
 SD15_STEPS = 50
 SD15_GUIDANCE = 7.5
 SD15_REQUESTS = REQUESTS
-# B1 at the three self-attention shapes of a request (head_dim 40 runs the
-# D = 64 instantiation, 80 the D = 96 one) and at 256
+# B1 at the three self-attention shapes of a request (the heads 40, 80 and
+# 160 read in place by the D = 64, 128 and 192 instantiations) and at 256
 SD15_FLASH_SHAPES = [(2, 4096, 8, 40), (2, 1024, 8, 80), (2, 256, 8, 160), (1, 1024, 4, 256)]
+# B1 and B15 at SD1.5's heads 80 and 160 with causal + segment ids (cut off
+# every tile) + GQA at a ragged S: (B, S, Hq, Hkv, D). Each also writes into
+# a view of a buffer SENTINEL_COLS columns wider, filled with SENTINEL, whose
+# columns past the head must keep it
+SD15_FLASH_MASKED_CASES = [(2, 1000, 8, 2, 80), (2, 333, 8, 2, 160)]
+SENTINEL, SENTINEL_COLS = -3.5, 64
+# heads the forward's width table routes, read in place or padded, at each
+# compiled width and its edges; the library's plan for each, both forms,
+# is held against the wrapper's mirror
+FWD_TABLE_HEADS = (8, 32, 40, 64, 72, 80, 96, 100, 128, 136, 160, 192, 200, 256)
 # B4 at SD1.5's shapes that GN_CASES (SDXL's) lacks: 20 and 60 channels a
 # group in the UNet, the 512 px VAE decoder's; "none" before the transformer
 # blocks' projections and the VAE's mid attention
@@ -433,8 +452,8 @@ SD15_GN_CASES = [((2, 32, 32, 640), "silu"), ((2, 8, 8, 1280), "silu"),
                  ((1, 512, 512, 128), "silu")]
 # SD1.5 UNet fine-tuning (examples/train_text_to_image.py): batches of 8 at
 # 64x64 latents. B14 per element with B15 / B14's gate (TRAIN_SUM) at the
-# path's three self-attention shapes (B15 runs head_dim 40 and 80 as the
-# D = 64 and D = 96 instantiations, B14 as its wgmma core's D = 64 and
+# path's three self-attention shapes (B15 reads head_dim 40, 80 and 160 in
+# place at D = 64, 128 and 192, B14 40 and 80 at its wgmma core's D = 64 and
 # D = 128; 160 its own), at 256, and at 160 and 256 with causal
 # + segment ids + GQA, which no path runs and which are compiled all the same;
 # and the wgmma core's causal + segments + GQA at D = 64 (its ragged tiles:
@@ -588,26 +607,28 @@ def ptxas_counts(source, entry):
 
 
 def flash_core(d, int8=False):
-    """(core, note) of the flash forward at the caller's head_dim d: the core
-    that the fixed width table of csrc/flash_fwd.cu (`flash_fwd_core`) sends
-    the compiled width to and, for the wgmma core, ptxas's registers and
-    spills for its instantiation and its block's dynamic shared memory."""
-    import ctypes
+    """(core, note) of the flash forward at the caller's head_dim d: the
+    instantiation that the fixed width table of csrc/flash_fwd.cu
+    (`flash_fwd_core`) serves the head with, held against the wrapper's
+    mirror (`flash_fwd_plan`, `flash_fwd_smem`), ptxas's registers and
+    spills for it (a spill fails the run) and its block's dynamic shared
+    memory."""
+    from paddlemix_tpu_torch.ops import attention as attn
 
-    from paddlemix_tpu_torch.kernels import load_library
-    from paddlemix_tpu_torch.ops.attention import _KERNEL_HEAD_DIMS
-
-    d_kernel = next(x for x in _KERNEL_HEAD_DIMS if x >= d)
-    fn = load_library("flash_fwd").flash_fwd_core
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-    smem = ctypes.c_int(0)
-    if not fn(d_kernel, int(int8), ctypes.byref(smem)):
-        return "wmma", f"D {d_kernel}"
-    regs, spills = ptxas_counts("flash_fwd",
-                                f"flash_fwd_wgmma_kernelILi{d_kernel}ELb{int(int8)}E")
-    return "wgmma", (f"D {d_kernel}{', s8 QK^T' if int8 else ''}; ptxas {regs} registers at "
+    mirror = attn.flash_fwd_plan(d)
+    plan, smem = attn.flash_fwd_core(mirror.width, int8)
+    check(plan == mirror and smem == attn.flash_fwd_smem(plan.d_kernel, int8),
+          f"flash_fwd_core at head {d} (int8 {int8}): {plan}, {smem} bytes; the mirror "
+          f"{mirror}, {attn.flash_fwd_smem(mirror.d_kernel, int8)} bytes")
+    regs, spills = ptxas_counts("flash_fwd", f"flash_fwd_wgmma_kernelILi{plan.d_kernel}ELb"
+                                f"{int(int8)}ELi{plan.bn}ELi{plan.stages}EE")
+    check(spills in ("spills 0 / 0 bytes", "not in this run's build log"),
+          f"flash_fwd D {plan.d_kernel} int8 {int8}: {spills}")
+    read = "in place" if plan.width == d else f"padded to {plan.width}"
+    return "wgmma", (f"D {plan.d_kernel}{', s8 QK^T' if int8 else ''}, {plan.bn}-key tiles in "
+                     f"{plan.stages} stages, the head read {read}; ptxas {regs} registers at "
                      f"entry (setmaxnreg: 240 a consumer thread, 24 a producer), {spills}; "
-                     f"{smem.value:,} bytes of dynamic shared memory a block")
+                     f"{smem:,} bytes of dynamic shared memory a block")
 
 
 def recorder(summary):
@@ -1813,21 +1834,21 @@ def int8_attention_kernels(torch, F, dev, gen, record, attn):
     times, bounds (the int8 QK^T at the int8 peak plus the bf16 P.V at the bf16
     peak, or the bytes) and, as the nearest yardstick, SDPA in bf16 (no
     PyTorch call computes int8 attention). First the wrapper's mirror of the
-    core table (`flash_fwd_uses_wgmma`) against the library's at every
-    compiled width and both forms. At each shape also the activation
-    pass (`quantize_qk_int8`, which the calls on the wgmma core run first)
-    against `int8_qk_operands` bit for bit: q8, k8, sq and sk with 0
+    width table (`flash_fwd_plan`, `flash_fwd_smem`) against the library's
+    at every head of FWD_TABLE_HEADS and both forms. At each shape also the
+    activation pass (`quantize_qk_int8`, which every call runs before the
+    core) against `int8_qk_operands` bit for bit: q8, k8, sq and sk with 0
     mismatches, and the truncation control's q8 and k8, which must mismatch;
-    where the path runs it (the wgmma core's widths), its time alone and its
-    bound (bytes). Then the int8 form on the wgmma core with its options
+    its time alone and its bound (bytes). Then the int8 form with its options
     (INT8_ATTN_CASES: causal, segment ids, GQA, ragged S) per element with
     the same gate and control."""
     bf16 = torch.bfloat16
-    # the wrapper's mirror of csrc/flash_fwd.cu's core table, held against the table
-    table = {(d_, int8): flash_core(d_, int8)[0] for d_ in attn._KERNEL_HEAD_DIMS
-             for int8 in (False, True)}
-    check(all((core == "wgmma") == attn.flash_fwd_uses_wgmma(d_)
-              for (d_, _), core in table.items()), f"flash_fwd_uses_wgmma disagrees: {table}")
+    # the wrapper's mirror of csrc/flash_fwd.cu's width table, held against
+    # the library's (flash_core checks it) at every head and both forms
+    for d_ in FWD_TABLE_HEADS:
+        for int8 in (False, True):
+            print(f"[int8 kernels] the width table at head {d_}{' int8' if int8 else ''}: "
+                  f"{flash_core(d_, int8)[1]}", flush=True)
     worst, control_least = 0.0, float("inf")
     for shape in INT8_ATTN_SHAPES:
         b_, s_, h_, d_ = shape
@@ -1841,13 +1862,11 @@ def int8_attention_kernels(torch, F, dev, gen, record, attn):
         with swapped([(attn, "quantize_rows_int8", truncating_quantize(torch))]):
             trunc = attn.int8_qk_operands(q, k, scale)
         ctrl_bad = sum(int((a != b).sum()) for a, b in zip(got[:2], trunc[:2]))
-        note = ""
-        if attn.flash_fwd_uses_wgmma(next(x for x in attn._KERNEL_HEAD_DIMS if x >= d_)):
-            pass_ms = (cuda_ms(torch, lambda: attn.quantize_qk_int8(q, k, scale))
-                       + cuda_ms(torch, lambda: attn.quantize_qk_int8(q, k, scale))) / 2
-            pass_bound = nbytes(q, k, *got) / HBM_BYTES_PER_S * 1e3
-            note = (f"; the pass alone {pass_ms:.4f} ms (bound {pass_bound:.4f} ms, bytes), run "
-                    f"by the call before the wgmma core")
+        pass_ms = (cuda_ms(torch, lambda: attn.quantize_qk_int8(q, k, scale))
+                   + cuda_ms(torch, lambda: attn.quantize_qk_int8(q, k, scale))) / 2
+        pass_bound = nbytes(q, k, *got) / HBM_BYTES_PER_S * 1e3
+        note = (f"; the pass alone {pass_ms:.4f} ms (bound {pass_bound:.4f} ms, bytes), run "
+                f"by the call before the core")
         print(f"[int8 kernels] quantize_qk_int8 {shape}: mismatches q8 {bad[0]}, k8 {bad[1]}, sq "
               f"{bad[2]}, sk {bad[3]} (must all be 0); control quantizing by truncation: "
               f"{ctrl_bad} q8 / k8 mismatches (must be > 0){note}", flush=True)
@@ -1942,8 +1961,9 @@ def checked_int8_calls(torch, attn, c):
 def sd15_kernels(torch, F, dev, gen, record, flash_case, gn_case, attn):
     """B1 at SD1.5's self-attention shapes and at head_dim 256 against its
     plain version, per element with B1's gate and last-tile control; B15 at
-    head_dim 160 and 256 the same way; B4 at SD1.5's GroupNorm shapes that
-    SDXL's lack."""
+    head_dim 160 and 256 the same way; B1 and B15 at heads 80 and 160 with
+    causal + segment ids + GQA at a ragged S (`masked_flash_case`); B4 at
+    SD1.5's GroupNorm shapes that SDXL's lack."""
     bf16 = torch.bfloat16
     for shape, act in SD15_GN_CASES:
         gn_case("sd15 kernels", shape, act, control=True)
@@ -1979,6 +1999,68 @@ def sd15_kernels(torch, F, dev, gen, record, flash_case, gn_case, attn):
                bound(nbytes(qs, k, v, o, lse), 4 * b_ * h_ * s_ * s_ * d_, "bf16"),
                flash=(d_, 4 * b_ * h_ * s_ * s_ * d_, False))
         del q, k, v, qs, o, lse, ro, rlse
+    for case in SD15_FLASH_MASKED_CASES:
+        masked_flash_case(torch, dev, gen, attn, *case)
+
+
+def masked_flash_case(torch, dev, gen, attn, b_, s_, h_, kvh, d_):
+    """B1 (flash_attention) and B15 (flash_fwd_lse) at (B, S, Hq on Hkv, D)
+    with causal + segment ids (cut at TRAIN_SEGMENT_CUTS, 11 rows later a
+    batch row) + GQA, per element against their plain versions (c FLASH_SUM;
+    B15's lse within LSE_TOL), each with the control that leaves out the last
+    key tile (a query whose segment lies wholly in it sees no key: 0), which
+    must fail; then each written into `out`, a view of a buffer SENTINEL_COLS
+    columns wider filled with SENTINEL: the head's columns must equal the
+    call's own output bit for bit and the columns past it keep the
+    sentinel."""
+    bf16 = torch.bfloat16
+    q = torch.randn((b_, s_, h_, d_), generator=gen, device=dev, dtype=bf16)
+    k, v = (torch.randn((b_, s_, kvh, d_), generator=gen, device=dev, dtype=bf16)
+            for _ in range(2))
+    seg = torch.ones((b_, s_), dtype=torch.int32, device=dev)
+    for i in range(b_):
+        for cut in TRAIN_SEGMENT_CUTS:
+            seg[i, int(cut * s_) + 11 * i:] += 1
+    segs = attn.SegmentIds(seg, seg)
+    n = s_ - (s_ % 64 or 64)  # the control's keys: all but the last tile
+    kw, kw_cut = dict(causal=True, segment_ids=segs),         dict(causal=True, segment_ids=attn.SegmentIds(seg, seg[:, :n]))
+    qs = (q.float() * (d_ ** -0.5 * attn.LOG2E)).to(bf16)
+    width = attn.flash_fwd_plan(d_).width
+    label = f"({b_}, {s_}, {h_} on {kvh}, {d_}) causal + segment ids + GQA"
+    for name in ("flash_attention", "flash_fwd_lse"):
+        if name == "flash_attention":
+            out, lse = attn.flash_attention(q, k, v, int8_qk=False, **kw), None
+            ref, rlse = attn.flash_attention_ref(q.float(), k.float(), v.float(), **kw), None
+            ctrl = attn.flash_attention_ref(q.float(), k[:, :n].float(), v[:, :n].float(),
+                                            **kw_cut)
+            args = (q, k, v, d_ ** -0.5 * attn.LOG2E, True, segs, False)
+        else:
+            out, lse = attn.flash_fwd_lse(qs, k, v, **kw)
+            ref, rlse = attn.flash_fwd_lse_ref(qs.float(), k.float(), v.float(), **kw)
+            ctrl = attn.flash_fwd_lse_ref(qs.float(), k[:, :n].float(), v[:, :n].float(),
+                                          **kw_cut)[0]
+            args = (qs, k, v, 1.0, True, segs, True)
+        torch.cuda.synchronize()
+        excess, need = ulp_gate(out, ref, FLASH_SUM)
+        control, _ = ulp_gate(ctrl.nan_to_num(0.0), ref, FLASH_SUM)
+        lse_err = 0.0 if lse is None else (lse - rlse).abs().max().item()
+        buf = torch.full((b_, s_, h_, width + SENTINEL_COLS), SENTINEL, device=dev, dtype=bf16)
+        attn._flash_fwd_cuda(*args, out=buf[..., :width])
+        torch.cuda.synchronize()
+        same = torch.equal(buf[..., :d_], out)
+        kept = bool((buf[..., width:] == SENTINEL).all())
+        core, note = flash_core(d_)
+        print(f"[sd15 kernels] {name} {label}: core {core} ({note}); excess {excess:.3e} (least "
+              f"c {need:.2e}, c {FLASH_SUM}){'' if lse is None else f', lse max err {lse_err:.3e}'}"
+              f"; control without the last {s_ - n} keys: excess {control:.3e} (must be > 0); "
+              f"into a view of a wider buffer: the head bit-identical {same}, the "
+              f"{SENTINEL_COLS} columns past it keep the sentinel {kept}", flush=True)
+        check(bool(torch.isfinite(out).all()) and excess <= 0 and lse_err <= LSE_TOL,
+              f"{name} {label}: excess {excess}, lse err {lse_err}")
+        check(control > 0, f"{name} {label}: the control passes ({control})")
+        check(same and kept, f"{name} {label}: written into a view: head same {same}, the "
+                             f"columns past it kept {kept}")
+        del out, ref, ctrl, buf
 
 
 def sd15_slice(torch, np, dev, gen, m, counters):
@@ -3548,8 +3630,8 @@ def main():
               "paddlemix_tpu/ops/norms.py:226",
               {"clip_train": launches_clip_tr["layer_norm_backward"]}),
         # B1's forms: int8 QK^T (the `int8_qk` branch of `_fwd_kernel`) and
-        # the wide heads; B15 at the SD1.5 training path's head dims (40 and
-        # 80 padded to the D = 64 and 96 instantiations, 160) and at 256
+        # the wide heads; B15 at the SD1.5 training path's head dims (40, 80
+        # and 160, read in place at D = 64, 128 and 192) and at 256
         entry("flash_attention_int8", "cuda", "paddlemix_tpu_torch/csrc/flash_fwd.cu",
               "paddlemix_tpu/ops/attention.py:89",
               {"a8w8_int8_attn": launches_i8attn["flash_attention_int8"]}),
@@ -3566,8 +3648,8 @@ def main():
         entry("flash_fwd_lse_d256", "cuda", "paddlemix_tpu_torch/csrc/flash_fwd.cu",
               "paddlemix_tpu/ops/attention.py:243", {}),
     ]
-    # B14 at the SD1.5 training path's head dims (40 and 80 padded to the
-    # D = 64 and 96 instantiations) and at 129-256 (160 and 256 compiled)
+    # B14 at the SD1.5 training path's head dims (40 and 80 read in place by
+    # its wgmma core at D = 64 and 128) and at 129-256 (160 and 256 compiled)
     kernels += [entry(f"{name}_d{d_}", "cuda", "paddlemix_tpu_torch/csrc/flash_bwd.cu",
                       f"paddlemix_tpu/ops/attention.py:{line}", sd15_train_dim(name, d_))
                 for d_ in (40, 80, 160, 256)

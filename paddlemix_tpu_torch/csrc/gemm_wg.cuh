@@ -487,7 +487,25 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[N / 2], const uint32_t (&a)[4]
   else wgmma_s8_n256(d, a, db, accumulate);
 }
 
-// ------------------------------------------- the SS products of the convs
+// ------------------- the SS products of the convs and of the flash forward's int8 QK^T
+// D (64 x 64, s32) (+)= A (64 x 32 s8) B (64 x 32 s8), both in shared memory,
+// K-major
+__device__ __forceinline__ void wgmma_s8_ss_n64(int (&d)[32], uint64_t da, uint64_t db,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]),
+        "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // D (64 x 128, s32) (+)= A (64 x 32 s8) B (128 x 32 s8), both in shared memory,
 // K-major
 __device__ __forceinline__ void wgmma_s8_ss_n128(int (&d)[64], uint64_t da, uint64_t db,
@@ -582,7 +600,8 @@ __device__ __forceinline__ void wgmma_s8_ss_n256(int (&d)[128], uint64_t da, uin
 template <int N>
 __device__ __forceinline__ void wgmma_s8_ss(int (&d)[N / 2], uint64_t da, uint64_t db,
                                             int accumulate) {
-  if constexpr (N == 128) wgmma_s8_ss_n128(d, da, db, accumulate);
+  if constexpr (N == 64) wgmma_s8_ss_n64(d, da, db, accumulate);
+  else if constexpr (N == 128) wgmma_s8_ss_n128(d, da, db, accumulate);
   else if constexpr (N == 160) wgmma_s8_ss_n160(d, da, db, accumulate);
   else wgmma_s8_ss_n256(d, da, db, accumulate);
 }

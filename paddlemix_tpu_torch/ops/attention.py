@@ -7,15 +7,17 @@ may have fewer heads than q (GQA: query head h reads kv head h // group).
 
 Kernels (CUDA tensors launch them; CPU tensors run their plain versions):
 - `csrc/flash_fwd.cu`: the forward (B1), with causal (top-left), segment ids
-  and GQA, at head dims up to 256. `flash_attention` launches its inference
-  form (no lse, the scale folded in fp32); `flash_attention_int8` the
-  inference form with int8 QK^T (`int8_qk`, the JAX switch PMIX_INT8_ATTN=1:
-  q and k quantized per row, an exact int32 product, B1's softmax and bf16
-  P.V; at head dims 64 and 128 an activation pass, `quantize_qk_int8`,
-  quantizes q and k once before the core runs, as the JAX wrapper's
-  prologue does); `flash_fwd_lse` its lse form (B15), on q pre-scaled by
-  scale * log2(e) and rounded to q's dtype as the JAX wrapper does, writing
-  the base-2 lse of each row, fp32 (B, H, S);
+  and GQA, at head dims up to 256, on one `wgmma` core compiled at the
+  widths 64, 128, 192 and 256 (`flash_fwd_plan`: a head runs at the least
+  at or above it, and is read in place when it is a multiple of 8, else
+  padded to that width). `flash_attention` launches its inference form (no
+  lse, the scale folded in fp32); `flash_attention_int8` the inference form
+  with int8 QK^T (`int8_qk`, the JAX switch PMIX_INT8_ATTN=1: q and k
+  quantized per row, an exact int32 product, B1's softmax and bf16 P.V; an
+  activation pass, `quantize_qk_int8`, quantizes q and k once before the
+  core runs, as the JAX wrapper's prologue does); `flash_fwd_lse` its lse
+  form (B15), on q pre-scaled by scale * log2(e) and rounded to q's dtype as
+  the JAX wrapper does, writing the base-2 lse of each row, fp32 (B, H, S);
 - `csrc/flash_bwd.cu`: the backward (B14), `flash_bwd_dkv` and
   `flash_bwd_dq`, from that pre-scaled q, the lse and di = rowsum(o * do),
   at head dims up to 256 (`_BWD_HEAD_DIMS`): heads of 33-64 and 65-128 run
@@ -50,21 +52,49 @@ from .autograd import grad_needed, refuse_grad
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 LOG2E = math.log2(math.e)
-# head dims compiled into flash_fwd.cu and flash_bwd.cu: a head runs the least
-# at or above it (the backward's 65-128 run its wgmma core's 128)
-_KERNEL_HEAD_DIMS = (32, 64, 96, 128, 160, 256)
+# head dims compiled into flash_fwd.cu (_KERNEL_HEAD_DIMS) and flash_bwd.cu
+# (_BWD_HEAD_DIMS): a head runs the least at or above it (the backward's 65-128
+# run its wgmma core's 128)
+_KERNEL_HEAD_DIMS = (64, 128, 192, 256)
 _BWD_HEAD_DIMS = (32, 64, 128, 160, 256)
-# the compiled head dims that csrc/flash_fwd.cu's fixed table (`uses_wgmma`)
-# sends to its wgmma core, in both forms (bf16 and int8 QK^T); the others run
-# its WMMA core
-_FWD_WGMMA_HEAD_DIMS = (64, 128)
+# csrc/flash_fwd.cu's `Tile`: (keys a tile, K/V ring stages) of each compiled
+# width, for the bf16 and the int8 QK^T form alike; a block owns 128 query rows
+_FWD_TILES = {64: (128, 3), 128: (128, 3), 192: (64, 3), 256: (64, 2)}
+_FWD_BLOCK_M = 128
 
 
-def flash_fwd_uses_wgmma(d_kernel: int) -> bool:
-    """The forward's core at a compiled head_dim, as csrc/flash_fwd.cu's table
-    picks it (`flash_fwd_core` there answers the same): the wgmma core at 64
-    and 128, bf16 and int8 QK^T alike, else the WMMA core."""
-    return d_kernel in _FWD_WGMMA_HEAD_DIMS
+class FwdPlan(NamedTuple):
+    d_kernel: int  # the compiled width (csrc/flash_fwd.cu `compiled_width`)
+    width: int     # the head width the kernel reads: d in place, or d_kernel padded
+    bn: int        # keys a tile
+    stages: int    # the K/V ring's depth
+
+
+def flash_fwd_plan(d: int) -> FwdPlan:
+    """How the forward serves a head of d columns, as csrc/flash_fwd.cu's
+    fixed table does: at the least compiled width at or above d, reading q, k
+    and v in place when d is a multiple of 8 (TMA's zero fill supplies the
+    columns past d) and padded to the compiled width otherwise. The library's
+    `flash_fwd_core` answers the same on the card."""
+    if not 0 < d <= _KERNEL_HEAD_DIMS[-1]:
+        raise ValueError(f"flash forward kernel takes head_dim <= {_KERNEL_HEAD_DIMS[-1]}, got {d}")
+    d_kernel = next(x for x in _KERNEL_HEAD_DIMS if x >= d)
+    return FwdPlan(d_kernel, d if d % 8 == 0 else d_kernel, *_FWD_TILES[d_kernel])
+
+
+def flash_fwd_smem(d_kernel: int, int8: bool) -> int:
+    """Dynamic shared memory a block of the forward takes at a compiled width,
+    the mirror of csrc/flash_fwd.cu's `Smem`: Q, a ring of K and V tiles (q /
+    k rows in 128-byte panels, int8 rows of 64 bytes at D 64), the tiles' key
+    segment ids (and key scales, int8), the barriers, and 1,024 bytes to align
+    the base."""
+    bn, stages = _FWD_TILES[d_kernel]
+    row = d_kernel * (1 if int8 else 2)
+    panel = min(row, 128)
+    panels = -(-row // 128)
+    ring = stages * (bn * panels * panel + bn * d_kernel * 2)
+    ids = stages * bn * 4 * (2 if int8 else 1)
+    return _FWD_BLOCK_M * panels * panel + ring + ids + (1 + 2 * stages) * 8 + 1024
 
 
 def int8_qk_default() -> bool:
@@ -418,13 +448,15 @@ def _pad_head_dim(d_kernel, *ts):
 
 def _quantize_qk_cuda(q, k, scale_log2):
     """The int8 QK^T form's activation pass on kernel operands (bf16, unit
-    stride over a compiled head_dim): q8 (B, Sq, H, D) and k8
-    (B, Skv, KVH, D) int8, contiguous; sq (B, H, Sq) = (a_q / 127) *
-    scale_log2 and sk (B, KVH, Skv) = a_k / 127, fp32."""
+    stride over a head of a multiple of 8): q8 (B, Sq, H, D) and k8
+    (B, Skv, KVH, D) int8, contiguous, at the compiled width D (zeros past
+    the head); sq (B, H, Sq) = (a_q / 127) * scale_log2 and sk (B, KVH, Skv) =
+    a_k / 127, fp32."""
     b, sq_len, h, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
-    q8 = torch.empty(q.shape, dtype=torch.int8, device=q.device)
-    k8 = torch.empty(k.shape, dtype=torch.int8, device=q.device)
+    d_kernel = flash_fwd_plan(d).d_kernel
+    q8 = torch.empty((b, sq_len, h, d_kernel), dtype=torch.int8, device=q.device)
+    k8 = torch.empty((b, skv, hkv, d_kernel), dtype=torch.int8, device=q.device)
     sq = torch.empty((b, h, sq_len), dtype=torch.float32, device=q.device)
     sk = torch.empty((b, hkv, skv), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -440,43 +472,68 @@ def _quantize_qk_cuda(q, k, scale_log2):
 def quantize_qk_int8(q, k, scale: float):
     """(q8, k8, sq, sk) of int8 QK^T, as `int8_qk_operands` makes them: sq
     (B, Sq, Hq) and sk (B, Skv, Hkv) fp32. CUDA tensors launch the activation
-    pass that `flash_attention_int8` runs before its wgmma core, on q and k
-    padded to the compiled head_dim as the wrapper pads them (q8 and k8 are
-    views of its first d columns, sq and sk of its (B, H, S) scales); CPU
+    pass that `flash_attention_int8` runs before its core, on q and k as the
+    wrapper hands them over (`flash_fwd_plan`: in place, or padded; q8 and k8
+    are views of its first d columns, sq and sk of its (B, H, S) scales); CPU
     tensors run `int8_qk_operands`."""
     if q.is_cuda:
         d = q.shape[3]
-        d_kernel, _ = _check_operands("quantize_qk_int8", q, k, k, False, None)
-        q, k = (_kernel_operand(t) for t in _pad_head_dim(d_kernel, q, k))
+        _check_operands("quantize_qk_int8", q, k, k, False, None)
+        q, k = (_kernel_operand(t) for t in _pad_head_dim(flash_fwd_plan(d).width, q, k))
         q8, k8, sq, sk = _quantize_qk_cuda(q, k, scale * LOG2E)
         return q8[..., :d], k8[..., :d], sq.transpose(1, 2), sk.transpose(1, 2)
     _cpu_only("quantize_qk_int8", q)
     return int8_qk_operands(q, k, scale)
 
 
-def _flash_fwd_cuda(q, k, v, scale_log2, causal, segment_ids, want_lse, int8=False):
+def _flash_fwd_cuda(q, k, v, scale_log2, causal, segment_ids, want_lse, int8=False, out=None):
+    """The kernel reads q, k and v at `flash_fwd_plan(d).width`: a head of a
+    multiple of 8 in place (its columns past d read as zeros), any other
+    padded to the compiled width; o is written at that width, into `out`
+    where given (bf16 (B, Sq, H, width) with unit stride over the head and
+    strides the kernels read, such as a view of a wider buffer)."""
     b, sq, h, d = q.shape
-    d_kernel, segs = _check_operands("flash_attention", q, k, v, causal, segment_ids)
-    q, k, v = (_kernel_operand(t) for t in _pad_head_dim(d_kernel, q, k, v))
-    o = torch.empty((b, sq, h, d_kernel), dtype=q.dtype, device=q.device)
+    _, segs = _check_operands("flash_attention", q, k, v, causal, segment_ids)
+    width = flash_fwd_plan(d).width
+    q, k, v = (_kernel_operand(t) for t in _pad_head_dim(width, q, k, v))
+    o = torch.empty((b, sq, h, width), dtype=q.dtype, device=q.device) if out is None else out
+    if o.shape != (b, sq, h, width) or o.dtype != q.dtype or o.device != q.device \
+            or _kernel_operand(o) is not o:
+        raise ValueError(f"flash_attention: out {tuple(o.shape)} {o.dtype} is not a "
+                         f"{(b, sq, h, width)} {q.dtype} tensor the kernel can write in place")
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if want_lse else None
-    # int8 QK^T on the wgmma core: the activation pass first, on the same stream
-    operands = _quantize_qk_cuda(q, k, scale_log2) \
-        if int8 and flash_fwd_uses_wgmma(d_kernel) else None
+    # int8 QK^T: the activation pass first, on the same stream
+    operands = _quantize_qk_cuda(q, k, scale_log2) if int8 else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, h, sq, k.shape[1],
-                d_kernel, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+                width, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
                 scale_log2, h // k.shape[2], int(causal), *_segment_args(segs, sq, k.shape[1])]
         if int8:
-            args += [None] * 4 if operands is None else [t.data_ptr() for t in operands]
+            args += [t.data_ptr() for t in operands]
         else:
             args.append(None if lse is None else lse.data_ptr())
         err = _flash_fn(int8)(*args, stream)
     if err:
         raise RuntimeError(f"flash_fwd_{'int8qk_' if int8 else ''}bf16 launch failed with "
                            f"cudaError {err}")
-    return (o[..., :d] if d_kernel != d else o), lse
+    return (o[..., :d] if width != d else o), lse
+
+
+@functools.lru_cache(maxsize=None)
+def flash_fwd_core(width: int, int8: bool):
+    """The plan csrc/flash_fwd.cu's table (`flash_fwd_core`) gives a head the
+    kernel reads at `width` columns, as the library answers it on the card,
+    and the block's dynamic shared memory: (FwdPlan, bytes)."""
+    from ..kernels import load_library
+
+    fn = load_library("flash_fwd").flash_fwd_core
+    fn.argtypes = [_I, _I, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = _I
+    plan = (ctypes.c_int * 4)()
+    if not fn(width, int(int8), plan):
+        raise ValueError(f"flash_fwd_core: the kernels do not read a head of {width} columns")
+    return FwdPlan(plan[0], width, plan[1], plan[2]), plan[3]
 
 
 @functools.lru_cache(maxsize=None)
@@ -628,9 +685,8 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention_int8(q, k, v, *, scale: Optional[float] = None, causal=False,
                          segment_ids: Optional[SegmentIds] = None):
     """The inference form with int8 QK^T, (B, S, H, D) layout. CUDA tensors
-    launch the kernel (no gradient): at compiled head dims 64 and 128 the
-    activation pass and then the wgmma core, counted once a call; CPU tensors
-    run `flash_attention_int8_ref`."""
+    launch the kernel (no gradient): the activation pass and then the core,
+    counted once a call; CPU tensors run `flash_attention_int8_ref`."""
     scale = q.shape[3] ** -0.5 if scale is None else scale
     if q.is_cuda:
         refuse_grad("flash_attention_int8", q, k, v)
@@ -690,7 +746,8 @@ def flash_attention_with_lse(q, k, v, *, segment_ids: Optional[SegmentIds] = Non
 def use_flash(q_shape, k_shape, *, bias=None, causal=False) -> bool:
     """The JAX package's flash-or-math rule (paddlemix_tpu/ops/attention.py
     scaled_dot_product_attention), from shapes alone: head_dim up to 256 (the
-    kernels pad 129-160 to 160 and 161-256 to 256)."""
+    forward serves it at 64, 128, 192 or 256, `flash_fwd_plan`; the backward
+    pads 129-160 to 160 and 161-256 to 256)."""
     b, sq, hq, d = q_shape
     skv = k_shape[1]
     return (bias is None and skv >= 128 and d <= _KERNEL_HEAD_DIMS[-1]

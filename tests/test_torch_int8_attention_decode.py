@@ -1,7 +1,7 @@
 """B1's int8 QK^T form on the forward's wgmma core and the decode attention
 kernels B7 / B8 as the port runs them on Hopper, held where the CPU can hold
 them:
-  - the forward's fixed core table with the int8 form (`flash_fwd_uses_wgmma`);
+  - the forward's fixed width table with the int8 form (`flash_fwd_plan`);
   - `quantize_qk_int8`, the wrapper of the activation pass that runs before
     the wgmma core (on the CPU its plain version, `int8_qk_operands`),
     against the operands JAX's int8 prologue hands its pallas_call, bit for
@@ -55,21 +55,34 @@ def _excess(out, ref, c):
 
 
 # ----------------------------------------------------- the forward's core table
-@pytest.mark.parametrize("d", tattn._KERNEL_HEAD_DIMS)
+# the caller's head -> (compiled width, the width the kernel reads): a multiple
+# of 8 is read in place, any other head padded to the compiled width
+_ROUTES = {32: (64, 32), 40: (64, 40), 64: (64, 64), 80: (128, 80), 96: (128, 96),
+           100: (128, 128), 128: (128, 128), 160: (192, 160), 200: (256, 200), 256: (256, 256)}
+
+
+@pytest.mark.parametrize("d", sorted(_ROUTES))
 def test_fwd_core_table(d):
-    """csrc/flash_fwd.cu's fixed table: the wgmma core at 64 and 128, for the
-    bf16 and the int8 QK^T form alike, the WMMA core at every other compiled
-    width."""
-    assert tattn.flash_fwd_uses_wgmma(d) == (d in (64, 128))
+    """csrc/flash_fwd.cu's fixed table: one core at the compiled widths 64,
+    128, 192 and 256, a head at the least at or above it (SD1.5's 40 at 64,
+    80 at 128, 160 at 192), 128-key tiles in 3 stages up to 128, 64-key
+    tiles in 3 stages at 192 and 2 at 256."""
+    plan = tattn.flash_fwd_plan(d)
+    assert (plan.d_kernel, plan.width) == _ROUTES[d]
+    assert (plan.bn, plan.stages) == {64: (128, 3), 128: (128, 3), 192: (64, 3),
+                                      256: (64, 2)}[plan.d_kernel]
 
 
-@pytest.mark.parametrize("d,core", [(40, True), (64, True), (80, False), (100, True),
-                                    (160, False)])
-def test_int8_heads_route_by_compiled_width(d, core):
-    """A head runs at the least compiled width at or above it: SD1.5's head 40
-    pads to 64 (the wgmma core, with the activation pass), 80 to 96 (WMMA)."""
-    d_kernel = next(x for x in tattn._KERNEL_HEAD_DIMS if x >= d)
-    assert tattn.flash_fwd_uses_wgmma(d_kernel) == core
+@pytest.mark.parametrize("d", sorted(_ROUTES))
+def test_int8_heads_route_by_compiled_width(d):
+    """The int8 form routes as the bf16 form does: its activation pass reads
+    the head at the plan's width and writes q8 / k8 at the compiled width,
+    which the core's int8 instantiation reads; its block fits the card and
+    takes less shared memory than the bf16 form's (int8 q / k tiles)."""
+    plan = tattn.flash_fwd_plan(d)
+    assert plan.d_kernel == _ROUTES[d][0]
+    assert tattn.flash_fwd_smem(plan.d_kernel, True) < tattn.flash_fwd_smem(plan.d_kernel, False)
+    assert tattn.flash_fwd_smem(plan.d_kernel, False) <= 232448
 
 
 # ------------------------------------------------ int8 operands and the plain form

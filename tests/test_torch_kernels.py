@@ -301,9 +301,9 @@ def test_kernels_match_plain_versions_on_gpu(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: run on the GPU host (see README, PyTorch port)")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    # B1 at head_dim 129-256 (padded to 160 / 256), its lse form, and the int8
-    # QK^T form, with chip_smoke.py's gates (c 4e-3) and the int8 form's
-    # truncation control, which must fail
+    # B1 at head_dim 129-256 (read in place at 192 / 256), its lse form, and
+    # the int8 QK^T form, with chip_smoke.py's gates (c 4e-3) and the int8
+    # form's truncation control, which must fail
     for shape, hkv, causal, int8 in [((2, 256, 8, 160), 8, False, False),
                                      ((1, 300, 4, 200), 2, True, False),
                                      ((1, 256, 2, 256), 2, False, False),
@@ -344,7 +344,7 @@ def test_kernels_match_plain_versions_on_gpu(monkeypatch):
         torch.cuda.synchronize()
         assert [f.launches for f in fns] == [n + 1 for n in before], shape
         assert bool(torch.isfinite(qg.grad).all()), shape
-    # the wgmma core (head_dim 64 and 128) at its edges: S below one 128-row
+    # the core at head_dim 64 and 128 at its edges: S below one 128-row
     # tile, q / k / v as strided views (slices of one joint tensor, as SD3's
     # joint attention gives, or a transpose of (B, H, S, D)), GQA 4:1, and
     # causal with the lse

@@ -335,7 +335,7 @@ def test_train_kernels_match_plain_versions_on_gpu():
         return bool(((out.float() - ref).abs()
                      <= 2.0 ** -7 * ref.abs() + c * ref.abs().max()).all())
 
-    # flash: ragged lengths, head dims 64 (and 80, padded to 96), MHA and GQA,
+    # flash: ragged lengths, head dims 64 (and 80, read in place at 128), MHA and GQA,
     # causal with segments
     for b, s, h, kvh, d, causal in [(2, 333, 4, 2, 64, True), (1, 256, 8, 8, 80, False),
                                     (1, 512, 8, 2, 128, True)]:
@@ -363,7 +363,7 @@ def test_train_kernels_match_plain_versions_on_gpu():
                                      segment_ids=segs)
         for got, ref in ((dq, rdq), (dk, rdk), (dv, rdv)):
             assert got.shape == ref.shape and within(got, ref, 4e-3), (b, s, h, kvh, d)
-    # the lse forward's wgmma core (head_dim 64 and 128) at its edges, causal
+    # the lse forward's core at head_dim 64 and 128 at its edges, causal
     # with segments and GQA 4:1: S below one 128-row tile, and q / k / v as
     # slices of one joint tensor (non-contiguous views, read in place)
     for b, s, h, kvh, d in [(2, 100, 8, 2, 128), (1, 333, 8, 2, 64)]:

@@ -47,7 +47,7 @@ def dequant(first, second):
 
 
 FLASH_VARIANTS = {
-    "no S": [("        issue_scores_i8<D>(acc_i, q_wg, s_k + s * L::K_BYTES);", "        ;")],
+    "no S": [("        issue_scores_i8<D, BN>(acc_i, q_wg, s_k + s * L::K_BYTES);", "        ;")],
     "no dequant": dequant("__int_as_float(s32[4 * j + 2 * r] & 0x3f7fffff) * sq[r]",
                           "__int_as_float(s32[4 * j + 2 * r + 1] & 0x3f7fffff) * sq[r]"),
     "no key scale": dequant("__int2float_rn(s32[4 * j + 2 * r]) * sq[r]",

@@ -52,7 +52,7 @@ def category(kernel_name: str) -> str:
         return "B3 int8 conv"
     if "quantize_rows_kernel" in n:
         return "B1 int8 QK^T activation pass"
-    if "flash" in n and (", true>" in n or "lb1e" in n):
+    if "flash" in n and (", true>" in n or ", true," in n or "lb1e" in n):
         return "B1 flash forward, int8 QK^T"
     if "flash" in n:
         return "B1 flash forward"
