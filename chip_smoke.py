@@ -171,11 +171,12 @@ Phases:
                    also against its plain versions walked tile by tile with
                    the kernels' skips (`flash_bwd_*_tiled_ref`), with one more
                    control, the tiled walk skipping one tile pair that shares
-                   a segment, and two launches held bit-identical; the core
-                   of each B14 case (wgmma or WMMA, csrc/flash_bwd.cu's width
-                   table) with ptxas's registers and spills and its shared
-                   memory; times, bounds and library times (SDPA and its
-                   backward, the backward of F.rms_norm)
+                   a segment, and two launches held bit-identical; the
+                   blocks of each B14 case (csrc/flash_bwd.cu's width table,
+                   held against the wrapper's mirror) with ptxas's registers
+                   and spills and their shared memory; times, bounds and
+                   library times (SDPA and its backward, the backward of
+                   F.rms_norm)
  21. train agree   Llama-2-7B is built with LoRA factors (b drawn non-zero):
                    one packed 1 x 2048 micro-batch, forward + backward, the
                    kernels vs their plain versions swapped in: the loss and
@@ -245,17 +246,18 @@ Phases:
                    the di of its o) against their plain versions per
                    element (c TRAIN_SUM) at the training path's
                    self-attention shapes (8, 4096, 8, 40), (8, 1024, 8, 80)
-                   and (8, 256, 8, 160), at (1, 1024, 4, 256), and at 160,
-                   256 and 64 (2, 384, 8 on 2) with causal + segment ids +
-                   GQA; controls that
-                   must fail: the last key tile left out (B15, B14), di
-                   dropped (B14); B14 also against its tiled plain versions,
-                   with the skipped-pair control where segments are, two
-                   launches bit-identical, and the cores (B14 runs head_dim
-                   40 and 80 on its wgmma core at 64 and 128, 160 and 256 on
-                   its WMMA core; B15 reads 40, 80, 160 and 256 in place at
-                   64, 128, 192 and 256); times, bounds and library times
-                   (SDPA, the backward of SDPA, graph-captured)
+                   and (8, 256, 8, 160), at (1, 1024, 4, 256), at heads 32
+                   (4, 1024, 8, 32) and 20 (2, 300, 8, 20, padded), and at
+                   160, 256, 64 (2, 384, 8 on 2) and 24 (2, 333, 8 on 2)
+                   with causal + segment ids + GQA; controls that must
+                   fail: the last key tile left out (B15, B14), di dropped
+                   (B14); B14 also against its tiled plain versions, with
+                   the skipped-pair control where segments are, two
+                   launches bit-identical, and the blocks each width runs
+                   (both read every head of a multiple of 8 in place, at
+                   64, 128, 192 and 256; the library's plans held against
+                   the mirrors); times, bounds and library times (SDPA, the
+                   backward of SDPA, graph-captured)
  30. sd15 train    the SD1.5 UNet is built (859.5 M fp32 parameters, bf16
      agree         compute); one micro-batch of 2 at 64x64 latents, fixed
                    timesteps and noise: the loss within 10x and the
@@ -308,8 +310,10 @@ FLASH_SHAPES = [(2, 4096, 10, 64), (2, 1024, 20, 64), (1, 1000, 4, 64), (1, 141,
 GN_CASES = [((2, 128, 128, 320), "silu"), ((2, 64, 64, 960), "silu"),
             ((2, 32, 32, 1280), "none"), ((1, 1024, 1024, 256), "silu"),
             ((1, 1024, 1024, 128), "silu")]
-# (M, K, N) of the int8 GEMM: GEGLU proj at 64x64 and 32x32, ff out at 32x32, attn2 k/v
-GEMM_SHAPES = [(8192, 640, 5120), (2048, 1280, 10240), (2048, 5120, 1280), (154, 2048, 1280)]
+# (M, K, N) of the int8 GEMM: GEGLU proj at 64x64 and 32x32, ff out at 32x32, attn2 k/v,
+# and the 32x32 attention projections (the most B2 time of an a8w8 request)
+GEMM_SHAPES = [(8192, 640, 5120), (2048, 1280, 10240), (2048, 5120, 1280), (154, 2048, 1280),
+               (2048, 1280, 1280)]
 # and a ragged one: M no multiple of the 128-row tile, N = 8 mod 16 (so the
 # last pair of column tiles has its second past the edge), K no multiple of
 # the 64-deep stage
@@ -451,18 +455,19 @@ SD15_GN_CASES = [((2, 32, 32, 640), "silu"), ((2, 8, 8, 1280), "silu"),
                  ((1, 64, 64, 512), "none"), ((1, 256, 256, 256), "silu"),
                  ((1, 512, 512, 128), "silu")]
 # SD1.5 UNet fine-tuning (examples/train_text_to_image.py): batches of 8 at
-# 64x64 latents. B14 per element with B15 / B14's gate (TRAIN_SUM) at the
-# path's three self-attention shapes (B15 reads head_dim 40, 80 and 160 in
-# place at D = 64, 128 and 192, B14 40 and 80 at its wgmma core's D = 64 and
-# D = 128; 160 its own), at 256, and at 160 and 256 with causal
-# + segment ids + GQA, which no path runs and which are compiled all the same;
-# and the wgmma core's causal + segments + GQA at D = 64 (its ragged tiles:
-# 384 rows are three 128-row query blocks, segment cuts off every tile).
-# (B, S, Hq, Hkv, D, causal with segments)
+# 64x64 latents. B15 and B14 per element with their gate (TRAIN_SUM) at the
+# path's three self-attention shapes (both read head_dim 40, 80 and 160 in
+# place at D = 64, 128 and 192), at 256, and at 160 and 256 with causal +
+# segment ids + GQA, which no path runs and which are compiled all the same;
+# causal + segments + GQA at D = 64 (its ragged tiles: 384 rows are three
+# 128-row query blocks, segment cuts off every tile); and heads of 32 or less
+# at D = 64: 32 and 24 read in place (24 with causal + segments + GQA at a
+# ragged S), 20 padded. (B, S, Hq, Hkv, D, causal with segments)
 SD15_TRAIN_FLASH_CASES = [(8, 4096, 8, 8, 40, False), (8, 1024, 8, 8, 80, False),
                           (8, 256, 8, 8, 160, False), (1, 1024, 4, 4, 256, False),
                           (2, 512, 8, 2, 160, True), (1, 512, 4, 2, 256, True),
-                          (2, 384, 8, 2, 64, True)]
+                          (2, 384, 8, 2, 64, True), (4, 1024, 8, 8, 32, False),
+                          (2, 333, 8, 2, 24, True), (2, 300, 8, 8, 20, False)]
 # B4 at every (shape, act) of the SD1.5 training path at batch 8: fp32
 # weight and bias (the masters) beside bf16 rows, a specialization of its own
 SD15_TRAIN_GN_CASES = [((8, 64, 64, c), "silu") for c in (320, 640, 960)] + \
@@ -715,31 +720,44 @@ def conv_note(label, name, shape, ms, ops, parts, extra=None):
 
 def bwd_core(d):
     """(core, note) of the flash backward (B14) at the caller's head_dim d:
-    the core that csrc/flash_bwd.cu's fixed width table (`flash_bwd_core`)
-    sends the compiled width to and, for the wgmma core, ptxas's registers
-    and spills for both kernels and their blocks' dynamic shared memory."""
+    the blocks that csrc/flash_bwd.cu's fixed width table (`flash_bwd_core`)
+    serves the head with, held against the wrapper's mirror
+    (`flash_bwd_plan`, `flash_bwd_smem`), ptxas's registers and spills for
+    both kernels (a spill fails the run) and their blocks' dynamic shared
+    memory."""
     from paddlemix_tpu_torch.ops import attention as attn
 
-    d_kernel = next(x for x in attn._BWD_HEAD_DIMS if x >= d)
-    core, smem = attn.flash_bwd_core(d_kernel)
-    if core == "wmma":
-        return core, f"D {d_kernel}"
-    counts = [(name, *ptxas_counts("flash_bwd", f"{name}_wgmma_kernelILi{d_kernel}E"))
-              for name in ("dkv", "dq")]
-    return core, (f"D {d_kernel}; ptxas " + ", ".join(
-        f"{name} {regs} registers at entry, {spills}" for name, regs, spills in counts)
-        + f" (setmaxnreg: 232 a consumer thread, 40 a producer); {smem:,} bytes of dynamic "
-        f"shared memory a block")
+    mirror = attn.flash_bwd_plan(d)
+    plan, smem = attn.flash_bwd_core(mirror.width)
+    want = tuple(attn.flash_bwd_smem(mirror.d_kernel, dkv) for dkv in (True, False))
+    check(plan == mirror and smem == want,
+          f"flash_bwd_core at head {d}: {plan}, {smem} bytes; the mirror {mirror}, {want} bytes")
+    parts = []
+    for name, form, nbytes_ in (("dkv", plan.dkv, smem[0]), ("dq", plan.dq, smem[1])):
+        regs, spills = ptxas_counts("flash_bwd", f"{name}_wgmma_kernelILi{plan.d_kernel}E")
+        check(spills in ("spills 0 / 0 bytes", "not in this run's build log"),
+              f"flash_bwd_{name} D {plan.d_kernel}: {spills}")
+        parts.append(f"{name}: {form.own} rows a block, split by "
+                     f"{'output' if form.split else 'rows'}, {form.stages} stages, ptxas {regs} "
+                     f"registers at entry, {spills}, {nbytes_:,} bytes of dynamic shared memory")
+    read = "in place" if plan.width == d else f"padded to {plan.width}"
+    return "wgmma", (f"D {plan.d_kernel}, {plan.walk}-row walked tiles, the head read {read}; "
+                     + "; ".join(parts) + " (setmaxnreg: 232 a consumer thread, 40 a producer)")
 
 
 def bwd_share(label, by_kernel, device_ms):
     """Print and return the device ms of a profile's B14 kernels (dK/dV and
-    dQ, both cores), by kernel, and their share of the device time."""
+    dQ), by kernel and compiled width, and their share of the device time."""
+    import re
+
     rows = [(ms_, n_, key) for ms_, n_, key in by_kernel if "flash_bwd" in key]
     total = sum(ms_ for ms_, _, _ in rows)
+    names = [(re.search(r"flash_bwd_\w+<\d+>", key) or re.search(".{0,60}", key)).group(0)
+             for _, _, key in rows]
     print(f"{label} B14: {total:.1f} ms of the {device_ms:.1f} ms of device time "
           f"({100 * total / device_ms:.1f}%): " + "; ".join(
-              f"{ms_:.1f} ms {n_}x {key[:60]}" for ms_, n_, key in rows), flush=True)
+              f"{ms_:.3f} ms {n_}x {name}" for (ms_, n_, _), name in zip(rows, names)),
+          flush=True)
     return total
 
 
@@ -2164,12 +2182,14 @@ def sd15_slice(torch, np, dev, gen, m, counters):
 # ------------------------------------------------- SD1.5 UNet fine-tuning
 def sd15_train_kernels(torch, F, dev, gen, record, attn):
     """B15 (the lse forward) and B14 (dkv, dq) against their plain versions
-    per element at the SD1.5 training path's shapes (head_dim 40 and 80 run
-    the D = 64 and 96 instantiations) and at head_dim 256, and at 160 and 256
-    with causal + segment ids + GQA. B15 with the control that leaves out the
-    last key tile; B14, fed B15's lse and the di of B15's o as the path feeds
-    it, with two: di dropped, and the last key tile left out. Times, bounds
-    and library times (SDPA; the backward of SDPA, graph-captured)."""
+    per element at SD15_TRAIN_FLASH_CASES: the SD1.5 training path's shapes,
+    head_dim 256, heads of 32 or less, and causal + segment ids + GQA at 24,
+    64, 160 and 256. B15 with the control that leaves out the last key tile;
+    B14, fed B15's lse and the di of B15's o as the path feeds it, with two:
+    di dropped, and the last key tile left out, and where segments are a
+    third, its tiled plain version skipping one tile pair that shares a
+    segment. Times, bounds and library times (SDPA; the backward of SDPA,
+    graph-captured)."""
     bf16 = torch.bfloat16
     sound, controls_need = [], []
     for b_, s_, h_, kvh, d_, masked in SD15_TRAIN_FLASH_CASES:
@@ -3648,11 +3668,11 @@ def main():
         entry("flash_fwd_lse_d256", "cuda", "paddlemix_tpu_torch/csrc/flash_fwd.cu",
               "paddlemix_tpu/ops/attention.py:243", {}),
     ]
-    # B14 at the SD1.5 training path's head dims (40 and 80 read in place by
-    # its wgmma core at D = 64 and 128) and at 129-256 (160 and 256 compiled)
+    # B14 at the SD1.5 training path's head dims (40, 80 and 160 read in
+    # place at D = 64, 128 and 192), at 256, and at heads of 32 or less
     kernels += [entry(f"{name}_d{d_}", "cuda", "paddlemix_tpu_torch/csrc/flash_bwd.cu",
                       f"paddlemix_tpu/ops/attention.py:{line}", sd15_train_dim(name, d_))
-                for d_ in (40, 80, 160, 256)
+                for d_ in (40, 80, 160, 256, 32, 24, 20)
                 for name, line in (("flash_bwd_dkv", 386), ("flash_bwd_dq", 422))]
     by_name = {k["name"]: k for k in kernels}
     by_name["rms_norm"]["launches_by_phase"]["train"] = launches_tr["rms_norm"]

@@ -20,13 +20,11 @@ Kernels (CUDA tensors launch them; CPU tensors run their plain versions):
   the JAX wrapper does, writing the base-2 lse of each row, fp32 (B, H, S);
 - `csrc/flash_bwd.cu`: the backward (B14), `flash_bwd_dkv` and
   `flash_bwd_dq`, from that pre-scaled q, the lse and di = rowsum(o * do),
-  at head dims up to 256 (`_BWD_HEAD_DIMS`): heads of 33-64 and 65-128 run
-  its wgmma core at 64 and 128 (read in place when a multiple of 8), which
-  writes the gradients in bf16 in the caller's layout and skips the tile
-  pairs of which no pair is visible; 129-160 and 161-256 are padded to the
-  WMMA core's 160 and 256. `flash_bwd_{dkv,dq}_tiled_ref` are the plain
-  versions walked tile by tile with that skipping, for the tests and
-  chip_smoke.py.
+  on one `wgmma` core at the forward's widths (`flash_bwd_plan`: the same
+  routing, in place or padded), which writes the gradients in bf16 in the
+  caller's layout and skips the tile pairs of which no pair is visible.
+  `flash_bwd_{dkv,dq}_tiled_ref` are the plain versions walked tile by tile
+  with that skipping, for the tests and chip_smoke.py.
 Under autograd, `flash_attention` is `_FlashAttention` (the JAX
 `_flash_attention` custom_vjp): forward by `flash_fwd_lse` (bf16 QK^T even
 with `int8_qk`, as in JAX), backward by the two B14 kernels. Segment ids compare
@@ -52,15 +50,23 @@ from .autograd import grad_needed, refuse_grad
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 LOG2E = math.log2(math.e)
-# head dims compiled into flash_fwd.cu (_KERNEL_HEAD_DIMS) and flash_bwd.cu
-# (_BWD_HEAD_DIMS): a head runs the least at or above it (the backward's 65-128
-# run its wgmma core's 128)
+# head dims compiled into csrc/flash_fwd.cu and csrc/flash_bwd.cu: a head runs
+# at the least at or above it
 _KERNEL_HEAD_DIMS = (64, 128, 192, 256)
-_BWD_HEAD_DIMS = (32, 64, 128, 160, 256)
 # csrc/flash_fwd.cu's `Tile`: (keys a tile, K/V ring stages) of each compiled
 # width, for the bf16 and the int8 QK^T form alike; a block owns 128 query rows
 _FWD_TILES = {64: (128, 3), 128: (128, 3), 192: (64, 3), 256: (64, 2)}
 _FWD_BLOCK_M = 128
+# the tile of csrc/flash_bwd.cu's core, at every width: 64 owned rows (one
+# consumer warpgroup's, or a split block's) against a walked tile of 64 rows;
+# its skips are judged on such pairs
+BWD_TILE = 64
+
+
+def _compiled_width(d: int, name: str) -> int:
+    if not 0 < d <= _KERNEL_HEAD_DIMS[-1]:
+        raise ValueError(f"{name} kernel takes head_dim <= {_KERNEL_HEAD_DIMS[-1]}, got {d}")
+    return next(x for x in _KERNEL_HEAD_DIMS if x >= d)
 
 
 class FwdPlan(NamedTuple):
@@ -76,9 +82,7 @@ def flash_fwd_plan(d: int) -> FwdPlan:
     and v in place when d is a multiple of 8 (TMA's zero fill supplies the
     columns past d) and padded to the compiled width otherwise. The library's
     `flash_fwd_core` answers the same on the card."""
-    if not 0 < d <= _KERNEL_HEAD_DIMS[-1]:
-        raise ValueError(f"flash forward kernel takes head_dim <= {_KERNEL_HEAD_DIMS[-1]}, got {d}")
-    d_kernel = next(x for x in _KERNEL_HEAD_DIMS if x >= d)
+    d_kernel = _compiled_width(d, "flash forward")
     return FwdPlan(d_kernel, d if d % 8 == 0 else d_kernel, *_FWD_TILES[d_kernel])
 
 
@@ -95,6 +99,50 @@ def flash_fwd_smem(d_kernel: int, int8: bool) -> int:
     ring = stages * (bn * panels * panel + bn * d_kernel * 2)
     ids = stages * bn * 4 * (2 if int8 else 1)
     return _FWD_BLOCK_M * panels * panel + ring + ids + (1 + 2 * stages) * 8 + 1024
+
+
+class BwdForm(NamedTuple):
+    own: int      # rows a block owns: keys (dK/dV kernel) or queries (dQ kernel)
+    stages: int   # the walked tiles' ring depth
+    split: bool   # the consumer warpgroups split 64 rows' outputs (else 64 rows each)
+
+
+class BwdPlan(NamedTuple):
+    d_kernel: int  # the compiled width
+    width: int     # the head width the kernels read: d in place, or d_kernel padded
+    walk: int      # rows of a walked tile
+    dkv: BwdForm
+    dq: BwdForm
+
+
+# csrc/flash_bwd.cu's `Form`: the dK/dV and the dQ block of each compiled width
+_BWD_FORMS = {64: (BwdForm(128, 4, False), BwdForm(128, 4, False)),
+              128: (BwdForm(128, 4, False), BwdForm(128, 4, False)),
+              192: (BwdForm(64, 3, True), BwdForm(128, 2, False)),
+              256: (BwdForm(64, 2, True), BwdForm(64, 2, True))}
+
+
+def flash_bwd_plan(d: int) -> BwdPlan:
+    """How the backward serves a head of d columns, as csrc/flash_bwd.cu's
+    fixed table does: the forward's routing (`flash_fwd_plan`), and each
+    kernel's block at that width. The library's `flash_bwd_core` answers the
+    same on the card."""
+    d_kernel = _compiled_width(d, "flash backward")
+    return BwdPlan(d_kernel, d if d % 8 == 0 else d_kernel, BWD_TILE, *_BWD_FORMS[d_kernel])
+
+
+def flash_bwd_smem(d_kernel: int, dkv: bool) -> int:
+    """Dynamic shared memory a block of the dK/dV (or dQ) kernel takes at a
+    compiled width, the mirror of csrc/flash_bwd.cu's `BwdSmem`: two owned
+    operands, a ring of two walked operands, a split block's fp32 64 x 64
+    exchange tiles (one for dK/dV, two for dQ), each stage's header with its
+    rows' segment id, lse and di, the barriers, and 1,024 bytes to align the
+    base."""
+    form = _BWD_FORMS[d_kernel][0 if dkv else 1]
+    tiles = (1 if dkv else 2) if form.split else 0
+    return (2 * form.own * d_kernel * 2 + 2 * form.stages * BWD_TILE * d_kernel * 2
+            + tiles * BWD_TILE * BWD_TILE * 4 + form.stages * (16 + 3 * BWD_TILE * 4)
+            + (1 + 2 * form.stages) * 8 + 1024)
 
 
 def int8_qk_default() -> bool:
@@ -260,11 +308,6 @@ def flash_bwd_dq_ref(qs, k, v, do, lse, di, *, scale: float, causal=False, segme
     return torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), ke.float()).to(qs.dtype)
 
 
-# the tile of csrc/flash_bwd.cu's wgmma core that a skip is judged on: one
-# consumer warpgroup's 64 owned rows against a walked tile of 64 rows
-BWD_TILE = 64
-
-
 def flash_bwd_tile_visits(sq, skv, causal=False, segment_ids=None):
     """(B or 1, ceil(Sq / 64), ceil(Skv / 64)) bool: the (query tile, key
     tile) pairs of BWD_TILE rows the backward kernels compute, by their rule.
@@ -390,8 +433,8 @@ def _flash_bwd_fns():
     lib = load_library("flash_bwd")
     dkv, dq = lib.flash_bwd_dkv_bf16, lib.flash_bwd_dq_bf16
     strides = ctypes.POINTER(ctypes.c_int)
-    dkv.argtypes = [_P] * 10 + [_I] * 10 + [strides, _P]
-    dq.argtypes = [_P] * 9 + [_I] * 10 + [strides, ctypes.c_float, _P]
+    dkv.argtypes = [_P] * 10 + [_I] * 9 + [strides, _P]
+    dq.argtypes = [_P] * 9 + [_I] * 9 + [strides, ctypes.c_float, _P]
     dkv.restype = dq.restype = _I
     return dkv, dq
 
@@ -406,9 +449,8 @@ def _kernel_operand(t):
     return t
 
 
-def _check_operands(name, q, k, v, causal, segment_ids, dims=_KERNEL_HEAD_DIMS):
-    """Device, dtype and shape checks; returns the head_dim the kernel is
-    compiled for (the least of `dims` >= d) and the int32 segment arrays or
+def _check_operands(name, q, k, v, causal, segment_ids):
+    """Device, dtype and shape checks; returns the int32 segment arrays or
     None."""
     b, sq, hq, d = q.shape
     for tname, t in (("q", q), ("k", k), ("v", v)):
@@ -432,7 +474,7 @@ def _check_operands(name, q, k, v, causal, segment_ids, dims=_KERNEL_HEAD_DIMS):
             raise ValueError(f"{name}: segment ids {tuple(segs[0].shape)} / "
                              f"{tuple(segs[1].shape)} do not match q {tuple(q.shape)} "
                              f"k {tuple(k.shape)}")
-    return next(x for x in dims if x >= d), segs
+    return segs
 
 
 def _segment_args(segs, sq, skv):
@@ -493,7 +535,7 @@ def _flash_fwd_cuda(q, k, v, scale_log2, causal, segment_ids, want_lse, int8=Fal
     where given (bf16 (B, Sq, H, width) with unit stride over the head and
     strides the kernels read, such as a view of a wider buffer)."""
     b, sq, h, d = q.shape
-    _, segs = _check_operands("flash_attention", q, k, v, causal, segment_ids)
+    segs = _check_operands("flash_attention", q, k, v, causal, segment_ids)
     width = flash_fwd_plan(d).width
     q, k, v = (_kernel_operand(t) for t in _pad_head_dim(width, q, k, v))
     o = torch.empty((b, sq, h, width), dtype=q.dtype, device=q.device) if out is None else out
@@ -537,30 +579,31 @@ def flash_fwd_core(width: int, int8: bool):
 
 
 @functools.lru_cache(maxsize=None)
-def flash_bwd_core(d_kernel: int):
-    """(core, dynamic shared memory a block) of the backward kernels at a
-    compiled head_dim: the fixed table of csrc/flash_bwd.cu (`flash_bwd_core`),
-    "wgmma" at 64 and 128, "wmma" (0 here) at the others."""
+def flash_bwd_core(width: int):
+    """The plan csrc/flash_bwd.cu's table (`flash_bwd_core`) gives a head the
+    kernels read at `width` columns, as the library answers it on the card,
+    and the blocks' dynamic shared memory: (BwdPlan, (dK/dV bytes, dQ
+    bytes))."""
     from ..kernels import load_library
 
     fn = load_library("flash_bwd").flash_bwd_core
     fn.argtypes = [_I, ctypes.POINTER(ctypes.c_int)]
     fn.restype = _I
-    smem = ctypes.c_int(0)
-    return ("wgmma" if fn(d_kernel, ctypes.byref(smem)) else "wmma"), smem.value
+    p = (ctypes.c_int * 10)()
+    if not fn(width, p):
+        raise ValueError(f"flash_bwd_core: the kernels do not read a head of {width} columns")
+    return (BwdPlan(p[0], width, p[1], BwdForm(p[2], p[3], bool(p[4])),
+                    BwdForm(p[6], p[7], bool(p[8]))), (p[5], p[9]))
 
 
 def _flash_bwd_cuda(dkv, qs, k, v, do, lse, di, scale, causal, segment_ids):
-    """dkv: [dk, dv] in k's layout; else [dq] in qs's; bf16. The wgmma core
-    reads a head of a multiple of 8 columns as it is (the compiled width's
-    columns past it read as zeros) and writes the gradients so, each GQA group
-    summed in the kernel; the WMMA core takes the head padded to its width
-    and writes fp32 (B, H, S_pad, D) of each query head, summed, transposed
-    and cast here."""
+    """dkv: [dk, dv] in k's layout; else [dq] in qs's; bf16. The kernels read
+    the head at `flash_bwd_plan(d).width` (a multiple of 8 as it is, the
+    compiled width's columns past it read as zeros; any other padded) and
+    write the gradients at that width, each GQA group summed in the kernel."""
     b, sq, h, d = qs.shape
     hkv = k.shape[2]
-    d_kernel, segs = _check_operands("flash_attention backward", qs, k, v, causal, segment_ids,
-                                     _BWD_HEAD_DIMS)
+    segs = _check_operands("flash_attention backward", qs, k, v, causal, segment_ids)
     if do.shape != qs.shape or do.dtype != qs.dtype or do.device != qs.device:
         raise ValueError(f"flash_attention backward: do {tuple(do.shape)} {do.dtype} does not "
                          f"match q {tuple(qs.shape)} {qs.dtype}")
@@ -568,22 +611,17 @@ def _flash_bwd_cuda(dkv, qs, k, v, do, lse, di, scale, causal, segment_ids):
         if t.shape != (b, h, sq) or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"flash_attention backward: {name} must be contiguous fp32 "
                              f"{(b, h, sq)}, got {t.dtype} {tuple(t.shape)}")
+    width = flash_bwd_plan(d).width
+    qs, k, v, do = (_kernel_operand(t) for t in _pad_head_dim(width, qs, k, v, do))
     rows = k.shape[1] if dkv else sq
-    wgmma = flash_bwd_core(d_kernel)[0] == "wgmma"
-    dh = d if wgmma and d % 8 == 0 else d_kernel
-    qs, k, v, do = (_kernel_operand(t) for t in _pad_head_dim(dh, qs, k, v, do))
-    if wgmma:
-        out_shape, out_dtype = (b, rows, hkv if dkv else h, dh), qs.dtype
-    else:
-        out_shape, out_dtype = (b, h, -(-rows // 64) * 64, d_kernel), torch.float32
-    outs = [torch.empty(out_shape, dtype=out_dtype, device=qs.device)
+    outs = [torch.empty((b, rows, hkv if dkv else h, width), dtype=qs.dtype, device=qs.device)
             for _ in range(2 if dkv else 1)]
     strides = (ctypes.c_int * 12)(*qs.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                                   *do.stride()[:3])
+    seg_args = _segment_args(segs, sq, k.shape[1])
     args = [qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            di.data_ptr(), *_segment_args(segs, sq, k.shape[1])[:2],
-            *(o.data_ptr() for o in outs), b, h, sq, k.shape[1], d_kernel, dh, h // hkv,
-            int(causal), *_segment_args(segs, sq, k.shape[1])[2:], strides]
+            di.data_ptr(), *seg_args[:2], *(o.data_ptr() for o in outs), b, h, sq, k.shape[1],
+            width, h // hkv, int(causal), *seg_args[2:], strides]
     fn_dkv, fn_dq = _flash_bwd_fns()
     with torch.cuda.device(qs.device):
         stream = torch.cuda.current_stream(qs.device).cuda_stream
@@ -591,12 +629,7 @@ def _flash_bwd_cuda(dkv, qs, k, v, do, lse, di, scale, causal, segment_ids):
     if err:
         raise RuntimeError(f"flash_bwd_{'dkv' if dkv else 'dq'}_bf16 launch failed with "
                            f"cudaError {err}")
-    if wgmma:
-        return [o[..., :d] for o in outs]
-    outs = [o[:, :, :rows, :d] for o in outs]
-    if dkv and hkv != h:
-        outs = [o.reshape(b, hkv, h // hkv, rows, d).sum(2) for o in outs]
-    return [o.transpose(1, 2).to(qs.dtype) for o in outs]
+    return [o[..., :d] for o in outs]
 
 
 def _cpu_only(name, t):
@@ -746,8 +779,8 @@ def flash_attention_with_lse(q, k, v, *, segment_ids: Optional[SegmentIds] = Non
 def use_flash(q_shape, k_shape, *, bias=None, causal=False) -> bool:
     """The JAX package's flash-or-math rule (paddlemix_tpu/ops/attention.py
     scaled_dot_product_attention), from shapes alone: head_dim up to 256 (the
-    forward serves it at 64, 128, 192 or 256, `flash_fwd_plan`; the backward
-    pads 129-160 to 160 and 161-256 to 256)."""
+    forward and the backward serve it at 64, 128, 192 or 256, `flash_fwd_plan`
+    and `flash_bwd_plan`)."""
     b, sq, hq, d = q_shape
     skv = k_shape[1]
     return (bias is None and skv >= 128 and d <= _KERNEL_HEAD_DIMS[-1]

@@ -68,7 +68,8 @@ def test_walk_covers_every_tile_once(kind, mkn, clusters):
 
 def test_plans_at_the_smoke_shapes():
     """The tile widths the cost model picks on an H100 (66 clusters of 2)."""
-    assert [gt.a8w8_plan(m, n, k).tile for m, k, n in GEMM_SHAPES] == [256, 256, 256, 128]
+    assert [gt.a8w8_plan(m, n, k).tile for m, k, n in GEMM_SHAPES] == [256, 256, 256, 128,
+                                                                        256]
     assert [gt.wint8_plan(m, n, k).tile for m, k, n in WINT8_SHAPES if m > 1] == [208, 152]
     plan = gt.wint8_plan(608, 11008, 4096)
     assert (plan.outer_tiles, plan.inner_tiles, plan.grid) == (86, 3, 132)

@@ -5,7 +5,8 @@ Their plain versions are held against the JAX package's `_flash_bwd`, run
 in Pallas interpret mode through `jax.vjp` of `flash_attention` (JAX pads
 the head of 160 to 256 lanes; a count of `pallas_call` shows that the
 kernels ran), in fp32 and in bf16; on a CUDA card only, the kernels against
-their plain versions at 160 and 256, with causal, segment ids and GQA.
+their plain versions at 160, 192, 200 and 256, with causal, segment ids and
+GQA.
 
 Inputs are made with numpy from a seed. The JAX package is imported through
 a fixture, so that the `gpu` test also runs where only the port is
@@ -125,16 +126,21 @@ def _gate(out, ref, c):
 
 @pytest.mark.gpu
 def test_wide_head_backward_kernels_match_plain_versions_on_gpu():
-    """B14 at head_dim 160 and 256 (and 200, padded to 256): MHA, and causal
-    with segment ids and GQA; the kernels against their plain versions with
-    chip_smoke.py's gate (c 4e-3), the control (di dropped) failing it; and
-    flash_attention under autograd launching B15 and both B14 kernels."""
+    """B14 at head_dim 160, 192, 200 and 256 (160 and 200 read in place at
+    the wgmma core's D 192 and 256, the library's plan the wrapper's mirror):
+    MHA, and causal with segment ids and GQA; the kernels against their plain
+    versions with chip_smoke.py's gate (c 4e-3), the control (di dropped)
+    failing it; and flash_attention under autograd launching B15 and both
+    B14 kernels."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: run on the GPU host (see README, PyTorch port)")
     dev, bf16 = "cuda", torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(0)
     for b, s, h, kvh, d, causal in [(2, 256, 8, 8, 160, False), (1, 1024, 4, 4, 256, False),
-                                    (2, 333, 8, 2, 160, True), (1, 300, 4, 2, 200, True)]:
+                                    (2, 333, 8, 2, 160, True), (1, 300, 4, 2, 200, True),
+                                    (1, 200, 4, 4, 192, False)]:
+        plan = tattn.flash_bwd_plan(d)
+        assert plan.width == d and tattn.flash_bwd_core(d)[0] == plan
         q = torch.randn((b, s, h, d), generator=gen, device=dev).to(bf16)
         k, v = (torch.randn((b, s, kvh, d), generator=gen, device=dev).to(bf16)
                 for _ in range(2))
@@ -175,11 +181,11 @@ def test_wide_head_backward_kernels_match_plain_versions_on_gpu():
 
 @pytest.mark.gpu
 def test_padded_heads_on_wgmma_backward_on_gpu():
-    """SD1.5's heads 40 and 80 in the backward: padded to 64 and 128 with zero
-    columns, they run B14's wgmma core (80 no longer pads to the WMMA core's
-    96), at S below one tile and ragged, MHA; the kernels against their plain
-    versions with the gate above, and flash_attention under autograd counting
-    both kernels at the caller's head_dim."""
+    """SD1.5's heads 40 and 80 in the backward: read in place by B14's wgmma
+    core at D 64 and 128 (TMA fills the columns up to D with zeros), at S
+    below one tile and ragged, MHA; the kernels against their plain versions
+    with the gate above, and flash_attention under autograd counting both
+    kernels at the caller's head_dim."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: run on the GPU host (see README, PyTorch port)")
     dev, bf16 = "cuda", torch.bfloat16

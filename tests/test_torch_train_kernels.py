@@ -390,11 +390,13 @@ def test_train_kernels_match_plain_versions_on_gpu():
 
 @pytest.mark.gpu
 def test_backward_wgmma_core_edges_on_gpu():
-    """B14's wgmma core (head_dim 64 and 128) at its edges, against the plain
+    """B14's wgmma core at D 64 and 128 at its edges, against the plain
     versions untiled and tiled (c 4e-3, as above): S below one 64-row tile;
     q, k, v and do as slices of joint tensors (read in place through their
     strides); GQA 4:1, its group summed in registers; segments that leave
-    whole tile pairs skipped. Two launches are bit-identical."""
+    whole tile pairs skipped; heads 24 and 32 read in place at D 64. The
+    library's plan (the wgmma core's blocks) is the wrapper's mirror. Two
+    launches are bit-identical."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: run on the GPU host (see README, PyTorch port)")
     dev, bf16 = "cuda", torch.bfloat16
@@ -407,7 +409,8 @@ def test_backward_wgmma_core_edges_on_gpu():
 
     for b, s, h, kvh, d, masked in [(2, 50, 8, 2, 64, True), (1, 40, 4, 4, 128, False),
                                     (2, 333, 8, 2, 128, True), (1, 520, 8, 2, 64, True),
-                                    (2, 256, 4, 1, 64, False)]:
+                                    (2, 256, 4, 1, 64, False), (2, 300, 8, 2, 24, True),
+                                    (1, 200, 4, 4, 32, False)]:
         x = torch.randn((b, s, 2 * h + 2 * kvh, d), generator=gen, device=dev).to(bf16)
         q, do = x[:, :, :h], x[:, :, h:2 * h]
         k, v = x[:, :, 2 * h:2 * h + kvh], x[:, :, 2 * h + kvh:]
@@ -426,7 +429,8 @@ def test_backward_wgmma_core_edges_on_gpu():
         qs = (q.float() * scale * tattn.LOG2E).to(bf16)
         ro, rlse = tattn.flash_fwd_lse_ref(qs, k, v, **kw)
         di = (ro.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
-        assert tattn.flash_bwd_core(d)[0] == "wgmma"
+        plan = tattn.flash_bwd_plan(d)
+        assert plan.width == d and tattn.flash_bwd_core(d)[0] == plan
         dk, dv = _counted(tattn.flash_bwd_dkv, qs, k, v, do, rlse, di, **kw)
         dq = _counted(tattn.flash_bwd_dq, qs, k, v, do, rlse, di, scale=scale, **kw)
         dk2, dv2 = tattn.flash_bwd_dkv(qs, k, v, do, rlse, di, **kw)

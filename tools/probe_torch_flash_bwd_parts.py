@@ -1,18 +1,24 @@
 #!/usr/bin/env python3
-"""Where the time of B14's wgmma core goes, in the PyTorch port: the flash
-backward's dK/dV and dQ kernels (csrc/flash_bwd.cu, namespace `wg`) timed
-whole and with one part of a tile's work taken out.
+"""Where the time of B14 goes, in the PyTorch port: the flash backward's
+dK/dV and dQ kernels (csrc/flash_bwd.cu, namespace `wg`) timed whole, with
+one part of a tile's work taken out, and in the other form of a block split
+by output.
 
-Builds csrc/flash_bwd.cu as it is and in three variants, one nvcc each, in
+Builds csrc/flash_bwd.cu as it is and in four variants, one nvcc each, in
 parallel, under build/probe_flash_bwd/ (git-ignored): without the exp2 of
-the elementwise step (p = s - lse), without a tile's first two products (S
-and dP), and without its last ones (dV and dK, or dQ). The variants compute
-wrong gradients; they are timed only. Each is timed at the SD1.5 training
-path's head-40 self-attention (8, 4096, 8, 40), which runs the D = 64
-instantiation, and at the LoRA SFT shape (2, 2048, 32, 128) causal with four
-segments a row, like `chip_smoke.py`: 10 launches captured in a CUDA graph,
-one replay timed by CUDA events, the variants in turns (the kernel first
-and last). A part whose removal saves little is hidden behind the others.
+the elementwise step (p = s - lse), without a block split by rows' first two
+products a tile (S and dP), without its last ones (dV and dK, or dQ), and
+with the dK/dV kernel's split blocks (D 192 and 256) in their other form:
+the warpgroup that sums dK computes S^T and P^T itself (three products a
+tile to the other's two) instead of taking P^T through the exchange tile.
+The first three variants compute wrong gradients and are timed only; the
+last must give the kernel's gradients bit for bit. Each is timed at the
+SD1.5 training path's head-40 and head-160 self-attentions (8, 4096, 8, 40)
+and (8, 256, 8, 160), at (1, 1024, 4, 256), and at the LoRA SFT shape (2,
+2048, 32, 128) causal with four segments a row, like `chip_smoke.py`: 10
+launches captured in a CUDA graph, one replay timed by CUDA events, the
+variants in turns (the kernel first and last). A part whose removal saves
+little is hidden behind the others.
 
 Usage (from the root of a checkout, on a machine with a CUDA card):
     python3 tools/probe_torch_flash_bwd_parts.py
@@ -27,23 +33,45 @@ from concurrent.futures import ThreadPoolExecutor
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-# (variant, [(text of csrc/flash_bwd.cu, its replacement), ...])
+# (variant, exact, [(text of csrc/flash_bwd.cu, its replacement), ...])
 VARIANTS = [
-    ("kernel", []),
-    ("no exp2", [("float p = ex2(acc_s[i] - l);", "float p = acc_s[i] - l;"),
-                 ("float p = ex2(acc_s[i] - my_lse[r]);", "float p = acc_s[i] - my_lse[r];")]),
-    ("no S, dP", [("    issue_rows_t<D>(acc_s, k_wg, ring.walk(0, s));\n"
-                   "    issue_rows_t<D>(acc_dp, v_wg, ring.walk(1, s));\n", ""),
-                  ("    issue_rows_t<D>(acc_s, q_wg, ring.walk(0, s));\n"
-                   "    issue_rows_t<D>(acc_dp, do_wg, ring.walk(1, s));\n", "")]),
-    ("no dV dK / dQ", [("    issue_acc<D>(acc_dv, pa, ring.walk(1, s));\n"
-                        "    issue_acc<D>(acc_dk, da, ring.walk(0, s));\n", ""),
-                       ("    issue_acc<D>(acc_dq, da, ring.walk(0, s));\n", "")]),
+    ("kernel", True, []),
+    ("no exp2", False, [("float p = ex2(s[i] - l);", "float p = s[i] - l;"),
+                        ("float p = ex2(s[i] - my_lse[r]);", "float p = s[i] - my_lse[r];")]),
+    ("no S, dP", False, [
+        ("      issue_rows_t<D, F::OWN>(acc_s, k_wg, ring.walk(0, s));\n"
+         "      issue_rows_t<D, F::OWN>(acc_dp, v_wg, ring.walk(1, s));\n", ""),
+        ("      issue_rows_t<D, F::OWN>(acc_s, q_wg, ring.walk(0, s));\n"
+         "      issue_rows_t<D, F::OWN>(acc_dp, do_wg, ring.walk(1, s));\n", "")]),
+    ("no dV dK / dQ", False, [
+        ("      issue_acc<D>(acc_dv, pa, ring.walk(1, s));\n"
+         "      issue_acc<D>(acc_dk, da, ring.walk(0, s));\n", ""),
+        ("      issue_acc<D>(acc_dq, da, ring.walk(0, s));\n", "")]),
+    ("dK wg S^T", True, [
+        ("      if (sent++) named_sync(XCH_FREE0);  // warpgroup 1 has read the last tile's P^T\n"
+         "      xch_put(xch, acc_s, tid);\n      named_arrive(XCH_FULL);\n", ""),
+        ("    if (sent) named_sync(XCH_FREE0);  // the last tile's\n", ""),
+        ("      zero(acc_dp);\n      wgmma_fence();\n"
+         "      issue_rows_t<D, F::OWN>(acc_dp, v_wg, ring.walk(1, s));\n"
+         "      wgmma_commit();\n      wgmma_wait<0>();\n      pin(acc_dp);\n"
+         "      named_sync(XCH_FULL);\n",
+         "      float acc_s[W / 2];\n      zero(acc_s);\n      zero(acc_dp);\n"
+         "      wgmma_fence();\n"
+         "      issue_rows_t<D, F::OWN>(acc_s, k_wg, ring.walk(0, s));\n"
+         "      issue_rows_t<D, F::OWN>(acc_dp, v_wg, ring.walk(1, s));\n"
+         "      wgmma_commit();\n      wgmma_wait<0>();\n      pin(acc_s);\n      pin(acc_dp);\n"
+         "      probs_t<false>(acc_s, acc_s, st, st.hdr[3] == MASKED, causal, segs, key0, "
+         "st.hdr[1], c0, my_seg, ds_scale);\n"),
+        ("        const float4 p = xch_get(xch, j, tid);\n",
+         "        const float4 p = make_float4(acc_s[4 * j], acc_s[4 * j + 1], acc_s[4 * j + 2], "
+         "acc_s[4 * j + 3]);\n"),
+        ("      named_arrive(XCH_FREE0);\n", "")]),
 ]
-SHAPES = [(8, 4096, 8, 8, 40, False), (2, 2048, 32, 32, 128, True)]
+SHAPES = [(8, 4096, 8, 8, 40, False), (8, 256, 8, 8, 160, False), (1, 1024, 4, 4, 256, False),
+          (2, 2048, 32, 32, 128, True)]
 
 
-def build(name, edits):
+def build(name, exact, edits):
     """csrc/flash_bwd.cu with `edits` applied, built into its own library."""
     from paddlemix_tpu_torch.kernels import build as kb
 
@@ -66,8 +94,8 @@ def build(name, edits):
     fns = ctypes.CDLL(lib)
     dkv, dq = fns.flash_bwd_dkv_bf16, fns.flash_bwd_dq_bf16
     p, i, st = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
-    dkv.argtypes = [p] * 10 + [i] * 10 + [st, p]
-    dq.argtypes = [p] * 9 + [i] * 10 + [st, ctypes.c_float, p]
+    dkv.argtypes = [p] * 10 + [i] * 9 + [st, p]
+    dq.argtypes = [p] * 9 + [i] * 9 + [st, ctypes.c_float, p]
     dkv.restype = dq.restype = i
     return dkv, dq
 
@@ -84,10 +112,10 @@ def main():
                          capture_output=True, text=True, check=True).stdout.strip()
     print(f"{torch.cuda.get_device_name(0)} | nvidia-smi: {smi}", flush=True)
     with ThreadPoolExecutor(len(VARIANTS)) as pool:
-        libs = dict(zip([n for n, _ in VARIANTS], pool.map(lambda v: build(*v), VARIANTS)))
+        libs = dict(zip([n for n, _, _ in VARIANTS], pool.map(lambda v: build(*v), VARIANTS)))
     dev, bf16 = torch.device("cuda", 0), torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(0)
-    order = [n for n, _ in VARIANTS] + [n for n, _ in VARIANTS][::-1]
+    order = [n for n, _, _ in VARIANTS] + [n for n, _, _ in VARIANTS][::-1]
     for b, s, h, kvh, d, masked in SHAPES:
         q, do = (torch.randn((b, s, h, d), generator=gen, device=dev).to(bf16) for _ in range(2))
         k, v = (torch.randn((b, s, kvh, d), generator=gen, device=dev).to(bf16)
@@ -102,9 +130,15 @@ def main():
         qs = (q.float() * (scale * attn.LOG2E)).to(bf16)
         o, lse = attn.flash_fwd_lse(qs, k, v, **kw)
         di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
-        times = {}
+        times, first = {}, None
         for name in order:
             attn._flash_bwd_fns = lambda fns=libs[name]: fns
+            if dict((n, e) for n, e, _ in VARIANTS)[name]:  # the kernel's gradients, bit for bit
+                grads = (*attn.flash_bwd_dkv(qs, k, v, do, lse, di, **kw),
+                         attn.flash_bwd_dq(qs, k, v, do, lse, di, scale=scale, **kw))
+                first = first or grads
+                if not all(torch.equal(a, b_) for a, b_ in zip(grads, first)):
+                    raise SystemExit(f"variant {name!r} changes the gradients at {(b, s, d)}")
             dkv_ms = cs.cuda_ms(torch, lambda: attn.flash_bwd_dkv(qs, k, v, do, lse, di, **kw))
             dq_ms = cs.cuda_ms(torch, lambda: attn.flash_bwd_dq(qs, k, v, do, lse, di,
                                                                 scale=scale, **kw))
