@@ -68,7 +68,19 @@ Phases:
                    (ops/gemm_tiles.py conv_plan), ptxas counts, shared memory,
                    TOP/s and its parts' times (the activation pass, the conv,
                    for B5 the GroupNorm statistics), B5 with cuDNN's bf16
-                   F.conv2d of the same conv beside it
+                   F.conv2d of the same conv beside it; B4 (csrc/norms.cu)
+                   per element at SDXL's shapes and a ragged (1, 50, 100,
+                   96), each with the 16-group control, in both of its plan's
+                   forms; the library's plans held against the wrappers'
+                   mirrors at every B4 shape of the module walks (printed
+                   with the launches by shape of each path) and at the
+                   LayerNorm backward's, with the clusters each runs at once;
+                   B4's statistics per element at FUSED_CASES' shapes and a
+                   ragged one, with a control (rstd from E[x^2]) that must
+                   fail; two launches bit-identical and CUDA-graph replays
+                   equal to them, and the kernels a call by the profiler, for
+                   B4 in both forms, its statistics and the LayerNorm
+                   backward with one cluster and with several
   4. agree         one full-width bf16 UNet forward at a small latent, kernels
                    vs plain
   5. serve         3 bf16 requests, 1024x1024, 25 Euler steps, guidance 5.0;
@@ -199,7 +211,9 @@ Phases:
                    x 768 and 77 x 1280, LLaVA's ViT 577 x 1024), gated per element,
                    with controls that must fail (the variance without the
                    mean subtracted; dx without its mean(g w) term; dw and db of
-                   the first program's rows alone); times, bounds and library
+                   the first partial sum's rows alone: the plan's first
+                   cluster's, or first block's where one cluster takes every
+                   row); times, bounds and library
                    times (F.layer_norm and its backward)
  24. clip          CLIP ViT-B/16 is built; agree (the logits of one seeded
                    batch of 256, B10 vs plain, held within 1.25x of two plain
@@ -214,7 +228,7 @@ Phases:
                    the rounding noise within 1.25x of two plain versions one
                    rounding apart; controls that must fail: B10 with its row
                    stride ignored for the loss, B10's dw and db of the first
-                   program's rows alone for the gradients),
+                   partial sum's rows alone for the gradients),
                    then 10 optimizer steps over
                    2,560 seeded pairs: seconds a step, samples/s, model
                    TFLOP/s (3x the forward's), reader share, busy share of a
@@ -330,6 +344,8 @@ FUSED_CASES = [((2, 128, 128, 320), 320, None), ((2, 32, 32, 2560), 1280, "temb"
                ((2, 32, 32, 1280), 1280, "residual"), ((2, 64, 64, 640), 640, "residual"),
                ((1, 1024, 1024, 128), 128, None)]
 FUSED_RAGGED = ((1, 50, 100, 96), 200, "residual")  # as CONV_RAGGED (C divisible by 32 groups)
+# B4 at a ragged map: 5,000 rows, 96 channels (3 a group, 24-channel slabs)
+GN_RAGGED = (1, 50, 100, 96)
 # B1: bf16 P and output against the fp32 plain version, per element:
 # |out - ref| <= 2**-7 |ref| (the output's rounding) + FLASH_SUM |ref|max (P's
 # rounding); the run prints the least c each shape needs. The plain version
@@ -337,6 +353,11 @@ FUSED_RAGGED = ((1, 50, 100, 96), 200, "residual")  # as CONV_RAGGED (C divisibl
 # 4,250) must fail it (the control).
 FLASH_ULP, FLASH_SUM = 2.0 ** -7, 4e-3
 GN_TOL = 3e-2     # absolute: bf16 output rounding (half an ulp is 1.6e-2 below 8)
+# B4's statistics (group_norm_stats): fp32 sums in another order than the
+# plain version's, so |mean - ref| * rstd_ref and |rstd / rstd_ref - 1| are
+# held within GN_STATS_TOL; the control, rstd from E[x^2] with the mean not
+# subtracted, must fail it (the inputs' channels have their own offsets)
+GN_STATS_TOL = 1e-4
 # B2, B3, B5: the int32 sums are exact on both sides and the kernels round
 # every fp32 step (affine, SiLU, quantize, dequant, epilogue) as the plain
 # versions do, so they are bit-exact; the limit allows one bf16 rounding apart
@@ -1370,12 +1391,196 @@ def ln_rounded(x, w, b, eps):
     return (xhat.float() * w.float() + b.float()).to(x.dtype)
 
 
+def ln_first_rows(norms, rows, h, esize):
+    """The rows of the LayerNorm backward's first partial sum: its first
+    cluster's (csrc/norms.cu's plan), or its first block's where one cluster
+    takes every row. dw and db of these rows alone are the controls."""
+    plan = norms.layer_norm_bwd_plan(rows, h, esize)
+    if plan.clusters > 1:
+        return len(plan.cluster_rows(0, rows))
+    return min(rows, plan.warps * plan.rpw)
+
+
+def group_norm_walks():
+    """B4's launches by (wrapper, (B, H, W, C), act) in one request or
+    training step of each path, from the module walks (diffusers/sdxl.py
+    `unet_group_norm_calls`, `vae_group_norm_calls`): SDXL in bf16 and under
+    static a8w8 (whose resnets take B5's statistics), SD3 (its VAE), SD1.5 and
+    an SD1.5 training step at batch 8."""
+    from paddlemix_tpu_torch.diffusers import sd3, sd15, sdxl
+
+    def times(calls, k):
+        return collections.Counter({key: n * k for key, n in calls.items()})
+    lat = HEIGHT // 8
+    return {
+        "sdxl_bf16": times(sdxl.unet_group_norm_calls(sdxl.SDXL_UNET, 2, lat), STEPS)
+        + sdxl.vae_group_norm_calls(sdxl.SDXL_VAE, lat),
+        "sdxl_a8w8": times(sdxl.unet_group_norm_calls(sdxl.SDXL_UNET, 2, lat, fused=True), STEPS)
+        + sdxl.vae_group_norm_calls(sdxl.SDXL_VAE, lat, fused=True),
+        "sd3": sdxl.vae_group_norm_calls(sd3.SD3_VAE, lat),
+        "sd15": times(sdxl.unet_group_norm_calls(sd15.SD15_UNET, 2, SD15_SIZE // 8), SD15_STEPS)
+        + sdxl.vae_group_norm_calls(sd15.SD15_VAE, SD15_SIZE // 8),
+        "sd15_train": sdxl.unet_group_norm_calls(sd15.SD15_UNET, SD15_TRAIN_BATCH, SD15_SIZE // 8),
+    }
+
+
+def device_ops(torch, fn):
+    """The kernels (device operations) one call of `fn` runs, by the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages() if e.self_device_time_total > 0}
+
+
+def replays_agree(torch, fn, want):
+    """fn's outputs, captured once in a CUDA graph and replayed three times,
+    equal `want` bit for bit at every replay."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    ok = True
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        ok &= all(torch.equal(a, b) for a, b in zip(out, want))
+    return ok
+
+
+def norms_kernels(torch, dev, gen, record, norms):
+    """csrc/norms.cu beyond the per-element GroupNorm cases: the library's
+    plans against the wrappers' mirrors at every B4 shape the paths give (the
+    module walks) and the lists', and the LayerNorm backward's at the CLIP
+    rows and ragged ones, with the clusters each plan's launch shape runs at
+    once; B4's statistics per element at FUSED_CASES' shapes and a ragged one,
+    with a control; two launches bit-identical and CUDA-graph replays equal
+    to them (B4 in both forms, its statistics, the backward with one cluster
+    and with several, whose tickets every launch leaves at 0); kernels a call
+    by the profiler."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    walks = group_norm_walks()
+    for path, calls in walks.items():
+        by = collections.Counter()
+        for (name, _, _), n in calls.items():
+            by[name] += n
+        print(f"[norms] B4 launches a {'step' if 'train' in path else 'request'} by the walks, "
+              f"{path}: {dict(by)}; by (wrapper, shape): "
+              f"{sorted(calls.items())}", flush=True)
+    shapes = {(name, shape) for calls in walks.values() for name, shape, _ in calls}
+    shapes |= {("group_norm", s) for s, _ in GN_CASES + SD15_GN_CASES + SD15_TRAIN_GN_CASES}
+    shapes |= {("group_norm", GN_RAGGED)} | {("group_norm_stats", s) for s, _, _ in FUSED_CASES}
+    shapes |= {("group_norm_stats", FUSED_RAGGED[0])}
+    checked = 0
+    for name, shape in sorted(shapes):
+        b_, c = shape[0], shape[-1]
+        n = shape[1] * shape[2]
+        for dtype in (bf16, f32):
+            for stats in ({True} if name == "group_norm_stats" else {False, True}):
+                mirror = norms.group_norm_plan(b_, n, c, 32, torch.empty(0, dtype=dtype)
+                                               .element_size(), stats=stats)
+                lib = norms.group_norm_plan_library(b_, n, c, 32, dtype, stats=stats)
+                check(mirror == lib, f"group_norm plan {name} {shape} {dtype} stats {stats}: the "
+                                     f"library's {lib}, the mirror's {mirror}")
+                checked += 1
+        plan = norms.group_norm_plan(b_, n, c, 32, 2, stats=name == "group_norm_stats")
+        kind = 0 if plan.form == norms.RESIDENT else 1
+        most = norms.norms_max_clusters(kind, plan.threads, plan.smem, plan.cluster)
+        clusters = b_ * (c // plan.slab)
+        print(f"[norms] {name} {shape} bf16: {plan} | {clusters} clusters, {most} run at once "
+              f"({'one wave' if clusters <= most else 'more than one wave'})", flush=True)
+    ln_cases = [(r, h) for r, h, _ in CLIP_LN_SHAPES] + [(1000, 200), (3000, 100)]
+    for rows, h in ln_cases:
+        for dtype in (bf16, f32):
+            for aligned in (True, False):
+                es = torch.empty(0, dtype=dtype).element_size()
+                mirror = norms.layer_norm_bwd_plan(rows, h, es, aligned)
+                lib = norms.layer_norm_bwd_plan_library(rows, h, dtype, aligned)
+                check(mirror == lib, f"layer_norm_bwd plan {(rows, h)} {dtype} aligned {aligned}: "
+                                     f"the library's {lib}, the mirror's {mirror}")
+                checked += 1
+        plan = norms.layer_norm_bwd_plan(rows, h, 2)
+        most = norms.norms_max_clusters(2, plan.warps * 32, plan.smem, plan.cluster)
+        print(f"[norms] layer_norm_backward {(rows, h)} bf16: {plan} | {most} clusters run at "
+              f"once", flush=True)
+    print(f"[norms] {checked} plans: the library's equal the mirrors'", flush=True)
+
+    # B4's statistics per element, with the control
+    for shape in [s for s, _, _ in FUSED_CASES] + [FUSED_RAGGED[0]]:
+        c = shape[-1]
+        x = (torch.randn(shape, generator=gen, device=dev)
+             * (0.5 + 1.5 * torch.rand(c, generator=gen, device=dev))
+             + torch.randn(c, generator=gen, device=dev)).to(bf16)
+        mean, rstd = norms.group_norm_stats(x, 32, 1e-5)
+        torch.cuda.synchronize()
+        rmean, rrstd = norms._group_moments(x.float(), 32, 1e-5)
+
+        def gap(m, r):
+            return max(((m - rmean).abs() * rrstd).max().item(), (r / rrstd - 1).abs().max().item())
+        err = gap(mean, rstd)
+        xf = x.float()
+        sq = (xf * xf).mean(dim=tuple(range(1, x.ndim - 1))).reshape(shape[0], 32, -1).mean(-1)
+        control = gap(rmean, torch.rsqrt(sq + 1e-5))
+        print(f"[norms] group_norm_stats {shape} bf16: {err:.3e} of the group's std and of rstd "
+              f"(tol {GN_STATS_TOL}); control, rstd from E[x^2]: {control:.3e} (must exceed the "
+              f"tol)", flush=True)
+        check(bool(torch.isfinite(rstd).all()) and err <= GN_STATS_TOL,
+              f"group_norm_stats {shape}: {err}")
+        check(control > GN_STATS_TOL, f"group_norm_stats {shape}: the control passes ({control})")
+        ms, plain_ms = timed_pair(torch, lambda: norms.group_norm_stats(x, 32, 1e-5),
+                                  lambda: norms._group_moments(x, 32, 1e-5))
+        # one pass over x: bytes bound it; no single PyTorch call computes it
+        record("kernels", "group_norm_stats", shape, err, ms, plain_ms, None,
+               bound(nbytes(x, mean, rstd), 3 * x.numel(), "fp32"))
+        del x, xf
+
+    # bit-identical launches, CUDA-graph replays, kernels a call
+    for shape in [(2, 32, 32, 1280), (2, 128, 128, 320), GN_RAGGED]:
+        c = shape[-1]
+        x = torch.randn(shape, generator=gen, device=dev).to(bf16)
+        w = (1 + 0.05 * torch.randn(c, generator=gen, device=dev)).to(bf16)
+        b = (0.05 * torch.randn(c, generator=gen, device=dev)).to(bf16)
+        plan = norms.group_norm_plan(shape[0], shape[1] * shape[2], c, 32, 2)
+        y1, y2 = (norms.group_norm(x, w, b, 32, 1e-5, "silu") for _ in range(2))
+        s1, s2 = (norms.group_norm_stats(x, 32, 1e-5) for _ in range(2))
+        same = torch.equal(y1, y2) and all(map(torch.equal, s1, s2))
+        replay = replays_agree(torch, lambda: (norms.group_norm(x, w, b, 32, 1e-5, "silu"),), (y1,)) \
+            and replays_agree(torch, lambda: norms.group_norm_stats(x, 32, 1e-5), s1)
+        ops = device_ops(torch, lambda: norms.group_norm(x, w, b, 32, 1e-5, "silu"))
+        ops_stats = device_ops(torch, lambda: norms.group_norm_stats(x, 32, 1e-5))
+        print(f"[norms] group_norm {shape} ({'resident' if plan.form == norms.RESIDENT else 're-read'}"
+              f" form): two launches bit-identical {same}, graph replays equal {replay}; kernels a "
+              f"call {ops} (want {plan.launches()}), statistics {ops_stats} (want 1)", flush=True)
+        check(same and replay, f"group_norm {shape}: launches differ")
+        check(sum(ops.values()) == plan.launches() and sum(ops_stats.values()) == 1,
+              f"group_norm {shape}: kernels a call {ops}, {ops_stats}")
+        del x
+    for rows, h in [(19712, 512), (577, 1024), (77, 768)]:
+        x = torch.randn((rows, h), generator=gen, device=dev).to(bf16)
+        w = 1 + 0.2 * torch.randn(h, generator=gen, device=dev)
+        g = torch.randn((rows, h), generator=gen, device=dev).to(bf16)
+        plan = norms.layer_norm_bwd_plan(rows, h, 2)
+        o1, o2 = (norms.layer_norm_backward(x, w, g, 1e-5) for _ in range(2))
+        same = all(map(torch.equal, o1, o2))
+        replay = replays_agree(torch, lambda: norms.layer_norm_backward(x, w, g, 1e-5), o1)
+        ops = device_ops(torch, lambda: norms.layer_norm_backward(x, w, g, 1e-5))
+        tickets = norms._tickets(dev).cpu().tolist()
+        print(f"[norms] layer_norm_backward {(rows, h)} ({plan.clusters} cluster(s) of "
+              f"{plan.cluster}): two launches bit-identical {same}, graph replays equal {replay}; "
+              f"kernels a call {ops} (want 1); tickets after {tickets}", flush=True)
+        check(same and replay and sum(ops.values()) == 1 and not any(tickets),
+              f"layer_norm_backward {(rows, h)}: {same}, {replay}, {ops}, {tickets}")
+        del x, g
+
+
 def clip_kernels(torch, F, dev, gen, record, norms):
     """B10 and its backward against their plain versions at the CLIP path's
     rows, each gate with its controls; times, bounds and library times
     (F.layer_norm and its backward, bf16 weight and bias)."""
     bf16 = torch.bfloat16
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for rows, h, span in CLIP_LN_SHAPES:
         pooled = span > 1
         # rows with their own offsets and scales, as a residual stream's; the
@@ -1405,7 +1610,7 @@ def clip_kernels(torch, F, dev, gen, record, norms):
                               LN_BWD_SUM)
         rel = lambda a, r: ((a - r).abs().max() / r.abs().max()).item()  # noqa: E731
         dw_err, db_err = rel(dw, rdw), rel(db, rdb)
-        first = norms._ln_bwd_split(rows, h, sms)[1]
+        first = ln_first_rows(norms, rows, h, 2)
         cdw, cdb = norms.layer_norm_backward_ref(xf[:first], w, gf[:first], 1e-5)[1:]
         ctrl_dwdb = min(rel(cdw, rdw), rel(cdb, rdb))
         print(f"[clip kernels] layer_norm {shape}{' (pooled rows, a strided slice)' if pooled else ''}"
@@ -1414,7 +1619,7 @@ def clip_kernels(torch, F, dev, gen, record, norms):
         print(f"[clip kernels] layer_norm_backward {shape}: dx excess {dx_excess:.3e} (least c "
               f"{dx_need:.2e}, c {LN_BWD_SUM}); dw / db max err {dw_err:.3e} / {db_err:.3e} "
               f"|ref|max (tol {LN_DW_TOL}); controls: dx without mean(g w) excess {ctrl_dx:.3e} "
-              f"(must be > 0), dw / db of the first program's {first} rows alone {ctrl_dwdb:.3e} "
+              f"(must be > 0), dw / db of the first partial sum's {first} rows alone {ctrl_dwdb:.3e} "
               f"(must be > tol)", flush=True)
         check(bool(torch.isfinite(y).all()) and excess <= 0, f"layer_norm {shape}: {excess}")
         check(ctrl > 0, f"layer_norm {shape}: the control passes ({ctrl})")
@@ -1584,14 +1789,13 @@ def clip_slice(torch, np, dev, m, counters):
 
     def first_rows_backward(x, w, g, eps):
         """The gradients' control: B10's backward with dw and db of the first
-        program's rows alone (a column sum that kept one partial)."""
+        partial sum's rows alone (a reduction that kept one partial)."""
         h = x.shape[-1]
         x2, g2 = x.reshape(-1, h), g.reshape(-1, h)
-        first = norms._ln_bwd_split(x2.shape[0], h, sms)[1]
+        first = ln_first_rows(norms, x2.shape[0], h, x.element_size())
         dx = norms.layer_norm_backward_ref(x, w, g, eps)[0]
         return (dx,) + norms.layer_norm_backward_ref(x2[:first], w, g2[:first], eps)[1:]
 
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     zero()
     loss_k, grads_k = loss_and_grads()
     torch.cuda.synchronize()
@@ -2554,7 +2758,7 @@ def main():
 
     # ----------------------------------------------------------------- build
     sources = ["flash_fwd", "flash_bwd", "int8_gemm", "int8_conv3x3", "wint8_gemm",
-               "decode_attention", "paged_attention"]
+               "decode_attention", "paged_attention", "norms"]
     t0 = time.perf_counter()
     build_all(sources)
     print(f"[build] {len(sources)} sources in parallel: {time.perf_counter() - t0:.1f} s",
@@ -2640,8 +2844,9 @@ def main():
                + ("" if wdtype == bf16 else ", fp32 w / b | library: w / b rounded to bf16"))
         del x, out, ref, x_nchw
 
-    for shape, act in GN_CASES:
-        gn_case("kernels", shape, act)
+    for shape, act in GN_CASES + [(GN_RAGGED, "silu")]:
+        gn_case("kernels", shape, act, control=True)
+    norms_kernels(torch, dev, gen, record, norms_mod)
 
     def int8_case(name, shape, kernel, plain, library, extra=""):
         out = kernel()
@@ -3606,8 +3811,10 @@ def main():
     kernels = [
         entry("flash_attention", "cuda", "paddlemix_tpu_torch/csrc/flash_fwd.cu",
               "paddlemix_tpu/ops/attention.py:168", sdxl("flash_attention")),
-        entry("group_norm", "triton", "paddlemix_tpu_torch/ops/norms.py",
+        entry("group_norm", "cuda", "paddlemix_tpu_torch/csrc/norms.cu",
               "paddlemix_tpu/ops/norms.py:462", sdxl("group_norm")),
+        entry("group_norm_stats", "cuda", "paddlemix_tpu_torch/csrc/norms.cu",
+              "paddlemix_tpu/ops/norms.py:462", sdxl("group_norm_stats")),
         entry("int8_a8w8_matmul", "cuda", "paddlemix_tpu_torch/csrc/int8_gemm.cu",
               "paddlemix_tpu/ops/conv_int8.py:187", sdxl("int8_a8w8_matmul")),
         entry("int8_conv3x3_same", "cuda", "paddlemix_tpu_torch/csrc/int8_conv3x3.cu",
@@ -3646,7 +3853,7 @@ def main():
                "llava_bf16": launches_llava["layer_norm"],
                "llava_wint8": launches_wint8["layer_norm"], "sd3": launches_sd3["layer_norm"],
                "clip": launches_clip["layer_norm"], "clip_train": launches_clip_tr["layer_norm"]}),
-        entry("layer_norm_backward", "triton", "paddlemix_tpu_torch/ops/norms.py",
+        entry("layer_norm_backward", "cuda", "paddlemix_tpu_torch/csrc/norms.cu",
               "paddlemix_tpu/ops/norms.py:226",
               {"clip_train": launches_clip_tr["layer_norm_backward"]}),
         # B1's forms: int8 QK^T (the `int8_qk` branch of `_fwd_kernel`) and
@@ -3679,15 +3886,15 @@ def main():
     by_name["rms_norm"]["launches"] += launches_tr["rms_norm"]
     by_name["group_norm"]["launches_by_phase"]["sd15_train"] = launches_sd15_tr["group_norm"]
     by_name["group_norm"]["launches"] += launches_sd15_tr["group_norm"]
-    kernels[1]["stats_launches_by_phase"] = sdxl("group_norm_stats")
-    # the a8w8 requests run all five SDXL kernels, the bf16 ones flash and
+    # the a8w8 requests run all six SDXL kernels (B4's statistics for B5
+    # among them), the bf16 ones flash and
     # GroupNorm; both LLaVA configurations run decode attention and RMSNorm,
     # wint8 also the wint8 GEMM; SD3 runs flash, GroupNorm, RMSNorm and both
     # adaLN kernels; the Llama requests run RMSNorm and the decode attention
     # of their cache: B8, B7 or B9 (and, checked per request above, no other);
     # the CLIP towers of SDXL, LLaVA and SD3 run B10, and the CLIP phases B10
     # and (training) its backward, and nothing else
-    must_run = [(k["name"], phase) for k in kernels[:5] for phase in ("a8w8", "a8w8_int8_attn")
+    must_run = [(k["name"], phase) for k in kernels[:6] for phase in ("a8w8", "a8w8_int8_attn")
                 if k["name"] != "flash_attention"] + [("flash_attention", "a8w8")] + \
         [("flash_attention_int8", "a8w8_int8_attn"), ("flash_attention_d160", "sd15")] + \
         [(name, "sd15") for name in ("flash_attention", "group_norm", "layer_norm")] + \

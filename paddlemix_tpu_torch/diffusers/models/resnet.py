@@ -15,6 +15,7 @@ order conv1, conv2, conv_shortcut, as the JAX block consumes them.
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import Optional
 
 import torch
@@ -51,6 +52,39 @@ class GroupNormAct(nn.Module):
 def n_group_norms(module) -> int:
     """GroupNorm modules (each one launch a forward); _GroupNorm32 is a GroupNormAct."""
     return sum(isinstance(m, GroupNormAct) for m in module.modules())
+
+
+def group_norm_calls(model, forward, fused: bool = False) -> Counter:
+    """The GroupNorm calls of one `forward()` of `model`, by (wrapper, (B, H,
+    W, C), act): every GroupNormAct records the channel-minor shape its kernel
+    would be given and returns an empty map of its input's shape in place of
+    the norm. With `fused`, the norms of every ResnetBlock2D count as
+    `group_norm_stats` (act None), as the static a8w8 path runs them (B5's
+    statistics, `sdxl.a8w8_routes`). A forward over meta tensors, of a model
+    built under torch.device("meta"), walks full-size shapes without memory or
+    arithmetic."""
+    in_resnets = {id(n) for m in model.modules() if isinstance(m, ResnetBlock2D)
+                  for n in (m.norm1, m.norm2)}
+    norms = [m for m in model.modules() if isinstance(m, GroupNormAct)]
+    calls = Counter()
+
+    def recorder(mod):
+        def forward(x):
+            b, c, h, w = x.shape
+            if fused and id(mod) in in_resnets:
+                calls["group_norm_stats", (b, h, w, c), None] += 1
+            else:
+                calls["group_norm", (b, h, w, c), mod.act] += 1
+            return torch.empty_like(x)
+        return forward
+    for m in norms:
+        m.forward = recorder(m)
+    try:
+        forward()
+    finally:
+        for m in norms:
+            del m.forward
+    return calls
 
 
 class ResnetBlock2D(nn.Module):

@@ -42,7 +42,7 @@ from .models import (
     UNet2DConditionConfig,
     UNet2DConditionModel,
 )
-from .models.resnet import ResnetBlock2D, n_group_norms
+from .models.resnet import ResnetBlock2D, group_norm_calls, n_group_norms
 from .pipelines import StableDiffusionXLPipeline
 from .pipelines.pipeline_utils import make_scheduler_state
 from .schedulers import EulerDiscreteScheduler
@@ -216,6 +216,50 @@ def expected_launches(pipe, height: int, width: int, num_inference_steps: int,
         for name, n in routes.items():
             out[name] += n * calls
     return dict(out)
+
+
+_WALK_HW = 8  # latents of the walks: every attention short enough for math (64 keys)
+
+
+def _scaled(calls: Counter, factor: int) -> Counter:
+    """Walked calls at `factor` times the walk's spatial size (the models are
+    fully convolutional and halve or double H and W exactly)."""
+    out = Counter()
+    for (name, (b, h, w, c), act), n in calls.items():
+        out[name, (b, h * factor, w * factor, c), act] += n
+    return out
+
+
+def unet_group_norm_calls(unet: Dict, batch: int, latent_hw: int, fused: bool = False,
+                          text_len: int = 77) -> Counter:
+    """The GroupNorm calls (`resnet.group_norm_calls`) of one forward of the
+    UNet of config `unet` over `batch` latents of latent_hw x latent_hw (a
+    multiple of 8), walked on the meta device at 8 x 8 and scaled;
+    `fused`: as the static a8w8 path runs them."""
+    with torch.device("meta"):
+        model = UNet2DConditionModel(UNet2DConditionConfig(**unet))
+        cfg = model.config
+        lat = torch.empty((batch, _WALK_HW, _WALK_HW, cfg.in_channels))
+        ctx = torch.empty((batch, text_len, cfg.cross_attention_dim))
+        added = None
+        if cfg.addition_embed_type == "text_time":
+            added = {"time_ids": torch.empty((batch, 6)), "text_embeds": torch.empty(
+                (batch, cfg.projection_class_embeddings_input_dim - 6 * cfg.addition_time_embed_dim))}
+        with torch.no_grad():
+            calls = group_norm_calls(model, lambda: model(lat, torch.empty(batch), ctx,
+                                                          added_cond_kwargs=added), fused)
+    return _scaled(calls, latent_hw // _WALK_HW)
+
+
+def vae_group_norm_calls(vae: Dict, latent_hw: int, fused: bool = False) -> Counter:
+    """The GroupNorm calls of one batch-1 decode by the VAE of config `vae` of
+    latent_hw x latent_hw latents (a multiple of 8), walked as the UNet's."""
+    with torch.device("meta"):
+        model = AutoencoderKL(AutoencoderKLConfig(**vae))
+        z = torch.empty((1, _WALK_HW, _WALK_HW, model.config.latent_channels))
+        with torch.no_grad():
+            calls = group_norm_calls(model.decoder, lambda: model.decode(z), fused)
+    return _scaled(calls, latent_hw // _WALK_HW)
 
 
 def a8w8_routes(model) -> Counter:

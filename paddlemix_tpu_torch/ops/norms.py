@@ -20,42 +20,41 @@ GroupNorm (B4), adaLN (B12) and fused adaLN + residual (B13) take their
 backward, as the JAX package takes it from XLA, from autograd of their plain
 versions, recomputed (`ops.autograd.with_plain_backward`).
 
-`group_norm` launches the Triton kernel below for CUDA tensors and runs its
-plain version `group_norm_ref` for CPU tensors. `group_norm_stats` runs the
-kernel's first two passes alone: the per-(batch, group) mean and rstd that
-the fused GroupNorm+SiLU+int8-conv path turns into its affine.
+`group_norm` launches the CUDA kernels of csrc/norms.cu for CUDA tensors and
+runs its plain version `group_norm_ref` for CPU tensors. `group_norm_stats`
+launches the statistics kernel alone: the per-(batch, group) mean and rstd
+that the fused GroupNorm+SiLU+int8-conv path turns into its affine.
 
-The kernel replaces the Pallas kernel `_group_norm_pallas_impl` / `_gn_kernel`
-(paddlemix_tpu/ops/norms.py). GroupNorm is memory-bound: it does a few flops
-per element, so its floor is reading x twice and writing y once (3 passes over
-2 bytes an element in bf16). The TPU kernel carried per-channel sums across a
-sequential grid; on Hopper the blocks run in parallel and in no order, so the
-reduction is split in three launches:
-  1. partial sums: many programs, each a (batch, row range, 64-channel) tile,
-     write per-channel fp32 sums of x and x^2 for its rows. One program per
-     (batch, group) would leave the card idle: at the VAE's (1, 1024, 1024, 256)
-     that is 32 programs over 8 M elements each;
-  2. group stats: one tiny program per (batch, group) adds the partials and
-     writes mean and rstd, with the E[x^2] - E[x]^2 variance clamped at 0;
-  3. apply: the same tiling as pass 1 normalises, applies the affine and the
-     optional SiLU in fp32 and stores in the input dtype.
-Channel tiles are 64 wide, so every SDXL width (128 ... 2560) tiles exactly;
-rows and channels are masked at the edges, so any shape with C % groups == 0
-is taken.
+The kernels replace the Pallas kernel `_group_norm_pallas_impl` / `_gn_kernel`
+(paddlemix_tpu/ops/norms.py), whose sequential grid carried per-channel sums
+from step to step. On Hopper a thread-block cluster owns one (batch, slab of
+whole groups) pair and reduces its sums through distributed shared memory, so
+a call is one launch where the slab fits in the cluster's shared memory (the
+"resident" form: x read once) and two elsewhere (statistics, then an apply
+that reads x again); `group_norm_plan` mirrors the library's plan (see
+csrc/norms.cu). Any shape with C % groups == 0 is taken, in bf16, fp16 or
+fp32, with weight and bias of one float dtype read as fp32.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
+from dataclasses import dataclass, fields
 
 import torch
 
 from .autograd import grad_needed, with_plain_backward
 
-_BLOCK_R = 64        # rows per tile
-_BLOCK_C = 64        # channels per tile
-_TARGET_PROGRAMS = 1024  # ~8 programs per SM on a 132-SM card
+_SMS = 132  # an H100 SXM's multiprocessors: the plans' target, as the library's
+_MAX_CLUSTER = 16  # Hopper's largest (non-portable) cluster
+# dtype codes of the library's C interface
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
 
 def _group_moments(x, groups: int, eps: float):
@@ -91,143 +90,235 @@ def group_norm_ref(x, weight, bias, groups: int, eps: float = 1e-5, act: str = "
     return y.to(x.dtype)
 
 
+# ------------------------------------------------------- GroupNorm's plan
+# A mirror of csrc/norms.cu's `gn_plan` (the library answers the same plan
+# through `group_norm_plan_library`; chip_smoke.py holds the two equal, and a
+# launch whose plan differs from the library's own is refused). A cluster of
+# `cluster` blocks owns one (batch, slab) pair: `slab` channels of whole
+# groups, a row of them a multiple of 16 bytes (and at least 64 where the
+# groups allow). Block `rank` of it holds (resident form) or walks
+# (statistics) rows [rank * rows, (rank + 1) * rows) of the slab.
+GN_SLAB_BYTES = 64           # a slab's row at least (where the groups allow)
+GN_TARGET_BLOCKS = 2 * _SMS  # blocks the cluster size aims at
+GN_MIN_ROWS = 32             # rows a block at least
+GN_TILE_MAX = 200 * 1024     # a resident tile's bytes at most (+ the sums' scratch)
+GN_THREADS = 256             # resident and apply blocks
+GN_STATS_THREADS = 512       # statistics blocks
+GN_UNROLL = 8                # rows in flight a thread (statistics, apply)
+GN_BOX_ROWS = 256            # TMA's largest box
+GN_HEAD = 512                # mbarriers: one a box
+RESIDENT, REREAD = 0, 1      # the plan's forms: one launch, or statistics + apply
+# Clusters of the resident kernel (256 threads) that an H100 SXM runs at once,
+# by cluster size 1, 2, 4, 8, 16 and a block's shared memory up to 30, 60,
+# 100 KB or more (cudaOccupancyMaxActiveClusters; `norms_max_clusters`)
+GN_CAPACITY = ((528, 396, 264, 132), (264, 198, 132, 66), (124, 92, 62, 30), (62, 45, 30, 15),
+               (28, 21, 14, 7))
+GN_STATS_CAPACITY = (264, 132, 62, 30, 14)  # the statistics kernel's (512 threads)
+
+
+def _gn_capacity(cl: int, smem: int) -> int:
+    col = 0 if smem <= 30 * 1024 else 1 if smem <= 60 * 1024 else 2 if smem <= 100 * 1024 else 3
+    return GN_CAPACITY[(cl - 1).bit_length()][col]
+
+
+@dataclass(frozen=True)
+class GnPlan:
+    form: int           # RESIDENT or REREAD
+    slab: int           # channels a cluster owns
+    vec: int            # elements a load: 16 bytes, or 1
+    cluster: int        # blocks a cluster
+    rows: int           # rows a block holds (resident) or walks (statistics)
+    threads: int        # threads a resident or statistics block
+    box: int            # rows of a TMA box (resident)
+    smem: int           # dynamic shared memory a resident or statistics block
+    apply_rows: int     # rows a block of the apply kernel (re-read form)
+    apply_span: int     # its columns: whole slabs, whole rows where they fit
+
+    def ints(self):
+        return tuple(getattr(self, f.name) for f in fields(self))
+
+    def launches(self, stats: bool = False) -> int:
+        """Kernel launches of a call: the statistics alone one; GroupNorm one
+        (resident) or two (statistics, then the apply)."""
+        return 1 if stats or self.form == RESIDENT else 2
+
+    def tile_bytes(self, esize: int) -> int:
+        return _cdiv(self.rows, self.box) * self.box * self.slab * esize if self.box else 0
+
+    def blocks(self, b: int, n: int, c: int):
+        """(batch, first channel, cluster rank, first row, end row) of every
+        block of the resident or statistics launch, in block order (rows
+        clipped to n; a block past the rows holds none)."""
+        out = []
+        for cid in range(b * (c // self.slab)):
+            bb, sl = divmod(cid, c // self.slab)
+            for rank in range(self.cluster):
+                lo = min(n, rank * self.rows)
+                out.append((bb, sl * self.slab, rank, lo, min(n, lo + self.rows)))
+        return out
+
+
+def _gn_slab(c: int, groups: int, esize: int) -> int:
+    cpg = c // groups
+    s16 = 0
+    for k in range(1, groups + 1):
+        if groups % k:
+            continue
+        s = cpg * k
+        if s * esize % 16 == 0:
+            if s * esize >= GN_SLAB_BYTES:
+                return s
+            s16 = s
+    if s16:
+        return s16
+    return next((cpg * k for k in range(1, groups + 1)
+                 if groups % k == 0 and cpg * k * esize >= GN_SLAB_BYTES), c)
+
+
+def _gn_smem(tile: int, threads: int, slab: int, cpg: int) -> int:
+    """GN_HEAD bytes of mbarriers, the tile, each warp's channel sums and the
+    slab's group sums, totals, means and rstds."""
+    return GN_HEAD + tile + 4 * (threads // 32 * 2 * slab + 6 * (slab // cpg))
+
+
+def group_norm_plan(b: int, n: int, c: int, groups: int, esize: int, aligned: bool = True,
+                    stats: bool = False):
+    """The plan of a (b, n rows, c) map in `groups` groups, `esize` bytes an
+    element (x 16-byte aligned if `aligned`), for GroupNorm or, with `stats`,
+    its statistics alone; None where no plan takes the shape (a slab of more
+    than GN_STATS_THREADS / 2 loads)."""
+    if b < 1 or n < 1 or groups < 1 or c % groups:
+        return None
+    slab = _gn_slab(c, groups, esize)
+    vec = 16 // esize if aligned and slab * esize % 16 == 0 else 1
+    nv = slab // vec
+    if nv > GN_STATS_THREADS // 2:
+        return None
+    cpg = c // groups
+    clusters = b * (c // slab)
+    most = _cdiv(n, GN_MIN_ROWS) if n < GN_MIN_ROWS * _MAX_CLUSTER else _MAX_CLUSTER
+    spread = _cdiv(GN_TARGET_BLOCKS, clusters)
+    top = 1
+    while top * 2 <= most and top < spread:
+        top *= 2
+    span = max(slab * k for k in range(1, c // slab + 1)
+               if (c // slab) % k == 0 and (k == 1 or slab * k // vec <= GN_THREADS))
+    apply = dict(apply_rows=GN_THREADS // (span // vec) * GN_UNROLL, apply_span=span)
+    if not stats and vec > 1 and slab <= GN_BOX_ROWS:
+        cl = top
+        while cl >= 1:
+            rows = _cdiv(n, cl)
+            box = (rows + 7) // 8 * 8 if rows < GN_BOX_ROWS else GN_BOX_ROWS
+            tile = _cdiv(rows, box) * box * slab * esize
+            smem = _gn_smem(tile, GN_THREADS, slab, cpg)
+            if tile <= GN_TILE_MAX and clusters <= _gn_capacity(cl, smem):
+                return GnPlan(RESIDENT, slab, vec, cl, rows, GN_THREADS, box, smem, **apply)
+            cl //= 2
+    cl = top  # the statistics: the largest cluster whose clusters all run at once
+    while cl > 1 and clusters > GN_STATS_CAPACITY[(cl - 1).bit_length()]:
+        cl //= 2
+    return GnPlan(REREAD, slab, vec, cl, _cdiv(n, cl), GN_STATS_THREADS, 0,
+                  _gn_smem(0, GN_STATS_THREADS, slab, cpg), **apply)
+
+
+def _plan_array(plan):
+    vals = plan.ints()
+    return (ctypes.c_int * len(vals))(*vals)
+
+
 @functools.lru_cache(maxsize=None)
-def _kernels():
-    """Define the Triton kernels. Triton is imported here, at first launch, so
-    that this module imports where Triton is absent; `tl` is bound as a module
-    global because Triton resolves the names a kernel uses in its globals."""
-    global tl
-    import triton
-    import triton.language as tl
+def _norms_lib():
+    from ..kernels import load_library
 
-    @triton.jit
-    def gn_partial_sums(x_ptr, psum_ptr, psq_ptr, n_rows, C, rows_per_prog, n_rtiles,
-                        BLOCK_R: tl.constexpr, BLOCK_C: tl.constexpr):
-        b = tl.program_id(0)
-        t = tl.program_id(1)
-        cols = tl.program_id(2) * BLOCK_C + tl.arange(0, BLOCK_C)
-        cmask = cols < C
-        base = x_ptr + b.to(tl.int64) * n_rows * C
-        acc = tl.zeros([BLOCK_C], dtype=tl.float32)
-        acc2 = tl.zeros([BLOCK_C], dtype=tl.float32)
-        for r0 in range(0, rows_per_prog, BLOCK_R):
-            rows = t * rows_per_prog + r0 + tl.arange(0, BLOCK_R)
-            mask = (rows < n_rows)[:, None] & cmask[None, :]
-            offs = rows.to(tl.int64)[:, None] * C + cols[None, :]
-            x = tl.load(base + offs, mask=mask, other=0.0).to(tl.float32)
-            acc += tl.sum(x, axis=0)
-            acc2 += tl.sum(x * x, axis=0)
-        out = (b * n_rtiles + t) * C + cols
-        tl.store(psum_ptr + out, acc, mask=cmask)
-        tl.store(psq_ptr + out, acc2, mask=cmask)
-
-    @triton.jit
-    def gn_group_stats(psum_ptr, psq_ptr, mean_ptr, rstd_ptr, n_rtiles, C, cpg, groups,
-                       count, eps, BLOCK_T: tl.constexpr, BLOCK_G: tl.constexpr):
-        b = tl.program_id(0)
-        g = tl.program_id(1)
-        lane = tl.arange(0, BLOCK_G)
-        cols = g * cpg + lane
-        s = tl.zeros([BLOCK_T, BLOCK_G], dtype=tl.float32)
-        s2 = tl.zeros([BLOCK_T, BLOCK_G], dtype=tl.float32)
-        for t0 in range(0, n_rtiles, BLOCK_T):
-            ts = t0 + tl.arange(0, BLOCK_T)
-            mask = (ts < n_rtiles)[:, None] & (lane < cpg)[None, :]
-            offs = (b * n_rtiles + ts)[:, None] * C + cols[None, :]
-            s += tl.load(psum_ptr + offs, mask=mask, other=0.0)
-            s2 += tl.load(psq_ptr + offs, mask=mask, other=0.0)
-        mean = tl.sum(tl.sum(s, axis=1), axis=0) / count
-        var = tl.maximum(tl.sum(tl.sum(s2, axis=1), axis=0) / count - mean * mean, 0.0)
-        tl.store(mean_ptr + b * groups + g, mean)
-        tl.store(rstd_ptr + b * groups + g, 1.0 / tl.sqrt(var + eps))
-
-    @triton.jit
-    def gn_apply(x_ptr, y_ptr, w_ptr, bias_ptr, mean_ptr, rstd_ptr, n_rows, C, cpg, groups,
-                 rows_per_prog, SILU: tl.constexpr, BLOCK_R: tl.constexpr,
-                 BLOCK_C: tl.constexpr):
-        b = tl.program_id(0)
-        t = tl.program_id(1)
-        cols = tl.program_id(2) * BLOCK_C + tl.arange(0, BLOCK_C)
-        cmask = cols < C
-        gid = cols // cpg
-        mean = tl.load(mean_ptr + b * groups + gid, mask=cmask, other=0.0)
-        rstd = tl.load(rstd_ptr + b * groups + gid, mask=cmask, other=0.0)
-        w = tl.load(w_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
-        bb = tl.load(bias_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
-        scale = rstd * w
-        shift = bb - mean * scale
-        base = b.to(tl.int64) * n_rows * C
-        for r0 in range(0, rows_per_prog, BLOCK_R):
-            rows = t * rows_per_prog + r0 + tl.arange(0, BLOCK_R)
-            mask = (rows < n_rows)[:, None] & cmask[None, :]
-            offs = base + rows.to(tl.int64)[:, None] * C + cols[None, :]
-            x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-            y = x * scale[None, :] + shift[None, :]
-            if SILU:
-                y = y * tl.sigmoid(y)
-            tl.store(y_ptr + offs, y.to(y_ptr.dtype.element_ty), mask=mask)
-
-    return gn_partial_sums, gn_group_stats, gn_apply
+    lib = load_library("norms")
+    lib.group_norm_plan.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.layer_norm_bwd_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.group_norm_cuda.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] + \
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int] + \
+        [ctypes.c_void_p] * 2
+    lib.layer_norm_bwd_cuda.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] + \
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 2 + \
+        [ctypes.c_float] + [ctypes.c_void_p] * 2
+    lib.norms_max_clusters.argtypes = [ctypes.c_int] * 4
+    for fn in (lib.group_norm_plan, lib.layer_norm_bwd_plan, lib.group_norm_cuda,
+               lib.layer_norm_bwd_cuda, lib.norms_max_clusters):
+        fn.restype = ctypes.c_int
+    return lib
 
 
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
+def group_norm_plan_library(b: int, n: int, c: int, groups: int, dtype, aligned: bool = True,
+                            stats: bool = False):
+    """The library's own GroupNorm plan (csrc/norms.cu `group_norm_plan`),
+    which `group_norm_plan` mirrors; None where it takes no plan."""
+    out = (ctypes.c_int * len(fields(GnPlan)))()
+    if _norms_lib().group_norm_plan(b, n, c, groups, _DTYPE_CODE[dtype], int(aligned),
+                                    int(stats), out) != 0:
+        return None
+    return GnPlan(*out)
+
+
+def norms_max_clusters(kind: int, threads: int, smem: int, cluster: int) -> int:
+    """Clusters of a launch shape that the card runs at once
+    (cudaOccupancyMaxActiveClusters): kind 0 GroupNorm's resident kernel, 1
+    its statistics kernel, 2 the LayerNorm backward; -1 if the query fails."""
+    return _norms_lib().norms_max_clusters(kind, threads, smem, cluster)
+
+
+def _check_launch(name, err):
+    if err == 20000:
+        raise RuntimeError(f"{name}: the plan passed is not the library's own (the mirror in "
+                           f"ops/norms.py and csrc/norms.cu disagree)")
+    if err >= 10000:
+        raise RuntimeError(f"{name}: libcuda refused a tensor map (CUresult {err - 10000})")
+    if err:
+        raise RuntimeError(f"{name} launch failed with cudaError {err}")
 
 
 def _check_input(x, weight, bias):
-    if x.dtype not in (torch.bfloat16, torch.float16, torch.float32):
+    if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"group_norm kernel takes bf16/fp16/fp32, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError(f"group_norm kernel needs a contiguous channel-minor tensor, got "
                          f"shape {tuple(x.shape)} strides {x.stride()}")
     c = x.shape[-1]
     for name, p in (("weight", weight), ("bias", bias)):
-        if p is not None and (p.device != x.device or p.shape != (c,) or not p.is_contiguous()):
-            raise ValueError(f"group_norm: {name} must be a contiguous ({c},) tensor on "
-                             f"{x.device}, got {tuple(p.shape)} on {p.device}")
+        if p is not None and (p.device != x.device or p.shape != (c,) or not p.is_contiguous()
+                              or p.dtype not in _DTYPE_CODE or p.dtype != weight.dtype):
+            raise ValueError(f"group_norm: {name} must be a contiguous ({c},) float tensor on "
+                             f"{x.device} of the weight's dtype, got {tuple(p.shape)} "
+                             f"{p.dtype} on {p.device}")
 
 
-def _tiling(x):
-    bsz, c = x.shape[0], x.shape[-1]
-    n_rows = math.prod(x.shape[1:-1])
-    n_ctiles = _cdiv(c, _BLOCK_C)
-    rows_per_prog = _cdiv(_cdiv(bsz * n_rows * n_ctiles, _TARGET_PROGRAMS), _BLOCK_R) * _BLOCK_R
-    return n_rows, n_ctiles, rows_per_prog, _cdiv(n_rows, rows_per_prog)
+def _gn_plan_of(x, groups, stats):
+    b, c, n = x.shape[0], x.shape[-1], math.prod(x.shape[1:-1])
+    plan = group_norm_plan(b, n, c, groups, x.element_size(), x.data_ptr() % 16 == 0, stats)
+    if plan is None:
+        raise ValueError(f"group_norm kernel: no plan takes {tuple(x.shape)} in {groups} groups "
+                         f"({x.dtype}): a slab of whole groups wider than "
+                         f"{GN_STATS_THREADS // 2} loads")
+    return plan, b, n, c
 
 
-def _stats_triton(x, groups, eps):
-    """Passes 1 and 2: per-(batch, group) fp32 mean and rstd."""
-    bsz, c = x.shape[0], x.shape[-1]
-    n_rows, n_ctiles, rows_per_prog, n_rtiles = _tiling(x)
-    cpg = c // groups
-    partial_sums, group_stats, _ = _kernels()
-    f32 = dict(dtype=torch.float32, device=x.device)
-    psum = torch.empty((bsz, n_rtiles, c), **f32)
-    psq = torch.empty((bsz, n_rtiles, c), **f32)
-    mean = torch.empty((bsz, groups), **f32)
-    rstd = torch.empty((bsz, groups), **f32)
-    with torch.cuda.device(x.device):
-        partial_sums[(bsz, n_rtiles, n_ctiles)](x, psum, psq, n_rows, c, rows_per_prog,
-                                                 n_rtiles, BLOCK_R=_BLOCK_R, BLOCK_C=_BLOCK_C,
-                                                 num_warps=4)
-        group_stats[(bsz, groups)](psum, psq, mean, rstd, n_rtiles, c, cpg, groups,
-                                   float(n_rows * cpg), float(eps), BLOCK_T=32,
-                                   BLOCK_G=max(16, 1 << (cpg - 1).bit_length()), num_warps=4)
-    return mean, rstd
-
-
-def _group_norm_triton(x, weight, bias, groups, eps, act):
+def _group_norm_cuda(x, weight, bias, groups, eps, act, stats=False):
+    """GroupNorm (+ SiLU) of x into a new tensor, or with `stats` the
+    (mean, rstd) pair alone, through the library."""
     _check_input(x, weight, bias)
-    bsz, c = x.shape[0], x.shape[-1]
-    n_rows, n_ctiles, rows_per_prog, n_rtiles = _tiling(x)
-    mean, rstd = _stats_triton(x, groups, eps)
-    y = torch.empty_like(x)
+    if x.numel() == 0 and not stats:
+        return torch.empty_like(x)
+    plan, b, n, c = _gn_plan_of(x, groups, stats)
+    y = None if stats else torch.empty_like(x)
+    mean = rstd = None
+    if stats or plan.form == REREAD:
+        mean, rstd = torch.empty((2, b, groups), dtype=torch.float32, device=x.device)
+    ptr = (lambda t: None if t is None else t.data_ptr())  # noqa: E731
     with torch.cuda.device(x.device):
-        _kernels()[2][(bsz, n_rtiles, n_ctiles)](
-            x, y, weight, bias, mean, rstd, n_rows, c, c // groups, groups, rows_per_prog,
-            SILU=act == "silu", BLOCK_R=_BLOCK_R, BLOCK_C=_BLOCK_C, num_warps=4)
-    group_norm.launches += 1
-    return y
+        err = _norms_lib().group_norm_cuda(
+            x.data_ptr(), ptr(weight), ptr(bias), _DTYPE_CODE[(weight if weight is not None
+                                                                else x).dtype],
+            ptr(y), ptr(mean), ptr(rstd), _DTYPE_CODE[x.dtype], b, n, c, groups, float(eps),
+            int(act == "silu"), _plan_array(plan), torch.cuda.current_stream(x.device).cuda_stream)
+    _check_launch("group_norm_stats" if stats else "group_norm", err)
+    return (mean, rstd) if stats else y
 
 
 def _check_groups(x, groups):
@@ -241,39 +332,42 @@ def _check_groups(x, groups):
 def group_norm(x, weight, bias, groups: int, eps: float = 1e-5, act: str = "none"):
     """GroupNorm over (B, ..., C) with optional fused SiLU (port of `group_norm`).
 
-    CUDA tensors launch the Triton kernel, whose backward is autograd of the
-    plain version; CPU tensors run `group_norm_ref`."""
+    CUDA tensors launch the kernels of csrc/norms.cu (one launch, or two
+    where `group_norm_plan` takes the re-read form), whose backward is
+    autograd of the plain version; CPU tensors run `group_norm_ref`."""
     if act not in ("none", "silu"):
         raise ValueError(f"group_norm act must be 'none' or 'silu', got {act!r}")
     _check_groups(x, groups)
     if x.is_cuda:
+        def run(x_, w_, b_):
+            y = _group_norm_cuda(x_, w_, b_, groups, eps, act)
+            group_norm.launches += 1
+            return y
         return with_plain_backward(
-            lambda x_, w_, b_: _group_norm_triton(x_, w_, b_, groups, eps, act),
-            lambda x_, w_, b_: group_norm_ref(x_, w_, b_, groups, eps, act), x, weight, bias)
+            run, lambda x_, w_, b_: group_norm_ref(x_, w_, b_, groups, eps, act), x, weight, bias)
     return group_norm_ref(x, weight, bias, groups, eps, act)
 
 
-group_norm.launches = 0  # kernel launches (CUDA tensors only)
+group_norm.launches = 0  # wrapper calls that launched the kernels (CUDA tensors only)
 
 
 def group_norm_stats(x, groups: int, eps: float = 1e-5):
     """Per-(batch, group) fp32 (mean, rsqrt(var + eps)) of (B, ..., C), each
-    (B, groups): the kernel's statistics passes alone, which the fused
+    (B, groups): the kernel's statistics alone, which the fused
     GroupNorm+SiLU+int8-conv path (ops/fused_resnet.py) turns into its affine.
-    CUDA tensors launch passes 1 and 2; CPU tensors run the plain moments."""
+    CUDA tensors launch the statistics kernel; CPU tensors run the plain
+    moments."""
     _check_groups(x, groups)
     if x.is_cuda:
-        _check_input(x, None, None)
-
         def run(x_):
-            out = _stats_triton(x_, groups, eps)
+            out = _group_norm_cuda(x_, None, None, groups, eps, "none", stats=True)
             group_norm_stats.launches += 1
             return out
         return with_plain_backward(run, lambda x_: _group_moments(x_, groups, eps), x)
     return _group_moments(x, groups, eps)
 
 
-group_norm_stats.launches = 0  # statistics-pass launches (CUDA tensors only)
+group_norm_stats.launches = 0  # statistics launches (CUDA tensors only)
 
 
 # ---------------------------------------------------------------- RMSNorm
@@ -700,19 +794,20 @@ fused_adaln_scale_residual.launches = 0  # kernel launches (CUDA tensors only)
 # backward `layer_norm_backward` replaces `_layer_norm_pallas_bwd` /
 # `_ln_bwd_kernel`: dx = rstd * (dxhat - mean(dxhat) - xhat * mean(dxhat *
 # xhat)) with dxhat = g * w, dw = sum of g * xhat and db = sum of g over the
-# rows, in fp32; dx in x's dtype, dw and db in w's. A program takes a tile of
-# rows (a row's H at most _LN_MAX_WIDTH in registers), so x (and g) are read
-# once and y (dx) written once: a few flops a byte, bound by those bytes. The
-# TPU kernel carries dw and db across its sequential grid; on Hopper the
-# programs run in parallel and in no order, so, as in B11's backward, each
-# program of the first launch walks a run of row tiles and writes one fp32
-# partial row of dw and db, and the shared column sum adds them (no atomics,
-# deterministic). The JAX package sends widths not a multiple of 128, fewer
+# rows, in fp32; dx in x's dtype, dw and db in w's. The forward is a Triton
+# kernel: a program takes a tile of rows (a row's H at most _LN_MAX_WIDTH in
+# registers), so x is read once and y written once: a few flops a byte, bound
+# by those bytes. The backward is csrc/norms.cu's CUDA kernel, one launch a
+# call: a warp a row at a time with the next rows in flight, dw and db summed
+# across the block's warps and then across a thread-block cluster through
+# distributed shared memory; with several clusters (above 1,024 rows) the
+# last block to finish each slice of the columns adds the clusters' partial
+# rows in order (no atomics on the data: deterministic). `layer_norm_bwd_plan`
+# mirrors its plan. The JAX package sends widths not a multiple of 128, fewer
 # than 64 rows or a missing w or b to XLA; those are v5e tiling choices, and
 # eager PyTorch has no fusion to keep, so on the card every call launches.
 _LN_MAX_WIDTH = 1280  # the widest row a path gives it (CLIP-bigG's text tower)
 _LN_TILE = 4096  # elements of a row tile: BLOCK_R rows x BLOCK_H columns
-_LN_PROGRAMS_PER_SM = 2  # partial dw/db rows of the backward: 2 a multiprocessor
 
 
 def layer_norm_ref(x, weight=None, bias=None, eps: float = 1e-5):
@@ -774,37 +869,7 @@ def _ln_kernels():
         y = diff * rstd[:, None] * w[None, :] + b[None, :]
         tl.store(y_ptr + r64 * H + cols[None, :], y.to(y_ptr.dtype.element_ty), mask=mask)
 
-    @triton.jit
-    def layer_norm_bwd(x_ptr, w_ptr, g_ptr, dx_ptr, part_ptr, rows, H, x_stride, g_stride, eps,
-                       rows_per_prog, BLOCK_R: tl.constexpr, BLOCK_H: tl.constexpr):
-        pid = tl.program_id(0)
-        cols = tl.arange(0, BLOCK_H)
-        cmask = cols < H
-        w = tl.load(w_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
-        acc_w = tl.zeros([BLOCK_R, BLOCK_H], dtype=tl.float32)
-        acc_b = tl.zeros([BLOCK_R, BLOCK_H], dtype=tl.float32)
-        for r0 in range(0, rows_per_prog, BLOCK_R):
-            r = pid * rows_per_prog + r0 + tl.arange(0, BLOCK_R)
-            mask = (r < rows)[:, None] & cmask[None, :]
-            r64 = r.to(tl.int64)[:, None]
-            x = tl.load(x_ptr + r64 * x_stride + cols[None, :], mask=mask,
-                        other=0.0).to(tl.float32)
-            g = tl.load(g_ptr + r64 * g_stride + cols[None, :], mask=mask,
-                        other=0.0).to(tl.float32)
-            diff, rstd = _tile_stats(x, mask, H, eps)
-            xhat = diff * rstd[:, None]
-            dxhat = g * w[None, :]
-            dx = rstd[:, None] * (dxhat - (tl.sum(dxhat, axis=1) / H)[:, None]
-                                  - xhat * (tl.sum(dxhat * xhat, axis=1) / H)[:, None])
-            tl.store(dx_ptr + r64 * H + cols[None, :], dx.to(dx_ptr.dtype.element_ty), mask=mask)
-            acc_w += g * xhat
-            acc_b += g
-        # the program's partial row: dw in columns [0, H), db in [H, 2H)
-        out = part_ptr + pid.to(tl.int64) * 2 * H + cols
-        tl.store(out, tl.sum(acc_w, axis=0), mask=cmask)
-        tl.store(out + H, tl.sum(acc_b, axis=0), mask=cmask)
-
-    return layer_norm_fwd, layer_norm_bwd
+    return layer_norm_fwd
 
 
 def _ln_rows(t, h):
@@ -840,7 +905,7 @@ def _layer_norm_triton(x, weight, bias, eps):
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     block_r, block_h = _ln_tile(h)
     with torch.cuda.device(x.device):
-        _ln_kernels()[0][(-(-rows // block_r),)](x2, weight, bias, y, rows, h, x_stride,
+        _ln_kernels()[(-(-rows // block_r),)](x2, weight, bias, y, rows, h, x_stride,
                                                  float(eps), BLOCK_R=block_r, BLOCK_H=block_h,
                                                  num_warps=4)
     layer_norm.launches += 1
@@ -893,46 +958,124 @@ def layer_norm(x, weight, bias, eps: float = 1e-5):
 layer_norm.launches = 0  # kernel launches (CUDA tensors only)
 
 
-def _ln_bwd_split(rows: int, h: int, sms: int):
-    """(programs, rows a program) of the backward's first launch: at most
-    _LN_PROGRAMS_PER_SM programs a multiprocessor, each a run of whole row
-    tiles; each program writes one partial row of dw and db."""
-    block_r = _ln_tile(h)[0]
-    n_parts = min(_cdiv(rows, block_r), _LN_PROGRAMS_PER_SM * sms)
-    per_prog = _cdiv(_cdiv(rows, n_parts), block_r) * block_r
-    return _cdiv(rows, per_prog), per_prog
+# The backward's plan: a mirror of csrc/norms.cu's `ln_plan` (the library
+# answers it through `layer_norm_bwd_plan_library`). Warp w of block k takes
+# rows [(8 k + w) rpw, (8 k + w + 1) rpw); block k is rank k % cluster of
+# cluster k // cluster. Up to LN_SINGLE_ROWS rows one cluster of up to 16
+# blocks takes them all; above, LN_BLOCKS blocks in clusters of LN_CLUSTER,
+# each cluster one partial row, added in cluster order.
+LN_WARPS = 8
+LN_RING_BYTES = 96 * 1024   # a block's ring of rows in flight
+LN_SINGLE_ROWS = 1024       # rows one cluster takes alone
+LN_CLUSTER = 4              # blocks a cluster, several clusters
+LN_BLOCKS = 60 * LN_CLUSTER  # two an SM, in the clusters of 4 an H100 SXM runs at once (62)
 
 
-def _layer_norm_bwd_triton(x, weight, g, eps):
+@dataclass(frozen=True)
+class LnBwdPlan:
+    vec: int       # elements a load: 16 bytes, or 1
+    epl: int       # elements of a row a lane holds
+    stages: int    # rows of a warp's ring (0: no ring, one element a load)
+    warps: int     # warps a block
+    cluster: int   # blocks a cluster
+    clusters: int
+    rpw: int       # rows a warp
+    smem: int      # dynamic shared memory a block
+
+    def ints(self):
+        return tuple(getattr(self, f.name) for f in fields(self))
+
+    def warp_rows(self, block: int, warp: int, rows: int) -> range:
+        first = (block * self.warps + warp) * self.rpw
+        return range(min(rows, first), min(rows, first + self.rpw))
+
+    def cluster_rows(self, q: int, rows: int) -> range:
+        """The rows of cluster q, whose sums make its partial row."""
+        span = self.cluster * self.warps * self.rpw
+        return range(min(rows, q * span), min(rows, (q + 1) * span))
+
+
+def _ln_row_bytes(h: int, esize: int) -> int:
+    return (h * esize + 15) // 16 * 16
+
+
+def layer_norm_bwd_plan(rows: int, h: int, esize: int, aligned: bool = True):
+    """The LayerNorm backward's plan at (rows, h), `esize` bytes an element;
+    `aligned`: x, g and dx 16-byte aligned and both row strides multiples of
+    16 bytes. None where no plan takes the shape."""
+    if not 1 <= h <= _LN_MAX_WIDTH or rows < 1:
+        return None
+    vec = 16 // esize if aligned and h * esize % 16 == 0 else 1
+    if vec > 1:
+        epl = (_cdiv(h, 32 * vec) * vec + 7) // 8 * 8
+        stages = min(4, max(2, LN_RING_BYTES // (LN_WARPS * 2 * _ln_row_bytes(h, esize))))
+    else:
+        epl, stages = _LN_MAX_WIDTH // 32, 0
+    if rows <= LN_SINGLE_ROWS:
+        cluster, clusters = min(_MAX_CLUSTER, _cdiv(rows, LN_WARPS)), 1
+    else:
+        cluster, clusters = LN_CLUSTER, LN_BLOCKS // LN_CLUSTER
+    ring = LN_WARPS * stages * 2 * _ln_row_bytes(h, esize)
+    return LnBwdPlan(vec, epl, stages, LN_WARPS, cluster, clusters,
+                     _cdiv(rows, cluster * clusters * LN_WARPS),
+                     max(ring, LN_WARPS * 64 * epl * 4))
+
+
+def layer_norm_bwd_plan_library(rows: int, h: int, dtype, aligned: bool = True):
+    """The library's own plan (csrc/norms.cu `layer_norm_bwd_plan`), which
+    `layer_norm_bwd_plan` mirrors; None where it takes no plan."""
+    out = (ctypes.c_int * len(fields(LnBwdPlan)))()
+    if _norms_lib().layer_norm_bwd_plan(rows, h, _DTYPE_CODE[dtype], int(aligned), out) != 0:
+        return None
+    return LnBwdPlan(*out)
+
+
+@functools.lru_cache(maxsize=None)
+def _tickets(device: torch.device):
+    """The backward's tickets on a device: one a cluster rank, 0 between
+    launches (each launch leaves them 0)."""
+    return torch.zeros(_MAX_CLUSTER, dtype=torch.int32, device=device)
+
+
+def _layer_norm_bwd_cuda(x, weight, g, eps):
     _ln_check("layer_norm backward", x, (weight,))
-    if g.shape != x.shape or g.device != x.device:
-        raise ValueError(f"layer_norm backward: g {tuple(g.shape)} on {g.device} does not match "
-                         f"x {tuple(x.shape)} on {x.device}")
+    if g.shape != x.shape or g.device != x.device or g.dtype != x.dtype:
+        raise ValueError(f"layer_norm backward: g {g.dtype} {tuple(g.shape)} on {g.device} does "
+                         f"not match x {x.dtype} {tuple(x.shape)} on {x.device}")
+    if weight.dtype not in _DTYPE_CODE:
+        raise TypeError(f"layer_norm backward: weight must be a float tensor, got {weight.dtype}")
     h = x.shape[-1]
     x2, x_stride = _ln_rows(x, h)
     g2, g_stride = _ln_rows(g, h)
     rows = x2.shape[0]
-    block_r, block_h = _ln_tile(h)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    n_parts, per_prog = _ln_bwd_split(rows, h, sms)
     dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-    partial = torch.empty((n_parts, 2 * h), dtype=torch.float32, device=x.device)
     dwdb = torch.empty(2 * h, dtype=weight.dtype, device=x.device)
+    if rows == 0:
+        return dx, dwdb[:h].zero_(), dwdb[h:].zero_()
+    es = x.element_size()
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x2, g2, dx)) and \
+        x_stride * es % 16 == 0 and g_stride * es % 16 == 0
+    plan = layer_norm_bwd_plan(rows, h, es, aligned)
+    partial = torch.empty((plan.clusters, 64 * plan.epl), dtype=torch.float32, device=x.device) \
+        if plan.clusters > 1 else None
     with torch.cuda.device(x.device):
-        _ln_kernels()[1][(n_parts,)](x2, weight, g2, dx, partial, rows, h, x_stride, g_stride,
-                                     float(eps), per_prog, BLOCK_R=block_r, BLOCK_H=block_h,
-                                     num_warps=8)
-        _column_sum(partial, dwdb)
+        err = _norms_lib().layer_norm_bwd_cuda(
+            x2.data_ptr(), g2.data_ptr(), weight.data_ptr(), _DTYPE_CODE[weight.dtype],
+            dx.data_ptr(), dwdb.data_ptr(), dwdb[h:].data_ptr(),
+            None if partial is None else partial.data_ptr(), _tickets(x.device).data_ptr(),
+            _DTYPE_CODE[x.dtype], rows, h, x_stride, g_stride, float(eps), _plan_array(plan),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _check_launch("layer_norm_backward", err)
     return dx, dwdb[:h], dwdb[h:]
 
 
 def layer_norm_backward(x, weight, g, eps: float = 1e-5):
     """(dx, dw, db) of `layer_norm` at (x, weight) for the output gradient g
     (port of `_layer_norm_pallas_bwd`; db does not depend on the bias). CUDA
-    tensors launch the Triton kernels (two launches: dx with the partial
-    sums, then their column sum); CPU tensors run `layer_norm_backward_ref`."""
+    tensors launch csrc/norms.cu's kernel (one launch); CPU tensors run
+    `layer_norm_backward_ref`."""
     if x.is_cuda:
-        out = _layer_norm_bwd_triton(x, weight, g, eps)
+        out = _layer_norm_bwd_cuda(x, weight, g, eps)
         layer_norm_backward.launches += 1
         return out
     if x.device.type != "cpu":

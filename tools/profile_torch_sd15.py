@@ -41,7 +41,7 @@ def category(name: str) -> str:
         head = HEAD_OF_WIDTH.get(int(m.group(1))) if m else None
         return f"B1 flash forward, head {head}" if head else "B1 flash forward"
     if "gn_" in n:
-        return "B4 GroupNorm (Triton)"
+        return "B4 GroupNorm"
     if "layer_norm" in n or "layernorm" in n:
         return "B10 LayerNorm / LayerNorm"
     if any(s in n for s in ("gemm", "nvjet", "xmma", "cutlass", "sm90", "conv", "cudnn",

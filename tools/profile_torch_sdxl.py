@@ -57,7 +57,7 @@ def category(kernel_name: str) -> str:
     if "flash" in n:
         return "B1 flash forward"
     if "gn_" in n:
-        return "B4 GroupNorm (Triton)"
+        return "B4 GroupNorm"
     if any(s in n for s in ("gemm", "nvjet", "xmma", "cutlass", "sm90", "conv", "cudnn",
                             "implicit")):
         return "cuBLAS GEMMs + cuDNN convs"
