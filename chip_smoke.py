@@ -115,9 +115,9 @@ Phases:
  10. llava kernels the SDXL pipeline is freed; each LLaVA kernel (wint8 GEMM,
                    decode attention, RMSNorm) against its plain version at
                    the decode and prefill shapes (RMSNorm also at T5's 77
-                   rows, the SD3 path's; the wint8 GEMM also at a ragged
-                   (77, 4112, 4104), each case with its core as B2's), with
-                   times and bounds;
+                   rows, the SD3 path's, and the SFT forward's 4,096; the
+                   wint8 GEMM also at a ragged (77, 4112, 4104), each case
+                   with its core as B2's), with times and bounds;
                    weights, caches and the RMSNorm input rotate through
                    copies that together pass three times the L2 cache, as
                    the model's layers find them cold (up to 64 copies: the
@@ -126,7 +126,15 @@ Phases:
                    its limit; each decode case prints its split plan
                    (ops/decode_attention.py key_splits: blocks, waves, the
                    blocks an SM holds; all must be resident at once, a
-                   multiple of the SM count) and ptxas counts
+                   multiple of the SM count) and ptxas counts; RMSNorm
+                   (csrc/norms.cu) per element (RMS_SUM) with a control (the
+                   plain version without the weight) that must fail, at the
+                   path's shapes with the floor (an empty kernel of the
+                   plan's launch shape, timed alike) and at a ragged width,
+                   a misaligned view, a bf16 weight and fp32 x; the
+                   library's plans of RMSNorm and adaLN held against the
+                   wrappers' mirrors at every path shape, two launches
+                   bit-identical and CUDA-graph replays equal to them
  11. llava agree   LLaVA-7B bf16: prefill (608 tokens) + 4 decode steps, the
                    kernels vs their plain versions swapped in
  12. llava serve   3 requests as the JAX bench makes them (576 image
@@ -135,13 +143,15 @@ Phases:
                    launches equal to `expected_launches_llava`
  13. wint8         quantize in place (seconds, bytes freed), then agree and
                    serve again with the wint8 GEMM as well
- 14. sd3 kernels   LLaVA is freed; adaLN (B12) and fused adaLN + gated
-                   residual (B13) against their plain versions at the image
-                   and context rows, each with a control (the plain version
-                   without the shift, or without the gate) that must fail
-                   the same limit; flash at the ragged 4,250-token joint
-                   attention, whose control leaves out the 26 keys of the
-                   ragged tail; times and bounds as above
+ 14. sd3 kernels   LLaVA is freed; adaLN (B12, csrc/norms.cu) and fused adaLN
+                   + gated residual (B13) against their plain versions at the
+                   image and context rows, each with a control (the plain
+                   version without the shift, or without the gate) that must
+                   fail the same limit, B12 with the floor and also at an
+                   offset view, fp32 modulation rows and a ragged width;
+                   flash at the ragged 4,250-token joint attention, whose
+                   control leaves out the 26 keys of the ragged tail; times
+                   and bounds as above
  15. sd3 agree     SD3-medium is built; one full-width transformer forward at
                    64x64 latents (1,024 + 154 tokens), kernels vs plain
  16. sd3 serve     3 requests, 1024x1024, 28 steps, guidance 7.0: seconds,
@@ -377,7 +387,15 @@ WINT8_RAGGED = (77, 4112, 4104)  # the tiled path's ragged case, as GEMM_RAGGED
 # Llama-2-7B request over the bf16 cache (B8's shape, for comparison)
 DECODE_CASES = [(1, 32, 32, 128, 736, (609,)), (2, 32, 8, 128, 4096, (4000, 1500)),
                 (1, 32, 32, 128, 4096, (4095,))]
-RMS_SHAPES = [(608, 4096), (1, 4096), (77, 4096)]  # (rows, width): prefill, decode, T5
+# (rows, width) of B11's forward: the LLaVA prefill, the decode row, T5's rows,
+# the SFT forward's rows
+RMS_SHAPES = [(608, 4096), (1, 4096), (77, 4096), (4096, 4096)]
+# B11 beyond the path's bf16 rows and fp32 weight, each with the gate and the
+# control: ((rows, width), x dtype, weight dtype, x one element past a
+# 16-byte boundary): a ragged width and a misaligned view (both the
+# one-element form), a bf16 weight, fp32 x
+RMS_EXTRA_CASES = [((37, 4100), "bf16", "fp32", False), ((33, 4096), "bf16", "fp32", True),
+                   ((608, 4096), "bf16", "bf16", False), ((77, 4096), "fp32", "fp32", False)]
 # B6: fp32 sums of exact products in another order than the plain version's,
 # then one bf16 rounding each: |out - ref| <= 2**-7 |ref| + 1e-5 |ref|max
 WINT8_ULP, WINT8_SUM = 2.0 ** -7, 1e-5
@@ -386,7 +404,10 @@ WINT8_ULP, WINT8_SUM = 2.0 ** -7, 1e-5
 # rounding). The same kernel run with every length one short, which drops the
 # current key, must fail it (the control).
 DECODE_ULP, DECODE_SUM = 2.0 ** -7, 4e-3
-RMS_TOL = 3e-2     # absolute: bf16 output rounding (values below 8)
+# B11's forward: fp32 sums in another order than the plain version's, then one
+# rounding: |out - ref| <= 2**-7 |ref| + RMS_SUM |ref|max; the plain version
+# without the weight must fail it (the control)
+RMS_SUM = 1e-6
 # relative L2 of the full-width LLaVA logits, kernels vs plain, prefill and
 # decode steps apart (bf16)
 LLAVA_AGREE_TOL = 5e-2
@@ -404,6 +425,11 @@ SD3_T5_SEED = 0
 # (B, S, H) of B12/B13: the image stream (4096 tokens) and the context stream
 # (77 CLIP + 77 T5 tokens), CFG batch 2, hidden 1536
 ADALN_SHAPES = [(2, 4096, 1536), (2, 154, 1536)]
+# B12 beyond the path's aligned bf16 rows, each with the gate and the control:
+# ((B, S, H), modulation dtype, x one element past a 16-byte boundary): an
+# offset view (the one-element form), fp32 modulation rows, a ragged width
+ADALN_EXTRA_CASES = [((2, 154, 1536), "bf16", True), ((2, 4096, 1536), "fp32", False),
+                     ((3, 50, 100), "bf16", False)]
 SD3_FLASH_SHAPE = (2, 4250, 24, 64)  # the joint attention: 4096 + 154 tokens, ragged
 # B12/B13: fp32 sums in another order than the plain version's, then one bf16
 # rounding each: |out - ref| <= 2**-7 |ref| + ADALN_SUM |ref|max. The first
@@ -661,15 +687,19 @@ def recorder(summary):
     """The function that prints the times of one kernel case and keeps them in
     `summary` (kernel name -> rows) for the kernels line."""
     def record(label, name, shape, err, ms, plain_ms, lib_ms, bnd, extra="", flash=None,
-               bwd=None):
+               bwd=None, floor=None):
         """Print the times of one kernel case and keep them for the summary;
         `flash` = (caller's head_dim, the bound's operations, int8) of a flash
         forward case, or `bwd` = (caller's head_dim, the bound's operations) of
-        a flash backward one, adds the core that served it and its TFLOP/s."""
+        a flash backward one, adds the core that served it and its TFLOP/s;
+        `floor` is the ms of an empty kernel of the case's launch shape."""
         lib = "no single call" if lib_ms is None else f"{lib_ms:.3f} ms"
-        print(f"[{label}]   {name} {shape}{extra}: kernel {ms:.3f} ms | plain {plain_ms:.3f} ms "
-              f"| library {lib} | bound {bnd[0]:.4f} ms ({bnd[1]})", flush=True)
+        fl = "" if floor is None else f" | floor {floor:.4f} ms"
+        print(f"[{label}]   {name} {shape}{extra}: kernel {ms:.4f} ms | plain {plain_ms:.3f} ms "
+              f"| library {lib} | bound {bnd[0]:.4f} ms ({bnd[1]}){fl}", flush=True)
         row = dict(shape=shape, err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound=bnd)
+        if floor is not None:
+            row["floor_ms"] = floor
         if flash is not None or bwd is not None:
             d_, ops, int8 = flash if flash is not None else (*bwd, False)
             core, note = flash_core(d_, int8) if flash is not None else bwd_core(d_)
@@ -1574,6 +1604,138 @@ def norms_kernels(torch, dev, gen, record, norms):
         check(same and replay and sum(ops.values()) == 1 and not any(tickets),
               f"layer_norm_backward {(rows, h)}: {same}, {replay}, {ops}, {tickets}")
         del x, g
+
+
+def row_norm_checks(torch, dev, gen, norms):
+    """B11's forward and B12 beyond the per-element cases: the library's plans
+    against the wrappers' mirrors at every path shape and the extra cases',
+    in each dtype, aligned and not; two launches bit-identical, CUDA-graph
+    replays equal to them, and one launch counted a call, at every path
+    shape."""
+    bf16 = torch.bfloat16
+    checked = 0
+    for rows, h in RMS_SHAPES + [shape for shape, _, _, _ in RMS_EXTRA_CASES]:
+        for dtype in (bf16, torch.float16, torch.float32):
+            for aligned in (True, False):
+                es = torch.empty(0, dtype=dtype).element_size()
+                mirror = norms.rms_norm_plan(rows, h, es, aligned)
+                lib = norms.rms_norm_plan_library(rows, h, dtype, aligned)
+                check(mirror == lib, f"rms_norm plan {(rows, h)} {dtype} aligned {aligned}: the "
+                                     f"library's {lib}, the mirror's {mirror}")
+                checked += 1
+    for shape in ADALN_SHAPES + [shape for shape, _, _ in ADALN_EXTRA_CASES]:
+        for aligned in (True, False):
+            mirror, lib = norms.adaln_plan(*shape, aligned), norms.adaln_plan_library(*shape, aligned)
+            check(mirror == lib, f"adaln plan {shape} aligned {aligned}: the library's {lib}, "
+                                 f"the mirror's {mirror}")
+            checked += 1
+    print(f"[row norms] {checked} plans: the library's equal the mirrors'", flush=True)
+    for rows, h in RMS_SHAPES:
+        x = (3 * torch.randn((rows, h), generator=gen, device=dev)).to(bf16)
+        w = 1 + 0.1 * torch.randn(h, generator=gen, device=dev)
+        before = norms.rms_norm.launches
+        y1, y2 = (norms.rms_norm(x, w, 1e-5) for _ in range(2))
+        counted = norms.rms_norm.launches - before
+        same = torch.equal(y1, y2)
+        replay = replays_agree(torch, lambda: (norms.rms_norm(x, w, 1e-5),), (y1,))
+        print(f"[row norms] rms_norm {(rows, h)}: {norms.rms_norm_plan(rows, h, 2)} | two launches "
+              f"bit-identical {same}, graph replays equal {replay}; launches counted {counted} "
+              f"for 2 calls", flush=True)
+        check(same and replay and counted == 2, f"rms_norm {(rows, h)}: {same}, {replay}, "
+                                                f"{counted}")
+    for shape in ADALN_SHAPES:
+        b_, _, h_ = shape
+        x = (2 * torch.randn(shape, generator=gen, device=dev)).to(bf16)
+        shift, scale = torch.randn((b_, 6 * h_), generator=gen, device=dev).to(bf16).chunk(6, -1)[:2]
+        before = norms.adaptive_layer_norm.launches
+        y1, y2 = (norms.adaptive_layer_norm(x, scale, shift) for _ in range(2))
+        counted = norms.adaptive_layer_norm.launches - before
+        same = torch.equal(y1, y2)
+        replay = replays_agree(torch, lambda: (norms.adaptive_layer_norm(x, scale, shift),), (y1,))
+        print(f"[row norms] adaptive_layer_norm {shape}: {norms.adaln_plan(*shape)} | two launches "
+              f"bit-identical {same}, graph replays equal {replay}; launches counted {counted} "
+              f"for 2 calls", flush=True)
+        check(same and replay and counted == 2, f"adaptive_layer_norm {shape}: {same}, "
+                                                f"{replay}, {counted}")
+
+
+def floor_ms(torch, norms, blocks, threads, copies):
+    """An empty kernel of a plan's launch shape (blocks x threads), timed as a
+    kernel of that plan is: `copies` launches (the kernel's pass through its
+    cold copies, at least 10) in one CUDA graph."""
+    return cuda_ms(torch, lambda: norms.empty_launch(blocks, threads), iters=copies)
+
+
+def offset_copy(torch, t):
+    """t's values in a contiguous tensor that starts one element past a
+    16-byte boundary."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+    return out.copy_(t)
+
+
+def rms_kernels(torch, F, dev, gen, record, norms):
+    """B11's forward against its plain version: per element (RMS_SUM) with the
+    control (the plain version without the weight) that must fail, at the
+    path's shapes (times, bounds, library times and the floor) and at
+    RMS_EXTRA_CASES."""
+    bf16 = torch.bfloat16
+    dts = {"bf16": bf16, "fp32": torch.float32}
+    cases = [(shape, "bf16", "fp32", False, True) for shape in RMS_SHAPES] + \
+        [case + (False,) for case in RMS_EXTRA_CASES]
+    for (rows, h), xd, wd, misaligned, timed in cases:
+        x = (3 * torch.randn((rows, h), generator=gen, device=dev)).to(dts[xd])
+        if misaligned:
+            x = offset_copy(torch, x)
+        w = (1 + 0.1 * torch.randn(h, generator=gen, device=dev)).to(dts[wd])
+        out = norms.rms_norm(x, w, 1e-5)
+        torch.cuda.synchronize()
+        ref = norms.rms_norm_ref(x.float(), w, 1e-5)
+        err = (out.float() - ref).abs().max().item()
+        excess, need = ulp_gate(out, ref, RMS_SUM)
+        control, _ = ulp_gate(norms.rms_norm_ref(x.float(), torch.ones_like(w), 1e-5), ref, RMS_SUM)
+        plan = norms.rms_norm_plan_of(x, w)
+        label = f"{(rows, h)} {xd} x, {wd} weight{', x misaligned' if misaligned else ''}"
+        print(f"[llava kernels] rms_norm {label}: max_abs_err {err:.3e}, excess {excess:.3e} over "
+              f"2**-7|ref| + {RMS_SUM:g}|ref|max (least c {need:.2e}); control without the "
+              f"weight: excess {control:.3e} (must be > 0) | {plan}", flush=True)
+        check(bool(torch.isfinite(out).all()) and excess <= 0, f"rms_norm {label}: excess {excess}")
+        check(control > 0, f"rms_norm {label}: the control passes ({control})")
+        if not timed:
+            continue
+        kernel = cold(lambda x_: norms.rms_norm(x_, w, 1e-5), x, nbytes(x))
+        ms, plain_ms = timed_pair(torch, kernel,
+                                  cold(lambda x_: norms.rms_norm_ref(x_, w, 1e-5), x, nbytes(x)))
+        w16 = w.to(bf16)
+        lib_ms = library_ms(torch, cold(lambda x_: F.rms_norm(x_, (h,), w16, 1e-5), x, nbytes(x)))
+        floor = floor_ms(torch, norms, plan.blocks, plan.threads, kernel.copies)
+        record("llava kernels", "rms_norm", (rows, h), err, ms, plain_ms, lib_ms,
+               bound(nbytes(x, w, out), 4 * x.numel(), "fp32"), floor=floor)
+        del x, out, ref
+
+
+def adaln_extra_cases(torch, dev, gen, norms):
+    """B12 at ADALN_EXTRA_CASES, per element (ADALN_SUM) with the control (the
+    plain version without the shift) that must fail."""
+    dts = {"bf16": torch.bfloat16, "fp32": torch.float32}
+    for shape, md, misaligned in ADALN_EXTRA_CASES:
+        b_, _, h_ = shape
+        x = (2 * torch.randn(shape, generator=gen, device=dev)).to(torch.bfloat16)
+        if misaligned:
+            x = offset_copy(torch, x)
+        shift, scale = torch.randn((b_, 6 * h_), generator=gen, device=dev).to(dts[md]).chunk(6, -1)[:2]
+        out = norms.adaptive_layer_norm(x, scale, shift)
+        torch.cuda.synchronize()
+        ref = norms.adaptive_layer_norm_ref(x, scale, shift)
+        excess, need = ulp_gate(out, ref, ADALN_SUM)
+        control, _ = ulp_gate(norms.adaptive_layer_norm_ref(x, scale, 0 * shift), ref, ADALN_SUM)
+        label = f"{shape} {md} modulation{', x misaligned' if misaligned else ''}"
+        print(f"[sd3 kernels] adaptive_layer_norm {label}: excess {excess:.3e} (least c "
+              f"{need:.2e}); control without the shift: excess {control:.3e} (must be > 0) | "
+              f"{norms.adaln_plan_of(x, scale, shift)}", flush=True)
+        check(bool(torch.isfinite(out).all()) and excess <= 0,
+              f"adaptive_layer_norm {label}: excess {excess}")
+        check(control > 0, f"adaptive_layer_norm {label}: the control passes ({control})")
+        del x, out, ref
 
 
 def clip_kernels(torch, F, dev, gen, record, norms):
@@ -3178,26 +3340,8 @@ def main():
         del x, wq, scale, w16, out, ref, diff
         gc.collect()
     decode_kernels(torch, F, dev, gen, record, da_mod)
-    for rows, h in RMS_SHAPES:
-        x = (3 * torch.randn((rows, h), generator=gen, device=dev)).to(bf16)
-        w = 1 + 0.1 * torch.randn(h, generator=gen, device=dev)
-        out = norms_mod.rms_norm(x, w, 1e-5)
-        torch.cuda.synchronize()
-        ref = norms_mod.rms_norm_ref(x.float(), w, 1e-5)
-        err = (out.float() - ref).abs().max().item()
-        print(f"[llava kernels] rms_norm {(rows, h)} bf16: max_abs_err {err:.3e} "
-              f"(tol {RMS_TOL})", flush=True)
-        check(bool(torch.isfinite(out).all()) and err <= RMS_TOL, f"rms_norm {(rows, h)}: {err}")
-        w16 = w.to(bf16)
-        ms, plain_ms = timed_pair(torch, cold(lambda x_: norms_mod.rms_norm(x_, w, 1e-5), x,
-                                              nbytes(x)),
-                                  cold(lambda x_: norms_mod.rms_norm_ref(x_, w, 1e-5), x,
-                                       nbytes(x)))
-        lib_ms = library_ms(torch, cold(lambda x_: F.rms_norm(x_, (h,), w16, 1e-5), x,
-                                        nbytes(x)))
-        record("llava kernels", "rms_norm", (rows, h), err, ms, plain_ms, lib_ms,
-               bound(nbytes(x, w, out), 4 * x.numel(), "fp32"))
-        del x, out, ref
+    row_norm_checks(torch, dev, gen, norms_mod)
+    rms_kernels(torch, F, dev, gen, record, norms_mod)
 
     # ----------------------------------------------------------- llava agree
     t0 = time.perf_counter()
@@ -3350,16 +3494,18 @@ def main():
         check(bool(torch.isfinite(out).all()) and excess <= 0,
               f"adaptive_layer_norm {shape}: excess {excess}")
         check(control > 0, f"adaptive_layer_norm {shape}: the control passes ({control})")
+        kernel = cold(lambda t: norms_mod.adaptive_layer_norm(t[1], scale, shift), rx, nbytes(rx))
         ms, plain_ms = timed_pair(
-            torch, cold(lambda t: norms_mod.adaptive_layer_norm(t[1], scale, shift), rx,
-                        nbytes(rx)),
+            torch, kernel,
             cold(lambda t: norms_mod.adaptive_layer_norm_ref(t[1], scale, shift), rx, nbytes(rx)))
         lib_ms = library_ms(torch, cold(lambda t: F.layer_norm(t[1], (h_,), eps=1e-5), rx,
                                         nbytes(rx)))
+        plan = norms_mod.adaln_plan_of(x, scale, shift)
+        floor = floor_ms(torch, norms_mod, b_ * plan.nb, plan.threads, kernel.copies)
         # a few fp32 operations an element (moments, normalise, modulate)
         record("sd3 kernels", "adaptive_layer_norm", shape, err, ms, plain_ms, lib_ms,
                bound(nbytes(x, scale, shift, out), 8 * x.numel(), "fp32"),
-               " (library: F.layer_norm, the norm alone)")
+               f" (library: F.layer_norm, the norm alone) | {plan}", floor=floor)
 
         residual = rx[0]
         y, resi = norms_mod.fused_adaln_scale_residual(residual, x, gate, scale, shift)
@@ -3389,6 +3535,7 @@ def main():
         record("sd3 kernels", "fused_adaln_scale_residual", shape, err, ms, plain_ms, None,
                bound(nbytes(rx, gate, scale, shift, y, resi), 10 * x.numel(), "fp32"))
         del rx, mod, out, ref, y, resi, ref_y, ref_resi, ungated
+    adaln_extra_cases(torch, dev, gen, norms_mod)
     flash_case("sd3 kernels", SD3_FLASH_SHAPE)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3787,7 +3934,8 @@ def main():
                 "plain_ms": first["plain_ms"], "bound_ms": first["bound"][0],
                 "bound_by": first["bound"][1], "library_ms": first["library_ms"],
                 "shape": list(first["shape"]),
-                **({"core": first["core"], "tflops": first["tflops"]} if "core" in first else {})}
+                **({"core": first["core"], "tflops": first["tflops"]} if "core" in first else {}),
+                **({"floor_ms": first["floor_ms"]} if "floor_ms" in first else {})}
 
     def sdxl(name):
         return {"bf16": launches_bf16[name], "a8w8": launches_a8w8[name],
@@ -3826,10 +3974,10 @@ def main():
         entry("decode_attention", "cuda", "paddlemix_tpu_torch/csrc/decode_attention.cu",
               "paddlemix_tpu/ops/decode_attention.py:68",
               dict(llava("decode_attention"), **llama_phases("decode_attention"))),
-        entry("rms_norm", "triton", "paddlemix_tpu_torch/ops/norms.py",
+        entry("rms_norm", "cuda", "paddlemix_tpu_torch/csrc/norms.cu",
               "paddlemix_tpu/ops/norms.py:148",
               dict(llava("rms_norm"), **llama_phases("rms_norm"))),
-        entry("adaptive_layer_norm", "triton", "paddlemix_tpu_torch/ops/norms.py",
+        entry("adaptive_layer_norm", "cuda", "paddlemix_tpu_torch/csrc/norms.cu",
               "paddlemix_tpu/ops/norms.py:261", {"sd3": launches_sd3["adaptive_layer_norm"]}),
         entry("fused_adaln_scale_residual", "triton", "paddlemix_tpu_torch/ops/norms.py",
               "paddlemix_tpu/ops/norms.py:289",

@@ -44,6 +44,39 @@
 // next replay of a CUDA graph, starts from 0. Every sum runs in a fixed
 // order, so two launches are bit-identical. The tickets are one buffer a
 // device: two of these launches must not run at once on two streams.
+//
+// B11's forward (RMSNorm) and B12 (adaLN) are one family of row kernels.
+// B11 replaces `_rms_norm_pallas_fwd_impl` / `_rms_fwd_kernel`: y = x
+// rsqrt(mean(x^2) + eps) w, in fp32, rounded once to x's dtype. B12 replaces
+// `_adaln_pallas_fwd_impl` / `_adaln_kernel`: LN(x) (1 + scale[b]) + shift[b]
+// over x (B, S, H), the variance two-pass (about the mean) in fp32, rounded
+// once. Both do a few flops an element, so the bytes bound them: x read once,
+// y written once, and every per-column vector (B11's weight, B12's 1 + scale
+// and shift) loaded into registers once a block and kept there for all of
+// the block's rows. A thread holds 16-byte chunks of a row where every
+// pointer, row stride and width allows it, else single elements (the same
+// kernels). Plans (`rms_plan`, `ada_plan`, mirrored by ops/norms.py
+// `rms_norm_plan` and `adaln_plan`):
+//   - few rows (B11's decode row and T5's 77, B12's 308 context rows): a
+//     block a row, so the grid spreads over the SMs. Each thread issues all of
+//     its loads of x and of the per-column vectors before it uses any: one
+//     memory round trip. The moments are warp shuffles, then one
+//     shared-memory exchange between the warps (B12: each warp's sum, mean
+//     and squared deviations from that mean, combined); no cluster (a
+//     cluster's barrier chain costs more than such a row).
+//   - many rows (B11 at 608 and 4,096 rows, B12's 8,192 image rows):
+//     persistent blocks, each a run of rows (B12's within one batch element,
+//     so one modulation row serves them all). B11's block takes a row across
+//     its warps; B12's warp takes its own rows, the moments warp shuffles with
+//     no barrier. The next row's loads are issued into a second set of
+//     registers before the current row reduces. (A per-thread cp.async ring
+//     of up to 6 rows in shared memory and a deeper register ring were
+//     measured slower on the card: the ring's copies and the rings' registers
+//     cost more than the rows they kept in flight.)
+// Every sum runs in a fixed order (a thread's elements in order, a warp's
+// xor-shuffle tree, the warps in order), and a row's arithmetic does not
+// depend on the block it falls to: launches and graph replays are
+// bit-identical.
 #include <cooperative_groups.h>
 #include <cuda.h>  // CUtensorMap and its enums; libcuda itself is reached through the runtime
 #include <cuda_bf16.h>
@@ -250,6 +283,86 @@ bool ln_plan(int rows, int h, int es, bool aligned, LnPlan* p) {
   return true;
 }
 
+// RMSNorm forward. A block takes a row at a time, `cpt` chunks a thread
+// (chunk c of the row, c = tid + k threads); the grid fills each SM with
+// RMS_THREADS_PER_SM threads' worth of blocks, so up to that many rows a block
+// each, above it a run of rows a block, the next row in flight in registers
+// while one reduces.
+constexpr int RMS_THREADS = 256;          // a block's threads where the row's chunks allow
+constexpr int RMS_MAX_CPT = 16;           // chunks a thread at most
+constexpr int RMS_MAX_WIDTH = 16384;      // 1,024 threads of 16 elements
+constexpr int RMS_THREADS_PER_SM = 1024;  // the grid's blocks an SM, in threads
+
+struct RmsPlan {
+  int vec;      // elements a chunk: 16 bytes of x, or 1
+  int cpt;      // chunks a thread: 1, 2, 4, 8 or 16
+  int threads;  // threads a block
+  int rpb;      // rows a block, one after another
+  int blocks;
+};
+constexpr int RMS_PLAN_INTS = 5;
+
+// `aligned`: x, y and the weight start 16-byte aligned.
+bool rms_plan(int rows, int h, int es, bool aligned, RmsPlan* p) {
+  if (rows < 1 || h < 1 || h > RMS_MAX_WIDTH) return false;
+  p->vec = aligned && (h * es) % 16 == 0 ? 16 / es : 1;
+  const int nvec = h / p->vec;
+  p->cpt = 1;
+  while (p->cpt < RMS_MAX_CPT && p->cpt * RMS_THREADS < nvec) p->cpt *= 2;
+  p->threads = (cdiv(nvec, p->cpt) + 31) / 32 * 32;
+  const int per_sm = RMS_THREADS_PER_SM / p->threads > 1 ? RMS_THREADS_PER_SM / p->threads : 1;
+  p->rpb = cdiv(rows, (long long)SMS * per_sm);
+  p->blocks = cdiv(rows, p->rpb);
+  return true;
+}
+
+// adaLN, two forms. Many rows (above ADALN_ROW_BLOCKS an SM) in the 16-byte
+// form: the warp form, a warp a row at a time, `cpt` chunks a lane (chunk
+// k 32 + lane); a block of ADALN_WARPS warps an SM takes a run of rows within
+// one batch element, interleaved over its warps. Otherwise (few rows, or the
+// one-element form): the row form, a block a row, `cpt` chunks a thread
+// (chunk tid + k threads).
+constexpr int ADALN_WARPS = 8;
+constexpr int ADALN_MAX_WIDTH = 2048;
+constexpr int ADALN_ROW_BLOCKS = 8;                 // rows an SM that take a block each
+constexpr int ADALN_THREADS = 256;                  // a row-form block's threads at most
+constexpr int ADALN_LANE_CPT[5] = {1, 2, 4, 6, 8};  // compiled chunks a lane, warp form
+constexpr int ADALN_WARP = 0, ADALN_ROW = 1;
+
+struct AdalnPlan {
+  int form;     // ADALN_WARP or ADALN_ROW
+  int vec;      // elements a chunk: 8 (16 bytes), or 1
+  int cpt;      // chunks a lane (warp form) or a thread (row form)
+  int threads;  // threads a block
+  int rpb;      // rows a block, within one batch element
+  int nb;       // blocks a batch element
+};
+constexpr int ADALN_PLAN_INTS = 6;
+
+// `aligned`: x, y, scale and shift start 16-byte aligned and both modulation
+// row strides are multiples of 16 bytes.
+bool ada_plan(int B, int S, int h, bool aligned, AdalnPlan* p) {
+  if (B < 1 || S < 1 || h < 1 || h > ADALN_MAX_WIDTH) return false;
+  p->vec = aligned && h % 8 == 0 ? 8 : 1;
+  const int nvec = h / p->vec;
+  if (p->vec > 1 && (long long)B * S > (long long)SMS * ADALN_ROW_BLOCKS) {
+    p->form = ADALN_WARP;
+    p->cpt = 0;
+    for (int c : ADALN_LANE_CPT)
+      if (!p->cpt && c * 32 >= nvec) p->cpt = c;
+    p->rpb = cdiv(S, B < SMS ? SMS / B : 1);
+    p->threads = (p->rpb < ADALN_WARPS ? p->rpb : ADALN_WARPS) * 32;
+  } else {
+    p->form = ADALN_ROW;
+    p->cpt = 1;
+    while (p->cpt * ADALN_THREADS < nvec) p->cpt *= 2;
+    p->threads = (cdiv(nvec, p->cpt) + 31) / 32 * 32;
+    p->rpb = 1;
+  }
+  p->nb = cdiv(S, p->rpb);
+  return true;
+}
+
 // ------------------------------------------------------------- elements
 template <typename T>
 __device__ __forceinline__ float to_f(T v);
@@ -279,6 +392,31 @@ __device__ __forceinline__ float load_param(const void* p, int dtype, long long 
   if (dtype == 1) return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
   if (dtype == 2) return __half2float(static_cast<const __half*>(p)[i]);
   return static_cast<const float*>(p)[i];
+}
+
+// N elements of p as floats, in pieces of 16 bytes (of N sizeof(M) where
+// that is less); p aligned to a piece.
+template <typename M, int N>
+__device__ __forceinline__ void load_floats(const M* p, float (&out)[N]) {
+  constexpr int PIECE = N * int(sizeof(M)) < 16 ? N : 16 / int(sizeof(M));
+#pragma unroll
+  for (int j = 0; j < N; j += PIECE) {
+    const Pack<M, PIECE> v = *reinterpret_cast<const Pack<M, PIECE>*>(p + j);
+#pragma unroll
+    for (int e = 0; e < PIECE; ++e) out[j + e] = to_f<M>(v.v[e]);
+  }
+}
+
+// Elements [i, i + N) of a weight-like vector of `dtype` (i a multiple of N,
+// p 16-byte aligned where N > 1).
+template <int N>
+__device__ __forceinline__ void load_params(const void* p, int dtype, long long i, float (&out)[N]) {
+  if (dtype == 1)
+    load_floats<__nv_bfloat16, N>(static_cast<const __nv_bfloat16*>(p) + i, out);
+  else if (dtype == 2)
+    load_floats<__half, N>(static_cast<const __half*>(p) + i, out);
+  else
+    load_floats<float, N>(static_cast<const float*>(p) + i, out);
 }
 
 __device__ __forceinline__ void store_param(void* p, int dtype, long long i, float v) {
@@ -836,6 +974,273 @@ __global__ void __launch_bounds__(LN_WARPS * 32, EPL <= 24 ? 2 : 1) ln_bwd_kerne
   cluster_wait();
 }
 
+// ------------------------------------------------------------- row norms
+// The block's warps' partial sums part[w], w < warps (at most MAXW): up to 8
+// loaded together and added in warp order; more, a lane a warp, added by a
+// shuffle tree. Either order is fixed.
+template <int MAXW>
+__device__ __forceinline__ float warps_sum(const float* part, int warps) {
+  if constexpr (MAXW > 8) {
+    return warp_sum(int(threadIdx.x % 32) < warps ? part[threadIdx.x % 32] : 0.f);
+  } else {
+    float v[MAXW];
+#pragma unroll
+    for (int w = 0; w < MAXW; ++w) v[w] = w < warps ? part[w] : 0.f;
+    float t = 0.f;
+#pragma unroll
+    for (int w = 0; w < MAXW; ++w)
+      if (w < warps) t += v[w];
+    return t;
+  }
+}
+
+struct RmsArgs {
+  const void* x;  // (rows, h), contiguous
+  const void* w;  // (h,) of wdtype
+  void* y;
+  int wdtype;
+  int rows;
+  int h;
+  int rpb;
+  float eps;
+};
+
+// RMSNorm forward: rows [blockIdx.x rpb, ...) one after another, each across
+// the whole block; thread tid holds chunks tid + k blockDim.x of a row, and
+// this thread's columns of the weight in registers for all of the block's
+// rows. The first row's loads and the weight's are issued before any is used;
+// each next row's are issued before the current one reduces.
+template <typename T, int VEC, int CPT>
+__global__ void __launch_bounds__(VEC > 1 ? RMS_THREADS : 1024,
+                                  VEC > 1 && CPT <= 2 ? RMS_THREADS_PER_SM / RMS_THREADS : 1)
+    rms_norm_fwd_kernel(RmsArgs a) {
+  using P = Pack<T, VEC>;
+  __shared__ float part[2][32];  // each warp's sum of squares, by the row's parity
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32, warps = blockDim.x / 32;
+  const int nvec = a.h / VEC;
+  const long long first = (long long)blockIdx.x * a.rpb;
+  const int cnt = int(min((long long)a.rpb, a.rows - first));
+  const P* x = static_cast<const P*>(a.x) + first * nvec;
+  P* y = static_cast<P*>(a.y) + first * nvec;
+  P cur[CPT], nxt[CPT];
+  auto load = [&](P (&b)[CPT], int i) {
+    if (i < cnt)
+#pragma unroll
+      for (int k = 0; k < CPT; ++k) {
+        const int c = tid + k * int(blockDim.x);
+        if (c < nvec) b[k] = x[(long long)i * nvec + c];
+      }
+  };
+  load(cur, 0);
+  float wv[CPT][VEC];
+#pragma unroll
+  for (int k = 0; k < CPT; ++k) {
+    const int c = tid + k * int(blockDim.x);
+    if (c < nvec) load_params<VEC>(a.w, a.wdtype, (long long)c * VEC, wv[k]);
+  }
+  const float inv_h = 1.f / float(a.h);
+  for (int i = 0; i < cnt; ++i) {
+    load(nxt, i + 1);  // the next row in flight while this one reduces
+    float ss = 0.f;
+#pragma unroll
+    for (int k = 0; k < CPT; ++k)
+      if (tid + k * int(blockDim.x) < nvec)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          const float f = to_f<T>(cur[k].v[e]);
+          ss += f * f;
+        }
+    ss = warp_sum(ss);
+    if (lane == 0) part[i & 1][warp] = ss;
+    __syncthreads();
+    const float r = rsqrtf(warps_sum<(VEC > 1 ? 8 : 32)>(part[i & 1], warps) * inv_h + a.eps);
+#pragma unroll
+    for (int k = 0; k < CPT; ++k) {
+      const int c = tid + k * int(blockDim.x);
+      if (c < nvec) {
+        P out;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) out.v[e] = from_f<T>(to_f<T>(cur[k].v[e]) * r * wv[k][e]);
+        y[(long long)i * nvec + c] = out;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < CPT; ++k) cur[k] = nxt[k];
+  }
+}
+
+struct AdalnArgs {
+  const void* x;      // (B, S, h) bf16, contiguous
+  const void* scale;  // (B, h) rows, ss / hs elements apart
+  const void* shift;
+  void* y;
+  int mdtype;         // dtype of scale and shift (0 fp32, 1 bf16, 2 fp16)
+  int S;
+  int h;
+  long long ss;
+  long long hs;
+  int nb;             // blocks a batch element
+  int rpb;
+  float eps;
+};
+
+// adaLN, the warp form: block (b, j) takes rows [j rpb, ...) of batch element
+// b, row r0 + warp + n warps on warp `warp`; lane l holds chunks k 32 + l of a
+// row, and 1 + scale[b] and shift[b] at its columns in registers for all of
+// the block's rows. The warp's first row's loads and the modulation rows' are
+// issued before any is used; each next row's before the current one
+// reduces. The mean and the variance (two-pass) are warp shuffles; no
+// barrier.
+template <int CPT>
+__global__ void __launch_bounds__(ADALN_WARPS * 32, 1) adaln_warp_kernel(AdalnArgs a) {
+  using T = __nv_bfloat16;
+  using P = Pack<T, 8>;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, warps = blockDim.x / 32;
+  const int b = blockIdx.x / a.nb, r0 = blockIdx.x % a.nb * a.rpb;
+  const int cnt = min(a.rpb, a.S - r0);
+  const int nvec = a.h / 8;
+  const P* x = static_cast<const P*>(a.x) + ((long long)b * a.S + r0) * nvec;
+  P* y = static_cast<P*>(a.y) + ((long long)b * a.S + r0) * nvec;
+  P cur[CPT], nxt[CPT];
+  auto load = [&](P (&bf)[CPT], int i) {
+    if (i < cnt)
+#pragma unroll
+      for (int k = 0; k < CPT; ++k)
+        if (k * 32 + lane < nvec) bf[k] = x[(long long)i * nvec + k * 32 + lane];
+  };
+  load(cur, warp);
+  float g[CPT][8], sh[CPT][8];
+#pragma unroll
+  for (int k = 0; k < CPT; ++k)
+    if (k * 32 + lane < nvec) {
+      const long long c = (k * 32 + lane) * 8;
+      load_params<8>(a.scale, a.mdtype, b * a.ss + c, g[k]);
+      load_params<8>(a.shift, a.mdtype, b * a.hs + c, sh[k]);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) g[k][e] = 1.f + g[k][e];
+    }
+  const float inv_h = 1.f / float(a.h);
+  for (int i = warp; i < cnt; i += warps) {
+    load(nxt, i + warps);  // the warp's next row in flight while this one reduces
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < CPT; ++k)
+      if (k * 32 + lane < nvec)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) s += to_f<T>(cur[k].v[e]);
+    const float mean = warp_sum(s) * inv_h;
+    float q = 0.f;
+#pragma unroll
+    for (int k = 0; k < CPT; ++k)
+      if (k * 32 + lane < nvec)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float d = to_f<T>(cur[k].v[e]) - mean;
+          q += d * d;
+        }
+    const float rstd = rsqrtf(warp_sum(q) * inv_h + a.eps);
+#pragma unroll
+    for (int k = 0; k < CPT; ++k)
+      if (k * 32 + lane < nvec) {
+        P out;
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          out.v[e] = from_f<T>((to_f<T>(cur[k].v[e]) - mean) * rstd * g[k][e] + sh[k][e]);
+        y[(long long)i * nvec + k * 32 + lane] = out;
+      }
+#pragma unroll
+    for (int k = 0; k < CPT; ++k) cur[k] = nxt[k];
+  }
+}
+
+// adaLN, the row form: block (b, j) takes row j of batch element b; thread
+// tid holds chunks tid + k blockDim.x, and issues all of its loads (x, scale,
+// shift) before it uses any. Each warp takes its sum, then its mean and its
+// sum of squared deviations from that mean, by shuffles; one shared-memory
+// exchange, then every thread combines the warps' in order: the row's mean is
+// the sum over h, its squared deviations sum_w [m2_w + n_w (mean_w - mean)^2]
+// (the two-pass variance, combined).
+template <int VEC, int CPT>
+__global__ void __launch_bounds__(ADALN_THREADS) adaln_row_kernel(AdalnArgs a) {
+  using T = __nv_bfloat16;
+  using P = Pack<T, VEC>;
+  constexpr int W = ADALN_THREADS / 32;
+  __shared__ float part[4][W];  // each warp's sum, count, mean and squared deviations
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32, warps = blockDim.x / 32;
+  const int b = blockIdx.x / a.nb;
+  const int nvec = a.h / VEC;
+  const P* x = static_cast<const P*>(a.x) + (long long)blockIdx.x * nvec;
+  P* y = static_cast<P*>(a.y) + (long long)blockIdx.x * nvec;
+  P in[CPT];
+  float g[CPT][VEC], sh[CPT][VEC];
+#pragma unroll
+  for (int k = 0; k < CPT; ++k) {
+    const int c = tid + k * int(blockDim.x);
+    if (c < nvec) in[k] = x[c];
+  }
+#pragma unroll
+  for (int k = 0; k < CPT; ++k) {
+    const int c = tid + k * int(blockDim.x);
+    if (c < nvec) {
+      load_params<VEC>(a.scale, a.mdtype, b * a.ss + (long long)c * VEC, g[k]);
+      load_params<VEC>(a.shift, a.mdtype, b * a.hs + (long long)c * VEC, sh[k]);
+    }
+  }
+  int chunks = 0;  // this warp's chunks of the row
+#pragma unroll
+  for (int k = 0; k < CPT; ++k) chunks += min(32, max(0, nvec - warp * 32 - k * int(blockDim.x)));
+  const float nw = float(chunks * VEC);
+  float s = 0.f;
+#pragma unroll
+  for (int k = 0; k < CPT; ++k)
+    if (tid + k * int(blockDim.x) < nvec)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) s += to_f<T>(in[k].v[e]);
+  const float sw = warp_sum(s);
+  const float mw = nw > 0.f ? __fdividef(sw, nw) : 0.f;  // the warp's pivot, its mean to fp32 rounding
+  float q = 0.f;
+#pragma unroll
+  for (int k = 0; k < CPT; ++k)
+    if (tid + k * int(blockDim.x) < nvec)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const float d = to_f<T>(in[k].v[e]) - mw;
+        q += d * d;
+      }
+  q = warp_sum(q);
+  if (lane == 0) {
+    part[0][warp] = sw;
+    part[1][warp] = nw;
+    part[2][warp] = mw;
+    part[3][warp] = q;
+  }
+  __syncthreads();
+  const float inv_h = 1.f / float(a.h);
+  const float mean = warps_sum<W>(part[0], warps) * inv_h;
+  float m2 = 0.f;
+#pragma unroll
+  for (int w = 0; w < W; ++w)
+    if (w < warps) {
+      const float d = part[2][w] - mean;
+      m2 += part[3][w] + part[1][w] * d * d;
+    }
+  const float rstd = rsqrtf(m2 * inv_h + a.eps);
+#pragma unroll
+  for (int k = 0; k < CPT; ++k) {
+    const int c = tid + k * int(blockDim.x);
+    if (c < nvec) {
+      P out;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        out.v[e] = from_f<T>((to_f<T>(in[k].v[e]) - mean) * rstd * (1.f + g[k][e]) + sh[k][e]);
+      y[c] = out;
+    }
+  }
+}
+
+// An empty kernel: the floor of a launch shape, timed as the kernels are.
+__global__ void empty_kernel() {}
+
 // ------------------------------------------------------------- launches
 template <auto KERNEL>
 cudaError_t configure() {
@@ -988,6 +1393,75 @@ int ln_dispatch(const LnPlan& p, const LnArgs& a, cudaStream_t st) {
   return int(cudaErrorInvalidValue);
 }
 
+template <auto KERNEL, typename Args>
+int row_launch(int grid, int threads, cudaStream_t st, const Args& a) {
+  KERNEL<<<grid, threads, 0, st>>>(a);
+  return int(cudaGetLastError());
+}
+
+template <auto KERNEL>
+int rms_start(const RmsPlan& p, const RmsArgs& a, cudaStream_t st) {
+  return row_launch<KERNEL>(p.blocks, p.threads, st, a);
+}
+
+template <typename T, int VEC>
+int rms_launch(const RmsPlan& p, const RmsArgs& a, cudaStream_t st) {
+  switch (p.cpt) {
+    case 1: return rms_start<rms_norm_fwd_kernel<T, VEC, 1>>(p, a, st);
+    case 2: return rms_start<rms_norm_fwd_kernel<T, VEC, 2>>(p, a, st);
+    case 4: return rms_start<rms_norm_fwd_kernel<T, VEC, 4>>(p, a, st);
+    case 8: return rms_start<rms_norm_fwd_kernel<T, VEC, 8>>(p, a, st);
+  }
+  // 16 chunks a thread: fp32 rows above 4,096 (16-byte form) or one-element rows above 4,096
+  if constexpr (VEC != 8)
+    if (p.cpt == 16) return rms_start<rms_norm_fwd_kernel<T, VEC, 16>>(p, a, st);
+  return int(cudaErrorInvalidValue);
+}
+
+template <typename T>
+int rms_dispatch(const RmsPlan& p, const RmsArgs& a, cudaStream_t st) {
+  return p.vec > 1 ? rms_launch<T, 16 / sizeof(T)>(p, a, st) : rms_launch<T, 1>(p, a, st);
+}
+
+int adaln_dispatch(const AdalnPlan& p, const AdalnArgs& a, int B, cudaStream_t st) {
+  const int grid = B * p.nb;
+  if (p.form == ADALN_WARP) {
+    switch (p.cpt) {
+      case 1: return row_launch<adaln_warp_kernel<1>>(grid, p.threads, st, a);
+      case 2: return row_launch<adaln_warp_kernel<2>>(grid, p.threads, st, a);
+      case 4: return row_launch<adaln_warp_kernel<4>>(grid, p.threads, st, a);
+      case 6: return row_launch<adaln_warp_kernel<6>>(grid, p.threads, st, a);
+      case 8: return row_launch<adaln_warp_kernel<8>>(grid, p.threads, st, a);
+    }
+  } else if (p.vec > 1) {
+    if (p.cpt == 1) return row_launch<adaln_row_kernel<8, 1>>(grid, p.threads, st, a);
+  } else {
+    switch (p.cpt) {
+      case 1: return row_launch<adaln_row_kernel<1, 1>>(grid, p.threads, st, a);
+      case 2: return row_launch<adaln_row_kernel<1, 2>>(grid, p.threads, st, a);
+      case 4: return row_launch<adaln_row_kernel<1, 4>>(grid, p.threads, st, a);
+      case 8: return row_launch<adaln_row_kernel<1, 8>>(grid, p.threads, st, a);
+    }
+  }
+  return int(cudaErrorInvalidValue);
+}
+
+// Launches go to `device`: the calling thread's current device is set for the
+// launch and restored after it.
+struct DeviceGuard {
+  int prev = -1;
+  explicit DeviceGuard(int device) {
+    int cur = 0;
+    if (cudaGetDevice(&cur) == cudaSuccess && cur != device && cudaSetDevice(device) == cudaSuccess)
+      prev = cur;
+  }
+  ~DeviceGuard() {
+    if (prev >= 0) cudaSetDevice(prev);
+  }
+};
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
 }  // namespace
 
 // The GroupNorm plan of a (B, n, C) map of `dtype` (0 fp32, 1 bf16, 2 fp16)
@@ -1096,6 +1570,75 @@ extern "C" int layer_norm_bwd_cuda(const void* x, const void* g, const void* w, 
   if (dtype == 0) return ln_dispatch<float>(p, a, st);
   if (dtype == 1) return ln_dispatch<__nv_bfloat16>(p, a, st);
   return int(cudaErrorInvalidValue);
+}
+
+// The RMSNorm forward's plan of `rows` rows of width h, of `dtype` (aligned:
+// x, y and the weight 16-byte aligned) into plan[5] (RmsPlan's fields in
+// order). Returns 0, or -1 where no plan takes the shape.
+extern "C" int rms_norm_plan(int rows, int h, int dtype, int aligned, int* plan) {
+  RmsPlan p;
+  if (!rms_plan(rows, h, es_of(dtype), aligned != 0, &p)) return -1;
+  const int v[RMS_PLAN_INTS] = {p.vec, p.cpt, p.threads, p.rpb, p.blocks};
+  for (int i = 0; i < RMS_PLAN_INTS; ++i) plan[i] = v[i];
+  return 0;
+}
+
+// RMSNorm of x (rows, h) contiguous, of `dtype` (0 fp32, 1 bf16, 2 fp16), into
+// y (the same), with w (h,) of wdtype, on CUDA device `device`. plan: the
+// caller's rms_norm_plan, which must equal the library's. Returns the
+// cudaError_t of the launch, or PLAN_MISMATCH.
+extern "C" int rms_norm_cuda(const void* x, const void* w, int wdtype, void* y, int dtype,
+                             int rows, int h, float eps, const int* plan, int device,
+                             void* stream) {
+  int own[RMS_PLAN_INTS];
+  if (rms_norm_plan(rows, h, dtype, aligned16(x) && aligned16(y) && aligned16(w), own) != 0 ||
+      !same_plan(own, plan, RMS_PLAN_INTS))
+    return PLAN_MISMATCH;
+  const RmsPlan p{own[0], own[1], own[2], own[3], own[4]};
+  const RmsArgs a{x, w, y, wdtype, rows, h, p.rpb, eps};
+  const DeviceGuard guard(device);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return rms_dispatch<float>(p, a, st);
+  if (dtype == 1) return rms_dispatch<__nv_bfloat16>(p, a, st);
+  return rms_dispatch<__half>(p, a, st);
+}
+
+// adaLN's plan of x (B, S, h) (aligned: x, y, scale and shift 16-byte
+// aligned, both modulation row strides multiples of 16 bytes) into plan[6]
+// (AdalnPlan's fields in order). Returns 0, or -1 where no plan takes the
+// shape.
+extern "C" int adaln_plan(int B, int S, int h, int aligned, int* plan) {
+  AdalnPlan p;
+  if (!ada_plan(B, S, h, aligned != 0, &p)) return -1;
+  const int v[ADALN_PLAN_INTS] = {p.form, p.vec, p.cpt, p.threads, p.rpb, p.nb};
+  for (int i = 0; i < ADALN_PLAN_INTS; ++i) plan[i] = v[i];
+  return 0;
+}
+
+// adaLN of x (B, S, h) bf16, contiguous, into y (the same), on CUDA device
+// `device`: scale and shift (B, h) of mdtype with unit column stride and row
+// strides ss / hs (elements). plan: the caller's adaln_plan, which must equal
+// the library's. Returns the cudaError_t of the launch, or PLAN_MISMATCH.
+extern "C" int adaln_cuda(const void* x, const void* scale, const void* shift, int mdtype,
+                          void* y, int B, int S, int h, long long ss, long long hs, float eps,
+                          const int* plan, int device, void* stream) {
+  const bool aligned = aligned16(x) && aligned16(y) && aligned16(scale) && aligned16(shift) &&
+                       (ss * es_of(mdtype)) % 16 == 0 && (hs * es_of(mdtype)) % 16 == 0;
+  int own[ADALN_PLAN_INTS];
+  if (adaln_plan(B, S, h, aligned, own) != 0 || !same_plan(own, plan, ADALN_PLAN_INTS))
+    return PLAN_MISMATCH;
+  const AdalnPlan p{own[0], own[1], own[2], own[3], own[4], own[5]};
+  const AdalnArgs a{x, scale, shift, y, mdtype, S, h, ss, hs, p.nb, p.rpb, eps};
+  const DeviceGuard guard(device);
+  return adaln_dispatch(p, a, B, static_cast<cudaStream_t>(stream));
+}
+
+// `count` launches of an empty kernel of `blocks` x `threads` on CUDA device
+// `device`: the floor of a kernel's launch shape.
+extern "C" int norms_empty_launch(int blocks, int threads, int count, int device, void* stream) {
+  const DeviceGuard guard(device);
+  for (int i = 0; i < count; ++i) empty_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>();
+  return int(cudaGetLastError());
 }
 
 // Clusters of a plan that the card runs at once (cudaOccupancyMaxActiveClusters):

@@ -3,18 +3,19 @@ pair of the SD3 MM-DiT (adaptive LayerNorm, and adaptive LayerNorm fused with
 the gated residual add) and LayerNorm with its backward (B10; see their
 sections below). Port of paddlemix_tpu/ops/norms.py.
 
-RMSNorm (B11): `rms_norm` launches a Triton kernel for CUDA tensors and runs
-its plain version `rms_norm_ref` for CPU tensors. It replaces the forward
-Pallas kernel `_rms_norm_pallas_fwd_impl` / `_rms_fwd_kernel`: fp32 mean of
-x^2, rsqrt(+eps), times the fp32 weight, cast to x's dtype. One program
-normalises one row (Llama-7B: 4096 wide, 8 KB in bf16), so the kernel reads
-x once and writes y once: it is bound by those bytes, and a single-row call
-(decode) by its launch. The JAX package sends fewer than 64 rows to XLA,
+RMSNorm (B11): `rms_norm` launches csrc/norms.cu's kernel for CUDA tensors
+and runs its plain version `rms_norm_ref` for CPU tensors. It replaces the
+forward Pallas kernel `_rms_norm_pallas_fwd_impl` / `_rms_fwd_kernel`: fp32
+mean of x^2, rsqrt(+eps), times the fp32 weight, cast to x's dtype. A block
+takes a row across its threads (Llama-7B: 4096 wide, 8 KB in bf16) with the
+weight held in registers, so the kernel reads x once and writes y once: it
+is bound by those bytes, and a single-row call (decode) by its launch and
+one memory round trip. The JAX package sends fewer than 64 rows to XLA,
 which fuses the norm into its neighbours; eager PyTorch has no such fusion,
 and the plain version is about six launches, so the port launches the
 kernel for every row count. Under autograd `rms_norm` is `_RMSNorm` (the JAX
-custom_vjp), whose backward `rms_norm_backward` is a second Triton kernel
-(see its section below).
+custom_vjp), whose backward `rms_norm_backward` is a Triton kernel (see its
+section below).
 
 GroupNorm (B4), adaLN (B12) and fused adaLN + residual (B13) take their
 backward, as the JAX package takes it from XLA, from autograd of their plain
@@ -240,8 +241,17 @@ def _norms_lib():
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 2 + \
         [ctypes.c_float] + [ctypes.c_void_p] * 2
     lib.norms_max_clusters.argtypes = [ctypes.c_int] * 4
+    lib.rms_norm_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.rms_norm_cuda.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p] + \
+        [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib.adaln_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.adaln_cuda.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p] + \
+        [ctypes.c_int] * 3 + [ctypes.c_longlong] * 2 + \
+        [ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib.norms_empty_launch.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
     for fn in (lib.group_norm_plan, lib.layer_norm_bwd_plan, lib.group_norm_cuda,
-               lib.layer_norm_bwd_cuda, lib.norms_max_clusters):
+               lib.layer_norm_bwd_cuda, lib.norms_max_clusters, lib.rms_norm_plan,
+               lib.rms_norm_cuda, lib.adaln_plan, lib.adaln_cuda, lib.norms_empty_launch):
         fn.restype = ctypes.c_int
     return lib
 
@@ -262,6 +272,21 @@ def norms_max_clusters(kind: int, threads: int, smem: int, cluster: int) -> int:
     (cudaOccupancyMaxActiveClusters): kind 0 GroupNorm's resident kernel, 1
     its statistics kernel, 2 the LayerNorm backward; -1 if the query fails."""
     return _norms_lib().norms_max_clusters(kind, threads, smem, cluster)
+
+
+def _raw_stream(device: int) -> int:
+    """The handle of `device`'s current CUDA stream (what Triton's launcher
+    reads too): a kernel of the library launches on it."""
+    return torch._C._cuda_getCurrentRawStream(device)
+
+
+def empty_launch(blocks: int, threads: int, count: int = 1):
+    """`count` launches of an empty kernel of `blocks` x `threads` on the
+    current device's current stream: the floor under a kernel of that launch
+    shape."""
+    dev = torch.cuda.current_device()
+    _check_launch("empty kernel", _norms_lib().norms_empty_launch(blocks, threads, count, dev,
+                                                                  _raw_stream(dev)))
 
 
 def _check_launch(name, err):
@@ -371,7 +396,19 @@ group_norm_stats.launches = 0  # statistics launches (CUDA tensors only)
 
 
 # ---------------------------------------------------------------- RMSNorm
-_RMS_MAX_WIDTH = 16384  # one row in one program's registers
+# B11's forward is csrc/norms.cu's `rms_norm_fwd_kernel`; `rms_norm_plan`
+# mirrors its plan (the library answers it through `rms_norm_plan_library`,
+# and a launch whose plan is not the library's own is refused). A block takes
+# a row at a time across all its threads, `cpt` chunks a thread (chunk c =
+# tid + k threads, 16 bytes of x where x, y and the weight are 16-byte aligned
+# and the row a multiple of 16 bytes, else one element), the weight held in
+# registers for all of its rows. Up to 132 x (1,024 // threads) rows a block
+# each (a block a row: the decode row, T5's 77); above, that many blocks, each
+# a run of rows, the next row in flight in registers while one reduces.
+_RMS_MAX_WIDTH = 16384  # 1,024 threads of 16 elements
+RMS_THREADS = 256          # a block's threads where the row's chunks allow
+RMS_MAX_CPT = 16           # chunks a thread at most
+RMS_THREADS_PER_SM = 1024  # the grid's blocks an SM, in threads
 
 
 def rms_norm_ref(x, weight, eps: float = 1e-6):
@@ -382,41 +419,100 @@ def rms_norm_ref(x, weight, eps: float = 1e-6):
     return (y * weight.float()).to(x.dtype)
 
 
-@functools.lru_cache(maxsize=None)
-def _rms_kernel():
-    global tl
-    import triton
-    import triton.language as tl
+@dataclass(frozen=True)
+class RmsPlan:
+    vec: int      # elements a chunk: 16 bytes of x, or 1
+    cpt: int      # chunks a thread: 1, 2, 4, 8 or 16
+    threads: int  # threads a block
+    rpb: int      # rows a block, one after another
+    blocks: int
 
-    @triton.jit
-    def rms_norm_fwd(x_ptr, w_ptr, y_ptr, H, eps, BLOCK_H: tl.constexpr):
-        row = tl.program_id(0).to(tl.int64)
-        cols = tl.arange(0, BLOCK_H)
-        mask = cols < H
-        x = tl.load(x_ptr + row * H + cols, mask=mask, other=0.0).to(tl.float32)
-        y = x * tl.rsqrt(tl.sum(x * x, axis=0) / H + eps)
-        w = tl.load(w_ptr + cols, mask=mask, other=0.0).to(tl.float32)
-        tl.store(y_ptr + row * H + cols, (y * w).to(y_ptr.dtype.element_ty), mask=mask)
+    def ints(self):
+        return tuple(getattr(self, f.name) for f in fields(self))
 
-    return rms_norm_fwd
+    def block_rows(self, block: int, rows: int) -> range:
+        return range(min(rows, block * self.rpb), min(rows, (block + 1) * self.rpb))
+
+    def thread_columns(self, tid: int, h: int):
+        """The columns of a row that thread `tid` holds, in its order."""
+        nvec = h // self.vec
+        return [c * self.vec + e for k in range(self.cpt) for c in (tid + k * self.threads,)
+                if c < nvec for e in range(self.vec)]
 
 
-def _rms_norm_triton(x, weight, eps):
+def rms_norm_plan(rows: int, h: int, esize: int, aligned: bool = True):
+    """The RMSNorm forward's plan at (rows, h), `esize` bytes an element of x;
+    `aligned`: x, y and the weight start 16-byte aligned. None where no plan
+    takes the shape."""
+    if rows < 1 or not 1 <= h <= _RMS_MAX_WIDTH:
+        return None
+    vec = 16 // esize if aligned and h * esize % 16 == 0 else 1
+    nvec = h // vec
+    cpt = 1
+    while cpt < RMS_MAX_CPT and cpt * RMS_THREADS < nvec:
+        cpt *= 2
+    threads = (_cdiv(nvec, cpt) + 31) // 32 * 32
+    rpb = _cdiv(rows, _SMS * max(1, RMS_THREADS_PER_SM // threads))
+    return RmsPlan(vec, cpt, threads, rpb, _cdiv(rows, rpb))
+
+
+def rms_norm_plan_library(rows: int, h: int, dtype, aligned: bool = True):
+    """The library's own plan (csrc/norms.cu `rms_norm_plan`), which
+    `rms_norm_plan` mirrors; None where it takes no plan."""
+    out = (ctypes.c_int * len(fields(RmsPlan)))()
+    if _norms_lib().rms_norm_plan(rows, h, _DTYPE_CODE[dtype], int(aligned), out) != 0:
+        return None
+    return RmsPlan(*out)
+
+
+@functools.lru_cache(maxsize=1024)
+def _rms_launch_plan(rows, h, esize, aligned):
+    plan = rms_norm_plan(rows, h, esize, aligned)
+    return plan, None if plan is None else _plan_array(plan)
+
+
+def _aligned(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def rms_norm_plan_of(x, weight, y=None):
+    """The plan the kernel takes for x (..., h) and its weight (and y, where
+    given; the wrapper's own output is allocated 16-byte aligned)."""
     h = x.shape[-1]
-    if x.dtype not in (torch.bfloat16, torch.float16, torch.float32) or not x.is_contiguous() \
-            or h > _RMS_MAX_WIDTH:
-        raise ValueError(f"rms_norm kernel takes a contiguous bf16/fp16/fp32 tensor at most "
+    return _rms_launch_plan(x.numel() // h, h, x.element_size(),
+                            _aligned(x, weight, *(() if y is None else (y,))))[0]
+
+
+def _rms_check(x, weight):
+    """The kernel's inputs: x contiguous bf16 / fp16 / fp32 at most
+    _RMS_MAX_WIDTH wide; the weight a contiguous (h,) tensor on x's device.
+    Returns the weight as the kernel reads it (fp32 where its dtype is no
+    float of the kernel's)."""
+    h = x.shape[-1] if x.ndim else 0
+    if x.dtype not in _DTYPE_CODE or not x.is_contiguous() or not 1 <= h <= _RMS_MAX_WIDTH:
+        raise ValueError(f"rms_norm kernel takes a contiguous bf16/fp16/fp32 tensor 1 to "
                          f"{_RMS_MAX_WIDTH} wide, got {x.dtype} {tuple(x.shape)} strides "
                          f"{x.stride()}")
     if weight.device != x.device or weight.shape != (h,) or not weight.is_contiguous():
         raise ValueError(f"rms_norm: weight must be a contiguous ({h},) tensor on {x.device}, "
                          f"got {tuple(weight.shape)} on {weight.device}")
+    return weight if weight.dtype in _DTYPE_CODE else weight.float()
+
+
+def _rms_norm_cuda(x, weight, eps):
+    """y = RMSNorm(x) through csrc/norms.cu's kernel, one launch."""
+    weight = _rms_check(x, weight)
     y = torch.empty_like(x)
+    h = x.shape[-1]
     rows = x.numel() // h
-    block = max(128, 1 << (h - 1).bit_length())
-    with torch.cuda.device(x.device):
-        _rms_kernel()[(rows,)](x, weight, y, h, float(eps), BLOCK_H=block,
-                               num_warps=min(16, max(1, block // 512)))
+    if rows == 0:
+        return y
+    _, arr = _rms_launch_plan(rows, h, x.element_size(), _aligned(x, weight, y))
+    dev = x.get_device()
+    err = _norms_lib().rms_norm_cuda(
+        x.data_ptr(), weight.data_ptr(), _DTYPE_CODE[weight.dtype], y.data_ptr(),
+        _DTYPE_CODE[x.dtype], rows, h, float(eps), arr, dev, _raw_stream(dev))
+    _check_launch("rms_norm", err)
     rms_norm.launches += 1
     return y
 
@@ -424,7 +520,7 @@ def _rms_norm_triton(x, weight, eps):
 def _rms_forward(x, weight, eps):
     """The forward: the kernel for CUDA tensors, `rms_norm_ref` for CPU ones."""
     if x.is_cuda:
-        return _rms_norm_triton(x, weight, eps)
+        return _rms_norm_cuda(x, weight, eps)
     if x.device.type != "cpu":
         raise ValueError(f"rms_norm: unsupported device {x.device}")
     return rms_norm_ref(x, weight, eps)
@@ -450,9 +546,9 @@ class _RMSNorm(torch.autograd.Function):
 
 
 def rms_norm(x, weight, eps: float = 1e-6):
-    """RMSNorm over the last axis (port of `rms_norm`). CUDA tensors launch the
-    Triton kernel; CPU tensors run `rms_norm_ref`. Under autograd it is
-    `_RMSNorm`, whose backward is `rms_norm_backward`."""
+    """RMSNorm over the last axis (port of `rms_norm`). CUDA tensors launch
+    csrc/norms.cu's kernel (one launch); CPU tensors run `rms_norm_ref`. Under
+    autograd it is `_RMSNorm`, whose backward is `rms_norm_backward`."""
     if grad_needed(x, weight):
         return _RMSNorm.apply(x, weight, eps)
     return _rms_forward(x, weight, eps)
@@ -613,16 +709,111 @@ rms_norm_backward.launches = 0  # backward calls that launched the kernels (CUDA
 # by y = LN(.) * (1 + scale[b]) + shift[b]; B13 first forms the gated residual
 # resi = residual + gate[b] * x and normalises that fp32 sum before rounding it
 # to the `resi` output. They do a few flops a byte, so they are bound by the
-# bytes: one program normalises one row (SD3-medium: 1536 wide, 3 KB in bf16)
-# in registers, so x (and the residual) are read once and y (and resi) written
-# once, in the input dtype; the (B, H) modulation rows, read per program, stay
-# in L2. The model's bf16 activations and modulation vectors are read as they
-# are and widened in registers: the JAX model casts them to fp32 around its
-# Pallas call, which the kernel folds in, so no fp32 copy is made. The JAX
-# package sends rows not a multiple of 128 wide, or fewer than 64 rows, to
-# XLA, which fuses the norm into its neighbours; eager PyTorch has no such
-# fusion, so the port launches the kernel for every call on the card.
-_ADALN_MAX_WIDTH = 2048  # one row in one program's registers; SD3-medium's is 1536
+# bytes: x (and the residual) are read once and y (and resi) written once, in
+# the input dtype. The model's bf16 activations and modulation vectors are
+# read as they are and widened in registers: the JAX model casts them to fp32
+# around its Pallas call, which the kernels fold in, so no fp32 copy is made.
+# B12 is csrc/norms.cu's `adaln_warp_kernel` (many rows: a warp a row, a
+# block's rows a run within one batch element, 1 + scale[b] and shift[b] held
+# in registers for all of them) and `adaln_row_kernel` (few rows: a block a
+# row); `adaln_plan` mirrors its plan. B13 is a Triton kernel, one
+# program a row, its modulation rows read per program from L2. The JAX package
+# sends rows not a multiple of 128 wide, or fewer than 64 rows, to XLA, which
+# fuses the norm into its neighbours; eager PyTorch has no such fusion, so the
+# port launches the kernel for every call on the card.
+_ADALN_MAX_WIDTH = 2048  # the widest row a warp holds (8 chunks a lane); SD3-medium's is 1536
+# adaLN's plan, a mirror of csrc/norms.cu's `ada_plan` (`adaln_plan_library`).
+# The 16-byte form needs x, y, scale and shift 16-byte aligned, the modulation
+# row strides multiples of 16 bytes and the row a multiple of 8; else one
+# element a load. Many rows (above ADALN_ROW_BLOCKS an SM) in the 16-byte
+# form: the warp form, a warp a row at a time, a block of ADALN_WARPS warps an
+# SM taking a run of rows of one batch element, interleaved over its warps,
+# 1 + scale[b] and shift[b] held in registers, each warp's next row in flight.
+# Otherwise (few rows, or the one-element form): the row form, a block a row.
+ADALN_WARPS = 8
+ADALN_ROW_BLOCKS = 8              # rows an SM that take a block each
+ADALN_THREADS = 256               # a row-form block's threads at most
+ADALN_LANE_CPT = (1, 2, 4, 6, 8)  # compiled chunks a lane, warp form
+ADALN_WARP, ADALN_ROW = 0, 1
+
+
+@dataclass(frozen=True)
+class AdalnPlan:
+    form: int     # ADALN_WARP or ADALN_ROW
+    vec: int      # elements a chunk: 8 (16 bytes), or 1
+    cpt: int      # chunks a lane (warp form) or a thread (row form)
+    threads: int  # threads a block
+    rpb: int      # rows a block, within one batch element
+    nb: int       # blocks a batch element
+
+    def ints(self):
+        return tuple(getattr(self, f.name) for f in fields(self))
+
+    def blocks(self, b: int) -> int:
+        return b * self.nb
+
+    def warp_rows(self, block: int, warp: int, s: int):
+        """(batch element, its rows) that warp `warp` of block `block` takes;
+        in the row form the block's one row is every warp's."""
+        b, j = divmod(block, self.nb)
+        r0 = j * self.rpb
+        if self.form == ADALN_ROW:
+            return b, range(r0, r0 + 1)
+        return b, range(r0 + warp, min(s, r0 + self.rpb), self.threads // 32)
+
+    def thread_columns(self, tid: int, h: int):
+        """The columns of a row that thread `tid` (the warp form: lane) holds,
+        in its order."""
+        nvec = h // self.vec
+        span = 32 if self.form == ADALN_WARP else self.threads
+        return [c * self.vec + e for k in range(self.cpt) for c in (tid % span + k * span,)
+                if c < nvec for e in range(self.vec)]
+
+
+def adaln_plan(b: int, s: int, h: int, aligned: bool = True):
+    """adaLN's plan at x (b, s, h); `aligned`: x, y, scale and shift start
+    16-byte aligned and both modulation row strides are multiples of 16
+    bytes. None where no plan takes the shape."""
+    if b < 1 or s < 1 or not 1 <= h <= _ADALN_MAX_WIDTH:
+        return None
+    vec = 8 if aligned and h % 8 == 0 else 1
+    nvec = h // vec
+    if vec > 1 and b * s > _SMS * ADALN_ROW_BLOCKS:
+        cpt = next(c for c in ADALN_LANE_CPT if c * 32 >= nvec)
+        rpb = _cdiv(s, _SMS // b if b < _SMS else 1)
+        return AdalnPlan(ADALN_WARP, vec, cpt, min(rpb, ADALN_WARPS) * 32, rpb, _cdiv(s, rpb))
+    cpt = 1
+    while cpt * ADALN_THREADS < nvec:
+        cpt *= 2
+    return AdalnPlan(ADALN_ROW, vec, cpt, (_cdiv(nvec, cpt) + 31) // 32 * 32, 1, s)
+
+
+def adaln_plan_library(b: int, s: int, h: int, aligned: bool = True):
+    """The library's own plan (csrc/norms.cu `adaln_plan`), which `adaln_plan`
+    mirrors; None where it takes no plan."""
+    out = (ctypes.c_int * len(fields(AdalnPlan)))()
+    if _norms_lib().adaln_plan(b, s, h, int(aligned), out) != 0:
+        return None
+    return AdalnPlan(*out)
+
+
+@functools.lru_cache(maxsize=1024)
+def _adaln_launch_plan(b, s, h, aligned):
+    plan = adaln_plan(b, s, h, aligned)
+    return plan, None if plan is None else _plan_array(plan)
+
+
+def _adaln_aligned(x, scale, shift, y):
+    ms = scale.element_size()
+    return _aligned(x, y, scale, shift) and scale.stride(0) * ms % 16 == 0 \
+        and shift.stride(0) * ms % 16 == 0
+
+
+def adaln_plan_of(x, scale, shift, y=None):
+    """The plan the kernel takes for x (B, S, H) and its modulation rows (and
+    y, where given; the wrapper's own output is allocated 16-byte aligned)."""
+    scale, shift = _adaln_mods(scale, shift)
+    return _adaln_launch_plan(*x.shape, _adaln_aligned(x, scale, shift, x if y is None else y))[0]
 
 
 def _check_affine(name, weight, bias):
@@ -669,17 +860,6 @@ def _adaln_kernels():
         return diff * rstd * (1.0 + sc) + sh
 
     @triton.jit
-    def adaln_fwd(x_ptr, scale_ptr, shift_ptr, y_ptr, S, H, mod_stride, eps,
-                  BLOCK_H: tl.constexpr):
-        row = tl.program_id(0).to(tl.int64)
-        b = row // S
-        cols = tl.arange(0, BLOCK_H)
-        mask = cols < H
-        x = tl.load(x_ptr + row * H + cols, mask=mask, other=0.0).to(tl.float32)
-        y = _modulated_ln(x, cols, mask, b, H, eps, scale_ptr, shift_ptr, mod_stride)
-        tl.store(y_ptr + row * H + cols, y.to(y_ptr.dtype.element_ty), mask=mask)
-
-    @triton.jit
     def fused_adaln_residual_fwd(res_ptr, x_ptr, gate_ptr, scale_ptr, shift_ptr, y_ptr,
                                  resi_ptr, S, H, mod_stride, eps, BLOCK_H: tl.constexpr):
         row = tl.program_id(0).to(tl.int64)
@@ -695,7 +875,7 @@ def _adaln_kernels():
         y = _modulated_ln(r, cols, mask, b, H, eps, scale_ptr, shift_ptr, mod_stride)
         tl.store(y_ptr + offs, y.to(y_ptr.dtype.element_ty), mask=mask)
 
-    return adaln_fwd, fused_adaln_residual_fwd
+    return fused_adaln_residual_fwd
 
 
 def _check_adaln(name, rows, mods):
@@ -727,29 +907,45 @@ def _row_launch(h):
     return block, min(16, max(1, block // 256))
 
 
+def _adaln_mods(scale, shift):
+    """The modulation rows as the kernel reads them, of one dtype: as they are
+    where both are one float dtype of the kernel's, else both in fp32 (an
+    exact widening)."""
+    if scale.dtype == shift.dtype and scale.dtype in _DTYPE_CODE:
+        return scale, shift
+    return scale.float(), shift.float()
+
+
+def _adaln_cuda(x, scale, shift, eps):
+    """y = adaLN(x) through csrc/norms.cu's kernel, one launch."""
+    scale, shift = _adaln_mods(scale, shift)
+    b, s, h = x.shape
+    y = torch.empty_like(x)
+    if y.numel() == 0:
+        return y
+    _, arr = _adaln_launch_plan(b, s, h, _adaln_aligned(x, scale, shift, y))
+    dev = x.get_device()
+    err = _norms_lib().adaln_cuda(
+        x.data_ptr(), scale.data_ptr(), shift.data_ptr(), _DTYPE_CODE[scale.dtype], y.data_ptr(),
+        b, s, h, scale.stride(0), shift.stride(0), float(eps), arr, dev, _raw_stream(dev))
+    _check_launch("adaptive_layer_norm", err)
+    adaptive_layer_norm.launches += 1
+    return y
+
+
 def adaptive_layer_norm(x, scale, shift, weight=None, bias=None, eps: float = 1e-5):
     """LN(x) * (1 + scale) + shift, x (B, S, H), scale/shift (B, H) (port of
-    `adaptive_layer_norm`). CUDA tensors launch the Triton kernel (B12), whose
-    backward is autograd of the plain version; CPU tensors run
-    `adaptive_layer_norm_ref`. The output has x's dtype."""
+    `adaptive_layer_norm`). CUDA tensors launch csrc/norms.cu's kernel (B12,
+    one launch), whose backward is autograd of the plain version; CPU tensors
+    run `adaptive_layer_norm_ref`. The output has x's dtype."""
     _check_affine("adaptive_layer_norm", weight, bias)
     if not x.is_cuda:
         if x.device.type != "cpu":
             raise ValueError(f"adaptive_layer_norm: unsupported device {x.device}")
         return adaptive_layer_norm_ref(x, scale, shift, eps=eps)
-    stride = _check_adaln("adaptive_layer_norm", (x,), (scale, shift))
-
-    def run(x, scale, shift):
-        b, s, h = x.shape
-        y = torch.empty_like(x)
-        block, warps = _row_launch(h)
-        with torch.cuda.device(x.device):
-            _adaln_kernels()[0][(b * s,)](x, scale, shift, y, s, h, stride, float(eps),
-                                          BLOCK_H=block, num_warps=warps)
-        adaptive_layer_norm.launches += 1
-        return y
-    return with_plain_backward(run, lambda *a: adaptive_layer_norm_ref(*a, eps=eps),
-                               x, scale, shift)
+    _check_adaln("adaptive_layer_norm", (x,), (scale, shift))
+    return with_plain_backward(lambda *t: _adaln_cuda(*t, eps),
+                               lambda *a: adaptive_layer_norm_ref(*a, eps=eps), x, scale, shift)
 
 
 adaptive_layer_norm.launches = 0  # kernel launches (CUDA tensors only)
@@ -774,8 +970,8 @@ def fused_adaln_scale_residual(residual, x, gate, scale, shift, weight=None, bia
         y, resi = torch.empty_like(x), torch.empty_like(x)
         block, warps = _row_launch(h)
         with torch.cuda.device(x.device):
-            _adaln_kernels()[1][(b * s,)](residual, x, gate, scale, shift, y, resi, s, h,
-                                          stride, float(eps), BLOCK_H=block, num_warps=warps)
+            _adaln_kernels()[(b * s,)](residual, x, gate, scale, shift, y, resi, s, h, stride,
+                                       float(eps), BLOCK_H=block, num_warps=warps)
         fused_adaln_scale_residual.launches += 1
         return y, resi
     return with_plain_backward(run, lambda *a: fused_adaln_scale_residual_ref(*a, eps=eps),

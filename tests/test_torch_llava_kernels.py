@@ -276,10 +276,17 @@ def test_llava_kernels_match_plain_versions_on_gpu():
         assert ((o - r).abs() <= 2.0 ** -7 * r.abs() + 4e-3 * r.abs().max()).all(), \
             (d, g, lengths)
         assert (out[~valid] == 0).all()
-    # B11: the decode row, the prefill rows, a width that is not a power of 2
-    for rows, h in [(1, 4096), (608, 4096), (7, 320)]:
+    # B11: the decode row, the prefill rows, the SFT forward's rows, a width
+    # that is not a power of 2, a width of no whole 16 bytes and x one element
+    # past a 16-byte boundary (the one-element form)
+    for rows, h, misaligned in [(1, 4096, False), (608, 4096, False), (4096, 4096, False),
+                                (7, 320, False), (37, 4100, False), (33, 4096, True)]:
         x = (3 * torch.randn((rows, h), generator=gen, device=dev)).to(bf16)
+        if misaligned:
+            x = torch.empty(x.numel() + 1, dtype=bf16, device=dev)[1:].view(x.shape).copy_(x)
         w = 1 + 0.1 * torch.randn(h, generator=gen, device=dev)
         out = counted(tnorms.rms_norm, x, w, 1e-5).float()
         ref = tnorms.rms_norm_ref(x.float(), w, 1e-5)
         assert (out - ref).abs().max().item() <= 3e-2  # bf16 output rounding (values < 8)
+        # and per element: one bf16 rounding apart, plus fp32 summation order
+        assert ((out - ref).abs() <= 2.0 ** -7 * ref.abs() + 1e-6 * ref.abs().max()).all()

@@ -210,3 +210,13 @@ def test_adaln_kernels_match_plain_versions_on_gpu():
         y, resi = counted(tnorms.fused_adaln_scale_residual, residual, x, gate, scale, shift)
         ref_y, ref_resi = tnorms.fused_adaln_scale_residual_ref(residual, x, gate, scale, shift)
         assert within(y, ref_y) and within(resi, ref_resi), (b, s, h)
+    # B12's one-element form (x one element past a 16-byte boundary, a width
+    # of no whole 16 bytes) and fp32 modulation rows
+    for (b, s, h), md, misaligned in [((2, 154, 1536), bf16, True), ((3, 50, 100), bf16, False),
+                                      ((2, 4096, 1536), torch.float32, False)]:
+        x = torch.randn((b, s, h), generator=gen, device=dev).to(bf16)
+        if misaligned:
+            x = torch.empty(x.numel() + 1, dtype=bf16, device=dev)[1:].view(x.shape).copy_(x)
+        shift, scale = torch.randn((b, 6 * h), generator=gen, device=dev).to(md).chunk(6, -1)[:2]
+        y = counted(tnorms.adaptive_layer_norm, x, scale, shift)
+        assert within(y, tnorms.adaptive_layer_norm_ref(x, scale, shift)), (b, s, h, md)

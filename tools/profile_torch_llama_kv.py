@@ -35,8 +35,8 @@ def category(kernel_name: str) -> str:
         return "B9 paged decode attention"
     if "decode_attention" in n:
         return "B8 int8-cache decode attention (+ merge)"
-    if "rms_norm" in n:
-        return "B11 RMSNorm (Triton)"
+    if "rms_norm" in n:  # rms_norm_fwd_kernel (CUDA); an older tree's Triton rms_norm_fwd
+        return "B11 RMSNorm"
     if any(s in n for s in ("gemm", "nvjet", "xmma", "cutlass", "sm90", "gemv")):
         return "cuBLAS GEMMs / GEMVs"
     if "softmax" in n:

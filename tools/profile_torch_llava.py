@@ -33,8 +33,8 @@ def category(kernel_name: str) -> str:
         return "B6 wint8 GEMM"
     if "decode_attention" in n:
         return "B7 decode attention"
-    if "rms_norm" in n:
-        return "B11 RMSNorm (Triton)"
+    if "rms_norm" in n:  # rms_norm_fwd_kernel (CUDA); an older tree's Triton rms_norm_fwd
+        return "B11 RMSNorm"
     if any(s in n for s in ("gemm", "nvjet", "xmma", "cutlass", "sm90", "gemv", "conv",
                             "cudnn", "implicit")):
         return "cuBLAS GEMMs / GEMVs"
@@ -102,7 +102,8 @@ def main():
         pre_total = sum(pre.values())
         print(f"[{label}] prefill (a 1-token request): TTFT {1e3 * ttft:.1f} ms unprofiled, "
               f"device kernel time {pre_total / 1e3:.1f} ms, busy share "
-              f"{pre_total / 1e6 / ttft:.3f}")
+              f"{pre_total / 1e6 / ttft:.3f}; decode {1e3 * (unprofiled - ttft) / (NEW_TOKENS - 1):.2f} "
+              f"host ms a token (unprofiled request less TTFT)")
         for name, us in sorted(pre.items(), key=lambda kv: -kv[1]):
             print(f"[{label}]   prefill {name:34s} {us / 1e3:9.1f} ms {100 * us / pre_total:5.1f}%")
 

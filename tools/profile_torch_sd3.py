@@ -34,9 +34,9 @@ def category(kernel_name: str) -> str:
         return "B1 flash attention (joint)"
     if "fused_adaln_residual" in n:
         return "B13 fused adaLN + residual"
-    if "adaln_fwd" in n:
+    if "adaln_" in n:  # adaln_warp_kernel / adaln_row_kernel; an older tree: Triton adaln_fwd
         return "B12 adaLN"
-    if "rms_norm" in n:
+    if "rms_norm" in n:  # rms_norm_fwd_kernel (CUDA); an older tree's Triton rms_norm_fwd
         return "B11 RMSNorm (T5)"
     if n.startswith("gn_"):
         return "B4 GroupNorm (VAE)"
