@@ -132,9 +132,11 @@ Phases:
                    path's shapes with the floor (an empty kernel of the
                    plan's launch shape, timed alike) and at a ragged width,
                    a misaligned view, a bf16 weight and fp32 x; the
-                   library's plans of RMSNorm and adaLN held against the
-                   wrappers' mirrors at every path shape, two launches
-                   bit-identical and CUDA-graph replays equal to them
+                   library's plans of RMSNorm, adaLN, fused adaLN + residual
+                   and LayerNorm's forward held against the wrappers'
+                   mirrors at every path shape and extra case, two launches
+                   bit-identical, CUDA-graph replays equal to them and one
+                   launch counted a call, at every path shape of the four
  11. llava agree   LLaVA-7B bf16: prefill (608 tokens) + 4 decode steps, the
                    kernels vs their plain versions swapped in
  12. llava serve   3 requests as the JAX bench makes them (576 image
@@ -144,11 +146,14 @@ Phases:
  13. wint8         quantize in place (seconds, bytes freed), then agree and
                    serve again with the wint8 GEMM as well
  14. sd3 kernels   LLaVA is freed; adaLN (B12, csrc/norms.cu) and fused adaLN
-                   + gated residual (B13) against their plain versions at the
-                   image and context rows, each with a control (the plain
-                   version without the shift, or without the gate) that must
-                   fail the same limit, B12 with the floor and also at an
-                   offset view, fp32 modulation rows and a ragged width;
+                   + gated residual (B13, csrc/norms.cu) against their plain
+                   versions at the image and context rows, each with a
+                   control (the plain version without the shift, or without
+                   the gate) that must fail the same limit, both with the
+                   floor (B13 also with `copy_` of the residual and x, its
+                   kernel and ptxas's registers and spills) and both also
+                   at an offset view, fp32 modulation rows and a ragged
+                   width;
                    flash at the ragged 4,250-token joint attention, whose
                    control leaves out the 26 keys of the ragged tail; times
                    and bounds as above
@@ -213,7 +218,9 @@ Phases:
                    share of the device time, peak memory; every loss and
                    grad_norm finite; launches equal to
                    `expected_launches_train` and no inference kernel launched
- 23. clip kernels  Llama is freed; LayerNorm (B10) and its backward against
+ 23. clip kernels  Llama is freed; LayerNorm (B10, csrc/norms.cu, with the
+                   floor, `copy_` of x, its kernel and ptxas's counts) and
+                   its backward against
                    their plain versions at the CLIP path's rows (the vision
                    tower's 50,432 x 768, the text tower's 19,712 x 512, the
                    pooled 256 x 768 as a strided slice) and at the other
@@ -224,7 +231,9 @@ Phases:
                    the first partial sum's rows alone: the plan's first
                    cluster's, or first block's where one cluster takes every
                    row); times, bounds and library
-                   times (F.layer_norm and its backward)
+                   times (F.layer_norm and its backward); the forward also
+                   at a misaligned view, fp32 x and a ragged width, each
+                   with the control
  24. clip          CLIP ViT-B/16 is built; agree (the logits of one seeded
                    batch of 256, B10 vs plain, held within 1.25x of two plain
                    versions one bf16 rounding apart); 12 timed bench forwards
@@ -425,7 +434,8 @@ SD3_T5_SEED = 0
 # (B, S, H) of B12/B13: the image stream (4096 tokens) and the context stream
 # (77 CLIP + 77 T5 tokens), CFG batch 2, hidden 1536
 ADALN_SHAPES = [(2, 4096, 1536), (2, 154, 1536)]
-# B12 beyond the path's aligned bf16 rows, each with the gate and the control:
+# B12 and B13 beyond the path's aligned bf16 rows, each with the gate and the
+# control (the plain version without the shift, or without the gate):
 # ((B, S, H), modulation dtype, x one element past a 16-byte boundary): an
 # offset view (the one-element form), fp32 modulation rows, a ragged width
 ADALN_EXTRA_CASES = [((2, 154, 1536), "bf16", True), ((2, 4096, 1536), "fp32", False),
@@ -687,19 +697,23 @@ def recorder(summary):
     """The function that prints the times of one kernel case and keeps them in
     `summary` (kernel name -> rows) for the kernels line."""
     def record(label, name, shape, err, ms, plain_ms, lib_ms, bnd, extra="", flash=None,
-               bwd=None, floor=None):
+               bwd=None, floor=None, copy=None):
         """Print the times of one kernel case and keep them for the summary;
         `flash` = (caller's head_dim, the bound's operations, int8) of a flash
         forward case, or `bwd` = (caller's head_dim, the bound's operations) of
         a flash backward one, adds the core that served it and its TFLOP/s;
-        `floor` is the ms of an empty kernel of the case's launch shape."""
+        `floor` is the ms of an empty kernel of the case's launch shape, `copy`
+        that of `copy_` of the bytes the case reads."""
         lib = "no single call" if lib_ms is None else f"{lib_ms:.3f} ms"
-        fl = "" if floor is None else f" | floor {floor:.4f} ms"
+        fl = ("" if floor is None else f" | floor {floor:.4f} ms") + \
+            ("" if copy is None else f" | copy_ {copy:.4f} ms")
         print(f"[{label}]   {name} {shape}{extra}: kernel {ms:.4f} ms | plain {plain_ms:.3f} ms "
               f"| library {lib} | bound {bnd[0]:.4f} ms ({bnd[1]}){fl}", flush=True)
         row = dict(shape=shape, err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound=bnd)
         if floor is not None:
             row["floor_ms"] = floor
+        if copy is not None:
+            row["copy_ms"] = copy
         if flash is not None or bwd is not None:
             d_, ops, int8 = flash if flash is not None else (*bwd, False)
             core, note = flash_core(d_, int8) if flash is not None else bwd_core(d_)
@@ -1378,6 +1392,12 @@ CLIP_LN_SHAPES = [(50432, 768, 1), (19712, 512, 1), (256, 768, 197), (77, 768, 1
 # |ref|max; controls: dx without its mean(g w) term, and dw and db of the
 # first program's rows alone.
 LN_SUM, LN_BWD_SUM, LN_DW_TOL = 1e-6, 1e-5, 1e-4
+# B10's forward beyond the path's bf16 rows, each with the gate and the
+# control: ((rows, width), x dtype, x one element past a 16-byte boundary): a
+# misaligned view (the one-element form), fp32 x at the text tower's rows and
+# at LLaVA's tower's, a ragged width (no whole 16 bytes a row) at many rows
+LN_EXTRA_CASES = [((77, 768), "bf16", True), ((19712, 512), "fp32", False),
+                  ((577, 1024), "fp32", False), ((3000, 100), "bf16", False)]
 CLIP_FORWARDS = 12  # timed bench forwards (after 2 warm-up ones)
 CLIP_TRAIN_STEPS = 10  # optimizer steps of build_trainer -> Trainer.train
 CLIP_TRAIN_SAMPLES = 2560  # seeded (pixels, caption) pairs: one epoch of 10 batches
@@ -1607,11 +1627,11 @@ def norms_kernels(torch, dev, gen, record, norms):
 
 
 def row_norm_checks(torch, dev, gen, norms):
-    """B11's forward and B12 beyond the per-element cases: the library's plans
-    against the wrappers' mirrors at every path shape and the extra cases',
-    in each dtype, aligned and not; two launches bit-identical, CUDA-graph
-    replays equal to them, and one launch counted a call, at every path
-    shape."""
+    """B11's forward, B12, B13 and B10's forward beyond the per-element cases:
+    the library's plans against the wrappers' mirrors at every path shape and
+    the extra cases', in each dtype, aligned and not; two launches
+    bit-identical, CUDA-graph replays equal to them, and one launch counted a
+    call, at every path shape."""
     bf16 = torch.bfloat16
     checked = 0
     for rows, h in RMS_SHAPES + [shape for shape, _, _, _ in RMS_EXTRA_CASES]:
@@ -1628,7 +1648,20 @@ def row_norm_checks(torch, dev, gen, norms):
             mirror, lib = norms.adaln_plan(*shape, aligned), norms.adaln_plan_library(*shape, aligned)
             check(mirror == lib, f"adaln plan {shape} aligned {aligned}: the library's {lib}, "
                                  f"the mirror's {mirror}")
-            checked += 1
+            mirror = norms.fused_adaln_plan(*shape, aligned)
+            lib = norms.fused_adaln_plan_library(*shape, aligned)
+            check(mirror == lib, f"fused_adaln plan {shape} aligned {aligned}: the library's "
+                                 f"{lib}, the mirror's {mirror}")
+            checked += 2
+    for rows, h in [(r, h) for r, h, _ in CLIP_LN_SHAPES] + [sh for sh, _, _ in LN_EXTRA_CASES]:
+        for dtype in (bf16, torch.float32):
+            for aligned in (True, False):
+                es = torch.empty(0, dtype=dtype).element_size()
+                mirror = norms.layer_norm_plan(rows, h, es, aligned)
+                lib = norms.layer_norm_plan_library(rows, h, dtype, aligned)
+                check(mirror == lib, f"layer_norm plan {(rows, h)} {dtype} aligned {aligned}: "
+                                     f"the library's {lib}, the mirror's {mirror}")
+                checked += 1
     print(f"[row norms] {checked} plans: the library's equal the mirrors'", flush=True)
     for rows, h in RMS_SHAPES:
         x = (3 * torch.randn((rows, h), generator=gen, device=dev)).to(bf16)
@@ -1646,7 +1679,8 @@ def row_norm_checks(torch, dev, gen, norms):
     for shape in ADALN_SHAPES:
         b_, _, h_ = shape
         x = (2 * torch.randn(shape, generator=gen, device=dev)).to(bf16)
-        shift, scale = torch.randn((b_, 6 * h_), generator=gen, device=dev).to(bf16).chunk(6, -1)[:2]
+        mod = torch.randn((b_, 6 * h_), generator=gen, device=dev).to(bf16)
+        shift, scale, gate = mod.chunk(6, -1)[:3]
         before = norms.adaptive_layer_norm.launches
         y1, y2 = (norms.adaptive_layer_norm(x, scale, shift) for _ in range(2))
         counted = norms.adaptive_layer_norm.launches - before
@@ -1657,6 +1691,35 @@ def row_norm_checks(torch, dev, gen, norms):
               f"for 2 calls", flush=True)
         check(same and replay and counted == 2, f"adaptive_layer_norm {shape}: {same}, "
                                                 f"{replay}, {counted}")
+        residual = x.flip(-1)
+        before = norms.fused_adaln_scale_residual.launches
+        o1, o2 = (norms.fused_adaln_scale_residual(residual, x, gate, scale, shift)
+                  for _ in range(2))
+        counted = norms.fused_adaln_scale_residual.launches - before
+        same = all(map(torch.equal, o1, o2))
+        replay = replays_agree(
+            torch, lambda: norms.fused_adaln_scale_residual(residual, x, gate, scale, shift), o1)
+        print(f"[row norms] fused_adaln_scale_residual {shape}: {norms.fused_adaln_plan(*shape)} | "
+              f"two launches bit-identical {same}, graph replays equal {replay}; launches "
+              f"counted {counted} for 2 calls", flush=True)
+        check(same and replay and counted == 2, f"fused_adaln_scale_residual {shape}: {same}, "
+                                                f"{replay}, {counted}")
+    for rows, h, span in CLIP_LN_SHAPES:
+        x = (2 * torch.randn((rows, span, h), generator=gen, device=dev)).to(bf16)[:, 0]
+        w = 1 + 0.2 * torch.randn(h, generator=gen, device=dev)
+        b = 0.2 * torch.randn(h, generator=gen, device=dev)
+        before = norms.layer_norm.launches
+        y1, y2 = (norms.layer_norm(x, w, b, 1e-5) for _ in range(2))
+        counted = norms.layer_norm.launches - before
+        same = torch.equal(y1, y2)
+        replay = replays_agree(torch, lambda: (norms.layer_norm(x, w, b, 1e-5),), (y1,))
+        stride = f" (row stride {span * h})" if span > 1 else ""
+        print(f"[row norms] layer_norm {(rows, h)}{stride}: {norms.layer_norm_plan_of(x, w, b)} | "
+              f"two launches bit-identical {same}, graph replays equal {replay}; launches "
+              f"counted {counted} for 2 calls", flush=True)
+        check(same and replay and counted == 2, f"layer_norm {(rows, h)}: {same}, {replay}, "
+                                                f"{counted}")
+        del x, y1, y2
 
 
 def floor_ms(torch, norms, blocks, threads, copies):
@@ -1664,6 +1727,21 @@ def floor_ms(torch, norms, blocks, threads, copies):
     kernel of that plan is: `copies` launches (the kernel's pass through its
     cold copies, at least 10) in one CUDA graph."""
     return cuda_ms(torch, lambda: norms.empty_launch(blocks, threads), iters=copies)
+
+
+def norm_kernel_note(norms, plan, op, fp32=False):
+    """The kernel of csrc/norms.cu that a B13 (op OP_FUSED) or B10-forward
+    (OP_LN, of bf16 or `fp32` rows) plan launches, with ptxas's registers and
+    spills for it (a spill fails the run)."""
+    form = "warp" if plan.form == norms.NORM_WARP else "row"
+    args = [] if op == norms.OP_FUSED else ["f" if fp32 else "13__nv_bfloat16"]
+    args += [] if form == "warp" else [f"Li{plan.vec}E"]
+    args += [f"Li{plan.cpt}E"]
+    name = f"{'fused_adaln_residual' if op == norms.OP_FUSED else 'layer_norm_fwd'}_{form}_kernel"
+    regs, spills = ptxas_counts("norms", f"{name}I{''.join(args)}E")
+    check(spills in ("spills 0 / 0 bytes", "not in this run's build log"),
+          f"{name} {plan}: {spills}")
+    return f"{name} ({plan}); ptxas {regs} registers, {spills}"
 
 
 def offset_copy(torch, t):
@@ -1714,15 +1792,18 @@ def rms_kernels(torch, F, dev, gen, record, norms):
 
 
 def adaln_extra_cases(torch, dev, gen, norms):
-    """B12 at ADALN_EXTRA_CASES, per element (ADALN_SUM) with the control (the
-    plain version without the shift) that must fail."""
+    """B12 and B13 at ADALN_EXTRA_CASES, per element (ADALN_SUM) with the
+    controls (the plain version without the shift, or without the gate) that
+    must fail."""
     dts = {"bf16": torch.bfloat16, "fp32": torch.float32}
     for shape, md, misaligned in ADALN_EXTRA_CASES:
         b_, _, h_ = shape
         x = (2 * torch.randn(shape, generator=gen, device=dev)).to(torch.bfloat16)
+        residual = (2 * torch.randn(shape, generator=gen, device=dev)).to(torch.bfloat16)
         if misaligned:
             x = offset_copy(torch, x)
-        shift, scale = torch.randn((b_, 6 * h_), generator=gen, device=dev).to(dts[md]).chunk(6, -1)[:2]
+        mod = torch.randn((b_, 6 * h_), generator=gen, device=dev).to(dts[md])
+        shift, scale, gate = mod.chunk(6, -1)[:3]
         out = norms.adaptive_layer_norm(x, scale, shift)
         torch.cuda.synchronize()
         ref = norms.adaptive_layer_norm_ref(x, scale, shift)
@@ -1735,7 +1816,50 @@ def adaln_extra_cases(torch, dev, gen, norms):
         check(bool(torch.isfinite(out).all()) and excess <= 0,
               f"adaptive_layer_norm {label}: excess {excess}")
         check(control > 0, f"adaptive_layer_norm {label}: the control passes ({control})")
-        del x, out, ref
+        y, resi = norms.fused_adaln_scale_residual(residual, x, gate, scale, shift)
+        torch.cuda.synchronize()
+        ref_y, ref_r = norms.fused_adaln_scale_residual_ref(residual, x, gate, scale, shift)
+        (ex_y, need_y), (ex_r, need_r) = ulp_gate(y, ref_y, ADALN_SUM), ulp_gate(resi, ref_r,
+                                                                                  ADALN_SUM)
+        ungated = norms.fused_adaln_scale_residual_ref(residual, x, torch.ones_like(gate), scale,
+                                                       shift)
+        control = max(ulp_gate(ungated[0], ref_y, ADALN_SUM)[0],
+                      ulp_gate(ungated[1], ref_r, ADALN_SUM)[0])
+        print(f"[sd3 kernels] fused_adaln_scale_residual {label}: excess y {ex_y:.3e} resi "
+              f"{ex_r:.3e} (least c {max(need_y, need_r):.2e}); control without the gate: excess "
+              f"{control:.3e} (must be > 0) | "
+              f"{norms.fused_adaln_plan_of(residual, x, gate, scale, shift)}", flush=True)
+        check(bool(torch.isfinite(y).all() and torch.isfinite(resi).all())
+              and max(ex_y, ex_r) <= 0, f"fused_adaln_scale_residual {label}: {ex_y}, {ex_r}")
+        check(control > 0, f"fused_adaln_scale_residual {label}: the control passes ({control})")
+        del x, residual, out, ref, y, resi, ref_y, ref_r, ungated
+
+
+def ln_extra_cases(torch, dev, gen, norms):
+    """B10's forward at LN_EXTRA_CASES, per element (LN_SUM) with the control
+    (the variance without the mean subtracted) that must fail."""
+    dts = {"bf16": torch.bfloat16, "fp32": torch.float32}
+    for (rows, h), xd, misaligned in LN_EXTRA_CASES:
+        scale = 0.5 + 2.5 * torch.rand((rows, 1), generator=gen, device=dev)
+        x = (torch.randn((rows, h), generator=gen, device=dev) * scale
+             + 2 * torch.randn((rows, 1), generator=gen, device=dev)).to(dts[xd])
+        if misaligned:
+            x = offset_copy(torch, x)
+        w = 1 + 0.2 * torch.randn(h, generator=gen, device=dev)
+        b = 0.2 * torch.randn(h, generator=gen, device=dev)
+        y = norms.layer_norm(x, w, b, 1e-5)
+        torch.cuda.synchronize()
+        ref = norms.layer_norm_ref(x.float(), w, b, 1e-5)
+        excess, need = ulp_gate(y, ref, LN_SUM)
+        control, _ = ulp_gate(ln_no_mean(x.float(), w, b, 1e-5), ref, LN_SUM)
+        label = f"{(rows, h)} {xd}{', x misaligned' if misaligned else ''}"
+        print(f"[clip kernels] layer_norm {label}: excess {excess:.3e} (least c {need:.2e}); "
+              f"control, the variance without the mean subtracted: excess {control:.3e} (must be "
+              f"> 0) | {norms.layer_norm_plan_of(x, w, b)}", flush=True)
+        check(bool(torch.isfinite(y).all()) and y.dtype == x.dtype and excess <= 0,
+              f"layer_norm {label}: excess {excess}")
+        check(control > 0, f"layer_norm {label}: the control passes ({control})")
+        del x, y, ref
 
 
 def clip_kernels(torch, F, dev, gen, record, norms):
@@ -1790,15 +1914,19 @@ def clip_kernels(torch, F, dev, gen, record, norms):
         check(ctrl_dx > 0 and ctrl_dwdb > LN_DW_TOL,
               f"layer_norm_backward {shape}: a control passes ({ctrl_dx}, {ctrl_dwdb})")
         w16, b16 = w.to(bf16), b.to(bf16)
-        ms, plain_ms = timed_pair(torch, cold(lambda x_: norms.layer_norm(x_, w, b, 1e-5), x,
-                                              nbytes(x)),
+        kernel = cold(lambda x_: norms.layer_norm(x_, w, b, 1e-5), x, nbytes(x))
+        ms, plain_ms = timed_pair(torch, kernel,
                                   cold(lambda x_: norms.layer_norm_ref(x_, w, b, 1e-5), x,
                                        nbytes(x)))
         lib_ms = library_ms(torch, cold(lambda x_: F.layer_norm(x_, (h,), w16, b16, 1e-5), x,
                                         nbytes(x)))
+        plan = norms.layer_norm_plan_of(x, w, b)
+        floor = floor_ms(torch, norms, plan.nb, plan.threads, kernel.copies)
+        copy = cuda_ms(torch, cold(lambda x_: torch.empty_like(x_).copy_(x_), x, nbytes(x)))
         record("clip kernels", "layer_norm", shape, (y.float() - ref).abs().max().item(), ms,
                plain_ms, lib_ms, bound(nbytes(x, w, b, y), 8 * x.numel(), "fp32"),
-               " | library: F.layer_norm, bf16 weight and bias")
+               f" | library: F.layer_norm, bf16 weight and bias | "
+               f"{norm_kernel_note(norms, plan, norms.OP_LN)}", floor=floor, copy=copy)
         ms, plain_ms = timed_pair(torch, lambda: norms.layer_norm_backward(x, w, g, 1e-5),
                                   lambda: norms.layer_norm_backward_ref(x, w, g, 1e-5))
         lib_ms = sum(backward_ms(
@@ -3526,14 +3654,21 @@ def main():
         check(bool(torch.isfinite(y).all() and torch.isfinite(resi).all())
               and max(ex_y, ex_r) <= 0, f"fused_adaln_scale_residual {shape}: {ex_y}, {ex_r}")
         check(control > 0, f"fused_adaln_scale_residual {shape}: the control passes ({control})")
+        kernel = cold(lambda t: norms_mod.fused_adaln_scale_residual(t[0], t[1], gate, scale,
+                                                                     shift), rx, nbytes(rx))
         ms, plain_ms = timed_pair(
-            torch, cold(lambda t: norms_mod.fused_adaln_scale_residual(t[0], t[1], gate, scale,
-                                                                       shift), rx, nbytes(rx)),
+            torch, kernel,
             cold(lambda t: norms_mod.fused_adaln_scale_residual_ref(t[0], t[1], gate, scale,
                                                                     shift), rx, nbytes(rx)))
+        plan = norms_mod.fused_adaln_plan_of(residual, x, gate, scale, shift)
+        floor = floor_ms(torch, norms_mod, b_ * plan.nb, plan.threads, kernel.copies)
+        # the residual and x read, as many bytes written: one copy_ of both
+        copy = cuda_ms(torch, cold(lambda t: torch.empty_like(t).copy_(t), rx, nbytes(rx)))
         # no single PyTorch call computes the gated residual and the adaLN
         record("sd3 kernels", "fused_adaln_scale_residual", shape, err, ms, plain_ms, None,
-               bound(nbytes(rx, gate, scale, shift, y, resi), 10 * x.numel(), "fp32"))
+               bound(nbytes(rx, gate, scale, shift, y, resi), 10 * x.numel(), "fp32"),
+               f" | {norm_kernel_note(norms_mod, plan, norms_mod.OP_FUSED)}", floor=floor,
+               copy=copy)
         del rx, mod, out, ref, y, resi, ref_y, ref_resi, ungated
     adaln_extra_cases(torch, dev, gen, norms_mod)
     flash_case("sd3 kernels", SD3_FLASH_SHAPE)
@@ -3900,6 +4035,7 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     clip_kernels(torch, F, dev, gen, record, norms_mod)
+    ln_extra_cases(torch, dev, gen, norms_mod)
     every = dict(all_counters, rms_norm_backward=norms_mod.rms_norm_backward,
                  flash_fwd_lse=attn_mod.flash_fwd_lse, flash_bwd_dkv=attn_mod.flash_bwd_dkv,
                  flash_bwd_dq=attn_mod.flash_bwd_dq,
@@ -3935,7 +4071,8 @@ def main():
                 "bound_by": first["bound"][1], "library_ms": first["library_ms"],
                 "shape": list(first["shape"]),
                 **({"core": first["core"], "tflops": first["tflops"]} if "core" in first else {}),
-                **({"floor_ms": first["floor_ms"]} if "floor_ms" in first else {})}
+                **({"floor_ms": first["floor_ms"]} if "floor_ms" in first else {}),
+                **({"copy_ms": first["copy_ms"]} if "copy_ms" in first else {})}
 
     def sdxl(name):
         return {"bf16": launches_bf16[name], "a8w8": launches_a8w8[name],
@@ -3979,7 +4116,7 @@ def main():
               dict(llava("rms_norm"), **llama_phases("rms_norm"))),
         entry("adaptive_layer_norm", "cuda", "paddlemix_tpu_torch/csrc/norms.cu",
               "paddlemix_tpu/ops/norms.py:261", {"sd3": launches_sd3["adaptive_layer_norm"]}),
-        entry("fused_adaln_scale_residual", "triton", "paddlemix_tpu_torch/ops/norms.py",
+        entry("fused_adaln_scale_residual", "cuda", "paddlemix_tpu_torch/csrc/norms.cu",
               "paddlemix_tpu/ops/norms.py:289",
               {"sd3": launches_sd3["fused_adaln_scale_residual"]}),
         entry("decode_attention_int8", "cuda", "paddlemix_tpu_torch/csrc/decode_attention.cu",
@@ -3994,7 +4131,7 @@ def main():
               "paddlemix_tpu/ops/attention.py:422", train_phases("flash_bwd_dq")),
         entry("rms_norm_backward", "triton", "paddlemix_tpu_torch/ops/norms.py",
               "paddlemix_tpu/ops/norms.py:172", {"train": launches_tr["rms_norm_backward"]}),
-        entry("layer_norm", "triton", "paddlemix_tpu_torch/ops/norms.py",
+        entry("layer_norm", "cuda", "paddlemix_tpu_torch/csrc/norms.cu",
               "paddlemix_tpu/ops/norms.py:204",
               {"bf16": launches_bf16["layer_norm"], "a8w8": launches_a8w8["layer_norm"],
                "a8w8_int8_attn": launches_i8attn["layer_norm"], "sd15": launches_sd15["layer_norm"],

@@ -45,38 +45,49 @@
 // order, so two launches are bit-identical. The tickets are one buffer a
 // device: two of these launches must not run at once on two streams.
 //
-// B11's forward (RMSNorm) and B12 (adaLN) are one family of row kernels.
-// B11 replaces `_rms_norm_pallas_fwd_impl` / `_rms_fwd_kernel`: y = x
-// rsqrt(mean(x^2) + eps) w, in fp32, rounded once to x's dtype. B12 replaces
+// B11's forward (RMSNorm), B12 (adaLN), B13 (fused adaLN + gated residual)
+// and B10's forward (LayerNorm) are one family of row kernels. B11 replaces
+// `_rms_norm_pallas_fwd_impl` / `_rms_fwd_kernel`: y = x rsqrt(mean(x^2) +
+// eps) w, in fp32, rounded once to x's dtype. B12 replaces
 // `_adaln_pallas_fwd_impl` / `_adaln_kernel`: LN(x) (1 + scale[b]) + shift[b]
 // over x (B, S, H), the variance two-pass (about the mean) in fp32, rounded
-// once. Both do a few flops an element, so the bytes bound them: x read once,
-// y written once, and every per-column vector (B11's weight, B12's 1 + scale
-// and shift) loaded into registers once a block and kept there for all of
-// the block's rows. A thread holds 16-byte chunks of a row where every
-// pointer, row stride and width allows it, else single elements (the same
-// kernels). Plans (`rms_plan`, `ada_plan`, mirrored by ops/norms.py
-// `rms_norm_plan` and `adaln_plan`):
-//   - few rows (B11's decode row and T5's 77, B12's 308 context rows): a
-//     block a row, so the grid spreads over the SMs. Each thread issues all of
-//     its loads of x and of the per-column vectors before it uses any: one
-//     memory round trip. The moments are warp shuffles, then one
-//     shared-memory exchange between the warps (B12: each warp's sum, mean
-//     and squared deviations from that mean, combined); no cluster (a
-//     cluster's barrier chain costs more than such a row).
-//   - many rows (B11 at 608 and 4,096 rows, B12's 8,192 image rows):
+// once. B13 replaces `_fused_adaln_residual_pallas` /
+// `_fused_adaln_residual_kernel`: resi = residual + gate[b] x in fp32, then
+// B12's norm over that unrounded sum; resi and y rounded once each. B10's
+// forward replaces `_layer_norm_pallas_fwd_impl` / `_ln_fwd_kernel`: (x -
+// mean) rsqrt(var + eps) w + b, two-pass, in fp32, rounded once; x read in
+// place at its row stride. All do a few flops an element, so the bytes bound
+// them: each input row read once, each output row written once, and every
+// per-column vector loaded once a block (B11's weight and B12's 1 + scale
+// and shift kept in registers for all of the block's rows). A thread holds
+// 16-byte chunks of a row where every pointer, row stride and width allows
+// it, else single elements (the same kernels). Plans (`rms_plan`, `ada_plan`,
+// `norm_plan`, mirrored by ops/norms.py `rms_norm_plan`, `adaln_plan`,
+// `fused_adaln_plan` and `layer_norm_plan`):
+//   - few rows (B11's decode row and T5's 77, B12's and B13's 308 context
+//     rows, B10's 77, 256 and 577 tower rows): a block a row, so the grid
+//     spreads over the SMs. Each thread issues all of its loads of the row
+//     and of the per-column vectors before it uses any: one memory round
+//     trip. The moments are warp shuffles, then shared-memory exchanges
+//     between the warps (B11: the sums of squares; B12: each warp's sum,
+//     mean and squared deviations from that mean, combined; B13 and B10: the
+//     sums, then the squared deviations from the mean, two-pass); no cluster
+//     (a cluster's barrier chain costs more than such a row). B13 stores
+//     resi as soon as it is formed.
+//   - many rows: B11 (608 and 4,096 rows) and B12 (8,192 image rows) run
 //     persistent blocks, each a run of rows (B12's within one batch element,
 //     so one modulation row serves them all). B11's block takes a row across
 //     its warps; B12's warp takes its own rows, the moments warp shuffles with
 //     no barrier. The next row's loads are issued into a second set of
-//     registers before the current row reduces. (A per-thread cp.async ring
-//     of up to 6 rows in shared memory and a deeper register ring were
-//     measured slower on the card: the ring's copies and the rings' registers
-//     cost more than the rows they kept in flight.)
-// Every sum runs in a fixed order (a thread's elements in order, a warp's
-// xor-shuffle tree, the warps in order), and a row's arithmetic does not
-// depend on the block it falls to: launches and graph replays are
-// bit-identical.
+//     registers before the current row reduces. B13's 8,192 image rows stay
+//     a block a row (8,192 small blocks), and B10's CLIP rows (50,432 and
+//     19,712, at most 4 chunks a lane) run a warp a row in blocks of 4 warps
+//     on rows of one batch element, the affine read after the moments: small
+//     blocks of few registers, so that an SM holds many rows in flight. (A
+//     per-thread cp.async ring of up to 6 rows in shared memory, a deeper
+//     register ring, and for B13 and B10 a per-warp ring of 1-D TMA bulk
+//     copies, persistent or two blocks an SM, several rows a block or a warp
+//     and bounded registers were measured slower on the card; PERF.md §6.)
 #include <cooperative_groups.h>
 #include <cuda.h>  // CUtensorMap and its enums; libcuda itself is reached through the runtime
 #include <cuda_bf16.h>
@@ -356,6 +367,47 @@ bool ada_plan(int B, int S, int h, bool aligned, AdalnPlan* p) {
     p->form = ADALN_ROW;
     p->cpt = 1;
     while (p->cpt * ADALN_THREADS < nvec) p->cpt *= 2;
+    p->threads = (cdiv(nvec, p->cpt) + 31) / 32 * 32;
+    p->rpb = 1;
+  }
+  p->nb = cdiv(S, p->rpb);
+  return true;
+}
+
+// LayerNorm's forward (B10) and fused adaLN + gated residual (B13), two forms.
+// LayerNorm's many rows (above NR_ROW_BLOCKS an SM) in the 16-byte form of a
+// row of at most 4 chunks a lane (the CLIP rows): the warp form, a
+// warp a row (chunk k 32 + lane of a lane, `cpt` chunks), a block of NR_WARPS
+// warps on as many rows of one batch element, as many blocks as the rows
+// need: small blocks, so that an SM holds many rows in flight. Otherwise the
+// row form, a block a row (B13's rows at any count, the few rows of the text
+// and vision towers), `cpt` chunks a thread (chunk tid + k threads). The plan
+// has adaLN's fields (AdalnPlan).
+constexpr int OP_LN = 0, OP_FUSED = 1;        // B10's forward, B13
+constexpr int NR_WARPS = 4;                   // warp form: warps (rows) a block
+constexpr int NR_ROW_BLOCKS = 8;              // rows an SM that take a block each
+constexpr int NR_THREADS = 256;               // a row-form block's threads at most
+constexpr int NR_LANE_CPT[4] = {1, 2, 3, 4};  // chunks a lane, warp form
+constexpr int NR_WARP = 0, NR_ROW = 1;
+// `aligned`: every row pointer and per-column vector 16-byte aligned, every
+// row stride (x's, the modulation rows') a multiple of 16 bytes.
+bool norm_plan(int op, int B, int S, int h, int es, bool aligned, AdalnPlan* p) {
+  if (B < 1 || S < 1 || h < 1 || h > (op == OP_FUSED ? ADALN_MAX_WIDTH : LN_MAX_WIDTH)) return false;
+  p->vec = aligned && (h * es) % 16 == 0 ? 16 / es : 1;
+  const int nvec = h / p->vec;
+  const bool many = p->vec > 1 && (long long)B * S > (long long)SMS * NR_ROW_BLOCKS;
+  int lane_cpt = 0;
+  for (int c : NR_LANE_CPT)
+    if (!lane_cpt && c * 32 >= nvec) lane_cpt = c;
+  if (many && lane_cpt && op == OP_LN) {
+    p->form = NR_WARP;
+    p->cpt = lane_cpt;
+    p->rpb = S < NR_WARPS ? S : NR_WARPS;
+    p->threads = p->rpb * 32;
+  } else {
+    p->form = NR_ROW;
+    p->cpt = 1;
+    while (p->cpt * NR_THREADS < nvec) p->cpt *= 2;
     p->threads = (cdiv(nvec, p->cpt) + 31) / 32 * 32;
     p->rpb = 1;
   }
@@ -1238,6 +1290,213 @@ __global__ void __launch_bounds__(ADALN_THREADS) adaln_row_kernel(AdalnArgs a) {
   }
 }
 
+// LayerNorm's forward (OP_LN) and fused adaLN + gated residual (OP_FUSED).
+struct NormArgs {
+  const void* x;      // rows xs elements apart, unit column stride
+  const void* res;    // B13's residual, contiguous
+  void* y;            // contiguous
+  void* resi;         // B13's residual sum, contiguous
+  const void* v[3];   // per-column vectors: LayerNorm's w and b; B13's gate, scale and shift
+  long long vs[3];    // their row strides from one batch element to the next (elements)
+  int vdtype;         // dtype of the vectors (0 fp32, 1 bf16, 2 fp16)
+  int S;              // rows a batch element
+  int h;
+  long long xs;
+  int nb;             // blocks a batch element
+  int rpb;            // rows a block
+  float eps;
+};
+
+// Vector j's VEC values at columns [col, col + VEC) of batch element b, in
+// fp32: B13's scale (j 1) as 1 + scale.
+template <int OP, int VEC>
+__device__ __forceinline__ void load_vector(const NormArgs& a, int j, int b, long long col,
+                                            float (&v)[VEC]) {
+  load_params<VEC>(a.v[j], a.vdtype, b * a.vs[j] + col, v);
+  if (OP == OP_FUSED && j == 1) {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) v[e] = 1.f + v[e];
+  }
+}
+
+// The fp32 value a row is normalised over: x (LayerNorm), or residual + gate
+// x (B13's sum, never rounded before the moments).
+template <int OP>
+__device__ __forceinline__ float norm_input(float res, float x, float gate) {
+  if constexpr (OP == OP_FUSED) return res + gate * x;
+  return x;
+}
+
+// B13's resi at chunk c of a row: the sum rounded once, stored as soon as it
+// is formed (before the moments), as the JAX kernel stores it.
+template <int OP, typename T, int VEC>
+__device__ __forceinline__ void store_sum(const NormArgs& a, long long row, int nvec, int c,
+                                          const float (&v)[VEC]) {
+  if constexpr (OP == OP_FUSED) {
+    Pack<T, VEC> out;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) out.v[e] = from_f<T>(v[e]);
+    static_cast<Pack<T, VEC>*>(a.resi)[row * nvec + c] = out;
+  }
+}
+
+// The affine's vectors at chunk c of batch element b's row: the multiplier
+// (LayerNorm's w, B13's 1 + scale) and the offset (b, shift).
+template <int OP, int VEC>
+__device__ __forceinline__ void load_affine(const NormArgs& a, int b, int c, float (&aff)[2][VEC]) {
+  constexpr int MUL = OP == OP_FUSED ? 1 : 0;
+  load_vector<OP, VEC>(a, MUL, b, (long long)c * VEC, aff[0]);
+  load_vector<OP, VEC>(a, MUL + 1, b, (long long)c * VEC, aff[1]);
+}
+
+// y at chunk c of a row: (v - mean) rstd times the multiplier plus the
+// offset, rounded once.
+template <typename T, int VEC>
+__device__ __forceinline__ void store_output(const NormArgs& a, long long row, int nvec, int c,
+                                             const float (&v)[VEC], float mean, float rstd,
+                                             const float (&aff)[2][VEC]) {
+  Pack<T, VEC> out;
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) out.v[e] = from_f<T>((v[e] - mean) * rstd * aff[0][e] + aff[1][e]);
+  static_cast<Pack<T, VEC>*>(a.y)[row * nvec + c] = out;
+}
+
+// The row form: block (b, j) takes row j of batch element b; thread tid holds
+// chunks tid + k blockDim.x and issues all of its loads (the row's, the
+// affine's vectors and B13's gate) before it uses any. The moments two-pass
+// over the block, as the plain version takes them: each warp's sum by
+// shuffles, an exchange, the mean from the warps' sums in warp order; then
+// each warp's squared deviations from that mean, a second exchange. (One
+// exchange of each warp's sum, mean and squared deviations from it, combined
+// as adaln_row_kernel does, read 24 words a thread: slower.)
+template <int OP, typename T, int VEC, int CPT>
+__device__ __forceinline__ void norm_row(const NormArgs& a) {
+  using P = Pack<T, VEC>;
+  constexpr int W = NR_THREADS / 32;
+  __shared__ float sums[2][W];  // each warp's sum, then its squared deviations from the mean
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32, warps = blockDim.x / 32;
+  const int b = blockIdx.x / a.nb;
+  const long long row = blockIdx.x;
+  const int nvec = a.h / VEC;
+  const P* x = reinterpret_cast<const P*>(static_cast<const T*>(a.x) + row * a.xs);
+  P xin[CPT], rin[CPT];
+  float g[CPT][VEC];        // B13's gate
+  float aff[CPT][2][VEC];  // the affine's vectors
+#pragma unroll
+  for (int k = 0; k < CPT; ++k) {
+    const int c = tid + k * int(blockDim.x);
+    if (c < nvec) {
+      xin[k] = x[c];
+      if constexpr (OP == OP_FUSED) {
+        rin[k] = static_cast<const P*>(a.res)[row * nvec + c];
+        load_vector<OP, VEC>(a, 0, b, (long long)c * VEC, g[k]);
+      }
+      load_affine<OP, VEC>(a, b, c, aff[k]);
+    }
+  }
+  float v[CPT][VEC];
+  float s = 0.f;
+#pragma unroll
+  for (int k = 0; k < CPT; ++k)
+    if (tid + k * int(blockDim.x) < nvec) {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        v[k][e] = norm_input<OP>(OP == OP_FUSED ? to_f<T>(rin[k].v[e]) : 0.f, to_f<T>(xin[k].v[e]),
+                                 OP == OP_FUSED ? g[k][e] : 0.f);
+        s += v[k][e];
+      }
+      store_sum<OP, T, VEC>(a, row, nvec, tid + k * int(blockDim.x), v[k]);
+    }
+  const float sw = warp_sum(s);
+  if (lane == 0) sums[0][warp] = sw;
+  __syncthreads();
+  const float inv_h = 1.f / float(a.h);
+  const float mean = warps_sum<W>(sums[0], warps) * inv_h;
+  float q = 0.f;
+#pragma unroll
+  for (int k = 0; k < CPT; ++k)
+    if (tid + k * int(blockDim.x) < nvec)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const float d = v[k][e] - mean;
+        q += d * d;
+      }
+  q = warp_sum(q);
+  if (lane == 0) sums[1][warp] = q;
+  __syncthreads();
+  const float rstd = rsqrtf(warps_sum<W>(sums[1], warps) * inv_h + a.eps);
+#pragma unroll
+  for (int k = 0; k < CPT; ++k) {
+    const int c = tid + k * int(blockDim.x);
+    if (c < nvec) store_output<T, VEC>(a, row, nvec, c, v[k], mean, rstd, aff[k]);
+  }
+}
+
+// LayerNorm's warp form: block (b, j) takes rows j rpb + warp of batch
+// element b, a row a warp; lane l holds chunks k 32 + l of the row and issues
+// all of its loads of the row before it uses any. The mean and the
+// variance (two-pass) are warp shuffles; no barrier. The affine's vectors are
+// read after the moments, so that no register holds them while the row is in
+// flight: small blocks of few registers, so that an SM holds many rows.
+template <typename T, int CPT>
+__device__ __forceinline__ void norm_warp(const NormArgs& a) {
+  constexpr int VEC = 16 / sizeof(T);
+  using P = Pack<T, VEC>;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int b = blockIdx.x / a.nb, r = blockIdx.x % a.nb * a.rpb + warp;
+  if (r >= a.S) return;
+  const long long row = (long long)b * a.S + r;
+  const int nvec = a.h / VEC;
+  const P* x = reinterpret_cast<const P*>(static_cast<const T*>(a.x) + row * a.xs);
+  P xin[CPT];
+#pragma unroll
+  for (int k = 0; k < CPT; ++k)
+    if (k * 32 + lane < nvec) xin[k] = x[k * 32 + lane];
+  float v[CPT][VEC];
+  float s = 0.f;
+#pragma unroll
+  for (int k = 0; k < CPT; ++k)
+    if (k * 32 + lane < nvec)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        v[k][e] = to_f<T>(xin[k].v[e]);
+        s += v[k][e];
+      }
+  const float inv_h = 1.f / float(a.h);
+  const float mean = warp_sum(s) * inv_h;
+  float q = 0.f;
+#pragma unroll
+  for (int k = 0; k < CPT; ++k)
+    if (k * 32 + lane < nvec)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const float d = v[k][e] - mean;
+        q += d * d;
+      }
+  const float rstd = rsqrtf(warp_sum(q) * inv_h + a.eps);
+#pragma unroll
+  for (int k = 0; k < CPT; ++k)
+    if (k * 32 + lane < nvec) {
+      float aff[2][VEC];
+      load_affine<OP_LN, VEC>(a, b, k * 32 + lane, aff);
+      store_output<T, VEC>(a, row, nvec, k * 32 + lane, v[k], mean, rstd, aff);
+    }
+}
+
+// The kernels, by name (a profile tells B10's from B13's by it).
+template <typename T, int CPT>
+__global__ void __launch_bounds__(NR_WARPS * 32) layer_norm_fwd_warp_kernel(NormArgs a) {
+  norm_warp<T, CPT>(a);
+}
+template <typename T, int VEC, int CPT>
+__global__ void __launch_bounds__(NR_THREADS) layer_norm_fwd_row_kernel(NormArgs a) {
+  norm_row<OP_LN, T, VEC, CPT>(a);
+}
+template <int VEC, int CPT>
+__global__ void __launch_bounds__(NR_THREADS) fused_adaln_residual_row_kernel(NormArgs a) {
+  norm_row<OP_FUSED, __nv_bfloat16, VEC, CPT>(a);
+}
+
 // An empty kernel: the floor of a launch shape, timed as the kernels are.
 __global__ void empty_kernel() {}
 
@@ -1446,6 +1705,48 @@ int adaln_dispatch(const AdalnPlan& p, const AdalnArgs& a, int B, cudaStream_t s
   return int(cudaErrorInvalidValue);
 }
 
+// f(std::integral_constant<int, C>{}) for the compiled chunk count C == cpt.
+template <typename F>
+int with_cpt(int cpt, F&& f) {
+  switch (cpt) {
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 3: return f(std::integral_constant<int, 3>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 8: return f(std::integral_constant<int, 8>{});
+  }
+  return int(cudaErrorInvalidValue);
+}
+
+// The kernel of a plan: LayerNorm's warp form's chunk counts, the row form's powers
+// of two up to its widest row's (16-byte chunks: B13 and bf16 LayerNorm 1,
+// fp32 LayerNorm 2; single elements 8).
+template <int OP, typename T>
+int norm_dispatch(const AdalnPlan& p, const NormArgs& a, int B, cudaStream_t st) {
+  constexpr int VEC = 16 / sizeof(T);
+  const int grid = B * p.nb;
+  return with_cpt(p.cpt, [&](auto c) -> int {
+    constexpr int C = decltype(c)::value;
+    if (p.form == NR_WARP) {
+      if constexpr (OP == OP_LN && C <= 4)
+        return row_launch<layer_norm_fwd_warp_kernel<T, C>>(grid, p.threads, st, a);
+    } else if (p.vec > 1) {
+      if constexpr (C <= (sizeof(T) == 4 ? 2 : 1)) {
+        if constexpr (OP == OP_FUSED)
+          return row_launch<fused_adaln_residual_row_kernel<VEC, C>>(grid, p.threads, st, a);
+        else
+          return row_launch<layer_norm_fwd_row_kernel<T, VEC, C>>(grid, p.threads, st, a);
+      }
+    } else if constexpr ((C & (C - 1)) == 0 && C <= 8) {
+      if constexpr (OP == OP_FUSED)
+        return row_launch<fused_adaln_residual_row_kernel<1, C>>(grid, p.threads, st, a);
+      else
+        return row_launch<layer_norm_fwd_row_kernel<T, 1, C>>(grid, p.threads, st, a);
+    }
+    return int(cudaErrorInvalidValue);
+  });
+}
+
 // Launches go to `device`: the calling thread's current device is set for the
 // launch and restored after it.
 struct DeviceGuard {
@@ -1631,6 +1932,78 @@ extern "C" int adaln_cuda(const void* x, const void* scale, const void* shift, i
   const AdalnArgs a{x, scale, shift, y, mdtype, S, h, ss, hs, p.nb, p.rpb, eps};
   const DeviceGuard guard(device);
   return adaln_dispatch(p, a, B, static_cast<cudaStream_t>(stream));
+}
+
+static int norm_plan_ints(int op, int B, int S, int h, int es, int aligned, int* plan) {
+  AdalnPlan p;
+  if (!norm_plan(op, B, S, h, es, aligned != 0, &p)) return -1;
+  const int v[ADALN_PLAN_INTS] = {p.form, p.vec, p.cpt, p.threads, p.rpb, p.nb};
+  for (int i = 0; i < ADALN_PLAN_INTS; ++i) plan[i] = v[i];
+  return 0;
+}
+
+static AdalnPlan plan_of(const int* v) { return AdalnPlan{v[0], v[1], v[2], v[3], v[4], v[5]}; }
+
+// B13's plan of x (B, S, h) bf16 (aligned: the residual, x, y, resi, gate,
+// scale and shift 16-byte aligned, the modulation row strides multiples of 16
+// bytes) into plan[6] (AdalnPlan's fields in order). Returns 0, or -1 where no
+// plan takes the shape.
+extern "C" int fused_adaln_plan(int B, int S, int h, int aligned, int* plan) {
+  return norm_plan_ints(OP_FUSED, B, S, h, 2, aligned, plan);
+}
+
+// (y, resi) of B13: resi = residual + gate x in fp32, y = LN(resi) (1 + scale)
+// + shift, each rounded once to bf16; residual, x, y and resi (B, S, h) bf16,
+// contiguous; gate, scale and shift (B, h) of mdtype with unit column stride
+// and row strides gs / ss / hs (elements); on CUDA device `device`. plan: the
+// caller's fused_adaln_plan, which must equal the library's. Returns the
+// cudaError_t of the launch, or PLAN_MISMATCH.
+extern "C" int fused_adaln_cuda(const void* res, const void* x, const void* gate, const void* scale,
+                                const void* shift, int mdtype, void* y, void* resi, int B, int S,
+                                int h, long long gs, long long ss, long long hs, float eps,
+                                const int* plan, int device, void* stream) {
+  const int mes = es_of(mdtype);
+  const bool aligned = aligned16(res) && aligned16(x) && aligned16(y) && aligned16(resi) &&
+                       aligned16(gate) && aligned16(scale) && aligned16(shift) &&
+                       (gs * mes) % 16 == 0 && (ss * mes) % 16 == 0 && (hs * mes) % 16 == 0;
+  int own[ADALN_PLAN_INTS];
+  if (fused_adaln_plan(B, S, h, aligned, own) != 0 || !same_plan(own, plan, ADALN_PLAN_INTS))
+    return PLAN_MISMATCH;
+  const AdalnPlan p = plan_of(own);
+  const NormArgs a{x, res, y, resi, {gate, scale, shift}, {gs, ss, hs}, mdtype, S, h, h, p.nb,
+                   p.rpb, eps};
+  const DeviceGuard guard(device);
+  return norm_dispatch<OP_FUSED, __nv_bfloat16>(p, a, B, static_cast<cudaStream_t>(stream));
+}
+
+// LayerNorm's forward plan of `rows` rows of width h, of `dtype` (aligned: x,
+// y, w and b 16-byte aligned, x's row stride a multiple of 16 bytes) into
+// plan[6]. Returns 0, or -1 where no plan takes the shape.
+extern "C" int layer_norm_plan(int rows, int h, int dtype, int aligned, int* plan) {
+  return norm_plan_ints(OP_LN, 1, rows, h, es_of(dtype), aligned, plan);
+}
+
+// LayerNorm of x (rows, h) of `dtype` (0 fp32, 1 bf16) with row stride xs
+// (elements, unit column stride) into y (rows, h) contiguous: (x - mean)
+// rsqrt(var + eps) w + b in fp32, rounded once; w and b (h,) of wdtype; on
+// CUDA device `device`. plan: the caller's layer_norm_plan, which must equal
+// the library's. Returns the cudaError_t of the launch, or PLAN_MISMATCH.
+extern "C" int layer_norm_cuda(const void* x, const void* w, const void* b, int wdtype, void* y,
+                               int dtype, int rows, int h, long long xs, float eps,
+                               const int* plan, int device, void* stream) {
+  const bool aligned = aligned16(x) && aligned16(y) && aligned16(w) && aligned16(b) &&
+                       (xs * es_of(dtype)) % 16 == 0;
+  if (dtype == 2) return int(cudaErrorInvalidValue);  // bf16 or fp32 rows
+  int own[ADALN_PLAN_INTS];
+  if (layer_norm_plan(rows, h, dtype, aligned, own) != 0 || !same_plan(own, plan, ADALN_PLAN_INTS))
+    return PLAN_MISMATCH;
+  const AdalnPlan p = plan_of(own);
+  const NormArgs a{x, nullptr, y, nullptr, {w, b, nullptr}, {0, 0, 0}, wdtype, rows, h, xs, p.nb,
+                   p.rpb, eps};
+  const DeviceGuard guard(device);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return dtype == 0 ? norm_dispatch<OP_LN, float>(p, a, 1, st)
+                    : norm_dispatch<OP_LN, __nv_bfloat16>(p, a, 1, st);
 }
 
 // `count` launches of an empty kernel of `blocks` x `threads` on CUDA device

@@ -248,10 +248,20 @@ def _norms_lib():
     lib.adaln_cuda.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p] + \
         [ctypes.c_int] * 3 + [ctypes.c_longlong] * 2 + \
         [ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib.fused_adaln_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.fused_adaln_cuda.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] + \
+        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 3 + \
+        [ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib.layer_norm_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.layer_norm_cuda.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p] + \
+        [ctypes.c_int] * 3 + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p, ctypes.c_int,
+                              ctypes.c_void_p]
     lib.norms_empty_launch.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
     for fn in (lib.group_norm_plan, lib.layer_norm_bwd_plan, lib.group_norm_cuda,
                lib.layer_norm_bwd_cuda, lib.norms_max_clusters, lib.rms_norm_plan,
-               lib.rms_norm_cuda, lib.adaln_plan, lib.adaln_cuda, lib.norms_empty_launch):
+               lib.rms_norm_cuda, lib.adaln_plan, lib.adaln_cuda, lib.fused_adaln_plan,
+               lib.fused_adaln_cuda, lib.layer_norm_plan, lib.layer_norm_cuda,
+               lib.norms_empty_launch):
         fn.restype = ctypes.c_int
     return lib
 
@@ -716,11 +726,14 @@ rms_norm_backward.launches = 0  # backward calls that launched the kernels (CUDA
 # B12 is csrc/norms.cu's `adaln_warp_kernel` (many rows: a warp a row, a
 # block's rows a run within one batch element, 1 + scale[b] and shift[b] held
 # in registers for all of them) and `adaln_row_kernel` (few rows: a block a
-# row); `adaln_plan` mirrors its plan. B13 is a Triton kernel, one
-# program a row, its modulation rows read per program from L2. The JAX package
-# sends rows not a multiple of 128 wide, or fewer than 64 rows, to XLA, which
-# fuses the norm into its neighbours; eager PyTorch has no such fusion, so the
-# port launches the kernel for every call on the card.
+# row); `adaln_plan` mirrors its plan. B13 is `fused_adaln_residual_row_kernel`
+# (a block a row, SD3's 308 context and 8,192 image rows alike: every load of
+# the row and of the modulation rows issued first, resi stored as soon as it
+# is formed, the moments two-pass over the block), of the family it shares
+# with LayerNorm's forward; `fused_adaln_plan` mirrors its plan. The
+# JAX package sends rows not a multiple of 128 wide, or fewer than 64 rows, to
+# XLA, which fuses the norm into its neighbours; eager PyTorch has no such
+# fusion, so the port launches the kernel for every call on the card.
 _ADALN_MAX_WIDTH = 2048  # the widest row a warp holds (8 chunks a lane); SD3-medium's is 1536
 # adaLN's plan, a mirror of csrc/norms.cu's `ada_plan` (`adaln_plan_library`).
 # The 16-byte form needs x, y, scale and shift 16-byte aligned, the modulation
@@ -816,6 +829,96 @@ def adaln_plan_of(x, scale, shift, y=None):
     return _adaln_launch_plan(*x.shape, _adaln_aligned(x, scale, shift, x if y is None else y))[0]
 
 
+# B10's forward and B13, one family: a mirror of csrc/norms.cu's `norm_plan`
+# (the library answers it through `layer_norm_plan_library` and
+# `fused_adaln_plan_library`), of adaLN's fields. The 16-byte form needs every
+# row pointer and per-column vector 16-byte aligned and every row stride (x's,
+# the modulation rows') and the row a multiple of 16 bytes; else one element a
+# load. LayerNorm's many rows (above NORM_ROW_BLOCKS an SM) in the 16-byte
+# form, of at most 4 chunks a lane (the CLIP rows): the warp form, a warp a
+# row, a block of NORM_WARPS warps on as many rows, as many blocks as the rows
+# need (small blocks, so an SM holds many rows in flight). Otherwise (B13's
+# rows at any count, the towers' few rows): the row form, a block a row.
+# LayerNorm's rows are one batch element's.
+OP_LN, OP_FUSED = 0, 1                      # B10's forward, B13
+NORM_WARP, NORM_ROW = ADALN_WARP, ADALN_ROW  # a warp a row, or a block a row
+NORM_WARPS = 4
+NORM_ROW_BLOCKS = 8                     # rows an SM that take a block each
+NORM_THREADS = 256                      # a row-form block's threads at most
+NORM_LANE_CPT = (1, 2, 3, 4)           # chunks a lane, warp form
+
+
+def _norm_plan(op: int, b: int, s: int, h: int, esize: int, aligned: bool):
+    if b < 1 or s < 1 or not 1 <= h <= (_ADALN_MAX_WIDTH if op == OP_FUSED else _LN_MAX_WIDTH):
+        return None
+    vec = 16 // esize if aligned and h * esize % 16 == 0 else 1
+    nvec = h // vec
+    many = vec > 1 and b * s > _SMS * NORM_ROW_BLOCKS
+    lane_cpt = next((c for c in NORM_LANE_CPT if c * 32 >= nvec), 0)
+    if many and lane_cpt and op == OP_LN:
+        rpb = min(s, NORM_WARPS)
+        return AdalnPlan(NORM_WARP, vec, lane_cpt, rpb * 32, rpb, _cdiv(s, rpb))
+    cpt = 1
+    while cpt * NORM_THREADS < nvec:
+        cpt *= 2
+    return AdalnPlan(NORM_ROW, vec, cpt, (_cdiv(nvec, cpt) + 31) // 32 * 32, 1, s)
+
+
+@functools.lru_cache(maxsize=1024)
+def _norm_launch_plan(op, b, s, h, esize, aligned):
+    plan = _norm_plan(op, b, s, h, esize, aligned)
+    return plan, None if plan is None else _plan_array(plan)
+
+
+def fused_adaln_plan(b: int, s: int, h: int, aligned: bool = True):
+    """B13's plan at x (b, s, h) bf16; `aligned`: the residual, x, both
+    outputs and the modulation rows start 16-byte aligned and the rows'
+    strides are multiples of 16 bytes. None where no plan takes the shape."""
+    return _norm_plan(OP_FUSED, b, s, h, 2, aligned)
+
+
+def layer_norm_plan(rows: int, h: int, esize: int, aligned: bool = True):
+    """LayerNorm's forward plan at (rows, h), `esize` bytes an element of x;
+    `aligned`: x, y, w and b start 16-byte aligned and x's row stride is a
+    multiple of 16 bytes. None where no plan takes the shape."""
+    return _norm_plan(OP_LN, 1, rows, h, esize, aligned)
+
+
+def _library_plan(entry, *args):
+    out = (ctypes.c_int * len(fields(AdalnPlan)))()
+    if getattr(_norms_lib(), entry)(*args, out) != 0:
+        return None
+    return AdalnPlan(*out)
+
+
+def fused_adaln_plan_library(b: int, s: int, h: int, aligned: bool = True):
+    """The library's own plan (csrc/norms.cu `fused_adaln_plan`), which
+    `fused_adaln_plan` mirrors; None where it takes no plan."""
+    return _library_plan("fused_adaln_plan", b, s, h, int(aligned))
+
+
+def layer_norm_plan_library(rows: int, h: int, dtype, aligned: bool = True):
+    """The library's own plan (csrc/norms.cu `layer_norm_plan`), which
+    `layer_norm_plan` mirrors; None where it takes no plan."""
+    return _library_plan("layer_norm_plan", rows, h, _DTYPE_CODE[dtype], int(aligned))
+
+
+def _aligned_ptrs(ptrs, strides, esize) -> bool:
+    """Pointers 16-byte aligned and row strides (of `esize`-byte elements)
+    multiples of 16 bytes."""
+    return not any(p % 16 for p in ptrs) and not any(st * esize % 16 for st in strides)
+
+
+def fused_adaln_plan_of(residual, x, gate, scale, shift, y=None, resi=None):
+    """The plan the kernel takes for B13's inputs (and outputs, where given;
+    the wrapper's own are allocated 16-byte aligned)."""
+    mods = _adaln_mods(gate, scale, shift)
+    rows = (residual, x, *mods) + (() if y is None else (y, resi))
+    aligned = _aligned_ptrs([t.data_ptr() for t in rows], [m.stride(0) for m in mods],
+                            mods[0].element_size())
+    return _norm_launch_plan(OP_FUSED, *x.shape, 2, aligned)[0]
+
+
 def _check_affine(name, weight, bias):
     if weight is not None or bias is not None:
         raise NotImplementedError(f"{name}: the affine weight/bias form is not ported (the "
@@ -844,44 +947,10 @@ def fused_adaln_scale_residual_ref(residual, x, gate, scale, shift, weight=None,
     return adaptive_layer_norm_ref(resi, scale, shift, eps=eps).to(x.dtype), resi.to(x.dtype)
 
 
-@functools.lru_cache(maxsize=None)
-def _adaln_kernels():
-    global tl
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def _modulated_ln(r, cols, mask, b, H, eps, scale_ptr, shift_ptr, mod_stride):
-        mean = tl.sum(r, axis=0) / H
-        diff = tl.where(mask, r - mean, 0.0)
-        rstd = tl.rsqrt(tl.sum(diff * diff, axis=0) / H + eps)
-        sc = tl.load(scale_ptr + b * mod_stride + cols, mask=mask, other=0.0).to(tl.float32)
-        sh = tl.load(shift_ptr + b * mod_stride + cols, mask=mask, other=0.0).to(tl.float32)
-        return diff * rstd * (1.0 + sc) + sh
-
-    @triton.jit
-    def fused_adaln_residual_fwd(res_ptr, x_ptr, gate_ptr, scale_ptr, shift_ptr, y_ptr,
-                                 resi_ptr, S, H, mod_stride, eps, BLOCK_H: tl.constexpr):
-        row = tl.program_id(0).to(tl.int64)
-        b = row // S
-        cols = tl.arange(0, BLOCK_H)
-        mask = cols < H
-        offs = row * H + cols
-        res = tl.load(res_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        g = tl.load(gate_ptr + b * mod_stride + cols, mask=mask, other=0.0).to(tl.float32)
-        r = res + g * x
-        tl.store(resi_ptr + offs, r.to(resi_ptr.dtype.element_ty), mask=mask)
-        y = _modulated_ln(r, cols, mask, b, H, eps, scale_ptr, shift_ptr, mod_stride)
-        tl.store(y_ptr + offs, y.to(y_ptr.dtype.element_ty), mask=mask)
-
-    return fused_adaln_residual_fwd
-
-
 def _check_adaln(name, rows, mods):
     """x-like (B, S, H) contiguous bf16 tensors (the SD3 path's dtype; the
     kernel reads and writes nothing else) and (B, H) modulation rows with unit
-    column stride and one row stride; returns that stride."""
+    column stride and one row stride."""
     x = rows[0]
     if x.ndim != 3 or x.dtype != torch.bfloat16:
         raise ValueError(f"{name}: x must be (B, S, H) bf16, got {x.dtype} {tuple(x.shape)}")
@@ -899,21 +968,15 @@ def _check_adaln(name, rows, mods):
             raise ValueError(f"{name}: scale/shift/gate must be ({b}, {h}) on {x.device} with "
                              f"unit column stride and one row stride, got {tuple(t.shape)} "
                              f"strides {t.stride()} on {t.device}")
-    return stride
 
 
-def _row_launch(h):
-    block = max(128, 1 << (h - 1).bit_length())
-    return block, min(16, max(1, block // 256))
-
-
-def _adaln_mods(scale, shift):
-    """The modulation rows as the kernel reads them, of one dtype: as they are
-    where both are one float dtype of the kernel's, else both in fp32 (an
-    exact widening)."""
-    if scale.dtype == shift.dtype and scale.dtype in _DTYPE_CODE:
-        return scale, shift
-    return scale.float(), shift.float()
+def _adaln_mods(*mods):
+    """The per-column vectors (modulation rows; LayerNorm's weight and bias)
+    as the kernels read them, of one dtype: as they are where all are one
+    float dtype of the kernels', else all in fp32 (an exact widening)."""
+    if all(m.dtype == mods[0].dtype for m in mods) and mods[0].dtype in _DTYPE_CODE:
+        return mods
+    return tuple(m.float() for m in mods)
 
 
 def _adaln_cuda(x, scale, shift, eps):
@@ -951,11 +1014,30 @@ def adaptive_layer_norm(x, scale, shift, weight=None, bias=None, eps: float = 1e
 adaptive_layer_norm.launches = 0  # kernel launches (CUDA tensors only)
 
 
+def _fused_adaln_cuda(residual, x, gate, scale, shift, eps):
+    """(y, resi) of B13 through csrc/norms.cu's kernel, one launch."""
+    mods = _adaln_mods(gate, scale, shift)
+    b, s, h = x.shape
+    y, resi = torch.empty_like(x), torch.empty_like(x)
+    if y.numel() == 0:
+        return y, resi
+    ptrs = [t.data_ptr() for t in (residual, x, *mods, y, resi)]
+    strides = [m.stride(0) for m in mods]
+    _, arr = _norm_launch_plan(OP_FUSED, b, s, h, 2,
+                               _aligned_ptrs(ptrs, strides, mods[0].element_size()))
+    dev = x.get_device()
+    err = _norms_lib().fused_adaln_cuda(*ptrs[:5], _DTYPE_CODE[mods[0].dtype], *ptrs[5:], b, s, h,
+                                        *strides, float(eps), arr, dev, _raw_stream(dev))
+    _check_launch("fused_adaln_scale_residual", err)
+    fused_adaln_scale_residual.launches += 1
+    return y, resi
+
+
 def fused_adaln_scale_residual(residual, x, gate, scale, shift, weight=None, bias=None,
                                eps: float = 1e-5):
     """resi = residual + gate * x; y = LN(resi) * (1 + scale) + shift; returns
-    (y, resi) (port of `fused_adaln_scale_residual`). CUDA tensors launch the
-    Triton kernel (B13), which writes both in one pass and whose backward is
+    (y, resi) (port of `fused_adaln_scale_residual`). CUDA tensors launch
+    csrc/norms.cu's kernel (B13, one launch writing both), whose backward is
     autograd of the plain version; CPU tensors run
     `fused_adaln_scale_residual_ref`. Both outputs have x's dtype."""
     _check_affine("fused_adaln_scale_residual", weight, bias)
@@ -963,18 +1045,9 @@ def fused_adaln_scale_residual(residual, x, gate, scale, shift, weight=None, bia
         if x.device.type != "cpu":
             raise ValueError(f"fused_adaln_scale_residual: unsupported device {x.device}")
         return fused_adaln_scale_residual_ref(residual, x, gate, scale, shift, eps=eps)
-    stride = _check_adaln("fused_adaln_scale_residual", (x, residual), (gate, scale, shift))
-
-    def run(residual, x, gate, scale, shift):
-        b, s, h = x.shape
-        y, resi = torch.empty_like(x), torch.empty_like(x)
-        block, warps = _row_launch(h)
-        with torch.cuda.device(x.device):
-            _adaln_kernels()[(b * s,)](residual, x, gate, scale, shift, y, resi, s, h, stride,
-                                       float(eps), BLOCK_H=block, num_warps=warps)
-        fused_adaln_scale_residual.launches += 1
-        return y, resi
-    return with_plain_backward(run, lambda *a: fused_adaln_scale_residual_ref(*a, eps=eps),
+    _check_adaln("fused_adaln_scale_residual", (x, residual), (gate, scale, shift))
+    return with_plain_backward(lambda *t: _fused_adaln_cuda(*t, eps),
+                               lambda *a: fused_adaln_scale_residual_ref(*a, eps=eps),
                                residual, x, gate, scale, shift)
 
 
@@ -990,11 +1063,15 @@ fused_adaln_scale_residual.launches = 0  # kernel launches (CUDA tensors only)
 # backward `layer_norm_backward` replaces `_layer_norm_pallas_bwd` /
 # `_ln_bwd_kernel`: dx = rstd * (dxhat - mean(dxhat) - xhat * mean(dxhat *
 # xhat)) with dxhat = g * w, dw = sum of g * xhat and db = sum of g over the
-# rows, in fp32; dx in x's dtype, dw and db in w's. The forward is a Triton
-# kernel: a program takes a tile of rows (a row's H at most _LN_MAX_WIDTH in
-# registers), so x is read once and y written once: a few flops a byte, bound
-# by those bytes. The backward is csrc/norms.cu's CUDA kernel, one launch a
-# call: a warp a row at a time with the next rows in flight, dw and db summed
+# rows, in fp32; dx in x's dtype, dw and db in w's. The forward reads x once
+# and writes y once: a few flops a byte, bound by those bytes. It is
+# csrc/norms.cu's `layer_norm_fwd_warp_kernel` (many rows: a warp a row in
+# blocks of a few warps, w and b read after the moments) and
+# `layer_norm_fwd_row_kernel` (few rows, the text towers' 77 and LLaVA's 577:
+# a block a row, one memory round trip), B13's family;
+# `layer_norm_plan` mirrors its plan. x is read in place at its row stride
+# (the pooled x[:, 0]). The backward is csrc/norms.cu's CUDA kernel, one
+# launch a call: a warp a row at a time with the next rows in flight, dw and db summed
 # across the block's warps and then across a thread-block cluster through
 # distributed shared memory; with several clusters (above 1,024 rows) the
 # last block to finish each slice of the columns adds the clusters' partial
@@ -1003,7 +1080,6 @@ fused_adaln_scale_residual.launches = 0  # kernel launches (CUDA tensors only)
 # than 64 rows or a missing w or b to XLA; those are v5e tiling choices, and
 # eager PyTorch has no fusion to keep, so on the card every call launches.
 _LN_MAX_WIDTH = 1280  # the widest row a path gives it (CLIP-bigG's text tower)
-_LN_TILE = 4096  # elements of a row tile: BLOCK_R rows x BLOCK_H columns
 
 
 def layer_norm_ref(x, weight=None, bias=None, eps: float = 1e-5):
@@ -1037,37 +1113,6 @@ def layer_norm_backward_ref(x, weight, g, eps: float = 1e-5):
     return dx.to(x.dtype), dw, db
 
 
-@functools.lru_cache(maxsize=None)
-def _ln_kernels():
-    global tl
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def _tile_stats(x, mask, H, eps):
-        """fp32 (x - mean) masked to the row, and rsqrt(two-pass var + eps)."""
-        mean = tl.sum(x, axis=1) / H
-        diff = tl.where(mask, x - mean[:, None], 0.0)
-        return diff, tl.rsqrt(tl.sum(diff * diff, axis=1) / H + eps)
-
-    @triton.jit
-    def layer_norm_fwd(x_ptr, w_ptr, b_ptr, y_ptr, rows, H, x_stride, eps,
-                       BLOCK_R: tl.constexpr, BLOCK_H: tl.constexpr):
-        r = tl.program_id(0) * BLOCK_R + tl.arange(0, BLOCK_R)
-        cols = tl.arange(0, BLOCK_H)
-        cmask = cols < H
-        mask = (r < rows)[:, None] & cmask[None, :]
-        r64 = r.to(tl.int64)[:, None]
-        x = tl.load(x_ptr + r64 * x_stride + cols[None, :], mask=mask, other=0.0).to(tl.float32)
-        diff, rstd = _tile_stats(x, mask, H, eps)
-        w = tl.load(w_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
-        b = tl.load(b_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
-        y = diff * rstd[:, None] * w[None, :] + b[None, :]
-        tl.store(y_ptr + r64 * H + cols[None, :], y.to(y_ptr.dtype.element_ty), mask=mask)
-
-    return layer_norm_fwd
-
-
 def _ln_rows(t, h):
     """t (..., h) as rows of unit column stride: (the 2-D view or a
     contiguous copy, its row stride)."""
@@ -1088,22 +1133,37 @@ def _ln_check(name, x, params):
                              f"{x.device}, got {tuple(p.shape)} on {p.device}")
 
 
-def _ln_tile(h):
-    block_h = max(128, 1 << (h - 1).bit_length())
-    return max(1, _LN_TILE // block_h), block_h
-
-
-def _layer_norm_triton(x, weight, bias, eps):
-    _ln_check("layer_norm", x, (weight, bias))
+def layer_norm_plan_of(x, weight, bias, y=None):
+    """The plan the kernel takes for x (..., h) with its weight and bias (and
+    y, where given; the wrapper's own is allocated 16-byte aligned)."""
+    weight, bias = _adaln_mods(weight, bias)
     h = x.shape[-1]
-    x2, x_stride = _ln_rows(x, h)
+    x2, xs = _ln_rows(x, h)
+    es = x.element_size()
+    ptrs = [t.data_ptr() for t in (x2, weight, bias) + (() if y is None else (y,))]
+    aligned = _aligned_ptrs(ptrs, [xs], es)
+    return _norm_launch_plan(OP_LN, 1, x2.shape[0], h, es, aligned)[0]
+
+
+def _layer_norm_cuda(x, weight, bias, eps):
+    """y = LayerNorm(x) through csrc/norms.cu's kernel, one launch; w and b
+    read as fp32 whatever their float dtype."""
+    _ln_check("layer_norm", x, (weight, bias))
+    weight, bias = _adaln_mods(weight, bias)
+    h = x.shape[-1]
+    x2, xs = _ln_rows(x, h)
     rows = x2.shape[0]
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-    block_r, block_h = _ln_tile(h)
-    with torch.cuda.device(x.device):
-        _ln_kernels()[(-(-rows // block_r),)](x2, weight, bias, y, rows, h, x_stride,
-                                                 float(eps), BLOCK_R=block_r, BLOCK_H=block_h,
-                                                 num_warps=4)
+    if rows == 0:
+        return y
+    es = x.element_size()
+    ptrs = [t.data_ptr() for t in (x2, weight, bias, y)]
+    _, arr = _norm_launch_plan(OP_LN, 1, rows, h, es, _aligned_ptrs(ptrs, [xs], es))
+    dev = x.get_device()
+    err = _norms_lib().layer_norm_cuda(*ptrs[:3], _DTYPE_CODE[weight.dtype], ptrs[3],
+                                       _DTYPE_CODE[x.dtype], rows, h, xs, float(eps), arr, dev,
+                                       _raw_stream(dev))
+    _check_launch("layer_norm", err)
     layer_norm.launches += 1
     return y
 
@@ -1111,7 +1171,7 @@ def _layer_norm_triton(x, weight, bias, eps):
 def _ln_forward(x, weight, bias, eps):
     """The forward: the kernel for CUDA tensors, `layer_norm_ref` for CPU ones."""
     if x.is_cuda:
-        return _layer_norm_triton(x, weight, bias, eps)
+        return _layer_norm_cuda(x, weight, bias, eps)
     if x.device.type != "cpu":
         raise ValueError(f"layer_norm: unsupported device {x.device}")
     return layer_norm_ref(x, weight, bias, eps)
@@ -1139,10 +1199,10 @@ class _LayerNorm(torch.autograd.Function):
 
 def layer_norm(x, weight, bias, eps: float = 1e-5):
     """LayerNorm over the last axis with weight and bias (port of
-    `layer_norm`). CUDA tensors launch the Triton kernel (B10); CPU tensors
-    run `layer_norm_ref`. The output has x's dtype; weight and bias are read
-    as fp32 whatever their dtype. Under autograd it is `_LayerNorm`, whose
-    backward is `layer_norm_backward`."""
+    `layer_norm`). CUDA tensors launch csrc/norms.cu's kernel (B10, one
+    launch); CPU tensors run `layer_norm_ref`. The output has x's dtype;
+    weight and bias are read as fp32 whatever their dtype. Under autograd it
+    is `_LayerNorm`, whose backward is `layer_norm_backward`."""
     if weight is None or bias is None:
         raise NotImplementedError("layer_norm: the form without weight or bias is not ported "
                                   "(no path of the port calls it)")

@@ -203,17 +203,31 @@ def test_layer_norm_kernels_match_plain_versions_on_gpu():
         return out
 
     # rows of ViT-B/16, a ragged count at bigG's 1280, the pooled rows (a
-    # strided slice of the tokens), and fp32 rows
+    # strided slice of the tokens), fp32 rows; the forward's forms: the warp
+    # form at many rows of at most 4 chunks a lane (5000 x 768, 1500 x 1024),
+    # the row form elsewhere (bf16 and fp32, pooled), the one-element form at
+    # a width of no whole 16 bytes
     for rows, h, pooled, dtype in [(1000, 768, False, bf16), (77, 1280, False, bf16),
-                                   (64, 768, True, bf16), (300, 512, False, torch.float32)]:
+                                   (64, 768, True, bf16), (300, 512, False, torch.float32),
+                                   (5000, 768, False, bf16), (3001, 1280, True, torch.float32),
+                                   (2000, 100, False, bf16), (1500, 1024, False, bf16)]:
         base = torch.randn((rows, 3 if pooled else 1, h), generator=gen, device=dev)
         x = (2 * base + torch.randn((rows, 1, 1), generator=gen, device=dev)).to(dtype)[:, 0]
         w = 1 + 0.2 * torch.randn(h, generator=gen, device=dev)
         b = 0.2 * torch.randn(h, generator=gen, device=dev)
         g = torch.randn((rows, h), generator=gen, device=dev).to(dtype)
         y = counted(tnorms.layer_norm, x, w, b, 1e-5)
+        plan = tnorms.layer_norm_plan_of(x, w, b)
         assert y.dtype == dtype and y.shape == x.shape
-        assert within(y, tnorms.layer_norm_ref(x.float(), w, b, 1e-5), 1e-6), (rows, h)
+        assert within(y, tnorms.layer_norm_ref(x.float(), w, b, 1e-5), 1e-6), (rows, h, plan)
+        assert torch.equal(y, tnorms.layer_norm(x, w, b, 1e-5)), plan  # launches bit-identical
+        xm = torch.empty(x.numel() + 1, dtype=dtype, device=dev)[1:].view(x.shape).copy_(x)
+        assert within(tnorms.layer_norm(xm, w.to(bf16), b, 1e-5),
+                      tnorms.layer_norm_ref(xm.float(), w.to(bf16), b, 1e-5), 1e-6), (rows, h)
+        es = x.element_size()
+        for aligned in (True, False):
+            assert tnorms.layer_norm_plan(rows, h, es, aligned) == \
+                tnorms.layer_norm_plan_library(rows, h, dtype, aligned)
         dx, dw, db = counted(tnorms.layer_norm_backward, x, w, g, 1e-5)
         rdx, rdw, rdb = tnorms.layer_norm_backward_ref(x.float(), w, g.float(), 1e-5)
         assert dx.dtype == dtype and within(dx, rdx, 1e-5), (rows, h)

@@ -210,13 +210,32 @@ def test_adaln_kernels_match_plain_versions_on_gpu():
         y, resi = counted(tnorms.fused_adaln_scale_residual, residual, x, gate, scale, shift)
         ref_y, ref_resi = tnorms.fused_adaln_scale_residual_ref(residual, x, gate, scale, shift)
         assert within(y, ref_y) and within(resi, ref_resi), (b, s, h)
-    # B12's one-element form (x one element past a 16-byte boundary, a width
-    # of no whole 16 bytes) and fp32 modulation rows
+    # B12's and B13's one-element form (x one element past a 16-byte boundary,
+    # a width of no whole 16 bytes), fp32 modulation rows, B13's row form at
+    # many rows and at few (narrow rows of many batch elements too), mixed
+    # modulation dtypes
     for (b, s, h), md, misaligned in [((2, 154, 1536), bf16, True), ((3, 50, 100), bf16, False),
-                                      ((2, 4096, 1536), torch.float32, False)]:
-        x = torch.randn((b, s, h), generator=gen, device=dev).to(bf16)
+                                      ((2, 4096, 1536), torch.float32, False),
+                                      ((2, 1000, 2048), bf16, False), ((5, 300, 64), bf16, False),
+                                      ((1, 2000, 320), torch.float32, True)]:
+        x, residual = (torch.randn((b, s, h), generator=gen, device=dev).to(bf16) for _ in range(2))
         if misaligned:
             x = torch.empty(x.numel() + 1, dtype=bf16, device=dev)[1:].view(x.shape).copy_(x)
-        shift, scale = torch.randn((b, 6 * h), generator=gen, device=dev).to(md).chunk(6, -1)[:2]
+        mod = torch.randn((b, 6 * h), generator=gen, device=dev)
+        shift, scale, gate = mod.to(md).chunk(6, -1)[:3]
         y = counted(tnorms.adaptive_layer_norm, x, scale, shift)
         assert within(y, tnorms.adaptive_layer_norm_ref(x, scale, shift)), (b, s, h, md)
+        # the gate also of the other dtype (a chunk of its own projection)
+        other = mod.to(bf16 if md == torch.float32 else torch.float32).chunk(6, -1)[2]
+        for g in (gate, other):
+            plan = tnorms.fused_adaln_plan_of(residual, x, g, scale, shift)
+            assert plan.form == tnorms.NORM_ROW, plan
+            y, resi = counted(tnorms.fused_adaln_scale_residual, residual, x, g, scale, shift)
+            ref_y, ref_resi = tnorms.fused_adaln_scale_residual_ref(residual, x, g, scale, shift)
+            assert within(y, ref_y) and within(resi, ref_resi), (b, s, h, md, plan)
+            assert torch.equal(y, tnorms.fused_adaln_scale_residual(residual, x, g, scale,
+                                                                    shift)[0]), plan
+    for b, s, h in [(2, 4096, 1536), (2, 154, 1536), (3, 50, 100)]:
+        for aligned in (True, False):
+            assert tnorms.fused_adaln_plan(b, s, h, aligned) == \
+                tnorms.fused_adaln_plan_library(b, s, h, aligned)

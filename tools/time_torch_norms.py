@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
 """The norm kernels of the PyTorch port, one checkout against another in one
 call: B4 (`group_norm`, `group_norm_stats`) at the paths' GroupNorm shapes,
-B10's backward (`layer_norm_backward`) at the CLIP path's rows, B11's forward
-(`rms_norm`) at its four path shapes and B12 (`adaptive_layer_norm`) at SD3's
-image and context rows, each timed as chip_smoke.py times a kernel (10
-launches, or a pass through copies of the input rotating past the L2, captured
-in a CUDA graph, one replay between CUDA events), with F.group_norm + F.silu
-(weight and bias in bf16), the backward of F.layer_norm, F.rms_norm (bf16
-weight) and F.layer_norm (the norm alone) as yardsticks. For B11 and B12 it
-also prints `copy_` of x (the same bytes read and written), the floor (an
-empty kernel of the plan's launch shape, as many launches in the graph;
-trees whose library has no empty kernel print none) and the host
+B10 (`layer_norm` and `layer_norm_backward`) at the CLIP-family rows, B11's
+forward (`rms_norm`) at its four path shapes and B12 (`adaptive_layer_norm`)
+and B13 (`fused_adaln_scale_residual`) at SD3's image and context rows, each
+timed as chip_smoke.py times a kernel (10 launches, or a pass through copies
+of the input rotating past the L2, captured in a CUDA graph, one replay
+between CUDA events), with F.group_norm + F.silu (weight and bias in bf16),
+F.layer_norm (bf16 weight and bias) and its backward, F.rms_norm (bf16
+weight) and F.layer_norm (the norm alone) as yardsticks. For B10's forward,
+B11, B12 and B13 it also prints `copy_` of the rows read (the same bytes read
+and written), the floor (an empty kernel of the plan's launch shape, as many
+launches in the graph; trees with no such plan print none) and the host
 microseconds to enqueue one call (1,000 calls without a sync, then one sync).
 The package is imported from the tree given (default: this checkout), whose
 kernels build into that tree's own build/ directory, so the parent commit
@@ -104,6 +105,21 @@ def row_norms(torch, F, cs, norms, label, dev, gen):
         print(f"{label} | adaptive_layer_norm {shape} bf16: {ms:.4f} ms; F.layer_norm "
               f"{lib_ms:.4f} ms; copy_ of x {copy:.4f} ms; floor {floor}; host {host:.2f} us a "
               f"call | plan {plan}", flush=True)
+        gate = mod.chunk(6, dim=-1)[2]
+        kernel = cs.cold(lambda t: norms.fused_adaln_scale_residual(t[0], t[1], gate, scale, shift),
+                         rx, cs.nbytes(rx))
+        ms = cs.cuda_ms(torch, kernel)
+        plan = norms.fused_adaln_plan(b_, s_, h_) if hasattr(norms, "fused_adaln_plan") else None
+        floor = floor_ms(torch, cs, norms, b_ * plan.nb, plan.threads, kernel.copies) \
+            if plan else "no plan"
+        host = host_us(torch, lambda: norms.fused_adaln_scale_residual(rx[0], rx[1], gate, scale,
+                                                                       shift))
+        # the residual and x read, as many bytes written: one copy_ of both
+        copy = cs.cuda_ms(torch, cs.cold(lambda t: torch.empty_like(t).copy_(t), rx,
+                                         cs.nbytes(rx)))
+        print(f"{label} | fused_adaln_scale_residual {shape} bf16: {ms:.4f} ms; copy_ of residual "
+              f"and x {copy:.4f} ms; floor {floor}; host {host:.2f} us a call | plan {plan}",
+              flush=True)
         del rx
         torch.cuda.empty_cache()
 
@@ -168,12 +184,27 @@ def main():
     for rows, h, span in cs.CLIP_LN_SHAPES if args.only in (None, "ln") else ():
         x = torch.randn((rows, span, h), generator=gen, device=dev).to(bf16)[:, 0]
         w = 1 + 0.2 * torch.randn(h, generator=gen, device=dev)
+        b = 0.2 * torch.randn(h, generator=gen, device=dev)
         g = torch.randn((rows, h), generator=gen, device=dev).to(bf16)
+        label = f"({rows},{h}){' row stride ' + str(span) if span > 1 else ''}"
+        kernel = cs.cold(lambda x_: norms.layer_norm(x_, w, b, 1e-5), x, cs.nbytes(x))
+        ms = cs.cuda_ms(torch, kernel)
+        w16, b16 = w.to(bf16), b.to(bf16)
+        lib_ms = cs.cuda_ms(torch, cs.cold(lambda x_: F.layer_norm(x_, (h,), w16, b16, 1e-5), x,
+                                           cs.nbytes(x)))
+        plan = norms.layer_norm_plan(rows, h, 2) if hasattr(norms, "layer_norm_plan") else None
+        floor = floor_ms(torch, cs, norms, plan.nb, plan.threads, kernel.copies) \
+            if plan else "no plan"
+        host = host_us(torch, lambda: norms.layer_norm(x, w, b, 1e-5))
+        copy = cs.cuda_ms(torch, cs.cold(lambda x_: torch.empty_like(x_).copy_(x_), x,
+                                         cs.nbytes(x)))
+        print(f"{tree} | {smi} | layer_norm {label} bf16, fp32 w / b: {ms:.4f} ms; F.layer_norm "
+              f"{lib_ms:.4f} ms; copy_ of x {copy:.4f} ms; floor {floor}; host {host:.2f} us a "
+              f"call | plan {plan}", flush=True)
         ms = cs.cuda_ms(torch, lambda: norms.layer_norm_backward(x, w, g, 1e-5))
         lib_ms = cs.backward_ms(torch, lambda *t: F.layer_norm(t[0], (h,), t[1], t[2], 1e-5),
                                 tuple(t.detach().clone().requires_grad_()
                                       for t in (x, w.to(bf16), (0.1 * w).to(bf16))), g)
-        label = f"({rows},{h}){' row stride ' + str(span) if span > 1 else ''}"
         print(f"{tree} | {smi} | layer_norm_backward {label}: {ms:.4f} ms; the backward of "
               f"F.layer_norm {lib_ms:.4f} ms", flush=True)
         del x, g
