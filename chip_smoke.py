@@ -11,7 +11,10 @@ card from a seeded torch.Generator:
     (PMIX_INT8_ATTN=1);
   - LLaVA-1.5-7B generation through LlavaForConditionalGeneration.generate
     (CLIP ViT-L/14-336, mlp2x_gelu projector, Llama-7B, all 32 layers) at the
-    JAX bench's shapes, in bf16 and then weight-only int8 (wint8);
+    JAX bench's shapes, in bf16, then weight-only int8 (wint8), then with
+    dynamic int8 activations over int8 (a8w8) and packed int4 (a8w4, the
+    bench's default; wint4 computes as a8w4) weights, each built afresh by
+    random_llava(quant=...);
   - SD3-medium text-to-image through StableDiffusion3Pipeline.__call__
     (MM-DiT 24 x 1536, CLIP-L + bigG with projection, T5 v1.1-XXL encoder,
     16-channel VAE, FlowMatch Euler) in bf16;
@@ -117,7 +120,18 @@ Phases:
                    the decode and prefill shapes (RMSNorm also at T5's 77
                    rows, the SD3 path's, and the SFT forward's 4,096; the
                    wint8 GEMM also at a ragged (77, 4112, 4104), each case
-                   with its core as B2's), with times and bounds;
+                   with its core as B2's), with times and bounds; N1 and N2
+                   (csrc/a8w_gemm.cu: the dynamic a8w8 and a8w4 GEMMs) at the
+                   wint8 GEMM's shapes and a ragged (77, 4112, 4104), N2's
+                   (77, 4128, 4104) (it must refuse 4112 with a message),
+                   bit for bit against their plain versions, each with a
+                   control that must differ (N1: each row quantized with its
+                   neighbour's sx; N2: the nibble halves swapped), with the
+                   core, the tile plan held against the library's, ptxas
+                   counts (a spill fails), and bf16 torch.matmul, B6 and,
+                   above 16 rows, torch._int_mm on x quantized beforehand
+                   beside them (it refuses one row: printed); their
+                   activation pass alone bit for bit at the prefill's rows;
                    weights, caches and the RMSNorm input rotate through
                    copies that together pass three times the L2 cache, as
                    the model's layers find them cold (up to 64 copies: the
@@ -143,8 +157,14 @@ Phases:
                    placeholders + 32 text ids, seeded pixels, 128 new
                    tokens, eos -1): TTFT, decode tokens/s, peak memory, and
                    launches equal to `expected_launches_llava`
- 13. wint8         quantize in place (seconds, bytes freed), then agree and
-                   serve again with the wint8 GEMM as well
+ 13. quantized     wint8: quantize in place (seconds, bytes freed), then agree
+                   and serve again with the wint8 GEMM as well; a8w8 and
+                   a8w4: a fresh seeded random_llava(quant=mode) each (the
+                   weights' bytes against bf16's), agree (N1 / N2 against
+                   their plain versions swapped in as well) and 3 requests
+                   as in 12, launches as the walk says; wint4: one agree,
+                   which must launch N2 and give a8w4's greedy tokens bit
+                   for bit
  14. sd3 kernels   LLaVA is freed; adaLN (B12, csrc/norms.cu) and fused adaLN
                    + gated residual (B13, csrc/norms.cu) against their plain
                    versions at the image and context rows, each with a
@@ -391,6 +411,15 @@ A8W8_AGREE_TOL = 1e-3  # the same with B2/B3/B5 vs plain: bit-exact kernels read
 WINT8_SHAPES = [(1, 4096, 4096), (1, 4096, 11008), (1, 11008, 4096), (1, 4096, 32000),
                 (608, 4096, 11008), (608, 11008, 4096)]
 WINT8_RAGGED = (77, 4112, 4104)  # the tiled path's ragged case, as GEMM_RAGGED
+# N1 / N2 (csrc/a8w_gemm.cu), LLaVA's a8w8 / a8w4 projections at the same
+# (M, K, N) as B6; each kernel is bit-exact against its plain version (exact
+# int32 sums, every fp32 step rounded alike), so the gate is 0 elements apart.
+# The ragged cases: M no multiple of a tile, N = 8 mod 16, K no multiple of a
+# stage; N2's packed rows need K % 32 == 0 (16-byte rows of K / 2 bytes), so
+# its ragged K is 4128, and it must refuse N1's 4112 with a message.
+A8W_SHAPES = WINT8_SHAPES
+A8W_RAGGED = {"a8w8": (77, 4112, 4104), "a8w4": (77, 4128, 4104)}
+LLAVA_QUANT_MODES = ("a8w8", "a8w4")  # phase 13 builds a fresh LLaVA-7B for each
 # (B, Hq, KVH, D, L, lengths) of decode attention: Llama-7B's first decode step
 # over the bench's 736-slot cache, a long GQA cache, and the last step of the
 # Llama-2-7B request over the bf16 cache (B8's shape, for comparison)
@@ -748,6 +777,60 @@ def gemm_core(kind, m, k, n):
                      f"({clusters[plan.tile]} fit at once); ptxas {regs} registers at entry "
                      f"(setmaxnreg: 232 a consumer thread, 40 a producer), {spills}; "
                      f"{smem(plan.tile):,} bytes of dynamic shared memory a block")
+
+
+def a8w_core(kind, m, k, n):
+    """(core, note) of N1 (kind "a8w8") or N2 ("a8w4") at (M, K, N): the GEMV
+    at M = 1, else the tiled path's plan (ops/gemm_tiles.py), held against
+    the library's own answer (`a8w_gemm_plan`); ptxas's registers and spills
+    for the instantiation (a spill fails the run) and its shared memory."""
+    from paddlemix_tpu_torch.ops import gemm_tiles, quant
+
+    if m == 1:
+        regs, spills = ptxas_counts("a8w_gemm", f"a8w_gemv_kernelILb{int(kind == 'a8w4')}E")
+        check(spills in ("spills 0 / 0 bytes", "not in this run's build log"),
+              f"{kind} GEMV: {spills}")
+        return "gemv", (f"a8w_gemv_kernel<{'int4' if kind == 'a8w4' else 'int8'}>, M = 1: x's "
+                        f"row quantized into shared memory in every block; ptxas {regs} "
+                        f"registers, {spills}")
+    plan = quant.a8w_tile_plan(kind, m, n, k, 0)
+    mirror, lib = gemm_tiles.a8w_plan_fields(plan), quant.a8w_library_plan(kind, m, n, k,
+                                                                           plan.tile)
+    check(mirror == lib, f"{kind} {(m, k, n)}: plan {mirror} != the library's {lib}")
+    spec = f"DynA8W8ILi{plan.tile}E" if kind == "a8w8" else f"A8W4ILi{plan.tile}E"
+    regs, spills = ptxas_counts("a8w_gemm", spec)
+    check(spills in ("spills 0 / 0 bytes", "not in this run's build log"),
+          f"{kind} tile {plan.tile}: {spills}")
+    what = ("SS, tiles of 128 rows of xq by {} weight rows" if kind == "a8w8"
+            else "RS out^T = W4 xq^T, tiles of 128 weight rows by {} tokens")
+    clusters = gemm_tiles.max_clusters("a8w_gemm", f"{kind}_gemm_max_clusters",
+                                       gemm_tiles.A8W_TILES, 0)
+    return "wgmma", (f"{what.format(plan.tile)}, {plan.outer_tiles} x {plan.inner_tiles}, "
+                     f"{plan.grid} blocks in clusters of 2 ({clusters[plan.tile]} fit at once), "
+                     f"{lib[2]} stages of K a tile in a ring of {lib[4]}; plan (unit_inner, "
+                     f"units, k_blocks, pair_inner, stages, smem) {mirror} = the library's; "
+                     f"ptxas {regs} registers at entry (setmaxnreg: 232 a consumer thread, 40 a "
+                     f"producer), {spills}; {lib[5]:,} bytes of dynamic shared memory a block")
+
+
+def neighbour_sx_control(torch, quant, x, wq, scale, after):
+    """N1's control: the plain version with row m of x quantized, and
+    scaled, by the sx of row m + 1 (`after`, one more row, follows the last;
+    at M = 1 it is the only neighbour)."""
+    k = x.shape[-1]
+    _, sx = quant.quantize_rows_int8(torch.cat([x.reshape(-1, k), after.reshape(1, k)]))
+    sx = sx[1:]
+    xq = (x.float() / sx[:, None]).round().clamp(-127, 127).to(wq.dtype)
+    acc = (xq.double() @ wq.double().t()).float()
+    return ((acc * sx[:, None]) * scale).to(x.dtype)
+
+
+def swapped_halves_control(torch, quant, x, wq4, scale):
+    """N2's control: the plain version with the packed nibbles' halves
+    swapped (the low nibble of byte j read as w[k / 2 + j])."""
+    w = quant.unpack_int4(wq4)
+    h = w.shape[1] // 2
+    return quant._a8w_product(x, torch.cat([w[:, h:], w[:, :h]], dim=1), scale)
 
 
 def gemm_note(label, name, kind, shape, ms, ops, unit, extra=None):
@@ -3048,7 +3131,7 @@ def main():
 
     # ----------------------------------------------------------------- build
     sources = ["flash_fwd", "flash_bwd", "int8_gemm", "int8_conv3x3", "wint8_gemm",
-               "decode_attention", "paged_attention", "norms"]
+               "a8w_gemm", "decode_attention", "paged_attention", "norms"]
     t0 = time.perf_counter()
     build_all(sources)
     print(f"[build] {len(sources)} sources in parallel: {time.perf_counter() - t0:.1f} s",
@@ -3467,6 +3550,93 @@ def main():
                                                      (m, k, n), ms, 2 * m * n * k, "TFLOP/s"))
         del x, wq, scale, w16, out, ref, diff
         gc.collect()
+    # N1 / N2: the activation pass alone, bit for bit, at the prefill's rows
+    for m, k in ((608, 4096), (608, 11008)):
+        x = torch.randn((m, k), generator=gen, device=dev).to(bf16)
+        x[1] = 0  # a zero row quantizes to zeros
+        xq, sx = quant_mod.quantize_rows_int8_cuda(x)
+        torch.cuda.synchronize()
+        rq, rs = quant_mod.quantize_rows_int8(x)
+        miss = (xq != rq).sum().item() + (sx != rs).sum().item()
+        pass_ms = cuda_ms(torch, lambda: quant_mod.quantize_rows_int8_cuda(x))
+        print(f"[llava kernels] a8w activation pass {(m, k)}: {miss} elements apart from "
+              f"quantize_rows_int8 (must be 0); {pass_ms:.4f} ms, bound "
+              f"{bound(3 * m * k + 4 * m, 0, 'int8')[0]:.4f} ms (bytes)", flush=True)
+        check(miss == 0, f"a8w activation pass {(m, k)}: {miss} elements apart")
+    try:  # the library's s8 GEMM takes no single row: why the decode needs N1's GEMV
+        torch._int_mm(torch.zeros((1, 4096), dtype=torch.int8, device=dev),
+                      torch.zeros((4096, 4096), dtype=torch.int8, device=dev))
+        int_mm_one_row = "torch._int_mm took a single row"
+    except (RuntimeError, ValueError) as exc:
+        int_mm_one_row = f"torch._int_mm refuses a single row: {str(exc).splitlines()[0]}"
+    print(f"[llava kernels] {int_mm_one_row}", flush=True)
+    for qmode in LLAVA_QUANT_MODES:
+        name = f"{qmode}_matmul"
+        wrapper, plain = getattr(quant_mod, name), getattr(quant_mod, f"{name}_ref")
+        quantizer = (quant_mod.quantize_weights_int4 if qmode == "a8w4"
+                     else quant_mod.quantize_weights_int8)
+        for m, k, n in A8W_SHAPES + [A8W_RAGGED[qmode]]:
+            x = torch.randn((m, k), generator=gen, device=dev).to(bf16)
+            w = torch.randn((n, k), generator=gen, device=dev) * k ** -0.5
+            wq, scale = quantizer(w)
+            w16 = w.to(bf16)
+            wq8, scale8 = quant_mod.quantize_weights_int8(w)  # B6's weights, the yardstick
+            del w
+            out = wrapper(x, wq, scale)
+            torch.cuda.synchronize()
+            ref = plain(x, wq, scale)
+            miss = (out != ref).sum().item()
+            err = (out.float() - ref.float()).abs().max().item()
+            if qmode == "a8w8":
+                after = torch.randn((1, k), generator=gen, device=dev).to(bf16)
+                control = neighbour_sx_control(torch, quant_mod, x, wq, scale, after)
+                what = "each row quantized with its neighbour's sx"
+            else:
+                control = swapped_halves_control(torch, quant_mod, x, wq, scale)
+                what = "the nibble halves swapped"
+            c_miss = (control != out).sum().item()
+            print(f"[llava kernels] {name} {(m, k, n)}: {miss} of {out.numel()} elements apart "
+                  f"from the plain version (gate: 0), max_abs_err {err:.3e}; control ({what}): "
+                  f"{c_miss} apart (must be > 0)", flush=True)
+            check(bool(torch.isfinite(out).all()) and miss == 0,
+                  f"{name} {(m, k, n)}: {miss} elements apart")
+            check(c_miss > 0, f"{name} {(m, k, n)}: the control passes the gate")
+            ms, plain_ms = timed_pair(
+                torch, cold(lambda wq_: wrapper(x, wq_, scale), wq, wq.numel()),
+                cold(lambda wq_: plain(x, wq_, scale), wq, wq.numel()))
+            lib_ms = library_ms(torch, cold(lambda w_: torch.matmul(x, w_.t()), w16,
+                                            2 * w16.numel()))
+            b6_ms = library_ms(torch, cold(lambda wq_: quant_mod.wint8_matmul(x, wq_, scale8),
+                                           wq8, wq8.numel()))
+            yard = f"bf16 torch.matmul {lib_ms:.4f} ms, B6 wint8_matmul {b6_ms:.4f} ms"
+            int_mm = None
+            if m > 16:  # torch._int_mm on x quantized beforehand, int32 out, no scales
+                xq, _ = quant_mod.quantize_rows_int8(x)
+                wt = (quant_mod.unpack_int4(wq) if qmode == "a8w4" else wq).t()
+                int_mm = library_ms(torch, lambda: torch._int_mm(xq, wt))
+                yard += f", torch._int_mm {int_mm:.4f} ms"
+                del xq, wt
+            record("llava kernels", name, (m, k, n), err, ms, plain_ms, lib_ms,
+                   bound(nbytes(x, wq, scale, out), 2 * m * n * k, "int8"))
+            core, note = a8w_core(qmode, m, k, n)
+            print(f"[llava kernels]   {name} {(m, k, n)}: core {core} ({note}) | "
+                  f"{2 * m * n * k / ms / 1e9:.1f} TOP/s of the bound's {2 * m * n * k:.4g} "
+                  f"operations | yardsticks: {yard}", flush=True)
+            summary[name][-1].update(core=core, tflops=2 * m * n * k / ms / 1e9,
+                                     wint8_ms=b6_ms, int_mm_ms=int_mm)
+            del x, wq, scale, w16, wq8, scale8, out, ref, control
+            gc.collect()
+    m, k, n = A8W_RAGGED["a8w8"]  # N2's refusal of a packed row of no whole 16 bytes
+    x = torch.zeros((m, k), dtype=bf16, device=dev)
+    try:
+        quant_mod.a8w4_matmul(x, torch.zeros((n, k // 2), dtype=torch.int8, device=dev),
+                              torch.ones(n, device=dev))
+        refused = ""
+    except ValueError as exc:
+        refused = str(exc)
+    print(f"[llava kernels] a8w4_matmul {(m, k, n)} refused: {refused}", flush=True)
+    check("K % 32 == 0" in refused, f"a8w4_matmul {(m, k, n)} was not refused")
+    del x
     decode_kernels(torch, F, dev, gen, record, da_mod)
     row_norm_checks(torch, dev, gen, norms_mod)
     rms_kernels(torch, F, dev, gen, record, norms_mod)
@@ -3504,12 +3674,15 @@ def main():
                 outs.append(step[0].float())
         return outs[0], torch.cat(outs[1:]), toks
 
-    def llava_agree(label, wint8):
+    def llava_agree(label, quant=None):
+        """The kernels (and under `quant` its GEMM: B6, N1 or N2) against their
+        plain versions swapped in; returns the greedy tokens of the kernels' run."""
         swaps = [(llama_mod, "rms_norm", norms_mod.rms_norm_ref),
                  (llama_mod, "decode_attention", da_mod.decode_attention_ref),
                  (norms_mod, "_ln_forward", norms_mod.layer_norm_ref)]  # the ViT's B10
-        if wint8:
-            swaps.append((llama_mod, "wint8_matmul", quant_mod.wint8_matmul_ref))
+        if quant is not None:
+            gemm = {"wint8": "wint8_matmul", "a8w8": "a8w8_matmul"}.get(quant, "a8w4_matmul")
+            swaps.append((llama_mod, gemm, getattr(quant_mod, f"{gemm}_ref")))
         pre_k, dec_k, toks = llava_steps()
         pre_p, dec_p, _ = llava_steps(swaps, toks)
         rel_pre, rel_dec = rel_l2(pre_k, pre_p), rel_l2(dec_k, dec_p)
@@ -3521,10 +3694,11 @@ def main():
         check(bool(torch.isfinite(pre_k).all() and torch.isfinite(dec_k).all())
               and rel_pre <= LLAVA_AGREE_TOL and rel_dec <= LLAVA_AGREE_TOL,
               f"{label}: relative L2 {rel_pre} / {rel_dec}")
-        return pre_k
+        return [int(t) for t in toks]
 
     llava_counters = {"rms_norm": norms_mod.rms_norm, "decode_attention": da_mod.decode_attention,
                       "wint8_matmul": quant_mod.wint8_matmul,
+                      "a8w8_matmul": quant_mod.a8w8_matmul, "a8w4_matmul": quant_mod.a8w4_matmul,
                       "flash_attention": attn_mod.flash_attention,
                       "layer_norm": norms_mod.layer_norm}
 
@@ -3568,10 +3742,10 @@ def main():
               f"{len(LLAVA_REQUESTS)} requests {launches}", flush=True)
         return launches, stats, peak
 
-    llava_agree("llava agree", wint8=False)
+    llava_agree("llava agree")
     launches_llava, stats_llava, peak_llava = llava_serve("llava serve")
 
-    # ---------------------------------------------------------------- wint8
+    # ---------------------------------------------------- quantized: wint8
     allocated = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     freed = model.quantize_("wint8")
@@ -3579,13 +3753,53 @@ def main():
     print(f"[wint8] quantized in place in {time.perf_counter() - t0:.2f} s: {freed / 1e9:.3f} "
           f"GB of weights freed; allocated {allocated / 2 ** 30:.2f} -> "
           f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
-    llava_agree("wint8 agree", wint8=True)
+    llava_agree("wint8 agree", "wint8")
     launches_wint8, stats_wint8, peak_wint8 = llava_serve("wint8 serve")
-    med = lambda stats, i: sorted(s[i] for s in stats)[len(stats) // 2]  # noqa: E731
+    med = lambda stats, i: sorted(s_[i] for s_ in stats)[len(stats) // 2]  # noqa: E731
     print(f"[wint8 serve] median decode tokens/s wint8 {med(stats_wint8, 2):.2f} vs bf16 "
           f"{med(stats_llava, 2):.2f}; TTFT wint8 {1e3 * med(stats_wint8, 0):.1f} ms vs bf16 "
           f"{1e3 * med(stats_llava, 0):.1f} ms; peak memory wint8 {peak_wint8:.2f} GiB vs "
           f"bf16 {peak_llava:.2f} GiB (same run)", flush=True)
+
+    # ------------------------------------------------ quantized: a8w8, a8w4
+    # quantizing frees the bf16 weights: each mode builds a fresh seeded model
+    launches_q, stats_q = {}, {}
+    lm_bf16_bytes = 2 * sum(m_.in_features * m_.out_features
+                            for m_ in model.language_model.modules()
+                            if isinstance(m_, llama_mod.MXUDense))
+    for mode in LLAVA_QUANT_MODES + ("wint4",):
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        model = random_llava(dev, bf16, seed=0, quant=mode)
+        torch.cuda.synchronize()
+        dense = [m_ for m_ in model.language_model.modules() if isinstance(m_, llama_mod.MXUDense)]
+        q_bytes = sum(nbytes(m_.kernel_q, m_.scale) for m_ in dense)
+        print(f"[{mode}] random_llava(quant={mode!r}) built and quantized in "
+              f"{time.perf_counter() - t0:.1f} s: {len(dense)} projections, weights "
+              f"{q_bytes / 1e9:.3f} GB against bf16's {lm_bf16_bytes / 1e9:.3f} GB "
+              f"({q_bytes / lm_bf16_bytes:.3f}x); {torch.cuda.memory_allocated() / 2 ** 30:.2f} "
+              f"GiB allocated; config quant {model.config.text.quant!r}", flush=True)
+        check(all(m_.quant == mode for m_ in dense) and model.config.text.quant == mode,
+              f"{mode}: a projection left unquantized")
+        if mode == "wint4":  # a8w4's path: N2 launched, the same greedy tokens bit for bit
+            before = quant_mod.a8w4_matmul.launches
+            toks = llava_agree("wint4 agree", mode)
+            n2 = quant_mod.a8w4_matmul.launches - before
+            print(f"[wint4 agree] {n2} N2 launches in the kernels' run; greedy tokens "
+                  f"{toks} against a8w4's {toks_a8w4}", flush=True)
+            check(n2 > 0 and toks == toks_a8w4, "wint4: N2 not launched or tokens differ")
+            continue
+        toks = llava_agree(f"{mode} agree", mode)
+        if mode == "a8w4":
+            toks_a8w4 = toks
+        launches_q[mode], stats_q[mode], peak = llava_serve(f"{mode} serve")
+        print(f"[{mode} serve] median decode tokens/s {mode} {med(stats_q[mode], 2):.2f} vs wint8 "
+              f"{med(stats_wint8, 2):.2f} vs bf16 {med(stats_llava, 2):.2f}; TTFT {mode} "
+              f"{1e3 * med(stats_q[mode], 0):.1f} ms vs bf16 {1e3 * med(stats_llava, 0):.1f} ms; "
+              f"peak memory {mode} {peak:.2f} GiB vs bf16 {peak_llava:.2f} GiB (same run)",
+              flush=True)
 
     # ------------------------------------------------------ free the LLaVA model
     del model, pixels, ids
@@ -4081,6 +4295,7 @@ def main():
 
     def llava(name):
         return {"llava_bf16": launches_llava[name], "llava_wint8": launches_wint8[name],
+                "llava_a8w8": launches_q["a8w8"][name], "llava_a8w4": launches_q["a8w4"][name],
                 "sd3": launches_sd3[name]}
 
     def train_phases(name):
@@ -4108,6 +4323,11 @@ def main():
               "paddlemix_tpu/ops/fused_resnet.py:196", sdxl("fused_gn_silu_conv3x3")),
         entry("wint8_matmul", "cuda", "paddlemix_tpu_torch/csrc/wint8_gemm.cu",
               "paddlemix_tpu/ops/quant.py:445", llava("wint8_matmul")),
+        # N1 / N2 replace no Pallas kernel: JAX's a8w8 and a8w4 Dense are XLA dots
+        entry("a8w8_matmul", "cuda", "paddlemix_tpu_torch/csrc/a8w_gemm.cu",
+              "paddlemix_tpu/models/llama/modeling.py:169", llava("a8w8_matmul")),
+        entry("a8w4_matmul", "cuda", "paddlemix_tpu_torch/csrc/a8w_gemm.cu",
+              "paddlemix_tpu/models/llama/modeling.py:150", llava("a8w4_matmul")),
         entry("decode_attention", "cuda", "paddlemix_tpu_torch/csrc/decode_attention.cu",
               "paddlemix_tpu/ops/decode_attention.py:68",
               dict(llava("decode_attention"), **llama_phases("decode_attention"))),
@@ -4136,7 +4356,9 @@ def main():
               {"bf16": launches_bf16["layer_norm"], "a8w8": launches_a8w8["layer_norm"],
                "a8w8_int8_attn": launches_i8attn["layer_norm"], "sd15": launches_sd15["layer_norm"],
                "llava_bf16": launches_llava["layer_norm"],
-               "llava_wint8": launches_wint8["layer_norm"], "sd3": launches_sd3["layer_norm"],
+               "llava_wint8": launches_wint8["layer_norm"],
+               "llava_a8w8": launches_q["a8w8"]["layer_norm"],
+               "llava_a8w4": launches_q["a8w4"]["layer_norm"], "sd3": launches_sd3["layer_norm"],
                "clip": launches_clip["layer_norm"], "clip_train": launches_clip_tr["layer_norm"]}),
         entry("layer_norm_backward", "cuda", "paddlemix_tpu_torch/csrc/norms.cu",
               "paddlemix_tpu/ops/norms.py:226",
@@ -4185,7 +4407,9 @@ def main():
         [(name, "sd15") for name in ("flash_attention", "group_norm", "layer_norm")] + \
         [("flash_attention", "bf16"), ("group_norm", "bf16")] + \
         [(name, phase) for name in ("decode_attention", "rms_norm")
-         for phase in ("llava_bf16", "llava_wint8")] + [("wint8_matmul", "llava_wint8")] + \
+         for phase in ("llava_bf16", "llava_wint8", "llava_a8w8", "llava_a8w4")] + \
+        [("wint8_matmul", "llava_wint8"), ("a8w8_matmul", "llava_a8w8"),
+         ("a8w4_matmul", "llava_a8w4")] + \
         [(name, "sd3") for name in ("flash_attention", "group_norm", "rms_norm",
                                     "adaptive_layer_norm", "fused_adaln_scale_residual")] + \
         [("rms_norm", phase) for phase in ("llama_int8kv", "llama_bf16kv", "llama_paged")] + \
@@ -4193,8 +4417,9 @@ def main():
          ("paged_decode_attention", "llama_paged")] + \
         [(name, "train") for name in ("rms_norm", "flash_fwd_lse", "flash_bwd_dkv",
                                       "flash_bwd_dq", "rms_norm_backward")] + \
-        [("layer_norm", phase) for phase in ("bf16", "a8w8", "llava_bf16", "llava_wint8", "sd3",
-                                             "clip", "clip_train")] + \
+        [("layer_norm", phase) for phase in ("bf16", "a8w8", "llava_bf16", "llava_wint8",
+                                             "llava_a8w8", "llava_a8w4", "sd3", "clip",
+                                             "clip_train")] + \
         [("layer_norm_backward", "clip_train")] + \
         [(name, "sd15_train") for name in (
             "flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq", "group_norm",
@@ -4213,7 +4438,8 @@ def main():
     print(f"[summary] chip_smoke ran {time.perf_counter() - T_START:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
 
 

@@ -160,7 +160,9 @@ def torch_key_to_flax(key: str, key_map: KeyMap) -> str:
 
 def _to_torch_layout(flax_key: str, arr: np.ndarray) -> np.ndarray:
     """Dense `kernel` (in, out) -> `weight` (out, in), and the same for a
-    weight-only int8 `kernel_q` (its `scale` keeps (out,)); conv HWIO -> OIHW.
+    quantized `kernel_q` (its `scale` keeps (out,)): int8 (in, out), or packed
+    int4 (in // 2, out), whose byte j holds rows j and j + in / 2, so that its
+    transpose is the port's packed (out, in // 2); conv HWIO -> OIHW.
     `embedding` tables (nn.Embed) and every other array keep their layout: the
     decision is by the flax leaf name, so `time_embedding.linear_1.kernel` is a
     Dense and is transposed."""
@@ -189,7 +191,11 @@ def flax_to_torch_state_dict(flax_flat: Dict[str, np.ndarray], module: torch.nn.
         if fkey in used:
             raise KeyError(f"flax key {fkey} claimed by both {used[fkey]} and {tkey}")
         used[fkey] = tkey
-        arr = _to_torch_layout(fkey, np.asarray(flax_flat[fkey], dtype=np.float32))
+        arr = np.asarray(flax_flat[fkey])
+        # floats pass through fp32; integers (int8 kernel_q, packed int4
+        # included) keep their type
+        arr = _to_torch_layout(fkey, arr if np.issubdtype(arr.dtype, np.integer)
+                               else arr.astype(np.float32))
         if tuple(arr.shape) != tuple(ref.shape):
             mismatched.append(f"{tkey}: flax {arr.shape} vs torch {tuple(ref.shape)}")
             continue

@@ -8,8 +8,11 @@ from typing import Optional
 
 
 # the JAX config's options this slice leaves out, at their (off) defaults
-_UNPORTED = dict(quant=None, fused_qkv=False, scan_layers=False, rope_ntk_alpha=1.0,
+_UNPORTED = dict(fused_qkv=False, scan_layers=False, rope_ntk_alpha=1.0,
                  use_logn_attn=False, logn_seq_length=2048)
+# the Dense layers' quantization (`MXUDense`): weight-only int8, dynamic int8
+# activations with int8 or packed int4 weights (wint4 computes as a8w4)
+QUANT_MODES = (None, "wint8", "a8w8", "a8w4", "wint4")
 
 
 @dataclasses.dataclass
@@ -32,12 +35,19 @@ class LlamaConfig:
     pad_token_id: Optional[int] = None
     cachekv_int8: bool = False  # init_cache builds an Int8KVCache
     gradient_checkpointing: bool = False  # recompute each layer in the backward (training)
+    # one of QUANT_MODES: the projections and the lm_head hold kernel_q / scale
+    # in place of their weight (set by LlamaForCausalLM.quantize_, or given to
+    # build a model that takes a quantized state dict)
+    quant: Optional[str] = None
+
+    def __post_init__(self):
+        if self.quant not in QUANT_MODES:
+            raise ValueError(f"LlamaConfig: quant {self.quant!r} is not one of {QUANT_MODES}")
 
     @classmethod
     def from_dict(cls, d):
         """The JAX config's options that this slice does not port must hold
-        their defaults. Weight-only int8 is not a config field here: it is
-        `LlamaForCausalLM.quantize_("wint8")`."""
+        their defaults."""
         names = {f.name for f in dataclasses.fields(cls)}
         unported = {k: v for k, v in d.items()
                     if k not in names and _UNPORTED.get(k, object()) != v}

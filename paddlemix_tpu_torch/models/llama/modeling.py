@@ -5,7 +5,8 @@ the dense `KVCache`, the int8 `Int8KVCache` (`cachekv_int8`) and the
 `PagedKVCache` (models/llama/paged.py); the cache-free forward over packed
 rows (positions restart in each sample, segment ids keep the samples apart)
 with optional per-layer recompute (`gradient_checkpointing`); `MXUDense`
-with quant None or "wint8", `LlamaForCausalLM` and `greedy_generate`.
+with quant None, "wint8", "a8w8", "a8w4" or "wint4" (config.quant, or
+`LlamaForCausalLM.quantize_`), `LlamaForCausalLM` and `greedy_generate`.
 
 Kernels on these paths, each launched for CUDA tensors (plain versions on the
 CPU): RMSNorm (B11, `ops.norms.rms_norm`) for every norm; for every
@@ -15,9 +16,14 @@ single-token step decode attention over the dense cache (B7,
 `ops.paged_attention.paged_decode_attention`); in the cache-free forward
 causal flash attention with segment ids (B1, or under autograd its lse form
 B15 and the backward B14, `ops.attention.flash_attention`), and under
-autograd RMSNorm's backward (B11); and under wint8 the
-weight-only int8 GEMM (B6, `ops.quant.wint8_matmul`) for every projection
-and the lm_head. The JAX package routes these by v5e thresholds (at least 64
+autograd RMSNorm's backward (B11); and for every projection and the lm_head
+under wint8 the weight-only int8 GEMM (B6, `ops.quant.wint8_matmul`), under
+a8w8 the dynamic a8w8 GEMM (N1, `ops.quant.a8w8_matmul`), under a8w4 and
+wint4 the a8w4 GEMM over packed int4 weights (N2, `ops.quant.a8w4_matmul`).
+N1 and N2 replace no Pallas kernel (JAX runs XLA dots there); each quantizes
+x per row at run time. The JAX generate unpacks the int4 tree once before
+its decode loop, a TPU workaround; the port's kernel reads the packed
+bytes. The JAX package routes these by v5e thresholds (at least 64
 rows, at least 2048 cache slots, 128-aligned widths); eager PyTorch has no
 fusion to lose, so the port launches them for every call. The prefill
 attends over the cache by math attention with a -1e9 bias past each query's
@@ -47,9 +53,15 @@ from ...ops.attention import SegmentIds, attention_math, scaled_dot_product_atte
 from ...ops.decode_attention import decode_attention, decode_attention_int8
 from ...ops.norms import rms_norm
 from ...ops.paged_attention import paged_decode_attention
-from ...ops.quant import quantize_weights_int8, wint8_matmul
+from ...ops.quant import (
+    a8w4_matmul,
+    a8w8_matmul,
+    quantize_weights_int4,
+    quantize_weights_int8,
+    wint8_matmul,
+)
 from ...ops.rope import apply_rope, rope_cos_sin
-from .configuration import LlamaConfig
+from .configuration import QUANT_MODES, LlamaConfig
 from .paged import PagedKVCache
 
 
@@ -129,32 +141,65 @@ class RMSNorm(nn.Module):
 
 
 class MXUDense(nn.Linear):
-    """A Linear with the JAX `MXUDense`'s weight-only int8 mode. The JAX
-    module pads the rows to 8 for the TPU's matrix unit; the port does not.
-    `quantize_wint8_()` replaces the weight by `kernel_q` (out, in) int8 and
-    `scale` (out,) fp32 in place, after which the forward is the B6 kernel."""
+    """A Linear with the JAX `MXUDense`'s quantized modes (`QUANT_MODES`). The
+    JAX module pads the rows to 8 for the TPU's matrix unit; the port does
+    not. Built with `quant` set, it holds buffers `kernel_q` and `scale` in
+    place of its weight, as the JAX module declares them (so a quantized JAX
+    tree carries across); `quantize_(mode)` makes them from the weight in
+    place and frees it. `kernel_q` is (out, in) int8 under wint8 and a8w8,
+    (out, in // 2) packed int4 under a8w4 and wint4; `scale` is (out,) fp32 and
+    must stay so. The forwards: wint8 the weight-only int8 GEMM (B6), a8w8 the
+    dynamic a8w8 GEMM (N1), a8w4 and wint4 the a8w4 GEMM (N2; JAX's wint4 is
+    not weight-only either: it takes the a8w4 branch)."""
 
     quant: Optional[str] = None
 
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 quant: Optional[str] = None):
+        if quant is None:
+            super().__init__(in_features, out_features, bias=bias)
+            return
+        super().__init__(in_features, out_features, bias=False, device="meta")
+        del self.weight
+        if bias:
+            self.bias = nn.Parameter(torch.zeros(out_features))
+        width = in_features // 2 if quant in ("a8w4", "wint4") else in_features
+        self._hold(quant, torch.zeros((out_features, width), dtype=torch.int8),
+                   torch.ones(out_features))
+
+    def _hold(self, quant, kernel_q, scale):
+        self.register_buffer("kernel_q", kernel_q)
+        self.register_buffer("scale", scale)
+        self.quant = quant
+
     def forward(self, x):
-        if self.quant != "wint8":
+        if self.quant is None:
             return F.linear(x, self.weight, self.bias)
-        out = wint8_matmul(x, self.kernel_q, self.scale)
+        if self.quant == "wint8":
+            out = wint8_matmul(x, self.kernel_q, self.scale)
+        elif self.quant == "a8w8":
+            out = a8w8_matmul(x, self.kernel_q, self.scale)
+        else:
+            out = a8w4_matmul(x, self.kernel_q, self.scale)
         return out if self.bias is None else out + self.bias.to(out.dtype)
 
     @torch.no_grad()
-    def quantize_wint8_(self) -> int:
-        """Quantize the weight once (one leaf of `quantize_tree_wint8`).
-        Returns the bytes freed."""
-        if self.quant == "wint8":
+    def quantize_(self, mode: str) -> int:
+        """Quantize the weight once, in place (one leaf of the JAX
+        `quantize_tree_wint8` / `quantize_tree_int4`): the weight is freed as
+        its kernel_q and scale are made. Returns the bytes freed."""
+        if mode not in QUANT_MODES[1:]:
+            raise ValueError(f"quantize_: mode {mode!r} is not one of {QUANT_MODES[1:]}")
+        if self.quant is not None:
+            if self.quant != mode:
+                raise ValueError(f"quantize_({mode!r}): already quantized to {self.quant!r}")
             return 0
-        w = self.weight
-        kernel_q, scale = quantize_weights_int8(w)
-        freed = w.numel() * w.element_size() - kernel_q.numel() - 4 * scale.numel()
+        quantize = quantize_weights_int4 if mode in ("a8w4", "wint4") else quantize_weights_int8
+        kernel_q, scale = quantize(self.weight)
+        freed = self.weight.numel() * self.weight.element_size() - kernel_q.numel() \
+            - 4 * scale.numel()
         del self.weight
-        self.register_buffer("kernel_q", kernel_q)
-        self.register_buffer("scale", scale)
-        self.quant = "wint8"
+        self._hold(mode, kernel_q, scale)
         return freed
 
 
@@ -179,10 +224,10 @@ class LlamaAttention(nn.Module):
         self.num_heads, self.kv_heads, self.head_dim = (cfg.num_attention_heads, cfg.kv_heads,
                                                         cfg.head_dim_)
         nq, nkv = self.num_heads * self.head_dim, self.kv_heads * self.head_dim
-        self.q_proj = MXUDense(cfg.hidden_size, nq, bias=cfg.attention_bias)
-        self.k_proj = MXUDense(cfg.hidden_size, nkv, bias=cfg.attention_bias)
-        self.v_proj = MXUDense(cfg.hidden_size, nkv, bias=cfg.attention_bias)
-        self.o_proj = MXUDense(nq, cfg.hidden_size, bias=False)
+        self.q_proj = MXUDense(cfg.hidden_size, nq, bias=cfg.attention_bias, quant=cfg.quant)
+        self.k_proj = MXUDense(cfg.hidden_size, nkv, bias=cfg.attention_bias, quant=cfg.quant)
+        self.v_proj = MXUDense(cfg.hidden_size, nkv, bias=cfg.attention_bias, quant=cfg.quant)
+        self.o_proj = MXUDense(nq, cfg.hidden_size, bias=False, quant=cfg.quant)
 
     def forward(self, x, step: _Step, cache, layer_idx: int):
         b, s, _ = x.shape
@@ -229,9 +274,12 @@ class LlamaAttention(nn.Module):
 class LlamaMLP(nn.Module):
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
-        self.gate_proj = MXUDense(cfg.hidden_size, cfg.intermediate_size, bias=False)
-        self.up_proj = MXUDense(cfg.hidden_size, cfg.intermediate_size, bias=False)
-        self.down_proj = MXUDense(cfg.intermediate_size, cfg.hidden_size, bias=False)
+        self.gate_proj = MXUDense(cfg.hidden_size, cfg.intermediate_size, bias=False,
+                                  quant=cfg.quant)
+        self.up_proj = MXUDense(cfg.hidden_size, cfg.intermediate_size, bias=False,
+                                quant=cfg.quant)
+        self.down_proj = MXUDense(cfg.intermediate_size, cfg.hidden_size, bias=False,
+                                  quant=cfg.quant)
 
     def forward(self, x):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
@@ -317,7 +365,7 @@ class LlamaForCausalLM(nn.Module):
         self.config = config
         self.model = LlamaModule(config)
         self.lm_head = None if config.tie_word_embeddings else \
-            MXUDense(config.hidden_size, config.vocab_size, bias=False)
+            MXUDense(config.hidden_size, config.vocab_size, bias=False, quant=config.quant)
 
     @property
     def device(self):
@@ -347,15 +395,21 @@ class LlamaForCausalLM(nn.Module):
         return KVCache.create(self.config, batch, max_len, dtype=dtype or self.dtype,
                               device=self.device)
 
-    def quantize_(self, mode: str = "wint8") -> int:
-        """In-place weight-only int8 of every projection and the lm_head (the
-        reference deploy's weight_only_int8; embeddings and norms stay), one
-        layer at a time, so that peak memory is the model plus one weight's
-        temporaries (port of `quantize_tree_wint8`). Returns the bytes freed.
-        a8w8 / a8w4 / wint4 are not ported yet."""
-        if mode != "wint8":
-            raise NotImplementedError(f"quantize_({mode!r}): only 'wint8' is ported")
-        return sum(m.quantize_wint8_() for m in list(self.modules()) if isinstance(m, MXUDense))
+    def quantize_(self, mode: str = "a8w8") -> int:
+        """In-place quantization of every projection and the lm_head to `mode`
+        (one of `QUANT_MODES`: the reference deploy's weight_only_int8 /
+        weight_only_int4, or the JAX package's dynamic a8w8 / a8w4; embeddings
+        and norms stay), one module at a time, each weight freed as its
+        replacement is made, so that peak memory is the model plus one
+        weight's temporaries (port of `quantize_` over `quantize_tree_wint8`
+        / `quantize_tree_int4`, every Dense at any size). The config becomes
+        a copy with `quant` set, as in the JAX package. Returns the bytes
+        freed."""
+        if mode not in QUANT_MODES[1:]:
+            raise ValueError(f"quantize_: mode {mode!r} is not one of {QUANT_MODES[1:]}")
+        freed = sum(m.quantize_(mode) for m in list(self.modules()) if isinstance(m, MXUDense))
+        self.config = self.model.config = dataclasses.replace(self.config, quant=mode)
+        return freed
 
 
 class SamplingConfig(NamedTuple):

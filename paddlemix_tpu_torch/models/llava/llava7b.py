@@ -5,7 +5,8 @@ a CLIP ViT-L/14 tower at 336 px (24 layers, 1024 wide, 16 heads, 577
 tokens), the mlp2x_gelu projector (1024 -> 4096 -> 4096) and Llama-7B (32
 layers, 4096 wide, 32 heads, MLP 11008, vocab 32000). No checkpoint is read:
 weights come from a torch.Generator (core.init), made on the target device.
-`quant="wint8"` quantizes the language model in place after the build.
+`quant` ("wint8", "a8w8", "a8w4" or "wint4") quantizes the language model
+in place after the build.
 """
 
 from __future__ import annotations
@@ -37,8 +38,9 @@ def llava7b_config() -> LlavaConfig:
 def random_llava(device="cuda", dtype=torch.bfloat16, seed: int = 0, quant=None,
                  config: LlavaConfig = None) -> LlavaForConditionalGeneration:
     """LLaVA (by default 1.5-7B) with weights drawn on `device` from one seeded
-    generator; RMSNorm scales stay fp32. `quant="wint8"` then quantizes the
-    language model's projections and lm_head in place."""
+    generator; RMSNorm scales stay fp32. `quant` (one of the Llama config's
+    `QUANT_MODES`) then quantizes the language model's projections and
+    lm_head in place, each bf16 weight freed as its replacement is made."""
     cfg = config or llava7b_config()
     gen = torch.Generator(device=device).manual_seed(seed)
     model = build_random(lambda: LlavaForConditionalGeneration(cfg), device=device, dtype=dtype,
@@ -61,11 +63,13 @@ def expected_launches_llava(model: LlavaForConditionalGeneration, prompt_len: in
                             new_tokens: int) -> Dict[str, int]:
     """Kernel launches of one batch-1 `generate` call, from walking the
     modules: the prefill and each of the new_tokens - 1 decode steps run
-    every RMSNorm once (B11) and, under wint8, every quantized projection
-    once (B6); every decode step runs decode attention once per layer (B7),
-    and so does a one-token prefill. The vision tower runs once: its
-    attention goes to flash or math by `use_flash` at its token count, and
-    each of its LayerNorms (B10) launches once."""
+    every RMSNorm once (B11) and every quantized projection once: B6 under
+    wint8, N1 under a8w8, N2 under a8w4 and wint4 (at M > 1, the prefill, a
+    call's activation pass and GEMM count once); every decode step runs
+    decode attention once per layer (B7), and so does a one-token prefill.
+    The vision tower runs once: its attention goes to flash or math by
+    `use_flash` at its token count, and each of its LayerNorms (B10)
+    launches once."""
     lm = model.language_model
     forwards = new_tokens  # one prefill + (new_tokens - 1) decode steps
     single_token_forwards = new_tokens - 1 + (prompt_len == 1)
@@ -73,10 +77,13 @@ def expected_launches_llava(model: LlavaForConditionalGeneration, prompt_len: in
     tokens = (vcfg.image_size // vcfg.patch_size) ** 2 + 1
     q = (1, tokens, vcfg.num_attention_heads, vcfg.hidden_size // vcfg.num_attention_heads)
     count = lambda kind: sum(isinstance(m, kind) for m in lm.modules())  # noqa: E731
+    quantized = lambda *modes: forwards * sum(  # noqa: E731
+        isinstance(m, MXUDense) and m.quant in modes for m in lm.modules())
     return {
         "rms_norm": count(RMSNorm) * forwards,
-        "wint8_matmul": sum(isinstance(m, MXUDense) and m.quant == "wint8"
-                            for m in lm.modules()) * forwards,
+        "wint8_matmul": quantized("wint8"),
+        "a8w8_matmul": quantized("a8w8"),
+        "a8w4_matmul": quantized("a8w4", "wint4"),
         "decode_attention": count(LlamaAttention) * single_token_forwards,
         "flash_attention": vcfg.num_hidden_layers * use_flash(q, q),
         "layer_norm": n_layer_norms(model.vision_tower),

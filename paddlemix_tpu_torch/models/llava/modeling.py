@@ -128,10 +128,14 @@ class LlavaForConditionalGeneration(LlavaModule):
         lm = self.language_model
         return KVCache.create(lm.config, batch, max_len, dtype=dtype or lm.dtype, device=lm.device)
 
-    def quantize_(self, mode: str = "wint8") -> int:
-        """Weight-only int8 of the language model's projections and lm_head
-        (the vision tower and projector stay); returns the bytes freed."""
-        return self.language_model.quantize_(mode)
+    def quantize_(self, mode: str = "a8w8") -> int:
+        """`LlamaForCausalLM.quantize_` of the language model's projections
+        and lm_head (the vision tower and projector stay); the config becomes
+        a copy whose text config has `quant` set. Returns the bytes freed."""
+        freed = self.language_model.quantize_(mode)
+        self.config = dataclasses.replace(
+            self.config, text_config=dict(self.config.text_config, quant=mode))
+        return freed
 
     @torch.inference_mode()
     def generate(self, input_ids, pixel_values=None, attention_mask=None,

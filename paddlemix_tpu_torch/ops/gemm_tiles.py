@@ -19,6 +19,12 @@ the plan's `tile`:
     outer index is the pixel tile (image-major, then rows of tiles), the
     inner one the column block; the reduction runs through the 9 taps x
     64-channel chunks.
+  - N1, the dynamic a8w8 GEMM's tiled path (csrc/a8w_gemm.cu, kind
+    "a8w8_dyn"): B2's orientation, 128 rows of the int8 x by `tile` (256 or
+    128) weight rows, stages 64 deep.
+  - N2, the a8w4 GEMM's tiled path (csrc/a8w_gemm.cu, kind "a8w4"): B6's
+    orientation, 128 weight rows by `tile` (256 or 128) tokens; a stage is 64
+    packed bytes of the weight, 128 deep in K (the low and the high nibbles).
 Blocks run in clusters of two whose tiles read the same rows of x, which
 each block loads half of for both (TMA multicast): B2 pairs column blocks
 (outer, 2i) and (outer, 2i + 1), B6 weight blocks (2o, inner) and (2o + 1,
@@ -47,10 +53,13 @@ CLUSTER = 2       # blocks a cluster
 H100_CLUSTERS = 66  # 2-block clusters an H100 SXM (132 SMs) runs at once
 A8W8_TILES = (256, 128)
 WINT8_TILES = (64, 128, 152, 208, 256)
+A8W_TILES = (256, 128)  # N1's output columns, N2's tokens of a tile (s8 wgmma's N)
+SMEM_MAX = 232448            # the dynamic shared memory a block can opt into
 # (output channels, pixels) of the convs' compiled tiles
 CONV_TILES = ((160, 256), (128, 256), (160, 128))
 PIXEL_TILES = (256, 128, 64, 32, 16, 8)  # a conv tile's pixels along W (at most `pixels`)
-_TILE_COST = {"a8w8": 64, "wint8": 32}
+_TILE_COST = {"a8w8": 64, "wint8": 32, "a8w8_dyn": 32, "a8w4": 32}
+_ROW_MAJOR = ("a8w8", "a8w8_dyn")  # tiles of 128 rows of x by `tile` columns
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -87,27 +96,28 @@ class _Walked:
 
 @dataclass(frozen=True)
 class GemmPlan(_Walked):
-    kernel: str       # "a8w8" (B2) or "wint8" (B6)
+    kernel: str       # "a8w8" (B2), "wint8" (B6), "a8w8_dyn" (N1) or "a8w4" (N2)
     m: int
     n: int
     k: int
-    tile: int         # B2: output columns of a tile; B6: tokens of a tile
+    tile: int         # B2, N1: output columns of a tile; B6, N2: tokens of a tile
     outer_tiles: int
     inner_tiles: int
     grid: int         # blocks, CLUSTER a cluster
 
     @property
     def pair_inner(self) -> bool:
-        return self.kernel == "a8w8"
+        return self.kernel in _ROW_MAJOR
 
     @property
     def k_blocks(self) -> int:
-        return _cdiv(self.k, BK)
+        """Stages a tile: 64 deep in K, N2's 64 packed bytes (128 deep)."""
+        return _cdiv(self.k, 2 * BK if self.kernel == "a8w4" else BK)
 
     def region(self, outer: int, inner: int) -> Tuple[slice, slice]:
         """(rows, columns) of `out` that tile (outer, inner) covers, clipped
         to (M, N) as the TMA store clips them."""
-        if self.kernel == "a8w8":
+        if self.kernel in _ROW_MAJOR:
             r0, c0, rows, cols = outer * BLOCK_ROWS, inner * self.tile, BLOCK_ROWS, self.tile
         else:
             r0, c0, rows, cols = inner * self.tile, outer * BLOCK_ROWS, self.tile, BLOCK_ROWS
@@ -198,7 +208,7 @@ def _conv_cost(plan: ConvPlan, fit: int) -> float:
 def _plan(kernel: str, tiles: Tuple[int, ...], m: int, n: int, k: int,
           clusters: Clusters) -> GemmPlan:
     def plan(tile):
-        outer, inner = ((_cdiv(m, BLOCK_ROWS), _cdiv(n, tile)) if kernel == "a8w8"
+        outer, inner = ((_cdiv(m, BLOCK_ROWS), _cdiv(n, tile)) if kernel in _ROW_MAJOR
                         else (_cdiv(n, BLOCK_ROWS), _cdiv(m, tile)))
         return GemmPlan(kernel, m, n, k, tile, outer, inner, 0)
 
@@ -224,6 +234,49 @@ def wint8_plan(m: int, n: int, k: int, clusters: Clusters = H100_CLUSTERS,
     """B6's tiled plan (m > 1) for x (m, k) @ wq (n, k)^T, `clusters` and
     `tiles` as in `a8w8_plan`."""
     return _plan("wint8", tiles, m, n, k, clusters)
+
+
+def a8w8_dyn_plan(m: int, n: int, k: int, clusters: Clusters = H100_CLUSTERS,
+                  tiles: Tuple[int, ...] = A8W_TILES) -> GemmPlan:
+    """N1's tiled plan (m > 1) for x (m, k) @ wq (n, k)^T."""
+    return _plan("a8w8_dyn", tiles, m, n, k, clusters)
+
+
+def a8w4_plan(m: int, n: int, k: int, clusters: Clusters = H100_CLUSTERS,
+              tiles: Tuple[int, ...] = A8W_TILES) -> GemmPlan:
+    """N2's tiled plan (m > 1) for x (m, k) @ w4 (n, k)^T, the weight packed
+    (n, k // 2)."""
+    return _plan("a8w4", tiles, m, n, k, clusters)
+
+
+def _stages_that_fit(stage_bytes: int, out_bytes: int) -> int:
+    """csrc/gemm_wg.cuh `stages_that_fit`: the largest ring (at most 6) beside
+    the two staging tiles and the barriers."""
+    return min(6, (SMEM_MAX - 1024 - 2 * out_bytes - 16 * 6 - 16) // stage_bytes)
+
+
+def a8w_layout(kernel: str, tile: int) -> Tuple[int, int]:
+    """(ring stages, dynamic shared memory of a block) of N1 ("a8w8_dyn") or
+    N2 ("a8w4") at a tile of `tile`, as csrc/a8w_gemm.cu lays them out: N1 a
+    stage of 128 rows of int8 x and `tile` weight rows, 64 bytes each, and a
+    staging tile of 64 x `tile` bf16 plus the tile's column scales; N2 a
+    stage of `tile` tokens of int8 x at k and at k + K / 2 and 128 weight
+    rows, 64 bytes each, and a staging tile of `tile` x 64 bf16 plus the
+    tile's token scales (each staging tile 1,024-byte aligned)."""
+    if kernel == "a8w8_dyn":
+        stage, out = 128 * 64 + tile * 64, 64 * tile * 2 + tile * 4
+    else:
+        stage, out = 2 * tile * 64 + 128 * 64, tile * 128 + tile * 4
+    out = _cdiv(out, 1024) * 1024
+    stages = _stages_that_fit(stage, out)
+    return stages, 1024 + stages * stage + 2 * out + 16 * stages + 16
+
+
+def a8w_plan_fields(plan: GemmPlan) -> Tuple[int, ...]:
+    """What csrc/a8w_gemm.cu's `a8w_gemm_plan` answers for `plan`:
+    (unit_inner, units, k_blocks, pair_inner, stages, shared memory)."""
+    return (plan.unit_inner, plan.units, plan.k_blocks, int(plan.pair_inner),
+            *a8w_layout(plan.kernel, plan.tile))
 
 
 def conv_plan(b: int, h: int, w: int, c: int, o: int, clusters: Clusters = H100_CLUSTERS,

@@ -1,10 +1,12 @@
-"""Static-scale a8w8 PTQ (the scale scope and the quantized layers) and
-weight-only int8. Port of the static half of paddlemix_tpu/ops/quant.py
-(static_a8w8_scope, static_quant_dot_general,
-static_quant_conv_general_dilated) and of its weight-only int8 part
-(quantize_weights_int8, wint8_matmul; the module-level quantizer is
-models/llama MXUDense.quantize_wint8_); the weight-only int8 notes are at
-the end of the module.
+"""Static-scale a8w8 PTQ (the scale scope and the quantized layers),
+weight-only int8, and Llama's dynamic a8w8 / a8w4. Port of the static half of
+paddlemix_tpu/ops/quant.py (static_a8w8_scope, static_quant_dot_general,
+static_quant_conv_general_dilated), of its weight-only int8 part
+(quantize_weights_int8, wint8_matmul) and of its int4 packing
+(quantize_weights_int4, unpack_int4), with the dynamic products of
+paddlemix_tpu/models/llama/modeling.py MXUDense (the module-level quantizer
+is models/llama MXUDense.quantize_); the weight-only int8 and the dynamic
+notes are at the end of the module.
 
 PTQ here means int8 activations with one scale per op, recorded once from a
 calibration forward, and int8 weights with one scale per output channel.
@@ -51,7 +53,15 @@ from .conv_int8 import (
     int8_conv3x3_same,
     quantize_weight_per_cout,
 )
-from .gemm_tiles import BK, WINT8_TILES, max_clusters, wint8_plan
+from .gemm_tiles import (
+    A8W_TILES,
+    BK,
+    WINT8_TILES,
+    a8w4_plan,
+    a8w8_dyn_plan,
+    max_clusters,
+    wint8_plan,
+)
 
 _RECORDING: Optional["static_a8w8_scope"] = None
 
@@ -341,3 +351,216 @@ def wint8_matmul(x, wq, scale):
 
 
 wint8_matmul.launches = 0  # kernel launches (CUDA tensors only)
+
+
+# ------------------------------------------------------ dynamic a8w8 / a8w4
+# Llama's projections under quant="a8w8", "a8w4" or "wint4" (the JAX
+# MXUDense's dynamic branches; wint4 takes a8w4's): each row of x is quantized
+# to int8 at run time with its own scale, the weights are int8 (N, K) or int4
+# packed two to a byte (N, K // 2), each output column has one fp32 scale, and
+# the int32 sum is scaled by the row's and the column's scales. The weights
+# keep nn.Linear's (out, in) layout: the transpose of the flax kernel_q, whose
+# int4 packing splits the input halves (row k of w in the low nibble of byte
+# k, row k + K / 2 in the high one), which a transpose keeps.
+#
+# `a8w8_matmul` / `a8w4_matmul` launch csrc/a8w_gemm.cu (N1 / N2: a GEMV at
+# M = 1, else an activation pass and the wgmma core at the tile plan of
+# ops/gemm_tiles.py) for CUDA tensors and run `a8w8_matmul_ref` /
+# `a8w4_matmul_ref` for CPU tensors.
+
+A8W_GEMV_MAX_K = 48128  # the GEMV keeps x's int8 row in shared memory
+
+
+def quantize_weights_int4(w):
+    """w: (N, K), one row per output column, K even -> (kernel_q int8 (N,
+    K // 2), (N,) fp32 scales). Port of `quantize_weights_int4` (which takes
+    the (K, N) flax kernel): symmetric int4, scale = absmax / 7 per output
+    column (1.0 for an all-zero column), w / scale rounded half to even and
+    clipped to +-7; column k of the row goes in the low nibble of byte k,
+    column k + K / 2 in its high nibble."""
+    wf = w.detach().float()
+    k = wf.shape[1]
+    if k % 2:
+        raise ValueError(f"quantize_weights_int4: the int4 pack needs an even input width, got {k}")
+    absmax = wf.abs().amax(dim=1)
+    scale = torch.where(absmax == 0, torch.ones_like(absmax), absmax / 7.0)
+    q = torch.round(wf / scale[:, None]).clamp_(-7, 7).to(torch.int32)
+    packed = (q[:, k // 2:] << 4) | (q[:, :k // 2] & 15)
+    return packed.to(torch.int8), scale
+
+
+def unpack_int4(packed):
+    """(N, K // 2) packed int8 -> (N, K) int8: the low nibbles, then the high
+    ones, each sign-extended by arithmetic shifts (port of `unpack_int4`)."""
+    p = packed.to(torch.int32)
+    return torch.cat([(p << 28) >> 28, (p << 24) >> 28], dim=1).to(torch.int8)
+
+
+def quantize_rows_int8(x):
+    """x (..., K) -> (xq int8 (..., K), sx fp32 (...,)): JAX's dynamic per-row
+    activation quantizer. sx = max(|x|max, 1e-6) / 127, the max taken in x's
+    dtype; xq = clip(round_half_even(x / sx), -127, 127). Both divisions are
+    tensor by tensor, so that they divide on the card too (PyTorch computes
+    `t / 127.0` there as t * (1 / 127))."""
+    amax = x.abs().amax(dim=-1).float().clamp(min=1e-6)
+    sx = amax / torch.full_like(amax, 127.0)
+    xq = torch.round(x.float() / sx[..., None]).clamp_(-127, 127).to(torch.int8)
+    return xq, sx
+
+
+def _a8w_product(x, wq, scale):
+    """(float(xq @ wq^T) * sx) * scale, in x's dtype, for x (..., K) and an
+    int8 wq (N, K). The int32 sum of JAX's dot is exact in fp64 (|sum| <= 127^2
+    K < 2^53), and fp64 -> fp32 rounds an integer to nearest as int32 -> fp32
+    does."""
+    k, n = x.shape[-1], wq.shape[0]
+    xq, sx = quantize_rows_int8(x.reshape(-1, k))
+    acc = (xq.double() @ wq.double().t()).float()
+    out = (acc * sx[:, None]) * scale.float()
+    return out.to(x.dtype).reshape(*x.shape[:-1], n)
+
+
+def a8w8_matmul_ref(x, wq, scale):
+    """Plain version of N1: x (..., K) @ wq (N, K) int8 under per-row dynamic
+    int8 activations -> (..., N) in x's dtype, JAX's MXUDense a8w8 op for op:
+    x / sx, an exact int32 sum, its fp32 rounding, * sx, * scale, one cast."""
+    return _a8w_product(x, wq, scale)
+
+
+def a8w4_matmul_ref(x, wq4, scale):
+    """Plain version of N2: as `a8w8_matmul_ref` with the packed int4 weight
+    wq4 (N, K // 2), unpacked first."""
+    return _a8w_product(x, unpack_int4(wq4), scale)
+
+
+@functools.lru_cache(maxsize=None)
+def _a8w_lib():
+    from ..kernels import load_library
+
+    lib = load_library("a8w_gemm")
+    for fn in (lib.a8w8_gemm_bf16, lib.a8w4_gemm_bf16):
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.a8w_quantize_rows.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 \
+        + [ctypes.c_void_p]
+    lib.a8w_quantize_rows.restype = ctypes.c_int
+    lib.a8w_gemm_plan.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    lib.a8w_gemm_plan.restype = ctypes.c_int
+    return lib
+
+
+_A8W_PLAN = {"a8w8": a8w8_dyn_plan, "a8w4": a8w4_plan}
+
+
+def a8w_kernel_takes(kind: str, m: int, k: int, n: int) -> bool:
+    """The shapes N1 ("a8w8") and N2 ("a8w4") take: 16-byte rows of x and of
+    the weight (N2's packed rows are K / 2 bytes), column pairs and 8-column
+    chunks in the epilogue, and at M = 1 x's int8 row within the GEMV's shared
+    memory."""
+    return k % (32 if kind == "a8w4" else 16) == 0 and n % 8 == 0 and m >= 1 \
+        and (m > 1 or k <= A8W_GEMV_MAX_K)
+
+
+def a8w_tile_plan(kind: str, m: int, n: int, k: int, index: int, tiles=None):
+    """The tile plan N1 / N2's tiled path runs at (m > 1, k, n) on CUDA
+    device `index` (None at m = 1: the GEMV)."""
+    if m == 1:
+        return None
+    clusters = max_clusters("a8w_gemm", f"{kind}_gemm_max_clusters", A8W_TILES, index)
+    return _A8W_PLAN[kind](m, n, k, clusters, tiles or A8W_TILES)
+
+
+def a8w_library_plan(kind: str, m: int, n: int, k: int, tile: int):
+    """What the library answers for its tiled path (`a8w_gemm_plan`):
+    (unit_inner, units, k_blocks, pair_inner, stages, shared memory), which
+    `gemm_tiles.a8w_plan_fields` mirrors."""
+    out = (ctypes.c_int * 6)()
+    if _a8w_lib().a8w_gemm_plan(0 if kind == "a8w8" else 1, m, n, k, tile, out):
+        raise ValueError(f"a8w_gemm_plan: tile {tile} is not compiled")
+    return tuple(out)
+
+
+def quantize_rows_int8_cuda(x):
+    """The activation pass alone on the card (x (M, K) bf16, contiguous,
+    16-byte aligned, K % 8 == 0): bit for bit `quantize_rows_int8`."""
+    if x.dtype != torch.bfloat16 or x.dim() != 2 or not x.is_contiguous() or x.data_ptr() % 16 \
+            or x.shape[1] % 8:
+        raise ValueError(f"quantize_rows_int8_cuda takes a contiguous, 16-byte aligned bf16 "
+                         f"(M, K) with K % 8 == 0, got {x.dtype} {tuple(x.shape)}")
+    xq = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    sx = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _a8w_lib().a8w_quantize_rows(x.data_ptr(), xq.data_ptr(), sx.data_ptr(),
+                                           x.shape[0], x.shape[1],
+                                           torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"a8w_quantize_rows launch failed with cudaError {err}")
+    return xq, sx
+
+
+def _a8w_cuda(kind, x, wq, scale, tiles=None):
+    name, packed = f"{kind}_matmul", kind == "a8w4"
+    k, n = x.shape[-1], wq.shape[0]
+    m = x.numel() // k
+    wk = k // 2 if packed else k
+    for what, t, dtype, shape in (("wq", wq, torch.int8, (n, wk)),
+                                  ("scale", scale, torch.float32, (n,))):
+        if t.device != x.device or t.dtype != dtype or tuple(t.shape) != shape \
+                or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: {what} must be a contiguous, 16-byte aligned {dtype} "
+                             f"{shape} tensor on {x.device}, got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+    if x.dtype != torch.bfloat16 or not x.is_contiguous() or x.data_ptr() % 16 \
+            or not a8w_kernel_takes(kind, m, k, n):
+        raise ValueError(f"{name} kernel takes a contiguous, 16-byte aligned bf16 x with K % "
+                         f"{32 if packed else 16} == 0 (K <= {A8W_GEMV_MAX_K} at one row) and "
+                         f"N % 8 == 0, got {x.dtype} {tuple(x.shape)} (strides {x.stride()}) "
+                         f"and N = {n}")
+    out = torch.empty((*x.shape[:-1], n), dtype=x.dtype, device=x.device)
+    plan = a8w_tile_plan(kind, m, n, k, x.device.index, tiles)
+    xq = sx = None
+    if plan is not None:  # the activation pass's scratch
+        xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
+        sx = torch.empty(m, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = getattr(_a8w_lib(), f"{kind}_gemm_bf16")(
+            x.data_ptr(), wq.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            None if xq is None else xq.data_ptr(), None if sx is None else sx.data_ptr(),
+            m, n, k, 0 if plan is None else plan.tile, 0 if plan is None else plan.grid,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{kind}_gemm_bf16 launch failed with cudaError {err}")
+    return out
+
+
+def a8w8_matmul(x, wq, scale):
+    """Dynamic a8w8 matmul (N1; JAX MXUDense quant="a8w8"): x (..., K) @ wq
+    (N, K) int8 with x quantized per row at run time -> (..., N) in x's dtype.
+    CUDA tensors launch the kernel (at M > 1 its activation pass and the tiled
+    GEMM, one count); CPU tensors run `a8w8_matmul_ref`."""
+    if x.is_cuda:
+        refuse_grad("a8w8_matmul", x, scale)
+        out = _a8w_cuda("a8w8", x, wq, scale)
+        a8w8_matmul.launches += 1
+        return out
+    if x.device.type != "cpu":
+        raise ValueError(f"a8w8_matmul: unsupported device {x.device}")
+    return a8w8_matmul_ref(x, wq, scale)
+
+
+def a8w4_matmul(x, wq4, scale):
+    """Dynamic a8w4 matmul (N2; JAX MXUDense quant="a8w4" and "wint4"): as
+    `a8w8_matmul` with the packed int4 weight wq4 (N, K // 2), which the
+    kernel reads packed. CPU tensors run `a8w4_matmul_ref`."""
+    if x.is_cuda:
+        refuse_grad("a8w4_matmul", x, scale)
+        out = _a8w_cuda("a8w4", x, wq4, scale)
+        a8w4_matmul.launches += 1
+        return out
+    if x.device.type != "cpu":
+        raise ValueError(f"a8w4_matmul: unsupported device {x.device}")
+    return a8w4_matmul_ref(x, wq4, scale)
+
+
+a8w8_matmul.launches = 0  # kernel launches (CUDA tensors only)
+a8w4_matmul.launches = 0

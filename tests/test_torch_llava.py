@@ -1,13 +1,14 @@
 """The port's LLaVA slice (paddlemix_tpu_torch.models.llava / .llama) against
-the JAX package on shared weights, in fp32 on the CPU, under quant None and
-weight-only int8.
+the JAX package on shared weights, in fp32 on the CPU, under quant None,
+weight-only int8 and the dynamic a8w8 / a8w4.
 
 A tiny LLaVA (ViT 32 wide at 28 px / patch 14, Llama 128 wide with 2 heads
 of 64 sharing one kv head, vocab 256, the image token the last id) is
 initialised by the JAX package; its parameters are carried over by
-`core.convert.llava_key_to_flax`, every key consumed. For wint8 the JAX
-language model's parameters are quantized with `quantize_tree_wint8
-(min_bytes=0)` and the port's modules take its `kernel_q` / `scale`. The JAX
+`core.convert.llava_key_to_flax`, every key consumed. For wint8 and a8w8 the
+JAX language model's parameters are quantized with `quantize_tree_wint8
+(min_bytes=0)`, for a8w4 with `quantize_tree_int4(min_bytes=0)`, and the
+port's modules take its `kernel_q` / `scale`. The JAX
 side runs its Pallas kernels in interpret mode: RMSNorm over the 68-token
 prefill and the wint8 GEMM (its decode rows are padded to 8). Compared:
 encode_images, the splice, prefill logits, one decode step and the greedy
@@ -28,7 +29,7 @@ from paddlemix_tpu.models.llama import LlamaConfig as JLlamaConfig
 from paddlemix_tpu.models.llama import LlamaForCausalLM as JLlamaForCausalLM
 from paddlemix_tpu.models.llava import LlavaConfig as JLlavaConfig
 from paddlemix_tpu.models.llava import LlavaForConditionalGeneration as JLlava
-from paddlemix_tpu.ops.quant import quantize_tree_wint8
+from paddlemix_tpu.ops.quant import quantize_tree_int4, quantize_tree_wint8
 from paddlemix_tpu_torch.core import LLAMA_KEY_MAP, flax_to_torch_state_dict, llava_key_to_flax
 from paddlemix_tpu_torch.models.llama import (
     KVCache,
@@ -45,7 +46,7 @@ from paddlemix_tpu_torch.models.llava import (
     llava7b_config,
 )
 from paddlemix_tpu_torch.ops.decode_attention import decode_attention_int8
-from paddlemix_tpu_torch.ops.quant import wint8_matmul
+from paddlemix_tpu_torch.ops.quant import a8w4_matmul, a8w8_matmul, wint8_matmul
 
 pytestmark = pytest.mark.torch_port
 
@@ -90,7 +91,8 @@ def _port(jmodel, quant):
     return model
 
 
-@pytest.fixture(scope="module", params=[None, "wint8"], ids=["bf16_path", "wint8"])
+@pytest.fixture(scope="module", params=[None, "wint8", "a8w8", "a8w4"],
+                ids=["bf16_path", "wint8", "a8w8", "a8w4"])
 def pair(request, jax_bf16_path):
     """(JAX model, port model, quant) on the same weights."""
     quant = request.param
@@ -98,7 +100,8 @@ def pair(request, jax_bf16_path):
     if quant:
         params = dict(jmodel.params)
         # the quantizer frees each kernel it replaces: quantize a copy
-        params["language_model"] = quantize_tree_wint8(
+        tree_fn = quantize_tree_int4 if quant == "a8w4" else quantize_tree_wint8
+        params["language_model"] = tree_fn(
             jax.tree_util.tree_map(jnp.copy, params["language_model"]), min_bytes=0)
         text = dict(TEXT, quant=quant)
         jmodel = JLlava(JLlavaConfig.from_dict(dict(TINY, text_config=text)), params=params)
@@ -118,7 +121,16 @@ def _assert_close(ref, out, tol):
 # upstream moves some of those roundings by one bf16 ulp (2**-8 relative),
 # and the flips add up over the layers: measured 2.2e-2 on logits of |max| 4
 # (0.55%), from the seventh prompt position on. fp32 alone: summation order.
-LOGIT_TOL = {None: 1e-4, "wint8": 1e-2}
+# a8w8 / a8w4 round every projection's input per row to int8 steps of
+# |x|max / 127. Each op is bit-exact with JAX's on the same input (held in
+# test_torch_llama_quant.py; here on the port's own inputs too), but an fp32
+# difference in the last bits upstream (summation order in attention and the
+# norms) moves an x / sx lying that close to a .5 tie by a whole step, a far
+# larger jump than a bf16 ulp: measured 9.5e-7 under a8w8 (no step moved at
+# these weights) and 1.1e-2 of |logits|max 4.1 under a8w4, from the seventh
+# prompt position on, while the decode step read 0. A wrong nibble order or
+# scale moves the logits by O(1).
+LOGIT_TOL = {None: 1e-4, "wint8": 1e-2, "a8w8": 2e-2, "a8w4": 2e-2}
 
 
 def test_encode_images(pair, inputs):
@@ -164,12 +176,13 @@ def _prefill_and_step(jmodel, model, ids, px):
 
 def test_prefill_and_decode_logits(pair, inputs):
     jmodel, model, quant = pair
-    before = wint8_matmul.launches
+    counters = (wint8_matmul, a8w8_matmul, a8w4_matmul)
+    before = [fn.launches for fn in counters]
     (jlogits, logits), (jstep, step) = _prefill_and_step(jmodel, model, *inputs)
     assert logits.shape == (1, 68, 256) and step.shape == (1, 1, 256)
     _assert_close(jlogits, logits, LOGIT_TOL[quant])
     _assert_close(jstep, step, LOGIT_TOL[quant])
-    assert wint8_matmul.launches == before  # the CPU runs the plain versions
+    assert [fn.launches for fn in counters] == before  # the CPU runs the plain versions
 
 
 def test_generate_tokens_equal(pair, inputs):
@@ -210,13 +223,13 @@ def test_wint8_weights_carried_over(pair, jax_bf16_path):
         q_proj = jax_bf16_path.params["language_model"]["layers_0"]["self_attn"]["q_proj"]
         mine = MXUDense(128, 128, bias=False)
         mine.weight.data = torch.from_numpy(np.asarray(q_proj["kernel"]).T.copy())
-        mine.quantize_wint8_()
+        mine.quantize_(quant)
         layer = model.language_model.model.layers[0].self_attn.q_proj
         assert torch.equal(mine.kernel_q, layer.kernel_q)
-        # quantize_tree_wint8 jits the quantizer, and XLA turns absmax / 127
-        # into absmax * (1 / 127): one fp32 ulp apart at most (the eager JAX
-        # function, which the port follows, is held bit-exact in
-        # test_torch_llava_kernels.py)
+        # quantize_tree_wint8 / quantize_tree_int4 jit the quantizer, and XLA
+        # turns absmax / 127 (/ 7) into absmax * (1 / 127): one fp32 ulp apart
+        # at most (the eager JAX functions, which the port follows, are held
+        # bit-exact in test_torch_llava_kernels.py and test_torch_llama_quant.py)
         torch.testing.assert_close(mine.scale, layer.scale, rtol=1.2e-7, atol=0)
 
 
@@ -296,7 +309,7 @@ def test_sampling_keeps_top_k_and_top_p_support():
     assert abs(share - 0.6364 / (0.6364 + 0.2341)) < 0.05
 
 
-@pytest.mark.parametrize("quant", [None, "wint8"])
+@pytest.mark.parametrize("quant", [None, "wint8", "a8w8", "a8w4"])
 def test_launch_derivation_at_full_width_on_meta(quant):
     with torch.device("meta"):
         model = LlavaForConditionalGeneration(llava7b_config())
@@ -304,8 +317,9 @@ def test_launch_derivation_at_full_width_on_meta(quant):
         model.quantize_(quant)
     n_dense = sum(isinstance(m, MXUDense) for m in model.language_model.modules())
     assert n_dense == 32 * 7 + 1
-    want = {"rms_norm": 65 * 128, "wint8_matmul": 225 * 128 if quant else 0,
-            "decode_attention": 32 * 127, "flash_attention": 0,
+    want = {"rms_norm": 65 * 128, "decode_attention": 32 * 127, "flash_attention": 0,
+            **{f"{mode}_matmul": 225 * 128 if quant == mode else 0
+               for mode in ("wint8", "a8w8", "a8w4")},
             "layer_norm": 2 * 24 + 2}  # the ViT's blocks, pre- and post-LN
     assert expected_launches_llava(model, 576 + 32, 128) == want
     assert model.config.num_image_tokens == 576

@@ -2,21 +2,24 @@
 """Where the device time of one LLaVA-1.5-7B request goes, in the PyTorch port.
 
 Builds the full-width LLaVA-1.5-7B of paddlemix_tpu_torch with seeded random
-weights on one CUDA card, then in bf16 and after weight-only int8
-quantization: one warm request, one request under torch.profiler (CUDA
-activity), one unprofiled request. A request is the JAX bench's: 576 image
+weights on one CUDA card and, for each mode asked for (by default bf16, then
+weight-only int8 quantized in place; a8w8 and a8w4 each build a fresh
+random_llava(quant=mode)): one warm request, one request under
+torch.profiler (CUDA activity), one unprofiled request. A request is the JAX bench's: 576 image
 placeholders + 32 text ids, one 336 px image, 128 new tokens, no eos. Prints
 the card's nvidia-smi name and power limit, device kernel time by category
 (the slice's three kernels by name, cuBLAS GEMMs, softmax, the rest), the top
 kernels, the launches per token, and the busy share = device kernel time of
 the profiled request / wall time of the unprofiled one; then the prefill
 alone (a 1-token request, its unprofiled time the TTFT) under the profiler:
-device time by category, the wint8 GEMM's (B6) share among them.
+device time by category, the quantized GEMM's share among them (B6 under
+wint8, N1 under a8w8, N2 under a8w4, their activation pass apart).
 
 Usage (from the root of a checkout, on a machine with a CUDA card):
-    python3 tools/profile_torch_llava.py
+    python3 tools/profile_torch_llava.py [--quant bf16 wint8 a8w8 a8w4]
 """
 
+import argparse
 import os
 import subprocess
 import sys
@@ -31,6 +34,12 @@ def category(kernel_name: str) -> str:
     n = kernel_name.lower()
     if "wint8_gem" in n:
         return "B6 wint8 GEMM"
+    if "a8w_gemv_kernel<false" in n or "dyna8w8" in n:
+        return "N1 a8w8 GEMM"
+    if "a8w_gemv_kernel<true" in n or "a8w4<" in n:
+        return "N2 a8w4 GEMM"
+    if "a8w_quantize_rows" in n:
+        return "N1 / N2 activation pass"
     if "decode_attention" in n:
         return "B7 decode attention"
     if "rms_norm" in n:  # rms_norm_fwd_kernel (CUDA); an older tree's Triton rms_norm_fwd
@@ -46,19 +55,25 @@ def category(kernel_name: str) -> str:
 
 
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--quant", nargs="+", default=["bf16", "wint8"],
+                        choices=["bf16", "wint8", "a8w8", "a8w4"],
+                        help="the modes to profile, in order (wint8 quantizes the model in "
+                             "place, so it follows bf16 or comes first)")
+    args = parser.parse_args()
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from paddlemix_tpu_torch.models.llava import bench_input_ids, random_llava
+    from paddlemix_tpu_torch.models.llava import bench_input_ids, llava7b_config, random_llava
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_llava: needs a CUDA card")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     dev = torch.device("cuda")
-    model = random_llava(dev, torch.bfloat16, seed=0)
-    ids = bench_input_ids(model.config, device=dev)
-    isz = model.config.vision.image_size
+    model, cfg = None, llava7b_config()
+    ids = bench_input_ids(cfg, device=dev)
+    isz = cfg.vision.image_size
     px = torch.randn((1, isz, isz, 3), device=dev,
                      generator=torch.Generator(device=dev).manual_seed(1))
 
@@ -69,9 +84,14 @@ def main():
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    for label in ("bf16", "wint8"):
-        if label == "wint8":
-            model.quantize_("wint8")
+    for label in args.quant:
+        if label == "wint8" and model is not None and model.config.text.quant is None:
+            model.quantize_("wint8")  # in place, over the bf16 weights
+        else:  # a fresh model: quantizing frees the bf16 weights
+            del model
+            torch.cuda.empty_cache()
+            model = random_llava(dev, torch.bfloat16, seed=0,
+                                 quant=None if label == "bf16" else label)
         print(f"[{label}] warm request {request():.3f} s, TTFT {1e3 * request(1):.1f} ms")
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             profiled = request()
