@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (paddlemix_tpu_torch) on one CUDA card.
 
-Drives eight slices at their published widths with weights drawn on the
+Drives nine slices at their published widths with weights drawn on the
 card from a seeded torch.Generator:
 
   - SDXL-1024 text-to-image through StableDiffusionXLPipeline.__call__, in
@@ -31,7 +31,17 @@ card from a seeded torch.Generator:
     fp32 weights, bf16 compute) at batch 256: the dual-tower bench forward
     (models.clip.vitb16.pair_logits) and contrastive training through
     tools.train_clip.build_trainer and Trainer.train (lr 5e-4, cosine,
-    warmup max(steps // 10, 1), clip 1.0; 10 steps, no checkpoints);
+    warmup max(steps // 10, 1), clip 1.0; 10 steps, no checkpoints), and
+    tools.train_clip.main --synthetic, the example's data plane (generated
+    jpegs, PIL decode and CLIPImageProcessor in the loader's workers);
+  - EVA02-CLIP-B/16 (EVA-CLIP's published EVA02-CLIP-B-16.json: rope,
+    SwiGLU with sub-LN, bias-less k; the CLIP text tower; fp32 weights, bf16
+    compute) at batch 256: Appflow zero-shot requests (one 640 x 480 jpeg
+    against 1,000 labels), the zero-shot eval (a 1,000-class classifier over
+    4 templates, 256 jpegs through CLIPImageProcessor's default and native
+    paths) and contrastive training by configs/eva_clip/pretrain_b16.json's
+    optimizer (lr 5e-4, cosine, weight decay 0.05, layer decay 0.75; cut to
+    10 steps with a warmup of 2, no checkpoints);
   - SD1.5-512 text-to-image through StableDiffusionPipeline.__call__
     (runwayml/stable-diffusion-v1-5: UNet 320-1280 with 1x1-conv
     projections and 8 heads a block, so head_dim 40, 80 and 160; CLIP-L text;
@@ -253,7 +263,14 @@ Phases:
                    row); times, bounds and library
                    times (F.layer_norm and its backward); the forward also
                    at a misaligned view, fp32 x and a ragged width, each
-                   with the control
+                   with the control; then EVA's sub-LN rows, 50,432 x 2,048
+                   (B10's wide form: 64 elements a lane, w in shared memory,
+                   one block an SM), and a ragged 1,000 x 1,960 the same way,
+                   the backward's kernel and ptxas counts printed, and the
+                   wide form's other plans (one cluster at 77 rows, fp32
+                   rows, the one-element form, 1,288 wide) forward and
+                   backward with the gates, the controls and the plans held
+                   against the library's
  24. clip          CLIP ViT-B/16 is built; agree (the logits of one seeded
                    batch of 256, B10 vs plain, held within 1.25x of two plain
                    versions one bf16 rounding apart); 12 timed bench forwards
@@ -273,7 +290,43 @@ Phases:
                    TFLOP/s (3x the forward's), reader share, busy share of a
                    profiled step, peak memory, finite losses, every parameter
                    moved, 51 B10 and 51 B10-backward launches a step
- 26. sd15 kernels  CLIP is freed; B4 at SD1.5's GroupNorm shapes that
+ 26. c9            the four quantizers that divide by a constant
+                   (quantize_weights_int8 / _int4 at 4096 -> 11008,
+                   _quantize_kv at (1, 608, 32, 128), quantize_weight_per_cout
+                   at 640 x 640 x 3 x 3) on the card equal the CPU's calls bit
+                   for bit, values and scales; the scalar division they had,
+                   a control, must give other scales
+ 27. eva agree     EVA02-CLIP-B/16 is built (norm affines drawn around 1 / 0);
+                   the logits of one seeded batch of 256, B10 vs plain, within
+                   1.25x of two plain versions one bf16 rounding apart; 49 + 25
+                   B10 launches (4 a block and the pooled norm; 2 a text layer
+                   and the final LN)
+ 28. eva appflow   3 Appflow zero_shot_classification requests, each one
+                   generated 640 x 480 jpeg decoded by PIL against 1,000
+                   candidate labels: seconds, device ms and busy share of the
+                   last (profiled, its kernels by time), peak memory; every
+                   label ranked, scores finite and sorted; launches as the
+                   walk says
+ 29. eva eval      a 1,000-class classifier over the 4 default templates (64
+                   text forwards), then 256 generated jpegs decoded and
+                   preprocessed in 8 threads on CLIPImageProcessor's default
+                   path and on its native path (PMIX_NATIVE_PREPROCESS=1, the
+                   port's g++ build), encoded and scored: images/s of each,
+                   top-1 and top-5 against seeded labels, which must be the
+                   same top-1 on both paths; the paths' pixel and feature gaps
+                   and their agreement printed
+ 30. eva train     10 optimizer steps at batch 256 through the Trainer with
+                   the recipe's optimizer (layer-decay scales checked at the
+                   head, the patch embedding and a block), over 512 seeded
+                   pairs: seconds a step, samples/s, busy share and kernels of
+                   the profiled step, peak memory, finite losses, every
+                   parameter moved, 74 B10 and 74 B10-backward launches a step
+ 31. clip main     tools/train_clip.main --synthetic with CLIP_STEPS 4 and
+                   CLIP_BATCH 64: 256 generated jpegs decoded and
+                   preprocessed in the loader's 8 workers, a seeded ViT-B/16
+                   trained 4 steps: finite loss, 51 B10 and 51 B10-backward
+                   launches a step
+ 32. sd15 kernels  EVA-CLIP is freed; B4 at SD1.5's GroupNorm shapes that
                    SDXL's lack (20 and 60 channels a group, the 512 px VAE),
                    on channels of their own mean and scale, with a control
                    (the plain version over 16 groups) that must fail; B1 at
@@ -285,14 +338,14 @@ Phases:
                    + segment ids + GQA at a ragged S the same way, and each
                    written into a view of a wider sentinel-filled buffer,
                    whose columns past the head must keep the sentinel
- 27. sd15 agree    SD1.5 is built; one full-width UNet forward at 64x64
+ 33. sd15 agree    SD1.5 is built; one full-width UNet forward at 64x64
                    latents, kernels (B1 at head_dim 40, 80 and 160, B4) vs
                    plain
- 28. sd15          3 requests, 512x512, 50 PNDM steps, guidance 7.5: seconds,
+ 34. sd15          3 requests, 512x512, 50 PNDM steps, guidance 7.5: seconds,
                    busy share of the last (profiled), peak memory, image
                    finite in [0, 1], launches equal to `expected_launches_sd15`
                    (750 B1 a request, 250 of them at head_dim 160; B4; 50 B10)
- 29. sd15 train    SD1.5 is freed; B4 with fp32 weight and bias at every
+ 35. sd15 train    SD1.5 is freed; B4 with fp32 weight and bias at every
      kernels       GroupNorm shape of the training path, each with the
                    16-group control; the lse forward (B15) and the flash
                    backward's dkv and dq kernels (B14, fed B15's lse and
@@ -311,7 +364,7 @@ Phases:
                    64, 128, 192 and 256; the library's plans held against
                    the mirrors); times, bounds and library times (SDPA, the
                    backward of SDPA, graph-captured)
- 30. sd15 train    the SD1.5 UNet is built (859.5 M fp32 parameters, bf16
+ 36. sd15 train    the SD1.5 UNet is built (859.5 M fp32 parameters, bf16
      agree         compute); one micro-batch of 2 at 64x64 latents, fixed
                    timesteps and noise: the loss within 10x and the
                    gradients' median over all parameters and largest gap
@@ -319,7 +372,7 @@ Phases:
                    plain versions one rounding apart (P rounded to bf16
                    before P.V or not); a control, B14's dK/dV without di,
                    must fail; launches as the walk says
- 31. sd15 train    build_trainer + Trainer.train, 8 optimizer steps at batch
+ 37. sd15 train    build_trainer + Trainer.train, 8 optimizer steps at batch
                    8 (the last under the profiler): seconds a step,
                    samples/s, model TFLOP/s (`unet_train_flops`, 3x the
                    forward's), reader and busy share, B14's share of the
@@ -1495,6 +1548,33 @@ CLIP_TRAIN_SAMPLES = 2560  # seeded (pixels, caption) pairs: one epoch of 10 bat
 # pair moves them by more than their norm).
 CLIP_LOSS_RATIO, CLIP_SIGNAL_GAP = 10, 0.5
 
+# ------------------------------------------------------------ EVA-CLIP slice
+# EVA02-CLIP-B/16 (models/clip/eva02_b16.py EVA02_B16, EVA-CLIP's published
+# EVA02-CLIP-B-16.json) at batch 256. Its tower's B10 rows are the CLIP
+# tower's (50,432 x 768 for norm1, norm2 and inner_attn_ln, the pooled CLS
+# rows, the text tower's 19,712 x 512) and the sub-LN ffn_ln's 50,432 x 2,048,
+# the first rows wider than 1,280 that B10 takes (its wide form); a ragged
+# width beside it. (rows, width, row stride in rows)
+EVA_LN_SHAPES = [(50432, 2048, 1), (1000, 1960, 1)]
+# B10 forward and backward at the wide form's other plans, each with the
+# gates and controls: ((rows, width), x dtype, x one element past a 16-byte
+# boundary): one cluster, fp32 rows (one ring stage), the one-element form
+# (dx, g and x read from device memory a pass), the narrowest wide width
+LN_WIDE_EXTRA_CASES = [((77, 2048), "bf16", False), ((3000, 2048), "fp32", False),
+                       ((3000, 2048), "bf16", True), ((5000, 1288), "bf16", False)]
+EVA_REQUESTS = 3        # Appflow zero-shot requests, one 640 x 480 jpeg each
+EVA_LABELS = 1000       # candidate labels a request, classes of the eval (ImageNet-1k's)
+EVA_EVAL_IMAGES = 256   # generated jpegs of the zero-shot eval, one batch
+EVA_TRAIN_STEPS = 10
+EVA_TRAIN_SAMPLES = 512  # seeded (pixels, caption) pairs: 2 batches of 256 an epoch
+EVA_CONFIG = os.path.join(REPO, "configs", "eva_clip", "pretrain_b16.json")
+# the recipe's cuts: 10 steps, the warmup of 2,000 steps cut to 2 (cosine
+# needs more steps than warmup), no checkpoints, logging every step (the
+# profiler steps on the logging callback)
+EVA_TRAIN_OVERRIDES = dict(max_steps=EVA_TRAIN_STEPS, warmup_steps=2, save_steps=0,
+                           logging_steps=1)
+CLIP_MAIN_STEPS, CLIP_MAIN_BATCH = 4, 64  # tools/train_clip.main --synthetic
+
 
 def ln_no_mean(x, w, b, eps):
     """The forward control: B10 with the variance taken as mean(x^2)."""
@@ -1625,7 +1705,8 @@ def norms_kernels(torch, dev, gen, record, norms):
         clusters = b_ * (c // plan.slab)
         print(f"[norms] {name} {shape} bf16: {plan} | {clusters} clusters, {most} run at once "
               f"({'one wave' if clusters <= most else 'more than one wave'})", flush=True)
-    ln_cases = [(r, h) for r, h, _ in CLIP_LN_SHAPES] + [(1000, 200), (3000, 100)]
+    ln_cases = [(r, h) for r, h, _ in CLIP_LN_SHAPES + EVA_LN_SHAPES] + [(1000, 200), (3000, 100)] \
+        + [shape for shape, _, _ in LN_WIDE_EXTRA_CASES]
     for rows, h in ln_cases:
         for dtype in (bf16, f32):
             for aligned in (True, False):
@@ -1636,9 +1717,10 @@ def norms_kernels(torch, dev, gen, record, norms):
                                      f"the library's {lib}, the mirror's {mirror}")
                 checked += 1
         plan = norms.layer_norm_bwd_plan(rows, h, 2)
-        most = norms.norms_max_clusters(2, plan.warps * 32, plan.smem, plan.cluster)
-        print(f"[norms] layer_norm_backward {(rows, h)} bf16: {plan} | {most} clusters run at "
-              f"once", flush=True)
+        wide = plan.epl > norms.LN_HOLD_EPL  # the wide form: one block an SM
+        most = norms.norms_max_clusters(3 if wide else 2, plan.warps * 32, plan.smem, plan.cluster)
+        print(f"[norms] layer_norm_backward {(rows, h)} bf16 ({'wide' if wide else 'held'} "
+              f"form): {plan} | {most} clusters run at once", flush=True)
     print(f"[norms] {checked} plans: the library's equal the mirrors'", flush=True)
 
     # B4's statistics per element, with the control
@@ -1691,7 +1773,7 @@ def norms_kernels(torch, dev, gen, record, norms):
         check(sum(ops.values()) == plan.launches() and sum(ops_stats.values()) == 1,
               f"group_norm {shape}: kernels a call {ops}, {ops_stats}")
         del x
-    for rows, h in [(19712, 512), (577, 1024), (77, 768)]:
+    for rows, h in [(19712, 512), (577, 1024), (77, 768), (8192, 2048), (77, 2048)]:
         x = torch.randn((rows, h), generator=gen, device=dev).to(bf16)
         w = 1 + 0.2 * torch.randn(h, generator=gen, device=dev)
         g = torch.randn((rows, h), generator=gen, device=dev).to(bf16)
@@ -1945,12 +2027,13 @@ def ln_extra_cases(torch, dev, gen, norms):
         del x, y, ref
 
 
-def clip_kernels(torch, F, dev, gen, record, norms):
-    """B10 and its backward against their plain versions at the CLIP path's
-    rows, each gate with its controls; times, bounds and library times
-    (F.layer_norm and its backward, bf16 weight and bias)."""
-    bf16 = torch.bfloat16
-    for rows, h, span in CLIP_LN_SHAPES:
+def clip_kernels(torch, F, dev, gen, record, norms, shapes=CLIP_LN_SHAPES):
+    """B10 and its backward against their plain versions at `shapes` (the
+    CLIP path's rows by default), each gate with its controls; times, bounds
+    and library times (F.layer_norm and its backward, bf16 weight and bias);
+    the backward's kernel and ptxas's counts for it."""
+    bf16, label = torch.bfloat16, "clip kernels"
+    for rows, h, span in shapes:
         pooled = span > 1
         # rows with their own offsets and scales, as a residual stream's; the
         # pooled rows are every 197th row of a token tensor, as x[:, 0] is
@@ -1982,10 +2065,10 @@ def clip_kernels(torch, F, dev, gen, record, norms):
         first = ln_first_rows(norms, rows, h, 2)
         cdw, cdb = norms.layer_norm_backward_ref(xf[:first], w, gf[:first], 1e-5)[1:]
         ctrl_dwdb = min(rel(cdw, rdw), rel(cdb, rdb))
-        print(f"[clip kernels] layer_norm {shape}{' (pooled rows, a strided slice)' if pooled else ''}"
+        print(f"[{label}] layer_norm {shape}{' (pooled rows, a strided slice)' if pooled else ''}"
               f" bf16: excess {excess:.3e} (least c {need:.2e}, c {LN_SUM}); control, the "
               f"variance without the mean subtracted: excess {ctrl:.3e} (must be > 0)", flush=True)
-        print(f"[clip kernels] layer_norm_backward {shape}: dx excess {dx_excess:.3e} (least c "
+        print(f"[{label}] layer_norm_backward {shape}: dx excess {dx_excess:.3e} (least c "
               f"{dx_need:.2e}, c {LN_BWD_SUM}); dw / db max err {dw_err:.3e} / {db_err:.3e} "
               f"|ref|max (tol {LN_DW_TOL}); controls: dx without mean(g w) excess {ctrl_dx:.3e} "
               f"(must be > 0), dw / db of the first partial sum's {first} rows alone {ctrl_dwdb:.3e} "
@@ -2006,7 +2089,7 @@ def clip_kernels(torch, F, dev, gen, record, norms):
         plan = norms.layer_norm_plan_of(x, w, b)
         floor = floor_ms(torch, norms, plan.nb, plan.threads, kernel.copies)
         copy = cuda_ms(torch, cold(lambda x_: torch.empty_like(x_).copy_(x_), x, nbytes(x)))
-        record("clip kernels", "layer_norm", shape, (y.float() - ref).abs().max().item(), ms,
+        record(label, "layer_norm", shape, (y.float() - ref).abs().max().item(), ms,
                plain_ms, lib_ms, bound(nbytes(x, w, b, y), 8 * x.numel(), "fp32"),
                f" | library: F.layer_norm, bf16 weight and bias | "
                f"{norm_kernel_note(norms, plan, norms.OP_LN)}", floor=floor, copy=copy)
@@ -2016,10 +2099,11 @@ def clip_kernels(torch, F, dev, gen, record, norms):
             torch, lambda *t: F.layer_norm(t[0], (h,), t[1], t[2], 1e-5),
             tuple(t.detach().clone().requires_grad_() for t in (x, w16, b16)), g)
             for _ in range(2)) / 2
-        record("clip kernels", "layer_norm_backward", shape,
+        record(label, "layer_norm_backward", shape,
                (dx.float() - rdx).abs().max().item(), ms, plain_ms, lib_ms,
                bound(nbytes(x, w, g, dx, dw, db), 14 * x.numel(), "fp32"),
-               " | library: the backward of F.layer_norm (x, weight, bias; graph-captured)")
+               f" | library: the backward of F.layer_norm (x, weight, bias; graph-captured) | "
+               f"{ln_bwd_note(norms, rows, h)}")
         del x, g, y, dx, ref, rdx, xf, gf, xhat, dxhat
     torch.cuda.empty_cache()
 
@@ -2231,7 +2315,7 @@ def clip_slice(torch, np, dev, m, counters):
     items = [(pixels[i], " ".join(rng.choice(words, rng.integers(3, 40))))
              for i in range(CLIP_TRAIN_SAMPLES)]
     trainer = train_clip.build_trainer(model, train_clip.ImageTextDataset(
-        items, train_clip._hash_tokenize), BENCH_BATCH, CLIP_TRAIN_STEPS)
+        items, None, train_clip._hash_tokenize), BENCH_BATCH, CLIP_TRAIN_STEPS)
     print(f"[clip train] {CLIP_TRAIN_SAMPLES} seeded (pixels, caption) pairs in "
           f"{time.perf_counter() - t0:.1f} s; build_trainer: {len(trainer.train_dataloader)} "
           f"batches of {BENCH_BATCH} an epoch, lr {trainer.args.learning_rate}, warmup "
@@ -2295,6 +2379,467 @@ def clip_slice(torch, np, dev, m, counters):
     train_stats = dict(step_s=s_step, samples_per_s=BENCH_BATCH / s_step, tflops=tflops,
                        reader_share=reader / s_step, busy=device_ms / 1e3 / t_prof, peak_gib=peak)
     return launches_clip, got, clip_stats, train_stats
+
+
+def ln_bwd_note(norms, rows, h):
+    """The LayerNorm backward kernel that a bf16 (rows, h) plan launches, with
+    ptxas's registers and spills for it (printed, not gated: the held form
+    spills w at the CLIP rows, PERF.md)."""
+    plan = norms.layer_norm_bwd_plan(rows, h, 2)
+    vector = plan.vec > 1
+    regs, spills = ptxas_counts("norms", f"ln_bwd_kernelI13__nv_bfloat16Li{plan.epl}ELb{int(vector)}E")
+    form = "wide" if plan.epl > norms.LN_HOLD_EPL else "held"
+    return (f"ln_bwd_kernel<bf16, {plan.epl}, {str(vector).lower()}> ({form} form, {plan}); "
+            f"ptxas {regs} registers, {spills}")
+
+
+def ln_wide_extra_cases(torch, dev, gen, norms):
+    """B10 forward and backward at LN_WIDE_EXTRA_CASES, per element (LN_SUM,
+    LN_BWD_SUM, LN_DW_TOL) with the controls that must fail (the variance
+    without the mean subtracted; dw and db of the first partial sum's rows
+    alone); every plan against the library's."""
+    dts = {"bf16": torch.bfloat16, "fp32": torch.float32}
+    for (rows, h), xd, misaligned in LN_WIDE_EXTRA_CASES:
+        scale = 0.5 + 2.5 * torch.rand((rows, 1), generator=gen, device=dev)
+        x = (torch.randn((rows, h), generator=gen, device=dev) * scale
+             + 2 * torch.randn((rows, 1), generator=gen, device=dev)).to(dts[xd])
+        g = torch.randn((rows, h), generator=gen, device=dev).to(dts[xd])
+        if misaligned:
+            x, g = offset_copy(torch, x), offset_copy(torch, g)
+        w = 1 + 0.2 * torch.randn(h, generator=gen, device=dev)
+        b = 0.2 * torch.randn(h, generator=gen, device=dev)
+        y = norms.layer_norm(x, w, b, 1e-5)
+        dx, dw, db = norms.layer_norm_backward(x, w, g, 1e-5)
+        torch.cuda.synchronize()
+        ref = norms.layer_norm_ref(x.float(), w, b, 1e-5)
+        excess, _ = ulp_gate(y, ref, LN_SUM)
+        control, _ = ulp_gate(ln_no_mean(x.float(), w, b, 1e-5), ref, LN_SUM)
+        rdx, rdw, rdb = norms.layer_norm_backward_ref(x.float(), w, g.float(), 1e-5)
+        dx_excess, _ = ulp_gate(dx, rdx, LN_BWD_SUM)
+        rel = lambda a, r: ((a - r).abs().max() / r.abs().max()).item()  # noqa: E731
+        dw_err = max(rel(dw, rdw), rel(db, rdb))
+        es = x.element_size()
+        aligned = not misaligned
+        plan = norms.layer_norm_bwd_plan(rows, h, es, aligned)
+        first = ln_first_rows(norms, rows, h, es) if aligned else min(rows, plan.warps * plan.rpw)
+        cdw, cdb = norms.layer_norm_backward_ref(x[:first].float(), w, g[:first].float(), 1e-5)[1:]
+        ctrl_dwdb = min(rel(cdw, rdw), rel(cdb, rdb))
+        same = norms.layer_norm_bwd_plan_library(rows, h, dts[xd], aligned) == plan and \
+            norms.layer_norm_plan_library(rows, h, dts[xd], aligned) == \
+            norms.layer_norm_plan(rows, h, es, aligned)
+        label = f"{(rows, h)} {xd}{', x and g misaligned' if misaligned else ''}"
+        print(f"[clip kernels] layer_norm {label}: excess {excess:.3e}, control (the variance "
+              f"without the mean subtracted) {control:.3e} (must be > 0); backward: dx excess "
+              f"{dx_excess:.3e}, dw / db max err {dw_err:.3e} |ref|max (tol {LN_DW_TOL}), control "
+              f"(dw / db of the first {first} rows alone) {ctrl_dwdb:.3e} (must be > tol); plans "
+              f"equal the library's {same} | {norms.layer_norm_plan_of(x, w, b)} | {plan}",
+              flush=True)
+        check(bool(torch.isfinite(y).all() and torch.isfinite(dx).all()) and excess <= 0
+              and dx_excess <= 0 and dw_err <= LN_DW_TOL and same,
+              f"layer_norm {label}: {excess}, {dx_excess}, {dw_err}, plans {same}")
+        check(control > 0 and ctrl_dwdb > LN_DW_TOL,
+              f"layer_norm {label}: a control passes ({control}, {ctrl_dwdb})")
+        del x, g, y, dx, ref, rdx
+
+
+def quantizer_checks(torch, dev, gen):
+    """C.9: the four quantizers that divide by a constant (`quantize_weights_int8`
+    and `_int4` at a Llama width, 4096 -> 11008; `_quantize_kv` at a KV write
+    of (1, 608, 32, 128); `quantize_weight_per_cout` at an SDXL conv weight,
+    640 x 640 x 3 x 3) on the card must equal the same call on the CPU bit for
+    bit, int8 values and scales. Control: the scalar division they had
+    (PyTorch computes `t / c` on the card as t * (1 / c)), whose scales must
+    differ from the CPU's somewhere."""
+    from paddlemix_tpu_torch.models.llama.modeling import _quantize_kv
+    from paddlemix_tpu_torch.ops import conv_int8, quant
+
+    def int8_scalar(w):
+        wf = w.float()
+        a = wf.abs().amax(dim=1)
+        s = torch.where(a == 0, torch.ones_like(a), a / 127.0)
+        return torch.round(wf / s[:, None]).clamp_(-127, 127).to(torch.int8), s
+
+    def int4_scalar(w):
+        wf = w.float()
+        a = wf.abs().amax(dim=1)
+        s = torch.where(a == 0, torch.ones_like(a), a / 7.0)
+        q = torch.round(wf / s[:, None]).clamp_(-7, 7).to(torch.int32)
+        k = wf.shape[1]
+        return ((q[:, k // 2:] << 4) | (q[:, :k // 2] & 15)).to(torch.int8), s
+
+    def kv_scalar(x):
+        xf = x.float()
+        s = (xf.abs().amax(dim=-1) / 127.0).clamp(min=1e-8)
+        return torch.round(xf / s[..., None]).clamp(-127, 127).to(torch.int8), s
+
+    def cout_scalar(w):
+        wf = w.float()
+        sw = wf.abs().amax(dim=tuple(range(1, w.ndim))).clamp(min=1e-8) / 127.0
+        q = torch.round(wf * (1.0 / sw).view(-1, *(1,) * (w.ndim - 1))).clamp_(-127, 127)
+        return q.to(torch.int8), sw
+
+    w = torch.randn((11008, 4096), generator=gen, device=dev) * 4096 ** -0.5
+    kv = torch.randn((1, 608, 32, 128), generator=gen, device=dev).to(torch.bfloat16)
+    conv = torch.randn((640, 640, 3, 3), generator=gen, device=dev) * (640 * 9) ** -0.5
+    for name, fn, scalar, t in [("quantize_weights_int8", quant.quantize_weights_int8, int8_scalar, w),
+                                ("quantize_weights_int4", quant.quantize_weights_int4, int4_scalar, w),
+                                ("_quantize_kv", _quantize_kv, kv_scalar, kv),
+                                ("quantize_weight_per_cout", conv_int8.quantize_weight_per_cout,
+                                 cout_scalar, conv)]:
+        q, sc = fn(t)
+        torch.cuda.synchronize()
+        rq, rs = fn(t.cpu())
+        q_diff, s_diff = int((q.cpu() != rq).sum()), int((sc.cpu() != rs).sum())
+        cq, cs = scalar(t)
+        cq_diff, cs_diff = int((cq.cpu() != rq).sum()), int((cs.cpu() != rs).sum())
+        print(f"[c9] {name} {tuple(t.shape)} {t.dtype}: card vs CPU, int8 values differing "
+              f"{q_diff} of {rq.numel()}, scales {s_diff} of {rs.numel()} (both must be 0); "
+              f"control, the scalar division: values {cq_diff}, scales {cs_diff} (scales must "
+              f"differ)", flush=True)
+        check(q_diff == 0 and s_diff == 0, f"c9 {name}: the card's quantizer differs from the "
+                                           f"CPU's ({q_diff} values, {s_diff} scales)")
+        check(cs_diff > 0, f"c9 {name}: the scalar-division control equals the CPU's")
+    del w, kv, conv
+
+
+def specials_tokenizer():
+    """CLIP's tokenizer over a byte-level vocab (no merges, so no vocab file)
+    with CLIP's start and end ids, 49,406 and 49,407: the EVA text tower pools
+    at its config's eos id."""
+    from paddlemix_tpu_torch.models.clip.tokenizer import CLIPTokenizer, bytes_to_unicode
+
+    vocab = {}
+    for ch in bytes_to_unicode().values():
+        vocab[ch] = len(vocab)
+        vocab[ch + "</w>"] = len(vocab)
+    vocab["<|startoftext|>"], vocab["<|endoftext|>"] = 49406, 49407
+    return CLIPTokenizer(vocab, [], model_max_length=77)
+
+
+def smooth_jpeg(np, Image, seed, size=(480, 640)):
+    """A 640 x 480 jpeg (bytes) of a photograph's texture: a seeded 6 x 8
+    grid of colours, bilinearly enlarged, with mild noise."""
+    import io
+
+    rng = np.random.default_rng(seed)
+    grid = Image.fromarray(rng.integers(0, 256, (6, 8, 3), dtype=np.uint8))
+    arr = np.asarray(grid.resize(size[::-1], Image.BILINEAR), np.float32)
+    arr = np.clip(arr + rng.normal(0, 6, arr.shape), 0, 255).astype(np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, format="JPEG", quality=90)
+    return buf.getvalue()
+
+
+def kernel_breakdown(label, what, prof, top):
+    """Print the `top` kernels of a profile by device time; returns the
+    profile's device ms."""
+    by_kernel = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                        for e in prof.key_averages() if e.self_device_time_total > 0),
+                       reverse=True)
+    device_ms = sum(ms_ for ms_, _, _ in by_kernel)
+    for ms_, n_, key in by_kernel[:top]:
+        print(f"[{label}]   {what}: {ms_:8.2f} ms {100 * ms_ / device_ms:5.1f}% {n_:5d}x "
+              f"{key[:100]}", flush=True)
+    return device_ms
+
+
+def eva_slice(torch, np, dev, m, counters):
+    """eva agree, eva appflow, eva eval, eva train and clip main (see the
+    module docstring): EVA02-CLIP-B/16 at batch 256 and the example's
+    training data plane. `counters` are every kernel wrapper's, by name: each
+    phase must launch B10 (and in training its backward) as the walk says,
+    and nothing else. Returns the launches of each phase and its numbers."""
+    import io
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddlemix_tpu_torch.appflow import Appflow
+    from paddlemix_tpu_torch.datasets import DataLoader
+    from paddlemix_tpu_torch.metrics import build_zero_shot_classifier, zero_shot_accuracy
+    from paddlemix_tpu_torch.models.clip import CLIPModel, scaled_logits
+    from paddlemix_tpu_torch.models.clip.eva02_b16 import (
+        expected_launches_eva_clip,
+        random_eva_clip,
+    )
+    from paddlemix_tpu_torch.models.clip.vitb16 import BENCH_BATCH, VITB16, seeded_inputs
+    from paddlemix_tpu_torch.models.layers import FusedLayerNorm, n_layer_norms
+    from paddlemix_tpu_torch.processors import CLIPImageProcessor, CLIPProcessor
+    from paddlemix_tpu_torch.processors.image_utils import to_numpy_rgb
+    from paddlemix_tpu_torch.tools import train_clip
+    from paddlemix_tpu_torch.trainer import Trainer, TrainingArguments
+
+    bf16 = torch.bfloat16
+    norms = m.norms
+    phases, stats = {}, {}
+
+    def launches():
+        return {name: fn.launches for name, fn in counters.items()}
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def walk(**kw):
+        want = expected_launches_eva_clip(model, **kw)
+        return {name: want.get(name, 0) for name in counters}
+
+    def decode(data):
+        with Image.open(io.BytesIO(data)) as im:
+            return im.convert("RGB")
+
+    t0 = time.perf_counter()
+    model = random_eva_clip(dev, seed=0)
+    # norms as a trained model holds them (the agree's rounding pair needs a
+    # non-trivial affine), every one of the five kinds
+    gen = torch.Generator(device=dev).manual_seed(3)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, FusedLayerNorm):
+                mod.weight.copy_(1 + 0.1 * torch.randn(mod.weight.shape, generator=gen, device=dev))
+                mod.bias.copy_(0.1 * torch.randn(mod.bias.shape, generator=gen, device=dev))
+    torch.cuda.synchronize()
+    cfg = model.config
+    n_vis, n_txt = n_layer_norms(model.visual), n_layer_norms(model.text_model)
+    print(f"[eva] EVA02-CLIP-B/16 built in {time.perf_counter() - t0:.1f} s: "
+          f"{sum(p.numel() for p in model.parameters())} fp32 parameters, bf16 compute; B10 "
+          f"modules: vision {n_vis} (4 a block + norm), text {n_txt} (2 a layer + final)",
+          flush=True)
+    check(n_vis == 4 * cfg.vision.layers + 1 and n_txt == 2 * cfg.text.num_hidden_layers + 1,
+          f"eva: B10 modules {n_vis}, {n_txt}")
+
+    # ------------------------------------------------------------ eva agree
+    plain = [(norms, "_ln_forward", norms.layer_norm_ref),
+             (norms, "layer_norm_backward", norms.layer_norm_backward_ref)]
+    rounded = [(norms, "_ln_forward", ln_rounded)] + plain[1:]
+    px, ids = seeded_inputs(cfg, BENCH_BATCH, seed=1, device=dev)
+
+    def logits(swaps=()):
+        with torch.inference_mode(), swapped(swaps):
+            out = model(px.to(bf16), ids)
+            return scaled_logits(out["logit_scale"], out["image_features"], out["text_features"])
+
+    zero()
+    lk = logits()
+    torch.cuda.synchronize()
+    phases["eva"] = got = launches()
+    lp, lr = logits(plain), logits(rounded)
+    gap, floor = rel_l2(lk, lp), rel_l2(lr, lp)
+    print(f"[eva agree] full-width EVA02-CLIP-B/16 forward at batch {BENCH_BATCH} (seeded pixels, "
+          f"ids ending in eos), logits {tuple(lk.shape)} {lk.dtype}: relative L2 kernels vs plain "
+          f"{gap:.3e}; two plain versions one rounding apart {floor:.3e} (ratio tol "
+          f"{TRAIN_AGREE_RATIO}); launches {got}", flush=True)
+    check(lk.shape == (BENCH_BATCH, BENCH_BATCH) and bool(torch.isfinite(lk).all()),
+          f"eva agree: logits {lk.shape}")
+    check(gap <= TRAIN_AGREE_RATIO * floor, f"eva agree: kernels vs plain {gap} against {floor}")
+    check(got == walk(image_forwards=1, text_forwards=1), f"eva agree: launches {got}")
+    del lk, lp, lr
+
+    # ---------------------------------------------------------- eva appflow
+    tok = specials_tokenizer()
+    labels = [f"category {i}" for i in range(EVA_LABELS)]
+    app = Appflow(app="zero_shot_classification",
+                  models=[(model, CLIPProcessor(CLIPImageProcessor(), tok))])
+    requests = [smooth_jpeg(np, Image, 100 + i) for i in range(EVA_REQUESTS)]
+    seconds, totals = [], collections.Counter()
+    torch.cuda.reset_peak_memory_stats()
+    for i, data in enumerate(requests):
+        zero()
+        torch.cuda.synchronize()
+        last = i == len(requests) - 1
+        with (profile(activities=[ProfilerActivity.CUDA]) if last
+              else contextlib.nullcontext()) as prof:
+            t0 = time.perf_counter()
+            result = app(image=to_numpy_rgb(decode(data)), candidate_labels=labels)["result"]
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        got = launches()
+        totals.update(got)
+        scores = [r["score"] for r in result]
+        check(len(result) == EVA_LABELS and sorted(r["label"] for r in result) == sorted(labels)
+              and all(np.isfinite(scores)) and scores == sorted(scores, reverse=True),
+              f"eva appflow: request {i} result")
+        check(got == walk(image_forwards=1, text_forwards=1),
+              f"eva appflow: request {i} launches {got}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    device_ms = kernel_breakdown("eva appflow", "profiled request", prof, 8)
+    phases["eva_appflow"] = dict(totals)
+    stats["appflow"] = dict(seconds=seconds, device_ms=device_ms, busy=device_ms / 1e3 /
+                            seconds[-1], peak_gib=peak)
+    print(f"[eva appflow] {EVA_REQUESTS} zero-shot requests, each one 640 x 480 jpeg decoded by "
+          f"PIL against {EVA_LABELS} candidate labels: seconds {[round(t, 4) for t in seconds]}; "
+          f"profiled request {device_ms:.2f} device ms, busy {100 * device_ms / 1e3 / seconds[-1]:.1f}"
+          f"%; peak memory {peak:.2f} GiB; top label {result[0]['label']} {result[0]['score']:.4f}; "
+          f"B10 launches a request {n_vis} + {n_txt}", flush=True)
+
+    # ------------------------------------------------------------- eva eval
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    jpegs = [smooth_jpeg(np, Image, 1000 + i) for i in range(EVA_EVAL_IMAGES)]
+    truth = torch.from_numpy(rng.integers(0, EVA_LABELS, EVA_EVAL_IMAGES))
+    print(f"[eva eval] {EVA_EVAL_IMAGES} jpegs generated in {time.perf_counter() - t0:.1f} s "
+          f"(set-up)", flush=True)
+    zero()
+    t0 = time.perf_counter()
+    classifier = build_zero_shot_classifier(model.encode_text, tok, labels, device=dev)
+    torch.cuda.synchronize()
+    t_cls = time.perf_counter() - t0
+    got_cls = launches()
+    n_text = -(-EVA_LABELS // 64) * 4
+    check(tuple(classifier.shape) == (EVA_LABELS, cfg.embed_dim)
+          and bool(torch.isfinite(classifier).all()), "eva eval: classifier")
+    check(got_cls == walk(text_forwards=n_text), f"eva eval: classifier launches {got_cls}")
+    totals = collections.Counter(got_cls)
+    results = {}
+    native_env = os.environ.pop("PMIX_NATIVE_PREPROCESS", None)
+    try:
+        for path in ("default", "native"):
+            if path == "native":
+                os.environ["PMIX_NATIVE_PREPROCESS"] = "1"
+            processor = CLIPImageProcessor()
+            zero()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(8) as pool:
+                pixels = list(pool.map(lambda d: processor(decode(d))["pixel_values"][0], jpegs))
+            batch = torch.from_numpy(np.stack(pixels)).to(dev)
+            t_pre = time.perf_counter() - t0
+            with torch.inference_mode():
+                feats = model.encode_image(batch)
+                acc = zero_shot_accuracy(feats, classifier, truth)
+                top1 = (feats.float() @ classifier.float().T).argmax(-1)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            got = launches()
+            totals.update(got)
+            check(got == walk(image_forwards=1), f"eva eval {path}: launches {got}")
+            results[path] = dict(acc=acc, top1=top1, batch=batch, feats=feats.float(),
+                                 images_per_s=EVA_EVAL_IMAGES / secs, seconds=secs,
+                                 preprocess_s=t_pre)
+    finally:
+        os.environ.pop("PMIX_NATIVE_PREPROCESS", None)
+        if native_env is not None:
+            os.environ["PMIX_NATIVE_PREPROCESS"] = native_env
+    d_, n_ = results["default"], results["native"]
+    agree = float((d_["top1"] == n_["top1"]).float().mean())
+    for path, r in results.items():
+        print(f"[eva eval] {path} path: {EVA_EVAL_IMAGES} jpegs decoded and preprocessed "
+              f"(8 threads) in {r['preprocess_s']:.3f} s, encoded and scored: {r['seconds']:.3f} s "
+              f"-> {r['images_per_s']:.1f} images/s; top-1 / top-5 {r['acc']['top1']:.4f} / "
+              f"{r['acc']['top5']:.4f} (seeded random labels of {EVA_LABELS} classes)", flush=True)
+    print(f"[eva eval] classifier: {EVA_LABELS} classes x 4 templates in {t_cls:.3f} s "
+          f"({n_text} text forwards of up to 64 prompts); the paths' pixels differ by relative "
+          f"L2 {rel_l2(n_['batch'], d_['batch']):.3e} (bilinear and the long side rounded, "
+          f"against bicubic and truncated), their features by {rel_l2(n_['feats'], d_['feats']):.3e}"
+          f"; the same predicted class for {100 * agree:.1f}% of the images", flush=True)
+    check(d_["acc"]["top1"] == n_["acc"]["top1"],
+          f"eva eval: top-1 {d_['acc']['top1']} (default) != {n_['acc']['top1']} (native)")
+    phases["eva_eval"] = dict(totals)
+    stats["eval"] = dict(images_per_s={p: r["images_per_s"] for p, r in results.items()},
+                         top1={p: r["acc"]["top1"] for p, r in results.items()},
+                         top5={p: r["acc"]["top5"] for p, r in results.items()},
+                         same_top1_share=agree)
+    del results, d_, n_, classifier, px, ids
+
+    # ------------------------------------------------------------ eva train
+    with open(EVA_CONFIG) as f:
+        recipe = json.load(f)
+    args = TrainingArguments.from_dict(recipe, **EVA_TRAIN_OVERRIDES)
+    check((args.learning_rate, args.lr_scheduler_type, args.weight_decay, args.layer_decay,
+           args.per_device_train_batch_size) == (5e-4, "cosine", 0.05, 0.75, BENCH_BATCH),
+          f"eva train: the recipe's optimizer {args}")
+    size = cfg.vision.image_size
+    pixels = rng.standard_normal((EVA_TRAIN_SAMPLES, size, size, 3), dtype=np.float32)
+    words = [f"w{i}" for i in range(4096)]
+    items = [(pixels[i], " ".join(rng.choice(words, rng.integers(3, 40))))
+             for i in range(EVA_TRAIN_SAMPLES)]
+    loader = DataLoader(train_clip.ImageTextDataset(items, None, train_clip._hash_tokenize),
+                        batch_size=args.per_device_train_batch_size, shuffle=True, num_workers=8,
+                        prefetch_batches=8)
+
+    def loss_fn(params, batch, rng_):
+        return model(batch["pixel_values"].to(bf16), batch["input_ids"])["loss"], {}
+
+    trainer = Trainer(model=model, args=args, loss_fn=loss_fn, train_dataloader=loader).setup()
+    scales = trainer.tx.layer_scales
+    check(scales["visual.head.weight"] == 1.0
+          and scales["visual.patch_embed.proj.weight"] == 0.75 ** 13
+          and scales["visual.blocks.0.mlp.w1.weight"] == 0.75 ** 12,
+          "eva train: layer-decay scales")
+    params = list(trainer.params.values())
+    before = [p.detach().clone() for p in params]
+    profiled = EVA_TRAIN_STEPS - 1
+    zero()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA], schedule=torch.profiler.schedule(
+            wait=profiled - 2, warmup=1, active=1, repeat=1)) as prof:
+        trainer.callbacks.append(lambda step, metrics: prof.step())
+        trainer.train()
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    phases["eva_train"] = got = launches()
+    want = walk(image_forwards=EVA_TRAIN_STEPS, text_forwards=EVA_TRAIN_STEPS,
+                backwards=EVA_TRAIN_STEPS)
+    device_ms = kernel_breakdown("eva train", "profiled step", prof, 10)
+    hist = trainer.history
+    ends = [t_start] + [h["time"] for h in hist]
+    step_s = [b_ - a_ for a_, b_ in zip(ends, ends[1:])]
+    middle = [i for i in range(1, len(hist)) if i != profiled - 1]
+    s_step = sorted(step_s[i] for i in middle)[len(middle) // 2]
+    losses = torch.stack([h["loss"] for h in hist]).float()
+    moved = sum(not torch.equal(a_, p.detach()) for a_, p in zip(before, params))
+    stats["train"] = dict(step_s=s_step, samples_per_s=BENCH_BATCH / s_step,
+                          device_ms=device_ms, busy=device_ms / 1e3 / step_s[profiled - 1],
+                          peak_gib=peak)
+    print(f"[eva train] {len(hist)} optimizer steps of {BENCH_BATCH} pairs, the recipe's "
+          f"optimizer (lr {args.learning_rate}, cosine, warmup {args.warmup_steps} (cut), weight "
+          f"decay {args.weight_decay}, layer decay {args.layer_decay}): seconds a step "
+          f"{[round(t, 4) for t in step_s]}; median of the steady ones {s_step:.4f} s -> "
+          f"{BENCH_BATCH / s_step:.1f} samples/s; profiled step {profiled} {device_ms:.1f} device "
+          f"ms, busy {100 * stats['train']['busy']:.1f}%; peak memory {peak:.2f} GiB; losses "
+          f"{[round(x, 4) for x in losses.tolist()]}; {moved} of {len(params)} parameter tensors "
+          f"moved; launches {got}", flush=True)
+    check(len(hist) == EVA_TRAIN_STEPS and bool(torch.isfinite(losses).all()),
+          "eva train: a loss is not finite")
+    check(moved == len(params), f"eva train: {len(params) - moved} parameter tensors did not move")
+    check(got == want, f"eva train: launches {got} != {want}")
+    del trainer, model, before, params, items, pixels, loader
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------ clip main
+    with torch.device("meta"):
+        n_clip = n_layer_norms(CLIPModel(VITB16))
+    saved = {k: os.environ.get(k) for k in ("CLIP_STEPS", "CLIP_BATCH")}
+    os.environ.update(CLIP_STEPS=str(CLIP_MAIN_STEPS), CLIP_BATCH=str(CLIP_MAIN_BATCH))
+    try:
+        zero()
+        t0 = time.perf_counter()
+        result = train_clip.main(["--synthetic"], device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    phases["clip_main"] = got = launches()
+    want = {name: 0 for name in counters}
+    want.update(layer_norm=n_clip * CLIP_MAIN_STEPS, layer_norm_backward=n_clip * CLIP_MAIN_STEPS)
+    print(f"[clip main] tools/train_clip.main --synthetic (256 generated jpegs, PIL decode and "
+          f"CLIPImageProcessor in the loader's 8 workers, CLIP_STEPS {CLIP_MAIN_STEPS}, CLIP_BATCH "
+          f"{CLIP_MAIN_BATCH}): {secs:.1f} s with the set-up; result {result}; launches {got}",
+          flush=True)
+    check(result["final_step"] == CLIP_MAIN_STEPS and np.isfinite(result["loss"]),
+          f"clip main: {result}")
+    check(got == want, f"clip main: launches {got} != {want}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return phases, stats
 
 
 # ------------------------------------------------------ decode attention
@@ -4249,13 +4794,21 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     clip_kernels(torch, F, dev, gen, record, norms_mod)
+    clip_kernels(torch, F, dev, gen, record, norms_mod, shapes=EVA_LN_SHAPES)
     ln_extra_cases(torch, dev, gen, norms_mod)
+    ln_wide_extra_cases(torch, dev, gen, norms_mod)
     every = dict(all_counters, rms_norm_backward=norms_mod.rms_norm_backward,
                  flash_fwd_lse=attn_mod.flash_fwd_lse, flash_bwd_dkv=attn_mod.flash_bwd_dkv,
                  flash_bwd_dq=attn_mod.flash_bwd_dq,
                  layer_norm_backward=norms_mod.layer_norm_backward)
     launches_clip, launches_clip_tr, clip_stats, clip_train_stats = clip_slice(
         torch, np, dev, tmods, every)
+
+    # ------------------------------------------------- C.9 and EVA-CLIP slice
+    gc.collect()
+    torch.cuda.empty_cache()
+    quantizer_checks(torch, dev, gen)
+    launches_eva, eva_stats = eva_slice(torch, np, dev, tmods, every)
 
     # ----------------------------------------------------------- SD1.5 slice
     gc.collect()
@@ -4359,10 +4912,13 @@ def main():
                "llava_wint8": launches_wint8["layer_norm"],
                "llava_a8w8": launches_q["a8w8"]["layer_norm"],
                "llava_a8w4": launches_q["a8w4"]["layer_norm"], "sd3": launches_sd3["layer_norm"],
-               "clip": launches_clip["layer_norm"], "clip_train": launches_clip_tr["layer_norm"]}),
+               "clip": launches_clip["layer_norm"], "clip_train": launches_clip_tr["layer_norm"],
+               **{phase: got["layer_norm"] for phase, got in launches_eva.items()}}),
         entry("layer_norm_backward", "cuda", "paddlemix_tpu_torch/csrc/norms.cu",
               "paddlemix_tpu/ops/norms.py:226",
-              {"clip_train": launches_clip_tr["layer_norm_backward"]}),
+              {"clip_train": launches_clip_tr["layer_norm_backward"],
+               "eva_train": launches_eva["eva_train"]["layer_norm_backward"],
+               "clip_main": launches_eva["clip_main"]["layer_norm_backward"]}),
         # B1's forms: int8 QK^T (the `int8_qk` branch of `_fwd_kernel`) and
         # the wide heads; B15 at the SD1.5 training path's head dims (40, 80
         # and 160, read in place at D = 64, 128 and 192) and at 256
@@ -4420,7 +4976,8 @@ def main():
         [("layer_norm", phase) for phase in ("bf16", "a8w8", "llava_bf16", "llava_wint8",
                                              "llava_a8w8", "llava_a8w4", "sd3", "clip",
                                              "clip_train")] + \
-        [("layer_norm_backward", "clip_train")] + \
+        [("layer_norm", phase) for phase in launches_eva] + \
+        [("layer_norm_backward", phase) for phase in ("clip_train", "eva_train", "clip_main")] + \
         [(name, "sd15_train") for name in (
             "flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq", "group_norm",
             "flash_fwd_lse_d40", "flash_fwd_lse_d80", "flash_fwd_lse_d160",
@@ -4433,6 +4990,7 @@ def main():
           and launches_wint8["flash_attention"] == 0, "LLaVA launched a kernel off its path")
     print(f"[summary] training: {train_stats}", flush=True)
     print(f"[summary] clip: {clip_stats}; clip train: {clip_train_stats}", flush=True)
+    print(f"[summary] eva: {eva_stats}", flush=True)
     print(f"[summary] sd15: {sd15_stats}", flush=True)
     print(f"[summary] sd15 train: {sd15_train_stats}", flush=True)
     print(f"[summary] chip_smoke ran {time.perf_counter() - T_START:.1f} s", flush=True)

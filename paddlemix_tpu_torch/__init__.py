@@ -15,5 +15,9 @@ Slices so far, each with its kernels written for Hopper:
     (`csrc/decode_attention.cu`) and RMSNorm (Triton, `ops/norms.py`);
   - SD3-medium text-to-image in bf16 (MM-DiT, CLIP-L + bigG, T5 encoder in
     `models/t5`, 16-channel VAE, FlowMatch Euler): adaLN and fused adaLN +
-    gated residual (Triton, `ops/norms.py`).
+    gated residual (Triton, `ops/norms.py`);
+  - later slices (README, PyTorch port): Llama serving and LoRA SFT, CLIP
+    ViT-B/16, SD1.5 and its fine-tuning, LLaVA's quantized modes, and
+    EVA-CLIP zero-shot (`models/clip/eva.py`, `processors`, `appflow`,
+    `metrics`), with every norm kernel now CUDA in `csrc/norms.cu`.
 """

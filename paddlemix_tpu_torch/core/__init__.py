@@ -2,6 +2,8 @@
 
 from .convert import (
     CLIP_KEY_MAP,
+    EVA_CLIP_KEY_MAP,
+    EVA_VISION_KEY_MAP,
     LLAMA_KEY_MAP,
     SD3_KEY_MAP,
     T5_KEY_MAP,
@@ -15,6 +17,6 @@ from .convert import (
 )
 from .init import build_random, init_weights_
 
-__all__ = ["CLIP_KEY_MAP", "LLAMA_KEY_MAP", "SD3_KEY_MAP", "T5_KEY_MAP", "UNET_KEY_MAP",
+__all__ = ["CLIP_KEY_MAP", "EVA_CLIP_KEY_MAP", "EVA_VISION_KEY_MAP", "LLAMA_KEY_MAP", "SD3_KEY_MAP", "T5_KEY_MAP", "UNET_KEY_MAP",
            "VAE_KEY_MAP", "build_random", "flatten_flax", "flax_to_torch_state_dict",
            "init_weights_", "llava_key_to_flax", "lora_from_flax", "torch_key_to_flax"]

@@ -61,6 +61,30 @@ CLIP_KEY_MAP: KeyMap = (
     (r"\.weight$", r".kernel"),
 )
 
+# paddlemix_tpu/models/clip/eva.py _EVA_VISION_KEY_MAP: EVA's torch checkpoint
+# names (the port's EVAVisionTransformer's) -> the flax EVA tower's
+EVA_VISION_KEY_MAP: KeyMap = (
+    (r"^visual\.", r""),
+    (r"^blocks\.(\d+)\.", r"blocks_\1."),
+    (r"\.attn\.", r"."),
+    (r"\.mlp\.", r"."),
+    (r"(norm[^.]*|ffn_ln|inner_attn_ln|fc_norm)\.weight$", r"\1.scale"),
+    (r"\.weight$", r".kernel"),
+)
+
+
+def eva_clip_key_to_flax(key: str) -> str:
+    """An `EVACLIP` key -> the JAX EVACLIPModule's flax key: `visual.*`
+    through the EVA tower's map under `visual.`, the text tower, its
+    projection and `logit_scale` through the CLIP map (the JAX module holds
+    the CLIP text tower under `text_model`)."""
+    if key.startswith("visual."):
+        return "visual." + torch_key_to_flax(key, EVA_VISION_KEY_MAP)
+    return torch_key_to_flax(key, CLIP_KEY_MAP)
+
+
+EVA_CLIP_KEY_MAP: KeyMap = eva_clip_key_to_flax
+
 # paddlemix_tpu/diffusers/models/transformer_sd3.py _SD3_KEY_MAP (the port's
 # module names are the flax names, so only the block index and `.kernel` move;
 # the JAX package fuses diffusers' to_q/to_k/to_v before this map, and the

@@ -31,10 +31,19 @@
 //   dw = sum over rows of g xhat, db = sum of g,
 // in fp32; dx in x's dtype, dw and db in the weight's. It reads x and g once
 // and writes dx once: the bytes bound it. A warp owns one row at a time (at
-// most 1,280 wide: five 16-byte loads a lane); the next rows' x and g are in
-// flight in a per-warp cp.async ring (each lane copies and later reads its
-// own 16-byte chunks, so no barrier guards the ring); the row's moments and
-// the two sums of dx are warp shuffles. dw and db build up in registers and
+// most 2,048 wide); the next rows' x and g are in flight in a per-warp
+// cp.async ring (each lane copies and later reads its own 16-byte chunks, so
+// no barrier guards the ring); the row's moments and the two sums of dx are
+// warp shuffles. Rows up to 1,280 wide (five 16-byte loads a lane) are held
+// in registers, x, g and w beside dw and db. Wider rows (EVA's 2,048-wide
+// sub-LN `ffn_ln`: 64 elements a lane) would need five arrays of 64 floats
+// a lane, so the wide form holds only dw and db in registers: w sits in
+// shared memory in lane order (each lane reads its own columns, no bank
+// conflict), and the row is read from its ring slot (or, unaligned, from
+// device memory through L1) once a pass, four passes (mean, variance, the
+// two sums, dx), none of which goes back to device memory. The wide form runs
+// one block an SM (a ring of up to 128 KB), several clusters of 4 as the
+// card holds at once. dw and db build up in registers and
 // are reduced across the block's warps in shared memory, then across the
 // cluster through DSMEM, each rank a slice of the columns. With one cluster
 // (up to 1,024 rows) that slice is the result. With several, each cluster
@@ -246,12 +255,19 @@ constexpr int LN_CLUSTER = 4;              // blocks a cluster, several clusters
 // Blocks, several clusters: two an SM, in as many clusters of 4 as an H100
 // SXM runs at once (cudaOccupancyMaxActiveClusters: 62), rounded down to 60.
 constexpr int LN_BLOCKS = 60 * LN_CLUSTER;
-constexpr int LN_MAX_WIDTH = 1280;
+constexpr int LN_MAX_WIDTH = 2048;         // EVA's sub-LN rows (ffn_ln)
+constexpr int LN_HOLD_EPL = 40;            // a lane's share held in registers at most (1,280)
+constexpr int LN_WIDE_EPL = 64;            // the wide form's share (2,048 / 32)
+constexpr int LN_WIDE_RING_BYTES = 128 * 1024;  // the wide form's ring, one block an SM
+constexpr int LN_WIDE_CLUSTER = 8;         // one cluster's blocks at most, wide form (portable)
+// Wide form, several clusters: one block an SM, so half the clusters of 4
+// that two blocks an SM give (62 / 2, rounded down).
+constexpr int LN_WIDE_BLOCKS = 30 * LN_CLUSTER;
 constexpr int LN_GATHER = 16;              // partial rows in flight a thread, last block
 
 struct LnPlan {
   int vec;       // elements a load (16 bytes, or 1)
-  int epl;       // elements a lane holds of a row (8 ... 40)
+  int epl;       // elements a lane takes of a row (8 ... 40 held, 64 wide)
   int stages;    // rows of the ring a warp (0: no ring, one element a load)
   int warps;     // warps a block
   int cluster;   // blocks a cluster
@@ -270,26 +286,34 @@ bool ln_plan(int rows, int h, int es, bool aligned, LnPlan* p) {
   const int vec = aligned && (h * es) % 16 == 0 ? 16 / es : 1;
   p->vec = vec;
   p->warps = LN_WARPS;
+  bool wide;
   if (vec > 1) {
     const int per_lane = cdiv(h, 32 * vec) * vec;
     p->epl = (per_lane + 7) / 8 * 8;
-    int st = LN_RING_BYTES / (LN_WARPS * 2 * ln_row_bytes(h, es));
-    p->stages = st < 2 ? 2 : st > 4 ? 4 : st;
+    wide = p->epl > LN_HOLD_EPL;
+    if (wide) p->epl = LN_WIDE_EPL;
+    const int lo = wide ? 1 : 2;
+    int st = (wide ? LN_WIDE_RING_BYTES : LN_RING_BYTES) / (LN_WARPS * 2 * ln_row_bytes(h, es));
+    p->stages = st < lo ? lo : st > 4 ? 4 : st;
   } else {
-    p->epl = LN_MAX_WIDTH / 32;
+    wide = h > LN_HOLD_EPL * 32;
+    p->epl = wide ? LN_WIDE_EPL : LN_HOLD_EPL;
     p->stages = 0;
   }
+  const int cap = wide ? LN_WIDE_CLUSTER : MAX_CLUSTER;
   if (rows <= LN_SINGLE_ROWS) {
     const int blocks = cdiv(rows, LN_WARPS);
-    p->cluster = blocks < MAX_CLUSTER ? blocks : MAX_CLUSTER;
+    p->cluster = blocks < cap ? blocks : cap;
     p->clusters = 1;
   } else {
     p->cluster = LN_CLUSTER;
-    p->clusters = LN_BLOCKS / LN_CLUSTER;
+    p->clusters = (wide ? LN_WIDE_BLOCKS : LN_BLOCKS) / LN_CLUSTER;
   }
   p->rpw = cdiv(rows, (long long)p->cluster * p->clusters * LN_WARPS);
-  const int ring = LN_WARPS * p->stages * 2 * ln_row_bytes(h, es);
-  const int red = LN_WARPS * 64 * p->epl * 4;  // each warp's dw and db, 32 lanes x epl
+  // the ring, then (wide form) w in lane order; after the rows, each warp's
+  // dw and db (32 lanes x epl each) over the same bytes
+  const int ring = LN_WARPS * p->stages * 2 * ln_row_bytes(h, es) + (wide ? 32 * p->epl * 4 : 0);
+  const int red = LN_WARPS * 64 * p->epl * 4;
   p->smem = ring > red ? ring : red;
   return true;
 }
@@ -833,8 +857,10 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 __device__ __forceinline__ void cp_wait_n(int n) {
-  // the ring's depth is the plan's, 2 ... 4 rows
-  if (n <= 1)
+  // the ring's depth is the plan's, 1 ... 4 rows
+  if (n <= 0)
+    cp_wait<0>();
+  else if (n == 1)
     cp_wait<1>();
   else if (n == 2)
     cp_wait<2>();
@@ -850,7 +876,87 @@ __device__ __forceinline__ void ln_store(const LnArgs& a, int p, float v) {
   if (col < a.h) store_param(st ? a.db : a.dw, a.wdtype, col, v);
 }
 
-// Lane l of a warp holds elements (32 k + l) * VEC + e of a row, k < EPL / VEC.
+// Chunk v of a row (elements [v VEC, (v + 1) VEC), in its ring slot, or in
+// device memory where the row takes single elements) as floats.
+template <typename T, int VEC>
+__device__ __forceinline__ void ln_chunk(const T* r, int v, float (&out)[VEC]) {
+  const Pack<T, VEC> p = *reinterpret_cast<const Pack<T, VEC>*>(r + (long long)v * VEC);
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) out[e] = to_f<T>(p.v[e]);
+}
+
+// One row of the wide form: x and g at xr / gr, read once a pass; w in lane
+// order in shared memory (wsm[t 32 + lane]); the lane's elements and the
+// order of its sums are the held form's, so both forms round alike.
+template <typename T, int EPL, int VEC>
+__device__ __forceinline__ void ln_bwd_wide_row(const T* xr, const T* gr, const float* wsm, T* dxr,
+                                                int nvec, int lane, float inv_h, float eps,
+                                                float (&dwa)[EPL], float (&dba)[EPL]) {
+  constexpr int NVL = EPL / VEC;
+  float sx = 0.f;
+#pragma unroll
+  for (int k = 0; k < NVL; ++k)
+    if (k * 32 + lane < nvec) {
+      float xc[VEC];
+      ln_chunk<T, VEC>(xr, k * 32 + lane, xc);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) sx += xc[e];
+    }
+  const float mean = warp_sum(sx) * inv_h;
+  float sd = 0.f;
+#pragma unroll
+  for (int k = 0; k < NVL; ++k)
+    if (k * 32 + lane < nvec) {
+      float xc[VEC];
+      ln_chunk<T, VEC>(xr, k * 32 + lane, xc);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const float d = xc[e] - mean;
+        sd += d * d;
+      }
+    }
+  const float rstd = 1.f / sqrtf(warp_sum(sd) * inv_h + eps);
+  float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+  for (int k = 0; k < NVL; ++k)
+    if (k * 32 + lane < nvec) {
+      float xc[VEC], gc[VEC];
+      ln_chunk<T, VEC>(xr, k * 32 + lane, xc);
+      ln_chunk<T, VEC>(gr, k * 32 + lane, gc);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const int t = k * VEC + e;
+        const float xh = (xc[e] - mean) * rstd;
+        const float dxh = gc[e] * wsm[t * 32 + lane];
+        s1 += dxh;
+        s2 += dxh * xh;
+        dwa[t] += gc[e] * xh;
+        dba[t] += gc[e];
+      }
+    }
+  s1 = warp_sum(s1) * inv_h;
+  s2 = warp_sum(s2) * inv_h;
+#pragma unroll
+  for (int k = 0; k < NVL; ++k) {
+    const int v = k * 32 + lane;
+    if (v < nvec) {
+      float xc[VEC], gc[VEC];
+      ln_chunk<T, VEC>(xr, v, xc);
+      ln_chunk<T, VEC>(gr, v, gc);
+      Pack<T, VEC> out;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const float xh = (xc[e] - mean) * rstd;
+        const float dxh = gc[e] * wsm[(k * VEC + e) * 32 + lane];
+        out.v[e] = from_f<T>(rstd * (dxh - s1 - xh * s2));
+      }
+      *reinterpret_cast<Pack<T, VEC>*>(dxr + (long long)v * VEC) = out;
+    }
+  }
+}
+
+// Lane l of a warp takes elements (32 k + l) * VEC + e of a row, k < EPL / VEC:
+// held in registers (EPL <= LN_HOLD_EPL), or read from the row a pass (wide).
 template <typename T, int EPL, bool VECTOR>
 __global__ void __launch_bounds__(LN_WARPS * 32, EPL <= 24 ? 2 : 1) ln_bwd_kernel(LnArgs a) {
   constexpr int VEC = VECTOR ? 16 / sizeof(T) : 1;
@@ -890,80 +996,104 @@ __global__ void __launch_bounds__(LN_WARPS * 32, EPL <= 24 ? 2 : 1) ln_bwd_kerne
   for (int e = 0; e < EPL; ++e) dwa[e] = dba[e] = 0.f;
   if constexpr (VECTOR)
     for (int i = 0; i < a.stages - 1; ++i) issue(i);
-  float wv[EPL];  // this lane's columns of w, fp32, while the first rows are in flight
-#pragma unroll
-  for (int e = 0; e < EPL; ++e) {
-    const int col = (e / VEC * 32 + lane) * VEC + e % VEC;
-    wv[e] = col < h ? load_param(a.w, a.wdtype, col) : 0.f;
-  }
   const float inv_h = 1.f / float(h);
-  for (int i = 0; i < cnt; ++i) {
-    const long long row = first + i;
-    float xv[EPL], gv[EPL];
-    if constexpr (VECTOR) {
-      issue(i + a.stages - 1);
-      cp_wait_n(a.stages - 1);
-      const unsigned char* slot = ring + (i % a.stages) * 2 * row_bytes;
+  if constexpr (EPL > LN_HOLD_EPL) {
+    // w in lane order after the ring, while the first rows are in flight
+    float* wsm = reinterpret_cast<float*>(smem + LN_WARPS * a.stages * 2 * row_bytes);
+    for (int q = tid; q < EPL * 32; q += blockDim.x) {
+      const int e = q / 32, col = (e / VEC * 32 + q % 32) * VEC + e % VEC;
+      wsm[q] = col < h ? load_param(a.w, a.wdtype, col) : 0.f;
+    }
+    __syncthreads();
+    for (int i = 0; i < cnt; ++i) {
+      const long long row = first + i;
+      const T* xr = xg + row * a.xs;
+      const T* gr = gg + row * a.gs;
+      if constexpr (VECTOR) {
+        issue(i + a.stages - 1);
+        cp_wait_n(a.stages - 1);
+        const unsigned char* slot = ring + (i % a.stages) * 2 * row_bytes;
+        xr = reinterpret_cast<const T*>(slot);
+        gr = reinterpret_cast<const T*>(slot + row_bytes);
+      }
+      ln_bwd_wide_row<T, EPL, VEC>(xr, gr, wsm, dxg + row * h, nvec, lane, inv_h, a.eps, dwa,
+                                   dba);
+    }
+  } else {
+    float wv[EPL];  // this lane's columns of w, fp32, while the first rows are in flight
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) {
+      const int col = (e / VEC * 32 + lane) * VEC + e % VEC;
+      wv[e] = col < h ? load_param(a.w, a.wdtype, col) : 0.f;
+    }
+    for (int i = 0; i < cnt; ++i) {
+      const long long row = first + i;
+      float xv[EPL], gv[EPL];
+      if constexpr (VECTOR) {
+        issue(i + a.stages - 1);
+        cp_wait_n(a.stages - 1);
+        const unsigned char* slot = ring + (i % a.stages) * 2 * row_bytes;
+#pragma unroll
+        for (int k = 0; k < NVL; ++k) {
+          const int v = k * 32 + lane;
+          if (v < nvec) {
+            const Pack<T, VEC> px = *reinterpret_cast<const Pack<T, VEC>*>(slot + v * 16);
+            const Pack<T, VEC> pg = *reinterpret_cast<const Pack<T, VEC>*>(slot + row_bytes + v * 16);
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) {
+              xv[k * VEC + e] = to_f<T>(px.v[e]);
+              gv[k * VEC + e] = to_f<T>(pg.v[e]);
+            }
+          } else {
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) xv[k * VEC + e] = gv[k * VEC + e] = 0.f;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < EPL; ++k) {
+          const int col = k * 32 + lane;
+          xv[k] = col < h ? to_f<T>(xg[row * a.xs + col]) : 0.f;
+          gv[k] = col < h ? to_f<T>(gg[row * a.gs + col]) : 0.f;
+        }
+      }
+      float sx = 0.f;
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) sx += xv[e];
+      const float mean = warp_sum(sx) * inv_h;
+      float sd = 0.f;
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) {
+        const int col = (e / VEC * 32 + lane) * VEC + e % VEC;
+        xv[e] = col < h ? xv[e] - mean : 0.f;
+        sd += xv[e] * xv[e];
+      }
+      const float rstd = 1.f / sqrtf(warp_sum(sd) * inv_h + a.eps);
+      float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) {
+        xv[e] *= rstd;  // xhat
+        const float dxh = gv[e] * wv[e];
+        s1 += dxh;
+        s2 += dxh * xv[e];
+        dwa[e] += gv[e] * xv[e];
+        dba[e] += gv[e];
+        gv[e] = dxh;
+      }
+      s1 = warp_sum(s1) * inv_h;
+      s2 = warp_sum(s2) * inv_h;
 #pragma unroll
       for (int k = 0; k < NVL; ++k) {
         const int v = k * 32 + lane;
         if (v < nvec) {
-          const Pack<T, VEC> px = *reinterpret_cast<const Pack<T, VEC>*>(slot + v * 16);
-          const Pack<T, VEC> pg = *reinterpret_cast<const Pack<T, VEC>*>(slot + row_bytes + v * 16);
+          Pack<T, VEC> out;
 #pragma unroll
           for (int e = 0; e < VEC; ++e) {
-            xv[k * VEC + e] = to_f<T>(px.v[e]);
-            gv[k * VEC + e] = to_f<T>(pg.v[e]);
+            const int t = k * VEC + e;
+            out.v[e] = from_f<T>(rstd * (gv[t] - s1 - xv[t] * s2));
           }
-        } else {
-#pragma unroll
-          for (int e = 0; e < VEC; ++e) xv[k * VEC + e] = gv[k * VEC + e] = 0.f;
+          *reinterpret_cast<Pack<T, VEC>*>(dxg + row * h + v * VEC) = out;
         }
-      }
-    } else {
-#pragma unroll
-      for (int k = 0; k < EPL; ++k) {
-        const int col = k * 32 + lane;
-        xv[k] = col < h ? to_f<T>(xg[row * a.xs + col]) : 0.f;
-        gv[k] = col < h ? to_f<T>(gg[row * a.gs + col]) : 0.f;
-      }
-    }
-    float sx = 0.f;
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) sx += xv[e];
-    const float mean = warp_sum(sx) * inv_h;
-    float sd = 0.f;
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) {
-      const int col = (e / VEC * 32 + lane) * VEC + e % VEC;
-      xv[e] = col < h ? xv[e] - mean : 0.f;
-      sd += xv[e] * xv[e];
-    }
-    const float rstd = 1.f / sqrtf(warp_sum(sd) * inv_h + a.eps);
-    float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) {
-      xv[e] *= rstd;  // xhat
-      const float dxh = gv[e] * wv[e];
-      s1 += dxh;
-      s2 += dxh * xv[e];
-      dwa[e] += gv[e] * xv[e];
-      dba[e] += gv[e];
-      gv[e] = dxh;
-    }
-    s1 = warp_sum(s1) * inv_h;
-    s2 = warp_sum(s2) * inv_h;
-#pragma unroll
-    for (int k = 0; k < NVL; ++k) {
-      const int v = k * 32 + lane;
-      if (v < nvec) {
-        Pack<T, VEC> out;
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) {
-          const int t = k * VEC + e;
-          out.v[e] = from_f<T>(rstd * (gv[t] - s1 - xv[t] * s2));
-        }
-        *reinterpret_cast<Pack<T, VEC>*>(dxg + row * h + v * VEC) = out;
       }
     }
   }
@@ -1641,13 +1771,16 @@ int ln_run(const LnPlan& p, const LnArgs& a, cudaStream_t st) {
 
 template <typename T>
 int ln_dispatch(const LnPlan& p, const LnArgs& a, cudaStream_t st) {
-  if (p.vec == 1) return ln_run<T, LN_MAX_WIDTH / 32, false>(p, a, st);
+  if (p.vec == 1)
+    return p.epl == LN_WIDE_EPL ? ln_run<T, LN_WIDE_EPL, false>(p, a, st)
+                                : ln_run<T, LN_HOLD_EPL, false>(p, a, st);
   switch (p.epl) {
     case 8: return ln_run<T, 8, true>(p, a, st);
     case 16: return ln_run<T, 16, true>(p, a, st);
     case 24: return ln_run<T, 24, true>(p, a, st);
     case 32: return ln_run<T, 32, true>(p, a, st);
     case 40: return ln_run<T, 40, true>(p, a, st);
+    case 64: return ln_run<T, 64, true>(p, a, st);
   }
   return int(cudaErrorInvalidValue);
 }
@@ -2016,9 +2149,11 @@ extern "C" int norms_empty_launch(int blocks, int threads, int count, int device
 
 // Clusters of a plan that the card runs at once (cudaOccupancyMaxActiveClusters):
 // kind 0 the GroupNorm resident kernel, 1 its statistics, 2 the LayerNorm
-// backward (at EPL 24, the CLIP rows'), of bf16; -1 where the query fails.
+// backward (at EPL 24, the CLIP rows'), 3 its wide form (EPL 64), of bf16;
+// -1 where the query fails.
 extern "C" int norms_max_clusters(int kind, int threads, int smem, int cluster) {
   if (kind == 0) return max_clusters<gn_resident_kernel<__nv_bfloat16>>(threads, smem, cluster);
   if (kind == 1) return max_clusters<gn_stats_kernel<__nv_bfloat16, 8>>(threads, smem, cluster);
+  if (kind == 3) return max_clusters<ln_bwd_kernel<__nv_bfloat16, LN_WIDE_EPL, true>>(threads, smem, cluster);
   return max_clusters<ln_bwd_kernel<__nv_bfloat16, 24, true>>(threads, smem, cluster);
 }

@@ -1,4 +1,5 @@
 from .configuration import CLIPConfig, CLIPTextConfig, CLIPVisionConfig
+from .eva import EVACLIP, EVACLIPConfig, EVAVisionConfig, EVAVisionTransformer
 from .modeling import (
     CLIPModel,
     CLIPTextModel,
@@ -13,5 +14,6 @@ from .tokenizer import CLIPTokenizer
 
 __all__ = ["CLIPConfig", "CLIPModel", "CLIPTextConfig", "CLIPTextModel",
            "CLIPTextModelWithProjection", "CLIPTextTransformer", "CLIPTokenizer",
-           "CLIPVisionConfig", "CLIPVisionModel", "CLIPVisionTransformer",
+           "CLIPVisionConfig", "CLIPVisionModel", "CLIPVisionTransformer", "EVACLIP",
+           "EVACLIPConfig", "EVAVisionConfig", "EVAVisionTransformer",
            "clip_contrastive_loss", "scaled_logits"]

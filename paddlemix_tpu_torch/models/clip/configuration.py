@@ -1,14 +1,17 @@
 """CLIP text, vision and dual-tower configs (port of
-paddlemix_tpu/models/clip/configuration.py)."""
+paddlemix_tpu/models/clip/configuration.py), config.json round-trippable."""
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Dict, Optional
 
+from ...core.config import BaseConfig
+
 
 @dataclasses.dataclass
-class CLIPTextConfig:
+class CLIPTextConfig(BaseConfig):
+    model_type = "clip_text_model"
     vocab_size: int = 49408
     hidden_size: int = 512
     intermediate_size: int = 2048
@@ -22,7 +25,8 @@ class CLIPTextConfig:
 
 
 @dataclasses.dataclass
-class CLIPVisionConfig:
+class CLIPVisionConfig(BaseConfig):
+    model_type = "clip_vision_model"
     hidden_size: int = 768
     intermediate_size: int = 3072
     num_hidden_layers: int = 12
@@ -42,18 +46,12 @@ class CLIPVisionConfig:
                                       "post-LN on CLS (CLIP, LLaVA) is ported")
 
 
-def _from_dict(cls, data: Dict[str, Any]):
-    """`cls` from the keys of `data` it has fields for (the JAX BaseConfig's
-    from_dict keeps other keys aside)."""
-    names = {f.name for f in dataclasses.fields(cls)}
-    return cls(**{k: v for k, v in data.items() if k in names})
-
-
 @dataclasses.dataclass
-class CLIPConfig:
+class CLIPConfig(BaseConfig):
     """The dual tower: the towers' configs as dicts, the shared projection
     width (which overrides the towers' own) and the initial logit scale."""
 
+    model_type = "clip"
     text_config: Optional[Dict[str, Any]] = None
     vision_config: Optional[Dict[str, Any]] = None
     projection_dim: int = 512
@@ -67,10 +65,10 @@ class CLIPConfig:
 
     @property
     def text(self) -> CLIPTextConfig:
-        return _from_dict(CLIPTextConfig,
-                          dict(self.text_config, projection_dim=self.projection_dim))
+        return CLIPTextConfig.from_dict(dict(self.text_config,
+                                             projection_dim=self.projection_dim))
 
     @property
     def vision(self) -> CLIPVisionConfig:
-        return _from_dict(CLIPVisionConfig,
-                          dict(self.vision_config, projection_dim=self.projection_dim))
+        return CLIPVisionConfig.from_dict(dict(self.vision_config,
+                                               projection_dim=self.projection_dim))

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...core.convert import CLIP_KEY_MAP
 from ...ops.attention import use_flash
 from ..layers import EncoderBlock, FusedLayerNorm, Linear, PatchEmbed, set_compute_dtype
 from .configuration import CLIPConfig, CLIPTextConfig, CLIPVisionConfig
@@ -164,6 +165,8 @@ class CLIPModel(nn.Module):
     compute dtype (flax's module `dtype`): None computes in the parameters'
     dtype; bf16 casts fp32 parameters where the JAX module casts them."""
 
+    flax_key_map = CLIP_KEY_MAP  # its names -> the JAX CLIPModule's
+
     def __init__(self, config: CLIPConfig, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.config = config
@@ -174,6 +177,15 @@ class CLIPModel(nn.Module):
         self.text_projection = Linear(text.hidden_size, config.projection_dim, bias=False)
         self.logit_scale = nn.Parameter(torch.tensor(float(config.logit_scale_init_value)))
         set_compute_dtype(self, dtype)
+
+    @classmethod
+    def from_pretrained(cls, path: str, device="cuda", dtype: Optional[torch.dtype] = None):
+        """The model of directory `path` (config.json and flax- or torch-keyed
+        weights, core/modeling.py) on `device`, computing in `dtype`."""
+        from ...core.modeling import from_pretrained
+
+        return from_pretrained(cls, CLIPConfig, cls.flax_key_map, path, device=device,
+                               dtype=dtype)
 
     def encode_image(self, pixel_values):
         return self.visual_projection(self.vision_model(pixel_values)[1])

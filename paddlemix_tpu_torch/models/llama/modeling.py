@@ -121,9 +121,12 @@ class Int8KVCache:
 
 def _quantize_kv(x):
     """(B, S, H, D) -> int8 values and the per-(token, head) fp32 scale
-    max(|x|max / 127, 1e-8); x / scale rounds half to even, as jnp.round."""
+    max(|x|max / 127, 1e-8); x / scale rounds half to even, as jnp.round.
+    The division by 127 is tensor by tensor, so that it divides on the card
+    too (PyTorch computes `t / 127.0` there as t * (1 / 127))."""
     xf = x.float()
-    scale = (xf.abs().amax(dim=-1) / 127.0).clamp(min=1e-8)
+    amax = xf.abs().amax(dim=-1)
+    scale = (amax / torch.full_like(amax, 127.0)).clamp(min=1e-8)
     return torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8), scale
 
 
@@ -245,7 +248,9 @@ class LlamaAttention(nn.Module):
                                              cache.v_pool[layer_idx], cache.block_tables,
                                              step.lengths)[:, None]
             else:
-                out = attention_math(q, *cache.layer_view(layer_idx), bias=step.bias)
+                n = step.bias.shape[-1]  # the keys the prefill attends over
+                pk, pv = cache.layer_view(layer_idx)
+                out = attention_math(q, pk[:, :n], pv[:, :n], bias=step.bias)
         elif isinstance(cache, Int8KVCache):
             (kq, ks), (vq, vs) = _quantize_kv(k), _quantize_kv(v)
             ck, cv, cks, cvs = (t[layer_idx] for t in (cache.k, cache.v, cache.k_scale,
@@ -257,8 +262,10 @@ class LlamaAttention(nn.Module):
             if step.lengths is not None:
                 out = decode_attention_int8(q, ck, cv, cks, cvs, step.lengths)
             else:
-                out = attention_math(q, (ck.float() * cks[..., None]).to(x.dtype),
-                                     (cv.float() * cvs[..., None]).to(x.dtype), bias=step.bias)
+                n = step.bias.shape[-1]
+                out = attention_math(q, (ck[:, :n].float() * cks[:, :n, ..., None]).to(x.dtype),
+                                     (cv[:, :n].float() * cvs[:, :n, ..., None]).to(x.dtype),
+                                     bias=step.bias)
         else:
             ck, cv = cache.k[layer_idx], cache.v[layer_idx]
             ck[bidx, step.write_idx] = k.to(ck.dtype)
@@ -267,7 +274,8 @@ class LlamaAttention(nn.Module):
             if step.lengths is not None:
                 out = decode_attention(q, ck, cv, step.lengths)
             else:
-                out = attention_math(q, ck, cv, bias=step.bias)
+                n = step.bias.shape[-1]
+                out = attention_math(q, ck[:, :n], cv[:, :n], bias=step.bias)
         return self.o_proj(out.reshape(b, s, -1))
 
 
@@ -349,6 +357,11 @@ class LlamaModule(nn.Module):
         if s == 1:
             step = _Step(cos, sin, positions, write_idx, (positions[:, 0] + 1).int(), None)
         else:  # key j visible to the query at position p iff j <= p
+            # Keys past the last position are never visible: the prefill
+            # attends over those up to it alone, so that its result does not
+            # depend on the spare slots a cache holds for later tokens (the
+            # sums of a longer key axis round in another order).
+            keys = min(keys, int(positions.max()) + 1)
             key_pos = torch.arange(keys, device=x.device)
             visible = key_pos[None, None, None, :] <= positions[:, None, :, None]
             bias = torch.where(visible, 0.0, -1e9).float()

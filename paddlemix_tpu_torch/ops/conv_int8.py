@@ -51,10 +51,12 @@ def quantize_int8(x, sx: float):
 def quantize_weight_per_cout(w):
     """w: (O, ...) -> (int8 (O, ...), (O,) fp32 scales), per output channel:
     sw = max(|w|max, 1e-8) / 127. The port keeps torch's O-first layout; the
-    JAX twin reduces over all but the last axis of its (..., O) kernels."""
+    JAX twin reduces over all but the last axis of its (..., O) kernels. The
+    scale divides tensor by tensor (on the card PyTorch computes `t / 127.0`
+    as t * (1 / 127)); the quantize multiplies by 1 / sw, as JAX's does."""
     wf = w.detach().float()
-    wmax = wf.abs().amax(dim=tuple(range(1, w.ndim)))
-    sw = wmax.clamp(min=1e-8) / 127.0
+    wmax = wf.abs().amax(dim=tuple(range(1, w.ndim))).clamp(min=1e-8)
+    sw = wmax / torch.full_like(wmax, 127.0)
     wq = torch.round(wf * (1.0 / sw).view(-1, *(1,) * (w.ndim - 1))).clamp_(-127, 127)
     return wq.to(torch.int8), sw
 

@@ -280,7 +280,8 @@ def group_norm_plan_library(b: int, n: int, c: int, groups: int, dtype, aligned:
 def norms_max_clusters(kind: int, threads: int, smem: int, cluster: int) -> int:
     """Clusters of a launch shape that the card runs at once
     (cudaOccupancyMaxActiveClusters): kind 0 GroupNorm's resident kernel, 1
-    its statistics kernel, 2 the LayerNorm backward; -1 if the query fails."""
+    its statistics kernel, 2 the LayerNorm backward, 3 its wide form; -1 if
+    the query fails."""
     return _norms_lib().norms_max_clusters(kind, threads, smem, cluster)
 
 
@@ -1075,11 +1076,14 @@ fused_adaln_scale_residual.launches = 0  # kernel launches (CUDA tensors only)
 # across the block's warps and then across a thread-block cluster through
 # distributed shared memory; with several clusters (above 1,024 rows) the
 # last block to finish each slice of the columns adds the clusters' partial
-# rows in order (no atomics on the data: deterministic). `layer_norm_bwd_plan`
-# mirrors its plan. The JAX package sends widths not a multiple of 128, fewer
+# rows in order (no atomics on the data: deterministic). Rows up to 1,280
+# wide are held in registers; wider ones (EVA's 2,048-wide `ffn_ln`) take the
+# wide form: dw and db in registers, w in shared memory, the row read from its
+# ring slot once a pass, one block an SM. `layer_norm_bwd_plan` mirrors its
+# plan. The JAX package sends widths not a multiple of 128, fewer
 # than 64 rows or a missing w or b to XLA; those are v5e tiling choices, and
 # eager PyTorch has no fusion to keep, so on the card every call launches.
-_LN_MAX_WIDTH = 1280  # the widest row a path gives it (CLIP-bigG's text tower)
+_LN_MAX_WIDTH = 2048  # the widest row a path gives it (EVA's sub-LN `ffn_ln`)
 
 
 def layer_norm_ref(x, weight=None, bias=None, eps: float = 1e-5):
@@ -1225,6 +1229,11 @@ LN_RING_BYTES = 96 * 1024   # a block's ring of rows in flight
 LN_SINGLE_ROWS = 1024       # rows one cluster takes alone
 LN_CLUSTER = 4              # blocks a cluster, several clusters
 LN_BLOCKS = 60 * LN_CLUSTER  # two an SM, in the clusters of 4 an H100 SXM runs at once (62)
+LN_HOLD_EPL = 40            # a lane's share held in registers at most (rows up to 1,280)
+LN_WIDE_EPL = 64            # the wide form's share (2,048 / 32)
+LN_WIDE_RING_BYTES = 128 * 1024  # the wide form's ring, one block an SM
+LN_WIDE_CLUSTER = 8         # one cluster's blocks at most, wide form
+LN_WIDE_BLOCKS = 30 * LN_CLUSTER  # one block an SM: half of LN_BLOCKS' clusters
 
 
 @dataclass(frozen=True)
@@ -1262,16 +1271,26 @@ def layer_norm_bwd_plan(rows: int, h: int, esize: int, aligned: bool = True):
     if not 1 <= h <= _LN_MAX_WIDTH or rows < 1:
         return None
     vec = 16 // esize if aligned and h * esize % 16 == 0 else 1
+    row_bytes = _ln_row_bytes(h, esize)
     if vec > 1:
         epl = (_cdiv(h, 32 * vec) * vec + 7) // 8 * 8
-        stages = min(4, max(2, LN_RING_BYTES // (LN_WARPS * 2 * _ln_row_bytes(h, esize))))
+        wide = epl > LN_HOLD_EPL
+        if wide:
+            epl = LN_WIDE_EPL
+            stages = min(4, max(1, LN_WIDE_RING_BYTES // (LN_WARPS * 2 * row_bytes)))
+        else:
+            stages = min(4, max(2, LN_RING_BYTES // (LN_WARPS * 2 * row_bytes)))
     else:
-        epl, stages = _LN_MAX_WIDTH // 32, 0
+        wide = h > LN_HOLD_EPL * 32
+        epl, stages = LN_WIDE_EPL if wide else LN_HOLD_EPL, 0
     if rows <= LN_SINGLE_ROWS:
-        cluster, clusters = min(_MAX_CLUSTER, _cdiv(rows, LN_WARPS)), 1
+        cap = LN_WIDE_CLUSTER if wide else _MAX_CLUSTER
+        cluster, clusters = min(cap, _cdiv(rows, LN_WARPS)), 1
     else:
-        cluster, clusters = LN_CLUSTER, LN_BLOCKS // LN_CLUSTER
-    ring = LN_WARPS * stages * 2 * _ln_row_bytes(h, esize)
+        cluster = LN_CLUSTER
+        clusters = (LN_WIDE_BLOCKS if wide else LN_BLOCKS) // LN_CLUSTER
+    # the ring, then (wide) w in lane order; after the rows each warp's dw / db
+    ring = LN_WARPS * stages * 2 * row_bytes + (32 * epl * 4 if wide else 0)
     return LnBwdPlan(vec, epl, stages, LN_WARPS, cluster, clusters,
                      _cdiv(rows, cluster * clusters * LN_WARPS),
                      max(ring, LN_WARPS * 64 * epl * 4))

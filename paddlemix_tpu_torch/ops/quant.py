@@ -234,10 +234,12 @@ def quantize_weights_int8(w):
     kernel): scale = absmax / 127 per output column, 1.0 for an all-zero
     column; w / scale rounded half to even and clipped to +-127. Not B2's
     quantizer (`quantize_weight_per_cout`: max(absmax, 1e-8) and a multiply
-    by the reciprocal)."""
+    by the reciprocal). The scale divides tensor by tensor, as
+    `quantize_rows_int8` does."""
     wf = w.detach().float()
     absmax = wf.abs().amax(dim=1)
-    scale = torch.where(absmax == 0, torch.ones_like(absmax), absmax / 127.0)
+    scale = torch.where(absmax == 0, torch.ones_like(absmax),
+                        absmax / torch.full_like(absmax, 127.0))
     wq = torch.round(wf / scale[:, None]).clamp_(-127, 127).to(torch.int8)
     return wq, scale
 
@@ -383,7 +385,8 @@ def quantize_weights_int4(w):
     if k % 2:
         raise ValueError(f"quantize_weights_int4: the int4 pack needs an even input width, got {k}")
     absmax = wf.abs().amax(dim=1)
-    scale = torch.where(absmax == 0, torch.ones_like(absmax), absmax / 7.0)
+    scale = torch.where(absmax == 0, torch.ones_like(absmax),
+                        absmax / torch.full_like(absmax, 7.0))  # divides on the card too
     q = torch.round(wf / scale[:, None]).clamp_(-7, 7).to(torch.int32)
     packed = (q[:, k // 2:] << 4) | (q[:, :k // 2] & 15)
     return packed.to(torch.int8), scale

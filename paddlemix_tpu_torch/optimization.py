@@ -8,12 +8,15 @@ optimizer is the optax chain `create_optimizer` builds: clip by global norm,
 then AdamW (Adam moments, decayed weights where the mask allows, times minus
 the scheduled learning rate), and, with gradient accumulation, optax's
 `MultiSteps` around it. It updates the fp32 parameters in place, where optax
-returns new ones. Layer decay is not ported yet (ROADMAP).
+returns new ones. Layer decay (`layer_decay` < 1) multiplies each
+parameter's whole step, weight decay included, by its layer's scale, as the
+JAX chain's `scale_by_layer_decay` after `adamw` does.
 """
 
 from __future__ import annotations
 
 import math
+import re
 from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
@@ -91,9 +94,48 @@ SCHEDULES = {
 
 def no_weight_decay_mask(name: str, param: torch.Tensor) -> bool:
     """True where weight decay applies (the JAX mask: not 1-D params, norms,
-    biases, embeddings or logit scales)."""
+    biases, embeddings or logit scales), on torch names."""
     return param.ndim > 1 and not any(
         tok in name for tok in ("norm", "bias", "embed", "logit_scale"))
+
+
+def flax_weight_decay_mask(key_map) -> Callable[[str, torch.Tensor], bool]:
+    """The JAX mask itself, on each parameter's flax name under `key_map`
+    (core.convert): where torch and flax names part (EVA's `pos_embed` and
+    `patch_embed.proj`, CLIP's `embeddings.patch_embedding`, which JAX
+    decays), it decides as JAX does."""
+    from .core.convert import torch_key_to_flax
+
+    def mask(name: str, param: torch.Tensor) -> bool:
+        flax = torch_key_to_flax(name, key_map)
+        return param.ndim > 1 and not any(
+            tok in flax for tok in ("norm", "bias", "embedding", "logit_scale"))
+    return mask
+
+
+def layer_id_for_param(path: str, num_max_layer: int) -> int:
+    """A parameter's layer from its name (copy of the JAX package's, which
+    takes flax paths and torch names alike): embeddings 0, block or layer i
+    i + 1, everything else (norms after the blocks, heads, projections, the
+    logit scale) num_max_layer - 1."""
+    layer_0 = ("patch_embed", "pos_embed", "cls_token", "mask_token", "conv1",
+               "positional_embedding", "token_embedding", "embed_tokens",
+               "class_embedding", "position_embedding")
+    if any(tok in path for tok in layer_0):
+        return 0
+    m = re.search(r"(?:blocks|layers)[._](\d+)", path)
+    if m is not None:
+        return int(m.group(1)) + 1
+    return num_max_layer - 1
+
+
+def layer_decay_scales(params: Dict[str, torch.Tensor], layer_decay: float,
+                       num_layers: int) -> Dict[str, float]:
+    """Each parameter's step scale, layer_decay ** (n - 1 - layer id) with
+    n = num_layers + 2 (the embeddings, the blocks, the head)."""
+    n = num_layers + 2
+    values = [layer_decay ** (n - 1 - i) for i in range(n)]
+    return {name: values[layer_id_for_param(name, n)] for name in params}
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -106,14 +148,18 @@ class Optimizer:
     scale_by_learning_rate(schedule), inside optax.MultiSteps when
     `every_k` > 1: gradients are averaged as they come, (g + n acc) / (n + 1),
     and the inner chain runs on the average every k-th call, whose schedule
-    therefore counts real updates. State and updates are fp32."""
+    therefore counts real updates. State and updates are fp32. With
+    `layer_scales` (name -> scale), each parameter's step is multiplied by
+    its scale last (the JAX chain's `scale_by_layer_decay`)."""
 
     def __init__(self, schedule: Schedule, *, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0,
                  decay_mask: Optional[Callable[[str, torch.Tensor], bool]] = None,
-                 max_grad_norm: Optional[float] = 1.0, every_k: int = 1):
+                 max_grad_norm: Optional[float] = 1.0, every_k: int = 1,
+                 layer_scales: Optional[Dict[str, float]] = None):
         self.schedule, self.b1, self.b2, self.eps = schedule, b1, b2, eps
         self.weight_decay, self.decay_mask = weight_decay, decay_mask
         self.max_grad_norm, self.every_k = max_grad_norm, every_k
+        self.layer_scales = layer_scales
 
     def init(self, params: Dict[str, torch.Tensor]) -> dict:
         zeros = lambda: {n: torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
@@ -164,7 +210,10 @@ class Optimizer:
             u = (mu / correction1) / (torch.sqrt(nu / correction2) + self.eps)
             if self.weight_decay and (self.decay_mask is None or self.decay_mask(name, p)):
                 u = u + self.weight_decay * p.float()
-            p.copy_((p.float() + step * u).to(p.dtype))
+            u = step * u
+            if self.layer_scales is not None:
+                u = u * self.layer_scales[name]
+            p.copy_((p.float() + u).to(p.dtype))
         state["count"] = count
 
 
@@ -172,12 +221,22 @@ def create_optimizer(learning_rate=1e-4, schedule: str = "cosine", total_steps: 
                      warmup_steps: int = 0, weight_decay: float = 0.0, beta1: float = 0.9,
                      beta2: float = 0.999, eps: float = 1e-8,
                      max_grad_norm: Optional[float] = 1.0, min_lr: float = 0.0,
-                     layer_decay: Optional[float] = None, every_k: int = 1) -> Optimizer:
+                     layer_decay: Optional[float] = None,
+                     params: Optional[Dict[str, torch.Tensor]] = None,
+                     num_layers: Optional[int] = None, every_k: int = 1,
+                     flax_key_map=None) -> Optimizer:
     """AdamW + grad clip + schedule, the JAX `create_optimizer`; `every_k` > 1
     wraps it as optax.MultiSteps does (the JAX Trainer's gradient
-    accumulation). A callable `learning_rate` is the schedule itself."""
+    accumulation). A callable `learning_rate` is the schedule itself.
+    `layer_decay` < 1 scales each of `params`' steps by its layer
+    (`layer_decay_scales` over `num_layers` blocks). With `flax_key_map` the
+    weight-decay mask is JAX's on the flax names (`flax_weight_decay_mask`)."""
+    scales = None
     if layer_decay is not None and layer_decay < 1.0:
-        raise NotImplementedError("create_optimizer: layer_decay is not ported yet")
+        if params is None or num_layers is None:
+            raise ValueError("layer_decay needs params and num_layers to build the "
+                             "per-parameter scales")
+        scales = layer_decay_scales(params, layer_decay, num_layers)
     if callable(learning_rate):
         lr = learning_rate
     elif schedule == "cosine":
@@ -186,6 +245,7 @@ def create_optimizer(learning_rate=1e-4, schedule: str = "cosine", total_steps: 
         lr = linear_decay_with_warmup(learning_rate, total_steps, warmup_steps)
     else:
         lr = constant_with_warmup(learning_rate, warmup_steps)
+    mask = no_weight_decay_mask if flax_key_map is None else flax_weight_decay_mask(flax_key_map)
     return Optimizer(lr, b1=beta1, b2=beta2, eps=eps, weight_decay=weight_decay,
-                     decay_mask=no_weight_decay_mask if weight_decay else None,
-                     max_grad_norm=max_grad_norm, every_k=every_k)
+                     decay_mask=mask if weight_decay else None,
+                     max_grad_norm=max_grad_norm, every_k=every_k, layer_scales=scales)

@@ -17,7 +17,7 @@ class TrainingArguments:
     lr_scheduler_type: str = "cosine"
     warmup_steps: int = 0
     weight_decay: float = 0.0
-    layer_decay: Optional[float] = None  # <1.0 enables per-layer LR decay (not ported)
+    layer_decay: Optional[float] = None  # <1.0 enables per-layer LR decay
     adam_beta1: float = 0.9
     adam_beta2: float = 0.999
     adam_epsilon: float = 1e-8

@@ -93,12 +93,22 @@ class Trainer:
     def setup(self, steps_per_epoch: Optional[int] = None):
         a = self.args
         self._refuse_unported()
+        ld_kwargs = {}
+        if a.layer_decay and a.layer_decay < 1.0:
+            # layer-decayed steps; the block count from the model's config,
+            # as in JAX
+            cfg = getattr(self.model, "config", None)
+            n_layers = (getattr(cfg, "num_hidden_layers", None)
+                        or getattr(cfg, "num_layers", None) or 12)
+            ld_kwargs = dict(layer_decay=a.layer_decay, params=self.params,
+                             num_layers=n_layers)
         tx = create_optimizer(
             a.learning_rate, schedule=a.lr_scheduler_type,
             total_steps=self._total_steps(steps_per_epoch), warmup_steps=a.warmup_steps,
             weight_decay=a.weight_decay, beta1=a.adam_beta1, beta2=a.adam_beta2,
-            eps=a.adam_epsilon, max_grad_norm=a.max_grad_norm, layer_decay=a.layer_decay,
-            every_k=a.gradient_accumulation_steps)
+            eps=a.adam_epsilon, max_grad_norm=a.max_grad_norm,
+            every_k=a.gradient_accumulation_steps,
+            flax_key_map=getattr(self.model, "flax_key_map", None), **ld_kwargs)
         self.tx = tx
         self.state = create_train_state(self.params, tx)
         self.step_fn = make_train_step(self.loss_fn, tx)

@@ -209,8 +209,8 @@ def test_train_clip_matches_jax_trainer(example, jparams, tmp_path, monkeypatch,
     # two sides' fp32 gap, changed from run to run. A stable word hash in the
     # example's namespace gives every run the same ids; both sides read them
     monkeypatch.setattr(example, "hash", lambda w: zlib.crc32(w.encode()), raising=False)
-    data = train_clip.ImageTextDataset(items, functools.partial(example._hash_tokenize,
-                                                                vocab=VOCAB))
+    data = train_clip.ImageTextDataset(items, None, functools.partial(example._hash_tokenize,
+                                                                      vocab=VOCAB))
     jmodel = JCLIPModel(JCLIPConfig(**TINY), dtype=jdt)
     jmodel.params = jax.tree_util.tree_map(jnp.array, jparams)
 
@@ -278,7 +278,7 @@ def _config_fields(cfg):
                                          "logit_scale_init_value")}
 
 
-def test_recipe_pieces_equal_the_example(example):
+def test_recipe_pieces_equal_the_example(example, tmp_path):
     assert _config_fields(VITB16) == _config_fields(example.VITB16)
     for caption in ("a photo of a cat", "synthetic image number 7 of rolled noise", ""):
         np.testing.assert_array_equal(train_clip._hash_tokenize(caption),
@@ -288,8 +288,15 @@ def test_recipe_pieces_equal_the_example(example):
     a = trainer.args
     assert (a.learning_rate, a.warmup_steps, a.max_steps, a.lr_scheduler_type, a.max_grad_norm,
             a.weight_decay, a.save_steps) == (5e-4, 50, 500, "cosine", 1.0, 0.0, 0)
-    with pytest.raises(NotImplementedError, match="CLIPImageProcessor"):
-        train_clip.main(["--synthetic"])
+    # main's data plane: the example's synthetic jpegs and captions
+    from PIL import Image
+
+    ours = train_clip.synthetic_items(str(tmp_path / "port"), n=3)
+    theirs = example._synthetic_items(str(tmp_path / "example"), n=3)
+    assert [c for _, c in ours] == [c for _, c in theirs]
+    for (a, _), (b, _) in zip(ours, theirs):
+        with Image.open(a) as ia, Image.open(b) as ib:
+            np.testing.assert_array_equal(np.asarray(ia), np.asarray(ib))
 
 
 # ----------------------------------------------------------- launch walks
@@ -337,8 +344,8 @@ def test_train_step_launches_match_walk(monkeypatch):
     rs = np.random.RandomState(3)
     items = [(rs.standard_normal((32, 32, 3)).astype(np.float32), f"caption {i}")
              for i in range(8)]
-    data = train_clip.ImageTextDataset(items, functools.partial(train_clip._hash_tokenize,
-                                                                vocab=VOCAB))
+    data = train_clip.ImageTextDataset(items, None, functools.partial(train_clip._hash_tokenize,
+                                                                      vocab=VOCAB))
     train_clip.build_trainer(model, data, 4, 1).train()
     assert counts == expected_launches_clip(model, forwards=1, backwards=1) == {
         "layer_norm": 11, "layer_norm_backward": 11}

@@ -137,6 +137,33 @@ def test_layer_norm_backward_ref_matches_jax_grad_through_pallas(jx, pallas_inte
     assert tnorms.layer_norm_backward.launches == 0
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layer_norm_at_eva_width_matches_jax_pallas(jx, pallas_interpret, monkeypatch, dtype):
+    """EVA's sub-LN `ffn_ln` rows, 2,048 wide (the wide form on the card):
+    the plain forward and backward against the JAX kernels in interpret mode
+    (64 rows: JAX takes its kernels)."""
+    x, w, b, g = _inputs(11, 64, 2048)
+    jxx, jg = (jx.jnp.asarray(a).astype(dtype) for a in (x, g))
+    jw, jb = jx.jnp.asarray(w), jx.jnp.asarray(b)
+    calls = _count_pallas_calls(monkeypatch, jx.norms)
+    ref = jx.norms.layer_norm(jxx, jw, jb, 1e-5)
+    jdx, jdw, jdb = jx.jax.grad(
+        lambda x_, w_, b_: (jx.norms.layer_norm(x_, w_, b_, 1e-5).astype(jx.jnp.float32)
+                            * jg.astype(jx.jnp.float32)).sum(),
+        argnums=(0, 1, 2))(jxx, jw, jb)
+    assert len(calls) == 3  # the forward alone, then forward and backward under grad
+    tdt = getattr(torch, dtype)
+    tx, tg = (torch.tensor(np.asarray(a.astype(jx.jnp.float32))).to(tdt) for a in (jxx, jg))
+    out = tnorms.layer_norm(tx, torch.from_numpy(w), torch.from_numpy(b), 1e-5)
+    _close(out, np.asarray(ref, np.float32), dtype)
+    dx, dw, db = tnorms.layer_norm_backward(tx, torch.from_numpy(w), tg, 1e-5)
+    _close(dx, np.asarray(jdx, np.float32), dtype)
+    for got, want in ((dw, jdw), (db, jdb)):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5 * np.abs(want).max())
+    assert tnorms.layer_norm.launches == tnorms.layer_norm_backward.launches == 0
+
+
 def test_layer_norm_autograd_kind_takes_its_own_backward(monkeypatch):
     """A backward of its own, as flash and RMSNorm have: `_LayerNorm` calls
     `layer_norm_backward` (the kernel on a card, the plain version here) once
@@ -176,8 +203,9 @@ def test_layer_norm_refuses_what_is_not_ported():
                                    x.to("meta"))
     # the kernels' own check: the dtypes and widths a path gives them
     tnorms._ln_check("layer_norm", x.to(torch.bfloat16), (torch.ones(8), torch.zeros(8)))
-    for bad in (x.half(), torch.randn(4, 1281)):
-        with pytest.raises(ValueError, match="bf16/fp32 rows at most 1280 wide"):
+    tnorms._ln_check("layer_norm", torch.randn(4, 2048), (torch.ones(2048), torch.zeros(2048)))
+    for bad in (x.half(), torch.randn(4, 2049)):
+        with pytest.raises(ValueError, match="bf16/fp32 rows at most 2048 wide"):
             tnorms._ln_check("layer_norm", bad, ())
 
 
@@ -242,3 +270,49 @@ def test_layer_norm_kernels_match_plain_versions_on_gpu():
     torch.cuda.synchronize()
     assert tnorms.layer_norm_backward.launches == before + 1
     assert x.grad is not None and w.grad is not None and b.grad is not None
+
+
+@pytest.mark.gpu
+def test_layer_norm_wide_rows_match_plain_versions_on_gpu():
+    """B10 at EVA's 2,048-wide rows and the wide form's other plans (a ragged
+    width, one cluster, fp32 rows with one ring stage, the one-element form,
+    the narrowest wide width), forward and backward per element against the
+    plain versions, the plans against the library's, two backward launches
+    bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: run on the GPU host (see README, PyTorch port)")
+    dev, bf16 = "cuda", torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def within(out, ref, c):
+        ref = ref.float()
+        return bool(((out.float() - ref).abs()
+                     <= 2.0 ** -7 * ref.abs() + c * ref.abs().max()).all())
+
+    for rows, h, misaligned, dtype in [(50432, 2048, False, bf16), (1000, 1960, False, bf16),
+                                       (77, 2048, False, bf16), (3000, 2048, False, torch.float32),
+                                       (500, 2048, True, bf16), (5000, 1288, False, bf16)]:
+        x = (2 * torch.randn((rows, h), generator=gen, device=dev)
+             + torch.randn((rows, 1), generator=gen, device=dev)).to(dtype)
+        g = torch.randn((rows, h), generator=gen, device=dev).to(dtype)
+        if misaligned:  # one element past a 16-byte boundary
+            x, g = (torch.empty(t.numel() + 1, dtype=dtype, device=dev)[1:].view(t.shape).copy_(t)
+                    for t in (x, g))
+        w = 1 + 0.2 * torch.randn(h, generator=gen, device=dev)
+        b = 0.2 * torch.randn(h, generator=gen, device=dev)
+        es = x.element_size()
+        plan = tnorms.layer_norm_bwd_plan(rows, h, es, not misaligned)
+        assert plan.epl == tnorms.LN_WIDE_EPL and plan == \
+            tnorms.layer_norm_bwd_plan_library(rows, h, dtype, not misaligned)
+        assert tnorms.layer_norm_plan(rows, h, es, not misaligned) == \
+            tnorms.layer_norm_plan_library(rows, h, dtype, not misaligned)
+        y = tnorms.layer_norm(x, w, b, 1e-5)
+        dx, dw, db = tnorms.layer_norm_backward(x, w, g, 1e-5)
+        torch.cuda.synchronize()
+        assert within(y, tnorms.layer_norm_ref(x.float(), w, b, 1e-5), 1e-6), (rows, h)
+        rdx, rdw, rdb = tnorms.layer_norm_backward_ref(x.float(), w, g.float(), 1e-5)
+        assert dx.dtype == dtype and within(dx, rdx, 1e-5), (rows, h)
+        for got, ref in ((dw, rdw), (db, rdb)):
+            assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max()), (rows, h)
+        again = tnorms.layer_norm_backward(x, w, g, 1e-5)
+        assert all(torch.equal(a, b_) for a, b_ in zip((dx, dw, db), again)), (rows, h)

@@ -295,6 +295,30 @@ def test_padded_batch_matches_each_sequence_alone(tiny):
     assert (gap[:3] < TOL).all() and gap[3] > 0.1, gap
 
 
+def test_prefill_does_not_depend_on_spare_cache_slots(tiny):
+    """The prefill attends over the keys up to the last position alone, so a
+    cache with more spare slots (a longer generate) gives the same logits, bit
+    for bit, and the same first token, over each cache kind; a longer key axis
+    would sum in another order and could flip a near-tie."""
+    ids, mask, pos = _prompts([9, 6], 128, seed=7)
+    ids_t, pos_t = torch.from_numpy(ids).long(), torch.from_numpy(pos).long()
+    for int8 in (False, True):
+        model = _port(tiny, cachekv_int8=int8)
+        with torch.inference_mode():
+            short, _ = model(ids_t, pos_t, cache=model.init_cache(2, 10))
+            long, _ = model(ids_t, pos_t, cache=model.init_cache(2, 90))
+            assert torch.equal(short, long), int8
+            one = greedy_generate(model, ids_t, torch.from_numpy(mask), max_new_tokens=1)
+            many = greedy_generate(model, ids_t, torch.from_numpy(mask), max_new_tokens=6)
+            assert torch.equal(one[:, 0], many[:, 0]), int8
+    model = _port(tiny)
+    with torch.inference_mode():
+        outs = [model(ids_t, pos_t, cache=PagedKVCache.create(
+            model.config, 2, 12, 4, blocks, dtype=torch.float32, device="cpu"))[0]
+            for blocks in (3, 6)]
+    assert torch.equal(*outs)
+
+
 def test_paged_generate_refuses_a_pool_too_small(tiny):
     model = _port(tiny)
     ids, mask, _ = _prompts([8, 3], 128)

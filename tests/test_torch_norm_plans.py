@@ -21,10 +21,12 @@ import torch
 
 from chip_smoke import (
     CLIP_LN_SHAPES,
+    EVA_LN_SHAPES,
     FUSED_CASES,
     FUSED_RAGGED,
     GN_CASES,
     GN_RAGGED,
+    LN_WIDE_EXTRA_CASES,
     SD15_GN_CASES,
     SD15_TRAIN_BATCH,
     SD15_TRAIN_GN_CASES,
@@ -227,6 +229,47 @@ def test_layer_norm_bwd_plan_walk(rows, h, esize):
     assert all(a.stop == b.start for a, b in zip(spans, spans[1:]))
 
 
+WIDE_CASES = [(r, h) for r, h, _ in EVA_LN_SHAPES] + [s for s, _, _ in LN_WIDE_EXTRA_CASES] + \
+    [(1025, 2048), (1, 1281)]
+
+
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "one-element"])
+@pytest.mark.parametrize("esize", [2, 4], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("rows, h", WIDE_CASES, ids=[f"{r}x{h}" for r, h in WIDE_CASES])
+def test_layer_norm_bwd_wide_plan_walk(rows, h, esize, aligned):
+    """Rows wider than 1,280 (EVA's ffn_ln): the wide form, 64 elements a
+    lane, one block an SM (its shared memory above half the SM's), a ring
+    of 1-4 rows a warp within 128 KB plus w in lane order, one cluster of at
+    most 8 blocks up to 1,024 rows, else LN_WIDE_BLOCKS in clusters of 4;
+    every row walked once."""
+    plan = tn.layer_norm_bwd_plan(rows, h, esize, aligned)
+    vec = 16 // esize if aligned and h * esize % 16 == 0 else 1
+    assert plan.vec == vec and plan.epl == tn.LN_WIDE_EPL and plan.epl * 32 >= h
+    assert SMEM_LIMIT // 2 < plan.smem <= SMEM_LIMIT
+    row = (h * esize + 15) // 16 * 16
+    if vec > 1:
+        assert 1 <= plan.stages <= 4 and plan.warps * plan.stages * 2 * row <= tn.LN_WIDE_RING_BYTES
+    else:
+        assert plan.stages == 0
+    assert plan.smem == max(plan.warps * plan.stages * 2 * row + 32 * plan.epl * 4,
+                            plan.warps * 64 * plan.epl * 4)
+    if rows <= tn.LN_SINGLE_ROWS:
+        assert plan.clusters == 1 and plan.cluster <= tn.LN_WIDE_CLUSTER
+    else:
+        assert plan.cluster == tn.LN_CLUSTER and \
+            plan.clusters * plan.cluster == tn.LN_WIDE_BLOCKS
+    seen = np.zeros(rows, dtype=np.int32)
+    for k in range(plan.cluster * plan.clusters):
+        for w in range(plan.warps):
+            r = plan.warp_rows(k, w, rows)
+            seen[r.start:r.stop] += 1
+    assert (seen == 1).all()
+    # a row of at most 1,280 keeps the held form and its plan
+    held = tn.layer_norm_bwd_plan(rows, 1280, esize, aligned)
+    assert held.epl <= tn.LN_HOLD_EPL and (held.vec > 1 or held.epl == tn.LN_HOLD_EPL)
+    assert tn.layer_norm_bwd_plan(rows, 2049, esize, aligned) is None
+
+
 def _layer_norm_bwd_planned(x, w, g, eps, plan):
     """The backward with dw and db summed in the plan's order: each warp over
     its rows, the block's warps, the cluster's blocks by rank, the clusters."""
@@ -253,7 +296,7 @@ def _layer_norm_bwd_planned(x, w, g, eps, plan):
     return dx, tot[0], tot[1]
 
 
-@pytest.mark.parametrize("rows, h", [(77, 64), (300, 40), (1100, 24)])
+@pytest.mark.parametrize("rows, h", [(77, 64), (300, 40), (1100, 24), (1100, 1288)])
 def test_layer_norm_bwd_sums_in_the_plan_order_match_the_plain_version(rows, h):
     rng = np.random.default_rng(1)
     x = torch.from_numpy((rng.standard_normal((rows, h)) * rng.uniform(0.5, 3, (rows, 1))

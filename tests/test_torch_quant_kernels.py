@@ -13,7 +13,7 @@ No JAX here:
 import pytest
 import torch
 
-from chip_smoke import neighbour_sx_control, swapped_halves_control
+from chip_smoke import neighbour_sx_control, quantizer_checks, swapped_halves_control
 from paddlemix_tpu_torch.ops import gemm_tiles as gt
 from paddlemix_tpu_torch.ops import quant as tquant
 
@@ -83,3 +83,12 @@ def test_refusals_on_the_card(cuda):
         tquant.a8w8_matmul(x.float(), w, torch.ones(64, device="cuda"))
     with pytest.raises(RuntimeError):  # an inference kernel refuses autograd
         tquant.a8w8_matmul(x, w, torch.ones(64, device="cuda", requires_grad=True))
+
+
+def test_quantizers_divide_on_the_card_as_on_the_cpu(cuda):
+    """C.9: `quantize_weights_int8` / `_int4` (4096 -> 11008), `_quantize_kv`
+    ((1, 608, 32, 128)) and `quantize_weight_per_cout` (640 x 640 x 3 x 3)
+    on the card equal their CPU calls bit for bit, values and scales; the
+    scalar division they had must differ (chip_smoke.quantizer_checks, which
+    exits on a failed check)."""
+    quantizer_checks(torch, "cuda", cuda)

@@ -270,13 +270,13 @@ def test_new_wrappers_take_what_the_triton_kernels_took_and_refuse_the_rest():
     with pytest.raises(ValueError):
         tn.fused_adaln_scale_residual(*(t.to("meta") for t in (x, x, m[:, :64], m[:, 64:128],
                                                                 m[:, 128:192])))
-    # LayerNorm: bf16 or fp32 rows up to 1,280 wide at any row stride; w and b
+    # LayerNorm: bf16 or fp32 rows up to 2,048 wide at any row stride; w and b
     # of any float dtype (read as fp32)
-    for xx in (torch.zeros(4, 1280, dtype=bf), torch.zeros(4, 3, 8)[:, 0]):
+    for xx in (torch.zeros(4, 2048, dtype=bf), torch.zeros(4, 3, 8)[:, 0]):
         tn._ln_check("layer_norm", xx, (torch.ones(xx.shape[-1]), torch.zeros(xx.shape[-1])))
     w, b = tn._adaln_mods(torch.ones(8, dtype=torch.float64), torch.zeros(8, dtype=bf))
     assert w.dtype == b.dtype == torch.float32
-    for bad in (torch.zeros(4, 8).half(), torch.zeros(4, 1281)):
+    for bad in (torch.zeros(4, 8).half(), torch.zeros(4, 2049)):
         with pytest.raises(ValueError):
             tn._ln_check("layer_norm", bad, ())
     with pytest.raises(ValueError):  # a weight of another width
