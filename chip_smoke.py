@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (paddlemix_tpu_torch) on one CUDA card.
 
-Drives nine slices at their published widths with weights drawn on the
+Drives ten slices at their published widths with weights drawn on the
 card from a seeded torch.Generator:
 
   - SDXL-1024 text-to-image through StableDiffusionXLPipeline.__call__, in
@@ -51,7 +51,11 @@ card from a seeded torch.Generator:
     noising at a random timestep, epsilon target, min-SNR gamma 5.0, AdamW
     at 1e-5, cosine over 1,000 steps, clip 1.0, shuffled batches of 8 over
     the example's 256 seeded samples of 64x64x4 latents and 77x768 hidden
-    states), fp32 masters and bf16 compute; 8 steps, no checkpoints.
+    states), fp32 masters and bf16 compute; 8 steps, no checkpoints;
+  - BLIP-2 OPT-2.7B captioning (Salesforce/blip2-opt-2.7b: the ViT-g tower,
+    1,408 x 39 layers at 224 px, the Q-Former with 32 queries, OPT-2.7B,
+    3.74 B parameters in bf16) through Blip2Processor on a jpeg and
+    Blip2ForConditionalGeneration.generate over OPT's BOS, 32 new tokens.
 
 Phases:
 
@@ -381,6 +385,34 @@ Phases:
                    `expected_launches_sd15_train`: 15 B15, 15 B14 dkv and 15
                    B14 dq a step, 5 of each at head_dim 160, 61 B4, and no
                    other kernel
+ 38. blip2 kernels the SD1.5 UNet is freed; B10's forward at the BLIP-2 rows
+                   (257 x 1,408, 32 x 768, 33 x 2,560 and 1 x 2,560; rows of
+                   2,560 are new: the row form at two 16-byte chunks a
+                   thread) and B7 at OPT's head_dim 80 (1 x 32 heads over 64
+                   slots at length 40, a ragged pair over 96, a caption's last
+                   step over 65) against their plain versions per element,
+                   each with its control (the variance without the mean; every
+                   length one short), with times, bounds, library calls
+                   (F.layer_norm; SDPA with a bool mask), the floor and
+                   ptxas counts; B10's backward must refuse 2,560 with a
+                   message (no library plan either)
+ 39. blip2 agree   BLIP-2 OPT-2.7B is built (seeded bf16 weights, fp32 norm
+                   affines); the prefill's logits (32 query features + BOS)
+                   and those of 4 decode steps fed seeded non-BOS ids (the
+                   greedy ids of random weights repeat BOS), kernels (B7,
+                   B10) vs plain, within a relative L2 of 5e-2; launches as
+                   the walk says
+ 40. blip2 serve   3 caption requests, each a generated 640 x 480 jpeg decoded
+                   by PIL and processed by Blip2Processor, then generate over
+                   OPT's BOS with 32 new tokens, eos off: seconds a request,
+                   TTFT (a 1-token generate), decode tokens/s = 31 / (t32 -
+                   TTFT), peak memory; each request's prefill logits over
+                   the TTFT run's cache and the full run's must be
+                   bit-equal (no dependence on the spare slots); one more
+                   request under the profiler: device ms by category and
+                   the busy share; every request
+                   launches B10 2,190 times and B7 992 times
+                   (`expected_launches_blip2`), and no other kernel
 
 Any failed check exits non-zero. Without a CUDA card, or outside a checkout
 of the repository, it exits non-zero before printing any result. The line
@@ -396,6 +428,7 @@ import contextlib
 import gc
 import itertools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -1562,6 +1595,18 @@ EVA_LN_SHAPES = [(50432, 2048, 1), (1000, 1960, 1)]
 # (dx, g and x read from device memory a pass), the narrowest wide width
 LN_WIDE_EXTRA_CASES = [((77, 2048), "bf16", False), ((3000, 2048), "fp32", False),
                        ((3000, 2048), "bf16", True), ((5000, 1288), "bf16", False)]
+# BLIP-2 OPT-2.7B captioning (Salesforce/blip2-opt-2.7b, models/blip2/opt27b.py),
+# batch 1, the prompt OPT's BOS alone: B10's rows on the path (the ViT-g's 257
+# tokens at 1,408, the Q-Former's 32 queries at 768, OPT's prefill of the 32
+# query features and the id, and its decode rows, at 2,560)
+BLIP2_LN_SHAPES = [(257, 1408), (32, 768), (33, 2560), (1, 2560)]
+# B7 at OPT's head_dim 80, (B, Hq, KVH, D, L, lengths): 32 heads over 64
+# slots at length 40, a ragged pair of sequences, a caption's last step (65
+# keys: the 33-token prefill and 32 new ones)
+BLIP2_DECODE_CASES = [(1, 32, 32, 80, 64, (40,)), (2, 32, 32, 80, 96, (90, 17)),
+                      (1, 32, 32, 80, 65, (64,))]
+BLIP2_REQUESTS = 3      # caption requests, one 640 x 480 jpeg each
+BLIP2_AGREE_STEPS = 4   # decode steps after the prefill in the agree
 EVA_REQUESTS = 3        # Appflow zero-shot requests, one 640 x 480 jpeg each
 EVA_LABELS = 1000       # candidate labels a request, classes of the eval (ImageNet-1k's)
 EVA_EVAL_IMAGES = 256   # generated jpegs of the zero-shot eval, one batch
@@ -1818,7 +1863,8 @@ def row_norm_checks(torch, dev, gen, norms):
             check(mirror == lib, f"fused_adaln plan {shape} aligned {aligned}: the library's "
                                  f"{lib}, the mirror's {mirror}")
             checked += 2
-    for rows, h in [(r, h) for r, h, _ in CLIP_LN_SHAPES] + [sh for sh, _, _ in LN_EXTRA_CASES]:
+    for rows, h in [(r, h) for r, h, _ in CLIP_LN_SHAPES] + [sh for sh, _, _ in LN_EXTRA_CASES] \
+            + BLIP2_LN_SHAPES:
         for dtype in (bf16, torch.float32):
             for aligned in (True, False):
                 es = torch.empty(0, dtype=dtype).element_size()
@@ -2027,12 +2073,13 @@ def ln_extra_cases(torch, dev, gen, norms):
         del x, y, ref
 
 
-def clip_kernels(torch, F, dev, gen, record, norms, shapes=CLIP_LN_SHAPES):
-    """B10 and its backward against their plain versions at `shapes` (the
-    CLIP path's rows by default), each gate with its controls; times, bounds
-    and library times (F.layer_norm and its backward, bf16 weight and bias);
-    the backward's kernel and ptxas's counts for it."""
-    bf16, label = torch.bfloat16, "clip kernels"
+def clip_kernels(torch, F, dev, gen, record, norms, shapes=CLIP_LN_SHAPES, backward=True,
+                 label="clip kernels"):
+    """B10 and (with `backward`) its backward against their plain versions at
+    `shapes` (the CLIP path's rows by default), each gate with its controls;
+    times, bounds and library times (F.layer_norm and its backward, bf16
+    weight and bias); the backward's kernel and ptxas's counts for it."""
+    bf16 = torch.bfloat16
     for rows, h, span in shapes:
         pooled = span > 1
         # rows with their own offsets and scales, as a residual stream's; the
@@ -2044,41 +2091,20 @@ def clip_kernels(torch, F, dev, gen, record, norms, shapes=CLIP_LN_SHAPES):
         del base
         w = 1 + 0.2 * torch.randn(h, generator=gen, device=dev)
         b = 0.2 * torch.randn(h, generator=gen, device=dev)
-        g = torch.randn((rows, h), generator=gen, device=dev).to(bf16)
+        g = torch.randn((rows, h), generator=gen, device=dev).to(bf16) if backward else None
         shape = (rows, h)
         y = norms.layer_norm(x, w, b, 1e-5)
-        dx, dw, db = norms.layer_norm_backward(x, w, g, 1e-5)
         torch.cuda.synchronize()
         ref = norms.layer_norm_ref(x.float(), w, b, 1e-5)
         excess, need = ulp_gate(y, ref, LN_SUM)
         ctrl, _ = ulp_gate(ln_no_mean(x.float(), w, b, 1e-5), ref, LN_SUM)
-        rdx, rdw, rdb = norms.layer_norm_backward_ref(x.float(), w, g.float(), 1e-5)
-        dx_excess, dx_need = ulp_gate(dx, rdx, LN_BWD_SUM)
-        xf, gf = x.float(), g.float()
-        xhat = norms.layer_norm_ref(xf, None, None, 1e-5)
-        rstd = (xf - xf.mean(-1, keepdim=True)).square().mean(-1, keepdim=True).add(1e-5).rsqrt()
-        dxhat = gf * w
-        ctrl_dx, _ = ulp_gate(rstd * (dxhat - xhat * (dxhat * xhat).mean(-1, keepdim=True)), rdx,
-                              LN_BWD_SUM)
-        rel = lambda a, r: ((a - r).abs().max() / r.abs().max()).item()  # noqa: E731
-        dw_err, db_err = rel(dw, rdw), rel(db, rdb)
-        first = ln_first_rows(norms, rows, h, 2)
-        cdw, cdb = norms.layer_norm_backward_ref(xf[:first], w, gf[:first], 1e-5)[1:]
-        ctrl_dwdb = min(rel(cdw, rdw), rel(cdb, rdb))
         print(f"[{label}] layer_norm {shape}{' (pooled rows, a strided slice)' if pooled else ''}"
               f" bf16: excess {excess:.3e} (least c {need:.2e}, c {LN_SUM}); control, the "
               f"variance without the mean subtracted: excess {ctrl:.3e} (must be > 0)", flush=True)
-        print(f"[{label}] layer_norm_backward {shape}: dx excess {dx_excess:.3e} (least c "
-              f"{dx_need:.2e}, c {LN_BWD_SUM}); dw / db max err {dw_err:.3e} / {db_err:.3e} "
-              f"|ref|max (tol {LN_DW_TOL}); controls: dx without mean(g w) excess {ctrl_dx:.3e} "
-              f"(must be > 0), dw / db of the first partial sum's {first} rows alone {ctrl_dwdb:.3e} "
-              f"(must be > tol)", flush=True)
         check(bool(torch.isfinite(y).all()) and excess <= 0, f"layer_norm {shape}: {excess}")
         check(ctrl > 0, f"layer_norm {shape}: the control passes ({ctrl})")
-        check(bool(torch.isfinite(dx).all()) and dx_excess <= 0 and max(dw_err, db_err) <= LN_DW_TOL,
-              f"layer_norm_backward {shape}: dx {dx_excess}, dw {dw_err}, db {db_err}")
-        check(ctrl_dx > 0 and ctrl_dwdb > LN_DW_TOL,
-              f"layer_norm_backward {shape}: a control passes ({ctrl_dx}, {ctrl_dwdb})")
+        if backward:
+            ln_backward_case(torch, F, record, norms, label, x, w, b, g)
         w16, b16 = w.to(bf16), b.to(bf16)
         kernel = cold(lambda x_: norms.layer_norm(x_, w, b, 1e-5), x, nbytes(x))
         ms, plain_ms = timed_pair(torch, kernel,
@@ -2093,19 +2119,55 @@ def clip_kernels(torch, F, dev, gen, record, norms, shapes=CLIP_LN_SHAPES):
                plain_ms, lib_ms, bound(nbytes(x, w, b, y), 8 * x.numel(), "fp32"),
                f" | library: F.layer_norm, bf16 weight and bias | "
                f"{norm_kernel_note(norms, plan, norms.OP_LN)}", floor=floor, copy=copy)
-        ms, plain_ms = timed_pair(torch, lambda: norms.layer_norm_backward(x, w, g, 1e-5),
-                                  lambda: norms.layer_norm_backward_ref(x, w, g, 1e-5))
-        lib_ms = sum(backward_ms(
-            torch, lambda *t: F.layer_norm(t[0], (h,), t[1], t[2], 1e-5),
-            tuple(t.detach().clone().requires_grad_() for t in (x, w16, b16)), g)
-            for _ in range(2)) / 2
-        record(label, "layer_norm_backward", shape,
-               (dx.float() - rdx).abs().max().item(), ms, plain_ms, lib_ms,
-               bound(nbytes(x, w, g, dx, dw, db), 14 * x.numel(), "fp32"),
-               f" | library: the backward of F.layer_norm (x, weight, bias; graph-captured) | "
-               f"{ln_bwd_note(norms, rows, h)}")
-        del x, g, y, dx, ref, rdx, xf, gf, xhat, dxhat
+        del x, g, y, ref
     torch.cuda.empty_cache()
+
+
+def ln_backward_case(torch, F, record, norms, label, x, w, b, g):
+    """B10's backward at x's rows for the output gradient g against its
+    plain version: dx per element,
+    dw and db within LN_DW_TOL of |ref|max, with controls (dx without its
+    mean(g w) term; dw and db of the first partial sum's rows alone); times,
+    the bound and the library's backward."""
+    bf16 = torch.bfloat16
+    rows, h = x.shape
+    shape = (rows, h)
+    dx, dw, db = norms.layer_norm_backward(x, w, g, 1e-5)
+    torch.cuda.synchronize()
+    rdx, rdw, rdb = norms.layer_norm_backward_ref(x.float(), w, g.float(), 1e-5)
+    dx_excess, dx_need = ulp_gate(dx, rdx, LN_BWD_SUM)
+    xf, gf = x.float(), g.float()
+    xhat = norms.layer_norm_ref(xf, None, None, 1e-5)
+    rstd = (xf - xf.mean(-1, keepdim=True)).square().mean(-1, keepdim=True).add(1e-5).rsqrt()
+    dxhat = gf * w
+    ctrl_dx, _ = ulp_gate(rstd * (dxhat - xhat * (dxhat * xhat).mean(-1, keepdim=True)), rdx,
+                          LN_BWD_SUM)
+    rel = lambda a, r: ((a - r).abs().max() / r.abs().max()).item()  # noqa: E731
+    dw_err, db_err = rel(dw, rdw), rel(db, rdb)
+    first = ln_first_rows(norms, rows, h, 2)
+    cdw, cdb = norms.layer_norm_backward_ref(xf[:first], w, gf[:first], 1e-5)[1:]
+    ctrl_dwdb = min(rel(cdw, rdw), rel(cdb, rdb))
+    print(f"[{label}] layer_norm_backward {shape}: dx excess {dx_excess:.3e} (least c "
+          f"{dx_need:.2e}, c {LN_BWD_SUM}); dw / db max err {dw_err:.3e} / {db_err:.3e} "
+          f"|ref|max (tol {LN_DW_TOL}); controls: dx without mean(g w) excess {ctrl_dx:.3e} "
+          f"(must be > 0), dw / db of the first partial sum's {first} rows alone {ctrl_dwdb:.3e} "
+          f"(must be > tol)", flush=True)
+    check(bool(torch.isfinite(dx).all()) and dx_excess <= 0 and max(dw_err, db_err) <= LN_DW_TOL,
+          f"layer_norm_backward {shape}: dx {dx_excess}, dw {dw_err}, db {db_err}")
+    check(ctrl_dx > 0 and ctrl_dwdb > LN_DW_TOL,
+          f"layer_norm_backward {shape}: a control passes ({ctrl_dx}, {ctrl_dwdb})")
+    w16, b16 = w.to(bf16), b.to(bf16)
+    ms, plain_ms = timed_pair(torch, lambda: norms.layer_norm_backward(x, w, g, 1e-5),
+                              lambda: norms.layer_norm_backward_ref(x, w, g, 1e-5))
+    lib_ms = sum(backward_ms(
+        torch, lambda *t: F.layer_norm(t[0], (h,), t[1], t[2], 1e-5),
+        tuple(t.detach().clone().requires_grad_() for t in (x, w16, b16)), g)
+        for _ in range(2)) / 2
+    record(label, "layer_norm_backward", shape,
+           (dx.float() - rdx).abs().max().item(), ms, plain_ms, lib_ms,
+           bound(nbytes(x, w, g, dx, dw, db), 14 * x.numel(), "fp32"),
+           f" | library: the backward of F.layer_norm (x, weight, bias; graph-captured) | "
+           f"{ln_bwd_note(norms, rows, h)}")
 
 
 def clip_slice(torch, np, dev, m, counters):
@@ -2843,6 +2905,221 @@ def eva_slice(torch, np, dev, m, counters):
 
 
 # ------------------------------------------------------ decode attention
+def blip2_kernels(torch, F, dev, gen, record, m):
+    """blip2 kernels (see the module docstring): B10's forward at
+    BLIP2_LN_SHAPES and B7 at BLIP2_DECODE_CASES, each per element with its
+    control, times, bounds and library calls; the backward's refusal of
+    2,560-wide rows, with a message."""
+    norms, da = m.norms, m.da
+    clip_kernels(torch, F, dev, gen, record, norms, shapes=[(r, h, 1) for r, h in BLIP2_LN_SHAPES],
+                 backward=False, label="blip2 kernels")
+    decode_kernels(torch, F, dev, gen, record, da, cases=BLIP2_DECODE_CASES, label="blip2 kernels")
+    x = torch.zeros((33, 2560), dtype=torch.bfloat16, device=dev)
+    try:
+        norms.layer_norm_backward(x, torch.ones(2560, device=dev), x, 1e-6)
+        refused = ""
+    except ValueError as exc:
+        refused = str(exc)
+    lib = [norms.layer_norm_bwd_plan_library(33, 2560, torch.bfloat16, a) for a in (True, False)]
+    print(f"[blip2 kernels] layer_norm_backward (33, 2560) refused: {refused}; the library's "
+          f"plans (aligned, not): {lib}", flush=True)
+    check("at most 2048 wide" in refused and lib == [None, None],
+          f"layer_norm_backward at 2,560 was not refused ({refused!r}, {lib})")
+
+
+def kernel_category(key):
+    """A profiled kernel's category, by its name."""
+    k = key.lower()
+    if "layer_norm_fwd" in k:
+        return "B10 layer_norm"
+    if "decode_attention" in k:
+        return "B7 decode_attention (+ merge)"
+    if any(w in k for w in ("gemm", "gemv", "nvjet", "cutlass", "xmma", "matmul")):
+        return "GEMM (cuBLAS)"
+    if "conv" in k:
+        return "conv (cuDNN)"
+    if "softmax" in k:
+        return "softmax"
+    if "reduce" in k:
+        return "reductions"
+    if any(w in k for w in ("copy", "cat", "index", "elementwise", "vectorized", "unrolled",
+                            "fill")):
+        return "elementwise / copies"
+    return "other"
+
+
+def blip2_slice(torch, np, dev, m, counters):
+    """blip2 agree and blip2 serve (see the module docstring): BLIP-2
+    OPT-2.7B at full width with seeded random bf16 weights. `counters` are
+    every kernel wrapper's, by name: each request must launch B10 and B7 as
+    the walk says, and nothing else. Returns the launches of the serve and
+    its numbers."""
+    import io
+
+    from PIL import Image
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddlemix_tpu_torch.models.blip2 import expected_launches_blip2, random_blip2
+    from paddlemix_tpu_torch.models.blip2.opt27b import BOS_ID, CAPTION_NEW_TOKENS
+    from paddlemix_tpu_torch.models.layers import n_layer_norms
+    from paddlemix_tpu_torch.models.llama import modeling as llama_mod
+    from paddlemix_tpu_torch.processors import Blip2Processor
+
+    norms, da = m.norms, m.da
+
+    def launches():
+        return {name: fn.launches for name, fn in counters.items()}
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def walk(new_tokens):
+        want = expected_launches_blip2(model, 1, new_tokens)
+        return {name: want.get(name, 0) for name in counters}
+
+    t0 = time.perf_counter()
+    model = random_blip2(seed=0, device=dev)
+    torch.cuda.synchronize()
+    cfg = model.config
+    parts = {name: sum(p.numel() for p in getattr(model, name).parameters())
+             for name in ("vision_model", "qformer", "language_projection", "language_model")}
+    total = sum(p.numel() for p in model.parameters())
+    print(f"[blip2] BLIP-2 OPT-2.7B built on the card in {time.perf_counter() - t0:.1f} s: "
+          f"{total} parameters ({parts}, query tokens {model.query_tokens.numel()}), bf16 "
+          f"(LayerNorms fp32), {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated; B10 "
+          f"modules: tower {n_layer_norms(model.vision_model)}, Q-Former "
+          f"{n_layer_norms(model.qformer)}, OPT {n_layer_norms(model.language_model)}",
+          flush=True)
+    check(3.7e9 < total < 3.8e9, f"blip2: {total} parameters")
+    processor = Blip2Processor()
+    ids = torch.tensor([[BOS_ID]], device=dev)
+    jpegs = [smooth_jpeg(np, Image, 200 + i) for i in range(BLIP2_REQUESTS)]
+
+    def pixels(data):
+        with Image.open(io.BytesIO(data)) as im:
+            return torch.from_numpy(processor(images=im.convert("RGB"),
+                                              mode="eval")["pixel_values"])
+
+    # ---------------------------------------------------------- blip2 agree
+    px0 = pixels(jpegs[0]).to(dev)
+    full = cfg.num_query_tokens + ids.shape[1]
+
+    # the decode steps are fed seeded ids: the greedy ones of random weights
+    # with a tied embedding repeat the last (BOS), so each step would see one
+    toks = torch.randint(BOS_ID + 1, cfg.text.vocab_size, (BLIP2_AGREE_STEPS, 1, 1),
+                         generator=torch.Generator().manual_seed(0)).to(dev)
+
+    def steps(swaps=()):
+        """Prefill logits (33, vocab) and those of the decode steps fed `toks`."""
+        with torch.inference_mode(), swapped(swaps):
+            cache = model.init_cache(1, full + BLIP2_AGREE_STEPS)
+            logits, cache = model(px0, ids, torch.arange(full, device=dev)[None], cache=cache)
+            outs = [logits[0].float()]
+            for tok in toks:
+                step, cache = model.language_model(tok, cache.lengths[:, None], cache=cache)
+                outs.append(step[0].float())
+        return outs[0], torch.cat(outs[1:])
+
+    swaps = [(llama_mod, "decode_attention", da.decode_attention_ref),
+             (norms, "_ln_forward", norms.layer_norm_ref)]
+    zero()
+    pre_k, dec_k = steps()
+    torch.cuda.synchronize()
+    got = launches()
+    pre_p, dec_p = steps(swaps)
+    rel_pre, rel_dec = rel_l2(pre_k, pre_p), rel_l2(dec_k, dec_p)
+    print(f"[blip2 agree] full-width BLIP-2 OPT-2.7B, kernels (B7, B10) vs plain: relative L2 "
+          f"of the logits, prefill ({full} tokens: 32 query features + BOS) {rel_pre:.3e}, "
+          f"{BLIP2_AGREE_STEPS} decode steps {rel_dec:.3e} (tol {LLAVA_AGREE_TOL}); |logits| max "
+          f"{pre_p.abs().max().item():.3f}; ids fed {toks.view(-1).tolist()}; launches of "
+          f"the kernels' run {got}", flush=True)
+    check(bool(torch.isfinite(pre_k).all() and torch.isfinite(dec_k).all())
+          and rel_pre <= LLAVA_AGREE_TOL and rel_dec <= LLAVA_AGREE_TOL,
+          f"blip2 agree: relative L2 {rel_pre} / {rel_dec}")
+    check(got == walk(1 + BLIP2_AGREE_STEPS), f"blip2 agree: launches {got}")
+    del pre_k, dec_k, pre_p, dec_p
+
+    # ---------------------------------------------------------- blip2 serve
+    want, want_1 = walk(CAPTION_NEW_TOKENS), walk(1)
+    print(f"[blip2 serve] expected launches per request (walking the modules): {want}; TTFT run "
+          f"{want_1}", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    totals, stats = collections.Counter(), []
+
+    def request(data, new_tokens):
+        """(seconds, of them the decode and preprocess, tokens) of one request:
+        the jpeg decoded and processed, then `generate` (eos off)."""
+        zero()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        px = pixels(data)
+        t_pre = time.perf_counter() - t0
+        out = model.generate(px, ids, max_new_tokens=new_tokens, eos_token_id=-1)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, t_pre, out
+
+    def prefill_logits(px, slots):
+        """The prefill's logits over a cache of `slots` (a request's)."""
+        with torch.inference_mode():
+            logits, _ = model(px.to(dev), ids, torch.arange(full, device=dev)[None],
+                              cache=model.init_cache(1, slots))
+        return logits
+
+    for i, data in enumerate(jpegs):
+        runs = []
+        for n_new, expected in ((1, want_1), (CAPTION_NEW_TOKENS, want)):
+            runs.append(request(data, n_new))
+            got = launches()
+            totals.update(got)
+            check(got == expected, f"blip2 serve: launches {got} != expected {expected}")
+        (ttft, _, first), (seconds, t_pre, toks) = runs
+        tps = (CAPTION_NEW_TOKENS - 1) / (seconds - ttft)
+        stats.append(dict(seconds=seconds, ttft=ttft, tokens_per_s=tps, preprocess=t_pre))
+        print(f"[blip2 serve] request {i} (640 x 480 jpeg): {seconds:.3f} s for "
+              f"{CAPTION_NEW_TOKENS} tokens (decode + preprocess {1e3 * t_pre:.1f} ms) | TTFT "
+              f"{1e3 * ttft:.1f} ms | decode {tps:.2f} tokens/s ({1e3 / tps:.2f} ms/token) | "
+              f"tokens {toks[0, :8].tolist()}...", flush=True)
+        check(toks.shape == (1, CAPTION_NEW_TOKENS) and toks.dtype == torch.int32,
+              f"blip2 serve: tokens {tuple(toks.shape)} {toks.dtype}")
+        check(bool(((toks >= 0) & (toks < cfg.text.vocab_size)).all()),
+              "blip2 serve: a token outside the vocab")
+        # the first token of random weights is BOS whatever the cache: the
+        # prefill's logits over the TTFT run's cache and the full run's must
+        # be bit-equal (no sum over the spare slots)
+        px = pixels(data)
+        short_l, long_l = (prefill_logits(px, full + n) for n in (1, CAPTION_NEW_TOKENS))
+        spare = (short_l.float() - long_l.float()).abs().max().item()
+        print(f"[blip2 serve]   request {i}: prefill logits over {full + 1} and "
+              f"{full + CAPTION_NEW_TOKENS} cache slots: max difference {spare:.3e} (must be 0); "
+              f"first tokens {int(first[0, 0])} / {int(toks[0, 0])}", flush=True)
+        check(torch.equal(short_l, long_l) and int(toks[0, 0]) == int(first[0, 0]),
+              f"blip2 serve: the prefill depends on the cache's spare slots ({spare})")
+        del short_l, long_l
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        seconds, _, _ = request(jpegs[-1], CAPTION_NEW_TOKENS)
+    got = launches()
+    totals.update(got)
+    check(got == want, f"blip2 serve: profiled request launches {got}")
+    device_ms = kernel_breakdown("blip2 serve", "profiled request", prof, 10)
+    by_category = collections.Counter()
+    for e in prof.key_averages():
+        if e.self_device_time_total > 0:
+            by_category[kernel_category(e.key)] += e.self_device_time_total / 1e3
+    busy = device_ms / 1e3 / seconds
+    med = lambda k: sorted(s_[k] for s_ in stats)[len(stats) // 2]  # noqa: E731
+    print(f"[blip2 serve] profiled request: {seconds:.3f} s, {device_ms:.2f} ms of device time "
+          f"(busy {100 * busy:.1f}%), by category "
+          f"{ {k: round(v, 3) for k, v in by_category.most_common()} }; peak memory "
+          f"{peak:.2f} GiB; medians of {BLIP2_REQUESTS}: {med('seconds'):.3f} s a request, TTFT "
+          f"{1e3 * med('ttft'):.1f} ms, decode {med('tokens_per_s'):.2f} tokens/s; launches over "
+          f"the phase {dict(totals)}", flush=True)
+    del model
+    return dict(totals), dict(requests=stats, profiled_seconds=seconds, device_ms=device_ms,
+                              busy=busy, by_category=dict(by_category), peak_gib=peak)
+
+
 def decode_note(da, b_, hq, kvh, d, L, int8):
     """The split plan (ops/decode_attention.py `key_splits`) of one B7 / B8
     case on this card, and ptxas's registers and spills for its
@@ -2856,19 +3133,26 @@ def decode_note(da, b_, hq, kvh, d, L, int8):
     regs, spills = ptxas_counts("decode_attention", f"decode_attention_kernelILi{d}ELi{g}E"
                                 f"{'a' if int8 else '13__nv_bfloat16'}E")
     resident = da.kernel_blocks_per_sm(d, g, int8)
-    check(resident * sms >= blocks and blocks % sms == 0, f"decode attention (D {d}, G {g}): "
-          f"{blocks} blocks, {resident} fit an SM: not one whole wave")
+    # whole waves of the SMs, but where key_splits found no whole multiple of
+    # them with ranges of the least length (BLIP-2's short caches): then its
+    # fallback, the most splits, within one wave
+    no_multiple = sms // math.gcd(b_ * kvh, sms) > max(1, L // da._MIN_SPLIT_KEYS)
+    waves_ok = (blocks <= sms * da.WAVE_BLOCKS_PER_SM and splits == max(1, L // da._MIN_SPLIT_KEYS)
+                if no_multiple else blocks % sms == 0)
+    check(resident * sms >= blocks and waves_ok,
+          f"decode attention (D {d}, G {g}): {blocks} blocks, {resident} fit an SM: not "
+          f"{'within one wave' if no_multiple else 'whole waves'}")
     return (f"{splits} key ranges of {chunk}, {blocks} blocks of 64 threads = "
             f"{blocks / (sms * da.WAVE_BLOCKS_PER_SM):.2f} waves of {da.WAVE_BLOCKS_PER_SM} an SM "
             f"on {sms} SMs, all resident at once ({resident} fit an SM); ptxas {regs} registers, "
             f"{spills}")
 
 
-def decode_kernels(torch, F, dev, gen, record, da):
-    """B7 against its plain version at DECODE_CASES, per element, with the
+def decode_kernels(torch, F, dev, gen, record, da, cases=DECODE_CASES, label="llava kernels"):
+    """B7 against its plain version at `cases`, per element, with the
     lengths-one-short control; times, bounds, SDPA as the library call."""
     bf16 = torch.bfloat16
-    for b_, hq, kvh, d, L, lengths in DECODE_CASES:
+    for b_, hq, kvh, d, L, lengths in cases:
         q = torch.randn((b_, 1, hq, d), generator=gen, device=dev).to(bf16)
         # k and v are slices of a layer's cache with its parking slot, as in the model
         cache = torch.randn((2, b_, L + 1, kvh, d), generator=gen, device=dev).to(bf16)
@@ -2883,7 +3167,7 @@ def decode_kernels(torch, F, dev, gen, record, da):
         short = da.decode_attention(q, cache[0, :, :L], cache[1, :, :L], lens - 1)
         ctrl = ((short.float() - ref).abs() - limit).max().item()
         shape = (b_, hq, kvh, d, L, lengths)
-        print(f"[llava kernels] decode_attention {shape} bf16: max_abs_err {err:.3e} (limit "
+        print(f"[{label}] decode_attention {shape} bf16: max_abs_err {err:.3e} (limit "
               f"{DECODE_ULP:.4g}|ref| + {DECODE_SUM:g}|ref|max, excess {excess:.3e}); control "
               f"with lengths one short: excess {ctrl:.3e} (must be > 0)", flush=True)
         check(bool(torch.isfinite(out).all()) and excess <= 0, f"decode {shape}: err {err}")
@@ -2899,9 +3183,9 @@ def decode_kernels(torch, F, dev, gen, record, da):
             qh, c[0, :, :L].transpose(1, 2), c[1, :, :L].transpose(1, 2), attn_mask=mask,
             enable_gqa=hq != kvh), cache, nbytes(cache)))
         used = sum(min(n_, L) for n_ in lengths)  # cached rows the lengths make it read
-        record("llava kernels", "decode_attention", shape, err, ms, plain_ms, lib_ms,
+        record(label, "decode_attention", shape, err, ms, plain_ms, lib_ms,
                bound(nbytes(q, lens, out) + 2 * used * kvh * d * 2, 4 * hq * used * d, "fp32"))
-        print(f"[llava kernels]   decode_attention {shape}: "
+        print(f"[{label}]   decode_attention {shape}: "
               f"{decode_note(da, b_, hq, kvh, d, L, False)}", flush=True)
         del q, cache, out, ref, short, limit
 
@@ -4825,6 +5109,12 @@ def main():
     launches_sd15_tr, dims_sd15_tr, sd15_train_stats = sd15_train_slice(torch, np, dev, mods,
                                                                         every)
 
+    # ---------------------------------------------------------- BLIP-2 slice
+    gc.collect()
+    torch.cuda.empty_cache()
+    blip2_kernels(torch, F, dev, gen, record, tmods)
+    launches_blip2, blip2_stats = blip2_slice(torch, np, dev, tmods, every)
+
     # --------------------------------------------------------------- summary
     def entry(name, route, source, replaces, by_phase):
         # ms / plain_ms / library_ms / bound at the first shape listed;
@@ -4883,7 +5173,8 @@ def main():
               "paddlemix_tpu/models/llama/modeling.py:150", llava("a8w4_matmul")),
         entry("decode_attention", "cuda", "paddlemix_tpu_torch/csrc/decode_attention.cu",
               "paddlemix_tpu/ops/decode_attention.py:68",
-              dict(llava("decode_attention"), **llama_phases("decode_attention"))),
+              dict(llava("decode_attention"), **llama_phases("decode_attention"),
+                   blip2=launches_blip2["decode_attention"])),
         entry("rms_norm", "cuda", "paddlemix_tpu_torch/csrc/norms.cu",
               "paddlemix_tpu/ops/norms.py:148",
               dict(llava("rms_norm"), **llama_phases("rms_norm"))),
@@ -4913,7 +5204,8 @@ def main():
                "llava_a8w8": launches_q["a8w8"]["layer_norm"],
                "llava_a8w4": launches_q["a8w4"]["layer_norm"], "sd3": launches_sd3["layer_norm"],
                "clip": launches_clip["layer_norm"], "clip_train": launches_clip_tr["layer_norm"],
-               **{phase: got["layer_norm"] for phase, got in launches_eva.items()}}),
+               **{phase: got["layer_norm"] for phase, got in launches_eva.items()},
+               "blip2": launches_blip2["layer_norm"]}),
         entry("layer_norm_backward", "cuda", "paddlemix_tpu_torch/csrc/norms.cu",
               "paddlemix_tpu/ops/norms.py:226",
               {"clip_train": launches_clip_tr["layer_norm_backward"],
@@ -4945,6 +5237,13 @@ def main():
                 for d_ in (40, 80, 160, 256, 32, 24, 20)
                 for name, line in (("flash_bwd_dkv", 386), ("flash_bwd_dq", 422))]
     by_name = {k["name"]: k for k in kernels}
+    # the BLIP-2 path's shapes of B10 and B7, each case as the line's first shape
+    for name, shapes in (("layer_norm", BLIP2_LN_SHAPES), ("decode_attention", BLIP2_DECODE_CASES)):
+        by_name[name]["blip2_shapes"] = [
+            {"shape": list(r["shape"]), "ms": r["ms"], "plain_ms": r["plain_ms"],
+             "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": r["library_ms"],
+             "max_abs_err": r["err"]}
+            for r in summary[name] if tuple(r["shape"]) in {tuple(sh) for sh in shapes}]
     by_name["rms_norm"]["launches_by_phase"]["train"] = launches_tr["rms_norm"]
     by_name["rms_norm"]["launches"] += launches_tr["rms_norm"]
     by_name["group_norm"]["launches_by_phase"]["sd15_train"] = launches_sd15_tr["group_norm"]
@@ -4978,6 +5277,7 @@ def main():
                                              "clip_train")] + \
         [("layer_norm", phase) for phase in launches_eva] + \
         [("layer_norm_backward", phase) for phase in ("clip_train", "eva_train", "clip_main")] + \
+        [("layer_norm", "blip2"), ("decode_attention", "blip2")] + \
         [(name, "sd15_train") for name in (
             "flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq", "group_norm",
             "flash_fwd_lse_d40", "flash_fwd_lse_d80", "flash_fwd_lse_d160",
@@ -4993,6 +5293,7 @@ def main():
     print(f"[summary] eva: {eva_stats}", flush=True)
     print(f"[summary] sd15: {sd15_stats}", flush=True)
     print(f"[summary] sd15 train: {sd15_train_stats}", flush=True)
+    print(f"[summary] blip2: {blip2_stats}", flush=True)
     print(f"[summary] chip_smoke ran {time.perf_counter() - T_START:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -132,6 +132,50 @@ LLAMA_KEY_MAP: KeyMap = (
     (r"\.weight$", r".kernel"),
 )
 
+# paddlemix_tpu/models/opt/modeling.py _OPT_KEY_MAP: HF's OPT names (the
+# port's) -> the JAX OPTModule's
+OPT_KEY_MAP: KeyMap = (
+    (r"^model\.decoder\.", r""),
+    (r"^decoder\.", r""),
+    (r"embed_tokens\.weight$", r"embed_tokens.embedding"),
+    (r"embed_positions\.weight$", r"embed_positions.embedding"),
+    (r"\.layers\.(\d+)\.", r".layers_\1."),
+    (r"^layers\.(\d+)\.", r"layers_\1."),
+    (r"(_layer_norm|layer_norm)\.weight$", r"\1.scale"),
+    (r"^final_layer_norm\.weight$", r"final_layer_norm.scale"),
+    (r"\.weight$", r".kernel"),
+)
+
+# The port's BLIP-2 Q-Former (`models/blip2/modeling.py`) names its modules as
+# the JAX QFormer does, its layers a ModuleList: only the layer index, the
+# norms' scale and the Dense kernels move
+QFORMER_KEY_MAP: KeyMap = (
+    (r"\.layers\.(\d+)\.", r".layers_\1."),
+    (r"(norm|layernorm)\.weight$", r"\1.scale"),
+    (r"\.weight$", r".kernel"),
+)
+
+
+# the CLIP map, and BLIP-2's patch-embedding bias (CLIP's patch conv has none)
+_BLIP2_VISION_KEY_MAP: KeyMap = ((r"^vision_model\.embeddings\.patch_embedding\.bias$",
+                                  r"vision_model.patch_embed.proj.bias"),) + tuple(CLIP_KEY_MAP)
+
+
+def blip2_key_to_flax(key: str) -> str:
+    """A `Blip2ForConditionalGeneration` key -> the JAX Blip2Module's flax
+    key: the vision tower (`vision_model.*`, the port's CLIP tower) through
+    the CLIP map (and its patch bias), the Q-Former and the projection through QFORMER_KEY_MAP, the
+    language model (`language_model.model.decoder.*`, HF's OPT names) through
+    OPT_KEY_MAP under `language_model.`; `query_tokens` keeps its name."""
+    if key.startswith("vision_model."):
+        return torch_key_to_flax(key, _BLIP2_VISION_KEY_MAP)
+    if key.startswith("language_model."):
+        return "language_model." + torch_key_to_flax(key[len("language_model."):], OPT_KEY_MAP)
+    return torch_key_to_flax(key, QFORMER_KEY_MAP)
+
+
+BLIP2_KEY_MAP: KeyMap = blip2_key_to_flax
+
 # paddlemix_tpu/models/llava/modeling.py LlavaForConditionalGeneration
 # .convert_foreign_state_dict: prefix renames, then the vision tower's or the
 # language model's, then the shared pass it hands convert_torch_state_dict

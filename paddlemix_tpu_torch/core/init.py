@@ -5,7 +5,7 @@ JAX bench fills every weight with 0.02; here dense and conv weights are
 fan-in-scaled normals (std 1/sqrt(fan_in)) so that activations keep their
 scale through many blocks, norms start at weight 1 / bias 0, biases at 0,
 embedding tables and embedding vectors (CLIP's class embedding, EVA's
-`cls_token` and `pos_embed`) at std 1, EVA's layer-scale gammas at their
+`cls_token` and `pos_embed`, BLIP-2's `query_tokens`) at std 1, EVA's layer-scale gammas at their
 config's `init_values`, and CLIP's logit scale at its config's initial value.
 """
 
@@ -34,7 +34,8 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> nn.Module:
                     p.fill_(1.0)
                 elif name == "bias":
                     p.zero_()
-                elif name.endswith("embedding") or name in ("cls_token", "pos_embed"):
+                elif name.endswith("embedding") or name in ("cls_token", "pos_embed",
+                                                               "query_tokens"):
                     p.normal_(0.0, 1.0, generator=generator)
                 elif name in ("gamma_1", "gamma_2"):  # EVABlock's layer scale
                     p.fill_(m.config.init_values)

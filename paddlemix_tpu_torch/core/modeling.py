@@ -17,7 +17,8 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Dict
+import re
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,7 +30,9 @@ SAFETENSORS_NAME = "model.safetensors"
 SAFETENSORS_INDEX_NAME = "model.safetensors.index.json"
 TORCH_BIN_NAME = "pytorch_model.bin"
 
-_EMBEDDING_MARKERS = ("embedding", "embed_tokens", ".wte.", ".wpe.", ".shared.")
+# The JAX package's markers, and OPT's learned positions: JAX transposes that
+# (max_positions + 2, D) table as a Dense weight, then back by its shape at load
+_EMBEDDING_MARKERS = ("embedding", "embed_tokens", ".wte.", ".wpe.", ".shared.", "embed_positions")
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
@@ -83,16 +86,22 @@ def convert_torch_state_dict(flat: Dict[str, np.ndarray], key_map: KeyMap) -> Di
 
 
 def from_pretrained(model_class, config_class, key_map: KeyMap, path: str, *, device="cuda",
-                    dtype=None) -> torch.nn.Module:
+                    dtype=None, convert: Optional[Callable] = None,
+                    unused: Tuple[str, ...] = ()) -> torch.nn.Module:
     """`model_class(config, dtype=dtype)` (dtype: the compute dtype) with the
-    config of directory `path` and its weights, in fp32 on `device`."""
+    config of directory `path` and its weights, in fp32 on `device`. Torch-keyed
+    weights lose the keys that match a pattern of `unused` (ones the model has
+    no parameter for, as the JAX loader drops them), then go through `convert`
+    (a model's copy of the JAX package's `convert_foreign_state_dict`) where
+    given, else `convert_torch_state_dict` with `key_map`."""
     config = config_class.from_pretrained(path)
     flat = load_flat_state(path)
     with torch.device("meta"):
         model = model_class(config, dtype=dtype)
     expected = {torch_key_to_flax(k, key_map): v.ndim for k, v in model.state_dict().items()}
     if not set(expected) <= set(flat):  # torch keys: through the key map
-        flat = convert_torch_state_dict(flat, key_map)
+        flat = {k: v for k, v in flat.items() if not any(re.match(p, k) for p in unused)}
+        flat = convert(flat) if convert is not None else convert_torch_state_dict(flat, key_map)
     # a 0-d parameter (the logit scale) may come back from safetensors as (1,)
     flat = {k: v.reshape(()) if expected.get(k) == 0 and v.size == 1 else v
             for k, v in flat.items()}

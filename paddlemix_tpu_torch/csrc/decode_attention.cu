@@ -6,7 +6,8 @@
 // bf16 contiguous, k and v (B, L, KVH, D) with unit stride over D and any
 // other strides (a slice of the layer-major cache), the scales (B, L, KVH)
 // with any strides, lengths (B,) int32 on the device, G = Hq / KVH query heads
-// per kv head (GQA), D = 64 or 128.
+// per kv head (GQA), D = 64 or 128, and for the bf16 cache also 80 (OPT-2.7B's
+// 2,560 / 32 heads, BLIP-2's language model).
 //
 // Replaces the Pallas kernels decode_attention / _decode_kernel (B7) and
 // decode_attention_int8 / _decode_kernel_int8 (B8), both in
@@ -33,9 +34,9 @@
 // that the blocks fill whole waves of 4 blocks, 8 warps, an SM, the best
 // point of tools/probe_torch_int8_attn_parts.py's sweep on an H100; at 32
 // heads that is 33 ranges, 8 blocks on every SM, all resident at once). The two warps take turns over the block's range in steps of STEP
-// rows, with no block-wide barrier until the end. A key row is D / VPL
+// rows, with no block-wide barrier until the end. A key row is LPR = D / VPL
 // consecutive lanes (VPL values each: 8 bf16 or 16 int8, 16 bytes; 8 int8,
-// 8 bytes, at G >= 4), so a warp holds RPW = 32 / (D / VPL) row slots, and
+// 8 bytes, at G >= 4; D 80 below), so a warp holds RPW = 32 / LPR row slots, and
 // each slot walks its own rows with its own online softmax state (m, l and
 // acc over its VPL columns, per query head) in registers. Each warp keeps a
 // ring of NST steps in shared memory (2 KB of K and V a step, and B8's
@@ -43,8 +44,13 @@
 // 16 (or 8) bytes of each of its rows and later reads only those, so the
 // ring needs no block barrier, only cp.async.wait_group (and a __syncwarp
 // for B8's scales, which a slot's first lane copies); rows past the length
-// are zero-filled. At the end the slots are merged by shuffles and the two
-// warps through shared memory, once: each block writes its unnormalised (m,
+// are zero-filled. A row of D = 80 is ten 16-byte chunks, no power of two:
+// it takes 16 lanes (a power of two, so that its lanes reduce by xor shuffles
+// and the slots merge as at 64 and 128), of which the first ten read the row
+// and the last six hold zeros (their q and their ring slots zero-filled, no
+// load issued), two rows a warp step; the cache is read in place at its
+// 160-byte rows, not padded. At the end the slots are merged by shuffles and
+// the two warps through shared memory, once: each block writes its unnormalised (m,
 // l, acc) to a scratch buffer, and a second kernel merges the S partials of
 // each query head, acc and l rescaled by exp(m_s - max m), in one pass (each
 // thread's share of the splits online, then the shares). It is launched as a
@@ -124,12 +130,16 @@ struct Lane {
   }
 };
 
+constexpr int pow2_ceil(int n) { return n <= 1 ? 1 : 2 * pow2_ceil((n + 1) / 2); }
+
 template <int D, int G, typename T>
 struct Shape {
   static constexpr bool INT8 = sizeof(T) == 1;
   static constexpr int VPL = INT8 && G <= 2 ? 16 : 8;  // values of a row a lane
   static constexpr int LB = VPL * int(sizeof(T));      // their bytes: one 16- or 8-byte copy
-  static constexpr int LPR = D / VPL;                  // lanes a row
+  static constexpr int LIVE = D / VPL;                 // lanes that read a row
+  static constexpr int LPR = pow2_ceil(LIVE);          // lanes a row (D 80: 10 of 16 live)
+  static_assert(D % VPL == 0 && LPR <= 32, "a row is whole chunks of at most one warp");
   static constexpr int RPW = 32 / LPR;                 // row slots a warp
   static constexpr int U = 1024 / (32 * LB);           // rows a slot a step: 2 KB of K and V
   static constexpr int STEP = RPW * U;                 // rows a warp a step
@@ -181,6 +191,7 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict
                         long long vs_sh, float scale) {
   using Sh = Shape<D, G, T>;
   constexpr int VPL = Sh::VPL, LB = Sh::LB, LPR = Sh::LPR, RPW = Sh::RPW, U = Sh::U;
+  constexpr int LIVE = Sh::LIVE;
   constexpr int STEP = Sh::STEP, NST = Sh::NST;
   constexpr bool INT8 = Sh::INT8;
   using Ln = Lane<T, VPL>;
@@ -198,6 +209,7 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict
   const int h = blockIdx.x, b = blockIdx.y, split = blockIdx.z, splits = gridDim.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int c = lane % LPR, slot = lane / LPR;
+  const bool live = LIVE == LPR || c < LIVE;  // this lane's chunk lies in the row
   // this block's keys: [t_begin, n), n = min(length, L, the split's end)
   const int t_begin = split * chunk;
   const int n = max(t_begin, min(min(lengths[b], L), t_begin + chunk));
@@ -220,9 +232,9 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         const int t = t0 + slot + RPW * u;
-        const bool ok = t < n;
-        cp_async<LB>(st + ((2 * u) * 32 + lane) * LB, ok ? kb + t * k_sl : kb, ok);
-        cp_async<LB>(st + ((2 * u + 1) * 32 + lane) * LB, ok ? vb + t * v_sl : vb, ok);
+        const bool ok = t < n, rd = ok && live;  // else zeros, and no read
+        cp_async<LB>(st + ((2 * u) * 32 + lane) * LB, rd ? kb + t * k_sl : k, rd);
+        cp_async<LB>(st + ((2 * u + 1) * 32 + lane) * LB, rd ? vb + t * v_sl : v, rd);
         if (INT8 && c == 0) {  // the slot's first lane copies the row's scales
           cp_async<4>(st + Sh::KV_BYTES + ((2 * u) * RPW + slot) * 4, ok ? ksb + t * ks_sl : ksb,
                       ok);
@@ -242,7 +254,8 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict
     const __nv_bfloat16* qg = q + ((size_t)b * hq + h * G + g) * D + c * VPL;
 #pragma unroll
     for (int j = 0; j < VPL / 8; ++j) {
-      const uint4 u = __ldg(reinterpret_cast<const uint4*>(qg + 8 * j));
+      const uint4 u = live ? __ldg(reinterpret_cast<const uint4*>(qg + 8 * j))
+                           : make_uint4(0u, 0u, 0u, 0u);
       const uint32_t w[4] = {u.x, u.y, u.z, u.w};
       unpack_bf16(w, qf[g] + 8 * j);
     }
@@ -334,7 +347,7 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict
       m_i[g] = m_new;
     }
   }
-  if (slot == 0) {
+  if (slot == 0 && live) {
 #pragma unroll
     for (int g = 0; g < G; ++g) {
 #pragma unroll
@@ -373,7 +386,7 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict
   }
 }
 
-// One block of MERGE_THREADS per (query head, batch): out = sum_s w_s acc_s /
+// One block of P D threads (P = MERGE_THREADS / D) per (query head, batch): out = sum_s w_s acc_s /
 // sum_s w_s l_s with w_s = exp(m_s - max m), 0 where no split saw a key.
 // Thread (part, column) merges the splits part, part + P, ... of its column
 // online, so that every load of the block goes out at once; the P parts are
@@ -463,7 +476,7 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   if (err != cudaSuccess || a.splits == 1) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(a.kvh * G, a.B);
-  cfg.blockDim = dim3(MERGE_THREADS);
+  cfg.blockDim = dim3(MERGE_THREADS / D * D);  // whole parts of D columns (D 80: 960)
   cfg.stream = stream;
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
@@ -493,6 +506,8 @@ cudaError_t dispatch(int D, int G, const Args& a, cudaStream_t stream) {
     return cudaErrorInvalidValue;
   if (D == 64) return dispatch_g<64, T>(G, a, stream);
   if (D == 128) return dispatch_g<128, T>(G, a, stream);
+  if constexpr (sizeof(T) == 2)  // the bf16 cache alone (B7); B8 stays at 64 and 128
+    if (D == 80) return dispatch_g<80, T>(G, a, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -538,5 +553,9 @@ extern "C" int decode_attention_blocks_per_sm(int D, int G, int int8) {
   DECODE_OCC(64, 1) DECODE_OCC(64, 2) DECODE_OCC(64, 4) DECODE_OCC(64, 8)
   DECODE_OCC(128, 1) DECODE_OCC(128, 2) DECODE_OCC(128, 4) DECODE_OCC(128, 8)
 #undef DECODE_OCC
+#define DECODE_OCC_BF16(d, g) \
+  if (D == d && G == g && !int8) return prepare<d, g, __nv_bfloat16>();
+  DECODE_OCC_BF16(80, 1) DECODE_OCC_BF16(80, 2) DECODE_OCC_BF16(80, 4) DECODE_OCC_BF16(80, 8)
+#undef DECODE_OCC_BF16
   return -1;
 }

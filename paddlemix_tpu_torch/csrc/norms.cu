@@ -255,7 +255,7 @@ constexpr int LN_CLUSTER = 4;              // blocks a cluster, several clusters
 // Blocks, several clusters: two an SM, in as many clusters of 4 as an H100
 // SXM runs at once (cudaOccupancyMaxActiveClusters: 62), rounded down to 60.
 constexpr int LN_BLOCKS = 60 * LN_CLUSTER;
-constexpr int LN_MAX_WIDTH = 2048;         // EVA's sub-LN rows (ffn_ln)
+constexpr int LN_MAX_WIDTH = 2048;         // EVA's sub-LN rows (ffn_ln); the backward's limit
 constexpr int LN_HOLD_EPL = 40;            // a lane's share held in registers at most (1,280)
 constexpr int LN_WIDE_EPL = 64;            // the wide form's share (2,048 / 32)
 constexpr int LN_WIDE_RING_BYTES = 128 * 1024;  // the wide form's ring, one block an SM
@@ -413,10 +413,15 @@ constexpr int NR_ROW_BLOCKS = 8;              // rows an SM that take a block ea
 constexpr int NR_THREADS = 256;               // a row-form block's threads at most
 constexpr int NR_LANE_CPT[4] = {1, 2, 3, 4};  // chunks a lane, warp form
 constexpr int NR_WARP = 0, NR_ROW = 1;
+// LayerNorm's forward takes wider rows than its backward: OPT-2.7B's 2,560
+// (BLIP-2's language model, served, not trained), in the row form at two
+// 16-byte chunks a thread (bf16; fp32 four), 160 threads.
+constexpr int LN_FWD_MAX_WIDTH = 2560;
 // `aligned`: every row pointer and per-column vector 16-byte aligned, every
 // row stride (x's, the modulation rows') a multiple of 16 bytes.
 bool norm_plan(int op, int B, int S, int h, int es, bool aligned, AdalnPlan* p) {
-  if (B < 1 || S < 1 || h < 1 || h > (op == OP_FUSED ? ADALN_MAX_WIDTH : LN_MAX_WIDTH)) return false;
+  if (B < 1 || S < 1 || h < 1 || h > (op == OP_FUSED ? ADALN_MAX_WIDTH : LN_FWD_MAX_WIDTH))
+    return false;
   p->vec = aligned && (h * es) % 16 == 0 ? 16 / es : 1;
   const int nvec = h / p->vec;
   const bool many = p->vec > 1 && (long long)B * S > (long long)SMS * NR_ROW_BLOCKS;
@@ -1847,13 +1852,14 @@ int with_cpt(int cpt, F&& f) {
     case 3: return f(std::integral_constant<int, 3>{});
     case 4: return f(std::integral_constant<int, 4>{});
     case 8: return f(std::integral_constant<int, 8>{});
+    case 16: return f(std::integral_constant<int, 16>{});
   }
   return int(cudaErrorInvalidValue);
 }
 
 // The kernel of a plan: LayerNorm's warp form's chunk counts, the row form's powers
-// of two up to its widest row's (16-byte chunks: B13 and bf16 LayerNorm 1,
-// fp32 LayerNorm 2; single elements 8).
+// of two up to its widest row's (16-byte chunks: B13 1 (2,048 bf16), LayerNorm
+// bf16 2 and fp32 4 (2,560); single elements: B13 8, LayerNorm 16).
 template <int OP, typename T>
 int norm_dispatch(const AdalnPlan& p, const NormArgs& a, int B, cudaStream_t st) {
   constexpr int VEC = 16 / sizeof(T);
@@ -1864,13 +1870,13 @@ int norm_dispatch(const AdalnPlan& p, const NormArgs& a, int B, cudaStream_t st)
       if constexpr (OP == OP_LN && C <= 4)
         return row_launch<layer_norm_fwd_warp_kernel<T, C>>(grid, p.threads, st, a);
     } else if (p.vec > 1) {
-      if constexpr (C <= (sizeof(T) == 4 ? 2 : 1)) {
+      if constexpr (OP == OP_FUSED ? C == 1 : C <= (sizeof(T) == 4 ? 4 : 2)) {
         if constexpr (OP == OP_FUSED)
           return row_launch<fused_adaln_residual_row_kernel<VEC, C>>(grid, p.threads, st, a);
         else
           return row_launch<layer_norm_fwd_row_kernel<T, VEC, C>>(grid, p.threads, st, a);
       }
-    } else if constexpr ((C & (C - 1)) == 0 && C <= 8) {
+    } else if constexpr ((C & (C - 1)) == 0 && C <= (OP == OP_FUSED ? 8 : 16)) {
       if constexpr (OP == OP_FUSED)
         return row_launch<fused_adaln_residual_row_kernel<1, C>>(grid, p.threads, st, a);
       else

@@ -1,1 +1,2 @@
-"""Model families of the port (CLIP towers, Llama, LLaVA, T5) and shared transformer layers."""
+"""Model families of the port (CLIP towers, Llama, LLaVA, T5, OPT, BLIP-2) and shared
+transformer layers."""

@@ -37,13 +37,8 @@ class CLIPVisionConfig(BaseConfig):
     layer_norm_eps: float = 1e-5
     projection_dim: int = 512
     patch_bias: bool = False
-    use_pre_layernorm: bool = True
-    post_layernorm_full: bool = False  # post-LN over all tokens (Blip2), else CLS only
-
-    def __post_init__(self):
-        if not self.use_pre_layernorm or self.post_layernorm_full:
-            raise NotImplementedError("CLIPVisionConfig: only the pre-LN tower with the "
-                                      "post-LN on CLS (CLIP, LLaVA) is ported")
+    use_pre_layernorm: bool = True  # off for BLIP-2's tower
+    post_layernorm_full: bool = False  # post-LN over all tokens (BLIP-2), else CLS only
 
 
 @dataclasses.dataclass

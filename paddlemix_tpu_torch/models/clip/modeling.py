@@ -125,23 +125,33 @@ class CLIPVisionTransformer(nn.Module):
     """ViT over NHWC pixels. Returns (last_hidden, pooled) or, with
     output_hidden_states, (last_hidden, pooled, (embeddings, layer_1, ...)).
     Its attention goes to math or flash by the JAX package's shape rule (at
-    ViT-L/14-336's 577 tokens: math)."""
+    ViT-L/14-336's 577 tokens and BLIP-2's 257: math). BLIP-2's form
+    (`use_pre_layernorm` off, `post_layernorm_full` on) has no pre-LN and
+    normalises every token after the last layer: last_hidden is then the
+    normalised tokens and pooled their token 0."""
 
     def __init__(self, cfg: CLIPVisionConfig):
         super().__init__()
         self.config = cfg
         self.embeddings = CLIPVisionEmbeddings(cfg)
-        self.pre_layrnorm = FusedLayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+        self.pre_layrnorm = (FusedLayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+                             if cfg.use_pre_layernorm else None)
         self.encoder = CLIPEncoder(cfg)
         self.post_layernorm = FusedLayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
 
     def forward(self, pixel_values, output_hidden_states: bool = False):
-        x = self.pre_layrnorm(self.embeddings(pixel_values))
+        x = self.embeddings(pixel_values)
+        if self.pre_layrnorm is not None:
+            x = self.pre_layrnorm(x)
         hidden_states = [x]
         for layer in self.encoder.layers:
             x = layer(x)
             hidden_states.append(x)
-        pooled = self.post_layernorm(x[:, 0])
+        if self.config.post_layernorm_full:
+            x = self.post_layernorm(x)
+            pooled = x[:, 0]
+        else:
+            pooled = self.post_layernorm(x[:, 0])
         if output_hidden_states:
             return x, pooled, tuple(hidden_states)
         return x, pooled

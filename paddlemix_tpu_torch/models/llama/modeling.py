@@ -206,6 +206,44 @@ class MXUDense(nn.Linear):
         return freed
 
 
+def parking_write_idx(positions, slots: int):
+    """(B, S) cache slot of each position: the position, or for padding
+    (position -1) the last slot, which parks the writes and is never read."""
+    return torch.where(positions >= 0, positions.clamp(max=slots - 1), slots - 1)
+
+
+def cache_masks(positions, keys: int):
+    """(lengths, bias) of one forward over a cache of `keys` readable slots.
+    A single token: its (B,) int32 lengths, position + 1, for the decode
+    kernel, and no bias. A prefill: no lengths, and the fp32 bias (B, 1, S, n),
+    0 where key j <= the query's position p and -1e9 elsewhere, over the n =
+    min(keys, last position + 1) keys up to the last position alone, so that
+    its result does not depend on the spare slots a cache holds for later
+    tokens (the sums of a longer key axis round in another order)."""
+    if positions.shape[1] == 1:
+        return (positions[:, 0] + 1).int(), None
+    n = min(keys, int(positions.max()) + 1)
+    key_pos = torch.arange(n, device=positions.device)
+    visible = key_pos[None, None, None, :] <= positions[:, None, :, None]
+    return None, torch.where(visible, 0.0, -1e9).float()
+
+
+def dense_cache_attention(q, k, v, ck, cv, write_idx, lengths, bias):
+    """Write this step's k / v (B, S, KVH, D) into one layer's dense cache
+    ck / cv (B, slots, KVH, D) at `write_idx`, then attend over it (the
+    parking slot never read): B7 (`decode_attention`) for a single token
+    (`lengths`), else math attention with the prefill's `bias` over the keys
+    it spans (`cache_masks`)."""
+    bidx = torch.arange(q.shape[0], device=q.device)[:, None]
+    ck[bidx, write_idx] = k.to(ck.dtype)
+    cv[bidx, write_idx] = v.to(cv.dtype)
+    ck, cv = ck[:, :-1], cv[:, :-1]
+    if lengths is not None:
+        return decode_attention(q, ck, cv, lengths)
+    n = bias.shape[-1]
+    return attention_math(q, ck[:, :n], cv[:, :n], bias=bias)
+
+
 class _Step(NamedTuple):
     """What every layer of one forward shares: rope, where to write (the
     slots of the dense and int8 caches, the positions the paged cache maps),
@@ -267,15 +305,8 @@ class LlamaAttention(nn.Module):
                                      (cv[:, :n].float() * cvs[:, :n, ..., None]).to(x.dtype),
                                      bias=step.bias)
         else:
-            ck, cv = cache.k[layer_idx], cache.v[layer_idx]
-            ck[bidx, step.write_idx] = k.to(ck.dtype)
-            cv[bidx, step.write_idx] = v.to(cv.dtype)
-            ck, cv = ck[:, :-1], cv[:, :-1]  # the parking slot is never read
-            if step.lengths is not None:
-                out = decode_attention(q, ck, cv, step.lengths)
-            else:
-                n = step.bias.shape[-1]
-                out = attention_math(q, ck[:, :n], cv[:, :n], bias=step.bias)
+            out = dense_cache_attention(q, k, v, cache.k[layer_idx], cache.v[layer_idx],
+                                        step.write_idx, step.lengths, step.bias)
         return self.o_proj(out.reshape(b, s, -1))
 
 
@@ -351,21 +382,8 @@ class LlamaModule(nn.Module):
             cache.allocate_for(positions)
             keys, write_idx = cache.max_len, None
         else:
-            slots = cache.k.shape[2]
-            keys = slots - 1
-            write_idx = torch.where(positions >= 0, positions.clamp(max=slots - 1), slots - 1)
-        if s == 1:
-            step = _Step(cos, sin, positions, write_idx, (positions[:, 0] + 1).int(), None)
-        else:  # key j visible to the query at position p iff j <= p
-            # Keys past the last position are never visible: the prefill
-            # attends over those up to it alone, so that its result does not
-            # depend on the spare slots a cache holds for later tokens (the
-            # sums of a longer key axis round in another order).
-            keys = min(keys, int(positions.max()) + 1)
-            key_pos = torch.arange(keys, device=x.device)
-            visible = key_pos[None, None, None, :] <= positions[:, None, :, None]
-            bias = torch.where(visible, 0.0, -1e9).float()
-            step = _Step(cos, sin, positions, write_idx, None, bias)
+            keys, write_idx = cache.k.shape[2] - 1, parking_write_idx(positions, cache.k.shape[2])
+        step = _Step(cos, sin, positions, write_idx, *cache_masks(positions, keys))
         for i, layer in enumerate(self.layers):
             x = layer(x, step, cache, i)
         cache.lengths += (positions >= 0).sum(dim=-1).int()
@@ -459,7 +477,11 @@ def greedy_generate(model: LlamaForCausalLM, input_ids, attention_mask=None,
                     generator: Optional[torch.Generator] = None, inputs_embeds=None,
                     cache=None):
     """Prefill, then one cached forward per new token (port of
-    `greedy_generate`). input_ids: (B, S) right-padded, with attention_mask 0
+    `greedy_generate`). `model` is a LlamaForCausalLM or any model of its call
+    surface (`forward(input_ids, positions, *, inputs_embeds, cache)` -> (logits,
+    cache), `init_cache`, `config.eos_token_id`, `device`): BLIP-2's
+    OPTForCausalLM, as the JAX package's `_OPTView` hands its OPT to the JAX
+    `greedy_generate`. input_ids: (B, S) right-padded, with attention_mask 0
     on padding. Returns (B, max_new_tokens) int32; after every sample has
     made eos the rest stay 0, as in JAX. The JAX package pads prompts to a
     bucket so that one compiled program serves many lengths; eager PyTorch

@@ -44,10 +44,13 @@ class LlavaConfig:
         if self.vision_tower_type != "clip" or self.image_aspect_ratio == "anyres" \
                 or self.mm_patch_merge_type != "flat" \
                 or self.mm_vision_select_feature != "patch" \
-                or self.mm_projector_type != "mlp2x_gelu":
-            raise NotImplementedError("LlavaConfig: only the CLIP tower, one image of fixed "
-                                      "size, patch features (CLS dropped), the mlp2x_gelu "
-                                      "projector and the flat merge are ported")
+                or self.mm_projector_type != "mlp2x_gelu" \
+                or not self.vision_config.get("use_pre_layernorm", True) \
+                or self.vision_config.get("post_layernorm_full", False):
+            raise NotImplementedError("LlavaConfig: only the pre-LN CLIP tower (post-LN on "
+                                      "CLS), one image of fixed size, patch features (CLS "
+                                      "dropped), the mlp2x_gelu projector and the flat merge "
+                                      "are ported")
 
     @property
     def vision(self) -> CLIPVisionConfig:

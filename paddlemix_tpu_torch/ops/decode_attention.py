@@ -5,7 +5,8 @@ masked by per-sample lengths. Port of paddlemix_tpu/ops/decode_attention.py.
 with per-(token, head) fp32 scales, B8) launch the CUDA kernels of
 `csrc/decode_attention.cu` for CUDA tensors and run their plain versions
 `decode_attention_ref` / `decode_attention_int8_ref` for CPU tensors. GQA maps
-query head j to kv head j // (Hq / KVH), as the JAX package does.
+query head j to kv head j // (Hq / KVH), as the JAX package does. B7 takes
+head_dim 64, 80 (OPT-2.7B's, BLIP-2's language model) and 128; B8 64 and 128.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ import torch
 from .autograd import refuse_grad
 
 NEG = -0.7 * float(torch.finfo(torch.float32).max)
-_KERNEL_HEAD_DIMS = (64, 128)
+_KERNEL_HEAD_DIMS = (64, 80, 128)  # B7, the bf16 cache
+_INT8_KERNEL_HEAD_DIMS = (64, 128)  # B8
 _KERNEL_GROUPS = (1, 2, 4, 8)
 _SMS = 132               # an H100 SXM's streaming multiprocessors
 _MIN_SPLIT_KEYS = 16     # fewer keys per block would not pay for its partial
@@ -33,7 +35,8 @@ WAVE_BLOCKS_PER_SM = 4
 def kernel_blocks_per_sm(d: int, group: int, int8: bool) -> int:
     """What the card reports for the kernel at (D, G, cache type):
     cudaOccupancyMaxActiveBlocksPerMultiprocessor after the kernel's
-    shared-memory carveout (negative if the query failed)."""
+    shared-memory carveout (negative if the query failed or no kernel takes
+    the shape: D 80 is the bf16 cache's alone)."""
     from ..kernels import load_library
 
     fn = load_library("decode_attention").decode_attention_blocks_per_sm
@@ -47,7 +50,8 @@ def key_splits(batch: int, kv_heads: int, slots: int, sms: int = _SMS):
     range) blocks: whole waves of the card (a multiple of `sms` blocks, as many
     multiples as one wave of WAVE_BLOCKS_PER_SM an SM holds, at least one),
     each range at least _MIN_SPLIT_KEYS keys. Where no multiple of `sms` is
-    that long, the most splits up to one wave."""
+    that long, the most splits up to one wave. The head width does not enter:
+    a block is two warps at every D."""
     heads = batch * kv_heads
     wave = sms * WAVE_BLOCKS_PER_SM
     most = max(1, slots // _MIN_SPLIT_KEYS)
@@ -105,8 +109,9 @@ def _check_decode_args(name, q, k_cache, v_cache, lengths, cache_dtype):
     if one != 1 or tuple(k_cache.shape) != (b, L, kvh, d) or v_cache.shape != k_cache.shape:
         raise ValueError(f"{name}: shapes q {tuple(q.shape)} k {tuple(k_cache.shape)} "
                          f"v {tuple(v_cache.shape)} do not match")
-    if d not in _KERNEL_HEAD_DIMS or hq % kvh or hq // kvh not in _KERNEL_GROUPS:
-        raise ValueError(f"{name} kernel takes head_dim in {_KERNEL_HEAD_DIMS} and "
+    dims = _INT8_KERNEL_HEAD_DIMS if cache_dtype == torch.int8 else _KERNEL_HEAD_DIMS
+    if d not in dims or hq % kvh or hq // kvh not in _KERNEL_GROUPS:
+        raise ValueError(f"{name} kernel takes head_dim in {dims} and "
                          f"Hq / KVH in {_KERNEL_GROUPS}, got D = {d}, Hq = {hq}, KVH = {kvh}")
     if q.dtype != torch.bfloat16 or not q.is_contiguous():
         raise ValueError(f"{name}: q must be a contiguous bf16 tensor, got {q.dtype} "

@@ -850,7 +850,8 @@ NORM_LANE_CPT = (1, 2, 3, 4)           # chunks a lane, warp form
 
 
 def _norm_plan(op: int, b: int, s: int, h: int, esize: int, aligned: bool):
-    if b < 1 or s < 1 or not 1 <= h <= (_ADALN_MAX_WIDTH if op == OP_FUSED else _LN_MAX_WIDTH):
+    widest = _ADALN_MAX_WIDTH if op == OP_FUSED else _LN_FWD_MAX_WIDTH
+    if b < 1 or s < 1 or not 1 <= h <= widest:
         return None
     vec = 16 // esize if aligned and h * esize % 16 == 0 else 1
     nvec = h // vec
@@ -1080,10 +1081,15 @@ fused_adaln_scale_residual.launches = 0  # kernel launches (CUDA tensors only)
 # wide are held in registers; wider ones (EVA's 2,048-wide `ffn_ln`) take the
 # wide form: dw and db in registers, w in shared memory, the row read from its
 # ring slot once a pass, one block an SM. `layer_norm_bwd_plan` mirrors its
-# plan. The JAX package sends widths not a multiple of 128, fewer
-# than 64 rows or a missing w or b to XLA; those are v5e tiling choices, and
-# eager PyTorch has no fusion to keep, so on the card every call launches.
-_LN_MAX_WIDTH = 2048  # the widest row a path gives it (EVA's sub-LN `ffn_ln`)
+# plan. The forward takes rows to 2,560 wide (OPT-2.7B's, BLIP-2's language
+# model: the row form at two 16-byte chunks a thread, 160 threads); the
+# backward stops at 2,048, the widest row a training path gives it, and
+# refuses wider rows with a message (training OPT is not ported). The JAX
+# package sends widths not a multiple of 128, fewer than 64 rows or a missing
+# w or b to XLA; those are v5e tiling choices, and eager PyTorch has no fusion
+# to keep, so on the card every call launches.
+_LN_MAX_WIDTH = 2048  # the backward's widest row (EVA's sub-LN `ffn_ln`)
+_LN_FWD_MAX_WIDTH = 2560  # the forward's (OPT-2.7B's rows)
 
 
 def layer_norm_ref(x, weight=None, bias=None, eps: float = 1e-5):
@@ -1126,11 +1132,14 @@ def _ln_rows(t, h):
     return t2, t2.stride(0)
 
 
-def _ln_check(name, x, params):
+def _ln_check(name, x, params, max_width):
     h = x.shape[-1]
-    if x.dtype not in (torch.bfloat16, torch.float32) or h > _LN_MAX_WIDTH:
-        raise ValueError(f"{name} kernel takes bf16/fp32 rows at most {_LN_MAX_WIDTH} wide, "
-                         f"got {x.dtype} {tuple(x.shape)}")
+    if x.dtype not in (torch.bfloat16, torch.float32) or h > max_width:
+        raise ValueError(f"{name} kernel takes bf16/fp32 rows at most {max_width} wide, "
+                         f"got {x.dtype} {tuple(x.shape)}"
+                         + ("" if max_width == _LN_FWD_MAX_WIDTH else
+                            f" (the forward takes rows to {_LN_FWD_MAX_WIDTH}, OPT-2.7B's; "
+                            f"training at that width is not ported)"))
     for p in params:
         if p.device != x.device or p.shape != (h,) or not p.is_contiguous():
             raise ValueError(f"{name}: weight and bias must be contiguous ({h},) tensors on "
@@ -1152,7 +1161,7 @@ def layer_norm_plan_of(x, weight, bias, y=None):
 def _layer_norm_cuda(x, weight, bias, eps):
     """y = LayerNorm(x) through csrc/norms.cu's kernel, one launch; w and b
     read as fp32 whatever their float dtype."""
-    _ln_check("layer_norm", x, (weight, bias))
+    _ln_check("layer_norm", x, (weight, bias), _LN_FWD_MAX_WIDTH)
     weight, bias = _adaln_mods(weight, bias)
     h = x.shape[-1]
     x2, xs = _ln_rows(x, h)
@@ -1313,7 +1322,7 @@ def _tickets(device: torch.device):
 
 
 def _layer_norm_bwd_cuda(x, weight, g, eps):
-    _ln_check("layer_norm backward", x, (weight,))
+    _ln_check("layer_norm backward", x, (weight,), _LN_MAX_WIDTH)
     if g.shape != x.shape or g.device != x.device or g.dtype != x.dtype:
         raise ValueError(f"layer_norm backward: g {g.dtype} {tuple(g.shape)} on {g.device} does "
                          f"not match x {x.dtype} {tuple(x.shape)} on {x.device}")

@@ -24,6 +24,7 @@ import torch
 from chip_smoke import (
     ADALN_EXTRA_CASES,
     ADALN_SHAPES,
+    BLIP2_LN_SHAPES,
     CLIP_LN_SHAPES,
     LN_EXTRA_CASES,
     RMS_EXTRA_CASES,
@@ -42,7 +43,9 @@ ADALN_CASES = sorted(set(ADALN_SHAPES + [s for s, _, _ in ADALN_EXTRA_CASES]
 
 FUSED_CASES = ADALN_CASES + [(2, 600, 1536), (5, 300, 64)]
 LN_CASES = sorted(set([(r, h) for r, h, _ in CLIP_LN_SHAPES] + [s for s, _, _ in LN_EXTRA_CASES]
-                      + [(1, 1), (1000, 768), (1057, 1280), (2000, 100), (5000, 8), (3, 1280)]))
+                      + BLIP2_LN_SHAPES
+                      + [(1, 1), (1000, 768), (1057, 1280), (2000, 100), (5000, 8), (3, 1280),
+                         (1300, 2560), (2, 2552)]))
 
 
 def _offset(t, elements=1):
@@ -270,17 +273,20 @@ def test_new_wrappers_take_what_the_triton_kernels_took_and_refuse_the_rest():
     with pytest.raises(ValueError):
         tn.fused_adaln_scale_residual(*(t.to("meta") for t in (x, x, m[:, :64], m[:, 64:128],
                                                                 m[:, 128:192])))
-    # LayerNorm: bf16 or fp32 rows up to 2,048 wide at any row stride; w and b
-    # of any float dtype (read as fp32)
-    for xx in (torch.zeros(4, 2048, dtype=bf), torch.zeros(4, 3, 8)[:, 0]):
-        tn._ln_check("layer_norm", xx, (torch.ones(xx.shape[-1]), torch.zeros(xx.shape[-1])))
+    # LayerNorm: bf16 or fp32 rows up to 2,560 wide (the backward 2,048) at any
+    # row stride; w and b of any float dtype (read as fp32)
+    fwd, bwd = tn._LN_FWD_MAX_WIDTH, tn._LN_MAX_WIDTH
+    for xx in (torch.zeros(4, 2560, dtype=bf), torch.zeros(4, 3, 8)[:, 0]):
+        tn._ln_check("layer_norm", xx, (torch.ones(xx.shape[-1]), torch.zeros(xx.shape[-1])),
+                     fwd)
     w, b = tn._adaln_mods(torch.ones(8, dtype=torch.float64), torch.zeros(8, dtype=bf))
     assert w.dtype == b.dtype == torch.float32
-    for bad in (torch.zeros(4, 8).half(), torch.zeros(4, 2049)):
+    for bad, width in ((torch.zeros(4, 8).half(), fwd), (torch.zeros(4, 2561), fwd),
+                       (torch.zeros(4, 2049), bwd)):
         with pytest.raises(ValueError):
-            tn._ln_check("layer_norm", bad, ())
+            tn._ln_check("layer_norm", bad, (), width)
     with pytest.raises(ValueError):  # a weight of another width
-        tn._ln_check("layer_norm", torch.zeros(4, 8), (torch.ones(4),))
+        tn._ln_check("layer_norm", torch.zeros(4, 8), (torch.ones(4),), fwd)
 
 
 def _warp_total(lanes):
@@ -357,7 +363,10 @@ def test_fused_adaln_summation_orders_match_the_plain_version(b, s, h, aligned):
                                                   (2000, 512, "fp32", True),
                                                   (77, 1280, "bf16", True),
                                                   (577, 1024, "bf16", True),
-                                                  (300, 100, "bf16", False)])
+                                                  (300, 100, "bf16", False),
+                                                  (33, 2560, "bf16", True),
+                                                  (1, 2560, "fp32", True),
+                                                  (33, 2560, "bf16", False)])
 def test_layer_norm_summation_orders_match_the_plain_version(rows, h, dtype, aligned):
     """B10's forward in each form's order, in fp32, rounded once to x's
     dtype, against the plain version."""
