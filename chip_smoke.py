@@ -26,7 +26,12 @@ card from a seeded torch.Generator:
     published recipe configs/llava/lora_sft_7b.json (LoRA r 128 / alpha 256
     on every projection, AdamW at 2e-4, cosine, 100 warmup steps, bf16,
     MixToken packing to 2048) and its cuts (TRAIN_OVERRIDES: 2 rows x 8
-    micro-batches an optimizer step, no checkpoints; 32 micro-batches);
+    micro-batches an optimizer step; 32 micro-batches); then the model
+    saved by save_pretrained and read back by AutoModel, and
+    tools.supervised_finetune.main on that directory (SFT_MAIN_OVERRIDES:
+    checkpoints inside accumulation windows kept to 1, an eval over a
+    held-out split, a warmup of 2), resumed from its checkpoint, and its
+    adapter read back, merged and merged again by `cli merge-lora`;
   - CLIP ViT-B/16 (the JAX bench's widths = examples/train_clip.py's VITB16,
     fp32 weights, bf16 compute) at batch 256: the dual-tower bench forward
     (models.clip.vitb16.pair_logits) and contrastive training through
@@ -237,7 +242,9 @@ Phases:
                    held against the wrapper's mirror) with ptxas's registers
                    and spills and their shared memory; times, bounds and
                    library times (SDPA and its backward, the backward of
-                   F.rms_norm)
+                   F.rms_norm); B1's inference form at the SFT eval's
+                   (2, 2048, 32, 128) causal + 4 segments, per element with
+                   controls (no causal mask, a boundary one row late)
  21. train agree   Llama-2-7B is built with LoRA factors (b drawn non-zero):
                    one packed 1 x 2048 micro-batch, forward + backward, the
                    kernels vs their plain versions swapped in: the loss and
@@ -252,6 +259,39 @@ Phases:
                    share of the device time, peak memory; every loss and
                    grad_norm finite; launches equal to
                    `expected_launches_train` and no inference kernel launched
+ 22a. sft io       the factors are taken off again; after a check of the free
+                   disk under a temporary directory (removed at the end of
+                   22d, whatever happens), save_pretrained writes the model
+                   (3 shards of flax-keyed safetensors and the index, by the
+                   port's own core/safetensors.py) and AutoModel reads it
+                   back onto the card in bf16: seconds and GB/s each way,
+                   every tensor bit-equal to the original
+ 22b. sft main     the model is freed; supervised_finetune.main on that
+                   directory over seeded jsonl files (the train phase's
+                   samples; a held-out split of 16 samples packed into 4 rows
+                   of 4 segments): 32 micro-batches, checkpoints at 10, 20
+                   and 30 and the eval's best at 20, rotation to 1, evals at
+                   20 and at the end: finite loss and eval loss, the one
+                   checkpoint left being 30's, its write and read seconds and
+                   GB, the launches of the run equal to the walks
+                   (`expected_launches_train` + `expected_launches_eval`)
+ 22c. sft resume   main again with resume_from_checkpoint at 30 (6 micro-
+                   batches into its accumulation window): every LoRA factor,
+                   moment, accumulator and counter bit-equal to the first
+                   run's state at that step (kept on the host), then trained
+                   on to 32; the launches equal to the walks; peak memory
+ 22d. sft adapter  the saved model is read again and main's adapter attached
+                   (load_lora + attach_lora): evaluate over the held-out
+                   batches under the profiler (seconds, device ms, busy
+                   share, launches equal to `expected_launches_eval`: B1's
+                   inference form at (2, 2048, 32, 128) causal + segment ids
+                   and B11), its loss and main's against the same evaluate
+                   with the kernels' plain versions swapped in (within
+                   TRAIN_LOSS_TOL); merge_lora_into_model, its prefill
+                   logits over 608 tokens against the attached model's
+                   (within LLAMA_AGREE_TOL); `cli merge-lora` on the saved
+                   directories, every merged tensor bit-equal to
+                   merge_lora_into_model's
  23. clip kernels  Llama is freed; LayerNorm (B10, csrc/norms.cu, with the
                    floor, `copy_` of x, its kernel and ptxas's counts) and
                    its backward against
@@ -1059,17 +1099,17 @@ class swapped:
 
 
 # ------------------------------------------------------------ training slice
-TRAIN_CONFIG = os.path.join(REPO, "configs", "llava", "lora_sft_7b.json")
-# the published recipe's cuts: 2 rows x 8 micro-batches are its 16 rows an
-# optimizer step; no checkpoints (not ported); TRAIN_MICRO_STEPS micro-batches
-# (4 optimizer steps) go to Trainer.train, since optax's cosine schedule
-# refuses a total below its 100 warmup steps: the schedule spans the epoch of
-# the seeded dataset (TRAIN_SAMPLES samples of 128-1536 tokens, the first third
-# of each labelled -100, MixToken-packed to 2048: over 100 micro-batches)
-TRAIN_OVERRIDES = dict(per_device_train_batch_size=2, gradient_accumulation_steps=8,
-                       save_steps=0)
 TRAIN_MICRO_STEPS = 32
 TRAIN_SAMPLES = 512
+TRAIN_CONFIG = os.path.join(REPO, "configs", "llava", "lora_sft_7b.json")
+# the published recipe's cuts: 2 rows x 8 micro-batches are its 16 rows an
+# optimizer step; TRAIN_MICRO_STEPS micro-batches (4 optimizer steps) go to
+# Trainer.train, since optax's cosine schedule refuses a total below its 100
+# warmup steps: the schedule spans the epoch of the seeded dataset
+# (TRAIN_SAMPLES samples of 128-1536 tokens, the first third of each labelled
+# -100, MixToken-packed to 2048: over 100 micro-batches). The recipe's
+# save_steps (500) falls past them: the train phase writes no checkpoint.
+TRAIN_OVERRIDES = dict(per_device_train_batch_size=2, gradient_accumulation_steps=8)
 # (B, S, Hq, Hkv, D): the path's attention (2 packed rows, causal + segments),
 # a GQA shape and a ragged one (no multiple of any tile; head_dim 64, B14's
 # other wgmma width); each row has 4 segments, cut off the 64-row tiles
@@ -1097,6 +1137,21 @@ RMS_BWD_SUM, RMS_DW_TOL = 1e-5, 1e-4
 # gap are each held within TRAIN_AGREE_RATIO of that pair's, measured here.
 TRAIN_LOSS_TOL, TRAIN_AGREE_RATIO = 1e-3, 1.25
 TRAIN_AGREE_LENGTHS = (700, 520, 400, 300)  # 4 segments and 128 padding tokens
+# supervised_finetune.main on the saved model (phases 22a-22d): TRAIN_OVERRIDES
+# and TRAIN_MICRO_STEPS as max_steps (the schedule's total then, so its warmup
+# is cut from 100 to 2, as the EVA phase cuts its own), checkpoints every 10
+# micro-batches (10, 20, 30: inside accumulation windows of 8; 30 is the one
+# resumed, 6 micro-batches into its window) kept to 1, and an eval every 20
+# (and at the end) over a held-out split of SFT_EVAL_SAMPLES packed as the
+# training rows: 4 rows of 4 segments (1,920 tokens and 128 of padding), 2
+# batches at the training shape (2, 2048). The eval's best at step 20 writes
+# a checkpoint too.
+SFT_RESUME_STEP = 30
+SFT_MAIN_OVERRIDES = dict(TRAIN_OVERRIDES, max_steps=TRAIN_MICRO_STEPS, warmup_steps=2,
+                          save_steps=10, save_total_limit=1, do_eval=True, eval_steps=20,
+                          per_device_eval_batch_size=2, logging_steps=4)
+SFT_EVAL_SAMPLES = TRAIN_AGREE_LENGTHS * 4
+SFT_PROMPT_LEN = 608  # the adapter round trip's prefill, the LLaVA bench's prompt length
 
 
 def backward_ms(torch, fwd, inputs, grad_out, iters=10):
@@ -1392,9 +1447,10 @@ def remove_lora(parametrize, model):
             parametrize.remove_parametrizations(module, "weight", leave_parametrized=False)
 
 
-def train_slice(torch, F, np, dev, m):
-    """train agree and train (see the module docstring). Returns the launches
-    of the train phase and its numbers."""
+def train_slice(torch, F, np, dev, m, card):
+    """train agree and train, then on the same model phases 22a-22d
+    (`sft_durable_slice`; see the module docstring). Returns the launches of
+    the train phase and its numbers, then those of 22a-22d."""
     from torch.nn.utils import parametrize
 
     from paddlemix_tpu_torch.models.llama import expected_launches_train, random_llama
@@ -1518,12 +1574,18 @@ def train_slice(torch, F, np, dev, m):
     check(b_moved == len(b_after_2), f"train: {len(b_after_2) - b_moved} lora_b still zero "
           f"after the second optimizer step")
     check(got == want, f"train: launches {got} != expected {want}")
-    del trainer, model
+    train_stats = dict(step_s=s_step, tokens_per_s=tokens / s_step, tflops=flops / s_step / 1e12,
+                       busy=device_ms / 1e3 / t_prof, peak_gib=peak, b14_ms=b14_ms,
+                       b14_share=b14_ms / device_ms)
+    del trainer, b_after_2
+    remove_lora(parametrize, model)
+    holder = [model]  # the durable slice takes the model's last reference
+    del model
     gc.collect()
     torch.cuda.empty_cache()
-    return got, dict(step_s=s_step, tokens_per_s=tokens / s_step, tflops=flops / s_step / 1e12,
-                     busy=device_ms / 1e3 / t_prof, peak_gib=peak, b14_ms=b14_ms,
-                     b14_share=b14_ms / device_ms)
+    sft_got, sft_eval_got, sft_stats = sft_durable_slice(torch, np, dev, m, counters, holder,
+                                                         card)
+    return got, train_stats, sft_got, sft_eval_got, sft_stats
 
 
 def train_flops(model, tokens):
@@ -1541,6 +1603,326 @@ def train_flops(model, tokens):
     attn = 14 * cfg.head_dim_ * cfg.num_attention_heads * (s * (s + 1) // 2) \
         * cfg.num_hidden_layers * (tokens // s)
     return 2 * tokens * (2 * (proj + head) + proj) + attn
+
+
+
+def eval_kernels(torch, F, dev, gen, record, m):
+    """B1's inference form at the SFT eval's shape, (2, 2048, 32, 128) causal
+    + 4 segments a row (`Trainer.evaluate` runs it under inference_mode),
+    against its plain version per element, with controls (no causal mask; the
+    middle segment boundary one row late) that must fail the gate; times,
+    bound and SDPA's time (is_causal, no segments)."""
+    bf16 = torch.bfloat16
+    attn = m.attn
+    b_, s_, h_, kvh, d_ = TRAIN_FLASH_SHAPES[0]
+    q = torch.randn((b_, s_, h_, d_), generator=gen, device=dev).to(bf16)
+    k, v = (torch.randn((b_, s_, kvh, d_), generator=gen, device=dev).to(bf16) for _ in range(2))
+    seg = torch.ones((b_, s_), dtype=torch.int32, device=dev)
+    late = torch.ones_like(seg)
+    for i, cut in enumerate(TRAIN_SEGMENT_CUTS):
+        seg[:, int(cut * s_):] += 1
+        late[:, int(cut * s_) + (i == 1):] += 1
+    segs, segs_late = attn.SegmentIds(seg, seg), attn.SegmentIds(late, late)
+    lengths = [int(n) for n in torch.unique_consecutive(seg[0], return_counts=True)[1]]
+    pairs = b_ * h_ * sum(n * (n + 1) // 2 for n in lengths)
+    kw = dict(causal=True, segment_ids=segs)
+    with torch.inference_mode():
+        out = attn.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        ref = attn.flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+        excess, need = ulp_gate(out, ref, FLASH_SUM)
+        ctrl = [ulp_gate(attn.flash_attention_ref(q.float(), k.float(), v.float(), **c_kw), ref,
+                         FLASH_SUM)
+                for c_kw in (dict(segment_ids=segs), dict(causal=True, segment_ids=segs_late))]
+        print(f"[eval kernels] flash_attention {(b_, s_, h_, d_)} causal + 4 segments, "
+              f"inference form: excess {excess:.3e} over {FLASH_ULP:.4g}|ref| + "
+              f"{FLASH_SUM:g}|ref|max (least c {need:.2e}); controls, least c (must be > c): "
+              f"without the causal mask {ctrl[0][1]:.2e}, a boundary one row late "
+              f"{ctrl[1][1]:.2e}", flush=True)
+        check(bool(torch.isfinite(out).all()) and excess <= 0,
+              f"eval flash_attention: excess {excess}")
+        check(all(c_[0] > 0 for c_ in ctrl), f"eval flash_attention: a control passes {ctrl}")
+        ms, plain_ms = timed_pair(torch, lambda: attn.flash_attention(q, k, v, **kw),
+                                  lambda: attn.flash_attention_ref(q, k, v, **kw))
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        lib_ms = library_ms(torch, lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                                          is_causal=True))
+        record("eval kernels", "flash_attention", (b_, s_, h_, d_),
+               (out.float() - ref).abs().max().item(), ms, plain_ms, lib_ms,
+               bound(nbytes(q, k, v, out, seg, seg), 4 * d_ * pairs, "bf16"),
+               " causal + 4 segments | library: SDPA is_causal, no segments",
+               flash=(d_, 4 * d_ * pairs, False))
+
+
+def eval_plain_swaps(m):
+    """The eval forward's kernels (B1's inference form, B11's forward) as
+    their plain versions."""
+    attn = m.attn
+
+    def flash_plain(q, k, v, *, causal=False, scale=None, segment_ids=None, int8_qk=None):
+        return attn.flash_attention_ref(q, k, v, scale=scale, causal=causal,
+                                        segment_ids=segment_ids)
+
+    return [(attn, "flash_attention", flash_plain),
+            (m.norms, "_rms_forward", m.norms.rms_norm_ref)]
+
+
+def write_jsonl(path, samples):
+    with open(path, "w") as f:
+        for sample in samples:
+            f.write(json.dumps(sample) + "\n")
+
+
+def sft_durable_slice(torch, np, dev, m, counters, holder, card):
+    """Phases 22a-22d (see the module docstring) on the train phase's model,
+    handed over in `holder` (a one-element list, so that this function holds
+    its last reference and frees it). Everything is written under one
+    temporary directory, removed in a `finally`. Returns the launches of the
+    main runs, of the direct eval, and the numbers."""
+    import shutil
+    import tempfile
+
+    from paddlemix_tpu_torch import cli
+    from paddlemix_tpu_torch.auto import AutoModel
+    from paddlemix_tpu_torch.core import torch_to_flax_state_dict
+    from paddlemix_tpu_torch.core.modeling import load_flat_state
+    from paddlemix_tpu_torch.datasets import DataLoader, MixTokenMapDataset, pad_collate
+    from paddlemix_tpu_torch.models.llama import (
+        LlamaForCausalLM,
+        expected_launches_eval,
+        expected_launches_train,
+        llama2_7b_config,
+    )
+    from paddlemix_tpu_torch.peft import attach_lora, load_lora, lora_loss_fn, \
+        merge_lora_into_model
+    from paddlemix_tpu_torch.tools import supervised_finetune as sft
+    from paddlemix_tpu_torch.trainer import Trainer, train_state_dict
+
+    model = holder.pop()
+    with torch.device("meta"):  # the module walk's model: no memory
+        walk = LlamaForCausalLM(llama2_7b_config())
+    stats = {}
+
+    def launches():
+        return {name: fn.launches for name, fn in counters.items()}
+
+    def reset():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def add(a, b):
+        return {k: a[k] + b[k] for k in a}
+
+    tmp = tempfile.mkdtemp(prefix="pmix_smoke_sft_")
+    try:
+        # ------------------------------------------------------ 22a weights io
+        model_bytes = sum(t.numel() * t.element_size() for t in model.state_dict().values())
+        rank = int(sft.load_config(TRAIN_CONFIG)["lora_rank"])
+        factor_bytes = sum(4 * rank * (mod.in_features + mod.out_features)
+                           for n, mod in model.named_modules() if n.endswith("_proj"))
+        ckpt_bytes = 4 * factor_bytes  # params, mu, nu, the accumulator: fp32
+        # at most: the base + two checkpoints (one being rotated in) + the
+        # adapter, or the base + the merged model + the adapter + one checkpoint
+        need = max(model_bytes + 2 * ckpt_bytes, 2 * model_bytes + ckpt_bytes) \
+            + factor_bytes + 2 ** 30
+        free = shutil.disk_usage(tmp).free
+        print(f"[sft io] {tmp}: {free / 1e9:.1f} GB free; this phase needs up to "
+              f"{need / 1e9:.1f} GB (the model {model_bytes / 1e9:.2f} GB, a checkpoint "
+              f"{ckpt_bytes / 1e9:.2f} GB)", flush=True)
+        check(free >= need, f"sft io: {free / 1e9:.1f} GB free under {tmp}, {need / 1e9:.1f} GB "
+              f"needed (set TMPDIR to a larger disk)")
+        base_dir = os.path.join(tmp, "base")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        written = model.save_pretrained(base_dir)
+        t_save = time.perf_counter() - t0
+        files = sorted(os.listdir(base_dir))
+        t0 = time.perf_counter()
+        loaded = AutoModel.from_pretrained(base_dir, device=dev, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        mine, theirs = model.state_dict(), loaded.state_dict()
+        unequal = [k for k, v in mine.items() if not (v.dtype == theirs[k].dtype
+                                                      and torch.equal(v, theirs[k]))]
+        total = sum(written.values())
+        print(f"[sft io] save_pretrained of Llama-2-7B ({len(mine)} tensors, "
+              f"{model_bytes / 1e9:.3f} GB of bf16 weights and fp32 norm scales): "
+              f"{t_save:.2f} s, {total / 1e9:.3f} GB in {files} ({total / 1e9 / t_save:.2f} "
+              f"GB/s); AutoModel.from_pretrained back to the card {t_load:.2f} s "
+              f"({total / 1e9 / t_load:.2f} GB/s); tensors not bit-equal to the original: "
+              f"{len(unequal)} {unequal[:3]} ({card})", flush=True)
+        check(len(written) == 3 and "model.safetensors.index.json" in files,
+              f"sft io: {files}: not 3 shards and the index")
+        check(type(loaded).__name__ == "LlamaForCausalLM" and not unequal
+              and mine.keys() == theirs.keys(), f"sft io: {len(unequal)} tensors differ")
+        stats.update(save_s=t_save, load_s=t_load, weight_gb=total / 1e9)
+        del mine, theirs, loaded, model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---------------------------------------------- 22b supervised_finetune.main
+        train_path, eval_path = os.path.join(tmp, "train.jsonl"), os.path.join(tmp, "eval.jsonl")
+        vocab = walk.config.vocab_size
+        write_jsonl(train_path, train_samples(
+            np, np.random.RandomState(0).randint(128, 1537, TRAIN_SAMPLES), vocab, seed=0))
+        eval_samples = train_samples(np, SFT_EVAL_SAMPLES, vocab, seed=7)
+        write_jsonl(eval_path, eval_samples)
+        eval_loader = DataLoader(MixTokenMapDataset(eval_samples, 2048), batch_size=2,
+                                 collate_fn=pad_collate)
+        eval_forwards = len(eval_loader)
+        check(eval_forwards == 2 and len(eval_loader.dataset) == 4,
+              f"sft: the eval split packs to {len(eval_loader.dataset)} rows, not 4")
+        out_dir = os.path.join(tmp, "out")
+        overrides = dict(SFT_MAIN_OVERRIDES, model_name_or_path=base_dir,
+                         dataset_path=train_path, eval_dataset_path=eval_path,
+                         output_dir=out_dir)
+        snapshot, io_times = {}, {"save": [], "load": []}
+        saving, loading = Trainer.save_checkpoint, Trainer.load_checkpoint
+
+        def save_checkpoint(self, step):
+            if step == SFT_RESUME_STEP and not snapshot:  # the state to resume, on the host
+                snapshot.update({k: v.to("cpu", copy=True)
+                                 for k, v in train_state_dict(self.state, self.tx).items()})
+            torch.cuda.synchronize()
+            t0_ = time.perf_counter()
+            path = saving(self, step)
+            io_times["save"].append(time.perf_counter() - t0_)
+            return path
+
+        def load_checkpoint(self, path):
+            t0_ = time.perf_counter()
+            loading(self, path)
+            torch.cuda.synchronize()
+            io_times["load"].append(time.perf_counter() - t0_)
+            restored = train_state_dict(self.state, self.tx)
+            snapshot["restored_keys"] = sorted(restored)
+            snapshot["unequal"] = [k for k, v in restored.items()
+                                   if k not in snapshot or not torch.equal(v.cpu(), snapshot[k])]
+
+        Trainer.save_checkpoint, Trainer.load_checkpoint = save_checkpoint, load_checkpoint
+        try:
+            reset()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res1 = sft.main(TRAIN_CONFIG, overrides)
+            t_main1 = time.perf_counter() - t0
+            got1 = launches()
+            left = sorted(os.listdir(os.path.join(out_dir, "checkpoints")))
+            ckpt_gb = os.path.getsize(os.path.join(out_dir, "checkpoints", left[0],
+                                                   "state.safetensors")) / 1e9 if left else 0
+            # 22c: resume from the checkpoint inside the last window
+            reset()
+            t0 = time.perf_counter()
+            res2 = sft.main(TRAIN_CONFIG, dict(overrides, resume_from_checkpoint=os.path.join(
+                out_dir, "checkpoints", str(SFT_RESUME_STEP))))
+            t_main2 = time.perf_counter() - t0
+            got2 = launches()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        finally:
+            Trainer.save_checkpoint, Trainer.load_checkpoint = saving, loading
+        want1 = add(expected_launches_train(walk, TRAIN_MICRO_STEPS),
+                    expected_launches_eval(walk, 2 * eval_forwards))
+        want2 = add(expected_launches_train(walk, TRAIN_MICRO_STEPS - SFT_RESUME_STEP),
+                    expected_launches_eval(walk, eval_forwards))
+        print(f"[sft main] supervised_finetune.main over {os.path.basename(base_dir)} "
+              f"({os.path.relpath(TRAIN_CONFIG, REPO)} + {SFT_MAIN_OVERRIDES}): {t_main1:.1f} s "
+              f"(the model's load included); loss {res1['loss']:.4f}, eval loss "
+              f"{res1.get('eval_loss', float('nan')):.4f}; checkpoints written "
+              f"{len(io_times['save'])} in {[round(t, 2) for t in io_times['save']]} s, "
+              f"{ckpt_gb:.3f} GB each, left after rotation {left}; launches {got1} (walk: "
+              f"{want1}) ({card})", flush=True)
+        check(np.isfinite(res1["loss"]) and np.isfinite(res1.get("eval_loss", np.nan))
+              and res1["final_step"] == TRAIN_MICRO_STEPS, f"sft main: {res1}")
+        check(left == [str(SFT_RESUME_STEP)], f"sft main: checkpoints left {left}")
+        check(got1 == want1, f"sft main: launches {got1} != {want1}")
+        n_state = len(snapshot.get("restored_keys", ()))
+        print(f"[sft resume] main with resume_from_checkpoint at step {SFT_RESUME_STEP} "
+              f"(micro-batch {SFT_RESUME_STEP % TRAIN_OVERRIDES['gradient_accumulation_steps']} "
+              f"of its window): {t_main2:.1f} s; checkpoint read {io_times['load']} s; "
+              f"{n_state} state tensors (factors, moments, accumulators, counters) not "
+              f"bit-equal to the first run's at that step: {len(snapshot.get('unequal', [0]))} "
+              f"{snapshot.get('unequal', [])[:3]}; trained on to {res2['final_step']}: loss "
+              f"{res2['loss']:.4f}, eval loss {res2.get('eval_loss', float('nan')):.4f}; "
+              f"launches {got2} (walk: {want2}); peak memory over both runs {peak:.2f} GiB "
+              f"({card})", flush=True)
+        check(n_state > 4 * 448 and snapshot.get("unequal") == [],
+              f"sft resume: {snapshot.get('unequal')} differ from the saved state")
+        check(res2["final_step"] == TRAIN_MICRO_STEPS and np.isfinite(res2["loss"]),
+              f"sft resume: {res2}")
+        check(got2 == want2, f"sft resume: launches {got2} != {want2}")
+        stats.update(main_s=t_main1, resume_s=t_main2, ckpt_gb=ckpt_gb,
+                     ckpt_save_s=io_times["save"], ckpt_load_s=io_times["load"], peak_gib=peak)
+        snapshot.clear()
+        shutil.rmtree(os.path.join(out_dir, "checkpoints"))
+
+        # ------------------------------------------------- 22d the adapter
+        base = AutoModel.from_pretrained(base_dir, device=dev, dtype=torch.bfloat16)
+        factors, lcfg = load_lora(os.path.join(out_dir, "lora"))
+        lora = attach_lora(base, factors, lcfg)
+        trainer = Trainer(params=lora, loss_fn=lora_loss_fn(sft.default_lm_loss(base), base),
+                          eval_dataloader=eval_loader)
+        from torch.profiler import ProfilerActivity, profile
+
+        reset()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            ev_k = trainer.evaluate()["eval_loss"]
+            t_eval = time.perf_counter() - t0
+        got_eval = launches()
+        want_eval = expected_launches_eval(walk, eval_forwards)
+        device_ms = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+        with swapped(eval_plain_swaps(m)):
+            ev_p = trainer.evaluate()["eval_loss"]
+        rel_main = abs(res2["eval_loss"] - ev_p) / abs(ev_p)
+        rel_k = abs(ev_k - ev_p) / abs(ev_p)
+        print(f"[sft eval] the adapter (load_lora + attach_lora) on the base: evaluate over "
+              f"{eval_forwards} batches of (2, 2048) in {t_eval:.3f} s, {device_ms:.1f} ms of "
+              f"device time (busy {100 * device_ms / 1e3 / t_eval:.1f}%); eval loss kernels "
+              f"{ev_k:.6f}, main's {res2['eval_loss']:.6f}, plain {ev_p:.6f} (relative "
+              f"{rel_k:.3e} / {rel_main:.3e}, tol {TRAIN_LOSS_TOL}); launches {got_eval} "
+              f"(walk: {want_eval}) ({card})", flush=True)
+        check(rel_k <= TRAIN_LOSS_TOL and rel_main <= TRAIN_LOSS_TOL,
+              f"sft eval: kernels {ev_k}, main {res2['eval_loss']}, plain {ev_p}")
+        check(got_eval == want_eval, f"sft eval: launches {got_eval} != {want_eval}")
+        stats.update(eval_s=t_eval, eval_device_ms=device_ms, eval_busy=device_ms / 1e3 / t_eval)
+        del trainer, lora, prof
+        ids = torch.as_tensor(np.random.RandomState(3).randint(3, vocab, (1, SFT_PROMPT_LEN)),
+                              device=dev)
+
+        def prefill():
+            with torch.inference_mode():
+                return base(ids, cache=base.init_cache(1, SFT_PROMPT_LEN + 1))[0].float()
+
+        attached = prefill()
+        merge_lora_into_model(base)
+        merged = prefill()
+        rel_merge = rel_l2(merged, attached)
+        merged_dir = os.path.join(tmp, "merged")
+        t0 = time.perf_counter()
+        check(cli.main(["merge-lora", base_dir, os.path.join(out_dir, "lora"), merged_dir,
+                        "--dtype", "bf16", "--device", str(dev)]) == 0, "cli merge-lora failed")
+        t_cli = time.perf_counter() - t0
+        gc.collect()
+        ours = torch_to_flax_state_dict(base, base.flax_key_map)
+        theirs = load_flat_state(merged_dir)
+        differ = [k for k, v in ours.items() if not torch.equal(v, theirs[k].to(dev))]
+        print(f"[sft adapter] merge_lora_into_model: prefill logits over {SFT_PROMPT_LEN} "
+              f"tokens, merged vs LoRA-attached relative L2 {rel_merge:.3e} (tol "
+              f"{LLAMA_AGREE_TOL}); cli merge-lora {t_cli:.1f} s: {len(theirs)} tensors, "
+              f"{len(differ)} not bit-equal to the merged model's {differ[:3]} ({card})",
+              flush=True)
+        check(bool(torch.isfinite(merged).all()) and rel_merge <= LLAMA_AGREE_TOL,
+              f"sft adapter: merged logits {rel_merge}")
+        check(ours.keys() == theirs.keys() and not differ, f"sft adapter: cli merge-lora "
+              f"differs in {differ[:5]}")
+        stats.update(merge_rel_l2=rel_merge, cli_merge_s=t_cli)
+        del base, ours, theirs, merged, attached
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return add(got1, got2), got_eval, stats
 
 
 # ---------------------------------------------------------------- CLIP slice
@@ -5070,9 +5452,11 @@ def main():
     tmods = types.SimpleNamespace(attn=attn_mod, norms=norms_mod, da=da_mod, pa=pa_mod,
                                   quant=quant_mod)
     train_kernels(torch, F, dev, gen, record, tmods)
+    eval_kernels(torch, F, dev, gen, record, tmods)
     gc.collect()
     torch.cuda.empty_cache()
-    launches_tr, train_stats = train_slice(torch, F, np, dev, tmods)
+    launches_tr, train_stats, launches_sft, launches_sft_eval, sft_stats = train_slice(
+        torch, F, np, dev, tmods, card)
 
     # ------------------------------------------------------------ CLIP slice
     gc.collect()
@@ -5142,7 +5526,8 @@ def main():
                 "sd3": launches_sd3[name]}
 
     def train_phases(name):
-        return {"train": launches_tr[name], "sd15_train": launches_sd15_tr[name]}
+        return {"train": launches_tr[name], "sft_main": launches_sft[name],
+                "sd15_train": launches_sd15_tr[name]}
 
     def sd15_train_dim(name, d_):
         return {"sd15_train": dims_sd15_tr[name].get(d_, 0)}
@@ -5153,7 +5538,9 @@ def main():
 
     kernels = [
         entry("flash_attention", "cuda", "paddlemix_tpu_torch/csrc/flash_fwd.cu",
-              "paddlemix_tpu/ops/attention.py:168", sdxl("flash_attention")),
+              "paddlemix_tpu/ops/attention.py:168",
+              dict(sdxl("flash_attention"), sft_main=launches_sft["flash_attention"],
+                   sft_eval=launches_sft_eval["flash_attention"])),
         entry("group_norm", "cuda", "paddlemix_tpu_torch/csrc/norms.cu",
               "paddlemix_tpu/ops/norms.py:462", sdxl("group_norm")),
         entry("group_norm_stats", "cuda", "paddlemix_tpu_torch/csrc/norms.cu",
@@ -5194,7 +5581,8 @@ def main():
         entry("flash_bwd_dq", "cuda", "paddlemix_tpu_torch/csrc/flash_bwd.cu",
               "paddlemix_tpu/ops/attention.py:422", train_phases("flash_bwd_dq")),
         entry("rms_norm_backward", "triton", "paddlemix_tpu_torch/ops/norms.py",
-              "paddlemix_tpu/ops/norms.py:172", {"train": launches_tr["rms_norm_backward"]}),
+              "paddlemix_tpu/ops/norms.py:172", {"train": launches_tr["rms_norm_backward"],
+                                                 "sft_main": launches_sft["rms_norm_backward"]}),
         entry("layer_norm", "cuda", "paddlemix_tpu_torch/csrc/norms.cu",
               "paddlemix_tpu/ops/norms.py:204",
               {"bf16": launches_bf16["layer_norm"], "a8w8": launches_a8w8["layer_norm"],
@@ -5244,8 +5632,10 @@ def main():
              "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": r["library_ms"],
              "max_abs_err": r["err"]}
             for r in summary[name] if tuple(r["shape"]) in {tuple(sh) for sh in shapes}]
-    by_name["rms_norm"]["launches_by_phase"]["train"] = launches_tr["rms_norm"]
-    by_name["rms_norm"]["launches"] += launches_tr["rms_norm"]
+    for phase, got in (("train", launches_tr), ("sft_main", launches_sft),
+                       ("sft_eval", launches_sft_eval)):
+        by_name["rms_norm"]["launches_by_phase"][phase] = got["rms_norm"]
+        by_name["rms_norm"]["launches"] += got["rms_norm"]
     by_name["group_norm"]["launches_by_phase"]["sd15_train"] = launches_sd15_tr["group_norm"]
     by_name["group_norm"]["launches"] += launches_sd15_tr["group_norm"]
     # the a8w8 requests run all six SDXL kernels (B4's statistics for B5
@@ -5270,8 +5660,11 @@ def main():
         [("rms_norm", phase) for phase in ("llama_int8kv", "llama_bf16kv", "llama_paged")] + \
         [("decode_attention_int8", "llama_int8kv"), ("decode_attention", "llama_bf16kv"),
          ("paged_decode_attention", "llama_paged")] + \
-        [(name, "train") for name in ("rms_norm", "flash_fwd_lse", "flash_bwd_dkv",
-                                      "flash_bwd_dq", "rms_norm_backward")] + \
+        [(name, phase) for name in ("rms_norm", "flash_fwd_lse", "flash_bwd_dkv",
+                                    "flash_bwd_dq", "rms_norm_backward")
+         for phase in ("train", "sft_main")] + \
+        [(name, phase) for name in ("flash_attention", "rms_norm")
+         for phase in ("sft_main", "sft_eval")] + \
         [("layer_norm", phase) for phase in ("bf16", "a8w8", "llava_bf16", "llava_wint8",
                                              "llava_a8w8", "llava_a8w4", "sd3", "clip",
                                              "clip_train")] + \
@@ -5289,6 +5682,7 @@ def main():
     check(launches_llava["wint8_matmul"] == 0 and launches_llava["flash_attention"] == 0
           and launches_wint8["flash_attention"] == 0, "LLaVA launched a kernel off its path")
     print(f"[summary] training: {train_stats}", flush=True)
+    print(f"[summary] sft io, main, resume, eval, adapter: {sft_stats} ({card})", flush=True)
     print(f"[summary] clip: {clip_stats}; clip train: {clip_train_stats}", flush=True)
     print(f"[summary] eva: {eva_stats}", flush=True)
     print(f"[summary] sd15: {sd15_stats}", flush=True)

@@ -5,7 +5,9 @@ state_dict it applies the JAX package's torch->flax key map (the same regex
 renames `core/modeling.py convert_torch_state_dict` applies), takes that flax
 array and undoes its layout. Inverting the regexes instead does not work:
 `\\.(\\d+)\\.` -> `_\\1.` has no unique inverse (`time_embedding.linear_1` is a
-real name, not `linear.1`).
+real name, not `linear.1`). The other direction, for `save_pretrained`, needs
+no inverse either: `torch_to_flax_state_dict` maps each torch key forward
+through the same map and lays the tensor out as flax does.
 
 Pure numpy + torch: the key maps below are copies of the JAX package's
 tuples, so this module never imports it.
@@ -14,7 +16,7 @@ tuples, so this module never imports it.
 from __future__ import annotations
 
 import re
-from typing import Callable, Dict, Sequence, Tuple, Union
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -218,6 +220,9 @@ def llava_key_to_flax(key: str) -> str:
     return torch_key_to_flax(key, _LLAVA_SHARED)
 
 
+LLAVA_KEY_MAP: KeyMap = llava_key_to_flax
+
+
 def torch_key_to_flax(key: str, key_map: KeyMap) -> str:
     if callable(key_map):
         return key_map(key)
@@ -226,30 +231,53 @@ def torch_key_to_flax(key: str, key_map: KeyMap) -> str:
     return key
 
 
-def _to_torch_layout(flax_key: str, arr: np.ndarray) -> np.ndarray:
+def _permute(arr, perm):
+    return arr.permute(*perm) if isinstance(arr, torch.Tensor) else np.transpose(arr, perm)
+
+
+def _to_torch_layout(flax_key: str, arr):
     """Dense `kernel` (in, out) -> `weight` (out, in), and the same for a
     quantized `kernel_q` (its `scale` keeps (out,)): int8 (in, out), or packed
     int4 (in // 2, out), whose byte j holds rows j and j + in / 2, so that its
     transpose is the port's packed (out, in // 2); conv HWIO -> OIHW.
     `embedding` tables (nn.Embed) and every other array keep their layout: the
     decision is by the flax leaf name, so `time_embedding.linear_1.kernel` is a
-    Dense and is transposed."""
+    Dense and is transposed. Takes a numpy array or a tensor and returns a
+    view of it."""
     if flax_key.endswith((".kernel", ".kernel_q")) and arr.ndim == 2:
         return arr.T
     if flax_key.endswith(".kernel") and arr.ndim == 4:
-        return np.transpose(arr, (3, 2, 0, 1))
+        return _permute(arr, (3, 2, 0, 1))
     return arr
 
 
-def flax_to_torch_state_dict(flax_flat: Dict[str, np.ndarray], module: torch.nn.Module,
-                             key_map: KeyMap) -> Dict[str, torch.Tensor]:
-    """flax params flattened to dotted keys -> `module`'s state_dict.
+def _to_flax_layout(flax_key: str, t):
+    """The inverse of `_to_torch_layout`: weight (out, in) -> kernel (in, out),
+    OIHW -> HWIO; a view."""
+    if flax_key.endswith((".kernel", ".kernel_q")) and t.ndim == 2:
+        return t.T
+    if flax_key.endswith(".kernel") and t.ndim == 4:
+        return _permute(t, (2, 3, 1, 0))
+    return t
 
-    Every torch key must find its flax array with the matching shape, and
-    every flax key must be consumed exactly once; anything left over on either
-    side raises KeyError."""
-    out: Dict[str, torch.Tensor] = {}
-    used: Dict[str, str] = {}
+
+def _as_tensor(arr) -> torch.Tensor:
+    """A flax array as a tensor: a tensor as it is (bf16 stays bf16); a numpy
+    (or JAX) array's floats through fp32, numpy having no bf16 of its own,
+    integers (int8 `kernel_q`, packed int4 included) in their type."""
+    if isinstance(arr, torch.Tensor):
+        return arr
+    arr = np.asarray(arr)
+    return torch.from_numpy(np.array(arr) if np.issubdtype(arr.dtype, np.integer)
+                            else arr.astype(np.float32))
+
+
+def _match(flax_flat: Dict[str, object], module: torch.nn.Module, key_map: KeyMap):
+    """[(torch key, the module's tensor, flax key)] for every key of `module`'s
+    state_dict, checked before any data moves: each torch key must find its
+    flax array with the matching shape, and every flax key must be consumed
+    exactly once; anything left over on either side raises KeyError."""
+    pairs, used = [], {}
     missing, mismatched = [], []
     for tkey, ref in module.state_dict().items():
         fkey = torch_key_to_flax(tkey, key_map)
@@ -259,20 +287,72 @@ def flax_to_torch_state_dict(flax_flat: Dict[str, np.ndarray], module: torch.nn.
         if fkey in used:
             raise KeyError(f"flax key {fkey} claimed by both {used[fkey]} and {tkey}")
         used[fkey] = tkey
-        arr = np.asarray(flax_flat[fkey])
-        # floats pass through fp32; integers (int8 kernel_q, packed int4
-        # included) keep their type
-        arr = _to_torch_layout(fkey, arr if np.issubdtype(arr.dtype, np.integer)
-                               else arr.astype(np.float32))
-        if tuple(arr.shape) != tuple(ref.shape):
-            mismatched.append(f"{tkey}: flax {arr.shape} vs torch {tuple(ref.shape)}")
+        # the shape the layout gives, from a zero-stride view: no data read
+        view = np.broadcast_to(np.empty((), np.bool_), tuple(flax_flat[fkey].shape))
+        shape = tuple(_to_torch_layout(fkey, view).shape)
+        if shape != tuple(ref.shape):
+            mismatched.append(f"{tkey}: flax {shape} vs torch {tuple(ref.shape)}")
             continue
-        out[tkey] = torch.tensor(arr, dtype=ref.dtype)
+        pairs.append((tkey, ref, fkey))
     unused = sorted(set(flax_flat) - set(used))
     if missing or mismatched or unused:
         raise KeyError(f"flax->torch conversion failed: {len(missing)} torch keys without a "
                        f"flax array {missing[:5]}, {len(mismatched)} shape mismatches "
                        f"{mismatched[:5]}, {len(unused)} flax keys unused {unused[:5]}")
+    return pairs
+
+
+def flax_to_torch_state_dict(flax_flat: Dict[str, object], module: torch.nn.Module,
+                             key_map: KeyMap) -> Dict[str, torch.Tensor]:
+    """flax params flattened to dotted keys (numpy or JAX arrays, or
+    tensors) -> `module`'s state_dict, each in the module's dtype; checked as
+    `_match` says."""
+    return {tkey: _to_torch_layout(fkey, _as_tensor(flax_flat[fkey])).to(ref.dtype)
+            for tkey, ref, fkey in _match(flax_flat, module, key_map)}
+
+
+@torch.no_grad()
+def load_flax_state_(module: torch.nn.Module, flax_flat: Dict[str, object],
+                     key_map: KeyMap) -> torch.nn.Module:
+    """`flax_to_torch_state_dict` into `module` in place, one tensor at a time:
+    each flax array goes to the module's device as it is laid out in the file
+    (contiguous), is laid out there, cast and copied into the module's
+    tensor. The host holds no converted copy of the model."""
+    for _, ref, fkey in _match(flax_flat, module, key_map):
+        src = _as_tensor(flax_flat[fkey]).to(ref.device)
+        ref.copy_(_to_torch_layout(fkey, src))
+    return module
+
+
+def _state_key(name: str) -> Optional[str]:
+    """A state_dict key of a module with `torch.nn.utils.parametrize`
+    parametrizations -> its plain key: the original tensor of a parametrized
+    `weight` is the weight (the base, not the LoRA-merged one); the
+    parametrizations' own parameters (LoRA factors) have none."""
+    if ".parametrizations." not in name:
+        return name
+    owner, rest = name.split(".parametrizations.", 1)
+    attr, _, tail = rest.partition(".")
+    return f"{owner}.{attr}" if tail == "original" else None
+
+
+def torch_to_flax_state_dict(module: torch.nn.Module, key_map: KeyMap) -> Dict[str, torch.Tensor]:
+    """`module`'s state_dict -> {flax key: tensor in the flax layout}, the
+    exact inverse of `flax_to_torch_state_dict` (views of the module's
+    tensors: no copy, dtype kept, transposes as `_to_flax_layout`). A
+    parametrized weight gives its original (a LoRA-adapted projection its
+    base weight); the parametrizations' own tensors are left out."""
+    out: Dict[str, torch.Tensor] = {}
+    owner: Dict[str, str] = {}
+    for name, t in module.state_dict().items():
+        tkey = _state_key(name)
+        if tkey is None:
+            continue
+        fkey = torch_key_to_flax(tkey, key_map)
+        if fkey in out:
+            raise KeyError(f"torch->flax: {owner[fkey]} and {tkey} both map to {fkey}")
+        owner[fkey] = tkey
+        out[fkey] = _to_flax_layout(fkey, t.detach())
     return out
 
 
@@ -286,7 +366,6 @@ def flatten_flax(tree, prefix: str = "") -> Dict[str, np.ndarray]:
         else:
             flat[key] = value
     return flat
-
 
 
 @torch.no_grad()
@@ -319,3 +398,19 @@ def lora_from_flax(jax_lora: Dict, module: torch.nn.Module, key_map: KeyMap) -> 
     if set(flax) - used:
         raise KeyError(f"lora_from_flax: JAX factors left unused: {sorted(set(flax) - used)[:5]}")
     return len(used)
+
+
+def lora_to_flax(module: torch.nn.Module, key_map: KeyMap) -> Dict[tuple, Dict[str, torch.Tensor]]:
+    """The inverse of `lora_from_flax`: the factors `peft.lora_init` attached
+    to `module`, as the JAX package holds them: {flax path tuple of the
+    adapted kernel: {"a": lora_a^T (in, r), "b": lora_b^T (r, out)}}, views
+    of the port's factors."""
+    from ..peft.lora import LoraDelta
+
+    out = {}
+    for name, m in module.named_modules():
+        if isinstance(m, LoraDelta):
+            owner = name.rsplit(".parametrizations.", 1)[0]
+            path = tuple(torch_key_to_flax(f"{owner}.weight", key_map).split("."))
+            out[path] = {"a": m.lora_a.detach().T, "b": m.lora_b.detach().T}
+    return out

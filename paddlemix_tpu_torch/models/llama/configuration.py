@@ -1,11 +1,15 @@
 """Llama-family decoder config (port of paddlemix_tpu/models/llama/configuration.py,
-the fields the LLaVA, Llama serving and Llama training slices use)."""
+the fields the LLaVA, Llama serving and Llama training slices use),
+config.json round-trippable: a JAX- or HF-written config.json loads with its
+other keys kept in `unused_kwargs`, but the JAX options this port leaves out
+must hold their defaults."""
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
+from ...core.config import BaseConfig
 
 # the JAX config's options this slice leaves out, at their (off) defaults
 _UNPORTED = dict(fused_qkv=False, scan_layers=False, rope_ntk_alpha=1.0,
@@ -16,7 +20,8 @@ QUANT_MODES = (None, "wint8", "a8w8", "a8w4", "wint4")
 
 
 @dataclasses.dataclass
-class LlamaConfig:
+class LlamaConfig(BaseConfig):
+    model_type = "llama"
     vocab_size: int = 32000
     hidden_size: int = 4096
     intermediate_size: int = 11008
@@ -45,15 +50,15 @@ class LlamaConfig:
             raise ValueError(f"LlamaConfig: quant {self.quant!r} is not one of {QUANT_MODES}")
 
     @classmethod
-    def from_dict(cls, d):
+    def from_dict(cls, data, **overrides):
         """The JAX config's options that this slice does not port must hold
-        their defaults."""
-        names = {f.name for f in dataclasses.fields(cls)}
-        unported = {k: v for k, v in d.items()
-                    if k not in names and _UNPORTED.get(k, object()) != v}
+        their defaults; other keys the class has no field for are kept in
+        `unused_kwargs`."""
+        data = dict(data, **overrides)
+        unported = {k: v for k, v in data.items() if k in _UNPORTED and _UNPORTED[k] != v}
         if unported:
             raise NotImplementedError(f"LlamaConfig: options not ported: {unported}")
-        return cls(**{k: v for k, v in d.items() if k in names})
+        return super().from_dict({k: v for k, v in data.items() if k not in _UNPORTED})
 
     @property
     def kv_heads(self) -> int:

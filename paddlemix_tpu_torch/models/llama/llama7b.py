@@ -90,6 +90,25 @@ def expected_launches_llama(model: LlamaForCausalLM, prompt_lens: Sequence[int],
                 flash_attention=0)
 
 
+def expected_launches_eval(model: LlamaForCausalLM, forwards: int,
+                           seq_len: int = 2048) -> Dict[str, int]:
+    """Kernel launches of `forwards` evaluation forwards (cache-free, under
+    `torch.inference_mode`, LoRA factors merged in each projection's forward)
+    of `seq_len`-token rows, from walking the modules: every RMSNorm runs its
+    forward (B11) and each layer's attention, routed to flash at this shape,
+    the inference form of the forward (B1, causal + segment ids); nothing
+    of the backward, no cache kernel."""
+    cfg = model.config
+    count = lambda kind: sum(isinstance(m, kind) for m in model.modules())  # noqa: E731
+    shape = (1, seq_len, cfg.num_attention_heads, cfg.head_dim_)
+    flash = use_flash(shape, shape[:2] + (cfg.kv_heads, cfg.head_dim_), causal=True)
+    return dict(rms_norm=count(RMSNorm) * forwards,
+                flash_attention=flash * count(LlamaDecoderLayer) * forwards,
+                rms_norm_backward=0, flash_fwd_lse=0, flash_bwd_dkv=0, flash_bwd_dq=0,
+                decode_attention=0, decode_attention_int8=0, paged_decode_attention=0,
+                wint8_matmul=0)
+
+
 def expected_launches_train(model: LlamaForCausalLM, micro_batches: int,
                             seq_len: int = 2048) -> Dict[str, int]:
     """Kernel launches of `micro_batches` LoRA training micro-batches

@@ -49,6 +49,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from ...core.convert import LLAMA_KEY_MAP
 from ...ops.attention import SegmentIds, attention_math, scaled_dot_product_attention
 from ...ops.decode_attention import decode_attention, decode_attention_int8
 from ...ops.norms import rms_norm
@@ -391,12 +392,33 @@ class LlamaModule(nn.Module):
 
 
 class LlamaForCausalLM(nn.Module):
+    flax_key_map = LLAMA_KEY_MAP  # its names -> the JAX LlamaModule's
+
     def __init__(self, config: LlamaConfig):
         super().__init__()
         self.config = config
         self.model = LlamaModule(config)
         self.lm_head = None if config.tie_word_embeddings else \
             MXUDense(config.hidden_size, config.vocab_size, bias=False, quant=config.quant)
+
+    @classmethod
+    def from_pretrained(cls, path: str, device="cuda", dtype: torch.dtype = torch.float32):
+        """The model of directory `path` (config.json and flax- or HF-keyed
+        weights, sharded or not; HF's rotary `inv_freq` buffers dropped) on
+        `device`, its parameters in `dtype` but the RMSNorm scales, which stay
+        fp32 (the JAX `from_pretrained(dtype=...)`'s cast)."""
+        from ...core.modeling import from_pretrained
+
+        return from_pretrained(cls, LlamaConfig, LLAMA_KEY_MAP, path, device=device, build=cls,
+                               param_dtype=dtype, fp32_modules=(RMSNorm,),
+                               unused=(r".*rotary_emb\.inv_freq$",))
+
+    def save_pretrained(self, directory: str, **kwargs):
+        """`core.modeling.save_pretrained`: config.json and flax-keyed
+        safetensors (shards above 5 GiB), in the parameters' dtypes."""
+        from ...core.modeling import save_pretrained
+
+        return save_pretrained(self, directory, **kwargs)
 
     @property
     def device(self):

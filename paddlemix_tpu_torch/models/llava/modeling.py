@@ -20,14 +20,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...core.config import BaseConfig
+from ...core.convert import LLAVA_KEY_MAP
 from ..clip.configuration import CLIPVisionConfig
 from ..clip.modeling import CLIPVisionModel
 from ..llama.configuration import LlamaConfig
-from ..llama.modeling import KVCache, LlamaForCausalLM, greedy_generate
+from ..llama.modeling import KVCache, LlamaForCausalLM, RMSNorm, greedy_generate
 
 
 @dataclasses.dataclass
-class LlavaConfig:
+class LlavaConfig(BaseConfig):
+    model_type = "llava"
     vision_config: Optional[Dict[str, Any]] = None
     text_config: Optional[Dict[str, Any]] = None
     image_token_index: int = 32000
@@ -123,6 +126,26 @@ class LlavaForConditionalGeneration(LlavaModule):
     `_LlamaView` adapter presents to `greedy_generate`; here it already has
     that surface (config, forward), and `generate` hands it the dense cache of
     `init_cache`, which the adapter's `init_cache` builds."""
+
+    flax_key_map = staticmethod(LLAVA_KEY_MAP)  # its names -> the JAX LlavaModule's
+
+    @classmethod
+    def from_pretrained(cls, path: str, device="cuda", dtype: torch.dtype = torch.float32):
+        """The model of directory `path` (config.json and flax- or
+        llava-hf-keyed weights) on `device`, its parameters in `dtype` but the
+        RMSNorm scales, which stay fp32."""
+        from ...core.modeling import from_pretrained
+
+        return from_pretrained(cls, LlavaConfig, LLAVA_KEY_MAP, path, device=device, build=cls,
+                               param_dtype=dtype, fp32_modules=(RMSNorm,),
+                               unused=(r".*rotary_emb\.inv_freq$",))
+
+    def save_pretrained(self, directory: str, **kwargs):
+        """`core.modeling.save_pretrained` (config.json, flax-keyed
+        safetensors)."""
+        from ...core.modeling import save_pretrained
+
+        return save_pretrained(self, directory, **kwargs)
 
     def init_cache(self, batch: int, max_len: int, dtype=None) -> KVCache:
         """The dense cache in `dtype` (the language model's by default),

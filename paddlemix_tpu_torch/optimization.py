@@ -192,6 +192,40 @@ class Optimizer:
         self._inner(grads, state, params)
         return True
 
+    # the state's counters: Adam's count (the schedule's position: the
+    # updates made) and, under accumulation, MultiSteps' mini_step and
+    # gradient_step
+    _COUNTS = ("count", "mini_step", "gradient_step")
+
+    def state_dict(self, state: dict) -> Dict[str, torch.Tensor]:
+        """`state` flattened to tensors (views, no copy): "mu.<name>",
+        "nu.<name>", under accumulation "acc.<name>" (the running mean of
+        the window's gradients), and the counters as 0-d int64 tensors."""
+        flat = {k: torch.tensor(state[k], dtype=torch.int64) for k in self._COUNTS if k in state}
+        for kind in ("mu", "nu", "acc"):
+            flat.update({f"{kind}.{n}": t for n, t in state.get(kind, {}).items()})
+        return flat
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict, flat: Dict[str, torch.Tensor]) -> dict:
+        """Copy `flat` (as `state_dict` gives it) into `state` in place: the
+        moments and accumulators into their tensors (on their device), the
+        counters as ints, so that a checkpoint taken inside an accumulation
+        window resumes that window. Every key must match, with its shape."""
+        want = self.state_dict(state)
+        if set(want) != set(flat):
+            raise KeyError(f"optimizer state: missing {sorted(set(want) - set(flat))[:5]}, "
+                           f"unexpected {sorted(set(flat) - set(want))[:5]}")
+        for k, t in want.items():
+            if tuple(t.shape) != tuple(flat[k].shape):
+                raise ValueError(f"optimizer state {k}: {tuple(flat[k].shape)} vs "
+                                 f"{tuple(t.shape)}")
+            if k in self._COUNTS:
+                state[k] = int(flat[k])
+            else:
+                t.copy_(flat[k])
+        return state
+
     def _inner(self, grads, state, params):
         b1, b2 = _F32(self.b1), _F32(self.b2)
         grads = {n: g.float() for n, g in grads.items()}

@@ -5,13 +5,18 @@ paddlemix_tpu/tools/supervised_finetune.py).
 
 reads the JSON config (model_name_or_path, dataset_path as jsonl with
 input_ids/labels, max_length, mixtoken, lora + lora_rank/lora_r +
-lora_alpha, recompute, and any TrainingArguments field), loads the model and
-the dataset and runs `finetune`: recompute, MixToken packing, the
-DataLoader, LoRA with a frozen base (or full fine-tuning), the Trainer. The
-port cannot read a checkpoint yet, so `main` stops at loading the model;
-`finetune` takes a model and a dataset from the caller (a model with seeded
-random weights, e.g. `models.llama.random_llama`, and a seeded dataset).
-Saving the LoRA factors (safetensors in JAX) is not ported yet either.
+lora_alpha, recompute, bf16, warmup_ratio and any TrainingArguments field),
+loads the model through `AutoModel.from_pretrained` (bf16 unless `bf16` is
+false) and the dataset, and runs `finetune`: recompute, MixToken packing,
+the DataLoader, LoRA with a frozen base (or full fine-tuning), the Trainer
+(checkpoints, resume, evaluation). It then saves `output_dir/lora` (the
+adapter, as JAX's `save_lora` writes it) or `output_dir/final` (the model,
+as `save_pretrained`). A LLaVA checkpoint trains its language model (the
+JAX loss would feed the packed positions to LLaVA as pixel values) and a
+log line says so; a full fine-tune saves the whole LLaVA. Two keys are the
+port's own: `eval_dataset_path` (a held-out jsonl, packed as the training
+set, evaluated when `do_eval`) and `device` ("cuda" by default; "cpu" for
+tests).
 """
 
 from __future__ import annotations
@@ -25,8 +30,10 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from ..auto import AutoModel
+from ..core.modeling import save_pretrained
 from ..datasets import DataLoader, MixTokenMapDataset, load_dataset, pad_collate
-from ..models.llava.modeling import llava_loss
+from ..models.llava.modeling import LlavaForConditionalGeneration, llava_loss
 from ..ops.attention import SegmentIds
 from ..peft import LoraConfig, lora_init, lora_loss_fn, save_lora
 from ..trainer import Trainer, TrainingArguments
@@ -37,7 +44,7 @@ logger = logging.getLogger(__name__)
 _TOOL_KEYS = ("model_name_or_path", "dataset_path", "max_length", "mixtoken", "pad_token_id",
               "lora", "lora_r", "lora_rank", "lora_alpha", "freeze", "freeze_include",
               "freeze_exclude", "warmup_ratio", "benchmark", "per_device_train_batch_size",
-              "recompute", "gradient_checkpointing")
+              "recompute", "gradient_checkpointing", "eval_dataset_path", "device")
 
 
 def freeze_params(model: torch.nn.Module, include: Optional[str] = None,
@@ -97,55 +104,80 @@ def training_arguments(cfg: Dict[str, Any]) -> TrainingArguments:
     return args
 
 
-def build_trainer(model, dataset, cfg: Dict[str, Any]):
+def _packed(dataset, cfg: Dict[str, Any]):
+    if not cfg.get("mixtoken", True):
+        return dataset
+    packed = MixTokenMapDataset(dataset, int(cfg.get("max_length", 2048)),
+                                pad_token_id=int(cfg.get("pad_token_id", 0)))
+    logger.info("MixToken packing: %d packed rows", len(packed))
+    return packed
+
+
+def build_trainer(model, dataset, cfg: Dict[str, Any], eval_dataset=None):
     """Everything `main` does after loading the model and the dataset, up to
-    training: recompute, packing, the loader, LoRA (factors drawn from a
+    training: recompute, packing, the loaders (the eval set's, packed alike,
+    in order, at `per_device_eval_batch_size`), LoRA (factors drawn from a
     generator seeded with the config's seed, on the model's device) or full
     fine-tuning. Returns (the Trainer, the LoraConfig or None)."""
     if cfg.get("recompute") or cfg.get("gradient_checkpointing"):
         enable_recompute(model)
-    if cfg.get("mixtoken", True):
-        dataset = MixTokenMapDataset(dataset, int(cfg.get("max_length", 2048)),
-                                     pad_token_id=int(cfg.get("pad_token_id", 0)))
-        logger.info("MixToken packing: %d packed rows", len(dataset))
+    dataset = _packed(dataset, cfg)
     args = training_arguments(cfg)
     if args.pipeline_parallel_degree > 1:
         raise NotImplementedError("pipeline parallelism is not ported yet")
     loader = DataLoader(dataset, batch_size=int(cfg.get("per_device_train_batch_size", 8)),
                         collate_fn=pad_collate, shuffle=True, seed=args.seed)
+    eval_loader = None if eval_dataset is None else DataLoader(
+        _packed(eval_dataset, cfg), batch_size=args.per_device_eval_batch_size,
+        collate_fn=pad_collate)
     loss_fn = default_lm_loss(model)
     if not cfg.get("lora"):
-        return Trainer(model=model, args=args, loss_fn=loss_fn, train_dataloader=loader), None
+        return Trainer(model=model, args=args, loss_fn=loss_fn, train_dataloader=loader,
+                       eval_dataloader=eval_loader), None
     lcfg = LoraConfig(r=int(cfg.get("lora_r", cfg.get("lora_rank", 8))),
                       lora_alpha=int(cfg.get("lora_alpha", 16)))
     device = next(model.parameters()).device
     lora = lora_init(model, lcfg, torch.Generator(device=device).manual_seed(args.seed))
     return Trainer(params=lora, args=args, loss_fn=lora_loss_fn(loss_fn, model),
-                   train_dataloader=loader), lcfg
+                   train_dataloader=loader, eval_dataloader=eval_loader), lcfg
 
 
-def finetune(model, dataset, cfg: Dict[str, Any], max_steps: Optional[int] = None):
+def finetune(model, dataset, cfg: Dict[str, Any], max_steps: Optional[int] = None,
+             eval_dataset=None):
     """`build_trainer`, then training for `max_steps` micro-batches (None: the
     config's max_steps, else its epochs). Returns (the train result, the
     Trainer, the LoraConfig or None)."""
-    trainer, lcfg = build_trainer(model, dataset, cfg)
+    trainer, lcfg = build_trainer(model, dataset, cfg, eval_dataset)
     return trainer.train(max_steps), trainer, lcfg
 
 
 def load_model(cfg: Dict[str, Any]):
-    raise NotImplementedError(f"supervised_finetune: reading the checkpoint "
-                              f"{cfg.get('model_name_or_path')!r} is not ported yet; build the "
-                              f"model (e.g. models.llama.random_llama) and call finetune")
+    """`AutoModel.from_pretrained(model_name_or_path)` in bf16 (fp32 when the
+    config's `bf16` is false) on the config's `device` (the card by
+    default)."""
+    dtype = torch.bfloat16 if cfg.get("bf16", True) else torch.float32
+    return AutoModel.from_pretrained(cfg["model_name_or_path"], dtype=dtype,
+                                     device=cfg.get("device", "cuda"))
 
 
 def main(config_path: Optional[str] = None, overrides: Optional[Dict[str, Any]] = None):
     cfg = load_config(config_path or sys.argv[1], overrides)
     model = load_model(cfg)
-    result, trainer, lcfg = finetune(model, load_dataset(cfg["dataset_path"]), cfg)
+    trained = model
+    if isinstance(model, LlavaForConditionalGeneration):
+        trained = model.language_model
+        logger.info("LLaVA checkpoint: training its language model (%d layers); the vision "
+                    "tower and projector stay as loaded", trained.config.num_hidden_layers)
+    eval_set = load_dataset(cfg["eval_dataset_path"]) if cfg.get("eval_dataset_path") else None
+    result, trainer, lcfg = finetune(trained, load_dataset(cfg["dataset_path"]), cfg,
+                                     eval_dataset=eval_set)
+    out = trainer.args.output_dir
     if lcfg is not None:
-        save_lora(trainer.state.params, lcfg, f"{trainer.args.output_dir}/lora")
+        save_lora(trainer.state.params, lcfg, f"{out}/lora", key_map=trained.flax_key_map)
+        logger.info("saved LoRA adapters to %s/lora", out)
     else:
-        raise NotImplementedError("supervised_finetune: saving the model is not ported yet")
+        save_pretrained(model, f"{out}/final")
+        logger.info("saved model to %s/final", out)
     return result
 
 

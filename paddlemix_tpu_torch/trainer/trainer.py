@@ -8,28 +8,47 @@ and splits it each step: every step's draws are fresh, the run's repeat).
 The Trainer owns the optimizer, gradient accumulation (optax.MultiSteps
 semantics: `step` counts micro-batches, the schedule counts real updates,
 and `max_steps` and the schedule's total are micro-batches, as in JAX), the
-device put-ahead of batches (`prefetch_depth`) and logging (loss,
-grad_norm, ips, reader_cost).
-Not ported yet, and refused: checkpoint save and resume (orbax in JAX),
-evaluation, the device mesh (any parallel degree above 1) and
-`MeshAwareLoss`, TensorBoard and profiler callbacks (ROADMAP). The
-`benchmark` flag's callback (ips and peak memory lines) is not ported and
-the flag is ignored.
+device put-ahead of batches (`prefetch_depth`), logging (loss, grad_norm,
+ips, reader_cost) and callbacks, checkpoints and evaluation.
+
+Checkpoints take JAX's orbax layout, one directory a step,
+`output_dir/checkpoints/<step>/`, holding the whole train state (step,
+params, the optimizer's moments, accumulators and counters) in one
+safetensors file written by `core.safetensors` (synchronously, where orbax
+writes in the background: `finalize_checkpoints` has nothing to wait for).
+`save_total_limit` keeps the newest; `load_checkpoint` takes "latest", a
+step directory (its leaf is the step) or a step. A resumed run keeps JAX's
+semantics: step, params and optimizer state come back, and the loop starts
+the loader and the seeded generator afresh (the data position is not
+replayed). Evaluation runs under `torch.inference_mode`. Not ported: the
+device mesh (any parallel degree above 1) and `MeshAwareLoss` (ROADMAP).
 """
 
 from __future__ import annotations
 
 import collections
 import logging
+import os
+import re
+import shutil
 import time
 from typing import Callable, Dict, Iterable, Optional
 
 import numpy as np
 import torch
 
+from ..core import safetensors
 from ..optimization import create_optimizer
 from .arguments import TrainingArguments
-from .train_state import TrainState, create_train_state, make_train_step
+from .train_state import (
+    TrainState,
+    create_train_state,
+    load_train_state,
+    make_train_step,
+    train_state_dict,
+)
+
+CHECKPOINT_NAME = "state.safetensors"
 
 logger = logging.getLogger(__name__)
 
@@ -47,6 +66,8 @@ class Trainer:
                  loss_fn: Optional[Callable] = None,
                  train_dataloader: Optional[Iterable] = None,
                  eval_dataloader: Optional[Iterable] = None,
+                 eval_fn: Optional[Callable] = None,
+                 compute_metrics: Optional[Callable] = None,
                  params: Optional[Dict[str, torch.Tensor]] = None,
                  callbacks: Optional[list] = None):
         self.model = model
@@ -54,11 +75,19 @@ class Trainer:
         self.loss_fn = loss_fn
         self.train_dataloader = train_dataloader
         self.eval_dataloader = eval_dataloader
+        # eval_fn(params, batch) -> dict of per-batch scalars or arrays
+        # (default {"loss": loss_fn(...)}); compute_metrics(outputs) folds the
+        # arrays, concatenated over the batches, into corpus metrics
+        self.eval_fn = eval_fn
+        self.compute_metrics = compute_metrics
         if params is None and model is not None:
             params = {n: p for n, p in model.named_parameters() if p.requires_grad}
         self.params = params
         self.callbacks = callbacks or []
         self.state: Optional[TrainState] = None
+        self.best_metric: Optional[float] = None
+        self.best_step: Optional[int] = None
+        self._preempted = False
         # every step's step, loss and grad_norm (device scalars, read after
         # training) and host time when the step function returned
         self.history: list = []
@@ -84,11 +113,6 @@ class Trainer:
             raise NotImplementedError(f"Trainer: the device mesh is not ported yet "
                                       f"(data_parallel_degree {a.data_parallel_degree}, "
                                       f"{degrees})")
-        if a.resume_from_checkpoint:
-            raise NotImplementedError("Trainer: checkpoint resume is not ported yet")
-        if a.report_to != "none" or a.profiler_options:
-            raise NotImplementedError("Trainer: TensorBoard and profiler callbacks are not "
-                                      "ported yet")
 
     def setup(self, steps_per_epoch: Optional[int] = None):
         a = self.args
@@ -112,18 +136,163 @@ class Trainer:
         self.tx = tx
         self.state = create_train_state(self.params, tx)
         self.step_fn = make_train_step(self.loss_fn, tx)
+        if a.profiler_options:
+            from .callbacks import parse_profiler_options
+
+            cb = parse_profiler_options(a.profiler_options)
+            if cb is not None:
+                self.callbacks.append(cb)
+        if a.benchmark:
+            from .callbacks import BenchmarkCallback
+
+            self.callbacks.append(BenchmarkCallback())
+        if a.report_to == "tensorboard":
+            from .callbacks import TensorBoardCallback
+
+            self.callbacks.append(TensorBoardCallback(os.path.join(a.output_dir, "tb")))
+        if a.resume_from_checkpoint:
+            self.load_checkpoint(a.resume_from_checkpoint)
         return self
 
-    # ------------------------------------------------------------ unported
-    def save_checkpoint(self, step: int):
-        raise NotImplementedError("Trainer.save_checkpoint: checkpoints are not ported yet "
-                                  "(set save_steps 0)")
+    # ------------------------------------------------------------ checkpoints
+    @property
+    def checkpoint_dir(self) -> str:
+        return os.path.abspath(os.path.join(self.args.output_dir, "checkpoints"))
+
+    def checkpoint_steps(self) -> list:
+        """The steps saved under `checkpoint_dir`, oldest first."""
+        if not os.path.isdir(self.checkpoint_dir):
+            return []
+        return sorted(int(d) for d in os.listdir(self.checkpoint_dir) if re.fullmatch(r"\d+", d)
+                      and os.path.isfile(os.path.join(self.checkpoint_dir, d, CHECKPOINT_NAME)))
+
+    def save_checkpoint(self, step: int) -> str:
+        """Write the train state to `checkpoint_dir/<step>/` (a new directory
+        renamed into place once written), then keep the newest
+        `save_total_limit` steps. Returns the directory."""
+        final = os.path.join(self.checkpoint_dir, str(step))
+        tmp = f"{final}.tmp{os.getpid()}"
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        flat = train_state_dict(self.state, self.tx)
+        try:
+            nbytes = safetensors.save_file(flat, os.path.join(tmp, CHECKPOINT_NAME),
+                                           metadata={"step": str(self.state.step)})
+        except BaseException:
+            shutil.rmtree(tmp, ignore_errors=True)
+            raise
+        shutil.rmtree(final, ignore_errors=True)
+        os.replace(tmp, final)
+        logger.info("saved checkpoint step %d (%d tensors, %.3f GB) to %s", step, len(flat),
+                    nbytes / 1e9, final)
+        limit = self.args.save_total_limit
+        if limit:
+            for old in self.checkpoint_steps()[:-limit]:
+                shutil.rmtree(os.path.join(self.checkpoint_dir, str(old)))
+        return final
 
     def load_checkpoint(self, path_or_latest: str):
-        raise NotImplementedError("Trainer.load_checkpoint: checkpoints are not ported yet")
+        """Restore the train state from "latest" (the newest step under
+        `checkpoint_dir`; none: a warning), a step directory (its leaf is the
+        step, as JAX reads it) or a step number; the params and the
+        optimizer's tensors are copied in place."""
+        if self.state is None:
+            self.setup()
+        if path_or_latest == "latest":
+            steps = self.checkpoint_steps()
+            if not steps:
+                logger.warning("no checkpoint to resume from")
+                return
+            path = os.path.join(self.checkpoint_dir, str(steps[-1]))
+        elif os.path.isdir(str(path_or_latest)):
+            path = str(path_or_latest)
+            int(os.path.basename(os.path.normpath(path)))  # the leaf must be a step
+        else:
+            path = os.path.join(self.checkpoint_dir, str(int(path_or_latest)))
+        flat = safetensors.load_file(os.path.join(path, CHECKPOINT_NAME))
+        self.state = load_train_state(self.state, flat, self.tx)
+        logger.info("resumed from checkpoint step %d (%s)", self.state.step, path)
 
-    def evaluate(self, eval_dataloader=None, prefix: str = "eval"):
-        raise NotImplementedError("Trainer.evaluate: evaluation is not ported yet")
+    def finalize_checkpoints(self):
+        """Checkpoints are written synchronously: nothing to wait for (JAX
+        waits for orbax's background writes here)."""
+
+    def install_preemption_handler(self):
+        """SIGTERM / SIGINT set a flag; the train loop checkpoints at the next
+        step boundary and stops, instead of dying mid-write."""
+        import signal
+
+        self._preempted = False
+
+        def _handler(signum, frame):
+            logger.warning("signal %d received; will checkpoint and stop", signum)
+            self._preempted = True
+
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                signal.signal(sig, _handler)
+            except ValueError:  # not the main thread
+                break
+
+    # ------------------------------------------------------------ eval
+    def _eval_step(self, params, batch):
+        if self.eval_fn is not None:
+            return self.eval_fn(params, batch)
+        assert self.loss_fn is not None, "evaluate() needs eval_fn or loss_fn"
+        out = self.loss_fn(params, batch, torch.Generator(device=self.device).manual_seed(0))
+        return {"loss": out[0] if isinstance(out, tuple) else out}
+
+    def evaluate(self, eval_dataloader=None, prefix: str = "eval") -> Dict[str, float]:
+        """A pass over the eval set under `torch.inference_mode`. Scalar
+        outputs are averaged over the batches; array outputs are
+        concatenated for `compute_metrics` (corpus metrics). The metrics go
+        to the callbacks and come back as {f"{prefix}_{name}": float}."""
+        loader = eval_dataloader or self.eval_dataloader
+        assert loader is not None, "no eval_dataloader"
+        params = self.state.params if self.state is not None else self.params
+        sums: Dict[str, torch.Tensor] = {}
+        collected: Dict[str, list] = {}
+        n = 0
+        with torch.inference_mode():
+            for batch in loader:
+                for k, v in self._eval_step(params, self._prepare_batch(batch)).items():
+                    v = torch.as_tensor(v)
+                    if v.ndim == 0:
+                        sums[k] = sums.get(k, 0.0) + v.double()
+                    else:
+                        collected.setdefault(k, []).append(v.cpu().numpy())
+                n += 1
+        metrics = {f"{prefix}_{k}": float(v) / max(n, 1) for k, v in sums.items()}
+        if self.compute_metrics is not None and collected:
+            extra = self.compute_metrics({k: np.concatenate(v) for k, v in collected.items()})
+            metrics.update({f"{prefix}_{k}": float(v) for k, v in extra.items()})
+        step = self.state.step if self.state is not None else 0
+        logger.info("eval @%d: %s", step, " ".join(f"{k}: {v:.4f}" for k, v in metrics.items()))
+        for cb in self.callbacks:
+            cb(step=step, metrics=metrics)
+        return metrics
+
+    def predict(self, dataloader, predict_fn) -> list:
+        """predict_fn(params, batch) over `dataloader` under
+        `torch.inference_mode`, each output brought to the host as numpy
+        (tensors inside dicts, lists and tuples too)."""
+        params = self.state.params if self.state is not None else self.params
+        with torch.inference_mode():
+            return [_to_numpy(predict_fn(params, self._prepare_batch(b))) for b in dataloader]
+
+    def _maybe_eval_and_track_best(self, step: int):
+        metrics = self.evaluate()
+        a = self.args
+        key = f"eval_{a.metric_for_best_model}"
+        if key not in metrics:
+            return
+        val = metrics[key]
+        better = (self.best_metric is None
+                  or (val > self.best_metric if a.greater_is_better else val < self.best_metric))
+        if better:
+            self.best_metric, self.best_step = val, step
+            logger.info("new best %s=%.4f at step %d", key, val, step)
+            self.save_checkpoint(step)
 
     # ------------------------------------------------------------ loop
     def _prepare_batch(self, batch) -> Dict[str, torch.Tensor]:
@@ -138,7 +307,10 @@ class Trainer:
 
     def train(self, max_steps: Optional[int] = None):
         """Run micro-batch steps until `max_steps` (else the args' max_steps,
-        else the epochs); returns {"final_step": ..., and the last step's
+        else the epochs), saving every `save_steps`, evaluating every
+        `eval_steps` under `do_eval` (and at the end), stopping at a step
+        boundary after a preemption signal (with a checkpoint); returns
+        {"final_step": ..., the final eval's metrics, and the last step's
         metrics as floats}."""
         a = self.args
         assert self.train_dataloader is not None and self.loss_fn is not None
@@ -187,11 +359,30 @@ class Trainer:
                         cb(step=step, metrics={**metrics, "ips": ips, "reader_cost": reader_cost})
                 if a.save_steps and step % a.save_steps == 0:
                     self.save_checkpoint(step)
-            if step >= total:
+                if a.do_eval and a.eval_steps and step % a.eval_steps == 0 \
+                        and self.eval_dataloader is not None:
+                    self._maybe_eval_and_track_best(step)
+                if self._preempted:
+                    logger.warning("preemption: saving checkpoint at step %d", step)
+                    self.save_checkpoint(step)
+                    break
+            if step >= total or self._preempted:
                 break
-        if a.do_eval and self.eval_dataloader is not None:
-            self.evaluate()
-        return {"final_step": step, **{k: float(v) for k, v in metrics.items()}}
+        final_eval = {}
+        if a.do_eval and self.eval_dataloader is not None and not self._preempted:
+            final_eval = self.evaluate()
+        self.finalize_checkpoints()
+        return {"final_step": step, **final_eval, **{k: float(v) for k, v in metrics.items()}}
+
+
+def _to_numpy(out):
+    if isinstance(out, torch.Tensor):
+        return out.detach().cpu().numpy()
+    if isinstance(out, dict):
+        return {k: _to_numpy(v) for k, v in out.items()}
+    if isinstance(out, (list, tuple)):
+        return type(out)(_to_numpy(v) for v in out)
+    return out
 
 
 def _prefetch_to_device(it, prepare, depth: int = 2):
