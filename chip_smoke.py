@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (paddlemix_tpu_torch) on one CUDA card.
 
-Drives ten slices at their published widths with weights drawn on the
+Drives eleven slices at their published widths with weights drawn on the
 card from a seeded torch.Generator:
 
   - SDXL-1024 text-to-image through StableDiffusionXLPipeline.__call__, in
@@ -60,7 +60,15 @@ card from a seeded torch.Generator:
   - BLIP-2 OPT-2.7B captioning (Salesforce/blip2-opt-2.7b: the ViT-g tower,
     1,408 x 39 layers at 224 px, the Q-Former with 32 queries, OPT-2.7B,
     3.74 B parameters in bf16) through Blip2Processor on a jpeg and
-    Blip2ForConditionalGeneration.generate over OPT's BOS, 32 new tokens.
+    Blip2ForConditionalGeneration.generate over OPT's BOS, 32 new tokens;
+  - diffusers checkpoints: an SD1.5 pipeline directory in diffusers' own
+    layout (written from the seeded fp32 pipeline) read by
+    DiffusionPipeline.from_pretrained, and the JAX examples run on it
+    through the port's entry points: tools.text_to_image.main,
+    tools.train_text_to_image.main, tools.train_dreambooth_lora.main and
+    tools.train_dreambooth.main (the VAE encoder, LoRA over the UNet, the
+    prior-preservation loss); an SDXL-base directory written by the port's
+    save_pretrained and served from DiffusionPipeline.from_pretrained.
 
 Phases:
 
@@ -453,6 +461,53 @@ Phases:
                    the busy share; every request
                    launches B10 2,190 times and B7 992 times
                    (`expected_launches_blip2`), and no other kernel
+ 41a. sd15 dir     BLIP-2 is freed; after a check of the free disk under a
+                   temporary directory (removed at the end of 41d, whatever
+                   happens), the seeded SD1.5 pipeline in fp32 is written in
+                   diffusers' own layout (`write_diffusers_dir`: HF keys,
+                   (out, in) Linears, OIHW convs, diffusers' config files,
+                   model_index.json, PNDM's published scheduler config, the
+                   tokenizer's vocab.json and merges.txt; 4.3 GB) and by the
+                   port's save_pretrained (flax keys); each is read back by
+                   DiffusionPipeline.from_pretrained in fp32, every tensor
+                   bit-equal to the pipeline that wrote it: seconds and GB/s
+                   each way
+ 41b. sd15 serve   tools.text_to_image.main on the diffusers directory (read
+                   in bf16, 25 PNDM steps, 512 px, guidance 7.5, the PNG
+                   written): the PNG finite in [0, 1], launches of B1, B4
+                   and B10 as `expected_launches_sd15` walks the pipeline,
+                   no other kernel; then a request on the pipeline read by
+                   DiffusionPipeline.from_pretrained, unprofiled and
+                   profiled: seconds, device ms, busy share, peak memory
+ 41c. vae encode   B4 per element at the VAE encoder's two new shapes,
+                   (1, 256, 256, 128) and (1, 128, 128, 256), with the
+                   16-group control; the full SD1.5 encoder in bf16 at 512
+                   px, kernels vs plain (relative L2 of the mean and the
+                   log-variance within AGREE_TOL), 22 B4 launches and no B1
+                   (the 512-wide single head goes to math), its time
+ 41d. training     B15 and B14 per element at the DreamBooth batches (1 and 2
+                   at SD1.5's three self-attention shapes) with their gates
+                   and controls; then, on the directory, counts set to 0
+                   before each: train_text_to_image.main (DIR_T2I_STEPS
+                   steps at batch 8), train_dreambooth_lora.main over
+                   DREAMBOOTH_IMAGES generated jpegs (DREAMBOOTH_STEPS steps
+                   at batch 1), train_dreambooth.main with as many class
+                   jpegs, prior weight 1.0 (DREAMBOOTH_STEPS steps at batch
+                   2): finite losses, launches equal to the walks (the
+                   encodes' B4, the prompts' B10, the training steps' B15,
+                   B14 and B4), seconds a step, peak memory, and one more
+                   step under the profiler (device ms, busy share); the
+                   adapter read by load_lora (128 pairs, every b moved) and
+                   merged by merge_lora_into_model, whose UNet's output agrees
+                   with the attached one's within AGREE_TOL; the full run's
+                   saved unet/ read back bit-equal to the trained model
+ 41e. sdxl dir     the seeded SDXL-base pipeline in fp32 (14 GB) written by
+                   save_pretrained, cast to bf16 in memory and served one
+                   request (1024 px, 25 Euler steps, CFG 5.0, seeded
+                   latents); freed; DiffusionPipeline.from_pretrained reads
+                   the directory in bf16 and serves the same request: the
+                   image bit-equal, finite in [0, 1], the launches as
+                   `expected_launches` walks them; the directory removed
 
 Any failed check exits non-zero. Without a CUDA card, or outside a checkout
 of the repository, it exits non-zero before printing any result. The line
@@ -695,6 +750,34 @@ SD15_TRAIN_SAMPLES = 256  # the example's data
 # TRAIN_AGREE_RATIO, CLIP_SIGNAL_GAP)
 SD15_AGREE_BATCH = 2
 SD15_AGREE_T = (250, 750)
+# The SD1.5 diffusers directory (phases 41a-41d): the published
+# runwayml/stable-diffusion-v1-5 layout written from the seeded fp32 pipeline
+# (HF keys and layouts, diffusers' config files, PNDM's published
+# scheduler_config.json with steps_offset 1), then the JAX examples run on it:
+# text_to_image (25 steps at 512 px, its own), train_text_to_image cut from
+# 1,000 steps to DIR_T2I_STEPS, both DreamBooth mains cut from 500 and 800
+# steps to DREAMBOOTH_STEPS over DREAMBOOTH_IMAGES generated jpegs (the
+# instance and, for the full one, the class images); after each training
+# main, one more step under the profiler
+SD15_DIR_PROMPT = "a photograph of an astronaut riding a horse on the moon"
+SD15_DIR_SCHEDULER = dict(_class_name="PNDMScheduler", _diffusers_version="0.6.0",
+                          beta_start=0.00085, beta_end=0.012, beta_schedule="scaled_linear",
+                          num_train_timesteps=1000, set_alpha_to_one=False, skip_prk_steps=True,
+                          steps_offset=1, trained_betas=None, clip_sample=False)
+DIR_T2I_STEPS = 4
+DREAMBOOTH_STEPS = 8
+DREAMBOOTH_IMAGES = 4
+DREAMBOOTH_PROMPTS = ("a photo of sks dog", "a photo of a dog")
+# B4 at the VAE encoder's shapes at 512 px that no decoder has: the first
+# resnet of the second and third down blocks (after each down-sample)
+VAE_ENCODE_GN_CASES = [((1, 256, 256, 128), "silu"), ((1, 128, 128, 256), "silu")]
+# B15 / B14 at the DreamBooth batches: 1 (LoRA) and 2 (full), SD1.5's heads
+DREAMBOOTH_FLASH_CASES = [(b_, s_, 8, 8, d_, False) for b_ in (1, 2)
+                          for s_, d_ in ((4096, 40), (1024, 80), (256, 160))]
+# The SDXL directory (phase 41e): the seeded fp32 SDXL-base pipeline written by
+# DiffusionPipeline.save_pretrained, read back in bf16, one request at the
+# flagship's settings (1024 px, 25 Euler steps, CFG 5.0)
+SDXL_DIR_SEED = 5
 # H100 SXM peaks (NVIDIA data sheet, dense) for the bounds
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
@@ -3968,9 +4051,10 @@ def sd15_slice(torch, np, dev, gen, m, counters):
 
 
 # ------------------------------------------------- SD1.5 UNet fine-tuning
-def sd15_train_kernels(torch, F, dev, gen, record, attn):
+def sd15_train_kernels(torch, F, dev, gen, record, attn, cases=None,
+                       tag="sd15 train kernels"):
     """B15 (the lse forward) and B14 (dkv, dq) against their plain versions
-    per element at SD15_TRAIN_FLASH_CASES: the SD1.5 training path's shapes,
+    per element at `cases` (SD15_TRAIN_FLASH_CASES: the SD1.5 training path's shapes,
     head_dim 256, heads of 32 or less, and causal + segment ids + GQA at 24,
     64, 160 and 256. B15 with the control that leaves out the last key tile;
     B14, fed B15's lse and the di of B15's o as the path feeds it, with two:
@@ -3980,7 +4064,7 @@ def sd15_train_kernels(torch, F, dev, gen, record, attn):
     graph-captured)."""
     bf16 = torch.bfloat16
     sound, controls_need = [], []
-    for b_, s_, h_, kvh, d_, masked in SD15_TRAIN_FLASH_CASES:
+    for b_, s_, h_, kvh, d_, masked in cases or SD15_TRAIN_FLASH_CASES:
         shape = (b_, s_, h_, kvh, d_)
         q = torch.randn((b_, s_, h_, d_), generator=gen, device=dev).to(bf16)
         k, v = (torch.randn((b_, s_, kvh, d_), generator=gen, device=dev).to(bf16)
@@ -4014,7 +4098,7 @@ def sd15_train_kernels(torch, F, dev, gen, record, attn):
                                                   **kw_cut)[0].nan_to_num(0.0), ro, TRAIN_SUM)
         sound.append(need)
         controls_need.append(control[1])
-        print(f"[sd15 train kernels] flash_fwd_lse {label}: o excess {excess:.3e} (least c "
+        print(f"[{tag}] flash_fwd_lse {label}: o excess {excess:.3e} (least c "
               f"{need:.2e}, c {TRAIN_SUM}), lse max err {lse_err:.3e} (tol {LSE_TOL}); control "
               f"without the last {s_ - n} keys, least c {control[1]:.2e} (must be > c)",
               flush=True)
@@ -4026,7 +4110,7 @@ def sd15_train_kernels(torch, F, dev, gen, record, attn):
         qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
         lib_ms = library_ms(torch, lambda: F.scaled_dot_product_attention(
             qh, kh, vh, is_causal=masked, enable_gqa=h_ != kvh))
-        record("sd15 train kernels", named("flash_fwd_lse"), shape,
+        record(tag, named("flash_fwd_lse"), shape,
                (o.float() - ro).abs().max().item(), ms, plain_ms, lib_ms,
                bound(nbytes(qs, k, v, o, lse, seg, seg), 4 * d_ * pairs, "bf16"),
                (" causal + 4 segments" if masked else "") + " | library: SDPA"
@@ -4042,7 +4126,7 @@ def sd15_train_kernels(torch, F, dev, gen, record, attn):
         same = all(torch.equal(a_, b_) for a_, b_ in zip((dk, dv, dq), again))
         del again
         core, note = bwd_core(d_)
-        print(f"[sd15 train kernels] flash_bwd {label}: core {core} ({note}); two launches "
+        print(f"[{tag}] flash_bwd {label}: core {core} ({note}); two launches "
               f"bit-identical: {same}", flush=True)
         check(same, f"flash_bwd {label}: two launches differ")
         no_di = torch.zeros_like(di)
@@ -4078,7 +4162,7 @@ def sd15_train_kernels(torch, F, dev, gen, record, attn):
             controls_need += [c_[1] for c_ in ctrl]
             err = max((o_.float() - r_).abs().max().item() for o_, r_ in zip(outs, refs))
             skipped = f", a tile pair sharing a segment skipped {ctrl[2][1]:.2e}" if masked else ""
-            print(f"[sd15 train kernels] {name} {label}: excess {[f'{g[0]:.3e}' for g in gates]} "
+            print(f"[{tag}] {name} {label}: excess {[f'{g[0]:.3e}' for g in gates]} "
                   f"(least c {[f'{g[1]:.2e}' for g in gates]}, c {TRAIN_SUM}; plain, then "
                   f"tiled); controls, least c (must be > c): di dropped {ctrl[0][1]:.2e}, the "
                   f"last {s_ - n} keys left out {ctrl[1][1]:.2e}{skipped}", flush=True)
@@ -4098,14 +4182,14 @@ def sd15_train_kernels(torch, F, dev, gen, record, attn):
                 *t, is_causal=masked, enable_gqa=h_ != kvh),
                 tuple(t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v)),
                 do.transpose(1, 2)) for _ in range(2)) / 2
-            record("sd15 train kernels", named(name), shape, err, ms, plain_ms, lib,
+            record(tag, named(name), shape, err, ms, plain_ms, lib,
                    bound(nbytes(qs, k, v, do, lse, di, seg, seg, *outs), ops, "bf16"),
                    (" causal + 4 segments" if masked else "") + " | library: the backward of "
                    "SDPA (dq, dk, dv together)" + (" is_causal, no segments" if masked else ""),
                    bwd=(d_, ops))
         del q, k, v, do, qs, f32, lse, di, no_di, cut, dk, dv, dq
         torch.cuda.empty_cache()
-    print(f"[sd15 train kernels] B15 / B14 gate c {TRAIN_SUM}: the kernels' least c at most "
+    print(f"[{tag}] B15 / B14 gate c {TRAIN_SUM}: the kernels' least c at most "
           f"{max(sound):.2e}, the controls' at least {min(controls_need):.2e}", flush=True)
 
 
@@ -4295,6 +4379,445 @@ def sd15_train_slice(torch, np, dev, m, counters):
                  reader_share=reader / s_step, busy=device_ms / 1e3 / t_prof, peak_gib=peak,
                  b14_ms=b14_ms, b14_share=b14_ms / device_ms)
     return got[0], got[1], stats
+
+
+# ------------------------------------------- diffusers directories (41a-41e)
+def write_diffusers_dir(torch, pipe, path, scheduler_config):
+    """`pipe` (an SD pipeline of the port) as diffusers publishes it: each
+    model's state_dict under its HF names and layouts ((out, in) Linears,
+    OIHW convs, fp32) in `diffusion_pytorch_model.safetensors` (UNet, VAE)
+    or `model.safetensors` (the text tower), diffusers' and transformers'
+    config.json, the tokenizer's vocab.json and merges.txt, `scheduler_config`
+    and model_index.json with null optional components. Returns the bytes of
+    the weights written."""
+    from paddlemix_tpu_torch.core import safetensors as st
+
+    index = {"_class_name": type(pipe).__name__, "_diffusers_version": "0.6.0",
+             "feature_extractor": [None, None], "safety_checker": [None, None],
+             "requires_safety_checker": False}
+    written = 0
+    for name, lib, fname in (("unet", "diffusers", "diffusion_pytorch_model.safetensors"),
+                             ("vae", "diffusers", "diffusion_pytorch_model.safetensors"),
+                             ("text_encoder", "transformers", "model.safetensors")):
+        comp = getattr(pipe, name)
+        sub = os.path.join(path, name)
+        os.makedirs(sub)
+        cfg = {k: v for k, v in comp.config.to_dict().items()
+               if k not in ("model_type", "_class_name")}
+        if lib == "diffusers":
+            cfg.update(_class_name=type(comp).__name__, _diffusers_version="0.6.0")
+        else:
+            cfg.update(architectures=[type(comp).__name__], model_type="clip_text_model")
+        with open(os.path.join(sub, "config.json"), "w") as f:
+            json.dump(cfg, f, indent=2)
+        written += st.save_file(dict(comp.state_dict()), os.path.join(sub, fname))
+        index[name] = [lib, type(comp).__name__]
+    pipe.tokenizer.save_pretrained(os.path.join(path, "tokenizer"))
+    os.makedirs(os.path.join(path, "scheduler"))
+    with open(os.path.join(path, "scheduler", "scheduler_config.json"), "w") as f:
+        json.dump(scheduler_config, f, indent=2)
+    index.update(tokenizer=["transformers", "CLIPTokenizer"],
+                 scheduler=["diffusers", scheduler_config["_class_name"]])
+    with open(os.path.join(path, "model_index.json"), "w") as f:
+        json.dump(index, f, indent=2)
+    return written
+
+
+def unequal_tensors(torch, a, b):
+    """The SD pipelines' models' state_dict keys whose tensors differ in dtype
+    or bits."""
+    out = []
+    for name in ("unet", "vae", "text_encoder"):
+        sa, sb = getattr(a, name).state_dict(), getattr(b, name).state_dict()
+        if sa.keys() != sb.keys():
+            out.append(f"{name}: keys differ")
+            continue
+        out += [f"{name}.{k}" for k, v in sa.items()
+                if not (v.dtype == sb[k].dtype and torch.equal(v, sb[k]))]
+    return out
+
+
+def profiled_steps(torch, trainer):
+    """Two more optimizer steps of `trainer`, the second under the profiler
+    (the first starts it): (its host seconds, its device ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer.args.logging_steps = 1
+    with profile(activities=[ProfilerActivity.CUDA], schedule=torch.profiler.schedule(
+            wait=0, warmup=1, active=1, repeat=1)) as prof:
+        trainer.callbacks.append(lambda step, metrics: prof.step())
+        trainer.train(trainer.state.step + 2)
+        torch.cuda.synchronize()
+    trainer.callbacks.pop()
+    hist = trainer.history
+    device_ms = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+    return hist[-1]["time"] - hist[-2]["time"], device_ms
+
+
+def step_seconds(trainer):
+    """The median host seconds of a step of the run, its first left out."""
+    times = [h["time"] for h in trainer.history]
+    steps = sorted(b_ - a_ for a_, b_ in zip(times, times[1:]))
+    return steps[len(steps) // 2]
+
+
+def sd15_dir_slice(torch, F, np, dev, gen, m, counters, record, gn_case, card):
+    """Phases 41a-41d (see the module docstring): the SD1.5 diffusers
+    directory written and read back, text_to_image on it, the VAE encoder,
+    and the three training mains. Everything is written under one temporary
+    directory, removed in a `finally`. Returns ({phase: launches}, {phase:
+    {wrapper: launches by head_dim}}, the numbers)."""
+    import shutil
+    import tempfile
+
+    from PIL import Image
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddlemix_tpu_torch.diffusers import AutoencoderKL, DiffusionPipeline, \
+        UNet2DConditionConfig, UNet2DConditionModel
+    from paddlemix_tpu_torch.diffusers.models.resnet import n_group_norms
+    from paddlemix_tpu_torch.diffusers.sd15 import SD15_UNET, expected_launches_sd15, \
+        expected_launches_sd15_train, random_sd15_pipeline
+    from paddlemix_tpu_torch.models.layers import n_layer_norms
+    from paddlemix_tpu_torch.peft import attach_lora, load_lora, merge_lora_into_model
+    from paddlemix_tpu_torch.tools import text_to_image
+    from paddlemix_tpu_torch.tools import train_dreambooth as db
+    from paddlemix_tpu_torch.tools import train_dreambooth_lora as dbl
+    from paddlemix_tpu_torch.tools import train_text_to_image as t2i
+
+    bf16 = torch.bfloat16
+    attn = m.attn
+    by_dim_fns = [attn.flash_attention, attn.flash_fwd_lse, attn.flash_bwd_dkv,
+                  attn.flash_bwd_dq]
+    phases, dims, stats = {}, {}, {}
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+        for fn in by_dim_fns:
+            fn.launches_by_dim.clear()
+
+    def launches():
+        return ({name: fn.launches for name, fn in counters.items()},
+                {fn.__name__: dict(fn.launches_by_dim) for fn in by_dim_fns})
+
+    def walk(*parts):
+        total = collections.Counter()
+        for part in parts:
+            total.update({k: v for k, v in part.items() if k in counters})
+        return {name: total.get(name, 0) for name in counters}
+
+    tmp = tempfile.mkdtemp(prefix="pmix_smoke_sd15_dir_")
+    try:
+        # ---------------------------------------------- 41a the SD1.5 directory
+        t0 = time.perf_counter()
+        pipe = random_sd15_pipeline(dev, torch.float32, seed=0, tokenizer=specials_tokenizer())
+        torch.cuda.synchronize()
+        comps = {n: getattr(pipe, n) for n in ("unet", "vae", "text_encoder")}
+        nbytes_ = {n: sum(t.numel() * t.element_size() for t in c.state_dict().values())
+                   for n, c in comps.items()}
+        total = sum(nbytes_.values())
+        # the diffusers directory, the port's, and the full DreamBooth's unet/
+        need = 2 * total + nbytes_["unet"] + 2 ** 30
+        free = shutil.disk_usage(tmp).free
+        print(f"[sd15 dir] SD1.5 built in fp32 in {time.perf_counter() - t0:.1f} s "
+              f"({', '.join(f'{n} {b_ / 1e9:.3f} GB' for n, b_ in nbytes_.items())}); {tmp}: "
+              f"{free / 1e9:.1f} GB free, this phase needs up to {need / 1e9:.1f} GB", flush=True)
+        check(free >= need, f"sd15 dir: {free / 1e9:.1f} GB free under {tmp}, "
+              f"{need / 1e9:.1f} GB needed (set TMPDIR to a larger disk)")
+        hf_dir, port_dir = os.path.join(tmp, "sd15"), os.path.join(tmp, "port")
+        t0 = time.perf_counter()
+        hf_bytes = write_diffusers_dir(torch, pipe, hf_dir, SD15_DIR_SCHEDULER)
+        t_hf = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pipe.save_pretrained(port_dir)
+        t_port = time.perf_counter() - t0
+        reads = {}
+        for label, path in (("diffusers layout", hf_dir), ("port's save_pretrained", port_dir)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            back = DiffusionPipeline.from_pretrained(path, dtype=torch.float32, device=dev)
+            torch.cuda.synchronize()
+            reads[label] = time.perf_counter() - t0
+            unequal = unequal_tensors(torch, pipe, back)
+            print(f"[sd15 dir] {label}: DiffusionPipeline.from_pretrained back to the card in "
+                  f"fp32 {reads[label]:.2f} s ({total / 1e9 / reads[label]:.2f} GB/s), "
+                  f"{type(back).__name__} with {type(back.scheduler).__name__}; tensors not "
+                  f"bit-equal to the pipeline that wrote it: {len(unequal)} {unequal[:3]}",
+                  flush=True)
+            check(type(back).__name__ == "StableDiffusionPipeline" and not unequal,
+                  f"sd15 dir: {label}: {len(unequal)} tensors differ")
+            del back
+        print(f"[sd15 dir] written: diffusers layout {hf_bytes / 1e9:.3f} GB of fp32 weights in "
+              f"{t_hf:.2f} s ({hf_bytes / 1e9 / t_hf:.2f} GB/s), {sorted(os.listdir(hf_dir))}; "
+              f"the port's save_pretrained in {t_port:.2f} s ({total / 1e9 / t_port:.2f} GB/s) "
+              f"({card})", flush=True)
+        stats["io"] = dict(gb=total / 1e9, write_hf_s=t_hf, write_port_s=t_port,
+                           read_hf_s=reads["diffusers layout"],
+                           read_port_s=reads["port's save_pretrained"])
+        shutil.rmtree(port_dir)
+        del pipe, comps
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ------------------------------------------------------ 41b serving
+        t0 = time.perf_counter()
+        pipe = DiffusionPipeline.from_pretrained(hf_dir, dtype=bf16, device=dev)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        want = expected_launches_sd15(pipe, SD15_SIZE, SD15_SIZE, 25, SD15_GUIDANCE)
+        want_dim = want.pop("flash_attention_by_dim")
+        want = walk(want)
+        enc_gn, te_ln = n_group_norms(pipe.vae.encoder), n_layer_norms(pipe.text_encoder)
+        enc_flash = pipe.vae.encode_flash_launches(SD15_SIZE, SD15_SIZE)
+        te_flash = pipe.text_encoder.text_model.flash_launches(pipe.tokenizer.model_max_length)
+        png = os.path.join(tmp, "out.png")
+        zero()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        text_to_image.main([hf_dir, SD15_DIR_PROMPT, png], device=dev)
+        torch.cuda.synchronize()
+        t_main = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        got, got_dim = launches()
+        with Image.open(png) as im:
+            image = np.asarray(im.convert("RGB"), np.float32) / 255.0
+        print(f"[sd15 serve] text_to_image.main on the directory (read in bf16, 25 PNDM steps, "
+              f"{SD15_SIZE} px, guidance {SD15_GUIDANCE}): {t_main:.3f} s with the read; PNG "
+              f"{image.shape} finite {bool(np.isfinite(image).all())} range [{image.min():.3f}, "
+              f"{image.max():.3f}] std {image.std():.3f}; peak memory {peak:.2f} GiB; launches "
+              f"{got}, flash by head_dim {got_dim['flash_attention']} (walk {want}, "
+              f"{want_dim})", flush=True)
+        check(image.shape == (SD15_SIZE, SD15_SIZE, 3) and bool(np.isfinite(image).all())
+              and image.min() >= 0.0 and image.max() <= 1.0 and image.std() > 0.01,
+              f"sd15 serve: image {image.shape} range [{image.min()}, {image.max()}]")
+        check(got == want and got_dim["flash_attention"] == want_dim,
+              f"sd15 serve: launches {got} / {got_dim} != the walk {want} / {want_dim}")
+        phases["sd15_dir"], dims["sd15_dir"] = got, got_dim
+        seconds = []
+        for profiled in (False, True):
+            with profile(activities=[ProfilerActivity.CUDA]) if profiled else \
+                    contextlib.nullcontext() as prof:
+                t0 = time.perf_counter()
+                pipe(SD15_DIR_PROMPT, height=SD15_SIZE, width=SD15_SIZE, num_inference_steps=25,
+                     guidance_scale=SD15_GUIDANCE, seed=1, output_type="np")
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+        device_ms = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+        print(f"[sd15 serve] a request on the pipeline read by DiffusionPipeline.from_pretrained "
+              f"({t_load:.2f} s to read in bf16): {seconds[0]:.3f} s; profiled {seconds[1]:.3f} "
+              f"s with {device_ms:.1f} ms of device time: busy {100 * device_ms / 1e3 / seconds[1]:.1f}% "
+              f"({100 * device_ms / 1e3 / seconds[0]:.1f}% of the unprofiled one) ({card})",
+              flush=True)
+        stats["serve"] = dict(main_s=t_main, request_s=seconds[0], device_ms=device_ms,
+                              busy=device_ms / 1e3 / seconds[1], peak_gib=peak, load_s=t_load)
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---------------------------------------------- 41c the VAE encoder
+        for shape, act in VAE_ENCODE_GN_CASES:
+            gn_case("vae encoder kernels", shape, act, control=True)
+        vae = AutoencoderKL.from_pretrained(hf_dir, subfolder="vae", device=dev, dtype=bf16)
+        x = torch.rand((1, SD15_SIZE, SD15_SIZE, 3), generator=gen, device=dev) * 2 - 1
+        zero()
+        with torch.inference_mode():
+            post_k = vae.encode(x)
+            torch.cuda.synchronize()
+            got, got_dim = launches()
+            with swapped(plain_swaps(m, int8=False)):
+                post_p = vae.encode(x)
+            enc_ms = cuda_ms(torch, lambda: vae.encode(x), iters=5, warmup=1)
+        rel_mean = rel_l2(post_k.mean.float(), post_p.mean.float())
+        rel_logvar = rel_l2(post_k.logvar.float(), post_p.logvar.float())
+        print(f"[vae encode] the SD1.5 VAE encoder at {SD15_SIZE} px in bf16, kernels vs plain: "
+              f"relative L2 of the mean {rel_mean:.3e}, of the log-variance {rel_logvar:.3e} (tol "
+              f"{AGREE_TOL}); launches {got['group_norm']} B4, {got['flash_attention']} B1 (the "
+              f"walk: {enc_gn} and {enc_flash}); an encode {enc_ms:.2f} ms ({card})", flush=True)
+        check(bool(torch.isfinite(post_k.mean).all()) and rel_mean <= AGREE_TOL
+              and rel_logvar <= AGREE_TOL, f"vae encode: relative L2 {rel_mean} / {rel_logvar}")
+        check(got == walk({"group_norm": enc_gn, "flash_attention": enc_flash}) and enc_gn == 22,
+              f"vae encode: launches {got}, the walk {enc_gn} B4")
+        phases["vae_encode"] = got
+        stats["encode_ms"] = enc_ms
+        del vae, x, post_k, post_p
+
+        # ------------------------------------------------------- 41d training
+        sd15_train_kernels(torch, F, dev, gen, record, attn, cases=DREAMBOOTH_FLASH_CASES,
+                           tag="dreambooth kernels")
+        with torch.device("meta"):
+            walk_unet = UNet2DConditionModel(UNet2DConditionConfig(**SD15_UNET))
+
+        def train_walk(batch, steps):
+            want_ = expected_launches_sd15_train(walk_unet, batch, 64, steps)
+            return want_, want_.pop("flash_by_dim")
+
+        images = {}
+        for sub, seeds in (("instance", range(DREAMBOOTH_IMAGES)),
+                           ("class", range(100, 100 + DREAMBOOTH_IMAGES))):
+            os.makedirs(os.path.join(tmp, sub))
+            for i in seeds:
+                with open(os.path.join(tmp, sub, f"{i:03d}.jpg"), "wb") as f:
+                    f.write(smooth_jpeg(np, Image, i))
+            images[sub] = os.path.join(tmp, sub)
+        runs = (
+            ("t2i_dir", "train_text_to_image.main", DIR_T2I_STEPS, 8, 0, 0,
+             lambda out: t2i.main([hf_dir], device=dev, max_steps=DIR_T2I_STEPS,
+                                  output_dir=out)),
+            ("db_lora", "train_dreambooth_lora.main", DREAMBOOTH_STEPS, 1, DREAMBOOTH_IMAGES, 1,
+             lambda out: dbl.main([hf_dir, images["instance"], DREAMBOOTH_PROMPTS[0]],
+                                  device=dev, max_steps=DREAMBOOTH_STEPS, output_dir=out)),
+            ("db_full", "train_dreambooth.main", DREAMBOOTH_STEPS, 2, 2 * DREAMBOOTH_IMAGES, 2,
+             lambda out: db.main([hf_dir, images["instance"], DREAMBOOTH_PROMPTS[0],
+                                  images["class"], DREAMBOOTH_PROMPTS[1], "1.0"], device=dev,
+                                 max_steps=DREAMBOOTH_STEPS, output_dir=out)))
+        for phase, what, steps, batch, n_images, n_prompts, run in runs:
+            gc.collect()
+            torch.cuda.empty_cache()
+            want_tr, want_dim = train_walk(batch, steps)
+            want = walk(want_tr, {"group_norm": enc_gn * n_images,
+                                  "flash_attention": enc_flash * n_images + te_flash * n_prompts,
+                                  "layer_norm": te_ln * n_prompts})
+            out_dir = os.path.join(tmp, phase)
+            zero()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            result = run(out_dir)
+            torch.cuda.synchronize()
+            t_run = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            got, got_dim = launches()
+            trainer = result[0]
+            losses_ = torch.stack([h["loss"] for h in trainer.history]).float()
+            s_step = step_seconds(trainer)
+            print(f"[{phase}] {what} on the directory, {steps} steps at batch {batch}"
+                  f"{f' over {n_images} jpegs' if n_images else ''}: {t_run:.2f} s with the "
+                  f"reads, the encoding and the save; {s_step:.4f} s a step (median); losses "
+                  f"{[round(x_, 4) for x_ in losses_.tolist()]}; peak memory {peak:.2f} GiB; "
+                  f"launches {got}, B15 / B14 by head_dim {got_dim['flash_fwd_lse']} (walk "
+                  f"{want}, {want_dim})", flush=True)
+            check(len(trainer.history) == steps and bool(torch.isfinite(losses_).all()),
+                  f"{phase}: {len(trainer.history)} steps, losses {losses_.tolist()}")
+            check(got == want and all(got_dim[fn.__name__] == want_dim for fn in by_dim_fns[1:]),
+                  f"{phase}: launches {got} / {got_dim} != the walk {want} / {want_dim}")
+            phases[phase], dims[phase] = got, got_dim
+            if phase == "db_lora":
+                factors, lcfg = load_lora(result[2])
+                moved = sum(float(ab["b"].abs().max()) > 0 for ab in factors.values())
+                attached = t2i.training_unet(hf_dir, dev)
+                attach_lora(attached, factors, lcfg)
+                merged = merge_lora_into_model(t2i.training_unet(hf_dir, dev), factors, lcfg)
+                lat = torch.randn((1, 64, 64, 4), generator=gen, device=dev)
+                ctx = torch.randn((1, 77, 768), generator=gen, device=dev)
+                tt = torch.tensor([500], device=dev)
+                with torch.inference_mode():
+                    out_a = attached(lat, tt, ctx).float()
+                    out_m = merged(lat, tt, ctx).float()
+                rel = rel_l2(out_m, out_a)
+                print(f"[db_lora] the adapter ({len(factors)} pairs, {moved} with b moved off 0) "
+                      f"read by load_lora: merge_lora_into_model's UNet against the attached "
+                      f"one at 64x64 latents: relative L2 {rel:.3e} (tol {AGREE_TOL})",
+                      flush=True)
+                check(len(factors) == 128 and moved == len(factors) and rel <= AGREE_TOL,
+                      f"db_lora: {len(factors)} pairs, {moved} moved, merged vs attached {rel}")
+                del attached, merged, lat, ctx, out_a, out_m
+            if phase == "db_full":
+                back = UNet2DConditionModel.from_pretrained(result[2], device=dev)
+                mine, theirs = trainer.model.state_dict(), back.state_dict()
+                unequal = [k for k, v in mine.items() if not torch.equal(v, theirs[k])]
+                print(f"[db_full] the saved unet/ read back: {len(unequal)} of {len(mine)} "
+                      f"tensors not bit-equal to the trained model", flush=True)
+                check(not unequal and mine.keys() == theirs.keys(),
+                      f"db_full: {len(unequal)} tensors differ")
+                del back, mine, theirs
+            t_prof, dev_ms = profiled_steps(torch, trainer)
+            print(f"[{phase}] a profiled step: {t_prof:.4f} s with {dev_ms:.1f} ms of device "
+                  f"time: busy {100 * dev_ms / 1e3 / t_prof:.1f}% ({card})", flush=True)
+            stats[phase] = dict(step_s=s_step, run_s=t_run, peak_gib=peak, device_ms=dev_ms,
+                                busy=dev_ms / 1e3 / t_prof)
+            del trainer, result
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return phases, dims, stats
+
+
+def sdxl_dir_slice(torch, np, dev, gen, counters, card):
+    """Phase 41e (see the module docstring). Returns the directory request's
+    launches and the numbers."""
+    import shutil
+    import tempfile
+
+    from paddlemix_tpu_torch.diffusers import DiffusionPipeline
+    from paddlemix_tpu_torch.diffusers.sdxl import expected_launches, random_sdxl_pipeline
+
+    bf16 = torch.bfloat16
+    tmp = tempfile.mkdtemp(prefix="pmix_smoke_sdxl_dir_")
+    try:
+        t0 = time.perf_counter()
+        pipe = random_sdxl_pipeline(dev, torch.float32, seed=SDXL_DIR_SEED,
+                                    tokenizer=specials_tokenizer())
+        torch.cuda.synchronize()
+        names = ("unet", "vae", "text_encoder", "text_encoder_2")
+        total = sum(t.numel() * t.element_size() for n in names
+                    for t in getattr(pipe, n).state_dict().values())
+        free = shutil.disk_usage(tmp).free
+        print(f"[sdxl dir] SDXL base built in fp32 in {time.perf_counter() - t0:.1f} s "
+              f"({total / 1e9:.3f} GB); {tmp}: {free / 1e9:.1f} GB free, this phase needs "
+              f"{(total + 2 ** 30) / 1e9:.1f} GB", flush=True)
+        check(free >= total + 2 ** 30, f"sdxl dir: {free / 1e9:.1f} GB free under {tmp}")
+        path = os.path.join(tmp, "sdxl")
+        t0 = time.perf_counter()
+        pipe.save_pretrained(path)
+        t_save = time.perf_counter() - t0
+        for n in names:
+            getattr(pipe, n).to(bf16)
+        lat = torch.randn((1, HEIGHT // 8, WIDTH // 8, 4), generator=gen, device=dev)
+        call = dict(height=HEIGHT, width=WIDTH, num_inference_steps=STEPS,
+                    guidance_scale=GUIDANCE, latents=lat, output_type="np")
+        want = expected_launches(pipe, HEIGHT, WIDTH, STEPS, GUIDANCE)
+        want = {name: want.get(name, 0) for name in counters}
+        t0 = time.perf_counter()
+        ref = pipe(REQUESTS[0][0], **call)[0]
+        torch.cuda.synchronize()
+        t_mem = time.perf_counter() - t0
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        loaded = DiffusionPipeline.from_pretrained(path, dtype=bf16, device=dev)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        image = loaded(REQUESTS[0][0], **call)[0]
+        torch.cuda.synchronize()
+        t_dir = time.perf_counter() - t0
+        got = {name: fn.launches for name, fn in counters.items()}
+        same = bool(np.array_equal(ref, image))
+        files = sorted(os.listdir(os.path.join(path, "unet")))
+        print(f"[sdxl dir] save_pretrained of the fp32 pipeline {t_save:.2f} s "
+              f"({total / 1e9 / t_save:.2f} GB/s; unet/ {files}); "
+              f"DiffusionPipeline.from_pretrained in bf16 {t_load:.2f} s "
+              f"({total / 1e9 / t_load:.2f} GB/s of the file), {type(loaded).__name__} with "
+              f"{type(loaded.scheduler).__name__}; one request {HEIGHT} px, {STEPS} steps, CFG "
+              f"{GUIDANCE}: the in-memory pipeline {t_mem:.3f} s, the directory's {t_dir:.3f} s; "
+              f"images bit-equal {same}, finite {bool(np.isfinite(image).all())}, range "
+              f"[{image.min():.3f}, {image.max():.3f}]; launches {got} (walk {want}) ({card})",
+              flush=True)
+        check(type(loaded).__name__ == "StableDiffusionXLPipeline" and same,
+              "sdxl dir: the directory's image differs from the in-memory pipeline's")
+        check(bool(np.isfinite(image).all()) and image.min() >= 0 and image.max() <= 1,
+              "sdxl dir: image not finite in [0, 1]")
+        check(got == want, f"sdxl dir: launches {got} != the walk {want}")
+        del loaded
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got, dict(gb=total / 1e9, save_s=t_save, load_s=t_load, request_s=t_dir)
 
 
 def main():
@@ -5499,6 +6022,13 @@ def main():
     blip2_kernels(torch, F, dev, gen, record, tmods)
     launches_blip2, blip2_stats = blip2_slice(torch, np, dev, tmods, every)
 
+    # ------------------------------------------------ diffusers directories
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches_dir, dims_dir, dir_stats = sd15_dir_slice(torch, F, np, dev, gen, mods, every,
+                                                       record, gn_case, card)
+    launches_sdxl_dir, sdxl_dir_stats = sdxl_dir_slice(torch, np, dev, gen, every, card)
+
     # --------------------------------------------------------------- summary
     def entry(name, route, source, replaces, by_phase):
         # ms / plain_ms / library_ms / bound at the first shape listed;
@@ -5518,7 +6048,10 @@ def main():
     def sdxl(name):
         return {"bf16": launches_bf16[name], "a8w8": launches_a8w8[name],
                 "a8w8_int8_attn": launches_i8attn[name], "sd3": launches_sd3[name],
-                "sd15": launches_sd15[name]}
+                "sd15": launches_sd15[name], "sd15_dir": launches_dir["sd15_dir"][name],
+                "sdxl_dir": launches_sdxl_dir[name]}
+
+    dir_train = ("t2i_dir", "db_lora", "db_full")
 
     def llava(name):
         return {"llava_bf16": launches_llava[name], "llava_wint8": launches_wint8[name],
@@ -5527,10 +6060,12 @@ def main():
 
     def train_phases(name):
         return {"train": launches_tr[name], "sft_main": launches_sft[name],
-                "sd15_train": launches_sd15_tr[name]}
+                "sd15_train": launches_sd15_tr[name],
+                **{phase: launches_dir[phase][name] for phase in dir_train}}
 
     def sd15_train_dim(name, d_):
-        return {"sd15_train": dims_sd15_tr[name].get(d_, 0)}
+        return {"sd15_train": dims_sd15_tr[name].get(d_, 0),
+                **{phase: dims_dir[phase][name].get(d_, 0) for phase in dir_train}}
 
     def llama_phases(name):
         return {"llama_int8kv": launches_i8[name], "llama_bf16kv": launches_kv[name],
@@ -5593,7 +6128,9 @@ def main():
                "llava_a8w4": launches_q["a8w4"]["layer_norm"], "sd3": launches_sd3["layer_norm"],
                "clip": launches_clip["layer_norm"], "clip_train": launches_clip_tr["layer_norm"],
                **{phase: got["layer_norm"] for phase, got in launches_eva.items()},
-               "blip2": launches_blip2["layer_norm"]}),
+               "blip2": launches_blip2["layer_norm"], "sdxl_dir": launches_sdxl_dir["layer_norm"],
+               **{phase: launches_dir[phase]["layer_norm"]
+                  for phase in ("sd15_dir", "db_lora", "db_full")}}),
         entry("layer_norm_backward", "cuda", "paddlemix_tpu_torch/csrc/norms.cu",
               "paddlemix_tpu/ops/norms.py:226",
               {"clip_train": launches_clip_tr["layer_norm_backward"],
@@ -5606,7 +6143,9 @@ def main():
               "paddlemix_tpu/ops/attention.py:89",
               {"a8w8_int8_attn": launches_i8attn["flash_attention_int8"]}),
         entry("flash_attention_d160", "cuda", "paddlemix_tpu_torch/csrc/flash_fwd.cu",
-              "paddlemix_tpu/ops/attention.py:243", {"sd15": launches_sd15["flash_attention_d160"]}),
+              "paddlemix_tpu/ops/attention.py:243",
+              {"sd15": launches_sd15["flash_attention_d160"],
+               "sd15_dir": dims_dir["sd15_dir"]["flash_attention"].get(160, 0)}),
         entry("flash_attention_d256", "cuda", "paddlemix_tpu_torch/csrc/flash_fwd.cu",
               "paddlemix_tpu/ops/attention.py:243", {}),
         entry("flash_fwd_lse_d40", "cuda", "paddlemix_tpu_torch/csrc/flash_fwd.cu",
@@ -5636,8 +6175,17 @@ def main():
                        ("sft_eval", launches_sft_eval)):
         by_name["rms_norm"]["launches_by_phase"][phase] = got["rms_norm"]
         by_name["rms_norm"]["launches"] += got["rms_norm"]
-    by_name["group_norm"]["launches_by_phase"]["sd15_train"] = launches_sd15_tr["group_norm"]
-    by_name["group_norm"]["launches"] += launches_sd15_tr["group_norm"]
+    for phase, got in [("sd15_train", launches_sd15_tr)] + [
+            (phase, launches_dir[phase]) for phase in ("vae_encode",) + dir_train]:
+        by_name["group_norm"]["launches_by_phase"][phase] = got["group_norm"]
+        by_name["group_norm"]["launches"] += got["group_norm"]
+    # B4 at the VAE encoder's shapes (phase 41c), beside the line's first shape
+    by_name["group_norm"]["vae_encode_shapes"] = [
+        {"shape": list(r["shape"]), "ms": r["ms"], "plain_ms": r["plain_ms"],
+         "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": r["library_ms"],
+         "max_abs_err": r["err"]}
+        for r in summary["group_norm"]
+        if tuple(r["shape"]) in {shape for shape, _ in VAE_ENCODE_GN_CASES}]
     # the a8w8 requests run all six SDXL kernels (B4's statistics for B5
     # among them), the bf16 ones flash and
     # GroupNorm; both LLaVA configurations run decode attention and RMSNorm,
@@ -5671,11 +6219,15 @@ def main():
         [("layer_norm", phase) for phase in launches_eva] + \
         [("layer_norm_backward", phase) for phase in ("clip_train", "eva_train", "clip_main")] + \
         [("layer_norm", "blip2"), ("decode_attention", "blip2")] + \
-        [(name, "sd15_train") for name in (
+        [(name, phase) for phase in ("sd15_train",) + dir_train for name in (
             "flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq", "group_norm",
             "flash_fwd_lse_d40", "flash_fwd_lse_d80", "flash_fwd_lse_d160",
             "flash_bwd_dkv_d40", "flash_bwd_dq_d40", "flash_bwd_dkv_d80", "flash_bwd_dq_d80",
-            "flash_bwd_dkv_d160", "flash_bwd_dq_d160")]
+            "flash_bwd_dkv_d160", "flash_bwd_dq_d160")] + \
+        [(name, phase) for phase in ("sd15_dir", "sdxl_dir")
+         for name in ("flash_attention", "group_norm", "layer_norm")] + \
+        [("flash_attention_d160", "sd15_dir"), ("group_norm", "vae_encode")] + \
+        [("layer_norm", phase) for phase in ("db_lora", "db_full")]
     idle = [(name, phase) for name, phase in must_run
             if by_name[name]["launches_by_phase"][phase] == 0]
     check(not idle, f"kernels never launched by the requests: {idle}")
@@ -5688,6 +6240,8 @@ def main():
     print(f"[summary] sd15: {sd15_stats}", flush=True)
     print(f"[summary] sd15 train: {sd15_train_stats}", flush=True)
     print(f"[summary] blip2: {blip2_stats}", flush=True)
+    print(f"[summary] sd15 dir: {dir_stats} ({card})", flush=True)
+    print(f"[summary] sdxl dir: {sdxl_dir_stats} ({card})", flush=True)
     print(f"[summary] chip_smoke ran {time.perf_counter() - T_START:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

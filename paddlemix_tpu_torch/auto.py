@@ -3,8 +3,9 @@ class (port of paddlemix_tpu/auto.py's `AutoConfig` / `AutoModel`, with a
 registry of the port's own classes).
 
 `model_type` picks the family; a config without a known one is matched by
-its `architectures`, as in JAX. A `model_type` the JAX registry knows but
-the port has not ported raises with its name.
+its `architectures`, as in JAX, or by diffusers' `_class_name` (a `unet/`
+or `vae/` directory of a diffusers pipeline). A `model_type` the JAX
+registry knows but the port has not ported raises with its name.
 """
 
 from __future__ import annotations
@@ -27,7 +28,14 @@ _MODEL_REGISTRY = {
                "Blip2ForConditionalGeneration"),
     "blip2": ("paddlemix_tpu_torch.models.blip2", "Blip2Config",
               "Blip2ForConditionalGeneration"),
+    "unet_2d_condition": ("paddlemix_tpu_torch.diffusers.models", "UNet2DConditionConfig",
+                          "UNet2DConditionModel"),
+    "autoencoder_kl": ("paddlemix_tpu_torch.diffusers.models", "AutoencoderKLConfig",
+                       "AutoencoderKL"),
 }
+# diffusers' config.json names the model class, not a model_type
+_DIFFUSERS_CLASSES = {"UNet2DConditionModel": "unet_2d_condition",
+                      "AutoencoderKL": "autoencoder_kl"}
 
 
 def _read_model_type(path: str, subfolder: Optional[str] = None) -> str:
@@ -36,6 +44,8 @@ def _read_model_type(path: str, subfolder: Optional[str] = None) -> str:
     mt = data.get("model_type", "")
     if mt in _MODEL_REGISTRY:
         return mt
+    if data.get("_class_name") in _DIFFUSERS_CLASSES:
+        return _DIFFUSERS_CLASSES[data["_class_name"]]
     for arch in data.get("architectures", []) or []:
         for key, (_, _, cls) in _MODEL_REGISTRY.items():
             if cls.lower().startswith(arch.lower()[:8]):
@@ -59,7 +69,9 @@ class AutoModel:
     @classmethod
     def from_pretrained(cls, path: str, **kwargs):
         """`from_pretrained(path, **kwargs)` of the directory's model class
-        (device, dtype: see each class; the Llama and LLaVA take `dtype` as
-        their parameters' dtype, the CLIP family and BLIP-2 as the compute
-        dtype over fp32 parameters)."""
-        return _load(_MODEL_REGISTRY[_read_model_type(path)], 2).from_pretrained(path, **kwargs)
+        (device, dtype: see each class; the Llama, LLaVA, UNet and VAE take
+        `dtype` as their parameters' dtype, the CLIP family and BLIP-2 as the
+        compute dtype over fp32 parameters; the UNet and the VAE also take
+        `subfolder`)."""
+        mt = _read_model_type(path, kwargs.get("subfolder"))
+        return _load(_MODEL_REGISTRY[mt], 2).from_pretrained(path, **kwargs)

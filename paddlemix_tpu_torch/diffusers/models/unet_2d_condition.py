@@ -15,6 +15,12 @@ bf16 rows, and the timestep embedding is cast as JAX casts it.
 `quant="a8w8_static"` makes every resnet, transformer and up/down-sample conv
 or projection a static a8w8 op (ops/quant.py); conv_in, conv_out, the time
 and add embeddings and time_emb_proj stay plain, as in the JAX package.
+
+`from_pretrained` reads a `unet/` directory as the JAX package's does: its
+`config.json` (a diffusers one too: `attention_head_dim` is the head count
+where `num_attention_heads` is unset, as diffusers has it) and flax- or
+torch-keyed weights through `UNET_KEY_MAP` (core/modeling.py);
+`save_pretrained` writes what the JAX package's writes.
 """
 
 from __future__ import annotations
@@ -25,14 +31,25 @@ from typing import List, Optional, Tuple, Union
 import torch
 from torch import nn
 
+from ...core.config import BaseConfig
+from ...core.convert import UNET_KEY_MAP
 from ...models.layers import Conv2d
 from .attention import Transformer2DModel
 from .embeddings import TimestepEmbedding, Timesteps
 from .resnet import Downsample2D, GroupNormAct, ResnetBlock2D, Upsample2D
 
 
+# the JAX config's fields the port has not ported, at the values that leave
+# them off (a config that sets another is refused, naming it)
+_UNPORTED = dict(num_class_embeds=None, class_embed_type=None, encoder_hid_dim_type=None,
+                 encoder_hid_dim=None, ip_adapter_tokens=0, ip_adapter_scale=1.0,
+                 center_input_sample=False, tome_ratio=0.0, attention_type="default",
+                 gradient_checkpointing=False)
+
+
 @dataclasses.dataclass
-class UNet2DConditionConfig:
+class UNet2DConditionConfig(BaseConfig):
+    model_type = "unet_2d_condition"
     sample_size: int = 64
     in_channels: int = 4
     out_channels: int = 4
@@ -42,7 +59,7 @@ class UNet2DConditionConfig:
         "UpBlock2D", "CrossAttnUpBlock2D", "CrossAttnUpBlock2D", "CrossAttnUpBlock2D")
     block_out_channels: Tuple[int, ...] = (320, 640, 1280, 1280)
     layers_per_block: int = 2
-    cross_attention_dim: int = 768
+    cross_attention_dim: Union[int, Tuple[int, ...]] = 768
     attention_head_dim: Union[int, Tuple[int, ...]] = 8
     num_attention_heads: Optional[Union[int, Tuple[int, ...]]] = None
     transformer_layers_per_block: Union[int, Tuple[int, ...]] = 1
@@ -54,6 +71,16 @@ class UNet2DConditionConfig:
     addition_time_embed_dim: Optional[int] = None
     projection_class_embeddings_input_dim: Optional[int] = None
     quant: Optional[str] = None  # "a8w8_static" or None
+
+    @classmethod
+    def from_dict(cls, data, **overrides):
+        """As the JAX config reads a config.json; the JAX options this port
+        lacks must hold their defaults (others raise, naming them)."""
+        data = dict(data, **overrides)
+        unported = {k: v for k, v in data.items() if k in _UNPORTED and _UNPORTED[k] != v}
+        if unported:
+            raise NotImplementedError(f"UNet2DConditionConfig: options not ported: {unported}")
+        return super().from_dict({k: v for k, v in data.items() if k not in _UNPORTED})
 
     @property
     def quantized(self) -> bool:
@@ -181,6 +208,7 @@ class UpBlock2D(nn.Module):
 
 class UNet2DConditionModel(nn.Module):
     compute_dtype: Optional[torch.dtype] = None  # set_compute_dtype's; None: the parameters'
+    flax_key_map = UNET_KEY_MAP  # its names -> the JAX UNet2DConditionModule's
 
     def __init__(self, config: UNet2DConditionConfig):
         super().__init__()
@@ -248,6 +276,25 @@ class UNet2DConditionModel(nn.Module):
         """The dtype the model computes in (flax's module dtype)."""
         return self.compute_dtype or self.conv_in.weight.dtype
 
+    @classmethod
+    def from_pretrained(cls, path: str, subfolder: Optional[str] = None, device="cuda",
+                        dtype: torch.dtype = torch.float32) -> "UNet2DConditionModel":
+        """The UNet of directory `path` (or its `subfolder`, e.g. "unet") on
+        `device`, its parameters in `dtype` (the JAX `from_pretrained(dtype=)`:
+        the model computes in it), feature-map weights in channels_last
+        memory."""
+        from ...core.modeling import from_pretrained
+
+        return from_pretrained(cls, UNet2DConditionConfig, cls.flax_key_map, path,
+                               device=device, param_dtype=dtype, subfolder=subfolder,
+                               drop_unexpected=True, build=_channels_last(cls))
+
+    def save_pretrained(self, directory: str):
+        """config.json and flax-keyed model.safetensors, as the JAX package writes them."""
+        from ...core.modeling import save_pretrained
+
+        return save_pretrained(self, directory)
+
     def forward(self, sample, timestep, encoder_hidden_states, added_cond_kwargs=None):
         """sample: (B, H, W, C_in) NHWC; returns (B, H, W, C_out) NHWC."""
         cfg, dtype = self.config, self.dtype
@@ -275,3 +322,9 @@ class UNet2DConditionModel(nn.Module):
             x = blk(x, block_skips, emb, context)
         x = self.conv_out(self.conv_norm_out(x))
         return x.permute(0, 2, 3, 1)
+
+
+def _channels_last(cls):
+    def build(config):
+        return cls(config).to(memory_format=torch.channels_last)
+    return build

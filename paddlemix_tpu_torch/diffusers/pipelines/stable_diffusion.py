@@ -8,7 +8,9 @@ its own dtype and its noise prediction taken in fp32; SD1.5 conditions on one
 CLIP text tower's final-LayerNorm output (or, with `clip_skip`, an earlier
 hidden state), SDXL on two towers' penultimate hidden states, the pooled
 embeds of the second and add_time_ids. The JAX package compiles the denoise
-loop into one lax.fori_loop; here it is a Python loop over steps.
+loop into one lax.fori_loop; here it is a Python loop over steps. Both are
+registered, so `DiffusionPipeline.from_pretrained` of a directory whose
+model_index.json names either builds it.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import numpy as np
 import torch
 
 from ..image_processor import VaeImageProcessor
-from .pipeline_utils import DiffusionPipeline, make_scheduler_state
+from .pipeline_utils import DiffusionPipeline, make_scheduler_state, register_pipeline
 
 
 def _noise(shape, latents, seed: int, device) -> torch.Tensor:
@@ -75,6 +77,7 @@ class _UNetPipeline(DiffusionPipeline):
         return (self.image_processor.postprocess(image, output_type),)
 
 
+@register_pipeline
 class StableDiffusionPipeline(_UNetPipeline):
     """SD1.5 / 2.x: one CLIP text tower, no micro-conditioning."""
 
@@ -104,8 +107,8 @@ class StableDiffusionPipeline(_UNetPipeline):
 
     @classmethod
     def from_single_file(cls, path: str, **kwargs):
-        raise NotImplementedError("from_single_file is not ported: it reads safetensors / "
-                                  "torch checkpoints (see load_flax_sd15_pipeline)")
+        raise NotImplementedError("from_single_file is not ported: the port reads a "
+                                  "diffusers directory (DiffusionPipeline.from_pretrained)")
 
     def load_ip_adapter(self, path: str, scale: float = 1.0):
         raise NotImplementedError("IP-Adapter is not ported")
@@ -133,6 +136,7 @@ class StableDiffusionPipeline(_UNetPipeline):
         return self._output(latents, output_type)
 
 
+@register_pipeline
 class StableDiffusionXLPipeline(_UNetPipeline):
     def __init__(self, vae, text_encoder, text_encoder_2, tokenizer, tokenizer_2, unet,
                  scheduler):

@@ -1,23 +1,34 @@
-"""Scheduler substrate: beta schedules, timestep spacing, prediction types
-and the forward diffusion of training (port of
-paddlemix_tpu/diffusers/schedulers/common.py, the parts the Euler, PNDM and
-DDPM paths use)."""
+"""Scheduler substrate: beta schedules, timestep spacing, prediction types,
+the forward diffusion of training and the `scheduler_config.json` IO (port
+of paddlemix_tpu/diffusers/schedulers/common.py, the parts the Euler, PNDM
+and DDPM paths use).
+
+A scheduler's config is a `BaseConfig`: `from_pretrained(path, subfolder)`
+reads `scheduler_config.json` as the JAX package does, keeping the keys its
+config has no field for in `unused_kwargs` (a checkpoint's config names its
+own scheduler: SD1.5's PNDM config read as DDPM's for training), and
+`save_pretrained` writes the JAX package's file.
+"""
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from ...core.config import BaseConfig
+
 
 @dataclasses.dataclass
-class SchedulerConfig:
-    """beta_schedule linear | scaled_linear, timestep_spacing leading |
-    linspace (the JAX package has more, not ported yet). `prediction_type`
-    (epsilon | v_prediction | sample) is read by DDPM's step; Euler and PNDM
-    step epsilon."""
+class SchedulerConfig(BaseConfig):
+    """beta_schedule linear | scaled_linear, or `trained_betas`;
+    timestep_spacing leading | linspace (the JAX package has more, not ported
+    yet). `prediction_type` (epsilon | v_prediction | sample) is read by
+    DDPM's step; Euler and PNDM step epsilon and refuse the others."""
 
+    config_name = "scheduler_config.json"
     num_train_timesteps: int = 1000
     beta_start: float = 0.0001
     beta_end: float = 0.02
@@ -25,9 +36,12 @@ class SchedulerConfig:
     prediction_type: str = "epsilon"
     timestep_spacing: str = "leading"
     steps_offset: int = 0  # added to "leading" timesteps
+    trained_betas: Optional[Tuple[float, ...]] = None
 
 
 def make_betas(cfg: SchedulerConfig) -> torch.Tensor:
+    if cfg.trained_betas is not None:
+        return torch.tensor(cfg.trained_betas, dtype=torch.float32)
     n = cfg.num_train_timesteps
     if cfg.beta_schedule == "linear":
         return torch.linspace(cfg.beta_start, cfg.beta_end, n, dtype=torch.float32)
@@ -88,22 +102,34 @@ def velocity_common(alphas_cumprod, sample, noise, timesteps):
 
 class Scheduler:
     """Base: config + alphas_cumprod. Subclasses define set_timesteps/step
-    over an explicit state object, as the JAX package does."""
+    over an explicit state object, as the JAX package does. `config` is a
+    config object, or its fields as keywords (keys it has no field for are
+    kept aside in its `unused_kwargs`, as the JAX package keeps them)."""
 
     config_class = SchedulerConfig
 
-    def __init__(self, **config):
-        self.config = self.config_class(**config)
+    def __init__(self, config: Optional[SchedulerConfig] = None, **kwargs):
+        if config is None:
+            config = self.config_class.from_dict(kwargs)
+        elif kwargs:
+            config = dataclasses.replace(config, **kwargs)
+        self.config = config
         self.alphas_cumprod = make_alphas_cumprod(self.config)
 
     @classmethod
     def from_config(cls, config_dict: dict, **overrides):
         """From a scheduler config of any kind (e.g. a checkpoint's, which
         names its own scheduler): the fields of this one's config are kept and
-        the others dropped, as the JAX package's `from_config` keeps them
-        aside."""
-        names = {f.name for f in dataclasses.fields(cls.config_class)}
-        return cls(**{k: v for k, v in dict(config_dict, **overrides).items() if k in names})
+        the others set aside, as the JAX package's `from_config` does."""
+        return cls(cls.config_class.from_dict(dict(config_dict), **overrides))
+
+    @classmethod
+    def from_pretrained(cls, path: str, subfolder: Optional[str] = None, **overrides):
+        """From `scheduler_config.json` in directory `path` (or its `subfolder`)."""
+        return cls(cls.config_class.from_pretrained(path, subfolder=subfolder, **overrides))
+
+    def save_pretrained(self, path: str) -> None:
+        self.config.save_pretrained(path)
 
     def add_noise(self, original_samples, noise, timesteps):
         return add_noise_common(self.alphas_cumprod, original_samples, noise, timesteps)

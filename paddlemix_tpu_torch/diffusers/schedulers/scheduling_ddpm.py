@@ -16,6 +16,7 @@ from .common import Scheduler, SchedulerConfig, predicted_x0, spaced_timesteps
 
 @dataclasses.dataclass
 class DDPMConfig(SchedulerConfig):
+    model_type = "ddpm"
     clip_sample: bool = True
     clip_sample_range: float = 1.0
     variance_type: str = "fixed_small"  # fixed_small | fixed_large

@@ -14,6 +14,9 @@ from .common import Scheduler, SchedulerConfig, spaced_timesteps
 
 @dataclasses.dataclass
 class EulerConfig(SchedulerConfig):
+    model_type = "euler"
+    use_karras_sigmas: bool = False  # True is not ported
+    interpolation_type: str = "linear"
     timestep_spacing: str = "linspace"
 
 
@@ -25,6 +28,16 @@ class EulerState(NamedTuple):
 
 class EulerDiscreteScheduler(Scheduler):
     config_class = EulerConfig
+
+    def __init__(self, config=None, **kwargs):
+        super().__init__(config, **kwargs)
+        cfg = self.config
+        if cfg.use_karras_sigmas or cfg.interpolation_type != "linear" or \
+                cfg.prediction_type != "epsilon":
+            raise NotImplementedError(
+                f"EulerDiscreteScheduler: use_karras_sigmas {cfg.use_karras_sigmas}, "
+                f"interpolation_type {cfg.interpolation_type!r}, prediction_type "
+                f"{cfg.prediction_type!r}: only linear sigmas and epsilon are ported")
 
     def _full_sigmas(self) -> np.ndarray:
         acp = self.alphas_cumprod.numpy()

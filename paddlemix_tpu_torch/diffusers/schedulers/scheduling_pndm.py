@@ -21,6 +21,7 @@ from .common import Scheduler, SchedulerConfig, spaced_timesteps
 
 @dataclasses.dataclass
 class PNDMConfig(SchedulerConfig):
+    model_type = "pndm"
     skip_prk_steps: bool = True
     set_alpha_to_one: bool = False
 
@@ -35,11 +36,14 @@ class PNDMState(NamedTuple):
 class PNDMScheduler(Scheduler):
     config_class = PNDMConfig
 
-    def __init__(self, **config):
-        super().__init__(**config)
+    def __init__(self, config=None, **kwargs):
+        super().__init__(config, **kwargs)
         if not self.config.skip_prk_steps:
             raise NotImplementedError("PNDMScheduler: only skip_prk_steps=True is ported (the "
                                       "JAX package implements that variant alone)")
+        if self.config.prediction_type != "epsilon":
+            raise NotImplementedError(f"PNDMScheduler: prediction_type "
+                                      f"{self.config.prediction_type!r} is not ported (epsilon)")
 
     def set_timesteps(self, num_inference_steps: int) -> PNDMState:
         ts = spaced_timesteps(self.config, num_inference_steps)

@@ -109,17 +109,14 @@ def load_flax_sd15_pipeline(pipe: StableDiffusionPipeline, params: Dict[str, dic
                             ) -> StableDiffusionPipeline:
     """Load a JAX SD1.5 pipeline's parameters into the port's `pipe`: `params`
     maps `unet`, `vae` and `text_encoder` to their flax params (nested dicts
-    of arrays). The port's VAE is the decoder only, so the JAX VAE's
-    `encoder` and `quant_conv` are dropped; every other key on both sides
-    must be consumed (see `flax_to_torch_state_dict`). Returns `pipe`."""
+    of arrays). Every key on both sides must be consumed (see
+    `flax_to_torch_state_dict`). Returns `pipe`."""
     for name, key_map in _FLAX_KEY_MAPS.items():
         if name not in params:
             raise KeyError(f"load_flax_sd15_pipeline: no parameters for component {name!r}")
         module = getattr(pipe, name)
-        tree = params[name]
-        if name == "vae":
-            tree = {k: v for k, v in tree.items() if k not in ("encoder", "quant_conv")}
-        module.load_state_dict(flax_to_torch_state_dict(flatten_flax(tree), module, key_map))
+        module.load_state_dict(flax_to_torch_state_dict(flatten_flax(params[name]), module,
+                                                        key_map))
     return pipe
 
 

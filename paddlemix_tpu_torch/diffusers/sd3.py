@@ -158,17 +158,14 @@ def load_flax_sd3_pipeline(pipe: StableDiffusion3Pipeline, params: Dict[str, dic
     maps each component name (`transformer`, `vae`, `text_encoder`,
     `text_encoder_2`, `text_encoder_3`) to its flax params (nested dicts of
     arrays), and every component of `pipe` that is not None must be given.
-    The port's VAE is the decoder only, so the JAX VAE's `encoder` and
-    `quant_conv` are dropped; every other key on both sides must be consumed
-    (see `flax_to_torch_state_dict`). Returns `pipe`."""
+    Every key on both sides must be consumed (see
+    `flax_to_torch_state_dict`). Returns `pipe`."""
     for name, key_map in _FLAX_KEY_MAPS.items():
         module = getattr(pipe, name)
         if module is None:
             continue
         if name not in params:
             raise KeyError(f"load_flax_sd3_pipeline: no parameters for component {name!r}")
-        tree = params[name]
-        if name == "vae":
-            tree = {k: v for k, v in tree.items() if k not in ("encoder", "quant_conv")}
-        module.load_state_dict(flax_to_torch_state_dict(flatten_flax(tree), module, key_map))
+        module.load_state_dict(flax_to_torch_state_dict(flatten_flax(params[name]), module,
+                                                         key_map))
     return pipe

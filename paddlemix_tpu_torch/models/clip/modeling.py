@@ -81,7 +81,35 @@ class CLIPTextTransformer(nn.Module):
         return len(self.encoder.layers) * use_flash(q, q, causal=True)
 
 
-class CLIPTextModel(nn.Module):
+class _TextTowerIO:
+    """`from_pretrained` / `save_pretrained` of a standalone text tower (port
+    of the JAX `CLIPTextModel` / `CLIPTextModelWithProjection` IO): a
+    `text_encoder/` or `text_encoder_2/` directory with flax- or HF-keyed
+    weights. Keys the tower has no parameter for are dropped as JAX drops
+    them (the projection of a tower without one, HF's `position_ids`)."""
+
+    flax_key_map = CLIP_KEY_MAP  # its names -> the JAX tower's
+
+    @classmethod
+    def from_pretrained(cls, path: str, subfolder: Optional[str] = None, device="cuda",
+                        dtype: torch.dtype = torch.float32):
+        """The tower of directory `path` (or its `subfolder`) on `device`, its
+        parameters in `dtype` (the JAX `from_pretrained(dtype=)`: the tower
+        computes in it)."""
+        from ...core.modeling import from_pretrained
+
+        return from_pretrained(cls, CLIPTextConfig, cls.flax_key_map, path, device=device,
+                               param_dtype=dtype, subfolder=subfolder, drop_unexpected=True,
+                               build=cls)
+
+    def save_pretrained(self, directory: str):
+        """config.json and flax-keyed model.safetensors, as the JAX package writes them."""
+        from ...core.modeling import save_pretrained
+
+        return save_pretrained(self, directory)
+
+
+class CLIPTextModel(_TextTowerIO, nn.Module):
     """Standalone text encoder (SD/SDXL text tower 1)."""
 
     def __init__(self, config: CLIPTextConfig):
@@ -93,8 +121,9 @@ class CLIPTextModel(nn.Module):
         return self.text_model(input_ids, output_hidden_states=output_hidden_states)
 
 
-class CLIPTextModelWithProjection(nn.Module):
-    """Text tower + projection head (SDXL's second text encoder)."""
+class CLIPTextModelWithProjection(_TextTowerIO, nn.Module):
+    """Text tower + projection head (SDXL's second text encoder; the
+    projection has no bias)."""
 
     def __init__(self, config: CLIPTextConfig):
         super().__init__()

@@ -71,21 +71,34 @@ class LoraDelta(nn.Module):
         return (w.float() + (self.lora_b @ self.lora_a) * self.scaling).to(w.dtype)
 
 
-def _targets(model: nn.Module, config: LoraConfig):
+def _targets(model: nn.Module, config: LoraConfig, key_map: Optional[KeyMap] = None):
+    """The Linears LoRA adapts: `<name>.weight` matching the target pattern,
+    or with `key_map` the flax path of the weight matching the pattern in
+    JAX's form (ending in the kernel suffix), JAX's own test (a diffusers UNet's
+    `to_out.0.weight` is JAX's `to_out.kernel`)."""
+    jax_pattern = _to_jax_targets(config.target_modules)
     for name, module in model.named_modules():
-        if isinstance(module, nn.Linear) and re.fullmatch(config.target_modules, f"{name}.weight"):
+        if not isinstance(module, nn.Linear):
+            continue
+        if key_map is None:
+            hit = re.fullmatch(config.target_modules, f"{name}.weight")
+        else:
+            hit = re.fullmatch(jax_pattern, _flax_kernel(name, key_map))
+        if hit:
             yield name, module
 
 
 def lora_init(model: nn.Module, config: LoraConfig,
-              generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+              generator: Optional[torch.Generator] = None,
+              key_map: Optional[KeyMap] = None) -> Dict[str, torch.Tensor]:
     """Attach factors to every nn.Linear whose `<name>.weight` matches
-    `config.target_modules` (the JAX `lora_init` over 2-D kernels): a ~
+    `config.target_modules` (with `key_map`: whose flax kernel path matches
+    it, see `_targets`) (the JAX `lora_init` over 2-D kernels): a ~
     0.01 N(0, 1) drawn from `generator` (which lives on the weights' device;
     its stream is not JAX's, so the tests carry JAX's factors across), b = 0,
     both fp32 on the weight's device. Returns the factors by name
     (`<module>.lora_a`, `<module>.lora_b`), the trainable params."""
-    found = list(_targets(model, config))
+    found = list(_targets(model, config, key_map))
     if not found:
         raise ValueError(f"no params matched LoRA targets {config.target_modules!r}")
     for name, module in found:
@@ -158,8 +171,9 @@ def attach_lora(model: nn.Module, factors: Dict[tuple, Dict[str, torch.Tensor]],
     matching weights of `model` (`lora_init`, then `lora_from_flax` through
     `key_map`, the model's `flax_key_map` by default); every pair must find
     its weight. Returns the port's factors by name."""
-    lora_init(model, config)
-    lora_from_flax(factors, model, key_map if key_map is not None else model.flax_key_map)
+    key_map = key_map if key_map is not None else model.flax_key_map
+    lora_init(model, config, key_map=key_map)
+    lora_from_flax(factors, model, key_map)
     return lora_params(model)
 
 

@@ -7,15 +7,19 @@ TrainingArguments defaults (cosine, betas 0.9 / 0.999, eps 1e-8, clip 1.0),
 max_steps 1000 as the schedule's horizon, shuffled batches of 8 over the
 example's data: 256 samples of 64x64x4 latents and 77x768 hidden states
 drawn from np.random.RandomState(0). The port keeps fp32 master weights and
-computes in bf16 (`diffusers.sd15.random_sd15_unet`), the JAX package's
-`cast_training_params` under a bf16 module dtype.
+computes in bf16 on the card, the JAX package's `cast_training_params`
+under a bf16 module dtype.
 
-The example reads the UNet and the scheduler from a checkpoint
-(`sys.argv[1]`); none is in the repository, so `main` raises there, and
-`build_trainer` takes a UNet and a scheduler from the caller (e.g.
-`random_sd15_unet` and `DDPMScheduler.from_config(SD15_SCHEDULER)`, the
-checkpoint's scheduler config read as DDPM's). Checkpoints are not ported,
-so `save_steps` is 0.
+Usage: python -m paddlemix_tpu_torch.tools.train_text_to_image CKPT
+
+`main` reads the UNet (`CKPT/unet`, fp32 masters) and the scheduler config
+(`CKPT/scheduler`, read as DDPM's whatever scheduler it names) of a
+diffusers-layout directory, as the example does, and trains with its
+`save_steps` of 500 under `output/sd`. The samples take the UNet's widths
+(its `sample_size`, `in_channels` and `cross_attention_dim`: SD1.5's are the
+example's 64, 4 and 768). `build_trainer` takes a UNet and a scheduler from
+the caller (e.g. `diffusers.sd15.random_sd15_unet` and
+`DDPMScheduler.from_config(SD15_SCHEDULER)`) and saves no checkpoint.
 """
 
 from __future__ import annotations
@@ -23,9 +27,12 @@ from __future__ import annotations
 import sys
 
 import numpy as np
+import torch
 
 from ..datasets import DataLoader, MapDataset
+from ..diffusers import DDPMScheduler, UNet2DConditionModel
 from ..diffusers.training_utils import make_sd_loss_fn
+from ..models.layers import set_compute_dtype
 from ..trainer import Trainer, TrainingArguments
 
 
@@ -52,12 +59,32 @@ def build_trainer(unet, scheduler, samples, batch_size: int = 8, **overrides) ->
     return Trainer(model=unet, args=args, loss_fn=loss_fn, train_dataloader=loader)
 
 
-def main(argv=None):
+def compute_dtype(device) -> torch.dtype:
+    """bf16 on the card, fp32 on the CPU."""
+    return torch.float32 if torch.device(device).type == "cpu" else torch.bfloat16
+
+
+def training_unet(path: str, device, subfolder: str = "unet") -> UNet2DConditionModel:
+    """The UNet of a pipeline directory for training: fp32 master weights
+    on `device`, computing in `compute_dtype(device)`."""
+    unet = UNet2DConditionModel.from_pretrained(path, subfolder=subfolder, device=device,
+                                                dtype=torch.float32)
+    return set_compute_dtype(unet, compute_dtype(device))
+
+
+def main(argv=None, device="cuda", **overrides):
+    """The example on `device` (the card by default): argv[0] is the
+    checkpoint directory; `overrides` replace TrainingArguments fields (e.g.
+    max_steps, output_dir). Returns (trainer, train's result)."""
     argv = sys.argv[1:] if argv is None else argv
-    raise NotImplementedError(
-        f"train_text_to_image {' '.join(argv)}: reading a UNet and scheduler checkpoint is not "
-        f"ported yet; build one with diffusers.sd15.random_sd15_unet and "
-        f"DDPMScheduler.from_config, then call build_trainer(unet, scheduler, sd_samples())")
+    ckpt = argv[0]
+    unet = training_unet(ckpt, device)
+    scheduler = DDPMScheduler.from_pretrained(ckpt, subfolder="scheduler")
+    cfg = unet.config
+    samples = sd_samples(latent_hw=cfg.sample_size, latent_channels=cfg.in_channels,
+                         context_dim=cfg.cross_attention_dim)
+    trainer = build_trainer(unet, scheduler, samples, **dict(dict(save_steps=500), **overrides))
+    return trainer, trainer.train()
 
 
 if __name__ == "__main__":

@@ -78,7 +78,7 @@ def _nhwc(t):
 
 
 def _vae_decode_params(vae):
-    return {k: v for k, v in vae.params.items() if k in ("decoder", "post_quant_conv")}
+    return dict(vae.params)  # the port's VAE holds the encoder too
 
 
 @pytest.fixture(scope="module")

@@ -58,8 +58,7 @@ def pipes():
                               num_hidden_layers=2, num_attention_heads=2,
                               max_position_embeddings=16, eos_token_id=tok.eos_token_id,
                               projection_dim=16)
-    vae_params = {k: v for k, v in jpipe.vae.params.items() if k != "encoder"
-                  and k != "quant_conv"}
+    vae_params = dict(jpipe.vae.params)  # the port's VAE holds the encoder too
     pipe = StableDiffusionXLPipeline(
         vae=_port(AutoencoderKL(AutoencoderKLConfig(**TINY_VAE)), vae_params, VAE_KEY_MAP),
         text_encoder=_port(CLIPTextModel(text_cfg), jpipe.text_encoder.params, CLIP_KEY_MAP),
