@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (paddlemix_tpu_torch) on one CUDA card.
 
-Drives eleven slices at their published widths with weights drawn on the
+Drives twelve slices at their published widths with weights drawn on the
 card from a seeded torch.Generator:
 
   - SDXL-1024 text-to-image through StableDiffusionXLPipeline.__call__, in
@@ -68,7 +68,13 @@ card from a seeded torch.Generator:
     tools.train_text_to_image.main, tools.train_dreambooth_lora.main and
     tools.train_dreambooth.main (the VAE encoder, LoRA over the UNet, the
     prior-preservation loss); an SDXL-base directory written by the port's
-    save_pretrained and served from DiffusionPipeline.from_pretrained.
+    save_pretrained and served from DiffusionPipeline.from_pretrained;
+  - Qwen2-VL-7B serving (Qwen/Qwen2-VL-7B-Instruct: the 32-block 1,280-wide
+    packed-patch vision tower, Qwen2-7B with 28 query heads on 4 KV heads
+    under M-RoPE; 8.29 B bf16 parameters, nothing cut) through
+    Qwen2VLImageProcessor, get_rope_index and
+    Qwen2VLForConditionalGeneration.generate, read back from a directory in
+    HF's layout: image, two-image and video requests of 128 new tokens.
 
 Phases:
 
@@ -508,6 +514,50 @@ Phases:
                    the directory in bf16 and serves the same request: the
                    image bit-equal, finite in [0, 1], the launches as
                    `expected_launches` walks them; the directory removed
+ 42a. qwen2vl      the SDXL pipeline is freed; B7 at GQA group 7 (Qwen2-7B's
+      kernels      28 heads on 4 KV heads of 128: the image request's first
+                   and last decode steps over 1,358 slots, a ragged pair,
+                   the video request's last step over 2,554), B11 at
+                   (1230, 3584) and (1, 3584) (its plan held against the
+                   library's), B10 at (4864, 1280) and (9728, 1280), and B1
+                   non-causal with segment ids at head_dim 80 at the
+                   tower's three layouts ((1, 4864, 16, 80): one image of
+                   4,784 patches and 80 pad rows in segment 0; (1, 3328,
+                   16, 80): two of 1,564 and 200 pads; (1, 9728, 16, 80):
+                   a video of 9,568 and 160 pads; pad rows attend among
+                   themselves) against their plain versions per element,
+                   each with its control (every length one short; the
+                   weight left out; the variance without the mean; every
+                   segment boundary one row late), with times, bounds,
+                   library calls (SDPA with a bool mask, F.rms_norm,
+                   F.layer_norm), ptxas counts (B7 at G 7: no spill)
+ 42b. qwen2vl dir  Qwen2-VL-7B is built (seeded bf16 weights, fp32 norm
+                   affines); after a check of the free disk, written in
+                   HF's layout (the published checkpoint's keys and its
+                   5-D patch-embedding tensor, 5 shards) and by
+                   save_pretrained (flax keys), each read back by
+                   Qwen2VLForConditionalGeneration.from_pretrained in bf16,
+                   every tensor bit-equal: seconds and GB/s each way; the
+                   model served below is the one read from the HF layout;
+                   the directory removed
+ 42c. qwen2vl      the image request's prefill logits (1,230 tokens: a
+      agree        1280 x 720 jpeg's 1,196 placeholders between the vision
+                   start / end ids, 32 seeded text ids) and 4 decode steps
+                   at M-RoPE positions max + 1 on, kernels (B1, B10, B11,
+                   B7) vs plain, within a relative L2 of 5e-2; launches as
+                   `expected_launches_qwen2_vl` walks them, no other kernel
+ 42d. qwen2vl      3 requests of each kind, 128 new tokens, eos off: one
+      serve        1280 x 720 jpeg; two 640 x 480 jpegs (782 placeholders in
+                   two segments); a video of 16 frames of 640 x 360 (the
+                   count smart_nframes picks for 8 s at 30 fps, fps 2;
+                   2,392 placeholders; assembled from the processor's
+                   functions, one segment); each timed as processor, vision
+                   tower, prefill and decode; TTFT (a 1-token generate),
+                   decode tokens/s = 127 / (t128 - TTFT), peak memory; the
+                   prefill logits over the TTFT run's cache and the full
+                   run's bit-equal; launches as walked, no other kernel;
+                   one more image request under the profiler: device ms by
+                   category and the busy share
 
 Any failed check exits non-zero. Without a CUDA card, or outside a checkout
 of the repository, it exits non-zero before printing any result. The line
@@ -778,6 +828,27 @@ DREAMBOOTH_FLASH_CASES = [(b_, s_, 8, 8, d_, False) for b_ in (1, 2)
 # DiffusionPipeline.save_pretrained, read back in bf16, one request at the
 # flagship's settings (1024 px, 25 Euler steps, CFG 5.0)
 SDXL_DIR_SEED = 5
+# Qwen2-VL-7B serving (Qwen/Qwen2-VL-7B-Instruct, models/qwen2_vl/qwen2vl7b.py),
+# batch 1, 128 new tokens, eos off. The requests' jpegs: an image of 1280 x
+# 720 (smart_resize: 728 x 1288, 4,784 patches, 1,196 placeholders, 4,864
+# packed rows), two of 640 x 480 (476 x 644 each: 1,564 patches, 391
+# placeholders; 3,328 rows), and a video of 16 frames of 640 x 360 (an 8 s
+# clip at 30 fps sampled at fps 2; 364 x 644 each: 8 temporal groups of 1,196
+# patches, 2,392 placeholders; 9,728 rows)
+QWEN2VL_IMAGE = (720, 1280)
+QWEN2VL_PAIR = (480, 640)
+QWEN2VL_FRAME, QWEN2VL_CLIP_SECONDS, QWEN2VL_CLIP_FPS = (360, 640), 8, 30.0
+QWEN2VL_REQUESTS = 3     # requests of each kind
+QWEN2VL_AGREE_STEPS = 4  # decode steps after the prefill in the agree
+# B7 at G 7, (B, Hq, KVH, D, L, lengths): the image request's first and last
+# decode steps (1,230-token prompt, 1,358 slots), a ragged pair, the video
+# request's last step (2,426 + 127 keys)
+QWEN2VL_DECODE_CASES = [(1, 28, 4, 128, 1358, (1231,)), (1, 28, 4, 128, 1358, (1357,)),
+                        (2, 28, 4, 128, 1358, (1300, 611)), (1, 28, 4, 128, 2554, (2553,))]
+QWEN2VL_RMS_SHAPES = [(1230, 3584), (1, 3584)]  # the image prefill's rows, a decode row
+QWEN2VL_LN_SHAPES = [(4864, 1280, 1), (9728, 1280, 1)]  # the tower's rows, image and video
+# B1 in the tower: (packed rows, the segments' lengths); the rest are pads, segment 0
+QWEN2VL_FLASH_LAYOUTS = [(4864, (4784,)), (3328, (1564, 1564)), (9728, (9568,))]
 # H100 SXM peaks (NVIDIA data sheet, dense) for the bounds
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
@@ -2427,15 +2498,16 @@ def offset_copy(torch, t):
     return out.copy_(t)
 
 
-def rms_kernels(torch, F, dev, gen, record, norms):
+def rms_kernels(torch, F, dev, gen, record, norms, shapes=RMS_SHAPES, extra=RMS_EXTRA_CASES,
+                label="llava kernels"):
     """B11's forward against its plain version: per element (RMS_SUM) with the
     control (the plain version without the weight) that must fail, at the
-    path's shapes (times, bounds, library times and the floor) and at
-    RMS_EXTRA_CASES."""
+    path's shapes (times, bounds, library times and the floor) and at the
+    `extra` cases."""
     bf16 = torch.bfloat16
     dts = {"bf16": bf16, "fp32": torch.float32}
-    cases = [(shape, "bf16", "fp32", False, True) for shape in RMS_SHAPES] + \
-        [case + (False,) for case in RMS_EXTRA_CASES]
+    cases = [(shape, "bf16", "fp32", False, True) for shape in shapes] + \
+        [case + (False,) for case in extra]
     for (rows, h), xd, wd, misaligned, timed in cases:
         x = (3 * torch.randn((rows, h), generator=gen, device=dev)).to(dts[xd])
         if misaligned:
@@ -2448,12 +2520,12 @@ def rms_kernels(torch, F, dev, gen, record, norms):
         excess, need = ulp_gate(out, ref, RMS_SUM)
         control, _ = ulp_gate(norms.rms_norm_ref(x.float(), torch.ones_like(w), 1e-5), ref, RMS_SUM)
         plan = norms.rms_norm_plan_of(x, w)
-        label = f"{(rows, h)} {xd} x, {wd} weight{', x misaligned' if misaligned else ''}"
-        print(f"[llava kernels] rms_norm {label}: max_abs_err {err:.3e}, excess {excess:.3e} over "
+        case = f"{(rows, h)} {xd} x, {wd} weight{', x misaligned' if misaligned else ''}"
+        print(f"[{label}] rms_norm {case}: max_abs_err {err:.3e}, excess {excess:.3e} over "
               f"2**-7|ref| + {RMS_SUM:g}|ref|max (least c {need:.2e}); control without the "
               f"weight: excess {control:.3e} (must be > 0) | {plan}", flush=True)
-        check(bool(torch.isfinite(out).all()) and excess <= 0, f"rms_norm {label}: excess {excess}")
-        check(control > 0, f"rms_norm {label}: the control passes ({control})")
+        check(bool(torch.isfinite(out).all()) and excess <= 0, f"rms_norm {case}: excess {excess}")
+        check(control > 0, f"rms_norm {case}: the control passes ({control})")
         if not timed:
             continue
         kernel = cold(lambda x_: norms.rms_norm(x_, w, 1e-5), x, nbytes(x))
@@ -2462,7 +2534,7 @@ def rms_kernels(torch, F, dev, gen, record, norms):
         w16 = w.to(bf16)
         lib_ms = library_ms(torch, cold(lambda x_: F.rms_norm(x_, (h,), w16, 1e-5), x, nbytes(x)))
         floor = floor_ms(torch, norms, plan.blocks, plan.threads, kernel.copies)
-        record("llava kernels", "rms_norm", (rows, h), err, ms, plain_ms, lib_ms,
+        record(label, "rms_norm", (rows, h), err, ms, plain_ms, lib_ms,
                bound(nbytes(x, w, out), 4 * x.numel(), "fp32"), floor=floor)
         del x, out, ref
 
@@ -3399,6 +3471,10 @@ def kernel_category(key):
         return "B10 layer_norm"
     if "decode_attention" in k:
         return "B7 decode_attention (+ merge)"
+    if "flash_fwd" in k:
+        return "B1 flash_fwd"
+    if "rms_norm" in k:
+        return "B11 rms_norm"
     if any(w in k for w in ("gemm", "gemv", "nvjet", "cutlass", "xmma", "matmul")):
         return "GEMM (cuBLAS)"
     if "conv" in k:
@@ -4820,6 +4896,387 @@ def sdxl_dir_slice(torch, np, dev, gen, counters, card):
     return got, dict(gb=total / 1e9, save_s=t_save, load_s=t_load, request_s=t_dir)
 
 
+def segment_flash_case(torch, F, dev, gen, record, attn, s_, lengths, label):
+    """B1 non-causal with segment ids at (1, s_, 16, 80), the tower's packed
+    layout: segments of `lengths` (1, 2, ...) and pad rows in segment 0 to
+    s_, per element against the plain version (c FLASH_SUM; the pad rows
+    attend among themselves in both), with the control that moves every
+    segment boundary one row later, which must fail; times, the bound over
+    the visible pairs, SDPA with the same bool mask."""
+    bf16, h_, d_ = torch.bfloat16, 16, 80
+    q, k, v = (torch.randn((1, s_, h_, d_), generator=gen, device=dev, dtype=bf16)
+               for _ in range(3))
+    seg = torch.zeros((1, s_), dtype=torch.int32, device=dev)
+    late = torch.zeros_like(seg)
+    start = 0
+    for i, n in enumerate(lengths):
+        seg[0, start:start + n] = i + 1
+        late[0, start + 1:start + n + 1] = i + 1
+        start += n
+    late[0, 0] = 1 if lengths else 0
+    segs, segs_late = attn.SegmentIds(seg, seg), attn.SegmentIds(late, late)
+    out = attn.flash_attention(q, k, v, segment_ids=segs, int8_qk=False)
+    torch.cuda.synchronize()
+    ref = attn.flash_attention_ref(q.float(), k.float(), v.float(), segment_ids=segs)
+    err = (out.float() - ref).abs().max().item()
+    excess, need = ulp_gate(out, ref, FLASH_SUM)
+    control, _ = ulp_gate(attn.flash_attention_ref(q.float(), k.float(), v.float(),
+                                                   segment_ids=segs_late), ref, FLASH_SUM)
+    pads = s_ - sum(lengths)
+    shape = (1, s_, h_, d_)
+    print(f"[{label}] flash {shape} bf16, segments {tuple(lengths)} + {pads} pad rows "
+          f"(segment 0): max_abs_err {err:.3e}, excess {excess:.3e} (least c {need:.2e}, c "
+          f"{FLASH_SUM}); control with every boundary one row late: excess {control:.3e} (must "
+          f"be > 0)", flush=True)
+    check(bool(torch.isfinite(out).all()) and excess <= 0, f"flash {shape} segments: {excess}")
+    check(control > 0, f"flash {shape} segments: the control passes ({control})")
+    del ref
+    kw = dict(segment_ids=segs)
+    ms, plain_ms = timed_pair(torch, lambda: attn.flash_attention(q, k, v, int8_qk=False, **kw),
+                              lambda: attn.flash_attention_ref(q, k, v, **kw))
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    mask = (seg[0, :, None] == seg[0, None, :])[None, None]
+    lib_ms = library_ms(torch, lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                                       attn_mask=mask))
+    pairs = sum(n * n for n in lengths) + pads * pads  # the visible (query, key) pairs
+    ops = 4 * h_ * d_ * pairs
+    record(label, "flash_attention", shape + (tuple(lengths),), err, ms, plain_ms, lib_ms,
+           bound(nbytes(q, k, v, out, seg), ops, "bf16"), flash=(d_, ops, False))
+    del q, k, v, out, mask
+
+
+def qwen2vl_kernels(torch, F, dev, gen, record, m):
+    """Phase 42a (see the module docstring)."""
+    label = "qwen2vl kernels"
+    norms, da = m.norms, m.da
+    decode_kernels(torch, F, dev, gen, record, da, cases=QWEN2VL_DECODE_CASES, label=label)
+    rms_kernels(torch, F, dev, gen, record, norms, shapes=QWEN2VL_RMS_SHAPES, extra=(),
+                label=label)
+    for rows, h in QWEN2VL_RMS_SHAPES + [(2426, 3584)]:
+        plan, lib = norms.rms_norm_plan(rows, h, 2), norms.rms_norm_plan_library(
+            rows, h, torch.bfloat16)
+        print(f"[{label}] rms_norm plan ({rows}, {h}) bf16: mirror {plan}, library {lib}",
+              flush=True)
+        check(plan == lib, f"rms_norm plan ({rows}, {h}): mirror {plan} != library {lib}")
+    clip_kernels(torch, F, dev, gen, record, norms, shapes=QWEN2VL_LN_SHAPES, backward=False,
+                 label=label)
+    for s_, lengths in QWEN2VL_FLASH_LAYOUTS:
+        segment_flash_case(torch, F, dev, gen, record, m.attn, s_, lengths, label)
+    torch.cuda.empty_cache()
+
+
+def qwen2vl_video(np, Image, proc, jpegs):
+    """The video request's inputs from its frames (jpeg bytes), assembled from
+    the processor's functions as the JAX package's tests assemble them (its
+    processor has no video entry, ROADMAP C.19): each frame decoded, resized
+    by smart_resize and normalized; the frames patched in temporal pairs; one
+    segment for the whole video (C.18); padded to the processor's bucket
+    with segment 0."""
+    import io
+
+    from paddlemix_tpu_torch.processors import image_utils
+    from paddlemix_tpu_torch.processors import qwen2_vl_processing as qp
+
+    frames = []
+    for data in jpegs:
+        with Image.open(io.BytesIO(data)) as im:
+            arr = np.asarray(im.convert("RGB"))
+        size = qp.smart_resize(*arr.shape[:2], proc.patch_size * proc.merge_size,
+                               proc.min_pixels, proc.max_pixels)
+        arr = image_utils.resize(arr, size).astype(np.float32) / 255.0
+        frames.append(image_utils.normalize(arr, proc.image_mean, proc.image_std))
+    patches, grid = qp.extract_patches(np.stack(frames), proc.patch_size, proc.merge_size,
+                                       proc.temporal_patch_size)
+    pos_hw = qp.vision_patch_positions([grid], proc.merge_size)
+    n = len(patches)
+    pad = -(-n // proc.pad_to_multiple) * proc.pad_to_multiple - n
+    return {"pixel_patches": np.pad(patches, ((0, pad), (0, 0)))[None],
+            "patch_pos_hw": np.pad(pos_hw, ((0, pad), (0, 0)))[None].astype(np.int32),
+            "patch_segments": np.pad(np.ones(n, np.int32), (0, pad))[None],
+            "image_grid_thw": np.asarray([grid], np.int64), "num_patches": n}
+
+
+def qwen2vl_slice(torch, np, dev, m, counters, card):
+    """Phases 42b-42d (see the module docstring): Qwen2-VL-7B at full width
+    with seeded random bf16 weights, written and read back, then served from
+    the HF-layout read. `counters` are every kernel wrapper's, by name: each
+    forward must launch B1, B10, B11 and B7 as the walk says, and nothing
+    else. Returns the launches of the serve and its numbers."""
+    import io
+    import shutil
+    import tempfile
+
+    from PIL import Image
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddlemix_tpu_torch.core.modeling import save_state_dict
+    from paddlemix_tpu_torch.models.llama import modeling as llama_mod
+    from paddlemix_tpu_torch.models.qwen2_vl import (
+        Qwen2VLForConditionalGeneration,
+        expected_launches_qwen2_vl,
+        get_rope_index,
+        hf_state_dict,
+        prompt_ids,
+        random_qwen2_vl,
+    )
+    from paddlemix_tpu_torch.models.qwen2_vl.qwen2vl7b import NEW_TOKENS
+    from paddlemix_tpu_torch.processors import Qwen2VLImageProcessor
+    from paddlemix_tpu_torch.processors.qwen2_vl_processing import smart_nframes
+
+    norms, da, attn = m.norms, m.da, m.attn
+    bf16 = torch.bfloat16
+
+    def launches():
+        return {name: fn.launches for name, fn in counters.items()}
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+
+    # ------------------------------------------------------------ qwen2vl dir
+    t0 = time.perf_counter()
+    model = random_qwen2_vl(device=dev, seed=0)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    cfg = model.config
+    total = sum(t.numel() * t.element_size() for t in model.state_dict().values())
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[qwen2vl] Qwen2-VL-7B built on the card in {t_build:.1f} s: {n_params} parameters "
+          f"(tower {sum(p.numel() for p in model.visual.parameters())}), {total / 1e9:.3f} GB "
+          f"in bf16 (norms fp32), {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated",
+          flush=True)
+    check(8.2e9 < n_params < 8.4e9, f"qwen2vl: {n_params} parameters")
+    io_stats = {}
+    tmp = tempfile.mkdtemp(prefix="pmix_smoke_qwen2vl_dir_")
+    try:
+        free = shutil.disk_usage(tmp).free
+        print(f"[qwen2vl dir] {tmp}: {free / 1e9:.1f} GB free, this phase needs "
+              f"{(total + 2 ** 30) / 1e9:.1f} GB at a time", flush=True)
+        check(free >= total + 2 ** 30, f"qwen2vl dir: {free / 1e9:.1f} GB free under {tmp}")
+        served = None
+        for form in ("flax", "hf"):
+            path = os.path.join(tmp, form)
+            t0 = time.perf_counter()
+            if form == "hf":
+                cfg.save_pretrained(path)
+                files = save_state_dict(hf_state_dict(model), path, max_shard_bytes=4 * 10 ** 9)
+            else:
+                files = model.save_pretrained(path)
+            t_write = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back = Qwen2VLForConditionalGeneration.from_pretrained(path, device=dev, dtype=bf16)
+            torch.cuda.synchronize()
+            t_read = time.perf_counter() - t0
+            mine = model.state_dict()
+            differ = [k for k, t in back.state_dict().items()
+                      if t.dtype != mine[k].dtype or not torch.equal(t, mine[k])]
+            io_stats[form] = dict(write_s=t_write, read_s=t_read, files=len(files))
+            print(f"[qwen2vl dir] {form} keys: {len(files)} files {sorted(files)[:2]}..., "
+                  f"written in {t_write:.2f} s ({total / 1e9 / t_write:.2f} GB/s), read back in "
+                  f"bf16 in {t_read:.2f} s ({total / 1e9 / t_read:.2f} GB/s); tensors differing "
+                  f"{len(differ)} of {len(mine)} {differ[:3]} ({card})", flush=True)
+            check(not differ, f"qwen2vl dir ({form}): {len(differ)} tensors differ: {differ[:3]}")
+            shutil.rmtree(path)
+            if form == "hf":
+                served = back
+            del back, mine
+        del model
+        model = served
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------- the requests
+    proc = Qwen2VLImageProcessor()
+
+    def jpeg(seed, hw):
+        return smooth_jpeg(np, Image, seed, size=hw)
+
+    n_frames = smart_nframes(int(QWEN2VL_CLIP_SECONDS * QWEN2VL_CLIP_FPS),
+                             video_fps=QWEN2VL_CLIP_FPS)
+    kinds = {
+        "image": lambda i: [jpeg(300 + i, QWEN2VL_IMAGE)],
+        "two images": lambda i: [jpeg(310 + 2 * i, QWEN2VL_PAIR), jpeg(311 + 2 * i, QWEN2VL_PAIR)],
+        "video": lambda i: [jpeg(400 + 20 * i + f, QWEN2VL_FRAME) for f in range(n_frames)],
+    }
+
+    def process(kind, jpegs, seed):
+        """The processor's outputs, the prompt (vision start / pad ids / end
+        around each image or the video, 32 seeded text ids) and its M-RoPE
+        streams."""
+        if kind == "video":
+            enc = qwen2vl_video(np, Image, proc, jpegs)
+        else:
+            images = []
+            for data in jpegs:
+                with Image.open(io.BytesIO(data)) as im:
+                    images.append(im.convert("RGB"))
+            enc = proc(images)
+        spans = [("video" if kind == "video" else "image", int(np.prod(g)) // 4)
+                 for g in enc["image_grid_thw"]]
+        ids = prompt_ids(cfg, spans, seed=seed)
+        pos = get_rope_index(ids.numpy(), enc["image_grid_thw"], cfg.image_token_id,
+                             cfg.video_token_id, 2)
+        return enc, ids, pos
+
+    def vis(enc):
+        return enc["pixel_patches"], enc["patch_pos_hw"], enc["patch_segments"]
+
+    def walk(prompt_len, new_tokens, rows):
+        want = expected_launches_qwen2_vl(model, prompt_len, new_tokens, rows)
+        return {name: want.get(name, 0) for name in counters}
+
+    # --------------------------------------------------------- qwen2vl agree
+    enc, ids, pos = process("image", kinds["image"](0), 0)
+    s_, rows = ids.shape[1], enc["pixel_patches"].shape[1]
+    check((s_, rows, enc["num_patches"]) == (1230, 4864, 4784),
+          f"qwen2vl: the image request has {s_} ids, {rows} rows, {enc['num_patches']} patches")
+    toks = torch.randint(0, 151643, (QWEN2VL_AGREE_STEPS, 1, 1),
+                         generator=torch.Generator().manual_seed(0)).to(dev)
+
+    def steps(swaps=()):
+        """Prefill logits (S, vocab) and those of the decode steps fed `toks`
+        at M-RoPE positions max + 1 on."""
+        with torch.inference_mode(), swapped(swaps):
+            cache = model.init_cache(1, s_ + QWEN2VL_AGREE_STEPS)
+            logits, cache = model(ids, pos, *vis(enc), cache=cache,
+                                  positions=torch.arange(s_, device=dev)[None])
+            outs = [logits[0].float()]
+            for i, tok in enumerate(toks):
+                p3 = np.full((3, 1, 1), int(pos.max()) + 1 + i)
+                step, cache = model(tok, p3, cache=cache, positions=cache.lengths[:, None])
+                outs.append(step[0].float())
+        return outs[0], torch.cat(outs[1:])
+
+    def flash_plain(q, k, v, *, causal=False, scale=None, segment_ids=None, int8_qk=None):
+        return attn.flash_attention_ref(q, k, v, scale=scale, causal=causal,
+                                        segment_ids=segment_ids)
+
+    swaps = [(attn, "flash_attention", flash_plain),
+             (llama_mod, "decode_attention", da.decode_attention_ref),
+             (llama_mod, "rms_norm", norms.rms_norm_ref),
+             (norms, "_ln_forward", norms.layer_norm_ref)]
+    zero()
+    pre_k, dec_k = steps()
+    torch.cuda.synchronize()
+    got = launches()
+    pre_p, dec_p = steps(swaps)
+    rel_pre, rel_dec = rel_l2(pre_k, pre_p), rel_l2(dec_k, dec_p)
+    want = walk(s_, 1 + QWEN2VL_AGREE_STEPS, rows)
+    print(f"[qwen2vl agree] full-width Qwen2-VL-7B, kernels (B1, B10, B11, B7) vs plain: "
+          f"relative L2 of the logits, prefill ({s_} tokens: a 1280 x 720 jpeg's 1,196 "
+          f"placeholders, {rows} packed rows) {rel_pre:.3e}, {QWEN2VL_AGREE_STEPS} decode steps "
+          f"{rel_dec:.3e} (tol {LLAVA_AGREE_TOL}); |logits| max {pre_p.abs().max().item():.3f}; "
+          f"ids fed {toks.view(-1).tolist()}; launches {got} (walk {want})", flush=True)
+    check(bool(torch.isfinite(pre_k).all() and torch.isfinite(dec_k).all())
+          and rel_pre <= LLAVA_AGREE_TOL and rel_dec <= LLAVA_AGREE_TOL,
+          f"qwen2vl agree: relative L2 {rel_pre} / {rel_dec}")
+    check(got == want, f"qwen2vl agree: launches {got} != the walk {want}")
+    del pre_k, dec_k, pre_p, dec_p
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------------- qwen2vl serve
+    torch.cuda.reset_peak_memory_stats()
+    totals, stats = collections.Counter(), collections.defaultdict(list)
+
+    def request(kind, jpegs, seed, new_tokens):
+        """(seconds, processor seconds, tokens, inputs) of one request: the
+        jpegs decoded and processed, then `generate` (eos off)."""
+        zero()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc, ids, pos = process(kind, jpegs, seed)
+        t_proc = time.perf_counter() - t0
+        out = model.generate(ids, pos, *vis(enc), max_new_tokens=new_tokens, eos_token_id=-1)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, t_proc, out, (enc, ids, pos)
+
+    def prefill_logits(enc, ids, pos, slots):
+        with torch.inference_mode():
+            logits, _ = model(ids, pos, *vis(enc), cache=model.init_cache(1, slots),
+                              positions=torch.arange(ids.shape[1], device=dev)[None])
+        return logits
+
+    for kind, make in kinds.items():
+        for i in range(QWEN2VL_REQUESTS):
+            jpegs = make(i)
+            runs = []
+            for n_new in (1, NEW_TOKENS):
+                runs.append(request(kind, jpegs, i, n_new))
+                enc, ids, pos = runs[-1][3]
+                got = launches()
+                want = walk(ids.shape[1], n_new, enc["pixel_patches"].shape[1])
+                totals.update(got)
+                check(got == want, f"qwen2vl serve ({kind}): launches {got} != the walk {want}")
+            (ttft, _, first, _), (seconds, t_proc, out, (enc, ids, pos)) = runs
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                model.encode_images(*vis(enc))
+            torch.cuda.synchronize()
+            t_vis = time.perf_counter() - t0
+            tps = (NEW_TOKENS - 1) / (seconds - ttft)
+            row = dict(seconds=seconds, processor=t_proc, vision=t_vis,
+                       prefill=ttft - t_proc - t_vis, decode=seconds - ttft, ttft=ttft,
+                       tokens_per_s=tps, prompt=ids.shape[1], rows=enc["pixel_patches"].shape[1])
+            stats[kind].append(row)
+            print(f"[qwen2vl serve] {kind} request {i} ({ids.shape[1]} prompt ids, "
+                  f"{enc['num_patches']} patches in {row['rows']} rows, grids "
+                  f"{enc['image_grid_thw'].tolist()}): {seconds:.3f} s for {NEW_TOKENS} tokens = "
+                  f"processor {1e3 * t_proc:.1f} + vision tower {1e3 * t_vis:.1f} + prefill "
+                  f"{1e3 * row['prefill']:.1f} + decode {1e3 * row['decode']:.1f} ms | TTFT "
+                  f"{1e3 * ttft:.1f} ms | decode {tps:.2f} tokens/s | tokens "
+                  f"{out[0, :8].tolist()}...", flush=True)
+            check(out.shape == (1, NEW_TOKENS) and out.dtype == torch.int32,
+                  f"qwen2vl serve: tokens {tuple(out.shape)} {out.dtype}")
+            check(bool(((out >= 0) & (out < cfg.text.vocab_size)).all()),
+                  "qwen2vl serve: a token outside the vocab")
+            short_l, long_l = (prefill_logits(enc, ids, pos, ids.shape[1] + n)
+                               for n in (1, NEW_TOKENS))
+            spare = (short_l.float() - long_l.float()).abs().max().item()
+            print(f"[qwen2vl serve]   {kind} request {i}: prefill logits over {ids.shape[1] + 1} "
+                  f"and {ids.shape[1] + NEW_TOKENS} cache slots: max difference {spare:.3e} (must "
+                  f"be 0); first tokens {int(first[0, 0])} / {int(out[0, 0])}", flush=True)
+            check(torch.equal(short_l, long_l) and int(out[0, 0]) == int(first[0, 0]),
+                  f"qwen2vl serve: the prefill depends on the cache's spare slots ({spare})")
+            del short_l, long_l
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    jpegs = kinds["image"](0)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        seconds, _, _, (enc, ids, _) = request("image", jpegs, 0, NEW_TOKENS)
+    got = launches()
+    totals.update(got)
+    check(got == walk(ids.shape[1], NEW_TOKENS, enc["pixel_patches"].shape[1]),
+          f"qwen2vl serve: profiled request launches {got}")
+    device_ms = kernel_breakdown("qwen2vl serve", "profiled image request", prof, 12)
+    by_category = collections.Counter()
+    for e in prof.key_averages():
+        if e.self_device_time_total > 0:
+            by_category[kernel_category(e.key)] += e.self_device_time_total / 1e3
+    busy = device_ms / 1e3 / seconds
+
+    def med(kind, key):
+        return sorted(r[key] for r in stats[kind])[len(stats[kind]) // 2]
+
+    medians = {kind: {key: med(kind, key) for key in ("seconds", "processor", "vision",
+                                                      "prefill", "decode", "ttft",
+                                                      "tokens_per_s")} for kind in stats}
+    print(f"[qwen2vl serve] profiled image request: {seconds:.3f} s, {device_ms:.2f} ms of "
+          f"device time (busy {100 * busy:.1f}%), by category "
+          f"{ {k: round(v, 3) for k, v in by_category.most_common()} }; peak memory "
+          f"{peak:.2f} GiB; medians of {QWEN2VL_REQUESTS} a kind: "
+          f"{ {k: {kk: round(vv, 4) for kk, vv in v.items()} for k, v in medians.items()} }; "
+          f"launches over the phase {dict(totals)} ({card})", flush=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(totals), dict(build_s=t_build, io=io_stats, requests=dict(stats),
+                              medians=medians, profiled_seconds=seconds, device_ms=device_ms,
+                              busy=busy, by_category=dict(by_category), peak_gib=peak)
+
+
 def main():
     import types
 
@@ -6029,6 +6486,12 @@ def main():
                                                        record, gn_case, card)
     launches_sdxl_dir, sdxl_dir_stats = sdxl_dir_slice(torch, np, dev, gen, every, card)
 
+    # ------------------------------------------------------- Qwen2-VL slice
+    gc.collect()
+    torch.cuda.empty_cache()
+    qwen2vl_kernels(torch, F, dev, gen, record, tmods)
+    launches_qwen2vl, qwen2vl_stats = qwen2vl_slice(torch, np, dev, tmods, every, card)
+
     # --------------------------------------------------------------- summary
     def entry(name, route, source, replaces, by_phase):
         # ms / plain_ms / library_ms / bound at the first shape listed;
@@ -6075,7 +6538,8 @@ def main():
         entry("flash_attention", "cuda", "paddlemix_tpu_torch/csrc/flash_fwd.cu",
               "paddlemix_tpu/ops/attention.py:168",
               dict(sdxl("flash_attention"), sft_main=launches_sft["flash_attention"],
-                   sft_eval=launches_sft_eval["flash_attention"])),
+                   sft_eval=launches_sft_eval["flash_attention"],
+                   qwen2vl=launches_qwen2vl["flash_attention"])),
         entry("group_norm", "cuda", "paddlemix_tpu_torch/csrc/norms.cu",
               "paddlemix_tpu/ops/norms.py:462", sdxl("group_norm")),
         entry("group_norm_stats", "cuda", "paddlemix_tpu_torch/csrc/norms.cu",
@@ -6096,10 +6560,12 @@ def main():
         entry("decode_attention", "cuda", "paddlemix_tpu_torch/csrc/decode_attention.cu",
               "paddlemix_tpu/ops/decode_attention.py:68",
               dict(llava("decode_attention"), **llama_phases("decode_attention"),
-                   blip2=launches_blip2["decode_attention"])),
+                   blip2=launches_blip2["decode_attention"],
+                   qwen2vl=launches_qwen2vl["decode_attention"])),
         entry("rms_norm", "cuda", "paddlemix_tpu_torch/csrc/norms.cu",
               "paddlemix_tpu/ops/norms.py:148",
-              dict(llava("rms_norm"), **llama_phases("rms_norm"))),
+              dict(llava("rms_norm"), **llama_phases("rms_norm"),
+                   qwen2vl=launches_qwen2vl["rms_norm"])),
         entry("adaptive_layer_norm", "cuda", "paddlemix_tpu_torch/csrc/norms.cu",
               "paddlemix_tpu/ops/norms.py:261", {"sd3": launches_sd3["adaptive_layer_norm"]}),
         entry("fused_adaln_scale_residual", "cuda", "paddlemix_tpu_torch/csrc/norms.cu",
@@ -6129,6 +6595,7 @@ def main():
                "clip": launches_clip["layer_norm"], "clip_train": launches_clip_tr["layer_norm"],
                **{phase: got["layer_norm"] for phase, got in launches_eva.items()},
                "blip2": launches_blip2["layer_norm"], "sdxl_dir": launches_sdxl_dir["layer_norm"],
+               "qwen2vl": launches_qwen2vl["layer_norm"],
                **{phase: launches_dir[phase]["layer_norm"]
                   for phase in ("sd15_dir", "db_lora", "db_full")}}),
         entry("layer_norm_backward", "cuda", "paddlemix_tpu_torch/csrc/norms.cu",
@@ -6164,9 +6631,17 @@ def main():
                 for d_ in (40, 80, 160, 256, 32, 24, 20)
                 for name, line in (("flash_bwd_dkv", 386), ("flash_bwd_dq", 422))]
     by_name = {k["name"]: k for k in kernels}
-    # the BLIP-2 path's shapes of B10 and B7, each case as the line's first shape
-    for name, shapes in (("layer_norm", BLIP2_LN_SHAPES), ("decode_attention", BLIP2_DECODE_CASES)):
-        by_name[name]["blip2_shapes"] = [
+    # the BLIP-2 and Qwen2-VL paths' shapes of B10, B7, B11 and B1, each case
+    # as the line's first shape
+    for key, name, shapes in (
+            ("blip2_shapes", "layer_norm", BLIP2_LN_SHAPES),
+            ("blip2_shapes", "decode_attention", BLIP2_DECODE_CASES),
+            ("qwen2vl_shapes", "decode_attention", QWEN2VL_DECODE_CASES),
+            ("qwen2vl_shapes", "rms_norm", QWEN2VL_RMS_SHAPES),
+            ("qwen2vl_shapes", "layer_norm", [sh[:2] for sh in QWEN2VL_LN_SHAPES]),
+            ("qwen2vl_shapes", "flash_attention", [(1, s_, 16, 80, tuple(lengths))
+                                                   for s_, lengths in QWEN2VL_FLASH_LAYOUTS])):
+        by_name[name][key] = [
             {"shape": list(r["shape"]), "ms": r["ms"], "plain_ms": r["plain_ms"],
              "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": r["library_ms"],
              "max_abs_err": r["err"]}
@@ -6219,6 +6694,8 @@ def main():
         [("layer_norm", phase) for phase in launches_eva] + \
         [("layer_norm_backward", phase) for phase in ("clip_train", "eva_train", "clip_main")] + \
         [("layer_norm", "blip2"), ("decode_attention", "blip2")] + \
+        [(name, "qwen2vl") for name in ("flash_attention", "layer_norm", "rms_norm",
+                                        "decode_attention")] + \
         [(name, phase) for phase in ("sd15_train",) + dir_train for name in (
             "flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq", "group_norm",
             "flash_fwd_lse_d40", "flash_fwd_lse_d80", "flash_fwd_lse_d160",
@@ -6242,6 +6719,7 @@ def main():
     print(f"[summary] blip2: {blip2_stats}", flush=True)
     print(f"[summary] sd15 dir: {dir_stats} ({card})", flush=True)
     print(f"[summary] sdxl dir: {sdxl_dir_stats} ({card})", flush=True)
+    print(f"[summary] qwen2vl: {qwen2vl_stats} ({card})", flush=True)
     print(f"[summary] chip_smoke ran {time.perf_counter() - T_START:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -19,6 +19,7 @@ from .core.config import resolve_file
 # model_type -> (module, config class, model class)
 _MODEL_REGISTRY = {
     "llama": ("paddlemix_tpu_torch.models.llama", "LlamaConfig", "LlamaForCausalLM"),
+    "qwen2": ("paddlemix_tpu_torch.models.llama", "LlamaConfig", "LlamaForCausalLM"),
     "llava": ("paddlemix_tpu_torch.models.llava", "LlavaConfig",
               "LlavaForConditionalGeneration"),
     "clip": ("paddlemix_tpu_torch.models.clip", "CLIPConfig", "CLIPModel"),
@@ -28,6 +29,8 @@ _MODEL_REGISTRY = {
                "Blip2ForConditionalGeneration"),
     "blip2": ("paddlemix_tpu_torch.models.blip2", "Blip2Config",
               "Blip2ForConditionalGeneration"),
+    "qwen2_vl": ("paddlemix_tpu_torch.models.qwen2_vl", "Qwen2VLConfig",
+                 "Qwen2VLForConditionalGeneration"),
     "unet_2d_condition": ("paddlemix_tpu_torch.diffusers.models", "UNet2DConditionConfig",
                           "UNet2DConditionModel"),
     "autoencoder_kl": ("paddlemix_tpu_torch.diffusers.models", "AutoencoderKLConfig",
@@ -69,7 +72,7 @@ class AutoModel:
     @classmethod
     def from_pretrained(cls, path: str, **kwargs):
         """`from_pretrained(path, **kwargs)` of the directory's model class
-        (device, dtype: see each class; the Llama, LLaVA, UNet and VAE take
+        (device, dtype: see each class; the Llama, LLaVA, Qwen2-VL, UNet and VAE take
         `dtype` as their parameters' dtype, the CLIP family and BLIP-2 as the
         compute dtype over fp32 parameters; the UNet and the VAE also take
         `subfolder`)."""

@@ -223,6 +223,56 @@ def llava_key_to_flax(key: str) -> str:
 LLAVA_KEY_MAP: KeyMap = llava_key_to_flax
 
 
+# paddlemix_tpu/models/qwen2_vl/modeling.py: the port's Qwen2-VL names its
+# vision tower's modules as the JAX Qwen2VisionTransformer does (blocks a
+# ModuleList, `patch_embed` a bias-less Dense of the flattened patch), and
+# holds its language model as a LlamaForCausalLM (HF's Qwen2 names)
+_QWEN2_VL_VISION_KEY_MAP: KeyMap = (
+    (r"\.blocks\.(\d+)\.", r".blocks_\1."),
+    (r"(norm\d|merger_ln)\.weight$", r"\1.scale"),
+    (r"\.weight$", r".kernel"),
+)
+
+
+def qwen2_vl_key_to_flax(key: str) -> str:
+    """A `Qwen2VLForConditionalGeneration` key -> the JAX Qwen2VLModule's flax
+    key: the tower (`visual.*`) by its own map, the language model
+    (`language_model.model.*`, `language_model.lm_head.*`) through
+    LLAMA_KEY_MAP under `language_model.`."""
+    if key.startswith("language_model."):
+        return "language_model." + torch_key_to_flax(key[len("language_model."):],
+                                                     LLAMA_KEY_MAP)
+    return torch_key_to_flax(key, _QWEN2_VL_VISION_KEY_MAP)
+
+
+QWEN2_VL_KEY_MAP: KeyMap = qwen2_vl_key_to_flax
+
+# paddlemix_tpu/models/qwen2_vl/modeling.py Qwen2VLForConditionalGeneration
+# .convert_foreign_state_dict: HF's Qwen2-VL keys (the published checkpoints'
+# `model.*`, `lm_head.*`, `visual.*`) -> the JAX module's, before the shared
+# pass it hands convert_torch_state_dict
+QWEN2_VL_HF_RENAMES: KeyMap = (
+    (r"^model\.", "language_model."),
+    (r"^lm_head\.", "language_model.lm_head."),
+    (r"^language_model\.language_model\.", "language_model."),
+    (r"language_model\.embed_tokens\.weight$", "language_model.embed_tokens.embedding"),
+    (r"\.layers\.(\d+)\.", r".layers_\1."),
+    (r"^visual\.patch_embed\.proj\.weight$", "visual.patch_embed.weight"),
+    (r"^visual\.blocks\.(\d+)\.", r"visual.blocks_\1."),
+    (r"\.attn\.qkv\.", ".qkv."),
+    (r"\.attn\.proj\.", ".proj."),
+    (r"\.mlp\.fc1\.", ".fc1."),
+    (r"\.mlp\.fc2\.", ".fc2."),
+    (r"^visual\.merger\.ln_q\.", "visual.merger_ln."),
+    (r"^visual\.merger\.mlp\.0\.", "visual.merger_fc1."),
+    (r"^visual\.merger\.mlp\.2\.", "visual.merger_fc2."),
+)
+QWEN2_VL_HF_SHARED: KeyMap = (
+    (r"(layernorm|_ln|ln_q|norm\d?|norm)\.weight$", r"\1.scale"),
+    (r"\.weight$", r".kernel"),
+)
+
+
 def torch_key_to_flax(key: str, key_map: KeyMap) -> str:
     if callable(key_map):
         return key_map(key)

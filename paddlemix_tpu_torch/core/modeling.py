@@ -58,11 +58,6 @@ _EMBEDDING_MARKERS = ("embedding", "embed_tokens", ".wte.", ".wpe.", ".shared.",
                       "embed_positions")
 
 
-def _numpy(t: torch.Tensor) -> np.ndarray:
-    """Floats as fp32 (numpy has no bf16), integers as they are."""
-    return (t.float() if t.is_floating_point() else t).numpy()
-
-
 def load_flat_state(path: str, subfolder: Optional[str] = None) -> Dict[str, torch.Tensor]:
     """The tensors of the weights file(s) in directory `path` (or its
     `subfolder`), by key, in their stored dtype (CPU tensors over the mapped
@@ -138,9 +133,9 @@ def from_pretrained(model_class, config_class, key_map: KeyMap, path: str, *, de
     nothing of the model's size is converted on the host. Torch-keyed weights lose the keys that
     match a pattern of `unused` (ones the model has no parameter for, as the
     JAX loader drops them), then go through `convert` (a model's copy of the
-    JAX package's `convert_foreign_state_dict`, which takes numpy arrays,
-    floats as fp32) where given, else `convert_torch_state_dict` with
-    `key_map`. With `drop_unexpected`, flax keys the model has no parameter
+    JAX package's `convert_foreign_state_dict`, taking the stored tensors,
+    views of the mapped files, in their own dtypes) where given, else
+    `convert_torch_state_dict` with `key_map`. With `drop_unexpected`, flax keys the model has no parameter
     for are dropped with a warning (the JAX loader's unexpected keys); else
     they are refused with the missing and mis-shaped ones."""
     config = config_class.from_pretrained(path, subfolder=subfolder)
@@ -155,8 +150,7 @@ def from_pretrained(model_class, config_class, key_map: KeyMap, path: str, *, de
     expected = {torch_key_to_flax(k, key_map): v.ndim for k, v in model.state_dict().items()}
     if not set(expected) <= set(flat):  # torch keys: through the key map
         flat = {k: v for k, v in flat.items() if not any(re.match(p, k) for p in unused)}
-        flat = convert({k: _numpy(v) for k, v in flat.items()}) if convert is not None \
-            else convert_torch_state_dict(flat, key_map)
+        flat = convert(flat) if convert is not None else convert_torch_state_dict(flat, key_map)
     # a 0-d parameter (the logit scale) may come back from safetensors as (1,)
     flat = {k: v.reshape(()) if expected.get(k) == 0 and tuple(v.shape) == (1,) else v
             for k, v in flat.items()}
@@ -186,7 +180,19 @@ def save_pretrained(model: torch.nn.Module, directory: str, key_map: Optional[Ke
     os.makedirs(directory, exist_ok=True)
     model.config.save_pretrained(directory)
     flat = torch_to_flax_state_dict(model, key_map)
-    flat = {k: flat[k] for k in sorted(flat, key=lambda k: k.split("."))}
+    return save_state_dict({k: flat[k] for k in sorted(flat, key=lambda k: k.split("."))},
+                           directory, max_shard_bytes)
+
+
+def save_state_dict(flat: Dict[str, torch.Tensor], directory: str,
+                    max_shard_bytes: int = MAX_SHARD_BYTES) -> Dict[str, int]:
+    """Write `flat` ({key: tensor}) into `directory` as one
+    `model.safetensors` up to `max_shard_bytes`, else as shards of at most
+    that many bytes (a tensor larger than that alone), filled in `flat`'s
+    order and named `model-0000i-of-0000n.safetensors` (JAX's and
+    transformers' names), with `model.safetensors.index.json`. Returns {file
+    name: bytes}."""
+    os.makedirs(directory, exist_ok=True)
     sizes = {k: v.numel() * v.element_size() for k, v in flat.items()}
     total = sum(sizes.values())
     if total <= max_shard_bytes:

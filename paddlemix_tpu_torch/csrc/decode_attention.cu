@@ -6,7 +6,8 @@
 // bf16 contiguous, k and v (B, L, KVH, D) with unit stride over D and any
 // other strides (a slice of the layer-major cache), the scales (B, L, KVH)
 // with any strides, lengths (B,) int32 on the device, G = Hq / KVH query heads
-// per kv head (GQA), D = 64 or 128, and for the bf16 cache also 80 (OPT-2.7B's
+// per kv head (GQA: 1, 2, 4 or 8, and for the bf16 cache also 7, Qwen2-7B's 28
+// heads on 4), D = 64 or 128, and for the bf16 cache also 80 (OPT-2.7B's
 // 2,560 / 32 heads, BLIP-2's language model).
 //
 // Replaces the Pallas kernels decode_attention / _decode_kernel (B7) and
@@ -146,7 +147,9 @@ struct Shape {
   static constexpr int NST = G >= 4 ? 3 : 4;           // stages of a warp's ring
   static constexpr int KV_BYTES = 2 * U * 32 * LB;     // a stage: K and V, lane by lane,
   static constexpr int STAGE_BYTES = KV_BYTES + (INT8 ? 2 * U * RPW * 4 : 0);  // + B8's scales
-  static constexpr int MIN_BLOCKS = G >= 8 ? 4 : 8;    // resident blocks an SM
+  // resident blocks an SM: 8 leaves 128 registers a thread, which G 4's q,
+  // acc, m and l fit (116); G 7 and 8 hold nearly twice as many and take 4
+  static constexpr int MIN_BLOCKS = G >= 7 ? 4 : 8;
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -494,6 +497,9 @@ cudaError_t dispatch_g(int G, const Args& a, cudaStream_t stream) {
     case 2: return launch<D, 2, T>(a, stream);
     case 4: return launch<D, 4, T>(a, stream);
     case 8: return launch<D, 8, T>(a, stream);
+    case 7:  // the bf16 cache alone (B7: Qwen2-VL-7B's GQA); B8 stays at 1, 2, 4, 8
+      if constexpr (sizeof(T) == 2) return launch<D, 7, T>(a, stream);
+      return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
 }
@@ -556,6 +562,7 @@ extern "C" int decode_attention_blocks_per_sm(int D, int G, int int8) {
 #define DECODE_OCC_BF16(d, g) \
   if (D == d && G == g && !int8) return prepare<d, g, __nv_bfloat16>();
   DECODE_OCC_BF16(80, 1) DECODE_OCC_BF16(80, 2) DECODE_OCC_BF16(80, 4) DECODE_OCC_BF16(80, 8)
+  DECODE_OCC_BF16(64, 7) DECODE_OCC_BF16(80, 7) DECODE_OCC_BF16(128, 7)
 #undef DECODE_OCC_BF16
   return -1;
 }

@@ -30,7 +30,6 @@ from __future__ import annotations
 import re
 from typing import Dict, Optional
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -229,7 +228,7 @@ _HF_UNUSED = (r"^language_model\.lm_head\.", r"^qformer\.embeddings\.",
                r"^qformer\.encoder\.layer\.\d+\.(intermediate|output)\.")
 
 
-def convert_hf_state_dict(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+def convert_hf_state_dict(flat: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """HF Blip2 (OPT) torch weights -> the JAX Blip2Module's flax keys and
     layouts: the tower's fused `qkv` weight and bias split into q / k / v,
     its `projection` renamed `out_proj`, the renames of the JAX package's
@@ -242,8 +241,7 @@ def convert_hf_state_dict(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     for k in list(flat):
         m = re.match(r"^(vision_model\.encoder\.layers\.\d+\.self_attn\.)qkv\.(weight|bias)$", k)
         if m:
-            for name, part in zip(("q_proj", "k_proj", "v_proj"),
-                                  np.split(np.asarray(flat.pop(k)), 3, axis=0)):
+            for name, part in zip(("q_proj", "k_proj", "v_proj"), flat.pop(k).chunk(3, dim=0)):
                 flat[f"{m.group(1)}{name}.{m.group(2)}"] = part
         elif k.startswith("vision_model") and ".self_attn.projection." in k:
             flat[k.replace(".projection.", ".out_proj.")] = flat.pop(k)

@@ -354,7 +354,7 @@ class LlamaModule(nn.Module):
         return self.embed_tokens(input_ids)
 
     def forward(self, input_ids=None, positions=None, *, inputs_embeds=None, segment_ids=None,
-                cache=None):
+                cache=None, rope=None):
         """Returns the final hidden states. With a cache, writes this step's
         keys and values into it (a `KVCache`, `Int8KVCache` or
         `PagedKVCache`), taking the paged cache's blocks once for all layers,
@@ -362,13 +362,17 @@ class LlamaModule(nn.Module):
         one (training), attention is causal within each row and, given
         `segment_ids` (a `SegmentIds`), within each segment; under
         `config.gradient_checkpointing` and autograd each layer is recomputed
-        in the backward (the JAX `nn.remat` per layer)."""
+        in the backward (the JAX `nn.remat` per layer). `rope`: precomputed
+        (cos, sin) (B, S, head_dim) in place of `rope_cos_sin(positions)`
+        (the JAX `rope_override`: Qwen2-VL's M-RoPE); the cache is written at
+        `positions` all the same."""
         cfg = self.config
         x = self.embed_tokens(input_ids) if inputs_embeds is None else inputs_embeds
         b, s = x.shape[:2]
         if positions is None:
             positions = torch.arange(s, device=x.device).expand(b, s)
-        cos, sin = rope_cos_sin(positions, cfg.head_dim_, cfg.rope_theta)
+        cos, sin = rope_cos_sin(positions, cfg.head_dim_, cfg.rope_theta) if rope is None \
+            else rope
         if cache is None:
             step = _Step(cos, sin, positions, segment_ids=segment_ids)
             remat = cfg.gradient_checkpointing and torch.is_grad_enabled()
@@ -432,10 +436,10 @@ class LlamaForCausalLM(nn.Module):
         return self.model.embed(input_ids)
 
     def forward(self, input_ids=None, positions=None, *, inputs_embeds=None, segment_ids=None,
-                cache=None):
+                cache=None, rope=None):
         """-> (logits (B, S, vocab), cache); see `LlamaModule.forward`."""
         hidden = self.model(input_ids, positions, inputs_embeds=inputs_embeds,
-                            segment_ids=segment_ids, cache=cache)
+                            segment_ids=segment_ids, cache=cache, rope=rope)
         if self.lm_head is None:
             return F.linear(hidden, self.model.embed_tokens.weight), cache
         return self.lm_head(hidden), cache
@@ -497,7 +501,7 @@ def greedy_generate(model: LlamaForCausalLM, input_ids, attention_mask=None,
                     max_new_tokens: int = 32, eos_token_id: Optional[int] = None,
                     sampling: SamplingConfig = SamplingConfig(),
                     generator: Optional[torch.Generator] = None, inputs_embeds=None,
-                    cache=None):
+                    cache=None, rope=None, rope_delta=None):
     """Prefill, then one cached forward per new token (port of
     `greedy_generate`). `model` is a LlamaForCausalLM or any model of its call
     surface (`forward(input_ids, positions, *, inputs_embeds, cache)` -> (logits,
@@ -510,7 +514,11 @@ def greedy_generate(model: LlamaForCausalLM, input_ids, attention_mask=None,
     needs no bucket. The all-done test reads the device, so it runs only
     when the eos id is >= 0 (the LLaVA bench passes -1: every request makes
     max_new_tokens tokens). `cache`: an empty cache of at least S +
-    max_new_tokens slots to fill, `model.init_cache`'s by default."""
+    max_new_tokens slots to fill, `model.init_cache`'s by default. `rope`: the
+    prefill's (cos, sin) in place of its positions' (`LlamaModule.forward`),
+    and `rope_delta` (B,): each decode step's rope position is its cache
+    position plus this (Qwen2-VL's M-RoPE, whose decode streams are equal:
+    the prompt's largest position + 1 - its length, HF's `rope_deltas`)."""
     eos = model.config.eos_token_id if eos_token_id is None else eos_token_id
     dev = model.device
     input_ids = input_ids.to(dev)
@@ -519,7 +527,8 @@ def greedy_generate(model: LlamaForCausalLM, input_ids, attention_mask=None,
             else attention_mask.to(dev).int())
     cache = model.init_cache(b, s + max_new_tokens) if cache is None else cache
     positions = torch.where(mask > 0, mask.cumsum(dim=-1) - 1, -1)
-    logits, cache = model(input_ids, positions, inputs_embeds=inputs_embeds, cache=cache)
+    logits, cache = model(input_ids, positions, inputs_embeds=inputs_embeds, cache=cache,
+                          **({} if rope is None else dict(rope=rope)))
     last = logits[torch.arange(b, device=dev), mask.sum(dim=-1) - 1]
     tokens = torch.zeros((b, max_new_tokens), dtype=torch.int32, device=dev)
     tokens[:, 0] = sample_token(last.float(), sampling, generator)
@@ -527,7 +536,11 @@ def greedy_generate(model: LlamaForCausalLM, input_ids, attention_mask=None,
     for step in range(max_new_tokens - 1):
         if eos >= 0 and bool(done.all()):
             break
-        logits, cache = model(tokens[:, step:step + 1], cache.lengths[:, None], cache=cache)
+        pos, kw = cache.lengths[:, None], {}
+        if rope_delta is not None:
+            cfg = model.config
+            kw = dict(rope=rope_cos_sin(pos + rope_delta[:, None], cfg.head_dim_, cfg.rope_theta))
+        logits, cache = model(tokens[:, step:step + 1], pos, cache=cache, **kw)
         nxt = sample_token(logits[:, -1].float(), sampling, generator).int()
         tokens[:, step + 1] = torch.where(done, eos, nxt)
         done |= tokens[:, step + 1] == eos

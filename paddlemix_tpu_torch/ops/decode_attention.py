@@ -6,7 +6,9 @@ with per-(token, head) fp32 scales, B8) launch the CUDA kernels of
 `csrc/decode_attention.cu` for CUDA tensors and run their plain versions
 `decode_attention_ref` / `decode_attention_int8_ref` for CPU tensors. GQA maps
 query head j to kv head j // (Hq / KVH), as the JAX package does. B7 takes
-head_dim 64, 80 (OPT-2.7B's, BLIP-2's language model) and 128; B8 64 and 128.
+head_dim 64, 80 (OPT-2.7B's, BLIP-2's language model) and 128, and groups of
+1, 2, 4, 7 (Qwen2-7B's 28 heads on 4, Qwen2-VL's language model) and 8; B8
+64 and 128, and groups of 1, 2, 4 and 8.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ from .autograd import refuse_grad
 NEG = -0.7 * float(torch.finfo(torch.float32).max)
 _KERNEL_HEAD_DIMS = (64, 80, 128)  # B7, the bf16 cache
 _INT8_KERNEL_HEAD_DIMS = (64, 128)  # B8
-_KERNEL_GROUPS = (1, 2, 4, 8)
+_KERNEL_GROUPS = (1, 2, 4, 7, 8)  # B7
+_INT8_KERNEL_GROUPS = (1, 2, 4, 8)  # B8
 _SMS = 132               # an H100 SXM's streaming multiprocessors
 _MIN_SPLIT_KEYS = 16     # fewer keys per block would not pay for its partial
 # blocks of 2 warps an SM a wave: 8 warps an SM, the best point at every
@@ -36,7 +39,7 @@ def kernel_blocks_per_sm(d: int, group: int, int8: bool) -> int:
     """What the card reports for the kernel at (D, G, cache type):
     cudaOccupancyMaxActiveBlocksPerMultiprocessor after the kernel's
     shared-memory carveout (negative if the query failed or no kernel takes
-    the shape: D 80 is the bf16 cache's alone)."""
+    the shape: D 80 and G 7 are the bf16 cache's alone)."""
     from ..kernels import load_library
 
     fn = load_library("decode_attention").decode_attention_blocks_per_sm
@@ -109,10 +112,12 @@ def _check_decode_args(name, q, k_cache, v_cache, lengths, cache_dtype):
     if one != 1 or tuple(k_cache.shape) != (b, L, kvh, d) or v_cache.shape != k_cache.shape:
         raise ValueError(f"{name}: shapes q {tuple(q.shape)} k {tuple(k_cache.shape)} "
                          f"v {tuple(v_cache.shape)} do not match")
-    dims = _INT8_KERNEL_HEAD_DIMS if cache_dtype == torch.int8 else _KERNEL_HEAD_DIMS
-    if d not in dims or hq % kvh or hq // kvh not in _KERNEL_GROUPS:
+    int8 = cache_dtype == torch.int8
+    dims = _INT8_KERNEL_HEAD_DIMS if int8 else _KERNEL_HEAD_DIMS
+    groups = _INT8_KERNEL_GROUPS if int8 else _KERNEL_GROUPS
+    if d not in dims or hq % kvh or hq // kvh not in groups:
         raise ValueError(f"{name} kernel takes head_dim in {dims} and "
-                         f"Hq / KVH in {_KERNEL_GROUPS}, got D = {d}, Hq = {hq}, KVH = {kvh}")
+                         f"Hq / KVH in {groups}, got D = {d}, Hq = {hq}, KVH = {kvh}")
     if q.dtype != torch.bfloat16 or not q.is_contiguous():
         raise ValueError(f"{name}: q must be a contiguous bf16 tensor, got {q.dtype} "
                          f"strides {q.stride()}")

@@ -19,9 +19,8 @@ from typing import Optional
 import torch
 
 from .autograd import refuse_grad
-from .decode_attention import _KERNEL_GROUPS
-
 _KERNEL_HEAD_DIMS = (64, 128)  # csrc/paged_attention.cu's (B7's also takes 80)
+_KERNEL_GROUPS = (1, 2, 4, 8)  # (B7's also takes 7)
 _TARGET_BLOCKS = 264     # two blocks per SM on a 132-SM card
 _MIN_SPLIT_KEYS = 64     # fewer keys per block would not pay for the merge
 

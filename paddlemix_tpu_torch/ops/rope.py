@@ -1,7 +1,9 @@
-"""Rotary position embeddings (port of paddlemix_tpu/ops/rope.py, the plain
-rope; NTK scaling and Qwen2-VL's M-RoPE are not ported yet), and EVA's 2-D
-vision rope (port of paddlemix_tpu/models/clip/eva.py `vision_rope_2d`,
-`_rotate_interleaved`, `apply_vision_rope`).
+"""Rotary position embeddings (port of paddlemix_tpu/ops/rope.py: the plain
+rope and Qwen2-VL's M-RoPE, `mrope_cos_sin`; NTK scaling is not ported
+yet), Qwen2-VL's (h, w) vision rope (port of the tables of
+paddlemix_tpu/models/qwen2_vl/modeling.py `Qwen2VisionTransformer`), and
+EVA's 2-D vision rope (port of paddlemix_tpu/models/clip/eva.py
+`vision_rope_2d`, `_rotate_interleaved`, `apply_vision_rope`).
 
 Angles are computed in fp32, and cos/sin are cast to q's dtype before the
 multiply, as in the JAX package.
@@ -40,6 +42,35 @@ def apply_rope(q, k, cos, sin):
         cos, sin = cos[None, :, None, :], sin[None, :, None, :]
     cos, sin = cos.to(q.dtype), sin.to(q.dtype)
     return q * cos + rotate_half(q) * sin, k * cos + rotate_half(k) * sin
+
+
+def mrope_cos_sin(position_ids, head_dim: int, mrope_section, theta: float = 10000.0):
+    """Qwen2-VL's M-RoPE: position_ids (3, B, S), the t / h / w streams; the
+    sections (e.g. (16, 24, 24), summing to head_dim // 2) are taken twice
+    over the duplicated halves, section i from stream i % 3. Returns cos / sin
+    (B, S, head_dim). Where the three streams are equal (text, decode steps)
+    this is `rope_cos_sin` of that stream, bit for bit."""
+    cos3, sin3 = rope_cos_sin(position_ids, head_dim, theta)  # (3, B, S, D)
+    cos_parts, sin_parts, offset = [], [], 0
+    for i, sec in enumerate(list(mrope_section) * 2):
+        cos_parts.append(cos3[i % 3, ..., offset:offset + sec])
+        sin_parts.append(sin3[i % 3, ..., offset:offset + sec])
+        offset += sec
+    return torch.cat(cos_parts, dim=-1), torch.cat(sin_parts, dim=-1)
+
+
+def rope_cos_sin_hw(pos_hw, head_dim: int, theta: float = 10000.0):
+    """Qwen2-VL's vision rope: pos_hw (..., P, 2) each patch's (row, column)
+    -> cos / sin (..., P, head_dim) laid out [h, w, h, w] in quarters, h the
+    first quarter of `rope_cos_sin(row, head_dim // 2)`, w that of the
+    column's, for the rotate-half `apply_rope`."""
+    half = head_dim // 2
+    quarter = half // 2
+    cos_h, sin_h = rope_cos_sin(pos_hw[..., 0], half, theta)
+    cos_w, sin_w = rope_cos_sin(pos_hw[..., 1], half, theta)
+    cos = torch.cat([cos_h[..., :quarter], cos_w[..., :quarter]] * 2, dim=-1)
+    sin = torch.cat([sin_h[..., :quarter], sin_w[..., :quarter]] * 2, dim=-1)
+    return cos, sin
 
 
 def vision_rope_2d(grid: int, head_dim: int, pt_seq_len: int = 16, intp_freq: bool = True,

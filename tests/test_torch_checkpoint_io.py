@@ -244,7 +244,8 @@ def test_torch_to_flax_is_the_exact_inverse_of_flax_to_torch(jax_llama):
 @pytest.mark.parametrize("model_type,cls", [
     ("llama", "LlamaForCausalLM"), ("llava", "LlavaForConditionalGeneration"),
     ("clip", "CLIPModel"), ("evaclip", "EVACLIP"), ("opt", "OPTForCausalLM"),
-    ("blip-2", "Blip2ForConditionalGeneration"), ("blip2", "Blip2ForConditionalGeneration")])
+    ("blip-2", "Blip2ForConditionalGeneration"), ("blip2", "Blip2ForConditionalGeneration"),
+    ("qwen2_vl", "Qwen2VLForConditionalGeneration"), ("qwen2", "LlamaForCausalLM")])
 def test_auto_registry_maps_the_ported_families(model_type, cls):
     from paddlemix_tpu.auto import _MODEL_REGISTRY as JAX_REGISTRY
     from paddlemix_tpu_torch.auto import _MODEL_REGISTRY, _load
@@ -252,12 +253,13 @@ def test_auto_registry_maps_the_ported_families(model_type, cls):
     entry = _MODEL_REGISTRY[model_type]
     assert _load(entry, 2).__name__ == cls
     config_class = _load(entry, 1)
-    assert config_class.model_type == model_type or model_type == "blip2"
+    # "blip2" and "qwen2" are other names of "blip-2" and "llama"
+    assert config_class.model_type == model_type or model_type in ("blip2", "qwen2")
     if model_type in JAX_REGISTRY:  # the JAX package's classes of the same names
         assert JAX_REGISTRY[model_type][1:] == entry[1:]
 
 
 def test_auto_model_refuses_an_unported_model_type(tmp_path):
-    (tmp_path / "config.json").write_text(json.dumps({"model_type": "qwen2_vl"}))
-    with pytest.raises(NotImplementedError, match="qwen2_vl"):
+    (tmp_path / "config.json").write_text(json.dumps({"model_type": "qwen_vl"}))
+    with pytest.raises(NotImplementedError, match="qwen_vl"):
         AutoModel.from_pretrained(str(tmp_path), device="cpu")
