@@ -74,7 +74,13 @@ card from a seeded torch.Generator:
     under M-RoPE; 8.29 B bf16 parameters, nothing cut) through
     Qwen2VLImageProcessor, get_rope_index and
     Qwen2VLForConditionalGeneration.generate, read back from a directory in
-    HF's layout: image, two-image and video requests of 128 new tokens.
+    HF's layout: image, two-image and video requests of 128 new tokens;
+  - SD3-medium from its published diffusers directory (written from the
+    seeded bf16 pipeline, read by DiffusionPipeline.from_pretrained with the
+    seeded T5 tokenizer as `tokenizer_3`), served by tools.text_to_image.main,
+    and its transformer fine-tuned by the flow-match loss (fp32 masters, bf16
+    compute, gradient checkpointing per block) through diffusers.sd3's
+    sd3_trainer and Trainer.train at batch 2 on VAE latents of 1024 px jpegs.
 
 Phases:
 
@@ -533,13 +539,16 @@ Phases:
                    F.layer_norm), ptxas counts (B7 at G 7: no spill)
  42b. qwen2vl dir  Qwen2-VL-7B is built (seeded bf16 weights, fp32 norm
                    affines); after a check of the free disk, written in
-                   HF's layout (the published checkpoint's keys and its
-                   5-D patch-embedding tensor, 5 shards) and by
+                   the published layout by qwen2vl7b.save_published (the
+                   published config.json, no text_config: the language
+                   model's fields at the top level, rope_scaling's
+                   mrope_section, in_chans; the published checkpoint's keys
+                   and its 5-D patch-embedding tensor, 5 shards) and by
                    save_pretrained (flax keys), each read back by
-                   Qwen2VLForConditionalGeneration.from_pretrained in bf16,
-                   every tensor bit-equal: seconds and GB/s each way; the
-                   model served below is the one read from the HF layout;
-                   the directory removed
+                   Qwen2VLForConditionalGeneration.from_pretrained in bf16:
+                   the same config and every tensor bit-equal, seconds and
+                   GB/s each way; the model served below is the one read
+                   from the published layout; the directory removed
  42c. qwen2vl      the image request's prefill logits (1,230 tokens: a
       agree        1280 x 720 jpeg's 1,196 placeholders between the vision
                    start / end ids, 32 seeded text ids) and 4 decode steps
@@ -558,6 +567,59 @@ Phases:
                    run's bit-equal; launches as walked, no other kernel;
                    one more image request under the profiler: device ms by
                    category and the busy share
+ 43a. sd3 dir      Qwen2-VL is freed; SD3-medium built in bf16 (seeded,
+                   T5's norms fp32); after a check of the free disk under a
+                   temporary directory (removed at the end of 43e, whatever
+                   happens), written by save_published_sd3 in the published
+                   layout and file names (model_index.json, transformer/ and
+                   vae/ in diffusers' keys with diffusers' stored position
+                   table, the text towers in transformers' keys, T5 in 2
+                   shards with their index, the tokenizers, the published
+                   scheduler_config.json; ~15.5 GB) and read back by
+                   DiffusionPipeline.from_pretrained in bf16 with the seeded
+                   T5 tokenizer as tokenizer_3: every tensor of the five
+                   models bit-equal, T5's norms fp32; seconds and GB/s each
+                   way (warm page cache)
+ 43b. sd3 serve    tools.text_to_image.main on the directory (read in bf16,
+                   25 steps at the pipeline's defaults: 1024 px, guidance
+                   7.0; the PNG written; tokenizer_3 passed as a component):
+                   the PNG finite, launches equal to `expected_launches_sd3`
+                   (B1, B4, B10, B11, B12, B13), no other kernel; then a
+                   request on the pipeline read back in 43a, unprofiled and
+                   profiled: seconds, device ms, busy share, peak memory;
+                   then the training inputs: SD3_TRAIN_IMAGES seeded 1024 px
+                   jpegs through the VAE encoder ((mode - shift) * scale, as
+                   the pipeline's decode inverts it; B4) and as many prompts
+                   through encode_prompt (B10, B11), launches as walked; the
+                   pipeline freed
+ 43c. sd3 train    B15 and B14 per element at (2, 4250, 24, 64), non-causal,
+      kernels      the joint attention of a training batch of 2 (4,096 image
+                   + 154 context tokens, a ragged 26-key tail), with the
+                   TRAIN_SUM gate and the controls (the last key tile left
+                   out; di dropped), times, bounds and SDPA's forward and
+                   backward; B12 and B13 under autograd at SD3's rows:
+                   forward gated (ADALN_SUM, the control without the shift
+                   failing) and gradients bit-equal to autograd of the
+                   plain versions
+ 43d. sd3 train    the transformer read from the directory in fp32 masters,
+      agree        bf16 compute, gradient checkpointing per block; one
+                   flow-match micro-batch of 2 at fixed u and noise, kernels
+                   (B15, B14, B12, B13) against two plain versions one
+                   rounding apart (the forward's P rounded to bf16 before
+                   P.V), held as the earlier training agrees
+                   (CLIP_LOSS_RATIO on the loss, TRAIN_AGREE_RATIO on the
+                   gradients' median and largest gap; the control, B14's
+                   dK/dV without di, must fail); checkpointing keeps the
+                   plain attention's (2, 24, 4250, 4250) fp32 logits to one
+                   block at a time; launches as
+                   `expected_launches_sd3_train` walks them (each block's
+                   forward kernels twice)
+ 43e. sd3 train    sd3_trainer (AdamW at lr 1e-5, train_text_to_image's
+                   arguments) for SD3_TRAIN_STEPS steps at batch 2 over the
+                   encoded samples, the last under the profiler: seconds a
+                   step, busy share, B14's share, peak memory, the bytes of
+                   the masters and AdamW state, finite losses, every
+                   parameter moved, launches as walked
 
 Any failed check exits non-zero. Without a CUDA card, or outside a checkout
 of the repository, it exits non-zero before printing any result. The line
@@ -849,6 +911,23 @@ QWEN2VL_RMS_SHAPES = [(1230, 3584), (1, 3584)]  # the image prefill's rows, a de
 QWEN2VL_LN_SHAPES = [(4864, 1280, 1), (9728, 1280, 1)]  # the tower's rows, image and video
 # B1 in the tower: (packed rows, the segments' lengths); the rest are pads, segment 0
 QWEN2VL_FLASH_LAYOUTS = [(4864, (4784,)), (3328, (1564, 1564)), (9728, (9568,))]
+# SD3-medium's directory and its training (phases 43a-43e): the published
+# stabilityai/stable-diffusion-3-medium-diffusers layout written from the
+# seeded bf16 pipeline (diffusers' and transformers' keys, T5 in shards) and
+# read back; tools.text_to_image.main on it (25 steps at the pipeline's
+# defaults: 1024 px, guidance 7.0); then flow-match fine-tuning of the
+# transformer (fp32 masters, bf16 compute, gradient checkpointing per block)
+# through sd3_trainer (train_text_to_image's arguments: AdamW at lr 1e-5) for
+# SD3_TRAIN_STEPS steps of SD3_TRAIN_BATCH over SD3_TRAIN_IMAGES seeded 1024 px
+# jpegs and as many prompts. B15 / B14 at the joint attention's training
+# shape: (B, S, Hq, Hkv, D, causal with segments), 4,096 + 154 tokens, a
+# ragged 26-key tail
+SD3_TRAIN_FLASH_CASES = [(2, 4250, 24, 24, 64, False)]
+SD3_TRAIN_IMAGES = 4
+SD3_TRAIN_PROMPTS = tuple(p for p, _ in SD3_REQUESTS) + ("a red bicycle leaning on a brick wall",)
+SD3_TRAIN_BATCH = 2
+SD3_TRAIN_STEPS = 10
+SD3_AGREE_U = (0.3, 0.8)  # the train agree's fixed draws of u (sigma 0.5625, 0.9231)
 # H100 SXM peaks (NVIDIA data sheet, dense) for the bounds
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
@@ -5009,15 +5088,14 @@ def qwen2vl_slice(torch, np, dev, m, counters, card):
     from PIL import Image
     from torch.profiler import ProfilerActivity, profile
 
-    from paddlemix_tpu_torch.core.modeling import save_state_dict
     from paddlemix_tpu_torch.models.llama import modeling as llama_mod
     from paddlemix_tpu_torch.models.qwen2_vl import (
         Qwen2VLForConditionalGeneration,
         expected_launches_qwen2_vl,
         get_rope_index,
-        hf_state_dict,
         prompt_ids,
         random_qwen2_vl,
+        save_published,
     )
     from paddlemix_tpu_torch.models.qwen2_vl.qwen2vl7b import NEW_TOKENS
     from paddlemix_tpu_torch.processors import Qwen2VLImageProcessor
@@ -5057,9 +5135,8 @@ def qwen2vl_slice(torch, np, dev, m, counters, card):
         for form in ("flax", "hf"):
             path = os.path.join(tmp, form)
             t0 = time.perf_counter()
-            if form == "hf":
-                cfg.save_pretrained(path)
-                files = save_state_dict(hf_state_dict(model), path, max_shard_bytes=4 * 10 ** 9)
+            if form == "hf":  # the published layout: config.json with no text_config
+                files = save_published(model, path)
             else:
                 files = model.save_pretrained(path)
             t_write = time.perf_counter() - t0
@@ -5070,6 +5147,19 @@ def qwen2vl_slice(torch, np, dev, m, counters, card):
             mine = model.state_dict()
             differ = [k for k, t in back.state_dict().items()
                       if t.dtype != mine[k].dtype or not torch.equal(t, mine[k])]
+            same_cfg = (back.config.text, back.config.vision, back.config.mrope_section,
+                        back.config.rope_theta) == (cfg.text, cfg.vision, cfg.mrope_section,
+                                                    cfg.rope_theta)
+            if form == "hf":
+                with open(os.path.join(path, "config.json")) as f:
+                    layout = json.load(f)
+                print(f"[qwen2vl dir] published config.json: no text_config "
+                      f"{'text_config' not in layout}, top-level hidden_size "
+                      f"{layout.get('hidden_size')}, rope_scaling {layout.get('rope_scaling')}, "
+                      f"vision in_chans {layout['vision_config'].get('in_chans')}; read back to "
+                      f"the same config {same_cfg}", flush=True)
+                check("text_config" not in layout, "qwen2vl dir: config.json has a text_config")
+            check(same_cfg, f"qwen2vl dir ({form}): the config read back differs")
             io_stats[form] = dict(write_s=t_write, read_s=t_read, files=len(files))
             print(f"[qwen2vl dir] {form} keys: {len(files)} files {sorted(files)[:2]}..., "
                   f"written in {t_write:.2f} s ({total / 1e9 / t_write:.2f} GB/s), read back in "
@@ -5275,6 +5365,413 @@ def qwen2vl_slice(torch, np, dev, m, counters, card):
     return dict(totals), dict(build_s=t_build, io=io_stats, requests=dict(stats),
                               medians=medians, profiled_seconds=seconds, device_ms=device_ms,
                               busy=busy, by_category=dict(by_category), peak_gib=peak)
+
+
+# ------------------------------------------ SD3-medium directory (43a-43e)
+def sd3_adaln_grad_checks(torch, dev, gen, norms):
+    """B12 and B13 under autograd at SD3's training rows (ADALN_SHAPES): the
+    forward kernel gated per element (ADALN_SUM) and launched once, and the
+    gradients of x, the residual and the modulation rows bit-equal to
+    autograd of the plain version, which is what `with_plain_backward`
+    recomputes (JAX's custom_vjp recomputes through XLA alike); the control,
+    the plain version without the shift, must fail the gate."""
+    bf16 = torch.bfloat16
+    for shape in ADALN_SHAPES:
+        b_, s_, h_ = shape
+        x, res = (torch.randn(shape, generator=gen, device=dev).to(bf16).requires_grad_()
+                  for _ in range(2))
+        mod = torch.randn((b_, 3, h_), generator=gen, device=dev).to(bf16).requires_grad_()
+        g = torch.randn(shape, generator=gen, device=dev).to(bf16)
+        for name, fn, ref_fn, args in (
+                ("adaptive_layer_norm", norms.adaptive_layer_norm, norms.adaptive_layer_norm_ref,
+                 lambda shift: (x, mod[:, 0], shift)),
+                ("fused_adaln_scale_residual", norms.fused_adaln_scale_residual,
+                 norms.fused_adaln_scale_residual_ref,
+                 lambda shift: (res, x, mod[:, 2], mod[:, 0], shift))):
+            before = fn.launches
+            out = fn(*args(mod[:, 1]))
+            torch.cuda.synchronize()
+            launched = fn.launches - before
+            ref = ref_fn(*args(mod[:, 1]))
+            out_y, ref_y = (o[0] if isinstance(o, tuple) else o for o in (out, ref))
+            excess, need = ulp_gate(out_y, ref_y, ADALN_SUM)
+            control = ulp_gate(ref_fn(*args(0 * mod[:, 1]))[0] if isinstance(ref, tuple)
+                               else ref_fn(*args(0 * mod[:, 1])), ref_y, ADALN_SUM)[0]
+            wrt = (x, mod) if name == "adaptive_layer_norm" else (res, x, mod)
+            got = torch.autograd.grad(out_y, wrt, g)
+            want = torch.autograd.grad(ref_y, wrt, g)
+            differ = [i for i, (a_, b_) in enumerate(zip(got, want)) if not torch.equal(a_, b_)]
+            print(f"[sd3 train kernels] {name} {shape} under autograd: forward excess "
+                  f"{excess:.3e} (least c {need:.2e}, c {ADALN_SUM:g}), {launched} launch; "
+                  f"control without the shift {control:.3e} (must be > 0); gradients of "
+                  f"{len(wrt)} inputs against autograd of the plain version: "
+                  f"{len(differ)} differ (max |grad| {max(t.abs().max().item() for t in got):.3e})",
+                  flush=True)
+            check(excess <= 0 and control > 0 and launched == 1 and not differ
+                  and all(bool(torch.isfinite(t).all()) for t in got),
+                  f"sd3 train kernels: {name} {shape}: excess {excess}, control {control}, "
+                  f"{launched} launches, gradients differing {differ}")
+        del x, res, mod, g, out, ref, got, want
+
+
+def sd3_dir_slice(torch, F, np, dev, gen, m, counters, record, card):
+    """Phases 43a-43e (see the module docstring): SD3-medium's directory in
+    the published layout, written, read back and served through
+    tools.text_to_image.main, then fine-tuned by the flow-match loss through
+    the Trainer. Everything is written under one temporary directory, removed
+    in a `finally`. `counters` are every kernel wrapper's, by name. Returns
+    ({phase: launches}, the numbers)."""
+    import io
+    import shutil
+    import tempfile
+
+    from PIL import Image
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddlemix_tpu_torch.diffusers import (
+        DiffusionPipeline,
+        FlowMatchEulerDiscreteScheduler,
+        SD3Transformer2DModel,
+    )
+    from paddlemix_tpu_torch.diffusers import training_utils
+    from paddlemix_tpu_torch.diffusers.models import transformer_sd3 as sd3_mod
+    from paddlemix_tpu_torch.diffusers.models.resnet import n_group_norms
+    from paddlemix_tpu_torch.diffusers.sd3 import (
+        expected_launches_sd3,
+        expected_launches_sd3_train,
+        image_latents,
+        random_sd3_pipeline,
+        save_published_sd3,
+        sd3_trainer,
+        seeded_t5_tokenizer,
+    )
+    from paddlemix_tpu_torch.models.layers import n_layer_norms, set_compute_dtype
+    from paddlemix_tpu_torch.models.t5 import T5LayerNorm
+    from paddlemix_tpu_torch.tools import text_to_image
+    from paddlemix_tpu_torch.trainer.train_state import train_state_dict
+
+    bf16 = torch.bfloat16
+    attn, norms = m.attn, m.norms
+    models = ("transformer", "vae", "text_encoder", "text_encoder_2", "text_encoder_3")
+    phases, stats = {}, {}
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def launches():
+        return {name: fn.launches for name, fn in counters.items()}
+
+    def walk(*parts):
+        total = collections.Counter()
+        for part in parts:
+            total.update({k: v for k, v in part.items() if k in counters})
+        return {name: total.get(name, 0) for name in counters}
+
+    tmp = tempfile.mkdtemp(prefix="pmix_smoke_sd3_dir_")
+    try:
+        # ------------------------------------------------- 43a the directory
+        t0 = time.perf_counter()
+        pipe = random_sd3_pipeline(dev, bf16, seed=0, tokenizer=specials_tokenizer(),
+                                   tokenizer_3=seeded_t5_tokenizer(SD3_T5_SEED))
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        nbytes_ = {n: sum(t.numel() * t.element_size() for t in getattr(pipe, n).state_dict()
+                          .values()) for n in models}
+        total = sum(nbytes_.values())
+        need = total + 2 ** 30  # and diffusers' stored position table
+        free = shutil.disk_usage(tmp).free
+        print(f"[sd3 dir] SD3-medium built in bf16 in {t_build:.1f} s "
+              f"({', '.join(f'{n} {b_ / 1e9:.3f} GB' for n, b_ in nbytes_.items())}); {tmp}: "
+              f"{free / 1e9:.1f} GB free, this phase needs {need / 1e9:.1f} GB", flush=True)
+        check(free >= need, f"sd3 dir: {free / 1e9:.1f} GB free under {tmp}, "
+              f"{need / 1e9:.1f} GB needed (set TMPDIR to a larger disk)")
+        path = os.path.join(tmp, "sd3-medium")
+        t0 = time.perf_counter()
+        files = save_published_sd3(pipe, path)
+        t_write = time.perf_counter() - t0
+        written = sum(files.values())
+        tok3 = seeded_t5_tokenizer(SD3_T5_SEED)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        back = DiffusionPipeline.from_pretrained(path, dtype=bf16, device=dev, tokenizer_3=tok3)
+        torch.cuda.synchronize()
+        t_read = time.perf_counter() - t0
+        unequal = []
+        for name in models:
+            mine, theirs = getattr(pipe, name).state_dict(), getattr(back, name).state_dict()
+            unequal += [f"{name}: keys differ"] if mine.keys() != theirs.keys() else [
+                f"{name}.{k}" for k, v in mine.items()
+                if not (v.dtype == theirs[k].dtype and torch.equal(v, theirs[k]))]
+        fp32_norms = all(mod_.weight.dtype == torch.float32 for mod_ in back.text_encoder_3.modules()
+                         if isinstance(mod_, T5LayerNorm))
+        print(f"[sd3 dir] save_published_sd3: {written / 1e9:.3f} GB in {len(files)} weight files "
+              f"({sorted(files)}) in {t_write:.2f} s ({written / 1e9 / t_write:.2f} GB/s); "
+              f"DiffusionPipeline.from_pretrained (tokenizer_3 the seeded stand-in) back to the "
+              f"card in bf16 in {t_read:.2f} s ({total / 1e9 / t_read:.2f} GB/s): "
+              f"{type(back).__name__} with {type(back.scheduler).__name__} (shift "
+              f"{back.scheduler.config.shift}), T5 norms fp32 {fp32_norms}; tensors not "
+              f"bit-equal to the pipeline that wrote it: {len(unequal)} {unequal[:3]} "
+              f"(warm page cache; {card})", flush=True)
+        check(type(back).__name__ == "StableDiffusion3Pipeline" and not unequal and fp32_norms,
+              f"sd3 dir: {len(unequal)} tensors differ {unequal[:3]}")
+        stats["io"] = dict(gb=total / 1e9, write_s=t_write, read_s=t_read, build_s=t_build)
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---------------------------------------------------- 43b serving
+        want = walk(expected_launches_sd3(back, HEIGHT, WIDTH, text_to_image.STEPS,
+                                          SD3_GUIDANCE))
+        png = os.path.join(tmp, "out.png")
+        zero()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        text_to_image.main([path, SD3_REQUESTS[0][0], png], device=dev,
+                           components={"tokenizer_3": tok3}, height=HEIGHT, width=WIDTH)
+        torch.cuda.synchronize()
+        t_main = time.perf_counter() - t0
+        got = launches()
+        with Image.open(png) as im:
+            image = np.asarray(im.convert("RGB"), np.float32) / 255.0
+        print(f"[sd3 serve] text_to_image.main on the directory (read in bf16, 25 FlowMatch "
+              f"steps, {HEIGHT} px, guidance {SD3_GUIDANCE}): {t_main:.3f} s with the read; PNG "
+              f"{image.shape} finite {bool(np.isfinite(image).all())} range [{image.min():.3f}, "
+              f"{image.max():.3f}] std {image.std():.3f}; launches {got} (walk {want})",
+              flush=True)
+        check(image.shape == (HEIGHT, WIDTH, 3) and bool(np.isfinite(image).all())
+              and image.std() > 0.01, f"sd3 serve: image {image.shape} std {image.std()}")
+        check(got == want, f"sd3 serve: launches {got} != the walk {want}")
+        phases["sd3_dir"] = got
+        seconds = []
+        for profiled in (False, True):
+            with profile(activities=[ProfilerActivity.CUDA]) if profiled else \
+                    contextlib.nullcontext() as prof:
+                t0 = time.perf_counter()
+                back(SD3_REQUESTS[1][0], height=HEIGHT, width=WIDTH,
+                     num_inference_steps=text_to_image.STEPS, seed=SD3_REQUESTS[1][1],
+                     output_type="np")
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        device_ms = kernel_breakdown("sd3 serve", "profiled request", prof, 8)
+        print(f"[sd3 serve] a 25-step request on the pipeline read by from_pretrained: "
+              f"{seconds[0]:.3f} s; profiled {seconds[1]:.3f} s with {device_ms:.1f} ms of device "
+              f"time: busy {100 * device_ms / 1e3 / seconds[1]:.1f}%; peak memory {peak:.2f} GiB "
+              f"({card})", flush=True)
+        stats["serve"] = dict(main_s=t_main, request_s=seconds[0], device_ms=device_ms,
+                              busy=device_ms / 1e3 / seconds[1], peak_gib=peak)
+
+        # ------------------------------------------- the training batch's inputs
+        zero()
+        t0 = time.perf_counter()
+        latents = []
+        for i in range(SD3_TRAIN_IMAGES):
+            with Image.open(io.BytesIO(smooth_jpeg(np, Image, 500 + i, (HEIGHT, WIDTH)))) as im:
+                px = np.asarray(im.convert("RGB"), np.float32) / 127.5 - 1.0
+            latents.append(image_latents(back.vae, torch.from_numpy(px)[None].to(dev))[0])
+        with torch.inference_mode():
+            cond, _, pooled, _ = back.encode_prompt(list(SD3_TRAIN_PROMPTS))
+        torch.cuda.synchronize()
+        t_enc = time.perf_counter() - t0
+        got = launches()
+        te_ln = sum(n_layer_norms(e) for e in (back.text_encoder, back.text_encoder_2))
+        t5_rms = sum(isinstance(mod_, T5LayerNorm) for mod_ in back.text_encoder_3.modules())
+        enc_gn = n_group_norms(back.vae.encoder)
+        want = walk({"group_norm": enc_gn * SD3_TRAIN_IMAGES, "layer_norm": 2 * te_ln,
+                     "rms_norm": 2 * t5_rms,
+                     "flash_attention": back.vae.encode_flash_launches(HEIGHT, WIDTH)
+                     * SD3_TRAIN_IMAGES})
+        samples = [{"latents": lat.float().cpu().numpy(),
+                    "encoder_hidden_states": c.float().cpu().numpy(),
+                    "pooled_projections": p.float().cpu().numpy()}
+                   for lat, c, p in zip(latents, cond, pooled)]
+        lat_std = float(torch.stack(latents).float().std())
+        print(f"[sd3 train] {SD3_TRAIN_IMAGES} seeded {HEIGHT} px jpegs through SD3's VAE encoder "
+              f"((mode - {back.vae.config.shift_factor}) * {back.vae.config.scaling_factor}: "
+              f"latents {tuple(latents[0].shape)}, std {lat_std:.3f}) and {len(SD3_TRAIN_PROMPTS)} "
+              f"prompts through encode_prompt (context {tuple(cond.shape)}, pooled "
+              f"{tuple(pooled.shape)}) in {t_enc:.2f} s; launches {got} (walk {want})",
+              flush=True)
+        check(got == want and all(bool(np.isfinite(s_[k]).all()) for s_ in samples for k in s_),
+              f"sd3 train: the encodes' launches {got} != {want}, or a sample not finite")
+        phases["sd3_encode"] = got
+        del back, latents, cond, pooled
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -------------------------------------------------- 43c train kernels
+        sd15_train_kernels(torch, F, dev, gen, record, attn, cases=SD3_TRAIN_FLASH_CASES,
+                           tag="sd3 train kernels")
+        sd3_adaln_grad_checks(torch, dev, gen, norms)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # --------------------------------------------------- 43d train agree
+        t0 = time.perf_counter()
+        tr = SD3Transformer2DModel.from_pretrained(path, subfolder="transformer", device=dev,
+                                                   dtype=torch.float32)
+        set_compute_dtype(tr, bf16)
+        tr.config.gradient_checkpointing = True
+        torch.cuda.synchronize()
+        params = [p for p in tr.parameters() if p.requires_grad]
+        names = [n for n, p in tr.named_parameters() if p.requires_grad]
+        print(f"[sd3 train] the transformer read from the directory in fp32 masters in "
+              f"{time.perf_counter() - t0:.2f} s: {sum(p.numel() for p in params)} parameters in "
+              f"{len(params)} tensors, bf16 compute, gradient checkpointing per block", flush=True)
+        b = SD3_TRAIN_BATCH
+        batch = {k: torch.from_numpy(np.stack([s_[k] for s_ in samples[:b]])).to(dev)
+                 for k in samples[0]}
+        u = torch.tensor(SD3_AGREE_U, device=dev)
+        noise = torch.randn(batch["latents"].shape, generator=gen, device=dev)
+        plain_all, rounded_all = train_plain_swaps(torch, m)
+        adaln = [(sd3_mod, "adaptive_layer_norm", norms.adaptive_layer_norm_ref),
+                 (sd3_mod, "fused_adaln_scale_residual", norms.fused_adaln_scale_residual_ref)]
+        plain, rounded = plain_all[:3] + adaln, rounded_all[:3] + adaln
+        no_di = [(attn, "flash_bwd_dkv", lambda qs, k, v, do, lse, di, **kw:
+                  attn.flash_bwd_dkv_ref(qs, k, v, do, lse, torch.zeros_like(di), **kw))] + \
+            [plain[0], plain[2]] + adaln
+
+        def loss_and_grads(swaps=()):
+            with swapped(swaps):
+                loss = training_utils.flow_match_loss(tr, batch, u, noise, shift=3.0)
+                grads = torch.autograd.grad(loss, params)
+            return loss.detach().float(), grads
+
+        zero()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss_k, grads_k = loss_and_grads()
+        torch.cuda.synchronize()
+        t_kernels = time.perf_counter() - t0
+        peak_agree = torch.cuda.max_memory_allocated() / 2 ** 30
+        got = launches()
+        want = walk(expected_launches_sd3_train(tr, b, latent_side(samples), cond_len(samples),
+                                                1))
+        t0 = time.perf_counter()
+        loss_p, grads_p = loss_and_grads(plain)
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter() - t0
+        gaps = {"kernels": [rel_l2(a.float(), b_.float()) for a, b_ in zip(grads_k, grads_p)]}
+        del grads_k
+        losses = {"kernels": loss_k}
+        for key, swaps in (("pair", rounded), ("control", no_di)):
+            losses[key], grads = loss_and_grads(swaps)
+            gaps[key] = [rel_l2(a.float(), b_.float()) for a, b_ in zip(grads, grads_p)]
+            del grads
+        del grads_p
+        signal = [i for i, gap_ in enumerate(gaps["pair"]) if gap_ <= CLIP_SIGNAL_GAP]
+
+        def median_max(key):
+            return sorted(gaps[key])[len(names) // 2], max(gaps[key][i] for i in signal)
+
+        (k_med, k_max), (r_med, r_max), (c_med, c_max) = map(median_max,
+                                                             ("kernels", "pair", "control"))
+        rel_loss = {key: abs(v - loss_p).item() / abs(loss_p).item() for key, v in losses.items()}
+        worst = max(signal, key=lambda i: gaps["kernels"][i])
+        print(f"[sd3 train agree] full-width SD3 transformer, checkpointing on, one micro-batch "
+              f"of {b} at {latent_side(samples)}^2 latents + {cond_len(samples)} context tokens, u "
+              f"{SD3_AGREE_U}, fixed noise; kernels vs plain: loss {loss_k.item():.6f} vs "
+              f"{loss_p.item():.6f} (relative {rel_loss['kernels']:.3e}; the plain versions one "
+              f"rounding apart {rel_loss['pair']:.3e}, ratio tol {CLIP_LOSS_RATIO}); relative L2 "
+              f"of the gradients, median of all {len(names)} / max of the {len(signal)} with "
+              f"signal: kernels {k_med:.3e} / {k_max:.3e}, the pair {r_med:.3e} / {r_max:.3e} "
+              f"(ratio tol {TRAIN_AGREE_RATIO}); control, B14's dK/dV without di: {c_med:.3e} / "
+              f"{c_max:.3e} (must fail); the kernels' largest gap {names[worst]} "
+              f"{gaps['kernels'][worst]:.3e}; a step's loss and gradients {t_kernels:.2f} s with "
+              f"the kernels, {t_plain:.2f} s plain; peak memory {peak_agree:.2f} GiB; launches "
+              f"{got} (walk {want})", flush=True)
+        check(bool(torch.isfinite(loss_k)) and rel_loss["kernels"] <= CLIP_LOSS_RATIO *
+              rel_loss["pair"] and k_med <= TRAIN_AGREE_RATIO * r_med
+              and k_max <= TRAIN_AGREE_RATIO * r_max,
+              f"sd3 train agree: loss {rel_loss}, grads {k_med} / {k_max} against {r_med} / "
+              f"{r_max}")
+        check(c_med > TRAIN_AGREE_RATIO * r_med or c_max > TRAIN_AGREE_RATIO * r_max,
+              f"sd3 train agree: the control passes ({c_med} / {c_max})")
+        check(got == want, f"sd3 train agree: launches {got} != {want}")
+        stats["agree"] = dict(loss_rel=rel_loss, grads=dict(kernels=(k_med, k_max),
+                                                            pair=(r_med, r_max)),
+                              peak_gib=peak_agree)
+        del batch, noise
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -------------------------------------------------------- 43e train
+        sched = FlowMatchEulerDiscreteScheduler.from_pretrained(path, subfolder="scheduler")
+        trainer = sd3_trainer(tr, sched, samples, batch_size=SD3_TRAIN_BATCH)
+        a = trainer.args
+        a.logging_steps = 1
+        before = [p.detach().clone() for p in params]
+        profiled = SD3_TRAIN_STEPS
+        zero()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA], schedule=torch.profiler.schedule(
+                wait=profiled - 2, warmup=1, active=1, repeat=1)) as prof:
+            trainer.callbacks.append(lambda step, metrics: prof.step())
+            trainer.train(SD3_TRAIN_STEPS)
+            torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        got = launches()
+        want = walk(expected_launches_sd3_train(tr, SD3_TRAIN_BATCH, latent_side(samples),
+                                                cond_len(samples), SD3_TRAIN_STEPS))
+        by_kernel = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                            for e in prof.key_averages() if e.self_device_time_total > 0),
+                           reverse=True)
+        device_ms = sum(ms_ for ms_, _, _ in by_kernel)
+        hist = trainer.history
+        ends = [t_start] + [h["time"] for h in hist]
+        step_s = [b_ - a_ for a_, b_ in zip(ends, ends[1:])]
+        t_prof = step_s[profiled - 1]
+        middle = [i for i in range(1, len(hist)) if i not in (profiled - 2, profiled - 1)]
+        s_step = sorted(step_s[i] for i in middle)[len(middle) // 2]
+        losses_ = torch.stack([h["loss"] for h in hist]).float()
+        gnorms = torch.stack([h["grad_norm"] for h in hist]).float()
+        moved = sum(not torch.equal(b_, p.detach()) for b_, p in zip(before, params))
+        del before
+        state_gb = sum(t.numel() * t.element_size() for t in
+                       train_state_dict(trainer.state, trainer.tx).values()) / 1e9
+        print(f"[sd3 train] {len(hist)} optimizer steps of {SD3_TRAIN_BATCH} (AdamW, lr "
+              f"{a.learning_rate}, {a.lr_scheduler_type}, clip {a.max_grad_norm}): seconds a step "
+              f"{[round(x, 4) for x in step_s]} (step {profiled} under the profiler, step "
+              f"{profiled - 1} starting it); median of steps 2-{profiled - 2} {s_step:.4f} s; "
+              f"profiled step {t_prof:.4f} s with {device_ms:.1f} ms of device time: busy "
+              f"{100 * device_ms / 1e3 / t_prof:.1f}%; peak memory {peak:.2f} GiB; masters and "
+              f"AdamW state {state_gb:.3f} GB ({card})", flush=True)
+        for ms_, n_, key in by_kernel[:12]:
+            print(f"[sd3 train]   profiled step: {ms_:8.2f} ms {100 * ms_ / device_ms:5.1f}% "
+                  f"{n_:5d}x {key[:100]}", flush=True)
+        b14_ms = bwd_share("[sd3 train]", by_kernel, device_ms)
+        print(f"[sd3 train] losses {[round(x, 4) for x in losses_.tolist()]}; grad_norm "
+              f"{[round(x, 4) for x in gnorms.tolist()]}; {moved} of {len(params)} parameter "
+              f"tensors moved; launches {got} (walk {want})", flush=True)
+        check(len(hist) == SD3_TRAIN_STEPS and bool(torch.isfinite(losses_).all()
+                                                     and torch.isfinite(gnorms).all()),
+              "sd3 train: a loss or grad_norm is not finite")
+        check(moved == len(params), f"sd3 train: {len(params) - moved} parameter tensors did "
+              f"not move")
+        check(got == want, f"sd3 train: launches {got} != the walk {want}")
+        phases["sd3_train"] = got
+        stats["train"] = dict(step_s=s_step, busy=device_ms / 1e3 / t_prof, peak_gib=peak,
+                              b14_ms=b14_ms, device_ms=device_ms, state_gb=state_gb,
+                              losses=losses_.tolist())
+        del trainer, tr, params, samples
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return phases, stats
+
+
+def cond_len(samples):
+    """The context tokens of the training samples (77 CLIP + 77 T5)."""
+    return samples[0]["encoder_hidden_states"].shape[0]
+
+
+def latent_side(samples):
+    """The side of the training samples' square latents (128 at 1024 px)."""
+    return samples[0]["latents"].shape[0]
 
 
 def main():
@@ -6492,6 +6989,12 @@ def main():
     qwen2vl_kernels(torch, F, dev, gen, record, tmods)
     launches_qwen2vl, qwen2vl_stats = qwen2vl_slice(torch, np, dev, tmods, every, card)
 
+    # ----------------------------------------------- SD3-medium directory slice
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches_sd3_dir, sd3_dir_stats = sd3_dir_slice(torch, F, np, dev, gen, tmods, every, record,
+                                                    card)
+
     # --------------------------------------------------------------- summary
     def entry(name, route, source, replaces, by_phase):
         # ms / plain_ms / library_ms / bound at the first shape listed;
@@ -6512,19 +7015,20 @@ def main():
         return {"bf16": launches_bf16[name], "a8w8": launches_a8w8[name],
                 "a8w8_int8_attn": launches_i8attn[name], "sd3": launches_sd3[name],
                 "sd15": launches_sd15[name], "sd15_dir": launches_dir["sd15_dir"][name],
-                "sdxl_dir": launches_sdxl_dir[name]}
+                "sdxl_dir": launches_sdxl_dir[name], "sd3_dir": launches_sd3_dir["sd3_dir"][name]}
 
     dir_train = ("t2i_dir", "db_lora", "db_full")
 
     def llava(name):
         return {"llava_bf16": launches_llava[name], "llava_wint8": launches_wint8[name],
                 "llava_a8w8": launches_q["a8w8"][name], "llava_a8w4": launches_q["a8w4"][name],
-                "sd3": launches_sd3[name]}
+                "sd3": launches_sd3[name], "sd3_dir": launches_sd3_dir["sd3_dir"][name]}
 
     def train_phases(name):
         return {"train": launches_tr[name], "sft_main": launches_sft[name],
                 "sd15_train": launches_sd15_tr[name],
-                **{phase: launches_dir[phase][name] for phase in dir_train}}
+                **{phase: launches_dir[phase][name] for phase in dir_train},
+                "sd3_train": launches_sd3_dir["sd3_train"][name]}
 
     def sd15_train_dim(name, d_):
         return {"sd15_train": dims_sd15_tr[name].get(d_, 0),
@@ -6567,10 +7071,15 @@ def main():
               dict(llava("rms_norm"), **llama_phases("rms_norm"),
                    qwen2vl=launches_qwen2vl["rms_norm"])),
         entry("adaptive_layer_norm", "cuda", "paddlemix_tpu_torch/csrc/norms.cu",
-              "paddlemix_tpu/ops/norms.py:261", {"sd3": launches_sd3["adaptive_layer_norm"]}),
+              "paddlemix_tpu/ops/norms.py:261",
+              {"sd3": launches_sd3["adaptive_layer_norm"],
+               **{phase: launches_sd3_dir[phase]["adaptive_layer_norm"]
+                  for phase in ("sd3_dir", "sd3_train")}}),
         entry("fused_adaln_scale_residual", "cuda", "paddlemix_tpu_torch/csrc/norms.cu",
               "paddlemix_tpu/ops/norms.py:289",
-              {"sd3": launches_sd3["fused_adaln_scale_residual"]}),
+              {"sd3": launches_sd3["fused_adaln_scale_residual"],
+               **{phase: launches_sd3_dir[phase]["fused_adaln_scale_residual"]
+                  for phase in ("sd3_dir", "sd3_train")}}),
         entry("decode_attention_int8", "cuda", "paddlemix_tpu_torch/csrc/decode_attention.cu",
               "paddlemix_tpu/ops/decode_attention.py:196", llama_phases("decode_attention_int8")),
         entry("paged_decode_attention", "cuda", "paddlemix_tpu_torch/csrc/paged_attention.cu",
@@ -6597,7 +7106,9 @@ def main():
                "blip2": launches_blip2["layer_norm"], "sdxl_dir": launches_sdxl_dir["layer_norm"],
                "qwen2vl": launches_qwen2vl["layer_norm"],
                **{phase: launches_dir[phase]["layer_norm"]
-                  for phase in ("sd15_dir", "db_lora", "db_full")}}),
+                  for phase in ("sd15_dir", "db_lora", "db_full")},
+               **{phase: launches_sd3_dir[phase]["layer_norm"]
+                  for phase in ("sd3_dir", "sd3_encode")}}),
         entry("layer_norm_backward", "cuda", "paddlemix_tpu_torch/csrc/norms.cu",
               "paddlemix_tpu/ops/norms.py:226",
               {"clip_train": launches_clip_tr["layer_norm_backward"],
@@ -6647,13 +7158,23 @@ def main():
              "max_abs_err": r["err"]}
             for r in summary[name] if tuple(r["shape"]) in {tuple(sh) for sh in shapes}]
     for phase, got in (("train", launches_tr), ("sft_main", launches_sft),
-                       ("sft_eval", launches_sft_eval)):
+                       ("sft_eval", launches_sft_eval),
+                       ("sd3_encode", launches_sd3_dir["sd3_encode"])):
         by_name["rms_norm"]["launches_by_phase"][phase] = got["rms_norm"]
         by_name["rms_norm"]["launches"] += got["rms_norm"]
     for phase, got in [("sd15_train", launches_sd15_tr)] + [
-            (phase, launches_dir[phase]) for phase in ("vae_encode",) + dir_train]:
+            (phase, launches_dir[phase]) for phase in ("vae_encode",) + dir_train] + [
+            ("sd3_encode", launches_sd3_dir["sd3_encode"])]:
         by_name["group_norm"]["launches_by_phase"][phase] = got["group_norm"]
         by_name["group_norm"]["launches"] += got["group_norm"]
+    # B15 / B14 at the SD3 training path's joint attention (phase 43c)
+    for name in ("flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq"):
+        by_name[name]["sd3_train_shapes"] = [
+            {"shape": list(r["shape"]), "ms": r["ms"], "plain_ms": r["plain_ms"],
+             "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": r["library_ms"],
+             "max_abs_err": r["err"]}
+            for r in summary[name] if tuple(r["shape"]) in {tuple(c[:5]) for c in
+                                                             SD3_TRAIN_FLASH_CASES}]
     # B4 at the VAE encoder's shapes (phase 41c), beside the line's first shape
     by_name["group_norm"]["vae_encode_shapes"] = [
         {"shape": list(r["shape"]), "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -6704,7 +7225,12 @@ def main():
         [(name, phase) for phase in ("sd15_dir", "sdxl_dir")
          for name in ("flash_attention", "group_norm", "layer_norm")] + \
         [("flash_attention_d160", "sd15_dir"), ("group_norm", "vae_encode")] + \
-        [("layer_norm", phase) for phase in ("db_lora", "db_full")]
+        [("layer_norm", phase) for phase in ("db_lora", "db_full")] + \
+        [(name, "sd3_dir") for name in ("flash_attention", "group_norm", "rms_norm", "layer_norm",
+                                        "adaptive_layer_norm", "fused_adaln_scale_residual")] + \
+        [(name, "sd3_encode") for name in ("group_norm", "rms_norm", "layer_norm")] + \
+        [(name, "sd3_train") for name in ("flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq",
+                                          "adaptive_layer_norm", "fused_adaln_scale_residual")]
     idle = [(name, phase) for name, phase in must_run
             if by_name[name]["launches_by_phase"][phase] == 0]
     check(not idle, f"kernels never launched by the requests: {idle}")
@@ -6720,6 +7246,7 @@ def main():
     print(f"[summary] sd15 dir: {dir_stats} ({card})", flush=True)
     print(f"[summary] sdxl dir: {sdxl_dir_stats} ({card})", flush=True)
     print(f"[summary] qwen2vl: {qwen2vl_stats} ({card})", flush=True)
+    print(f"[summary] sd3 dir and train: {sd3_dir_stats} ({card})", flush=True)
     print(f"[summary] chip_smoke ran {time.perf_counter() - T_START:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -13,7 +13,15 @@ plain, as in the JAX package.
 
 `from_pretrained` reads a `vae/` directory (flax- or torch-keyed weights
 through `VAE_KEY_MAP`, core/modeling.py); `scaling_factor` comes from its
-config (0.18215 for SD1.5, 0.13025 for SDXL).
+config (0.18215 for SD1.5, 0.13025 for SDXL, 1.5305 with `shift_factor`
+0.0609 for SD3).
+
+`use_quant_conv` / `use_post_quant_conv` are diffusers' config flags, true
+by default, which is the JAX package's form (it always builds both 1x1
+convs). Where one is false there is no such module and its step is the
+identity. This departs from JAX (ROADMAP C.26): SD3's published VAE sets
+both false and its file has neither conv, which JAX's non-strict read
+leaves at their random init and the port's strict read would refuse.
 """
 
 from __future__ import annotations
@@ -46,6 +54,8 @@ class AutoencoderKLConfig(BaseConfig):
     scaling_factor: float = 0.18215
     shift_factor: Optional[float] = None
     mid_block_add_attention: bool = True
+    use_quant_conv: bool = True  # false: no quant_conv, the encoder's moments as they are
+    use_post_quant_conv: bool = True  # false: no post_quant_conv
     quant: Optional[str] = None  # "a8w8_static" or None: the decoder only
 
     @property
@@ -187,12 +197,13 @@ class AutoencoderKL(nn.Module):
         self.config = config
         self.encoder = Encoder(config)
         self.decoder = Decoder(config)
-        self.quant_conv = nn.Conv2d(2 * config.latent_channels, 2 * config.latent_channels, 1)
-        self.post_quant_conv = nn.Conv2d(config.latent_channels, config.latent_channels, 1)
+        c = config.latent_channels
+        self.quant_conv = nn.Conv2d(2 * c, 2 * c, 1) if config.use_quant_conv else None
+        self.post_quant_conv = nn.Conv2d(c, c, 1) if config.use_post_quant_conv else None
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.post_quant_conv.weight.dtype
+        return self.decoder.conv_in.weight.dtype
 
     @classmethod
     def from_pretrained(cls, path: str, subfolder: Optional[str] = None, device="cuda",
@@ -218,13 +229,19 @@ class AutoencoderKL(nn.Module):
         """x: (B, H, W, C) NHWC pixels in [-1, 1] -> the posterior over
         (B, H/8, W/8, latent) latents (the model's dtype)."""
         x = x.to(self.dtype).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        moments = self.quant_conv(self.encoder(x)).permute(0, 2, 3, 1)
+        moments = self.encoder(x)
+        if self.quant_conv is not None:
+            moments = self.quant_conv(moments)
+        moments = moments.permute(0, 2, 3, 1)
         mean, logvar = moments.chunk(2, dim=-1)
         return DiagonalGaussian(mean, logvar)
 
     def decode(self, z):
         """z: (B, h, w, latent) NHWC -> image (B, 8h, 8w, C) NHWC."""
-        x = self.decoder(self.post_quant_conv(z.to(self.dtype).permute(0, 3, 1, 2)))
+        z = z.to(self.dtype).permute(0, 3, 1, 2)
+        if self.post_quant_conv is not None:
+            z = self.post_quant_conv(z)
+        x = self.decoder(z)
         return x.permute(0, 2, 3, 1)
 
     def decode_flash_launches(self, h: int, w: int) -> int:

@@ -8,7 +8,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...models.layers import Linear
+from ...models.layers import Conv2d, Linear
 
 
 def get_timestep_embedding(timesteps: torch.Tensor, embedding_dim: int,
@@ -82,7 +82,7 @@ class PatchEmbed2D(nn.Module):
         self.patch_size = patch_size
         self.embed_dim = embed_dim
         self.base_size = base_size  # the grid side the position table is scaled to
-        self.proj = nn.Conv2d(in_channels, embed_dim, patch_size, stride=patch_size)
+        self.proj = Conv2d(in_channels, embed_dim, patch_size, stride=patch_size)
 
     def forward(self, latent):
         b, h, w, _ = latent.shape

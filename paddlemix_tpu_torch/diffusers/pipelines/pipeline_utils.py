@@ -9,7 +9,13 @@ the JAX rules: the pipeline class is looked up by `_class_name` in
 pipeline's `__init__` does not take are skipped (with a log line for the
 optional ones: safety_checker, feature_extractor, image_encoder), a null
 entry is None, and every other component is read by the port's class of
-that name (`_COMPONENT_CLASSES`); any other class raises, naming it.
+that name (`_COMPONENT_CLASSES`); any other class raises, naming the
+component and the class ("no implementation for component tokenizer_3
+(T5TokenizerFast)", as JAX's message reads), unless the component is given
+as an override. SD3's published layout needs that for `tokenizer_3`: neither
+package has a T5 tokenizer (`diffusers.sd3.seeded_t5_tokenizer` stands in).
+A component with no `save_pretrained` (such a callable tokenizer) is
+written as JAX writes it: its entry names its type, and no subfolder.
 """
 
 from __future__ import annotations
@@ -43,6 +49,10 @@ _COMPONENT_CLASSES: Dict[str, str] = {
     "DDPMScheduler": "paddlemix_tpu_torch.diffusers.schedulers:DDPMScheduler",
     "PNDMScheduler": "paddlemix_tpu_torch.diffusers.schedulers:PNDMScheduler",
     "EulerDiscreteScheduler": "paddlemix_tpu_torch.diffusers.schedulers:EulerDiscreteScheduler",
+    "FlowMatchEulerDiscreteScheduler":
+        "paddlemix_tpu_torch.diffusers.schedulers:FlowMatchEulerDiscreteScheduler",
+    "SD3Transformer2DModel": "paddlemix_tpu_torch.diffusers.models:SD3Transformer2DModel",
+    "T5EncoderModel": "paddlemix_tpu_torch.models.t5:T5EncoderModel",
 }
 
 
@@ -79,7 +89,9 @@ class DiffusionPipeline:
         """model_index.json and each component's `save_pretrained` into its
         subfolder (models: config.json and flax-keyed model.safetensors, as
         the JAX package writes them; the tokenizer's vocab.json and
-        merges.txt; the scheduler's scheduler_config.json)."""
+        merges.txt; the scheduler's scheduler_config.json). A component
+        without `save_pretrained` gets its type's name in model_index.json
+        and no subfolder, as in JAX."""
         os.makedirs(save_directory, exist_ok=True)
         index: Dict[str, Any] = {"_class_name": type(self).__name__}
         for name, comp in self._components.items():
@@ -87,7 +99,8 @@ class DiffusionPipeline:
                 index[name] = [None, None]
                 continue
             index[name] = [LIBRARY_NAME, type(comp).__name__]
-            comp.save_pretrained(os.path.join(save_directory, name))
+            if hasattr(comp, "save_pretrained"):
+                comp.save_pretrained(os.path.join(save_directory, name))
         with open(os.path.join(save_directory, MODEL_INDEX_NAME), "w") as f:
             json.dump(index, f, indent=2)
 
@@ -124,7 +137,11 @@ class DiffusionPipeline:
             if not isinstance(entry, (list, tuple)) or entry[1] is None:
                 components[name] = None
                 continue
-            comp_cls = resolve_component_class(entry[1])
+            try:
+                comp_cls = resolve_component_class(entry[1])
+            except NotImplementedError as e:
+                raise NotImplementedError(f"no implementation for component {name} "
+                                          f"({entry[1]}): {e}; pass it as an override") from None
             kwargs = {k: v for k, v in (("device", device), ("dtype", dtype)) if k in
                       inspect.signature(comp_cls.from_pretrained).parameters}
             components[name] = comp_cls.from_pretrained(root, subfolder=name, **kwargs)

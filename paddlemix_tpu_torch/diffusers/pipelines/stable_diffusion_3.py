@@ -7,7 +7,8 @@ joint width, pooled outputs concatenated), then T5's output or, without a
 third encoder, zeros of 77 tokens; [uncond, cond] classifier-free guidance on
 the batch axis; fp32 latents and FlowMatch Euler steps with the transformer
 run in its own dtype. `tokenizer_3` is any callable that maps a list of texts
-to {"input_ids": (B, L) ids}. The JAX package compiles the denoise loop into
+to {"input_ids": (B, L) ids}. Registered, so `DiffusionPipeline.from_pretrained`
+reads SD3's published directory (with `tokenizer_3` as an override). The JAX package compiles the denoise loop into
 one lax.fori_loop; here it is a Python loop over steps.
 """
 
@@ -18,11 +19,12 @@ import torch
 import torch.nn.functional as F
 
 from ..image_processor import VaeImageProcessor
-from .pipeline_utils import DiffusionPipeline
+from .pipeline_utils import DiffusionPipeline, register_pipeline
 
 T5_SEQ_LEN = 77  # context tokens that stand in for T5 when there is no third encoder
 
 
+@register_pipeline
 class StableDiffusion3Pipeline(DiffusionPipeline):
     def __init__(self, transformer, scheduler, vae, text_encoder, tokenizer, text_encoder_2,
                  tokenizer_2, text_encoder_3=None, tokenizer_3=None):

@@ -1,20 +1,33 @@
 """FlowMatch Euler scheduler for SD3 (port of
 paddlemix_tpu/diffusers/schedulers/scheduling_flow_match.py, with its static
-shift; dynamic shifting is not ported)."""
+shift; dynamic shifting is not ported and a config that sets it raises).
+
+Its config is the JAX package's: `SchedulerConfig`'s fields (unused here)
+and `shift`, read from and written to `scheduler_config.json` by
+`from_pretrained` / `save_pretrained` (common.py's `Scheduler`), diffusers'
+published one (`num_train_timesteps`, `shift`) included.
+"""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from .common import Scheduler, SchedulerConfig
+
 
 @dataclasses.dataclass
-class FlowMatchConfig:
-    num_train_timesteps: int = 1000
+class FlowMatchConfig(SchedulerConfig):
+    model_type = "flow_match_euler"
     shift: float = 3.0
+    use_dynamic_shifting: bool = False
+
+    def __post_init__(self):
+        if self.use_dynamic_shifting:
+            raise NotImplementedError("FlowMatchConfig: use_dynamic_shifting is not ported")
 
 
 class FlowMatchState(NamedTuple):
@@ -23,9 +36,16 @@ class FlowMatchState(NamedTuple):
     num_inference_steps: int
 
 
-class FlowMatchEulerDiscreteScheduler:
-    def __init__(self, **config):
-        self.config = FlowMatchConfig(**config)
+class FlowMatchEulerDiscreteScheduler(Scheduler):
+    config_class = FlowMatchConfig
+
+    def __init__(self, config: Optional[FlowMatchConfig] = None, **kwargs):
+        if config is None:
+            config = self.config_class.from_dict(kwargs)
+        elif kwargs:
+            config = dataclasses.replace(config, **kwargs)
+        self.config = config
+        self.alphas_cumprod = None  # flow matching has no VP alphas
 
     def set_timesteps(self, num_inference_steps: int) -> FlowMatchState:
         """Shifted sigmas computed in float64 numpy, then kept as fp32."""

@@ -8,8 +8,8 @@ timesteps and noise; `make_sd_loss_fn` builds the Trainer's
 [0, num_train_timesteps) and the noise normal from `rng`, a torch.Generator
 on the batch's device (the Trainer's, seeded from its args), and calls it.
 torch and jax.random give different numbers from one seed, so the tests
-replay JAX's draws through `sd_loss`. `make_flow_match_loss_fn` (SD3) is
-not ported yet.
+replay JAX's draws through `sd_loss`. SD3's flow-match loss is split the same
+way: `flow_match_loss` at given draws, `make_flow_match_loss_fn` drawing them.
 """
 
 from __future__ import annotations
@@ -82,6 +82,46 @@ def make_sd_loss_fn(unet, scheduler, *, prediction_type: str = "epsilon",
         added = added_cond_fn(batch) if added_cond_fn is not None else None
         return sd_loss(unet, scheduler, batch, t, noise, prediction_type=prediction_type,
                        snr_gamma=snr_gamma, added_cond_kwargs=added)
+
+    return loss_fn
+
+
+def flow_match_loss(transformer, batch, u, noise, shift: float = 3.0,
+                    num_train_timesteps: int = 1000):
+    """SD3's flow-matching loss at given draws: `u` (B,) uniform in [0, 1)
+    and `noise` (the latents' shape, fp32). sigma = shift u / (1 + (shift -
+    1) u), t = num_train_timesteps sigma, x_t = (1 - sigma) x0 + sigma noise;
+    the transformer (NHWC, in its compute dtype) predicts the velocity
+    target noise - x0, and the loss is the mean squared error over every
+    element (JAX's `make_flow_match_loss_fn`). batch: {"latents": (B, h, w,
+    C) pre-scaled VAE latents, "encoder_hidden_states": (B, L, joint dim),
+    "pooled_projections": (B, pooled dim)}."""
+    latents = batch["latents"].float()
+    sigma = shift * u / (1.0 + (shift - 1.0) * u)
+    t = sigma * num_train_timesteps
+    s = sigma[:, None, None, None]
+    noisy = (1.0 - s) * latents + s * noise
+    dtype = transformer.dtype
+    pred = transformer(noisy.to(dtype), t, batch["encoder_hidden_states"].to(dtype),
+                       batch["pooled_projections"].to(dtype)).float()
+    return ((pred - (noise - latents)) ** 2).mean()
+
+
+def make_flow_match_loss_fn(transformer, scheduler, *, shift: float = 3.0):
+    """loss_fn(params, batch, rng) for SD3 training: u (B,) uniform, then the
+    noise normal, drawn in that order from `rng` (a torch.Generator on the
+    batch's device), then `flow_match_loss` at the scheduler's
+    num_train_timesteps. The params live in `transformer`; `params` holds
+    them by reference."""
+    num_train = scheduler.config.num_train_timesteps
+
+    def loss_fn(params, batch, rng):
+        latents = batch["latents"]
+        u = torch.rand((latents.shape[0],), generator=rng, device=latents.device)
+        noise = torch.randn(latents.shape, generator=rng, device=latents.device,
+                            dtype=torch.float32)
+        return flow_match_loss(transformer, batch, u, noise, shift=shift,
+                               num_train_timesteps=num_train)
 
     return loss_fn
 

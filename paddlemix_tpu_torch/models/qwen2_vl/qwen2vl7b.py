@@ -19,12 +19,16 @@ from typing import Dict, Sequence
 
 import torch
 
+import json
+import os
+
 from ...core.init import build_random
+from ...core.modeling import save_state_dict
 from ...ops.attention import use_flash
 from ..layers import FusedLayerNorm, n_layer_norms
 from ..llama.modeling import LlamaAttention, RMSNorm
-from .configuration import Qwen2VLConfig
-from .modeling import Qwen2VLForConditionalGeneration
+from .configuration import Qwen2VLConfig, published_config_dict
+from .modeling import Qwen2VLForConditionalGeneration, hf_state_dict
 
 QWEN2_VL_7B = dict(
     vision_config=dict(depth=32, embed_dim=1280, num_heads=16, in_channels=3, patch_size=14,
@@ -55,6 +59,18 @@ def random_qwen2_vl(device="cuda", dtype=torch.bfloat16, seed: int = 0,
     gen = torch.Generator(device=device).manual_seed(seed)
     return build_random(lambda: Qwen2VLForConditionalGeneration(cfg), device=device,
                         dtype=dtype, generator=gen, fp32_modules=(RMSNorm, FusedLayerNorm))
+
+
+def save_published(model: Qwen2VLForConditionalGeneration, directory: str,
+                   max_shard_bytes: int = 4 * 10 ** 9) -> Dict[str, int]:
+    """`model` in the published checkpoint's layout: config.json as
+    `published_config_dict` writes it (no `text_config`) and `hf_state_dict`
+    in shards of at most `max_shard_bytes` with their index. Returns {file
+    name: bytes}."""
+    os.makedirs(directory, exist_ok=True)
+    with open(os.path.join(directory, "config.json"), "w") as f:
+        json.dump(published_config_dict(model.config), f, indent=2)
+    return save_state_dict(hf_state_dict(model), directory, max_shard_bytes=max_shard_bytes)
 
 
 def prompt_ids(config: Qwen2VLConfig, spans: Sequence[tuple], text_len: int = PROMPT_TEXT_LEN,

@@ -10,27 +10,44 @@ T5 attention has no 1/sqrt(d) scale and adds a learned relative position
 bias, which block 0 computes and every later block reuses; with a bias the
 attention takes the math route. The norms are RMSNorm with an fp32 scale
 (`ops.norms.rms_norm`, the B11 kernel on the card).
+
+`T5EncoderModel.from_pretrained` reads a directory as the JAX package's
+does: its `config.json` (transformers' T5 config: `d_model`, `d_ff`,
+`d_kv`, `num_heads`, `feed_forward_proj`; a JAX- or port-written one too)
+and its weights, flax-keyed or in transformers' keys (one
+`model.safetensors`, or `model-0000i-of-0000n.safetensors` shards with
+their index), the decoder's and the LM head's keys dropped and the rest
+renamed through `T5_KEY_MAP` as JAX's `convert_foreign_state_dict` does.
+`shared.weight` and `encoder.embed_tokens.weight` both map to the one
+table; where both are stored, `shared.weight` is the one kept, as in JAX's
+read (the later key of the sorted file wins there). The norms stay fp32.
+`save_pretrained` writes what the JAX package's writes.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...core.config import BaseConfig
+from ...core.convert import T5_KEY_MAP
 from ...ops.attention import scaled_dot_product_attention
 from ...ops.norms import rms_norm
 
 
 @dataclasses.dataclass
-class T5Config:
+class T5Config(BaseConfig):
     """Defaults are T5 v1.1-XXL's encoder (SD3's text_encoder_3). The
-    feed-forward is T5 v1.1's gated-gelu (tanh form); the JAX package's
-    relu and gated-silu variants are not ported."""
+    feed-forward is T5 v1.1's gated-gelu (tanh form, `dense_act_fn`
+    "gelu_new"); the JAX package's relu and gated-silu variants are not
+    ported, and a config naming one raises."""
 
+    model_type = "t5"
     vocab_size: int = 32128
     d_model: int = 4096
     d_kv: int = 64
@@ -40,6 +57,16 @@ class T5Config:
     relative_attention_num_buckets: int = 32
     relative_attention_max_distance: int = 128
     layer_norm_epsilon: float = 1e-6
+    dense_act_fn: str = "gelu_new"
+    is_gated_act: bool = True
+    feed_forward_proj: str = "gated-gelu"
+
+    def __post_init__(self):
+        if self.feed_forward_proj != "gated-gelu":
+            raise NotImplementedError(f"T5Config: feed_forward_proj {self.feed_forward_proj!r} "
+                                      f"is not ported (only 'gated-gelu')")
+        # as the JAX config, feed_forward_proj decides the activation
+        self.is_gated_act, self.dense_act_fn = True, "gelu_new"
 
 
 def relative_position_bucket(relative_position: torch.Tensor, num_buckets: int = 32,
@@ -158,14 +185,53 @@ class T5Stack(nn.Module):
         return self.final_layer_norm(x)
 
 
+def convert_hf_state_dict(flat):
+    """transformers' T5 keys -> flax keys (JAX's `convert_foreign_state_dict`):
+    the decoder's and the LM head's keys dropped, `encoder.embed_tokens.weight`
+    dropped where `shared.weight` is stored too (JAX keeps `shared.weight`,
+    the later of the two in its sorted read), the rest through `T5_KEY_MAP`.
+    The relative position table (buckets, heads) is an embedding: JAX
+    transposes it as a Linear's weight and its load transposes it back by
+    shape; here it is left as stored."""
+    from ...core.modeling import convert_torch_state_dict
+
+    flat = {k: v for k, v in flat.items() if not k.startswith(("decoder.", "lm_head."))}
+    if "shared.weight" in flat:
+        flat.pop("encoder.embed_tokens.weight", None)
+    out = convert_torch_state_dict(flat, T5_KEY_MAP)
+    return {k: v.T if k.endswith("relative_attention_bias.embedding") else v
+            for k, v in out.items()}
+
+
 class T5EncoderModel(nn.Module):
     """forward(input_ids (B, S)) -> (last_hidden (B, S, d_model), its mean over S)."""
+
+    flax_key_map = T5_KEY_MAP  # its names -> the JAX T5EncoderModule's
 
     def __init__(self, config: T5Config):
         super().__init__()
         self.config = config
         self.shared = nn.Embedding(config.vocab_size, config.d_model)
         self.encoder = T5Stack(config)
+
+    @classmethod
+    def from_pretrained(cls, path: str, subfolder: Optional[str] = None, device="cuda",
+                        dtype: torch.dtype = torch.float32) -> "T5EncoderModel":
+        """The encoder of directory `path` (or its `subfolder`, e.g.
+        "text_encoder_3") on `device`, its parameters in `dtype` but the
+        norms' scales (fp32)."""
+        from ...core.modeling import from_pretrained
+
+        return from_pretrained(cls, T5Config, T5_KEY_MAP, path, device=device, build=cls,
+                               param_dtype=dtype, fp32_modules=(T5LayerNorm,),
+                               subfolder=subfolder, convert=convert_hf_state_dict)
+
+    def save_pretrained(self, directory: str, **kwargs):
+        """config.json and flax-keyed safetensors (shards above 5 GiB), as the
+        JAX package writes them."""
+        from ...core.modeling import save_pretrained
+
+        return save_pretrained(self, directory, **kwargs)
 
     def forward(self, input_ids):
         x = self.encoder(self.shared(input_ids))

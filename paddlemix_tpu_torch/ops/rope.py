@@ -49,7 +49,12 @@ def mrope_cos_sin(position_ids, head_dim: int, mrope_section, theta: float = 100
     sections (e.g. (16, 24, 24), summing to head_dim // 2) are taken twice
     over the duplicated halves, section i from stream i % 3. Returns cos / sin
     (B, S, head_dim). Where the three streams are equal (text, decode steps)
-    this is `rope_cos_sin` of that stream, bit for bit."""
+    this is `rope_cos_sin` of that stream, bit for bit. Any other shape (the
+    packed (B, S) positions of a language-model loss) raises ValueError: JAX's
+    indexing raises IndexError there."""
+    if position_ids.ndim != 3 or position_ids.shape[0] != 3:
+        raise ValueError(f"mrope_cos_sin: position_ids must be (3, B, S), the t / h / w "
+                         f"streams; got {tuple(position_ids.shape)}")
     cos3, sin3 = rope_cos_sin(position_ids, head_dim, theta)  # (3, B, S, D)
     cos_parts, sin_parts, offset = [], [], 0
     for i, sec in enumerate(list(mrope_section) * 2):

@@ -411,29 +411,55 @@ def test_a_short_hf_checkpoint_is_refused(tmp_path):
 
 def test_fault22_published_config_layout(tmp_path):
     """ROADMAP C.22: the published config.json (transformers 4.41) keeps the
-    language model's fields at the top level, with no `text_config`; JAX's
-    Qwen2VLConfig, and the port's with it, read `text_config` alone and so
-    take the Llama defaults (vocab 32,000, 4,096 wide). The port's strict read
-    then refuses the checkpoint by shape."""
+    language model's fields at the top level, with no `text_config`, the
+    M-RoPE sections in `rope_scaling` and the tower's channels as `in_chans`.
+    JAX's Qwen2VLConfig reads `text_config` alone and so still takes the
+    Llama defaults (vocab 32,000, 4,096 wide). The port departs from JAX
+    here, by name: it reads the top-level fields, `mrope_section` from
+    `rope_scaling` and `in_chans`, so it reads the checkpoint, and its
+    logits equal transformers' (atol 1e-4, rtol 1e-4). `save_published`
+    writes the same layout, and the port reads it back to an equal config
+    and bit-equal tensors."""
     import json
+
+    from paddlemix_tpu_torch.models.qwen2_vl import published_config_dict, save_published
 
     hf = _hf_model()
     text = {k: v for k, v in hf.config.text_config.to_dict().items()
             if k in ("vocab_size", "hidden_size", "intermediate_size", "num_hidden_layers",
-                     "num_attention_heads", "num_key_value_heads", "rms_norm_eps")}
+                     "num_attention_heads", "num_key_value_heads", "rms_norm_eps",
+                     "max_position_embeddings", "tie_word_embeddings")}
     published = dict(text, model_type="qwen2_vl", rope_theta=1e6, image_token_id=150,
                      video_token_id=151, vision_start_token_id=149, vision_end_token_id=148,
                      rope_scaling={"type": "mrope", "mrope_section": [16, 24, 24]},
                      vision_config=dict(depth=2, embed_dim=32, num_heads=2, in_chans=3,
                                         patch_size=4, spatial_merge_size=2,
                                         temporal_patch_size=2, hidden_size=256, mlp_ratio=2.0))
+    assert "text_config" not in published
     (tmp_path / "config.json").write_text(json.dumps(published))
     save_state_dict({_legacy(k): v for k, v in hf.state_dict().items()}, str(tmp_path))
-    jtext, ttext = JConfig.from_dict(published).text, Qwen2VLConfig.from_dict(published).text
-    assert (jtext.vocab_size, jtext.hidden_size) == (ttext.vocab_size, ttext.hidden_size) == \
-        (32000, 4096)
-    with pytest.raises(KeyError, match="shape mismatches"):
-        Qwen2VLForConditionalGeneration.from_pretrained(str(tmp_path), device="cpu")
+    jcfg, tcfg = JConfig.from_dict(published), Qwen2VLConfig.from_dict(published)
+    assert (jcfg.text.vocab_size, jcfg.text.hidden_size) == (32000, 4096)  # JAX: C.22
+    assert (tcfg.text.vocab_size, tcfg.text.hidden_size, tcfg.text.kv_heads) == (160, 256, 1)
+    assert tcfg.mrope_section == (16, 24, 24) and tcfg.vision.in_channels == 3
+    model = Qwen2VLForConditionalGeneration.from_pretrained(str(tmp_path), device="cpu")
+    enc = tproc.Qwen2VLImageProcessor(**dict(PROC, pad_to_multiple=4))([_image(16, 24, 1)])
+    n = int(np.prod(enc["image_grid_thw"][0])) // 4
+    ids = np.asarray([[5, 149] + [150] * n + [148, 9, 11]])
+    pos = get_rope_index(ids, enc["image_grid_thw"], 150, 151, 2)
+    with torch.inference_mode():
+        hf_logits = hf(input_ids=torch.from_numpy(ids),
+                       pixel_values=torch.from_numpy(enc["pixel_patches"][0]),
+                       image_grid_thw=torch.from_numpy(enc["image_grid_thw"])).logits
+        out, _ = model(ids, pos, *_vision_args(enc))
+    _close(hf_logits, out, 1e-4, 1e-4)
+    save_published(model, str(tmp_path / "again"), max_shard_bytes=100_000)
+    written = json.loads((tmp_path / "again" / "config.json").read_text())
+    assert "text_config" not in written and written == published_config_dict(model.config)
+    back = Qwen2VLForConditionalGeneration.from_pretrained(str(tmp_path / "again"), device="cpu")
+    assert back.config.text == model.config.text and back.config.vision == model.config.vision
+    mine = model.state_dict()
+    assert all(torch.equal(v, mine[k]) for k, v in back.state_dict().items())
 
 
 def test_save_pretrained_and_hf_layout_round_trips(pair, tmp_path):
