@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (paddlemix_tpu_torch) on one CUDA card.
 
-Drives twelve slices at their published widths with weights drawn on the
+Drives thirteen slices at their published widths with weights drawn on the
 card from a seeded torch.Generator:
 
   - SDXL-1024 text-to-image through StableDiffusionXLPipeline.__call__, in
@@ -80,7 +80,15 @@ card from a seeded torch.Generator:
     seeded T5 tokenizer as `tokenizer_3`), served by tools.text_to_image.main,
     and its transformer fine-tuned by the flow-match loss (fp32 masters, bf16
     compute, gradient checkpointing per block) through diffusers.sd3's
-    sd3_trainer and Trainer.train at batch 2 on VAE latents of 1024 px jpegs.
+    sd3_trainer and Trainer.train at batch 2 on VAE latents of 1024 px jpegs;
+  - SD1.5-512 under a ControlNet (lllyasviel/sd-controlnet-canny's config,
+    361 M parameters) and under a full T2I-Adapter (TencentARC/
+    t2iadapter_canny_sd15v2's widths, 3 input channels), both written into
+    pipeline directories and served from DiffusionPipeline.from_pretrained
+    (UniPC at 20 steps and DDIM at 50, CFG 7.5, on 512 px edge maps), trained
+    by tools.train_controlnet.main (batch 4) and tools.train_t2i_adapter.main
+    (batch 2 at 512 px), and the SD1.5 UNet trainer with gradient
+    checkpointing per block.
 
 Phases:
 
@@ -234,14 +242,14 @@ Phases:
                    bf16 cache, the dequant or gather not included)
  18. llama int8kv  Llama-2-7B is built with cachekv_int8; agree (prefill of
                    3,968 tokens + 4 decode steps, B8 and B11 vs their plain
-                   versions); 3 requests of 3,968 prompt tokens and 128 new
+                   versions); 2 requests of 3,968 prompt tokens and 128 new
                    ones (no eos): TTFT, decode tokens/s, peak memory, cache
                    bytes, launches as `expected_launches_llama` derives them;
-                   then the same 3 requests over the bf16 KVCache (B7)
+                   then the same 2 requests over the bf16 KVCache (B7)
  19. llama paged   a batch of 8 right-padded prompts (2,000 down to 130
                    tokens), 128 new tokens each, blocks of 128: agree (B9 and
                    B11 vs plain, and the paged path against the dense cache
-                   on the same batch); 3 batches through paged_greedy_generate
+                   on the same batch); 2 batches through paged_greedy_generate
                    over a pool of exactly the 67 blocks they need: batch
                    TTFT, aggregate decode tokens/s, peak memory, pool bytes
                    against a dense cache's, launches as derived
@@ -555,7 +563,7 @@ Phases:
                    at M-RoPE positions max + 1 on, kernels (B1, B10, B11,
                    B7) vs plain, within a relative L2 of 5e-2; launches as
                    `expected_launches_qwen2_vl` walks them, no other kernel
- 42d. qwen2vl      3 requests of each kind, 128 new tokens, eos off: one
+ 42d. qwen2vl      2 requests of each kind, 128 new tokens, eos off: one
       serve        1280 x 720 jpeg; two 640 x 480 jpegs (782 placeholders in
                    two segments); a video of 16 frames of 640 x 360 (the
                    count smart_nframes picks for 8 s at 30 fps, fps 2;
@@ -620,6 +628,53 @@ Phases:
                    step, busy share, B14's share, peak memory, the bytes of
                    the masters and AdamW state, finite losses, every
                    parameter moved, launches as walked
+ 44a. control dir  SD3 is freed; SD1.5 (seeded, fp32) with a seeded ControlNet
+                   and a seeded full adapter, every weight drawn (the
+                   ControlNet's zero-initialised convs too, so no residual is
+                   zero); after a check of the free disk under a temporary
+                   directory (removed at the end of 44f, whatever happens),
+                   StableDiffusionControlNetPipeline (UniPC) and
+                   StableDiffusionAdapterPipeline (DDIM) written by
+                   save_pretrained (model_index.json with `controlnet` /
+                   `adapter`) and read back by DiffusionPipeline.from_pretrained
+                   in fp32: 0 tensors differing, seconds and GB/s each way
+ 44b. control      the ControlNet directory read in bf16; agree: one
+                   ControlNet + UNet forward at 64x64 latents, batch 2,
+                   kernels vs plain (AGREE_TOL), the control (the UNet
+                   without the ControlNet's residuals) must fail it, 21 B1
+                   (7 at each head_dim 40, 80, 160) and the two models' B4;
+                   each model's device ms of a step's forward (the
+                   ControlNet's share); 3 requests on 512 px edge maps that
+                   numpy makes from smooth jpegs, 20 UniPC steps, CFG 7.5,
+                   and one more under the profiler: seconds, busy share,
+                   peak memory, image finite in [0, 1], launches equal to
+                   `expected_launches_controlnet`
+ 44c. adapter      the adapter directory read in bf16; agree (the control:
+                   the UNet without the adapter's features) and 3 + 1
+                   requests the same way, 50 DDIM steps, launches equal to
+                   `expected_launches_sd15` (the adapter launches no kernel)
+ 44d. control      B15 and B14 per element at the ControlNet trainer's batch
+      train        4 and the adapter trainer's batch 2 at SD1.5's three
+      kernels      self-attention shapes, with their gates and controls
+ 44e. control      the ControlNet trainer's loss at full width (one
+      train        micro-batch of 2, fixed t and noise; the frozen UNet's
+                   down blocks run B1, its mid and up blocks B15 / B14)
+                   against two plain versions one rounding apart, as sd15
+                   train agree (the control: B14's dK/dV without di), then
+                   train_controlnet.main on the directory (CONTROL_TRAIN_STEPS
+                   steps at batch 4, the example's 256 samples) and a
+                   profiled step; the adapter trainer's step the same way,
+                   then train_t2i_adapter.main --pretrained DIR --resolution
+                   512 (ADAPTER_TRAIN_STEPS steps at batch 2), its saved
+                   adapter read back bit-equal: seconds a step, busy share,
+                   peak memory, finite losses, launches as walked
+ 44f. sd15         the SD1.5 UNet trainer's micro-batch of 8 (fixed t and
+      checkpointing noise) with gradient_checkpointing off and on: the loss
+                   bit-equal, the gradients within the gate of two plain
+                   versions one rounding apart, the peak memory lower (both
+                   printed), launches as walked (each block's B15 and B4
+                   twice); then build_trainer + Trainer.train with it on,
+                   GC_TRAIN_STEPS steps
 
 Any failed check exits non-zero. Without a CUDA card, or outside a checkout
 of the repository, it exits non-zero before printing any result. The line
@@ -783,7 +838,7 @@ PAGED_CASES = [(8, 32, 32, 128, 128, None), (4, 32, 8, 128, 128, (3000, 1, 700, 
 INT8_DECODE_SUM, PAGED_SUM = 1e-5, 1e-6
 LLAMA_AGREE_TOL = 5e-2  # relative L2 of the full-width Llama logits, kernels vs plain
 LLAMA_AGREE_STEPS = 4  # decode steps after the prefill in the Llama agree checks
-LLAMA_REQUESTS = [1, 2, 3]  # prompt seeds
+LLAMA_REQUESTS = [1, 2]  # prompt seeds (two: the whole run stays inside its 1,200 s)
 # B1's int8 QK^T form (PMIX_INT8_ATTN=1) on the SDXL a8w8 request, and
 # per element at the SDXL and SD1.5 self-attention shapes. The kernel's scores
 # equal its plain version's bit for bit; the rest differs by P's rounding, as
@@ -900,7 +955,7 @@ SDXL_DIR_SEED = 5
 QWEN2VL_IMAGE = (720, 1280)
 QWEN2VL_PAIR = (480, 640)
 QWEN2VL_FRAME, QWEN2VL_CLIP_SECONDS, QWEN2VL_CLIP_FPS = (360, 640), 8, 30.0
-QWEN2VL_REQUESTS = 3     # requests of each kind
+QWEN2VL_REQUESTS = 2     # requests of each kind (two: the whole run stays inside its 1,200 s)
 QWEN2VL_AGREE_STEPS = 4  # decode steps after the prefill in the agree
 # B7 at G 7, (B, Hq, KVH, D, L, lengths): the image request's first and last
 # decode steps (1,230-token prompt, 1,358 slots), a ragged pair, the video
@@ -928,6 +983,35 @@ SD3_TRAIN_PROMPTS = tuple(p for p, _ in SD3_REQUESTS) + ("a red bicycle leaning 
 SD3_TRAIN_BATCH = 2
 SD3_TRAIN_STEPS = 10
 SD3_AGREE_U = (0.3, 0.8)  # the train agree's fixed draws of u (sigma 0.5625, 0.9231)
+# SD1.5 under a ControlNet and a T2I-Adapter (phases 44a-44f): SD1.5-512 with
+# lllyasviel/sd-controlnet-canny's ControlNet (UniPC, CONTROL_STEPS steps: the
+# request of diffusers' ControlNet guide) and a full adapter at
+# TencentARC/t2iadapter_canny_sd15v2's widths with 3 input channels (DDIM,
+# ADAPTER_STEPS steps), CFG 7.5, 512 px edge maps made from smooth jpegs; the
+# trainers of examples/train_controlnet.py (batch 4 over the example's 256
+# samples) and examples/train_t2i_adapter.py (batch 2 at --resolution 512),
+# each cut to a few steps; and the SD1.5 UNet trainer at batch 8 with
+# gradient checkpointing. B15 / B14 at the trainers' self-attention shapes
+CONTROL_REQUESTS = [("a bird perched on a branch, high detail", 11),
+                    ("a futuristic city street at night", 12),
+                    ("an oil painting of a lighthouse on a cliff", 13)]
+CONTROL_STEPS = 20
+ADAPTER_STEPS = 50
+CONTROL_TRAIN_BATCH, CONTROL_TRAIN_STEPS = 4, 4
+ADAPTER_TRAIN_BATCH, ADAPTER_TRAIN_STEPS = 2, 4
+GC_TRAIN_STEPS = 3
+CONTROL_TRAIN_FLASH_CASES = [(b_, s_, 8, 8, d_, False) for b_ in (CONTROL_TRAIN_BATCH,
+                                                                 ADAPTER_TRAIN_BATCH)
+                             for s_, d_ in ((4096, 40), (1024, 80), (256, 160))]
+# B4 at the ControlNet trainer's batch 4 (the UNet's and the ControlNet's maps,
+# fp32 weights) and at the adapter trainer's VAE encoder, batch 2 at 512 px
+# (bf16 weights)
+CONTROL_TRAIN_GN_CASES = [((CONTROL_TRAIN_BATCH,) + shape[1:], act, "fp32")
+                          for shape, act in SD15_TRAIN_GN_CASES] + \
+    [((ADAPTER_TRAIN_BATCH, hw, hw, c), act, "bf16")
+     for hw, c, act in ((512, 128, "silu"), (256, 128, "silu"), (256, 256, "silu"),
+                        (128, 256, "silu"), (128, 512, "silu"), (64, 512, "silu"),
+                        (64, 512, "none"))]
 # H100 SXM peaks (NVIDIA data sheet, dense) for the bounds
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
@@ -5764,6 +5848,657 @@ def sd3_dir_slice(torch, F, np, dev, gen, m, counters, record, card):
     return phases, stats
 
 
+
+# --------------------------------------- ControlNet and T2I-Adapter (44a-44f)
+def edge_map(np, Image, seed, size=SD15_SIZE):
+    """A size x size canny-like edge map (uint8, 0 / 255, 3 channels) that
+    numpy makes from a smooth jpeg: the gradient magnitude of its luma
+    (central differences), over its 90th percentile."""
+    import io
+
+    with Image.open(io.BytesIO(smooth_jpeg(np, Image, seed, size=(size, size)))) as im:
+        y = np.asarray(im.convert("L"), np.float32)
+    gy, gx = np.gradient(y)
+    mag = np.hypot(gx, gy)
+    return np.repeat(((mag > np.percentile(mag, 90)) * 255).astype(np.uint8)[..., None], 3, -1)
+
+
+def conditioner_of(pipe):
+    return pipe.controlnet if hasattr(pipe, "controlnet") else pipe.adapter
+
+
+def inference_plain(attn):
+    """B1's inference form swapped for its plain version, the calls under
+    autograd left to `_FlashAttention` (whose B15 / B14 the training swaps
+    replace): the frozen UNet's down blocks run B1 inside a training step."""
+    from paddlemix_tpu_torch.ops.autograd import grad_needed
+
+    real = attn.flash_attention
+
+    def run(q, k, v, **kw):
+        if grad_needed(q, k, v):
+            return real(q, k, v, **kw)
+        return attn.flash_attention_ref(q, k, v, scale=kw.get("scale"))
+    return (attn, "flash_attention", run)
+
+
+def grad_agree(torch, m, label, loss_and_grads, names, card):
+    """The training agree of the SD1.5 paths (CLIP's rule): `loss_and_grads(swaps)`
+    with the kernels, with their plain versions (B15, B14, B4 and B1's
+    inference form), with the plain versions one rounding apart (P rounded to
+    bf16 before P.V) and with the control (B14's dK/dV without di); the loss
+    within CLIP_LOSS_RATIO and the gradients' median over all parameters and
+    largest gap over those above the rounding noise within TRAIN_AGREE_RATIO
+    of the pair's; the control must fail. Returns the numbers."""
+    attn = m.attn
+    plain_all, rounded_all = train_plain_swaps(torch, m)
+    extra = [(m.resnet, "group_norm", m.norms.group_norm_ref), inference_plain(attn)]
+    plain, rounded = plain_all[:3] + extra, rounded_all[:3] + extra
+    no_di = [(attn, "flash_bwd_dkv", lambda qs, k, v, do, lse, di, **kw: attn.flash_bwd_dkv_ref(
+        qs, k, v, do, lse, torch.zeros_like(di), **kw))] + [plain[0], plain[2]] + extra
+    loss_k, grads_k = loss_and_grads(())
+    loss_p, grads_p = loss_and_grads(plain)
+    gaps = {"kernels": [rel_l2(a.float(), b_.float()) for a, b_ in zip(grads_k, grads_p)]}
+    del grads_k
+    losses = {"kernels": loss_k}
+    for key, swaps in (("pair", rounded), ("control", no_di)):
+        losses[key], grads = loss_and_grads(swaps)
+        gaps[key] = [rel_l2(a.float(), b_.float()) for a, b_ in zip(grads, grads_p)]
+        del grads
+    del grads_p
+    signal = [i for i, gap_ in enumerate(gaps["pair"]) if gap_ <= CLIP_SIGNAL_GAP]
+
+    def median_max(key):
+        return sorted(gaps[key])[len(names) // 2], max(gaps[key][i] for i in signal)
+
+    (k_med, k_max), (r_med, r_max), (c_med, c_max) = map(median_max, ("kernels", "pair", "control"))
+    rel_loss = {key: abs(v - loss_p).item() / abs(loss_p).item() for key, v in losses.items()}
+    worst = max(signal, key=lambda i: gaps["kernels"][i])
+    print(f"[{label}] kernels vs plain: loss {loss_k.item():.6f} vs {loss_p.item():.6f} "
+          f"(relative {rel_loss['kernels']:.3e}; the plain versions one rounding apart "
+          f"{rel_loss['pair']:.3e}, ratio tol {CLIP_LOSS_RATIO}); relative L2 of the gradients, "
+          f"median of all {len(names)} / max of the {len(signal)} with signal: kernels "
+          f"{k_med:.3e} / {k_max:.3e}, the pair {r_med:.3e} / {r_max:.3e} (ratio tol "
+          f"{TRAIN_AGREE_RATIO}); control, B14's dK/dV without di: {c_med:.3e} / {c_max:.3e} "
+          f"(must fail); the kernels' largest gap {names[worst]} {gaps['kernels'][worst]:.3e} "
+          f"({card})", flush=True)
+    check(bool(torch.isfinite(loss_k)) and rel_loss["kernels"] <= CLIP_LOSS_RATIO * rel_loss["pair"]
+          and k_med <= TRAIN_AGREE_RATIO * r_med and k_max <= TRAIN_AGREE_RATIO * r_max,
+          f"{label}: loss {rel_loss}, grads {k_med} / {k_max} against {r_med} / {r_max}")
+    check(c_med > TRAIN_AGREE_RATIO * r_med or c_max > TRAIN_AGREE_RATIO * r_max,
+          f"{label}: the control passes ({c_med} / {c_max})")
+    return dict(loss_rel=rel_loss, grads=dict(kernels=(k_med, k_max), pair=(r_med, r_max),
+                                              control=(c_med, c_max)))
+
+
+def control_slice(torch, F, np, dev, gen, m, counters, record, card):
+    """Phases 44a-44f (see the module docstring): SD1.5 under a ControlNet
+    and under a T2I-Adapter, written into pipeline directories and read back,
+    served, held against the plain versions, both trainers run, and the SD1.5
+    UNet trainer with gradient checkpointing on and off. Everything is
+    written under one temporary directory, removed in a `finally`.
+    `counters` are every kernel wrapper's, by name. Returns ({phase:
+    launches}, {phase: {wrapper: launches by head_dim}}, the numbers)."""
+    import shutil
+    import tempfile
+
+    from PIL import Image
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddlemix_tpu_torch.diffusers import (
+        ControlNetModel,
+        DDIMScheduler,
+        DDPMScheduler,
+        DiffusionPipeline,
+        StableDiffusionAdapterPipeline,
+        StableDiffusionControlNetPipeline,
+        UniPCMultistepScheduler,
+        training_utils,
+    )
+    from paddlemix_tpu_torch.diffusers.models.resnet import n_group_norms
+    from paddlemix_tpu_torch.diffusers.sd15 import (
+        SD15_SCHEDULER,
+        expected_launches_sd15,
+        keyed,
+        random_sd15_pipeline,
+        random_sd15_unet,
+        train_walk,
+    )
+    from paddlemix_tpu_torch.diffusers.sd15_control import (
+        expected_launches_adapter_train,
+        expected_launches_controlnet,
+        expected_launches_controlnet_train,
+        random_controlnet,
+        random_t2i_adapter,
+    )
+    from paddlemix_tpu_torch.models.layers import set_compute_dtype
+    from paddlemix_tpu_torch.tools import train_controlnet as tcn
+    from paddlemix_tpu_torch.tools import train_t2i_adapter as tta
+    from paddlemix_tpu_torch.tools import train_text_to_image as t2i
+
+    bf16 = torch.bfloat16
+    attn = m.attn
+    by_dim_fns = [attn.flash_attention, attn.flash_fwd_lse, attn.flash_bwd_dkv,
+                  attn.flash_bwd_dq]
+    phases, dims, stats = {}, {}, {}
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+        for fn in by_dim_fns:
+            fn.launches_by_dim.clear()
+
+    def launches():
+        return ({name: fn.launches for name, fn in counters.items()},
+                {fn.__name__: dict(fn.launches_by_dim) for fn in by_dim_fns})
+
+    def walk(want):
+        return {name: want.get(name, 0) for name in counters}
+
+    def train_dims(want):
+        return {fn.__name__: want["by_dim"].get(fn.__name__, {}) for fn in by_dim_fns}
+
+
+    def device_ms(fn):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+
+    edges = {seed: edge_map(np, Image, seed) for _, seed in CONTROL_REQUESTS}
+    tmp = tempfile.mkdtemp(prefix="pmix_smoke_control_")
+    try:
+        # ----------------------------------------------- 44a the directories
+        t0 = time.perf_counter()
+        base = random_sd15_pipeline(dev, torch.float32, seed=0, tokenizer=specials_tokenizer())
+        shared = {n: getattr(base, n) for n in ("vae", "text_encoder", "tokenizer", "unet")}
+        pipes = {"controlnet": StableDiffusionControlNetPipeline(
+            **shared, controlnet=random_controlnet(dev, torch.float32, seed=1),
+            scheduler=UniPCMultistepScheduler.from_config(SD15_SCHEDULER)),
+            "adapter": StableDiffusionAdapterPipeline(
+                **shared, adapter=random_t2i_adapter(dev, torch.float32, seed=2),
+                scheduler=DDIMScheduler.from_config(SD15_SCHEDULER))}
+        torch.cuda.synchronize()
+        size = {n: sum(t.numel() * t.element_size() for t in getattr(base, n).state_dict()
+                       .values()) for n in ("unet", "vae", "text_encoder")}
+        size.update({n: sum(t.numel() * t.element_size() for t in conditioner_of(p).state_dict()
+                            .values()) for n, p in pipes.items()})
+        n_params = {n: sum(t.numel() for t in conditioner_of(p).parameters())
+                    for n, p in pipes.items()}
+        base_bytes = size["unet"] + size["vae"] + size["text_encoder"]
+        need = 2 * base_bytes + size["controlnet"] + 2 * size["adapter"] + 2 ** 30
+        free = shutil.disk_usage(tmp).free
+        print(f"[control dir] SD1.5 in fp32 with a ControlNet ({n_params['controlnet']} "
+              f"parameters, lllyasviel/sd-controlnet-canny's config) and a full T2I-Adapter "
+              f"({n_params['adapter']}, TencentARC/t2iadapter_canny_sd15v2's widths, 3 input "
+              f"channels), zero convs filled, built in {time.perf_counter() - t0:.1f} s; {tmp}: "
+              f"{free / 1e9:.1f} GB free, this phase needs up to {need / 1e9:.1f} GB", flush=True)
+        check(free >= need, f"control dir: {free / 1e9:.1f} GB free under {tmp}, "
+              f"{need / 1e9:.1f} GB needed (set TMPDIR to a larger disk)")
+        dirs, io_stats = {}, {}
+        for name, pipe in pipes.items():
+            path = dirs[name] = os.path.join(tmp, name)
+            total = base_bytes + size[name]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipe.save_pretrained(path)
+            t_write = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back = DiffusionPipeline.from_pretrained(path, dtype=torch.float32, device=dev)
+            torch.cuda.synchronize()
+            t_read = time.perf_counter() - t0
+            mine, theirs = conditioner_of(pipe).state_dict(), conditioner_of(back).state_dict()
+            unequal = unequal_tensors(torch, pipe, back) + [
+                f"{name}.{k}" for k, v in mine.items()
+                if not (k in theirs and v.dtype == theirs[k].dtype and torch.equal(v, theirs[k]))]
+            with open(os.path.join(path, "model_index.json")) as f:
+                index = json.load(f)
+            print(f"[control dir] {type(pipe).__name__}.save_pretrained: {total / 1e9:.3f} GB "
+                  f"in {t_write:.2f} s ({total / 1e9 / t_write:.2f} GB/s), model_index "
+                  f"{ {k: v for k, v in index.items() if k != '_class_name'} }; "
+                  f"DiffusionPipeline.from_pretrained back to the card in fp32 {t_read:.2f} s "
+                  f"({total / 1e9 / t_read:.2f} GB/s, warm page cache), {type(back).__name__} "
+                  f"with {type(back.scheduler).__name__}; tensors not bit-equal: "
+                  f"{len(unequal)} {unequal[:3]} ({card})", flush=True)
+            check(type(back) is type(pipe) and type(back.scheduler) is type(pipe.scheduler)
+                  and not unequal and len(theirs) == len(mine),
+                  f"control dir: {name}: {len(unequal)} tensors differ")
+            io_stats[name] = dict(gb=total / 1e9, write_s=t_write, read_s=t_read)
+            del back
+        stats["io"] = io_stats
+        del pipes, base, shared
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ------------------------------- 44b the ControlNet: agree and serve
+        t0 = time.perf_counter()
+        pipe = DiffusionPipeline.from_pretrained(dirs["controlnet"], dtype=bf16, device=dev)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        cn, unet = pipe.controlnet, pipe.unet
+        lat = torch.randn((2, 64, 64, 4), generator=gen, device=dev)
+        t = pipe.scheduler.set_timesteps(CONTROL_STEPS).timesteps[:1].to(dev).expand(2)
+        ctx = torch.randn((2, 77, 768), generator=gen, device=dev, dtype=bf16)
+        ctl = torch.from_numpy(edges[CONTROL_REQUESTS[0][1]] / 255.0).to(dev, bf16)[None]
+        ctl = ctl.expand(2, *ctl.shape[1:])
+
+        def cn_forward(swaps=(), residuals=True):
+            with torch.inference_mode(), swapped(swaps):
+                kw = {}
+                if residuals:
+                    down, mid = cn(lat.to(bf16), t, ctx, ctl)
+                    kw = dict(down_block_additional_residuals=down,
+                              mid_block_additional_residual=mid)
+                return unet(lat.to(bf16), t, ctx, **kw).float()
+
+        plain = plain_swaps(m, int8=False)
+        zero()
+        out_k = cn_forward()
+        torch.cuda.synchronize()
+        got, got_dim = launches()
+        out_p = cn_forward(plain)
+        out_c = cn_forward(plain, residuals=False)
+        rel, rel_c = rel_l2(out_k, out_p), rel_l2(out_c, out_p)
+        n_gn = n_group_norms(cn) + n_group_norms(unet)
+        print(f"[control agree] full-width ControlNet + SD1.5 UNet at 64x64 latents, batch 2, "
+              f"bf16: kernels (B1 at head_dim 40 / 80 / 160: {got_dim['flash_attention']}; B4 "
+              f"{got['group_norm']}) vs plain: relative L2 {rel:.3e} (tol {AGREE_TOL}); control, "
+              f"the UNet without the ControlNet's residuals: {rel_c:.3e} (must fail); |out| max "
+              f"{out_p.abs().max().item():.3f} ({card})", flush=True)
+        check(bool(torch.isfinite(out_k).all()) and rel <= AGREE_TOL,
+              f"control agree: relative L2 {rel}")
+        check(rel_c > AGREE_TOL, f"control agree: the control passes ({rel_c})")
+        check(got_dim["flash_attention"] == {40: 7, 80: 7, 160: 7} and got["group_norm"] == n_gn,
+              f"control agree: launches {got_dim} / {got['group_norm']} (21 B1, {n_gn} B4)")
+        with torch.inference_mode():
+            ms_cn = device_ms(lambda: cn(lat.to(bf16), t, ctx, ctl))
+            down, mid = cn(lat.to(bf16), t, ctx, ctl)
+            ms_unet = device_ms(lambda: unet(lat.to(bf16), t, ctx,
+                                             down_block_additional_residuals=down,
+                                             mid_block_additional_residual=mid))
+        del out_k, out_p, out_c, down, mid
+        want = expected_launches_controlnet(pipe, SD15_SIZE, SD15_SIZE, CONTROL_STEPS,
+                                            SD15_GUIDANCE)
+        want_dim = want.pop("flash_attention_by_dim")
+        want = walk(want)
+        want_train = expected_launches_controlnet_train(unet, cn, CONTROL_TRAIN_BATCH, 64,
+                                                        CONTROL_TRAIN_STEPS)
+        want_agree_train = expected_launches_controlnet_train(unet, cn, 2, 64)
+        torch.cuda.reset_peak_memory_stats()
+        seconds = []
+        for i, (prompt, seed) in enumerate(CONTROL_REQUESTS + CONTROL_REQUESTS[-1:]):
+            profiled = i == len(CONTROL_REQUESTS)
+            zero()
+            with profile(activities=[ProfilerActivity.CUDA]) if profiled else \
+                    contextlib.nullcontext() as prof:
+                t0 = time.perf_counter()
+                image = pipe(prompt, image=edges[seed], height=SD15_SIZE, width=SD15_SIZE,
+                             num_inference_steps=CONTROL_STEPS, guidance_scale=SD15_GUIDANCE,
+                             seed=seed, output_type="np")[0]
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+            got, got_dim = launches()
+            print(f"[control serve] seed {seed}: {seconds[-1]:.3f} s"
+                  f"{' (profiled)' if profiled else ''}"
+                  f" | image {image.shape} finite {bool(np.isfinite(image).all())} range "
+                  f"[{image.min():.3f}, {image.max():.3f}] std {image.std():.3f} | launches "
+                  f"{got}; B1 by head_dim {got_dim['flash_attention']}", flush=True)
+            check(image.shape == (1, SD15_SIZE, SD15_SIZE, 3) and bool(np.isfinite(image).all())
+                  and image.min() >= 0.0 and image.max() <= 1.0 and image.std() > 0.01,
+                  f"control serve: image {image.shape} [{image.min()}, {image.max()}]")
+            check(got == want and got_dim["flash_attention"] == want_dim,
+                  f"control serve: launches {got} / {got_dim} != the walk {want} / {want_dim}")
+        phases["cn_serve"], dims["cn_serve"] = got, got_dim
+        dev_ms = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        s_req = sorted(seconds[:-1])[len(seconds[:-1]) // 2]
+        cn_share = ms_cn / max(ms_cn + ms_unet, 1e-9)
+        print(f"[control serve] {len(CONTROL_REQUESTS)} requests, {SD15_SIZE} px edge maps, "
+              f"{CONTROL_STEPS} UniPC steps, CFG {SD15_GUIDANCE}, read in bf16 in {t_load:.2f} s: "
+              f"seconds {[round(x, 3) for x in seconds]} (the last profiled), median "
+              f"{s_req:.3f} s a request; profiled {dev_ms:.1f} ms of device time: busy "
+              f"{100 * dev_ms / 1e3 / seconds[-1]:.1f}% ({100 * dev_ms / 1e3 / s_req:.1f}% of the "
+              f"median); a step's device time at batch 2: ControlNet {ms_cn:.2f} ms, UNet "
+              f"{ms_unet:.2f} ms, the ControlNet's share {100 * cn_share:.1f}%; "
+              f"peak memory {peak:.2f} GiB ({card})", flush=True)
+        stats["cn_serve"] = dict(request_s=s_req, seconds=seconds, device_ms=dev_ms,
+                                 busy=dev_ms / 1e3 / seconds[-1], peak_gib=peak,
+                                 cn_step_ms=ms_cn, unet_step_ms=ms_unet, cn_share=cn_share,
+                                 rel=rel, control_rel=rel_c)
+        del pipe, cn, unet, lat, ctx, ctl
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---------------------------------- 44c the T2I-Adapter: agree and serve
+        t0 = time.perf_counter()
+        pipe = DiffusionPipeline.from_pretrained(dirs["adapter"], dtype=bf16, device=dev)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        ad, unet = pipe.adapter, pipe.unet
+        lat = torch.randn((2, 64, 64, 4), generator=gen, device=dev)
+        t = pipe.scheduler.set_timesteps(ADAPTER_STEPS).timesteps[:1].to(dev).expand(2)
+        ctx = torch.randn((2, 77, 768), generator=gen, device=dev, dtype=bf16)
+        ctl = torch.from_numpy(edges[CONTROL_REQUESTS[0][1]] / 255.0).to(dev, torch.float32)[None]
+
+        def ad_forward(swaps=(), features=True):
+            with torch.inference_mode(), swapped(swaps):
+                kw = {}
+                if features:
+                    feats = [f.float() for f in ad(ctl)]
+                    kw = dict(down_intrablock_additional_residuals=[torch.cat([f, f])
+                                                                    for f in feats])
+                return unet(lat.to(bf16), t, ctx, **kw).float()
+
+        zero()
+        out_k = ad_forward()
+        torch.cuda.synchronize()
+        got, got_dim = launches()
+        out_p = ad_forward(plain)
+        out_c = ad_forward(plain, features=False)
+        rel, rel_c = rel_l2(out_k, out_p), rel_l2(out_c, out_p)
+        print(f"[adapter agree] full-width T2I-Adapter + SD1.5 UNet at 64x64 latents, batch 2, "
+              f"bf16: kernels (B1 {got_dim['flash_attention']}; B4 {got['group_norm']}) vs plain: "
+              f"relative L2 {rel:.3e} (tol {AGREE_TOL}); control, the UNet without the adapter's "
+              f"features: {rel_c:.3e} (must fail) ({card})", flush=True)
+        check(bool(torch.isfinite(out_k).all()) and rel <= AGREE_TOL,
+              f"adapter agree: relative L2 {rel}")
+        check(rel_c > AGREE_TOL, f"adapter agree: the control passes ({rel_c})")
+        check(got_dim["flash_attention"] == {40: 5, 80: 5, 160: 5}
+              and got["group_norm"] == n_group_norms(unet),
+              f"adapter agree: launches {got_dim} / {got['group_norm']}")
+        del out_k, out_p, out_c
+        # the adapter launches none of the kernels: SD1.5's request
+        want = walk(expected_launches_sd15(pipe, SD15_SIZE, SD15_SIZE, ADAPTER_STEPS,
+                                           SD15_GUIDANCE))
+        want_ad_train = expected_launches_adapter_train(pipe, ADAPTER_TRAIN_BATCH, SD15_SIZE,
+                                                        ADAPTER_TRAIN_STEPS)
+        torch.cuda.reset_peak_memory_stats()
+        seconds = []
+        for i, (prompt, seed) in enumerate(CONTROL_REQUESTS + CONTROL_REQUESTS[-1:]):
+            profiled = i == len(CONTROL_REQUESTS)
+            zero()
+            with profile(activities=[ProfilerActivity.CUDA]) if profiled else \
+                    contextlib.nullcontext() as prof:
+                t0 = time.perf_counter()
+                image = pipe(prompt, image=edges[seed], height=SD15_SIZE, width=SD15_SIZE,
+                             num_inference_steps=ADAPTER_STEPS, guidance_scale=SD15_GUIDANCE,
+                             seed=seed, output_type="np")[0]
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+            got, got_dim = launches()
+            print(f"[adapter serve] seed {seed}: {seconds[-1]:.3f} s"
+                  f"{' (profiled)' if profiled else ''} | image {image.shape} finite "
+                  f"{bool(np.isfinite(image).all())} range [{image.min():.3f}, {image.max():.3f}] "
+                  f"std {image.std():.3f} | launches {got}", flush=True)
+            check(image.shape == (1, SD15_SIZE, SD15_SIZE, 3) and bool(np.isfinite(image).all())
+                  and image.min() >= 0.0 and image.max() <= 1.0 and image.std() > 0.01,
+                  f"adapter serve: image {image.shape} [{image.min()}, {image.max()}]")
+            check(got == want, f"adapter serve: launches {got} != the walk {want}")
+        phases["adapter_serve"], dims["adapter_serve"] = got, got_dim
+        dev_ms = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        s_req = sorted(seconds[:-1])[len(seconds[:-1]) // 2]
+        print(f"[adapter serve] {len(CONTROL_REQUESTS)} requests, {SD15_SIZE} px edge maps, "
+              f"{ADAPTER_STEPS} DDIM steps, CFG {SD15_GUIDANCE}, read in bf16 in {t_load:.2f} s: "
+              f"seconds {[round(x, 3) for x in seconds]} (the last profiled), median "
+              f"{s_req:.3f} s a request; profiled {dev_ms:.1f} ms of device time: busy "
+              f"{100 * dev_ms / 1e3 / seconds[-1]:.1f}% ({100 * dev_ms / 1e3 / s_req:.1f}% of the "
+              f"median); peak memory {peak:.2f} GiB ({card})", flush=True)
+        stats["adapter_serve"] = dict(request_s=s_req, seconds=seconds, device_ms=dev_ms,
+                                      busy=dev_ms / 1e3 / seconds[-1], peak_gib=peak, rel=rel,
+                                      control_rel=rel_c)
+        del pipe, ad, unet, lat, ctx, ctl
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ------------------------------------------------ 44d train kernels
+        sd15_train_kernels(torch, F, dev, gen, record, attn, cases=CONTROL_TRAIN_FLASH_CASES,
+                           tag="control train kernels")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ------------------------------------------------- 44e the trainers
+        unet = t2i.training_unet(dirs["controlnet"], dev)
+        cn = set_compute_dtype(ControlNetModel.from_pretrained(
+            dirs["controlnet"], subfolder="controlnet", device=dev), bf16)
+        unet.requires_grad_(False)
+        sched = DDPMScheduler.from_config(SD15_SCHEDULER)
+        g2 = torch.Generator(device=dev).manual_seed(4)
+        batch = {"latents": torch.randn((2, 64, 64, 4), generator=g2, device=dev),
+                 "encoder_hidden_states": torch.randn((2, 77, 768), generator=g2, device=dev),
+                 "conditioning": torch.rand((2, SD15_SIZE, SD15_SIZE, 3), generator=g2,
+                                            device=dev)}
+        tt = torch.tensor(SD15_AGREE_T, device=dev)
+        noise = torch.randn((2, 64, 64, 4), generator=g2, device=dev)
+        names, params = zip(*cn.named_parameters())
+
+        def cn_loss_and_grads(swaps):
+            with swapped(swaps):
+                loss = tcn.controlnet_loss(unet, cn, sched, batch, tt, noise)
+                return loss.detach().float(), torch.autograd.grad(loss, params)
+
+        zero()
+        cn_loss_and_grads(())
+        torch.cuda.synchronize()
+        got, got_dim = launches()
+        print(f"[control train agree] the ControlNet trainer's loss (tools.train_controlnet."
+              f"controlnet_loss) at full width: the ControlNet (fp32 masters, bf16 compute) over "
+              f"the frozen UNet, one micro-batch of 2 at 64x64 latents and 512 px conditioning, t "
+              f"{SD15_AGREE_T}, fixed noise; launches {got}, by head_dim {got_dim}", flush=True)
+        check(got == walk(want_agree_train) and got_dim == train_dims(want_agree_train),
+              f"control train agree: launches {got} / {got_dim} != {want_agree_train}")
+        stats["cn_agree"] = grad_agree(torch, m, "control train agree", cn_loss_and_grads, names,
+                                       card)
+        del unet, cn, batch, noise, params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        zero()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer, result = tcn.main([dirs["controlnet"]], device=dev,
+                                   max_steps=CONTROL_TRAIN_STEPS,
+                                   output_dir=os.path.join(tmp, "cn_out"), save_steps=0)
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        got, got_dim = launches()
+        losses_ = torch.stack([h["loss"] for h in trainer.history]).float()
+        s_step = step_seconds(trainer)
+        print(f"[control train] train_controlnet.main on the directory, {CONTROL_TRAIN_STEPS} "
+              f"steps at batch {CONTROL_TRAIN_BATCH} over the example's 256 samples: {t_run:.2f} s "
+              f"with the reads and the samples; {s_step:.4f} s a step (median); losses "
+              f"{[round(x_, 4) for x_ in losses_.tolist()]}; peak memory {peak:.2f} GiB; the "
+              f"Trainer's parameters {len(trainer.params)} (the ControlNet's); launches {got}, by "
+              f"head_dim {got_dim} (walk {want_train}) ({card})", flush=True)
+        check(len(trainer.history) == CONTROL_TRAIN_STEPS and bool(torch.isfinite(losses_).all()),
+              f"control train: losses {losses_.tolist()}")
+        check(got == walk(want_train) and got_dim == train_dims(want_train),
+              f"control train: launches {got} / {got_dim} != the walk {want_train}")
+        phases["cn_train"], dims["cn_train"] = got, got_dim
+        t_prof, dev_ms = profiled_steps(torch, trainer)
+        print(f"[control train] a profiled step: {t_prof:.4f} s with {dev_ms:.1f} ms of device "
+              f"time: busy {100 * dev_ms / 1e3 / t_prof:.1f}% ({card})", flush=True)
+        stats["cn_train"] = dict(step_s=s_step, run_s=t_run, peak_gib=peak, device_ms=dev_ms,
+                                 busy=dev_ms / 1e3 / t_prof)
+        del trainer, result
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the adapter trainer's step, agree: the directory's models as main uses them
+        pipe = tta.freeze(DiffusionPipeline.from_pretrained(dirs["adapter"], device=dev), bf16)
+        pipe.scheduler = DDIMScheduler.from_config(SD15_SCHEDULER)
+        ad = set_compute_dtype(tta.adapter_for(pipe.unet, 0, dev), bf16)
+        img, ctlr = tta.synthetic_pair(np.random.default_rng(0), ADAPTER_TRAIN_BATCH, SD15_SIZE)
+        images, controls = torch.from_numpy(img).to(dev), torch.from_numpy(ctlr).to(dev)
+        ids = torch.as_tensor(pipe.tokenizer(["a square"])["input_ids"], device=dev)
+        with torch.no_grad():
+            context = pipe.text_encoder(ids)[0]
+        shape = (ADAPTER_TRAIN_BATCH, 64, 64, 4)
+        z, noise = (torch.randn(shape, generator=g2, device=dev) for _ in range(2))
+        tt = torch.tensor(SD15_AGREE_T, device=dev)
+        names, params = zip(*ad.named_parameters())
+
+        def ad_loss_and_grads(swaps):
+            with swapped(swaps):
+                loss = tta.adapter_loss(pipe, ad, images, controls, context, z, tt, noise)
+                return loss.detach().float(), torch.autograd.grad(loss, params)
+
+        zero()
+        ad_loss_and_grads(())
+        torch.cuda.synchronize()
+        got, got_dim = launches()
+        want_step = expected_launches_adapter_train(pipe, ADAPTER_TRAIN_BATCH, SD15_SIZE, 1,
+                                                    prompts=0)
+        print(f"[adapter train agree] the adapter trainer's step (tools.train_t2i_adapter."
+              f"adapter_loss) at full width: a fresh adapter (fp32 masters, bf16 compute) over "
+              f"the frozen VAE encoder and UNet, {ADAPTER_TRAIN_BATCH} synthetic pairs at "
+              f"{SD15_SIZE} px, t {SD15_AGREE_T}, fixed draws; launches {got}, by head_dim "
+              f"{got_dim}", flush=True)
+        check(got == walk(want_step) and got_dim == train_dims(want_step),
+              f"adapter train agree: launches {got} / {got_dim} != {want_step}")
+        stats["adapter_agree"] = grad_agree(torch, m, "adapter train agree", ad_loss_and_grads,
+                                            names, card)
+        del pipe, ad, images, controls, z, noise, params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        zero()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ad, losses_, times = tta.main(["--pretrained", dirs["adapter"], "--resolution",
+                                       str(SD15_SIZE), "--steps", str(ADAPTER_TRAIN_STEPS),
+                                       "--batch", str(ADAPTER_TRAIN_BATCH), "--output",
+                                       os.path.join(tmp, "adapter_out")], device=dev)
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        got, got_dim = launches()
+        losses_ = torch.stack(losses_).float()
+        steps_s = sorted(b_ - a_ for a_, b_ in zip(times, times[1:]))
+        s_step = steps_s[len(steps_s) // 2]
+        back = type(ad).from_pretrained(os.path.join(tmp, "adapter_out"), device=dev)
+        unequal = [k for k, v in ad.state_dict().items()
+                   if not torch.equal(v, back.state_dict()[k])]
+        print(f"[adapter train] train_t2i_adapter.main --pretrained DIR --resolution {SD15_SIZE}: "
+              f"{ADAPTER_TRAIN_STEPS} steps at batch {ADAPTER_TRAIN_BATCH}, {t_run:.2f} s with the "
+              f"read and the save; {s_step:.4f} s a step (median of the later steps); losses "
+              f"{[round(x_, 4) for x_ in losses_.tolist()]}; peak memory {peak:.2f} GiB; the saved "
+              f"adapter read back: {len(unequal)} tensors differ; launches {got}, by head_dim "
+              f"{got_dim} (walk {want_ad_train}) ({card})", flush=True)
+        check(len(losses_) == ADAPTER_TRAIN_STEPS and bool(torch.isfinite(losses_).all())
+              and not unequal, f"adapter train: losses {losses_.tolist()}, {len(unequal)} differ")
+        check(got == walk(want_ad_train) and got_dim == train_dims(want_ad_train),
+              f"adapter train: launches {got} / {got_dim} != the walk {want_ad_train}")
+        phases["adapter_train"], dims["adapter_train"] = got, got_dim
+        stats["adapter_train"] = dict(step_s=s_step, run_s=t_run, peak_gib=peak)
+        del ad, back
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ------------------------------------ 44f gradient checkpointing on / off
+        unet = random_sd15_unet(dev, seed=0)
+        sched = DDPMScheduler.from_config(SD15_SCHEDULER)
+        b = SD15_TRAIN_BATCH
+        batch = {"latents": torch.randn((b, 64, 64, 4), generator=g2, device=dev),
+                 "encoder_hidden_states": torch.randn((b, 77, 768), generator=g2, device=dev)}
+        tt = torch.randint(0, 1000, (b,), generator=g2, device=dev)
+        noise = torch.randn((b, 64, 64, 4), generator=g2, device=dev)
+        names, params = zip(*unet.named_parameters())
+
+        def sd_loss_and_grads(swaps=()):
+            with swapped(swaps):
+                loss = training_utils.sd_loss(unet, sched, batch, tt, noise, snr_gamma=5.0)
+                return loss.detach().float(), torch.autograd.grad(loss, params)
+
+        sd_loss_and_grads()  # a warm-up pass: cuDNN's algorithm choice, the allocator's pool
+        runs = {}
+        for recompute in (False, True):
+            unet.config.gradient_checkpointing = recompute
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            zero()
+            t0 = time.perf_counter()
+            loss, grads = sd_loss_and_grads()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            peak = (torch.cuda.max_memory_allocated() - before) / 2 ** 30
+            got, got_dim = launches()
+            want_ = keyed(train_walk(unet, b, 64))
+            check(got == walk(want_) and got_dim == train_dims(want_),
+                  f"sd15 checkpointing {recompute}: launches {got} / {got_dim} != {want_}")
+            runs[recompute] = dict(loss=loss, grads=grads, peak=peak, s=secs, launches=got)
+        unet.config.gradient_checkpointing = False
+        plain_all, rounded_all = train_plain_swaps(torch, m)
+        gn = (m.resnet, "group_norm", m.norms.group_norm_ref)
+        _, grads_p = sd_loss_and_grads(plain_all[:3] + [gn])
+        _, grads_r = sd_loss_and_grads(rounded_all[:3] + [gn])
+        pair = [rel_l2(a.float(), b_.float()) for a, b_ in zip(grads_r, grads_p)]
+        del grads_p, grads_r
+        on_off = [rel_l2(a.float(), b_.float()) for a, b_ in zip(runs[True]["grads"],
+                                                                  runs[False]["grads"])]
+        signal = [i for i, gap_ in enumerate(pair) if gap_ <= CLIP_SIGNAL_GAP]
+        med = lambda gaps: sorted(gaps)[len(gaps) // 2]  # noqa: E731
+        bit_equal = sum(torch.equal(a, b_) for a, b_ in zip(runs[True]["grads"],
+                                                            runs[False]["grads"]))
+        print(f"[sd15 checkpointing] the SD1.5 UNet trainer's micro-batch of {b} (fp32 masters, "
+              f"bf16 compute, fixed t and noise), gradient_checkpointing off / on: loss "
+              f"{runs[False]['loss'].item():.6f} / {runs[True]['loss'].item():.6f} (bit-equal "
+              f"{bool(torch.equal(runs[False]['loss'], runs[True]['loss']))}); gradients on vs off "
+              f"median / max over signal {med(on_off):.3e} / {max(on_off[i] for i in signal):.3e} "
+              f"({bit_equal} of {len(names)} tensors bit-equal; the plain pair one rounding apart "
+              f"{med(pair):.3e} / {max(pair[i] for i in signal):.3e}, ratio tol "
+              f"{TRAIN_AGREE_RATIO}); peak memory above the model {runs[False]['peak']:.2f} / "
+              f"{runs[True]['peak']:.2f} GiB; seconds {runs[False]['s']:.3f} / "
+              f"{runs[True]['s']:.3f}; launches off {runs[False]['launches']}, on "
+              f"{runs[True]['launches']} ({card})", flush=True)
+        check(torch.equal(runs[False]["loss"], runs[True]["loss"]),
+              "sd15 checkpointing: the first loss differs")
+        on_off_max, pair_max = (max(g[i] for i in signal) for g in (on_off, pair))
+        check(med(on_off) <= TRAIN_AGREE_RATIO * med(pair)
+              and on_off_max <= TRAIN_AGREE_RATIO * pair_max,
+              "sd15 checkpointing: the gradients on and off part beyond the gate")
+        check(runs[True]["peak"] < runs[False]["peak"],
+              f"sd15 checkpointing: peak memory {runs[True]['peak']} >= {runs[False]['peak']}")
+        stats["checkpointing"] = dict(peak_off_gib=runs[False]["peak"],
+                                      peak_on_gib=runs[True]["peak"], s_off=runs[False]["s"],
+                                      s_on=runs[True]["s"], bit_equal=bit_equal)
+        del runs, batch, noise
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        unet.config.gradient_checkpointing = True
+        trainer = t2i.build_trainer(unet, sched, t2i.sd_samples(SD15_TRAIN_SAMPLES),
+                                    batch_size=b)
+        zero()
+        torch.cuda.reset_peak_memory_stats()
+        trainer.train(GC_TRAIN_STEPS)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        got, got_dim = launches()
+        want_ = keyed(train_walk(unet, b, 64, GC_TRAIN_STEPS))
+        losses_ = torch.stack([h["loss"] for h in trainer.history]).float()
+        s_step = step_seconds(trainer)
+        print(f"[sd15 checkpointing] build_trainer + Trainer.train with gradient_checkpointing, "
+              f"{GC_TRAIN_STEPS} steps at batch {b}: {s_step:.4f} s a step (median of the "
+              f"later), losses {[round(x_, 4) for x_ in losses_.tolist()]}, peak memory "
+              f"{peak:.2f} GiB; launches {got}, by head_dim {got_dim} (walk: each block's B15 and "
+              f"B4 twice) ({card})", flush=True)
+        check(bool(torch.isfinite(losses_).all()) and got == walk(want_)
+              and got_dim == train_dims(want_),
+              f"sd15 checkpointing train: launches {got} / {got_dim} != {want_}")
+        phases["sd15_gc"], dims["sd15_gc"] = got, got_dim
+        stats["checkpointing"].update(trainer_step_s=s_step, trainer_peak_gib=peak)
+        del trainer, unet, params
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return phases, dims, stats
+
+
 def cond_len(samples):
     """The context tokens of the training samples (77 CLIP + 77 T5)."""
     return samples[0]["encoder_hidden_states"].shape[0]
@@ -6797,7 +7532,7 @@ def main():
                       "flash_attention": attn_mod.flash_attention}
 
     def llama_serve(label, run, batch, prompt_lens, new_tokens, cache_kind, full_cache):
-        """3 requests (batches) made by `batch(config, seed)`: TTFT is a
+        """The LLAMA_REQUESTS requests (batches) made by `batch(config, seed)`: TTFT is a
         1-token run, then the full run; tokens/s = B (new tokens - 1) / (full
         - TTFT), as bench.py. `full_cache(ids)`: an empty cache of the full
         run's size."""
@@ -6995,6 +7730,15 @@ def main():
     launches_sd3_dir, sd3_dir_stats = sd3_dir_slice(torch, F, np, dev, gen, tmods, every, record,
                                                     card)
 
+    # ------------------------------------ SD1.5 under a ControlNet / an adapter
+    gc.collect()
+    torch.cuda.empty_cache()
+    for shape, act, wdtype in CONTROL_TRAIN_GN_CASES:
+        gn_case("control train kernels", shape, act, control=True,
+                wdtype=torch.float32 if wdtype == "fp32" else bf16)
+    launches_ctl, dims_ctl, ctl_stats = control_slice(torch, F, np, dev, gen, mods, every, record,
+                                                      card)
+
     # --------------------------------------------------------------- summary
     def entry(name, route, source, replaces, by_phase):
         # ms / plain_ms / library_ms / bound at the first shape listed;
@@ -7175,6 +7919,38 @@ def main():
              "max_abs_err": r["err"]}
             for r in summary[name] if tuple(r["shape"]) in {tuple(c[:5]) for c in
                                                              SD3_TRAIN_FLASH_CASES}]
+    # the ControlNet and T2I-Adapter phases (44b-44f): B1, B4 and B10 in the
+    # requests, B15 / B14 (and B1 in the frozen UNet's down blocks) in the
+    # trainers, by head_dim too
+    for phase, got in launches_ctl.items():
+        for name in ("flash_attention", "group_norm", "layer_norm", "flash_fwd_lse",
+                     "flash_bwd_dkv", "flash_bwd_dq"):
+            by_name[name]["launches_by_phase"][phase] = got[name]
+            by_name[name]["launches"] += got[name]
+        for name, d_ in itertools.product(("flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq"),
+                                          (40, 80, 160)):
+            n_ = dims_ctl[phase][name].get(d_, 0)
+            by_name[f"{name}_d{d_}"]["launches_by_phase"][phase] = n_
+            by_name[f"{name}_d{d_}"]["launches"] += n_
+        n_ = dims_ctl[phase]["flash_attention"].get(160, 0)
+        by_name["flash_attention_d160"]["launches_by_phase"][phase] = n_
+        by_name["flash_attention_d160"]["launches"] += n_
+    # B15 / B14 at the trainers' shapes (phase 44d), beside each head_dim's line
+    for name, d_ in itertools.product(("flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq"),
+                                      (40, 80, 160)):
+        key = f"{name}_d{d_}"
+        by_name[key]["control_train_shapes"] = [
+            {"shape": list(r["shape"]), "ms": r["ms"], "plain_ms": r["plain_ms"],
+             "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": r["library_ms"],
+             "max_abs_err": r["err"]}
+            for r in summary.get(key, []) if tuple(r["shape"]) in {
+                tuple(c[:5]) for c in CONTROL_TRAIN_FLASH_CASES if c[4] == d_}]
+    by_name["group_norm"]["control_train_shapes"] = [
+        {"shape": list(r["shape"]), "ms": r["ms"], "plain_ms": r["plain_ms"],
+         "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": r["library_ms"],
+         "max_abs_err": r["err"]}
+        for r in summary["group_norm"]
+        if tuple(r["shape"]) in {c[0] for c in CONTROL_TRAIN_GN_CASES}]
     # B4 at the VAE encoder's shapes (phase 41c), beside the line's first shape
     by_name["group_norm"]["vae_encode_shapes"] = [
         {"shape": list(r["shape"]), "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -7230,7 +8006,16 @@ def main():
                                         "adaptive_layer_norm", "fused_adaln_scale_residual")] + \
         [(name, "sd3_encode") for name in ("group_norm", "rms_norm", "layer_norm")] + \
         [(name, "sd3_train") for name in ("flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq",
-                                          "adaptive_layer_norm", "fused_adaln_scale_residual")]
+                                          "adaptive_layer_norm", "fused_adaln_scale_residual")] + \
+        [(name, phase) for phase in ("cn_serve", "adapter_serve")
+         for name in ("flash_attention", "flash_attention_d160", "group_norm", "layer_norm")] + \
+        [(name, phase) for phase in ("cn_train", "adapter_train", "sd15_gc") for name in (
+            "flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq", "group_norm",
+            "flash_fwd_lse_d40", "flash_fwd_lse_d80", "flash_fwd_lse_d160",
+            "flash_bwd_dkv_d40", "flash_bwd_dq_d40", "flash_bwd_dkv_d80", "flash_bwd_dq_d80",
+            "flash_bwd_dkv_d160", "flash_bwd_dq_d160")] + \
+        [("flash_attention", "cn_train"), ("flash_attention", "adapter_train"),
+         ("layer_norm", "adapter_train")]
     idle = [(name, phase) for name, phase in must_run
             if by_name[name]["launches_by_phase"][phase] == 0]
     check(not idle, f"kernels never launched by the requests: {idle}")
@@ -7247,6 +8032,7 @@ def main():
     print(f"[summary] sdxl dir: {sdxl_dir_stats} ({card})", flush=True)
     print(f"[summary] qwen2vl: {qwen2vl_stats} ({card})", flush=True)
     print(f"[summary] sd3 dir and train: {sd3_dir_stats} ({card})", flush=True)
+    print(f"[summary] controlnet and t2i-adapter: {ctl_stats} ({card})", flush=True)
     print(f"[summary] chip_smoke ran {time.perf_counter() - T_START:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -34,6 +34,22 @@ UNET_KEY_MAP: KeyMap = (
     (r"\.weight$", r".kernel"),
 )
 
+# paddlemix_tpu/diffusers/models/controlnet.py _CONTROLNET_KEY_MAP: the
+# ControlNet's own modules, then the UNet's renames for its encoder half
+CONTROLNET_KEY_MAP: KeyMap = (
+    (r"\.controlnet_down_blocks\.(\d+)\.", r".controlnet_down_blocks_\1."),
+    (r"^controlnet_down_blocks\.(\d+)\.", r"controlnet_down_blocks_\1."),
+    (r"\.conditioning_embedding\.", r".controlnet_cond_embedding."),
+) + tuple(UNET_KEY_MAP)
+
+# paddlemix_tpu/diffusers/models/adapter.py: the JAX T2IAdapter has no torch
+# key map; the port's names (diffusers' FullAdapter's, without its `adapter.`
+# prefix) -> the flax T2IAdapterModule's (`body_0.resnets_1.block2.kernel`)
+T2I_ADAPTER_KEY_MAP: KeyMap = (
+    (r"\.(\d+)\.", r"_\1."),
+    (r"\.weight$", r".kernel"),
+)
+
 # paddlemix_tpu/diffusers/models/autoencoder_kl.py _VAE_KEY_MAP
 VAE_KEY_MAP: KeyMap = (
     (r"\.to_out\.0\.", r".to_out."),

@@ -3,8 +3,19 @@ paddlemix_tpu/diffusers/models/unet_2d_condition.py).
 
 The public forward takes and returns NHWC latents, as the JAX package does;
 inside, feature maps are NCHW in channels_last memory. Parameter names are
-diffusers'. The ControlNet, T2I-Adapter, GLIGEN, IP-Adapter and reference
-hooks of the JAX module are not ported.
+diffusers'. The ControlNet and T2I-Adapter hooks are JAX's: NHWC
+`down_block_additional_residuals` summed with the skips after the down
+blocks, `mid_block_additional_residual` added after the mid block, and
+`down_intrablock_additional_residuals` added after the last resnet (and
+attention) of each down block, before its downsampler, cast to the map's
+dtype. A contiguous NHWC residual permuted to NCHW is already channels_last,
+and every sum keeps that format. The GLIGEN, IP-Adapter and reference hooks
+are not ported.
+
+`gradient_checkpointing` recomputes each down, mid and up block in the
+backward (JAX's per-block `nn.remat`; here non-reentrant
+`torch.utils.checkpoint`): the kernels' autograd forms run twice in the
+forward and once in the backward.
 
 Mixed precision as flax's module `dtype=` gives it:
 `models.layers.set_compute_dtype(unet, torch.bfloat16)` computes in bf16 over
@@ -30,6 +41,7 @@ from typing import List, Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ...core.config import BaseConfig
 from ...core.convert import UNET_KEY_MAP
@@ -43,8 +55,7 @@ from .resnet import Downsample2D, GroupNormAct, ResnetBlock2D, Upsample2D
 # them off (a config that sets another is refused, naming it)
 _UNPORTED = dict(num_class_embeds=None, class_embed_type=None, encoder_hid_dim_type=None,
                  encoder_hid_dim=None, ip_adapter_tokens=0, ip_adapter_scale=1.0,
-                 center_input_sample=False, tome_ratio=0.0, attention_type="default",
-                 gradient_checkpointing=False)
+                 center_input_sample=False, tome_ratio=0.0, attention_type="default")
 
 
 @dataclasses.dataclass
@@ -71,6 +82,7 @@ class UNet2DConditionConfig(BaseConfig):
     addition_time_embed_dim: Optional[int] = None
     projection_class_embeddings_input_dim: Optional[int] = None
     quant: Optional[str] = None  # "a8w8_static" or None
+    gradient_checkpointing: bool = False  # recompute each down / mid / up block in the backward
 
     @classmethod
     def from_dict(cls, data, **overrides):
@@ -118,11 +130,13 @@ class CrossAttnDownBlock2D(nn.Module):
         self.downsamplers = nn.ModuleList([Downsample2D(out_channels, quant)]) \
             if add_downsample else None
 
-    def forward(self, x, temb, context):
+    def forward(self, x, temb, context, extra_residual=None):
         outputs = []
         for resnet, attn in zip(self.resnets, self.attentions):
             x = attn(resnet(x, temb), context)
             outputs.append(x)
+        if extra_residual is not None:  # the T2I-Adapter's, after the last resnet + attention
+            outputs[-1] = x = _add(x, extra_residual.to(x.dtype))
         if self.downsamplers is not None:
             x = self.downsamplers[0](x)
             outputs.append(x)
@@ -139,11 +153,13 @@ class DownBlock2D(nn.Module):
         self.downsamplers = nn.ModuleList([Downsample2D(out_channels, quant)]) \
             if add_downsample else None
 
-    def forward(self, x, temb, context=None):
+    def forward(self, x, temb, context=None, extra_residual=None):
         outputs = []
         for resnet in self.resnets:
             x = resnet(x, temb)
             outputs.append(x)
+        if extra_residual is not None:
+            outputs[-1] = x = _add(x, extra_residual.to(x.dtype))
         if self.downsamplers is not None:
             x = self.downsamplers[0](x)
             outputs.append(x)
@@ -206,6 +222,48 @@ class UpBlock2D(nn.Module):
         return x
 
 
+def input_embeddings(model: nn.Module, cfg: UNet2DConditionConfig) -> int:
+    """Give `model` conv_in, the time embedding and, where `cfg` has it,
+    SDXL's text_time addition embedding (the UNet's and the ControlNet's);
+    returns the time embedding's width."""
+    chans = cfg.block_out_channels
+    temb = chans[0] * 4
+    model.conv_in = Conv2d(cfg.in_channels, chans[0], 3, padding=1)
+    model.time_proj = Timesteps(chans[0], cfg.flip_sin_to_cos, cfg.freq_shift)
+    model.time_embedding = TimestepEmbedding(chans[0], temb)
+    if cfg.addition_embed_type == "text_time":
+        model.add_time_proj = Timesteps(cfg.addition_time_embed_dim, cfg.flip_sin_to_cos,
+                                        cfg.freq_shift)
+        model.add_embedding = TimestepEmbedding(cfg.projection_class_embeddings_input_dim, temb)
+    elif cfg.addition_embed_type is not None:
+        raise NotImplementedError(f"addition_embed_type {cfg.addition_embed_type!r}")
+    return temb
+
+
+def encoder_blocks(cfg: UNet2DConditionConfig, temb: int, quant: bool):
+    """(the down blocks of `cfg`, the widths of the skips the down path makes
+    in order, conv_in's first): the UNet's and the ControlNet's encoder."""
+    chans, groups = tuple(cfg.block_out_channels), cfg.norm_num_groups
+    heads, tf_layers = cfg.heads_per_block, cfg.tf_layers_per_block
+    skip_chans = [chans[0]]
+    blocks = nn.ModuleList()
+    prev = chans[0]
+    for i, kind in enumerate(cfg.down_block_types):
+        last = i == len(cfg.down_block_types) - 1
+        if kind == "CrossAttnDownBlock2D":
+            blk = CrossAttnDownBlock2D(prev, chans[i], temb, cfg.layers_per_block, heads[i],
+                                       tf_layers[i], cfg.cross_attention_dim,
+                                       cfg.use_linear_projection, not last, groups, quant)
+        elif kind == "DownBlock2D":
+            blk = DownBlock2D(prev, chans[i], temb, cfg.layers_per_block, not last, groups, quant)
+        else:
+            raise NotImplementedError(f"down block {kind!r}")
+        blocks.append(blk)
+        skip_chans += [chans[i]] * (cfg.layers_per_block + (not last))
+        prev = chans[i]
+    return blocks, skip_chans
+
+
 class UNet2DConditionModel(nn.Module):
     compute_dtype: Optional[torch.dtype] = None  # set_compute_dtype's; None: the parameters'
     flax_key_map = UNET_KEY_MAP  # its names -> the JAX UNet2DConditionModule's
@@ -218,38 +276,12 @@ class UNet2DConditionModel(nn.Module):
         chans, groups = tuple(cfg.block_out_channels), cfg.norm_num_groups
         heads, tf_layers = cfg.heads_per_block, cfg.tf_layers_per_block
         ctx, linear, q = cfg.cross_attention_dim, cfg.use_linear_projection, cfg.quantized
-        temb = chans[0] * 4
-        self.conv_in = Conv2d(cfg.in_channels, chans[0], 3, padding=1)
-        self.time_proj = Timesteps(chans[0], cfg.flip_sin_to_cos, cfg.freq_shift)
-        self.time_embedding = TimestepEmbedding(chans[0], temb)
-        if cfg.addition_embed_type == "text_time":
-            self.add_time_proj = Timesteps(cfg.addition_time_embed_dim, cfg.flip_sin_to_cos,
-                                           cfg.freq_shift)
-            self.add_embedding = TimestepEmbedding(cfg.projection_class_embeddings_input_dim,
-                                                   temb)
-        elif cfg.addition_embed_type is not None:
-            raise NotImplementedError(f"addition_embed_type {cfg.addition_embed_type!r}")
-
-        # widths of the skip tensors, in the order the down path makes them
-        skip_chans = [chans[0]]
-        self.down_blocks = nn.ModuleList()
-        prev = chans[0]
-        for i, kind in enumerate(cfg.down_block_types):
-            last = i == len(cfg.down_block_types) - 1
-            if kind == "CrossAttnDownBlock2D":
-                blk = CrossAttnDownBlock2D(prev, chans[i], temb, cfg.layers_per_block, heads[i],
-                                           tf_layers[i], ctx, linear, not last, groups, q)
-            elif kind == "DownBlock2D":
-                blk = DownBlock2D(prev, chans[i], temb, cfg.layers_per_block, not last, groups, q)
-            else:
-                raise NotImplementedError(f"down block {kind!r}")
-            self.down_blocks.append(blk)
-            skip_chans += [chans[i]] * (cfg.layers_per_block + (not last))
-            prev = chans[i]
-
+        temb = input_embeddings(self, cfg)
+        self.down_blocks, skip_chans = encoder_blocks(cfg, temb, q)
         self.mid_block = UNetMidBlock2DCrossAttn(chans[-1], temb, heads[-1], tf_layers[-1], ctx,
                                                  linear, groups, q)
 
+        prev = chans[-1]
         self.up_blocks = nn.ModuleList()
         n = len(chans)
         for i, kind in enumerate(cfg.up_block_types):
@@ -295,8 +327,12 @@ class UNet2DConditionModel(nn.Module):
 
         return save_pretrained(self, directory)
 
-    def forward(self, sample, timestep, encoder_hidden_states, added_cond_kwargs=None):
-        """sample: (B, H, W, C_in) NHWC; returns (B, H, W, C_out) NHWC."""
+    def forward(self, sample, timestep, encoder_hidden_states, added_cond_kwargs=None,
+                down_block_additional_residuals=None, mid_block_additional_residual=None,
+                down_intrablock_additional_residuals=None):
+        """sample: (B, H, W, C_in) NHWC; returns (B, H, W, C_out) NHWC. The
+        residuals are NHWC: the ControlNet's one a skip and the mid block's,
+        the T2I-Adapter's one a down block (`_nchw`)."""
         cfg, dtype = self.config, self.dtype
         b = sample.shape[0]
         timestep = torch.as_tensor(timestep, device=sample.device)
@@ -304,24 +340,59 @@ class UNet2DConditionModel(nn.Module):
             timestep = timestep.expand(b)
         emb = self.time_embedding(self.time_proj(timestep).to(dtype))
         if cfg.addition_embed_type == "text_time":
-            text_embeds = added_cond_kwargs["text_embeds"]
-            time_embeds = self.add_time_proj(added_cond_kwargs["time_ids"].reshape(-1))
-            add_embeds = torch.cat([text_embeds.float(),
-                                    time_embeds.reshape(text_embeds.shape[0], -1)], dim=-1)
-            emb = emb + self.add_embedding(add_embeds.to(dtype))
+            emb = emb + text_time_embedding(self, added_cond_kwargs)
         context = encoder_hidden_states.to(dtype)
 
+        run = _checkpointed if cfg.gradient_checkpointing and torch.is_grad_enabled() else _called
+        intra = down_intrablock_additional_residuals
         x = self.conv_in(sample.to(dtype).permute(0, 3, 1, 2))
         skips = [x]
-        for blk in self.down_blocks:
-            x, outs = blk(x, emb, context)
+        for i, blk in enumerate(self.down_blocks):
+            extra = _nchw(intra[i]) if intra is not None and i < len(intra) else None
+            x, outs = run(blk, x, emb, context, extra)
             skips.extend(outs)
-        x = self.mid_block(x, emb, context)
+        if down_block_additional_residuals is not None:
+            # zip, as JAX sums them: a shorter list of residuals leaves fewer skips
+            skips = [_add(s, _nchw(r)) for s, r in zip(skips, down_block_additional_residuals)]
+        x = run(self.mid_block, x, emb, context)
+        if mid_block_additional_residual is not None:
+            x = _add(x, _nchw(mid_block_additional_residual))
         for blk in self.up_blocks:
             block_skips = [skips.pop() for _ in blk.resnets]
-            x = blk(x, block_skips, emb, context)
+            x = run(blk, x, block_skips, emb, context)
         x = self.conv_out(self.conv_norm_out(x))
         return x.permute(0, 2, 3, 1)
+
+
+def text_time_embedding(model, added_cond_kwargs):
+    """SDXL's micro-conditioning addition to the time embedding: the pooled
+    text embeds beside the sinusoids of the six time ids, through
+    `add_embedding` (the UNet's and the ControlNet's)."""
+    text_embeds = added_cond_kwargs["text_embeds"]
+    time_embeds = model.add_time_proj(added_cond_kwargs["time_ids"].reshape(-1))
+    add_embeds = torch.cat([text_embeds.float(), time_embeds.reshape(text_embeds.shape[0], -1)],
+                           dim=-1)
+    return model.add_embedding(add_embeds.to(model.dtype))
+
+
+def _nchw(r: torch.Tensor) -> torch.Tensor:
+    """An NHWC residual as an NCHW view: channels_last where r is contiguous."""
+    return r.permute(0, 3, 1, 2)
+
+
+def _add(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """x + r in channels_last memory (no copy where the sum already is), so
+    that the GroupNorm and attention calls after it read the map in place."""
+    return (x + r).contiguous(memory_format=torch.channels_last)
+
+
+def _called(block, *args):
+    return block(*args)
+
+
+def _checkpointed(block, *args):
+    """`block(*args)` recomputed in the backward (JAX's `nn.remat` of a block)."""
+    return checkpoint(block, *args, use_reentrant=False)
 
 
 def _channels_last(cls):

@@ -46,13 +46,17 @@ _COMPONENT_CLASSES: Dict[str, str] = {
     "CLIPTokenizer": "paddlemix_tpu_torch.models.clip:CLIPTokenizer",
     "AutoencoderKL": "paddlemix_tpu_torch.diffusers.models:AutoencoderKL",
     "UNet2DConditionModel": "paddlemix_tpu_torch.diffusers.models:UNet2DConditionModel",
+    "DDIMScheduler": "paddlemix_tpu_torch.diffusers.schedulers:DDIMScheduler",
     "DDPMScheduler": "paddlemix_tpu_torch.diffusers.schedulers:DDPMScheduler",
     "PNDMScheduler": "paddlemix_tpu_torch.diffusers.schedulers:PNDMScheduler",
     "EulerDiscreteScheduler": "paddlemix_tpu_torch.diffusers.schedulers:EulerDiscreteScheduler",
     "FlowMatchEulerDiscreteScheduler":
         "paddlemix_tpu_torch.diffusers.schedulers:FlowMatchEulerDiscreteScheduler",
+    "UniPCMultistepScheduler": "paddlemix_tpu_torch.diffusers.schedulers:UniPCMultistepScheduler",
+    "ControlNetModel": "paddlemix_tpu_torch.diffusers.models:ControlNetModel",
     "SD3Transformer2DModel": "paddlemix_tpu_torch.diffusers.models:SD3Transformer2DModel",
     "T5EncoderModel": "paddlemix_tpu_torch.models.t5:T5EncoderModel",
+    "T2IAdapter": "paddlemix_tpu_torch.diffusers.models:T2IAdapter",
 }
 
 

@@ -43,10 +43,12 @@ class _UNetPipeline(DiffusionPipeline):
         return self.unet.conv_in.weight.device
 
     def _denoise(self, latents, context, num_inference_steps: int, guidance_scale: float,
-                 added=None):
+                 added=None, residuals=None):
         """The scheduler loop from the initial noise (before init_noise_sigma):
         each step one UNet call on the CFG-doubled latents, the prediction in
-        fp32, uncond + g * (cond - uncond), then the scheduler's step."""
+        fp32, uncond + g * (cond - uncond), then the scheduler's step.
+        `residuals(lat_in, t_in)` gives the UNet's residual keywords of the
+        step (the ControlNet's or the T2I-Adapter's)."""
         do_cfg = guidance_scale > 1.0
         state = make_scheduler_state(self.scheduler, num_inference_steps,
                                      sample_shape=tuple(latents.shape))
@@ -56,7 +58,9 @@ class _UNetPipeline(DiffusionPipeline):
             lat_in = torch.cat([latents, latents]) if do_cfg else latents
             lat_in = self.scheduler.scale_model_input(state, lat_in, i)
             t_in = state.timesteps[i].to(latents.device).expand(lat_in.shape[0])
-            noise_pred = unet(lat_in.to(dtype), t_in, context, added_cond_kwargs=added).float()
+            extra = residuals(lat_in, t_in) if residuals is not None else {}
+            noise_pred = unet(lat_in.to(dtype), t_in, context, added_cond_kwargs=added,
+                              **extra).float()
             if do_cfg:
                 un, co = noise_pred.chunk(2)
                 noise_pred = un + guidance_scale * (co - un)

@@ -1,7 +1,7 @@
 """Scheduler substrate: beta schedules, timestep spacing, prediction types,
 the forward diffusion of training and the `scheduler_config.json` IO (port
-of paddlemix_tpu/diffusers/schedulers/common.py, the parts the Euler, PNDM
-and DDPM paths use).
+of paddlemix_tpu/diffusers/schedulers/common.py, the parts the Euler, PNDM,
+DDPM, DDIM and UniPC paths use).
 
 A scheduler's config is a `BaseConfig`: `from_pretrained(path, subfolder)`
 reads `scheduler_config.json` as the JAX package does, keeping the keys its
@@ -24,9 +24,9 @@ from ...core.config import BaseConfig
 @dataclasses.dataclass
 class SchedulerConfig(BaseConfig):
     """beta_schedule linear | scaled_linear, or `trained_betas`;
-    timestep_spacing leading | linspace (the JAX package has more, not ported
-    yet). `prediction_type` (epsilon | v_prediction | sample) is read by
-    DDPM's step; Euler and PNDM step epsilon and refuse the others."""
+    timestep_spacing leading | linspace | trailing. `prediction_type`
+    (epsilon | v_prediction | sample) is read by DDPM's, DDIM's and UniPC's
+    steps; Euler and PNDM step epsilon and refuse the others."""
 
     config_name = "scheduler_config.json"
     num_train_timesteps: int = 1000
@@ -64,6 +64,9 @@ def spaced_timesteps(cfg: SchedulerConfig, num_inference_steps: int) -> np.ndarr
         ratio = n // num_inference_steps
         ts = (np.arange(0, num_inference_steps) * ratio).round()[::-1].astype(np.int64)
         ts += cfg.steps_offset
+    elif cfg.timestep_spacing == "trailing":
+        ratio = n / num_inference_steps
+        ts = np.round(np.arange(n, 0, -ratio)).astype(np.int64) - 1
     else:
         raise ValueError(f"unknown timestep_spacing {cfg.timestep_spacing!r}")
     return ts
@@ -78,6 +81,18 @@ def predicted_x0(model_output, sample, alpha_prod_t, prediction_type: str):
         return alpha_prod_t ** 0.5 * sample - beta_prod_t ** 0.5 * model_output
     if prediction_type == "sample":
         return model_output
+    raise ValueError(f"unknown prediction_type {prediction_type!r}")
+
+
+def predicted_eps(model_output, sample, alpha_prod_t, prediction_type: str):
+    """Convert a model output into the epsilon estimate."""
+    beta_prod_t = 1.0 - alpha_prod_t
+    if prediction_type == "epsilon":
+        return model_output
+    if prediction_type == "v_prediction":
+        return alpha_prod_t ** 0.5 * model_output + beta_prod_t ** 0.5 * sample
+    if prediction_type == "sample":
+        return (sample - alpha_prod_t ** 0.5 * model_output) / beta_prod_t ** 0.5
     raise ValueError(f"unknown prediction_type {prediction_type!r}")
 
 

@@ -42,7 +42,7 @@ from .models import AutoencoderKL, AutoencoderKLConfig, UNet2DConditionConfig, U
 from .models.resnet import n_group_norms
 from .pipelines import StableDiffusionPipeline
 from .schedulers import PNDMScheduler
-from .sdxl import expected_launches, flash_launches_by_dim, transformer_levels
+from .sdxl import expected_launches, flash_launches_by_dim
 
 SD15_UNET = dict(
     sample_size=64, in_channels=4, out_channels=4,
@@ -133,28 +133,90 @@ def random_sd15_unet(device, seed: int = 0, param_dtype=torch.float32,
     return set_compute_dtype(model.to(memory_format=torch.channels_last), compute_dtype)
 
 
-def expected_launches_sd15_train(unet: UNet2DConditionModel, batch: int, latent_hw: int,
-                                 steps: int = 1, context_len: int = 77) -> Dict:
-    """Kernel launches of `steps` training micro-batches of `batch` latents
-    of latent_hw x latent_hw (forward and backward), keyed by wrapper name,
-    from walking the blocks: every attention call that `use_flash` sends to
-    flash runs the lse forward (B15) and the two backward kernels (B14) once
-    (at 64x64 latents the 15 self-attentions over 4,096, 1,024 and 256
-    tokens, 5 at each head_dim 40, 80 and 160; the mid block's 64 tokens and
-    the 77-key cross-attention take math), and every GroupNorm its forward
-    kernel (B4) once: its backward is autograd of the plain version. Under
-    `flash_by_dim`, the flash calls by the caller's head_dim (each of the
-    three counters' `launches_by_dim`)."""
-    by_dim = Counter()
-    for level, tf in transformer_levels(unet):
+def attention_sites(model):
+    """((part, block index), down level, Transformer2DModel) of every spatial
+    transformer of a UNet or a ControlNet: part "down", "mid" or "up"."""
+    n = len(model.config.block_out_channels)
+    for i, blk in enumerate(model.down_blocks):
+        for t in getattr(blk, "attentions", None) or []:
+            yield ("down", i), i, t
+    for t in model.mid_block.attentions:
+        yield ("mid", 0), n - 1, t
+    for i, blk in enumerate(getattr(model, "up_blocks", ())):
+        for t in getattr(blk, "attentions", None) or []:
+            yield ("up", i), n - 1 - i, t
+
+
+def _blocks(model):
+    """((part, block index), block) of a UNet's or a ControlNet's blocks."""
+    yield from ((("down", i), b) for i, b in enumerate(model.down_blocks))
+    yield ("mid", 0), model.mid_block
+    yield from ((("up", i), b) for i, b in enumerate(getattr(model, "up_blocks", ())))
+
+
+def train_walk(model, batch: int, latent_hw: int, steps: int = 1, context_len: int = 77,
+               grad=lambda site: True) -> Counter:
+    """Kernel launches of `steps` training forwards and backwards of `model`
+    (a UNet or a ControlNet) over `batch` latents of latent_hw x latent_hw,
+    from walking its blocks. `grad(site)` says whether the attention of a
+    block ((part, index), as `attention_sites` names it) sees a gradient:
+    each of its calls that `use_flash` sends to flash runs the lse forward
+    (B15) and the two backward kernels (B14) once, under the model's
+    `gradient_checkpointing` the forward twice (the block recomputed); a
+    call without a gradient runs the inference form (B1) once. Every
+    GroupNorm runs its forward kernel (B4) once, twice in a recomputed
+    block: its backward is autograd of the plain version. Keys: the wrappers'
+    names, and `(name, head_dim)` for the flash ones."""
+    recompute = 2 if model.config.gradient_checkpointing else 1
+    out = Counter()
+    for site, level, tf in attention_sites(model):
         tokens = (latent_hw >> level) ** 2
         for blk in tf.transformer_blocks:
             heads, hd = blk.attn1.num_heads, blk.attn1.head_dim
             q = (batch, tokens, heads, hd)
-            by_dim[hd] += steps * (use_flash(q, q) + use_flash(q, (batch, context_len, heads, hd)))
-    n = sum(by_dim.values())
-    return {"flash_fwd_lse": n, "flash_bwd_dkv": n, "flash_bwd_dq": n,
-            "group_norm": n_group_norms(unet) * steps, "flash_by_dim": dict(+by_dim)}
+            n = steps * (use_flash(q, q) + use_flash(q, (batch, context_len, heads, hd)))
+            names = ("flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq") if grad(site) else \
+                ("flash_attention",)
+            for name in names:
+                k = n * recompute if name == "flash_fwd_lse" else n
+                out[name] += k
+                out[name, hd] += k
+    in_blocks = 0
+    for site, blk in _blocks(model):
+        norms = n_group_norms(blk)
+        in_blocks += norms
+        out["group_norm"] += steps * norms * (recompute if grad(site) else 1)
+    out["group_norm"] += steps * (n_group_norms(model) - in_blocks)
+    return +out
+
+
+def keyed(walk: Counter) -> Dict:
+    """A `train_walk` Counter as {wrapper: launches}, with `by_dim`
+    {wrapper: {head_dim: launches}}."""
+    out = {k: v for k, v in walk.items() if isinstance(k, str)}
+    out["by_dim"] = {}
+    for k, v in walk.items():
+        if isinstance(k, tuple):
+            out["by_dim"].setdefault(k[0], {})[k[1]] = v
+    return out
+
+
+def expected_launches_sd15_train(unet: UNet2DConditionModel, batch: int, latent_hw: int,
+                                 steps: int = 1, context_len: int = 77) -> Dict:
+    """Kernel launches of `steps` training micro-batches of `batch` latents
+    of latent_hw x latent_hw (forward and backward), keyed by wrapper name,
+    from walking the blocks (`train_walk`, every block training): at 64x64
+    latents the 15 self-attentions over 4,096, 1,024 and 256 tokens run the
+    lse forward (B15) and the two backward kernels (B14), 5 at each head_dim
+    40, 80 and 160 (B15 twice under `gradient_checkpointing`); the mid
+    block's 64 tokens and the 77-key cross-attention take math; every
+    GroupNorm its forward kernel (B4) once (twice inside a recomputed
+    block). Under `flash_by_dim`, the flash calls by the caller's head_dim
+    (B14's, the backward's `launches_by_dim`)."""
+    walk = keyed(train_walk(unet, batch, latent_hw, steps, context_len))
+    return {"flash_fwd_lse": walk["flash_fwd_lse"], "flash_bwd_dkv": walk["flash_bwd_dkv"],
+            "flash_bwd_dq": walk["flash_bwd_dq"], "group_norm": walk["group_norm"],
+            "flash_by_dim": walk["by_dim"]["flash_bwd_dkv"]}
 
 
 def unet_train_flops(unet: UNet2DConditionModel, batch: int, latent_hw: int,
