@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (paddlemix_tpu_torch) on one CUDA card.
 
-Drives thirteen slices at their published widths with weights drawn on the
+Drives fourteen slices at their published widths with weights drawn on the
 card from a seeded torch.Generator:
 
   - SDXL-1024 text-to-image through StableDiffusionXLPipeline.__call__, in
@@ -26,7 +26,7 @@ card from a seeded torch.Generator:
     published recipe configs/llava/lora_sft_7b.json (LoRA r 128 / alpha 256
     on every projection, AdamW at 2e-4, cosine, 100 warmup steps, bf16,
     MixToken packing to 2048) and its cuts (TRAIN_OVERRIDES: 2 rows x 8
-    micro-batches an optimizer step; 32 micro-batches); then the model
+    micro-batches an optimizer step; 24 micro-batches); then the model
     saved by save_pretrained and read back by AutoModel, and
     tools.supervised_finetune.main on that directory (SFT_MAIN_OVERRIDES:
     checkpoints inside accumulation windows kept to 1, an eval over a
@@ -88,7 +88,12 @@ card from a seeded torch.Generator:
     (UniPC at 20 steps and DDIM at 50, CFG 7.5, on 512 px edge maps), trained
     by tools.train_controlnet.main (batch 4) and tools.train_t2i_adapter.main
     (batch 2 at 512 px), and the SD1.5 UNet trainer with gradient
-    checkpointing per block.
+    checkpointing per block;
+  - DiT-XL/2-256 (facebook/DiT-XL-2-256's widths) and the SD VAE through
+    DiTPipeline read from its directory (class-conditional, CFG 4.0, DDIM
+    and DPM-Solver++) and trained by tools.train_dit.main (batch 16,
+    gradient checkpointing); PixArt-XL-2-512x512 over T5 v1.1-XXL and the SD
+    VAE through PixArtAlphaPipeline (20 DPM-Solver++ steps, CFG 4.5).
 
 Phases:
 
@@ -133,7 +138,7 @@ Phases:
                    backward with one cluster and with several
   4. agree         one full-width bf16 UNet forward at a small latent, kernels
                    vs plain
-  5. serve         3 bf16 requests, 1024x1024, 25 Euler steps, guidance 5.0;
+  5. serve         2 bf16 requests, 1024x1024, 25 Euler steps, guidance 5.0;
                    each must launch the kernels as often as walking the blocks
                    predicts
   6. calibrate     record and load the 771 UNet + 33 VAE static a8w8 scales
@@ -142,7 +147,7 @@ Phases:
                    kernel a control run whose plain version skips its
                    activation quantize, which must fail the same limit (and,
                    ungated, all kernels vs plain and a8w8 vs bf16)
-  8. a8w8 serve    the same 3 requests in a8w8, with the same checks
+  8. a8w8 serve    the same 2 requests in a8w8, with the same checks
   9. a8w8 int8-attn B1's int8 QK^T form against its plain version per
                    element at the SDXL and SD1.5 self-attention shapes, with
                    a control (quantizing by truncation) that must fail the
@@ -200,7 +205,7 @@ Phases:
                    launch counted a call, at every path shape of the four
  11. llava agree   LLaVA-7B bf16: prefill (608 tokens) + 4 decode steps, the
                    kernels vs their plain versions swapped in
- 12. llava serve   3 requests as the JAX bench makes them (576 image
+ 12. llava serve   1 request as the JAX bench makes it (576 image
                    placeholders + 32 text ids, seeded pixels, 128 new
                    tokens, eos -1): TTFT, decode tokens/s, peak memory, and
                    launches equal to `expected_launches_llava`
@@ -208,7 +213,7 @@ Phases:
                    and serve again with the wint8 GEMM as well; a8w8 and
                    a8w4: a fresh seeded random_llava(quant=mode) each (the
                    weights' bytes against bf16's), agree (N1 / N2 against
-                   their plain versions swapped in as well) and 3 requests
+                   their plain versions swapped in as well) and 1 request
                    as in 12, launches as the walk says; wint4: one agree,
                    which must launch N2 and give a8w4's greedy tokens bit
                    for bit
@@ -242,14 +247,14 @@ Phases:
                    bf16 cache, the dequant or gather not included)
  18. llama int8kv  Llama-2-7B is built with cachekv_int8; agree (prefill of
                    3,968 tokens + 4 decode steps, B8 and B11 vs their plain
-                   versions); 2 requests of 3,968 prompt tokens and 128 new
+                   versions); 1 request of 3,968 prompt tokens and 128 new
                    ones (no eos): TTFT, decode tokens/s, peak memory, cache
                    bytes, launches as `expected_launches_llama` derives them;
-                   then the same 2 requests over the bf16 KVCache (B7)
+                   then the same request over the bf16 KVCache (B7)
  19. llama paged   a batch of 8 right-padded prompts (2,000 down to 130
                    tokens), 128 new tokens each, blocks of 128: agree (B9 and
                    B11 vs plain, and the paged path against the dense cache
-                   on the same batch); 2 batches through paged_greedy_generate
+                   on the same batch); 1 batch through paged_greedy_generate
                    over a pool of exactly the 67 blocks they need: batch
                    TTFT, aggregate decode tokens/s, peak memory, pool bytes
                    against a dense cache's, launches as derived
@@ -281,7 +286,7 @@ Phases:
                    to bf16 before P.V or not), and the launches of the kernel
                    run against `expected_launches_train`
  22. train         the factors are taken off; build_trainer + Trainer.train
-                   over a seeded dataset: 4 optimizer steps (the second read
+                   over a seeded dataset: 3 optimizer steps (the second read
                    for a non-zero lora_b, the last under the profiler):
                    seconds a step, tokens/s, model TFLOP/s, busy share, B14's
                    share of the device time, peak memory; every loss and
@@ -297,17 +302,17 @@ Phases:
  22b. sft main     the model is freed; supervised_finetune.main on that
                    directory over seeded jsonl files (the train phase's
                    samples; a held-out split of 16 samples packed into 4 rows
-                   of 4 segments): 32 micro-batches, checkpoints at 10, 20
-                   and 30 and the eval's best at 20, rotation to 1, evals at
+                   of 4 segments): 24 micro-batches, checkpoints at 10 and
+                   20 and the eval's best at 20, rotation to 1, evals at
                    20 and at the end: finite loss and eval loss, the one
-                   checkpoint left being 30's, its write and read seconds and
+                   checkpoint left being 20's, its write and read seconds and
                    GB, the launches of the run equal to the walks
                    (`expected_launches_train` + `expected_launches_eval`)
- 22c. sft resume   main again with resume_from_checkpoint at 30 (6 micro-
+ 22c. sft resume   main again with resume_from_checkpoint at 20 (4 micro-
                    batches into its accumulation window): every LoRA factor,
                    moment, accumulator and counter bit-equal to the first
                    run's state at that step (kept on the host), then trained
-                   on to 32; the launches equal to the walks; peak memory
+                   on to 24; the launches equal to the walks; peak memory
  22d. sft adapter  the saved model is read again and main's adapter attached
                    (load_lora + attach_lora): evaluate over the held-out
                    batches under the profiler (seconds, device ms, busy
@@ -470,7 +475,7 @@ Phases:
                    greedy ids of random weights repeat BOS), kernels (B7,
                    B10) vs plain, within a relative L2 of 5e-2; launches as
                    the walk says
- 40. blip2 serve   3 caption requests, each a generated 640 x 480 jpeg decoded
+ 40. blip2 serve   2 caption requests, each a generated 640 x 480 jpeg decoded
                    by PIL and processed by Blip2Processor, then generate over
                    OPT's BOS with 32 new tokens, eos off: seconds a request,
                    TTFT (a 1-token generate), decode tokens/s = 31 / (t32 -
@@ -563,7 +568,7 @@ Phases:
                    at M-RoPE positions max + 1 on, kernels (B1, B10, B11,
                    B7) vs plain, within a relative L2 of 5e-2; launches as
                    `expected_launches_qwen2_vl` walks them, no other kernel
- 42d. qwen2vl      2 requests of each kind, 128 new tokens, eos off: one
+ 42d. qwen2vl      1 request of each kind, 128 new tokens, eos off: one
       serve        1280 x 720 jpeg; two 640 x 480 jpegs (782 placeholders in
                    two segments); a video of 16 frames of 640 x 360 (the
                    count smart_nframes picks for 8 s at 30 fps, fps 2;
@@ -644,13 +649,13 @@ Phases:
                    without the ControlNet's residuals) must fail it, 21 B1
                    (7 at each head_dim 40, 80, 160) and the two models' B4;
                    each model's device ms of a step's forward (the
-                   ControlNet's share); 3 requests on 512 px edge maps that
+                   ControlNet's share); 1 request on a 512 px edge map that
                    numpy makes from smooth jpegs, 20 UniPC steps, CFG 7.5,
                    and one more under the profiler: seconds, busy share,
                    peak memory, image finite in [0, 1], launches equal to
                    `expected_launches_controlnet`
  44c. adapter      the adapter directory read in bf16; agree (the control:
-                   the UNet without the adapter's features) and 3 + 1
+                   the UNet without the adapter's features) and 1 + 1
                    requests the same way, 50 DDIM steps, launches equal to
                    `expected_launches_sd15` (the adapter launches no kernel)
  44d. control      B15 and B14 per element at the ControlNet trainer's batch
@@ -675,6 +680,66 @@ Phases:
                    printed), launches as walked (each block's B15 and B4
                    twice); then build_trainer + Trainer.train with it on,
                    GC_TRAIN_STEPS steps
+ 45a. dit dir      SD1.5's models are freed; DiT-XL/2-256 (every weight drawn,
+                   the adaLN-zero Linears too, so no gate is zero) and the SD
+                   VAE built seeded in bf16; after a check of the free disk
+                   under a temporary directory (removed at the end of 45e,
+                   whatever happens), DiTPipeline written by save_pretrained
+                   with DDIM's scheduler config and with DPM-Solver++'s, each
+                   read back by DiffusionPipeline.from_pretrained in bf16: 0
+                   tensors differing, the scheduler classes, seconds each way
+ 45b. dit serve    agree: one full-width DiT forward at the CFG batch of 16
+                   (8 labels and the null class), kernels (B1, B12) vs plain
+                   (AGREE_TOL), two controls that must fail (adaLN without
+                   the shift; attention without the last 128 keys), launches
+                   as walked; a request of 8 labels, CFG 4.0, 25 DDIM steps,
+                   and one more under the profiler: seconds, device ms by
+                   kernel, busy share, peak memory, images finite in [0, 1],
+                   launches equal to `expected_launches_dit` (57 B12 and 28
+                   B1 at (16, 256, 16, 72) a step, the VAE's 30 B4); the
+                   same request under DPM-Solver++
+ 45c. dit kernels  B1 at (16, 256, 16, 72), (2, 1024, 16, 72) and (2, 4096,
+                   16, 72) on q / k / v that are strided views of one fused
+                   projection (read in place); B15 and B14 at the training
+                   batch (16, 256, 16, 72); B12 at DiT's rows (16, 256,
+                   1152); B11 at T5's caption rows (120, 4096); B4 at the
+                   VAE decode of 8 latents: each per element against its
+                   plain version with its control, times, bounds and library
+                   calls (SDPA and its backward; F.layer_norm then the
+                   modulation; F.rms_norm; F.group_norm + F.silu)
+ 45d. dit train    agree: a micro-batch of 16 of the trainer's loss at fixed
+                   t and noise through the full-width DiT (fp32 masters,
+                   bf16 compute, gradient checkpointing per block), kernels
+                   (B15, B14, B12) against two plain versions one rounding
+                   apart (the control: B14's dK/dV without di), launches as
+                   walked; then tools.train_dit.main at its batch of 16 with
+                   gradient checkpointing (a config directory), cut to
+                   DIT_TRAIN_STEPS steps, and a profiled step: seconds a
+                   step, busy share, peak memory, finite losses, the
+                   adaLN-zero Linears moved, launches as walked
+ 45e. pixart       PixArt-XL-2-512x512, T5 v1.1-XXL and the SD VAE built
+                   seeded in bf16 on the card; agree: T5 over the negative
+                   prompt and the prompt (2 x 120 tokens, 98 B11 calls),
+                   kernels vs plain (AGREE_TOL; the plain version summing in
+                   fp64 shows the rounding floor), the control the mean |x|
+                   for the root mean square; then on that context one
+                   full-width transformer forward at the CFG batch of 2: each
+                   of its 28 B1 calls per element against its plain version
+                   on its own inputs (control: the last 128 keys left out),
+                   and its output, kernels vs plain (AGREE_TOL), with two
+                   controls that must fail (v of the next head; k and v of
+                   the other CFG row) and two faults printed that the output
+                   is too coarse to show (the last 128 keys left out, the
+                   softmax scale of D 128); a 20-step DPM-Solver++ request at CFG 4.5, 512
+                   px, and one more under the profiler: seconds split into T5
+                   encode, denoise and decode, busy share, peak memory,
+                   images finite in [0, 1], launches equal to
+                   `expected_launches_pixart`; last, the witness of T5's
+                   seeded init: the T5 agree again with q and the
+                   relative-position tables redrawn at the fan-in rule
+
+Every section of main prints its host seconds as it ends ([phase] lines),
+and a summary line gathers them.
 
 Any failed check exits non-zero. Without a CUDA card, or outside a checkout
 of the repository, it exits non-zero before printing any result. The line
@@ -701,9 +766,9 @@ T_START = time.perf_counter()
 HEIGHT = WIDTH = 1024
 STEPS = 25
 GUIDANCE = 5.0
+# two requests a mode (three until the DiT and PixArt phases needed the time)
 REQUESTS = [("a photograph of an astronaut riding a horse on the moon", 1),
-            ("a watercolor painting of a lighthouse at dawn", 2),
-            ("a bowl of ramen on a wooden table, studio lighting", 3)]
+            ("a watercolor painting of a lighthouse at dawn", 2)]
 # B1 at the SDXL self-attention shapes, a ragged 1,000, and 77 + 64 = 141 rows,
 # a multiple of no tile of either core (the wgmma core's TMA edge: zero fill
 # past S, one partial tile of keys and of queries)
@@ -799,7 +864,7 @@ RMS_SUM = 1e-6
 LLAVA_AGREE_TOL = 5e-2
 LLAVA_AGREE_STEPS = 4
 LLAVA_NEW_TOKENS = 128
-LLAVA_REQUESTS = [1, 2, 3]  # pixel seeds
+LLAVA_REQUESTS = [1]  # pixel seeds: one request a mode (three until the DiT and PixArt phases)
 # SD3-medium: 1024 px, 28 FlowMatch steps, guidance 7.0 (CFG batch 2), the
 # seeded T5 stand-in tokenizer
 SD3_STEPS = 28
@@ -838,7 +903,7 @@ PAGED_CASES = [(8, 32, 32, 128, 128, None), (4, 32, 8, 128, 128, (3000, 1, 700, 
 INT8_DECODE_SUM, PAGED_SUM = 1e-5, 1e-6
 LLAMA_AGREE_TOL = 5e-2  # relative L2 of the full-width Llama logits, kernels vs plain
 LLAMA_AGREE_STEPS = 4  # decode steps after the prefill in the Llama agree checks
-LLAMA_REQUESTS = [1, 2]  # prompt seeds (two: the whole run stays inside its 1,200 s)
+LLAMA_REQUESTS = [1]  # prompt seeds (one: the whole run stays inside its 1,200 s)
 # B1's int8 QK^T form (PMIX_INT8_ATTN=1) on the SDXL a8w8 request, and
 # per element at the SDXL and SD1.5 self-attention shapes. The kernel's scores
 # equal its plain version's bit for bit; the rest differs by P's rounding, as
@@ -955,7 +1020,7 @@ SDXL_DIR_SEED = 5
 QWEN2VL_IMAGE = (720, 1280)
 QWEN2VL_PAIR = (480, 640)
 QWEN2VL_FRAME, QWEN2VL_CLIP_SECONDS, QWEN2VL_CLIP_FPS = (360, 640), 8, 30.0
-QWEN2VL_REQUESTS = 2     # requests of each kind (two: the whole run stays inside its 1,200 s)
+QWEN2VL_REQUESTS = 1     # requests of each kind (one: the whole run stays inside its 1,200 s)
 QWEN2VL_AGREE_STEPS = 4  # decode steps after the prefill in the agree
 # B7 at G 7, (B, Hq, KVH, D, L, lengths): the image request's first and last
 # decode steps (1,230-token prompt, 1,358 slots), a ragged pair, the video
@@ -992,9 +1057,7 @@ SD3_AGREE_U = (0.3, 0.8)  # the train agree's fixed draws of u (sigma 0.5625, 0.
 # samples) and examples/train_t2i_adapter.py (batch 2 at --resolution 512),
 # each cut to a few steps; and the SD1.5 UNet trainer at batch 8 with
 # gradient checkpointing. B15 / B14 at the trainers' self-attention shapes
-CONTROL_REQUESTS = [("a bird perched on a branch, high detail", 11),
-                    ("a futuristic city street at night", 12),
-                    ("an oil painting of a lighthouse on a cliff", 13)]
+CONTROL_REQUESTS = [("a bird perched on a branch, high detail", 11)]  # one, and it again profiled
 CONTROL_STEPS = 20
 ADAPTER_STEPS = 50
 CONTROL_TRAIN_BATCH, CONTROL_TRAIN_STEPS = 4, 4
@@ -1012,6 +1075,28 @@ CONTROL_TRAIN_GN_CASES = [((CONTROL_TRAIN_BATCH,) + shape[1:], act, "fp32")
      for hw, c, act in ((512, 128, "silu"), (256, 128, "silu"), (256, 256, "silu"),
                         (128, 256, "silu"), (128, 512, "silu"), (64, 512, "silu"),
                         (64, 512, "none"))]
+# DiT-XL/2-256 (facebook/DiT-XL-2-256's widths) and the SD VAE: a request of
+# 8 labels (classes of DiT's sample grid), CFG 4.0, 25 DDIM steps (and one
+# under DPM-Solver++), the CFG batch of 16 at 256 tokens; tools.train_dit.main
+# at its batch of 16 cut to DIT_TRAIN_STEPS steps with gradient checkpointing.
+# PixArt-XL-2-512x512 over T5 v1.1-XXL (120 caption tokens) and the SD VAE: a
+# 20-step DPM-Solver++ request at CFG 4.5, 1,024 tokens. B1 at head 72 as the
+# two paths give it (DiT's q / k / v strided views of the fused projection)
+# and at PixArt-XL-2-1024-MS's 4,096 tokens (a gate and a time only); B15 /
+# B14 at the training batch; B12 at DiT's 4,096 rows; B11 at T5's caption
+# rows; B4 at the VAE decode of 8 latents of 32 x 32
+DIT_LABELS = (207, 360, 387, 974, 88, 979, 417, 279)
+DIT_STEPS, DIT_GUIDANCE, DIT_SEED = 25, 4.0, 0
+DIT_FLASH_SHAPES = [(16, 256, 16, 72), (2, 1024, 16, 72), (2, 4096, 16, 72)]
+DIT_TRAIN_BATCH, DIT_TRAIN_STEPS = 16, 4
+DIT_TRAIN_FLASH_CASES = [(DIT_TRAIN_BATCH, 256, 16, 16, 72, False)]
+DIT_ADALN_SHAPE = (16, 256, 1152)
+DIT_GN_CASES = [((8, 32, 32, 512), "silu"), ((8, 128, 128, 256), "silu"),
+                ((8, 256, 256, 128), "silu")]
+PIXART_RMS_SHAPES = [(120, 4096)]
+PIXART_PROMPTS = ("a small cactus with a happy face in the Sahara desert",
+                  "an astronaut riding a green horse")
+PIXART_STEPS, PIXART_GUIDANCE, PIXART_SEED = 20, 4.5, 0
 # H100 SXM peaks (NVIDIA data sheet, dense) for the bounds
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
@@ -1021,6 +1106,20 @@ L2_BYTES = 50 * 2 ** 20
 def check(ok, msg):
     if not ok:
         raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+PHASE_SECONDS = {}  # host seconds of each of main's sections, in run order
+_LAP = [T_START]
+
+
+def lap(name):
+    """Close the section `name` of main: its host seconds since the previous
+    lap (the first since the start), printed and kept in PHASE_SECONDS."""
+    now = time.perf_counter()
+    PHASE_SECONDS[name] = round(now - _LAP[0], 1)
+    _LAP[0] = now
+    print(f"[phase] {name}: {PHASE_SECONDS[name]:.1f} s (the run so far {now - T_START:.1f} s)",
+          flush=True)
 
 
 def cuda_ms(torch, fn, iters=10, warmup=3):
@@ -1416,11 +1515,11 @@ class swapped:
 
 
 # ------------------------------------------------------------ training slice
-TRAIN_MICRO_STEPS = 32
+TRAIN_MICRO_STEPS = 24  # 3 optimizer steps (4 until the DiT and PixArt phases)
 TRAIN_SAMPLES = 512
 TRAIN_CONFIG = os.path.join(REPO, "configs", "llava", "lora_sft_7b.json")
 # the published recipe's cuts: 2 rows x 8 micro-batches are its 16 rows an
-# optimizer step; TRAIN_MICRO_STEPS micro-batches (4 optimizer steps) go to
+# optimizer step; TRAIN_MICRO_STEPS micro-batches (3 optimizer steps) go to
 # Trainer.train, since optax's cosine schedule refuses a total below its 100
 # warmup steps: the schedule spans the epoch of the seeded dataset
 # (TRAIN_SAMPLES samples of 128-1536 tokens, the first third of each labelled
@@ -1457,13 +1556,13 @@ TRAIN_AGREE_LENGTHS = (700, 520, 400, 300)  # 4 segments and 128 padding tokens
 # supervised_finetune.main on the saved model (phases 22a-22d): TRAIN_OVERRIDES
 # and TRAIN_MICRO_STEPS as max_steps (the schedule's total then, so its warmup
 # is cut from 100 to 2, as the EVA phase cuts its own), checkpoints every 10
-# micro-batches (10, 20, 30: inside accumulation windows of 8; 30 is the one
-# resumed, 6 micro-batches into its window) kept to 1, and an eval every 20
+# micro-batches (10, 20: inside accumulation windows of 8; 20 is the one
+# resumed, 4 micro-batches into its window) kept to 1, and an eval every 20
 # (and at the end) over a held-out split of SFT_EVAL_SAMPLES packed as the
 # training rows: 4 rows of 4 segments (1,920 tokens and 128 of padding), 2
 # batches at the training shape (2, 2048). The eval's best at step 20 writes
 # a checkpoint too.
-SFT_RESUME_STEP = 30
+SFT_RESUME_STEP = 20
 SFT_MAIN_OVERRIDES = dict(TRAIN_OVERRIDES, max_steps=TRAIN_MICRO_STEPS, warmup_steps=2,
                           save_steps=10, save_total_limit=1, do_eval=True, eval_steps=20,
                           per_device_eval_batch_size=2, logging_steps=4)
@@ -2304,7 +2403,8 @@ BLIP2_LN_SHAPES = [(257, 1408), (32, 768), (33, 2560), (1, 2560)]
 # keys: the 33-token prefill and 32 new ones)
 BLIP2_DECODE_CASES = [(1, 32, 32, 80, 64, (40,)), (2, 32, 32, 80, 96, (90, 17)),
                       (1, 32, 32, 80, 65, (64,))]
-BLIP2_REQUESTS = 3      # caption requests, one 640 x 480 jpeg each
+# caption requests, one 640 x 480 jpeg each (three until the DiT and PixArt phases)
+BLIP2_REQUESTS = 2
 BLIP2_AGREE_STEPS = 4   # decode steps after the prefill in the agree
 EVA_REQUESTS = 3        # Appflow zero-shot requests, one 640 x 480 jpeg each
 EVA_LABELS = 1000       # candidate labels a request, classes of the eval (ImageNet-1k's)
@@ -5882,17 +5982,19 @@ def inference_plain(attn):
     return (attn, "flash_attention", run)
 
 
-def grad_agree(torch, m, label, loss_and_grads, names, card):
-    """The training agree of the SD1.5 paths (CLIP's rule): `loss_and_grads(swaps)`
-    with the kernels, with their plain versions (B15, B14, B4 and B1's
-    inference form), with the plain versions one rounding apart (P rounded to
-    bf16 before P.V) and with the control (B14's dK/dV without di); the loss
-    within CLIP_LOSS_RATIO and the gradients' median over all parameters and
-    largest gap over those above the rounding noise within TRAIN_AGREE_RATIO
-    of the pair's; the control must fail. Returns the numbers."""
+def grad_agree(torch, m, label, loss_and_grads, names, card, extra=None):
+    """The training agree of the SD1.5 and DiT paths (CLIP's rule):
+    `loss_and_grads(swaps)` with the kernels, with their plain versions (B15,
+    B14 and `extra`: by default B4 and B1's inference form), with the plain
+    versions one rounding apart (P rounded to bf16 before P.V) and with the
+    control (B14's dK/dV without di); the loss within CLIP_LOSS_RATIO and the
+    gradients' median over all parameters and largest gap over those above
+    the rounding noise within TRAIN_AGREE_RATIO of the pair's; the control
+    must fail. Returns the numbers."""
     attn = m.attn
     plain_all, rounded_all = train_plain_swaps(torch, m)
-    extra = [(m.resnet, "group_norm", m.norms.group_norm_ref), inference_plain(attn)]
+    if extra is None:
+        extra = [(m.resnet, "group_norm", m.norms.group_norm_ref), inference_plain(attn)]
     plain, rounded = plain_all[:3] + extra, rounded_all[:3] + extra
     no_di = [(attn, "flash_bwd_dkv", lambda qs, k, v, do, lse, di, **kw: attn.flash_bwd_dkv_ref(
         qs, k, v, do, lse, torch.zeros_like(di), **kw))] + [plain[0], plain[2]] + extra
@@ -6499,6 +6601,521 @@ def control_slice(torch, F, np, dev, gen, m, counters, record, card):
     return phases, dims, stats
 
 
+# --------------------------------------------------- DiT and PixArt (45a-45e)
+def strided_flash_case(torch, F, dev, gen, record, attn, shape, label):
+    """B1 at `shape` = (B, S, H, D) on q, k and v that are strided views of
+    one (B, S, 3H, D) projection, as DiT's fused qkv hands them to the kernel
+    (read in place): per element against the plain version (FLASH_SUM) with
+    the control (the last key tile left out) that must fail; times, bound and
+    SDPA's time on the same views."""
+    b_, s_, h_, d_ = shape
+    qkv = torch.randn((b_, s_, 3 * h_, d_), generator=gen, device=dev, dtype=torch.bfloat16)
+    q, k, v = qkv.split(h_, dim=2)
+    check(attn._kernel_operand(q) is q, f"{label}: a strided q would be copied")
+    out = attn.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    ref = attn.flash_attention_ref(q.float(), k.float(), v.float())
+    err = (out.float() - ref).abs().max().item()
+    excess, need = ulp_gate(out, ref, FLASH_SUM)
+    n = s_ - (s_ % 64 or 64)
+    control, _ = ulp_gate(attn.flash_attention_ref(q.float(), k[:, :n].float(), v[:, :n].float()),
+                          ref, FLASH_SUM)
+    print(f"[{label}] flash {shape} bf16, q / k / v strided views of a (B, S, {3 * h_}, {d_}) "
+          f"projection: max_abs_err {err:.3e}, excess {excess:.3e} (least c {need:.2e}); control "
+          f"without the last {s_ - n} keys: excess {control:.3e} (must be > 0)", flush=True)
+    check(bool(torch.isfinite(out).all()) and excess <= 0, f"{label} flash {shape}: {excess}")
+    check(control > 0, f"{label} flash {shape}: the control passes ({control})")
+    del ref
+    ms, plain_ms = timed_pair(torch, lambda: attn.flash_attention(q, k, v),
+                              lambda: attn.flash_attention_ref(q, k, v))
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    lib_ms = library_ms(torch, lambda: F.scaled_dot_product_attention(qh, kh, vh))
+    ops = 4 * b_ * h_ * s_ * s_ * d_
+    record(label, "flash_attention", shape, err, ms, plain_ms, lib_ms,
+           bound(nbytes(q, k, v, out), ops, "bf16"), " strided q / k / v | library: SDPA",
+           flash=(d_, ops, False))
+
+
+def dit_kernels(torch, F, dev, gen, record, m, gn_case):
+    """Phase 45c: the DiT and PixArt paths' new kernel shapes (see the
+    module docstring), each per element with its control, times, bounds and
+    library calls."""
+    attn, norms = m.attn, m.norms
+    label = "dit kernels"
+    for shape in DIT_FLASH_SHAPES:
+        strided_flash_case(torch, F, dev, gen, record, attn, shape, label)
+    sd15_train_kernels(torch, F, dev, gen, record, attn, cases=DIT_TRAIN_FLASH_CASES, tag=label)
+    # B12 at DiT's rows: the modulation rows are chunks of one (B, 6H) projection
+    b_, s_, h_ = DIT_ADALN_SHAPE
+    x = (2 * torch.randn(DIT_ADALN_SHAPE, generator=gen, device=dev)).to(torch.bfloat16)
+    mod = torch.randn((b_, 6 * h_), generator=gen, device=dev).to(torch.bfloat16)
+    shift, scale = mod.chunk(6, dim=-1)[:2]
+    out = norms.adaptive_layer_norm(x, scale, shift)
+    torch.cuda.synchronize()
+    ref = norms.adaptive_layer_norm_ref(x, scale, shift)
+    err = (out.float() - ref.float()).abs().max().item()
+    excess, need = ulp_gate(out, ref, ADALN_SUM)
+    control, _ = ulp_gate(norms.adaptive_layer_norm_ref(x, scale, 0 * shift), ref, ADALN_SUM)
+    plan = norms.adaln_plan_of(x, scale, shift)
+    print(f"[{label}] adaptive_layer_norm {DIT_ADALN_SHAPE} bf16: max_abs_err {err:.3e}, excess "
+          f"{excess:.3e} (least c {need:.2e}); control without the shift: excess {control:.3e} "
+          f"(must be > 0) | {plan}", flush=True)
+    check(bool(torch.isfinite(out).all()) and excess <= 0, f"{label} adaLN: excess {excess}")
+    check(control > 0, f"{label} adaLN: the control passes ({control})")
+    kernel = cold(lambda t: norms.adaptive_layer_norm(t, scale, shift), x, nbytes(x))
+    ms, plain_ms = timed_pair(
+        torch, kernel, cold(lambda t: norms.adaptive_layer_norm_ref(t, scale, shift), x, nbytes(x)))
+    lib_ms = library_ms(torch, cold(lambda t: F.layer_norm(t, (h_,), eps=1e-5) * (
+        1 + scale[:, None]) + shift[:, None], x, nbytes(x)))
+    floor = floor_ms(torch, norms, b_ * plan.nb, plan.threads, kernel.copies)
+    record(label, "adaptive_layer_norm", DIT_ADALN_SHAPE, err, ms, plain_ms, lib_ms,
+           bound(nbytes(x, scale, shift, out), 8 * x.numel(), "fp32"),
+           " (library: F.layer_norm, then the modulation)", floor=floor)
+    del x, mod, out, ref
+    rms_kernels(torch, F, dev, gen, record, norms, shapes=PIXART_RMS_SHAPES, extra=[],
+                label=label)
+    for shape, act in DIT_GN_CASES:
+        gn_case(label, shape, act, control=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+class part_timer:
+    """Wraps a bound method of `owner` so that each call's host seconds, ended
+    by a sync, add up under `key` in `seconds`."""
+
+    def __init__(self, torch, owner, name, seconds, key):
+        self.torch, self.fn, self.seconds, self.key = torch, getattr(owner, name), seconds, key
+
+    def __call__(self, *a, **kw):
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.fn(*a, **kw)
+        self.torch.cuda.synchronize()
+        self.seconds[self.key] = self.seconds.get(self.key, 0.0) + time.perf_counter() - t0
+        return out
+
+
+def dit_slice(torch, F, np, dev, gen, m, counters, record, gn_case, card):
+    """Phases 45a-45e (see the module docstring): DiT-XL/2-256's directory
+    written and read back, its requests, the new kernel shapes, its trainer,
+    and PixArt-XL-2-512x512's request. Everything is written under one
+    temporary directory, removed in a `finally`. `counters` are every kernel
+    wrapper's, by name. Returns ({phase: launches}, the numbers)."""
+    import shutil
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddlemix_tpu_torch.diffusers import (
+        DDIMScheduler,
+        DiffusionPipeline,
+        DiTConfig,
+        DiTPipeline,
+        DPMSolverMultistepScheduler,
+    )
+    from paddlemix_tpu_torch.diffusers.dit import (
+        DIT_SCHEDULER,
+        dit_forward_launches,
+        expected_launches_dit,
+        expected_launches_dit_train,
+        random_dit,
+        random_dit_pipeline,
+    )
+    from paddlemix_tpu_torch.diffusers.models import dit as dit_mod
+    from paddlemix_tpu_torch.diffusers.pixart import (
+        expected_launches_pixart,
+        random_pixart_pipeline,
+    )
+    from paddlemix_tpu_torch.diffusers.schedulers import DDPMScheduler
+    from paddlemix_tpu_torch.models.t5.modeling import T5Attention
+    from paddlemix_tpu_torch.tools import train_dit
+
+    bf16 = torch.bfloat16
+    attn, norms = m.attn, m.norms
+    phases, stats = {}, {}
+    b1_plain = (attn, "flash_attention", lambda q, k, v, **kw: attn.flash_attention_ref(
+        q, k, v, scale=kw.get("scale")))
+    adaln_plain = (dit_mod, "adaptive_layer_norm", norms.adaptive_layer_norm_ref)
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def launches():
+        return {name: fn.launches for name, fn in counters.items()}
+
+    def walk(want):
+        return {name: want.get(name, 0) for name in counters}
+
+    def unequal(a, b):
+        out = []
+        for name in ("transformer", "vae"):
+            sa, sb = getattr(a, name).state_dict(), getattr(b, name).state_dict()
+            out += [f"{name}: keys differ"] if sa.keys() != sb.keys() else [
+                f"{name}.{k}" for k, v in sa.items()
+                if not (v.dtype == sb[k].dtype and torch.equal(v, sb[k]))]
+        return out
+
+    def images_ok(image, side):
+        return image.shape[1:] == (side, side, 3) and bool(np.isfinite(image).all()) \
+            and 0.0 <= image.min() and image.max() <= 1.0 and image.std() > 0.01
+
+    tmp = tempfile.mkdtemp(prefix="pmix_smoke_dit_")
+    try:
+        # ---------------------------------------------------- 45a the directory
+        t0 = time.perf_counter()
+        pipe = random_dit_pipeline(dev, bf16, seed=0)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        total = sum(t.numel() * t.element_size() for name in ("transformer", "vae")
+                    for t in getattr(pipe, name).state_dict().values())
+        free = shutil.disk_usage(tmp).free
+        check(free >= 2 * total + 2 ** 30, f"dit dir: {free / 1e9:.1f} GB free under {tmp}")
+        n_params = sum(p.numel() for p in pipe.transformer.parameters())
+        gates = max(blk.adaLN_modulation.weight.abs().max().item()
+                    for blk in pipe.transformer.blocks)
+        paths, backs, t_write, t_read = {}, {}, {}, {}
+        for kind, sched_cls in (("ddim", DDIMScheduler),
+                                ("dpmsolver", DPMSolverMultistepScheduler)):
+            pipe.scheduler = pipe._components["scheduler"] = sched_cls(**DIT_SCHEDULER)
+            paths[kind] = os.path.join(tmp, f"dit-xl-2-256-{kind}")
+            t0 = time.perf_counter()
+            pipe.save_pretrained(paths[kind])
+            t_write[kind] = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            backs[kind] = DiffusionPipeline.from_pretrained(paths[kind], dtype=bf16, device=dev)
+            torch.cuda.synchronize()
+            t_read[kind] = time.perf_counter() - t0
+        differ = {kind: unequal(pipe, back) for kind, back in backs.items()}
+        kinds = {kind: type(back.scheduler).__name__ for kind, back in backs.items()}
+        print(f"[dit dir] DiT-XL/2-256 ({n_params} parameters, adaLN gates drawn: max |w| "
+              f"{gates:.3f}) and the SD VAE built in bf16 in {t_build:.1f} s; written by "
+              f"save_pretrained with DDIM's and with DPM-Solver++'s scheduler config, "
+              f"{total / 1e9:.3f} GB each, in {t_write['ddim']:.2f} / {t_write['dpmsolver']:.2f} "
+              f"s; read by DiffusionPipeline.from_pretrained in bf16 in {t_read['ddim']:.2f} / "
+              f"{t_read['dpmsolver']:.2f} s ({total / 1e9 / t_read['ddim']:.2f} GB/s, warm page "
+              f"cache): {kinds}; tensors not bit-equal: "
+              f"{ {k: len(v) for k, v in differ.items()} } ({card})", flush=True)
+        check(gates > 0 and all(isinstance(b_, DiTPipeline) for b_ in backs.values())
+              and kinds == {"ddim": "DDIMScheduler", "dpmsolver": "DPMSolverMultistepScheduler"}
+              and not any(differ.values()), f"dit dir: {kinds}, {differ}")
+        stats["io"] = dict(gb=total / 1e9, write_s=t_write, read_s=t_read, build_s=t_build)
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---------------------------------------------------------- 45b serving
+        back = backs["ddim"]
+        tf = back.transformer
+        rows = 2 * len(DIT_LABELS)
+        labels = torch.tensor(DIT_LABELS + (tf.config.num_classes,) * len(DIT_LABELS),
+                              device=dev)
+        lat = torch.randn((rows, 32, 32, 4), generator=gen, device=dev).to(bf16)
+        t_in = back.scheduler.set_timesteps(DIT_STEPS).timesteps[5].to(dev).expand(rows)
+
+        def forward(swaps=()):
+            with swapped(swaps), torch.inference_mode():
+                return tf(lat, t_in, labels).float()
+
+        zero()
+        out_k = forward()
+        got = launches()
+        out_p = forward([b1_plain, adaln_plain])
+        agree = rel_l2(out_k, out_p)
+        no_shift = (dit_mod, "adaptive_layer_norm", lambda x, sc, sh: norms.adaptive_layer_norm_ref(
+            x, sc, 0 * sh))
+        short = (attn, "flash_attention", lambda q, k, v, **kw: attn.flash_attention_ref(
+            q, k[:, :128], v[:, :128]))
+        ctrl = {name: rel_l2(forward(swaps), out_p) for name, swaps in (
+            ("adaLN without the shift", [b1_plain, no_shift]),
+            ("attention without the last 128 keys", [short, adaln_plain]))}
+        want = walk(dit_forward_launches(tf, rows))
+        print(f"[dit agree] full-width DiT-XL/2 forward at the CFG batch of {rows} (8 labels and "
+              f"the null class), kernels (B1, B12) vs plain: relative L2 {agree:.3e} (tol "
+              f"{AGREE_TOL}); controls (must fail): {ctrl}; launches {got} (walk {want})",
+              flush=True)
+        check(agree <= AGREE_TOL and all(c_ > AGREE_TOL for c_ in ctrl.values()),
+              f"dit agree: {agree}, controls {ctrl}")
+        check(got == want, f"dit agree: launches {got} != {want}")
+        del out_k, out_p
+
+        want = walk(expected_launches_dit(back, len(DIT_LABELS), DIT_STEPS, DIT_GUIDANCE))
+        seconds = []
+        zero()
+        torch.cuda.reset_peak_memory_stats()
+        for profiled in (False, True):
+            with profile(activities=[ProfilerActivity.CUDA]) if profiled else \
+                    contextlib.nullcontext() as prof:
+                t0 = time.perf_counter()
+                image = back(list(DIT_LABELS), DIT_GUIDANCE, DIT_STEPS, seed=DIT_SEED,
+                             output_type="np")[0]
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+            check(images_ok(image, 256), f"dit serve: image {image.shape} not finite in [0, 1]")
+        got = launches()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        device_ms = kernel_breakdown("dit serve", "profiled request", prof, 10)
+        print(f"[dit serve] {len(DIT_LABELS)} labels, CFG {DIT_GUIDANCE}, {DIT_STEPS} DDIM steps, "
+              f"256 px: {seconds[0]:.3f} s; profiled {seconds[1]:.3f} s with {device_ms:.1f} ms of "
+              f"device time: busy {100 * device_ms / 1e3 / seconds[1]:.1f}%; peak memory "
+              f"{peak:.2f} GiB; images {image.shape} std {image.std():.3f}; launches of the two "
+              f"{got} (walk {want}, each) ({card})", flush=True)
+        check(got == {k: 2 * v for k, v in want.items()},
+              f"dit serve: launches {got} != 2 x {want}")
+        phases["dit"] = {k: v // 2 for k, v in got.items()}
+        stats["serve"] = dict(request_s=seconds[0], device_ms=device_ms,
+                              busy=device_ms / 1e3 / seconds[1], peak_gib=peak)
+        zero()
+        t0 = time.perf_counter()
+        image = backs["dpmsolver"](list(DIT_LABELS), DIT_GUIDANCE, DIT_STEPS, seed=DIT_SEED,
+                                   output_type="np")[0]
+        torch.cuda.synchronize()
+        t_dpm = time.perf_counter() - t0
+        got = launches()
+        print(f"[dit serve] the same request under DPM-Solver++: {t_dpm:.3f} s, images finite "
+              f"{bool(np.isfinite(image).all())}, launches {got}", flush=True)
+        check(images_ok(image, 256) and got == want, f"dit serve dpmsolver: {got} != {want}")
+        stats["serve"]["dpmsolver_s"] = t_dpm
+        del backs, back, tf, lat
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ----------------------------------------------------- 45c kernel shapes
+        dit_kernels(torch, F, dev, gen, record, m, gn_case)
+
+        # ----------------------------------------------------------- 45d training
+        model = random_dit(dev, torch.float32, seed=1, compute_dtype=bf16)
+        model.config.gradient_checkpointing = True
+        params = [p for p in model.parameters() if p.requires_grad]
+        names = [n for n, p in model.named_parameters() if p.requires_grad]
+        samples = train_dit.dit_samples()[:DIT_TRAIN_BATCH]
+        batch = {k: torch.from_numpy(np.stack([s_[k] for s_ in samples])).to(dev)
+                 for k in samples[0]}
+        t_fix = torch.arange(DIT_TRAIN_BATCH, device=dev) * 61 % 1000
+        noise = torch.randn(batch["latents"].shape, generator=gen, device=dev)
+        sched = DDPMScheduler(num_train_timesteps=1000)
+
+        def loss_and_grads(swaps=()):
+            with swapped(swaps):
+                loss = train_dit.dit_loss(model, sched, batch, t_fix, noise)
+                grads = torch.autograd.grad(loss, params)
+            return loss.detach().float(), grads
+
+        zero()
+        torch.cuda.reset_peak_memory_stats()
+        stats["train_agree"] = grad_agree(torch, m, "dit train agree", loss_and_grads, names,
+                                          card, extra=[adaln_plain])
+        peak_agree = torch.cuda.max_memory_allocated() / 2 ** 30
+        zero()
+        loss_and_grads()
+        got = launches()
+        want = walk(expected_launches_dit_train(model, DIT_TRAIN_BATCH))
+        print(f"[dit train agree] full-width DiT-XL/2 (fp32 masters, bf16 compute, gradient "
+              f"checkpointing per block), a micro-batch of {DIT_TRAIN_BATCH} at fixed t and "
+              f"noise; peak memory {peak_agree:.2f} GiB; launches of one loss and its gradients "
+              f"{got} (walk {want})", flush=True)
+        check(got == want, f"dit train agree: launches {got} != {want}")
+        del model, params, batch, noise
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        cfg_dir = os.path.join(tmp, "dit-gc")
+        DiTConfig(gradient_checkpointing=True).save_pretrained(cfg_dir)
+        zero()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer, res = train_dit.main([cfg_dir], device=dev, max_steps=DIT_TRAIN_STEPS,
+                                      logging_steps=1, save_steps=0,
+                                      output_dir=os.path.join(tmp, "out"))
+        torch.cuda.synchronize()
+        t_main = time.perf_counter() - t0
+        got = launches()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        tm = trainer.model
+        want = walk(expected_launches_dit_train(tm, DIT_TRAIN_BATCH, DIT_TRAIN_STEPS))
+        losses_ = [float(h["loss"]) for h in trainer.history]
+        s_step = step_seconds(trainer)
+        t_prof, dev_ms = profiled_steps(torch, trainer)
+        moved = sum(bool(p.abs().sum() > 0) for blk in tm.blocks
+                    for p in (blk.adaLN_modulation.weight,))
+        print(f"[dit train] tools.train_dit.main (DiT-XL/2-256, gradient checkpointing, batch "
+              f"{DIT_TRAIN_BATCH}, lr {trainer.args.learning_rate}, max_steps {DIT_TRAIN_STEPS}) "
+              f"in {t_main:.2f} s with the build: losses {[round(x, 4) for x in losses_]}; "
+              f"median step {s_step:.4f} s; a profiled step {t_prof:.4f} s with {dev_ms:.1f} ms of "
+              f"device time: busy {100 * dev_ms / 1e3 / t_prof:.1f}%; peak memory {peak:.2f} GiB; "
+              f"adaLN-zero moved off zero in {moved} of {len(tm.blocks)} blocks; launches {got} "
+              f"(walk {want}) ({card})", flush=True)
+        check(res["final_step"] == DIT_TRAIN_STEPS and all(np.isfinite(losses_)) and
+              moved == len(tm.blocks), f"dit train: {res}, losses {losses_}, moved {moved}")
+        check(got == want, f"dit train: launches {got} != {want}")
+        phases["dit_train"] = got
+        stats["train"] = dict(step_s=s_step, busy=dev_ms / 1e3 / t_prof, peak_gib=peak,
+                              device_ms=dev_ms, losses=losses_)
+        del trainer, tm
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ------------------------------------------------------------ 45e PixArt
+        t0 = time.perf_counter()
+        px = random_pixart_pipeline(dev, bf16, seed=0)
+        torch.cuda.synchronize()
+        n_params = {name: sum(p.numel() for p in getattr(px, name).parameters())
+                    for name in ("transformer", "text_encoder", "vae")}
+        print(f"[pixart] PixArt-XL-2-512x512, T5 v1.1-XXL and the SD VAE built in bf16 on the "
+              f"card in {time.perf_counter() - t0:.1f} s: {n_params}, "
+              f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated", flush=True)
+        # agree. T5 over the negative prompt and the prompt, B11 vs plain, with its
+        # control; the pair (the plain version summing in fp64) is the rounding floor
+        def rms_mean_abs(x, w, eps):
+            xf = x.float()
+            return (xf / (xf.abs().mean(-1, keepdim=True) + eps) * w.float()).to(x.dtype)
+
+        def rms_fp64(x, w, eps):
+            xd = x.double()
+            return (xd * torch.rsqrt(xd.square().mean(-1, keepdim=True) + eps)
+                    * w.double()).to(x.dtype)
+
+        def encode(rms=None):
+            with swapped([(norms, "_rms_forward", rms)] if rms else []):
+                return torch.cat([px.encode_prompt([""]),
+                                  px.encode_prompt([PIXART_PROMPTS[0]])]).float()
+
+        def t5_gaps():
+            zero()
+            ctx_k = encode()
+            calls = launches()["rms_norm"]
+            ctx_p = encode(norms.rms_norm_ref)
+            return ctx_k, calls, {
+                "kernels": rel_l2(ctx_k, ctx_p), "pair": rel_l2(encode(rms_fp64), ctx_p),
+                "control": rel_l2(encode(rms_mean_abs), ctx_p)}
+
+        ctx, t5_calls, t5_gap = t5_gaps()
+        print(f"[pixart agree] T5-XXL over the negative prompt and the prompt (2 x 120 tokens, "
+              f"{t5_calls} B11 calls), relative L2 of the hidden states to the plain version's: "
+              f"kernels {t5_gap['kernels']:.3e} (tol {AGREE_TOL}); the plain version summing in "
+              f"fp64 {t5_gap['pair']:.3e}; control, the mean |x| for the root mean square "
+              f"{t5_gap['control']:.3e} (must fail)", flush=True)
+        check(t5_gap["kernels"] <= AGREE_TOL < t5_gap["control"] and t5_calls == 98,
+              f"pixart t5 agree: {t5_gap}, {t5_calls} calls")
+
+        # the transformer on that context: each B1 call per element against its
+        # plain version on its own inputs (control: the last 128 keys left out),
+        # then the output, kernels vs plain, with its controls
+        real_b1, b1_gates = attn.flash_attention, []
+
+        def b1_checked(q, k, v, **kw):
+            out = real_b1(q, k, v, **kw)
+            f32 = (q.float(), k.float(), v.float())
+            ref = attn.flash_attention_ref(*f32, scale=kw.get("scale"))
+            short_ = attn.flash_attention_ref(f32[0], f32[1][:, :-128], f32[2][:, :-128],
+                                              scale=kw.get("scale"))
+            b1_gates.append((ulp_gate(out, ref, FLASH_SUM)[0],
+                             ulp_gate(short_, ref, FLASH_SUM)[0]))
+            return out
+        # the wrapper counts its launches under the name it is called by: here this one's
+        b1_checked.launches, b1_checked.launches_by_dim = 0, collections.Counter()
+
+        tfp = px.transformer
+        lat = torch.randn((2, 64, 64, 4), generator=gen, device=dev).to(bf16)
+        t_in = px.scheduler.set_timesteps(PIXART_STEPS).timesteps[3].to(dev).expand(2)
+
+        def pforward(swaps=()):
+            with swapped(swaps), torch.inference_mode():
+                return tfp(lat, t_in, ctx.to(bf16)).float()
+
+        def b1_plain_with(fn):
+            return (attn, "flash_attention", lambda q, k, v, **kw: fn(
+                q.float(), k.float(), v.float(), kw.get("scale")).to(q.dtype))
+
+        out_k = pforward([(attn, "flash_attention", b1_checked)])
+        out_p = pforward([b1_plain])
+        agree = rel_l2(out_k, out_p)
+        worst = (max(g[0] for g in b1_gates), min(g[1] for g in b1_gates), len(b1_gates))
+        ref_ = attn.flash_attention_ref
+
+        def output_gaps(cases):
+            return {name: rel_l2(pforward([b1_plain_with(fn)]), out_p) for name, fn in cases}
+        # two faults the output shows (must fail) and two it is too coarse to see
+        # (printed; the per-call gate above holds every call per element)
+        ctrl = output_gaps([
+            ("v of the next head", lambda q, k, v, sc: ref_(q, k, v.roll(1, dims=2), scale=sc)),
+            ("k and v of the other CFG row", lambda q, k, v, sc: ref_(q, k.flip(0), v.flip(0),
+                                                                      scale=sc))])
+        unseen = output_gaps([
+            ("the last 128 keys left out", lambda q, k, v, sc: ref_(q, k[:, :-128], v[:, :-128],
+                                                                    scale=sc)),
+            ("the softmax scale of D 128", lambda q, k, v, sc: ref_(q, k, v, scale=128 ** -0.5))])
+        print(f"[pixart agree] the transformer's B1 at (2, 1024, 16, 72), each call per element "
+              f"against its plain version on its own inputs (largest excess, least control "
+              f"excess (must be > 0), calls): {worst} (control: the last 128 keys left out); "
+              f"the full-width transformer's output at the CFG batch of 2, kernels vs plain on "
+              f"that context: relative L2 {agree:.3e} (tol {AGREE_TOL}); controls (must fail): "
+              f"{ {k: f'{v:.3e}' for k, v in ctrl.items()} }; faults too small to show in the "
+              f"output: { {k: f'{v:.3e}' for k, v in unseen.items()} }", flush=True)
+        check(worst[0] <= 0 < worst[1] and worst[2] == 28 and agree <= AGREE_TOL
+              and all(c_ > AGREE_TOL for c_ in ctrl.values()),
+              f"pixart agree: {worst}, {agree}, controls {ctrl}")
+        del out_k, out_p, ctx, lat
+
+        want = walk(expected_launches_pixart(px, 1, PIXART_STEPS, PIXART_GUIDANCE))
+        parts, seconds = {}, []
+        px.encode_prompt = part_timer(torch, px, "encode_prompt", parts, "t5 encode")
+        px.vae.decode = part_timer(torch, px.vae, "decode", parts, "decode")
+        zero()
+        torch.cuda.reset_peak_memory_stats()
+        for i, profiled in enumerate((False, True)):
+            with profile(activities=[ProfilerActivity.CUDA]) if profiled else \
+                    contextlib.nullcontext() as prof:
+                t0 = time.perf_counter()
+                image = px(PIXART_PROMPTS[i], num_inference_steps=PIXART_STEPS,
+                           guidance_scale=PIXART_GUIDANCE, seed=PIXART_SEED + i)[0]
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+            check(images_ok(image, 512), f"pixart: image {image.shape} not finite in [0, 1]")
+            if i == 0:
+                split = dict(parts, denoise=seconds[0] - sum(parts.values()))
+        got = launches()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        device_ms = kernel_breakdown("pixart serve", "profiled request", prof, 10)
+        print(f"[pixart serve] a {PIXART_STEPS}-step DPM-Solver++ request at CFG "
+              f"{PIXART_GUIDANCE}, 512 px: {seconds[0]:.3f} s ("
+              f"{', '.join(f'{k} {v:.3f} s' for k, v in split.items())}); profiled "
+              f"{seconds[1]:.3f} s with {device_ms:.1f} ms of device time: busy "
+              f"{100 * device_ms / 1e3 / seconds[1]:.1f}%; peak memory {peak:.2f} GiB; image "
+              f"std {image.std():.3f}; launches of the two {got} (walk {want}, each) ({card})",
+              flush=True)
+        check(got == {k: 2 * v for k, v in want.items()},
+              f"pixart serve: launches {got} != 2 x {want}")
+        phases["pixart"] = {k: v // 2 for k, v in got.items()}
+        # the witness of the seeded T5's init: the same encoder with its q and
+        # relative-position tables redrawn at the fan-in rule (std d_model ** -0.5, 1)
+        with torch.no_grad():
+            for mod_ in px.text_encoder.modules():
+                if isinstance(mod_, T5Attention):
+                    mod_.q.weight.normal_(0.0, mod_.q.weight.shape[1] ** -0.5, generator=gen)
+                    if mod_.relative_attention_bias is not None:
+                        mod_.relative_attention_bias.weight.normal_(0.0, 1.0, generator=gen)
+        fan_gap = t5_gaps()[2]
+        print(f"[pixart t5 init] the same T5 with q and the relative-position tables redrawn "
+              f"at the fan-in rule, relative L2 to the plain version's: kernels "
+              f"{fan_gap['kernels']:.3e}, the plain version summing in fp64 {fan_gap['pair']:.3e}, "
+              f"the control {fan_gap['control']:.3e}; at T5's own init (above) "
+              f"{t5_gap['kernels']:.3e} / {t5_gap['pair']:.3e} / {t5_gap['control']:.3e}",
+              flush=True)
+        stats["pixart"] = dict(request_s=seconds[0], split=split, device_ms=device_ms,
+                               busy=device_ms / 1e3 / seconds[1], peak_gib=peak,
+                               t5_agree=t5_gap, t5_fan_in=fan_gap, agree=agree,
+                               controls=ctrl, unseen=unseen, b1_calls=worst)
+        del px
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return phases, stats
+
+
 def cond_len(samples):
     """The context tokens of the training samples (77 CLIP + 77 T5)."""
     return samples[0]["encoder_hidden_states"].shape[0]
@@ -6565,6 +7182,7 @@ def main():
             if any(w in line for w in ("registers", "Compiling entry", "spill", "Performance")):
                 print(f"[build]   {line.strip()}")
 
+    lap("build")
     # --------------------------------------------------------------- kernels
     gen = torch.Generator(device=dev).manual_seed(0)
     summary = {}
@@ -6748,6 +7366,7 @@ def main():
             f"cuDNN bf16 F.conv2d of the same conv {cudnn:.3f} ms")
         del x, wf, wq, kw, out, x_nchw, w16, xq
 
+    lap("kernels")
     # ---------------------------------------------------------------- models
     t0 = time.perf_counter()
     pipe = random_sdxl_pipeline(dev, bf16, seed=0, quant="a8w8_static")
@@ -6757,6 +7376,7 @@ def main():
     print(f"[models] built on the card in {time.perf_counter() - t0:.1f} s (quant "
           f"a8w8_static, no scales loaded yet: the bf16 path): {n_params}", flush=True)
 
+    lap("models")
     # ----------------------------------------------------------------- agree
     rand_inputs = (
         torch.randn((2, 32, 32, 4), generator=gen, device=dev, dtype=bf16),
@@ -6787,6 +7407,7 @@ def main():
           "kernels vs plain")
     out_bf16 = unet(calib_inputs)
 
+    lap("agree")
     # ----------------------------------------------------------------- serve
     counters = {"flash_attention": attn_mod.flash_attention,
                 "flash_attention_int8": attn_mod.flash_attention_int8,
@@ -6836,6 +7457,7 @@ def main():
 
     launches_bf16, s_bf16, peak_bf16 = serve("serve")
 
+    lap("serve")
     # ------------------------------------------------------------- calibrate
     t0 = time.perf_counter()
     raw = calibrate_static_a8w8(pipe, REQUESTS[0][0], HEIGHT, WIDTH, STEPS, GUIDANCE, seed=0)
@@ -6846,6 +7468,7 @@ def main():
           f"max {max(raw):.3f}", flush=True)
     check(n_unet == 771 and len(raw) == 771 + 33, f"calibrate: {len(raw)} scales")
 
+    lap("calibrate")
     # ------------------------------------------------------------ a8w8 agree
     out_a8w8 = unet(calib_inputs)
     agree("a8w8 agree", out_a8w8, unet(calib_inputs, plain_swaps(mods, bf16=False)),
@@ -6865,12 +7488,14 @@ def main():
           f"{rel_l2(out_a8w8, all_plain):.3e}; a8w8 vs bf16 UNet (random weights): "
           f"{rel_l2(out_a8w8, out_bf16):.3e}", flush=True)
 
+    lap("a8w8 agree")
     # ------------------------------------------------------------ a8w8 serve
     launches_a8w8, s_a8w8, peak_a8w8 = serve("a8w8 serve")
     print(f"[a8w8 serve] seconds per request a8w8 {[round(x, 3) for x in s_a8w8]} vs bf16 "
           f"{[round(x, 3) for x in s_bf16]} (same run); peak memory a8w8 {peak_a8w8:.2f} GiB "
           f"vs bf16 {peak_bf16:.2f} GiB", flush=True)
 
+    lap("a8w8 serve")
     # ------------------------------------------------------ a8w8 int8-attn
     int8_attention_kernels(torch, F, dev, gen, record, attn_mod)
     os.environ["PMIX_INT8_ATTN"] = "1"  # JAX's switch: every inference flash call takes int8 QK^T
@@ -6930,6 +7555,7 @@ def main():
           and want["flash_attention"] == 0, f"a8w8 int8-attn: launches {launches_i8attn} != "
           f"expected {want}")
 
+    lap("a8w8 int8-attn")
     # ------------------------------------------------------ free the pipeline
     del image_i8
     del pipe, out_bf16, out_a8w8, all_plain, rand_inputs, calib_inputs, ctx_c, added_c, lat_c
@@ -6945,6 +7571,7 @@ def main():
     )
     from paddlemix_tpu_torch.ops import decode_attention as da_mod
 
+    lap("free the pipeline")
     # --------------------------------------------------------- llava kernels
     for m, k, n in WINT8_SHAPES + [WINT8_RAGGED]:
         x = torch.randn((m, k), generator=gen, device=dev).to(bf16)
@@ -7064,6 +7691,7 @@ def main():
     row_norm_checks(torch, dev, gen, norms_mod)
     rms_kernels(torch, F, dev, gen, record, norms_mod)
 
+    lap("llava kernels")
     # ----------------------------------------------------------- llava agree
     t0 = time.perf_counter()
     model = random_llava(dev, bf16, seed=0)
@@ -7168,6 +7796,7 @@ def main():
     llava_agree("llava agree")
     launches_llava, stats_llava, peak_llava = llava_serve("llava serve")
 
+    lap("llava agree")
     # ---------------------------------------------------- quantized: wint8
     allocated = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
@@ -7184,6 +7813,7 @@ def main():
           f"{1e3 * med(stats_llava, 0):.1f} ms; peak memory wint8 {peak_wint8:.2f} GiB vs "
           f"bf16 {peak_llava:.2f} GiB (same run)", flush=True)
 
+    lap("quantized: wint8")
     # ------------------------------------------------ quantized: a8w8, a8w4
     # quantizing frees the bf16 weights: each mode builds a fresh seeded model
     launches_q, stats_q = {}, {}
@@ -7224,6 +7854,7 @@ def main():
               f"peak memory {mode} {peak:.2f} GiB vs bf16 {peak_llava:.2f} GiB (same run)",
               flush=True)
 
+    lap("quantized: a8w8, a8w4")
     # ------------------------------------------------------ free the LLaVA model
     del model, pixels, ids
     gc.collect()
@@ -7237,6 +7868,7 @@ def main():
         seeded_t5_tokenizer,
     )
 
+    lap("free the LLaVA model")
     # ----------------------------------------------------------- sd3 kernels
     for shape in ADALN_SHAPES:
         b_, s_, h_ = shape
@@ -7312,6 +7944,7 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
+    lap("sd3 kernels")
     # ------------------------------------------------------------- sd3 agree
     t0 = time.perf_counter()
     sd3 = random_sd3_pipeline(dev, bf16, seed=0, tokenizer_3=seeded_t5_tokenizer(SD3_T5_SEED))
@@ -7343,6 +7976,7 @@ def main():
     check(bool(torch.isfinite(out_k).all()) and rel <= AGREE_TOL, f"sd3 agree: relative L2 {rel}")
     del out_k, out_p, sd3_inputs
 
+    lap("sd3 agree")
     # ------------------------------------------------------------- sd3 serve
     all_counters = dict(counters, **llava_counters,
                         adaptive_layer_norm=norms_mod.adaptive_layer_norm,
@@ -7377,6 +8011,7 @@ def main():
           f"{[round(x, 3) for x in s_sd3]} | launches over {len(SD3_REQUESTS)} requests "
           f"{launches_sd3}", flush=True)
 
+    lap("sd3 serve")
     # ------------------------------------------------------- free SD3-medium
     del sd3
     gc.collect()
@@ -7410,6 +8045,7 @@ def main():
             "paged")["paged_decode_attention"]}
     paged_bs = llama7b.PAGED_BLOCK_SIZE
 
+    lap("free SD3-medium")
     # --------------------------------------------------------- llama kernels
     int8_decode_kernels(torch, F, dev, gen, record, da_mod, llama_mod._quantize_kv,
                         per_request["decode_attention_int8"])
@@ -7474,6 +8110,7 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
+    lap("llama kernels")
     # ---------------------------------------------------------- llama int8kv
     t0 = time.perf_counter()
     llama = random_llama(dev, bf16, seed=0, cachekv_int8=True)
@@ -7617,6 +8254,7 @@ def main():
           f"{peak_kv:.2f} GiB; cache bytes ({prompt + new + 1} slots) int8 + scales "
           f"{bytes_i8 / 1e9:.3f} GB vs bf16 {bytes_kv / 1e9:.3f} GB (same run)", flush=True)
 
+    lap("llama int8kv")
     # ----------------------------------------------------------- llama paged
     ids, mask = paged_batch(lcfg, LLAMA_REQUESTS[0], dev)
     b_, s_ = ids.shape
@@ -7658,6 +8296,7 @@ def main():
 
     del llama
 
+    lap("llama paged")
     # -------------------------------------------------------------- training
     gc.collect()
     torch.cuda.empty_cache()
@@ -7670,6 +8309,7 @@ def main():
     launches_tr, train_stats, launches_sft, launches_sft_eval, sft_stats = train_slice(
         torch, F, np, dev, tmods, card)
 
+    lap("training")
     # ------------------------------------------------------------ CLIP slice
     gc.collect()
     torch.cuda.empty_cache()
@@ -7684,18 +8324,21 @@ def main():
     launches_clip, launches_clip_tr, clip_stats, clip_train_stats = clip_slice(
         torch, np, dev, tmods, every)
 
+    lap("CLIP slice")
     # ------------------------------------------------- C.9 and EVA-CLIP slice
     gc.collect()
     torch.cuda.empty_cache()
     quantizer_checks(torch, dev, gen)
     launches_eva, eva_stats = eva_slice(torch, np, dev, tmods, every)
 
+    lap("C.9 and EVA-CLIP slice")
     # ----------------------------------------------------------- SD1.5 slice
     gc.collect()
     torch.cuda.empty_cache()
     sd15_kernels(torch, F, dev, gen, record, flash_case, gn_case, attn_mod)
     launches_sd15, sd15_stats = sd15_slice(torch, np, dev, gen, mods, every)
 
+    lap("SD1.5 slice")
     # ------------------------------------------------ SD1.5 UNet fine-tuning
     gc.collect()
     torch.cuda.empty_cache()
@@ -7705,12 +8348,14 @@ def main():
     launches_sd15_tr, dims_sd15_tr, sd15_train_stats = sd15_train_slice(torch, np, dev, mods,
                                                                         every)
 
+    lap("SD1.5 UNet fine-tuning")
     # ---------------------------------------------------------- BLIP-2 slice
     gc.collect()
     torch.cuda.empty_cache()
     blip2_kernels(torch, F, dev, gen, record, tmods)
     launches_blip2, blip2_stats = blip2_slice(torch, np, dev, tmods, every)
 
+    lap("BLIP-2 slice")
     # ------------------------------------------------ diffusers directories
     gc.collect()
     torch.cuda.empty_cache()
@@ -7718,18 +8363,21 @@ def main():
                                                        record, gn_case, card)
     launches_sdxl_dir, sdxl_dir_stats = sdxl_dir_slice(torch, np, dev, gen, every, card)
 
+    lap("diffusers directories")
     # ------------------------------------------------------- Qwen2-VL slice
     gc.collect()
     torch.cuda.empty_cache()
     qwen2vl_kernels(torch, F, dev, gen, record, tmods)
     launches_qwen2vl, qwen2vl_stats = qwen2vl_slice(torch, np, dev, tmods, every, card)
 
+    lap("Qwen2-VL slice")
     # ----------------------------------------------- SD3-medium directory slice
     gc.collect()
     torch.cuda.empty_cache()
     launches_sd3_dir, sd3_dir_stats = sd3_dir_slice(torch, F, np, dev, gen, tmods, every, record,
                                                     card)
 
+    lap("SD3-medium directory slice")
     # ------------------------------------ SD1.5 under a ControlNet / an adapter
     gc.collect()
     torch.cuda.empty_cache()
@@ -7739,6 +8387,14 @@ def main():
     launches_ctl, dims_ctl, ctl_stats = control_slice(torch, F, np, dev, gen, mods, every, record,
                                                       card)
 
+    lap("SD1.5 under a ControlNet / an adapter")
+    # ------------------------------------------------- DiT and PixArt-alpha
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches_dit, dit_stats = dit_slice(torch, F, np, dev, gen, tmods, every, record, gn_case,
+                                        card)
+
+    lap("DiT and PixArt-alpha")
     # --------------------------------------------------------------- summary
     def entry(name, route, source, replaces, by_phase):
         # ms / plain_ms / library_ms / bound at the first shape listed;
@@ -7958,6 +8614,26 @@ def main():
          "max_abs_err": r["err"]}
         for r in summary["group_norm"]
         if tuple(r["shape"]) in {shape for shape, _ in VAE_ENCODE_GN_CASES}]
+    # the DiT and PixArt phases (45b, 45d, 45e): B1, B12, B4 in the DiT request,
+    # B15 / B14 and B12 in its trainer, B1, B11 and B4 in the PixArt request;
+    # the new shapes of phase 45c beside each line's first shape
+    for phase, got in launches_dit.items():
+        for name in ("flash_attention", "adaptive_layer_norm", "rms_norm", "group_norm",
+                     "flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq"):
+            by_name[name]["launches_by_phase"][phase] = got[name]
+            by_name[name]["launches"] += got[name]
+    for name, key in (("flash_attention", "flash_attention"),
+                      ("flash_fwd_lse", "flash_fwd_lse_d72"),
+                      ("flash_bwd_dkv", "flash_bwd_dkv_d72"), ("flash_bwd_dq", "flash_bwd_dq_d72"),
+                      ("adaptive_layer_norm", "adaptive_layer_norm"), ("rms_norm", "rms_norm"),
+                      ("group_norm", "group_norm")):
+        shapes = {tuple(sh) for sh in DIT_FLASH_SHAPES + [c[:5] for c in DIT_TRAIN_FLASH_CASES]
+                  + [DIT_ADALN_SHAPE] + PIXART_RMS_SHAPES + [c[0] for c in DIT_GN_CASES]}
+        by_name[name]["dit_shapes"] = [
+            {"shape": list(r["shape"]), "ms": r["ms"], "plain_ms": r["plain_ms"],
+             "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": r["library_ms"],
+             "max_abs_err": r["err"]}
+            for r in summary.get(key, []) if tuple(r["shape"]) in shapes]
     # the a8w8 requests run all six SDXL kernels (B4's statistics for B5
     # among them), the bf16 ones flash and
     # GroupNorm; both LLaVA configurations run decode attention and RMSNorm,
@@ -8015,7 +8691,11 @@ def main():
             "flash_bwd_dkv_d40", "flash_bwd_dq_d40", "flash_bwd_dkv_d80", "flash_bwd_dq_d80",
             "flash_bwd_dkv_d160", "flash_bwd_dq_d160")] + \
         [("flash_attention", "cn_train"), ("flash_attention", "adapter_train"),
-         ("layer_norm", "adapter_train")]
+         ("layer_norm", "adapter_train")] + \
+        [(name, "dit") for name in ("flash_attention", "adaptive_layer_norm", "group_norm")] + \
+        [(name, "dit_train") for name in ("flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq",
+                                          "adaptive_layer_norm")] + \
+        [(name, "pixart") for name in ("flash_attention", "rms_norm", "group_norm")]
     idle = [(name, phase) for name, phase in must_run
             if by_name[name]["launches_by_phase"][phase] == 0]
     check(not idle, f"kernels never launched by the requests: {idle}")
@@ -8033,6 +8713,8 @@ def main():
     print(f"[summary] qwen2vl: {qwen2vl_stats} ({card})", flush=True)
     print(f"[summary] sd3 dir and train: {sd3_dir_stats} ({card})", flush=True)
     print(f"[summary] controlnet and t2i-adapter: {ctl_stats} ({card})", flush=True)
+    print(f"[summary] dit and pixart: {dit_stats} ({card})", flush=True)
+    print(f"[summary] seconds by phase: {json.dumps(PHASE_SECONDS)}", flush=True)
     print(f"[summary] chip_smoke ran {time.perf_counter() - T_START:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -123,6 +123,27 @@ SD3_KEY_MAP: KeyMap = (
     (r"\.weight$", r".kernel"),
 )
 
+# paddlemix_tpu/diffusers/models/dit.py has no torch key map: the port's
+# module names are the flax DiTModule's, so the blocks are renumbered, the
+# label table is nn.Embed's `embedding` and the rest `.kernel`
+DIT_KEY_MAP: KeyMap = (
+    (r"^blocks\.(\d+)\.", r"blocks_\1."),
+    (r"\.embedding_table\.weight$", r".embedding_table.embedding"),
+    (r"\.weight$", r".kernel"),
+)
+
+# paddlemix_tpu/diffusers/models/pixart.py likewise: the port's names are the
+# flax PixArtModule's, the blocks' attention and GEGLU feed-forward named as
+# the UNet's (`to_out.0`, `net.0`, `net.2` -> `to_out`, `net_0`, `net_2`);
+# the per-block and final `scale_shift_table`s keep their names
+PIXART_KEY_MAP: KeyMap = (
+    (r"^blocks\.(\d+)\.", r"blocks_\1."),
+    (r"\.to_out\.0\.", r".to_out."),
+    (r"\.net\.0\.", r".net_0."),
+    (r"\.net\.2\.", r".net_2."),
+    (r"\.weight$", r".kernel"),
+)
+
 # paddlemix_tpu/models/t5/modeling.py _T5_KEY_MAP. The port's T5 holds one
 # table, `shared`; HF's `encoder.embed_tokens.weight` (the same tensor) maps
 # to the same flax key, so a module that held both would claim it twice.

@@ -1,4 +1,5 @@
-"""SD1.5, SDXL and SD3 text-to-image: models, Euler, PNDM, DDIM, UniPC and FlowMatch
+"""SD1.5, SDXL, SD3 and PixArt-alpha text-to-image, DiT class-conditional
+sampling: models, Euler, PNDM, DDIM, UniPC, DPM-Solver++ and FlowMatch
 schedulers, pipelines, SD1.5 under a ControlNet or a T2I-Adapter; SD UNet
 training: the DDPM scheduler and the loss (training_utils)."""
 
@@ -8,6 +9,10 @@ from .models import (
     AutoencoderKLConfig,
     ControlNetConfig,
     ControlNetModel,
+    DiTConfig,
+    DiTModel,
+    PixArtConfig,
+    PixArtTransformer2DModel,
     SD3Transformer2DModel,
     SD3TransformerConfig,
     T2IAdapter,
@@ -17,6 +22,8 @@ from .models import (
 )
 from .pipelines import (
     DiffusionPipeline,
+    DiTPipeline,
+    PixArtAlphaPipeline,
     StableDiffusion3Pipeline,
     StableDiffusionAdapterPipeline,
     StableDiffusionControlNetPipeline,
@@ -26,6 +33,7 @@ from .pipelines import (
 from .schedulers import (
     DDIMScheduler,
     DDPMScheduler,
+    DPMSolverMultistepScheduler,
     EulerDiscreteScheduler,
     FlowMatchEulerDiscreteScheduler,
     PNDMScheduler,
@@ -33,8 +41,10 @@ from .schedulers import (
 )
 
 __all__ = ["AutoencoderKL", "AutoencoderKLConfig", "ControlNetConfig", "ControlNetModel",
-           "DDIMScheduler", "DDPMScheduler", "DiffusionPipeline", "EulerDiscreteScheduler",
-           "FlowMatchEulerDiscreteScheduler", "PNDMScheduler", "SD3Transformer2DModel",
+           "DDIMScheduler", "DDPMScheduler", "DPMSolverMultistepScheduler", "DiTConfig",
+           "DiTModel", "DiTPipeline", "DiffusionPipeline", "EulerDiscreteScheduler",
+           "FlowMatchEulerDiscreteScheduler", "PNDMScheduler", "PixArtAlphaPipeline",
+           "PixArtConfig", "PixArtTransformer2DModel", "SD3Transformer2DModel",
            "SD3TransformerConfig", "StableDiffusion3Pipeline", "StableDiffusionAdapterPipeline",
            "StableDiffusionControlNetPipeline", "StableDiffusionPipeline",
            "StableDiffusionXLPipeline", "T2IAdapter", "T2IAdapterConfig", "UNet2DConditionConfig",

@@ -1,8 +1,10 @@
-"""Timestep embeddings (port of paddlemix_tpu/diffusers/models/embeddings.py)."""
+"""Timestep, label and patch embeddings (port of
+paddlemix_tpu/diffusers/models/embeddings.py)."""
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -72,16 +74,42 @@ def get_2d_sincos_pos_embed(embed_dim: int, gh: int, gw: int, base_size: int = 1
                       get_1d_sincos_pos_embed(embed_dim // 2, mesh_h)], dim=-1)
 
 
+class LabelEmbedding(nn.Module):
+    """Class labels -> (B, hidden) vectors, with classifier-free guidance's
+    null class (port of `LabelEmbedding`, DiT's `y_embedder`): with
+    `dropout_prob` > 0 the table has `num_classes + 1` rows, the last the
+    null class. `force_drop_ids` (B,) bool replaces those labels by the null
+    class; else, given a torch.Generator, each label is dropped with
+    probability `dropout_prob` (JAX's `rng` draw, from torch's generator)."""
+
+    def __init__(self, num_classes: int, hidden_size: int, dropout_prob: float = 0.1):
+        super().__init__()
+        self.num_classes, self.dropout_prob = num_classes, dropout_prob
+        self.embedding_table = nn.Embedding(num_classes + (dropout_prob > 0), hidden_size)
+
+    def forward(self, labels, force_drop_ids=None, generator: Optional[torch.Generator] = None):
+        if force_drop_ids is not None:
+            labels = torch.where(force_drop_ids.bool(), self.num_classes, labels)
+        elif generator is not None and self.dropout_prob > 0:
+            drop = torch.rand(labels.shape, generator=generator,
+                              device=labels.device) < self.dropout_prob
+            labels = torch.where(drop, self.num_classes, labels)
+        return self.embedding_table(labels)
+
+
 class PatchEmbed2D(nn.Module):
     """DiT/SD3 latent patchify: (B, H, W, C) NHWC -> (B, HW/p^2, D) tokens in
     row-major order, plus the 2D sincos position table of the grid (port of
-    `PatchEmbed2D`), made on the latent's device at each call."""
+    `PatchEmbed2D`), made on the latent's device at each call. The table is
+    scaled to a grid side of `base_size`, or with None to the input's own
+    (JAX's default, which PixArt takes)."""
 
-    def __init__(self, patch_size: int, in_channels: int, embed_dim: int, base_size: int):
+    def __init__(self, patch_size: int, in_channels: int, embed_dim: int,
+                 base_size: Optional[int]):
         super().__init__()
         self.patch_size = patch_size
         self.embed_dim = embed_dim
-        self.base_size = base_size  # the grid side the position table is scaled to
+        self.base_size = base_size
         self.proj = Conv2d(in_channels, embed_dim, patch_size, stride=patch_size)
 
     def forward(self, latent):
@@ -89,6 +117,6 @@ class PatchEmbed2D(nn.Module):
         p = self.patch_size
         x = self.proj(latent.permute(0, 3, 1, 2).to(self.proj.weight.dtype))
         x = x.flatten(2).transpose(1, 2)
-        pos = get_2d_sincos_pos_embed(self.embed_dim, h // p, w // p, self.base_size,
+        pos = get_2d_sincos_pos_embed(self.embed_dim, h // p, w // p, self.base_size or h // p,
                                       device=x.device)
         return x + pos.to(x.dtype)[None]

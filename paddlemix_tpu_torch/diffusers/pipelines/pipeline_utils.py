@@ -16,6 +16,10 @@ as an override. SD3's published layout needs that for `tokenizer_3`: neither
 package has a T5 tokenizer (`diffusers.sd3.seeded_t5_tokenizer` stands in).
 A component with no `save_pretrained` (such a callable tokenizer) is
 written as JAX writes it: its entry names its type, and no subfolder.
+PixArt's directory needs its tokenizer as an override too. JAX's registry
+has no `PixArtTransformer2DModel`, so JAX reads the transformer of a PixArt
+directory only when it is given as an override (ROADMAP C.40); the port
+registers it.
 """
 
 from __future__ import annotations
@@ -49,12 +53,16 @@ _COMPONENT_CLASSES: Dict[str, str] = {
     "DDIMScheduler": "paddlemix_tpu_torch.diffusers.schedulers:DDIMScheduler",
     "DDPMScheduler": "paddlemix_tpu_torch.diffusers.schedulers:DDPMScheduler",
     "PNDMScheduler": "paddlemix_tpu_torch.diffusers.schedulers:PNDMScheduler",
+    "DPMSolverMultistepScheduler":
+        "paddlemix_tpu_torch.diffusers.schedulers:DPMSolverMultistepScheduler",
     "EulerDiscreteScheduler": "paddlemix_tpu_torch.diffusers.schedulers:EulerDiscreteScheduler",
     "FlowMatchEulerDiscreteScheduler":
         "paddlemix_tpu_torch.diffusers.schedulers:FlowMatchEulerDiscreteScheduler",
     "UniPCMultistepScheduler": "paddlemix_tpu_torch.diffusers.schedulers:UniPCMultistepScheduler",
     "ControlNetModel": "paddlemix_tpu_torch.diffusers.models:ControlNetModel",
     "SD3Transformer2DModel": "paddlemix_tpu_torch.diffusers.models:SD3Transformer2DModel",
+    "DiTModel": "paddlemix_tpu_torch.diffusers.models:DiTModel",
+    "PixArtTransformer2DModel": "paddlemix_tpu_torch.diffusers.models:PixArtTransformer2DModel",
     "T5EncoderModel": "paddlemix_tpu_torch.models.t5:T5EncoderModel",
     "T2IAdapter": "paddlemix_tpu_torch.diffusers.models:T2IAdapter",
 }

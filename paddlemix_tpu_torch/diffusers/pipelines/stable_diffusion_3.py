@@ -1,4 +1,5 @@
-"""SD3 text-to-image pipeline (port of StableDiffusion3Pipeline in
+"""SD3 text-to-image and DiT class-conditional pipelines (port of
+StableDiffusion3Pipeline and DiTPipeline in
 paddlemix_tpu/diffusers/pipelines/stable_diffusion_3.py).
 
 Same signature and semantics as the JAX pipeline: two CLIP towers with
@@ -10,6 +11,14 @@ run in its own dtype. `tokenizer_3` is any callable that maps a list of texts
 to {"input_ids": (B, L) ids}. Registered, so `DiffusionPipeline.from_pretrained`
 reads SD3's published directory (with `tokenizer_3` as an override). The JAX package compiles the denoise loop into
 one lax.fori_loop; here it is a Python loop over steps.
+
+`DiTPipeline` samples class labels with classifier-free guidance over
+[labels, null class] and guidance on the first `in_channels` output channels
+(the learned variance dropped), then decodes with the VAE. Its loop takes any
+ported scheduler. JAX's calls `set_timesteps` without the latents' shape, so
+DPM-Solver++'s x0 history is carried as (1,) and its fori_loop refuses the
+first step (ROADMAP C.39); the port's Python loop carries the history as it
+comes.
 """
 
 from __future__ import annotations
@@ -111,4 +120,49 @@ class StableDiffusion3Pipeline(DiffusionPipeline):
         if output_type == "latent":
             return (latents,)
         image = self._decode_latents(latents)
+        return (self.image_processor.postprocess(image, output_type),)
+
+
+@register_pipeline
+class DiTPipeline(DiffusionPipeline):
+    """Class-conditional DiT sampling: defaults as JAX's (25 steps, guidance
+    4.0). `class_labels` is a list or tensor of ints; `latents` an optional
+    (B, s, s, C) NHWC noise, else drawn from a torch.Generator seeded with
+    `seed`."""
+
+    def __init__(self, transformer, vae, scheduler):
+        self.register_modules(transformer=transformer, vae=vae, scheduler=scheduler)
+        self.vae_scale_factor = 2 ** (len(vae.config.block_out_channels) - 1) if vae else 8
+        self.image_processor = VaeImageProcessor()
+
+    @property
+    def device(self) -> torch.device:
+        return self.transformer.final_proj.weight.device
+
+    @torch.inference_mode()
+    def __call__(self, class_labels, guidance_scale: float = 4.0, num_inference_steps: int = 25,
+                 seed: int = 0, output_type: str = "pil", latents=None):
+        device, tf = self.device, self.transformer
+        cfg = tf.config
+        labels = torch.as_tensor(class_labels, dtype=torch.long, device=device)
+        do_cfg = guidance_scale > 1.0
+        all_labels = torch.cat([labels, torch.full_like(labels, cfg.num_classes)]) if do_cfg \
+            else labels
+        shape = (labels.shape[0], cfg.sample_size, cfg.sample_size, cfg.in_channels)
+        if latents is None:
+            gen = torch.Generator(device=device).manual_seed(seed)
+            latents = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+        latents = torch.as_tensor(latents).to(device=device, dtype=torch.float32)
+        state = self.scheduler.set_timesteps(num_inference_steps)
+        for i in range(num_inference_steps):
+            lat_in = torch.cat([latents, latents]) if do_cfg else latents
+            t_in = state.timesteps[i].to(device).expand(lat_in.shape[0])
+            pred = tf(lat_in.to(tf.dtype), t_in, all_labels)[..., :cfg.in_channels].float()
+            if do_cfg:
+                co, un = pred.chunk(2)
+                pred = un + guidance_scale * (co - un)
+            latents, state = self.scheduler.step(state, pred, i, latents)
+        if output_type == "latent":
+            return (latents,)
+        image = self.vae.decode(latents / self.vae.config.scaling_factor).float()
         return (self.image_processor.postprocess(image, output_type),)

@@ -1,7 +1,7 @@
 """Scheduler substrate: beta schedules, timestep spacing, prediction types,
 the forward diffusion of training and the `scheduler_config.json` IO (port
 of paddlemix_tpu/diffusers/schedulers/common.py, the parts the Euler, PNDM,
-DDPM, DDIM and UniPC paths use).
+DDPM, DDIM, UniPC and DPM-Solver++ paths use).
 
 A scheduler's config is a `BaseConfig`: `from_pretrained(path, subfolder)`
 reads `scheduler_config.json` as the JAX package does, keeping the keys its
@@ -25,8 +25,8 @@ from ...core.config import BaseConfig
 class SchedulerConfig(BaseConfig):
     """beta_schedule linear | scaled_linear, or `trained_betas`;
     timestep_spacing leading | linspace | trailing. `prediction_type`
-    (epsilon | v_prediction | sample) is read by DDPM's, DDIM's and UniPC's
-    steps; Euler and PNDM step epsilon and refuse the others."""
+    (epsilon | v_prediction | sample) is read by DDPM's, DDIM's, UniPC's and
+    DPM-Solver++'s steps; Euler and PNDM step epsilon and refuse the others."""
 
     config_name = "scheduler_config.json"
     num_train_timesteps: int = 1000

@@ -108,6 +108,10 @@ class T5Attention(nn.Module):
         self.o = nn.Linear(inner, cfg.d_model, bias=False)
         self.relative_attention_bias = nn.Embedding(cfg.relative_attention_num_buckets,
                                                     cfg.num_heads) if has_relative_bias else None
+        # seeded draws (core.init) at transformers' T5 init: no 1/sqrt(d) scale here
+        self.q.init_std = (cfg.d_model * cfg.d_kv) ** -0.5
+        if has_relative_bias:
+            self.relative_attention_bias.init_std = cfg.d_model ** -0.5
 
     def position_bias(self, s: int, device) -> torch.Tensor:
         """(1, heads, s, s) bias in the table's dtype."""

@@ -357,7 +357,7 @@ def test_a_checkpoint_short_of_a_parameter_is_refused(tmp_path, fault):
         assert kept.shape == saved.shape and not np.allclose(kept, saved)
 
 
-@pytest.mark.parametrize("cls", ["DPMSolverMultistepScheduler", "FancyScheduler"])
+@pytest.mark.parametrize("cls", ["LMSDiscreteScheduler", "FancyScheduler"])
 def test_an_unported_component_class_raises_naming_it(written, tmp_path, cls):
     _, path = written["sd"]
     shutil.copytree(path, tmp_path / "pipe")
