@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (paddlemix_tpu_torch) on one CUDA card.
 
-Drives fourteen slices at their published widths with weights drawn on the
+Drives sixteen slices at their published widths with weights drawn on the
 card from a seeded torch.Generator:
 
   - SDXL-1024 text-to-image through StableDiffusionXLPipeline.__call__, in
@@ -36,7 +36,7 @@ card from a seeded torch.Generator:
     fp32 weights, bf16 compute) at batch 256: the dual-tower bench forward
     (models.clip.vitb16.pair_logits) and contrastive training through
     tools.train_clip.build_trainer and Trainer.train (lr 5e-4, cosine,
-    warmup max(steps // 10, 1), clip 1.0; 10 steps, no checkpoints), and
+    warmup max(steps // 10, 1), clip 1.0; 6 steps, no checkpoints), and
     tools.train_clip.main --synthetic, the example's data plane (generated
     jpegs, PIL decode and CLIPImageProcessor in the loader's workers);
   - EVA02-CLIP-B/16 (EVA-CLIP's published EVA02-CLIP-B-16.json: rope,
@@ -46,7 +46,7 @@ card from a seeded torch.Generator:
     4 templates, 256 jpegs through CLIPImageProcessor's default and native
     paths) and contrastive training by configs/eva_clip/pretrain_b16.json's
     optimizer (lr 5e-4, cosine, weight decay 0.05, layer decay 0.75; cut to
-    10 steps with a warmup of 2, no checkpoints);
+    6 steps with a warmup of 2, no checkpoints);
   - SD1.5-512 text-to-image through StableDiffusionPipeline.__call__
     (runwayml/stable-diffusion-v1-5: UNet 320-1280 with 1x1-conv
     projections and 8 heads a block, so head_dim 40, 80 and 160; CLIP-L text;
@@ -56,7 +56,7 @@ card from a seeded torch.Generator:
     noising at a random timestep, epsilon target, min-SNR gamma 5.0, AdamW
     at 1e-5, cosine over 1,000 steps, clip 1.0, shuffled batches of 8 over
     the example's 256 seeded samples of 64x64x4 latents and 77x768 hidden
-    states), fp32 masters and bf16 compute; 8 steps, no checkpoints;
+    states), fp32 masters and bf16 compute; 5 steps, no checkpoints;
   - BLIP-2 OPT-2.7B captioning (Salesforce/blip2-opt-2.7b: the ViT-g tower,
     1,408 x 39 layers at 224 px, the Q-Former with 32 queries, OPT-2.7B,
     3.74 B parameters in bf16) through Blip2Processor on a jpeg and
@@ -93,7 +93,16 @@ card from a seeded torch.Generator:
     DiTPipeline read from its directory (class-conditional, CFG 4.0, DDIM
     and DPM-Solver++) and trained by tools.train_dit.main (batch 16,
     gradient checkpointing); PixArt-XL-2-512x512 over T5 v1.1-XXL and the SD
-    VAE through PixArtAlphaPipeline (20 DPM-Solver++ steps, CFG 4.5).
+    VAE through PixArtAlphaPipeline (20 DPM-Solver++ steps, CFG 4.5);
+  - InternVL2-8B serving (OpenGVLab/InternVL2-8B: InternViT-300M over 448 px
+    tiles, the pixel-unshuffle projector, InternLM2.5-7B at GQA 4; 8.08 B
+    bf16 parameters) through InternVLImageProcessor's dynamic tiling (and
+    MiniMonkey's) and InternVLChatModel.generate, read back from a directory
+    in JAX's layout by AutoModel;
+  - Qwen-VL-Chat serving (Qwen/Qwen-VL-Chat: ViT-bigG and its 256-query
+    Resampler, Qwen-7B with logn attention and dynamic NTK; 9.66 B bf16
+    parameters) through QwenVLProcessor's image processor and
+    QwenVLForConditionalGeneration.generate, read back the same way.
 
 Phases:
 
@@ -362,7 +371,7 @@ Phases:
                    rounding apart; controls that must fail: B10 with its row
                    stride ignored for the loss, B10's dw and db of the first
                    partial sum's rows alone for the gradients),
-                   then 10 optimizer steps over
+                   then CLIP_TRAIN_STEPS (6) optimizer steps over
                    2,560 seeded pairs: seconds a step, samples/s, model
                    TFLOP/s (3x the forward's), reader share, busy share of a
                    profiled step, peak memory, finite losses, every parameter
@@ -378,7 +387,7 @@ Phases:
                    1.25x of two plain versions one bf16 rounding apart; 49 + 25
                    B10 launches (4 a block and the pooled norm; 2 a text layer
                    and the final LN)
- 28. eva appflow   3 Appflow zero_shot_classification requests, each one
+ 28. eva appflow   2 Appflow zero_shot_classification requests, each one
                    generated 640 x 480 jpeg decoded by PIL against 1,000
                    candidate labels: seconds, device ms and busy share of the
                    last (profiled, its kernels by time), peak memory; every
@@ -392,7 +401,7 @@ Phases:
                    top-1 and top-5 against seeded labels, which must be the
                    same top-1 on both paths; the paths' pixel and feature gaps
                    and their agreement printed
- 30. eva train     10 optimizer steps at batch 256 through the Trainer with
+ 30. eva train     EVA_TRAIN_STEPS (6) optimizer steps at batch 256 through the Trainer with
                    the recipe's optimizer (layer-decay scales checked at the
                    head, the patch embedding and a block), over 512 seeded
                    pairs: seconds a step, samples/s, busy share and kernels of
@@ -449,7 +458,7 @@ Phases:
                    plain versions one rounding apart (P rounded to bf16
                    before P.V or not); a control, B14's dK/dV without di,
                    must fail; launches as the walk says
- 37. sd15 train    build_trainer + Trainer.train, 8 optimizer steps at batch
+ 37. sd15 train    build_trainer + Trainer.train, 5 optimizer steps at batch
                    8 (the last under the profiler): seconds a step,
                    samples/s, model TFLOP/s (`unet_train_flops`, 3x the
                    forward's), reader and busy share, B14's share of the
@@ -656,7 +665,7 @@ Phases:
                    `expected_launches_controlnet`
  44c. adapter      the adapter directory read in bf16; agree (the control:
                    the UNet without the adapter's features) and 1 + 1
-                   requests the same way, 50 DDIM steps, launches equal to
+                   requests the same way, 25 DDIM steps, launches equal to
                    `expected_launches_sd15` (the adapter launches no kernel)
  44d. control      B15 and B14 per element at the ControlNet trainer's batch
       train        4 and the adapter trainer's batch 2 at SD1.5's three
@@ -737,6 +746,55 @@ Phases:
                    `expected_launches_pixart`; last, the witness of T5's
                    seeded init: the T5 agree again with q and the
                    relative-position tables redrawn at the fan-in rule
+ 46a. internvl2    the DiT / PixArt models are freed; B1 at InternViT's (1,
+      kernels      1025, 16, 64) and (13, 1025, 16, 64) on q / k / v that
+                   are global-thirds views of one projection (read in place),
+                   B10's forward at the tower's 1,024-wide rows (1,025 and
+                   13,325) and the projector's 4,096-wide ones (256 and
+                   3,328: the width new in this slice, its plans held
+                   against the library's), B7 at G 4 over 3,489 keys, each
+                   per element against its plain version with its control
+                   (the last key tile left out; the variance without the
+                   mean; every length one short), with times, bounds and
+                   library calls (SDPA on the same views, F.layer_norm)
+ 46b. internvl2    InternVL2-8B is built (seeded bf16 weights, fp32 norms);
+      dir          after a check of the free disk, written by
+                   save_pretrained into a temporary directory and read back
+                   by AutoModel.from_pretrained in bf16: the same config and
+                   0 tensors differing, seconds and GB/s each way (warm page
+                   cache); the model read back is served, the directory
+                   removed
+ 46c. internvl2    the 12-tile request's prefill logits (13 tiles: 3,328
+      agree        image tokens, 3,362 ids) and 4 decode steps fed seeded
+                   ids, kernels (B1, B10, B11, B7) vs plain, within
+                   AGREE_TOL; launches as `expected_launches_internvl2`
+                   walks them
+ 46d. internvl2    3 requests of 128 new tokens, eos off, each a seeded jpeg
+      serve        decoded and tiled, the padded stack and its mask handed
+                   to generate (the tower runs the real tiles alone): a 448
+                   x 448 image (1 tile), a 1024 x 768 one (12 tiles and a
+                   thumbnail), the same through MiniMonkey's tiling (max 7:
+                   9 tiles); each timed as processor, tower, prefill and
+                   decode, TTFT (a 1-token generate), decode tokens/s = 127
+                   / (t128 - TTFT), peak memory, launches as walked; one more
+                   1-tile request under the profiler: device ms by category,
+                   busy share
+ 47a. qwenvl       InternVL2 is freed; B1 at ViT-bigG's (1 and 2, 1024, 16,
+      kernels      104) on per-head views of one projection (head 104 read in
+                   place on the D 128 core) and the Resampler's 256 queries
+                   over 1,024 keys (32 x 128), B10's forward at the trunk's
+                   1,664-wide rows and the Resampler's 4,096-wide ones, B7 at
+                   G 1 over the long request's 2,288 keys, with controls,
+                   times, bounds and library calls as 46a
+ 47b. qwenvl dir   Qwen-VL-Chat is built and written and read back as 46b
+ 47c. qwenvl       the two-image request's prefill logits and 4 decode steps,
+      agree        kernels vs plain, within AGREE_TOL; launches as walked
+ 47d. qwenvl       3 requests of 128 new tokens as 46d: one 640 x 480 jpeg,
+      serve        two ("Picture 1 / 2"), and one image before 1,900 text ids,
+                   whose positions pass seq_length 2,048: NTK alpha 3 for its
+                   context (`set_ntk_alpha`; 1 for the others) and a logn
+                   scale above 1 past position 2,047, printed; one more
+                   image request under the profiler
 
 Every section of main prints its host seconds as it ends ([phase] lines),
 and a summary line gathers them.
@@ -975,7 +1033,8 @@ SD15_TRAIN_GN_CASES = [((8, 64, 64, c), "silu") for c in (320, 640, 960)] + \
     [((8, 8, 8, c), "silu") for c in (1280, 2560)] + \
     [((8, hw, hw, c), "none") for hw, c in ((64, 320), (32, 640), (16, 1280), (8, 1280))]
 SD15_TRAIN_BATCH = 8
-SD15_TRAIN_STEPS = 8  # optimizer steps of build_trainer -> Trainer.train
+# optimizer steps of build_trainer -> Trainer.train (8 until the InternVL2 and Qwen-VL phases)
+SD15_TRAIN_STEPS = 5
 SD15_TRAIN_SAMPLES = 256  # the example's data
 # sd15 train agree: one micro-batch of 2 at 64x64 latents with fixed
 # timesteps and noise, held as CLIP's train agree is (CLIP_LOSS_RATIO,
@@ -996,8 +1055,8 @@ SD15_DIR_SCHEDULER = dict(_class_name="PNDMScheduler", _diffusers_version="0.6.0
                           beta_start=0.00085, beta_end=0.012, beta_schedule="scaled_linear",
                           num_train_timesteps=1000, set_alpha_to_one=False, skip_prk_steps=True,
                           steps_offset=1, trained_betas=None, clip_sample=False)
-DIR_T2I_STEPS = 4
-DREAMBOOTH_STEPS = 8
+DIR_T2I_STEPS = 2  # 4, and DREAMBOOTH_STEPS 8, until the InternVL2 and Qwen-VL phases
+DREAMBOOTH_STEPS = 4
 DREAMBOOTH_IMAGES = 4
 DREAMBOOTH_PROMPTS = ("a photo of sks dog", "a photo of a dog")
 # B4 at the VAE encoder's shapes at 512 px that no decoder has: the first
@@ -1046,7 +1105,7 @@ SD3_TRAIN_FLASH_CASES = [(2, 4250, 24, 24, 64, False)]
 SD3_TRAIN_IMAGES = 4
 SD3_TRAIN_PROMPTS = tuple(p for p, _ in SD3_REQUESTS) + ("a red bicycle leaning on a brick wall",)
 SD3_TRAIN_BATCH = 2
-SD3_TRAIN_STEPS = 10
+SD3_TRAIN_STEPS = 5  # 10 until the InternVL2 and Qwen-VL phases
 SD3_AGREE_U = (0.3, 0.8)  # the train agree's fixed draws of u (sigma 0.5625, 0.9231)
 # SD1.5 under a ControlNet and a T2I-Adapter (phases 44a-44f): SD1.5-512 with
 # lllyasviel/sd-controlnet-canny's ControlNet (UniPC, CONTROL_STEPS steps: the
@@ -1059,10 +1118,11 @@ SD3_AGREE_U = (0.3, 0.8)  # the train agree's fixed draws of u (sigma 0.5625, 0.
 # gradient checkpointing. B15 / B14 at the trainers' self-attention shapes
 CONTROL_REQUESTS = [("a bird perched on a branch, high detail", 11)]  # one, and it again profiled
 CONTROL_STEPS = 20
-ADAPTER_STEPS = 50
-CONTROL_TRAIN_BATCH, CONTROL_TRAIN_STEPS = 4, 4
-ADAPTER_TRAIN_BATCH, ADAPTER_TRAIN_STEPS = 2, 4
-GC_TRAIN_STEPS = 3
+ADAPTER_STEPS = 25  # 50 until the InternVL2 and Qwen-VL phases
+# the trainers' steps (4, 4 and 3 until the InternVL2 and Qwen-VL phases)
+CONTROL_TRAIN_BATCH, CONTROL_TRAIN_STEPS = 4, 2
+ADAPTER_TRAIN_BATCH, ADAPTER_TRAIN_STEPS = 2, 2
+GC_TRAIN_STEPS = 2
 CONTROL_TRAIN_FLASH_CASES = [(b_, s_, 8, 8, d_, False) for b_ in (CONTROL_TRAIN_BATCH,
                                                                  ADAPTER_TRAIN_BATCH)
                              for s_, d_ in ((4096, 40), (1024, 80), (256, 160))]
@@ -1097,6 +1157,34 @@ PIXART_RMS_SHAPES = [(120, 4096)]
 PIXART_PROMPTS = ("a small cactus with a happy face in the Sahara desert",
                   "an astronaut riding a green horse")
 PIXART_STEPS, PIXART_GUIDANCE, PIXART_SEED = 20, 4.5, 0
+# InternVL2-8B (OpenGVLab/InternVL2-8B, models/internvl2/internvl2_8b.py) and
+# Qwen-VL-Chat (Qwen/Qwen-VL-Chat, models/qwen_vl/qwenvl_chat.py) serving,
+# batch 1, VLM_NEW_TOKENS new tokens, eos off. InternVL2: a 448 x 448 jpeg (one
+# tile, 256 image tokens), a 1024 x 768 one (the 4 x 3 grid's 12 tiles and a
+# thumbnail: 3,328 image tokens) and the same through MiniMonkey's tiling
+# (max_num 7: 6 + 2 tiles and the thumbnail). Qwen-VL: one 640 x 480 jpeg (256
+# features), two ("Picture 1 / 2"), and one image before QWENVL_LONG_TEXT text
+# ids, whose positions pass seq_length 2,048 (logn scale above 1, NTK alpha 3)
+VLM_NEW_TOKENS = 128
+VLM_AGREE_STEPS = 4
+INTERNVL2_ONE_TILE, INTERNVL2_BIG = (448, 448), (768, 1024)  # (h, w) of the jpegs
+INTERNVL2_MINIMONKEY_MAX = 7
+# B1 at InternViT's 1,025 tokens, 16 heads of 64, for 1 and 13 tiles; B10 at
+# the tower's rows (1,025 a tile) and the projector's 4,096-wide (256 a tile);
+# B7 at G 4, the 13-tile request's last decode step (3,362 + 127 keys)
+INTERNVL2_FLASH_TILES = (1, 13)
+INTERNVL2_LN_SHAPES = [(1025, 1024, 1), (13325, 1024, 1), (256, 4096, 1), (3328, 4096, 1)]
+INTERNVL2_DECODE_CASES = [(1, 32, 8, 128, 3490, (3489,))]
+QWENVL_IMAGE = (480, 640)
+QWENVL_LONG_TEXT = 1900
+# B1 at ViT-bigG's 1,024 tokens, 16 heads of 104 (per-head views), and the
+# Resampler's 256 queries over 1,024 keys, 32 x 128, for 1 and 2 images; B10
+# at the trunk's 1,664-wide rows and the Resampler's 4,096-wide ones (ln_kv
+# 1,024 an image, ln_q and ln_post 256); B7 at G 1, the long request's last step
+QWENVL_FLASH_IMAGES = (1, 2)
+QWENVL_LN_SHAPES = [(1024, 1664, 1), (2048, 1664, 1), (256, 4096, 1), (1024, 4096, 1),
+                    (2048, 4096, 1)]
+QWENVL_DECODE_CASES = [(1, 32, 32, 128, 2289, (2288,))]
 # H100 SXM peaks (NVIDIA data sheet, dense) for the bounds
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
@@ -2366,7 +2454,8 @@ LN_SUM, LN_BWD_SUM, LN_DW_TOL = 1e-6, 1e-5, 1e-4
 LN_EXTRA_CASES = [((77, 768), "bf16", True), ((19712, 512), "fp32", False),
                   ((577, 1024), "fp32", False), ((3000, 100), "bf16", False)]
 CLIP_FORWARDS = 12  # timed bench forwards (after 2 warm-up ones)
-CLIP_TRAIN_STEPS = 10  # optimizer steps of build_trainer -> Trainer.train
+# optimizer steps of build_trainer -> Trainer.train (10 until the InternVL2 and Qwen-VL phases)
+CLIP_TRAIN_STEPS = 6
 CLIP_TRAIN_SAMPLES = 2560  # seeded (pixels, caption) pairs: one epoch of 10 batches
 # clip train agree, against two plain versions one rounding apart (the pair).
 # The loss is one number, a single draw of the rounding noise that the pair
@@ -2406,13 +2495,14 @@ BLIP2_DECODE_CASES = [(1, 32, 32, 80, 64, (40,)), (2, 32, 32, 80, 96, (90, 17)),
 # caption requests, one 640 x 480 jpeg each (three until the DiT and PixArt phases)
 BLIP2_REQUESTS = 2
 BLIP2_AGREE_STEPS = 4   # decode steps after the prefill in the agree
-EVA_REQUESTS = 3        # Appflow zero-shot requests, one 640 x 480 jpeg each
+# Appflow zero-shot requests, one 640 x 480 jpeg each (3 until the InternVL2 and Qwen-VL phases)
+EVA_REQUESTS = 2
 EVA_LABELS = 1000       # candidate labels a request, classes of the eval (ImageNet-1k's)
 EVA_EVAL_IMAGES = 256   # generated jpegs of the zero-shot eval, one batch
-EVA_TRAIN_STEPS = 10
+EVA_TRAIN_STEPS = 6  # 10 until the InternVL2 and Qwen-VL phases
 EVA_TRAIN_SAMPLES = 512  # seeded (pixels, caption) pairs: 2 batches of 256 an epoch
 EVA_CONFIG = os.path.join(REPO, "configs", "eva_clip", "pretrain_b16.json")
-# the recipe's cuts: 10 steps, the warmup of 2,000 steps cut to 2 (cosine
+# the recipe's cuts: 6 steps, the warmup of 2,000 steps cut to 2 (cosine
 # needs more steps than warmup), no checkpoints, logging every step (the
 # profiler steps on the logging callback)
 EVA_TRAIN_OVERRIDES = dict(max_steps=EVA_TRAIN_STEPS, warmup_steps=2, save_steps=0,
@@ -6605,35 +6695,11 @@ def control_slice(torch, F, np, dev, gen, m, counters, record, card):
 def strided_flash_case(torch, F, dev, gen, record, attn, shape, label):
     """B1 at `shape` = (B, S, H, D) on q, k and v that are strided views of
     one (B, S, 3H, D) projection, as DiT's fused qkv hands them to the kernel
-    (read in place): per element against the plain version (FLASH_SUM) with
-    the control (the last key tile left out) that must fail; times, bound and
-    SDPA's time on the same views."""
+    (read in place): `views_flash_case`."""
     b_, s_, h_, d_ = shape
     qkv = torch.randn((b_, s_, 3 * h_, d_), generator=gen, device=dev, dtype=torch.bfloat16)
-    q, k, v = qkv.split(h_, dim=2)
-    check(attn._kernel_operand(q) is q, f"{label}: a strided q would be copied")
-    out = attn.flash_attention(q, k, v)
-    torch.cuda.synchronize()
-    ref = attn.flash_attention_ref(q.float(), k.float(), v.float())
-    err = (out.float() - ref).abs().max().item()
-    excess, need = ulp_gate(out, ref, FLASH_SUM)
-    n = s_ - (s_ % 64 or 64)
-    control, _ = ulp_gate(attn.flash_attention_ref(q.float(), k[:, :n].float(), v[:, :n].float()),
-                          ref, FLASH_SUM)
-    print(f"[{label}] flash {shape} bf16, q / k / v strided views of a (B, S, {3 * h_}, {d_}) "
-          f"projection: max_abs_err {err:.3e}, excess {excess:.3e} (least c {need:.2e}); control "
-          f"without the last {s_ - n} keys: excess {control:.3e} (must be > 0)", flush=True)
-    check(bool(torch.isfinite(out).all()) and excess <= 0, f"{label} flash {shape}: {excess}")
-    check(control > 0, f"{label} flash {shape}: the control passes ({control})")
-    del ref
-    ms, plain_ms = timed_pair(torch, lambda: attn.flash_attention(q, k, v),
-                              lambda: attn.flash_attention_ref(q, k, v))
-    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-    lib_ms = library_ms(torch, lambda: F.scaled_dot_product_attention(qh, kh, vh))
-    ops = 4 * b_ * h_ * s_ * s_ * d_
-    record(label, "flash_attention", shape, err, ms, plain_ms, lib_ms,
-           bound(nbytes(q, k, v, out), ops, "bf16"), " strided q / k / v | library: SDPA",
-           flash=(d_, ops, False))
+    views_flash_case(torch, F, dev, gen, record, attn, *qkv.split(h_, dim=2), label,
+                     f"q / k / v strided views of a (B, S, {3 * h_}, {d_}) projection")
 
 
 def dit_kernels(torch, F, dev, gen, record, m, gn_case):
@@ -7124,6 +7190,413 @@ def cond_len(samples):
 def latent_side(samples):
     """The side of the training samples' square latents (128 at 1024 px)."""
     return samples[0]["latents"].shape[0]
+
+
+# ------------------------------------------- InternVL2-8B and Qwen-VL-Chat (46a-47d)
+def views_flash_case(torch, F, dev, gen, record, attn, q, k, v, label, layout):
+    """B1 at q (B, Sq, H, D) over k / v (B, Skv, H, D), views the caller
+    made (read in place where they are strided views of one projection):
+    per element against the plain version (FLASH_SUM) with the control (the
+    last key tile left out) that must fail; times, bound and SDPA's time on
+    the same views."""
+    b_, sq, h_, d_ = q.shape
+    skv = k.shape[1]
+    check(attn._kernel_operand(q) is q and attn._kernel_operand(k) is k,
+          f"{label}: a {layout} view would be copied")
+    out = attn.flash_attention(q, k, v, int8_qk=False)
+    torch.cuda.synchronize()
+    ref = attn.flash_attention_ref(q.float(), k.float(), v.float())
+    err = (out.float() - ref).abs().max().item()
+    excess, need = ulp_gate(out, ref, FLASH_SUM)
+    n = skv - (skv % 64 or 64)
+    control, _ = ulp_gate(attn.flash_attention_ref(q.float(), k[:, :n].float(), v[:, :n].float()),
+                          ref, FLASH_SUM)
+    shape = (b_, sq, skv, h_, d_) if sq != skv else (b_, sq, h_, d_)
+    print(f"[{label}] flash {shape} bf16, {layout} (strides q {tuple(q.stride())}): max_abs_err "
+          f"{err:.3e}, excess {excess:.3e} (least c {need:.2e}); control without the last "
+          f"{skv - n} keys: excess {control:.3e} (must be > 0)", flush=True)
+    check(bool(torch.isfinite(out).all()) and excess <= 0, f"{label} flash {shape}: {excess}")
+    check(control > 0, f"{label} flash {shape}: the control passes ({control})")
+    del ref
+    ms, plain_ms = timed_pair(torch, lambda: attn.flash_attention(q, k, v, int8_qk=False),
+                              lambda: attn.flash_attention_ref(q, k, v))
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    lib_ms = library_ms(torch, lambda: F.scaled_dot_product_attention(qh, kh, vh))
+    ops = 4 * b_ * h_ * sq * skv * d_
+    record(label, "flash_attention", shape, err, ms, plain_ms, lib_ms,
+           bound(nbytes(q, k, v, out), ops, "bf16"), f" {layout} | library: SDPA",
+           flash=(d_, ops, False))
+    del out
+
+
+def vlm_ln_plans(torch, norms, label, shapes):
+    """B10's forward plan at each (rows, width, 1) of `shapes`, the library's
+    against the wrapper's mirror."""
+    for rows, h, _ in shapes:
+        plan = norms.layer_norm_plan(rows, h, 2)
+        lib = norms.layer_norm_plan_library(rows, h, torch.bfloat16)
+        print(f"[{label}] layer_norm plan ({rows}, {h}) bf16: mirror {plan}, library {lib}",
+              flush=True)
+        check(plan == lib, f"layer_norm plan ({rows}, {h}): mirror {plan} != library {lib}")
+
+
+def internvl2_kernels(torch, F, dev, gen, record, m):
+    """Phase 46a (see the module docstring)."""
+    label = "internvl2 kernels"
+    for tiles in INTERNVL2_FLASH_TILES:
+        qkv = torch.randn((tiles, 1025, 3, 16, 64), generator=gen, device=dev,
+                          dtype=torch.bfloat16)
+        views_flash_case(torch, F, dev, gen, record, m.attn, *qkv.unbind(2), label,
+                         "q / k / v global thirds (T, N, 3, H, D) of one projection")
+        del qkv
+    vlm_ln_plans(torch, m.norms, label, INTERNVL2_LN_SHAPES)
+    clip_kernels(torch, F, dev, gen, record, m.norms, shapes=INTERNVL2_LN_SHAPES, backward=False,
+                 label=label)
+    decode_kernels(torch, F, dev, gen, record, m.da, cases=INTERNVL2_DECODE_CASES, label=label)
+    torch.cuda.empty_cache()
+
+
+def qwenvl_kernels(torch, F, dev, gen, record, m):
+    """Phase 47a (see the module docstring)."""
+    label = "qwenvl kernels"
+    bf16 = torch.bfloat16
+    for b_ in QWENVL_FLASH_IMAGES:
+        qkv = torch.randn((b_, 1024, 16, 312), generator=gen, device=dev, dtype=bf16)
+        views_flash_case(torch, F, dev, gen, record, m.attn, *qkv.chunk(3, dim=-1), label,
+                         "q / k / v per head (B, N, H, 3 hd) of one projection")
+        q = torch.randn((b_, 256, 32, 128), generator=gen, device=dev, dtype=bf16)
+        k, v = (torch.randn((b_, 1024, 32, 128), generator=gen, device=dev, dtype=bf16)
+                for _ in range(2))
+        views_flash_case(torch, F, dev, gen, record, m.attn, q, k, v, label,
+                         "the Resampler's 256 queries over the patch grid")
+        del qkv, q, k, v
+    vlm_ln_plans(torch, m.norms, label, QWENVL_LN_SHAPES)
+    clip_kernels(torch, F, dev, gen, record, m.norms, shapes=QWENVL_LN_SHAPES, backward=False,
+                 label=label)
+    decode_kernels(torch, F, dev, gen, record, m.da, cases=QWENVL_DECODE_CASES, label=label)
+    torch.cuda.empty_cache()
+
+
+def vlm_dir(torch, dev, model, label, card):
+    """One round trip of `model` through a directory in JAX's layout:
+    save_pretrained (flax keys), then AutoModel.from_pretrained in bf16; the
+    same config and 0 tensors differing. Returns (the model read back, its
+    numbers); the directory is removed."""
+    import shutil
+    import tempfile
+
+    from paddlemix_tpu_torch.auto import AutoModel
+
+    total = sum(t.numel() * t.element_size() for t in model.state_dict().values())
+    tmp = tempfile.mkdtemp(prefix=f"pmix_smoke_{label.split()[0]}_dir_")
+    try:
+        free = shutil.disk_usage(tmp).free
+        print(f"[{label}] {tmp}: {free / 1e9:.1f} GB free, this phase needs "
+              f"{(total + 2 ** 30) / 1e9:.1f} GB", flush=True)
+        check(free >= total + 2 ** 30, f"{label}: {free / 1e9:.1f} GB free under {tmp}")
+        t0 = time.perf_counter()
+        files = model.save_pretrained(tmp)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = AutoModel.from_pretrained(tmp, device=dev, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        t_read = time.perf_counter() - t0
+        mine = model.state_dict()
+        differ = [k for k, t in back.state_dict().items()
+                  if t.dtype != mine[k].dtype or not torch.equal(t, mine[k])]
+        same_cfg = back.config.to_dict() == model.config.to_dict()
+        print(f"[{label}] save_pretrained (flax keys, {len(files)} files) {t_write:.2f} s "
+              f"({total / 1e9 / t_write:.2f} GB/s of {total / 1e9:.3f} GB); AutoModel "
+              f"({type(back).__name__}) read back in bf16 {t_read:.2f} s "
+              f"({total / 1e9 / t_read:.2f} GB/s, warm page cache); the same config {same_cfg}; "
+              f"tensors differing {len(differ)} of {len(mine)} {differ[:3]} ({card})", flush=True)
+        check(same_cfg and not differ, f"{label}: {len(differ)} tensors differ: {differ[:3]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return back, dict(gb=total / 1e9, write_s=t_write, read_s=t_read, files=len(files))
+
+
+def vlm_agree(torch, dev, m, counters, model, kw, ids, walk, label):
+    """The prefill's logits (the images' arguments `kw`) and those of
+    VLM_AGREE_STEPS decode steps fed seeded ids, kernels (B1, B10, B11, B7)
+    against their plain versions swapped in, within a relative L2 of
+    AGREE_TOL; the kernels' launches as `walk(prompt_len, forwards)` says."""
+    from paddlemix_tpu_torch.models.llama import modeling as llama_mod
+
+    attn, norms, da = m.attn, m.norms, m.da
+    s_ = ids.shape[1]
+    toks = torch.randint(0, 90000, (VLM_AGREE_STEPS, 1, 1),
+                         generator=torch.Generator().manual_seed(0)).to(dev)
+
+    def steps(swaps=()):
+        with torch.inference_mode(), swapped(swaps):
+            cache = model.init_cache(1, s_ + VLM_AGREE_STEPS)
+            logits, cache = model(ids, cache=cache, **kw)
+            outs = [logits[0].float()]
+            for tok in toks:
+                step, cache = model(tok, None, cache.lengths[:, None], cache=cache)
+                outs.append(step[0].float())
+        return outs[0], torch.cat(outs[1:])
+
+    def flash_plain(q, k, v, *, causal=False, scale=None, segment_ids=None, int8_qk=None):
+        return attn.flash_attention_ref(q, k, v, scale=scale, causal=causal,
+                                        segment_ids=segment_ids)
+
+    swaps = [(attn, "flash_attention", flash_plain),
+             (llama_mod, "decode_attention", da.decode_attention_ref),
+             (llama_mod, "rms_norm", norms.rms_norm_ref),
+             (norms, "_ln_forward", norms.layer_norm_ref)]
+    for fn in counters.values():
+        fn.launches = 0
+    pre_k, dec_k = steps()
+    torch.cuda.synchronize()
+    got = {name: fn.launches for name, fn in counters.items()}
+    pre_p, dec_p = steps(swaps)
+    rel_pre, rel_dec = rel_l2(pre_k, pre_p), rel_l2(dec_k, dec_p)
+    want = walk(s_, 1 + VLM_AGREE_STEPS)
+    print(f"[{label}] full width, kernels (B1, B10, B11, B7) vs plain: relative L2 of the "
+          f"logits, prefill ({s_} tokens) {rel_pre:.3e}, {VLM_AGREE_STEPS} decode steps "
+          f"{rel_dec:.3e} (tol {AGREE_TOL}); |logits| max {pre_p.abs().max().item():.3f}; ids "
+          f"fed {toks.view(-1).tolist()}; launches {got} (walk {want})", flush=True)
+    check(bool(torch.isfinite(pre_k).all() and torch.isfinite(dec_k).all())
+          and rel_pre <= AGREE_TOL and rel_dec <= AGREE_TOL,
+          f"{label}: relative L2 {rel_pre} / {rel_dec}")
+    check(got == want, f"{label}: launches {got} != the walk {want}")
+    del pre_k, dec_k, pre_p, dec_p
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(prefill=rel_pre, decode=rel_dec)
+
+
+def vlm_serve(torch, counters, model, requests, walk, tower, label, card, before=None):
+    """Batch-1 requests of VLM_NEW_TOKENS tokens, eos off: each `requests`
+    entry (kind, make) with make(seed) -> (the images' arguments, prompt
+    ids, images or tiles), run twice (a 1-token generate for the TTFT, then
+    the full one), timed as processor (make), tower (`tower(kwargs)` alone,
+    again), prefill (TTFT less both) and decode; decode tokens/s = 127 /
+    (t128 - TTFT); each run's launches as `walk(prompt_len, new_tokens,
+    images)` says. `before(kind, ids)` runs ahead of each generate (Qwen-VL's
+    NTK alpha). Then one more request of the first kind under the profiler:
+    device ms by category and the busy share. Returns (launches, numbers)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    totals, rows = collections.Counter(), {}
+    torch.cuda.reset_peak_memory_stats()
+
+    def run(kind, make, seed, new_tokens):
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kw, ids, n_img = make(seed)
+        t_proc = time.perf_counter() - t0
+        if before is not None:
+            before(kind, ids)
+        out = model.generate(ids, max_new_tokens=new_tokens, eos_token_id=-1, **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = {name: fn.launches for name, fn in counters.items()}
+        want = walk(ids.shape[1], new_tokens, n_img)
+        check(got == want, f"{label} ({kind}): launches {got} != the walk {want}")
+        totals.update(got)
+        return seconds, t_proc, out, kw, ids, n_img
+
+    for kind, make in requests:
+        ttft, _, first, _, _, _ = run(kind, make, 0, 1)
+        seconds, t_proc, out, kw, ids, n_img = run(kind, make, 0, VLM_NEW_TOKENS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            tower(kw)
+        torch.cuda.synchronize()
+        t_tower = time.perf_counter() - t0
+        tps = (VLM_NEW_TOKENS - 1) / (seconds - ttft)
+        row = dict(seconds=seconds, processor=t_proc, tower=t_tower,
+                   prefill=ttft - t_proc - t_tower, decode=seconds - ttft, ttft=ttft,
+                   tokens_per_s=tps, prompt=ids.shape[1], images=n_img)
+        rows[kind] = row
+        print(f"[{label}] {kind} ({ids.shape[1]} prompt ids, {n_img} images or tiles): "
+              f"{seconds:.3f} s for {VLM_NEW_TOKENS} tokens = processor {1e3 * t_proc:.1f} + "
+              f"tower {1e3 * t_tower:.1f} + prefill {1e3 * row['prefill']:.1f} + decode "
+              f"{1e3 * row['decode']:.1f} ms | TTFT {1e3 * ttft:.1f} ms | decode {tps:.2f} "
+              f"tokens/s | tokens {out[0, :8].tolist()}... ({card})", flush=True)
+        check(out.shape == (1, VLM_NEW_TOKENS) and out.dtype == torch.int32,
+              f"{label}: tokens {tuple(out.shape)} {out.dtype}")
+        check(bool(((out >= 0) & (out < model.config.text.vocab_size)).all()),
+              f"{label}: a token outside the vocab")
+        check(int(first[0, 0]) == int(out[0, 0]),
+              f"{label} ({kind}): the first token differs between the TTFT run and the full run")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    kind, make = requests[0]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        seconds, _, _, _, ids, _ = run(kind, make, 1, VLM_NEW_TOKENS)
+    device_ms = kernel_breakdown(label, f"profiled {kind} request", prof, 10)
+    by_category = collections.Counter()
+    for e in prof.key_averages():
+        if e.self_device_time_total > 0:
+            by_category[kernel_category(e.key)] += e.self_device_time_total / 1e3
+    busy = device_ms / 1e3 / seconds
+    print(f"[{label}] profiled {kind} request: {seconds:.3f} s, {device_ms:.2f} ms of device "
+          f"time (busy {100 * busy:.1f}%), by category "
+          f"{ {k: round(v, 3) for k, v in by_category.most_common()} }; peak memory "
+          f"{peak:.2f} GiB; launches over the phase {dict(totals)} ({card})", flush=True)
+    return dict(totals), dict(requests=rows, profiled_seconds=seconds, device_ms=device_ms,
+                              busy=busy, by_category=dict(by_category), peak_gib=peak)
+
+
+def internvl2_slice(torch, np, dev, m, counters, card):
+    """Phases 46b-46d (see the module docstring): InternVL2-8B at full width
+    with seeded random bf16 weights, written and read back, then served
+    from the directory's read. `counters` are every kernel wrapper's, by
+    name. Returns the launches of the serve and its numbers."""
+    import io
+
+    from PIL import Image
+
+    from paddlemix_tpu_torch.models.internvl2 import (
+        expected_launches_internvl2,
+        prompt_ids,
+        random_internvl2,
+    )
+    from paddlemix_tpu_torch.processors import InternVLImageProcessor
+
+    t0 = time.perf_counter()
+    model = random_internvl2(device=dev, seed=0)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[internvl2 dir] InternVL2-8B built on the card in {t_build:.1f} s: {n_params} "
+          f"parameters (tower {sum(p.numel() for p in model.vision_model.parameters())}), "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated", flush=True)
+    check(8.0e9 < n_params < 8.15e9, f"internvl2: {n_params} parameters")
+    served, io_stats = vlm_dir(torch, dev, model, "internvl2 dir", card)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = served
+    cfg = model.config
+
+    def maker(hw, proc):
+        def make(seed):
+            """A seeded jpeg decoded and tiled: the padded stack and its mask
+            (the tower runs the real tiles alone), the prompt of its tiles."""
+            data = smooth_jpeg(np, Image, 500 + seed + hw[1], size=hw)
+            with Image.open(io.BytesIO(data)) as im:
+                enc = proc(im.convert("RGB"))
+            n = int(enc["num_tiles"][0])
+            kw = dict(pixel_values=enc["pixel_values"], tile_mask=enc["tile_mask"])
+            return kw, prompt_ids(cfg, [n], seed=seed), n
+        return make
+
+    requests = [("1 tile", maker(INTERNVL2_ONE_TILE, InternVLImageProcessor())),
+                ("12 tiles + thumbnail", maker(INTERNVL2_BIG, InternVLImageProcessor())),
+                ("minimonkey", maker(INTERNVL2_BIG, InternVLImageProcessor(
+                    multi_scale=True, max_num=INTERNVL2_MINIMONKEY_MAX)))]
+
+    def walk(prompt_len, new_tokens, tiles):
+        want = expected_launches_internvl2(model, prompt_len, new_tokens, tiles=tiles)
+        return {name: want.get(name, 0) for name in counters}
+
+    kw, ids, n = requests[1][1](0)
+    check(n == 13 and ids.shape[1] == 13 * cfg.tokens_per_tile + 2 + 32,
+          f"internvl2: the 12-tile request has {n} tiles, {ids.shape[1]} ids")
+    agree = vlm_agree(torch, dev, m, counters, model, kw, ids, lambda s_, t_: walk(s_, t_, n),
+                      "internvl2 agree")
+    launches, stats = vlm_serve(
+        torch, counters, model, requests, walk,
+        lambda kw_: model.extract_feature(kw_["pixel_values"], kw_["tile_mask"]),
+        "internvl2 serve", card)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, dict(build_s=t_build, io=io_stats, agree=agree, **stats)
+
+
+def qwenvl_slice(torch, np, dev, m, counters, card):
+    """Phases 47b-47d (see the module docstring): Qwen-VL-Chat at full width
+    with seeded random bf16 weights, written and read back, then served
+    from the directory's read. Returns the launches of the serve and its
+    numbers."""
+    import io
+
+    from PIL import Image
+
+    from paddlemix_tpu_torch.models.llama.modeling import logn_scale
+    from paddlemix_tpu_torch.models.qwen_vl import (
+        expected_launches_qwen_vl,
+        prompt_ids,
+        random_qwen_vl,
+        set_ntk_alpha,
+    )
+    from paddlemix_tpu_torch.processors import QwenVLProcessor
+
+    t0 = time.perf_counter()
+    model = random_qwen_vl(device=dev, seed=0)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[qwenvl dir] Qwen-VL-Chat built on the card in {t_build:.1f} s: {n_params} "
+          f"parameters (tower {sum(p.numel() for p in model.visual.parameters())}), "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated", flush=True)
+    check(9.6e9 < n_params < 9.7e9, f"qwenvl: {n_params} parameters")
+    served, io_stats = vlm_dir(torch, dev, model, "qwenvl dir", card)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = served
+    cfg = model.config
+    proc = QwenVLProcessor()
+
+    def maker(images, text_len):
+        def make(seed):
+            """Seeded jpegs decoded and processed (448 bicubic, CLIP's
+            normalization), the prompt in from_list_format's order ("Picture
+            i: " as 4 seeded ids, each image's placeholders), then text."""
+            pics = []
+            for i in range(images):
+                with Image.open(io.BytesIO(smooth_jpeg(np, Image, 700 + 10 * seed + i,
+                                                       size=QWENVL_IMAGE))) as im:
+                    pics.append(im.convert("RGB"))
+            kw = dict(pixel_values=proc.image_processor(pics))
+            return kw, prompt_ids(cfg, images, text_len=text_len, seed=seed, filler=4), images
+        return make
+
+    requests = [("image", maker(1, 32)), ("two images", maker(2, 32)),
+                ("past 2,048 positions", maker(1, QWENVL_LONG_TEXT))]
+    alphas = {}
+
+    def before(kind, ids):
+        """QWen's dynamic NTK: the alpha of the request's whole context."""
+        alphas[kind] = (set_ntk_alpha(model, ids.shape[1] + VLM_NEW_TOKENS),
+                        model.language_model.config.rope_base)
+
+    def walk(prompt_len, new_tokens, images):
+        want = expected_launches_qwen_vl(model, prompt_len, new_tokens, images=images)
+        return {name: want.get(name, 0) for name in counters}
+
+    kw, ids, n = requests[1][1](0)
+    set_ntk_alpha(model, ids.shape[1] + VLM_AGREE_STEPS)
+    agree = vlm_agree(torch, dev, m, counters, model, kw, ids, lambda s_, t_: walk(s_, t_, n),
+                      "qwenvl agree")
+    launches, stats = vlm_serve(torch, counters, model, requests, walk,
+                                lambda kw_: model.encode_images(kw_["pixel_values"]),
+                                "qwenvl serve", card, before=before)
+    long = stats["requests"]["past 2,048 positions"]
+    last = long["prompt"] + VLM_NEW_TOKENS - 1
+    scale = logn_scale(torch.tensor([[last - 1]]), cfg.text.logn_seq_length).item()
+    print(f"[qwenvl serve] the long request: positions 0-{last - 1} (logn_seq_length "
+          f"{cfg.text.logn_seq_length}), logn scale at the last {scale:.5f}; NTK alpha and "
+          f"rope base {alphas['past 2,048 positions']} (the image request's "
+          f"{alphas['image']})", flush=True)
+    check(last > cfg.text.logn_seq_length and scale > 1.0 and alphas["image"][0] == 1.0
+          and alphas["past 2,048 positions"][0] > 1.0,
+          f"qwenvl serve: the long request's logn scale {scale}, NTK {alphas}")
+    set_ntk_alpha(model, 0)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, dict(build_s=t_build, io=io_stats, agree=agree, ntk_alphas=alphas,
+                          logn_scale_last=scale, **stats)
 
 
 def main():
@@ -8395,6 +8868,15 @@ def main():
                                         card)
 
     lap("DiT and PixArt-alpha")
+    # --------------------------------------------- InternVL2-8B and Qwen-VL-Chat
+    gc.collect()
+    torch.cuda.empty_cache()
+    internvl2_kernels(torch, F, dev, gen, record, tmods)
+    launches_ivl, ivl_stats = internvl2_slice(torch, np, dev, tmods, every, card)
+    lap("InternVL2-8B")
+    qwenvl_kernels(torch, F, dev, gen, record, tmods)
+    launches_qvl, qvl_stats = qwenvl_slice(torch, np, dev, tmods, every, card)
+    lap("Qwen-VL-Chat")
     # --------------------------------------------------------------- summary
     def entry(name, route, source, replaces, by_phase):
         # ms / plain_ms / library_ms / bound at the first shape listed;
@@ -8443,7 +8925,9 @@ def main():
               "paddlemix_tpu/ops/attention.py:168",
               dict(sdxl("flash_attention"), sft_main=launches_sft["flash_attention"],
                    sft_eval=launches_sft_eval["flash_attention"],
-                   qwen2vl=launches_qwen2vl["flash_attention"])),
+                   qwen2vl=launches_qwen2vl["flash_attention"],
+                   internvl2=launches_ivl["flash_attention"],
+                   qwenvl=launches_qvl["flash_attention"])),
         entry("group_norm", "cuda", "paddlemix_tpu_torch/csrc/norms.cu",
               "paddlemix_tpu/ops/norms.py:462", sdxl("group_norm")),
         entry("group_norm_stats", "cuda", "paddlemix_tpu_torch/csrc/norms.cu",
@@ -8465,11 +8949,14 @@ def main():
               "paddlemix_tpu/ops/decode_attention.py:68",
               dict(llava("decode_attention"), **llama_phases("decode_attention"),
                    blip2=launches_blip2["decode_attention"],
-                   qwen2vl=launches_qwen2vl["decode_attention"])),
+                   qwen2vl=launches_qwen2vl["decode_attention"],
+                   internvl2=launches_ivl["decode_attention"],
+                   qwenvl=launches_qvl["decode_attention"])),
         entry("rms_norm", "cuda", "paddlemix_tpu_torch/csrc/norms.cu",
               "paddlemix_tpu/ops/norms.py:148",
               dict(llava("rms_norm"), **llama_phases("rms_norm"),
-                   qwen2vl=launches_qwen2vl["rms_norm"])),
+                   qwen2vl=launches_qwen2vl["rms_norm"], internvl2=launches_ivl["rms_norm"],
+                   qwenvl=launches_qvl["rms_norm"])),
         entry("adaptive_layer_norm", "cuda", "paddlemix_tpu_torch/csrc/norms.cu",
               "paddlemix_tpu/ops/norms.py:261",
               {"sd3": launches_sd3["adaptive_layer_norm"],
@@ -8505,6 +8992,7 @@ def main():
                **{phase: got["layer_norm"] for phase, got in launches_eva.items()},
                "blip2": launches_blip2["layer_norm"], "sdxl_dir": launches_sdxl_dir["layer_norm"],
                "qwen2vl": launches_qwen2vl["layer_norm"],
+               "internvl2": launches_ivl["layer_norm"], "qwenvl": launches_qvl["layer_norm"],
                **{phase: launches_dir[phase]["layer_norm"]
                   for phase in ("sd15_dir", "db_lora", "db_full")},
                **{phase: launches_sd3_dir[phase]["layer_norm"]
@@ -8551,7 +9039,16 @@ def main():
             ("qwen2vl_shapes", "rms_norm", QWEN2VL_RMS_SHAPES),
             ("qwen2vl_shapes", "layer_norm", [sh[:2] for sh in QWEN2VL_LN_SHAPES]),
             ("qwen2vl_shapes", "flash_attention", [(1, s_, 16, 80, tuple(lengths))
-                                                   for s_, lengths in QWEN2VL_FLASH_LAYOUTS])):
+                                                   for s_, lengths in QWEN2VL_FLASH_LAYOUTS]),
+            ("internvl2_shapes", "flash_attention", [(t, 1025, 16, 64)
+                                                     for t in INTERNVL2_FLASH_TILES]),
+            ("internvl2_shapes", "layer_norm", [sh[:2] for sh in INTERNVL2_LN_SHAPES]),
+            ("internvl2_shapes", "decode_attention", INTERNVL2_DECODE_CASES),
+            ("qwenvl_shapes", "flash_attention",
+             [sh for b_ in QWENVL_FLASH_IMAGES
+              for sh in ((b_, 1024, 16, 104), (b_, 256, 1024, 32, 128))]),
+            ("qwenvl_shapes", "layer_norm", [sh[:2] for sh in QWENVL_LN_SHAPES]),
+            ("qwenvl_shapes", "decode_attention", QWENVL_DECODE_CASES)):
         by_name[name][key] = [
             {"shape": list(r["shape"]), "ms": r["ms"], "plain_ms": r["plain_ms"],
              "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": r["library_ms"],
@@ -8695,7 +9192,9 @@ def main():
         [(name, "dit") for name in ("flash_attention", "adaptive_layer_norm", "group_norm")] + \
         [(name, "dit_train") for name in ("flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq",
                                           "adaptive_layer_norm")] + \
-        [(name, "pixart") for name in ("flash_attention", "rms_norm", "group_norm")]
+        [(name, "pixart") for name in ("flash_attention", "rms_norm", "group_norm")] + \
+        [(name, phase) for phase in ("internvl2", "qwenvl")
+         for name in ("flash_attention", "layer_norm", "rms_norm", "decode_attention")]
     idle = [(name, phase) for name, phase in must_run
             if by_name[name]["launches_by_phase"][phase] == 0]
     check(not idle, f"kernels never launched by the requests: {idle}")
@@ -8714,6 +9213,8 @@ def main():
     print(f"[summary] sd3 dir and train: {sd3_dir_stats} ({card})", flush=True)
     print(f"[summary] controlnet and t2i-adapter: {ctl_stats} ({card})", flush=True)
     print(f"[summary] dit and pixart: {dit_stats} ({card})", flush=True)
+    print(f"[summary] internvl2: {ivl_stats} ({card})", flush=True)
+    print(f"[summary] qwenvl: {qvl_stats} ({card})", flush=True)
     print(f"[summary] seconds by phase: {json.dumps(PHASE_SECONDS)}", flush=True)
     print(f"[summary] chip_smoke ran {time.perf_counter() - T_START:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

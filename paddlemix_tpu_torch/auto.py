@@ -1,6 +1,6 @@
 """Auto classes: a directory's config.json -> the port's config and model
-class (port of paddlemix_tpu/auto.py's `AutoConfig` / `AutoModel`, with a
-registry of the port's own classes).
+class (port of paddlemix_tpu/auto.py's `AutoConfig`, `AutoModel` and
+`AutoProcessor`, with registries of the port's own classes).
 
 `model_type` picks the family; a config without a known one is matched by
 its `architectures`, as in JAX, or by diffusers' `_class_name` (a `unet/`
@@ -31,10 +31,24 @@ _MODEL_REGISTRY = {
               "Blip2ForConditionalGeneration"),
     "qwen2_vl": ("paddlemix_tpu_torch.models.qwen2_vl", "Qwen2VLConfig",
                  "Qwen2VLForConditionalGeneration"),
+    "internvl_chat": ("paddlemix_tpu_torch.models.internvl2", "InternVLChatConfig",
+                      "InternVLChatModel"),
+    "qwen_vl": ("paddlemix_tpu_torch.models.qwen_vl", "QwenVLConfig",
+                "QwenVLForConditionalGeneration"),
     "unet_2d_condition": ("paddlemix_tpu_torch.diffusers.models", "UNet2DConditionConfig",
                           "UNet2DConditionModel"),
     "autoencoder_kl": ("paddlemix_tpu_torch.diffusers.models", "AutoencoderKLConfig",
                        "AutoencoderKL"),
+}
+# model_type -> (module, processor class): the JAX registry's entries of the
+# port's processors
+_PROCESSOR_REGISTRY = {
+    "clip": ("paddlemix_tpu_torch.processors.clip_processing", "CLIPProcessor"),
+    "qwen2_vl": ("paddlemix_tpu_torch.processors.qwen2_vl_processing", "Qwen2VLProcessor"),
+    "internvl_chat": ("paddlemix_tpu_torch.processors.internvl_processing",
+                      "InternVLImageProcessor"),
+    "blip-2": ("paddlemix_tpu_torch.processors.blip_processing", "Blip2Processor"),
+    "qwen_vl": ("paddlemix_tpu_torch.processors.qwen_vl_processing", "QwenVLProcessor"),
 }
 # diffusers' config.json names the model class, not a model_type
 _DIFFUSERS_CLASSES = {"UNet2DConditionModel": "unet_2d_condition",
@@ -72,9 +86,19 @@ class AutoModel:
     @classmethod
     def from_pretrained(cls, path: str, **kwargs):
         """`from_pretrained(path, **kwargs)` of the directory's model class
-        (device, dtype: see each class; the Llama, LLaVA, Qwen2-VL, UNet and VAE take
-        `dtype` as their parameters' dtype, the CLIP family and BLIP-2 as the
-        compute dtype over fp32 parameters; the UNet and the VAE also take
-        `subfolder`)."""
+        (device, dtype: see each class; the Llama, LLaVA, Qwen2-VL, InternVL2,
+        Qwen-VL, UNet and VAE take `dtype` as their parameters' dtype, the
+        CLIP family and BLIP-2 as the compute dtype over fp32 parameters; the
+        UNet and the VAE also take `subfolder`)."""
         mt = _read_model_type(path, kwargs.get("subfolder"))
         return _load(_MODEL_REGISTRY[mt], 2).from_pretrained(path, **kwargs)
+
+
+class AutoProcessor:
+    @classmethod
+    def from_pretrained(cls, path: str, **kwargs):
+        """The processor of the directory's model_type (CLIP's where the port
+        has none of its own, as in JAX)."""
+        mt = _read_model_type(path)
+        key = mt if mt in _PROCESSOR_REGISTRY else "clip"
+        return _load(_PROCESSOR_REGISTRY[key], 1).from_pretrained(path, **kwargs)

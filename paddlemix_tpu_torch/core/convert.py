@@ -310,6 +310,107 @@ QWEN2_VL_HF_SHARED: KeyMap = (
 )
 
 
+# paddlemix_tpu/models/internvl2/modeling.py: the port's InternVL2 names its
+# tower's modules as the JAX InternVisionModel does (layers a ModuleList),
+# the projector `mlp1_ln` / `mlp1_fc1` / `mlp1_fc2`, and holds its language
+# model as a LlamaForCausalLM (HF's Llama names)
+_INTERNVL_VISION_KEY_MAP: KeyMap = (
+    (r"\.layers\.(\d+)\.", r".layers_\1."),
+    (r"(norm1|norm2|q_norm|k_norm|mlp1_ln)\.weight$", r"\1.scale"),
+    (r"\.weight$", r".kernel"),
+)
+
+
+def internvl_key_to_flax(key: str) -> str:
+    """An `InternVLChatModel` key -> the JAX InternVLChatModule's flax key:
+    the tower and the projector by their own map, the language model
+    (`language_model.model.*`, `language_model.lm_head.*`) through
+    LLAMA_KEY_MAP under `language_model.`."""
+    if key.startswith("language_model."):
+        return "language_model." + torch_key_to_flax(key[len("language_model."):],
+                                                     LLAMA_KEY_MAP)
+    return torch_key_to_flax(key, _INTERNVL_VISION_KEY_MAP)
+
+
+INTERNVL_KEY_MAP: KeyMap = internvl_key_to_flax
+
+# paddlemix_tpu/models/internvl2/modeling.py _INTERNVL_KEY_MAP: the published
+# InternVL2 checkpoints' keys -> the JAX module's, after the grouped `wqkv`
+# split; the one change: InternLM2's `output` (the lm_head), which JAX maps
+# to a key no parameter has, is read as the lm_head (ROADMAP C.42)
+INTERNVL_HF_KEY_MAP: KeyMap = (
+    (r"^vision_model\.embeddings\.", r"vision_model."),
+    (r"^vision_model\.encoder\.layers\.(\d+)\.", r"vision_model.layers_\1."),
+    (r"\.mlp\.fc1\.", r".fc1."),
+    (r"\.mlp\.fc2\.", r".fc2."),
+    (r"(q_norm|k_norm|norm1|norm2)\.weight$", r"\1.scale"),
+    (r"^mlp1\.0\.weight$", r"mlp1_ln.scale"),
+    (r"^mlp1\.0\.bias$", r"mlp1_ln.bias"),
+    (r"^mlp1\.1\.", r"mlp1_fc1."),
+    (r"^mlp1\.3\.", r"mlp1_fc2."),
+    (r"^language_model\.model\.", r"language_model."),
+    (r"language_model\.embed_tokens\.weight$", r"language_model.embed_tokens.embedding"),
+    (r"language_model\.tok_embeddings\.weight$", r"language_model.embed_tokens.embedding"),
+    (r"\.layers\.(\d+)\.", r".layers_\1."),
+    (r"\.attention\.wo\.", r".self_attn.o_proj."),
+    (r"\.feed_forward\.w1\.", r".mlp.gate_proj."),
+    (r"\.feed_forward\.w3\.", r".mlp.up_proj."),
+    (r"\.feed_forward\.w2\.", r".mlp.down_proj."),
+    (r"\.attention_norm\.", r".input_layernorm."),
+    (r"\.ffn_norm\.", r".post_attention_layernorm."),
+    (r"^language_model\.output\.weight$", r"language_model.lm_head.weight"),
+    (r"(layernorm|norm)\.weight$", r"\1.scale"),
+    (r"\.weight$", r".kernel"),
+)
+
+# paddlemix_tpu/models/qwen_vl/modeling.py: the port's Qwen-VL names its
+# tower's modules as the JAX QwenVisionTransformer does (resblocks a
+# ModuleList) and holds its language model as a LlamaForCausalLM
+_QWEN_VL_VISION_KEY_MAP: KeyMap = (
+    (r"\.resblocks\.(\d+)\.", r".resblocks_\1."),
+    (r"(ln_q|ln_kv|ln_post|ln_pre|ln_1|ln_2)\.weight$", r"\1.scale"),
+    (r"\.weight$", r".kernel"),
+)
+
+
+def qwen_vl_key_to_flax(key: str) -> str:
+    """A `QwenVLForConditionalGeneration` key -> the JAX QwenVLModule's flax
+    key: the tower (`visual.*`) by its own map, the language model through
+    LLAMA_KEY_MAP under `language_model.`."""
+    if key.startswith("language_model."):
+        return "language_model." + torch_key_to_flax(key[len("language_model."):],
+                                                     LLAMA_KEY_MAP)
+    return torch_key_to_flax(key, _QWEN_VL_VISION_KEY_MAP)
+
+
+QWEN_VL_KEY_MAP: KeyMap = qwen_vl_key_to_flax
+
+# paddlemix_tpu/models/qwen_vl/modeling.py _QWEN_VL_KEY_MAP: the published
+# Qwen-VL checkpoint's keys (after the Resampler's and c_attn's q / k / v
+# splits) -> the JAX module's, with the language model's embedding, MLP
+# output projection and final norm read into the Llama's names, which JAX's
+# map misses (ROADMAP C.41); the 2-D weights' `.kernel` and transposes follow
+QWEN_VL_HF_RENAMES: KeyMap = (
+    (r"^transformer\.visual\.", r"visual."),
+    (r"^visual\.transformer\.resblocks\.(\d+)\.", r"visual.resblocks_\1."),
+    (r"^visual\.resblocks\.(\d+)\.", r"visual.resblocks_\1."),
+    (r"\.attn\.in_proj\.", r".in_proj."),
+    (r"\.attn\.out_proj\.", r".out_proj."),
+    (r"^(visual\.resblocks_\d+)\.mlp\.(c_fc|c_proj)\.", r"\1.\2."),
+    (r"^transformer\.wte\.weight$", r"language_model.embed_tokens.embedding"),
+    (r"^transformer\.h\.(\d+)\.", r"language_model.layers_\1."),
+    (r"^transformer\.ln_f\.weight$", r"language_model.norm.scale"),
+    (r"^lm_head\.", r"language_model.lm_head."),
+    (r"\.attn\.c_proj\.", r".self_attn.o_proj."),
+    (r"^(language_model\.layers_\d+)\.ln_1\.weight$", r"\1.input_layernorm.scale"),
+    (r"^(language_model\.layers_\d+)\.ln_2\.weight$", r"\1.post_attention_layernorm.scale"),
+    (r"\.mlp\.w1\.", r".mlp.up_proj."),
+    (r"\.mlp\.w2\.", r".mlp.gate_proj."),
+    (r"\.mlp\.c_proj\.", r".mlp.down_proj."),
+    (r"(ln_q|ln_kv|ln_post|ln_pre|ln_1|ln_2)\.weight$", r"\1.scale"),
+)
+
+
 def torch_key_to_flax(key: str, key_map: KeyMap) -> str:
     if callable(key_map):
         return key_map(key)

@@ -7,7 +7,10 @@ scale through many blocks, norms start at weight 1 / bias 0, biases at 0,
 embedding tables and embedding vectors (CLIP's class embedding, EVA's
 `cls_token` and `pos_embed`, BLIP-2's `query_tokens`) at std 1, EVA's layer-scale gammas at their
 config's `init_values`, PixArt's `scale_shift_table`s at std 0.02 (flax's
-init), and CLIP's logit scale at its config's initial value. A Linear or an
+init), and CLIP's logit scale at its config's initial value. A module with an
+`init_params_(generator)` method draws its own direct parameters by it (the
+JAX inits of InternViT's layer scales, Qwen-VL's Resampler and projection);
+its submodules still take the rules here. A Linear or an
 Embedding that carries an `init_std` is drawn at that std instead: T5's
 attention has no 1/sqrt(d) scale, so its q and its relative-position table
 carry transformers' T5 init, (d_model * d_kv) ** -0.5 and d_model ** -0.5
@@ -28,7 +31,10 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Initialise every parameter of `module` in place from `generator`, which
     must live on the parameters' device."""
     for m in module.modules():
-        if isinstance(m, (nn.Linear, nn.Conv2d)):
+        own = getattr(m, "init_params_", None)
+        if own is not None:
+            own(generator)
+        elif isinstance(m, (nn.Linear, nn.Conv2d)):
             m.weight.normal_(0.0, getattr(m, "init_std", m.weight[0].numel() ** -0.5),
                              generator=generator)
             if m.bias is not None:

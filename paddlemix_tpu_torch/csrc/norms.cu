@@ -413,10 +413,14 @@ constexpr int NR_ROW_BLOCKS = 8;              // rows an SM that take a block ea
 constexpr int NR_THREADS = 256;               // a row-form block's threads at most
 constexpr int NR_LANE_CPT[4] = {1, 2, 3, 4};  // chunks a lane, warp form
 constexpr int NR_WARP = 0, NR_ROW = 1;
-// LayerNorm's forward takes wider rows than its backward: OPT-2.7B's 2,560
-// (BLIP-2's language model, served, not trained), in the row form at two
-// 16-byte chunks a thread (bf16; fp32 four), 160 threads.
-constexpr int LN_FWD_MAX_WIDTH = 2560;
+// LayerNorm's forward takes wider rows than its backward, to 4,096 (served,
+// not trained): OPT-2.7B's 2,560 (BLIP-2's language model) in the row form at
+// two 16-byte chunks a thread (bf16; fp32 four), 160 threads; InternVL2's
+// projector and Qwen-VL's Resampler at 4,096, the same chunks at 256 threads
+// (one element a load: sixteen a thread). Widths and their chunk counts:
+// 2,049-4,096 wide take cpt 2 (bf16) / 4 (fp32) / 16 (one element), every one
+// of them compiled (`norm_dispatch`).
+constexpr int LN_FWD_MAX_WIDTH = 4096;
 // `aligned`: every row pointer and per-column vector 16-byte aligned, every
 // row stride (x's, the modulation rows') a multiple of 16 bytes.
 bool norm_plan(int op, int B, int S, int h, int es, bool aligned, AdalnPlan* p) {
@@ -1859,7 +1863,7 @@ int with_cpt(int cpt, F&& f) {
 
 // The kernel of a plan: LayerNorm's warp form's chunk counts, the row form's powers
 // of two up to its widest row's (16-byte chunks: B13 1 (2,048 bf16), LayerNorm
-// bf16 2 and fp32 4 (2,560); single elements: B13 8, LayerNorm 16).
+// bf16 2 and fp32 4 (4,096); single elements: B13 8, LayerNorm 16).
 template <int OP, typename T>
 int norm_dispatch(const AdalnPlan& p, const NormArgs& a, int B, cudaStream_t st) {
   constexpr int VEC = 16 / sizeof(T);

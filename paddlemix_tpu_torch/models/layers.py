@@ -16,6 +16,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -36,6 +37,13 @@ class FusedLayerNorm(nn.Module):
 
     def forward(self, x):
         return layer_norm(x, self.weight, self.bias, self.eps)
+
+
+def device_tensor(x, device, dtype=None) -> torch.Tensor:
+    """x (a tensor, or a numpy array or list such as a processor returns) as
+    a tensor on `device`, in `dtype` where given."""
+    return torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor) else x,
+                           device=device, dtype=dtype)
 
 
 def n_layer_norms(module: nn.Module) -> int:

@@ -31,12 +31,18 @@ position, as the JAX package does: over the int8 cache dequantized to the
 model's dtype (so the fresh keys too carry their int8 rounding), over the
 paged pool's dense gather.
 
+QWen's long-context options (Qwen-VL's language model): NTK-aware rope
+(`config.rope_ntk_alpha`: the rope base `config.rope_base`) and logn
+attention (`config.use_logn_attn`: q scaled after rope by max(log(i) /
+log(logn_seq_length), 1) at 1-based position i, in the prefill and in every
+decode step, before B1, B7, B8 or B9, whose kernels are unchanged).
+
 The caches are updated in place (JAX returns new ones). Parameter names
 follow HF transformers (model.layers.N.self_attn.q_proj, ...), which the JAX
 key map renames (core.convert.LLAMA_KEY_MAP). Not ported yet: fused qkv,
-scanned layers, beam search, NTK / logn rope, sequence parallelism (ring
-attention), and the int8 and paged caches under LLaVA (whose JAX model always
-builds the dense cache).
+scanned layers, beam search, sequence parallelism (ring attention), and the
+int8 and paged caches under LLaVA (whose JAX model always builds the dense
+cache).
 """
 
 from __future__ import annotations
@@ -245,6 +251,15 @@ def dense_cache_attention(q, k, v, ck, cv, write_idx, lengths, bias):
     return attention_math(q, ck[:, :n], cv[:, :n], bias=bias)
 
 
+def logn_scale(positions, logn_seq_length: int):
+    """(B, S, 1, 1) fp32 logn attention scale of the (B, S) positions (-1 =
+    padding, scale 1): max(log(p + 1) / log(logn_seq_length), 1), in fp32
+    as the JAX package takes it."""
+    pos1 = positions.clamp(min=0).float() + 1.0
+    n0 = torch.log(torch.tensor(float(logn_seq_length), device=positions.device))
+    return (torch.log(pos1) / n0).clamp(min=1.0)[:, :, None, None]
+
+
 class _Step(NamedTuple):
     """What every layer of one forward shares: rope, where to write (the
     slots of the dense and int8 caches, the positions the paged cache maps),
@@ -258,6 +273,7 @@ class _Step(NamedTuple):
     lengths: Optional[torch.Tensor] = None      # (B,) int32, single-token steps
     bias: Optional[torch.Tensor] = None         # (B, 1, S, keys) fp32, prefill
     segment_ids: Optional[SegmentIds] = None    # cache-free forward
+    logn: Optional[torch.Tensor] = None         # (B, S, 1, 1) fp32 q scale (use_logn_attn)
 
 
 class LlamaAttention(nn.Module):
@@ -277,6 +293,8 @@ class LlamaAttention(nn.Module):
         k = self.k_proj(x).view(b, s, self.kv_heads, self.head_dim)
         v = self.v_proj(x).view(b, s, self.kv_heads, self.head_dim)
         q, k = apply_rope(q, k, step.cos, step.sin)
+        if step.logn is not None:
+            q = (q.float() * step.logn).to(q.dtype)
         bidx = torch.arange(b, device=x.device)[:, None]
         if cache is None:  # training: causal over the row, samples kept apart by segment
             out = scaled_dot_product_attention(q, k, v, causal=True, segment_ids=step.segment_ids)
@@ -371,10 +389,11 @@ class LlamaModule(nn.Module):
         b, s = x.shape[:2]
         if positions is None:
             positions = torch.arange(s, device=x.device).expand(b, s)
-        cos, sin = rope_cos_sin(positions, cfg.head_dim_, cfg.rope_theta) if rope is None \
+        cos, sin = rope_cos_sin(positions, cfg.head_dim_, cfg.rope_base) if rope is None \
             else rope
+        logn = logn_scale(positions, cfg.logn_seq_length) if cfg.use_logn_attn else None
         if cache is None:
-            step = _Step(cos, sin, positions, segment_ids=segment_ids)
+            step = _Step(cos, sin, positions, segment_ids=segment_ids, logn=logn)
             remat = cfg.gradient_checkpointing and torch.is_grad_enabled()
             for i, layer in enumerate(self.layers):
                 if remat:
@@ -388,7 +407,7 @@ class LlamaModule(nn.Module):
             keys, write_idx = cache.max_len, None
         else:
             keys, write_idx = cache.k.shape[2] - 1, parking_write_idx(positions, cache.k.shape[2])
-        step = _Step(cos, sin, positions, write_idx, *cache_masks(positions, keys))
+        step = _Step(cos, sin, positions, write_idx, *cache_masks(positions, keys), logn=logn)
         for i, layer in enumerate(self.layers):
             x = layer(x, step, cache, i)
         cache.lengths += (positions >= 0).sum(dim=-1).int()
@@ -539,7 +558,7 @@ def greedy_generate(model: LlamaForCausalLM, input_ids, attention_mask=None,
         pos, kw = cache.lengths[:, None], {}
         if rope_delta is not None:
             cfg = model.config
-            kw = dict(rope=rope_cos_sin(pos + rope_delta[:, None], cfg.head_dim_, cfg.rope_theta))
+            kw = dict(rope=rope_cos_sin(pos + rope_delta[:, None], cfg.head_dim_, cfg.rope_base))
         logits, cache = model(tokens[:, step:step + 1], pos, cache=cache, **kw)
         nxt = sample_token(logits[:, -1].float(), sampling, generator).int()
         tokens[:, step + 1] = torch.where(done, eos, nxt)

@@ -48,7 +48,7 @@ from ...core.convert import (
 )
 from ...ops.attention import SegmentIds, scaled_dot_product_attention
 from ...ops.rope import apply_rope, mrope_cos_sin, rope_cos_sin_hw
-from ..layers import FusedLayerNorm
+from ..layers import FusedLayerNorm, device_tensor
 from ..llama.modeling import KVCache, LlamaForCausalLM, RMSNorm, SamplingConfig, greedy_generate
 from .configuration import Qwen2VLConfig, Qwen2VLVisionConfig
 
@@ -151,11 +151,6 @@ def get_rope_index(input_ids: np.ndarray, grid_thw: Optional[np.ndarray], image_
     return out
 
 
-def _device_tensor(x, device, dtype=None):
-    return torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor) else x,
-                           device=device, dtype=dtype)
-
-
 class Qwen2VLForConditionalGeneration(nn.Module):
     """Qwen2-VL with generation (port of the JAX Qwen2VLModule and
     Qwen2VLForConditionalGeneration). Inputs may be tensors or the
@@ -198,9 +193,9 @@ class Qwen2VLForConditionalGeneration(nn.Module):
     def encode_images(self, pixel_patches, patch_pos_hw, patch_segments):
         """The tower over the packed patches: (1, P / 4, text hidden)."""
         dev = self.device
-        return self.visual(_device_tensor(pixel_patches, dev),
-                           _device_tensor(patch_pos_hw, dev, torch.int32),
-                           _device_tensor(patch_segments, dev, torch.int32))
+        return self.visual(device_tensor(pixel_patches, dev),
+                           device_tensor(patch_pos_hw, dev, torch.int32),
+                           device_tensor(patch_segments, dev, torch.int32))
 
     def splice(self, input_ids, image_features):
         """Token embeddings with the j-th image or video placeholder of each
@@ -217,7 +212,7 @@ class Qwen2VLForConditionalGeneration(nn.Module):
     def mrope(self, position_ids):
         """(cos, sin) (B, S, head_dim) of the (3, B, S) M-RoPE streams."""
         text = self.config.text
-        return mrope_cos_sin(_device_tensor(position_ids, self.device), text.head_dim_,
+        return mrope_cos_sin(device_tensor(position_ids, self.device), text.head_dim_,
                              self.config.mrope_section, self.config.rope_theta)
 
     def forward(self, input_ids, position_ids=None, pixel_patches=None, patch_pos_hw=None,
@@ -226,7 +221,7 @@ class Qwen2VLForConditionalGeneration(nn.Module):
         """-> (logits (B, S, vocab), cache). With patches, the tower's merged
         features are spliced in; with position_ids (3, B, S), M-RoPE replaces
         the rope of `positions` (which still place the cache's writes)."""
-        input_ids = _device_tensor(input_ids, self.device, torch.long)
+        input_ids = device_tensor(input_ids, self.device, torch.long)
         inputs_embeds = None
         if pixel_patches is not None:
             inputs_embeds = self.splice(input_ids, self.encode_images(
@@ -254,12 +249,12 @@ class Qwen2VLForConditionalGeneration(nn.Module):
         (ROADMAP C.17). Sampling draws from `generator`. -> (B,
         max_new_tokens) int32."""
         dev = self.device
-        input_ids = _device_tensor(input_ids, dev, torch.long)
+        input_ids = device_tensor(input_ids, dev, torch.long)
         b, s = input_ids.shape
         mask = torch.ones((b, s), dtype=torch.int32, device=dev) if attention_mask is None \
-            else _device_tensor(attention_mask, dev, torch.int32)
+            else device_tensor(attention_mask, dev, torch.int32)
         position_ids = torch.arange(s, device=dev).expand(3, b, s) if position_ids is None \
-            else _device_tensor(position_ids, dev, torch.long)
+            else device_tensor(position_ids, dev, torch.long)
         inputs_embeds = None
         if pixel_patches is not None:
             inputs_embeds = self.splice(input_ids, self.encode_images(

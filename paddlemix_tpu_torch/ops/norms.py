@@ -1081,15 +1081,17 @@ fused_adaln_scale_residual.launches = 0  # kernel launches (CUDA tensors only)
 # wide are held in registers; wider ones (EVA's 2,048-wide `ffn_ln`) take the
 # wide form: dw and db in registers, w in shared memory, the row read from its
 # ring slot once a pass, one block an SM. `layer_norm_bwd_plan` mirrors its
-# plan. The forward takes rows to 2,560 wide (OPT-2.7B's, BLIP-2's language
-# model: the row form at two 16-byte chunks a thread, 160 threads); the
-# backward stops at 2,048, the widest row a training path gives it, and
-# refuses wider rows with a message (training OPT is not ported). The JAX
+# plan. The forward takes rows to 4,096 wide (OPT-2.7B's 2,560, BLIP-2's
+# language model: the row form at two 16-byte chunks a thread, 160 threads;
+# InternVL2's projector and Qwen-VL's Resampler at 4,096: the same two chunks
+# at 256 threads, fp32 four, one element a load sixteen); the backward stops
+# at 2,048, the widest row a training path gives it, and refuses wider rows
+# with a message (training OPT, InternVL2 or Qwen-VL is not ported). The JAX
 # package sends widths not a multiple of 128, fewer than 64 rows or a missing
 # w or b to XLA; those are v5e tiling choices, and eager PyTorch has no fusion
 # to keep, so on the card every call launches.
 _LN_MAX_WIDTH = 2048  # the backward's widest row (EVA's sub-LN `ffn_ln`)
-_LN_FWD_MAX_WIDTH = 2560  # the forward's (OPT-2.7B's rows)
+_LN_FWD_MAX_WIDTH = 4096  # the forward's (InternVL2's projector, Qwen-VL's Resampler)
 
 
 def layer_norm_ref(x, weight=None, bias=None, eps: float = 1e-5):
@@ -1138,7 +1140,7 @@ def _ln_check(name, x, params, max_width):
         raise ValueError(f"{name} kernel takes bf16/fp32 rows at most {max_width} wide, "
                          f"got {x.dtype} {tuple(x.shape)}"
                          + ("" if max_width == _LN_FWD_MAX_WIDTH else
-                            f" (the forward takes rows to {_LN_FWD_MAX_WIDTH}, OPT-2.7B's; "
+                            f" (the forward takes rows to {_LN_FWD_MAX_WIDTH}; "
                             f"training at that width is not ported)"))
     for p in params:
         if p.device != x.device or p.shape != (h,) or not p.is_contiguous():

@@ -1,6 +1,7 @@
 """Rotary position embeddings (port of paddlemix_tpu/ops/rope.py: the plain
-rope and Qwen2-VL's M-RoPE, `mrope_cos_sin`; NTK scaling is not ported
-yet), Qwen2-VL's (h, w) vision rope (port of the tables of
+rope and Qwen2-VL's M-RoPE, `mrope_cos_sin`; QWen's NTK scaling is the
+Llama config's rope base, `LlamaConfig.rope_base`), Qwen2-VL's (h, w) vision
+rope (port of the tables of
 paddlemix_tpu/models/qwen2_vl/modeling.py `Qwen2VisionTransformer`), and
 EVA's 2-D vision rope (port of paddlemix_tpu/models/clip/eva.py
 `vision_rope_2d`, `_rotate_interleaved`, `apply_vision_rope`).

@@ -128,7 +128,8 @@ def test_layer_norm_ref_at_the_blip2_widths_matches_jax_layer_norm_xla(jx, rows,
 
 def test_layer_norm_forward_plans_at_2560_and_the_backward_refusal():
     """2,560 bf16: the row form, two 16-byte chunks a thread, 160 threads;
-    fp32 four; the one-element form 16 a thread. The backward takes no plan
+    fp32 four; the one-element form 16 a thread; 2,561 too takes the row form
+    (the forward's limit is 4,096), 4,097 no plan. The backward takes no plan
     above 2,048 and its wrapper refuses such rows with a message."""
     for rows in (1, 33, 1300):
         assert tnorms.layer_norm_plan(rows, 2560, 2).ints() == (tnorms.NORM_ROW, 8, 2, 160, 1,
@@ -137,7 +138,8 @@ def test_layer_norm_forward_plans_at_2560_and_the_backward_refusal():
                                                                 rows)
         assert tnorms.layer_norm_plan(rows, 2560, 2, aligned=False).ints() == \
             (tnorms.NORM_ROW, 1, 16, 160, 1, rows)
-        assert tnorms.layer_norm_plan(rows, 2561, 2) is None
+        assert tnorms.layer_norm_plan(rows, 2561, 2).ints()[:2] == (tnorms.NORM_ROW, 1)
+        assert tnorms.layer_norm_plan(rows, 4097, 2) is None
         assert tnorms.layer_norm_bwd_plan(rows, 2560, 2) is None
     x, w = torch.zeros(33, 2560, dtype=torch.bfloat16), torch.ones(2560)
     with pytest.raises(ValueError, match="at most 2048 wide.*training at that width is not"):

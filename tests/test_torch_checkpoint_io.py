@@ -260,6 +260,6 @@ def test_auto_registry_maps_the_ported_families(model_type, cls):
 
 
 def test_auto_model_refuses_an_unported_model_type(tmp_path):
-    (tmp_path / "config.json").write_text(json.dumps({"model_type": "qwen_vl"}))
-    with pytest.raises(NotImplementedError, match="qwen_vl"):
+    (tmp_path / "config.json").write_text(json.dumps({"model_type": "minigpt4"}))
+    with pytest.raises(NotImplementedError, match="minigpt4"):
         AutoModel.from_pretrained(str(tmp_path), device="cpu")

@@ -202,15 +202,17 @@ def test_layer_norm_refuses_what_is_not_ported():
         tnorms.layer_norm_backward(x.to("meta"), torch.ones(8, device="meta"),
                                    x.to("meta"))
     # the kernels' own check: the dtypes and widths a path gives them (the
-    # forward to OPT-2.7B's 2,560, the backward to EVA's 2,048)
+    # forward to InternVL2's and Qwen-VL's 4,096, the backward to EVA's 2,048)
     fwd, bwd = tnorms._LN_FWD_MAX_WIDTH, tnorms._LN_MAX_WIDTH
-    assert (fwd, bwd) == (2560, 2048)
+    assert (fwd, bwd) == (4096, 2048)
     tnorms._ln_check("layer_norm", x.to(torch.bfloat16), (torch.ones(8), torch.zeros(8)), fwd)
     tnorms._ln_check("layer_norm", torch.randn(4, 2560), (torch.ones(2560), torch.zeros(2560)),
                      fwd)
     tnorms._ln_check("layer_norm backward", torch.randn(4, 2048), (torch.ones(2048),), bwd)
-    for bad in (x.half(), torch.randn(4, 2561)):
-        with pytest.raises(ValueError, match="bf16/fp32 rows at most 2560 wide"):
+    tnorms._ln_check("layer_norm", torch.randn(4, 4096), (torch.ones(4096), torch.zeros(4096)),
+                     fwd)
+    for bad in (x.half(), torch.randn(4, 4097)):
+        with pytest.raises(ValueError, match="bf16/fp32 rows at most 4096 wide"):
             tnorms._ln_check("layer_norm", bad, (), fwd)
     for bad in (x.half(), torch.randn(4, 2049)):
         with pytest.raises(ValueError, match="bf16/fp32 rows at most 2048 wide"):

@@ -273,15 +273,15 @@ def test_new_wrappers_take_what_the_triton_kernels_took_and_refuse_the_rest():
     with pytest.raises(ValueError):
         tn.fused_adaln_scale_residual(*(t.to("meta") for t in (x, x, m[:, :64], m[:, 64:128],
                                                                 m[:, 128:192])))
-    # LayerNorm: bf16 or fp32 rows up to 2,560 wide (the backward 2,048) at any
+    # LayerNorm: bf16 or fp32 rows up to 4,096 wide (the backward 2,048) at any
     # row stride; w and b of any float dtype (read as fp32)
     fwd, bwd = tn._LN_FWD_MAX_WIDTH, tn._LN_MAX_WIDTH
-    for xx in (torch.zeros(4, 2560, dtype=bf), torch.zeros(4, 3, 8)[:, 0]):
+    for xx in (torch.zeros(4, 4096, dtype=bf), torch.zeros(4, 3, 8)[:, 0]):
         tn._ln_check("layer_norm", xx, (torch.ones(xx.shape[-1]), torch.zeros(xx.shape[-1])),
                      fwd)
     w, b = tn._adaln_mods(torch.ones(8, dtype=torch.float64), torch.zeros(8, dtype=bf))
     assert w.dtype == b.dtype == torch.float32
-    for bad, width in ((torch.zeros(4, 8).half(), fwd), (torch.zeros(4, 2561), fwd),
+    for bad, width in ((torch.zeros(4, 8).half(), fwd), (torch.zeros(4, 4097), fwd),
                        (torch.zeros(4, 2049), bwd)):
         with pytest.raises(ValueError):
             tn._ln_check("layer_norm", bad, (), width)
